@@ -1,0 +1,627 @@
+"""Assembled gather-form JᵀJ operator for grid (centered) domains.
+
+PyTorch counterpart of the centred half of ``opt_tpu/assembly.py`` — the
+equivalent of the reference's symbolic ``createjtjcentered``: instead of
+composing Jᵀ(J·p) from the residual linearization in every CG iteration,
+the solver assembles, once per nonlinear iteration, coefficient fields
+
+    W[(u_out, u_in, Δ, i, j)][q]
+      = Σ_{t, s_out, s_in : s_in - s_out = Δ}
+        Σ_rch ∂r_t[q-s_out, rch]/∂u_out[q, i] · ∂r_t[q-s_out, rch]/∂u_in[q+Δ, j]
+
+applied in the CG loop as weighted shifts
+(JᵀJ p)[u_out][q, i] = Σ W[...][q] · p[u_in][q+Δ, j].
+
+The per-slot Jacobian fields D[t, s] = ∂r_t/∂slot_s come from one-hot jvp
+probes (``torch.func``) of the pointwise slot-form residual function, and
+the channel-pair sparsity is detected once per plan by probing randomized
+inputs on a small grid, exactly as the reference package does. Graph
+couplings are slice 3 of the port (ROADMAP.md queue 1 item 10).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as TF
+from torch.fx.experimental.proxy_tensor import make_fx
+
+from .compile import graph_outputs, node_inputs, op_name
+from .ops.fused_cg import plan_fused_grid_cg
+from .ops.shift import shift
+from .spec import GRAPHS_TODO
+
+# centered: (u_out, u_in, delta, i, j) -> [(term_idx, sid_out, sid_in), ...]
+WKey = Tuple[str, str, Tuple[int, ...], int, int]
+
+# the reference package's probe seed (opt_tpu/assembly.py:497): identical
+# draws make identical structure decisions
+PROBE_SEED = 20260816
+
+
+@dataclasses.dataclass
+class AssemblyPlan:
+    """Static description of the nonzero JᵀJ coefficient fields."""
+
+    w_spec: Dict[WKey, List[Tuple[int, int, int]]]
+    needed_slots: List[int]  # unknown slot ids probed at assembly time
+    # (u_out, u_in, delta) groups whose diagonal pair fields are
+    # channel-independent: one [*dom] field stands for C identical copies
+    scalar_groups: frozenset = frozenset()
+    # (term_idx, slot_id) Jacobian fields independent of the unknowns:
+    # probed once per solve (assemble_const), not once per step
+    const_tsids: frozenset = frozenset()
+
+    def centered_memory_bytes(self, compiled) -> int:
+        itemsize = torch.empty((), dtype=compiled.dtype).element_size()
+        total = 0
+        for (u_out, *_rest) in self.w_spec:
+            total += int(np.prod(compiled.unknown_shape(u_out)[:-1])) * itemsize
+        return total
+
+
+# comparison-like primitives whose scalar operand is a gate threshold
+_CMP_OPS = frozenset({
+    "gt", "lt", "ge", "le", "eq", "ne", "greater", "less", "greater_equal",
+    "less_equal", "not_equal", "maximum", "minimum", "clamp", "clamp_min",
+    "clamp_max",
+})
+# piecewise-constant primitives: locally constant in their input
+_PW_OPS = frozenset({"sign", "floor", "ceil", "round", "trunc"})
+
+
+def _literals(node):
+    """Python-number operands of a node (the FX analogue of jaxpr Literals)."""
+    out = []
+    for a in list(node.args) + list(node.kwargs.values()):
+        if isinstance(a, bool):
+            continue
+        if isinstance(a, (int, float)):
+            out.append(float(a))
+    return out
+
+
+def _residual_graph(compiled, X, consts, graphs, params):
+    sv = compiled.gather_slot_values(X, consts, graphs, params)
+    return make_fx(
+        lambda *s: tuple(compiled.local_residual_terms(list(s), params, consts))
+    )(*sv)
+
+
+def _comparison_constants(compiled, X, consts, graphs, params) -> List[float]:
+    """Scalar constants appearing as comparison operands in the residual
+    graph: data-dependent gates like ``greater(D, 2.0)`` flip under the
+    probe distribution only if probe values straddle the threshold, so the
+    probe value set covers every traced threshold (±0.5 around each)."""
+    gm = _residual_graph(compiled, X, consts, graphs, params)
+    out = set()
+    for node in gm.graph.nodes:
+        if node.op == "call_function" and op_name(node) in _CMP_OPS:
+            for t in _literals(node):
+                if np.isfinite(t):
+                    out.add(t)
+    vals = set()
+    for t in sorted(out):
+        vals.update((t, t - 0.5, t + 0.5))
+    return sorted(vals)
+
+
+def _is_gate(node) -> bool:
+    name = op_name(node)
+    if name in _CMP_OPS or name in _PW_OPS:
+        return not _literals(node)
+    if name in ("_to_copy", "to", "_convert_element_type"):
+        dt = node.kwargs.get("dtype")
+        return dt is not None and not dt.is_floating_point and dt != torch.bool
+    return False
+
+
+def _terms_with_traced_gates(compiled, X, consts, graphs, params):
+    """Residual-term indices whose computation contains a comparison with
+    NO literal operand (array-vs-array gates): the probes have no threshold
+    to straddle there, so the planner refuses structural pruning, constant
+    hoisting and scalar-group collapsing for those terms. Taint propagates
+    forward through the graph."""
+    gm = _residual_graph(compiled, X, consts, graphs, params)
+    taint = set()
+    for node in gm.graph.nodes:
+        if node.op != "call_function":
+            continue
+        if _is_gate(node) or any(a in taint for a in node_inputs(node)):
+            taint.add(node)
+    return frozenset(
+        t for t, o in enumerate(graph_outputs(gm.graph)) if o in taint
+    )
+
+
+def _probe_inputs(compiled, rng, extra_vals=()):
+    """Randomized inputs exercising both branches of mask-style selects:
+    constants mix exact {0, 1, -1} and every traced threshold (±0.5) with
+    uniform values; unknowns mix a uniform base with the same threshold
+    values. Same draws, in the same order, as the reference package."""
+    base_vals = [0.0, 1.0, -1.0] + [
+        v for v in extra_vals if v not in (0.0, 1.0, -1.0)
+    ]
+    unknowns, consts = {}, {}
+    for name, decl in compiled.registry.images.items():
+        if decl.alias is not None:
+            continue
+        shape = decl.ispace.shape(compiled.dim_sizes) + (decl.channels,)
+        if decl.kind == "unknown":
+            vals = rng.uniform(0.5, 1.5, shape)
+            if extra_vals:
+                pick = np.asarray(extra_vals)[rng.randint(0, len(extra_vals), shape)]
+                vals = np.where(rng.rand(*shape) < 0.25, pick, vals)
+            unknowns[name] = torch.as_tensor(vals).to(compiled.dtype)
+        else:
+            cat = rng.randint(0, len(base_vals) + 1, shape)
+            vals = rng.uniform(0.3, 1.7, shape)
+            for k, bv in enumerate(base_vals):
+                vals = np.where(cat == k, bv, vals)
+            consts[name] = torch.as_tensor(vals).to(compiled.dtype)
+    if compiled.registry.graphs:
+        raise NotImplementedError(GRAPHS_TODO)
+    params = {
+        p: torch.tensor(rng.uniform(0.5, 1.5), dtype=compiled.dtype)
+        for p in compiled.registry.params
+    }
+    return unknowns, consts, {}, params
+
+
+def _slot_jacobians(compiled, X, consts, graphs, params, slot_ids):
+    """D[(term_idx, sid)] = ∂r_t/∂slot_sid as [*dom, r_ch, C_s] via one-hot
+    jvp probes of the slot-form residual function, all probes as one
+    ``vmap`` over ``jvp``. Also returns the probe tensors per term
+    ([*dom, r_ch, n_probes]), each slot's first probe column, and the
+    residual terms at X."""
+    sv = compiled.gather_slot_values(X, consts, graphs, params)
+
+    def f(s):
+        return compiled.local_residual_terms(s, params, consts)
+
+    probe_of = [
+        (sid, ch)
+        for sid in slot_ids
+        for ch in range(compiled.registry.slots[sid].channels)
+    ]
+    n_probes = len(probe_of)
+    # one-hot tangents as broadcast selector constants [n_probes, 1.., C_k]
+    batched = []
+    for k, v in enumerate(sv):
+        sel = torch.zeros((n_probes, v.shape[-1]), dtype=v.dtype, device=v.device)
+        for pi, (sid, ch) in enumerate(probe_of):
+            if sid == k:
+                sel[pi, ch] = 1.0
+        sel = sel.reshape((n_probes,) + (1,) * (v.dim() - 1) + (v.shape[-1],))
+        batched.append(sel.expand((n_probes,) + tuple(v.shape)))
+
+    def probe(*tangents):
+        return torch.func.jvp(f, (sv,), (list(tangents),))[1]
+
+    d_all = torch.func.vmap(probe)(*batched)  # per term [n_probes, *dom, r_ch]
+    moved = [torch.movedim(d, 0, -1) for d in d_all]  # [*dom, r_ch, n_probes]
+    base_of = {}
+    for pi, (sid, _ch) in enumerate(probe_of):
+        base_of.setdefault(sid, pi)
+    D = {}
+    for t_idx, term in enumerate(compiled.terms):
+        for sid in slot_ids:
+            if sid in term.slot_ids:
+                base = base_of[sid]
+                s = compiled.registry.slots[sid]
+                D[(t_idx, sid)] = moved[t_idx][..., base : base + s.channels]
+    return D, moved, base_of, f(sv)
+
+
+def plan_assembly(spec_fn, compiled, *, probe_size: int = 8,
+                  memory_limit_bytes: int = 1 << 31) -> Optional[AssemblyPlan]:
+    """Build the static assembly plan (memoized on the compiled problem), or
+    None when it would exceed the centered-field memory budget."""
+    cache_key = (probe_size, memory_limit_bytes)
+    cache = compiled.__dict__.setdefault("_assembly_plan_cache", {})
+    if cache_key not in cache:
+        cache[cache_key] = _plan_assembly_uncached(
+            spec_fn, compiled, probe_size=probe_size,
+            memory_limit_bytes=memory_limit_bytes,
+        )
+    return cache[cache_key]
+
+
+def _plan_assembly_uncached(spec_fn, compiled, *, probe_size, memory_limit_bytes) -> Optional[AssemblyPlan]:
+    """Channel-pair sparsity by evaluating the per-pair coefficient fields at
+    two randomized probe input sets on a small grid: a pair whose field is
+    exactly zero at every probe element under both draws is structurally
+    zero. The probe compile is float32 on the CPU always, so structure is
+    decided as in the reference package whatever the plan's device."""
+    from .compile import compile_spec
+
+    if compiled.registry.graphs:
+        raise NotImplementedError(GRAPHS_TODO)
+    probe_dims = {k: min(v, probe_size) for k, v in compiled.dim_sizes.items()}
+    probe = compile_spec(spec_fn, probe_dims, torch.float32)
+
+    ps, cs = probe.registry.slots, compiled.registry.slots
+    if len(ps) != len(cs) or len(probe.terms) != len(compiled.terms) or any(
+        (a.kind, a.image, a.offset, a.graph, a.channels)
+        != (b.kind, b.image, b.offset, b.graph, b.channels)
+        for a, b in zip(ps, cs)
+    ):
+        return None
+    unknown_sids = probe.unknown_slot_ids()
+    if not unknown_sids:
+        return None
+
+    rng = np.random.RandomState(PROBE_SEED)
+    slots = probe.registry.slots
+
+    def _group_key(so, si):
+        s_out, s_in = slots[so], slots[si]
+        delta = tuple(b - a for a, b in zip(s_out.offset, s_in.offset))
+        return (s_out.image, s_in.image, delta)
+
+    Xp0, constsp0, graphsp0, paramsp0 = _probe_inputs(probe, rng)
+    extra_vals = _comparison_constants(probe, Xp0, constsp0, graphsp0, paramsp0)
+
+    nonzero: Dict[Tuple[int, int, int, int, int], bool] = {}
+    probe_fields: List[Dict[Tuple, np.ndarray]] = []
+    D = constsp = graphsp = paramsp = None
+    for _draw in range(2):
+        Xp, constsp, graphsp, paramsp = _probe_inputs(probe, rng, extra_vals)
+        D, _mv, _bo, _pr = _slot_jacobians(probe, Xp, constsp, graphsp, paramsp, unknown_sids)
+        pf: Dict[Tuple, np.ndarray] = {}
+        for t_idx, term in enumerate(probe.terms):
+            t_sids = [sid for sid in unknown_sids if sid in term.slot_ids]
+            for so in t_sids:
+                for si in t_sids:
+                    Do = D[(t_idx, so)].numpy()
+                    Di = D[(t_idx, si)].numpy()
+                    B = np.einsum("...ri,...rj->...ij", Do, Di)
+                    nz = ~np.all(B.reshape(-1, B.shape[-2], B.shape[-1]) == 0, axis=0)
+                    off = tuple(-o for o in slots[so].offset)
+                    Bacc = shift(torch.as_tensor(B), off + (0, 0)).numpy()
+                    gk = _group_key(so, si)
+                    for i in range(nz.shape[0]):
+                        for j in range(nz.shape[1]):
+                            if nz[i, j]:
+                                nonzero[(t_idx, so, si, i, j)] = True
+                            prev = pf.get((gk, i, j))
+                            pf[(gk, i, j)] = (
+                                Bacc[..., i, j] if prev is None else prev + Bacc[..., i, j]
+                            )
+        probe_fields.append(pf)
+
+    # terms gated array-vs-array: keep every channel pair (no pruning)
+    tainted_terms = _terms_with_traced_gates(probe, Xp0, constsp0, graphsp0, paramsp0)
+    for t_idx in tainted_terms:
+        term = probe.terms[t_idx]
+        t_sids = [sid for sid in unknown_sids if sid in term.slot_ids]
+        for so in t_sids:
+            for si in t_sids:
+                for i in range(slots[so].channels):
+                    for j in range(slots[si].channels):
+                        nonzero[(t_idx, so, si, i, j)] = True
+
+    w_spec: Dict[WKey, List[Tuple[int, int, int]]] = {}
+    group_pairs: Dict[Tuple, set] = {}
+    group_channels: Dict[Tuple, Tuple[int, int]] = {}
+    for (t_idx, so, si, i, j) in sorted(nonzero):
+        gk = _group_key(so, si)
+        group_pairs.setdefault(gk, set()).add((i, j))
+        group_channels[gk] = (slots[so].channels, slots[si].channels)
+        w_spec.setdefault(gk + (i, j), []).append((t_idx, so, si))
+
+    # scalar groups: full diagonal with channel-identical fields at both draws
+    scalar = set()
+    for gk, pairs in group_pairs.items():
+        c_out, c_in = group_channels[gk]
+        if c_out != c_in or c_out < 2 or pairs != {(i, i) for i in range(c_out)}:
+            continue
+        same = True
+        for pf in probe_fields:
+            f0 = pf.get((gk, 0, 0))
+            for i in range(1, c_out):
+                fi = pf.get((gk, i, i))
+                if f0 is None or fi is None or not np.array_equal(f0, fi):
+                    same = False
+                    break
+            if not same:
+                break
+        if same:
+            scalar.add(gk)
+    if tainted_terms:
+        scalar -= {
+            key[:-2]
+            for key, contribs in w_spec.items()
+            if any(t in tainted_terms for (t, _so, _si) in contribs)
+        }
+
+    needed = set()
+    for contribs in w_spec.values():
+        for (_t, so, si) in contribs:
+            needed.update((so, si))
+
+    # constant-slot detection: a (term, slot) Jacobian field bit-identical
+    # under a fresh unknown draw (consts and params fixed) is independent of
+    # X; it is probed once per solve instead of once per step. Like the
+    # zero pruning it is probabilistic, backed by validate_assembly.
+    Xp_alt, _c2, _g2, _p2 = _probe_inputs(probe, rng, extra_vals)
+    D_alt, _mv2, _bo2, _pr2 = _slot_jacobians(
+        probe, Xp_alt, constsp, graphsp, paramsp, unknown_sids
+    )
+    const_tsids = set()
+    for key in D:
+        if key[0] in tainted_terms:
+            continue
+        a, b = D[key].numpy(), D_alt[key].numpy()
+        if np.all(np.isfinite(a)) and np.array_equal(a, b):
+            const_tsids.add(key)
+
+    plan = AssemblyPlan(
+        w_spec=w_spec,
+        needed_slots=sorted(needed),
+        scalar_groups=frozenset(scalar),
+        const_tsids=frozenset(const_tsids),
+    )
+    if plan.centered_memory_bytes(compiled) > memory_limit_bytes:
+        return None
+    return plan
+
+
+def _used_tsids(compiled, plan) -> List[Tuple[int, int]]:
+    return [
+        (t_idx, sid)
+        for t_idx, term in enumerate(compiled.terms)
+        for sid in plan.needed_slots
+        if sid in term.slot_ids
+    ]
+
+
+def _pair_block(D, t_idx, so, si):
+    """[*dom, C_so, C_si] = Σ_rch D[t,so][..., r, :, None] · D[t,si][..., r, None, :]."""
+    Do = D[(t_idx, so)][..., :, :, None]
+    Di = D[(t_idx, si)][..., :, None, :]
+    return torch.sum(Do * Di, dim=-3)
+
+
+def assemble_const(compiled, plan: AssemblyPlan, X0, consts, graphs, params):
+    """Loop-invariant assembly phase: probe the X-independent (term, slot)
+    Jacobian fields once (at the solve's initial unknowns) and pre-multiply
+    every coupling block whose both sides are constant. For linear problems
+    (poisson) the entire operator hoists and per-step assembly is free."""
+    used = _used_tsids(compiled, plan)
+    const_ts = [k for k in used if k in plan.const_tsids]
+    var_slots = sorted({sid for (t, sid) in used if (t, sid) not in plan.const_tsids})
+    if not const_ts:
+        return {"D": {}, "moved": None, "base": {}, "B": {}, "var_slots": var_slots}
+    cache_slots = sorted({sid for (_t, sid) in const_ts})
+    D_all, moved, base_of, _r = _slot_jacobians(
+        compiled, X0, consts, graphs, params, cache_slots
+    )
+    D = {k: D_all[k] for k in const_ts}
+    B = {}
+    for contribs in plan.w_spec.values():
+        for key in contribs:
+            t_idx, so, si = key
+            if key not in B and (t_idx, so) in plan.const_tsids and (
+                t_idx, si
+            ) in plan.const_tsids:
+                B[key] = _pair_block(D, t_idx, so, si)
+    return {"D": D, "moved": moved, "base": base_of, "B": B, "var_slots": var_slots}
+
+
+def _pad_channels(x, lo, hi):
+    return x if lo == 0 and hi == 0 else TF.pad(x, (lo, hi))
+
+
+def assemble(compiled, plan: AssemblyPlan, X, consts, graphs, params, row_masks,
+             const_cache=None):
+    """Assemble the coefficient fields at linearization point X.
+
+    Returns (apply_fn, diag, jtf_fn, cg_meta): the row/column-masked JᵀJ·p
+    operator, the row-masked Jacobi diagonal read off the Δ=0 (i, i) fields,
+    a JᵀF evaluator over residual term tensors (``jtf_fn.r_terms`` holds the
+    residuals at X when a per-step probe ran, else None), and the fused grid
+    CG descriptor (ops/fused_cg.py) or None."""
+    if graphs:
+        raise NotImplementedError(GRAPHS_TODO)
+    slots = compiled.registry.slots
+    dt = compiled.dtype
+    X_dev = next(iter(X.values())).device
+
+    r_terms_primal = None
+    if const_cache is None:
+        D, moved, base_of, r_terms_primal = _slot_jacobians(
+            compiled, X, consts, graphs, params, plan.needed_slots
+        )
+        jt_sources = [(moved, base_of)]
+        src_of = {k: 0 for k in D}
+        B_pre = {}
+    else:
+        var_slots = const_cache["var_slots"]
+        if var_slots:
+            D_var, moved_var, base_var, r_terms_primal = _slot_jacobians(
+                compiled, X, consts, graphs, params, var_slots
+            )
+        else:
+            D_var, moved_var, base_var = {}, None, {}
+        D = dict(D_var)
+        D.update(const_cache["D"])  # the cached constant fields win
+        jt_sources, vi, ci = [], None, None
+        if moved_var is not None:
+            vi = len(jt_sources)
+            jt_sources.append((moved_var, base_var))
+        if const_cache["moved"] is not None:
+            ci = len(jt_sources)
+            jt_sources.append((const_cache["moved"], const_cache["base"]))
+        src_of = {k: (ci if k in const_cache["D"] else vi) for k in D}
+        B_pre = const_cache["B"]
+
+    B_all = dict(B_pre)
+    for contribs in plan.w_spec.values():
+        for (t_idx, so, si) in contribs:
+            if (t_idx, so, si) not in B_all:
+                B_all[(t_idx, so, si)] = _pair_block(D, t_idx, so, si)
+
+    # -- centered fields --------------------------------------------------
+    fields: Dict[WKey, torch.Tensor] = {}
+    for key, contribs in plan.w_spec.items():
+        u_out, u_in, delta, i, j = key
+        if key[:3] in plan.scalar_groups and (i, j) != (0, 0):
+            continue  # channel-identical: only the (0,0) field is materialized
+        acc = None
+        for (t_idx, so, si) in contribs:
+            B = B_all[(t_idx, so, si)][..., i, j]
+            off = tuple(-o for o in slots[so].offset)
+            Bs = shift(B[..., None], off)[..., 0]
+            acc = Bs if acc is None else acc + Bs
+        m_out = row_masks.get(u_out)
+        if m_out is not None:
+            acc = acc * m_out[..., 0]
+        m_in = row_masks.get(u_in)
+        if m_in is not None:
+            acc = acc * shift(m_in, delta)[..., 0]
+        fields[key] = acc
+
+    unknown_channels = {u: compiled.unknown_shape(u)[-1] for u in compiled.unknown_names}
+
+    def _pack_group(pair_fields, c_out, c_in, dom_shape, is_scalar):
+        if is_scalar:
+            return ("scalar", pair_fields[(0, 0)][..., None])
+        if all(i == j for (i, j) in pair_fields):
+            cols = [pair_fields.get((i, i)) for i in range(min(c_out, c_in))]
+            cols = [
+                c if c is not None else torch.zeros(dom_shape, dtype=dt, device=X_dev)
+                for c in cols
+            ]
+            return ("diag", torch.stack(cols, dim=-1))
+        block = torch.zeros(dom_shape + (c_out, c_in), dtype=dt, device=X_dev)
+        for (i, j), f in pair_fields.items():
+            block[..., i, j] = f
+        return ("block", block)
+
+    w_groups: Dict[Tuple, Dict] = {}
+    for (u_out, u_in, delta, i, j), field in fields.items():
+        w_groups.setdefault((u_out, u_in, delta), {})[(i, j)] = field
+
+    # pack ACROSS unknowns per (index space, Δ): one shift of the
+    # channel-packed p and one block multiply per offset
+    isp_of = {u: compiled.registry.images[u].ispace for u in compiled.unknown_names}
+    by_isp_delta: Dict[Tuple, list] = {}
+    for (u_out, u_in, delta), pf in w_groups.items():
+        by_isp_delta.setdefault((isp_of[u_out], delta), []).append((u_out, u_in, pf))
+
+    w_layouts = {}  # ispace -> (u_list, offs, ctot)
+    for isp in {k[0] for k in by_isp_delta}:
+        u_list = [u for u in compiled.unknown_names if isp_of[u] == isp]
+        offs, o = {}, 0
+        for u in u_list:
+            offs[u] = o
+            o += unknown_channels[u]
+        w_layouts[isp] = (u_list, offs, o)
+
+    w_packed = []  # (isp, delta, kind, W, oo, oi, co, ci)
+    for (isp, delta), groups in by_isp_delta.items():
+        u_list, offs, ctot = w_layouts[isp]
+        dom = isp.shape(compiled.dim_sizes)
+        if len(groups) == 1 and groups[0][0] == groups[0][1]:
+            u_out, u_in, pf = groups[0]
+            kind, W = _pack_group(
+                pf, unknown_channels[u_out], unknown_channels[u_in], dom,
+                (u_out, u_in, delta) in plan.scalar_groups,
+            )
+            w_packed.append((isp, delta, kind, W, offs[u_out], offs[u_in],
+                             unknown_channels[u_out], unknown_channels[u_in]))
+            continue
+        block = torch.zeros(dom + (ctot, ctot), dtype=dt, device=X_dev)
+        for (u_out, u_in, pf) in groups:
+            oo, oi = offs[u_out], offs[u_in]
+            if (u_out, u_in, delta) in plan.scalar_groups:
+                for ch in range(unknown_channels[u_out]):
+                    block[..., oo + ch, oi + ch] += pf[(0, 0)]
+            else:
+                for (i, j), f in pf.items():
+                    block[..., oo + i, oi + j] += f
+        w_packed.append((isp, delta, "block", block, 0, 0, ctot, ctot))
+
+    def apply_fn(p):
+        out = {u: None for u in unknown_channels}
+        packed_pc = {
+            isp: torch.cat([p[u] for u in u_list], dim=-1) if len(u_list) > 1 else p[u_list[0]]
+            for isp, (u_list, _offs, _ct) in w_layouts.items()
+        }
+        shifted = {}
+        acc_c = {isp: None for isp in w_layouts}
+        for (isp, delta, kind, W, oo, oi, co, ci) in w_packed:
+            ps_full = shifted.get((isp, delta))
+            if ps_full is None:
+                ps_full = shift(packed_pc[isp], delta)
+                shifted[(isp, delta)] = ps_full
+            ctot = w_layouts[isp][2]
+            ps = ps_full[..., oi : oi + ci] if (oi, ci) != (0, ctot) else ps_full
+            if kind == "scalar":
+                contrib = W * ps
+            elif kind == "diag":
+                c = W.shape[-1]
+                contrib = _pad_channels(W * ps[..., :c], 0, co - c)
+            else:
+                contrib = torch.sum(W * ps[..., None, :], dim=-1)
+            contrib = _pad_channels(contrib, oo, ctot - oo - co)
+            acc_c[isp] = contrib if acc_c[isp] is None else acc_c[isp] + contrib
+        for isp, acc in acc_c.items():
+            if acc is None:
+                continue
+            u_list, offs, _ct = w_layouts[isp]
+            for u in u_list:
+                sl = acc[..., offs[u] : offs[u] + unknown_channels[u]]
+                out[u] = sl if out[u] is None else out[u] + sl
+        for u in out:
+            if out[u] is None:
+                out[u] = torch.zeros(compiled.unknown_shape(u), dtype=dt, device=X_dev)
+        return out
+
+    def jtf_fn(r_terms):
+        """JᵀF from the same D fields: Σ_t Σ_s adjoint_s(Σ_rch D[t,s]·r_t),
+        one r-contraction per (term, probe source)."""
+        out = {u: None for u in unknown_channels}
+        jt_all = {}
+        for (t_idx, sid) in D:
+            si_ = src_of[(t_idx, sid)]
+            if (si_, t_idx) not in jt_all:
+                mv = jt_sources[si_][0]
+                jt_all[(si_, t_idx)] = torch.sum(mv[t_idx] * r_terms[t_idx][..., None], dim=-2)
+        for (t_idx, sid) in D:
+            s = slots[sid]
+            si_ = src_of[(t_idx, sid)]
+            base = jt_sources[si_][1][sid]
+            contrib = jt_all[(si_, t_idx)][..., base : base + s.channels]
+            add = shift(contrib, tuple(-o for o in s.offset))
+            out[s.image] = add if out[s.image] is None else out[s.image] + add
+        res = {}
+        for u in unknown_channels:
+            v = out[u]
+            if v is None:
+                v = torch.zeros(compiled.unknown_shape(u), dtype=dt, device=X_dev)
+            m = row_masks.get(u)
+            res[u] = v if m is None else v * m
+        return res
+
+    # -- free Jacobi diagonal: the Δ=0 (i, i) fields ---------------------------
+    diag = {}
+    for u, c in unknown_channels.items():
+        sp = compiled.unknown_shape(u)[:-1]
+        zero = tuple([0] * len(sp))
+        if (u, u, zero) in plan.scalar_groups:
+            diag[u] = fields[(u, u, zero, 0, 0)][..., None].expand(sp + (c,))
+            continue
+        cols = [fields.get((u, u, zero, i, i)) for i in range(c)]
+        diag[u] = torch.stack(
+            [f if f is not None else torch.zeros(sp, dtype=dt, device=X_dev) for f in cols],
+            dim=-1,
+        )
+
+    cg_meta = plan_fused_grid_cg(compiled, plan, fields, w_layouts)
+    jtf_fn.r_terms = r_terms_primal
+    return apply_fn, diag, jtf_fn, cg_meta

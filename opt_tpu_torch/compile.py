@@ -1,0 +1,496 @@
+"""Problem compilation: spec tracing, residual classification, masking.
+
+PyTorch counterpart of ``opt_tpu/compile.py``:
+
+* residual classification into centered (stencil) vs graph domains —
+  reference ``classifyexpression`` — by backward dependence slicing of a
+  ``make_fx`` graph of the slot-form residual function, the same
+  conservative "visit every subexpression" rule the reference uses and the
+  JAX package applies to its jaxpr;
+* automatic zeroing of residuals that read out of bounds (the bbox mask),
+  including the rule that any explicit ``InBounds`` use disables it;
+* ±inf sentinel clamping, exclusion masks and row masks.
+
+Discovery and the dependence graph run on the ``meta`` device: shapes only,
+no compute, whatever the problem size.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections import OrderedDict
+from typing import Any, Callable, Dict, List, Tuple
+
+import numpy as np
+import torch
+from torch.fx.experimental.proxy_tensor import make_fx
+
+from .dims import IndexSpace
+from .ops.shift import bbox_mask, in_bounds_mask, shift
+from .spec import (
+    GRAPHS_TODO,
+    UNKNOWN,
+    EnergyTerm,
+    SpecBuilder,
+    SpecError,
+    SpecRegistry,
+)
+
+# ---------------------------------------------------------------------------
+# FX-graph dependence slicing
+# ---------------------------------------------------------------------------
+
+# Ops whose output depends only on an input's shape, never its values. In a
+# jaxpr, zeros_like/full_like are literal broadcasts; in an FX graph they take
+# the tensor as an argument, and counting that as data dependence would give
+# terms spurious slots (wider bbox, other uses_bounds, false "mixes index
+# spaces" errors).
+_SHAPE_ONLY_OPS = frozenset({
+    "zeros_like", "ones_like", "full_like", "empty_like", "rand_like",
+    "randn_like", "new_zeros", "new_ones", "new_full", "new_empty",
+    "sym_size", "sym_numel", "sym_stride", "size", "numel", "dim",
+})
+
+
+def op_name(node) -> str:
+    """Overload-packet name of an FX call_function target ('where', ...)."""
+    target = node.target
+    packet = getattr(target, "overloadpacket", None)
+    if packet is not None:
+        return packet.__name__
+    return getattr(target, "__name__", str(target))
+
+
+def node_inputs(node):
+    """FX nodes among a node's (nested) args and kwargs."""
+    out = []
+
+    def visit(a):
+        if isinstance(a, torch.fx.Node):
+            out.append(a)
+        elif isinstance(a, (list, tuple)):
+            for b in a:
+                visit(b)
+        elif isinstance(a, dict):
+            for b in a.values():
+                visit(b)
+
+    visit(node.args)
+    visit(node.kwargs)
+    return out
+
+
+def graph_outputs(graph) -> list:
+    """The flat output list of a make_fx graph (entries may be non-Nodes)."""
+    for node in graph.nodes:
+        if node.op == "output":
+            out = node.args[0]
+            return list(out) if isinstance(out, (list, tuple)) else [out]
+    return []
+
+
+def _graph_output_deps(gm) -> List[frozenset]:
+    """For each graph output, the set of placeholder indices it
+    (syntactically) depends on. Nodes are atomic (any-in -> all-out)."""
+    env: Dict[Any, frozenset] = {}
+    n_in = 0
+    for node in gm.graph.nodes:
+        if node.op == "placeholder":
+            env[node] = frozenset([n_in])
+            n_in += 1
+        elif node.op == "call_function":
+            if op_name(node) in _SHAPE_ONLY_OPS:
+                env[node] = frozenset()
+                continue
+            dep = frozenset()
+            for a in node_inputs(node):
+                dep = dep | env.get(a, frozenset())
+            env[node] = dep
+        else:  # get_attr constants
+            env[node] = frozenset()
+    return [
+        env.get(o, frozenset()) if isinstance(o, torch.fx.Node) else frozenset()
+        for o in graph_outputs(gm.graph)
+    ]
+
+
+# ---------------------------------------------------------------------------
+# Compiled problem
+# ---------------------------------------------------------------------------
+
+
+def _first_device(*groups):
+    for g in groups:
+        for v in (g.values() if isinstance(g, dict) else g):
+            if isinstance(v, torch.Tensor):
+                return v.device
+    return torch.device("cpu")
+
+
+@dataclasses.dataclass
+class CompiledProblem:
+    spec_fn: Callable
+    registry: SpecRegistry
+    dim_sizes: Dict[str, int]
+    dtype: Any
+
+    @property
+    def use_preconditioner(self) -> bool:
+        return self.registry.use_preconditioner
+
+    @property
+    def unknown_names(self) -> List[str]:
+        return self.registry.unknown_names
+
+    @property
+    def terms(self) -> List[EnergyTerm]:
+        return self.registry.energy_terms
+
+    def unknown_shape(self, name: str) -> Tuple[int, ...]:
+        d = self.registry.images[name]
+        return d.ispace.shape(self.dim_sizes) + (d.channels,)
+
+    def normalize_inputs(self, inputs: Dict[str, Any], device="cpu", partial=False):
+        """Split a flat name->value dict into (unknowns, consts, graphs,
+        params), as tensors on ``device`` in the plan dtype. ``partial=True``
+        converts only the given subset (no missing-input check, no
+        parameter defaulting)."""
+        unknowns, consts, graphs, params = {}, {}, {}, {}
+        for name, val in inputs.items():
+            if name in self.registry.images:
+                decl = self.registry.images[name]
+                if decl.alias is not None:
+                    continue  # const views read the unknown's buffer
+                arr = torch.as_tensor(np.asarray(val) if not isinstance(val, torch.Tensor) else val)
+                arr = arr.to(device)
+                if arr.is_floating_point():
+                    arr = arr.to(self.dtype)
+                if arr.dim() == decl.ispace.ndim:
+                    arr = arr[..., None]
+                expect = decl.ispace.shape(self.dim_sizes) + (decl.channels,)
+                if tuple(arr.shape) != expect:
+                    raise SpecError(
+                        f"image {name!r}: expected shape {expect}, got {tuple(arr.shape)}"
+                    )
+                if arr.is_floating_point():
+                    # ±inf sentinels become large finite values: every
+                    # branch of a Select runs under trace-based AD, and an
+                    # inf in an untaken branch turns 0·inf into NaN
+                    arr = self._sanitize_sentinels(arr)
+                (unknowns if decl.kind == UNKNOWN else consts)[name] = arr.contiguous()
+            elif name in self.registry.graphs:
+                raise NotImplementedError(GRAPHS_TODO)
+            elif name in self.registry.params:
+                params[name] = torch.as_tensor(val, dtype=self.dtype).to(device)
+            else:
+                raise SpecError(f"unknown input {name!r}")
+        if not partial:
+            required = [
+                n for n, d in self.registry.images.items() if d.alias is None
+            ] + list(self.registry.graphs)
+            missing = [n for n in required if n not in inputs]
+            if missing:
+                raise SpecError(f"missing inputs: {missing}")
+            for p in self.registry.params:
+                params.setdefault(p, torch.zeros((), dtype=self.dtype, device=device))
+        return unknowns, consts, graphs, params
+
+    def _sanitize_sentinels(self, arr):
+        """Clamp ±inf entries to a large finite sentinel whose magnitude
+        stays above every comparison threshold traced from the spec (so
+        validity tests keep their truth value) and whose squares stay
+        finite in float32 (see opt_tpu.compile._sanitize_sentinels)."""
+        s = getattr(self, "_sentinel_mag", None)
+        if s is None:
+            s = 2.0e6
+            thresholds = self._traced_comparison_thresholds()
+            if thresholds:
+                s = max(s, 8.0 * max(abs(t) for t in thresholds))
+            self._sentinel_mag = s
+        from .utils.logging import log_solver, verbosity
+
+        if verbosity() >= 1:
+            n_inf = int(torch.isinf(arr).sum())
+            if n_inf:
+                log_solver(
+                    "opt_tpu_torch: clamped %d ±inf sentinel value(s) to "
+                    "magnitude %g at bind time", n_inf, s,
+                )
+        big = torch.full_like(arr, s)
+        arr = torch.where(arr == float("inf"), big, arr)
+        return torch.where(arr == float("-inf"), -big, arr)
+
+    def _traced_comparison_thresholds(self):
+        """Scalar comparison-operand literals of the residual graph (shared
+        machinery with assembly's threshold-aware probes), traced on meta."""
+        cached = getattr(self, "_cmp_thresholds", None)
+        if cached is not None:
+            return cached
+        from .assembly import _comparison_constants
+
+        meta = torch.device("meta")
+        zeros_u = {
+            n: torch.zeros(self.unknown_shape(n), dtype=self.dtype, device=meta)
+            for n in self.unknown_names
+        }
+        zeros_c = {
+            n: torch.zeros(
+                d.ispace.shape(self.dim_sizes) + (d.channels,), dtype=self.dtype,
+                device=meta,
+            )
+            for n, d in self.registry.images.items()
+            if d.kind != UNKNOWN and d.alias is None
+        }
+        zeros_p = {
+            p: torch.zeros((), dtype=self.dtype, device=meta)
+            for p in self.registry.params
+        }
+        out = _comparison_constants(self, zeros_u, zeros_c, {}, zeros_p)
+        self._cmp_thresholds = out
+        return out
+
+    # ---- field-mode runs ----------------------------------------------------
+    def _run(self, mode, unknowns, consts, graphs, params, slot_values=None):
+        if graphs:
+            raise NotImplementedError(GRAPHS_TODO)
+        builder = SpecBuilder(
+            mode,
+            self.dim_sizes,
+            self.dtype,
+            registry=self.registry,
+            bindings={"unknowns": unknowns, "consts": consts, "params": params},
+            slot_values=slot_values,
+            device=_first_device(unknowns, consts, slot_values or []),
+        )
+        with builder:
+            self.spec_fn(builder)
+        return builder
+
+    def _normalize_term(self, val, term: EnergyTerm):
+        """Give every residual term an explicit trailing channel axis."""
+        nd_sp = self._term_spatial_ndim(term)
+        if val.dim() == nd_sp:
+            return val[..., None]
+        if val.dim() == nd_sp + 1:
+            return val
+        raise SpecError(
+            f"energy term {term.index}: rank {val.dim()} does not match its "
+            f"domain {term.domain}"
+        )
+
+    def _term_spatial_ndim(self, term: EnergyTerm) -> int:
+        kind, dom = term.domain
+        return dom.ndim if kind == "centered" else 1
+
+    def _apply_bbox(self, val, term: EnergyTerm):
+        """Zero residuals whose accesses leave the grid (reference o.t:1930)."""
+        if term.domain[0] != "centered" or term.uses_bounds or term.bbox is None:
+            return val
+        bmin, bmax = term.bbox
+        if all(o == 0 for o in bmin) and all(o == 0 for o in bmax):
+            return val
+        shape = term.domain[1].shape(self.dim_sizes)
+        # multiplicative 0/1 mask, as in the reference package
+        return val * bbox_mask(shape, bmin, bmax, dtype=val.dtype, device=val.device)
+
+    def residual_terms(self, unknowns, consts, graphs, params) -> List[torch.Tensor]:
+        """All residual terms (bbox-masked), *not* exclusion-masked: residual
+        instances centered at excluded pixels still feed the gradients of
+        active unknowns."""
+        b = self._run("field", unknowns, consts, graphs, params)
+        return [
+            self._apply_bbox(self._normalize_term(val, term), term)
+            for term, val in zip(self.terms, b.energy_values)
+        ]
+
+    def residual_fn(self, consts, graphs, params):
+        """Closure over constants: X -> list of residual term tensors."""
+        return lambda unknowns: self.residual_terms(unknowns, consts, graphs, params)
+
+    def exclusion_masks(self, unknowns, consts, graphs, params):
+        """Per-ispace 'is excluded' masks [*spatial, 1] in the compute dtype
+        (1.0 = excluded, 0.0 = active), or {} if none. Float so the hot path
+        masks by multiplication, as the reference package does."""
+        if not self.registry.exclude_terms:
+            return {}
+        b = self._run("field", unknowns, consts, graphs, params)
+        masks: Dict[IndexSpace, torch.Tensor] = {}
+        for et, val in zip(self.registry.exclude_terms, b.exclude_values):
+            if val.dim() == et.ispace.ndim:
+                val = val[..., None]
+            elif val.dim() == et.ispace.ndim + 1 and val.shape[-1] != 1:
+                val = torch.any(val != 0, dim=-1, keepdim=True)
+            val = val.to(self.dtype)
+            prev = masks.get(et.ispace)
+            masks[et.ispace] = val if prev is None else torch.maximum(prev, val)
+        return {k: v.detach() for k, v in masks.items()}
+
+    def unknown_row_masks(self, excl_by_ispace):
+        """name -> float mask (1.0 = active row, 0.0 = excluded) or None."""
+        out = {}
+        for name in self.unknown_names:
+            m = excl_by_ispace.get(self.registry.images[name].ispace)
+            out[name] = None if m is None else (1.0 - m)
+        return out
+
+    def term_cost_mask(self, term: EnergyTerm, excl_by_ispace):
+        """Residuals centered at excluded pixels do not count toward the cost
+        (reference computeCost)."""
+        if term.domain[0] != "centered":
+            return None
+        return excl_by_ispace.get(term.domain[1])
+
+    # ---- slot-mode ----------------------------------------------------------
+    def gather_slot_values(self, unknowns, consts, graphs, params=None):
+        """Materialize every slot's value field (shift / bounds mask)."""
+        if graphs:
+            raise NotImplementedError(GRAPHS_TODO)
+        device = _first_device(unknowns, consts)
+        vals = []
+        for s in self.registry.slots:
+            if s.kind == "img":
+                decl = self.registry.images[s.image]
+                if decl.alias is not None:
+                    arr = unknowns[decl.alias].detach()
+                else:
+                    arr = (unknowns if decl.kind == UNKNOWN else consts)[s.image]
+                vals.append(shift(arr, s.offset))
+            elif s.kind == "bounds":
+                shape = s.ispace.shape(self.dim_sizes)
+                vals.append(
+                    in_bounds_mask(shape, s.offset, s.expand, dtype=self.dtype, device=device)
+                )
+            else:
+                raise NotImplementedError(GRAPHS_TODO)
+        return vals
+
+    def local_residual_terms(self, slot_values, params, consts=None) -> List[torch.Tensor]:
+        """Residual terms as a pointwise function of slot values (bbox-masked
+        identically to :meth:`residual_terms`)."""
+        b = self._run("slots", {}, consts or {}, {}, params, slot_values=list(slot_values))
+        return [
+            self._apply_bbox(self._normalize_term(val, term), term)
+            for term, val in zip(self.terms, b.energy_values)
+        ]
+
+    def unknown_slot_ids(self) -> List[int]:
+        return [i for i, s in enumerate(self.registry.slots) if s.is_unknown]
+
+
+# ---------------------------------------------------------------------------
+# compile_spec
+# ---------------------------------------------------------------------------
+
+_COMPILE_CACHE: "OrderedDict" = OrderedDict()
+_COMPILE_CACHE_MAX = 128
+
+
+def compile_spec(spec_fn: Callable, dim_sizes: Dict[str, int], dtype) -> CompiledProblem:
+    """Trace a spec function and classify its residual terms, memoized per
+    (spec function, dims, dtype) in a bounded LRU: tracing is deterministic
+    and CompiledProblem carries no binding state."""
+    try:
+        key = (spec_fn, tuple(sorted(dim_sizes.items())), str(dtype))
+        hit = _COMPILE_CACHE.get(key)
+    except TypeError:  # spec_fn not hashable
+        key, hit = None, None
+    if hit is not None:
+        _COMPILE_CACHE.move_to_end(key)
+        return hit
+    compiled = _compile_spec_uncached(spec_fn, dim_sizes, dtype)
+    if key is not None:
+        _COMPILE_CACHE[key] = compiled
+        while len(_COMPILE_CACHE) > _COMPILE_CACHE_MAX:
+            _COMPILE_CACHE.popitem(last=False)
+    return compiled
+
+
+def _compile_spec_uncached(spec_fn, dim_sizes, dtype) -> CompiledProblem:
+    registry = SpecRegistry()
+    meta = torch.device("meta")
+
+    # Pass 1: discovery on the meta device (no real compute).
+    b = SpecBuilder("discover", dim_sizes, dtype, registry=registry, device=meta)
+    with b:
+        spec_fn(b)
+    if not registry.energy_terms:
+        raise SpecError("spec defines no Energy terms")
+    registry.frozen = True
+
+    # Pass 2: make_fx graph of the slot-form function, for dependence slicing.
+    slot_vals = []
+    for s in registry.slots:
+        if s.kind == "gimg":
+            shape = (registry.dummy_edge_count, s.channels)
+        elif s.kind == "img":
+            shape = s.ispace.shape(dim_sizes) + (s.channels,)
+        else:
+            shape = s.ispace.shape(dim_sizes) + (1,)
+        slot_vals.append(torch.ones(shape, dtype=dtype, device=meta))
+
+    def _slot_run(*slot_values):
+        sb = SpecBuilder(
+            "slots", dim_sizes, dtype, registry=registry,
+            bindings={"params": {}}, slot_values=list(slot_values), device=meta,
+        )
+        with sb:
+            spec_fn(sb)
+        return tuple(sb.energy_values) + tuple(sb.exclude_values)
+
+    deps = _graph_output_deps(make_fx(_slot_run)(*slot_vals))
+    outs = _slot_run(*slot_vals)
+    n_terms = len(registry.energy_terms)
+    term_shapes = [tuple(v.shape) for v in outs[:n_terms]]
+
+    for term, dset, shape in zip(registry.energy_terms, deps[:n_terms], term_shapes):
+        slots = [registry.slots[i] for i in sorted(dset)]
+        term.slot_ids = tuple(sorted(dset))
+        graphs = sorted({s.graph for s in slots if s.kind == "gimg"})
+        ispaces = []
+        for s in slots:
+            if s.kind == "img" and s.ispace not in ispaces:
+                ispaces.append(s.ispace)
+        term.uses_bounds = any(s.kind == "bounds" and not s.internal for s in slots)
+        if graphs:
+            if len(graphs) > 1 or ispaces:
+                raise SpecError(
+                    f"energy term {term.index}: residual contains image reads "
+                    f"from multiple domains (reference o.t:1916)"
+                )
+            term.domain = ("graph", graphs[0])
+        else:
+            if len(ispaces) != 1:
+                if not ispaces:
+                    raise SpecError(
+                        f"energy term {term.index}: residual must actually use "
+                        "some image (reference o.t:1922)"
+                    )
+                raise SpecError(
+                    f"energy term {term.index}: residual mixes index spaces {ispaces}"
+                )
+            term.domain = ("centered", ispaces[0])
+            nd = ispaces[0].ndim
+            bmin, bmax = [0] * nd, [0] * nd
+            for s in slots:
+                if s.kind == "img":
+                    for d in range(nd):
+                        bmin[d] = min(bmin[d], s.offset[d])
+                        bmax[d] = max(bmax[d], s.offset[d])
+            term.bbox = (tuple(bmin), tuple(bmax))
+        nd_sp = term.domain[1].ndim if term.domain[0] == "centered" else 1
+        term.channels = 1 if len(shape) == nd_sp else int(shape[-1])
+
+    for et, dset in zip(registry.exclude_terms, deps[n_terms:]):
+        et.slot_ids = tuple(sorted(dset))
+        ispaces = []
+        for i in sorted(dset):
+            s = registry.slots[i]
+            if s.kind in ("img", "bounds") and s.ispace not in ispaces:
+                ispaces.append(s.ispace)
+        if len(ispaces) != 1:
+            raise SpecError(
+                f"Exclude() expression must read exactly one grid index space, got {ispaces}"
+            )
+        et.ispace = ispaces[0]
+
+    return CompiledProblem(spec_fn, registry, dict(dim_sizes), dtype)

@@ -1,0 +1,163 @@
+"""Matrix-free solver operators derived from a compiled problem.
+
+PyTorch counterpart of ``opt_tpu/functions.py``, the replacement for the
+reference's symbolic operator derivation:
+
+* JᵀF from one ``torch.func.vjp`` of the residual function;
+* Jᵀ(J·p) from ``torch.func.jvp`` followed by the same vjp;
+* the exact Jacobi diagonal Σ(∂r/∂x)² from one one-hot jvp probe per
+  (unknown slot, channel) of the pointwise slot-form residual function.
+
+Exclusion follows the reference kernels: excluded unknowns have their rows
+masked out of JᵀF, the diagonal and JᵀJ·p, and their residuals out of the
+cost, but residual instances centered at excluded pixels still feed the
+gradients of active unknowns.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import torch
+
+from .compile import CompiledProblem
+from .ops.shift import shift_adjoint
+
+
+def _mask_rows(x: Dict[str, torch.Tensor], row_masks) -> Dict[str, torch.Tensor]:
+    # 0/1 float masks: multiplication, as the reference package does
+    out = {}
+    for k, v in x.items():
+        m = row_masks.get(k)
+        out[k] = v if m is None else v * m
+    return out
+
+
+def tree_dot(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Global dot product over the unknown super-vector."""
+    total = None
+    for k in a:
+        s = torch.sum(a[k] * b[k])
+        total = s if total is None else total + s
+    return total
+
+
+class FunctionSet:
+    """Per-(problem, bound-constants) operator bundle used by the solver."""
+
+    def __init__(self, compiled: CompiledProblem, consts, graphs, params):
+        self.c = compiled
+        self.consts = consts
+        self.graphs = graphs
+        self.params = params
+        self.F = compiled.residual_fn(consts, graphs, params)
+        self._mask_cache = None
+
+    def masks(self, X):
+        """(per-ispace exclusion masks, per-unknown row masks), evaluated
+        once at the first X this set sees."""
+        if self._mask_cache is None:
+            excl = self.c.exclusion_masks(X, self.consts, self.graphs, self.params)
+            self._mask_cache = (excl, self.c.unknown_row_masks(excl))
+        return self._mask_cache
+
+    @property
+    def row_masks(self):
+        if self._mask_cache is None:
+            raise RuntimeError("call masks(X) first")
+        return self._mask_cache[1]
+
+    # -- costs ---------------------------------------------------------------
+    def _masked_half_sq_sum(self, terms: List[torch.Tensor], excl) -> torch.Tensor:
+        total = None
+        for term, val in zip(self.c.terms, terms):
+            sq = val * val
+            m = self.c.term_cost_mask(term, excl)
+            if m is not None:
+                sq = sq * (1.0 - m)  # m: 1.0 = excluded center
+            s = torch.sum(sq)
+            total = s if total is None else total + s
+        return 0.5 * total
+
+    def cost(self, X) -> torch.Tensor:
+        """½ Σ r² over non-excluded centers (reference createcost)."""
+        excl, _ = self.masks(X)
+        return self._masked_half_sq_sum(self.F(X), excl)
+
+    # -- linearization bundle --------------------------------------------------
+    def linearize(self, X):
+        """Returns (residual terms, J·(), Jᵀ·()) at X."""
+        _, row_masks = self.masks(X)
+        r_terms, vjp_fn = torch.func.vjp(self.F, X)
+
+        def J(p):
+            return torch.func.jvp(self.F, (X,), (p,))[1]
+
+        def JT(terms):
+            (g,) = vjp_fn(list(terms))
+            return _mask_rows(g, row_masks)
+
+        return r_terms, J, JT
+
+    def jtf(self, X):
+        """JᵀF (positive sign; the solver negates: residuum = -JᵀF)."""
+        r_terms, _, JT = self.linearize(X)
+        return JT(r_terms)
+
+    # -- exact Jacobi diagonal ---------------------------------------------------
+    def jtj_diag(self, X) -> Dict[str, torch.Tensor]:
+        """diag(JᵀJ) per unknown channel, rows masked at excluded unknowns:
+        for each (unknown slot, channel) a one-hot tangent probes the
+        pointwise slot-form residuals; the probe output is the local
+        derivative field ∂r[q]/∂x[q+s,c], squared, summed over residual
+        channels and scattered back through the slot's shift adjoint."""
+        _, row_masks = self.masks(X)
+        c = self.c
+        slot_vals = c.gather_slot_values(X, self.consts, self.graphs, self.params)
+
+        def f(sv):
+            return c.local_residual_terms(sv, self.params, self.consts)
+
+        diag = {
+            name: torch.zeros(c.unknown_shape(name), dtype=c.dtype, device=slot_vals[0].device)
+            for name in c.unknown_names
+        }
+        zeros = [torch.zeros_like(v) for v in slot_vals]
+        for sid in c.unknown_slot_ids():
+            s = c.registry.slots[sid]
+            for ch in range(s.channels):
+                tangents = list(zeros)
+                t = torch.zeros_like(slot_vals[sid])
+                t[..., ch] = 1.0
+                tangents[sid] = t
+                d_terms = torch.func.jvp(f, (slot_vals,), (tangents,))[1]
+                contrib = None
+                for term, dt in zip(c.terms, d_terms):
+                    if sid in term.slot_ids:
+                        sq = torch.sum(dt * dt, dim=-1)
+                        contrib = sq if contrib is None else contrib + sq
+                if contrib is None:
+                    break  # slot feeds no term (channel-independent)
+                add = shift_adjoint(contrib[..., None], s.offset)[..., 0]
+                diag[s.image][..., ch] += add
+        return _mask_rows(diag, row_masks)
+
+    def mask_rows(self, x):
+        return _mask_rows(x, self.row_masks)
+
+    # -- assembled gather-form JᵀJ (see assembly.py) ---------------------------
+    def assemble_stencil(self, X, plan, const_cache=None):
+        """(apply_fn, diag, jtf_fn, cg_meta) of the assembled operator at X."""
+        from .assembly import assemble
+
+        _, row_masks = self.masks(X)
+        return assemble(
+            self.c, plan, X, self.consts, self.graphs, self.params, row_masks,
+            const_cache=const_cache,
+        )
+
+    def assemble_const(self, X0, plan):
+        """Loop-invariant assembly phase (assembly.assemble_const)."""
+        from .assembly import assemble_const
+
+        return assemble_const(self.c, plan, X0, self.consts, self.graphs, self.params)

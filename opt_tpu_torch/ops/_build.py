@@ -1,0 +1,95 @@
+"""Build and load the port's CUDA kernels at first use.
+
+``nvcc`` compiles ``csrc/*.cu`` into a shared library with a plain C
+interface, bound with ``ctypes``. The library goes to ``build/opt_tpu_torch/``
+at the repository root, named by a hash of the sources, so an edited source
+rebuilds and an unchanged one loads the cached library. Nothing here runs on
+``import opt_tpu_torch``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("fused_grid_cg.cu",)
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "opt_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_LOADED = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256()
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build_library() -> dict:
+    """Compile the sources if their hash has no library yet. Returns
+    {path, built, seconds, log} (log: nvcc's output, -Xptxas -v included)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    digest = _source_hash()
+    lib = BUILD_DIR / f"libopt_tpu_torch_{digest}.so"
+    log = BUILD_DIR / f"libopt_tpu_torch_{digest}.log"
+    if lib.exists():
+        return {"path": lib, "built": False, "seconds": 0.0,
+                "log": log.read_text() if log.exists() else ""}
+    tmp = BUILD_DIR / f".tmp_{os.getpid()}_{lib.name}"
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    out = " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{out}")
+    log.write_text(out)
+    os.replace(tmp, lib)
+    return {"path": lib, "built": True, "seconds": seconds, "log": out}
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, built if needed, with every function's
+    ``argtypes``/``restype`` declared."""
+    lib = _LOADED.get("lib")
+    if lib is not None:
+        return lib
+    info = build_library()
+    lib = ctypes.CDLL(str(info["path"]))
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.fused_grid_cg_max_blocks.argtypes = [i32, ctypes.POINTER(i32)]
+    lib.fused_grid_cg_max_blocks.restype = i32
+    lib.fused_grid_cg_launch.argtypes = [
+        vp, vp, vp, vp, vp,  # F, b, pre, triples, starts
+        i32, i32, i32,  # C, N0, N1
+        i32, ctypes.c_float, i32,  # lits, tol, guard_div
+        vp, vp, vp, vp, vp, vp, vp,  # delta, r, p, Ap, part_den, part_rz, iters
+        i32, i32, vp,  # grid, block, stream
+    ]
+    lib.fused_grid_cg_launch.restype = i32
+    _LOADED["lib"] = lib
+    _LOADED["info"] = info
+    return lib

@@ -1,0 +1,240 @@
+// Whole-loop Jacobi-preconditioned CG for 2-D grid stencil operators, as one
+// persistent cooperative kernel for Hopper (sm_90a).
+//
+// Replaces: opt_tpu/ops/pallas_cg.py::_kernel in its 2-D grid GN form (the
+// Pallas TPU kernel that runs the whole PCG inner loop of a grid problem in
+// one launch, with the loop algebra of _run_cg's gn_body).
+//
+// What it computes, on channel-major [C, N0, N1] float32 state:
+//   r = b, p = pre*r, rz = <r, p>, floor = tol*rz
+//   repeat while l < lits:
+//     Ap[i] = sum_t F[fid_t] * p[j_t] read at offset (d0_t, d1_t)
+//     den = <p, Ap>;  alpha = rz/den (guarded)
+//     delta += alpha*p;  r -= alpha*Ap;  z = pre*r;  rz_new = <z, r>
+//     beta = rz_new/rz (guarded);  l += 1
+//     exit if rz_new <= floor or den <= 0;  p = z + beta*p
+// and returns delta and the executed iteration count l.
+//
+// What bounds it: memory traffic. Each iteration reads the T coefficient
+// planes and about 6*C state planes (p at every stencil offset, Ap, r,
+// delta, pre) and writes about 4*C. For poisson 512x512x4 that is about
+// 25 MB per iteration, which fits the H100's 50 MB L2, so the loop runs
+// mostly out of L2; at 2048x2048x4 one state vector is 64 MB and every
+// phase streams from HBM. The arithmetic is a few flops per byte.
+//
+// What the design does about it:
+//   * One launch for the whole loop (no per-iteration launch or host round
+//     trip, the TPU kernel's contract): a cooperative grid of co-resident
+//     blocks walks the C*N0*N1 elements with grid-stride loops, and three
+//     grid-wide barriers per iteration separate the phases that read other
+//     blocks' results (apply + <p,Ap>; update + <z,r>; p update).
+//   * Every thread owns the same elements in every phase, so r, delta, Ap
+//     and p[e] stay in the thread's own program order; only the stencil
+//     reads of p (other blocks' elements) and the reduction partials cross
+//     blocks, and those are read through L2 (ld.global.cg).
+//   * z is recomputed as pre*r in the p update instead of being stored:
+//     two reads in place of a write plus a read.
+//   * Reads that leave the grid are skipped, never wrapped: the planner
+//     folded each offset's in-bounds mask into its field, so a skipped read
+//     is exactly the zero the plain version multiplies in.
+//   * Dot products: per-thread float products summed in double, a fixed
+//     shuffle tree per block, per-block partials in separate buffers for
+//     <p,Ap> and <z,r>, and every block sums the partials in the same fixed
+//     order. alpha, beta and the exit test are therefore identical in every
+//     block, the loop exits uniformly, and two runs give bitwise-equal
+//     results.
+//   * Elementwise arithmetic uses explicit round-to-nearest intrinsics (no
+//     fused multiply-add), the same roundings as the plain PyTorch version.
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
+
+#define FGCG_BLOCK 256
+#define FGCG_MAX_TRIPLES 512
+#define FGCG_MAX_CHANNELS 64
+
+// Block sum of v in a fixed order; the result is valid in thread 0.
+__device__ __forceinline__ double block_sum(double v, double* s_warp) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) s_warp[warp] = v;
+  __syncthreads();
+  double s = 0.0;
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < FGCG_BLOCK / 32; ++w) s += s_warp[w];
+  }
+  __syncthreads();
+  return s;
+}
+
+// Sum of the n per-block partials, in the same fixed order in every block.
+__device__ __forceinline__ double partials_sum(const double* part, int n,
+                                               double* s_bcast) {
+  if (threadIdx.x < 32) {
+    double s = 0.0;
+    for (int k = threadIdx.x; k < n; k += 32) s += __ldcg(part + k);
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
+    if (threadIdx.x == 0) *s_bcast = s;
+  }
+  __syncthreads();
+  const double s = *s_bcast;
+  __syncthreads();
+  return s;
+}
+
+__device__ __forceinline__ float safe_div(float num, float den, int guard) {
+  if (!guard) return __fdiv_rn(num, den);
+  return den > 0.f ? __fdiv_rn(num, den) : 0.f;
+}
+
+__global__ void __launch_bounds__(FGCG_BLOCK)
+fused_grid_cg_kernel(const float* __restrict__ F, const float* __restrict__ b,
+                     const float* __restrict__ pre,
+                     const int* __restrict__ triples,
+                     const int* __restrict__ starts, int C, int N0, int N1,
+                     int lits, float tol, int guard_div, float* delta, float* r,
+                     float* p, float* Ap, double* part_den, double* part_rz,
+                     int* iters) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ int s_tr[FGCG_MAX_TRIPLES * 5];
+  __shared__ int s_start[FGCG_MAX_CHANNELS + 1];
+  __shared__ double s_warp[FGCG_BLOCK / 32];
+  __shared__ double s_bcast;
+
+  for (int k = threadIdx.x; k <= C; k += blockDim.x) s_start[k] = starts[k];
+  __syncthreads();
+  const int n_triples = s_start[C];
+  for (int k = threadIdx.x; k < 5 * n_triples; k += blockDim.x)
+    s_tr[k] = triples[k];
+  __syncthreads();
+
+  const int plane = N0 * N1;
+  const int total = C * plane;
+  const int stride = gridDim.x * blockDim.x;
+  const int first = blockIdx.x * blockDim.x + threadIdx.x;
+  const int n_blocks = gridDim.x;
+
+  // r = b, p = z = pre*r, delta = 0, rz0 = <r, z>
+  double acc = 0.0;
+  for (int e = first; e < total; e += stride) {
+    const float rv = b[e];
+    const float z = __fmul_rn(pre[e], rv);
+    r[e] = rv;
+    p[e] = z;
+    delta[e] = 0.f;
+    acc += (double)__fmul_rn(rv, z);
+  }
+  acc = block_sum(acc, s_warp);
+  if (threadIdx.x == 0) part_rz[blockIdx.x] = acc;
+  grid.sync();
+  float rz = (float)partials_sum(part_rz, n_blocks, &s_bcast);
+  const float floor_rz = __fmul_rn(tol, rz);
+
+  int l = 0;
+  while (l < lits) {
+    // phase 1: Ap = A p, partials of <p, Ap>
+    acc = 0.0;
+    for (int e = first; e < total; e += stride) {
+      const int c = e / plane;
+      const int q = e - c * plane;
+      const int x = q / N1;
+      const int y = q - x * N1;
+      float a = 0.f;
+      for (int k = s_start[c]; k < s_start[c + 1]; ++k) {
+        const int* t = s_tr + 5 * k;
+        const int xx = x + t[0];
+        const int yy = y + t[1];
+        if (xx >= 0 && xx < N0 && yy >= 0 && yy < N1) {
+          const float pv = __ldcg(p + t[3] * plane + xx * N1 + yy);
+          a = __fadd_rn(a, __fmul_rn(F[t[4] * plane + q], pv));
+        }
+      }
+      Ap[e] = a;
+      acc += (double)__fmul_rn(p[e], a);
+    }
+    acc = block_sum(acc, s_warp);
+    if (threadIdx.x == 0) part_den[blockIdx.x] = acc;
+    grid.sync();
+    const float den = (float)partials_sum(part_den, n_blocks, &s_bcast);
+    const float alpha = safe_div(rz, den, guard_div);
+
+    // phase 2: delta += alpha p, r -= alpha Ap, partials of <z, r>
+    acc = 0.0;
+    for (int e = first; e < total; e += stride) {
+      delta[e] = __fadd_rn(delta[e], __fmul_rn(alpha, p[e]));
+      const float rv = __fsub_rn(r[e], __fmul_rn(alpha, Ap[e]));
+      r[e] = rv;
+      acc += (double)__fmul_rn(__fmul_rn(pre[e], rv), rv);
+    }
+    acc = block_sum(acc, s_warp);
+    if (threadIdx.x == 0) part_rz[blockIdx.x] = acc;
+    grid.sync();
+    const float rz_new = (float)partials_sum(part_rz, n_blocks, &s_bcast);
+    const float beta = safe_div(rz_new, rz, guard_div);
+    ++l;
+    if (rz_new <= floor_rz || den <= 0.f) break;
+    rz = rz_new;
+
+    // phase 3: p = z + beta p
+    for (int e = first; e < total; e += stride) {
+      const float z = __fmul_rn(pre[e], r[e]);
+      p[e] = __fadd_rn(z, __fmul_rn(beta, p[e]));
+    }
+    grid.sync();
+  }
+  if (first == 0) *iters = l;
+}
+
+extern "C" {
+
+// Co-resident block count of the kernel at `block` threads (the cooperative
+// launch limit): blocks per SM times SMs on the current device.
+int fused_grid_cg_max_blocks(int block, int* out) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  int coop = 0, sms = 0, per_sm = 0;
+  e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e != cudaSuccess) return (int)e;
+  if (!coop) return (int)cudaErrorNotSupported;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm,
+                                                    fused_grid_cg_kernel,
+                                                    block, 0);
+  if (e != cudaSuccess) return (int)e;
+  *out = per_sm * sms;
+  return 0;
+}
+
+// Launches the kernel on `stream`; returns the CUDA error of the launch.
+int fused_grid_cg_launch(const float* F, const float* b, const float* pre,
+                         const int* triples, const int* starts, int C, int N0,
+                         int N1, int lits, float tol, int guard_div,
+                         float* delta, float* r, float* p, float* Ap,
+                         double* part_den, double* part_rz, int* iters,
+                         int grid, int block, void* stream) {
+  if (block != FGCG_BLOCK || C < 1 || C > FGCG_MAX_CHANNELS)
+    return (int)cudaErrorInvalidValue;
+  int max_blocks = 0;
+  int err = fused_grid_cg_max_blocks(block, &max_blocks);
+  if (err) return err;
+  if (grid < 1 || grid > max_blocks)
+    return (int)cudaErrorCooperativeLaunchTooLarge;
+  void* args[] = {(void*)&F,     (void*)&b,        (void*)&pre,
+                  (void*)&triples, (void*)&starts, (void*)&C,
+                  (void*)&N0,    (void*)&N1,       (void*)&lits,
+                  (void*)&tol,   (void*)&guard_div, (void*)&delta,
+                  (void*)&r,     (void*)&p,        (void*)&Ap,
+                  (void*)&part_den, (void*)&part_rz, (void*)&iters};
+  cudaError_t e = cudaLaunchCooperativeKernel(
+      (const void*)fused_grid_cg_kernel, dim3(grid), dim3(block), args, 0,
+      (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,289 @@
+"""Whole-loop PCG for 2-D grid operators: the counterpart of
+``opt_tpu/ops/pallas_cg.py``.
+
+The JAX package runs the whole PCG inner loop of a 2-D grid problem as one
+Pallas TPU kernel (``pallas_cg.py::_kernel``, grid GN form). Here the same
+loop runs as one persistent cooperative CUDA kernel
+(``csrc/fused_grid_cg.cu``) for CUDA tensors, and as its plain PyTorch twin
+(:func:`fused_grid_cg_reference`) for CPU tensors or on request.
+
+The operator is expressed as per-channel-pair triples over the packed
+unknown channels: (JᵀJ·p)[q, i] = Σ_t F_t[q] · p[q + Δ_t, j_t] for triples
+t = (Δ, i, j, field) derived from the assembled coefficient fields. The
+in-bounds mask of each offset is folded into its field (F' = F · M_Δ), so a
+read that leaves the grid multiplies zero: the twin reads through a
+zero-padded shift, the kernel skips it.
+
+:func:`_run_cg` holds the loop algebra (the GN body of the JAX package's
+``_run_cg``: guarded α/β, exit on rᵀz ≤ tol·rᵀz₀ or pᵀAp ≤ 0). The twin and
+the solver's eager loop both run it, and the kernel implements the same
+steps, so exits and counted iterations agree by construction.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, Optional
+
+import torch
+
+from .shift import in_bounds_mask, shift
+
+# per-kernel capacity of the CUDA source (csrc/fused_grid_cg.cu)
+MAX_TRIPLES = 512
+MAX_CHANNELS = 64
+BLOCK_THREADS = 256
+
+
+def plan_fused_grid_cg(compiled, plan, fields: Dict, w_layouts: Dict) -> Optional[Dict]:
+    """Decide applicability from the assembled operator and build the loop's
+    inputs: exactly one 2-D index space holding every unknown, float32.
+    Returns {u_list, offs, channels, ctot, triples, F [T, *dom]} or None.
+    The in-bounds masks are folded into F."""
+    if not fields or compiled.dtype != torch.float32 or len(w_layouts) != 1:
+        return None
+    ((isp, (u_list, offs, ctot)),) = w_layouts.items()
+    if isp.ndim != 2 or sorted(compiled.unknown_names) != sorted(u_list):
+        return None
+    dom = isp.shape(compiled.dim_sizes)
+    channels = {u: compiled.unknown_shape(u)[-1] for u in u_list}
+    field_list, triples, masks = [], [], {}
+    for (u_out, u_in, delta, i, j), f in sorted(fields.items()):
+        m = masks.get(delta)
+        if m is None:
+            m = in_bounds_mask(dom, delta, dtype=f.dtype, device=f.device)[..., 0]
+            masks[delta] = m
+        fid = len(field_list)
+        field_list.append(f * m)
+        d = tuple(int(o) for o in delta)
+        if (u_out, u_in, delta) in plan.scalar_groups:
+            # channel-identical diagonal: one field, C triples
+            for c in range(channels[u_out]):
+                triples.append((d, offs[u_out] + c, offs[u_in] + c, fid))
+        else:
+            triples.append((d, offs[u_out] + i, offs[u_in] + j, fid))
+    return {
+        "u_list": tuple(u_list),
+        "offs": dict(offs),
+        "channels": channels,
+        "ctot": ctot,
+        "triples": tuple(triples),
+        "F": torch.stack(field_list, dim=0).contiguous(),
+    }
+
+
+def _lin(a, x, y):
+    """y + a·x over tensors or dicts of tensors (a: 0-dim tensor)."""
+    if isinstance(x, dict):
+        return {k: y[k] + a * x[k] for k in y}
+    return y + a * x
+
+
+def _zeros_like(x):
+    if isinstance(x, dict):
+        return {k: torch.zeros_like(v) for k, v in x.items()}
+    return torch.zeros_like(x)
+
+
+def safe_div(num, den, guard_div: bool):
+    """α/β division, guarded to 0 where den <= 0 (guardDivisionByZero,
+    solverGPUGaussNewton.t:17, t:457, t:545)."""
+    if not guard_div:
+        return num / den
+    return torch.where(den > 0, num / torch.where(den > 0, den, 1.0), 0.0)
+
+
+def _run_cg(b, apply, prec, dot, lits: int, tol: float, *, guard_div: bool):
+    """The shared GN-PCG loop over abstract ``apply``/``prec``/``dot``
+    (vectors are tensors or dicts of tensors). Returns (delta, iterations
+    executed). The host reads one flag per iteration to exit, so exits and
+    counts match the on-device loop exactly."""
+    r = b
+    p = prec(r)
+    rz = dot(r, p)
+    floor = tol * rz
+    delta = _zeros_like(b)
+    lits = int(lits)
+    l = 0
+    while l < lits:
+        Ap = apply(p)
+        den = dot(p, Ap)
+        alpha = safe_div(rz, den, guard_div)
+        delta = _lin(alpha, p, delta)
+        r = _lin(-alpha, Ap, r)
+        z = prec(r)
+        rz_new = dot(z, r)
+        beta = safe_div(rz_new, rz, guard_div)
+        p = _lin(beta, p, z)
+        rz = rz_new
+        l += 1
+        if bool((rz_new <= floor) | (den <= 0)):
+            break
+    return delta, l
+
+
+def _stencil_apply(F, triples, p):
+    """(A·p)[i] = Σ_t F[fid_t] · p[j_t] read at offset Δ_t, zero-padded."""
+    acc = [None] * p.shape[0]
+    rolled = {}
+    for delta, i, j, fid in triples:
+        pk = rolled.get((delta, j))
+        if pk is None:
+            pk = shift(p[j], delta)
+            rolled[(delta, j)] = pk
+        t = F[fid] * pk
+        acc[i] = t if acc[i] is None else acc[i] + t
+    zeros = torch.zeros(p.shape[1:], dtype=p.dtype, device=p.device)
+    return torch.stack([a if a is not None else zeros for a in acc])
+
+
+def fused_grid_cg_reference(F, triples, b, pre, lits, tol, *, guard_div=True):
+    """Plain PyTorch twin of the CUDA kernel on packed [C, *dom] tensors:
+    the same algebra through :func:`_run_cg`. Returns (delta, iterations)."""
+    return _run_cg(
+        b,
+        lambda p: _stencil_apply(F, triples, p),
+        lambda r: pre * r,
+        lambda x, y: torch.sum(x * y),
+        lits,
+        tol,
+        guard_div=guard_div,
+    )
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=32)
+def _device_triples(triples, ctot: int, device):
+    """Triples sorted stably by output channel as int32 [n, 5] rows
+    (d0, d1, i, j, fid) plus the per-channel row starts [ctot + 1], on the
+    device. Cached by value: a plan's triples are the same every GN step,
+    and each upload would stall the host on a device copy."""
+    rows = [(d[0], d[1], i, j, fid) for (d, i, j, fid) in sorted(triples, key=lambda t: t[1])]
+    starts = [0] * (ctot + 1)
+    for (_d0, _d1, i, _j, _f) in rows:
+        starts[i + 1] += 1
+    for c in range(ctot):
+        starts[c + 1] += starts[c]
+    return (
+        torch.tensor(rows, dtype=torch.int32).to(device),
+        torch.tensor(starts, dtype=torch.int32).to(device),
+    )
+
+
+def _grid_size(lib, device) -> int:
+    """Co-resident block count for the cooperative launch on ``device``."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = lib.fused_grid_cg_max_blocks(BLOCK_THREADS, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"fused_grid_cg occupancy query failed: CUDA error {err}")
+    return int(out.value)
+
+
+def _check_operand(name, t, shape, dtype, device):
+    if t.device != device:
+        raise ValueError(f"fused_grid_cg: {name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"fused_grid_cg: {name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"fused_grid_cg: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"fused_grid_cg: {name} is not contiguous")
+
+
+def fused_grid_cg_kernel(meta, b, pre, lits, tol, *, guard_div=True):
+    """Launch the CUDA kernel on packed [C, N0, N1] float32 CUDA tensors.
+    Returns (delta, iters int32[1] on the device). Does not synchronise.
+    Each launch adds one to ``fused_grid_cg_kernel.launches``."""
+    from ._build import load_library
+
+    F = meta["F"]
+    device = b.device
+    if device.type != "cuda":
+        raise ValueError(f"fused_grid_cg_kernel needs CUDA tensors, got {device}")
+    C, N0, N1 = (int(s) for s in b.shape)
+    _check_operand("b", b, (C, N0, N1), torch.float32, device)
+    _check_operand("pre", pre, (C, N0, N1), torch.float32, device)
+    _check_operand("F", F, (F.shape[0], N0, N1), torch.float32, device)
+    n_triples = len(meta["triples"])
+    if not 0 < n_triples <= MAX_TRIPLES or C > MAX_CHANNELS:
+        raise ValueError(
+            f"fused_grid_cg_kernel takes up to {MAX_TRIPLES} triples and "
+            f"{MAX_CHANNELS} channels, got {n_triples} and {C}"
+        )
+    if any(not 0 <= fid < F.shape[0] for (_d, _i, _j, fid) in meta["triples"]):
+        raise ValueError("fused_grid_cg_kernel: triple field id out of range")
+    total = C * N0 * N1
+    if total >= 2**31 or F.numel() >= 2**31:
+        raise ValueError("fused_grid_cg_kernel indexes with int32: problem too large")
+    lib = load_library()
+    grid = min(_grid_size(lib, device), -(-total // BLOCK_THREADS))
+    tr, starts = _device_triples(meta["triples"], int(meta["ctot"]), device)
+    delta = torch.empty_like(b)
+    r = torch.empty_like(b)
+    p = torch.empty_like(b)
+    Ap = torch.empty_like(b)
+    part_den = torch.empty(grid, dtype=torch.float64, device=device)
+    part_rz = torch.empty(grid, dtype=torch.float64, device=device)
+    iters = torch.empty(1, dtype=torch.int32, device=device)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    with torch.cuda.device(device):
+        err = lib.fused_grid_cg_launch(
+            ptr(F), ptr(b), ptr(pre), ptr(tr), ptr(starts),
+            C, N0, N1, int(lits), ctypes.c_float(float(tol)), int(bool(guard_div)),
+            ptr(delta), ptr(r), ptr(p), ptr(Ap), ptr(part_den), ptr(part_rz), ptr(iters),
+            grid, BLOCK_THREADS,
+            ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream),
+        )
+    if err != 0:
+        raise RuntimeError(f"fused_grid_cg kernel launch failed: CUDA error {err}")
+    fused_grid_cg_kernel.launches += 1
+    return delta, iters
+
+
+fused_grid_cg_kernel.launches = 0
+
+
+def pack(d, meta):
+    """[*dom, C_u] per unknown -> channel-major packed [C, *dom]."""
+    u_list = meta["u_list"]
+    a = torch.cat([d[u] for u in u_list], dim=-1) if len(u_list) > 1 else d[u_list[0]]
+    return torch.movedim(a, -1, 0).contiguous()
+
+
+def fused_grid_cg(meta, r0, pre, l_iterations, rz_tolerance, *, guard_div=True,
+                  interpret=False):
+    """Run the whole PCG loop; returns (delta dict, iterations executed as a
+    0-dim int32 tensor). Packs [*dom, C] dicts channel-major as [C, *dom].
+
+    CPU tensors, or ``interpret=True``, run the plain twin. CUDA tensors
+    launch the kernel. Any other device raises."""
+    b = pack(r0, meta)
+    prem = pack(pre, meta)
+    if interpret or b.device.type == "cpu":
+        delta, l = fused_grid_cg_reference(
+            meta["F"], meta["triples"], b, prem, l_iterations, rz_tolerance,
+            guard_div=guard_div,
+        )
+        iters = torch.full((), l, dtype=torch.int32, device=b.device)
+    elif b.device.type == "cuda":
+        delta, it = fused_grid_cg_kernel(
+            meta, b, prem, l_iterations, rz_tolerance, guard_div=guard_div
+        )
+        iters = it[0]
+    else:
+        raise ValueError(
+            f"fused_grid_cg runs on CPU (plain twin) or CUDA (kernel) tensors, "
+            f"not {b.device}"
+        )
+    packed = torch.movedim(delta, 0, -1)
+    out = {}
+    for u in meta["u_list"]:
+        o = meta["offs"][u]
+        out[u] = packed[..., o : o + meta["channels"][u]]
+    return out, iters

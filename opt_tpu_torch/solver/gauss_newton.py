@@ -1,0 +1,253 @@
+"""Gauss-Newton solver with Jacobi-preconditioned CG.
+
+PyTorch counterpart of the GN half of ``opt_tpu/solver/gauss_newton.py``
+(the reference's "gaussNewtonGPU" plan kind), with the same numerics:
+
+* PCGInit1: delta=0, r=-JᵀF, p=M⁻¹r with the guarded invert, rᵀz;
+* PCGStep1/2/3: α=rᵀz/pᵀAp (guarded), x/r updates, β=rᵀz_new/rᵀz_old,
+  exit on the rᵀz floor or pᵀAp ≤ 0.
+
+The JAX package runs a whole solve as one XLA program. Here the nonlinear
+loop runs on the host with one device→host read per GN step; the CG loop
+runs either as one CUDA kernel launch (ops/fused_cg.py; the plain twin on
+the CPU) or as the eager loop of ``_run_cg`` on the assembled operator.
+
+Levenberg-Marquardt, Chronopoulos–Gear CG, block-Jacobi and narrowed
+coefficient storage are later slices of the port (ROADMAP.md queue 1
+item 8) and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from ..compile import CompiledProblem
+from ..functions import FunctionSet, tree_dot
+from ..ops.fused_cg import _run_cg, fused_grid_cg
+from .params import (
+    FLOAT_EPSILON,
+    GuardedInvertType,
+    InitializationParameters,
+    resolve_auto_policy,
+)
+
+LATER_SLICE = "not ported yet (ROADMAP.md queue 1 item 8)"
+
+
+class GaussNewtonSolver:
+    """One solver instance per compiled problem."""
+
+    def __init__(
+        self,
+        compiled: CompiledProblem,
+        uses_lambda: bool,
+        init_params: Optional[InitializationParameters] = None,
+    ):
+        if uses_lambda:
+            raise NotImplementedError(f"Levenberg-Marquardt is {LATER_SLICE}")
+        self.compiled = compiled
+        self.uses_lambda = False
+        self.ip = resolve_auto_policy(
+            init_params or InitializationParameters(), 1, bool(compiled.registry.graphs)
+        )
+        if self.ip.cg_variant != "standard":
+            raise NotImplementedError(f"cg_variant={self.ip.cg_variant!r} is {LATER_SLICE}")
+        if self.ip.preconditioner != "jacobi":
+            raise NotImplementedError(
+                f"preconditioner={self.ip.preconditioner!r} is {LATER_SLICE}"
+            )
+        if self.ip.coefficient_dtype is not None:
+            raise NotImplementedError(f"coefficient_dtype is {LATER_SLICE}")
+        if self.ip.use_explicit_jtj:
+            raise NotImplementedError(
+                "use_explicit_jtj is not ported yet (ROADMAP.md queue 1 item 12)"
+            )
+        self._stencil_plan = None
+        if self.ip.use_fused_jtj:
+            from ..assembly import plan_assembly
+
+            self._stencil_plan = plan_assembly(
+                compiled.spec_fn, compiled,
+                memory_limit_bytes=self.ip.fused_jtj_memory_limit_bytes,
+            )
+        mode = self.ip.use_pallas_cg
+        if mode == "interpret":
+            self._pallas_mode = "interpret"
+        elif mode in (False, "off", None):
+            self._pallas_mode = None
+        else:  # "auto", True, "on": kernel for CUDA tensors, twin for CPU
+            self._pallas_mode = "auto"
+
+    # -- numerics helpers ------------------------------------------------------
+    def _guarded_invert(self, p):
+        """solverGPUGaussNewton.t:325-351."""
+        t = self.ip.guarded_invert_type
+        if t == GuardedInvertType.CERES:
+            inv = lambda v: 1.0 / torch.square(1.0 + torch.sqrt(v))  # noqa: E731
+        elif t == GuardedInvertType.MODIFIED_CERES:
+            inv = lambda v: 1.0 / (1.0 + v)  # noqa: E731
+        else:
+            inv = lambda v: 1.0 / (FLOAT_EPSILON + v)  # noqa: E731
+        return {k: inv(v) for k, v in p.items()}
+
+    # -- state -----------------------------------------------------------------
+    def _init_state(self, X, consts, graphs, params, sp):
+        fs = FunctionSet(self.compiled, consts, graphs, params)
+        dt = self.compiled.dtype
+        device = next(iter(X.values())).device
+        return {
+            "X": X,
+            "SSq": {k: torch.ones_like(v) for k, v in X.items()},
+            "prev_cost": fs.cost(X).to(dt),
+            "trust_region_radius": torch.full(
+                (), sp["trust_region_radius"], dtype=dt, device=device
+            ),
+            "radius_decrease_factor": torch.full(
+                (), sp["radius_decrease_factor"], dtype=dt, device=device
+            ),
+            "n_iter": torch.zeros((), dtype=torch.int32, device=device),
+            "lin_iters": torch.zeros((), dtype=torch.int32, device=device),
+            "done": torch.zeros((), dtype=torch.bool, device=device),
+        }
+
+    def init(self, X, consts, graphs, params, sp):
+        return self._init_state(X, consts, graphs, params, sp)
+
+    def step(self, state, consts, graphs, params, sp):
+        """One nonlinear iteration, or the state unchanged once done."""
+        if bool(state["done"]) or int(state["n_iter"]) >= sp["nIterations"]:
+            return state
+        fs = FunctionSet(self.compiled, consts, graphs, params)
+        return self._gn_step(state, fs, sp)
+
+    def validate_assembly(self, X, consts, graphs, params) -> bool:
+        """Random-vector apply comparison of the assembled JᵀJ operator
+        against the composed Jᵀ(J·p), through the same const-cache path the
+        solver runs, at the real inputs X and at an O(1) perturbation X′
+        with the const cache still built at X (catches constant-slot false
+        positives). True when both agree."""
+        if self._stencil_plan is None:
+            return True
+        c = self.compiled
+        device = next(iter(X.values())).device
+        rng = np.random.RandomState(20260817)
+
+        def draw(k):
+            return torch.as_tensor(rng.uniform(-1.0, 1.0, c.unknown_shape(k))).to(
+                device=device, dtype=c.dtype
+            )
+
+        v = {k: draw(k) for k in c.unknown_names}
+        dX = {k: draw(k) for k in c.unknown_names}
+
+        def _one(fs, Xp, A, vm):
+            _r, J, JT = fs.linearize(Xp)
+            ref = JT(J(vm))
+            got = A(vm)
+            err = torch.zeros((), dtype=c.dtype, device=device)
+            scale = torch.zeros((), dtype=c.dtype, device=device)
+            for k in ref:
+                # compare only where both operators are finite
+                ok = torch.isfinite(ref[k]) & torch.isfinite(got[k])
+                diff = torch.where(ok, torch.abs(ref[k] - got[k]), 0.0)
+                err = torch.maximum(err, torch.max(diff))
+                scale = torch.maximum(scale, torch.max(torch.where(ok, torch.abs(ref[k]), 0.0)))
+            return err, scale
+
+        fs = FunctionSet(c, consts, graphs, params)
+        fs.masks(X)
+        cc = fs.assemble_const(X, self._stencil_plan)
+        A, _diag, _jtf, _meta = fs.assemble_stencil(X, self._stencil_plan, cc)
+        err1, scale1 = _one(fs, X, A, fs.mask_rows(v))
+        Xp = {k: X[k] + dX[k] * (0.5 * torch.abs(X[k]) + 0.5) for k in X}
+        fs2 = FunctionSet(c, consts, graphs, params)
+        fs2.masks(Xp)
+        A2, _d2, _j2, _m2 = fs2.assemble_stencil(Xp, self._stencil_plan, cc)
+        err2, scale2 = _one(fs2, Xp, A2, fs2.mask_rows(v))
+        err = float(torch.maximum(err1, err2))
+        scale = float(torch.maximum(scale1, scale2))
+        tol = 1e-9 if c.dtype == torch.float64 else 5e-4
+        return err <= tol * (1.0 + scale)
+
+    def _asm_cache(self, fs: FunctionSet, X0):
+        """Loop-invariant assembly data (constant-slot probes + products),
+        computed once per solve before the nonlinear loop."""
+        if self._stencil_plan is None:
+            return None
+        return fs.assemble_const(X0, self._stencil_plan)
+
+    # ---- shared PCG pieces -------------------------------------------------
+    def _prepare(self, X, fs: FunctionSet):
+        fs.masks(X)
+        r_terms, J, JT = fs.linearize(X)
+        r0 = {k: -v for k, v in JT(r_terms).items()}
+        return r_terms, J, JT, r0
+
+    def gn_system(self, X, fs: FunctionSet, asm_cache=None):
+        """The linear system of one GN step at X: (A, r0 = -JᵀF, pre, cg_meta)
+        with pre the row-masked guarded-inverted Jacobi diagonal (ones when
+        the spec disables the preconditioner) and cg_meta the fused grid CG
+        descriptor or None."""
+        cg_meta = None
+        if self._stencil_plan is not None:
+            if asm_cache is None:
+                asm_cache = self._asm_cache(fs, X)
+            A, diag_asm, jtf_fn, cg_meta = fs.assemble_stencil(
+                X, self._stencil_plan, asm_cache
+            )
+            r_terms = jtf_fn.r_terms
+            if r_terms is None:  # every probe hoisted: evaluate residuals
+                r_terms = fs.F(X)
+            r0 = {k: -v for k, v in jtf_fn(r_terms).items()}
+        else:
+            _r, J, JT, r0 = self._prepare(X, fs)
+            A, diag_asm = (lambda v: JT(J(v))), None
+        if self.compiled.use_preconditioner:
+            pre_raw = diag_asm if diag_asm is not None else fs.jtj_diag(X)
+        else:
+            pre_raw = {k: torch.ones_like(v) for k, v in r0.items()}
+        pre = fs.mask_rows(self._guarded_invert(pre_raw))
+        return A, r0, pre, cg_meta
+
+    def _gn_step(self, state, fs: FunctionSet, sp, asm_cache=None):
+        X = state["X"]
+        A, r0, pre, cg_meta = self.gn_system(X, fs, asm_cache)
+        if cg_meta is not None and self._pallas_mode is not None:
+            delta, l_done = fused_grid_cg(
+                cg_meta, r0, pre, sp["lIterations"], sp["cg_rz_tolerance"],
+                guard_div=self.ip.guard_division_by_zero,
+                interpret=self._pallas_mode == "interpret",
+            )
+        else:
+            delta, l = _run_cg(
+                r0, A, lambda r: {k: pre[k] * r[k] for k in r}, tree_dot,
+                sp["lIterations"], sp["cg_rz_tolerance"],
+                guard_div=self.ip.guard_division_by_zero,
+            )
+            l_done = torch.full((), l, dtype=torch.int32, device=state["n_iter"].device)
+        X_new = {k: X[k] + delta[k] for k in X}
+        return {
+            **state,
+            "X": X_new,
+            "prev_cost": fs.cost(X_new).to(state["prev_cost"].dtype),
+            "n_iter": state["n_iter"] + 1,
+            "lin_iters": state["lin_iters"] + l_done,
+        }
+
+    # -- full solve --------------------------------------------------------------
+    def solve(self, X, consts, graphs, params, sp: Dict[str, Any]):
+        """Full solve: returns (final state, per-iteration cost tensors). The
+        nonlinear loop reads one flag per GN step from the device."""
+        state = self._init_state(X, consts, graphs, params, sp)
+        asm_cache = self._asm_cache(FunctionSet(self.compiled, consts, graphs, params), X)
+        costs = []
+        for _ in range(int(sp["nIterations"])):
+            if bool(state["done"]):
+                break
+            fs = FunctionSet(self.compiled, consts, graphs, params)
+            state = self._gn_step(state, fs, sp, asm_cache)
+            costs.append(state["prev_cost"])
+        return state, costs

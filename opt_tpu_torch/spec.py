@@ -1,0 +1,468 @@
+"""The energy DSL: spec tracing, accessors, and slot recording.
+
+PyTorch counterpart of ``opt_tpu/spec.py``. A user spec is a plain Python
+function that is re-executed; accessor calls like ``X(0, 0)`` return real
+tensors (zero-padded shifted views) and all arithmetic is ordinary torch
+arithmetic, so ``torch.func`` provides the matrix-free JᵀF and JᵀJ·p that
+the reference derives symbolically.
+
+The spec function runs under three interchangeable accessor backends:
+
+* ``field`` — accessors return whole-image shifted tensors. Used for cost,
+  residuals, JᵀF (vjp) and JᵀJ·p (jvp + vjp).
+* ``discover`` — a first pass on the ``meta`` device (shapes only) that
+  records declarations and assigns a stable *slot* to every distinct
+  (image, offset) access.
+* ``slots`` — accessors return entries of a slot-value list. The resulting
+  residual function is *pointwise* over the domain, which lets the exact
+  Jacobi diagonal and the assembled JᵀJ fields come from one-hot jvp probes.
+
+Spec functions must be deterministic across re-execution (same
+declarations, same Energy calls in the same order).
+
+``Select`` keeps the double-``where`` form (lib.py), so the untaken branch
+passes neither values nor gradients and ±inf sentinels stay harmless.
+
+Graph domains (slice 3), ``ComputedArray`` and ``SampledImage`` (slice 2)
+are outside this package's first slice: graphs are declared and classified
+(so mixed-domain errors match the reference package) but cannot be
+evaluated, and the other two raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from .dims import Dim, IndexSpace, as_ispace
+from .ops.shift import coordinate_field, in_bounds_mask, shift
+
+GRAPHS_TODO = "graph domains are not ported yet (ROADMAP.md queue 1 item 10)"
+COMPUTED_TODO = (
+    "ComputedArray and SampledImage are not ported yet (ROADMAP.md queue 1 "
+    "item 9)"
+)
+
+
+class SpecError(Exception):
+    pass
+
+
+UNKNOWN = "unknown"
+ARRAY = "array"
+
+
+@dataclasses.dataclass
+class ImageDecl:
+    """An image parameter (reference ``ProblemSpec:Image/:Unknown``)."""
+
+    name: str
+    channels: int
+    ispace: IndexSpace
+    kind: str  # UNKNOWN or ARRAY
+    # Const view of an unknown: reads the unknown's current values but
+    # carries no gradient (Array(..., alias="r")).
+    alias: Optional[str] = None
+
+
+@dataclasses.dataclass
+class GraphDecl:
+    """A hyperedge set (reference ``ProblemSpec:Graph``)."""
+
+    name: str
+    slots: Dict[str, IndexSpace]
+
+
+@dataclasses.dataclass
+class ParamDecl:
+    name: str
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphSlotRef:
+    graph: str
+    slot: str
+
+
+# Slot keys: ('img', image, offsets) | ('gimg', image, graph, slot) |
+# ('bounds', ispace_dims, offsets, expand)
+
+
+def _img_key(name: str, off: Tuple[int, ...]):
+    return ("img", name, off)
+
+
+def _gimg_key(name: str, graph: str, slot: str):
+    return ("gimg", name, graph, slot)
+
+
+def _bounds_key(ispace_key, off, expand):
+    return ("bounds", ispace_key, off, expand)
+
+
+@dataclasses.dataclass
+class SlotInfo:
+    key: tuple
+    image: Optional[str]
+    kind: str  # 'img' | 'gimg' | 'bounds'
+    ispace: IndexSpace
+    graph: Optional[str]
+    offset: Optional[Tuple[int, ...]]
+    expand: int
+    channels: int
+    is_unknown: bool
+    internal: bool = False
+
+
+@dataclasses.dataclass
+class EnergyTerm:
+    index: int
+    # filled by dependence analysis in compile.py:
+    domain: Any = None  # ('centered', IndexSpace) | ('graph', graph_name)
+    slot_ids: Tuple[int, ...] = ()
+    uses_bounds: bool = False
+    bbox: Optional[Tuple[Tuple[int, ...], Tuple[int, ...]]] = None
+    channels: int = 1
+
+
+@dataclasses.dataclass
+class ExcludeTerm:
+    index: int
+    ispace: Optional[IndexSpace] = None
+    slot_ids: Tuple[int, ...] = ()
+
+
+_BUILDER_STACK: List["SpecBuilder"] = []
+
+
+def current_builder() -> "SpecBuilder":
+    if not _BUILDER_STACK:
+        raise SpecError(
+            "this DSL function may only be used while a spec function is being traced"
+        )
+    return _BUILDER_STACK[-1]
+
+
+def _as_dtype(v, dtype, device):
+    if isinstance(v, torch.Tensor):
+        return v if v.dtype == dtype else v.to(dtype)
+    return torch.tensor(v, dtype=dtype, device=device)
+
+
+class ImageHandle:
+    def __init__(self, builder: "SpecBuilder", decl: ImageDecl):
+        self._b = builder
+        self.decl = decl
+
+    @property
+    def name(self):
+        return self.decl.name
+
+    @property
+    def channels(self):
+        return self.decl.channels
+
+    def __call__(self, *index):
+        return self._b._access_image(self.decl, index)
+
+
+class GraphHandle:
+    def __init__(self, decl: GraphDecl):
+        self._decl = decl
+
+    def __getattr__(self, item):
+        if item.startswith("_"):
+            raise AttributeError(item)
+        if item not in self._decl.slots:
+            raise SpecError(f"graph {self._decl.name} has no slot {item!r}")
+        return GraphSlotRef(self._decl.name, item)
+
+
+class SpecBuilder:
+    """Executes a user spec function under one of three accessor backends."""
+
+    def __init__(
+        self,
+        mode: str,
+        dim_sizes: Dict[str, int],
+        dtype,
+        registry: Optional["SpecRegistry"] = None,
+        bindings: Optional[Dict[str, Any]] = None,
+        slot_values: Optional[Sequence[Any]] = None,
+        device="cpu",
+    ):
+        if mode not in ("discover", "field", "slots"):
+            raise ValueError(f"unknown spec backend {mode!r}")
+        self.mode = mode
+        self.dim_sizes = dim_sizes
+        self.dtype = dtype
+        self.device = torch.device(device)
+        self.registry = registry if registry is not None else SpecRegistry()
+        self.bindings = bindings or {}
+        self.slot_values = list(slot_values) if slot_values is not None else None
+        self.energy_values: List[Any] = []
+        self.exclude_values: List[Any] = []
+        self._dims_seen: Dict[str, Dim] = {}
+
+    def __enter__(self):
+        _BUILDER_STACK.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        _BUILDER_STACK.pop()
+        return False
+
+    # -- declarations --------------------------------------------------------
+    def Dim(self, name: str, index: Optional[int] = None) -> Dim:
+        # `index` accepted for reference-spec portability; binding is by name.
+        del index
+        d = self._dims_seen.get(name)
+        if d is None:
+            d = Dim(name)
+            self._dims_seen[name] = d
+            if name not in self.registry.dim_order:
+                self.registry.dim_order.append(name)
+            if name not in self.dim_sizes:
+                if "*" in self.dim_sizes:
+                    self.dim_sizes[name] = int(self.dim_sizes["*"])
+                else:
+                    raise SpecError(
+                        f"no size bound for Dim({name!r}); pass dims={{...}} to plan()"
+                    )
+        return d
+
+    def Unknown(self, name, channels, dims, index=None) -> ImageHandle:
+        return self._declare_image(name, channels, dims, UNKNOWN)
+
+    def Array(self, name, channels, dims, index=None, alias=None) -> ImageHandle:
+        return self._declare_image(name, channels, dims, ARRAY, alias=alias)
+
+    Image = Array
+
+    def _declare_image(self, name, channels, dims, kind, alias=None) -> ImageHandle:
+        ispace = as_ispace(dims)
+        decl = self.registry.declare_image(name, int(channels), ispace, kind, alias)
+        return ImageHandle(self, decl)
+
+    def Graph(self, name: str, *slot_pairs, **slot_kwargs) -> GraphHandle:
+        """Declare a hyperedge set: ``Graph("G", v0=(N,), v1=(N,))`` or
+        reference-style positional pairs ``Graph("G", "v0", (N,), ...)``."""
+        slots: Dict[str, IndexSpace] = {}
+        items = [a for a in slot_pairs if not isinstance(a, int)]
+        for i in range(0, len(items), 2):
+            sname = items[i]
+            if not isinstance(sname, str):
+                raise SpecError(f"expected slot name string, got {sname!r}")
+            slots[sname] = as_ispace(items[i + 1])
+        for sname, dims in slot_kwargs.items():
+            slots[sname] = as_ispace(dims)
+        return GraphHandle(self.registry.declare_graph(name, slots))
+
+    def Param(self, name: str, typ=None, index=None):
+        """A named scalar parameter (reference ``:Param``)."""
+        self.registry.declare_param(name)
+        if self.mode == "field" or self.slot_values is not None:
+            params = self.bindings.get("params", {})
+            if name in params:
+                return _as_dtype(params[name], self.dtype, self.device)
+        return torch.ones((), dtype=self.dtype, device=self.device)
+
+    def ComputedArray(self, name: str, dims, fn):
+        raise NotImplementedError(COMPUTED_TODO)
+
+    def SampledImage(self, image, dx=None, dy=None):
+        raise NotImplementedError(COMPUTED_TODO)
+
+    # -- spec-level switches --------------------------------------------------
+    def UsePreconditioner(self, flag: bool):
+        self.registry.use_preconditioner = bool(flag)
+
+    def Exclude(self, cond):
+        """Freeze unknowns where cond holds (reference :Exclude)."""
+        if not isinstance(cond, torch.Tensor):
+            cond = torch.tensor(cond, device=self.device)
+        if cond.dtype != torch.bool:
+            cond = cond != 0
+        self.exclude_values.append(cond)
+        self.registry.note_exclude(len(self.exclude_values) - 1)
+
+    def Energy(self, *terms):
+        for t in terms:
+            self.energy_values.append(_as_dtype(t, self.dtype, self.device))
+            self.registry.note_energy(len(self.energy_values) - 1)
+
+    # -- bounds / coordinates --------------------------------------------------
+    def InBounds(self, *off):
+        return self._bounds(tuple(int(o) for o in off), expand=0)
+
+    def InBoundsExpanded(self, *args):
+        *off, expand = args
+        return self._bounds(tuple(int(o) for o in off), expand=int(expand))
+
+    def _bounds(self, off: Tuple[int, ...], expand: int):
+        ispace = self._grid_ispace_for_ndim(len(off))
+        shape = ispace.shape(self.dim_sizes)
+        key = _bounds_key(ispace.dims, off, expand)
+        # float 0/1 fields in every mode so they ride the slot machinery
+        # (jvp probes need inexact inputs)
+        if self.mode == "field":
+            return in_bounds_mask(shape, off, expand, dtype=self.dtype, device=self.device)
+        sid = self.registry.slot_for(
+            key,
+            lambda: SlotInfo(
+                key=key, image=None, kind="bounds", ispace=ispace, graph=None,
+                offset=off, expand=expand, channels=1, is_unknown=False,
+            ),
+        )
+        if self.mode == "slots":
+            return self.slot_values[sid]
+        return torch.ones(shape + (1,), dtype=self.dtype, device=self.device)
+
+    def Index(self, axis: int, dims=None):
+        ispace = as_ispace(dims) if dims is not None else self._grid_ispace_for_ndim(None)
+        shape = ispace.shape(self.dim_sizes)
+        return coordinate_field(shape, int(axis), self.dtype, device=self.device)
+
+    # -- access implementation -------------------------------------------------
+    def _grid_ispace_for_ndim(self, ndim: Optional[int]) -> IndexSpace:
+        uniq = []
+        for d in self.registry.images.values():
+            if (ndim is None or d.ispace.ndim == ndim) and d.ispace not in uniq:
+                uniq.append(d.ispace)
+        if len(uniq) != 1:
+            raise SpecError(
+                f"cannot infer index space (candidates: {uniq}); pass dims= explicitly"
+            )
+        return uniq[0]
+
+    def _access_image(self, decl: ImageDecl, index):
+        if len(index) == 1 and isinstance(index[0], GraphSlotRef):
+            return self._access_image_graph(decl, index[0])
+        off = tuple(int(o) for o in index)
+        if len(off) != decl.ispace.ndim:
+            raise SpecError(
+                f"{decl.name}: expected {decl.ispace.ndim} offsets, got {len(off)}"
+            )
+        key = _img_key(decl.name, off)
+        shape = decl.ispace.shape(self.dim_sizes) + (decl.channels,)
+        if self.mode == "field":
+            return shift(self._bound_image(decl), off)
+        sid = self.registry.slot_for(
+            key,
+            lambda: SlotInfo(
+                key=key, image=decl.name, kind="img", ispace=decl.ispace, graph=None,
+                offset=off, expand=0, channels=decl.channels,
+                is_unknown=decl.kind == UNKNOWN,
+            ),
+        )
+        if self.mode == "slots":
+            return self.slot_values[sid]
+        return torch.ones(shape, dtype=self.dtype, device=self.device)
+
+    def _access_image_graph(self, decl: ImageDecl, ref: GraphSlotRef):
+        if decl.ispace.ndim != 1:
+            raise SpecError("graph-accessed images must live on a 1-D index space")
+        if self.mode == "field":
+            raise NotImplementedError(GRAPHS_TODO)
+        key = _gimg_key(decl.name, ref.graph, ref.slot)
+        sid = self.registry.slot_for(
+            key,
+            lambda: SlotInfo(
+                key=key, image=decl.name, kind="gimg", ispace=decl.ispace,
+                graph=ref.graph, offset=None, expand=0, channels=decl.channels,
+                is_unknown=decl.kind == UNKNOWN,
+            ),
+        )
+        if self.mode == "slots":
+            return self.slot_values[sid]
+        E0 = self.registry.dummy_edge_count
+        return torch.ones((E0, decl.channels), dtype=self.dtype, device=self.device)
+
+    # -- bindings ---------------------------------------------------------------
+    def _bound_image(self, decl: ImageDecl) -> torch.Tensor:
+        if decl.alias is not None:
+            arr = self.bindings.get("unknowns", {}).get(decl.alias)
+            if arr is None:
+                raise SpecError(f"alias image {decl.name!r}: no unknown {decl.alias!r}")
+            return arr.detach()
+        src = "unknowns" if decl.kind == UNKNOWN else "consts"
+        d = self.bindings.get(src, {})
+        if decl.name not in d:
+            raise SpecError(f"no value bound for {decl.kind} image {decl.name!r}")
+        arr = d[decl.name]
+        if arr.dim() == decl.ispace.ndim:
+            arr = arr[..., None]
+        return arr
+
+
+class SpecRegistry:
+    """Declarations + slot table shared by all trace passes of one plan."""
+
+    def __init__(self, dummy_edge_count: int = 4):
+        self.dim_order: List[str] = []
+        self.images: Dict[str, ImageDecl] = {}
+        self.graphs: Dict[str, GraphDecl] = {}
+        self.params: Dict[str, ParamDecl] = {}
+        self.slots: List[SlotInfo] = []
+        self._slot_by_key: Dict[tuple, int] = {}
+        self.energy_terms: List[EnergyTerm] = []
+        self.exclude_terms: List[ExcludeTerm] = []
+        self.use_preconditioner = True
+        self.dummy_edge_count = dummy_edge_count
+        self.frozen = False
+
+    def declare_image(self, name, channels, ispace, kind, alias=None) -> ImageDecl:
+        prev = self.images.get(name)
+        if prev is not None:
+            if prev.channels != channels or prev.ispace != ispace or prev.kind != kind:
+                raise SpecError(f"inconsistent re-declaration of image {name!r}")
+            return prev
+        if self.frozen:
+            raise SpecError(f"non-deterministic spec: new image {name!r} on re-trace")
+        decl = ImageDecl(name, channels, ispace, kind, alias)
+        self.images[name] = decl
+        return decl
+
+    def declare_graph(self, name, slots) -> GraphDecl:
+        prev = self.graphs.get(name)
+        if prev is not None:
+            return prev
+        if self.frozen:
+            raise SpecError(f"non-deterministic spec: new graph {name!r} on re-trace")
+        decl = GraphDecl(name, slots)
+        self.graphs[name] = decl
+        return decl
+
+    def declare_param(self, name):
+        if name not in self.params:
+            if self.frozen:
+                raise SpecError(f"non-deterministic spec: new param {name!r} on re-trace")
+            self.params[name] = ParamDecl(name)
+
+    def slot_for(self, key, make_info) -> int:
+        sid = self._slot_by_key.get(key)
+        if sid is None:
+            if self.frozen:
+                raise SpecError(f"non-deterministic spec: new access {key} on re-trace")
+            sid = len(self.slots)
+            self._slot_by_key[key] = sid
+            self.slots.append(make_info())
+        return sid
+
+    def note_energy(self, idx: int):
+        if idx >= len(self.energy_terms):
+            if self.frozen:
+                raise SpecError("non-deterministic spec: extra Energy() on re-trace")
+            self.energy_terms.append(EnergyTerm(index=idx))
+
+    def note_exclude(self, idx: int):
+        if idx >= len(self.exclude_terms):
+            if self.frozen:
+                raise SpecError("non-deterministic spec: extra Exclude() on re-trace")
+            self.exclude_terms.append(ExcludeTerm(index=idx))
+
+    @property
+    def unknown_names(self) -> List[str]:
+        return [n for n, d in self.images.items() if d.kind == UNKNOWN]

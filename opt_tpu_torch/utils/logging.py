@@ -1,0 +1,26 @@
+"""Verbosity-gated solver logging (reference: logSolver, o.t:31-78;
+verbosity levels documented at Opt.h:16-20).
+
+Level 0: silent. 1 and up: solver progress (cost per nonlinear iteration)
+and bind-time notices (clamped ±inf sentinels), on stderr.
+"""
+
+from __future__ import annotations
+
+import sys
+
+_VERBOSITY = 0
+
+
+def set_verbosity(level: int) -> None:
+    global _VERBOSITY
+    _VERBOSITY = int(level)
+
+
+def verbosity() -> int:
+    return _VERBOSITY
+
+
+def log_solver(msg: str, *args) -> None:
+    if _VERBOSITY >= 1:
+        print(msg % args if args else msg, file=sys.stderr)

@@ -1,0 +1,75 @@
+"""opt_tpu_torch stands alone: it imports neither JAX nor opt_tpu, builds no
+kernel on import, and never carries on on the CPU when the card was asked
+for."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import opt_tpu_torch as ott
+from opt_tpu_torch.models import specs as tspecs
+from opt_tpu_torch.ops import fused_cg
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parents[1]
+
+_CHILD = r"""
+import sys
+import numpy as np
+import opt_tpu_torch as ot
+from opt_tpu_torch.models.specs import laplacian
+rng = np.random.RandomState(0)
+plan = ot.Problem(laplacian).plan(dims={"W": 8, "H": 8})
+res = plan.solve({"X": rng.rand(8, 8).astype("f4"), "A": rng.rand(8, 8).astype("f4")},
+                 nIterations=2, lIterations=10)
+assert np.isfinite(res.final_cost) and res.num_linear_iterations > 0
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "opt_tpu" or m.startswith("opt_tpu."))
+assert not bad, bad
+assert "opt_tpu_torch.ops._build" not in sys.modules
+assert "triton" not in sys.modules
+print("ISOLATED")
+"""
+
+
+def test_import_and_cpu_solve_load_no_jax_and_no_kernel():
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="2")
+    out = subprocess.run(
+        [sys.executable, "-c", _CHILD], cwd=str(REPO), env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "ISOLATED" in out.stdout
+
+
+def test_sources_import_no_jax():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|opt_tpu)\b(?!_torch)", re.M)
+    files = sorted((REPO / "opt_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    offenders = [str(f) for f in files if pattern.search(f.read_text())]
+    assert not offenders
+
+
+def test_cuda_plan_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ott.Problem(tspecs.laplacian).plan(dims={"W": 8, "H": 8}, device="cuda")
+
+
+@pytest.mark.parametrize("device", ["meta", "mps"])
+def test_other_plan_devices_raise(device):
+    with pytest.raises(ValueError, match="unsupported device"):
+        ott.Problem(tspecs.laplacian).plan(dims={"W": 8, "H": 8}, device=device)
+
+
+def test_fused_grid_cg_refuses_other_devices():
+    meta = {"u_list": ("X",), "offs": {"X": 0}, "channels": {"X": 1}, "ctot": 1,
+            "triples": (((0, 0), 0, 0, 0),), "F": torch.ones((1, 4, 4), device="meta")}
+    x = {"X": torch.ones((4, 4, 1), device="meta")}
+    with pytest.raises(ValueError, match="CPU .* or CUDA"):
+        fused_cg.fused_grid_cg(meta, x, x, 5, 0.0)
