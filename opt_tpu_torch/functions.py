@@ -33,6 +33,16 @@ def _mask_rows(x: Dict[str, torch.Tensor], row_masks) -> Dict[str, torch.Tensor]
     return out
 
 
+def _mask_rows_select(x: Dict[str, torch.Tensor], row_masks) -> Dict[str, torch.Tensor]:
+    # select, not multiply: values that are non-finite at excluded rows (the
+    # LM damping, where 1/SSq = inf at diag(JᵀJ) = 0) would give inf*0 = NaN
+    out = {}
+    for k, v in x.items():
+        m = row_masks.get(k)
+        out[k] = v if m is None else torch.where(m != 0, v, torch.zeros_like(v))
+    return out
+
+
 def tree_dot(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Global dot product over the unknown super-vector."""
     total = None
@@ -90,14 +100,27 @@ class FunctionSet:
         _, row_masks = self.masks(X)
         r_terms, vjp_fn = torch.func.vjp(self.F, X)
 
-        def J(p):
-            return torch.func.jvp(self.F, (X,), (p,))[1]
-
         def JT(terms):
             (g,) = vjp_fn(list(terms))
             return _mask_rows(g, row_masks)
 
-        return r_terms, J, JT
+        return r_terms, self.jvp_fn(X), JT
+
+    def jvp_fn(self, X):
+        """J·() at X. The tangent dict may list the unknowns in any order
+        (torch.func compares dict structure with its key order)."""
+
+        def J(p):
+            return torch.func.jvp(self.F, (X,), ({k: p[k] for k in X},))[1]
+
+        return J
+
+    def model_cost(self, X, r_terms, J, delta) -> torch.Tensor:
+        """½‖F + Jδ‖² over non-excluded centers, from the explicit J·δ (the
+        LM model cost; the algebraic form drifts in f32)."""
+        excl, _ = self.masks(X)
+        jd = J(delta)
+        return self._masked_half_sq_sum([r + d for r, d in zip(r_terms, jd)], excl)
 
     def jtf(self, X):
         """JᵀF (positive sign; the solver negates: residuum = -JᵀF)."""
@@ -144,6 +167,11 @@ class FunctionSet:
 
     def mask_rows(self, x):
         return _mask_rows(x, self.row_masks)
+
+    def mask_rows_select(self, x):
+        """Where-based row masking, safe for non-finite values at excluded
+        rows."""
+        return _mask_rows_select(x, self.row_masks)
 
     # -- assembled gather-form JᵀJ (see assembly.py) ---------------------------
     def assemble_stencil(self, X, plan, const_cache=None):

@@ -80,13 +80,16 @@ def load_library() -> ctypes.CDLL:
     info = build_library()
     lib = ctypes.CDLL(str(info["path"]))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.fused_grid_cg_max_blocks.argtypes = [i32, ctypes.POINTER(i32)]
+    lib.fused_grid_cg_max_blocks.argtypes = [i32, i32, ctypes.POINTER(i32)]  # lm, block, out
     lib.fused_grid_cg_max_blocks.restype = i32
     lib.fused_grid_cg_launch.argtypes = [
-        vp, vp, vp, vp, vp,  # F, b, pre, triples, starts
+        i32,  # lm
+        vp, vp, vp, vp, vp, vp,  # F, b, pre, ctc, triples, starts
         i32, i32, i32,  # C, N0, N1
         i32, ctypes.c_float, i32,  # lits, tol, guard_div
-        vp, vp, vp, vp, vp, vp, vp,  # delta, r, p, Ap, part_den, part_rz, iters
+        i32, ctypes.c_float,  # reset_period, q_tol
+        vp, vp, vp, vp,  # delta, r, p, Ap
+        vp, vp, vp, vp,  # part_den, part_rz, part_q, iters
         i32, i32, vp,  # grid, block, stream
     ]
     lib.fused_grid_cg_launch.restype = i32

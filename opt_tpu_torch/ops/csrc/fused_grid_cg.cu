@@ -1,37 +1,57 @@
 // Whole-loop Jacobi-preconditioned CG for 2-D grid stencil operators, as one
-// persistent cooperative kernel for Hopper (sm_90a).
+// persistent cooperative kernel for Hopper (sm_90a), in two instances:
+// Gauss-Newton (LM = false) and Levenberg-Marquardt (LM = true).
 //
-// Replaces: opt_tpu/ops/pallas_cg.py::_kernel in its 2-D grid GN form (the
-// Pallas TPU kernel that runs the whole PCG inner loop of a grid problem in
-// one launch, with the loop algebra of _run_cg's gn_body).
+// Replaces, in opt_tpu/ops/pallas_cg.py:
+//   * _kernel (:328), the Pallas TPU kernel that runs the whole PCG inner
+//     loop of a grid problem in one launch, in its 2-D grid GN form, its
+//     mixed-unknown form (several unknowns packed into the channels, with
+//     cross-channel couplings i != j: image_warping's Offset(2) + Angle(1))
+//     and its lm=True form (_run_cg's lm_body);
+//   * _hbm_tiled_kernel (:1430), the TPU kernel that runs the same GN and LM
+//     loops for grids whose state does not fit VMEM, by streaming row
+//     windows from HBM in three sweeps per iteration. This kernel reads its
+//     state from device memory in every phase anyway (through L2), so the
+//     same two instances serve those cases; the row-window DMA is not
+//     carried over.
 //
 // What it computes, on channel-major [C, N0, N1] float32 state:
-//   r = b, p = pre*r, rz = <r, p>, floor = tol*rz
+//   r = b, p = pre*r, rz = <r, p>, floor = tol*rz, Q0 = 0
 //   repeat while l < lits:
 //     Ap[i] = sum_t F[fid_t] * p[j_t] read at offset (d0_t, d1_t)
-//     den = <p, Ap>;  alpha = rz/den (guarded)
-//     delta += alpha*p;  r -= alpha*Ap;  z = pre*r;  rz_new = <z, r>
-//     beta = rz_new/rz (guarded);  l += 1
-//     exit if rz_new <= floor or den <= 0;  p = z + beta*p
+//             (+ ctc*p under LM)
+//     den = <p, Ap>;  alpha = rz/den (guarded);  delta += alpha*p
+//     GN, or LM off a reset iteration:  r -= alpha*Ap
+//     LM when (l+1) % reset_period == 0:  r = b - (A*delta + ctc*delta)
+//     z = pre*r;  rz_new = <z, r>;  beta = rz_new/rz (guarded);  l += 1
+//     GN exit: rz_new <= floor or den <= 0
+//     LM exit: zeta < q_tol or rz_new <= floor, with Q1 = 0.5*<delta, b+r>,
+//              zeta = (l*(Q1 - Q0))/Q1, Q0 = Q1 (no den <= 0 exit)
+//     p = z + beta*p
 // and returns delta and the executed iteration count l.
 //
-// What bounds it: memory traffic. Each iteration reads the T coefficient
+// What bounds it: memory traffic. A GN iteration reads the T coefficient
 // planes and about 6*C state planes (p at every stencil offset, Ap, r,
-// delta, pre) and writes about 4*C. For poisson 512x512x4 that is about
-// 25 MB per iteration, which fits the H100's 50 MB L2, so the loop runs
-// mostly out of L2; at 2048x2048x4 one state vector is 64 MB and every
-// phase streams from HBM. The arithmetic is a few flops per byte.
+// delta, pre) and writes about 4*C. LM adds the ctc plane in the apply, the
+// b plane for the third dot <delta, b+r>, and on a reset iteration one more
+// stencil sweep over delta. For poisson 512x512x4 that is about 25 MB per
+// iteration, which fits the H100's 50 MB L2, so the loop runs mostly out of
+// L2; image_warping 1024x1024x3 (26 fields read by 31 triples) moves about
+// 170 MB per iteration and every phase streams from HBM. The arithmetic is
+// a few flops per byte.
 //
 // What the design does about it:
 //   * One launch for the whole loop (no per-iteration launch or host round
 //     trip, the TPU kernel's contract): a cooperative grid of co-resident
 //     blocks walks the C*N0*N1 elements with grid-stride loops, and three
 //     grid-wide barriers per iteration separate the phases that read other
-//     blocks' results (apply + <p,Ap>; update + <z,r>; p update).
+//     blocks' results (apply + <p,Ap>; update + <z,r> (+ <delta,b+r>);
+//     p update). An LM reset iteration adds one barrier between the delta
+//     update and the stencil sweep that reads neighbours' delta.
 //   * Every thread owns the same elements in every phase, so r, delta, Ap
 //     and p[e] stay in the thread's own program order; only the stencil
-//     reads of p (other blocks' elements) and the reduction partials cross
-//     blocks, and those are read through L2 (ld.global.cg).
+//     reads of p or delta (other blocks' elements) and the reduction
+//     partials cross blocks, and those are read through L2 (ld.global.cg).
 //   * z is recomputed as pre*r in the p update instead of being stored:
 //     two reads in place of a write plus a read.
 //   * Reads that leave the grid are skipped, never wrapped: the planner
@@ -39,12 +59,15 @@
 //     is exactly the zero the plain version multiplies in.
 //   * Dot products: per-thread float products summed in double, a fixed
 //     shuffle tree per block, per-block partials in separate buffers for
-//     <p,Ap> and <z,r>, and every block sums the partials in the same fixed
-//     order. alpha, beta and the exit test are therefore identical in every
+//     each dot, and every block sums the partials in the same fixed order.
+//     alpha, beta, zeta and the exit test are therefore identical in every
 //     block, the loop exits uniformly, and two runs give bitwise-equal
 //     results.
-//   * Elementwise arithmetic uses explicit round-to-nearest intrinsics (no
-//     fused multiply-add), the same roundings as the plain PyTorch version.
+//   * Elementwise and scalar arithmetic uses explicit round-to-nearest
+//     intrinsics (no fused multiply-add), in the plain PyTorch version's
+//     order of operations.
+//   * The two instances have their own register counts, so the co-resident
+//     block count is queried, and the launch checked, per instance.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -90,13 +113,40 @@ __device__ __forceinline__ float safe_div(float num, float den, int guard) {
   return den > 0.f ? __fdiv_rn(num, den) : 0.f;
 }
 
+// sum over the triples k0..k1 of F[fid][q] * src[j] at (x + d0, y + d1),
+// skipping reads that leave the grid; src is read through L2 (other blocks
+// wrote it before the last grid barrier). The LM reset sweep applies the
+// stencil to delta with it; phase 1 keeps the same loop written out, which
+// leaves the GN instance's code (32 registers) as it was before the LM
+// instance existed (through the helper it took 48).
+__device__ __forceinline__ float stencil_apply(const float* __restrict__ F,
+                                               const float* src,
+                                               const int* s_tr, int k0, int k1,
+                                               int plane, int N0, int N1,
+                                               int q, int x, int y) {
+  float a = 0.f;
+  for (int k = k0; k < k1; ++k) {
+    const int* t = s_tr + 5 * k;
+    const int xx = x + t[0];
+    const int yy = y + t[1];
+    if (xx >= 0 && xx < N0 && yy >= 0 && yy < N1) {
+      const float pv = __ldcg(src + t[3] * plane + xx * N1 + yy);
+      a = __fadd_rn(a, __fmul_rn(F[t[4] * plane + q], pv));
+    }
+  }
+  return a;
+}
+
+template <bool LM>
 __global__ void __launch_bounds__(FGCG_BLOCK)
 fused_grid_cg_kernel(const float* __restrict__ F, const float* __restrict__ b,
                      const float* __restrict__ pre,
+                     const float* __restrict__ ctc,
                      const int* __restrict__ triples,
                      const int* __restrict__ starts, int C, int N0, int N1,
-                     int lits, float tol, int guard_div, float* delta, float* r,
-                     float* p, float* Ap, double* part_den, double* part_rz,
+                     int lits, float tol, int guard_div, int reset_period,
+                     float q_tol, float* delta, float* r, float* p, float* Ap,
+                     double* part_den, double* part_rz, double* part_q,
                      int* iters) {
   cg::grid_group grid = cg::this_grid();
   __shared__ int s_tr[FGCG_MAX_TRIPLES * 5];
@@ -132,10 +182,11 @@ fused_grid_cg_kernel(const float* __restrict__ F, const float* __restrict__ b,
   grid.sync();
   float rz = (float)partials_sum(part_rz, n_blocks, &s_bcast);
   const float floor_rz = __fmul_rn(tol, rz);
+  float q0 = 0.f;
 
   int l = 0;
   while (l < lits) {
-    // phase 1: Ap = A p, partials of <p, Ap>
+    // phase 1: Ap = A p (+ ctc p), partials of <p, Ap>
     acc = 0.0;
     for (int e = first; e < total; e += stride) {
       const int c = e / plane;
@@ -152,6 +203,7 @@ fused_grid_cg_kernel(const float* __restrict__ F, const float* __restrict__ b,
           a = __fadd_rn(a, __fmul_rn(F[t[4] * plane + q], pv));
         }
       }
+      if constexpr (LM) a = __fadd_rn(a, __fmul_rn(ctc[e], p[e]));
       Ap[e] = a;
       acc += (double)__fmul_rn(p[e], a);
     }
@@ -161,21 +213,62 @@ fused_grid_cg_kernel(const float* __restrict__ F, const float* __restrict__ b,
     const float den = (float)partials_sum(part_den, n_blocks, &s_bcast);
     const float alpha = safe_div(rz, den, guard_div);
 
-    // phase 2: delta += alpha p, r -= alpha Ap, partials of <z, r>
+    // phase 2: delta += alpha p, r -= alpha Ap (or, on an LM reset
+    // iteration, r = b - (A delta + ctc delta)), partials of <z, r> and,
+    // under LM, of <delta, b + r>
     acc = 0.0;
-    for (int e = first; e < total; e += stride) {
-      delta[e] = __fadd_rn(delta[e], __fmul_rn(alpha, p[e]));
-      const float rv = __fsub_rn(r[e], __fmul_rn(alpha, Ap[e]));
-      r[e] = rv;
-      acc += (double)__fmul_rn(__fmul_rn(pre[e], rv), rv);
+    double acc_q = 0.0;
+    bool reset = false;
+    if constexpr (LM) reset = (l + 1) % reset_period == 0;
+    if (reset) {
+      for (int e = first; e < total; e += stride)
+        delta[e] = __fadd_rn(delta[e], __fmul_rn(alpha, p[e]));
+      grid.sync();  // the stencil below reads neighbours' delta
+      for (int e = first; e < total; e += stride) {
+        const int c = e / plane;
+        const int q = e - c * plane;
+        const int x = q / N1;
+        const int y = q - x * N1;
+        const float dv = delta[e];
+        float a = stencil_apply(F, delta, s_tr, s_start[c], s_start[c + 1],
+                                plane, N0, N1, q, x, y);
+        a = __fadd_rn(a, __fmul_rn(ctc[e], dv));
+        const float bv = b[e];
+        const float rv = __fsub_rn(bv, a);
+        r[e] = rv;
+        acc += (double)__fmul_rn(__fmul_rn(pre[e], rv), rv);
+        acc_q += (double)__fmul_rn(dv, __fadd_rn(bv, rv));
+      }
+    } else {
+      for (int e = first; e < total; e += stride) {
+        const float dv = __fadd_rn(delta[e], __fmul_rn(alpha, p[e]));
+        delta[e] = dv;
+        const float rv = __fsub_rn(r[e], __fmul_rn(alpha, Ap[e]));
+        r[e] = rv;
+        acc += (double)__fmul_rn(__fmul_rn(pre[e], rv), rv);
+        if constexpr (LM) acc_q += (double)__fmul_rn(dv, __fadd_rn(b[e], rv));
+      }
     }
     acc = block_sum(acc, s_warp);
     if (threadIdx.x == 0) part_rz[blockIdx.x] = acc;
+    if constexpr (LM) {
+      acc_q = block_sum(acc_q, s_warp);
+      if (threadIdx.x == 0) part_q[blockIdx.x] = acc_q;
+    }
     grid.sync();
     const float rz_new = (float)partials_sum(part_rz, n_blocks, &s_bcast);
     const float beta = safe_div(rz_new, rz, guard_div);
     ++l;
-    if (rz_new <= floor_rz || den <= 0.f) break;
+    if constexpr (LM) {
+      const float q1 =
+          __fmul_rn(0.5f, (float)partials_sum(part_q, n_blocks, &s_bcast));
+      const float zeta =
+          __fdiv_rn(__fmul_rn((float)l, __fsub_rn(q1, q0)), q1);
+      if (zeta < q_tol || rz_new <= floor_rz) break;
+      q0 = q1;
+    } else {
+      if (rz_new <= floor_rz || den <= 0.f) break;
+    }
     rz = rz_new;
 
     // phase 3: p = z + beta p
@@ -188,11 +281,17 @@ fused_grid_cg_kernel(const float* __restrict__ F, const float* __restrict__ b,
   if (first == 0) *iters = l;
 }
 
+static const void* kernel_instance(int lm) {
+  return lm ? (const void*)fused_grid_cg_kernel<true>
+            : (const void*)fused_grid_cg_kernel<false>;
+}
+
 extern "C" {
 
-// Co-resident block count of the kernel at `block` threads (the cooperative
-// launch limit): blocks per SM times SMs on the current device.
-int fused_grid_cg_max_blocks(int block, int* out) {
+// Co-resident block count of the GN (lm = 0) or LM (lm = 1) instance at
+// `block` threads (the cooperative launch limit): blocks per SM times SMs on
+// the current device.
+int fused_grid_cg_max_blocks(int lm, int block, int* out) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
@@ -203,35 +302,43 @@ int fused_grid_cg_max_blocks(int block, int* out) {
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm,
-                                                    fused_grid_cg_kernel,
+                                                    kernel_instance(lm),
                                                     block, 0);
   if (e != cudaSuccess) return (int)e;
   *out = per_sm * sms;
   return 0;
 }
 
-// Launches the kernel on `stream`; returns the CUDA error of the launch.
-int fused_grid_cg_launch(const float* F, const float* b, const float* pre,
+// Launches the GN (lm = 0) or LM (lm = 1) instance on `stream`; returns the
+// CUDA error of the launch. ctc, reset_period, q_tol and part_q are read by
+// the LM instance only.
+int fused_grid_cg_launch(int lm, const float* F, const float* b,
+                         const float* pre, const float* ctc,
                          const int* triples, const int* starts, int C, int N0,
                          int N1, int lits, float tol, int guard_div,
-                         float* delta, float* r, float* p, float* Ap,
-                         double* part_den, double* part_rz, int* iters,
-                         int grid, int block, void* stream) {
+                         int reset_period, float q_tol, float* delta, float* r,
+                         float* p, float* Ap, double* part_den,
+                         double* part_rz, double* part_q, int* iters, int grid,
+                         int block, void* stream) {
   if (block != FGCG_BLOCK || C < 1 || C > FGCG_MAX_CHANNELS)
     return (int)cudaErrorInvalidValue;
+  if (lm && (ctc == nullptr || part_q == nullptr || reset_period < 1))
+    return (int)cudaErrorInvalidValue;
   int max_blocks = 0;
-  int err = fused_grid_cg_max_blocks(block, &max_blocks);
+  int err = fused_grid_cg_max_blocks(lm, block, &max_blocks);
   if (err) return err;
   if (grid < 1 || grid > max_blocks)
     return (int)cudaErrorCooperativeLaunchTooLarge;
-  void* args[] = {(void*)&F,     (void*)&b,        (void*)&pre,
-                  (void*)&triples, (void*)&starts, (void*)&C,
-                  (void*)&N0,    (void*)&N1,       (void*)&lits,
-                  (void*)&tol,   (void*)&guard_div, (void*)&delta,
-                  (void*)&r,     (void*)&p,        (void*)&Ap,
-                  (void*)&part_den, (void*)&part_rz, (void*)&iters};
+  void* args[] = {(void*)&F,        (void*)&b,         (void*)&pre,
+                  (void*)&ctc,      (void*)&triples,   (void*)&starts,
+                  (void*)&C,        (void*)&N0,        (void*)&N1,
+                  (void*)&lits,     (void*)&tol,       (void*)&guard_div,
+                  (void*)&reset_period, (void*)&q_tol, (void*)&delta,
+                  (void*)&r,        (void*)&p,         (void*)&Ap,
+                  (void*)&part_den, (void*)&part_rz,   (void*)&part_q,
+                  (void*)&iters};
   cudaError_t e = cudaLaunchCooperativeKernel(
-      (const void*)fused_grid_cg_kernel, dim3(grid), dim3(block), args, 0,
+      kernel_instance(lm), dim3(grid), dim3(block), args, 0,
       (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

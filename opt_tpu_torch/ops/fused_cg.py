@@ -2,10 +2,12 @@
 ``opt_tpu/ops/pallas_cg.py``.
 
 The JAX package runs the whole PCG inner loop of a 2-D grid problem as one
-Pallas TPU kernel (``pallas_cg.py::_kernel``, grid GN form). Here the same
+Pallas TPU kernel (``pallas_cg.py::_kernel`` in its grid GN, mixed-unknown
+and LM forms; ``_hbm_tiled_kernel`` for grids beyond VMEM). Here the same
 loop runs as one persistent cooperative CUDA kernel
-(``csrc/fused_grid_cg.cu``) for CUDA tensors, and as its plain PyTorch twin
-(:func:`fused_grid_cg_reference`) for CPU tensors or on request.
+(``csrc/fused_grid_cg.cu``, a GN and an LM instance) for CUDA tensors, and
+as its plain PyTorch twin (:func:`fused_grid_cg_reference`) for CPU tensors
+or on request.
 
 The operator is expressed as per-channel-pair triples over the packed
 unknown channels: (JᵀJ·p)[q, i] = Σ_t F_t[q] · p[q + Δ_t, j_t] for triples
@@ -14,10 +16,12 @@ in-bounds mask of each offset is folded into its field (F' = F · M_Δ), so a
 read that leaves the grid multiplies zero: the twin reads through a
 zero-padded shift, the kernel skips it.
 
-:func:`_run_cg` holds the loop algebra (the GN body of the JAX package's
-``_run_cg``: guarded α/β, exit on rᵀz ≤ tol·rᵀz₀ or pᵀAp ≤ 0). The twin and
-the solver's eager loop both run it, and the kernel implements the same
-steps, so exits and counted iterations agree by construction.
+:func:`_run_cg` holds the loop algebra (the GN and LM bodies of the JAX
+package's ``_run_cg``: guarded α/β; GN exits on rᵀz ≤ tol·rᵀz₀ or pᵀAp ≤ 0;
+LM adds CtC·p to the apply, resets r = b − A·δ every ``reset_period``
+iterations and exits on ζ < q_tol or the rᵀz floor). The twin and the
+solver's eager loop both run it, and the kernel implements the same steps,
+so exits and counted iterations agree by construction.
 """
 
 from __future__ import annotations
@@ -74,7 +78,7 @@ def plan_fused_grid_cg(compiled, plan, fields: Dict, w_layouts: Dict) -> Optiona
 
 
 def _lin(a, x, y):
-    """y + a·x over tensors or dicts of tensors (a: 0-dim tensor)."""
+    """y + a·x over tensors or dicts of tensors (a: a float or 0-dim tensor)."""
     if isinstance(x, dict):
         return {k: y[k] + a * x[k] for k in y}
     return y + a * x
@@ -94,16 +98,27 @@ def safe_div(num, den, guard_div: bool):
     return torch.where(den > 0, num / torch.where(den > 0, den, 1.0), 0.0)
 
 
-def _run_cg(b, apply, prec, dot, lits: int, tol: float, *, guard_div: bool):
-    """The shared GN-PCG loop over abstract ``apply``/``prec``/``dot``
-    (vectors are tensors or dicts of tensors). Returns (delta, iterations
-    executed). The host reads one flag per iteration to exit, so exits and
-    counts match the on-device loop exactly."""
+def _run_cg(b, apply, prec, dot, lits: int, tol: float, *, guard_div: bool,
+            reset_period: Optional[int] = None, q_tol: Optional[float] = None,
+            trace: Optional[list] = None):
+    """The shared PCG loop over abstract ``apply``/``prec``/``dot`` (vectors
+    are tensors or dicts of tensors). With ``reset_period`` it runs the LM
+    body (``apply`` then includes + CtC·p): r = b − A·δ every
+    ``reset_period`` iterations, Q1 = ½⟨δ, b + r⟩, ζ = (l+1)(Q1 − Q0)/Q1,
+    exit on ζ < ``q_tol`` or the rᵀz floor, and no pᵀAp ≤ 0 exit.
+    Returns (delta, iterations executed). The host reads one flag per
+    iteration to exit, so exits and counts match the on-device loop
+    exactly. A ``trace`` list receives (l, rᵀz, floor, ζ or None) after
+    each iteration."""
+    lm = reset_period is not None
+    if lm and int(reset_period) < 1:
+        raise ValueError(f"residual_reset_period must be >= 1, got {reset_period}")
     r = b
     p = prec(r)
     rz = dot(r, p)
     floor = tol * rz
     delta = _zeros_like(b)
+    Q0 = torch.zeros_like(rz)
     lits = int(lits)
     l = 0
     while l < lits:
@@ -111,14 +126,27 @@ def _run_cg(b, apply, prec, dot, lits: int, tol: float, *, guard_div: bool):
         den = dot(p, Ap)
         alpha = safe_div(rz, den, guard_div)
         delta = _lin(alpha, p, delta)
-        r = _lin(-alpha, Ap, r)
+        if lm and (l + 1) % reset_period == 0:
+            r = _lin(-1.0, apply(delta), b)  # drift cancellation (t:491-534)
+        else:
+            r = _lin(-alpha, Ap, r)
         z = prec(r)
         rz_new = dot(z, r)
         beta = safe_div(rz_new, rz, guard_div)
         p = _lin(beta, p, z)
         rz = rz_new
         l += 1
-        if bool((rz_new <= floor) | (den <= 0)):
+        zeta = None
+        if lm:
+            Q1 = 0.5 * dot(delta, _lin(1.0, r, b))  # t:478-481
+            zeta = (l * (Q1 - Q0)) / Q1
+            stop = (zeta < q_tol) | (rz_new <= floor)
+            Q0 = Q1
+        else:
+            stop = (rz_new <= floor) | (den <= 0)
+        if trace is not None:
+            trace.append((l, rz_new, floor, zeta))
+        if bool(stop):
             break
     return delta, l
 
@@ -138,17 +166,31 @@ def _stencil_apply(F, triples, p):
     return torch.stack([a if a is not None else zeros for a in acc])
 
 
-def fused_grid_cg_reference(F, triples, b, pre, lits, tol, *, guard_div=True):
+def _dot(x, y):
+    """⟨x, y⟩ as the kernel takes it: float32 products summed in float64,
+    rounded to float32. LM's ζ = l·(Q1 − Q0)/Q1 is a difference of two such
+    sums, so a float32 sum would move it by more than its distance to
+    q_tol and change where the loop exits."""
+    return torch.sum(x * y, dtype=torch.float64).to(x.dtype)
+
+
+def fused_grid_cg_reference(F, triples, b, pre, lits, tol, *, guard_div=True,
+                            ctc=None, reset_period=None, q_tolerance=None, trace=None):
     """Plain PyTorch twin of the CUDA kernel on packed [C, *dom] tensors:
-    the same algebra through :func:`_run_cg`. Returns (delta, iterations)."""
+    the same algebra through :func:`_run_cg`, with the kernel's dot
+    products (:func:`_dot`); passing ``ctc`` (with
+    ``reset_period`` and ``q_tolerance``) runs the LM loop; ``trace`` as in
+    :func:`_run_cg`. Returns (delta, iterations)."""
+    if ctc is None:
+        apply = lambda p: _stencil_apply(F, triples, p)  # noqa: E731
+        reset_period = q_tolerance = None
+    else:
+        apply = lambda p: _stencil_apply(F, triples, p) + ctc * p  # noqa: E731
+        if reset_period is None or q_tolerance is None:
+            raise ValueError("the LM loop needs reset_period and q_tolerance")
     return _run_cg(
-        b,
-        lambda p: _stencil_apply(F, triples, p),
-        lambda r: pre * r,
-        lambda x, y: torch.sum(x * y),
-        lits,
-        tol,
-        guard_div=guard_div,
+        b, apply, lambda r: pre * r, _dot, lits, tol,
+        guard_div=guard_div, reset_period=reset_period, q_tol=q_tolerance, trace=trace,
     )
 
 
@@ -175,11 +217,11 @@ def _device_triples(triples, ctot: int, device):
     )
 
 
-def _grid_size(lib, device) -> int:
-    """Co-resident block count for the cooperative launch on ``device``."""
+def _grid_size(lib, device, lm: bool) -> int:
+    """Co-resident block count of the GN or LM instance on ``device``."""
     out = ctypes.c_int(0)
     with torch.cuda.device(device):
-        err = lib.fused_grid_cg_max_blocks(BLOCK_THREADS, ctypes.byref(out))
+        err = lib.fused_grid_cg_max_blocks(int(lm), BLOCK_THREADS, ctypes.byref(out))
     if err != 0:
         raise RuntimeError(f"fused_grid_cg occupancy query failed: CUDA error {err}")
     return int(out.value)
@@ -196,20 +238,31 @@ def _check_operand(name, t, shape, dtype, device):
         raise ValueError(f"fused_grid_cg: {name} is not contiguous")
 
 
-def fused_grid_cg_kernel(meta, b, pre, lits, tol, *, guard_div=True):
-    """Launch the CUDA kernel on packed [C, N0, N1] float32 CUDA tensors.
-    Returns (delta, iters int32[1] on the device). Does not synchronise.
-    Each launch adds one to ``fused_grid_cg_kernel.launches``."""
+def fused_grid_cg_kernel(meta, b, pre, lits, tol, *, guard_div=True, ctc=None,
+                         reset_period=None, q_tolerance=None):
+    """Launch the CUDA kernel on packed [C, N0, N1] float32 CUDA tensors:
+    the GN instance, or the LM instance when ``ctc`` is given (with
+    ``reset_period`` and ``q_tolerance``). Returns (delta, iters int32[1]
+    on the device). Does not synchronise. Each launch adds one to
+    ``fused_grid_cg_kernel.launches[form]``, form "gn" or "lm"."""
     from ._build import load_library
 
     F = meta["F"]
     device = b.device
     if device.type != "cuda":
         raise ValueError(f"fused_grid_cg_kernel needs CUDA tensors, got {device}")
+    lm = ctc is not None
     C, N0, N1 = (int(s) for s in b.shape)
     _check_operand("b", b, (C, N0, N1), torch.float32, device)
     _check_operand("pre", pre, (C, N0, N1), torch.float32, device)
     _check_operand("F", F, (F.shape[0], N0, N1), torch.float32, device)
+    if lm:
+        _check_operand("ctc", ctc, (C, N0, N1), torch.float32, device)
+        if reset_period is None or q_tolerance is None or int(reset_period) < 1:
+            raise ValueError(
+                "fused_grid_cg_kernel: the LM loop needs reset_period >= 1 and "
+                f"q_tolerance, got {reset_period} and {q_tolerance}"
+            )
     n_triples = len(meta["triples"])
     if not 0 < n_triples <= MAX_TRIPLES or C > MAX_CHANNELS:
         raise ValueError(
@@ -222,31 +275,37 @@ def fused_grid_cg_kernel(meta, b, pre, lits, tol, *, guard_div=True):
     if total >= 2**31 or F.numel() >= 2**31:
         raise ValueError("fused_grid_cg_kernel indexes with int32: problem too large")
     lib = load_library()
-    grid = min(_grid_size(lib, device), -(-total // BLOCK_THREADS))
+    grid = min(_grid_size(lib, device, lm), -(-total // BLOCK_THREADS))
     tr, starts = _device_triples(meta["triples"], int(meta["ctot"]), device)
     delta = torch.empty_like(b)
     r = torch.empty_like(b)
     p = torch.empty_like(b)
     Ap = torch.empty_like(b)
-    part_den = torch.empty(grid, dtype=torch.float64, device=device)
-    part_rz = torch.empty(grid, dtype=torch.float64, device=device)
+    part = torch.empty((3 if lm else 2, grid), dtype=torch.float64, device=device)
     iters = torch.empty(1, dtype=torch.int32, device=device)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     with torch.cuda.device(device):
         err = lib.fused_grid_cg_launch(
-            ptr(F), ptr(b), ptr(pre), ptr(tr), ptr(starts),
+            int(lm), ptr(F), ptr(b), ptr(pre), ptr(ctc) if lm else None, ptr(tr), ptr(starts),
             C, N0, N1, int(lits), ctypes.c_float(float(tol)), int(bool(guard_div)),
-            ptr(delta), ptr(r), ptr(p), ptr(Ap), ptr(part_den), ptr(part_rz), ptr(iters),
+            int(reset_period) if lm else 0, ctypes.c_float(float(q_tolerance) if lm else 0.0),
+            ptr(delta), ptr(r), ptr(p), ptr(Ap),
+            ptr(part[0]), ptr(part[1]), ptr(part[2]) if lm else None, ptr(iters),
             grid, BLOCK_THREADS,
             ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream),
         )
     if err != 0:
         raise RuntimeError(f"fused_grid_cg kernel launch failed: CUDA error {err}")
-    fused_grid_cg_kernel.launches += 1
+    fused_grid_cg_kernel.launches["lm" if lm else "gn"] += 1
     return delta, iters
 
 
-fused_grid_cg_kernel.launches = 0
+def reset_launch_counts():
+    """Set the kernel's launch counts, one per form, to 0."""
+    fused_grid_cg_kernel.launches = {"gn": 0, "lm": 0}
+
+
+reset_launch_counts()
 
 
 def pack(d, meta):
@@ -257,23 +316,27 @@ def pack(d, meta):
 
 
 def fused_grid_cg(meta, r0, pre, l_iterations, rz_tolerance, *, guard_div=True,
-                  interpret=False):
+                  interpret=False, ctc=None, reset_period=None, q_tolerance=None):
     """Run the whole PCG loop; returns (delta dict, iterations executed as a
     0-dim int32 tensor). Packs [*dom, C] dicts channel-major as [C, *dom].
+    Passing ``ctc`` (a dict like ``pre``, with ``reset_period`` and
+    ``q_tolerance``) runs the LM loop.
 
     CPU tensors, or ``interpret=True``, run the plain twin. CUDA tensors
     launch the kernel. Any other device raises."""
     b = pack(r0, meta)
     prem = pack(pre, meta)
+    ctcm = pack(ctc, meta) if ctc is not None else None
+    lm_kw = dict(ctc=ctcm, reset_period=reset_period, q_tolerance=q_tolerance)
     if interpret or b.device.type == "cpu":
         delta, l = fused_grid_cg_reference(
             meta["F"], meta["triples"], b, prem, l_iterations, rz_tolerance,
-            guard_div=guard_div,
+            guard_div=guard_div, **lm_kw,
         )
         iters = torch.full((), l, dtype=torch.int32, device=b.device)
     elif b.device.type == "cuda":
         delta, it = fused_grid_cg_kernel(
-            meta, b, prem, l_iterations, rz_tolerance, guard_div=guard_div
+            meta, b, prem, l_iterations, rz_tolerance, guard_div=guard_div, **lm_kw
         )
         iters = it[0]
     else:

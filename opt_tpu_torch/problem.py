@@ -230,19 +230,32 @@ class Plan:
             raise RuntimeError("call init() first")
         return self._restore_sentinels(self._state["X"])
 
-    def gn_system(self, inputs: Dict[str, Any]):
-        """The first GN step's PCG system at ``inputs``: (cg_meta, r0, pre)
-        with r0 = -JᵀF and pre the row-masked preconditioner, as the solver
-        hands them to the fused CG (cg_meta is None where the operator does
-        not qualify)."""
+    def _system_at(self, inputs):
         from .functions import FunctionSet
 
         unknowns, consts, graphs, params = self._normalize_and_place(inputs)
         self._validate_fused(unknowns, consts, graphs, params)
         fs = FunctionSet(self.compiled, consts, graphs, params)
         fs.masks(unknowns)
+        return unknowns, consts, graphs, params, fs
+
+    def gn_system(self, inputs: Dict[str, Any]):
+        """The first GN step's PCG system at ``inputs``: (cg_meta, r0, pre)
+        with r0 = -JᵀF and pre the row-masked preconditioner, as the solver
+        hands them to the fused CG (cg_meta is None where the operator does
+        not qualify)."""
+        unknowns, _c, _g, _p, fs = self._system_at(inputs)
         _A, r0, pre, cg_meta = self.solver.gn_system(unknowns, fs)
         return cg_meta, r0, pre
+
+    def lm_system(self, inputs: Dict[str, Any]):
+        """The first LM step's PCG system at ``inputs``: (cg_meta, r0,
+        pre_lm, ctc), with the damping of the initial trust region, as the
+        solver hands them to the fused CG."""
+        sp = normalize_solver_params(self.solver_params)
+        unknowns, consts, graphs, params, fs = self._system_at(inputs)
+        state = self.solver.init(unknowns, consts, graphs, params, sp)
+        return self.solver.lm_system(unknowns, fs, state, sp)
 
     def free(self) -> None:
         """Release solver state (Opt_PlanFree analogue)."""

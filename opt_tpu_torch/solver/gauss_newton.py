@@ -1,20 +1,25 @@
-"""Gauss-Newton solver with Jacobi-preconditioned CG.
+"""Gauss-Newton / Levenberg-Marquardt solver with Jacobi-preconditioned CG.
 
-PyTorch counterpart of the GN half of ``opt_tpu/solver/gauss_newton.py``
-(the reference's "gaussNewtonGPU" plan kind), with the same numerics:
+PyTorch counterpart of ``opt_tpu/solver/gauss_newton.py`` (the reference's
+"gaussNewtonGPU" and "LMGPU" plan kinds), with the same numerics:
 
 * PCGInit1: delta=0, r=-JᵀF, p=M⁻¹r with the guarded invert, rᵀz;
 * PCGStep1/2/3: α=rᵀz/pᵀAp (guarded), x/r updates, β=rᵀz_new/rᵀz_old,
-  exit on the rᵀz floor or pᵀAp ≤ 0.
+  exit on the rᵀz floor or pᵀAp ≤ 0 (GN);
+* LM: A = JᵀJ + CtC with CtC = diag(JᵀJ)/radius Jacobi-scaled and clamped,
+  the preconditioner 1/(CtC + radius·CtC_unclamped), the residual reset
+  r = b − A·δ every ``residual_reset_period`` iterations, the Q/ζ exit, and
+  the trust-region accept/reject with the function-tolerance and
+  min-radius exits.
 
 The JAX package runs a whole solve as one XLA program. Here the nonlinear
-loop runs on the host with one device→host read per GN step; the CG loop
-runs either as one CUDA kernel launch (ops/fused_cg.py; the plain twin on
-the CPU) or as the eager loop of ``_run_cg`` on the assembled operator.
+loop runs on the host with one device→host read per nonlinear step; the CG
+loop runs either as one CUDA kernel launch (ops/fused_cg.py; the plain twin
+on the CPU) or as the eager loop of ``_run_cg`` on the assembled operator.
 
-Levenberg-Marquardt, Chronopoulos–Gear CG, block-Jacobi and narrowed
-coefficient storage are later slices of the port (ROADMAP.md queue 1
-item 8) and raise ``NotImplementedError``.
+Chronopoulos–Gear CG, block-Jacobi and narrowed coefficient storage are
+later slices of the port (ROADMAP.md queue 1 item 8) and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,10 +36,16 @@ from .params import (
     FLOAT_EPSILON,
     GuardedInvertType,
     InitializationParameters,
+    JacobiScalingType,
     resolve_auto_policy,
 )
 
 LATER_SLICE = "not ported yet (ROADMAP.md queue 1 item 8)"
+
+
+def _f32(v) -> float:
+    """A solver parameter as the JAX package traces it: rounded to float32."""
+    return float(np.float32(v))
 
 
 class GaussNewtonSolver:
@@ -46,10 +57,8 @@ class GaussNewtonSolver:
         uses_lambda: bool,
         init_params: Optional[InitializationParameters] = None,
     ):
-        if uses_lambda:
-            raise NotImplementedError(f"Levenberg-Marquardt is {LATER_SLICE}")
         self.compiled = compiled
-        self.uses_lambda = False
+        self.uses_lambda = bool(uses_lambda)
         self.ip = resolve_auto_policy(
             init_params or InitializationParameters(), 1, bool(compiled.registry.graphs)
         )
@@ -121,7 +130,11 @@ class GaussNewtonSolver:
         if bool(state["done"]) or int(state["n_iter"]) >= sp["nIterations"]:
             return state
         fs = FunctionSet(self.compiled, consts, graphs, params)
-        return self._gn_step(state, fs, sp)
+        return self._step_fn(state, fs, sp)
+
+    @property
+    def _step_fn(self):
+        return self._lm_step if self.uses_lambda else self._gn_step
 
     def validate_assembly(self, X, consts, graphs, params) -> bool:
         """Random-vector apply comparison of the assembled JᵀJ operator
@@ -180,33 +193,33 @@ class GaussNewtonSolver:
         return fs.assemble_const(X0, self._stencil_plan)
 
     # ---- shared PCG pieces -------------------------------------------------
-    def _prepare(self, X, fs: FunctionSet):
+    def _linear_system(self, X, fs: FunctionSet, asm_cache=None):
+        """The undamped system at X, shared by GN and LM: (A = JᵀJ·(),
+        the assembled diag(JᵀJ) or None where nothing was assembled, the
+        residual terms, r0 = -JᵀF, cg_meta: the fused grid CG descriptor or
+        None)."""
         fs.masks(X)
+        if self._stencil_plan is not None:
+            if asm_cache is None:
+                asm_cache = self._asm_cache(fs, X)
+            A, diag, jtf_fn, cg_meta = fs.assemble_stencil(X, self._stencil_plan, asm_cache)
+            r_terms = jtf_fn.r_terms
+            if r_terms is None:  # every probe hoisted: evaluate residuals
+                r_terms = fs.F(X)
+            r0 = {k: -v for k, v in jtf_fn(r_terms).items()}
+            return A, diag, r_terms, r0, cg_meta
         r_terms, J, JT = fs.linearize(X)
         r0 = {k: -v for k, v in JT(r_terms).items()}
-        return r_terms, J, JT, r0
+        return (lambda v: JT(J(v))), None, r_terms, r0, None
 
     def gn_system(self, X, fs: FunctionSet, asm_cache=None):
         """The linear system of one GN step at X: (A, r0 = -JᵀF, pre, cg_meta)
         with pre the row-masked guarded-inverted Jacobi diagonal (ones when
         the spec disables the preconditioner) and cg_meta the fused grid CG
         descriptor or None."""
-        cg_meta = None
-        if self._stencil_plan is not None:
-            if asm_cache is None:
-                asm_cache = self._asm_cache(fs, X)
-            A, diag_asm, jtf_fn, cg_meta = fs.assemble_stencil(
-                X, self._stencil_plan, asm_cache
-            )
-            r_terms = jtf_fn.r_terms
-            if r_terms is None:  # every probe hoisted: evaluate residuals
-                r_terms = fs.F(X)
-            r0 = {k: -v for k, v in jtf_fn(r_terms).items()}
-        else:
-            _r, J, JT, r0 = self._prepare(X, fs)
-            A, diag_asm = (lambda v: JT(J(v))), None
+        A, diag, _r, r0, cg_meta = self._linear_system(X, fs, asm_cache)
         if self.compiled.use_preconditioner:
-            pre_raw = diag_asm if diag_asm is not None else fs.jtj_diag(X)
+            pre_raw = diag if diag is not None else fs.jtj_diag(X)
         else:
             pre_raw = {k: torch.ones_like(v) for k, v in r0.items()}
         pre = fs.mask_rows(self._guarded_invert(pre_raw))
@@ -237,10 +250,141 @@ class GaussNewtonSolver:
             "lin_iters": state["lin_iters"] + l_done,
         }
 
+    def _lm_parts(self, X, fs: FunctionSet, state, sp, asm_cache=None):
+        """Everything one LM step needs at X: the damped system and what
+        ``_lm_finish`` reads (opt_tpu/solver/gauss_newton.py:640-700)."""
+        dt = self.compiled.dtype
+        radius = state["trust_region_radius"].to(dt)
+        A_base, diag, r_terms, r0, cg_meta = self._linear_system(X, fs, asm_cache)
+        if diag is None:
+            diag = fs.jtj_diag(X)
+        # diag: the actual diag(JᵀJ), also under UsePreconditioner(false)
+        if self.compiled.use_preconditioner:
+            pre_raw = diag
+        else:
+            pre_raw = fs.mask_rows({k: torch.ones_like(v) for k, v in diag.items()})
+        pre_guarded = fs.mask_rows(self._guarded_invert(pre_raw))
+
+        # JacobiScaling ONCE_PER_SOLVE: freeze the guarded-inverted diagonal
+        # of the first nonlinear iteration (PCGSaveSSq, t:607-613)
+        js = self.ip.jacobi_scaling
+        if js == JacobiScalingType.ONCE_PER_SOLVE:
+            first = state["n_iter"] == 0
+            SSq = {k: torch.where(first, pre_guarded[k], state["SSq"][k]) for k in pre_guarded}
+            invS = {k: 1.0 / v for k, v in SSq.items()}
+        elif js == JacobiScalingType.EVERY_ITERATION:
+            SSq = state["SSq"]
+            invS = {k: 1.0 / v for k, v in pre_guarded.items()}
+        else:
+            SSq = state["SSq"]
+            invS = {k: torch.ones_like(v) for k, v in diag.items()}
+
+        # PCGComputeCtC + PCGFinalizeDiagonal (t:631-664)
+        min_d, max_d = _f32(sp["min_lm_diagonal"]), _f32(sp["max_lm_diagonal"])
+        ctc, pre_lm = {}, {}
+        for k in diag:
+            ctc_un = diag[k] / radius
+            mult = invS[k] / radius
+            ctc[k] = torch.clamp(ctc_un, min_d * mult, max_d * mult)
+            pre_lm[k] = 1.0 / (ctc[k] + radius * ctc_un)
+        # select masking: at excluded rows diag = 0, so SSq = 0, invS = inf
+        # and ctc = inf, where multiplicative masking would give NaN
+        ctc = fs.mask_rows_select(ctc)
+        pre_lm = fs.mask_rows_select(pre_lm)
+        return {
+            "meta": cg_meta, "r0": r0, "pre_lm": pre_lm, "ctc": ctc,
+            "A_base": A_base, "r_terms": r_terms, "SSq": SSq,
+        }
+
+    def lm_system(self, X, fs: FunctionSet, state, sp):
+        """The linear system of one LM step at X from ``state``: (cg_meta,
+        r0 = -JᵀF, pre_lm, ctc), as the solver hands them to the fused CG
+        (cg_meta is None where the operator does not qualify); ``sp``: the
+        normalized solver parameters."""
+        parts = self._lm_parts(X, fs, state, sp)
+        return parts["meta"], parts["r0"], parts["pre_lm"], parts["ctc"]
+
+    def _lm_step(self, state, fs: FunctionSet, sp, asm_cache=None):
+        X = state["X"]
+        s = self._lm_parts(X, fs, state, sp, asm_cache)
+        r0, pre_lm, ctc = s["r0"], s["pre_lm"], s["ctc"]
+        q_tol = _f32(sp["q_tolerance"])
+        if s["meta"] is not None and self._pallas_mode is not None:
+            delta, l_done = fused_grid_cg(
+                s["meta"], r0, pre_lm, sp["lIterations"], sp["cg_rz_tolerance"],
+                guard_div=self.ip.guard_division_by_zero,
+                interpret=self._pallas_mode == "interpret",
+                ctc=ctc, reset_period=sp["residual_reset_period"], q_tolerance=q_tol,
+            )
+        else:
+            A_base = s["A_base"]
+
+            def A(v):  # JᵀJp + CtC·p (o.t:2076-2082)
+                base = A_base(v)
+                return {k: base[k] + ctc[k] * v[k] for k in v}
+
+            delta, l = _run_cg(
+                r0, A, lambda r: {k: pre_lm[k] * r[k] for k in r}, tree_dot,
+                sp["lIterations"], sp["cg_rz_tolerance"],
+                guard_div=self.ip.guard_division_by_zero,
+                reset_period=sp["residual_reset_period"], q_tol=q_tol,
+            )
+            l_done = torch.full((), l, dtype=torch.int32, device=state["n_iter"].device)
+        return self._lm_finish(
+            state, fs, sp, X, delta, l_done, s["r_terms"], fs.jvp_fn(X), s["SSq"]
+        )
+
+    def _lm_finish(self, state, fs, sp, X, delta, l_done, r_terms, J, SSq):
+        """Ceres-style trust-region bookkeeping (t:1106-1164), on the device:
+        accept/reject, the radius update and the function-tolerance and
+        min-radius exits."""
+        dt = self.compiled.dtype
+        radius = state["trust_region_radius"].to(dt)
+        model_cost = fs.model_cost(X, r_terms, J, delta)
+        prev_cost = state["prev_cost"].to(dt)
+        model_cost_change = prev_cost - model_cost
+
+        X_new = {k: X[k] + delta[k] for k in X}
+        new_cost = fs.cost(X_new)
+        cost_change = prev_cost - new_cost
+        relative_decrease = cost_change / model_cost_change
+
+        accept = (cost_change >= 0) & (relative_decrease > _f32(sp["min_relative_decrease"]))
+        func_tol = cost_change <= prev_cost * _f32(sp["function_tolerance"])
+
+        # accepted branch; the cube written out, as C's pow(x, 3.0)
+        t = 2.0 * relative_decrease - 1.0
+        tmp_factor = 1.0 - t * t * t
+        radius_acc = radius / torch.clamp(tmp_factor, min=_f32(1.0 / 3.0))
+        radius_acc = torch.clamp(radius_acc, max=_f32(sp["max_trust_region_radius"]))
+        # on the function-tolerance exit the reference returns before
+        # touching prevCost and the radius (t:1127-1132)
+        radius_acc = torch.where(func_tol, radius, radius_acc)
+        cost_acc = torch.where(func_tol, prev_cost, new_cost)
+
+        # rejected branch (t:1144-1156)
+        rdf = state["radius_decrease_factor"].to(dt)
+        radius_rej = radius / rdf
+        min_radius_hit = radius_rej <= _f32(sp["min_trust_region_radius"])
+
+        return {
+            **state,
+            "X": {k: torch.where(accept, X_new[k], X[k]) for k in X},
+            "SSq": SSq,
+            "prev_cost": torch.where(accept, cost_acc, prev_cost).to(state["prev_cost"].dtype),
+            "trust_region_radius": torch.where(accept, radius_acc, radius_rej).to(
+                state["trust_region_radius"].dtype
+            ),
+            "radius_decrease_factor": torch.where(accept, torch.full_like(rdf, 2.0), 2.0 * rdf),
+            "done": torch.where(accept, func_tol, min_radius_hit),
+            "n_iter": state["n_iter"] + 1,
+            "lin_iters": state["lin_iters"] + l_done,
+        }
+
     # -- full solve --------------------------------------------------------------
     def solve(self, X, consts, graphs, params, sp: Dict[str, Any]):
         """Full solve: returns (final state, per-iteration cost tensors). The
-        nonlinear loop reads one flag per GN step from the device."""
+        nonlinear loop reads one flag per nonlinear step from the device."""
         state = self._init_state(X, consts, graphs, params, sp)
         asm_cache = self._asm_cache(FunctionSet(self.compiled, consts, graphs, params), X)
         costs = []
@@ -248,6 +392,6 @@ class GaussNewtonSolver:
             if bool(state["done"]):
                 break
             fs = FunctionSet(self.compiled, consts, graphs, params)
-            state = self._gn_step(state, fs, sp, asm_cache)
+            state = self._step_fn(state, fs, sp, asm_cache)
             costs.append(state["prev_cost"])
         return state, costs

@@ -25,7 +25,7 @@ from opt_tpu_torch.models import specs as tspecs
 
 torch.set_num_threads(2)
 
-SPECS = ["laplacian", "poisson_image_editing"]
+SPECS = ["laplacian", "poisson_image_editing", "image_warping"]
 N0, N1 = 14, 11
 # f32 sums of the same terms taken in another order
 RTOL = 1e-5
@@ -36,6 +36,19 @@ def _inputs(name, seed=1):
     f32 = np.float32
     if name == "laplacian":
         return {"X": rng.rand(N0, N1).astype(f32), "A": rng.rand(N0, N1).astype(f32)}
+    if name == "image_warping":
+        # nonzero angles (Rotate2D at a general point), a few fit
+        # constraints (the All(...) gate) and an excluded block
+        con = -np.ones((N0, N1, 2), f32)
+        con[::3, ::4] = rng.rand(*con[::3, ::4].shape) * N0
+        mask = np.zeros((N0, N1), f32)
+        mask[4:7, 3:5] = 1.0
+        return {
+            "Offset": rng.rand(N0, N1, 2).astype(f32),
+            "Angle": (rng.rand(N0, N1) - 0.5).astype(f32),
+            "UrShape": rng.rand(N0, N1, 2).astype(f32), "Constraints": con, "Mask": mask,
+            "w_fitSqrt": np.float32(np.sqrt(100.0)), "w_regSqrt": np.float32(np.sqrt(0.01)),
+        }
     mask = np.ones((N0, N1), f32)
     mask[3:-3, 2:-2] = 0.0
     return {"X": rng.rand(N0, N1, 4).astype(f32), "T": rng.rand(N0, N1, 4).astype(f32), "M": mask}

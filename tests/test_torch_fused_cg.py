@@ -1,8 +1,8 @@
 """The fused grid CG's plain twin held to the JAX package's Pallas kernel
 (``fused_grid_cg(..., interpret=True)``), on a meta carried across by
 ``meta_from_numpy`` — the analogue of tests/test_pallas.py:27 — plus the
-loop's edge exits and the kernel wrapper's host-side contract. The CUDA
-kernel itself runs on the card in chip_smoke.py."""
+loop's edge exits and the kernel wrapper's host-side contract (GN and LM
+forms). The CUDA kernel itself runs on the card in chip_smoke.py."""
 
 import jax
 import numpy as np
@@ -128,8 +128,10 @@ def test_device_triples_sorted_by_output_channel():
     assert rows.dtype == starts.dtype == torch.int32
 
 
-def test_kernel_wrapper_refuses_cpu_tensors():
+@pytest.mark.parametrize("form", ["gn", "lm"])
+def test_kernel_wrapper_refuses_cpu_tensors(form):
     meta = meta_from_numpy(_jax_system("laplacian")[0])
     b = torch.zeros((1, N, N))
+    lm = dict(ctc=b, reset_period=7, q_tolerance=1e-4) if form == "lm" else {}
     with pytest.raises(ValueError, match="CUDA"):
-        fused_cg.fused_grid_cg_kernel(meta, b, b, 10, 0.0)
+        fused_cg.fused_grid_cg_kernel(meta, b, b, 10, 0.0, **lm)

@@ -17,8 +17,9 @@ from tests.test_golden_costs import GOLDEN, _medium_cases
 
 torch.set_num_threads(2)
 
-SPECS = ["laplacian", "poisson_image_editing"]
+SPECS = ["laplacian", "poisson_image_editing", "image_warping"]
 GOLDEN_RTOL = 5e-3  # tests/test_golden_costs.py
+GOLDEN_ATOL = 1e-8  # tests/test_golden_costs.py: near-zero goldens
 _CASES = {}
 
 
@@ -42,7 +43,7 @@ def test_golden_final_cost(name, mode):
     assert plan.fused_fallback is None
     assert res.num_iterations == nl and res.num_linear_iterations > 0
     assert len(res.costs) == nl and res.costs[-1] == res.final_cost
-    np.testing.assert_allclose(res.final_cost, golden, rtol=GOLDEN_RTOL)
+    np.testing.assert_allclose(res.final_cost, golden, rtol=GOLDEN_RTOL, atol=GOLDEN_ATOL)
 
 
 def test_auto_mode_engages_the_fused_loop():
@@ -68,8 +69,12 @@ def test_auto_mode_engages_the_fused_loop():
     assert len(calls) == 2
 
 
+# image_warping's one-step parity is held in test_torch_lm.py on a warp
+# with fit constraints: the medium case has none, so its LM system is near
+# singular and 60 f32 CG iterations carry summation-order differences past
+# the one-step bar
 @pytest.mark.parametrize("mode", ["auto", "off"])
-@pytest.mark.parametrize("name", SPECS)
+@pytest.mark.parametrize("name", ["laplacian", "poisson_image_editing"])
 def test_one_step_from_jax_state(name, mode):
     """Both packages step once from the identical state: X agrees to the
     single-step bar (f32 reductions in another order) and the CG iteration
@@ -115,7 +120,8 @@ def test_stepwise_matches_solve(name):
     np.testing.assert_allclose(costs, res.costs, rtol=1e-6)
     sw = plan.solve(dict(inputs), stepwise=True, nIterations=nl, lIterations=lin)
     np.testing.assert_allclose(sw.costs, res.costs, rtol=1e-6)
-    assert torch.equal(plan.unknowns["X"], sw.unknowns["X"])
+    for u in plan.compiled.unknown_names:
+        assert torch.equal(plan.unknowns[u], sw.unknowns[u])
     plan.free()
     with pytest.raises(RuntimeError, match="init"):
         plan.current_cost()
