@@ -5,24 +5,30 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernel (a GN and an LM instance) from
-opt_tpu_torch/ops/csrc with nvcc and holds each form against its plain
-PyTorch twin at the main paths' shapes: poisson 512x512x4 and 2048x2048x4,
-laplacian 512x512, and image_warping's mixed-unknown GN system and its first
-LM system, each at 512x512x3 and 1024x1024x3. It then solves, through the
-public API on the card, the poisson bench headline (512x512x4, one GN step,
-up to 2000 CG iterations) and image_warping at 512x512 by GN and by LM
-(8x400) and at 1024x1024 by GN (4x100), checks each final cost against the
-JAX package's and each solve's one kernel launch per nonlinear step, checks
-the medium golden costs, times kernels, twins, assembly and solves with CUDA
-events, and prints one JSON line per result. It exits non-zero, with no
-result line, when CUDA is not available or any check fails. It imports
-neither JAX nor opt_tpu.
+It builds the CUDA kernel (GN and LM instances, each without and with the
+graph remainder phase) from opt_tpu_torch/ops/csrc with nvcc and holds each
+form against its plain PyTorch twin at the main paths' shapes: poisson
+512x512x4 and 2048x2048x4, laplacian 512x512, image_warping's mixed-unknown
+GN system and its first LM system, each at 512x512x3 and 1024x1024x3, and
+the first GN and LM systems of arap_mesh_deformation on the 192x192 grid
+mesh (36,864 vertices, the DIA form) and on the armadillo mesh (31,106
+vertices, the remainder). It then solves, through the public API on the
+card, the poisson bench headline (512x512x4, one GN step, up to 2000 CG
+iterations), image_warping at 512x512 by GN and by LM (8x400) and at
+1024x1024 by GN (4x100), and the two arap meshes by GN (8x100), checks the
+costs against the JAX package's and each solve's one kernel launch per
+nonlinear step, solves the arap grid mesh once more in float64 against the
+JAX package's float64 solve, checks the medium golden costs, times
+kernels, twins, assembly and solves with CUDA events, profiles the arap
+grid-mesh solve, and prints one JSON line per result. It exits non-zero,
+with no result line, when CUDA is not available or any check fails. It
+imports neither JAX nor opt_tpu.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -32,9 +38,16 @@ import torch
 
 import opt_tpu_torch as ot
 from opt_tpu_torch.functions import FunctionSet
-from opt_tpu_torch.models.specs import image_warping, laplacian, poisson_image_editing
+from opt_tpu_torch.models.specs import (
+    arap_mesh_deformation,
+    curve_fitting,
+    image_warping,
+    laplacian,
+    poisson_image_editing,
+)
 from opt_tpu_torch.ops import fused_cg
 from opt_tpu_torch.ops._build import build_library, load_library, nvcc_path
+from opt_tpu_torch.utils.reorder import grid_embed_order, permute_vertices, remap_edges
 
 MAIN_N = 512  # the bench headline's grid side
 BIG_N = 2048  # a grid whose state (64 MB a vector) exceeds the 50 MB L2
@@ -74,7 +87,11 @@ MEDIUM_GOLDENS = {
     "laplacian": (laplacian, "gaussNewtonGPU", 6, 40, 1.6753909587860107),
     "poisson_image_editing": (poisson_image_editing, "gaussNewtonGPU", 2, 120, 258.89776611328125),
     "image_warping": (image_warping, "LMGPU", 10, 60, 3.3203492039168836e-12),
+    "curve_fitting": (curve_fitting, "LMGPU", 12, 60, 14.498645782470703),
 }
+# arap_mesh_deformation's medium golden is left out: its GN 10x60 solve does
+# not settle and ends where float32 rounding takes it (tests/test_torch_graph.py
+# holds it step by step from the JAX package's states)
 # kernel vs twin after a fixed iteration count: both sum each dot's float32
 # products in float64, but in another order, so the float32 iterates may
 # part in the last bits
@@ -85,7 +102,93 @@ RESET_PERIOD = 10  # SOLVER_PARAMETER_DEFAULTS["residual_reset_period"]
 TIMED_ITERS = 200
 KERNEL_SOURCE = "opt_tpu_torch/ops/csrc/fused_grid_cg.cu"
 K1 = "opt_tpu/ops/pallas_cg.py:328"
+K3 = "opt_tpu/ops/pallas_cg.py:335"  # _kernel's flat1d=True graph form
+K4 = "opt_tpu/ops/pallas_cg.py:338"  # _kernel's rem_pairs remainder
 K6 = "opt_tpu/ops/pallas_cg.py:1430"
+# the card's published peaks (H100 SXM at 700 W). The bound of a CG call
+# is its iteration count times the larger of an iteration's bytes (each
+# input read once per iteration) over the memory rate and an iteration's
+# operations over the peak rate of their type (cg_bound)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+F64_FLOPS = 34e12
+
+ARAP_SIDE = 192  # bench.py::bench_arap_graph: 36,864 vertices
+ARMADILLO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchdata",
+                         "armadillo31k.npz")
+GRAPH_NL, GRAPH_LI = 8, 100  # bench.py's GN 8x100 on both meshes
+# The arap solves through the JAX package on the CPU (bench.py's inputs,
+# GN 8x100, default plan): the cost after each of the first two steps, the
+# final cost and the CG iterations, computed with
+#   JAX_PLATFORMS=cpu python -c "import numpy as np, opt_tpu as ot;
+#   from opt_tpu.models.specs import arap_mesh_deformation as s;
+#   INPUTS  # arap_grid_inputs(192) or armadillo_inputs() below (the
+#           # armadillo numbered by this port's seeded grid_embed_order)
+#   r=ot.Problem(s).plan(dims={'N':N}).solve(i,nIterations=8,lIterations=100);
+#   print(r.costs, r.final_cost, r.num_linear_iterations)"
+# GN on these meshes with 100 CG iterations a step does not settle: the
+# cost rises and falls from step to step, and each step multiplies a
+# rounding difference by about 100, in float64 as in float32 (see
+# JAX_CPU_ARAP36K_F64_COSTS), so two correct solvers with other summation
+# orders end apart (the grid mesh in float32: the JAX package on the CPU
+# ends at 61421.2, this port on the CPU at 63428.3, the JAX package on a TPU
+# at 65712.6). So the first two steps are held to the JAX package's to
+# FIRST_STEPS_RTOL, the whole solve through the kernel to the same solve
+# through the plain version on the card, and the float64 solve's first
+# F64_STEPS steps to the JAX package's float64 solve; the final costs are
+# printed beside the JAX package's.
+JAX_CPU_GRAPH_COSTS = {
+    "arap36k": {"first_costs": [59055.1015625, 61090.59375], "final": 61421.24609375,
+                "lin_iters": 570},
+    "armadillo31k": {"first_costs": [300301.96875, 298587.09375], "final": 293362.75,
+                     "lin_iters": 753},
+}
+# the same solves on a TPU (BENCH_LIVE.json arap_final_cost,
+# arap_irregular_final_cost): cross-checks only
+TPU_GRAPH_FINAL_COSTS = {"arap36k": 65712.609375, "armadillo31k": 286089.125}
+# the first two steps' costs in float32 against the JAX package's (the
+# readings so far: 1e-7 to 8.8e-6)
+FIRST_STEPS_RTOL = 1e-4
+# The arap36k solve in float64 through the JAX package on the CPU: the cost
+# after each of the 8 steps (512 CG iterations in all), computed with
+#   JAX_PLATFORMS=cpu python -c "import opt_tpu as ot; ot.enable_double_precision();
+#   from opt_tpu.models.specs import arap_mesh_deformation as s;
+#   INPUTS  # arap_grid_inputs(192) below
+#   r=ot.Problem(s).plan(dims={'N':N},double_precision=True).solve(i,nIterations=8,
+#   lIterations=100); print(r.costs)"
+# Float64 does not make the solve settle: this port's float64 solve on the
+# CPU (same command through opt_tpu_torch with device="cpu") agrees with it
+# to 1.1e-10 after four steps, 1.3e-6 after five and ends 3% away
+# (65483.43). So the float64 solve on the card is held to it for the first
+# F64_STEPS steps, at F64_RTOL.
+JAX_CPU_ARAP36K_F64_COSTS = [
+    59055.10381103148, 61090.58214405866, 64672.77617457579, 60311.62834798327,
+    62966.05437434709, 61263.52447705914, 66067.29685116408, 63485.283247330124,
+]
+F64_STEPS, F64_RTOL = 4, 1e-6
+# The rows of the TPU kernel table still to port: the shapes of the JAX
+# package's fused-CG descriptor at each reference case (fields, plane =
+# the points of the domain, channels, triples; opt_tpu/ops/pallas_cg.py's
+# planners), and how the form differs from the ported GN form: cg_work's
+# knobs. K5 is one apply of a 256x256 tile, no loop: p read, the output
+# written, no vector work.
+ROWS_TO_PORT = [
+    ("K1 (c) Chronopoulos-Gear, poisson 512x512x4",
+     dict(fields=5, plane=512 * 512, C=4, triples=20, vector=16)),
+    ("K1 (d) block-Jacobi, image_warping 512x512x3",
+     dict(fields=26, plane=512 * 512, C=3, triples=31, pre_planes=9)),
+    ("K1 (e) 3-D grid, volumetric 32x32x32x6", dict(fields=128, plane=32 ** 3, C=6, triples=142)),
+    ("K1 (f) bf16 fields, poisson 512x512x4",
+     dict(fields=5, plane=512 * 512, C=4, triples=20, f_bytes=2)),
+    ("K1 (g) ComputedArray, shape_from_shading 512x512",
+     dict(fields=17, plane=512 * 512, C=1, triples=17)),
+    ("K1 (h) batch axis, 4 x laplacian 16x16", dict(fields=5, plane=256, C=1, triples=5, batch=4)),
+    ("K2 per-channel solves, poisson 1024x1024x4, one channel",
+     dict(fields=5, plane=1024 * 1024, C=1, triples=5)),
+    ("K5 per-device tile apply, poisson 512x512x4 on 2x2 devices",
+     dict(fields=5, plane=256 * 256, C=4, triples=20, vector=0, dots=0)),
+]
+OUT_DIR = os.path.join("build", "profiles")  # git-ignored
 
 
 def log(msg):
@@ -132,13 +235,18 @@ def bench_image_warping_inputs(n):
 
 
 def medium_inputs():
-    """tests/test_specs.py::_cases draw order at N_GRID=32, N_VERT=200,
-    up to the three specs the port has."""
+    """tests/test_specs.py::_cases draw order at N_GRID=32, N_VERT=200, for
+    the specs in MEDIUM_GOLDENS: name -> (dims, inputs)."""
     rng = np.random.RandomState(0)
     n, N, f32 = 32, 200, np.float32
     rng.rand(N, 3)  # pos3
     lap = {"X": rng.rand(n, n).astype(f32), "A": rng.rand(n, n).astype(f32)}
-    rng.rand(N), rng.rand(N)  # curve_fitting data
+    v0 = np.arange(N, dtype=np.int32)
+    cf = {
+        "funcParams": np.array([[99.5, 102.5]], f32),
+        "data": np.stack([rng.rand(N) * 0.1, rng.rand(N)], -1).astype(f32),
+        "G": {"d": v0, "p": np.zeros(N, np.int32)},
+    }
     poi = {
         "X": rng.rand(n, n, 4).astype(f32), "T": rng.rand(n, n, 4).astype(f32),
         "M": (rng.rand(n, n) > 0.5).astype(f32),
@@ -149,26 +257,120 @@ def medium_inputs():
         "Constraints": -np.ones((n, n, 2), f32), "Mask": np.zeros((n, n), f32),
         "w_fitSqrt": 3.16, "w_regSqrt": 1.0,
     }
-    return {"laplacian": lap, "poisson_image_editing": poi, "image_warping": iw}, {"W": n, "H": n}
+    grid = {"W": n, "H": n}
+    return {"laplacian": (grid, lap), "poisson_image_editing": (grid, poi),
+            "image_warping": (grid, iw), "curve_fitting": ({"N": N, "U": 1}, cf)}
 
 
-def system(spec, n, inputs):
-    plan = ot.Problem(spec).plan(dims={"W": n, "H": n}, device="cuda")
+def arap_grid_inputs(n_side):
+    """bench.py::bench_arap_graph's inputs: an n_side^2-vertex grid mesh,
+    both edge directions, one corner pinned and the other pulled by
+    (10, 0, 5), w_fitSqrt = 1, w_regSqrt = sqrt(0.5)."""
+    N = n_side * n_side
+    f32 = np.float32
+    ii, jj = np.meshgrid(np.arange(n_side), np.arange(n_side), indexing="ij")
+    pos = np.stack([ii.ravel(), jj.ravel(), np.zeros(N)], -1).astype(f32)
+    vid = np.arange(N).reshape(n_side, n_side)
+    v0 = np.concatenate([vid[:-1].ravel(), vid[:, :-1].ravel()])
+    v1 = np.concatenate([vid[1:].ravel(), vid[:, 1:].ravel()])
+    con = -np.ones((N, 3), f32)
+    con[vid[0, 0]] = pos[vid[0, 0]]
+    con[vid[-1, -1]] = pos[vid[-1, -1]] + np.array([10.0, 0, 5.0], f32)
+    return {"N": N}, {
+        "Offset": pos.copy(), "Angle": np.zeros((N, 3), f32), "UrShape": pos,
+        "Constraints": con,
+        "G": {"v0": np.concatenate([v0, v1]).astype(np.int32),
+              "v1": np.concatenate([v1, v0]).astype(np.int32)},
+        "w_fitSqrt": np.sqrt(1.0).astype(f32), "w_regSqrt": np.sqrt(0.5).astype(f32),
+    }
+
+
+def armadillo_inputs():
+    """bench.py::bench_arap_irregular's inputs: the armadillo mesh renumbered
+    by grid_embed_order, the lowest 1% of vertices by z pinned, the highest
+    1% pulled up by a fifth of the height."""
+    f32 = np.float32
+    d = np.load(ARMADILLO)
+    verts, v0, v1 = d["verts"].astype(f32), d["v0"].astype(np.int32), d["v1"].astype(np.int32)
+    N = verts.shape[0]
+    perm = grid_embed_order(v0, v1, N)
+    pos = permute_vertices(perm, verts)
+    v0r, v1r = remap_edges(perm, v0, v1)
+    con = -np.ones((N, 3), f32)
+    z = pos[:, 2]
+    lo = z <= np.quantile(z, 0.01)
+    hi = z >= np.quantile(z, 0.99)
+    con[lo] = pos[lo]
+    con[hi] = pos[hi] + np.array([0.0, 0.0, 0.2 * (z.max() - z.min())], f32)
+    return {"N": N}, {
+        "Offset": pos.copy(), "Angle": np.zeros((N, 3), f32), "UrShape": pos,
+        "Constraints": con, "G": {"v0": v0r, "v1": v1r},
+        "w_fitSqrt": np.sqrt(1.0).astype(f32), "w_regSqrt": np.sqrt(0.5).astype(f32),
+    }
+
+
+def _grid(n):
+    return {"W": n, "H": n}
+
+
+def system(spec, dims, inputs):
+    plan = ot.Problem(spec).plan(dims=dims)
     meta, r0, pre = plan.gn_system(inputs)
     if meta is None or plan.fused_fallback is not None:
-        raise RuntimeError(f"{spec.__name__} {n}: no fused grid CG meta ({plan.fused_fallback})")
+        raise RuntimeError(f"{spec.__name__} {dims}: no fused CG meta ({plan.fused_fallback})")
     return meta, fused_cg.pack(r0, meta), fused_cg.pack(pre, meta), {}
 
 
-def lm_system(spec, n, inputs):
+def lm_system(spec, dims, inputs):
     """The first LM step's system, with its real damping: (meta, b, pre_lm,
     LM keywords with the packed ctc)."""
-    plan = ot.Problem(spec, kind="LMGPU").plan(dims={"W": n, "H": n}, device="cuda")
+    plan = ot.Problem(spec, kind="LMGPU").plan(dims=dims)
     meta, r0, pre, ctc = plan.lm_system(inputs)
     if meta is None or plan.fused_fallback is not None:
-        raise RuntimeError(f"{spec.__name__} {n}: no fused grid CG meta ({plan.fused_fallback})")
+        raise RuntimeError(f"{spec.__name__} {dims}: no fused CG meta ({plan.fused_fallback})")
     lm = dict(ctc=fused_cg.pack(ctc, meta), reset_period=RESET_PERIOD)
     return meta, fused_cg.pack(r0, meta), fused_cg.pack(pre, meta), lm
+
+
+def meta_shape(meta):
+    """cg_work's shape of a fused CG meta: fields, plane (the points of its
+    domain), channels, triples and the remainder's entries."""
+    F, rem = meta["F"], meta.get("rem")
+    return dict(fields=int(F.shape[0]), plane=int(F.shape[1]) * int(F.shape[2]),
+                C=int(meta["ctot"]), triples=len(meta["triples"]),
+                nnz=0 if rem is None else int(rem["col"].shape[0]))
+
+
+def cg_work(fields, plane, C, triples, nnz=0, *, lm=False, f_bytes=4, pre_planes=None,
+            vector=None, dots=None, batch=1, iters=1, reset_period=RESET_PERIOD):
+    """What `iters` CG iterations must do at this shape: (bytes of one
+    iteration, with each input read once: the fields, b, the preconditioner
+    planes, ctc under LM, the triples table and the remainder CSR; float32
+    operations of the call; float64 operations of the call). Reads of the
+    stencil that leave the grid count as done; the remainder counts its
+    real entries. Defaults are the ported GN and LM forms'."""
+    n = C * plane
+    pre_planes = C if pre_planes is None else pre_planes
+    vector = (15 if lm else 12) if vector is None else vector  # dots, updates, z = pre * r
+    dots = (3 if lm else 2) if dots is None else dots  # their float64 sums
+    it_bytes = (fields * plane * f_bytes + (C + pre_planes + (C if lm else 0)) * plane * 4
+                + triples * 5 * 4)
+    if nnz:
+        it_bytes += (plane + 1) * 4 + nnz * 4 + nnz * C * C * 4
+    apply = 2 * triples * plane + 2 * nnz * C * C + (2 * n if lm else 0)
+    per_iter = apply + vector * n + 2 * (pre_planes - C) * plane
+    resets = iters // reset_period if lm else 0
+    return batch * it_bytes, batch * (iters * per_iter + resets * apply), batch * iters * dots * n
+
+
+def cg_bound(shape, iters, **knobs):
+    """(bound ms of `iters` iterations, "bytes" or "operations"): iters
+    times the larger of one iteration's bytes over the memory rate and its
+    operations over the peak rate of their type."""
+    it_bytes, f32, f64 = cg_work(**shape, iters=iters, **knobs)
+    t_bytes = iters * it_bytes / HBM_BYTES_PER_S
+    t_ops = f32 / F32_FLOPS + f64 / F64_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def kernel_vs_twin(label, meta, b, pre, lits, tol, lm=None, q_tol=Q_TOL):
@@ -179,15 +381,17 @@ def kernel_vs_twin(label, meta, b, pre, lits, tol, lm=None, q_tol=Q_TOL):
     dk, ik = fused_cg.fused_grid_cg_kernel(meta, b, pre, lits, tol, **lm_kw)
     trace = []
     dr, ir = fused_cg.fused_grid_cg_reference(meta["F"], meta["triples"], b, pre, lits, tol,
-                                              trace=trace, **lm_kw)
+                                              trace=trace, rem=meta["rem"], **lm_kw)
     torch.cuda.synchronize()
     ik = int(ik.item())
     err = float((dk - dr).abs().max())
     scale = float(dr.abs().max())
     finite = bool(torch.isfinite(dk).all())
-    line = {"check": "kernel_vs_twin", "case": label, "form": "lm" if lm else "gn",
+    line = {"check": "kernel_vs_twin", "case": label,
+            "form": fused_cg.instance_name(bool(lm), meta["rem"] is not None),
             "lits": lits, "tol": tol, "kernel_iters": ik, "twin_iters": ir,
-            "max_abs_err": err, "max_abs_delta": scale, "rel_err": err / max(scale, 1e-30)}
+            "max_abs_err": err, "max_abs_delta": scale, "rel_err": err / max(scale, 1e-30),
+            "bitwise_equal": bool(torch.equal(dk, dr))}
     if lm:
         line["q_tol"] = q_tol
     if ik != ir:  # the twin's exit quantities where the two counts stop
@@ -216,38 +420,100 @@ def bitwise_repeat(label, meta, b, pre, lits, lm=None):
     d2, i2 = fused_cg.fused_grid_cg_kernel(meta, b, pre, lits, CG_TOL, **lm_kw)
     torch.cuda.synchronize()
     same = bool(torch.equal(d1, d2)) and int(i1.item()) == int(i2.item())
-    log(json.dumps({"check": "bitwise_repeat", "case": label, "form": "lm" if lm else "gn",
+    log(json.dumps({"check": "bitwise_repeat", "case": label,
+                    "form": fused_cg.instance_name(bool(lm), meta["rem"] is not None),
                     "iters": int(i1.item()), "equal": same}))
     if not same:
         raise RuntimeError(f"{label}: two launches on the same input differ")
 
 
-def main_path(label, spec, kind, n, inputs, nl, li, want, n_ch):
-    """One solve through the public API with the launch counts set to 0
-    just before it; returns (result, launches by form, plan)."""
+def main_path(label, spec, kind, dims, inputs, nl, li, want, shapes, form=None):
+    """One solve through the public API with no device argument and the
+    launch counts set to 0 just before it; returns (result, launches by
+    instance, plan). ``want``: the JAX package's final cost, or None where
+    the caller holds the costs itself."""
     fused_cg.reset_launch_counts()
-    plan = ot.Problem(spec, kind=kind).plan(dims={"W": n, "H": n}, device="cuda")
+    plan = ot.Problem(spec, kind=kind).plan(dims=dims)
     res = plan.solve(dict(inputs), nIterations=nl, lIterations=li)
     torch.cuda.synchronize()
     launches = dict(fused_cg.fused_grid_cg_kernel.launches)
-    form = "lm" if kind == "LMGPU" else "gn"
-    rel = abs(res.final_cost - want) / abs(want)
-    log(json.dumps({"check": "main_path", "case": label, "final_cost": res.final_cost,
-                    "jax_cpu_cost": want, "rel_diff": rel, "nonlinear_iters": res.num_iterations,
-                    "lin_iters": res.num_linear_iterations, "kernel_launches": launches,
-                    "fused_fallback": plan.fused_fallback, "solve_s": res.wall_time_s}))
-    other = "gn" if form == "lm" else "lm"
-    if (launches[form] != res.num_iterations or launches[other] != 0 or res.num_iterations < 1
+    form = form or ("lm" if kind == "LMGPU" else "gn")
+    line = {"check": "main_path", "case": label, "final_cost": res.final_cost,
+            "costs": res.costs, "nonlinear_iters": res.num_iterations,
+            "lin_iters": res.num_linear_iterations, "kernel_launches": launches,
+            "fused_fallback": plan.fused_fallback, "solve_s": res.wall_time_s}
+    if want is not None:
+        line.update(jax_cpu_cost=want, rel_diff=abs(res.final_cost - want) / abs(want))
+    log(json.dumps(line))
+    others = [k for k, v in launches.items() if k != form and v]
+    if (launches[form] != res.num_iterations or others or res.num_iterations < 1
             or plan.fused_fallback is not None):
         raise RuntimeError(f"{label}: not one {form} kernel launch per nonlinear step "
                            f"({launches} for {res.num_iterations}, fallback {plan.fused_fallback})")
     for u, X in res.unknowns.items():
-        shape = (n, n, n_ch[u])
-        if tuple(X.shape) != shape or not bool(torch.isfinite(X).all()):
-            raise RuntimeError(f"{label}: unknown {u} is not finite of shape {shape}")
-    if rel > GOLDEN_RTOL:
+        if tuple(X.shape) != shapes[u] or not bool(torch.isfinite(X).all()):
+            raise RuntimeError(f"{label}: unknown {u} is not finite of shape {shapes[u]}")
+    if want is not None and abs(res.final_cost - want) > GOLDEN_RTOL * abs(want):
         raise RuntimeError(f"{label}: final cost {res.final_cost} vs JAX {want}")
     return res, launches, plan
+
+
+def graph_main_path(label, dims, inputs, form):
+    """An arap solve (GN 8x100) through the kernel, held as the
+    JAX_CPU_GRAPH_COSTS comment says: the first two steps' costs to the JAX
+    package's, the whole trajectory to the same solve through the plain
+    version on the card. Returns (result, launches)."""
+    N = dims["N"]
+    ref = JAX_CPU_GRAPH_COSTS[label]
+    res, launches, _plan = main_path(
+        f"{label} GN {GRAPH_NL}x{GRAPH_LI}", arap_mesh_deformation, "gaussNewtonGPU", dims,
+        inputs, GRAPH_NL, GRAPH_LI, None, {"Offset": (N, 3), "Angle": (N, 3)}, form=form)
+    fused_cg.reset_launch_counts()
+    twin_plan = ot.Problem(arap_mesh_deformation).plan(
+        dims=dims, init_params=ot.InitializationParameters(use_pallas_cg="interpret"))
+    twin = twin_plan.solve(dict(inputs), nIterations=GRAPH_NL, lIterations=GRAPH_LI)
+    torch.cuda.synchronize()
+    twin_launches = sum(fused_cg.fused_grid_cg_kernel.launches.values())
+    first = res.costs[: len(ref["first_costs"])]
+    first_rel = [abs(a - b) / abs(b) for a, b in zip(first, ref["first_costs"])]
+    twin_rel = abs(res.final_cost - twin.final_cost) / abs(twin.final_cost)
+    log(json.dumps({
+        "check": "graph_costs", "case": label, "first_costs": first,
+        "jax_cpu_first_costs": ref["first_costs"], "first_rel_diff": first_rel,
+        "final_cost": res.final_cost, "twin_final_cost": twin.final_cost,
+        "twin_rel_diff": twin_rel, "costs_equal_to_twin": res.costs == twin.costs,
+        "lin_iters": res.num_linear_iterations, "twin_lin_iters": twin.num_linear_iterations,
+        "jax_cpu_final_cost": ref["final"], "jax_cpu_lin_iters": ref["lin_iters"],
+        "final_rel_diff_to_jax_cpu": abs(res.final_cost - ref["final"]) / ref["final"],
+        "tpu_final_cost": TPU_GRAPH_FINAL_COSTS[label], "twin_kernel_launches": twin_launches}))
+    if any(r > FIRST_STEPS_RTOL for r in first_rel):
+        raise RuntimeError(f"{label}: first steps' costs {first} vs JAX {ref['first_costs']}")
+    if twin_rel > GOLDEN_RTOL or twin_launches != 0 or twin_plan.fused_fallback is not None:
+        raise RuntimeError(f"{label}: kernel solve {res.final_cost} vs plain version "
+                           f"{twin.final_cost} ({twin_launches} kernel launches in the latter)")
+    return res, launches
+
+
+def float64_witness(dims, inputs):
+    """The arap36k GN 8x100 solve in float64 through the public API with no
+    device argument (the eager loop: the kernel is float32, so no launch),
+    held to the JAX package's float64 solve as the JAX_CPU_ARAP36K_F64_COSTS
+    comment says."""
+    fused_cg.reset_launch_counts()
+    plan = ot.Problem(arap_mesh_deformation).plan(dims=dims, double_precision=True)
+    res = plan.solve(dict(inputs), nIterations=GRAPH_NL, lIterations=GRAPH_LI)
+    torch.cuda.synchronize()
+    launches = sum(fused_cg.fused_grid_cg_kernel.launches.values())
+    ref = JAX_CPU_ARAP36K_F64_COSTS
+    rel = [abs(a - b) / abs(b) for a, b in zip(res.costs, ref)]
+    log(json.dumps({"check": "float64_witness", "case": f"arap36k GN {GRAPH_NL}x{GRAPH_LI}",
+                    "costs": res.costs, "jax_cpu_f64_costs": ref, "rel_diff": rel,
+                    "lin_iters": res.num_linear_iterations, "kernel_launches": launches,
+                    "fused_fallback": plan.fused_fallback, "solve_s": res.wall_time_s}))
+    if (len(res.costs) != len(ref) or any(r > F64_RTOL for r in rel[:F64_STEPS])
+            or launches or plan.fused_fallback is not None):
+        raise RuntimeError(f"arap36k float64: costs {res.costs[:F64_STEPS]} vs JAX "
+                           f"{ref[:F64_STEPS]}, {launches} kernel launches")
 
 
 def time_cuda(fn, reps):
@@ -264,25 +530,30 @@ def time_cuda(fn, reps):
 
 
 def time_pair(label, meta, b, pre, gpu, lm=None, reps=(5, 2)):
-    """ms per CG iteration of the kernel and of its twin, TIMED_ITERS
-    iterations with no exit, CUDA events."""
+    """ms of TIMED_ITERS CG iterations with no exit of the kernel and of its
+    twin (CUDA events), and the call's bound: (ms, plain ms, bound ms,
+    bound by)."""
     lm_kw = dict(lm, q_tolerance=float("-inf")) if lm else {}
     ms_k = time_cuda(lambda: fused_cg.fused_grid_cg_kernel(meta, b, pre, TIMED_ITERS, 0.0, **lm_kw),
                      reps[0])
     ms_t = time_cuda(lambda: fused_cg.fused_grid_cg_reference(
-        meta["F"], meta["triples"], b, pre, TIMED_ITERS, 0.0, **lm_kw), reps[1])
-    log(json.dumps({"timing": label, "form": "lm" if lm else "gn", "gpu": gpu,
+        meta["F"], meta["triples"], b, pre, TIMED_ITERS, 0.0, rem=meta["rem"], **lm_kw), reps[1])
+    bound_ms, bound_by = cg_bound(meta_shape(meta), TIMED_ITERS, lm=bool(lm))
+    form = fused_cg.instance_name(bool(lm), meta["rem"] is not None)
+    log(json.dumps({"timing": label, "form": form, "gpu": gpu,
                     "kernel_ms_per_cg_iter": ms_k / TIMED_ITERS,
                     "twin_ms_per_cg_iter": ms_t / TIMED_ITERS,
-                    f"kernel_ms_{TIMED_ITERS}_iters": ms_k, f"twin_ms_{TIMED_ITERS}_iters": ms_t}))
-    return ms_k, ms_t
+                    "bound_ms_per_cg_iter": bound_ms / TIMED_ITERS,
+                    f"kernel_ms_{TIMED_ITERS}_iters": ms_k, f"twin_ms_{TIMED_ITERS}_iters": ms_t,
+                    f"bound_ms_{TIMED_ITERS}_iters": bound_ms, "bound_by": bound_by}))
+    return ms_k, ms_t, bound_ms, bound_by
 
 
-def time_main_path(label, spec, kind, n, inputs, nl, li, gpu):
+def time_main_path(label, spec, kind, dims, inputs, nl, li, gpu):
     """Assembly ms per nonlinear step (the step's system, CUDA events) and
     the whole solve's wall time (host clock, synchronised), after a warm-up
     solve."""
-    plan = ot.Problem(spec, kind=kind).plan(dims={"W": n, "H": n}, device="cuda")
+    plan = ot.Problem(spec, kind=kind).plan(dims=dims)
     u, c, g, prm = plan._normalize_and_place(inputs)
     sv = plan.solver
     sp = plan.solver_params
@@ -307,6 +578,48 @@ def time_main_path(label, spec, kind, n, inputs, nl, li, gpu):
     log(json.dumps({"timing": label, "gpu": gpu, "assembly_ms_per_step": ms_assembly,
                     "solve_ms": solve_ms, "nonlinear_iters": res.num_iterations,
                     "lin_iters": res.num_linear_iterations}))
+
+
+def profile_solve(label, dims, inputs, gpu):
+    """One warm arap GN solve under torch.profiler: device time, the
+    kernel's share, device kernel launches and host synchronisations; the
+    20 longest kernels go to OUT_DIR."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    plan = ot.Problem(arap_mesh_deformation).plan(dims=dims)
+    plan.solve(dict(inputs), nIterations=GRAPH_NL, lIterations=GRAPH_LI)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        res = plan.solve(dict(inputs), nIterations=GRAPH_NL, lIterations=GRAPH_LI)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+
+    def dev_us(e):
+        return float(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)))
+
+    kernels = [e for e in events if getattr(e, "device_type", None) == DeviceType.CUDA]
+    device_ms = sum(dev_us(e) for e in kernels) / 1e3
+    cg_ms = sum(dev_us(e) for e in kernels if "fused_grid_cg_kernel" in e.key) / 1e3
+    syncs = {e.key: e.count for e in events
+             if "Synchronize" in e.key or e.key in ("aten::item", "aten::_local_scalar_dense")}
+    line = {"profile": label, "gpu": gpu, "wall_ms": wall_ms, "device_ms": device_ms,
+            "cg_kernel_ms": cg_ms,
+            "cg_kernel_share_of_device": cg_ms / device_ms if device_ms else None,
+            "device_busy_share_of_wall": device_ms / wall_ms,
+            "device_kernel_launches": sum(e.count for e in kernels),
+            "cg_kernel_launches": sum(e.count for e in kernels if "fused_grid_cg_kernel" in e.key),
+            "host_syncs": syncs, "nonlinear_iters": res.num_iterations,
+            "lin_iters": res.num_linear_iterations}
+    log(json.dumps(line))
+    os.makedirs(OUT_DIR, exist_ok=True)
+    top = sorted(kernels, key=dev_us, reverse=True)[:20]
+    with open(os.path.join(OUT_DIR, f"profile_{label}.json"), "w") as f:
+        top_kernels = [{"name": e.key, "count": e.count, "device_ms": dev_us(e) / 1e3}
+                       for e in top]
+        json.dump(dict(line, top_kernels=top_kernels), f, indent=1)
 
 
 def main() -> int:
@@ -335,15 +648,15 @@ def main() -> int:
     # 2. each kernel form against its twin at the main paths' shapes
     n = MAIN_N
     inputs = bench_poisson_inputs(n)
-    meta, b, pre, _ = system(poisson_image_editing, n, inputs)
+    meta, b, pre, _ = system(poisson_image_editing, _grid(n), inputs)
     log(f"poisson {n}x{n}x4: {meta['F'].shape[0]} fields, {len(meta['triples'])} triples")
     err_gn = kernel_vs_twin(f"poisson{n}x4", meta, b, pre, 50, 0.0)
     kernel_vs_twin(f"poisson{n}x4", meta, b, pre, 2000, CG_TOL)
-    lmeta, lb, lpre, _ = system(laplacian, n, laplacian_inputs(n))
+    lmeta, lb, lpre, _ = system(laplacian, _grid(n), laplacian_inputs(n))
     kernel_vs_twin(f"laplacian{n}", lmeta, lb, lpre, 50, 0.0)
     kernel_vs_twin(f"laplacian{n}", lmeta, lb, lpre, 2000, CG_TOL)
     del lmeta, lb, lpre
-    bmeta, bb, bpre, _ = system(poisson_image_editing, BIG_N, bench_poisson_inputs(BIG_N))
+    bmeta, bb, bpre, _ = system(poisson_image_editing, _grid(BIG_N), bench_poisson_inputs(BIG_N))
     kernel_vs_twin(f"poisson{BIG_N}x4", bmeta, bb, bpre, 50, 0.0)
     kernel_vs_twin(f"poisson{BIG_N}x4", bmeta, bb, bpre, 200, CG_TOL)
     del bmeta, bb, bpre
@@ -351,43 +664,74 @@ def main() -> int:
 
     iw_in = bench_image_warping_inputs(IW_N)
     iw_big_in = bench_image_warping_inputs(IW_BIG_N)
-    mmeta, mb, mpre, _ = system(image_warping, IW_N, iw_in)
+    mmeta, mb, mpre, _ = system(image_warping, _grid(IW_N), iw_in)
     cross = sum(1 for (_d, i, j, _f) in mmeta["triples"] if i != j)
     log(f"image_warping {IW_N}x{IW_N}x3: {mmeta['F'].shape[0]} fields, "
         f"{len(mmeta['triples'])} triples, {cross} cross-channel")
     err_mixed = kernel_vs_twin(f"image_warping{IW_N}x3", mmeta, mb, mpre, 50, 0.0)
     kernel_vs_twin(f"image_warping{IW_N}x3", mmeta, mb, mpre, 400, CG_TOL)
-    vmeta, vb, vpre, vlm = lm_system(image_warping, IW_N, iw_in)
+    vmeta, vb, vpre, vlm = lm_system(image_warping, _grid(IW_N), iw_in)
     err_lm = kernel_vs_twin(f"image_warping{IW_N}x3", vmeta, vb, vpre, 50, 0.0, vlm,
                             q_tol=float("-inf"))
     kernel_vs_twin(f"image_warping{IW_N}x3", vmeta, vb, vpre, 400, CG_TOL, vlm)
     bitwise_repeat(f"image_warping{IW_N}x3", vmeta, vb, vpre, 400, vlm)
-    gmeta, gb, gpre, _ = system(image_warping, IW_BIG_N, iw_big_in)
+    gmeta, gb, gpre, _ = system(image_warping, _grid(IW_BIG_N), iw_big_in)
     err_k6 = kernel_vs_twin(f"image_warping{IW_BIG_N}x3", gmeta, gb, gpre, 50, 0.0)
     kernel_vs_twin(f"image_warping{IW_BIG_N}x3", gmeta, gb, gpre, 100, CG_TOL)
-    wmeta, wb, wpre, wlm = lm_system(image_warping, IW_BIG_N, iw_big_in)
+    wmeta, wb, wpre, wlm = lm_system(image_warping, _grid(IW_BIG_N), iw_big_in)
     kernel_vs_twin(f"image_warping{IW_BIG_N}x3", wmeta, wb, wpre, 50, 0.0, wlm,
                    q_tol=float("-inf"))
     kernel_vs_twin(f"image_warping{IW_BIG_N}x3", wmeta, wb, wpre, 100, CG_TOL, wlm)
 
+    # the graph forms: K3 (DIA, the grid mesh) and K4 (the remainder, the
+    # armadillo), each in the GN and the LM instance
+    t0 = time.perf_counter()
+    arap_dims, arap_in = arap_grid_inputs(ARAP_SIDE)
+    arm_dims, arm_in = armadillo_inputs()
+    log(f"graph inputs built in {time.perf_counter() - t0:.2f} s")
+    graph = {}
+    for label, dims, gin in (("arap36k", arap_dims, arap_in), ("armadillo31k", arm_dims, arm_in)):
+        gm = system(arap_mesh_deformation, dims, gin)
+        glm = lm_system(arap_mesh_deformation, dims, gin)
+        rem = gm[0]["rem"]
+        offsets = sorted({d[1] for (d, _i, _j, _f) in gm[0]["triples"]})
+        log(json.dumps({"graph_system": label, "vertices": dims["N"],
+                        "fields": int(gm[0]["F"].shape[0]), "triples": len(gm[0]["triples"]),
+                        "offsets": offsets,
+                        "remainder_entries": None if rem is None else int(rem["col"].shape[0]),
+                        "remainder_max_row": None if rem is None
+                        else int((rem["rowptr"][1:] - rem["rowptr"][:-1]).max())}))
+        err = kernel_vs_twin(label, *gm[:3], 50, 0.0)
+        kernel_vs_twin(label, *gm[:3], GRAPH_LI, CG_TOL)
+        kernel_vs_twin(label, *glm[:3], 50, 0.0, glm[3], q_tol=float("-inf"))
+        kernel_vs_twin(label, *glm[:3], GRAPH_LI, CG_TOL, glm[3])
+        bitwise_repeat(label, *gm[:3], GRAPH_LI)
+        bitwise_repeat(label, *glm[:3], GRAPH_LI, glm[3])
+        graph[label] = (gm, glm, err)
+    if graph["arap36k"][0][0]["rem"] is not None or graph["armadillo31k"][0][0]["rem"] is None:
+        raise RuntimeError("the grid mesh must take the DIA form and the armadillo the remainder")
+
     # 3. the main paths through the public API, each with the launch counts
     # set to 0 just before it and read just after
     _res, l_poisson, _p = main_path(f"poisson{n}x4 GN 1x2000", poisson_image_editing,
-                                    "gaussNewtonGPU", n, inputs, 1, 2000,
-                                    JAX_CPU_POISSON_512_COST, {"X": 4})
-    iw_ch = {"Offset": 2, "Angle": 1}
+                                    "gaussNewtonGPU", _grid(n), inputs, 1, 2000,
+                                    JAX_CPU_POISSON_512_COST, {"X": (n, n, 4)})
     runs = {}
     for (nn, kind, nl, li), want in JAX_CPU_IMAGE_WARPING_COSTS.items():
         label = f"image_warping{nn} {'LM' if kind == 'LMGPU' else 'GN'} {nl}x{li}"
         _r, runs[(nn, kind)], _p = main_path(
-            label, image_warping, kind, nn, iw_in if nn == IW_N else iw_big_in, nl, li,
-            want, iw_ch)
+            label, image_warping, kind, _grid(nn), iw_in if nn == IW_N else iw_big_in, nl, li,
+            want, {"Offset": (nn, nn, 2), "Angle": (nn, nn, 1)})
+    _r, l_arap = graph_main_path("arap36k", arap_dims, arap_in, "gn")
+    _r, l_arm = graph_main_path("armadillo31k", arm_dims, arm_in, "gn_rem")
+    float64_witness(arap_dims, arap_in)
 
-    cases, mdims = medium_inputs()
+    cases = medium_inputs()
     for name, (spec, kind, nl, li, golden) in MEDIUM_GOLDENS.items():
         fused_cg.reset_launch_counts()
-        p = ot.Problem(spec, kind=kind).plan(dims=mdims, device="cuda")
-        r = p.solve(dict(cases[name]), nIterations=nl, lIterations=li)
+        mdims, minputs = cases[name]
+        p = ot.Problem(spec, kind=kind).plan(dims=mdims)
+        r = p.solve(dict(minputs), nIterations=nl, lIterations=li)
         used = dict(fused_cg.fused_grid_cg_kernel.launches)
         ok = abs(r.final_cost - golden) <= GOLDEN_ATOL + GOLDEN_RTOL * abs(golden)
         log(json.dumps({"check": "golden", "case": f"{name} {kind} {nl}x{li}",
@@ -399,35 +743,56 @@ def main() -> int:
             raise RuntimeError(f"golden {name} failed")
 
     # 4. times on the card
-    ms_gn, plain_gn = time_pair(f"poisson{n}x4", meta, b, pre, gpu)
-    ms_mixed, plain_mixed = time_pair(f"image_warping{IW_N}x3", mmeta, mb, mpre, gpu)
-    ms_lm, plain_lm = time_pair(f"image_warping{IW_N}x3", vmeta, vb, vpre, gpu, vlm)
-    ms_k6, plain_k6 = time_pair(f"image_warping{IW_BIG_N}x3", gmeta, gb, gpre, gpu,
-                                reps=(3, 1))
+    t_gn = time_pair(f"poisson{n}x4", meta, b, pre, gpu)
+    t_mixed = time_pair(f"image_warping{IW_N}x3", mmeta, mb, mpre, gpu)
+    t_lm = time_pair(f"image_warping{IW_N}x3", vmeta, vb, vpre, gpu, vlm)
+    t_k6 = time_pair(f"image_warping{IW_BIG_N}x3", gmeta, gb, gpre, gpu, reps=(3, 1))
     time_pair(f"image_warping{IW_BIG_N}x3", wmeta, wb, wpre, gpu, wlm, reps=(3, 1))
     del gmeta, gb, gpre, wmeta, wb, wpre, wlm
-    time_main_path(f"poisson{n}x4 GN 1x2000", poisson_image_editing, "gaussNewtonGPU", n,
-                   inputs, 1, 2000, gpu)
+    t_graph = {}
+    for label, (gm, glm, _err) in graph.items():
+        t_graph[label] = time_pair(label, *gm[:3], gpu, reps=(3, 1))
+        time_pair(label, *glm[:3], gpu, glm[3], reps=(3, 1))
+    time_main_path(f"poisson{n}x4 GN 1x2000", poisson_image_editing, "gaussNewtonGPU",
+                   _grid(n), inputs, 1, 2000, gpu)
     for (nn, kind, nl, li) in JAX_CPU_IMAGE_WARPING_COSTS:
         label = f"image_warping{nn} {'LM' if kind == 'LMGPU' else 'GN'} {nl}x{li}"
-        time_main_path(label, image_warping, kind, nn, iw_in if nn == IW_N else iw_big_in,
-                       nl, li, gpu)
+        time_main_path(label, image_warping, kind, _grid(nn),
+                       iw_in if nn == IW_N else iw_big_in, nl, li, gpu)
+    for label, dims, gin in (("arap36k", arap_dims, arap_in), ("armadillo31k", arm_dims, arm_in)):
+        time_main_path(f"{label} GN {GRAPH_NL}x{GRAPH_LI}", arap_mesh_deformation,
+                       "gaussNewtonGPU", dims, gin, GRAPH_NL, GRAPH_LI, gpu)
+    profile_solve("arap36k", arap_dims, arap_in, gpu)
 
-    def entry(name, replaces, launches, err, ms, plain):
+    def entry(name, replaces, launches, err, timing):
+        ms, plain, bound_ms, bound_by = timing
         return {"name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": replaces,
-                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain}
+                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
-    # each main-path launch counts in one entry; the LM form at 1024x1024x3
-    # (K6's other case) is checked and timed above but has no main path here
+    bounds = []
+    for row, shape in ROWS_TO_PORT:
+        ms, by = cg_bound(shape, 1)
+        bounds.append({"row": row, "bound_ms_per_cg_iter": ms, "bound_by": by})
+    log(json.dumps({"bounds_to_port": bounds}))
+
+    # each main-path launch counts in one entry; ms, plain_ms and bound_ms
+    # are of TIMED_ITERS iterations; no single PyTorch call runs a CG loop,
+    # so library_ms is null. The LM instances on 1024x1024x3 (K6's other
+    # case) and on the two meshes are checked and timed above but have no
+    # main path here
     log(f"gpu: {gpu}")
     log(json.dumps({"kernels": [
-        entry("fused_grid_cg GN (K1, grid GN form)", K1, l_poisson["gn"], err_gn, ms_gn, plain_gn),
+        entry("fused_grid_cg GN (K1, grid GN form)", K1, l_poisson["gn"], err_gn, t_gn),
         entry("fused_grid_cg GN, mixed unknowns (K1 variant a)", K1,
-              runs[(IW_N, "gaussNewtonGPU")]["gn"], err_mixed, ms_mixed, plain_mixed),
-        entry("fused_grid_cg LM (K1 variant b)", K1, runs[(IW_N, "LMGPU")]["lm"], err_lm,
-              ms_lm, plain_lm),
+              runs[(IW_N, "gaussNewtonGPU")]["gn"], err_mixed, t_mixed),
+        entry("fused_grid_cg LM (K1 variant b)", K1, runs[(IW_N, "LMGPU")]["lm"], err_lm, t_lm),
         entry(f"fused_grid_cg GN beyond VMEM (K6), image_warping {IW_BIG_N}x{IW_BIG_N}x3", K6,
-              runs[(IW_BIG_N, "gaussNewtonGPU")]["gn"], err_k6, ms_k6, plain_k6),
+              runs[(IW_BIG_N, "gaussNewtonGPU")]["gn"], err_k6, t_k6),
+        entry("fused_grid_cg GN, graph DIA form (K3), arap 36,864-vertex grid mesh", K3,
+              l_arap["gn"], graph["arap36k"][2], t_graph["arap36k"]),
+        entry("fused_grid_cg GN with the graph remainder (K4), arap armadillo 31,106 vertices",
+              K4, l_arm["gn_rem"], graph["armadillo31k"][2], t_graph["armadillo31k"]),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,12 @@
 """opt_tpu_torch — the PyTorch and CUDA port of opt_tpu.
 
 A nonlinear least-squares DSL and Gauss-Newton solver: users write energy
-functions (sums of squared residual terms over image grids) as plain Python
-spec functions; the framework derives a Jacobi-preconditioned Gauss-Newton
-solver with ``torch.func``. The whole CG inner loop of a 2-D grid problem
-runs as one hand-written CUDA kernel on the card (ops/fused_cg.py).
+functions (sums of squared residual terms over image grids and graphs) as
+plain Python spec functions; the framework derives a Jacobi-preconditioned
+Gauss-Newton solver with ``torch.func``. The whole CG inner loop of a 2-D
+grid or a graph problem runs as one hand-written CUDA kernel on the card
+(ops/fused_cg.py). Plans run on the card; ``plan(..., device="cpu")`` asks
+for the CPU.
 
 The JAX package ``opt_tpu`` is the reference this port is held to; the two
 share names, layouts and numerics. This package never imports it.
@@ -21,7 +23,7 @@ Quick start::
                  X(0, 0) - X(1, 0),
                  X(0, 0) - X(0, 1))
 
-    plan = ot.Problem(laplacian).plan(dims={"W": 512, "H": 512}, device="cuda")
+    plan = ot.Problem(laplacian).plan(dims={"W": 512, "H": 512})
     result = plan.solve({"X": x0, "A": target})
 """
 

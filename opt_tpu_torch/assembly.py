@@ -1,22 +1,30 @@
-"""Assembled gather-form JᵀJ operator for grid (centered) domains.
+"""Assembled gather-form JᵀJ operator for grid (centered) and graph domains.
 
-PyTorch counterpart of the centred half of ``opt_tpu/assembly.py`` — the
-equivalent of the reference's symbolic ``createjtjcentered``: instead of
-composing Jᵀ(J·p) from the residual linearization in every CG iteration,
+PyTorch counterpart of ``opt_tpu/assembly.py`` — the equivalent of the
+reference's symbolic ``createjtjcentered`` and ``createjtjgraph``: instead
+of composing Jᵀ(J·p) from the residual linearization in every CG iteration,
 the solver assembles, once per nonlinear iteration, coefficient fields
 
-    W[(u_out, u_in, Δ, i, j)][q]
+* centered: W[(u_out, u_in, Δ, i, j)][q]
       = Σ_{t, s_out, s_in : s_in - s_out = Δ}
         Σ_rch ∂r_t[q-s_out, rch]/∂u_out[q, i] · ∂r_t[q-s_out, rch]/∂u_in[q+Δ, j]
+  applied in the CG loop as weighted shifts
+  (JᵀJ p)[u_out][q, i] = Σ W[...][q] · p[u_in][q+Δ, j];
 
-applied in the CG loop as weighted shifts
-(JᵀJ p)[u_out][q, i] = Σ W[...][q] · p[u_in][q+Δ, j].
+* graph: per-edge coupling blocks P(k_out, k_in)[e] between the edge's
+  endpoint slots, stacked per vertex-space group and gathered per vertex
+  through the combined incidence table: the same-vertex blocks pre-sum into
+  one block S[v] per vertex, cross-vertex blocks at dominant vertex-id
+  offsets into per-offset blocks (DIA), and the rest into one block per
+  distinct (v, u) read (the remainder). Every per-vertex sum is a gather
+  and a sum in a fixed order, never an atomic scatter.
 
 The per-slot Jacobian fields D[t, s] = ∂r_t/∂slot_s come from one-hot jvp
 probes (``torch.func``) of the pointwise slot-form residual function, and
 the channel-pair sparsity is detected once per plan by probing randomized
 inputs on a small grid, exactly as the reference package does. Graph
-couplings are slice 3 of the port (ROADMAP.md queue 1 item 10).
+couplings between slots of different vertex spaces, whose unknowns are
+both on the graph, are not ported yet (ROADMAP.md queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -30,12 +38,17 @@ import torch.nn.functional as TF
 from torch.fx.experimental.proxy_tensor import make_fx
 
 from .compile import graph_outputs, node_inputs, op_name
-from .ops.fused_cg import plan_fused_grid_cg
+from .ops.fused_cg import plan_fused_graph_cg, plan_fused_grid_cg
 from .ops.shift import shift
-from .spec import GRAPHS_TODO
 
 # centered: (u_out, u_in, delta, i, j) -> [(term_idx, sid_out, sid_in), ...]
 WKey = Tuple[str, str, Tuple[int, ...], int, int]
+# graph: (graph, u_out, key_out, u_in, key_in, i, j) -> contributions
+GKey = Tuple[str, str, str, str, str, int, int]
+CROSS_SPACE_TODO = (
+    "graph couplings between unknowns on slots of different vertex spaces are "
+    "not ported yet (ROADMAP.md queue 1 item 10)"
+)
 
 # the reference package's probe seed (opt_tpu/assembly.py:497): identical
 # draws make identical structure decisions
@@ -47,9 +60,11 @@ class AssemblyPlan:
     """Static description of the nonzero JᵀJ coefficient fields."""
 
     w_spec: Dict[WKey, List[Tuple[int, int, int]]]
+    g_spec: Dict[GKey, List[Tuple[int, int, int]]]
     needed_slots: List[int]  # unknown slot ids probed at assembly time
-    # (u_out, u_in, delta) groups whose diagonal pair fields are
-    # channel-independent: one [*dom] field stands for C identical copies
+    # (u_out, u_in, delta) / (g, u_out, k_out, u_in, k_in) groups whose
+    # diagonal pair fields are channel-independent: one field stands for C
+    # identical copies
     scalar_groups: frozenset = frozenset()
     # (term_idx, slot_id) Jacobian fields independent of the unknowns:
     # probed once per solve (assemble_const), not once per step
@@ -137,11 +152,12 @@ def _terms_with_traced_gates(compiled, X, consts, graphs, params):
     )
 
 
-def _probe_inputs(compiled, rng, extra_vals=()):
+def _probe_inputs(compiled, rng, probe_edges, extra_vals=()):
     """Randomized inputs exercising both branches of mask-style selects:
     constants mix exact {0, 1, -1} and every traced threshold (±0.5) with
     uniform values; unknowns mix a uniform base with the same threshold
-    values. Same draws, in the same order, as the reference package."""
+    values; graph slots are uniform random valid indices. Same draws, in
+    the same order, as the reference package."""
     base_vals = [0.0, 1.0, -1.0] + [
         v for v in extra_vals if v not in (0.0, 1.0, -1.0)
     ]
@@ -162,13 +178,21 @@ def _probe_inputs(compiled, rng, extra_vals=()):
             for k, bv in enumerate(base_vals):
                 vals = np.where(cat == k, bv, vals)
             consts[name] = torch.as_tensor(vals).to(compiled.dtype)
-    if compiled.registry.graphs:
-        raise NotImplementedError(GRAPHS_TODO)
+    graphs = {
+        gname: {
+            slot: torch.as_tensor(
+                rng.randint(0, max(1, int(np.prod(isp.shape(compiled.dim_sizes)))), probe_edges),
+                dtype=torch.int64,
+            )
+            for slot, isp in gdecl.slots.items()
+        }
+        for gname, gdecl in compiled.registry.graphs.items()
+    }
     params = {
         p: torch.tensor(rng.uniform(0.5, 1.5), dtype=compiled.dtype)
         for p in compiled.registry.params
     }
-    return unknowns, consts, {}, params
+    return unknowns, consts, graphs, params
 
 
 def _slot_jacobians(compiled, X, consts, graphs, params, slot_ids):
@@ -176,11 +200,15 @@ def _slot_jacobians(compiled, X, consts, graphs, params, slot_ids):
     jvp probes of the slot-form residual function, all probes as one
     ``vmap`` over ``jvp``. Also returns the probe tensors per term
     ([*dom, r_ch, n_probes]), each slot's first probe column, and the
-    residual terms at X."""
+    residual terms at X. Per-edge ``valid`` masks scale the slot-form
+    residuals as ``residual_terms`` does, so a masked edge's Jacobian
+    fields, and every block built from them, are exactly zero."""
     sv = compiled.gather_slot_values(X, consts, graphs, params)
+    scales = compiled.graph_term_scales(graphs)
 
     def f(s):
-        return compiled.local_residual_terms(s, params, consts)
+        terms = compiled.local_residual_terms(s, params, consts)
+        return [t if sc is None else t * sc for t, sc in zip(terms, scales)]
 
     probe_of = [
         (sid, ch)
@@ -216,21 +244,22 @@ def _slot_jacobians(compiled, X, consts, graphs, params, slot_ids):
     return D, moved, base_of, f(sv)
 
 
-def plan_assembly(spec_fn, compiled, *, probe_size: int = 8,
+def plan_assembly(spec_fn, compiled, *, probe_size: int = 8, probe_edges: int = 32,
                   memory_limit_bytes: int = 1 << 31) -> Optional[AssemblyPlan]:
     """Build the static assembly plan (memoized on the compiled problem), or
     None when it would exceed the centered-field memory budget."""
-    cache_key = (probe_size, memory_limit_bytes)
+    cache_key = (probe_size, probe_edges, memory_limit_bytes)
     cache = compiled.__dict__.setdefault("_assembly_plan_cache", {})
     if cache_key not in cache:
         cache[cache_key] = _plan_assembly_uncached(
-            spec_fn, compiled, probe_size=probe_size,
+            spec_fn, compiled, probe_size=probe_size, probe_edges=probe_edges,
             memory_limit_bytes=memory_limit_bytes,
         )
     return cache[cache_key]
 
 
-def _plan_assembly_uncached(spec_fn, compiled, *, probe_size, memory_limit_bytes) -> Optional[AssemblyPlan]:
+def _plan_assembly_uncached(spec_fn, compiled, *, probe_size, probe_edges,
+                            memory_limit_bytes) -> Optional[AssemblyPlan]:
     """Channel-pair sparsity by evaluating the per-pair coefficient fields at
     two randomized probe input sets on a small grid: a pair whose field is
     exactly zero at every probe element under both draws is structurally
@@ -238,8 +267,6 @@ def _plan_assembly_uncached(spec_fn, compiled, *, probe_size, memory_limit_bytes
     decided as in the reference package whatever the plan's device."""
     from .compile import compile_spec
 
-    if compiled.registry.graphs:
-        raise NotImplementedError(GRAPHS_TODO)
     probe_dims = {k: min(v, probe_size) for k, v in compiled.dim_sizes.items()}
     probe = compile_spec(spec_fn, probe_dims, torch.float32)
 
@@ -259,17 +286,19 @@ def _plan_assembly_uncached(spec_fn, compiled, *, probe_size, memory_limit_bytes
 
     def _group_key(so, si):
         s_out, s_in = slots[so], slots[si]
-        delta = tuple(b - a for a, b in zip(s_out.offset, s_in.offset))
-        return (s_out.image, s_in.image, delta)
+        if s_out.kind == "img":
+            delta = tuple(b - a for a, b in zip(s_out.offset, s_in.offset))
+            return (s_out.image, s_in.image, delta)
+        return (s_out.graph, s_out.image, s_out.key[3], s_in.image, s_in.key[3])
 
-    Xp0, constsp0, graphsp0, paramsp0 = _probe_inputs(probe, rng)
+    Xp0, constsp0, graphsp0, paramsp0 = _probe_inputs(probe, rng, probe_edges)
     extra_vals = _comparison_constants(probe, Xp0, constsp0, graphsp0, paramsp0)
 
     nonzero: Dict[Tuple[int, int, int, int, int], bool] = {}
     probe_fields: List[Dict[Tuple, np.ndarray]] = []
     D = constsp = graphsp = paramsp = None
     for _draw in range(2):
-        Xp, constsp, graphsp, paramsp = _probe_inputs(probe, rng, extra_vals)
+        Xp, constsp, graphsp, paramsp = _probe_inputs(probe, rng, probe_edges, extra_vals)
         D, _mv, _bo, _pr = _slot_jacobians(probe, Xp, constsp, graphsp, paramsp, unknown_sids)
         pf: Dict[Tuple, np.ndarray] = {}
         for t_idx, term in enumerate(probe.terms):
@@ -280,8 +309,11 @@ def _plan_assembly_uncached(spec_fn, compiled, *, probe_size, memory_limit_bytes
                     Di = D[(t_idx, si)].numpy()
                     B = np.einsum("...ri,...rj->...ij", Do, Di)
                     nz = ~np.all(B.reshape(-1, B.shape[-2], B.shape[-1]) == 0, axis=0)
-                    off = tuple(-o for o in slots[so].offset)
-                    Bacc = shift(torch.as_tensor(B), off + (0, 0)).numpy()
+                    if slots[so].kind == "img":
+                        off = tuple(-o for o in slots[so].offset)
+                        Bacc = shift(torch.as_tensor(B), off + (0, 0)).numpy()
+                    else:
+                        Bacc = B
                     gk = _group_key(so, si)
                     for i in range(nz.shape[0]):
                         for j in range(nz.shape[1]):
@@ -305,13 +337,15 @@ def _plan_assembly_uncached(spec_fn, compiled, *, probe_size, memory_limit_bytes
                         nonzero[(t_idx, so, si, i, j)] = True
 
     w_spec: Dict[WKey, List[Tuple[int, int, int]]] = {}
+    g_spec: Dict[GKey, List[Tuple[int, int, int]]] = {}
     group_pairs: Dict[Tuple, set] = {}
     group_channels: Dict[Tuple, Tuple[int, int]] = {}
     for (t_idx, so, si, i, j) in sorted(nonzero):
         gk = _group_key(so, si)
         group_pairs.setdefault(gk, set()).add((i, j))
         group_channels[gk] = (slots[so].channels, slots[si].channels)
-        w_spec.setdefault(gk + (i, j), []).append((t_idx, so, si))
+        spec_d = w_spec if slots[so].kind == "img" else g_spec
+        spec_d.setdefault(gk + (i, j), []).append((t_idx, so, si))
 
     # scalar groups: full diagonal with channel-identical fields at both draws
     scalar = set()
@@ -334,12 +368,13 @@ def _plan_assembly_uncached(spec_fn, compiled, *, probe_size, memory_limit_bytes
     if tainted_terms:
         scalar -= {
             key[:-2]
-            for key, contribs in w_spec.items()
+            for spec_d in (w_spec, g_spec)
+            for key, contribs in spec_d.items()
             if any(t in tainted_terms for (t, _so, _si) in contribs)
         }
 
     needed = set()
-    for contribs in w_spec.values():
+    for contribs in list(w_spec.values()) + list(g_spec.values()):
         for (_t, so, si) in contribs:
             needed.update((so, si))
 
@@ -347,7 +382,7 @@ def _plan_assembly_uncached(spec_fn, compiled, *, probe_size, memory_limit_bytes
     # under a fresh unknown draw (consts and params fixed) is independent of
     # X; it is probed once per solve instead of once per step. Like the
     # zero pruning it is probabilistic, backed by validate_assembly.
-    Xp_alt, _c2, _g2, _p2 = _probe_inputs(probe, rng, extra_vals)
+    Xp_alt, _c2, _g2, _p2 = _probe_inputs(probe, rng, probe_edges, extra_vals)
     D_alt, _mv2, _bo2, _pr2 = _slot_jacobians(
         probe, Xp_alt, constsp, graphsp, paramsp, unknown_sids
     )
@@ -361,6 +396,7 @@ def _plan_assembly_uncached(spec_fn, compiled, *, probe_size, memory_limit_bytes
 
     plan = AssemblyPlan(
         w_spec=w_spec,
+        g_spec=g_spec,
         needed_slots=sorted(needed),
         scalar_groups=frozenset(scalar),
         const_tsids=frozenset(const_tsids),
@@ -402,7 +438,7 @@ def assemble_const(compiled, plan: AssemblyPlan, X0, consts, graphs, params):
     )
     D = {k: D_all[k] for k in const_ts}
     B = {}
-    for contribs in plan.w_spec.values():
+    for contribs in list(plan.w_spec.values()) + list(plan.g_spec.values()):
         for key in contribs:
             t_idx, so, si = key
             if key not in B and (t_idx, so) in plan.const_tsids and (
@@ -416,17 +452,60 @@ def _pad_channels(x, lo, hi):
     return x if lo == 0 and hi == 0 else TF.pad(x, (lo, hi))
 
 
+def _block_matvec(W_flat, pv, ct):
+    """out[:, i] = Σ_j W_flat[:, i·ct + j] · pv[:, j] on flat [N, ct²] blocks."""
+    return torch.sum(W_flat.reshape(-1, ct, ct) * pv[:, None, :], dim=-1)
+
+
+def _graph_layouts(compiled, plan, graphs):
+    """The graph couplings grouped per (graph, vertex-space group): returns
+    (g_couplings {(g, u_out, k_out, u_in, k_in): {(t, so, si)}},
+    g_layouts {(g, gk): (slot names, u_list, offs, ct)},
+    grp_cks {(g, gk): [coupling keys]}, slot_group {(g, slot): gk}). The
+    group packs its unknowns' channels in sorted unknown order."""
+    g_couplings: Dict[Tuple, set] = {}
+    for key, contribs in plan.g_spec.items():
+        g_couplings.setdefault(key[:5], set()).update(contribs)
+    unknown_channels = {u: compiled.unknown_shape(u)[-1] for u in compiled.unknown_names}
+    g_layouts, slot_group = {}, {}
+    for g in sorted({ck[0] for ck in g_couplings}):
+        for gk, tabs in graphs[g]["__groups__"].items():
+            names = tabs["names"]
+            us = set()
+            for (gg, u_out, k_out, u_in, k_in) in g_couplings:
+                if gg == g and k_out in names:
+                    us.add(u_out)
+                if gg == g and k_in in names:
+                    us.add(u_in)
+            if not us:
+                continue
+            offs, o = {}, 0
+            for u in sorted(us):
+                offs[u] = o
+                o += unknown_channels[u]
+            g_layouts[(g, gk)] = (names, sorted(us), offs, o)
+            for k in names:
+                slot_group[(g, k)] = gk
+    grp_cks: Dict[Tuple, list] = {}
+    for ck in sorted(g_couplings):
+        g, _u_out, k_out, _u_in, k_in = ck
+        gk = slot_group[(g, k_out)]
+        if slot_group[(g, k_in)] != gk:
+            raise NotImplementedError(CROSS_SPACE_TODO)
+        grp_cks.setdefault((g, gk), []).append(ck)
+    return g_couplings, g_layouts, grp_cks, slot_group
+
+
 def assemble(compiled, plan: AssemblyPlan, X, consts, graphs, params, row_masks,
              const_cache=None):
     """Assemble the coefficient fields at linearization point X.
 
     Returns (apply_fn, diag, jtf_fn, cg_meta): the row/column-masked JᵀJ·p
-    operator, the row-masked Jacobi diagonal read off the Δ=0 (i, i) fields,
-    a JᵀF evaluator over residual term tensors (``jtf_fn.r_terms`` holds the
-    residuals at X when a per-step probe ran, else None), and the fused grid
-    CG descriptor (ops/fused_cg.py) or None."""
-    if graphs:
-        raise NotImplementedError(GRAPHS_TODO)
+    operator, the row-masked Jacobi diagonal read off the Δ=0 (i, i) fields
+    and the same-vertex graph blocks, a JᵀF evaluator over residual term
+    tensors (``jtf_fn.r_terms`` holds the residuals at X when a per-step
+    probe ran, else None), and the fused CG descriptor (ops/fused_cg.py)
+    or None."""
     slots = compiled.registry.slots
     dt = compiled.dtype
     X_dev = next(iter(X.values())).device
@@ -460,7 +539,7 @@ def assemble(compiled, plan: AssemblyPlan, X, consts, graphs, params, row_masks,
         B_pre = const_cache["B"]
 
     B_all = dict(B_pre)
-    for contribs in plan.w_spec.values():
+    for contribs in list(plan.w_spec.values()) + list(plan.g_spec.values()):
         for (t_idx, so, si) in contribs:
             if (t_idx, so, si) not in B_all:
                 B_all[(t_idx, so, si)] = _pair_block(D, t_idx, so, si)
@@ -546,6 +625,100 @@ def assemble(compiled, plan: AssemblyPlan, X, consts, graphs, params, row_masks,
                     block[..., oo + i, oi + j] += f
         w_packed.append((isp, delta, "block", block, 0, 0, ctot, ctot))
 
+    # -- graph couplings ------------------------------------------------------
+    # Per (graph, vertex-space group): ONE stacked block row per edge and
+    # slot (position 0 the same-slot block P(k, k)[e], positions 1..m-1 the
+    # cross blocks in the rotation order of the combined cross table),
+    # gathered per vertex through the combined incidence table. Exclusion
+    # masks apply in the loop as out = M·A(M·p) (0/1 diagonal M).
+    g_couplings, g_layouts, grp_cks, slot_group = _graph_layouts(compiled, plan, graphs)
+
+    def _group_mask(g, gk):
+        """Packed [N, ct] 0/1 row mask of a group, or None."""
+        _names, u_list, _offs, _ct = g_layouts[(g, gk)]
+        if all(row_masks.get(u) is None for u in u_list):
+            return None
+        parts = []
+        for u in u_list:
+            m = row_masks.get(u)
+            shape = (compiled.unknown_shape(u)[0], unknown_channels[u])
+            parts.append(
+                torch.ones(shape, dtype=dt, device=X_dev) if m is None else m.expand(shape)
+            )
+        return torch.cat(parts, dim=-1)
+
+    grp_exec = {}
+    for (g, gk), cks in grp_cks.items():
+        names, u_list, offs, ct = g_layouts[(g, gk)]
+        tabs = graphs[g]["__groups__"][gk]
+        m = len(names)
+        E = graphs[g][names[0]].shape[0]
+
+        def _build_P(ko, ki, _offs=offs, _ct=ct, _E=E, _cks=cks):
+            parts = [ck for ck in _cks if (ck[2], ck[4]) == (ko, ki)]
+            if not parts:
+                return None
+            acc = torch.zeros((_E, _ct, _ct), dtype=dt, device=X_dev)
+            for ck in parts:
+                _g, u_out, _ko, u_in, _ki = ck
+                oo, oi = _offs[u_out], _offs[u_in]
+                co, ci = unknown_channels[u_out], unknown_channels[u_in]
+                blk = None
+                for key in sorted(g_couplings[ck]):
+                    blk = B_all[key] if blk is None else blk + B_all[key]
+                acc[:, oo : oo + co, oi : oi + ci] += blk
+            return acc
+
+        P = {}
+        for a in range(m):
+            for b in range(a, m):
+                ko, ki = names[a], names[b]
+                blk = _build_P(ko, ki)
+                if blk is not None:
+                    P[(ko, ki)] = blk
+                    if a != b:
+                        # JᵀJ symmetry: P(ki, ko)[e] = P(ko, ki)[e]ᵀ exactly
+                        P[(ki, ko)] = blk.transpose(-1, -2)
+                elif a != b:
+                    blk_t = _build_P(ki, ko)
+                    if blk_t is not None:
+                        P[(ki, ko)] = blk_t
+                        P[(ko, ki)] = blk_t.transpose(-1, -2)
+        has_cross = any(k1 != k2 for (k1, k2) in P)
+        n_stack = m if has_cross else 1
+        zero = torch.zeros((E, ct, ct), dtype=dt, device=X_dev)
+        rows = []
+        for a, k in enumerate(names):
+            cols = [P.get((k, k), zero)]
+            for j in range(n_stack - 1):
+                cols.append(P.get((k, names[(a + 1 + j) % m]), zero))
+            rows.append(torch.cat([c.reshape(E, ct * ct) for c in cols], dim=-1))
+        rows.append(torch.zeros((1, n_stack * ct * ct), dtype=dt, device=X_dev))
+        inc = tabs["inc"]  # [N, D], sentinel m*E reads the zero row
+        n_out, d_tot = inc.shape
+        G = torch.cat(rows, dim=0)[inc.reshape(-1)].reshape(n_out, d_tot, n_stack * ct * ct)
+        ex = {"S": G[:, :, : ct * ct].sum(dim=1), "ct": ct, "dia": [], "C": None,
+              "cross": None, "mask": _group_mask(g, gk), "layout": (u_list, offs, ct),
+              "tables": tabs}
+        if has_cross:
+            Cb = G[:, :, ct * ct :].reshape(n_out, d_tot, m - 1, ct * ct)
+            for off, mask in tabs["dia"]:
+                ex["dia"].append((off, torch.sum(Cb * mask[..., None], dim=(1, 2))))
+            if tabs["rem_pos"] is not None:
+                # merged (v, u) reads: their K blocks pre-sum here, in k order
+                C_ext = torch.cat(
+                    [Cb.reshape(n_out, d_tot * (m - 1), ct * ct),
+                     torch.zeros((n_out, 1, ct * ct), dtype=dt, device=X_dev)], dim=1,
+                )
+                rem_pos = tabs["rem_pos"]
+                C_r = None
+                for k in range(rem_pos.shape[2]):
+                    part = torch.take_along_dim(C_ext, rem_pos[:, :, k, None], dim=1)
+                    C_r = part if C_r is None else C_r + part
+                ex["C"] = C_r  # [N, Dm, ct*ct]
+                ex["cross"] = tabs["rem_cross"]  # [N, Dm], sentinel N
+        grp_exec[(g, gk)] = ex
+
     def apply_fn(p):
         out = {u: None for u in unknown_channels}
         packed_pc = {
@@ -577,6 +750,27 @@ def assemble(compiled, plan: AssemblyPlan, X, consts, graphs, params, row_masks,
             for u in u_list:
                 sl = acc[..., offs[u] : offs[u] + unknown_channels[u]]
                 out[u] = sl if out[u] is None else out[u] + sl
+        # graph groups: the same-vertex blocks, the DIA offsets as shifted
+        # reads, the remainder as one gather of p per distinct (v, u)
+        for ex in grp_exec.values():
+            u_list, offs, ct = ex["layout"]
+            pp = torch.cat([p[u] for u in u_list], dim=-1) if len(u_list) > 1 else p[u_list[0]]
+            pm = ex["mask"]
+            if pm is not None:
+                pp = pp * pm
+            contrib = _block_matvec(ex["S"], pp, ct)
+            for off, W in ex["dia"]:
+                contrib = contrib + _block_matvec(W, shift(pp, (off,)), ct)
+            if ex["C"] is not None:
+                pp_ext = torch.cat([pp, torch.zeros((1, ct), dtype=dt, device=X_dev)])
+                pc = pp_ext[ex["cross"]]  # [N, Dm, ct]
+                C = ex["C"].reshape(pc.shape[0], pc.shape[1], ct, ct)
+                contrib = contrib + torch.sum(C * pc[:, :, None, :], dim=(1, 3))
+            if pm is not None:
+                contrib = contrib * pm
+            for u in u_list:
+                sl = contrib[:, offs[u] : offs[u] + unknown_channels[u]]
+                out[u] = sl if out[u] is None else out[u] + sl
         for u in out:
             if out[u] is None:
                 out[u] = torch.zeros(compiled.unknown_shape(u), dtype=dt, device=X_dev)
@@ -584,7 +778,8 @@ def assemble(compiled, plan: AssemblyPlan, X, consts, graphs, params, row_masks,
 
     def jtf_fn(r_terms):
         """JᵀF from the same D fields: Σ_t Σ_s adjoint_s(Σ_rch D[t,s]·r_t),
-        one r-contraction per (term, probe source)."""
+        one r-contraction per (term, probe source); graph slots sum per
+        vertex through the combined incidence gather."""
         out = {u: None for u in unknown_channels}
         jt_all = {}
         for (t_idx, sid) in D:
@@ -592,13 +787,35 @@ def assemble(compiled, plan: AssemblyPlan, X, consts, graphs, params, row_masks,
             if (si_, t_idx) not in jt_all:
                 mv = jt_sources[si_][0]
                 jt_all[(si_, t_idx)] = torch.sum(mv[t_idx] * r_terms[t_idx][..., None], dim=-2)
+        edge_parts = {}  # (g, gk, slot) -> {image: [E, C_img]}
         for (t_idx, sid) in D:
             s = slots[sid]
             si_ = src_of[(t_idx, sid)]
             base = jt_sources[si_][1][sid]
             contrib = jt_all[(si_, t_idx)][..., base : base + s.channels]
-            add = shift(contrib, tuple(-o for o in s.offset))
-            out[s.image] = add if out[s.image] is None else out[s.image] + add
+            if s.kind == "img":
+                add = shift(contrib, tuple(-o for o in s.offset))
+                out[s.image] = add if out[s.image] is None else out[s.image] + add
+                continue
+            # every probed graph slot feeds a coupling, so it has a group
+            gk = slot_group[(s.graph, s.key[3])]
+            per = edge_parts.setdefault((s.graph, gk, s.key[3]), {})
+            per[s.image] = contrib if s.image not in per else per[s.image] + contrib
+        for (g, gk), (names, u_list, offs, ct) in g_layouts.items():
+            if not any((g, gk, k) in edge_parts for k in names):
+                continue
+            E = graphs[g][names[0]].shape[0]
+            blocks = []
+            for k in names:
+                padded = torch.zeros((E, ct), dtype=dt, device=X_dev)
+                for img, c in edge_parts.get((g, gk, k), {}).items():
+                    padded[:, offs[img] : offs[img] + unknown_channels[img]] = c
+                blocks.append(padded)
+            blocks.append(torch.zeros((1, ct), dtype=dt, device=X_dev))
+            acc = torch.cat(blocks)[graphs[g]["__groups__"][gk]["inc"]].sum(dim=1)
+            for u in u_list:
+                sl = acc[:, offs[u] : offs[u] + unknown_channels[u]]
+                out[u] = sl if out[u] is None else out[u] + sl
         res = {}
         for u in unknown_channels:
             v = out[u]
@@ -608,7 +825,8 @@ def assemble(compiled, plan: AssemblyPlan, X, consts, graphs, params, row_masks,
             res[u] = v if m is None else v * m
         return res
 
-    # -- free Jacobi diagonal: the Δ=0 (i, i) fields ---------------------------
+    # -- free Jacobi diagonal: the Δ=0 (i, i) fields and the same-vertex
+    # graph blocks' diagonals -------------------------------------------------
     diag = {}
     for u, c in unknown_channels.items():
         sp = compiled.unknown_shape(u)[:-1]
@@ -621,7 +839,17 @@ def assemble(compiled, plan: AssemblyPlan, X, consts, graphs, params, row_masks,
             [f if f is not None else torch.zeros(sp, dtype=dt, device=X_dev) for f in cols],
             dim=-1,
         )
+    for ex in grp_exec.values():
+        u_list, offs, ct = ex["layout"]
+        dcontrib = ex["S"][:, :: ct + 1]  # [N, ct]
+        if ex["mask"] is not None:
+            dcontrib = dcontrib * ex["mask"]
+        for u in u_list:
+            diag[u] = diag[u] + dcontrib[:, offs[u] : offs[u] + unknown_channels[u]]
 
-    cg_meta = plan_fused_grid_cg(compiled, plan, fields, w_layouts)
+    if grp_exec:
+        cg_meta = plan_fused_graph_cg(compiled, plan, fields, grp_exec)
+    else:
+        cg_meta = plan_fused_grid_cg(compiled, plan, fields, w_layouts)
     jtf_fn.r_terms = r_terms_primal
     return apply_fn, diag, jtf_fn, cg_meta

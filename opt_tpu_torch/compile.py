@@ -9,7 +9,9 @@ PyTorch counterpart of ``opt_tpu/compile.py``:
   JAX package applies to its jaxpr;
 * automatic zeroing of residuals that read out of bounds (the bbox mask),
   including the rule that any explicit ``InBounds`` use disables it;
-* ±inf sentinel clamping, exclusion masks and row masks.
+* ±inf sentinel clamping, exclusion masks and row masks;
+* graph inputs (per-slot edge index tensors and the optional per-edge
+  ``valid`` mask) and graph residual evaluation by edge gathers.
 
 Discovery and the dependence graph run on the ``meta`` device: shapes only,
 no compute, whatever the problem size.
@@ -26,9 +28,9 @@ import torch
 from torch.fx.experimental.proxy_tensor import make_fx
 
 from .dims import IndexSpace
+from .ops.graph_ops import edge_gather
 from .ops.shift import bbox_mask, in_bounds_mask, shift
 from .spec import (
-    GRAPHS_TODO,
     UNKNOWN,
     EnergyTerm,
     SpecBuilder,
@@ -150,7 +152,7 @@ class CompiledProblem:
         d = self.registry.images[name]
         return d.ispace.shape(self.dim_sizes) + (d.channels,)
 
-    def normalize_inputs(self, inputs: Dict[str, Any], device="cpu", partial=False):
+    def normalize_inputs(self, inputs: Dict[str, Any], device, partial=False):
         """Split a flat name->value dict into (unknowns, consts, graphs,
         params), as tensors on ``device`` in the plan dtype. ``partial=True``
         converts only the given subset (no missing-input check, no
@@ -179,7 +181,7 @@ class CompiledProblem:
                     arr = self._sanitize_sentinels(arr)
                 (unknowns if decl.kind == UNKNOWN else consts)[name] = arr.contiguous()
             elif name in self.registry.graphs:
-                raise NotImplementedError(GRAPHS_TODO)
+                graphs[name] = self._graph_input(name, val, device)
             elif name in self.registry.params:
                 params[name] = torch.as_tensor(val, dtype=self.dtype).to(device)
             else:
@@ -194,6 +196,33 @@ class CompiledProblem:
             for p in self.registry.params:
                 params.setdefault(p, torch.zeros((), dtype=self.dtype, device=device))
         return unknowns, consts, graphs, params
+
+    def _graph_input(self, name, val, device):
+        """One graph's slots as int64 index tensors on ``device``, plus the
+        optional per-edge 0/1 ``valid`` mask as [E, 1] in the plan dtype (a
+        masked edge contributes nothing; a mask change rebuilds no table)."""
+        decl = self.registry.graphs[name]
+        g = val if isinstance(val, dict) else {s: getattr(val, s) for s in decl.slots}
+        gd = {}
+        for s, i in g.items():
+            t = i if isinstance(i, torch.Tensor) else torch.as_tensor(np.asarray(i))
+            if s == "valid":
+                t = t.to(device=device, dtype=self.dtype)
+                gd[s] = t[:, None] if t.dim() == 1 else t
+            else:
+                gd[s] = t.to(device=device, dtype=torch.int64)
+        missing = [s for s in decl.slots if s not in gd]
+        if missing:
+            raise SpecError(f"graph {name!r}: missing slots {missing}")
+        n_edges = {int(gd[s].shape[0]) for s in decl.slots}
+        if len(n_edges) != 1:
+            raise SpecError(f"graph {name!r}: slots have different edge counts {sorted(n_edges)}")
+        if "valid" in gd and int(gd["valid"].shape[0]) not in n_edges:
+            raise SpecError(
+                f"graph {name!r}: valid mask has {int(gd['valid'].shape[0])} entries, "
+                f"edges have {n_edges.pop()}"
+            )
+        return gd
 
     def _sanitize_sentinels(self, arr):
         """Clamp ±inf entries to a large finite sentinel whose magnitude
@@ -241,24 +270,27 @@ class CompiledProblem:
             for n, d in self.registry.images.items()
             if d.kind != UNKNOWN and d.alias is None
         }
+        zeros_g = {
+            g: {s: torch.zeros((2,), dtype=torch.int64, device=meta) for s in d.slots}
+            for g, d in self.registry.graphs.items()
+        }
         zeros_p = {
             p: torch.zeros((), dtype=self.dtype, device=meta)
             for p in self.registry.params
         }
-        out = _comparison_constants(self, zeros_u, zeros_c, {}, zeros_p)
+        out = _comparison_constants(self, zeros_u, zeros_c, zeros_g, zeros_p)
         self._cmp_thresholds = out
         return out
 
     # ---- field-mode runs ----------------------------------------------------
     def _run(self, mode, unknowns, consts, graphs, params, slot_values=None):
-        if graphs:
-            raise NotImplementedError(GRAPHS_TODO)
         builder = SpecBuilder(
             mode,
             self.dim_sizes,
             self.dtype,
             registry=self.registry,
-            bindings={"unknowns": unknowns, "consts": consts, "params": params},
+            bindings={"unknowns": unknowns, "consts": consts, "graphs": graphs,
+                      "params": params},
             slot_values=slot_values,
             device=_first_device(unknowns, consts, slot_values or []),
         )
@@ -298,10 +330,27 @@ class CompiledProblem:
         instances centered at excluded pixels still feed the gradients of
         active unknowns."""
         b = self._run("field", unknowns, consts, graphs, params)
-        return [
-            self._apply_bbox(self._normalize_term(val, term), term)
-            for term, val in zip(self.terms, b.energy_values)
-        ]
+        out = []
+        for term, val, sc in zip(self.terms, b.energy_values, self.graph_term_scales(graphs)):
+            val = self._apply_bbox(self._normalize_term(val, term), term)
+            out.append(val if sc is None else val * sc)
+        return out
+
+    def graph_term_scales(self, graphs):
+        """Per-term residual scale from the optional per-edge ``valid``
+        masks ([E, 1], detached), aligned with ``self.terms`` (None where no
+        mask applies). Scaling the residual zeroes the edge's rows of J, its
+        JᵀF and diagonal contributions and its cost together; slot-form
+        evaluations outside :meth:`residual_terms` apply the same scales."""
+        out = []
+        for term in self.terms:
+            sc = None
+            if term.domain[0] == "graph":
+                g = graphs.get(term.domain[1])
+                if g is not None and g.get("valid") is not None:
+                    sc = g["valid"].detach()
+            out.append(sc)
+        return out
 
     def residual_fn(self, consts, graphs, params):
         """Closure over constants: X -> list of residual term tensors."""
@@ -342,9 +391,8 @@ class CompiledProblem:
 
     # ---- slot-mode ----------------------------------------------------------
     def gather_slot_values(self, unknowns, consts, graphs, params=None):
-        """Materialize every slot's value field (shift / bounds mask)."""
-        if graphs:
-            raise NotImplementedError(GRAPHS_TODO)
+        """Materialize every slot's value field (shift / edge gather /
+        bounds mask)."""
         device = _first_device(unknowns, consts)
         vals = []
         for s in self.registry.slots:
@@ -360,8 +408,13 @@ class CompiledProblem:
                 vals.append(
                     in_bounds_mask(shape, s.offset, s.expand, dtype=self.dtype, device=device)
                 )
-            else:
-                raise NotImplementedError(GRAPHS_TODO)
+            else:  # gimg: the image at the slot's edge endpoints
+                decl = self.registry.images[s.image]
+                if decl.alias is not None:
+                    arr = unknowns[decl.alias].detach()
+                else:
+                    arr = (unknowns if decl.kind == UNKNOWN else consts)[s.image]
+                vals.append(edge_gather(arr, graphs[s.graph][s.key[3]]))
         return vals
 
     def local_residual_terms(self, slot_values, params, consts=None) -> List[torch.Tensor]:

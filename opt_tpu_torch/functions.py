@@ -21,6 +21,7 @@ from typing import Dict, List
 import torch
 
 from .compile import CompiledProblem
+from .ops.graph_ops import edge_scatter_add
 from .ops.shift import shift_adjoint
 
 
@@ -133,13 +134,18 @@ class FunctionSet:
         for each (unknown slot, channel) a one-hot tangent probes the
         pointwise slot-form residuals; the probe output is the local
         derivative field ∂r[q]/∂x[q+s,c], squared, summed over residual
-        channels and scattered back through the slot's shift adjoint."""
+        channels and scattered back through the slot's shift adjoint (grid
+        slots) or summed per vertex over the slot's edges (graph slots).
+        As in the reference's per-endpoint scatter, the sum is per slot: a
+        self-loop edge's cross term is not included."""
         _, row_masks = self.masks(X)
         c = self.c
         slot_vals = c.gather_slot_values(X, self.consts, self.graphs, self.params)
+        scales = c.graph_term_scales(self.graphs)
 
         def f(sv):
-            return c.local_residual_terms(sv, self.params, self.consts)
+            terms = c.local_residual_terms(sv, self.params, self.consts)
+            return [t if sc is None else t * sc for t, sc in zip(terms, scales)]
 
         diag = {
             name: torch.zeros(c.unknown_shape(name), dtype=c.dtype, device=slot_vals[0].device)
@@ -161,7 +167,12 @@ class FunctionSet:
                         contrib = sq if contrib is None else contrib + sq
                 if contrib is None:
                     break  # slot feeds no term (channel-independent)
-                add = shift_adjoint(contrib[..., None], s.offset)[..., 0]
+                if s.kind == "img":
+                    add = shift_adjoint(contrib[..., None], s.offset)[..., 0]
+                else:
+                    n_rows = c.unknown_shape(s.image)[0]
+                    idx = self.graphs[s.graph][s.key[3]]
+                    add = edge_scatter_add(contrib[:, None], idx, n_rows)[:, 0]
                 diag[s.image][..., ch] += add
         return _mask_rows(diag, row_masks)
 

@@ -2,11 +2,14 @@
 
 Spec functions are backend code (they call the DSL's tensor helpers), so
 the port carries its own copies of the JAX package's ``models/specs.py``.
-This has the two specs of the poisson path and image_warping; the other
-nine come with ROADMAP.md queue 1 item 9.
+This has the two specs of the poisson path, image_warping, and the graph
+specs arap_mesh_deformation and curve_fitting; the other seven come with
+ROADMAP.md queue 1 item 9.
 """
 
 from __future__ import annotations
+
+import torch
 
 import opt_tpu_torch as ot
 
@@ -24,6 +27,20 @@ def laplacian(S):
         X(0, 0) - X(1, 0),
         X(0, 0) - X(0, 1),
     )
+
+
+# ---------------------------------------------------------------------------
+# tests/minimal_graph_only/curveFitting.t: y = a cos(bx) + b sin(ax)
+# ---------------------------------------------------------------------------
+def curve_fitting(S):
+    N, U = S.Dim("N"), S.Dim("U")
+    funcParams = S.Unknown("funcParams", 2, (U,))
+    data = S.Image("data", 2, (N,))
+    G = S.Graph("G", d=(N,), p=(U,))
+    S.UsePreconditioner(True)
+    x, y = data(G.d)[..., 0], data(G.d)[..., 1]
+    a, b = funcParams(G.p)[..., 0], funcParams(G.p)[..., 1]
+    S.Energy(y - (a * torch.cos(b * x) + b * torch.sin(a * x)))
 
 
 # ---------------------------------------------------------------------------
@@ -72,8 +89,34 @@ def image_warping(S):
     S.Energy(w_fitSqrt * ot.Select(valid, e_fit, 0.0))
 
 
+# ---------------------------------------------------------------------------
+# examples/arap_mesh_deformation/arap_mesh_deformation.t — graph ARAP
+# ---------------------------------------------------------------------------
+def arap_mesh_deformation(S):
+    N = S.Dim("N")
+    w_fitSqrt = S.Param("w_fitSqrt")
+    w_regSqrt = S.Param("w_regSqrt")
+    Offset = S.Unknown("Offset", 3, (N,))
+    Angle = S.Unknown("Angle", 3, (N,))
+    UrShape = S.Array("UrShape", 3, (N,))
+    Constraints = S.Array("Constraints", 3, (N,))
+    G = S.Graph("G", v0=(N,), v1=(N,))
+    S.UsePreconditioner(True)
+
+    e_fit = Offset(0) - Constraints(0)
+    valid = ot.greatereq(Constraints(0)[..., 0:1], -999999.9)
+    S.Energy(ot.Select(valid, w_fitSqrt * e_fit, 0.0))
+
+    arap = (Offset(G.v0) - Offset(G.v1)) - ot.Rotate3D(
+        Angle(G.v0), UrShape(G.v0) - UrShape(G.v1)
+    )
+    S.Energy(w_regSqrt * arap)
+
+
 ALL_SPECS = {
     "laplacian": laplacian,
+    "curve_fitting": curve_fitting,
     "poisson_image_editing": poisson_image_editing,
     "image_warping": image_warping,
+    "arap_mesh_deformation": arap_mesh_deformation,
 }

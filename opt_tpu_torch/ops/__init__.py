@@ -1,1 +1,2 @@
-"""Device ops of the PyTorch port: stencil shifts and the fused grid CG."""
+"""Device ops of the PyTorch port: stencil shifts, graph gathers and their
+host tables, and the fused CG."""

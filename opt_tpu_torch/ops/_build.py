@@ -80,11 +80,12 @@ def load_library() -> ctypes.CDLL:
     info = build_library()
     lib = ctypes.CDLL(str(info["path"]))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.fused_grid_cg_max_blocks.argtypes = [i32, i32, ctypes.POINTER(i32)]  # lm, block, out
+    lib.fused_grid_cg_max_blocks.argtypes = [i32, i32, i32, ctypes.POINTER(i32)]  # lm, rem, block, out
     lib.fused_grid_cg_max_blocks.restype = i32
     lib.fused_grid_cg_launch.argtypes = [
         i32,  # lm
         vp, vp, vp, vp, vp, vp,  # F, b, pre, ctc, triples, starts
+        vp, vp, vp,  # rowptr, col, blk (the remainder; null without)
         i32, i32, i32,  # C, N0, N1
         i32, ctypes.c_float, i32,  # lits, tol, guard_div
         i32, ctypes.c_float,  # reset_period, q_tol

@@ -1,6 +1,8 @@
-// Whole-loop Jacobi-preconditioned CG for 2-D grid stencil operators, as one
-// persistent cooperative kernel for Hopper (sm_90a), in two instances:
-// Gauss-Newton (LM = false) and Levenberg-Marquardt (LM = true).
+// Whole-loop Jacobi-preconditioned CG for 2-D grid stencil operators and
+// graph operators, as one persistent cooperative kernel for Hopper
+// (sm_90a), in four instances: Gauss-Newton (LM = false) and
+// Levenberg-Marquardt (LM = true), each without and with the graph
+// remainder phase (REM).
 //
 // Replaces, in opt_tpu/ops/pallas_cg.py:
 //   * _kernel (:328), the Pallas TPU kernel that runs the whole PCG inner
@@ -13,13 +15,23 @@
 //     windows from HBM in three sweeps per iteration. This kernel reads its
 //     state from device memory in every phase anyway (through L2), so the
 //     same two instances serve those cases; the row-window DMA is not
-//     carried over.
+//     carried over;
+//   * _kernel's flat1d=True graph form (:335, apply :386-405): same-vertex
+//     blocks and per-offset DIA fields over a vertex axis the TPU folds to
+//     [R, 512] and reads by flat rolls. Here the vertex axis is the grid
+//     [1, N], a flat offset d is the grid offset (0, d), and the REM=false
+//     instances run it unchanged;
+//   * _kernel's rem_pairs form (:338, :410-494): the irregular remainder of
+//     a graph operator, which the TPU applies by one-hot matmuls on its
+//     matrix unit. Here it is the REM=true instances' remainder phase: a
+//     destination-sorted block CSR, one C x C block per distinct (v, u)
+//     read, out[i][v] += sum_k sum_j blk[k][i][j] * p[j][col[k]].
 //
 // What it computes, on channel-major [C, N0, N1] float32 state:
 //   r = b, p = pre*r, rz = <r, p>, floor = tol*rz, Q0 = 0
 //   repeat while l < lits:
 //     Ap[i] = sum_t F[fid_t] * p[j_t] read at offset (d0_t, d1_t)
-//             (+ ctc*p under LM)
+//             (+ the remainder under REM) (+ ctc*p under LM)
 //     den = <p, Ap>;  alpha = rz/den (guarded);  delta += alpha*p
 //     GN, or LM off a reset iteration:  r -= alpha*Ap
 //     LM when (l+1) % reset_period == 0:  r = b - (A*delta + ctc*delta)
@@ -38,7 +50,9 @@
 // iteration, which fits the H100's 50 MB L2, so the loop runs mostly out of
 // L2; image_warping 1024x1024x3 (26 fields read by 31 triples) moves about
 // 170 MB per iteration and every phase streams from HBM. The arithmetic is
-// a few flops per byte.
+// a few flops per byte. A graph's remainder adds its C*C blocks per entry
+// (the armadillo mesh, 31k vertices: about 187k entries, 27 MB) and one
+// gathered read of p per entry and channel.
 //
 // What the design does about it:
 //   * One launch for the whole loop (no per-iteration launch or host round
@@ -57,6 +71,12 @@
 //   * Reads that leave the grid are skipped, never wrapped: the planner
 //     folded each offset's in-bounds mask into its field, so a skipped read
 //     is exactly the zero the plain version multiplies in.
+//   * The remainder is a gather, not a scatter: the thread that owns
+//     output element (i, v) walks row v of the CSR after its stencil sum,
+//     in entry order and then j order, reading p through L2. No atomics, so
+//     two runs are bitwise equal, and the plain version sums in the same
+//     order. It is a template flag, so the grid instances keep their code
+//     and registers; the LM reset sweep applies it to delta as well.
 //   * Dot products: per-thread float products summed in double, a fixed
 //     shuffle tree per block, per-block partials in separate buffers for
 //     each dot, and every block sums the partials in the same fixed order.
@@ -137,13 +157,34 @@ __device__ __forceinline__ float stencil_apply(const float* __restrict__ F,
   return a;
 }
 
-template <bool LM>
+// a + sum over row v's remainder entries k and over j of
+// blk[k][i][j] * src[j][col[k]], in that order; src is read through L2.
+__device__ __forceinline__ float remainder_apply(const int* __restrict__ rowptr,
+                                                 const int* __restrict__ col,
+                                                 const float* __restrict__ blk,
+                                                 const float* src, int C,
+                                                 int plane, int i, int v,
+                                                 float a) {
+  const int k1 = rowptr[v + 1];
+  for (int k = rowptr[v]; k < k1; ++k) {
+    const int u = col[k];
+    const float* bk = blk + (k * C + i) * C;
+    for (int j = 0; j < C; ++j)
+      a = __fadd_rn(a, __fmul_rn(bk[j], __ldcg(src + j * plane + u)));
+  }
+  return a;
+}
+
+template <bool LM, bool REM>
 __global__ void __launch_bounds__(FGCG_BLOCK)
 fused_grid_cg_kernel(const float* __restrict__ F, const float* __restrict__ b,
                      const float* __restrict__ pre,
                      const float* __restrict__ ctc,
                      const int* __restrict__ triples,
-                     const int* __restrict__ starts, int C, int N0, int N1,
+                     const int* __restrict__ starts,
+                     const int* __restrict__ rowptr,
+                     const int* __restrict__ col,
+                     const float* __restrict__ blk, int C, int N0, int N1,
                      int lits, float tol, int guard_div, int reset_period,
                      float q_tol, float* delta, float* r, float* p, float* Ap,
                      double* part_den, double* part_rz, double* part_q,
@@ -203,6 +244,9 @@ fused_grid_cg_kernel(const float* __restrict__ F, const float* __restrict__ b,
           a = __fadd_rn(a, __fmul_rn(F[t[4] * plane + q], pv));
         }
       }
+      // graph remainder: N0 == 1, so the vertex is q
+      if constexpr (REM)
+        a = remainder_apply(rowptr, col, blk, p, C, plane, c, q, a);
       if constexpr (LM) a = __fadd_rn(a, __fmul_rn(ctc[e], p[e]));
       Ap[e] = a;
       acc += (double)__fmul_rn(p[e], a);
@@ -232,6 +276,8 @@ fused_grid_cg_kernel(const float* __restrict__ F, const float* __restrict__ b,
         const float dv = delta[e];
         float a = stencil_apply(F, delta, s_tr, s_start[c], s_start[c + 1],
                                 plane, N0, N1, q, x, y);
+        if constexpr (REM)
+          a = remainder_apply(rowptr, col, blk, delta, C, plane, c, q, a);
         a = __fadd_rn(a, __fmul_rn(ctc[e], dv));
         const float bv = b[e];
         const float rv = __fsub_rn(bv, a);
@@ -281,17 +327,21 @@ fused_grid_cg_kernel(const float* __restrict__ F, const float* __restrict__ b,
   if (first == 0) *iters = l;
 }
 
-static const void* kernel_instance(int lm) {
-  return lm ? (const void*)fused_grid_cg_kernel<true>
-            : (const void*)fused_grid_cg_kernel<false>;
+static const void* kernel_instance(int lm, int rem) {
+  if (rem)
+    return lm ? (const void*)fused_grid_cg_kernel<true, true>
+              : (const void*)fused_grid_cg_kernel<false, true>;
+  return lm ? (const void*)fused_grid_cg_kernel<true, false>
+            : (const void*)fused_grid_cg_kernel<false, false>;
 }
 
 extern "C" {
 
-// Co-resident block count of the GN (lm = 0) or LM (lm = 1) instance at
-// `block` threads (the cooperative launch limit): blocks per SM times SMs on
-// the current device.
-int fused_grid_cg_max_blocks(int lm, int block, int* out) {
+// Co-resident block count of the GN (lm = 0) or LM (lm = 1) instance,
+// without (rem = 0) or with (rem = 1) the remainder phase, at `block`
+// threads (the cooperative launch limit): blocks per SM times SMs on the
+// current device.
+int fused_grid_cg_max_blocks(int lm, int rem, int block, int* out) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
@@ -302,20 +352,24 @@ int fused_grid_cg_max_blocks(int lm, int block, int* out) {
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm,
-                                                    kernel_instance(lm),
+                                                    kernel_instance(lm, rem),
                                                     block, 0);
   if (e != cudaSuccess) return (int)e;
   *out = per_sm * sms;
   return 0;
 }
 
-// Launches the GN (lm = 0) or LM (lm = 1) instance on `stream`; returns the
-// CUDA error of the launch. ctc, reset_period, q_tol and part_q are read by
-// the LM instance only.
+// Launches the GN (lm = 0) or LM (lm = 1) instance on `stream`, with the
+// remainder phase when rowptr is not null; returns the CUDA error of the
+// launch. ctc, reset_period, q_tol and part_q are read by the LM instance
+// only; rowptr, col and blk by the remainder instances only, which need
+// N0 == 1 (a graph's vertex axis).
 int fused_grid_cg_launch(int lm, const float* F, const float* b,
                          const float* pre, const float* ctc,
-                         const int* triples, const int* starts, int C, int N0,
-                         int N1, int lits, float tol, int guard_div,
+                         const int* triples, const int* starts,
+                         const int* rowptr, const int* col, const float* blk,
+                         int C, int N0, int N1, int lits, float tol,
+                         int guard_div,
                          int reset_period, float q_tol, float* delta, float* r,
                          float* p, float* Ap, double* part_den,
                          double* part_rz, double* part_q, int* iters, int grid,
@@ -324,13 +378,17 @@ int fused_grid_cg_launch(int lm, const float* F, const float* b,
     return (int)cudaErrorInvalidValue;
   if (lm && (ctc == nullptr || part_q == nullptr || reset_period < 1))
     return (int)cudaErrorInvalidValue;
+  const int rem = rowptr != nullptr;
+  if (rem && (col == nullptr || blk == nullptr || N0 != 1))
+    return (int)cudaErrorInvalidValue;
   int max_blocks = 0;
-  int err = fused_grid_cg_max_blocks(lm, block, &max_blocks);
+  int err = fused_grid_cg_max_blocks(lm, rem, block, &max_blocks);
   if (err) return err;
   if (grid < 1 || grid > max_blocks)
     return (int)cudaErrorCooperativeLaunchTooLarge;
   void* args[] = {(void*)&F,        (void*)&b,         (void*)&pre,
                   (void*)&ctc,      (void*)&triples,   (void*)&starts,
+                  (void*)&rowptr,   (void*)&col,       (void*)&blk,
                   (void*)&C,        (void*)&N0,        (void*)&N1,
                   (void*)&lits,     (void*)&tol,       (void*)&guard_div,
                   (void*)&reset_period, (void*)&q_tol, (void*)&delta,
@@ -338,7 +396,7 @@ int fused_grid_cg_launch(int lm, const float* F, const float* b,
                   (void*)&part_den, (void*)&part_rz,   (void*)&part_q,
                   (void*)&iters};
   cudaError_t e = cudaLaunchCooperativeKernel(
-      kernel_instance(lm), dim3(grid), dim3(block), args, 0,
+      kernel_instance(lm, rem), dim3(grid), dim3(block), args, 0,
       (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

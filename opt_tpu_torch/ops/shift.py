@@ -61,7 +61,8 @@ def in_bounds_mask(
     off: Sequence[int],
     expand: int = 0,
     dtype=torch.bool,
-    device="cpu",
+    *,
+    device,
 ) -> torch.Tensor:
     """Mask[q] = all coordinates of q+off lie within bounds shrunk by `expand`.
 
@@ -83,7 +84,8 @@ def bbox_mask(
     bmin: Sequence[int],
     bmax: Sequence[int],
     dtype=torch.bool,
-    device="cpu",
+    *,
+    device,
 ) -> torch.Tensor:
     """Mask[q] = q+s in bounds for every offset s in the bbox [bmin, bmax]:
     the reference's automatic zeroing of residuals that read off the grid.
@@ -97,7 +99,7 @@ def bbox_mask(
 
 
 def coordinate_field(
-    spatial_shape: Tuple[int, ...], axis: int, dtype, device="cpu"
+    spatial_shape: Tuple[int, ...], axis: int, dtype, *, device
 ) -> torch.Tensor:
     """Pixel-coordinate field along `axis` (reference ``Index(d)``).
     Shape [*spatial, 1]."""

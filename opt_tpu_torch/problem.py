@@ -5,23 +5,26 @@ PyTorch counterpart of ``opt_tpu/problem.py``, mirroring the reference C API
 Opt_ProblemSolve / Opt_ProblemCurrentCost / Opt_SetSolverParameter) as an
 object API. Inputs and outputs keep the JAX package's [*dom, C] layout.
 
-The device is explicit: ``plan(..., device="cuda")`` places every input and
-all solver state on the card, and raises where CUDA is absent; the default
-is the CPU. The port never picks a device by itself.
+The plan runs on the card: ``plan(...)`` places every input and all solver
+state on CUDA and raises where CUDA is absent. A caller who wants the CPU
+asks for it with ``plan(..., device="cpu")``; the port never falls back to
+the CPU by itself.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import sys
 import time
+from collections import OrderedDict
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from .compile import CompiledProblem, compile_spec
-from .spec import GRAPHS_TODO
+from .ops import fused_cg, graph_ops
 from .solver.gauss_newton import GaussNewtonSolver
 from .solver.params import InitializationParameters, normalize_solver_params
 from .utils.logging import log_solver
@@ -44,6 +47,91 @@ def _uses_lambda(kind: str) -> bool:
             "(reference o.t:122)"
         )
     return _KIND_ALIASES[k]
+
+
+# DIA coverage a vertex numbering must reach for the graph CG operator to
+# take per-offset fields (the JAX package's gate, opt_tpu/problem.py:520)
+DIA_MIN_COVERAGE = 0.98
+DIA_MAX_OFFSETS = 32
+_TABLE_CACHE_MAX = 8
+
+
+def graph_group_tables(idxs, names, n: int, device, dtype, max_offsets: int) -> Dict[str, Any]:
+    """The host-built tables of one (graph, vertex-space) group, placed on
+    ``device``: the part of the JAX package's ``Plan._augment_incidence``
+    (opt_tpu/problem.py:354-762) that a single card needs.
+
+    * ``inc`` [N, D]: the combined incidence table (stacked edge-row ids,
+      sentinel m·E), through which JᵀF and the same-vertex blocks S gather;
+    * ``dia``: [(offset, mask [N, D, m-1])] when the numbering puts at
+      least ``DIA_MIN_COVERAGE`` of the cross reads at up to
+      ``DIA_MAX_OFFSETS`` vertex-id offsets (grid-class meshes), else [].
+      At most ``max_offsets`` of them (what the CG kernel's triple table
+      holds) become offsets, the most frequent first; the reads of the
+      others join the remainder;
+    * ``rem_pos`` [N, Dm, K] and ``rem_cross`` [N, Dm]: the cross reads no
+      offset covers (all of them without DIA), duplicate (v, u) reads
+      merged (``dedup_reads``), or None when there are none;
+    * ``csr``: the remainder as the kernel's destination-sorted CSR
+      (rowptr [N+1], col [nnz], src [nnz] flat [N·Dm] positions, row
+      [nnz]).
+    """
+    idx_list = [idxs[k] for k in names]
+    inc = graph_ops.combined_incidence_table(idx_list, n)
+    cross = graph_ops.combined_cross_table(idx_list, n, inc=inc)
+    _n, dd, mm1 = cross.shape
+    dia, rem = None, None
+    if mm1:
+        probe = graph_ops.dia_split(cross, n, max_offsets=DIA_MAX_OFFSETS)
+        total = int((cross < n).sum())
+        cov = 0.0
+        if probe is not None and total:
+            cov = 1.0 - int((probe[3] < n).sum()) / total
+        if cov >= DIA_MIN_COVERAGE and len(probe[0]) > max_offsets:
+            probe = None
+            if max_offsets > 0:
+                probe = graph_ops.dia_split(cross, n, max_offsets=max_offsets, min_coverage=0.0)
+        if cov >= DIA_MIN_COVERAGE and probe is not None:
+            dia = probe
+            rem = (probe[2][..., None], probe[3])
+        else:
+            flat_c = cross.reshape(n, dd * mm1)
+            flat_p = np.where(
+                flat_c < n, np.broadcast_to(np.arange(dd * mm1, dtype=np.int32), flat_c.shape),
+                dd * mm1,
+            ).astype(np.int32)
+            rem = (flat_p[..., None], flat_c)
+        ded = graph_ops.dedup_reads(rem[0][:, :, 0], rem[1], n, dd * mm1)
+        if ded is not None:
+            rem = ded
+        if not (rem[1] < n).any():
+            rem = None
+    out = {
+        "names": list(names), "n": n,
+        "inc": torch.as_tensor(inc, dtype=torch.int64).to(device),
+        "dia": [],
+        "rem_pos": None, "rem_cross": None, "csr": None,
+    }
+    if dia is not None:
+        offsets, masks, _rp, _rc = dia
+        out["dia"] = [
+            (int(off), torch.as_tensor(masks[k]).to(device=device, dtype=dtype))
+            for k, off in enumerate(offsets)
+        ]
+    if rem is not None:
+        pos_k, cross2 = rem
+        rowptr, col, src = graph_ops.ell_to_csr(cross2, n)
+
+        def as_dev(a, dt=torch.int64):
+            return torch.as_tensor(a).to(device=device, dtype=dt)
+
+        out["rem_pos"] = as_dev(pos_k)
+        out["rem_cross"] = as_dev(cross2)
+        out["csr"] = {
+            "rowptr": as_dev(rowptr, torch.int32), "col": as_dev(col, torch.int32),
+            "src": as_dev(src), "row": as_dev(src // cross2.shape[1]),
+        }
+    return out
 
 
 def resolve_device(device) -> torch.device:
@@ -81,15 +169,14 @@ class Problem:
         kind: Optional[str] = None,
         double_precision: bool = False,
         init_params: Optional[InitializationParameters] = None,
-        device="cpu",
+        device="cuda",
         **solver_params,
     ) -> "Plan":
-        """Compile for concrete grid sizes on ``device`` (Opt_ProblemPlan)."""
+        """Compile for concrete sizes on ``device``, the card unless the
+        caller asks for the CPU (Opt_ProblemPlan)."""
         dev = resolve_device(device)
         dtype = torch.float64 if double_precision else torch.float32
         compiled = compile_spec(self.spec_fn, dims, dtype)
-        if any(t.domain[0] == "graph" for t in compiled.terms) or compiled.registry.graphs:
-            raise NotImplementedError(GRAPHS_TODO)
         return Plan(self, compiled, kind or self.kind, init_params, solver_params, dev)
 
 
@@ -106,9 +193,14 @@ class Plan:
         self._state = None
         self._bound = None  # (consts, graphs, params)
         self._fused_validated = False
-        # None while the assembled operator is in use; "validation" after
-        # _validate_fused dropped this plan to the composed operator
-        self.fused_fallback = None
+
+    @property
+    def fused_fallback(self) -> Optional[str]:
+        """None while the fused CG loop runs every step; "validation" after
+        _validate_fused dropped this plan to the composed operator;
+        "no_kernel" once a float32 step's assembled operator had no form the
+        fused kernel takes and the step ran the eager loop."""
+        return self.solver.fused_fallback
 
     def _validate_fused(self, unknowns, consts, graphs, params) -> None:
         """First-bind check of the assembled JᵀJ against the composed
@@ -128,7 +220,7 @@ class Plan:
                 file=sys.stderr,
             )
             self.solver._stencil_plan = None
-            self.fused_fallback = "validation"
+            self.solver.fused_fallback = "validation"
 
     def _note_unknown_sentinels(self, inputs) -> None:
         """Record ±inf invalid-markers in unknown inputs so results can
@@ -166,8 +258,9 @@ class Plan:
 
     def _normalize_and_place(self, inputs):
         """Convert and place inputs on the plan's device, cached PER LEAF by
-        object identity: only changed leaves convert again. Callers that
-        mutate an input in place must pass a fresh array instead."""
+        object identity: only changed leaves convert again (and only a
+        changed graph rebuilds its tables). Callers that mutate an input in
+        place must pass a fresh array instead."""
         self._note_unknown_sentinels(inputs)
         cache = self.__dict__.get("_leaf_cache")
         buckets = self.__dict__.get("_leaf_buckets")
@@ -175,6 +268,7 @@ class Plan:
             unknowns, consts, graphs, params = self.compiled.normalize_inputs(
                 inputs, device=self.device
             )
+            graphs = self._augment_incidence(graphs)
             self._leaf_cache = dict(inputs)
             self._leaf_buckets = (unknowns, consts, graphs, params)
             return (dict(unknowns), dict(consts), dict(graphs), dict(params))
@@ -183,10 +277,47 @@ class Plan:
             u, c, g, p = self.compiled.normalize_inputs(
                 changed, device=self.device, partial=True
             )
+            g = self._augment_incidence(g)
             for bucket, new in zip(buckets, (u, c, g, p)):
                 bucket.update(new)
             cache.update(changed)
         return tuple(dict(b) for b in buckets)
+
+    def _augment_incidence(self, graphs):
+        """Attach each graph's group tables (``graph_group_tables``) under
+        ``"__groups__"``: {group key: tables}. The tables depend only on the
+        index data: they are cached by a hash of it (a few topologies, least
+        recently used first out), so a new array with the same edges builds
+        nothing."""
+        if not graphs:
+            return graphs
+        cache = self.__dict__.setdefault("_inc_cache", OrderedDict())
+        dt = self.compiled.dtype
+        max_off = DIA_MAX_OFFSETS
+        if self.solver._stencil_plan is not None:
+            max_off = min(max_off, fused_cg.graph_dia_offset_cap(
+                self.compiled, self.solver._stencil_plan))
+        out = {}
+        for gname, slots in graphs.items():
+            gdecl = self.compiled.registry.graphs[gname]
+            names = sorted(gdecl.slots)
+            idxs = {s: slots[s].detach().cpu().numpy().astype(np.int64) for s in names}
+            for s in names:
+                n_s = int(np.prod(gdecl.slots[s].shape(self.compiled.dim_sizes)))
+                if idxs[s].size and (idxs[s].min() < 0 or idxs[s].max() >= n_s):
+                    raise ValueError(f"graph {gname!r}: slot {s!r} indexes outside [0, {n_s})")
+            key = (gname, hashlib.sha1(b"".join(idxs[s].tobytes() for s in names)).hexdigest())
+            groups = cache.pop(key, None)
+            if groups is None:
+                groups = {
+                    gk: graph_group_tables(idxs, gnames, n, self.device, dt, max_off)
+                    for gk, gnames, n in graph_ops.slot_groups(gdecl, self.compiled.dim_sizes)
+                }
+            cache[key] = groups
+            while len(cache) > _TABLE_CACHE_MAX:
+                cache.popitem(last=False)
+            out[gname] = dict(slots, __groups__=groups)
+        return out
 
     # -- parameters (Opt_SetSolverParameter) -------------------------------------
     def set_solver_parameter(self, name: str, value) -> None:

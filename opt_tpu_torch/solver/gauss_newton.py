@@ -24,6 +24,7 @@ later slices of the port (ROADMAP.md queue 1 item 8) and raise
 
 from __future__ import annotations
 
+import sys
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -70,11 +71,18 @@ class GaussNewtonSolver:
             )
         if self.ip.coefficient_dtype is not None:
             raise NotImplementedError(f"coefficient_dtype is {LATER_SLICE}")
+        if self.ip.dynamic_topology and compiled.registry.graphs:
+            raise NotImplementedError(
+                "dynamic_topology is not ported yet (ROADMAP.md queue 1 item 10)"
+            )
         if self.ip.use_explicit_jtj:
             raise NotImplementedError(
                 "use_explicit_jtj is not ported yet (ROADMAP.md queue 1 item 12)"
             )
         self._stencil_plan = None
+        # why a step ran the eager loop where the fused one was asked for
+        # (Plan.fused_fallback), or None
+        self.fused_fallback = None
         if self.ip.use_fused_jtj:
             from ..assembly import plan_assembly
 
@@ -101,6 +109,22 @@ class GaussNewtonSolver:
         else:
             inv = lambda v: 1.0 / (FLOAT_EPSILON + v)  # noqa: E731
         return {k: inv(v) for k, v in p.items()}
+
+    def _note_no_kernel(self) -> None:
+        """A float32 step's assembled operator had no form the fused CG
+        loop takes (ops/fused_cg.py's planners returned None), so the step
+        runs the eager loop: say so once, on stderr whatever the verbosity,
+        and in ``fused_fallback``. float64 plans run the eager loop by
+        design (the fused loop is float32) and note nothing."""
+        if (self._pallas_mode is None or self._stencil_plan is None
+                or self.compiled.dtype != torch.float32 or self.fused_fallback is not None):
+            return
+        self.fused_fallback = "no_kernel"
+        print(
+            "opt_tpu_torch: the assembled operator has no form the fused CG kernel "
+            "takes; this plan runs the eager CG loop",
+            file=sys.stderr,
+        )
 
     # -- state -----------------------------------------------------------------
     def _init_state(self, X, consts, graphs, params, sp):
@@ -235,6 +259,7 @@ class GaussNewtonSolver:
                 interpret=self._pallas_mode == "interpret",
             )
         else:
+            self._note_no_kernel()
             delta, l = _run_cg(
                 r0, A, lambda r: {k: pre[k] * r[k] for k in r}, tree_dot,
                 sp["lIterations"], sp["cg_rz_tolerance"],
@@ -317,6 +342,7 @@ class GaussNewtonSolver:
                 ctc=ctc, reset_period=sp["residual_reset_period"], q_tolerance=q_tol,
             )
         else:
+            self._note_no_kernel()
             A_base = s["A_base"]
 
             def A(v):  # JᵀJp + CtC·p (o.t:2076-2082)

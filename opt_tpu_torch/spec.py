@@ -23,10 +23,9 @@ declarations, same Energy calls in the same order).
 ``Select`` keeps the double-``where`` form (lib.py), so the untaken branch
 passes neither values nor gradients and ±inf sentinels stay harmless.
 
-Graph domains (slice 3), ``ComputedArray`` and ``SampledImage`` (slice 2)
-are outside this package's first slice: graphs are declared and classified
-(so mixed-domain errors match the reference package) but cannot be
-evaluated, and the other two raise ``NotImplementedError``.
+Graph accesses ``X(G.v0)`` read per-edge endpoint values with an index
+gather (ops/graph_ops.edge_gather). ``ComputedArray`` and ``SampledImage``
+are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,9 +36,9 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from .dims import Dim, IndexSpace, as_ispace
+from .ops.graph_ops import edge_gather
 from .ops.shift import coordinate_field, in_bounds_mask, shift
 
-GRAPHS_TODO = "graph domains are not ported yet (ROADMAP.md queue 1 item 10)"
 COMPUTED_TODO = (
     "ComputedArray and SampledImage are not ported yet (ROADMAP.md queue 1 "
     "item 9)"
@@ -191,7 +190,8 @@ class SpecBuilder:
         registry: Optional["SpecRegistry"] = None,
         bindings: Optional[Dict[str, Any]] = None,
         slot_values: Optional[Sequence[Any]] = None,
-        device="cpu",
+        *,
+        device,
     ):
         if mode not in ("discover", "field", "slots"):
             raise ValueError(f"unknown spec backend {mode!r}")
@@ -365,7 +365,7 @@ class SpecBuilder:
         if decl.ispace.ndim != 1:
             raise SpecError("graph-accessed images must live on a 1-D index space")
         if self.mode == "field":
-            raise NotImplementedError(GRAPHS_TODO)
+            return edge_gather(self._bound_image(decl), self._bound_graph_index(ref))
         key = _gimg_key(decl.name, ref.graph, ref.slot)
         sid = self.registry.slot_for(
             key,
@@ -395,6 +395,12 @@ class SpecBuilder:
         if arr.dim() == decl.ispace.ndim:
             arr = arr[..., None]
         return arr
+
+    def _bound_graph_index(self, ref: GraphSlotRef) -> torch.Tensor:
+        graphs = self.bindings.get("graphs", {})
+        if ref.graph not in graphs:
+            raise SpecError(f"no value bound for graph {ref.graph!r}")
+        return graphs[ref.graph][ref.slot]
 
 
 class SpecRegistry:

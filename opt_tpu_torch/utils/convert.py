@@ -30,12 +30,18 @@ def _tensor(v, device, dtype=None):
     return t.to(device)
 
 
-def inputs_from_numpy(inputs: Dict[str, Any], device="cpu") -> Dict[str, Any]:
-    """Input dict of numpy arrays / scalars -> tensors on ``device``."""
-    return {k: _tensor(v, device) for k, v in inputs.items()}
+def inputs_from_numpy(inputs: Dict[str, Any], device) -> Dict[str, Any]:
+    """Input dict of numpy arrays / scalars -> tensors on ``device``; a
+    graph's dict of slots (int32 index arrays and the optional per-edge
+    ``valid`` mask) -> a dict of tensors of the same types."""
+    return {
+        k: ({s: _tensor(i, device) for s, i in v.items()} if isinstance(v, dict)
+            else _tensor(v, device))
+        for k, v in inputs.items()
+    }
 
 
-def state_from_numpy(state: Dict[str, Any], device="cpu", dtype=torch.float32):
+def state_from_numpy(state: Dict[str, Any], device, dtype=torch.float32):
     """A JAX solver state (numpy leaves) -> this port's solver state."""
     out = {}
     for k in _STATE_DICTS:
@@ -55,17 +61,52 @@ def state_to_numpy(state: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
-def meta_from_numpy(meta: Dict[str, Any], device="cpu") -> Dict[str, Any]:
-    """A fused grid CG descriptor of the JAX package (F, triples, offs,
-    channels, u_list, ctot) -> this port's descriptor."""
+def meta_from_numpy(meta: Dict[str, Any], device) -> Dict[str, Any]:
+    """A fused CG descriptor of the JAX package (F, triples, offs, channels,
+    u_list, ctot; for graphs also its [R, L] vertex fold and its one-hot
+    remainder tiles) -> this port's descriptor. A graph's folded fields
+    unfold onto the grid [1, N], its flat offsets d become (0, d), and its
+    remainder tiles become the block CSR, rows in vertex order and each
+    row's entries in ascending endpoint order."""
+    F = np.asarray(meta["F"], np.float32)
+    triples = [(tuple(int(o) for o in d), int(i), int(j), int(fid))
+               for (d, i, j, fid) in meta["triples"]]
+    rem = None
+    if meta.get("fold") is not None:
+        R, L, N = (int(x) for x in meta["fold"])
+        F = F.reshape(F.shape[0], R * L)[:, :N].reshape(F.shape[0], 1, N)
+        triples = [((0, d[0]), i, j, fid) for (d, i, j, fid) in triples]
+        if meta.get("rem") is not None:
+            rem = _rem_from_tiles(meta["rem"], L, N, device)
     return {
         "u_list": tuple(meta["u_list"]),
         "offs": {k: int(v) for k, v in meta["offs"].items()},
         "channels": {k: int(v) for k, v in meta["channels"].items()},
         "ctot": int(meta["ctot"]),
-        "triples": tuple(
-            (tuple(int(o) for o in d), int(i), int(j), int(fid))
-            for (d, i, j, fid) in meta["triples"]
-        ),
-        "F": _tensor(meta["F"], device, torch.float32).contiguous(),
+        "triples": tuple(triples),
+        "F": _tensor(F, device, torch.float32).contiguous(),
+        "rem": rem,
+    }
+
+
+def _rem_from_tiles(rem, lanes: int, n: int, device):
+    """The JAX package's one-hot remainder tiles (table [TT, 2, T] of
+    window-local source and destination lanes, -1 padding; rows [TT, 2] of
+    destination and source window rows; blocks [TT, C, C, T]) -> the
+    kernel's CSR {rowptr, col, blk}."""
+    table = np.asarray(rem["table"])
+    rows = np.asarray(rem["rows"]).astype(np.int64)
+    blocks = np.asarray(rem["blocks"], np.float32)
+    t_idx, lane = np.nonzero(table[:, 0, :] >= 0)
+    v = rows[t_idx, 0] * lanes + table[t_idx, 1, lane]
+    u = rows[t_idx, 1] * lanes + table[t_idx, 0, lane]
+    order = np.lexsort((u, v))
+    v, u = v[order], u[order]
+    blk = np.moveaxis(blocks, -1, 1)[t_idx[order], lane[order]]  # [nnz, C, C]
+    rowptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(v, minlength=n), out=rowptr[1:])
+    return {
+        "rowptr": _tensor(rowptr, device, torch.int32),
+        "col": _tensor(u, device, torch.int32),
+        "blk": _tensor(blk, device, torch.float32).contiguous(),
     }

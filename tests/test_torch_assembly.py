@@ -57,7 +57,7 @@ def _inputs(name, seed=1):
 def _plans(name):
     dims = {"W": N0, "H": N1}
     jp = ot.Problem(getattr(jspecs, name)).plan(dims=dims)
-    tp = ott.Problem(getattr(tspecs, name)).plan(dims=dims)
+    tp = ott.Problem(getattr(tspecs, name)).plan(device="cpu", dims=dims)
     return jp, tp
 
 
@@ -99,7 +99,7 @@ def test_probe_draws_and_thresholds_match(name):
     tc = t_compile(getattr(tspecs, name), dims, torch.float32)
     jr, tr = np.random.RandomState(PROBE_SEED), np.random.RandomState(PROBE_SEED)
     ju, jcs, jg, jpar = j_probe_inputs(jc, jr, 32)
-    tu, tcs, tg, tpar = t_probe_inputs(tc, tr)
+    tu, tcs, tg, tpar = t_probe_inputs(tc, tr, 32)
     for k in ju:
         np.testing.assert_array_equal(tu[k].numpy(), np.asarray(ju[k]))
     for k in jcs:
@@ -168,13 +168,13 @@ def test_validate_assembly_both(name):
 def test_validation_failure_falls_back_loudly(capsys):
     """A plan whose assembled operator disagrees with the composed one
     drops to the composed operator and says so, whatever the verbosity."""
-    tp = ott.Problem(tspecs.laplacian).plan(dims={"W": N0, "H": N1})
+    tp = ott.Problem(tspecs.laplacian).plan(device="cpu", dims={"W": N0, "H": N1})
     tp.solver.validate_assembly = lambda *a: False
     res = tp.solve(_inputs("laplacian"), nIterations=2, lIterations=20)
     assert tp.fused_fallback == "validation"
     assert tp.solver._stencil_plan is None
     assert "falls back" in capsys.readouterr().err
-    ref = ott.Problem(tspecs.laplacian).plan(dims={"W": N0, "H": N1})
+    ref = ott.Problem(tspecs.laplacian).plan(device="cpu", dims={"W": N0, "H": N1})
     res_ref = ref.solve(_inputs("laplacian"), nIterations=2, lIterations=20)
     # composed Jᵀ(J·p) and the assembled operator: same math, other f32 order
     np.testing.assert_allclose(res.final_cost, res_ref.final_cost, rtol=1e-4)

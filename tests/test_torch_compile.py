@@ -69,7 +69,7 @@ def test_residuals_and_masks_match(name):
     jc, tc = _pair(name, dims)
     inputs = _inputs(name, 10, 13)
     ju, jcs, jg, jp = jc.normalize_inputs(inputs)
-    tu, tcs, tg, tp = tc.normalize_inputs(inputs)
+    tu, tcs, tg, tp = tc.normalize_inputs(inputs, device="cpu")
     jr = jc.residual_terms(ju, jcs, jg, jp)
     tr = tc.residual_terms(tu, tcs, tg, tp)
     assert len(jr) == len(tr)
@@ -115,6 +115,12 @@ def test_shape_only_ops_add_no_dependence():
     assert tc.terms[0].bbox == ((0, 0), (0, 0))
 
 
+def _plan(pkg, spec, dims):
+    """pkg's plan of ``spec``; the port's on the CPU, where these tests run."""
+    kw = {"device": "cpu"} if pkg is ott else {}
+    return pkg.Problem(spec).plan(dims=dims, **kw)
+
+
 def _lap_inputs(n=8):
     rng = np.random.RandomState(0)
     return {"X": np.zeros((n, n), np.float32), "A": rng.rand(n, n).astype(np.float32)}
@@ -131,17 +137,17 @@ def _err_lap(pkg):
 
 
 def _case_missing_input(pkg):
-    plan = pkg.Problem(_err_lap(pkg)).plan(dims={"W": 8, "H": 8})
+    plan = _plan(pkg, _err_lap(pkg), {"W": 8, "H": 8})
     plan.solve({"X": np.zeros((8, 8), np.float32)})
 
 
 def _case_unknown_input(pkg):
-    plan = pkg.Problem(_err_lap(pkg)).plan(dims={"W": 8, "H": 8})
+    plan = _plan(pkg, _err_lap(pkg), {"W": 8, "H": 8})
     plan.solve({**_lap_inputs(), "Bogus": np.zeros((8, 8), np.float32)})
 
 
 def _case_misshaped_input(pkg):
-    plan = pkg.Problem(_err_lap(pkg)).plan(dims={"W": 8, "H": 8})
+    plan = _plan(pkg, _err_lap(pkg), {"W": 8, "H": 8})
     bad = dict(_lap_inputs())
     bad["A"] = np.zeros((4, 4), np.float32)
     plan.solve(bad)
@@ -152,7 +158,7 @@ def _case_no_energy(pkg):
         W, H = S.Dim("W"), S.Dim("H")
         S.Unknown("X", 1, (W, H))
 
-    pkg.Problem(empty).plan(dims={"W": 8, "H": 8})
+    _plan(pkg, empty, {"W": 8, "H": 8})
 
 
 def _case_no_image_reads(pkg):
@@ -162,7 +168,7 @@ def _case_no_image_reads(pkg):
         w = S.Param("w")
         S.Energy(w * 2.0)
 
-    pkg.Problem(scalar_only).plan(dims={"W": 8, "H": 8})
+    _plan(pkg, scalar_only, {"W": 8, "H": 8})
 
 
 def _case_mixed_domains(pkg):
@@ -174,7 +180,7 @@ def _case_mixed_domains(pkg):
         G = S.Graph("G", v0=(N,))
         S.Energy(X(0, 0) - Y(G.v0)[..., 0])
 
-    pkg.Problem(mixed).plan(dims={"W": 8, "H": 8, "N": 8})
+    _plan(pkg, mixed, {"W": 8, "H": 8, "N": 8})
 
 
 def _case_graph_missing_slot(pkg):
@@ -184,25 +190,25 @@ def _case_graph_missing_slot(pkg):
         G = S.Graph("G", v0=(N,))
         S.Energy(X(G.v9))
 
-    pkg.Problem(g).plan(dims={"N": 8})
+    _plan(pkg, g, {"N": 8})
 
 
 def _case_typod_parameter(pkg):
-    plan = pkg.Problem(_err_lap(pkg)).plan(dims={"W": 8, "H": 8})
+    plan = _plan(pkg, _err_lap(pkg), {"W": 8, "H": 8})
     plan.set_solver_parameter("nIterationz", 3)
 
 
 def _case_typod_solve_parameter(pkg):
-    plan = pkg.Problem(_err_lap(pkg)).plan(dims={"W": 8, "H": 8})
+    plan = _plan(pkg, _err_lap(pkg), {"W": 8, "H": 8})
     plan.solve(_lap_inputs(), nIterationz=3)
 
 
 def _case_step_before_init(pkg):
-    pkg.Problem(_err_lap(pkg)).plan(dims={"W": 8, "H": 8}).step()
+    _plan(pkg, _err_lap(pkg), {"W": 8, "H": 8}).step()
 
 
 def _case_cost_before_init(pkg):
-    pkg.Problem(_err_lap(pkg)).plan(dims={"W": 8, "H": 8}).current_cost()
+    _plan(pkg, _err_lap(pkg), {"W": 8, "H": 8}).current_cost()
 
 
 ERROR_CASES = {

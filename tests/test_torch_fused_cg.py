@@ -66,7 +66,7 @@ def _run_both(name, lits, tol, guard_div=True, zero_operator=False):
     if zero_operator:
         meta_np = dict(meta_np, F=np.zeros_like(meta_np["F"]))
     jd, ji = j_fused(meta_np, r0, pre, lits, tol, guard_div=guard_div, interpret=True)
-    meta = meta_from_numpy(meta_np)
+    meta = meta_from_numpy(meta_np, device="cpu")
     td, ti = fused_cg.fused_grid_cg_reference(
         meta["F"], meta["triples"], _pack(r0, meta), _pack(pre, meta), lits, tol,
         guard_div=guard_div,
@@ -107,7 +107,7 @@ def test_unguarded_division():
 
 def test_wrapper_packs_and_runs_twin_on_cpu():
     meta_np, r0, pre = _jax_system("poisson_image_editing")
-    meta = meta_from_numpy(meta_np)
+    meta = meta_from_numpy(meta_np, device="cpu")
     r0_t = {k: torch.as_tensor(np.array(v)) for k, v in r0.items()}
     pre_t = {k: torch.as_tensor(np.array(v)) for k, v in pre.items()}
     delta, iters = fused_cg.fused_grid_cg(meta, r0_t, pre_t, 60, 1e-12)
@@ -130,7 +130,7 @@ def test_device_triples_sorted_by_output_channel():
 
 @pytest.mark.parametrize("form", ["gn", "lm"])
 def test_kernel_wrapper_refuses_cpu_tensors(form):
-    meta = meta_from_numpy(_jax_system("laplacian")[0])
+    meta = meta_from_numpy(_jax_system("laplacian")[0], device="cpu")
     b = torch.zeros((1, N, N))
     lm = dict(ctc=b, reset_period=7, q_tolerance=1e-4) if form == "lm" else {}
     with pytest.raises(ValueError, match="CUDA"):

@@ -4,6 +4,7 @@ channels, with cross-channel couplings), Angle's fields re-probed every
 step, the assembled operator validated at the real and a perturbed point,
 and whole GN and LM solves through the public API on bench.py's inputs."""
 
+import dataclasses
 import jax
 import numpy as np
 import pytest
@@ -37,7 +38,7 @@ def _bench_inputs(n=N, n_con=16):
 
 
 def _tplan(kind="gaussNewtonGPU", **kw):
-    return ott.Problem(tspecs.image_warping, kind=kind).plan(dims={"W": N, "H": N}, **kw)
+    return ott.Problem(tspecs.image_warping, kind=kind).plan(device="cpu", dims={"W": N, "H": N}, **kw)
 
 
 def test_two_unknowns_pack_into_one_index_space():
@@ -78,9 +79,7 @@ def test_validation_catches_a_stale_angle_field():
     plan = sv._stencil_plan
     stale = {(t, sid) for v in plan.w_spec.values() for (t, so, si) in v
              for sid in (so, si) if slots[sid].image == "Angle"}
-    sv._stencil_plan = type(plan)(
-        plan.w_spec, plan.needed_slots, plan.scalar_groups, plan.const_tsids | stale
-    )
+    sv._stencil_plan = dataclasses.replace(plan, const_tsids=plan.const_tsids | stale)
     assert not sv.validate_assembly(u, c, g, p)
 
 
@@ -103,7 +102,7 @@ def test_solve_matches_jax(kind):
 
     fused_cg.fused_grid_cg_reference = spy
     try:
-        tp = ott.Problem(tspecs.image_warping, kind=kind).plan(dims={"W": N, "H": N})
+        tp = ott.Problem(tspecs.image_warping, kind=kind).plan(device="cpu", dims={"W": N, "H": N})
         tr = tp.solve(dict(inputs), nIterations=4, lIterations=60)
     finally:
         fused_cg.fused_grid_cg_reference = orig

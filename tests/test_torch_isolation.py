@@ -23,12 +23,25 @@ _CHILD = r"""
 import sys
 import numpy as np
 import opt_tpu_torch as ot
-from opt_tpu_torch.models.specs import laplacian
+from opt_tpu_torch.models.specs import arap_mesh_deformation, laplacian
+from opt_tpu_torch.ops import graph_ops
+from opt_tpu_torch.utils import reorder
 rng = np.random.RandomState(0)
-plan = ot.Problem(laplacian).plan(dims={"W": 8, "H": 8})
+plan = ot.Problem(laplacian).plan(dims={"W": 8, "H": 8}, device="cpu")
 res = plan.solve({"X": rng.rand(8, 8).astype("f4"), "A": rng.rand(8, 8).astype("f4")},
                  nIterations=2, lIterations=10)
 assert np.isfinite(res.final_cost) and res.num_linear_iterations > 0
+n = 12
+v0 = np.arange(n, dtype="i4"); v1 = (v0 + 1) % n
+perm = reorder.rcm_order(v0, v1, n)
+v0, v1 = reorder.remap_edges(perm, v0, v1)
+pos = rng.rand(n, 3).astype("f4")
+con = -np.ones((n, 3), "f4"); con[0] = 0.5
+plan = ot.Problem(arap_mesh_deformation).plan(dims={"N": n}, device="cpu")
+res = plan.solve({"Offset": pos.copy(), "Angle": np.zeros((n, 3), "f4"), "UrShape": pos,
+                  "Constraints": con, "G": {"v0": v0, "v1": v1},
+                  "w_fitSqrt": 1.0, "w_regSqrt": 1.0}, nIterations=2, lIterations=10)
+assert np.isfinite(res.final_cost) and plan.fused_fallback is None
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "opt_tpu" or m.startswith("opt_tpu."))
 assert not bad, bad
@@ -53,6 +66,16 @@ def test_sources_import_no_jax():
     files = sorted((REPO / "opt_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders
+
+
+def test_default_plan_without_cuda_raises(monkeypatch):
+    """plan() with no device runs on the card: where CUDA is absent it
+    raises, and never falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ott.Problem(tspecs.laplacian).plan(dims={"W": 8, "H": 8})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ott.Problem(tspecs.arap_mesh_deformation).plan(dims={"N": 8})
 
 
 def test_cuda_plan_without_cuda_raises(monkeypatch):

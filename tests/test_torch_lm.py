@@ -143,11 +143,11 @@ def test_lm_system_matches(name):
     and select-masked the same way (zero, not NaN, at excluded rows)."""
     jmeta, jr0, jpre, jctc = _jax_lm_system(name)
     tp = ott.Problem(getattr(tspecs, name), kind="LMGPU").plan(
-        dims={"W": N, "H": N}, residual_reset_period=RESET
+        device="cpu", dims={"W": N, "H": N}, residual_reset_period=RESET
     )
-    meta, r0, pre, ctc = tp.lm_system(inputs_from_numpy(_inputs(name)))
+    meta, r0, pre, ctc = tp.lm_system(inputs_from_numpy(_inputs(name), device="cpu"))
     assert tp.fused_fallback is None and meta is not None
-    assert meta["triples"] == meta_from_numpy(jmeta)["triples"]
+    assert meta["triples"] == meta_from_numpy(jmeta, device="cpu")["triples"]
     _close(meta["F"].numpy(), np.asarray(jmeta["F"]))
     for got, want in ((r0, jr0), (pre, jpre), (ctc, jctc)):
         for k, v in want.items():
@@ -190,7 +190,7 @@ def test_lm_twin_matches_pallas_interpret(name, reset, q_tol, exit_at, exit_):
         jmeta, jr0, jpre, lits, tol, ctc=jctc, reset_period=reset, q_tolerance=q_tol,
         interpret=True,
     )
-    meta = meta_from_numpy(jmeta)
+    meta = meta_from_numpy(jmeta, device="cpu")
     td, ti = _twin(
         meta, _pack(jr0, meta), _pack(jpre, meta), lits, tol,
         ctc=_pack(jctc, meta), reset_period=reset, q_tolerance=q_tol,
@@ -219,7 +219,7 @@ def test_twin_matches_hbm_tiled_interpret(form, lits, tol, reset, q_tol, iters):
         jmeta, jr0, jpre, jctc = _jax_lm_system("image_warping")
     else:
         (jmeta, jr0, jpre), jctc = _jax_gn_system("image_warping", lattice=2), None
-    meta = meta_from_numpy(jmeta)
+    meta = meta_from_numpy(jmeta, device="cpu")
     b, pre = _pack(jr0, meta), _pack(jpre, meta)
     lm = {} if jctc is None else dict(
         ctc=_pack(jctc, meta), reset_period=reset, q_tolerance=np.float32(q_tol)
@@ -250,7 +250,7 @@ def test_model_cost_and_mask_rows_select_match():
     inputs = _inputs(name)
     rng = np.random.RandomState(3)
     jp = _jplan(name)
-    tp = ott.Problem(tspecs.image_warping, kind="LMGPU").plan(dims={"W": N, "H": N})
+    tp = ott.Problem(tspecs.image_warping, kind="LMGPU").plan(device="cpu", dims={"W": N, "H": N})
     shapes = {k: tp.compiled.unknown_shape(k) for k in tp.compiled.unknown_names}
     delta = {k: rng.uniform(-0.5, 0.5, s).astype(np.float32) for k, s in shapes.items()}
     # inf at the excluded rows, as 1/SSq gives there
@@ -319,14 +319,14 @@ def _jax_step(name, variant, scaling):
 def test_one_lm_step_from_jax_state(name, variant, scaling, mode):
     state, j_after, sp = _jax_step(name, variant, scaling)
     tp = ott.Problem(getattr(tspecs, name), kind="LMGPU").plan(
-        dims={"W": N, "H": N},
+        device="cpu", dims={"W": N, "H": N},
         init_params=ott.InitializationParameters(
             use_pallas_cg=mode, jacobi_scaling=ott.JacobiScalingType(scaling)
         ),
         nIterations=4, lIterations=60, **sp,
     )
-    tp.init(inputs_from_numpy(_inputs(name, STEP_LATTICE)))
-    tp._state = state_from_numpy(state)
+    tp.init(inputs_from_numpy(_inputs(name, STEP_LATTICE), device="cpu"))
+    tp._state = state_from_numpy(state, device="cpu")
     cont = tp.step()
     t_after = state_to_numpy(tp._state)
     assert cont == (not bool(j_after["done"]))
@@ -353,9 +353,9 @@ def test_first_lm_step_freezes_ssq():
     """Under ONCE_PER_SOLVE the first step stores its guarded-inverted
     diagonal in SSq, and the second leaves it as it was."""
     tp = ott.Problem(tspecs.image_warping, kind="LMGPU").plan(
-        dims={"W": N, "H": N}, nIterations=3, lIterations=30
+        device="cpu", dims={"W": N, "H": N}, nIterations=3, lIterations=30
     )
-    tp.init(inputs_from_numpy(_inputs("image_warping")))
+    tp.init(inputs_from_numpy(_inputs("image_warping"), device="cpu"))
     ones = {k: v.clone() for k, v in tp._state["SSq"].items()}
     tp.step()
     first = {k: v.clone() for k, v in tp._state["SSq"].items()}
@@ -371,8 +371,8 @@ def test_jvp_takes_tangents_in_any_key_order():
     unknowns: the fused loop's δ follows the packed channels (Offset,
     Angle), a carried JAX state lists them sorted (Angle, Offset), and the
     LM model cost takes J·δ across the two."""
-    tp = ott.Problem(tspecs.image_warping, kind="LMGPU").plan(dims={"W": N, "H": N})
-    u, c, g, p = tp._normalize_and_place(inputs_from_numpy(_inputs("image_warping")))
+    tp = ott.Problem(tspecs.image_warping, kind="LMGPU").plan(device="cpu", dims={"W": N, "H": N})
+    u, c, g, p = tp._normalize_and_place(inputs_from_numpy(_inputs("image_warping"), device="cpu"))
     rng = np.random.RandomState(4)
     v = {k: torch.as_tensor(rng.rand(*tp.compiled.unknown_shape(k)).astype(np.float32))
          for k in tp.compiled.unknown_names}

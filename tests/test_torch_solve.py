@@ -38,7 +38,7 @@ def _ip(mode):
 def test_golden_final_cost(name, mode):
     kind, nl, lin, golden = GOLDEN[name]
     dims, inputs = _case(name)
-    plan = ott.Problem(getattr(tspecs, name)).plan(dims=dims, kind=kind, init_params=_ip(mode))
+    plan = ott.Problem(getattr(tspecs, name)).plan(device="cpu", dims=dims, kind=kind, init_params=_ip(mode))
     res = plan.solve(dict(inputs), nIterations=nl, lIterations=lin)
     assert plan.fused_fallback is None
     assert res.num_iterations == nl and res.num_linear_iterations > 0
@@ -61,7 +61,7 @@ def test_auto_mode_engages_the_fused_loop():
 
     fused_cg.fused_grid_cg_reference = spy
     try:
-        ott.Problem(tspecs.poisson_image_editing).plan(dims=dims).solve(
+        ott.Problem(tspecs.poisson_image_editing).plan(device="cpu", dims=dims).solve(
             dict(inputs), nIterations=2, lIterations=30
         )
     finally:
@@ -89,10 +89,10 @@ def test_one_step_from_jax_state(name, mode):
     j_after = jax.device_get(jp._state)
 
     tp = ott.Problem(getattr(tspecs, name)).plan(
-        dims=dims, kind=kind, init_params=_ip(mode), nIterations=3, lIterations=lin
+        device="cpu", dims=dims, kind=kind, init_params=_ip(mode), nIterations=3, lIterations=lin
     )
-    tp.init(inputs_from_numpy(inputs))
-    tp._state = state_from_numpy(state)
+    tp.init(inputs_from_numpy(inputs, device="cpu"))
+    tp._state = state_from_numpy(state, device="cpu")
     assert tp.step()
     t_after = state_to_numpy(tp._state)
     for k, v in j_after["X"].items():
@@ -106,7 +106,7 @@ def test_one_step_from_jax_state(name, mode):
 def test_stepwise_matches_solve(name):
     kind, nl, lin, _g = GOLDEN[name]
     dims, inputs = _case(name)
-    plan = ott.Problem(getattr(tspecs, name)).plan(dims=dims, kind=kind)
+    plan = ott.Problem(getattr(tspecs, name)).plan(device="cpu", dims=dims, kind=kind)
     res = plan.solve(dict(inputs), nIterations=nl, lIterations=lin)
     plan.set_solver_parameters({"nIterations": nl, "lIterations": lin})
     plan.init(dict(inputs))
@@ -129,10 +129,10 @@ def test_stepwise_matches_solve(name):
 
 def test_state_round_trip():
     dims, inputs = _case("laplacian")
-    plan = ott.Problem(tspecs.laplacian).plan(dims=dims)
+    plan = ott.Problem(tspecs.laplacian).plan(device="cpu", dims=dims)
     plan.init(dict(inputs))
     st = state_to_numpy(plan._state)
-    back = state_from_numpy(st)
+    back = state_from_numpy(st, device="cpu")
     assert sorted(back) == sorted(plan._state)
     for k in ("prev_cost", "n_iter", "lin_iters", "done"):
         assert back[k].dtype == plan._state[k].dtype
@@ -147,7 +147,7 @@ def test_infinite_sentinels_restored():
     x = inputs["X"].copy()
     m = inputs["M"]
     x[m != 0] = -np.inf
-    plan = ott.Problem(tspecs.poisson_image_editing).plan(dims=dims)
+    plan = ott.Problem(tspecs.poisson_image_editing).plan(device="cpu", dims=dims)
     res = plan.solve({**inputs, "X": x}, nIterations=1, lIterations=20)
     out = res.unknowns["X"].numpy()
     assert np.isneginf(out[m != 0]).all()
@@ -159,7 +159,7 @@ def test_double_precision_solve():
     reach the float32 golden."""
     kind, nl, lin, golden = GOLDEN["laplacian"]
     dims, inputs = _case("laplacian")
-    plan = ott.Problem(tspecs.laplacian).plan(dims=dims, kind=kind, double_precision=True)
+    plan = ott.Problem(tspecs.laplacian).plan(device="cpu", dims=dims, kind=kind, double_precision=True)
     res = plan.solve(dict(inputs), nIterations=nl, lIterations=lin)
     assert res.unknowns["X"].dtype == torch.float64
     assert plan.fused_fallback is None
