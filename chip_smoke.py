@@ -5,24 +5,32 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernel (GN and LM instances, each without and with the
-graph remainder phase) from opt_tpu_torch/ops/csrc with nvcc and holds each
-form against its plain PyTorch twin at the main paths' shapes: poisson
+It builds the CUDA kernel (32 instances of one template: GN or LM,
+standard or Chronopoulos-Gear, Jacobi or block-Jacobi, float32 or bfloat16
+fields, each without and with the graph remainder phase; one library by
+one nvcc process) from opt_tpu_torch/ops/csrc and holds each form
+against its plain PyTorch twin at the main paths' shapes: poisson
 512x512x4 and 2048x2048x4, laplacian 512x512, image_warping's mixed-unknown
-GN system and its first LM system, each at 512x512x3 and 1024x1024x3, and
-the first GN and LM systems of arap_mesh_deformation on the 192x192 grid
-mesh (36,864 vertices, the DIA form) and on the armadillo mesh (31,106
-vertices, the remainder). It then solves, through the public API on the
-card, the poisson bench headline (512x512x4, one GN step, up to 2000 CG
-iterations), image_warping at 512x512 by GN and by LM (8x400) and at
-1024x1024 by GN (4x100), and the two arap meshes by GN (8x100), checks the
-costs against the JAX package's and each solve's one kernel launch per
-nonlinear step, solves the arap grid mesh once more in float64 against the
-JAX package's float64 solve, checks the medium golden costs, times
-kernels, twins, assembly and solves with CUDA events, profiles the arap
-grid-mesh solve, and prints one JSON line per result. It exits non-zero,
-with no result line, when CUDA is not available or any check fails. It
-imports neither JAX nor opt_tpu.
+GN system and its first LM system, each at 512x512x3 and 1024x1024x3, the
+first GN and LM systems of arap_mesh_deformation on the 192x192 grid mesh
+(36,864 vertices, the DIA form) and on the armadillo mesh (31,106
+vertices, the remainder), volumetric_mesh_deformation's 3-D systems at
+32^3 and 64^3, and the variants: Chronopoulos-Gear, block-Jacobi and
+bfloat16 fields on poisson, image_warping, volumetric and the two meshes.
+It then solves, through the public API on the card, the poisson bench
+headline (512x512x4, one GN step, up to 2000 CG iterations; also by
+Chronopoulos-Gear and with bfloat16 fields), image_warping at 512x512 by GN
+and by LM (8x400; LM also by Chronopoulos-Gear, block-Jacobi and bfloat16)
+and at 1024x1024 by GN (4x100), the two arap meshes by GN (8x100) and
+volumetric 32^3 by GN (8x40, with Jacobi and block-Jacobi), checks the
+costs against the JAX package's and each solve's one launch of the named
+kernel instance per nonlinear step, solves the arap grid mesh once more in
+float64 against the JAX package's float64 solve, checks the medium golden
+costs, times kernels, twins, assembly and solves with CUDA events,
+profiles the arap grid-mesh solve and the volumetric solve with each
+preconditioner, and prints one JSON line per result.
+It exits non-zero, with no result line, when CUDA is not available or any
+check fails. It imports neither JAX nor opt_tpu.
 """
 
 from __future__ import annotations
@@ -44,9 +52,10 @@ from opt_tpu_torch.models.specs import (
     image_warping,
     laplacian,
     poisson_image_editing,
+    volumetric_mesh_deformation,
 )
 from opt_tpu_torch.ops import fused_cg
-from opt_tpu_torch.ops._build import build_library, load_library, nvcc_path
+from opt_tpu_torch.ops._build import build_library, instance_registers, load_library, nvcc_path
 from opt_tpu_torch.utils.reorder import grid_embed_order, permute_vertices, remap_edges
 
 MAIN_N = 512  # the bench headline's grid side
@@ -80,6 +89,48 @@ JAX_CPU_IMAGE_WARPING_COSTS = {
     (512, "LMGPU", 8, 400): 1.982566475868225,
     (1024, "gaussNewtonGPU", 4, 100): 2.0774598121643066,
 }
+# The variants' main-path solves through the JAX package on the CPU, with
+# the same inputs and plans as above plus InitializationParameters(**IP)
+# (IP: cg_variant="chronopoulos_gear", preconditioner="block_jacobi" or
+# coefficient_dtype="bfloat16"): poisson 512x512x4 GN 1x2000 and
+# image_warping 512x512 LM 8x400, each computed with the commands above,
+# given init_params=ot.InitializationParameters(**IP), printing final_cost
+# and num_linear_iterations.
+JAX_CPU_VARIANT_COSTS = {
+    ("poisson", "chronopoulos_gear"): (415.18829345703125, 568),
+    ("poisson", "bfloat16"): (415.1882629394531, 568),
+    ("image_warping", "chronopoulos_gear"): (1.982565999031067, 2811),
+    ("image_warping", "block_jacobi"): (1.9825645685195923, 2811),
+    ("image_warping", "bfloat16"): (1.982566237449646, 2811),
+}
+POISSON_STANDARD_CG_ITERS = 568  # the standard loop's count, on the JAX CPU and the card
+CS_ITER_SLACK = (0.1, 2)  # tests/test_pallas.py:85-88: |CS - reference| <= 10% + 2
+VOL_N, VOL_BIG_N = 32, 64  # bench.py::bench_volumetric's grid, and one beyond the L2
+VOL_NL, VOL_LI = 8, 40  # bench.py::bench_volumetric's GN 8x40
+# volumetric 32^3 GN 8x40 through the JAX package on the CPU (bench.py's
+# inputs, volumetric_inputs below): the cost after each step and the CG
+# iterations, with the default plan and with
+# InitializationParameters(preconditioner="block_jacobi"), computed with
+#   JAX_PLATFORMS=cpu python -c "import numpy as np, opt_tpu as ot;
+#   from opt_tpu.models.specs import volumetric_mesh_deformation as s;
+#   INPUTS  # volumetric_inputs(32) below
+#   r=ot.Problem(s).plan(dims={'W':32,'H':32,'D':32},init_params=IP).solve(i,
+#   nIterations=8,lIterations=40); print(r.costs, r.num_linear_iterations)"
+# Like arap, this GN solve does not settle: the step costs rise and fall,
+# and a rounding difference grows from the fifth step on (this port's eager
+# loop on the CPU parts from the JAX CPU's at 5e-4 there and ends 1.5e-3
+# away). So the first VOL_FIRST_STEPS steps are held to the JAX package's
+# at FIRST_STEPS_RTOL and the whole solve through the kernel to the same
+# solve through the plain version on the card; the finals are printed.
+JAX_CPU_VOLUMETRIC = {
+    "jacobi": {"costs": [96824.5390625, 97000.2421875, 97066.578125, 96918.5703125,
+                         96871.1015625, 96760.9453125, 97050.15625, 97005.2109375],
+               "lin_iters": 275},
+    "block_jacobi": {"costs": [96824.5859375, 97000.21875, 97066.375, 96918.3984375,
+                               96851.0703125, 96916.0859375, 96833.71875, 96967.890625],
+                     "lin_iters": 128},
+}
+VOL_FIRST_STEPS = 4
 GOLDEN_RTOL = 5e-3  # tests/test_golden_costs.py
 GOLDEN_ATOL = 1e-8  # tests/test_golden_costs.py: near-zero goldens
 # (spec, kind, nIterations, lIterations, golden) from tests/test_golden_costs.py
@@ -88,6 +139,8 @@ MEDIUM_GOLDENS = {
     "poisson_image_editing": (poisson_image_editing, "gaussNewtonGPU", 2, 120, 258.89776611328125),
     "image_warping": (image_warping, "LMGPU", 10, 60, 3.3203492039168836e-12),
     "curve_fitting": (curve_fitting, "LMGPU", 12, 60, 14.498645782470703),
+    "volumetric_mesh_deformation": (volumetric_mesh_deformation, "gaussNewtonGPU", 8, 40,
+                                    108.64008331298828),
 }
 # arap_mesh_deformation's medium golden is left out: its GN 10x60 solve does
 # not settle and ends where float32 rounding takes it (tests/test_torch_graph.py
@@ -105,6 +158,10 @@ K1 = "opt_tpu/ops/pallas_cg.py:328"
 K3 = "opt_tpu/ops/pallas_cg.py:335"  # _kernel's flat1d=True graph form
 K4 = "opt_tpu/ops/pallas_cg.py:338"  # _kernel's rem_pairs remainder
 K6 = "opt_tpu/ops/pallas_cg.py:1430"
+K1C = "opt_tpu/ops/pallas_cg.py:238"  # _kernel's cs=True loop (_run_cg's CS bodies)
+K1D = "opt_tpu/ops/pallas_cg.py:367"  # _kernel's block_pre=True apply
+K1E = "opt_tpu/ops/pallas_cg.py:561"  # _kernel over a 3-D grid (plan_fused_grid_cg)
+K1F = "opt_tpu/ops/pallas_cg.py:586"  # _kernel with coeff_dtype fields
 # the card's published peaks (H100 SXM at 700 W). The bound of a CG call
 # is its iteration count times the larger of an iteration's bytes (each
 # input read once per iteration) over the memory rate and an iteration's
@@ -173,13 +230,6 @@ F64_STEPS, F64_RTOL = 4, 1e-6
 # knobs. K5 is one apply of a 256x256 tile, no loop: p read, the output
 # written, no vector work.
 ROWS_TO_PORT = [
-    ("K1 (c) Chronopoulos-Gear, poisson 512x512x4",
-     dict(fields=5, plane=512 * 512, C=4, triples=20, vector=16)),
-    ("K1 (d) block-Jacobi, image_warping 512x512x3",
-     dict(fields=26, plane=512 * 512, C=3, triples=31, pre_planes=9)),
-    ("K1 (e) 3-D grid, volumetric 32x32x32x6", dict(fields=128, plane=32 ** 3, C=6, triples=142)),
-    ("K1 (f) bf16 fields, poisson 512x512x4",
-     dict(fields=5, plane=512 * 512, C=4, triples=20, f_bytes=2)),
     ("K1 (g) ComputedArray, shape_from_shading 512x512",
      dict(fields=17, plane=512 * 512, C=1, triples=17)),
     ("K1 (h) batch axis, 4 x laplacian 16x16", dict(fields=5, plane=256, C=1, triples=5, batch=4)),
@@ -257,9 +307,36 @@ def medium_inputs():
         "Constraints": -np.ones((n, n, 2), f32), "Mask": np.zeros((n, n), f32),
         "w_fitSqrt": 3.16, "w_regSqrt": 1.0,
     }
+    for shape in [(n, n)] * 4 + [(n, n, 3)] * 2 + [(n, n)]:  # optical_flow, intrinsic
+        rng.rand(*shape)
+    vol = {
+        "Offset": rng.rand(6, 6, 6, 3).astype(f32), "Angle": np.zeros((6, 6, 6, 3), f32),
+        "UrShape": rng.rand(6, 6, 6, 3).astype(f32),
+        "Constraints": -np.ones((6, 6, 6, 3), f32), "w_fitSqrt": 3.0, "w_regSqrt": 1.0,
+    }
     grid = {"W": n, "H": n}
     return {"laplacian": (grid, lap), "poisson_image_editing": (grid, poi),
-            "image_warping": (grid, iw), "curve_fitting": ({"N": N, "U": 1}, cf)}
+            "image_warping": (grid, iw), "curve_fitting": ({"N": N, "U": 1}, cf),
+            "volumetric_mesh_deformation": ({"W": 6, "H": 6, "D": 6}, vol)}
+
+
+def volumetric_inputs(n):
+    """bench.py::bench_volumetric's inputs: an n^3 grid, every point's fit
+    target (-1, -1, -1) but for one corner pinned and the opposite one
+    pulled by (4, 0, 2), w_fitSqrt = 2, w_regSqrt = 1."""
+    f32 = np.float32
+    gi, gj, gk = np.meshgrid(np.arange(n), np.arange(n), np.arange(n), indexing="ij")
+    pos = np.stack([gi, gj, gk], -1).astype(f32)
+    con = -np.ones((n, n, n, 3), f32)
+    con[0, 0, 0] = pos[0, 0, 0]
+    con[-1, -1, -1] = pos[-1, -1, -1] + np.array([4.0, 0, 2.0], f32)
+    return {"Offset": pos.copy(), "Angle": np.zeros((n, n, n, 3), f32), "UrShape": pos,
+            "Constraints": con, "w_fitSqrt": np.sqrt(4.0).astype(f32),
+            "w_regSqrt": np.sqrt(1.0).astype(f32)}
+
+
+def _vol(n):
+    return {"W": n, "H": n, "D": n}
 
 
 def arap_grid_inputs(n_side):
@@ -313,50 +390,62 @@ def _grid(n):
     return {"W": n, "H": n}
 
 
-def system(spec, dims, inputs):
-    plan = ot.Problem(spec).plan(dims=dims)
-    meta, r0, pre = plan.gn_system(inputs)
+def system(spec, dims, inputs, kind="gaussNewtonGPU", **ip):
+    """The first step's system under InitializationParameters(**ip), as the
+    solver hands it to the kernel, with an LM step's real damping: (meta,
+    b, pre, LM keywords with the packed ctc or None, variant keywords: cs
+    and the packed pre_blocks)."""
+    plan = ot.Problem(spec, kind=kind).plan(dims=dims,
+                                           init_params=ot.InitializationParameters(**ip))
+    meta, r0, pre, kw = plan.cg_inputs(inputs)
     if meta is None or plan.fused_fallback is not None:
-        raise RuntimeError(f"{spec.__name__} {dims}: no fused CG meta ({plan.fused_fallback})")
-    return meta, fused_cg.pack(r0, meta), fused_cg.pack(pre, meta), {}
+        raise RuntimeError(f"{spec.__name__} {dims} {ip}: no fused CG meta ({plan.fused_fallback})")
+    lm = None
+    if kind == "LMGPU":
+        lm = dict(ctc=fused_cg.pack(kw["ctc"], meta), reset_period=kw["reset_period"])
+    pb = kw["pre_blocks"]
+    variant = dict(cs=kw["cg_variant"] == "chronopoulos_gear",
+                   pre_blocks=None if pb is None else fused_cg.pack_pre_blocks(pb, meta))
+    return meta, fused_cg.pack(r0, meta), fused_cg.pack(pre, meta), lm, variant
 
 
-def lm_system(spec, dims, inputs):
-    """The first LM step's system, with its real damping: (meta, b, pre_lm,
-    LM keywords with the packed ctc)."""
-    plan = ot.Problem(spec, kind="LMGPU").plan(dims=dims)
-    meta, r0, pre, ctc = plan.lm_system(inputs)
-    if meta is None or plan.fused_fallback is not None:
-        raise RuntimeError(f"{spec.__name__} {dims}: no fused CG meta ({plan.fused_fallback})")
-    lm = dict(ctc=fused_cg.pack(ctc, meta), reset_period=RESET_PERIOD)
-    return meta, fused_cg.pack(r0, meta), fused_cg.pack(pre, meta), lm
+def form_of(meta, lm=None, cs=False, pre_blocks=None):
+    """The kernel instance a call with these operands launches."""
+    return fused_cg.instance_name(bool(lm), meta["rem"] is not None, bool(cs),
+                                  pre_blocks is not None, meta["F"].dtype == torch.bfloat16)
 
 
 def meta_shape(meta):
     """cg_work's shape of a fused CG meta: fields, plane (the points of its
-    domain), channels, triples and the remainder's entries."""
+    domain), channels, triples, the remainder's entries and the bytes of a
+    coefficient."""
     F, rem = meta["F"], meta.get("rem")
-    return dict(fields=int(F.shape[0]), plane=int(F.shape[1]) * int(F.shape[2]),
+    return dict(fields=int(F.shape[0]), plane=int(np.prod(F.shape[1:])),
                 C=int(meta["ctot"]), triples=len(meta["triples"]),
-                nnz=0 if rem is None else int(rem["col"].shape[0]))
+                nnz=0 if rem is None else int(rem["col"].shape[0]),
+                f_bytes=int(F.element_size()))
 
 
-def cg_work(fields, plane, C, triples, nnz=0, *, lm=False, f_bytes=4, pre_planes=None,
-            vector=None, dots=None, batch=1, iters=1, reset_period=RESET_PERIOD):
+def cg_work(fields, plane, C, triples, nnz=0, *, lm=False, cs=False, f_bytes=4,
+            pre_planes=None, vector=None, dots=None, batch=1, iters=1,
+            reset_period=RESET_PERIOD):
     """What `iters` CG iterations must do at this shape: (bytes of one
     iteration, with each input read once: the fields, b, the preconditioner
-    planes, ctc under LM, the triples table and the remainder CSR; float32
+    planes (C, or C*C under block-Jacobi), ctc under LM, the triples table
+    and the remainder CSR, whose blocks are coefficients; float32
     operations of the call; float64 operations of the call). Reads of the
     stencil that leave the grid count as done; the remainder counts its
-    real entries. Defaults are the ported GN and LM forms'."""
+    real entries. Defaults are the GN and LM forms'; `cs` takes
+    Chronopoulos-Gear's vector updates and dots."""
     n = C * plane
     pre_planes = C if pre_planes is None else pre_planes
-    vector = (15 if lm else 12) if vector is None else vector  # dots, updates, z = pre * r
+    if vector is None:  # dots, updates, z = M^-1 r
+        vector = (16 if lm else 13) if cs else (15 if lm else 12)
     dots = (3 if lm else 2) if dots is None else dots  # their float64 sums
     it_bytes = (fields * plane * f_bytes + (C + pre_planes + (C if lm else 0)) * plane * 4
-                + triples * 5 * 4)
+                + triples * 6 * 4)
     if nnz:
-        it_bytes += (plane + 1) * 4 + nnz * 4 + nnz * C * C * 4
+        it_bytes += (plane + 1) * 4 + nnz * 4 + nnz * C * C * f_bytes
     apply = 2 * triples * plane + 2 * nnz * C * C + (2 * n if lm else 0)
     per_iter = apply + vector * n + 2 * (pre_planes - C) * plane
     resets = iters // reset_period if lm else 0
@@ -373,22 +462,22 @@ def cg_bound(shape, iters, **knobs):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_vs_twin(label, meta, b, pre, lits, tol, lm=None, q_tol=Q_TOL):
-    """Kernel and twin on the same system. tol = 0 (and q_tol = -inf under
-    LM) runs `lits` iterations with no exit and holds δ to the twin's;
-    otherwise the real exits, which must give equal iteration counts."""
+def kernel_vs_twin(label, meta, b, pre, lits, tol, lm=None, q_tol=Q_TOL, **variant):
+    """Kernel and twin on the same system (``variant``: cs, pre_blocks).
+    tol = 0 (and q_tol = -inf under LM) runs `lits` iterations with no exit
+    and holds δ to the twin's; otherwise the real exits, which must give
+    equal iteration counts."""
     lm_kw = dict(lm, q_tolerance=q_tol) if lm else {}
-    dk, ik = fused_cg.fused_grid_cg_kernel(meta, b, pre, lits, tol, **lm_kw)
+    dk, ik = fused_cg.fused_grid_cg_kernel(meta, b, pre, lits, tol, **lm_kw, **variant)
     trace = []
     dr, ir = fused_cg.fused_grid_cg_reference(meta["F"], meta["triples"], b, pre, lits, tol,
-                                              trace=trace, rem=meta["rem"], **lm_kw)
+                                              trace=trace, rem=meta["rem"], **lm_kw, **variant)
     torch.cuda.synchronize()
     ik = int(ik.item())
     err = float((dk - dr).abs().max())
     scale = float(dr.abs().max())
     finite = bool(torch.isfinite(dk).all())
-    line = {"check": "kernel_vs_twin", "case": label,
-            "form": fused_cg.instance_name(bool(lm), meta["rem"] is not None),
+    line = {"check": "kernel_vs_twin", "case": label, "form": form_of(meta, lm, **variant),
             "lits": lits, "tol": tol, "kernel_iters": ik, "twin_iters": ir,
             "max_abs_err": err, "max_abs_delta": scale, "rel_err": err / max(scale, 1e-30),
             "bitwise_equal": bool(torch.equal(dk, dr))}
@@ -407,6 +496,8 @@ def kernel_vs_twin(label, meta, b, pre, lits, tol, lm=None, q_tol=Q_TOL):
         raise RuntimeError(f"{label}: kernel ran {ik} iterations, the twin {ir}")
     no_exit = tol == 0.0 and (not lm or q_tol == float("-inf"))
     if no_exit:
+        # Chronopoulos-Gear keeps one exit even so (a step denominator <= 0);
+        # every case here runs `lits` iterations without reaching it
         if ik != lits:
             raise RuntimeError(f"{label}: iteration counts {ik}/{ir}, expected {lits}")
         if err > DELTA_RTOL * scale:
@@ -414,31 +505,44 @@ def kernel_vs_twin(label, meta, b, pre, lits, tol, lm=None, q_tol=Q_TOL):
     return err
 
 
-def bitwise_repeat(label, meta, b, pre, lits, lm=None):
+def bitwise_repeat(label, meta, b, pre, lits, lm=None, **variant):
     lm_kw = dict(lm, q_tolerance=Q_TOL) if lm else {}
-    d1, i1 = fused_cg.fused_grid_cg_kernel(meta, b, pre, lits, CG_TOL, **lm_kw)
-    d2, i2 = fused_cg.fused_grid_cg_kernel(meta, b, pre, lits, CG_TOL, **lm_kw)
+    d1, i1 = fused_cg.fused_grid_cg_kernel(meta, b, pre, lits, CG_TOL, **lm_kw, **variant)
+    d2, i2 = fused_cg.fused_grid_cg_kernel(meta, b, pre, lits, CG_TOL, **lm_kw, **variant)
     torch.cuda.synchronize()
     same = bool(torch.equal(d1, d2)) and int(i1.item()) == int(i2.item())
-    log(json.dumps({"check": "bitwise_repeat", "case": label,
-                    "form": fused_cg.instance_name(bool(lm), meta["rem"] is not None),
+    log(json.dumps({"check": "bitwise_repeat", "case": label, "form": form_of(meta, lm, **variant),
                     "iters": int(i1.item()), "equal": same}))
     if not same:
         raise RuntimeError(f"{label}: two launches on the same input differ")
 
 
-def main_path(label, spec, kind, dims, inputs, nl, li, want, shapes, form=None):
+def variant_checks(label, system, lits, exit_lits):
+    """A variant system's kernel against its twin: `lits` iterations with
+    no exit, the real exits with up to `exit_lits`, and a bitwise repeat.
+    Returns the first check's max|Δδ|."""
+    meta, b, pre, lm, variant = system
+    no_exit = dict(q_tol=float("-inf")) if lm else {}
+    err = kernel_vs_twin(label, meta, b, pre, lits, 0.0, lm, **no_exit, **variant)
+    kernel_vs_twin(label, meta, b, pre, exit_lits, CG_TOL, lm, **variant)
+    bitwise_repeat(label, meta, b, pre, exit_lits, lm, **variant)
+    return err
+
+
+def main_path(label, spec, kind, dims, inputs, nl, li, want, shapes, form=None, ip=None):
     """One solve through the public API with no device argument and the
     launch counts set to 0 just before it; returns (result, launches by
     instance, plan). ``want``: the JAX package's final cost, or None where
-    the caller holds the costs itself."""
+    the caller holds the costs itself; ``ip``: InitializationParameters'
+    keywords."""
     fused_cg.reset_launch_counts()
-    plan = ot.Problem(spec, kind=kind).plan(dims=dims)
+    plan = ot.Problem(spec, kind=kind).plan(dims=dims,
+                                           init_params=ot.InitializationParameters(**(ip or {})))
     res = plan.solve(dict(inputs), nIterations=nl, lIterations=li)
     torch.cuda.synchronize()
-    launches = dict(fused_cg.fused_grid_cg_kernel.launches)
+    launches = {k: v for k, v in fused_cg.fused_grid_cg_kernel.launches.items() if v}
     form = form or ("lm" if kind == "LMGPU" else "gn")
-    line = {"check": "main_path", "case": label, "final_cost": res.final_cost,
+    line = {"check": "main_path", "case": label, "form": form, "final_cost": res.final_cost,
             "costs": res.costs, "nonlinear_iters": res.num_iterations,
             "lin_iters": res.num_linear_iterations, "kernel_launches": launches,
             "fused_fallback": plan.fused_fallback, "solve_s": res.wall_time_s}
@@ -446,7 +550,7 @@ def main_path(label, spec, kind, dims, inputs, nl, li, want, shapes, form=None):
         line.update(jax_cpu_cost=want, rel_diff=abs(res.final_cost - want) / abs(want))
     log(json.dumps(line))
     others = [k for k, v in launches.items() if k != form and v]
-    if (launches[form] != res.num_iterations or others or res.num_iterations < 1
+    if (launches.get(form) != res.num_iterations or others or res.num_iterations < 1
             or plan.fused_fallback is not None):
         raise RuntimeError(f"{label}: not one {form} kernel launch per nonlinear step "
                            f"({launches} for {res.num_iterations}, fallback {plan.fused_fallback})")
@@ -494,6 +598,79 @@ def graph_main_path(label, dims, inputs, form):
     return res, launches
 
 
+def volumetric_main_path(pre, inputs):
+    """volumetric 32^3 GN 8x40 through the kernel with `pre` "jacobi" or
+    "block_jacobi", held as the JAX_CPU_VOLUMETRIC comment says: the first
+    VOL_FIRST_STEPS steps' costs to the JAX package's, the whole solve cost
+    for cost to the same solve through the plain version on the card.
+    Returns (result, launches)."""
+    ref = JAX_CPU_VOLUMETRIC[pre]
+    ip = {"preconditioner": pre}
+    form = "gn_bj" if pre == "block_jacobi" else "gn"
+    n = VOL_N
+    res, launches, _plan = main_path(
+        f"volumetric{n} GN {VOL_NL}x{VOL_LI} {pre}", volumetric_mesh_deformation,
+        "gaussNewtonGPU", _vol(n), inputs, VOL_NL, VOL_LI, None,
+        {"Offset": (n, n, n, 3), "Angle": (n, n, n, 3)}, form=form, ip=ip)
+    fused_cg.reset_launch_counts()
+    twin_plan = ot.Problem(volumetric_mesh_deformation).plan(
+        dims=_vol(n), init_params=ot.InitializationParameters(use_pallas_cg="interpret", **ip))
+    twin = twin_plan.solve(dict(inputs), nIterations=VOL_NL, lIterations=VOL_LI)
+    torch.cuda.synchronize()
+    twin_launches = sum(fused_cg.fused_grid_cg_kernel.launches.values())
+    first = res.costs[:VOL_FIRST_STEPS]
+    first_rel = [abs(a - b) / abs(b) for a, b in zip(first, ref["costs"])]
+    log(json.dumps({
+        "check": "volumetric_costs", "case": f"volumetric{n} {pre}", "first_costs": first,
+        "jax_cpu_first_costs": ref["costs"][:VOL_FIRST_STEPS], "first_rel_diff": first_rel,
+        "costs": res.costs, "twin_costs": twin.costs, "costs_equal_to_twin": res.costs == twin.costs,
+        "final_cost": res.final_cost, "jax_cpu_final_cost": ref["costs"][-1],
+        "final_rel_diff_to_jax_cpu": abs(res.final_cost - ref["costs"][-1]) / ref["costs"][-1],
+        "lin_iters": res.num_linear_iterations, "twin_lin_iters": twin.num_linear_iterations,
+        "jax_cpu_lin_iters": ref["lin_iters"], "twin_kernel_launches": twin_launches}))
+    if len(first) < VOL_FIRST_STEPS or any(r > FIRST_STEPS_RTOL for r in first_rel):
+        raise RuntimeError(f"volumetric {pre}: first steps' costs {first} vs JAX {ref['costs']}")
+    if (res.costs != twin.costs or twin_launches != 0 or twin_plan.fused_fallback is not None):
+        raise RuntimeError(f"volumetric {pre}: kernel solve {res.costs} vs plain version "
+                           f"{twin.costs} ({twin_launches} kernel launches in the latter)")
+    return res, launches
+
+
+def variant_main_path(name, variant, inputs):
+    """poisson 512x512x4 GN 1x2000 or image_warping 512x512 LM 8x400 under
+    one solver variant ("chronopoulos_gear", "block_jacobi" or
+    "bfloat16"), held to the JAX package's solve of the same plan
+    (JAX_CPU_VARIANT_COSTS); Chronopoulos-Gear also to its CG iteration
+    count. Returns (result, launches)."""
+    want, want_iters = JAX_CPU_VARIANT_COSTS[(name, variant)]
+    ip = {"chronopoulos_gear": {"cg_variant": "chronopoulos_gear"},
+          "block_jacobi": {"preconditioner": "block_jacobi"},
+          "bfloat16": {"coefficient_dtype": "bfloat16"}}[variant]
+    suffix = {"chronopoulos_gear": "_cs", "block_jacobi": "_bj", "bfloat16": "_bf16"}[variant]
+    if name == "poisson":
+        n = MAIN_N
+        res, launches, _p = main_path(
+            f"poisson{n}x4 GN 1x2000 {variant}", poisson_image_editing, "gaussNewtonGPU",
+            _grid(n), inputs, 1, 2000, want, {"X": (n, n, 4)}, form="gn" + suffix, ip=ip)
+    else:
+        n = IW_N
+        res, launches, _p = main_path(
+            f"image_warping{n} LM 8x400 {variant}", image_warping, "LMGPU", _grid(n), inputs,
+            8, 400, want, {"Offset": (n, n, 2), "Angle": (n, n, 1)}, form="lm" + suffix, ip=ip)
+    line = {"check": "variant_iters", "case": f"{name} {variant}",
+            "lin_iters": res.num_linear_iterations, "jax_cpu_lin_iters": want_iters}
+    if name == "poisson":
+        line["standard_lin_iters"] = POISSON_STANDARD_CG_ITERS
+        line["standard_final_cost"] = JAX_CPU_POISSON_512_COST
+    log(json.dumps(line))
+    rel, add = CS_ITER_SLACK
+    if variant == "chronopoulos_gear" and name == "poisson" and (
+            abs(res.num_linear_iterations - want_iters) > rel * want_iters + add):
+        raise RuntimeError(f"poisson CS: {res.num_linear_iterations} CG iterations against "
+                           f"the JAX CPU's {want_iters}")
+    return res, launches
+
+
 def float64_witness(dims, inputs):
     """The arap36k GN 8x100 solve in float64 through the public API with no
     device argument (the eager loop: the kernel is float32, so no launch),
@@ -529,31 +706,45 @@ def time_cuda(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def time_pair(label, meta, b, pre, gpu, lm=None, reps=(5, 2)):
+def time_pair(label, meta, b, pre, gpu, lm=None, reps=(5, 2), **variant):
     """ms of TIMED_ITERS CG iterations with no exit of the kernel and of its
     twin (CUDA events), and the call's bound: (ms, plain ms, bound ms,
     bound by)."""
     lm_kw = dict(lm, q_tolerance=float("-inf")) if lm else {}
-    ms_k = time_cuda(lambda: fused_cg.fused_grid_cg_kernel(meta, b, pre, TIMED_ITERS, 0.0, **lm_kw),
-                     reps[0])
+    # with tol = 0 a loop that reaches an exact zero residual still stops
+    # (rz <= 0, a denominator <= 0): times and the bound are of the
+    # iterations executed
+    _d, it = fused_cg.fused_grid_cg_kernel(meta, b, pre, TIMED_ITERS, 0.0, **lm_kw, **variant)
+    iters = int(it.item())
+    _d, twin_iters = fused_cg.fused_grid_cg_reference(
+        meta["F"], meta["triples"], b, pre, TIMED_ITERS, 0.0, rem=meta["rem"], **lm_kw, **variant)
+    if twin_iters != iters:
+        raise RuntimeError(f"{label}: timed kernel ran {iters} iterations, the twin {twin_iters}")
+    ms_k = time_cuda(lambda: fused_cg.fused_grid_cg_kernel(
+        meta, b, pre, TIMED_ITERS, 0.0, **lm_kw, **variant), reps[0])
     ms_t = time_cuda(lambda: fused_cg.fused_grid_cg_reference(
-        meta["F"], meta["triples"], b, pre, TIMED_ITERS, 0.0, rem=meta["rem"], **lm_kw), reps[1])
-    bound_ms, bound_by = cg_bound(meta_shape(meta), TIMED_ITERS, lm=bool(lm))
-    form = fused_cg.instance_name(bool(lm), meta["rem"] is not None)
-    log(json.dumps({"timing": label, "form": form, "gpu": gpu,
-                    "kernel_ms_per_cg_iter": ms_k / TIMED_ITERS,
-                    "twin_ms_per_cg_iter": ms_t / TIMED_ITERS,
-                    "bound_ms_per_cg_iter": bound_ms / TIMED_ITERS,
-                    f"kernel_ms_{TIMED_ITERS}_iters": ms_k, f"twin_ms_{TIMED_ITERS}_iters": ms_t,
-                    f"bound_ms_{TIMED_ITERS}_iters": bound_ms, "bound_by": bound_by}))
+        meta["F"], meta["triples"], b, pre, TIMED_ITERS, 0.0, rem=meta["rem"], **lm_kw,
+        **variant), reps[1])
+    shape = meta_shape(meta)
+    pre_planes = shape["C"] ** 2 if variant.get("pre_blocks") is not None else None
+    bound_ms, bound_by = cg_bound(shape, iters, lm=bool(lm), cs=bool(variant.get("cs")),
+                                  pre_planes=pre_planes)
+    form = form_of(meta, lm, **variant)
+    log(json.dumps({"timing": label, "form": form, "gpu": gpu, "iters": iters,
+                    "kernel_ms_per_cg_iter": ms_k / iters,
+                    "twin_ms_per_cg_iter": ms_t / iters,
+                    "bound_ms_per_cg_iter": bound_ms / iters,
+                    "kernel_ms": ms_k, "twin_ms": ms_t, "bound_ms": bound_ms,
+                    "bound_by": bound_by}))
     return ms_k, ms_t, bound_ms, bound_by
 
 
-def time_main_path(label, spec, kind, dims, inputs, nl, li, gpu):
+def time_main_path(label, spec, kind, dims, inputs, nl, li, gpu, ip=None):
     """Assembly ms per nonlinear step (the step's system, CUDA events) and
     the whole solve's wall time (host clock, synchronised), after a warm-up
-    solve."""
-    plan = ot.Problem(spec, kind=kind).plan(dims=dims)
+    solve; ``ip``: InitializationParameters' keywords."""
+    plan = ot.Problem(spec, kind=kind).plan(dims=dims,
+                                           init_params=ot.InitializationParameters(**(ip or {})))
     u, c, g, prm = plan._normalize_and_place(inputs)
     sv = plan.solver
     sp = plan.solver_params
@@ -562,9 +753,7 @@ def time_main_path(label, spec, kind, dims, inputs, nl, li, gpu):
     def assemble():
         fs = FunctionSet(plan.compiled, c, g, prm)
         fs.masks(u)
-        if kind == "LMGPU":
-            return sv.lm_system(u, fs, state, sp)
-        return sv.gn_system(u, fs)
+        return sv.cg_inputs(u, fs, state, sp)
 
     ms_assembly = time_cuda(assemble, 3)
     plan.solve(dict(inputs), nIterations=nl, lIterations=li)
@@ -580,19 +769,20 @@ def time_main_path(label, spec, kind, dims, inputs, nl, li, gpu):
                     "lin_iters": res.num_linear_iterations}))
 
 
-def profile_solve(label, dims, inputs, gpu):
-    """One warm arap GN solve under torch.profiler: device time, the
-    kernel's share, device kernel launches and host synchronisations; the
-    20 longest kernels go to OUT_DIR."""
+def profile_solve(label, spec, dims, inputs, nl, li, gpu, ip=None):
+    """One warm GN solve under torch.profiler (``ip``:
+    InitializationParameters' keywords): device time, the kernel's share,
+    device kernel launches and host synchronisations; the 20 longest
+    kernels go to OUT_DIR."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    plan = ot.Problem(arap_mesh_deformation).plan(dims=dims)
-    plan.solve(dict(inputs), nIterations=GRAPH_NL, lIterations=GRAPH_LI)
+    plan = ot.Problem(spec).plan(dims=dims, init_params=ot.InitializationParameters(**(ip or {})))
+    plan.solve(dict(inputs), nIterations=nl, lIterations=li)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        res = plan.solve(dict(inputs), nIterations=GRAPH_NL, lIterations=GRAPH_LI)
+        res = plan.solve(dict(inputs), nIterations=nl, lIterations=li)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
@@ -623,6 +813,7 @@ def profile_solve(label, dims, inputs, gpu):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA card",
               file=sys.stderr)
@@ -635,28 +826,33 @@ def main() -> int:
     nv = subprocess.run([nvcc_path(), "--version"], capture_output=True, text=True, check=True)
     log(f"nvcc: {nv.stdout.strip().splitlines()[-1]}")
 
-    # 1. build
+    # 1. build: every instance in one library, by one nvcc process
     t0 = time.perf_counter()
     info = build_library()
     load_library()
-    log(f"build: {'built' if info['built'] else 'cached'} {info['path']} in "
-        f"{time.perf_counter() - t0:.2f} s")
-    for line in info["log"].splitlines():
-        if "fused_grid_cg" in line or "registers" in line or "nvcc" in line:
-            log(f"  {line.strip()}")
+    log(f"build: {'built' if info['built'] else 'cached'} {info['path'].name} in "
+        f"{time.perf_counter() - t0:.2f} s ({info['seconds']:.2f} s of nvcc)")
+    regs = instance_registers(info["log"])
+    log(json.dumps({"registers": {fused_cg.instance_name(*k): v[0] for k, v in sorted(regs.items())},
+                    "spill_store_bytes": {fused_cg.instance_name(*k): v[1]
+                                          for k, v in sorted(regs.items()) if v[1]},
+                    "build_s": info["seconds"]}))
+    if len(regs) != len(fused_cg.INSTANCES):
+        raise RuntimeError(f"ptxas reported {len(regs)} instances, expected {len(fused_cg.INSTANCES)}")
 
     # 2. each kernel form against its twin at the main paths' shapes
     n = MAIN_N
     inputs = bench_poisson_inputs(n)
-    meta, b, pre, _ = system(poisson_image_editing, _grid(n), inputs)
+    meta, b, pre, _, _ = system(poisson_image_editing, _grid(n), inputs)
     log(f"poisson {n}x{n}x4: {meta['F'].shape[0]} fields, {len(meta['triples'])} triples")
     err_gn = kernel_vs_twin(f"poisson{n}x4", meta, b, pre, 50, 0.0)
     kernel_vs_twin(f"poisson{n}x4", meta, b, pre, 2000, CG_TOL)
-    lmeta, lb, lpre, _ = system(laplacian, _grid(n), laplacian_inputs(n))
+    lmeta, lb, lpre, _, _ = system(laplacian, _grid(n), laplacian_inputs(n))
     kernel_vs_twin(f"laplacian{n}", lmeta, lb, lpre, 50, 0.0)
     kernel_vs_twin(f"laplacian{n}", lmeta, lb, lpre, 2000, CG_TOL)
     del lmeta, lb, lpre
-    bmeta, bb, bpre, _ = system(poisson_image_editing, _grid(BIG_N), bench_poisson_inputs(BIG_N))
+    bmeta, bb, bpre, _, _ = system(poisson_image_editing, _grid(BIG_N),
+                                   bench_poisson_inputs(BIG_N))
     kernel_vs_twin(f"poisson{BIG_N}x4", bmeta, bb, bpre, 50, 0.0)
     kernel_vs_twin(f"poisson{BIG_N}x4", bmeta, bb, bpre, 200, CG_TOL)
     del bmeta, bb, bpre
@@ -664,21 +860,21 @@ def main() -> int:
 
     iw_in = bench_image_warping_inputs(IW_N)
     iw_big_in = bench_image_warping_inputs(IW_BIG_N)
-    mmeta, mb, mpre, _ = system(image_warping, _grid(IW_N), iw_in)
+    mmeta, mb, mpre, _, _ = system(image_warping, _grid(IW_N), iw_in)
     cross = sum(1 for (_d, i, j, _f) in mmeta["triples"] if i != j)
     log(f"image_warping {IW_N}x{IW_N}x3: {mmeta['F'].shape[0]} fields, "
         f"{len(mmeta['triples'])} triples, {cross} cross-channel")
     err_mixed = kernel_vs_twin(f"image_warping{IW_N}x3", mmeta, mb, mpre, 50, 0.0)
     kernel_vs_twin(f"image_warping{IW_N}x3", mmeta, mb, mpre, 400, CG_TOL)
-    vmeta, vb, vpre, vlm = lm_system(image_warping, _grid(IW_N), iw_in)
+    vmeta, vb, vpre, vlm, _ = system(image_warping, _grid(IW_N), iw_in, "LMGPU")
     err_lm = kernel_vs_twin(f"image_warping{IW_N}x3", vmeta, vb, vpre, 50, 0.0, vlm,
                             q_tol=float("-inf"))
     kernel_vs_twin(f"image_warping{IW_N}x3", vmeta, vb, vpre, 400, CG_TOL, vlm)
     bitwise_repeat(f"image_warping{IW_N}x3", vmeta, vb, vpre, 400, vlm)
-    gmeta, gb, gpre, _ = system(image_warping, _grid(IW_BIG_N), iw_big_in)
+    gmeta, gb, gpre, _, _ = system(image_warping, _grid(IW_BIG_N), iw_big_in)
     err_k6 = kernel_vs_twin(f"image_warping{IW_BIG_N}x3", gmeta, gb, gpre, 50, 0.0)
     kernel_vs_twin(f"image_warping{IW_BIG_N}x3", gmeta, gb, gpre, 100, CG_TOL)
-    wmeta, wb, wpre, wlm = lm_system(image_warping, _grid(IW_BIG_N), iw_big_in)
+    wmeta, wb, wpre, wlm, _ = system(image_warping, _grid(IW_BIG_N), iw_big_in, "LMGPU")
     kernel_vs_twin(f"image_warping{IW_BIG_N}x3", wmeta, wb, wpre, 50, 0.0, wlm,
                    q_tol=float("-inf"))
     kernel_vs_twin(f"image_warping{IW_BIG_N}x3", wmeta, wb, wpre, 100, CG_TOL, wlm)
@@ -692,7 +888,7 @@ def main() -> int:
     graph = {}
     for label, dims, gin in (("arap36k", arap_dims, arap_in), ("armadillo31k", arm_dims, arm_in)):
         gm = system(arap_mesh_deformation, dims, gin)
-        glm = lm_system(arap_mesh_deformation, dims, gin)
+        glm = system(arap_mesh_deformation, dims, gin, "LMGPU")
         rem = gm[0]["rem"]
         offsets = sorted({d[1] for (d, _i, _j, _f) in gm[0]["triples"]})
         log(json.dumps({"graph_system": label, "vertices": dims["N"],
@@ -711,6 +907,50 @@ def main() -> int:
     if graph["arap36k"][0][0]["rem"] is not None or graph["armadillo31k"][0][0]["rem"] is None:
         raise RuntimeError("the grid mesh must take the DIA form and the armadillo the remainder")
 
+    # the 3-D grid form (K1 e) and the variants (K1 c, d, f), each held to
+    # the twin: 50 iterations with no exit, the real exits, a bitwise repeat
+    vol_in = volumetric_inputs(VOL_N)
+    vol_big_in = volumetric_inputs(VOL_BIG_N)
+    vsys = system(volumetric_mesh_deformation, _vol(VOL_N), vol_in)
+    log(f"volumetric {VOL_N}^3 x 6: {vsys[0]['F'].shape[0]} fields, "
+        f"{len(vsys[0]['triples'])} triples")
+    err_3d = variant_checks(f"volumetric{VOL_N}", vsys, 50, 400)
+    big = system(volumetric_mesh_deformation, _vol(VOL_BIG_N), vol_big_in)
+    variant_checks(f"volumetric{VOL_BIG_N}", big, 50, 400)
+    del big
+    big_lm = system(volumetric_mesh_deformation, _vol(VOL_BIG_N), vol_big_in, "LMGPU")
+    variant_checks(f"volumetric{VOL_BIG_N}", big_lm, 50, 400)
+    del big_lm
+    vbj = system(volumetric_mesh_deformation, _vol(VOL_N), vol_in,
+                         preconditioner="block_jacobi")
+    err_bj = variant_checks(f"volumetric{VOL_N} block_jacobi", vbj, 50, 400)
+    pcs = system(poisson_image_editing, _grid(n), inputs, cg_variant="chronopoulos_gear")
+    err_cs = variant_checks(f"poisson{n}x4 chronopoulos_gear", pcs, 50, 2000)
+    pbf = system(poisson_image_editing, _grid(n), inputs, coefficient_dtype="bfloat16")
+    if pbf[0]["F"].dtype != torch.bfloat16:
+        raise RuntimeError("coefficient_dtype='bfloat16' did not narrow the fields")
+    err_bf = variant_checks(f"poisson{n}x4 bfloat16", pbf, 50, 2000)
+    iw_variants = {}
+    for kind, label in (("gaussNewtonGPU", "GN"), ("LMGPU", "LM")):
+        for ip in ({"cg_variant": "chronopoulos_gear"}, {"preconditioner": "block_jacobi"},
+                   {"coefficient_dtype": "bfloat16"}):
+            if kind == "gaussNewtonGPU" and "preconditioner" not in ip:
+                continue  # GN CS and bf16 are held on poisson
+            (v,) = ip.values()
+            sysv = system(image_warping, _grid(IW_N), iw_in, kind, **ip)
+            variant_checks(f"image_warping{IW_N}x3 {label} {v}", sysv, 50, 400)
+            iw_variants[(label, v)] = sysv
+    for ip in ({"cg_variant": "chronopoulos_gear"}, {"preconditioner": "block_jacobi"},
+               {"coefficient_dtype": "bfloat16"}):
+        (v,) = ip.values()
+        gsys = system(arap_mesh_deformation, arap_dims, arap_in, **ip)
+        variant_checks(f"arap36k {v}", gsys, 50, GRAPH_LI)
+    arm_bf = system(arap_mesh_deformation, arm_dims, arm_in, coefficient_dtype="bfloat16")
+    if arm_bf[0]["rem"] is None or arm_bf[0]["rem"]["blk"].dtype != torch.bfloat16:
+        raise RuntimeError("the armadillo's bfloat16 remainder blocks are missing")
+    variant_checks("armadillo31k bfloat16", arm_bf, 50, GRAPH_LI)
+    del arm_bf
+
     # 3. the main paths through the public API, each with the launch counts
     # set to 0 just before it and read just after
     _res, l_poisson, _p = main_path(f"poisson{n}x4 GN 1x2000", poisson_image_editing,
@@ -725,6 +965,15 @@ def main() -> int:
     _r, l_arap = graph_main_path("arap36k", arap_dims, arap_in, "gn")
     _r, l_arm = graph_main_path("armadillo31k", arm_dims, arm_in, "gn_rem")
     float64_witness(arap_dims, arap_in)
+    vol_res, l_vol = volumetric_main_path("jacobi", vol_in)
+    vol_bj_res, l_vol_bj = volumetric_main_path("block_jacobi", vol_in)
+    log(json.dumps({"check": "block_jacobi_iters", "case": f"volumetric{VOL_N} GN {VOL_NL}x{VOL_LI}",
+                    "jacobi_lin_iters": vol_res.num_linear_iterations,
+                    "block_jacobi_lin_iters": vol_bj_res.num_linear_iterations}))
+    _r, l_pcs = variant_main_path("poisson", "chronopoulos_gear", inputs)
+    _r, l_pbf = variant_main_path("poisson", "bfloat16", inputs)
+    for v in ("chronopoulos_gear", "block_jacobi", "bfloat16"):
+        variant_main_path("image_warping", v, iw_in)
 
     cases = medium_inputs()
     for name, (spec, kind, nl, li, golden) in MEDIUM_GOLDENS.items():
@@ -741,6 +990,7 @@ def main() -> int:
         form = "lm" if kind == "LMGPU" else "gn"
         if not ok or used[form] != r.num_iterations or p.fused_fallback is not None:
             raise RuntimeError(f"golden {name} failed")
+    phase_s = time.perf_counter() - t_start
 
     # 4. times on the card
     t_gn = time_pair(f"poisson{n}x4", meta, b, pre, gpu)
@@ -753,6 +1003,16 @@ def main() -> int:
     for label, (gm, glm, _err) in graph.items():
         t_graph[label] = time_pair(label, *gm[:3], gpu, reps=(3, 1))
         time_pair(label, *glm[:3], gpu, glm[3], reps=(3, 1))
+    t_3d = time_pair(f"volumetric{VOL_N}", *vsys[:3], gpu, vsys[3], reps=(5, 1), **vsys[4])
+    t_bj = time_pair(f"volumetric{VOL_N} block_jacobi", *vbj[:3], gpu, vbj[3], reps=(5, 1), **vbj[4])
+    t_cs = time_pair(f"poisson{n}x4 chronopoulos_gear", *pcs[:3], gpu, pcs[3], **pcs[4])
+    t_bf = time_pair(f"poisson{n}x4 bfloat16", *pbf[:3], gpu, pbf[3], **pbf[4])
+    for (label, v), sysv in iw_variants.items():
+        time_pair(f"image_warping{IW_N}x3 {label} {v}", *sysv[:3], gpu, sysv[3], reps=(3, 1), **sysv[4])
+    del iw_variants
+    big = system(volumetric_mesh_deformation, _vol(VOL_BIG_N), vol_big_in)
+    time_pair(f"volumetric{VOL_BIG_N}", *big[:3], gpu, big[3], reps=(3, 1), **big[4])
+    del big
     time_main_path(f"poisson{n}x4 GN 1x2000", poisson_image_editing, "gaussNewtonGPU",
                    _grid(n), inputs, 1, 2000, gpu)
     for (nn, kind, nl, li) in JAX_CPU_IMAGE_WARPING_COSTS:
@@ -762,7 +1022,18 @@ def main() -> int:
     for label, dims, gin in (("arap36k", arap_dims, arap_in), ("armadillo31k", arm_dims, arm_in)):
         time_main_path(f"{label} GN {GRAPH_NL}x{GRAPH_LI}", arap_mesh_deformation,
                        "gaussNewtonGPU", dims, gin, GRAPH_NL, GRAPH_LI, gpu)
-    profile_solve("arap36k", arap_dims, arap_in, gpu)
+    for pre in ("jacobi", "block_jacobi"):
+        time_main_path(f"volumetric{VOL_N} GN {VOL_NL}x{VOL_LI} {pre}", volumetric_mesh_deformation,
+                       "gaussNewtonGPU", _vol(VOL_N), vol_in, VOL_NL, VOL_LI, gpu,
+                       {"preconditioner": pre})
+    time_main_path(f"image_warping{IW_N} LM 8x400 block_jacobi", image_warping, "LMGPU",
+                   _grid(IW_N), iw_in, 8, 400, gpu, {"preconditioner": "block_jacobi"})
+    profile_solve("arap36k", arap_mesh_deformation, arap_dims, arap_in, GRAPH_NL, GRAPH_LI, gpu)
+    # block-Jacobi against Jacobi on volumetric by device time: wall-clock
+    # solves there swing with the host-bound assembly
+    for pre in ("jacobi", "block_jacobi"):
+        profile_solve(f"volumetric{VOL_N}_{pre}", volumetric_mesh_deformation, _vol(VOL_N),
+                      vol_in, VOL_NL, VOL_LI, gpu, {"preconditioner": pre})
 
     def entry(name, replaces, launches, err, timing):
         ms, plain, bound_ms, bound_by = timing
@@ -779,8 +1050,11 @@ def main() -> int:
     # each main-path launch counts in one entry; ms, plain_ms and bound_ms
     # are of TIMED_ITERS iterations; no single PyTorch call runs a CG loop,
     # so library_ms is null. The LM instances on 1024x1024x3 (K6's other
-    # case) and on the two meshes are checked and timed above but have no
-    # main path here
+    # case) and on the two meshes, and the variants' other instances, are
+    # checked and timed above; image_warping's LM variant solves above are
+    # their main paths
+    log(json.dumps({"command_s": time.perf_counter() - t_start,
+                    "checks_and_main_paths_s": phase_s}))
     log(f"gpu: {gpu}")
     log(json.dumps({"kernels": [
         entry("fused_grid_cg GN (K1, grid GN form)", K1, l_poisson["gn"], err_gn, t_gn),
@@ -793,6 +1067,14 @@ def main() -> int:
               l_arap["gn"], graph["arap36k"][2], t_graph["arap36k"]),
         entry("fused_grid_cg GN with the graph remainder (K4), arap armadillo 31,106 vertices",
               K4, l_arm["gn_rem"], graph["armadillo31k"][2], t_graph["armadillo31k"]),
+        entry(f"fused_grid_cg GN Chronopoulos-Gear (K1 variant c), poisson {n}x{n}x4", K1C,
+              l_pcs["gn_cs"], err_cs, t_cs),
+        entry(f"fused_grid_cg GN block-Jacobi (K1 variant d), volumetric {VOL_N}^3 x 6", K1D,
+              l_vol_bj["gn_bj"], err_bj, t_bj),
+        entry(f"fused_grid_cg GN on a 3-D grid (K1 variant e), volumetric {VOL_N}^3 x 6", K1E,
+              l_vol["gn"], err_3d, t_3d),
+        entry(f"fused_grid_cg GN bfloat16 fields (K1 variant f), poisson {n}x{n}x4", K1F,
+              l_pbf["gn_bf16"], err_bf, t_bf),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

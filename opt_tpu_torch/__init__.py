@@ -4,8 +4,8 @@ A nonlinear least-squares DSL and Gauss-Newton solver: users write energy
 functions (sums of squared residual terms over image grids and graphs) as
 plain Python spec functions; the framework derives a Jacobi-preconditioned
 Gauss-Newton solver with ``torch.func``. The whole CG inner loop of a 2-D
-grid or a graph problem runs as one hand-written CUDA kernel on the card
-(ops/fused_cg.py). Plans run on the card; ``plan(..., device="cpu")`` asks
+or 3-D grid or a graph problem runs as one hand-written CUDA kernel on the
+card (ops/fused_cg.py). Plans run on the card; ``plan(..., device="cpu")`` asks
 for the CPU.
 
 The JAX package ``opt_tpu`` is the reference this port is held to; the two

@@ -38,8 +38,9 @@ import torch.nn.functional as TF
 from torch.fx.experimental.proxy_tensor import make_fx
 
 from .compile import graph_outputs, node_inputs, op_name
-from .ops.fused_cg import plan_fused_graph_cg, plan_fused_grid_cg
+from .ops.fused_cg import coefficient_dtype, plan_fused_graph_cg, plan_fused_grid_cg
 from .ops.shift import shift
+from .solver.params import FLOAT_EPSILON
 
 # centered: (u_out, u_in, delta, i, j) -> [(term_idx, sid_out, sid_in), ...]
 WKey = Tuple[str, str, Tuple[int, ...], int, int]
@@ -448,6 +449,30 @@ def assemble_const(compiled, plan: AssemblyPlan, X0, consts, graphs, params):
     return {"D": D, "moved": moved, "base": base_of, "B": B, "var_slots": var_slots}
 
 
+def _gauss_jordan_inv(B):
+    """Batched inverse of small regularized-SPD blocks [..., c, c] by
+    pivot-free Gauss-Jordan (c rounds of elementwise row ops over the
+    batch), then one Newton refinement X ← X(2I − BX), which squares the
+    pivot-free rounding residual. No pivoting is safe: callers regularize
+    the diagonal, so every pivot is bounded away from zero. The refinement
+    products are broadcast multiplies and sums in the blocks' dtype, so no
+    TF32 setting of the matmul backend can touch them."""
+    c = B.shape[-1]
+    eye = torch.eye(c, dtype=B.dtype, device=B.device).expand(B.shape)
+    M = torch.cat([B, eye], dim=-1)  # [..., c, 2c]
+    for k in range(c):
+        piv = M[..., k, :] / M[..., k, k : k + 1]
+        M = M - M[..., :, k : k + 1] * piv[..., None, :]
+        M[..., k, :] = piv
+    X = M[..., :, c:]
+
+    def mm(a, b):
+        return torch.sum(a[..., :, :, None] * b[..., None, :, :], dim=-2)
+
+    BX = mm(B, X)
+    return mm(X, 2.0 * eye - BX)
+
+
 def _pad_channels(x, lo, hi):
     return x if lo == 0 and hi == 0 else TF.pad(x, (lo, hi))
 
@@ -497,7 +522,7 @@ def _graph_layouts(compiled, plan, graphs):
 
 
 def assemble(compiled, plan: AssemblyPlan, X, consts, graphs, params, row_masks,
-             const_cache=None):
+             const_cache=None, coeff_dtype=None):
     """Assemble the coefficient fields at linearization point X.
 
     Returns (apply_fn, diag, jtf_fn, cg_meta): the row/column-masked JᵀJ·p
@@ -505,7 +530,10 @@ def assemble(compiled, plan: AssemblyPlan, X, consts, graphs, params, row_masks,
     and the same-vertex graph blocks, a JᵀF evaluator over residual term
     tensors (``jtf_fn.r_terms`` holds the residuals at X when a per-step
     probe ran, else None), and the fused CG descriptor (ops/fused_cg.py)
-    or None."""
+    or None. ``apply_fn.block_pre(extra_diag=None)`` builds the block-Jacobi
+    preconditioner. ``coeff_dtype`` (e.g. "bfloat16") narrows the
+    coefficient storage the CG loop reads, after the full-precision
+    diagonal and block sources are read off."""
     slots = compiled.registry.slots
     dt = compiled.dtype
     X_dev = next(iter(X.values())).device
@@ -847,9 +875,136 @@ def assemble(compiled, plan: AssemblyPlan, X, consts, graphs, params, row_masks,
         for u in u_list:
             diag[u] = diag[u] + dcontrib[:, offs[u] : offs[u] + unknown_channels[u]]
 
+    # -- optional per-point block-Jacobi preconditioner -----------------------
+    # The Δ=0 coupling block per packed point (the centred zero-offset
+    # fields and the same-vertex graph blocks) inverted once per nonlinear
+    # iteration couples the channels scalar Jacobi ignores (Offset × Angle).
+    # Its sources are snapshotted here, at full precision, before the
+    # coefficient narrowing below replaces the loop-resident containers.
+    bp_w_packed = tuple(w_packed)
+    bp_S = {key: ex["S"] for key, ex in grp_exec.items()}
+
+    def make_block_pre(extra_diag=None):
+        """Build M⁻¹ from the Δ=0 blocks (plus ``extra_diag``, a
+        per-unknown diagonal such as LM's damping) and return
+        ``r -> M⁻¹·r`` with the row masks applied to the output; the
+        function carries ``.inv`` {ispace: [*dom, C, C]}, ``.layouts`` and
+        ``.row_masks`` for the fused loop."""
+        isp_layouts = dict(w_layouts)  # ispace -> (u_list, offs, ctot)
+
+        def _layout_for(isp):
+            got = isp_layouts.get(isp)
+            if got is None:
+                u_list = [u for u in compiled.unknown_names if isp_of[u] == isp]
+                offs, o = {}, 0
+                for u in u_list:
+                    offs[u] = o
+                    o += unknown_channels[u]
+                got = (u_list, offs, o)
+                isp_layouts[isp] = got
+            return got
+
+        blocks = {}
+
+        def _block_for(isp):
+            B = blocks.get(isp)
+            if B is None:
+                ctot = _layout_for(isp)[2]
+                B = torch.zeros(isp.shape(compiled.dim_sizes) + (ctot, ctot), dtype=dt,
+                                device=X_dev)
+            return B
+
+        for (isp, delta, kind, W, oo, oi, co, ci) in bp_w_packed:
+            if any(d != 0 for d in delta):
+                continue
+            B = _block_for(isp)
+            if kind == "scalar":
+                for k in range(co):
+                    B[..., oo + k, oi + k] += W[..., 0]
+            elif kind == "diag":
+                for k in range(W.shape[-1]):
+                    B[..., oo + k, oi + k] += W[..., k]
+            else:
+                B[..., oo : oo + co, oi : oi + ci] += W
+            blocks[isp] = B
+
+        # same-vertex graph blocks, from the group layout into the space's,
+        # masked on both sides as the operator M·A(M·p) is
+        for key, ex in grp_exec.items():
+            gu_list, goffs, ctg = ex["layout"]
+            isp = isp_of[gu_list[0]]
+            B = _block_for(isp)
+            woffs = _layout_for(isp)[1]
+            S = bp_S[key].reshape(-1, ctg, ctg)
+            pm = ex["mask"]
+            if pm is not None:
+                S = S * pm[:, :, None] * pm[:, None, :]
+            for uo in gu_list:
+                for ui in gu_list:
+                    co, ci = unknown_channels[uo], unknown_channels[ui]
+                    B[..., woffs[uo] : woffs[uo] + co, woffs[ui] : woffs[ui] + ci] += S[
+                        :, goffs[uo] : goffs[uo] + co, goffs[ui] : goffs[ui] + ci
+                    ]
+            blocks[isp] = B
+
+        inv = {}
+        for isp, B in blocks.items():
+            u_list, offs, ctot = isp_layouts[isp]
+            if extra_diag is not None:
+                for u in u_list:
+                    e = extra_diag.get(u)
+                    if e is None:
+                        continue
+                    for k in range(unknown_channels[u]):
+                        B[..., offs[u] + k, offs[u] + k] += e[..., k]
+            # relative diagonal regularization keeps rank-deficient blocks
+            # (excluded rows, unconstrained channels) invertible; the
+            # symmetrization keeps M⁻¹ SPD for CG
+            dvals = torch.diagonal(B, dim1=-2, dim2=-1)
+            reg = 1e-5 * dvals + FLOAT_EPSILON
+            Breg = B + reg[..., :, None] * torch.eye(ctot, dtype=dt, device=X_dev)
+            Minv = _gauss_jordan_inv(Breg)
+            inv[isp] = 0.5 * (Minv + Minv.transpose(-1, -2))
+
+        def pre_apply(r):
+            out = {}
+            for isp, Minv in inv.items():
+                u_list, offs, _ctot = isp_layouts[isp]
+                rp = torch.cat([r[u] for u in u_list], dim=-1) if len(u_list) > 1 else r[u_list[0]]
+                z = torch.sum(Minv * rp[..., None, :], dim=-1)
+                for u in u_list:
+                    sl = z[..., offs[u] : offs[u] + unknown_channels[u]]
+                    m = row_masks.get(u)
+                    out[u] = sl if m is None else sl * m
+            for u in unknown_channels:  # unknowns with no Δ=0 block
+                if u not in out:
+                    out[u] = r[u]
+            return out
+
+        pre_apply.inv = inv
+        pre_apply.layouts = dict(isp_layouts)
+        pre_apply.row_masks = row_masks
+        return pre_apply
+
+    apply_fn.block_pre = make_block_pre
+
+    cdt = coefficient_dtype(coeff_dtype)
+    if cdt is not None:
+        # narrow only the loop-resident coefficient storage; apply_fn reads
+        # these containers, and its products with float32 p are float32
+        w_packed[:] = [
+            (isp, delta, kind, W.to(cdt), oo, oi, co, ci)
+            for (isp, delta, kind, W, oo, oi, co, ci) in w_packed
+        ]
+        for ex in grp_exec.values():
+            ex["S"] = ex["S"].to(cdt)
+            ex["dia"] = [(off, W.to(cdt)) for off, W in ex["dia"]]
+            if ex["C"] is not None:
+                ex["C"] = ex["C"].to(cdt)
+
     if grp_exec:
-        cg_meta = plan_fused_graph_cg(compiled, plan, fields, grp_exec)
+        cg_meta = plan_fused_graph_cg(compiled, plan, fields, grp_exec, coeff_dtype=cdt)
     else:
-        cg_meta = plan_fused_grid_cg(compiled, plan, fields, w_layouts)
+        cg_meta = plan_fused_grid_cg(compiled, plan, fields, w_layouts, coeff_dtype=cdt)
     jtf_fn.r_terms = r_terms_primal
     return apply_fn, diag, jtf_fn, cg_meta

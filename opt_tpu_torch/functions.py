@@ -185,14 +185,15 @@ class FunctionSet:
         return _mask_rows_select(x, self.row_masks)
 
     # -- assembled gather-form JᵀJ (see assembly.py) ---------------------------
-    def assemble_stencil(self, X, plan, const_cache=None):
-        """(apply_fn, diag, jtf_fn, cg_meta) of the assembled operator at X."""
+    def assemble_stencil(self, X, plan, const_cache=None, coeff_dtype=None):
+        """(apply_fn, diag, jtf_fn, cg_meta) of the assembled operator at X,
+        its loop-resident coefficients stored in ``coeff_dtype``."""
         from .assembly import assemble
 
         _, row_masks = self.masks(X)
         return assemble(
             self.c, plan, X, self.consts, self.graphs, self.params, row_masks,
-            const_cache=const_cache,
+            const_cache=const_cache, coeff_dtype=coeff_dtype,
         )
 
     def assemble_const(self, X0, plan):

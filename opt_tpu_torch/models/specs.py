@@ -2,9 +2,10 @@
 
 Spec functions are backend code (they call the DSL's tensor helpers), so
 the port carries its own copies of the JAX package's ``models/specs.py``.
-This has the two specs of the poisson path, image_warping, and the graph
-specs arap_mesh_deformation and curve_fitting; the other seven come with
-ROADMAP.md queue 1 item 9.
+This has the two specs of the poisson path, image_warping, the 3-D grid
+spec volumetric_mesh_deformation, and the graph specs
+arap_mesh_deformation and curve_fitting; the other six come with ROADMAP.md
+queue 1 item 9.
 """
 
 from __future__ import annotations
@@ -90,6 +91,35 @@ def image_warping(S):
 
 
 # ---------------------------------------------------------------------------
+# examples/volumetric_mesh_deformation/volumetric_mesh_deformation.t — 3D ARAP
+# ---------------------------------------------------------------------------
+def volumetric_mesh_deformation(S):
+    W, H, D = S.Dim("W"), S.Dim("H"), S.Dim("D")
+    Offset = S.Unknown("Offset", 3, (W, H, D))
+    Angle = S.Unknown("Angle", 3, (W, H, D))
+    UrShape = S.Array("UrShape", 3, (W, H, D))
+    Constraints = S.Array("Constraints", 3, (W, H, D))
+    w_fitSqrt = S.Param("w_fitSqrt")
+    w_regSqrt = S.Param("w_regSqrt")
+    S.UsePreconditioner(True)
+
+    e_fit = Offset(0, 0, 0) - Constraints(0, 0, 0)
+    valid = ot.greatereq(Constraints(0, 0, 0)[..., 0:1], -999999.9)
+    S.Energy(ot.Select(valid, w_fitSqrt * e_fit, 0.0))
+
+    for i, j, k in ot.Stencil(
+        [(1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1), (0, 0, -1)]
+    ):
+        arap = (Offset(0, 0, 0) - Offset(i, j, k)) - ot.Rotate3D(
+            Angle(0, 0, 0), UrShape(0, 0, 0) - UrShape(i, j, k)
+        )
+        arapF = ot.Select(
+            ot.InBounds(0, 0, 0), ot.Select(ot.InBounds(i, j, k), arap, 0.0), 0.0
+        )
+        S.Energy(w_regSqrt * arapF)
+
+
+# ---------------------------------------------------------------------------
 # examples/arap_mesh_deformation/arap_mesh_deformation.t — graph ARAP
 # ---------------------------------------------------------------------------
 def arap_mesh_deformation(S):
@@ -118,5 +148,6 @@ ALL_SPECS = {
     "curve_fitting": curve_fitting,
     "poisson_image_editing": poisson_image_editing,
     "image_warping": image_warping,
+    "volumetric_mesh_deformation": volumetric_mesh_deformation,
     "arap_mesh_deformation": arap_mesh_deformation,
 }

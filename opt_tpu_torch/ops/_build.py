@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels at first use.
 
-``nvcc`` compiles ``csrc/*.cu`` into a shared library with a plain C
-interface, bound with ``ctypes``. The library goes to ``build/opt_tpu_torch/``
-at the repository root, named by a hash of the sources, so an edited source
-rebuilds and an unchanged one loads the cached library. Nothing here runs on
+``nvcc`` compiles ``csrc/fused_grid_cg.cu`` (every instance of the fused
+CG kernel) into one shared library with a plain C interface, bound with
+``ctypes``. The library goes to ``build/opt_tpu_torch/`` at the repository
+root, named by a hash of the sources and flags, so an edited source rebuilds
+and an unchanged one loads the cached library. Nothing here runs on
 ``import opt_tpu_torch``.
 """
 
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -71,27 +73,54 @@ def build_library() -> dict:
     return {"path": lib, "built": True, "seconds": seconds, "log": out}
 
 
+_INSTANCE = re.compile(
+    r"fused_grid_cg_kernelILb([01])ELb([01])ELb([01])ELb([01])E(f|13__nv_bfloat16)E"
+)
+
+
+def instance_registers(log: str) -> dict:
+    """{(lm, rem, cs, block, bf16): (registers, spill store bytes, spill
+    load bytes)} from ptxas's -v output."""
+    regs, current, spill = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = _INSTANCE.search(line)
+        if m and "Compiling entry function" in line:
+            lm, rem, cs, block = (g == "1" for g in m.groups()[:4])
+            current, spill = (lm, rem, cs, block, m.group(5) != "f"), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and current is not None:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current is not None:
+            regs[current] = (int(m.group(1)),) + spill
+            current = None
+    return regs
+
+
 def load_library() -> ctypes.CDLL:
-    """The kernels' shared library, built if needed, with every function's
+    """The kernels' shared library, built if needed, with its functions'
     ``argtypes``/``restype`` declared."""
     lib = _LOADED.get("lib")
     if lib is not None:
         return lib
     info = build_library()
     lib = ctypes.CDLL(str(info["path"]))
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.fused_grid_cg_max_blocks.argtypes = [i32, i32, i32, ctypes.POINTER(i32)]  # lm, rem, block, out
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # lm, rem, cs, block, bf16, threads, out
+    lib.fused_grid_cg_max_blocks.argtypes = [i32] * 6 + [ctypes.POINTER(i32)]
     lib.fused_grid_cg_max_blocks.restype = i32
     lib.fused_grid_cg_launch.argtypes = [
-        i32,  # lm
+        i32, i32, i32, i32,  # lm, cs, block, bf16
         vp, vp, vp, vp, vp, vp,  # F, b, pre, ctc, triples, starts
         vp, vp, vp,  # rowptr, col, blk (the remainder; null without)
-        i32, i32, i32,  # C, N0, N1
-        i32, ctypes.c_float, i32,  # lits, tol, guard_div
-        i32, ctypes.c_float,  # reset_period, q_tol
-        vp, vp, vp, vp,  # delta, r, p, Ap
-        vp, vp, vp, vp,  # part_den, part_rz, part_q, iters
-        i32, i32, vp,  # grid, block, stream
+        i32, i32, i32, i32,  # C, N0, N1, N2
+        i32, f32, i32,  # lits, tol, guard_div
+        i32, f32,  # reset_period, q_tol
+        vp, vp, vp, vp, vp, vp,  # delta, r, p, Ap, z, s
+        vp, vp, vp, vp,  # part0, part1, part2, iters
+        i32, i32, vp,  # grid, threads, stream
     ]
     lib.fused_grid_cg_launch.restype = i32
     _LOADED["lib"] = lib

@@ -1,13 +1,16 @@
-"""Whole-loop PCG for 2-D grid and graph operators: the counterpart of
-``opt_tpu/ops/pallas_cg.py``.
+"""Whole-loop PCG for 2-D and 3-D grid and graph operators: the counterpart
+of ``opt_tpu/ops/pallas_cg.py``.
 
-The JAX package runs the whole PCG inner loop of a 2-D grid problem as one
-Pallas TPU kernel (``pallas_cg.py::_kernel`` in its grid GN, mixed-unknown
-and LM forms; ``_hbm_tiled_kernel`` for grids beyond VMEM; its ``flat1d``
-DIA form and its ``rem_pairs`` irregular remainder for graphs). Here the
-same loop runs as one persistent cooperative CUDA kernel
-(``csrc/fused_grid_cg.cu``: GN and LM instances, each with and without the
-remainder phase) for CUDA tensors, and as its plain PyTorch twin
+The JAX package runs the whole PCG inner loop of a grid problem as one
+Pallas TPU kernel (``pallas_cg.py::_kernel`` in its 2-D and 3-D grid GN,
+mixed-unknown and LM forms, its Chronopoulos–Gear ``cs`` form, its
+block-Jacobi ``block_pre`` form and with bfloat16 coefficient fields;
+``_hbm_tiled_kernel`` for grids beyond VMEM; its ``flat1d`` DIA form and
+its ``rem_pairs`` irregular remainder for graphs). Here the same loop runs
+as one persistent cooperative CUDA kernel (``csrc/fused_grid_cg.cu``: one
+template whose instances are GN or LM, standard or Chronopoulos–Gear,
+Jacobi or block-Jacobi, float32 or bfloat16 fields, each with and without
+the remainder phase) for CUDA tensors, and as its plain PyTorch twin
 (:func:`fused_grid_cg_reference`) for CPU tensors or on request.
 
 The operator is expressed as per-channel-pair triples over the packed
@@ -20,11 +23,16 @@ zero-padded shift, the kernel skips it. A graph's vertex axis is the grid
 (0, d) triples. What no offset covers is the remainder, a destination-
 sorted block CSR (rowptr [N+1], col [nnz], blk [nnz, C, C]) added as
 (A·p)[i, v] += Σ_k Σ_j blk[k, i, j] · p[j, col[k]] over row v's entries.
+A coefficient dtype (bfloat16) narrows F and blk after the masks are
+folded; the loop widens them exactly and multiplies in float32.
 
 :func:`_run_cg` holds the loop algebra (the GN and LM bodies of the JAX
 package's ``_run_cg``: guarded α/β; GN exits on rᵀz ≤ tol·rᵀz₀ or pᵀAp ≤ 0;
 LM adds CtC·p to the apply, resets r = b − A·δ every ``reset_period``
-iterations and exits on ζ < q_tol or the rᵀz floor). The twin and the
+iterations and exits on ζ < q_tol or the rᵀz floor; and its
+Chronopoulos–Gear bodies, whose stop test runs before the update and
+leaves that iteration uncounted). The preconditioner is elementwise, or
+the per-point block apply z[i] = Σ_j M⁻¹[i·C+j]·r[j]. The twin and the
 solver's eager loop both run it, and the kernel implements the same steps,
 so exits and counted iterations agree by construction.
 """
@@ -43,17 +51,42 @@ from .shift import in_bounds_mask, shift
 MAX_TRIPLES = 512
 MAX_CHANNELS = 64
 BLOCK_THREADS = 256
+CG_VARIANTS = ("standard", "chronopoulos_gear")
 
 
-def plan_fused_grid_cg(compiled, plan, fields: Dict, w_layouts: Dict) -> Optional[Dict]:
+COEFFICIENT_DTYPES = (torch.bfloat16, torch.float32)  # the fields the kernel reads
+
+
+def coefficient_dtype(coeff_dtype) -> Optional[torch.dtype]:
+    """InitializationParameters.coefficient_dtype as a torch dtype: None
+    (the solve dtype), or bfloat16 or float32, by name or as a torch dtype."""
+    if coeff_dtype is None:
+        return None
+    dt = getattr(torch, coeff_dtype, None) if isinstance(coeff_dtype, str) else coeff_dtype
+    if dt not in COEFFICIENT_DTYPES:
+        raise ValueError(
+            "coefficient_dtype must be None, 'bfloat16' or 'float32' (or that torch "
+            f"dtype), got {coeff_dtype!r}"
+        )
+    return dt
+
+
+def _narrow(F, coeff_dtype):
+    dt = coefficient_dtype(coeff_dtype)
+    return F.contiguous() if dt is None else F.to(dt).contiguous()
+
+
+def plan_fused_grid_cg(compiled, plan, fields: Dict, w_layouts: Dict,
+                       coeff_dtype=None) -> Optional[Dict]:
     """Decide applicability from the assembled operator and build the loop's
-    inputs: exactly one 2-D index space holding every unknown, float32.
-    Returns {u_list, offs, channels, ctot, triples, F [T, *dom]} or None.
-    The in-bounds masks are folded into F."""
+    inputs: exactly one 2-D or 3-D index space holding every unknown,
+    float32. Returns {u_list, offs, channels, ctot, triples, F [T, *dom],
+    rem, isp} or None. The in-bounds masks are folded into F, which is then
+    stored in ``coeff_dtype`` (None: float32)."""
     if not fields or compiled.dtype != torch.float32 or len(w_layouts) != 1:
         return None
     ((isp, (u_list, offs, ctot)),) = w_layouts.items()
-    if isp.ndim != 2 or sorted(compiled.unknown_names) != sorted(u_list):
+    if isp.ndim not in (2, 3) or sorted(compiled.unknown_names) != sorted(u_list):
         return None
     dom = isp.shape(compiled.dim_sizes)
     channels = {u: compiled.unknown_shape(u)[-1] for u in u_list}
@@ -78,8 +111,9 @@ def plan_fused_grid_cg(compiled, plan, fields: Dict, w_layouts: Dict) -> Optiona
         "channels": channels,
         "ctot": ctot,
         "triples": tuple(triples),
-        "F": torch.stack(field_list, dim=0).contiguous(),
+        "F": _narrow(torch.stack(field_list, dim=0), coeff_dtype),
         "rem": None,
+        "isp": isp,
     }
 
 
@@ -126,15 +160,17 @@ def _merge_remainders(parts, n: int):
     }
 
 
-def plan_fused_graph_cg(compiled, plan, fields: Dict, grp_exec: Dict) -> Optional[Dict]:
+def plan_fused_graph_cg(compiled, plan, fields: Dict, grp_exec: Dict,
+                        coeff_dtype=None) -> Optional[Dict]:
     """The loop's inputs for a graph problem whose unknowns all live on one
     1-D vertex space, float32: the same-vertex blocks S and the DIA fields
     of every group as triples on the grid [1, N], the centered fields of
     that space (fit terms) likewise, and the groups' remainders merged into
     the kernel's block CSR. Each group's row mask is folded into its
-    fields and blocks on both sides (M·A·M). Returns the meta or None (the
-    unknowns span several spaces or groups, or more triples or channels
-    than the kernel holds)."""
+    fields and blocks on both sides (M·A·M); then F and the remainder's
+    blocks are stored in ``coeff_dtype`` (None: float32). Returns the meta
+    or None (the unknowns span several spaces or groups, or more triples or
+    channels than the kernel holds)."""
     if compiled.dtype != torch.float32:
         return None
     u_list = list(compiled.unknown_names)
@@ -183,9 +219,10 @@ def plan_fused_graph_cg(compiled, plan, fields: Dict, grp_exec: Dict) -> Optiona
             for c in range(channels[u]):
                 gmap[g_offs[u] + c] = offs[u] + c
         pm = ex["mask"]
+        S = ex["S"].float()  # widened from a narrowed coefficient dtype
         for i in range(ct):
             for j in range(ct):
-                col = ex["S"][:, i * ct + j]
+                col = S[:, i * ct + j]
                 if pm is not None:
                     col = col * pm[:, i] * pm[:, j]
                 _emit(col, 0, gmap[i], gmap[j])
@@ -193,13 +230,13 @@ def plan_fused_graph_cg(compiled, plan, fields: Dict, grp_exec: Dict) -> Optiona
             pm_s = shift(pm, (off,)) if pm is not None else None
             for i in range(ct):
                 for j in range(ct):
-                    col = W[:, i * ct + j] * _bounds(off)
+                    col = W[:, i * ct + j].float() * _bounds(off)
                     if pm is not None:
                         col = col * pm[:, i] * pm_s[:, j]
                     _emit(col, off, gmap[i], gmap[j])
         if ex["C"] is not None:
             csr = ex["tables"]["csr"]
-            blk = ex["C"].reshape(-1, ct, ct)[csr["src"]]  # [nnz, ct, ct]
+            blk = ex["C"].float().reshape(-1, ct, ct)[csr["src"]]  # [nnz, ct, ct]
             if pm is not None:
                 blk = blk * pm[csr["row"]][:, :, None] * pm[csr["col"].long()][:, None, :]
             inv = [0] * ct
@@ -212,14 +249,18 @@ def plan_fused_graph_cg(compiled, plan, fields: Dict, grp_exec: Dict) -> Optiona
     if not field_list or len(triples) > MAX_TRIPLES or ctot > MAX_CHANNELS:
         return None
     rem = _merge_remainders(rem_parts, N) if rem_parts else None
+    if rem is not None:
+        rem["blk"] = _narrow(rem["blk"], coeff_dtype)
+    F = torch.stack(field_list, dim=0).reshape(len(field_list), 1, N)
     return {
         "u_list": tuple(u_list),
         "offs": offs,
         "channels": channels,
         "ctot": ctot,
         "triples": tuple(triples),
-        "F": torch.stack(field_list, dim=0).reshape(len(field_list), 1, N).contiguous(),
+        "F": _narrow(F, coeff_dtype),
         "rem": rem,
+        "isp": isp,
     }
 
 
@@ -246,12 +287,13 @@ def safe_div(num, den, guard_div: bool):
 
 def _run_cg(b, apply, prec, dot, lits: int, tol: float, *, guard_div: bool,
             reset_period: Optional[int] = None, q_tol: Optional[float] = None,
-            trace: Optional[list] = None):
+            cs: bool = False, trace: Optional[list] = None):
     """The shared PCG loop over abstract ``apply``/``prec``/``dot`` (vectors
     are tensors or dicts of tensors). With ``reset_period`` it runs the LM
     body (``apply`` then includes + CtC·p): r = b − A·δ every
     ``reset_period`` iterations, Q1 = ½⟨δ, b + r⟩, ζ = (l+1)(Q1 − Q0)/Q1,
-    exit on ζ < ``q_tol`` or the rᵀz floor, and no pᵀAp ≤ 0 exit.
+    exit on ζ < ``q_tol`` or the rᵀz floor, and no pᵀAp ≤ 0 exit. ``cs``
+    runs the Chronopoulos–Gear bodies instead (:func:`_run_cs`).
     Returns (delta, iterations executed). The host reads one flag per
     iteration to exit, so exits and counts match the on-device loop
     exactly. A ``trace`` list receives (l, rᵀz, floor, ζ or None) after
@@ -263,9 +305,12 @@ def _run_cg(b, apply, prec, dot, lits: int, tol: float, *, guard_div: bool,
     p = prec(r)
     rz = dot(r, p)
     floor = tol * rz
+    lits = int(lits)
+    if cs:
+        return _run_cs(b, apply, prec, dot, lits, floor, rz, guard_div=guard_div,
+                       reset_period=reset_period, q_tol=q_tol, trace=trace)
     delta = _zeros_like(b)
     Q0 = torch.zeros_like(rz)
-    lits = int(lits)
     l = 0
     while l < lits:
         Ap = apply(p)
@@ -297,8 +342,65 @@ def _run_cg(b, apply, prec, dot, lits: int, tol: float, *, guard_div: bool,
     return delta, l
 
 
+def _run_cs(b, apply, prec, dot, lits: int, floor, rz0, *, guard_div: bool,
+            reset_period=None, q_tol=None, trace=None):
+    """Chronopoulos–Gear (the JAX package's gn_cs_body / lm_cs_body and
+    cs_pipeline): u = M⁻¹r, w = A·u, γ = ⟨r, u⟩ and δ = ⟨u, w⟩ (and under LM
+    Q = ½⟨δ, b + r⟩) from the same vectors, so the dots of an iteration are
+    independent. β = γ/γ_prev (0 on the first iteration), the step
+    denominator δ − β·γ/α_prev (δ on the first), p = u + β·p, s = w + β·s.
+    The rᵀz floor (LM: or ζ = l·(Q − Q0)/Q < q_tol) is tested before the
+    update, from the second iteration on, and stops the loop with that
+    iteration uncounted; a denominator ≤ 0 stops it after the update.
+    Under LM, r = b − A·δ after each ``reset_period``-th counted update."""
+    lm = reset_period is not None
+    r = b
+    delta, p, s = _zeros_like(b), _zeros_like(b), _zeros_like(b)
+    gamma = alpha_prev = torch.ones_like(rz0)
+    zero = torch.zeros_like(rz0)
+    Q0 = zero
+    l = 0
+    while l < lits:
+        u = prec(r)
+        w = apply(u)
+        gamma_new = dot(r, u)
+        delta_d = dot(u, w)
+        first = l == 0
+        zeta = None
+        if lm:
+            Q = 0.5 * dot(delta, _lin(1.0, r, b))
+            zeta = (l * (Q - Q0)) / Q
+            stop = (gamma_new <= floor) | (zeta < q_tol)
+        else:
+            stop = gamma_new <= floor
+        beta = zero if first else safe_div(gamma_new, gamma, guard_div)
+        den = delta_d - beta * safe_div(gamma_new, alpha_prev, guard_div)
+        used_den = delta_d if first else den
+        stop_now, bad_den = torch.stack([stop, used_den <= 0]).tolist()
+        stop_now = stop_now and not first
+        if trace is not None:
+            trace.append((l, gamma_new, floor, zeta))
+        if stop_now:
+            break
+        alpha = safe_div(gamma_new, used_den, guard_div)
+        p = _lin(beta, p, u)
+        s = _lin(beta, s, w)
+        delta = _lin(alpha, p, delta)
+        r = _lin(-alpha, s, r)
+        l += 1
+        gamma, alpha_prev = gamma_new, alpha
+        if lm:
+            Q0 = Q
+        if bad_den:
+            break
+        if lm and l % reset_period == 0:
+            r = _lin(-1.0, apply(delta), b)  # t:491-534
+    return delta, l
+
+
 def _stencil_apply(F, triples, p):
-    """(A·p)[i] = Σ_t F[fid_t] · p[j_t] read at offset Δ_t, zero-padded."""
+    """(A·p)[i] = Σ_t F[fid_t] · p[j_t] read at offset Δ_t, zero-padded
+    (F float32: a narrowed field is widened before the call)."""
     acc = [None] * p.shape[0]
     rolled = {}
     for delta, i, j, fid in triples:
@@ -323,10 +425,11 @@ def _remainder_apply(rem, p, acc):
     start = rem["rowptr"][:-1].long()
     count = rem["rowptr"][1:].long() - start
     col = rem["col"].long()
+    blk = rem["blk"].float()
     for k in range(int(count.max()) if count.numel() else 0):
         live = k < count
         e = torch.where(live, start + k, 0)
-        B = rem["blk"][e]  # [N, C, C]
+        B = blk[e]  # [N, C, C]
         pu = flat[:, col[e]]  # [C, N]
         for j in range(C):
             out = torch.where(live, out + B[:, :, j].T * pu[j], out)
@@ -347,15 +450,36 @@ def _dot(x, y):
     return torch.sum(x * y, dtype=torch.float64).to(x.dtype)
 
 
+def _block_prec(pre_blocks):
+    """r -> z with z[i] = Σ_j M⁻¹[i·C+j] · r[j] at every point, summed from
+    0 over j ascending, as the kernel's block apply (packed [C·C, *dom]
+    blocks, [C, *dom] vectors)."""
+    def prec(r):
+        C = r.shape[0]
+        out = []
+        for i in range(C):
+            a = torch.zeros_like(r[0])
+            for j in range(C):
+                a = a + pre_blocks[i * C + j] * r[j]
+            out.append(a)
+        return torch.stack(out)
+
+    return prec
+
+
 def fused_grid_cg_reference(F, triples, b, pre, lits, tol, *, guard_div=True,
                             ctc=None, reset_period=None, q_tolerance=None, trace=None,
-                            rem=None):
+                            rem=None, cs=False, pre_blocks=None):
     """Plain PyTorch twin of the CUDA kernel on packed [C, *dom] tensors:
     the same algebra through :func:`_run_cg`, with the kernel's dot
     products (:func:`_dot`); ``rem`` (a meta's ``"rem"``) adds the graph
     remainder to the apply; passing ``ctc`` (with ``reset_period`` and
-    ``q_tolerance``) runs the LM loop; ``trace`` as in :func:`_run_cg`.
-    Returns (delta, iterations)."""
+    ``q_tolerance``) runs the LM loop; ``cs`` the Chronopoulos–Gear loop;
+    ``pre_blocks`` (packed [C·C, *dom], :func:`pack_pre_blocks`) the block
+    preconditioner in place of the elementwise ``pre``. A bfloat16 F or
+    remainder is widened to float32 (exact) and multiplied in float32.
+    ``trace`` as in :func:`_run_cg`. Returns (delta, iterations)."""
+    F = F.float()
     if ctc is None:
         apply = lambda p: _operator_apply(F, triples, rem, p)  # noqa: E731
         reset_period = q_tolerance = None
@@ -363,9 +487,10 @@ def fused_grid_cg_reference(F, triples, b, pre, lits, tol, *, guard_div=True,
         apply = lambda p: _operator_apply(F, triples, rem, p) + ctc * p  # noqa: E731
         if reset_period is None or q_tolerance is None:
             raise ValueError("the LM loop needs reset_period and q_tolerance")
+    prec = _block_prec(pre_blocks) if pre_blocks is not None else (lambda r: pre * r)
     return _run_cg(
-        b, apply, lambda r: pre * r, _dot, lits, tol,
-        guard_div=guard_div, reset_period=reset_period, q_tol=q_tolerance, trace=trace,
+        b, apply, prec, _dot, lits, tol, guard_div=guard_div,
+        reset_period=reset_period, q_tol=q_tolerance, cs=cs, trace=trace,
     )
 
 
@@ -376,32 +501,47 @@ def fused_grid_cg_reference(F, triples, b, pre, lits, tol, *, guard_div=True,
 
 @functools.lru_cache(maxsize=32)
 def _device_triples(triples, ctot: int, device):
-    """Triples sorted stably by output channel as int32 [n, 5] rows
-    (d0, d1, i, j, fid) plus the per-channel row starts [ctot + 1], on the
-    device. Cached by value: a plan's triples are the same every GN step,
-    and each upload would stall the host on a device copy."""
-    rows = [(d[0], d[1], i, j, fid) for (d, i, j, fid) in sorted(triples, key=lambda t: t[1])]
+    """Triples sorted stably by output channel as int32 [n, 6] rows
+    (d0, d1, d2, i, j, fid) on the domain [N0, N1, N2] (a 2-D offset
+    (a, b) is (0, a, b)), plus the per-channel row starts [ctot + 1], on
+    the device. Cached by value: a plan's triples are the same every GN
+    step, and each upload would stall the host on a device copy."""
+    rows = [(0,) * (3 - len(d)) + tuple(d) + (i, j, fid)
+            for (d, i, j, fid) in sorted(triples, key=lambda t: t[1])]
     starts = [0] * (ctot + 1)
-    for (_d0, _d1, i, _j, _f) in rows:
-        starts[i + 1] += 1
+    for row in rows:
+        starts[row[3] + 1] += 1
     for c in range(ctot):
         starts[c + 1] += starts[c]
     return (
-        torch.tensor(rows, dtype=torch.int32).to(device),
+        torch.tensor(rows, dtype=torch.int32).reshape(-1, 6).to(device),
         torch.tensor(starts, dtype=torch.int32).to(device),
     )
 
 
-def instance_name(lm: bool, rem: bool) -> str:
-    """The kernel instance's name: "gn" or "lm", "_rem" with the remainder."""
-    return ("lm" if lm else "gn") + ("_rem" if rem else "")
+def instance_name(lm: bool, rem: bool, cs: bool = False, block: bool = False,
+                  bf16: bool = False) -> str:
+    """The kernel instance's name: "gn" or "lm", then "_cs" for
+    Chronopoulos–Gear, "_bj" for block-Jacobi, "_bf16" for bfloat16 fields
+    and "_rem" with the remainder phase."""
+    return (("lm" if lm else "gn") + ("_cs" if cs else "") + ("_bj" if block else "")
+            + ("_bf16" if bf16 else "") + ("_rem" if rem else ""))
 
 
-def _grid_size(lib, device, lm: bool, rem: bool) -> int:
-    """Co-resident block count of one kernel instance on ``device``."""
+INSTANCES = tuple(
+    (lm, rem, cs, block, bf16)
+    for lm in (False, True) for cs in (False, True) for block in (False, True)
+    for bf16 in (False, True) for rem in (False, True)
+)
+
+
+def _grid_size(lib, device, flags) -> int:
+    """Co-resident block count of one kernel instance on ``device``
+    (flags: lm, rem, cs, block, bf16)."""
     out = ctypes.c_int(0)
     with torch.cuda.device(device):
-        err = lib.fused_grid_cg_max_blocks(int(lm), int(rem), BLOCK_THREADS, ctypes.byref(out))
+        err = lib.fused_grid_cg_max_blocks(*(int(f) for f in flags), BLOCK_THREADS,
+                                           ctypes.byref(out))
     if err != 0:
         raise RuntimeError(f"fused_grid_cg occupancy query failed: CUDA error {err}")
     return int(out.value)
@@ -419,14 +559,16 @@ def _check_operand(name, t, shape, dtype, device):
 
 
 def fused_grid_cg_kernel(meta, b, pre, lits, tol, *, guard_div=True, ctc=None,
-                         reset_period=None, q_tolerance=None):
-    """Launch the CUDA kernel on packed [C, N0, N1] float32 CUDA tensors:
-    the GN instance, or the LM instance when ``ctc`` is given (with
-    ``reset_period`` and ``q_tolerance``), each with the remainder phase
-    when the meta has a remainder (``meta["rem"]``). Returns (delta, iters
-    int32[1] on the device). Does not synchronise. Each launch adds one to
-    ``fused_grid_cg_kernel.launches[instance]``, instance "gn", "lm",
-    "gn_rem" or "lm_rem"."""
+                         reset_period=None, q_tolerance=None, cs=False, pre_blocks=None):
+    """Launch the CUDA kernel on packed [C, *dom] float32 CUDA tensors (dom
+    2-D or 3-D): the GN loop, or the LM loop when ``ctc`` is given (with
+    ``reset_period`` and ``q_tolerance``); Chronopoulos–Gear under ``cs``;
+    the block preconditioner when ``pre_blocks`` ([C·C, *dom]) is given
+    (``pre`` is then not read); bfloat16 fields when the meta's F is
+    bfloat16; the remainder phase when the meta has one (``meta["rem"]``).
+    Returns (delta, iters int32[1] on the device). Does not synchronise.
+    Each launch adds one to ``fused_grid_cg_kernel.launches[instance]``
+    (:func:`instance_name`)."""
     from ._build import load_library
 
     F = meta["F"]
@@ -435,12 +577,24 @@ def fused_grid_cg_kernel(meta, b, pre, lits, tol, *, guard_div=True, ctc=None,
     if device.type != "cuda":
         raise ValueError(f"fused_grid_cg_kernel needs CUDA tensors, got {device}")
     lm = ctc is not None
-    C, N0, N1 = (int(s) for s in b.shape)
-    _check_operand("b", b, (C, N0, N1), torch.float32, device)
-    _check_operand("pre", pre, (C, N0, N1), torch.float32, device)
-    _check_operand("F", F, (F.shape[0], N0, N1), torch.float32, device)
+    block = pre_blocks is not None
+    cs = bool(cs)
+    if F.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"fused_grid_cg_kernel takes float32 or bfloat16 fields, got {F.dtype}")
+    bf16 = F.dtype == torch.bfloat16
+    C = int(b.shape[0])
+    dom = tuple(int(s) for s in b.shape[1:])
+    if len(dom) not in (2, 3):
+        raise ValueError(f"fused_grid_cg_kernel takes a 2-D or 3-D domain, got {dom}")
+    N0, N1, N2 = (1,) * (3 - len(dom)) + dom
+    _check_operand("b", b, (C,) + dom, torch.float32, device)
+    if block:
+        _check_operand("pre_blocks", pre_blocks, (C * C,) + dom, torch.float32, device)
+    else:
+        _check_operand("pre", pre, (C,) + dom, torch.float32, device)
+    _check_operand("F", F, (F.shape[0],) + dom, F.dtype, device)
     if lm:
-        _check_operand("ctc", ctc, (C, N0, N1), torch.float32, device)
+        _check_operand("ctc", ctc, (C,) + dom, torch.float32, device)
         if reset_period is None or q_tolerance is None or int(reset_period) < 1:
             raise ValueError(
                 "fused_grid_cg_kernel: the LM loop needs reset_period >= 1 and "
@@ -449,11 +603,11 @@ def fused_grid_cg_kernel(meta, b, pre, lits, tol, *, guard_div=True, ctc=None,
     nnz = 0
     if rem is not None:
         nnz = int(rem["col"].shape[0])
-        if N0 != 1:
+        if N0 != 1 or N1 != 1:
             raise ValueError("fused_grid_cg_kernel: a remainder needs the graph domain [1, N]")
-        _check_operand("rowptr", rem["rowptr"], (N1 + 1,), torch.int32, device)
+        _check_operand("rowptr", rem["rowptr"], (N2 + 1,), torch.int32, device)
         _check_operand("col", rem["col"], (nnz,), torch.int32, device)
-        _check_operand("blk", rem["blk"], (nnz, C, C), torch.float32, device)
+        _check_operand("blk", rem["blk"], (nnz, C, C), F.dtype, device)
         if nnz * C * C >= 2**31:
             raise ValueError("fused_grid_cg_kernel indexes with int32: remainder too large")
     n_triples = len(meta["triples"])
@@ -464,42 +618,46 @@ def fused_grid_cg_kernel(meta, b, pre, lits, tol, *, guard_div=True, ctc=None,
         )
     if any(not 0 <= fid < F.shape[0] for (_d, _i, _j, fid) in meta["triples"]):
         raise ValueError("fused_grid_cg_kernel: triple field id out of range")
-    total = C * N0 * N1
-    if total >= 2**31 or F.numel() >= 2**31:
+    plane = N0 * N1 * N2
+    total = C * plane
+    if total >= 2**31 or F.numel() >= 2**31 or (block and C * total >= 2**31):
         raise ValueError("fused_grid_cg_kernel indexes with int32: problem too large")
-    lib = load_library()
     with_rem = rem is not None
-    grid = min(_grid_size(lib, device, lm, with_rem), -(-total // BLOCK_THREADS))
+    flags = (lm, with_rem, cs, block, bf16)
+    lib = load_library()
+    grid = min(_grid_size(lib, device, flags), -(-total // BLOCK_THREADS))
     tr, starts = _device_triples(meta["triples"], int(meta["ctot"]), device)
     delta = torch.empty_like(b)
     r = torch.empty_like(b)
     p = torch.empty_like(b)
     Ap = torch.empty_like(b)
+    z = torch.empty_like(b) if (cs or block) else None
+    s = torch.empty_like(b) if cs else None
     part = torch.empty((3 if lm else 2, grid), dtype=torch.float64, device=device)
     iters = torch.empty(1, dtype=torch.int32, device=device)
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    ptr = lambda t: None if t is None else ctypes.c_void_p(t.data_ptr())  # noqa: E731
     with torch.cuda.device(device):
         err = lib.fused_grid_cg_launch(
-            int(lm), ptr(F), ptr(b), ptr(pre), ptr(ctc) if lm else None, ptr(tr), ptr(starts),
+            int(lm), int(cs), int(block), int(bf16),
+            ptr(F), ptr(b), ptr(pre_blocks if block else pre), ptr(ctc), ptr(tr), ptr(starts),
             ptr(rem["rowptr"]) if with_rem else None, ptr(rem["col"]) if with_rem else None,
             ptr(rem["blk"]) if with_rem else None,
-            C, N0, N1, int(lits), ctypes.c_float(float(tol)), int(bool(guard_div)),
+            C, N0, N1, N2, int(lits), ctypes.c_float(float(tol)), int(bool(guard_div)),
             int(reset_period) if lm else 0, ctypes.c_float(float(q_tolerance) if lm else 0.0),
-            ptr(delta), ptr(r), ptr(p), ptr(Ap),
+            ptr(delta), ptr(r), ptr(p), ptr(Ap), ptr(z), ptr(s),
             ptr(part[0]), ptr(part[1]), ptr(part[2]) if lm else None, ptr(iters),
             grid, BLOCK_THREADS,
             ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream),
         )
     if err != 0:
         raise RuntimeError(f"fused_grid_cg kernel launch failed: CUDA error {err}")
-    fused_grid_cg_kernel.launches[instance_name(lm, with_rem)] += 1
+    fused_grid_cg_kernel.launches[instance_name(*flags)] += 1
     return delta, iters
 
 
 def reset_launch_counts():
     """Set the kernel's launch counts, one per instance, to 0."""
-    fused_grid_cg_kernel.launches = {instance_name(lm, rem): 0 for lm in (False, True)
-                                     for rem in (False, True)}
+    fused_grid_cg_kernel.launches = {instance_name(*f): 0 for f in INSTANCES}
 
 
 reset_launch_counts()
@@ -513,28 +671,46 @@ def pack(d, meta):
     return torch.movedim(a, -1, 0).reshape((a.shape[-1],) + tuple(meta["F"].shape[1:])).contiguous()
 
 
+def pack_pre_blocks(pre_blocks, meta):
+    """Per-point inverted blocks [*dom, C, C] over the packed channels ->
+    channel-major [C·C, *kernel dom], plane i·C + j holding M⁻¹[i, j]."""
+    C = int(pre_blocks.shape[-1])
+    flat = pre_blocks.reshape(tuple(pre_blocks.shape[:-2]) + (C * C,))
+    return torch.movedim(flat, -1, 0).reshape((C * C,) + tuple(meta["F"].shape[1:])).contiguous()
+
+
 def fused_grid_cg(meta, r0, pre, l_iterations, rz_tolerance, *, guard_div=True,
-                  interpret=False, ctc=None, reset_period=None, q_tolerance=None):
+                  interpret=False, ctc=None, reset_period=None, q_tolerance=None,
+                  pre_blocks=None, cg_variant="standard"):
     """Run the whole PCG loop; returns (delta dict, iterations executed as a
     0-dim int32 tensor). Packs [*dom, C] dicts channel-major (:func:`pack`).
     Passing ``ctc`` (a dict like ``pre``, with ``reset_period`` and
-    ``q_tolerance``) runs the LM loop.
+    ``q_tolerance``) runs the LM loop; ``pre_blocks`` ([*dom, C, C], the
+    inverted per-point blocks over the packed channels, rows masked)
+    replaces the elementwise ``pre`` with the block-Jacobi apply;
+    ``cg_variant="chronopoulos_gear"`` runs the Chronopoulos–Gear loop.
 
     CPU tensors, or ``interpret=True``, run the plain twin. CUDA tensors
     launch the kernel. Any other device raises."""
+    if cg_variant not in CG_VARIANTS:
+        raise ValueError(f"cg_variant must be one of {CG_VARIANTS}, got {cg_variant!r}")
     b = pack(r0, meta)
-    prem = pack(pre, meta)
+    if pre_blocks is not None:
+        prem, pbm = None, pack_pre_blocks(pre_blocks, meta)
+    else:
+        prem, pbm = pack(pre, meta), None
     ctcm = pack(ctc, meta) if ctc is not None else None
-    lm_kw = dict(ctc=ctcm, reset_period=reset_period, q_tolerance=q_tolerance)
+    kw = dict(ctc=ctcm, reset_period=reset_period, q_tolerance=q_tolerance,
+              cs=cg_variant == "chronopoulos_gear", pre_blocks=pbm)
     if interpret or b.device.type == "cpu":
         delta, l = fused_grid_cg_reference(
             meta["F"], meta["triples"], b, prem, l_iterations, rz_tolerance,
-            guard_div=guard_div, rem=meta.get("rem"), **lm_kw,
+            guard_div=guard_div, rem=meta.get("rem"), **kw,
         )
         iters = torch.full((), l, dtype=torch.int32, device=b.device)
     elif b.device.type == "cuda":
         delta, it = fused_grid_cg_kernel(
-            meta, b, prem, l_iterations, rz_tolerance, guard_div=guard_div, **lm_kw
+            meta, b, prem, l_iterations, rz_tolerance, guard_div=guard_div, **kw
         )
         iters = it[0]
     else:

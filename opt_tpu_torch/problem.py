@@ -370,23 +370,17 @@ class Plan:
         fs.masks(unknowns)
         return unknowns, consts, graphs, params, fs
 
-    def gn_system(self, inputs: Dict[str, Any]):
-        """The first GN step's PCG system at ``inputs``: (cg_meta, r0, pre)
-        with r0 = -JᵀF and pre the row-masked preconditioner, as the solver
-        hands them to the fused CG (cg_meta is None where the operator does
-        not qualify)."""
-        unknowns, _c, _g, _p, fs = self._system_at(inputs)
-        _A, r0, pre, cg_meta = self.solver.gn_system(unknowns, fs)
-        return cg_meta, r0, pre
-
-    def lm_system(self, inputs: Dict[str, Any]):
-        """The first LM step's PCG system at ``inputs``: (cg_meta, r0,
-        pre_lm, ctc), with the damping of the initial trust region, as the
-        solver hands them to the fused CG."""
+    def cg_inputs(self, inputs: Dict[str, Any]):
+        """The first step's PCG system at ``inputs`` as the solver hands it
+        to the fused CG: (cg_meta, r0 = -JᵀF, pre, keywords of
+        ``ops.fused_cg.fused_grid_cg``: pre_blocks, cg_variant and, for LM
+        plans, ctc with the initial trust region's damping, reset_period
+        and q_tolerance). pre is the row-masked preconditioner (pre_lm
+        under LM); cg_meta is None where the operator does not qualify."""
         sp = normalize_solver_params(self.solver_params)
         unknowns, consts, graphs, params, fs = self._system_at(inputs)
         state = self.solver.init(unknowns, consts, graphs, params, sp)
-        return self.solver.lm_system(unknowns, fs, state, sp)
+        return self.solver.cg_inputs(unknowns, fs, state, sp)
 
     def free(self) -> None:
         """Release solver state (Opt_PlanFree analogue)."""

@@ -10,16 +10,19 @@ PyTorch counterpart of ``opt_tpu/solver/gauss_newton.py`` (the reference's
   the preconditioner 1/(CtC + radius·CtC_unclamped), the residual reset
   r = b − A·δ every ``residual_reset_period`` iterations, the Q/ζ exit, and
   the trust-region accept/reject with the function-tolerance and
-  min-radius exits.
+  min-radius exits;
+* the solver variants: ``cg_variant="chronopoulos_gear"`` (the
+  single-reduction recurrence of ``_cs_recurrence``),
+  ``preconditioner="block_jacobi"`` (per-point inverses of the assembled
+  Δ=0 blocks; under LM of the damped blocks B + diag(CtC)) and
+  ``coefficient_dtype`` (narrowed storage of the assembled coefficients).
 
 The JAX package runs a whole solve as one XLA program. Here the nonlinear
 loop runs on the host with one device→host read per nonlinear step; the CG
 loop runs either as one CUDA kernel launch (ops/fused_cg.py; the plain twin
 on the CPU) or as the eager loop of ``_run_cg`` on the assembled operator.
-
-Chronopoulos–Gear CG, block-Jacobi and narrowed coefficient storage are
-later slices of the port (ROADMAP.md queue 1 item 8) and raise
-``NotImplementedError``.
+Dynamic topology and the explicit sparse-J path are not ported yet and
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import torch
 
 from ..compile import CompiledProblem
 from ..functions import FunctionSet, tree_dot
-from ..ops.fused_cg import _run_cg, fused_grid_cg
+from ..ops.fused_cg import CG_VARIANTS, _run_cg, coefficient_dtype, fused_grid_cg
 from .params import (
     FLOAT_EPSILON,
     GuardedInvertType,
@@ -40,9 +43,6 @@ from .params import (
     JacobiScalingType,
     resolve_auto_policy,
 )
-
-LATER_SLICE = "not ported yet (ROADMAP.md queue 1 item 8)"
-
 
 def _f32(v) -> float:
     """A solver parameter as the JAX package traces it: rounded to float32."""
@@ -63,14 +63,13 @@ class GaussNewtonSolver:
         self.ip = resolve_auto_policy(
             init_params or InitializationParameters(), 1, bool(compiled.registry.graphs)
         )
-        if self.ip.cg_variant != "standard":
-            raise NotImplementedError(f"cg_variant={self.ip.cg_variant!r} is {LATER_SLICE}")
-        if self.ip.preconditioner != "jacobi":
-            raise NotImplementedError(
-                f"preconditioner={self.ip.preconditioner!r} is {LATER_SLICE}"
+        if self.ip.cg_variant not in CG_VARIANTS:
+            raise ValueError(f"cg_variant must be one of {CG_VARIANTS}, got {self.ip.cg_variant!r}")
+        if self.ip.preconditioner not in ("jacobi", "block_jacobi"):
+            raise ValueError(
+                f"preconditioner must be 'jacobi' or 'block_jacobi', got {self.ip.preconditioner!r}"
             )
-        if self.ip.coefficient_dtype is not None:
-            raise NotImplementedError(f"coefficient_dtype is {LATER_SLICE}")
+        self._coeff_dtype = coefficient_dtype(self.ip.coefficient_dtype)
         if self.ip.dynamic_topology and compiled.registry.graphs:
             raise NotImplementedError(
                 "dynamic_topology is not ported yet (ROADMAP.md queue 1 item 10)"
@@ -226,7 +225,9 @@ class GaussNewtonSolver:
         if self._stencil_plan is not None:
             if asm_cache is None:
                 asm_cache = self._asm_cache(fs, X)
-            A, diag, jtf_fn, cg_meta = fs.assemble_stencil(X, self._stencil_plan, asm_cache)
+            A, diag, jtf_fn, cg_meta = fs.assemble_stencil(
+                X, self._stencil_plan, asm_cache, coeff_dtype=self._coeff_dtype
+            )
             r_terms = jtf_fn.r_terms
             if r_terms is None:  # every probe hoisted: evaluate residuals
                 r_terms = fs.F(X)
@@ -249,23 +250,113 @@ class GaussNewtonSolver:
         pre = fs.mask_rows(self._guarded_invert(pre_raw))
         return A, r0, pre, cg_meta
 
+    def _block_pre(self, A, extra_diag=None):
+        """The block-Jacobi apply of the assembled operator ``A`` (opt-in,
+        and only where the spec uses a preconditioner), or None."""
+        if (self.ip.preconditioner == "block_jacobi" and self.compiled.use_preconditioner
+                and hasattr(A, "block_pre")):
+            return A.block_pre(extra_diag=extra_diag)
+        return None
+
+    def _kernel_pre_blocks(self, cg_meta, pre_apply):
+        """A block-Jacobi apply's inverted blocks packed for the fused loop
+        ([*dom, C, C] over the meta's channels) with the row masks folded
+        into the output rows, as pre_apply masks its output; None where the
+        loop cannot host it (several index spaces, another layout)."""
+        if cg_meta is None or self._pallas_mode is None:
+            return None
+        inv = getattr(pre_apply, "inv", None)
+        layouts = getattr(pre_apply, "layouts", None)
+        isp = cg_meta.get("isp")
+        if not inv or layouts is None or isp is None or set(inv) != {isp}:
+            return None
+        u_list, offs, ctot = layouts[isp]
+        if tuple(u_list) != cg_meta["u_list"] or offs != cg_meta["offs"] or ctot != cg_meta["ctot"]:
+            return None
+        Minv = inv[isp]  # [*dom, C, C]
+        row_masks = getattr(pre_apply, "row_masks", {})
+        parts = []
+        for u in u_list:
+            m = row_masks.get(u)
+            cu = self.compiled.unknown_shape(u)[-1]
+            if m is None:
+                parts.append(torch.ones(Minv.shape[:-2] + (cu,), dtype=Minv.dtype,
+                                        device=Minv.device))
+            else:
+                parts.append(m.expand(m.shape[:-1] + (cu,)))
+        pm = torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
+        return Minv * pm[..., :, None]
+
+    def _system(self, X, fs: FunctionSet, state, sp, asm_cache=None):
+        """The linear solve of one step at X: {meta, A, r0, pre, pre_apply,
+        lm} with ``pre_apply`` the block-Jacobi apply or None and ``lm`` the
+        LM loop's keywords {ctc, reset_period, q_tolerance} or None; under
+        LM also what ``_lm_finish`` reads (``_lm_parts``)."""
+        if not self.uses_lambda:
+            A, r0, pre, meta = self.gn_system(X, fs, asm_cache)
+            return dict(meta=meta, A=A, r0=r0, pre=pre, pre_apply=self._block_pre(A), lm=None)
+        s = self._lm_parts(X, fs, state, sp, asm_cache)
+        # block-Jacobi inverts the damped blocks B + diag(CtC): the same ctc
+        # the operator applies, so M models A + CtC per point
+        return dict(
+            s, A=s["A_base"], pre=s["pre_lm"],
+            pre_apply=self._block_pre(s["A_base"], extra_diag=s["ctc"]),
+            lm=dict(ctc=s["ctc"], reset_period=sp["residual_reset_period"],
+                    q_tolerance=_f32(sp["q_tolerance"])),
+        )
+
+    def _fused_keywords(self, s):
+        """``fused_grid_cg``'s keywords for the system ``s`` (pre_blocks,
+        cg_variant and the LM ones); pre_blocks is None where the loop
+        cannot host the block preconditioner."""
+        pre_apply = s["pre_apply"]
+        pre_blocks = self._kernel_pre_blocks(s["meta"], pre_apply) if pre_apply is not None else None
+        return dict(s["lm"] or {}, pre_blocks=pre_blocks, cg_variant=self.ip.cg_variant)
+
+    def cg_inputs(self, X, fs: FunctionSet, state, sp):
+        """What one step at X hands the fused loop: (cg_meta, r0, pre,
+        keywords of ``fused_grid_cg``: pre_blocks, cg_variant and, under
+        LM, ctc, reset_period and q_tolerance). cg_meta is None where the
+        operator has no kernel form."""
+        s = self._system(X, fs, state, sp)
+        return s["meta"], s["r0"], s["pre"], self._fused_keywords(s)
+
+    def _cg(self, s, sp, device):
+        """One linear solve of the system ``s`` (``_system``): the fused loop
+        where the operator has a kernel form (with the block preconditioner
+        when there is one), else the eager ``_run_cg`` on the operator.
+        Returns (delta, iterations as a 0-dim int32 tensor)."""
+        kw = self._fused_keywords(s)
+        if (s["meta"] is not None and self._pallas_mode is not None
+                and (s["pre_apply"] is None or kw["pre_blocks"] is not None)):
+            return fused_grid_cg(
+                s["meta"], s["r0"], s["pre"], sp["lIterations"], sp["cg_rz_tolerance"],
+                guard_div=self.ip.guard_division_by_zero,
+                interpret=self._pallas_mode == "interpret", **kw,
+            )
+        self._note_no_kernel()
+        pre, lm = s["pre"], s["lm"]
+        M = s["pre_apply"] or (lambda r: {k: pre[k] * r[k] for k in r})
+        A, lm_kw = s["A"], {}
+        if lm is not None:
+            A_base, ctc = A, lm["ctc"]
+
+            def A(v):  # JᵀJp + CtC·p (o.t:2076-2082)
+                base = A_base(v)
+                return {k: base[k] + ctc[k] * v[k] for k in v}
+
+            lm_kw = dict(reset_period=lm["reset_period"], q_tol=lm["q_tolerance"])
+        delta, l = _run_cg(
+            s["r0"], A, M, tree_dot, sp["lIterations"], sp["cg_rz_tolerance"],
+            guard_div=self.ip.guard_division_by_zero,
+            cs=self.ip.cg_variant == "chronopoulos_gear", **lm_kw,
+        )
+        return delta, torch.full((), l, dtype=torch.int32, device=device)
+
     def _gn_step(self, state, fs: FunctionSet, sp, asm_cache=None):
         X = state["X"]
-        A, r0, pre, cg_meta = self.gn_system(X, fs, asm_cache)
-        if cg_meta is not None and self._pallas_mode is not None:
-            delta, l_done = fused_grid_cg(
-                cg_meta, r0, pre, sp["lIterations"], sp["cg_rz_tolerance"],
-                guard_div=self.ip.guard_division_by_zero,
-                interpret=self._pallas_mode == "interpret",
-            )
-        else:
-            self._note_no_kernel()
-            delta, l = _run_cg(
-                r0, A, lambda r: {k: pre[k] * r[k] for k in r}, tree_dot,
-                sp["lIterations"], sp["cg_rz_tolerance"],
-                guard_div=self.ip.guard_division_by_zero,
-            )
-            l_done = torch.full((), l, dtype=torch.int32, device=state["n_iter"].device)
+        delta, l_done = self._cg(self._system(X, fs, state, sp, asm_cache), sp,
+                                 state["n_iter"].device)
         X_new = {k: X[k] + delta[k] for k in X}
         return {
             **state,
@@ -321,41 +412,10 @@ class GaussNewtonSolver:
             "A_base": A_base, "r_terms": r_terms, "SSq": SSq,
         }
 
-    def lm_system(self, X, fs: FunctionSet, state, sp):
-        """The linear system of one LM step at X from ``state``: (cg_meta,
-        r0 = -JᵀF, pre_lm, ctc), as the solver hands them to the fused CG
-        (cg_meta is None where the operator does not qualify); ``sp``: the
-        normalized solver parameters."""
-        parts = self._lm_parts(X, fs, state, sp)
-        return parts["meta"], parts["r0"], parts["pre_lm"], parts["ctc"]
-
     def _lm_step(self, state, fs: FunctionSet, sp, asm_cache=None):
         X = state["X"]
-        s = self._lm_parts(X, fs, state, sp, asm_cache)
-        r0, pre_lm, ctc = s["r0"], s["pre_lm"], s["ctc"]
-        q_tol = _f32(sp["q_tolerance"])
-        if s["meta"] is not None and self._pallas_mode is not None:
-            delta, l_done = fused_grid_cg(
-                s["meta"], r0, pre_lm, sp["lIterations"], sp["cg_rz_tolerance"],
-                guard_div=self.ip.guard_division_by_zero,
-                interpret=self._pallas_mode == "interpret",
-                ctc=ctc, reset_period=sp["residual_reset_period"], q_tolerance=q_tol,
-            )
-        else:
-            self._note_no_kernel()
-            A_base = s["A_base"]
-
-            def A(v):  # JᵀJp + CtC·p (o.t:2076-2082)
-                base = A_base(v)
-                return {k: base[k] + ctc[k] * v[k] for k in v}
-
-            delta, l = _run_cg(
-                r0, A, lambda r: {k: pre_lm[k] * r[k] for k in r}, tree_dot,
-                sp["lIterations"], sp["cg_rz_tolerance"],
-                guard_div=self.ip.guard_division_by_zero,
-                reset_period=sp["residual_reset_period"], q_tol=q_tol,
-            )
-            l_done = torch.full((), l, dtype=torch.int32, device=state["n_iter"].device)
+        s = self._system(X, fs, state, sp, asm_cache)
+        delta, l_done = self._cg(s, sp, state["n_iter"].device)
         return self._lm_finish(
             state, fs, sp, X, delta, l_done, s["r_terms"], fs.jvp_fn(X), s["SSq"]
         )

@@ -55,19 +55,22 @@ class InitializationParameters:
     # Per-kernel timing report (ROADMAP.md queue 1 item 13).
     collect_per_kernel_timing: bool = False
     # CG inner-loop variant: "standard" (the reference's PCG recurrence) or
-    # "chronopoulos_gear" (ROADMAP.md queue 1 item 8); "auto" resolves per
-    # device count (resolve_auto_policy).
+    # "chronopoulos_gear" (one reduction per iteration: rᵀu and uᵀAu from the
+    # same vectors); "auto" resolves per device count (resolve_auto_policy).
     cg_variant: str = "auto"
-    # "jacobi" (the reference's scalar Jacobi) or "block_jacobi" (ROADMAP.md
-    # queue 1 item 8); "auto" resolves per device count.
+    # "jacobi" (the reference's scalar Jacobi) or "block_jacobi" (per-point
+    # inverses of the assembled Δ=0 channel blocks); "auto" resolves per
+    # device count.
     preconditioner: str = "auto"
     # Bind-time edge renumbering for graph problems on a mesh.
     edge_reorder: Any = "auto"
     # Incidence-aligned graph assembly (experimental in the reference
     # package; not to be ported).
     aligned_graph_assembly: bool = False
-    # Narrower storage for the assembled coefficient fields, e.g.
-    # "bfloat16" (ROADMAP.md queue 1 item 8). None = the solve dtype.
+    # Narrower storage for the assembled coefficient fields the CG loop
+    # reads, e.g. "bfloat16"; products stay in the solve dtype. None = the
+    # solve dtype. Plain GN on stiff graph energies can take non-descent
+    # steps with it; LM's trust region rejects those.
     coefficient_dtype: Any = None
 
 

@@ -61,13 +61,27 @@ def state_to_numpy(state: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
+def _is_bf16(a) -> bool:
+    return np.asarray(a).dtype.name == "bfloat16"
+
+
+def _coeffs(a, device, bf16: bool):
+    """Coefficients as float32 numpy (exact from bfloat16) -> a tensor in
+    the source's dtype, float32 or bfloat16."""
+    t = _tensor(np.asarray(a, np.float32), device, torch.float32)
+    return (t.to(torch.bfloat16) if bf16 else t).contiguous()
+
+
 def meta_from_numpy(meta: Dict[str, Any], device) -> Dict[str, Any]:
     """A fused CG descriptor of the JAX package (F, triples, offs, channels,
     u_list, ctot; for graphs also its [R, L] vertex fold and its one-hot
-    remainder tiles) -> this port's descriptor. A graph's folded fields
-    unfold onto the grid [1, N], its flat offsets d become (0, d), and its
-    remainder tiles become the block CSR, rows in vertex order and each
-    row's entries in ascending endpoint order."""
+    remainder tiles) -> this port's descriptor, with F (and the remainder
+    blocks) in the descriptor's dtype, float32 or bfloat16, over its 2-D or
+    3-D grid. A graph's folded fields unfold onto the grid [1, N], its flat
+    offsets d become (0, d), and its remainder tiles become the block CSR,
+    rows in vertex order and each row's entries in ascending endpoint
+    order."""
+    bf16 = _is_bf16(meta["F"])
     F = np.asarray(meta["F"], np.float32)
     triples = [(tuple(int(o) for o in d), int(i), int(j), int(fid))
                for (d, i, j, fid) in meta["triples"]]
@@ -84,9 +98,16 @@ def meta_from_numpy(meta: Dict[str, Any], device) -> Dict[str, Any]:
         "channels": {k: int(v) for k, v in meta["channels"].items()},
         "ctot": int(meta["ctot"]),
         "triples": tuple(triples),
-        "F": _tensor(F, device, torch.float32).contiguous(),
+        "F": _coeffs(F, device, bf16),
         "rem": rem,
     }
+
+
+def pre_blocks_from_numpy(pre_blocks, device) -> torch.Tensor:
+    """The JAX package's block-Jacobi operand of its fused kernel
+    ([*dom, C, C], rows masked; a graph's over its unfolded vertex axis) ->
+    a float32 tensor for ``fused_grid_cg(..., pre_blocks=...)``."""
+    return _tensor(np.asarray(pre_blocks, np.float32), device, torch.float32).contiguous()
 
 
 def _rem_from_tiles(rem, lanes: int, n: int, device):
@@ -96,6 +117,7 @@ def _rem_from_tiles(rem, lanes: int, n: int, device):
     kernel's CSR {rowptr, col, blk}."""
     table = np.asarray(rem["table"])
     rows = np.asarray(rem["rows"]).astype(np.int64)
+    bf16 = _is_bf16(rem["blocks"])
     blocks = np.asarray(rem["blocks"], np.float32)
     t_idx, lane = np.nonzero(table[:, 0, :] >= 0)
     v = rows[t_idx, 0] * lanes + table[t_idx, 1, lane]
@@ -108,5 +130,5 @@ def _rem_from_tiles(rem, lanes: int, n: int, device):
     return {
         "rowptr": _tensor(rowptr, device, torch.int32),
         "col": _tensor(u, device, torch.int32),
-        "blk": _tensor(blk, device, torch.float32).contiguous(),
+        "blk": _coeffs(blk, device, bf16),
     }

@@ -123,7 +123,9 @@ def test_wrapper_packs_and_runs_twin_on_cpu():
 def test_device_triples_sorted_by_output_channel():
     triples = (((0, 1), 2, 0, 0), ((0, 0), 0, 0, 1), ((1, 0), 2, 1, 2), ((0, 0), 1, 1, 1))
     rows, starts = fused_cg._device_triples(triples, 3, torch.device("cpu"))
-    assert rows.tolist() == [[0, 0, 0, 0, 1], [0, 0, 1, 1, 1], [0, 1, 2, 0, 0], [1, 0, 2, 1, 2]]
+    # rows (d0, d1, d2, i, j, fid) on the domain [1, H, W]
+    assert rows.tolist() == [[0, 0, 0, 0, 0, 1], [0, 0, 0, 1, 1, 1], [0, 0, 1, 2, 0, 0],
+                             [0, 1, 0, 2, 1, 2]]
     assert starts.tolist() == [0, 1, 2, 4]
     assert rows.dtype == starts.dtype == torch.int32
 

@@ -268,7 +268,7 @@ def test_meta_structure(mesh):
     same-vertex triples only, with the remainder's reads as the CSR."""
     N, inputs = _mesh(mesh)
     _jp, tp = _plans(mesh)
-    meta, _r0, _pre = tp.gn_system(dict(inputs))
+    meta, _r0, _pre, _kw = tp.cg_inputs(dict(inputs))
     assert tp.fused_fallback is None and meta is not None
     assert meta["u_list"] == ("Offset", "Angle") and meta["ctot"] == 6
     assert tuple(meta["F"].shape[1:]) == (1, N)
@@ -343,7 +343,7 @@ def test_offsets_beyond_the_kernel_table_join_the_remainder():
     assert sum(k.startswith("__diamask__") for k in jg) == 14
     (tabs,) = tp._normalize_and_place(dict(inputs))[2]["G"]["__groups__"].values()
     assert len(tabs["dia"]) == 13 and tabs["csr"] is not None
-    meta, _r0, _pre = tp.gn_system(dict(inputs))
+    meta, _r0, _pre, _kw = tp.cg_inputs(dict(inputs))
     assert meta is not None and meta["rem"] is not None
     assert len(meta["triples"]) <= fused_cg.MAX_TRIPLES
     assert len({d for (d, _i, _j, _f) in meta["triples"]}) == 14  # 13 offsets and (0, 0)
@@ -417,9 +417,10 @@ def _twin_system(mesh, lm):
     _N, inputs = _mesh(mesh)
     _jp, tp = _plans(mesh, kind="LMGPU" if lm else "gaussNewtonGPU")
     if lm:
-        meta, r0, pre, ctc = tp.lm_system(dict(inputs))
+        meta, r0, pre, kw = tp.cg_inputs(dict(inputs))
+        ctc = kw["ctc"]
     else:
-        (meta, r0, pre), ctc = tp.gn_system(dict(inputs)), None
+        (meta, r0, pre, _kw), ctc = tp.cg_inputs(dict(inputs)), None
     u, c, g, p = tp._normalize_and_place(dict(inputs))
     fs = TFunctionSet(tp.compiled, c, g, p)
     fs.masks(u)

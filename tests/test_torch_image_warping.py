@@ -46,7 +46,7 @@ def test_two_unknowns_pack_into_one_index_space():
     couplings between them, and Angle's Jacobian fields are not constant
     (Rotate2D of the angle), so each step re-probes them."""
     tp = _tplan()
-    meta, _r0, _pre = tp.gn_system(_bench_inputs())
+    meta, _r0, _pre, _kw = tp.cg_inputs(_bench_inputs())
     assert tp.fused_fallback is None and meta is not None
     assert meta["u_list"] == ("Offset", "Angle") and meta["ctot"] == 3
     assert meta["offs"] == {"Offset": 0, "Angle": 2}

@@ -138,14 +138,15 @@ def _close(got, want, rtol=RTOL):
 
 @pytest.mark.parametrize("name", SPECS)
 def test_lm_system_matches(name):
-    """lm_system's (meta, r0, pre_lm, ctc) equal what opt_tpu's _lm_step
+    """cg_inputs' (meta, r0, pre_lm, ctc) equal what opt_tpu's _lm_step
     hands its fused kernel: same triples, fields, and the damping clamped
     and select-masked the same way (zero, not NaN, at excluded rows)."""
     jmeta, jr0, jpre, jctc = _jax_lm_system(name)
     tp = ott.Problem(getattr(tspecs, name), kind="LMGPU").plan(
         device="cpu", dims={"W": N, "H": N}, residual_reset_period=RESET
     )
-    meta, r0, pre, ctc = tp.lm_system(inputs_from_numpy(_inputs(name), device="cpu"))
+    meta, r0, pre, kw = tp.cg_inputs(inputs_from_numpy(_inputs(name), device="cpu"))
+    ctc = kw["ctc"]
     assert tp.fused_fallback is None and meta is not None
     assert meta["triples"] == meta_from_numpy(jmeta, device="cpu")["triples"]
     _close(meta["F"].numpy(), np.asarray(jmeta["F"]))
