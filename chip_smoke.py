@@ -5,24 +5,32 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernel (32 instances of one template: GN or LM,
+It builds the CUDA kernel (40 instances of one template: GN or LM,
 standard or Chronopoulos-Gear, Jacobi or block-Jacobi, float32 or bfloat16
-fields, each without and with the graph remainder phase; one library by
-one nvcc process) from opt_tpu_torch/ops/csrc and holds each form
+fields, each without and with the graph remainder phase, and eight whose
+launch holds several independent systems; one library by one nvcc
+process) from opt_tpu_torch/ops/csrc and holds each form
 against its plain PyTorch twin at the main paths' shapes: poisson
 512x512x4 and 2048x2048x4, laplacian 512x512, image_warping's mixed-unknown
 GN system and its first LM system, each at 512x512x3 and 1024x1024x3, the
 first GN and LM systems of arap_mesh_deformation on the 192x192 grid mesh
 (36,864 vertices, the DIA form) and on the armadillo mesh (31,106
 vertices, the remainder), volumetric_mesh_deformation's 3-D systems at
-32^3 and 64^3, and the variants: Chronopoulos-Gear, block-Jacobi and
-bfloat16 fields on poisson, image_warping, volumetric and the two meshes.
+32^3 and 64^3, the variants: Chronopoulos-Gear, block-Jacobi and
+bfloat16 fields on poisson, image_warping, volumetric and the two meshes,
+shape_from_shading's ComputedArray system at 512x512, optical_flow's at
+256x256x2, intrinsic_image_decomposition's at 512x512x4, and poisson
+1024x1024x4 split into four one-channel systems, GN and LM.
 It then solves, through the public API on the card, the poisson bench
 headline (512x512x4, one GN step, up to 2000 CG iterations; also by
 Chronopoulos-Gear and with bfloat16 fields), image_warping at 512x512 by GN
 and by LM (8x400; LM also by Chronopoulos-Gear, block-Jacobi and bfloat16)
 and at 1024x1024 by GN (4x100), the two arap meshes by GN (8x100) and
-volumetric 32^3 by GN (8x40, with Jacobi and block-Jacobi), checks the
+volumetric 32^3 by GN (8x40, with Jacobi and block-Jacobi),
+shape_from_shading 512x512 by GN (8x10), optical_flow by the host-driven
+two-level loop (128x128 then 256x256, GN 2x50 a level),
+intrinsic_image_decomposition 512x512 by GN (6x30) and poisson 1024x1024x4
+by one GN step of up to 2000 CG iterations a channel (the split), checks the
 costs against the JAX package's and each solve's one launch of the named
 kernel instance per nonlinear step, solves the arap grid mesh once more in
 float64 against the JAX package's float64 solve, checks the medium golden
@@ -50,12 +58,16 @@ from opt_tpu_torch.models.specs import (
     arap_mesh_deformation,
     curve_fitting,
     image_warping,
+    intrinsic_image_decomposition,
     laplacian,
+    optical_flow,
     poisson_image_editing,
+    shape_from_shading,
     volumetric_mesh_deformation,
 )
 from opt_tpu_torch.ops import fused_cg
 from opt_tpu_torch.ops._build import build_library, instance_registers, load_library, nvcc_path
+from opt_tpu_torch.pyramid import upsample2x_nearest
 from opt_tpu_torch.utils.reorder import grid_embed_order, permute_vertices, remap_edges
 
 MAIN_N = 512  # the bench headline's grid side
@@ -131,6 +143,38 @@ JAX_CPU_VOLUMETRIC = {
                      "lin_iters": 128},
 }
 VOL_FIRST_STEPS = 4
+# The four paths of the remaining grid specs and of the per-channel split,
+# through the JAX package on the CPU with bench.py's inputs (sfs_inputs,
+# flow_levels, intrinsic_inputs and bench_poisson_inputs below) and the
+# default plan, each computed with
+#   JAX_PLATFORMS=cpu python -c "import numpy as np, opt_tpu as ot;
+#   from opt_tpu.models.specs import SPEC as s; INPUTS;
+#   r=ot.Problem(s).plan(dims={'W':n,'H':n}).solve(i,nIterations=NL,lIterations=LI);
+#   print(r.costs, r.num_linear_iterations)"
+# shape_from_shading 512x512 GN 8x10: like arap and volumetric this solve
+# does not settle in 10 CG iterations a step (the costs rise, then fall),
+# and the two packages part from the third step on (6e-6, 6e-5, 1e-4, ...),
+# so the first SFS_FIRST_STEPS steps are held at FIRST_STEPS_RTOL and the
+# whole solve to the plain version's on the card, cost for cost.
+SFS_N, SFS_NL, SFS_LI, SFS_FIRST_STEPS = 512, 8, 10, 4
+JAX_CPU_SFS = {"costs": [16540.947265625, 17016.50390625, 17384.029296875, 17348.728515625,
+                         17362.873046875, 17243.849609375, 17201.62109375, 17160.55078125],
+               "lin_iters": 80}
+# optical_flow, bench.py::bench_optical_flow's host-driven level loop (a
+# plan a level, GN 2x50 each, X upsampled by upsample2x_nearest(scale=2)
+# between): each level's final cost, 100 CG iterations a level
+FLOW_N, FLOW_NL, FLOW_LI = 256, 2, 50
+JAX_CPU_FLOW_LEVEL_COSTS = [20262.8203125, 69356.03125]
+# intrinsic_image_decomposition 512x512 GN 6x30 (180 CG iterations)
+INTR_N, INTR_NL, INTR_LI = 512, 6, 30
+JAX_CPU_INTRINSIC_512_COST = 622690.125
+# poisson 1024x1024x4, 1 GN step, lIterations=2000: the JAX package's split
+# solve (its Pallas kernel with chan_grid=True in interpret mode, a plan
+# with InitializationParameters(use_pallas_cg="interpret")): the final cost
+# and the CG iterations summed over the four channels; its joint XLA loop
+# (use_pallas_cg="off") ends at 837.70458984375 after 716
+SPLIT_N = 1024
+JAX_CPU_POISSON_1024_SPLIT = (837.7045288085938, 2723)
 GOLDEN_RTOL = 5e-3  # tests/test_golden_costs.py
 GOLDEN_ATOL = 1e-8  # tests/test_golden_costs.py: near-zero goldens
 # (spec, kind, nIterations, lIterations, golden) from tests/test_golden_costs.py
@@ -141,10 +185,39 @@ MEDIUM_GOLDENS = {
     "curve_fitting": (curve_fitting, "LMGPU", 12, 60, 14.498645782470703),
     "volumetric_mesh_deformation": (volumetric_mesh_deformation, "gaussNewtonGPU", 8, 40,
                                     108.64008331298828),
+    "optical_flow": (optical_flow, "gaussNewtonGPU", 4, 40, 7330.97265625),
+    "intrinsic_image_decomposition": (intrinsic_image_decomposition, "gaussNewtonGPU", 6, 30,
+                                      845.5782470703125),
 }
 # arap_mesh_deformation's medium golden is left out: its GN 10x60 solve does
 # not settle and ends where float32 rounding takes it (tests/test_torch_graph.py
 # holds it step by step from the JAX package's states)
+# shape_from_shading's medium golden (LM 8x30 at 32x32, 47.196999) is where
+# the JAX package's float32 solve on the CPU ends; the solve does not settle
+# either. LM's accept-or-reject decisions of the later steps turn on float32
+# rounding: this port ends at 46.298 through the plain fused loop on the CPU,
+# at 50.475 through its eager loop, and both packages end at 49.5797 in
+# float64 (equal to 1.4e-9 at every step). So the float32 solve on the card is
+# held to the JAX package's first SFS_MEDIUM_FIRST_STEPS steps at
+# FIRST_STEPS_RTOL and cost for cost to the plain version on the card, and
+# the float64 solve on the card to the JAX package's float64 costs at
+# F64_RTOL, every step; the final cost is printed beside the golden.
+# Computed with (medium_inputs()["shape_from_shading"] below as INPUTS)
+#   JAX_PLATFORMS=cpu python -c "import opt_tpu as ot; ot.enable_double_precision();
+#   from opt_tpu.models.specs import shape_from_shading as s; INPUTS
+#   for dp in (False, True):
+#     r=ot.Problem(s,kind='LMGPU').plan(dims={'W':32,'H':32},double_precision=dp).solve(
+#       i,nIterations=8,lIterations=30); print(r.costs)"
+SFS_MEDIUM = (shape_from_shading, "LMGPU", 8, 30, 47.196999)
+SFS_MEDIUM_FIRST_STEPS = 2
+JAX_CPU_SFS_MEDIUM = {
+    "costs": [80.11676025390625, 60.0125732421875, 56.445960998535156, 50.88523483276367,
+              50.61924362182617, 50.085716247558594, 49.311614990234375, 47.196998596191406],
+    "lin_iters": 240}
+JAX_CPU_SFS_MEDIUM_F64_COSTS = [
+    80.11705242317355, 59.99977844238443, 56.44665971059827, 50.89268638366067,
+    50.552291661581975, 49.57972773770189, 49.57972773770189, 49.57972773770189,
+]
 # kernel vs twin after a fixed iteration count: both sum each dot's float32
 # products in float64, but in another order, so the float32 iterates may
 # part in the last bits
@@ -152,7 +225,7 @@ DELTA_RTOL = 1e-4
 CG_TOL = 1e-12  # SOLVER_PARAMETER_DEFAULTS["cg_rz_tolerance"]
 Q_TOL = 1e-4  # SOLVER_PARAMETER_DEFAULTS["q_tolerance"]
 RESET_PERIOD = 10  # SOLVER_PARAMETER_DEFAULTS["residual_reset_period"]
-TIMED_ITERS = 200
+TIMED_ITERS = 100  # iterations of a timed loop
 KERNEL_SOURCE = "opt_tpu_torch/ops/csrc/fused_grid_cg.cu"
 K1 = "opt_tpu/ops/pallas_cg.py:328"
 K3 = "opt_tpu/ops/pallas_cg.py:335"  # _kernel's flat1d=True graph form
@@ -162,6 +235,8 @@ K1C = "opt_tpu/ops/pallas_cg.py:238"  # _kernel's cs=True loop (_run_cg's CS bod
 K1D = "opt_tpu/ops/pallas_cg.py:367"  # _kernel's block_pre=True apply
 K1E = "opt_tpu/ops/pallas_cg.py:561"  # _kernel over a 3-D grid (plan_fused_grid_cg)
 K1F = "opt_tpu/ops/pallas_cg.py:586"  # _kernel with coeff_dtype fields
+K1G = "opt_tpu/ops/pallas_cg.py:328"  # _kernel over a ComputedArray operator's fields
+K2 = "opt_tpu/ops/pallas_cg.py:339"  # _kernel's chan_grid=True form
 # the card's published peaks (H100 SXM at 700 W). The bound of a CG call
 # is its iteration count times the larger of an iteration's bytes (each
 # input read once per iteration) over the memory rate and an iteration's
@@ -230,11 +305,7 @@ F64_STEPS, F64_RTOL = 4, 1e-6
 # knobs. K5 is one apply of a 256x256 tile, no loop: p read, the output
 # written, no vector work.
 ROWS_TO_PORT = [
-    ("K1 (g) ComputedArray, shape_from_shading 512x512",
-     dict(fields=17, plane=512 * 512, C=1, triples=17)),
     ("K1 (h) batch axis, 4 x laplacian 16x16", dict(fields=5, plane=256, C=1, triples=5, batch=4)),
-    ("K2 per-channel solves, poisson 1024x1024x4, one channel",
-     dict(fields=5, plane=1024 * 1024, C=1, triples=5)),
     ("K5 per-device tile apply, poisson 512x512x4 on 2x2 devices",
      dict(fields=5, plane=256 * 256, C=4, triples=20, vector=0, dots=0)),
 ]
@@ -307,17 +378,80 @@ def medium_inputs():
         "Constraints": -np.ones((n, n, 2), f32), "Mask": np.zeros((n, n), f32),
         "w_fitSqrt": 3.16, "w_regSqrt": 1.0,
     }
-    for shape in [(n, n)] * 4 + [(n, n, 3)] * 2 + [(n, n)]:  # optical_flow, intrinsic
-        rng.rand(*shape)
+    flow = {
+        "X": np.zeros((n, n, 2), f32), "I": rng.rand(n, n).astype(f32),
+        "I_hat": rng.rand(n, n).astype(f32), "I_hat_dx": rng.rand(n, n).astype(f32) * 0.1,
+        "I_hat_dy": rng.rand(n, n).astype(f32) * 0.1, "w_fit": 10.0, "w_reg": 1.0,
+    }
+    intr = {
+        "r": rng.rand(n, n, 3).astype(f32), "i": rng.rand(n, n, 3).astype(f32),
+        "s": rng.rand(n, n).astype(f32), "w_fitSqrt": 3.0, "w_regSqrtAlbedo": 1.0,
+        "w_regSqrtShading": 1.0, "pNorm": 0.8,
+    }
     vol = {
         "Offset": rng.rand(6, 6, 6, 3).astype(f32), "Angle": np.zeros((6, 6, 6, 3), f32),
         "UrShape": rng.rand(6, 6, 6, 3).astype(f32),
         "Constraints": -np.ones((6, 6, 6, 3), f32), "w_fitSqrt": 3.0, "w_regSqrt": 1.0,
     }
+    sfs = {
+        "X": (rng.rand(n, n) + 1).astype(f32), "D_i": (rng.rand(n, n) + 1).astype(f32),
+        "Im": rng.rand(n, n).astype(f32), "edgeMaskR": np.ones((n, n), f32),
+        "edgeMaskC": np.ones((n, n), f32), "w_p": 1.0, "w_s": 1.0, "w_g": 1.0, "f_x": 10.0,
+        "f_y": 10.0, "u_x": n / 2, "u_y": n / 2, **{f"L_{i}": 0.1 for i in range(1, 10)},
+    }
     grid = {"W": n, "H": n}
     return {"laplacian": (grid, lap), "poisson_image_editing": (grid, poi),
             "image_warping": (grid, iw), "curve_fitting": ({"N": N, "U": 1}, cf),
-            "volumetric_mesh_deformation": ({"W": 6, "H": 6, "D": 6}, vol)}
+            "volumetric_mesh_deformation": ({"W": 6, "H": 6, "D": 6}, vol),
+            "optical_flow": (grid, flow), "intrinsic_image_decomposition": (grid, intr),
+            "shape_from_shading": (grid, sfs)}
+
+
+def sfs_inputs(n):
+    """bench.py::bench_shape_from_shading's inputs: depths 2 to 2.1, a random
+    image, 9 spherical-harmonics coefficients."""
+    rng = np.random.RandomState(0)
+    f32 = np.float32
+    depth = 2.0 + rng.rand(n, n).astype(f32) * 0.1
+    return {"X": depth.copy(), "D_i": depth, "Im": rng.rand(n, n).astype(f32),
+            "edgeMaskR": np.ones((n, n), f32), "edgeMaskC": np.ones((n, n), f32),
+            "w_p": 1.0, "w_s": 10.0, "w_g": 1.0, "f_x": 500.0, "f_y": 500.0,
+            "u_x": n / 2.0, "u_y": n / 2.0,
+            **{f"L_{i}": (0.5 if i == 1 else 0.1) for i in range(1, 10)}}
+
+
+def flow_levels(n, levels=2):
+    """bench.py::bench_optical_flow's inputs, coarse to fine: a smoothed
+    random image and itself translated by (2, 1), central differences of
+    the second, each level every other pixel of the next."""
+    rng = np.random.RandomState(0)
+    f32 = np.float32
+    base = rng.rand(n + 8, n + 8).astype(f32)
+    base = (base + np.roll(base, 1, 0) + np.roll(base, 1, 1) + np.roll(base, -1, 0)
+            + np.roll(base, -1, 1)) / 5.0
+    pyr = [(base[4 : 4 + n, 4 : 4 + n].copy(), base[6 : 6 + n, 5 : 5 + n].copy())]
+    for _ in range(levels - 1):
+        a, b = pyr[-1]
+        pyr.append((a[::2, ::2].copy(), b[::2, ::2].copy()))
+    out = []
+    for a, b in pyr[::-1]:
+        dx, dy = np.zeros_like(b), np.zeros_like(b)
+        dx[1:-1, :] = 0.5 * (b[2:, :] - b[:-2, :])
+        dy[:, 1:-1] = 0.5 * (b[:, 2:] - b[:, :-2])
+        out.append({"X": np.zeros(a.shape + (2,), f32), "I": a, "I_hat": b, "I_hat_dx": dx,
+                    "I_hat_dy": dy, "w_fit": 10.0, "w_reg": 0.1})
+    return out
+
+
+def intrinsic_inputs(n):
+    """bench.py::bench_intrinsic's inputs: a random image's log, log-space
+    albedo and shading guesses, the 0.8-norm."""
+    rng = np.random.RandomState(0)
+    f32 = np.float32
+    im = rng.rand(n, n, 3).astype(f32) * 0.8 + 0.1
+    return {"r": np.log(im * 0.5 + 0.25).astype(f32), "i": np.log(im).astype(f32),
+            "s": np.log(im.mean(-1) + 0.25).astype(f32), "w_fitSqrt": 3.0,
+            "w_regSqrtAlbedo": 1.0, "w_regSqrtShading": 1.0, "pNorm": 0.8}
 
 
 def volumetric_inputs(n):
@@ -409,19 +543,27 @@ def system(spec, dims, inputs, kind="gaussNewtonGPU", **ip):
     return meta, fused_cg.pack(r0, meta), fused_cg.pack(pre, meta), lm, variant
 
 
+def n_systems(meta):
+    """The independent systems a launch on this meta holds: its channels
+    under the per-channel split, else 1."""
+    return int(meta["ctot"]) if meta.get("chan_grid") else 1
+
+
 def form_of(meta, lm=None, cs=False, pre_blocks=None):
     """The kernel instance a call with these operands launches."""
     return fused_cg.instance_name(bool(lm), meta["rem"] is not None, bool(cs),
-                                  pre_blocks is not None, meta["F"].dtype == torch.bfloat16)
+                                  pre_blocks is not None, meta["F"].dtype == torch.bfloat16,
+                                  n_systems(meta) > 1)
 
 
 def meta_shape(meta):
     """cg_work's shape of a fused CG meta: fields, plane (the points of its
-    domain), channels, triples, the remainder's entries and the bytes of a
-    coefficient."""
+    domain), channels (of one system under the split, whose iterations are
+    counted per system), triples, the remainder's entries and the bytes of
+    a coefficient."""
     F, rem = meta["F"], meta.get("rem")
     return dict(fields=int(F.shape[0]), plane=int(np.prod(F.shape[1:])),
-                C=int(meta["ctot"]), triples=len(meta["triples"]),
+                C=int(meta["ctot"]) // n_systems(meta), triples=len(meta["triples"]),
                 nnz=0 if rem is None else int(rem["col"].shape[0]),
                 f_bytes=int(F.element_size()))
 
@@ -466,14 +608,20 @@ def kernel_vs_twin(label, meta, b, pre, lits, tol, lm=None, q_tol=Q_TOL, **varia
     """Kernel and twin on the same system (``variant``: cs, pre_blocks).
     tol = 0 (and q_tol = -inf under LM) runs `lits` iterations with no exit
     and holds δ to the twin's; otherwise the real exits, which must give
-    equal iteration counts."""
+    equal iteration counts. A split meta runs its systems in the one
+    launch: `lits` and the exits are each system's, the counts are held
+    system by system and reported summed."""
     lm_kw = dict(lm, q_tolerance=q_tol) if lm else {}
+    n_sys = n_systems(meta)
     dk, ik = fused_cg.fused_grid_cg_kernel(meta, b, pre, lits, tol, **lm_kw, **variant)
-    trace = []
+    trace, counts = [], []
     dr, ir = fused_cg.fused_grid_cg_reference(meta["F"], meta["triples"], b, pre, lits, tol,
-                                              trace=trace, rem=meta["rem"], **lm_kw, **variant)
+                                              trace=None if n_sys > 1 else trace,
+                                              rem=meta["rem"], n_sys=n_sys, counts=counts,
+                                              **lm_kw, **variant)
     torch.cuda.synchronize()
-    ik = int(ik.item())
+    per_system = ik.tolist()
+    ik = sum(per_system)
     err = float((dk - dr).abs().max())
     scale = float(dr.abs().max())
     finite = bool(torch.isfinite(dk).all())
@@ -483,6 +631,11 @@ def kernel_vs_twin(label, meta, b, pre, lits, tol, lm=None, q_tol=Q_TOL, **varia
             "bitwise_equal": bool(torch.equal(dk, dr))}
     if lm:
         line["q_tol"] = q_tol
+    if n_sys > 1:
+        line.update(kernel_iters_per_system=per_system, twin_iters_per_system=counts)
+        if per_system != counts:
+            log(json.dumps(line))
+            raise RuntimeError(f"{label}: per-system counts {per_system}, the twin's {counts}")
     if ik != ir:  # the twin's exit quantities where the two counts stop
         line["twin_at_exits"] = [
             {"iter": l, "rz": float(rz), "rz_floor": float(fl),
@@ -498,8 +651,8 @@ def kernel_vs_twin(label, meta, b, pre, lits, tol, lm=None, q_tol=Q_TOL, **varia
     if no_exit:
         # Chronopoulos-Gear keeps one exit even so (a step denominator <= 0);
         # every case here runs `lits` iterations without reaching it
-        if ik != lits:
-            raise RuntimeError(f"{label}: iteration counts {ik}/{ir}, expected {lits}")
+        if ik != lits * n_sys:
+            raise RuntimeError(f"{label}: iteration counts {ik}/{ir}, expected {lits * n_sys}")
         if err > DELTA_RTOL * scale:
             raise RuntimeError(f"{label}: max|dδ| {err} > {DELTA_RTOL}·max|δ| {scale}")
     return err
@@ -510,9 +663,9 @@ def bitwise_repeat(label, meta, b, pre, lits, lm=None, **variant):
     d1, i1 = fused_cg.fused_grid_cg_kernel(meta, b, pre, lits, CG_TOL, **lm_kw, **variant)
     d2, i2 = fused_cg.fused_grid_cg_kernel(meta, b, pre, lits, CG_TOL, **lm_kw, **variant)
     torch.cuda.synchronize()
-    same = bool(torch.equal(d1, d2)) and int(i1.item()) == int(i2.item())
+    same = bool(torch.equal(d1, d2)) and i1.tolist() == i2.tolist()
     log(json.dumps({"check": "bitwise_repeat", "case": label, "form": form_of(meta, lm, **variant),
-                    "iters": int(i1.item()), "equal": same}))
+                    "iters": int(i1.sum()), "equal": same}))
     if not same:
         raise RuntimeError(f"{label}: two launches on the same input differ")
 
@@ -598,41 +751,93 @@ def graph_main_path(label, dims, inputs, form):
     return res, launches
 
 
-def volumetric_main_path(pre, inputs):
-    """volumetric 32^3 GN 8x40 through the kernel with `pre` "jacobi" or
-    "block_jacobi", held as the JAX_CPU_VOLUMETRIC comment says: the first
-    VOL_FIRST_STEPS steps' costs to the JAX package's, the whole solve cost
-    for cost to the same solve through the plain version on the card.
-    Returns (result, launches)."""
-    ref = JAX_CPU_VOLUMETRIC[pre]
-    ip = {"preconditioner": pre}
-    form = "gn_bj" if pre == "block_jacobi" else "gn"
-    n = VOL_N
-    res, launches, _plan = main_path(
-        f"volumetric{n} GN {VOL_NL}x{VOL_LI} {pre}", volumetric_mesh_deformation,
-        "gaussNewtonGPU", _vol(n), inputs, VOL_NL, VOL_LI, None,
-        {"Offset": (n, n, n, 3), "Angle": (n, n, n, 3)}, form=form, ip=ip)
+def first_steps_main_path(label, spec, dims, inputs, nl, li, ref, n_first, shapes,
+                          form=None, ip=None, kind="gaussNewtonGPU"):
+    """A solve that does not settle, through the kernel: the first
+    `n_first` steps' costs are held to the JAX package's (``ref``: its costs
+    and lin_iters) at FIRST_STEPS_RTOL, and the whole solve cost for cost to
+    the same solve through the plain version on the card. Returns (result,
+    launches)."""
+    ip = ip or {}
+    res, launches, _plan = main_path(label, spec, kind, dims, inputs, nl, li, None,
+                                     shapes, form=form, ip=ip)
     fused_cg.reset_launch_counts()
-    twin_plan = ot.Problem(volumetric_mesh_deformation).plan(
-        dims=_vol(n), init_params=ot.InitializationParameters(use_pallas_cg="interpret", **ip))
-    twin = twin_plan.solve(dict(inputs), nIterations=VOL_NL, lIterations=VOL_LI)
+    twin_plan = ot.Problem(spec, kind=kind).plan(
+        dims=dims, init_params=ot.InitializationParameters(use_pallas_cg="interpret", **ip))
+    twin = twin_plan.solve(dict(inputs), nIterations=nl, lIterations=li)
     torch.cuda.synchronize()
     twin_launches = sum(fused_cg.fused_grid_cg_kernel.launches.values())
-    first = res.costs[:VOL_FIRST_STEPS]
+    first = res.costs[:n_first]
     first_rel = [abs(a - b) / abs(b) for a, b in zip(first, ref["costs"])]
     log(json.dumps({
-        "check": "volumetric_costs", "case": f"volumetric{n} {pre}", "first_costs": first,
-        "jax_cpu_first_costs": ref["costs"][:VOL_FIRST_STEPS], "first_rel_diff": first_rel,
+        "check": "first_steps_costs", "case": label, "first_costs": first,
+        "jax_cpu_first_costs": ref["costs"][:n_first], "first_rel_diff": first_rel,
         "costs": res.costs, "twin_costs": twin.costs, "costs_equal_to_twin": res.costs == twin.costs,
         "final_cost": res.final_cost, "jax_cpu_final_cost": ref["costs"][-1],
         "final_rel_diff_to_jax_cpu": abs(res.final_cost - ref["costs"][-1]) / ref["costs"][-1],
         "lin_iters": res.num_linear_iterations, "twin_lin_iters": twin.num_linear_iterations,
         "jax_cpu_lin_iters": ref["lin_iters"], "twin_kernel_launches": twin_launches}))
-    if len(first) < VOL_FIRST_STEPS or any(r > FIRST_STEPS_RTOL for r in first_rel):
-        raise RuntimeError(f"volumetric {pre}: first steps' costs {first} vs JAX {ref['costs']}")
+    if len(first) < n_first or any(r > FIRST_STEPS_RTOL for r in first_rel):
+        raise RuntimeError(f"{label}: first steps' costs {first} vs JAX {ref['costs']}")
     if (res.costs != twin.costs or twin_launches != 0 or twin_plan.fused_fallback is not None):
-        raise RuntimeError(f"volumetric {pre}: kernel solve {res.costs} vs plain version "
+        raise RuntimeError(f"{label}: kernel solve {res.costs} vs plain version "
                            f"{twin.costs} ({twin_launches} kernel launches in the latter)")
+    return res, launches
+
+
+def volumetric_main_path(pre, inputs):
+    """volumetric 32^3 GN 8x40 through the kernel with `pre` "jacobi" or
+    "block_jacobi", held as the JAX_CPU_VOLUMETRIC comment says."""
+    n = VOL_N
+    return first_steps_main_path(
+        f"volumetric{n} GN {VOL_NL}x{VOL_LI} {pre}", volumetric_mesh_deformation, _vol(n),
+        inputs, VOL_NL, VOL_LI, JAX_CPU_VOLUMETRIC[pre], VOL_FIRST_STEPS,
+        {"Offset": (n, n, n, 3), "Angle": (n, n, n, 3)},
+        form="gn_bj" if pre == "block_jacobi" else "gn", ip={"preconditioner": pre})
+
+
+def flow_main_path(levels):
+    """optical_flow by the host-driven level loop (a plan a level, the flow
+    upsampled and doubled between levels), each level's solve a main path
+    of its own held to the JAX package's final cost there. Returns the
+    launches summed over the levels."""
+    X = levels[0]["X"]
+    total = {}
+    for li, (inp, want) in enumerate(zip(levels, JAX_CPU_FLOW_LEVEL_COSTS)):
+        w, h = inp["I"].shape
+        res, launches, _p = main_path(
+            f"optical_flow level {li} {w}x{h} GN {FLOW_NL}x{FLOW_LI}", optical_flow,
+            "gaussNewtonGPU", {"W": w, "H": h}, {**inp, "X": X}, FLOW_NL, FLOW_LI, want,
+            {"X": (w, h, 2)})
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        if li + 1 < len(levels):
+            X = upsample2x_nearest(res.unknowns["X"], levels[li + 1]["I"].shape, scale=2.0)
+    return total
+
+
+def split_main_path(inputs, per_system):
+    """poisson 1024x1024x4, 1 GN step of up to 2000 CG iterations a channel,
+    through the split: one launch of the multi-system instance, the cost
+    and the summed count held to the JAX package's split solve, and the
+    count equal to the sum of `per_system`, the kernel's counts on the same
+    system."""
+    n = SPLIT_N
+    want, want_iters = JAX_CPU_POISSON_1024_SPLIT
+    res, launches, plan = main_path(f"poisson{n}x4 GN 1x2000 split", poisson_image_editing,
+                                    "gaussNewtonGPU", _grid(n), inputs, 1, 2000, want,
+                                    {"X": (n, n, 4)}, form="gn_multi")
+    meta = plan.cg_inputs(dict(inputs))[0]
+    log(json.dumps({"check": "split", "case": f"poisson{n}x4", "chan_grid": meta["chan_grid"],
+                    "iters_per_channel": per_system, "lin_iters": res.num_linear_iterations,
+                    "jax_cpu_split_lin_iters": want_iters}))
+    if not meta["chan_grid"] or res.num_linear_iterations != sum(per_system):
+        raise RuntimeError(f"poisson{n}x4: not split, or {res.num_linear_iterations} CG "
+                           f"iterations against the kernel's {per_system}")
+    rel, add = CS_ITER_SLACK
+    if abs(res.num_linear_iterations - want_iters) > rel * want_iters + add:
+        raise RuntimeError(f"poisson{n}x4 split: {res.num_linear_iterations} CG iterations "
+                           f"against the JAX CPU's {want_iters}")
     return res, launches
 
 
@@ -671,26 +876,25 @@ def variant_main_path(name, variant, inputs):
     return res, launches
 
 
-def float64_witness(dims, inputs):
-    """The arap36k GN 8x100 solve in float64 through the public API with no
-    device argument (the eager loop: the kernel is float32, so no launch),
-    held to the JAX package's float64 solve as the JAX_CPU_ARAP36K_F64_COSTS
-    comment says."""
+def float64_witness(label, spec, kind, dims, inputs, nl, li, ref, n_steps):
+    """A solve in float64 through the public API with no device argument
+    (the eager loop: the kernel is float32, so no launch), its first
+    `n_steps` costs held to ``ref``, the JAX package's float64 solve on the
+    CPU, at F64_RTOL."""
     fused_cg.reset_launch_counts()
-    plan = ot.Problem(arap_mesh_deformation).plan(dims=dims, double_precision=True)
-    res = plan.solve(dict(inputs), nIterations=GRAPH_NL, lIterations=GRAPH_LI)
+    plan = ot.Problem(spec, kind=kind).plan(dims=dims, double_precision=True)
+    res = plan.solve(dict(inputs), nIterations=nl, lIterations=li)
     torch.cuda.synchronize()
     launches = sum(fused_cg.fused_grid_cg_kernel.launches.values())
-    ref = JAX_CPU_ARAP36K_F64_COSTS
     rel = [abs(a - b) / abs(b) for a, b in zip(res.costs, ref)]
-    log(json.dumps({"check": "float64_witness", "case": f"arap36k GN {GRAPH_NL}x{GRAPH_LI}",
+    log(json.dumps({"check": "float64_witness", "case": label,
                     "costs": res.costs, "jax_cpu_f64_costs": ref, "rel_diff": rel,
                     "lin_iters": res.num_linear_iterations, "kernel_launches": launches,
                     "fused_fallback": plan.fused_fallback, "solve_s": res.wall_time_s}))
-    if (len(res.costs) != len(ref) or any(r > F64_RTOL for r in rel[:F64_STEPS])
+    if (len(res.costs) != len(ref) or any(r > F64_RTOL for r in rel[:n_steps])
             or launches or plan.fused_fallback is not None):
-        raise RuntimeError(f"arap36k float64: costs {res.costs[:F64_STEPS]} vs JAX "
-                           f"{ref[:F64_STEPS]}, {launches} kernel launches")
+        raise RuntimeError(f"{label} float64: costs {res.costs[:n_steps]} vs JAX "
+                           f"{ref[:n_steps]}, {launches} kernel launches")
 
 
 def time_cuda(fn, reps):
@@ -714,17 +918,19 @@ def time_pair(label, meta, b, pre, gpu, lm=None, reps=(5, 2), **variant):
     # with tol = 0 a loop that reaches an exact zero residual still stops
     # (rz <= 0, a denominator <= 0): times and the bound are of the
     # iterations executed
+    n_sys = n_systems(meta)  # under the split: iterations summed over the systems
     _d, it = fused_cg.fused_grid_cg_kernel(meta, b, pre, TIMED_ITERS, 0.0, **lm_kw, **variant)
-    iters = int(it.item())
+    iters = int(it.sum())
     _d, twin_iters = fused_cg.fused_grid_cg_reference(
-        meta["F"], meta["triples"], b, pre, TIMED_ITERS, 0.0, rem=meta["rem"], **lm_kw, **variant)
+        meta["F"], meta["triples"], b, pre, TIMED_ITERS, 0.0, rem=meta["rem"], n_sys=n_sys,
+        **lm_kw, **variant)
     if twin_iters != iters:
         raise RuntimeError(f"{label}: timed kernel ran {iters} iterations, the twin {twin_iters}")
     ms_k = time_cuda(lambda: fused_cg.fused_grid_cg_kernel(
         meta, b, pre, TIMED_ITERS, 0.0, **lm_kw, **variant), reps[0])
     ms_t = time_cuda(lambda: fused_cg.fused_grid_cg_reference(
-        meta["F"], meta["triples"], b, pre, TIMED_ITERS, 0.0, rem=meta["rem"], **lm_kw,
-        **variant), reps[1])
+        meta["F"], meta["triples"], b, pre, TIMED_ITERS, 0.0, rem=meta["rem"], n_sys=n_sys,
+        **lm_kw, **variant), reps[1])
     shape = meta_shape(meta)
     pre_planes = shape["C"] ** 2 if variant.get("pre_blocks") is not None else None
     bound_ms, bound_by = cg_bound(shape, iters, lm=bool(lm), cs=bool(variant.get("cs")),
@@ -814,6 +1020,7 @@ def profile_solve(label, spec, dims, inputs, nl, li, gpu, ip=None):
 
 def main() -> int:
     t_start = time.perf_counter()
+    phases = {}  # seconds of each phase of this run
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA card",
               file=sys.stderr)
@@ -840,6 +1047,7 @@ def main() -> int:
     if len(regs) != len(fused_cg.INSTANCES):
         raise RuntimeError(f"ptxas reported {len(regs)} instances, expected {len(fused_cg.INSTANCES)}")
 
+    phases["start_and_build"] = time.perf_counter() - t_start - sum(phases.values())
     # 2. each kernel form against its twin at the main paths' shapes
     n = MAIN_N
     inputs = bench_poisson_inputs(n)
@@ -951,6 +1159,42 @@ def main() -> int:
     variant_checks("armadillo31k bfloat16", arm_bf, 50, GRAPH_LI)
     del arm_bf
 
+    # the remaining grid specs: K1 (g), the ComputedArray system of
+    # shape_from_shading; K1 (a) at optical_flow's and intrinsic's shapes;
+    # and K2, poisson 1024x1024x4 split into four one-channel systems
+    sfs_in = sfs_inputs(SFS_N)
+    ssys = system(shape_from_shading, _grid(SFS_N), sfs_in)
+    log(f"shape_from_shading {SFS_N}x{SFS_N}: {ssys[0]['F'].shape[0]} fields, "
+        f"{len(ssys[0]['triples'])} triples")
+    err_sfs = variant_checks(f"shape_from_shading{SFS_N}", ssys, 50, 400)
+    flow_in = flow_levels(FLOW_N)
+    fsys = system(optical_flow, _grid(FLOW_N), flow_in[-1])
+    log(f"optical_flow {FLOW_N}x{FLOW_N}x2: {fsys[0]['F'].shape[0]} fields, "
+        f"{len(fsys[0]['triples'])} triples")
+    variant_checks(f"optical_flow{FLOW_N}x2", fsys, 50, 400)
+    intr_in = intrinsic_inputs(INTR_N)
+    isys = system(intrinsic_image_decomposition, _grid(INTR_N), intr_in)
+    log(f"intrinsic {INTR_N}x{INTR_N}x4: {isys[0]['F'].shape[0]} fields, "
+        f"{len(isys[0]['triples'])} triples")
+    variant_checks(f"intrinsic{INTR_N}x4", isys, 50, 400)
+    split_in = bench_poisson_inputs(SPLIT_N)
+    psplit = system(poisson_image_editing, _grid(SPLIT_N), split_in)
+    if not psplit[0]["chan_grid"] or meta["chan_grid"] or mmeta["chan_grid"]:
+        raise RuntimeError(f"the planner must split poisson {SPLIT_N}x{SPLIT_N}x4 and neither "
+                           f"poisson {n}x{n}x4 nor image_warping")
+    log(f"poisson {SPLIT_N}x{SPLIT_N}x4 split: {n_systems(psplit[0])} systems, "
+        f"{psplit[0]['F'].shape[0]} fields, {len(psplit[0]['triples'])} triples a system")
+    err_split = variant_checks(f"poisson{SPLIT_N}x4 split", psplit, 50, 2000)
+    # the first GN step's counts a channel, with the real exits (held to the
+    # twin's just above): the main path's count must be their sum
+    split_counts = fused_cg.fused_grid_cg_kernel(*psplit[:3], 2000, CG_TOL)[1].tolist()
+    psplit_lm = system(poisson_image_editing, _grid(SPLIT_N), split_in, "LMGPU")
+    if not psplit_lm[0]["chan_grid"]:
+        raise RuntimeError(f"the planner must split poisson {SPLIT_N}x{SPLIT_N}x4 under LM")
+    variant_checks(f"poisson{SPLIT_N}x4 split", psplit_lm, 50, 2000)
+    del psplit_lm
+
+    phases["kernel_checks"] = time.perf_counter() - t_start - sum(phases.values())
     # 3. the main paths through the public API, each with the launch counts
     # set to 0 just before it and read just after
     _res, l_poisson, _p = main_path(f"poisson{n}x4 GN 1x2000", poisson_image_editing,
@@ -964,7 +1208,8 @@ def main() -> int:
             want, {"Offset": (nn, nn, 2), "Angle": (nn, nn, 1)})
     _r, l_arap = graph_main_path("arap36k", arap_dims, arap_in, "gn")
     _r, l_arm = graph_main_path("armadillo31k", arm_dims, arm_in, "gn_rem")
-    float64_witness(arap_dims, arap_in)
+    float64_witness(f"arap36k GN {GRAPH_NL}x{GRAPH_LI}", arap_mesh_deformation, "gaussNewtonGPU",
+                    arap_dims, arap_in, GRAPH_NL, GRAPH_LI, JAX_CPU_ARAP36K_F64_COSTS, F64_STEPS)
     vol_res, l_vol = volumetric_main_path("jacobi", vol_in)
     vol_bj_res, l_vol_bj = volumetric_main_path("block_jacobi", vol_in)
     log(json.dumps({"check": "block_jacobi_iters", "case": f"volumetric{VOL_N} GN {VOL_NL}x{VOL_LI}",
@@ -975,6 +1220,18 @@ def main() -> int:
     for v in ("chronopoulos_gear", "block_jacobi", "bfloat16"):
         variant_main_path("image_warping", v, iw_in)
 
+    sfs_shape = {"X": (SFS_N, SFS_N, 1)}
+    _r, l_sfs = first_steps_main_path(
+        f"shape_from_shading{SFS_N} GN {SFS_NL}x{SFS_LI}", shape_from_shading, _grid(SFS_N),
+        sfs_in, SFS_NL, SFS_LI, JAX_CPU_SFS, SFS_FIRST_STEPS, sfs_shape)
+    l_flow = flow_main_path(flow_in)
+    _r, l_intr, _p = main_path(
+        f"intrinsic{INTR_N} GN {INTR_NL}x{INTR_LI}", intrinsic_image_decomposition,
+        "gaussNewtonGPU", _grid(INTR_N), intr_in, INTR_NL, INTR_LI, JAX_CPU_INTRINSIC_512_COST,
+        {"r": (INTR_N, INTR_N, 3), "s": (INTR_N, INTR_N, 1)})
+    _r, l_split = split_main_path(split_in, split_counts)
+
+    phases["main_paths"] = time.perf_counter() - t_start - sum(phases.values())
     cases = medium_inputs()
     for name, (spec, kind, nl, li, golden) in MEDIUM_GOLDENS.items():
         fused_cg.reset_launch_counts()
@@ -990,6 +1247,17 @@ def main() -> int:
         form = "lm" if kind == "LMGPU" else "gn"
         if not ok or used[form] != r.num_iterations or p.fused_fallback is not None:
             raise RuntimeError(f"golden {name} failed")
+    # shape_from_shading's medium case, held as the SFS_MEDIUM comment says
+    spec, kind, nl, li, golden = SFS_MEDIUM
+    mdims, minputs = cases["shape_from_shading"]
+    label = f"shape_from_shading medium {kind} {nl}x{li}"
+    r, _l = first_steps_main_path(label, spec, mdims, minputs, nl, li, JAX_CPU_SFS_MEDIUM,
+                                  SFS_MEDIUM_FIRST_STEPS, {"X": (mdims["W"], mdims["H"], 1)},
+                                  kind=kind)
+    log(json.dumps({"check": "golden_beside", "case": label, "final_cost": r.final_cost,
+                    "golden": golden, "rel_diff": abs(r.final_cost - golden) / golden}))
+    float64_witness(label, spec, kind, mdims, minputs, nl, li, JAX_CPU_SFS_MEDIUM_F64_COSTS, nl)
+    phases["goldens"] = time.perf_counter() - t_start - sum(phases.values())
     phase_s = time.perf_counter() - t_start
 
     # 4. times on the card
@@ -1013,8 +1281,28 @@ def main() -> int:
     big = system(volumetric_mesh_deformation, _vol(VOL_BIG_N), vol_big_in)
     time_pair(f"volumetric{VOL_BIG_N}", *big[:3], gpu, big[3], reps=(3, 1), **big[4])
     del big
+    t_sfs = time_pair(f"shape_from_shading{SFS_N}", *ssys[:3], gpu, ssys[3], **ssys[4])
+    time_pair(f"optical_flow{FLOW_N}x2", *fsys[:3], gpu, fsys[3], **fsys[4])
+    time_pair(f"intrinsic{INTR_N}x4", *isys[:3], gpu, isys[3], reps=(3, 1), **isys[4])
+    t_split = time_pair(f"poisson{SPLIT_N}x4 split", *psplit[:3], gpu, psplit[3], reps=(3, 1),
+                        **psplit[4])
+    # the same four channels as one joint system, for the split's worth
+    joint = dict(psplit[0], chan_grid=False, triples=tuple(
+        (d, c, c, fid) for (d, _i, _j, fid) in psplit[0]["triples"] for c in range(4)))
+    time_pair(f"poisson{SPLIT_N}x4 joint", joint, *psplit[1:3], gpu, reps=(3, 1))
+    del psplit, joint
     time_main_path(f"poisson{n}x4 GN 1x2000", poisson_image_editing, "gaussNewtonGPU",
                    _grid(n), inputs, 1, 2000, gpu)
+    time_main_path(f"shape_from_shading{SFS_N} GN {SFS_NL}x{SFS_LI}", shape_from_shading,
+                   "gaussNewtonGPU", _grid(SFS_N), sfs_in, SFS_NL, SFS_LI, gpu)
+    for li, inp in enumerate(flow_in):  # each level from a zero flow
+        w, h = inp["I"].shape
+        time_main_path(f"optical_flow level {li} {w}x{h} GN {FLOW_NL}x{FLOW_LI}", optical_flow,
+                       "gaussNewtonGPU", {"W": w, "H": h}, inp, FLOW_NL, FLOW_LI, gpu)
+    time_main_path(f"intrinsic{INTR_N} GN {INTR_NL}x{INTR_LI}", intrinsic_image_decomposition,
+                   "gaussNewtonGPU", _grid(INTR_N), intr_in, INTR_NL, INTR_LI, gpu)
+    time_main_path(f"poisson{SPLIT_N}x4 GN 1x2000 split", poisson_image_editing,
+                   "gaussNewtonGPU", _grid(SPLIT_N), split_in, 1, 2000, gpu)
     for (nn, kind, nl, li) in JAX_CPU_IMAGE_WARPING_COSTS:
         label = f"image_warping{nn} {'LM' if kind == 'LMGPU' else 'GN'} {nl}x{li}"
         time_main_path(label, image_warping, kind, _grid(nn),
@@ -1022,18 +1310,17 @@ def main() -> int:
     for label, dims, gin in (("arap36k", arap_dims, arap_in), ("armadillo31k", arm_dims, arm_in)):
         time_main_path(f"{label} GN {GRAPH_NL}x{GRAPH_LI}", arap_mesh_deformation,
                        "gaussNewtonGPU", dims, gin, GRAPH_NL, GRAPH_LI, gpu)
-    for pre in ("jacobi", "block_jacobi"):
-        time_main_path(f"volumetric{VOL_N} GN {VOL_NL}x{VOL_LI} {pre}", volumetric_mesh_deformation,
-                       "gaussNewtonGPU", _vol(VOL_N), vol_in, VOL_NL, VOL_LI, gpu,
-                       {"preconditioner": pre})
-    time_main_path(f"image_warping{IW_N} LM 8x400 block_jacobi", image_warping, "LMGPU",
-                   _grid(IW_N), iw_in, 8, 400, gpu, {"preconditioner": "block_jacobi"})
+    time_main_path(f"volumetric{VOL_N} GN {VOL_NL}x{VOL_LI} jacobi", volumetric_mesh_deformation,
+                   "gaussNewtonGPU", _vol(VOL_N), vol_in, VOL_NL, VOL_LI, gpu)
     profile_solve("arap36k", arap_mesh_deformation, arap_dims, arap_in, GRAPH_NL, GRAPH_LI, gpu)
-    # block-Jacobi against Jacobi on volumetric by device time: wall-clock
-    # solves there swing with the host-bound assembly
-    for pre in ("jacobi", "block_jacobi"):
-        profile_solve(f"volumetric{VOL_N}_{pre}", volumetric_mesh_deformation, _vol(VOL_N),
-                      vol_in, VOL_NL, VOL_LI, gpu, {"preconditioner": pre})
+    # volumetric by device time: wall-clock solves there swing with the
+    # host-bound assembly; and shape_from_shading, whose assembly re-makes
+    # the ComputedArray bundle every step
+    profile_solve(f"volumetric{VOL_N}_jacobi", volumetric_mesh_deformation, _vol(VOL_N),
+                  vol_in, VOL_NL, VOL_LI, gpu, {"preconditioner": "jacobi"})
+    profile_solve(f"shape_from_shading{SFS_N}", shape_from_shading, _grid(SFS_N), sfs_in,
+                  SFS_NL, SFS_LI, gpu)
+    phases["timings_and_profiles"] = time.perf_counter() - t_start - sum(phases.values())
 
     def entry(name, replaces, launches, err, timing):
         ms, plain, bound_ms, bound_by = timing
@@ -1052,9 +1339,11 @@ def main() -> int:
     # so library_ms is null. The LM instances on 1024x1024x3 (K6's other
     # case) and on the two meshes, and the variants' other instances, are
     # checked and timed above; image_warping's LM variant solves above are
-    # their main paths
+    # their main paths; optical_flow's and intrinsic's solves are K1
+    # variant a's further main paths
+    log(json.dumps({"main_path_launches": {"optical_flow": l_flow, "intrinsic": l_intr}}))
     log(json.dumps({"command_s": time.perf_counter() - t_start,
-                    "checks_and_main_paths_s": phase_s}))
+                    "checks_and_main_paths_s": phase_s, "phases_s": phases}))
     log(f"gpu: {gpu}")
     log(json.dumps({"kernels": [
         entry("fused_grid_cg GN (K1, grid GN form)", K1, l_poisson["gn"], err_gn, t_gn),
@@ -1075,6 +1364,10 @@ def main() -> int:
               l_vol["gn"], err_3d, t_3d),
         entry(f"fused_grid_cg GN bfloat16 fields (K1 variant f), poisson {n}x{n}x4", K1F,
               l_pbf["gn_bf16"], err_bf, t_bf),
+        entry(f"fused_grid_cg GN over a ComputedArray operator (K1 variant g), "
+              f"shape_from_shading {SFS_N}x{SFS_N}", K1G, l_sfs["gn"], err_sfs, t_sfs),
+        entry(f"fused_grid_cg GN, four one-channel systems in one launch (K2), "
+              f"poisson {SPLIT_N}x{SPLIT_N}x4", K2, l_split["gn_multi"], err_split, t_split),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

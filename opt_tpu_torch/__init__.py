@@ -64,6 +64,7 @@ from .lib import (
     normalize,
 )
 from .problem import Plan, Problem, SolveResult
+from .pyramid import upsample2x_nearest
 from .solver.params import (
     GuardedInvertType,
     InitializationParameters,
@@ -85,6 +86,7 @@ __all__ = [
     "JacobiScalingType",
     "InitializationParameters",
     "SOLVER_PARAMETER_DEFAULTS",
+    "upsample2x_nearest",
     # DSL stdlib
     "All", "And", "Any", "Dot", "Dot3", "Energy", "Exclude", "InBounds",
     "InBoundsExpanded", "Index", "L_2_norm", "L_p", "Matrix3x3Mul", "Not",

@@ -39,6 +39,7 @@ from torch.fx.experimental.proxy_tensor import make_fx
 
 from .compile import graph_outputs, node_inputs, op_name
 from .ops.fused_cg import coefficient_dtype, plan_fused_graph_cg, plan_fused_grid_cg
+from .ops.sampling import is_frozen_marker
 from .ops.shift import shift
 from .solver.params import FLOAT_EPSILON
 
@@ -125,28 +126,70 @@ def _comparison_constants(compiled, X, consts, graphs, params) -> List[float]:
     return sorted(vals)
 
 
-def _is_gate(node) -> bool:
-    name = op_name(node)
-    if name in _CMP_OPS or name in _PW_OPS:
-        return not _literals(node)
-    if name in ("_to_copy", "to", "_convert_element_type"):
-        dt = node.kwargs.get("dtype")
-        return dt is not None and not dt.is_floating_point and dt != torch.bool
-    return False
+def _is_int_cast(node) -> bool:
+    if op_name(node) not in ("_to_copy", "to", "_convert_element_type"):
+        return False
+    dt = node.kwargs.get("dtype")
+    return dt is not None and not dt.is_floating_point and dt != torch.bool
 
 
 def _terms_with_traced_gates(compiled, X, consts, graphs, params):
-    """Residual-term indices whose computation contains a comparison with
-    NO literal operand (array-vs-array gates): the probes have no threshold
-    to straddle there, so the planner refuses structural pruning, constant
+    """Residual-term indices whose computation contains a gate the probes
+    cannot certify, so the planner refuses structural pruning, constant
     hoisting and scalar-group collapsing for those terms. Taint propagates
-    forward through the graph."""
+    forward through the graph. A gate is
+
+    * a comparison-like op with NO literal operand (array-vs-array gates:
+      the probes have no threshold to straddle);
+    * a piecewise-constant op (sign/floor/ceil/round) of a traced value, or
+      a float -> int cast: locally constant, so a field built from them can
+      look X-independent or identically zero under any finite draw;
+    * either of these on a value derived from a ComputedArray slot, EVEN
+      WITH a literal operand: a cimg/cgrad slot's value is not drawn, it is
+      recomputed from the probe unknowns (gather_slot_values), so the gate
+      compares a FUNCTION of the draws against the literal and no
+      input-space value set straddles that threshold in general
+      (shape_from_shading's ``eq(valid, 1)``, where ``valid`` needs four
+      |ΔX| < 0.01 neighbour coincidences that no O(1) draw produces: its
+      couplings would probe identically zero and be pruned).
+
+    The sampler's own floor/ceil/casts/clamps (ops/sampling.py) implement a
+    smooth interpolant whose derivative comes from the user's dx/dy images,
+    not Jacobian gates: values computed only from a ``frozen`` position and
+    constants are skipped, as the JAX package does not descend into its
+    ``custom_jvp`` sampling rule. validate_assembly stays the backstop."""
     gm = _residual_graph(compiled, X, consts, graphs, params)
+    placeholders = [n for n in gm.graph.nodes if n.op == "placeholder"]
+    derived = {
+        n for n, s in zip(placeholders, compiled.registry.slots)
+        if s.kind in ("cimg", "cgrad")
+    }
+    sampler, const = set(), set()  # sampler-internal values; trace constants
     taint = set()
     for node in gm.graph.nodes:
+        if node.op == "get_attr":
+            const.add(node)
+            continue
         if node.op != "call_function":
             continue
-        if _is_gate(node) or any(a in taint for a in node_inputs(node)):
+        ins = node_inputs(node)
+        name = op_name(node)
+        if is_frozen_marker(name):
+            sampler.add(node)
+            continue
+        if all(a in const for a in ins):
+            const.add(node)
+        elif all(a in sampler or a in const for a in ins):
+            sampler.add(node)  # computed from frozen positions and constants only
+            continue
+        on_derived = any(a in derived for a in ins)
+        if on_derived:
+            derived.add(node)
+        if name in _CMP_OPS or name in _PW_OPS:
+            gate = not _literals(node) or on_derived
+        else:
+            gate = _is_int_cast(node)
+        if gate or any(a in taint for a in ins):
             taint.add(node)
     return frozenset(
         t for t, o in enumerate(graph_outputs(gm.graph)) if o in taint
@@ -522,7 +565,7 @@ def _graph_layouts(compiled, plan, graphs):
 
 
 def assemble(compiled, plan: AssemblyPlan, X, consts, graphs, params, row_masks,
-             const_cache=None, coeff_dtype=None):
+             const_cache=None, coeff_dtype=None, allow_split=True):
     """Assemble the coefficient fields at linearization point X.
 
     Returns (apply_fn, diag, jtf_fn, cg_meta): the row/column-masked JᵀJ·p
@@ -533,7 +576,9 @@ def assemble(compiled, plan: AssemblyPlan, X, consts, graphs, params, row_masks,
     or None. ``apply_fn.block_pre(extra_diag=None)`` builds the block-Jacobi
     preconditioner. ``coeff_dtype`` (e.g. "bfloat16") narrows the
     coefficient storage the CG loop reads, after the full-precision
-    diagonal and block sources are read off."""
+    diagonal and block sources are read off. ``allow_split=False`` keeps a
+    channel-separable grid operator's fused loop joint (a block
+    preconditioner couples the channels)."""
     slots = compiled.registry.slots
     dt = compiled.dtype
     X_dev = next(iter(X.values())).device
@@ -1005,6 +1050,7 @@ def assemble(compiled, plan: AssemblyPlan, X, consts, graphs, params, row_masks,
     if grp_exec:
         cg_meta = plan_fused_graph_cg(compiled, plan, fields, grp_exec, coeff_dtype=cdt)
     else:
-        cg_meta = plan_fused_grid_cg(compiled, plan, fields, w_layouts, coeff_dtype=cdt)
+        cg_meta = plan_fused_grid_cg(compiled, plan, fields, w_layouts, coeff_dtype=cdt,
+                                     allow_split=allow_split)
     jtf_fn.r_terms = r_terms_primal
     return apply_fn, diag, jtf_fn, cg_meta

@@ -283,14 +283,15 @@ class CompiledProblem:
         return out
 
     # ---- field-mode runs ----------------------------------------------------
-    def _run(self, mode, unknowns, consts, graphs, params, slot_values=None):
+    def _run(self, mode, unknowns, consts, graphs, params, slot_values=None,
+             computed_subs=None):
         builder = SpecBuilder(
             mode,
             self.dim_sizes,
             self.dtype,
             registry=self.registry,
             bindings={"unknowns": unknowns, "consts": consts, "graphs": graphs,
-                      "params": params},
+                      "params": params, "computed_subs": computed_subs},
             slot_values=slot_values,
             device=_first_device(unknowns, consts, slot_values or []),
         )
@@ -392,8 +393,12 @@ class CompiledProblem:
     # ---- slot-mode ----------------------------------------------------------
     def gather_slot_values(self, unknowns, consts, graphs, params=None):
         """Materialize every slot's value field (shift / edge gather /
-        bounds mask)."""
+        bounds mask). ComputedArray slots (cimg/cgrad) materialize the
+        computed value and its per-unknown gradient fields once per call
+        (:meth:`_computed_bundle`): the reference's per-nonlinear-iteration
+        ``precompute`` kernels."""
         device = _first_device(unknowns, consts)
+        bundle = None
         vals = []
         for s in self.registry.slots:
             if s.kind == "img":
@@ -408,6 +413,12 @@ class CompiledProblem:
                 vals.append(
                     in_bounds_mask(shape, s.offset, s.expand, dtype=self.dtype, device=device)
                 )
+            elif s.kind in ("cimg", "cgrad"):
+                if bundle is None:
+                    bundle = self._computed_bundle(unknowns, consts, graphs, params or {})
+                value, grads = bundle[s.image]  # image holds the handle name
+                field = value if s.kind == "cimg" else grads[(s.key[3], s.key[4])]
+                vals.append(shift(field, s.offset))
             else:  # gimg: the image at the slot's edge endpoints
                 decl = self.registry.images[s.image]
                 if decl.alias is not None:
@@ -417,9 +428,64 @@ class CompiledProblem:
                 vals.append(edge_gather(arr, graphs[s.graph][s.key[3]]))
         return vals
 
+    def _computed_bundle(self, unknowns, consts, graphs, params):
+        """{handle name: (value field [*sp, cc], {(unknown, t): gradient
+        field [*sp, cc*cu]})} at the current linearization point.
+
+        One field-mode run of the spec captures every computed value; its
+        unknown reads at the touched (unknown, offset) pairs are substituted
+        by separate inputs, and one ``vmap`` over ``torch.func.jvp`` with a
+        one-hot tangent per (pair, channel) separates the gradient fields:
+        the probe analogue of the reference storing gradient images per
+        ComputedImage. The fields are constants of the step (detached)."""
+        reg = self.registry
+        need_g, handles = {}, []
+        for s in reg.slots:
+            if s.kind == "cimg" and s.image not in handles:
+                handles.append(s.image)
+            if s.kind == "cgrad":  # only pairs some cgrad slot reads
+                need_g.setdefault(s.image, set()).add((s.key[3], s.key[4]))
+        sub_keys = sorted({pair for pairs in need_g.values() for pair in pairs})
+        unknowns = {k: v.detach() for k, v in unknowns.items()}
+
+        def run(*sub_vals):
+            b = self._run("field", unknowns, consts, graphs, params,
+                          computed_subs=dict(zip(sub_keys, sub_vals)))
+            return tuple(b._computed_cache[h] for h in handles)
+
+        base = [shift(unknowns[uname], t) for (uname, t) in sub_keys]
+        probe_of = [(ki, ch) for ki, v in enumerate(base) for ch in range(v.shape[-1])]
+        if not probe_of:
+            return {h: (v.detach(), {}) for h, v in zip(handles, run())}
+        batched = []
+        for ki, v in enumerate(base):
+            sel = torch.zeros((len(probe_of), v.shape[-1]), dtype=v.dtype, device=v.device)
+            for pi, (kj, ch) in enumerate(probe_of):
+                if kj == ki:
+                    sel[pi, ch] = 1.0
+            sel = sel.reshape((len(probe_of),) + (1,) * (v.dim() - 1) + (v.shape[-1],))
+            batched.append(sel.expand((len(probe_of),) + tuple(v.shape)))
+        prim = run(*base)
+        tans = torch.func.vmap(
+            lambda *ts: torch.func.jvp(run, tuple(base), tuple(ts))[1]
+        )(*batched)  # per handle [n_probes, *sp, cc]
+        out = {}
+        for hi, hname in enumerate(handles):
+            grads = {}
+            for pair in sorted(need_g.get(hname, ())):
+                ki = sub_keys.index(pair)
+                cols = [tans[hi][pi] for pi, (kj, _ch) in enumerate(probe_of) if kj == ki]
+                G = torch.stack(cols, dim=-1)  # [*sp, cc, cu]
+                grads[pair] = G.reshape(tuple(G.shape[:-2]) + (-1,)).detach()
+            out[hname] = (prim[hi].detach(), grads)
+        return out
+
     def local_residual_terms(self, slot_values, params, consts=None) -> List[torch.Tensor]:
         """Residual terms as a pointwise function of slot values (bbox-masked
-        identically to :meth:`residual_terms`)."""
+        identically to :meth:`residual_terms`). ``consts`` must be passed for
+        specs using SampledImage: the sampled image and derivative arrays
+        are read directly (they are not slots, since sampling coordinates
+        are dynamic)."""
         b = self._run("slots", {}, consts or {}, {}, params, slot_values=list(slot_values))
         return [
             self._apply_bbox(self._normalize_term(val, term), term)
@@ -475,7 +541,7 @@ def _compile_spec_uncached(spec_fn, dim_sizes, dtype) -> CompiledProblem:
     for s in registry.slots:
         if s.kind == "gimg":
             shape = (registry.dummy_edge_count, s.channels)
-        elif s.kind == "img":
+        elif s.kind in ("img", "cimg", "cgrad"):
             shape = s.ispace.shape(dim_sizes) + (s.channels,)
         else:
             shape = s.ispace.shape(dim_sizes) + (1,)
@@ -501,7 +567,7 @@ def _compile_spec_uncached(spec_fn, dim_sizes, dtype) -> CompiledProblem:
         graphs = sorted({s.graph for s in slots if s.kind == "gimg"})
         ispaces = []
         for s in slots:
-            if s.kind == "img" and s.ispace not in ispaces:
+            if s.kind in ("img", "cimg") and s.ispace not in ispaces:
                 ispaces.append(s.ispace)
         term.uses_bounds = any(s.kind == "bounds" and not s.internal for s in slots)
         if graphs:
@@ -525,7 +591,7 @@ def _compile_spec_uncached(spec_fn, dim_sizes, dtype) -> CompiledProblem:
             nd = ispaces[0].ndim
             bmin, bmax = [0] * nd, [0] * nd
             for s in slots:
-                if s.kind == "img":
+                if s.kind in ("img", "cimg"):
                     for d in range(nd):
                         bmin[d] = min(bmin[d], s.offset[d])
                         bmax[d] = max(bmax[d], s.offset[d])

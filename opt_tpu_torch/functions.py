@@ -185,15 +185,16 @@ class FunctionSet:
         return _mask_rows_select(x, self.row_masks)
 
     # -- assembled gather-form JᵀJ (see assembly.py) ---------------------------
-    def assemble_stencil(self, X, plan, const_cache=None, coeff_dtype=None):
+    def assemble_stencil(self, X, plan, const_cache=None, coeff_dtype=None, allow_split=True):
         """(apply_fn, diag, jtf_fn, cg_meta) of the assembled operator at X,
-        its loop-resident coefficients stored in ``coeff_dtype``."""
+        its loop-resident coefficients stored in ``coeff_dtype``;
+        ``allow_split`` as in :func:`assembly.assemble`."""
         from .assembly import assemble
 
         _, row_masks = self.masks(X)
         return assemble(
             self.c, plan, X, self.consts, self.graphs, self.params, row_masks,
-            const_cache=const_cache, coeff_dtype=coeff_dtype,
+            const_cache=const_cache, coeff_dtype=coeff_dtype, allow_split=allow_split,
         )
 
     def assemble_const(self, X0, plan):

@@ -2,10 +2,11 @@
 
 Spec functions are backend code (they call the DSL's tensor helpers), so
 the port carries its own copies of the JAX package's ``models/specs.py``.
-This has the two specs of the poisson path, image_warping, the 3-D grid
-spec volumetric_mesh_deformation, and the graph specs
-arap_mesh_deformation and curve_fitting; the other six come with ROADMAP.md
-queue 1 item 9.
+This has every grid spec (laplacian, poisson_image_editing, image_warping,
+optical_flow, intrinsic_image_decomposition, shape_from_shading and the
+3-D volumetric_mesh_deformation) and the graph specs arap_mesh_deformation
+and curve_fitting; the other three graph specs come with ROADMAP.md queue 1
+item 9.
 """
 
 from __future__ import annotations
@@ -91,6 +92,66 @@ def image_warping(S):
 
 
 # ---------------------------------------------------------------------------
+# examples/optical_flow/optical_flow.t — dense flow with sampled image
+# ---------------------------------------------------------------------------
+def optical_flow(S):
+    W, H = S.Dim("W"), S.Dim("H")
+    w_fitSqrt = S.Param("w_fit")
+    w_regSqrt = S.Param("w_reg")
+    X = S.Unknown("X", 2, (W, H))
+    I = S.Array("I", 1, (W, H))
+    I_hat_im = S.Array("I_hat", 1, (W, H))
+    I_hat_dx = S.Array("I_hat_dx", 1, (W, H))
+    I_hat_dy = S.Array("I_hat_dy", 1, (W, H))
+    I_hat = S.SampledImage(I_hat_im, I_hat_dx, I_hat_dy)
+
+    i, j = S.Index(0), S.Index(1)
+    S.UsePreconditioner(False)
+    e_fit = w_fitSqrt * (
+        I(0, 0) - I_hat(i[..., 0] + X(0, 0)[..., 0], j[..., 0] + X(0, 0)[..., 1])
+    )
+    S.Energy(e_fit)
+    for nx, ny in ot.Stencil([(1, 0), (-1, 0), (0, 1), (0, -1)]):
+        e_reg = w_regSqrt * (X(0, 0) - X(nx, ny))
+        S.Energy(ot.Select(ot.InBounds(nx, ny), e_reg, 0.0))
+
+
+# ---------------------------------------------------------------------------
+# examples/intrinsic_image_decomposition/intrinsic_image_decomposition.t
+# ---------------------------------------------------------------------------
+def intrinsic_image_decomposition(S):
+    W, H = S.Dim("W"), S.Dim("H")
+    w_fitSqrt = S.Param("w_fitSqrt")
+    w_regSqrtAlbedo = S.Param("w_regSqrtAlbedo")
+    w_regSqrtShading = S.Param("w_regSqrtShading")
+    pNorm = S.Param("pNorm")
+    r = S.Unknown("r", 3, (W, H))
+    # const view of the unknown (the reference binds r_const to r's buffer)
+    r_const = S.Array("r_const", 3, (W, H), alias="r")
+    i = S.Array("i", 3, (W, H))
+    s = S.Unknown("s", 1, (W, H))
+
+    for x, y in ot.Stencil([(1, 0), (-1, 0), (0, 1), (0, -1)]):
+        diff = r(0, 0) - r(x, y)
+        diff_const = r_const(0, 0) - r_const(x, y)
+        laplacianCost = ot.L_p(diff, diff_const, pNorm, (W, H))
+        laplacianCostF = ot.Select(
+            ot.InBounds(0, 0), ot.Select(ot.InBounds(x, y), laplacianCost, 0.0), 0.0
+        )
+        S.Energy(w_regSqrtAlbedo * laplacianCostF)
+
+    for x, y in ot.Stencil([(1, 0), (-1, 0), (0, 1), (0, -1)]):
+        diff = s(0, 0) - s(x, y)
+        laplacianCostF = ot.Select(
+            ot.InBounds(0, 0), ot.Select(ot.InBounds(x, y), diff, 0.0), 0.0
+        )
+        S.Energy(w_regSqrtShading * laplacianCostF)
+
+    fittingCost = r(0, 0) + s(0, 0) - i(0, 0)
+    S.Energy(w_fitSqrt * fittingCost)
+
+
+# ---------------------------------------------------------------------------
 # examples/volumetric_mesh_deformation/volumetric_mesh_deformation.t — 3D ARAP
 # ---------------------------------------------------------------------------
 def volumetric_mesh_deformation(S):
@@ -143,11 +204,113 @@ def arap_mesh_deformation(S):
     S.Energy(w_regSqrt * arap)
 
 
+# ---------------------------------------------------------------------------
+# examples/shape_from_shading/shape_from_shading.t — SH shading + ComputedArray
+# ---------------------------------------------------------------------------
+DEPTH_DISCONTINUITY_THRE = 0.01
+
+
+def shape_from_shading(S):
+    W, H = S.Dim("W"), S.Dim("H")
+    w_p = torch.sqrt(S.Param("w_p"))
+    w_s = torch.sqrt(S.Param("w_s"))
+    w_g = torch.sqrt(S.Param("w_g"))
+    f_x, f_y = S.Param("f_x"), S.Param("f_y")
+    u_x, u_y = S.Param("u_x"), S.Param("u_y")
+    L = [S.Param(f"L_{i}") for i in range(1, 10)]
+    X = S.Unknown("X", 1, (W, H))
+    D_i = S.Array("D_i", 1, (W, H))
+    Im = S.Array("Im", 1, (W, H))
+    edgeMaskR = S.Array("edgeMaskR", 1, (W, H))
+    edgeMaskC = S.Array("edgeMaskC", 1, (W, H))
+
+    # NOTE: Index() must be *called inside* expressions that get inlined into
+    # a ComputedArray (the call site picks up the composed stencil offset);
+    # capturing it once at spec top level would freeze the centered
+    # coordinates.
+    def p(offX, offY):  # eq. 8: back-projected 3D point
+        d = X(offX, offY)
+        i = offX + S.Index(0)
+        j = offY + S.Index(1)
+        return torch.cat([((i - u_x) / f_x) * d, ((j - u_y) / f_y) * d, d], dim=-1)
+
+    def normalAt(offX, offY):  # eq. 10
+        i = offX + S.Index(0)
+        j = offY + S.Index(1)
+        n_x = X(offX, offY - 1) * (X(offX, offY) - X(offX - 1, offY)) / f_y
+        n_y = X(offX - 1, offY) * (X(offX, offY) - X(offX, offY - 1)) / f_x
+        n_z = (
+            (n_x * (u_x - i) / f_x)
+            + (n_y * (u_y - j) / f_y)
+            - (X(offX - 1, offY) * X(offX, offY - 1) / (f_x * f_y))
+        )
+        sqLength = n_x * n_x + n_y * n_y + n_z * n_z
+        inverseMagnitude = ot.Select(
+            ot.greater(sqLength, 0.0),
+            1.0 / torch.sqrt(torch.where(sqLength > 0, sqLength, 1.0)),
+            1.0,
+        )
+        return inverseMagnitude * n_x, inverseMagnitude * n_y, inverseMagnitude * n_z
+
+    def B(offX, offY):
+        n_x, n_y, n_z = normalAt(offX, offY)
+        return (
+            L[0]
+            + L[1] * n_y + L[2] * n_z + L[3] * n_x
+            + L[4] * n_x * n_y + L[5] * n_y * n_z
+            + L[6] * (-n_x * n_x - n_y * n_y + 2 * n_z * n_z)
+            + L[7] * n_z * n_x + L[8] * (n_x * n_x - n_y * n_y)
+        )
+
+    def I(offX, offY):
+        return Im(offX, offY) * 0.5 + 0.25 * (Im(offX - 1, offY) + Im(offX, offY - 1))
+
+    def DepthValid(x, y):
+        return ot.greater(D_i(x, y), 0)
+
+    def B_I_expr():
+        bi = B(0, 0) - I(0, 0)
+        valid = ot.And(DepthValid(-1, 0), DepthValid(0, 0), DepthValid(0, -1))
+        return ot.Select(ot.And(ot.InBoundsExpanded(0, 0, 1), valid), bi, 0.0)
+
+    B_I = S.ComputedArray("B_I", (W, H), B_I_expr)
+
+    S.Exclude(ot.Not(DepthValid(0, 0)))
+
+    E_p = X(0, 0) - D_i(0, 0)
+    S.Energy(ot.Select(DepthValid(0, 0), w_p * E_p, 0.0))
+
+    E_g_h = (B_I(0, 0) - B_I(1, 0)) * edgeMaskR(0, 0)
+    E_g_v = (B_I(0, 0) - B_I(0, 1)) * edgeMaskC(0, 0)
+    S.Energy(ot.Select(ot.InBoundsExpanded(0, 0, 1), w_g * E_g_h, 0.0))
+    S.Energy(ot.Select(ot.InBoundsExpanded(0, 0, 1), w_g * E_g_v, 0.0))
+
+    def Continuous(x, y):
+        return ot.less(torch.abs(X(0, 0) - X(x, y)), DEPTH_DISCONTINUITY_THRE)
+
+    def valid_expr():
+        return ot.And(
+            DepthValid(0, 0), DepthValid(0, -1), DepthValid(0, 1),
+            DepthValid(-1, 0), DepthValid(1, 0),
+            Continuous(0, -1), Continuous(0, 1),
+            Continuous(-1, 0), Continuous(1, 0),
+            ot.InBoundsExpanded(0, 0, 1),
+        )
+
+    validArray = S.ComputedArray("valid", (W, H), valid_expr)
+    valid = ot.eq(validArray(0, 0), 1)
+    E_s = 4.0 * p(0, 0) - (p(-1, 0) + p(0, -1) + p(1, 0) + p(0, 1))
+    S.Energy(ot.Select(valid, w_s * E_s, 0.0))
+
+
 ALL_SPECS = {
     "laplacian": laplacian,
     "curve_fitting": curve_fitting,
     "poisson_image_editing": poisson_image_editing,
     "image_warping": image_warping,
+    "optical_flow": optical_flow,
+    "intrinsic_image_decomposition": intrinsic_image_decomposition,
+    "shape_from_shading": shape_from_shading,
     "volumetric_mesh_deformation": volumetric_mesh_deformation,
     "arap_mesh_deformation": arap_mesh_deformation,
 }

@@ -74,19 +74,19 @@ def build_library() -> dict:
 
 
 _INSTANCE = re.compile(
-    r"fused_grid_cg_kernelILb([01])ELb([01])ELb([01])ELb([01])E(f|13__nv_bfloat16)E"
+    r"fused_grid_cg_kernelILb([01])ELb([01])ELb([01])ELb([01])E(f|13__nv_bfloat16)Lb([01])EE"
 )
 
 
 def instance_registers(log: str) -> dict:
-    """{(lm, rem, cs, block, bf16): (registers, spill store bytes, spill
-    load bytes)} from ptxas's -v output."""
+    """{(lm, rem, cs, block, bf16, multi): (registers, spill store bytes,
+    spill load bytes)} from ptxas's -v output."""
     regs, current, spill = {}, None, (0, 0)
     for line in log.splitlines():
         m = _INSTANCE.search(line)
         if m and "Compiling entry function" in line:
             lm, rem, cs, block = (g == "1" for g in m.groups()[:4])
-            current, spill = (lm, rem, cs, block, m.group(5) != "f"), (0, 0)
+            current, spill = (lm, rem, cs, block, m.group(5) != "f", m.group(6) == "1"), (0, 0)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and current is not None:
@@ -108,14 +108,15 @@ def load_library() -> ctypes.CDLL:
     info = build_library()
     lib = ctypes.CDLL(str(info["path"]))
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # lm, rem, cs, block, bf16, threads, out
-    lib.fused_grid_cg_max_blocks.argtypes = [i32] * 6 + [ctypes.POINTER(i32)]
+    # lm, rem, cs, block, bf16, multi, threads, out
+    lib.fused_grid_cg_max_blocks.argtypes = [i32] * 7 + [ctypes.POINTER(i32)]
     lib.fused_grid_cg_max_blocks.restype = i32
     lib.fused_grid_cg_launch.argtypes = [
         i32, i32, i32, i32,  # lm, cs, block, bf16
         vp, vp, vp, vp, vp, vp,  # F, b, pre, ctc, triples, starts
         vp, vp, vp,  # rowptr, col, blk (the remainder; null without)
-        i32, i32, i32, i32,  # C, N0, N1, N2
+        i32, i32, i32,  # C (channels of a system), n_sys, f_sys_stride
+        i32, i32, i32,  # N0, N1, N2
         i32, f32, i32,  # lits, tol, guard_div
         i32, f32,  # reset_period, q_tol
         vp, vp, vp, vp, vp, vp,  # delta, r, p, Ap, z, s

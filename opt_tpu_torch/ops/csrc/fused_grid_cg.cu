@@ -1,10 +1,13 @@
 // Whole-loop preconditioned CG for 2-D and 3-D grid stencil operators and
 // graph operators, as one persistent cooperative kernel for Hopper
-// (sm_90a). One template, fused_grid_cg_kernel<LM, REM, CS, BLOCK, FT>, in
-// 32 instances: Gauss-Newton or Levenberg-Marquardt (LM), without or with
+// (sm_90a). One template, fused_grid_cg_kernel<LM, REM, CS, BLOCK, FT,
+// MULTI>, in 40 instances: Gauss-Newton or Levenberg-Marquardt (LM), without or with
 // the graph remainder phase (REM), the standard loop or Chronopoulos-Gear
 // (CS), the elementwise Jacobi or the per-point block-Jacobi preconditioner
-// (BLOCK), float32 or bfloat16 coefficient storage (FT).
+// (BLOCK), float32 or bfloat16 coefficient storage (FT): 32 instances of one
+// system a launch; and 8 more (MULTI, without REM and BLOCK) whose launch
+// holds n_sys independent systems, solved in turn, each with its own dots,
+// exit and count (see the kernel below).
 //
 // Replaces, in opt_tpu/ops/pallas_cg.py:
 //   * _kernel (:328), the Pallas TPU kernel that runs the whole PCG inner
@@ -31,7 +34,13 @@
 //     a graph operator, which the TPU applies by one-hot matmuls on its
 //     matrix unit. Here it is the REM=true instances' remainder phase: a
 //     destination-sorted block CSR, one C x C block per distinct (v, u)
-//     read, out[i][v] += sum_k sum_j blk[k][i][j] * p[j][col[k]].
+//     read, out[i][v] += sum_k sum_j blk[k][i][j] * p[j][col[k]];
+//   * _kernel's chan_grid=True form (:339, :513-520, launch :1057-1098):
+//     the C channels of a channel-separable operator (every triple i == j,
+//     every channel the same fields) as a sequential Pallas grid=(C,) of
+//     one-channel solves over shared fields, each with its own exit, the
+//     counts summed. Here: n_sys = C systems of one channel in one launch,
+//     the fields' per-system stride 0.
 //
 // The domain is [N0, N1, N2] (a 2-D grid is [1, H, W], a graph [1, 1, N]);
 // state is channel-major [C, N0, N1, N2] float32; a triple row is
@@ -208,16 +217,17 @@ __device__ __forceinline__ void coords(int q, int N12, int N2, int& x, int& y,
 }
 
 // sum over the triples k0..k1 of F[fid][q] * src[j] at (x, y, z) + (d0, d1,
-// d2), skipping reads that leave the domain; src is read through L2 (other
-// blocks wrote it before the last grid barrier). The standard loop's phase 1
+// d2), skipping reads that leave the domain; qs is point q in the system's
+// state (q + the system's first element), qf in its fields; src is read
+// through L2 (other blocks wrote it before the last grid barrier). The standard loop's phase 1
 // keeps the same loop written out, as the GN instance had it before the
 // other sweeps existed.
 template <typename FT>
 __device__ __forceinline__ float stencil_apply(const FT* __restrict__ F,
                                                const float* src,
                                                const int* s_tr, int k0, int k1,
-                                               int N0, int N1, int N2, int q,
-                                               int x, int y, int z) {
+                                               int N0, int N1, int N2, int qs,
+                                               int qf, int x, int y, int z) {
   float a = 0.f;
   for (int k = k0; k < k1; ++k) {
     const int* t = s_tr + FGCG_SROW * k;
@@ -225,8 +235,8 @@ __device__ __forceinline__ float stencil_apply(const FT* __restrict__ F,
     const int yy = y + t[1];
     const int zz = z + t[2];
     if (xx >= 0 && xx < N0 && yy >= 0 && yy < N1 && zz >= 0 && zz < N2) {
-      const float pv = __ldcg(src + (t[3] + q));
-      a = __fadd_rn(a, __fmul_rn(ldf(F, t[4] + q), pv));
+      const float pv = __ldcg(src + (t[3] + qs));
+      a = __fadd_rn(a, __fmul_rn(ldf(F, t[4] + qf), pv));
     }
   }
   return a;
@@ -253,74 +263,61 @@ __device__ __forceinline__ float remainder_apply(const int* __restrict__ rowptr,
 
 // The block-Jacobi apply at point q: out[i][q] = sum_j pre[i*C+j][q] *
 // r[j][q], j ascending from 0, for every channel i (r: this thread's own
-// writes). Returns sum_i out[i][q] * r[i][q], the point's share of <z, r>.
+// writes). qs is q in the system's state, qp in its C*C preconditioner
+// planes. Returns sum_i out[i][q] * r[i][q], the point's share of <z, r>.
 __device__ __forceinline__ double block_prec(const float* __restrict__ pre,
                                              const float* r, float* out,
-                                             int C, int plane, int q) {
+                                             int C, int plane, int qs, int qp) {
   double acc = 0.0;
   for (int i = 0; i < C; ++i) {
     float a = 0.f;
     for (int j = 0; j < C; ++j)
-      a = __fadd_rn(a, __fmul_rn(pre[(i * C + j) * plane + q], r[j * plane + q]));
-    out[i * plane + q] = a;
-    acc += (double)__fmul_rn(a, r[i * plane + q]);
+      a = __fadd_rn(a, __fmul_rn(pre[(i * C + j) * plane + qp], r[j * plane + qs]));
+    out[i * plane + qs] = a;
+    acc += (double)__fmul_rn(a, r[i * plane + qs]);
   }
   return acc;
 }
 
+// One system's whole loop: C channels over the domain. The pointers are the
+// launch's own (they stay kernel parameters, not registers); the system's
+// slices start at element o of the state vectors, po of the preconditioner
+// planes, fo of the fields and g of the partials. Every block of the grid
+// runs it with the same arguments and leaves it after the same iteration.
+// Returns the executed iteration count.
 template <bool LM, bool REM, bool CS, bool BLOCK, typename FT>
-__global__ void __launch_bounds__(FGCG_BLOCK, REM ? FGCG_MIN_BLOCKS_REM : FGCG_MIN_BLOCKS)
-fused_grid_cg_kernel(const FT* __restrict__ F, const float* __restrict__ b,
-                     const float* __restrict__ pre,
-                     const float* __restrict__ ctc,
-                     const int* __restrict__ triples,
-                     const int* __restrict__ starts,
-                     const int* __restrict__ rowptr,
-                     const int* __restrict__ col,
-                     const FT* __restrict__ blk, int C, int N0, int N1, int N2,
-                     int lits, float tol, int guard_div, int reset_period,
-                     float q_tol, float* delta, float* r, float* p, float* Ap,
-                     float* z, float* s, double* part0, double* part1,
-                     double* part2, int* iters) {
-  cg::grid_group grid = cg::this_grid();
-  __shared__ int s_tr[FGCG_MAX_TRIPLES * FGCG_SROW];
-  __shared__ int s_start[FGCG_MAX_CHANNELS + 1];
-  __shared__ double s_warp[FGCG_BLOCK / 32];
-  __shared__ double s_bcast;
-
+__device__ __forceinline__ int cg_system(
+    cg::grid_group& grid, const int* s_tr, const int* s_start, double* s_warp,
+    double* s_bcast_p, const FT* __restrict__ F, const float* __restrict__ b,
+    const float* __restrict__ pre, const float* __restrict__ ctc,
+    const int* __restrict__ rowptr, const int* __restrict__ col,
+    const FT* __restrict__ blk, int C, int N0, int N1, int N2, int lits,
+    float tol, int guard_div, int reset_period, float q_tol, float* delta,
+    float* r, float* p, float* Ap, float* z, float* s, double* part0_,
+    double* part1_, double* part2_, int o, int po, int fo, int g) {
   const int N12 = N1 * N2;
   const int plane = N0 * N12;
-  for (int k = threadIdx.x; k <= C; k += blockDim.x) s_start[k] = starts[k];
-  __syncthreads();
-  const int n_triples = s_start[C];
-  for (int k = threadIdx.x; k < n_triples; k += blockDim.x) {
-    const int* h = triples + FGCG_ROW * k;
-    int* t = s_tr + FGCG_SROW * k;
-    t[0] = h[0];
-    t[1] = h[1];
-    t[2] = h[2];
-    t[3] = h[4] * plane + h[0] * N12 + h[1] * N2 + h[2];
-    t[4] = h[5] * plane;
-  }
-  __syncthreads();
-
-  const int total = C * plane;
+  const int total = o + C * plane;  // one past the system's last element
   const int stride = gridDim.x * blockDim.x;
-  const int first = blockIdx.x * blockDim.x + threadIdx.x;
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int first = o + tid;  // this thread's first element of the system
   const int n_blocks = gridDim.x;
+  double* part0 = part0_ + g;
+  double* part1 = part1_ + g;
+  double* part2 = LM ? part2_ + g : part2_;
   int l = 0;
 
   if constexpr (!CS) {
     // r = b, p = z = M^-1 r, delta = 0, rz0 = <r, z>
     double acc = 0.0;
     if constexpr (BLOCK) {
-      for (int q = first; q < plane; q += stride) {
+      for (int q = tid; q < plane; q += stride) {
         for (int c = 0; c < C; ++c) {
-          const int e = c * plane + q;
+          const int e = o + c * plane + q;
           r[e] = b[e];
           delta[e] = 0.f;
         }
-        acc += block_prec(pre, r, p, C, plane, q);
+        acc += block_prec(pre, r, p, C, plane, o + q, po + q);
       }
     } else {
       for (int e = first; e < total; e += stride) {
@@ -334,7 +331,7 @@ fused_grid_cg_kernel(const FT* __restrict__ F, const float* __restrict__ b,
     }
     store_partial(acc, part1, s_warp);
     grid.sync();
-    float rz = (float)partials_sum(part1, n_blocks, &s_bcast);
+    float rz = (float)partials_sum(part1, n_blocks, s_bcast_p);
     const float floor_rz = __fmul_rn(tol, rz);
     float q0 = 0.f;
 
@@ -342,8 +339,8 @@ fused_grid_cg_kernel(const FT* __restrict__ F, const float* __restrict__ b,
       // phase 1: Ap = A p (+ ctc p), partials of <p, Ap>
       acc = 0.0;
       for (int e = first; e < total; e += stride) {
-        const int c = e / plane;
-        const int q = e - c * plane;
+        const int c = (e - o) / plane;
+        const int q = (e - o) - c * plane;
         int x, y, zc;
         coords(q, N12, N2, x, y, zc);
         float a = 0.f;
@@ -353,8 +350,8 @@ fused_grid_cg_kernel(const FT* __restrict__ F, const float* __restrict__ b,
           const int yy = y + t[1];
           const int zz = zc + t[2];
           if (xx >= 0 && xx < N0 && yy >= 0 && yy < N1 && zz >= 0 && zz < N2) {
-            const float pv = __ldcg(p + (t[3] + q));
-            a = __fadd_rn(a, __fmul_rn(ldf(F, t[4] + q), pv));
+            const float pv = __ldcg(p + (t[3] + q + o));
+            a = __fadd_rn(a, __fmul_rn(ldf(F, t[4] + q + fo), pv));
           }
         }
         // graph remainder: the domain is [1, 1, N], so the vertex is q
@@ -367,7 +364,7 @@ fused_grid_cg_kernel(const FT* __restrict__ F, const float* __restrict__ b,
       }
       store_partial(acc, part0, s_warp);
       grid.sync();
-      const float den = (float)partials_sum(part0, n_blocks, &s_bcast);
+      const float den = (float)partials_sum(part0, n_blocks, s_bcast_p);
       const float alpha = safe_div(rz, den, guard_div);
 
       // phase 2: delta += alpha p, r -= alpha Ap (or, on an LM reset
@@ -380,20 +377,20 @@ fused_grid_cg_kernel(const FT* __restrict__ F, const float* __restrict__ b,
       if constexpr (BLOCK) {
         // by point: z at q needs every channel's r at q
         if (reset) {
-          for (int q = first; q < plane; q += stride)
+          for (int q = tid; q < plane; q += stride)
             for (int c = 0; c < C; ++c) {
-              const int e = c * plane + q;
+              const int e = o + c * plane + q;
               delta[e] = __fadd_rn(delta[e], __fmul_rn(alpha, __ldcg(p + e)));
             }
           grid.sync();  // the stencil below reads neighbours' delta
-          for (int q = first; q < plane; q += stride) {
+          for (int q = tid; q < plane; q += stride) {
             int x, y, zc;
             coords(q, N12, N2, x, y, zc);
             for (int c = 0; c < C; ++c) {
-              const int e = c * plane + q;
+              const int e = o + c * plane + q;
               const float dv = delta[e];
               float a = stencil_apply(F, delta, s_tr, s_start[c], s_start[c + 1],
-                                      N0, N1, N2, q, x, y, zc);
+                                      N0, N1, N2, q + o, q + fo, x, y, zc);
               if constexpr (REM)
                 a = remainder_apply(rowptr, col, blk, delta, C, plane, c, q, a);
               a = __fadd_rn(a, __fmul_rn(ctc[e], dv));
@@ -402,19 +399,19 @@ fused_grid_cg_kernel(const FT* __restrict__ F, const float* __restrict__ b,
               r[e] = rv;
               acc_q += (double)__fmul_rn(dv, __fadd_rn(bv, rv));
             }
-            acc += block_prec(pre, r, z, C, plane, q);
+            acc += block_prec(pre, r, z, C, plane, o + q, po + q);
           }
         } else {
-          for (int q = first; q < plane; q += stride) {
+          for (int q = tid; q < plane; q += stride) {
             for (int c = 0; c < C; ++c) {
-              const int e = c * plane + q;
+              const int e = o + c * plane + q;
               const float dv = __fadd_rn(delta[e], __fmul_rn(alpha, __ldcg(p + e)));
               delta[e] = dv;
               const float rv = __fsub_rn(r[e], __fmul_rn(alpha, __ldcg(Ap + e)));
               r[e] = rv;
               if constexpr (LM) acc_q += (double)__fmul_rn(dv, __fadd_rn(b[e], rv));
             }
-            acc += block_prec(pre, r, z, C, plane, q);
+            acc += block_prec(pre, r, z, C, plane, o + q, po + q);
           }
         }
       } else if (reset) {
@@ -422,13 +419,13 @@ fused_grid_cg_kernel(const FT* __restrict__ F, const float* __restrict__ b,
           delta[e] = __fadd_rn(delta[e], __fmul_rn(alpha, p[e]));
         grid.sync();  // the stencil below reads neighbours' delta
         for (int e = first; e < total; e += stride) {
-          const int c = e / plane;
-          const int q = e - c * plane;
+          const int c = (e - o) / plane;
+          const int q = (e - o) - c * plane;
           int x, y, zc;
           coords(q, N12, N2, x, y, zc);
           const float dv = delta[e];
           float a = stencil_apply(F, delta, s_tr, s_start[c], s_start[c + 1],
-                                  N0, N1, N2, q, x, y, zc);
+                                  N0, N1, N2, q + o, q + fo, x, y, zc);
           if constexpr (REM)
             a = remainder_apply(rowptr, col, blk, delta, C, plane, c, q, a);
           a = __fadd_rn(a, __fmul_rn(ctc[e], dv));
@@ -451,12 +448,12 @@ fused_grid_cg_kernel(const FT* __restrict__ F, const float* __restrict__ b,
       store_partial(acc, part1, s_warp);
       if constexpr (LM) store_partial(acc_q, part2, s_warp);
       grid.sync();
-      const float rz_new = (float)partials_sum(part1, n_blocks, &s_bcast);
+      const float rz_new = (float)partials_sum(part1, n_blocks, s_bcast_p);
       const float beta = safe_div(rz_new, rz, guard_div);
       ++l;
       if constexpr (LM) {
         const float q1 =
-            __fmul_rn(0.5f, (float)partials_sum(part2, n_blocks, &s_bcast));
+            __fmul_rn(0.5f, (float)partials_sum(part2, n_blocks, s_bcast_p));
         const float zeta =
             __fdiv_rn(__fmul_rn((float)l, __fsub_rn(q1, q0)), q1);
         if (zeta < q_tol || rz_new <= floor_rz) break;
@@ -480,15 +477,15 @@ fused_grid_cg_kernel(const FT* __restrict__ F, const float* __restrict__ b,
     // r = b, u = M^-1 r, p = s = delta = 0, rz0 = <r, u>
     double acc = 0.0;
     if constexpr (BLOCK) {
-      for (int q = first; q < plane; q += stride) {
+      for (int q = tid; q < plane; q += stride) {
         for (int c = 0; c < C; ++c) {
-          const int e = c * plane + q;
+          const int e = o + c * plane + q;
           r[e] = b[e];
           p[e] = 0.f;
           s[e] = 0.f;
           delta[e] = 0.f;
         }
-        acc += block_prec(pre, r, z, C, plane, q);
+        acc += block_prec(pre, r, z, C, plane, o + q, po + q);
       }
     } else {
       for (int e = first; e < total; e += stride) {
@@ -505,7 +502,7 @@ fused_grid_cg_kernel(const FT* __restrict__ F, const float* __restrict__ b,
     store_partial(acc, part1, s_warp);
     grid.sync();
     const float floor_rz =
-        __fmul_rn(tol, (float)partials_sum(part1, n_blocks, &s_bcast));
+        __fmul_rn(tol, (float)partials_sum(part1, n_blocks, s_bcast_p));
     float gamma = 1.f, alpha_prev = 1.f, q0 = 0.f;
 
     while (l < lits) {
@@ -513,12 +510,12 @@ fused_grid_cg_kernel(const FT* __restrict__ F, const float* __restrict__ b,
       // LM, <delta, b + r>: one reduction
       double acc_g = 0.0, acc_d = 0.0, acc_q = 0.0;
       for (int e = first; e < total; e += stride) {
-        const int c = e / plane;
-        const int q = e - c * plane;
+        const int c = (e - o) / plane;
+        const int q = (e - o) - c * plane;
         int x, y, zc;
         coords(q, N12, N2, x, y, zc);
         float a = stencil_apply(F, z, s_tr, s_start[c], s_start[c + 1], N0, N1,
-                                N2, q, x, y, zc);
+                                N2, q + o, q + fo, x, y, zc);
         if constexpr (REM)
           a = remainder_apply(rowptr, col, blk, z, C, plane, c, q, a);
         const float uv = ldv<BLOCK>(z + e);
@@ -534,13 +531,13 @@ fused_grid_cg_kernel(const FT* __restrict__ F, const float* __restrict__ b,
       store_partial(acc_d, part1, s_warp);
       if constexpr (LM) store_partial(acc_q, part2, s_warp);
       grid.sync();
-      const float gamma_new = (float)partials_sum(part0, n_blocks, &s_bcast);
-      const float delta_d = (float)partials_sum(part1, n_blocks, &s_bcast);
+      const float gamma_new = (float)partials_sum(part0, n_blocks, s_bcast_p);
+      const float delta_d = (float)partials_sum(part1, n_blocks, s_bcast_p);
       const bool first_it = l == 0;
       bool stop = !first_it && gamma_new <= floor_rz;
       float q_cur = 0.f;
       if constexpr (LM) {
-        q_cur = __fmul_rn(0.5f, (float)partials_sum(part2, n_blocks, &s_bcast));
+        q_cur = __fmul_rn(0.5f, (float)partials_sum(part2, n_blocks, s_bcast_p));
         if (!first_it) {
           const float zeta =
               __fdiv_rn(__fmul_rn((float)l, __fsub_rn(q_cur, q0)), q_cur);
@@ -557,9 +554,9 @@ fused_grid_cg_kernel(const FT* __restrict__ F, const float* __restrict__ b,
       // phase B: p = u + beta p, s = w + beta s, delta += alpha p,
       // r -= alpha s, u = M^-1 r
       if constexpr (BLOCK) {
-        for (int q = first; q < plane; q += stride) {
+        for (int q = tid; q < plane; q += stride) {
           for (int c = 0; c < C; ++c) {
-            const int e = c * plane + q;
+            const int e = o + c * plane + q;
             const float pv = __fadd_rn(z[e], __fmul_rn(beta, p[e]));
             p[e] = pv;
             const float sv = __fadd_rn(__ldcg(Ap + e), __fmul_rn(beta, s[e]));
@@ -567,7 +564,7 @@ fused_grid_cg_kernel(const FT* __restrict__ F, const float* __restrict__ b,
             delta[e] = __fadd_rn(delta[e], __fmul_rn(alpha, pv));
             r[e] = __fsub_rn(r[e], __fmul_rn(alpha, sv));
           }
-          block_prec(pre, r, z, C, plane, q);
+          block_prec(pre, r, z, C, plane, o + q, po + q);
         }
       } else {
         for (int e = first; e < total; e += stride) {
@@ -590,28 +587,29 @@ fused_grid_cg_kernel(const FT* __restrict__ F, const float* __restrict__ b,
         if (l % reset_period == 0) {
           grid.sync();  // the stencil below reads neighbours' delta
           if constexpr (BLOCK) {
-            for (int q = first; q < plane; q += stride) {
+            for (int q = tid; q < plane; q += stride) {
               int x, y, zc;
               coords(q, N12, N2, x, y, zc);
               for (int c = 0; c < C; ++c) {
-                const int e = c * plane + q;
+                const int e = o + c * plane + q;
                 float a = stencil_apply(F, delta, s_tr, s_start[c],
-                                        s_start[c + 1], N0, N1, N2, q, x, y, zc);
+                                        s_start[c + 1], N0, N1, N2, q + o,
+                                        q + fo, x, y, zc);
                 if constexpr (REM)
                   a = remainder_apply(rowptr, col, blk, delta, C, plane, c, q, a);
                 a = __fadd_rn(a, __fmul_rn(ctc[e], delta[e]));
                 r[e] = __fsub_rn(b[e], a);
               }
-              block_prec(pre, r, z, C, plane, q);
+              block_prec(pre, r, z, C, plane, o + q, po + q);
             }
           } else {
             for (int e = first; e < total; e += stride) {
-              const int c = e / plane;
-              const int q = e - c * plane;
+              const int c = (e - o) / plane;
+              const int q = (e - o) - c * plane;
               int x, y, zc;
               coords(q, N12, N2, x, y, zc);
               float a = stencil_apply(F, delta, s_tr, s_start[c], s_start[c + 1],
-                                      N0, N1, N2, q, x, y, zc);
+                                      N0, N1, N2, q + o, q + fo, x, y, zc);
               if constexpr (REM)
                 a = remainder_apply(rowptr, col, blk, delta, C, plane, c, q, a);
               a = __fadd_rn(a, __fmul_rn(ctc[e], delta[e]));
@@ -625,45 +623,124 @@ fused_grid_cg_kernel(const FT* __restrict__ F, const float* __restrict__ b,
       grid.sync();
     }
   }
-  if (first == 0) *iters = l;
+  return l;
 }
 
-// the instances of one (LM, CS) pair
+// The kernel. The MULTI instances hold n_sys independent systems of C
+// channels each, solved one after the other inside the launch. System k
+// reads b, pre, ctc and writes delta and its scratch vectors at k*C planes,
+// reads its fields at F + k*f_sys_stride (0: the systems share the fields,
+// the per-channel split of a channel-separable operator), sums its dots in
+// its own partials (part + k*gridDim.x), leaves its loop at its own exit
+// and writes its own count iters[k]. The exits are uniform across the grid,
+// so every block reaches every barrier of every system. One system's
+// working set is a 1/n_sys share of the joint one: poisson 1024x1024x4
+// moves 48 MiB an iteration a channel, inside the H100's 50 MiB L2, where
+// the joint loop's 132 MiB stream from device memory. The other instances
+// run one system with every offset a compile-time 0: carrying the offsets
+// as variables slowed them at their 32-register cap (a probe on an H100;
+// PERF.md), hence the separate instances (GN and LM, standard and
+// Chronopoulos-Gear, float32 and bfloat16 fields: no remainder, no block
+// preconditioner).
+template <bool LM, bool REM, bool CS, bool BLOCK, typename FT, bool MULTI>
+__global__ void __launch_bounds__(FGCG_BLOCK, REM ? FGCG_MIN_BLOCKS_REM : FGCG_MIN_BLOCKS)
+fused_grid_cg_kernel(const FT* __restrict__ F, const float* __restrict__ b,
+                     const float* __restrict__ pre,
+                     const float* __restrict__ ctc,
+                     const int* __restrict__ triples,
+                     const int* __restrict__ starts,
+                     const int* __restrict__ rowptr,
+                     const int* __restrict__ col,
+                     const FT* __restrict__ blk, int C, int n_sys,
+                     int f_sys_stride, int N0, int N1, int N2, int lits,
+                     float tol, int guard_div, int reset_period, float q_tol,
+                     float* delta, float* r, float* p, float* Ap, float* z,
+                     float* s, double* part0, double* part1, double* part2,
+                     int* iters) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ int s_tr[FGCG_MAX_TRIPLES * FGCG_SROW];
+  __shared__ int s_start[FGCG_MAX_CHANNELS + 1];
+  __shared__ double s_warp[FGCG_BLOCK / 32];
+  __shared__ double s_bcast;
+
+  const int N12 = N1 * N2;
+  const int plane = N0 * N12;
+  for (int k = threadIdx.x; k <= C; k += blockDim.x) s_start[k] = starts[k];
+  __syncthreads();
+  const int n_triples = s_start[C];
+  for (int k = threadIdx.x; k < n_triples; k += blockDim.x) {
+    const int* h = triples + FGCG_ROW * k;
+    int* t = s_tr + FGCG_SROW * k;
+    t[0] = h[0];
+    t[1] = h[1];
+    t[2] = h[2];
+    t[3] = h[4] * plane + h[0] * N12 + h[1] * N2 + h[2];
+    t[4] = h[5] * plane;
+  }
+  __syncthreads();
+
+  if constexpr (MULTI) {
+    for (int k = 0; k < n_sys; ++k) {
+      const int o = k * C * plane;  // the system's first state element
+      const int l = cg_system<LM, REM, CS, BLOCK, FT>(
+          grid, s_tr, s_start, s_warp, &s_bcast, F, b, pre, ctc, rowptr, col,
+          blk, C, N0, N1, N2, lits, tol, guard_div, reset_period, q_tol, delta,
+          r, p, Ap, z, s, part0, part1, part2, o, BLOCK ? C * o : o,
+          k * f_sys_stride, k * (int)gridDim.x);
+      if (blockIdx.x == 0 && threadIdx.x == 0) iters[k] = l;
+    }
+  } else {
+    const int l = cg_system<LM, REM, CS, BLOCK, FT>(
+        grid, s_tr, s_start, s_warp, &s_bcast, F, b, pre, ctc, rowptr, col, blk,
+        C, N0, N1, N2, lits, tol, guard_div, reset_period, q_tol, delta, r, p,
+        Ap, z, s, part0, part1, part2, 0, 0, 0, 0);
+    if (blockIdx.x == 0 && threadIdx.x == 0) *iters = l;
+  }
+}
+
+// the instances of one (LM, CS) pair; the multi-system ones have no
+// remainder and no block preconditioner
 template <bool LM, bool CS>
-static const void* pair_instance(int rem, int block, int bf16) {
+static const void* pair_instance(int rem, int block, int bf16, int multi) {
   typedef __nv_bfloat16 H;
+  if (multi) {
+    if (rem || block) return nullptr;
+    return bf16 ? (const void*)fused_grid_cg_kernel<LM, false, CS, false, H, true>
+                : (const void*)fused_grid_cg_kernel<LM, false, CS, false, float, true>;
+  }
   if (rem) {
     if (block)
-      return bf16 ? (const void*)fused_grid_cg_kernel<LM, true, CS, true, H>
-                  : (const void*)fused_grid_cg_kernel<LM, true, CS, true, float>;
-    return bf16 ? (const void*)fused_grid_cg_kernel<LM, true, CS, false, H>
-                : (const void*)fused_grid_cg_kernel<LM, true, CS, false, float>;
+      return bf16 ? (const void*)fused_grid_cg_kernel<LM, true, CS, true, H, false>
+                  : (const void*)fused_grid_cg_kernel<LM, true, CS, true, float, false>;
+    return bf16 ? (const void*)fused_grid_cg_kernel<LM, true, CS, false, H, false>
+                : (const void*)fused_grid_cg_kernel<LM, true, CS, false, float, false>;
   }
   if (block)
-    return bf16 ? (const void*)fused_grid_cg_kernel<LM, false, CS, true, H>
-                : (const void*)fused_grid_cg_kernel<LM, false, CS, true, float>;
-  return bf16 ? (const void*)fused_grid_cg_kernel<LM, false, CS, false, H>
-              : (const void*)fused_grid_cg_kernel<LM, false, CS, false, float>;
+    return bf16 ? (const void*)fused_grid_cg_kernel<LM, false, CS, true, H, false>
+                : (const void*)fused_grid_cg_kernel<LM, false, CS, true, float, false>;
+  return bf16 ? (const void*)fused_grid_cg_kernel<LM, false, CS, false, H, false>
+              : (const void*)fused_grid_cg_kernel<LM, false, CS, false, float, false>;
 }
 
-// the instance for these flags
+// the instance for these flags, or null where there is none
 static const void* kernel_instance(int lm, int rem, int cs, int block,
-                                   int bf16) {
+                                   int bf16, int multi) {
   if (lm)
-    return cs ? pair_instance<true, true>(rem, block, bf16)
-              : pair_instance<true, false>(rem, block, bf16);
-  return cs ? pair_instance<false, true>(rem, block, bf16)
-            : pair_instance<false, false>(rem, block, bf16);
+    return cs ? pair_instance<true, true>(rem, block, bf16, multi)
+              : pair_instance<true, false>(rem, block, bf16, multi);
+  return cs ? pair_instance<false, true>(rem, block, bf16, multi)
+            : pair_instance<false, false>(rem, block, bf16, multi);
 }
 
 extern "C" {
 
-// Co-resident block count of one instance (lm, rem, cs, block, bf16: 0 or
-// 1 each) at `threads` threads (the cooperative launch limit): blocks per SM
-// times SMs on the current device.
+// Co-resident block count of one instance (lm, rem, cs, block, bf16, multi:
+// 0 or 1 each) at `threads` threads (the cooperative launch limit): blocks
+// per SM times SMs on the current device.
 int fused_grid_cg_max_blocks(int lm, int rem, int cs, int block, int bf16,
-                             int threads, int* out) {
-  const void* kernel = kernel_instance(lm, rem, cs, block, bf16);
+                             int multi, int threads, int* out) {
+  const void* kernel = kernel_instance(lm, rem, cs, block, bf16, multi);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
@@ -680,7 +757,12 @@ int fused_grid_cg_max_blocks(int lm, int rem, int cs, int block, int bf16,
 }
 
 // Launches one instance on `stream`, with the remainder phase when rowptr
-// is not null; returns the CUDA error of the launch. F and blk are float32,
+// is not null; returns the CUDA error of the launch. The state arrays hold
+// n_sys systems of C channels each (b, ctc, delta, r, p, Ap, z, s:
+// n_sys*C planes; pre: n_sys*C, or n_sys*C*C under block = 1), part0..2
+// n_sys*grid partials each and iters n_sys counts; system k reads its
+// fields at F + k*f_sys_stride elements (0: shared). n_sys > 1 launches the
+// multi-system instance, which takes no remainder and no block = 1. F and blk are float32,
 // or bfloat16 when bf16 = 1. ctc, reset_period, q_tol and part2 are read by
 // the LM instances only; rowptr, col and blk by the remainder instances
 // only, which need N0 == N1 == 1 (a graph's vertex axis); z by the CS and
@@ -690,13 +772,15 @@ int fused_grid_cg_launch(int lm, int cs, int block, int bf16, const void* F,
                          const float* b, const float* pre, const float* ctc,
                          const int* triples, const int* starts,
                          const int* rowptr, const int* col, const void* blk,
-                         int C, int N0, int N1, int N2, int lits, float tol,
+                         int C, int n_sys, int f_sys_stride, int N0, int N1,
+                         int N2, int lits, float tol,
                          int guard_div, int reset_period, float q_tol,
                          float* delta, float* r, float* p, float* Ap, float* z,
                          float* s, double* part0, double* part1,
                          double* part2, int* iters, int grid, int threads,
                          void* stream) {
-  if (threads != FGCG_BLOCK || C < 1 || C > FGCG_MAX_CHANNELS)
+  if (threads != FGCG_BLOCK || C < 1 || C > FGCG_MAX_CHANNELS || n_sys < 1 ||
+      f_sys_stride < 0)
     return (int)cudaErrorInvalidValue;
   if (lm && (ctc == nullptr || part2 == nullptr || reset_period < 1))
     return (int)cudaErrorInvalidValue;
@@ -705,9 +789,11 @@ int fused_grid_cg_launch(int lm, int cs, int block, int bf16, const void* F,
   const int rem = rowptr != nullptr;
   if (rem && (col == nullptr || blk == nullptr || N0 != 1 || N1 != 1))
     return (int)cudaErrorInvalidValue;
-  const void* kernel = kernel_instance(lm, rem, cs, block, bf16);
+  const int multi = n_sys > 1;
+  const void* kernel = kernel_instance(lm, rem, cs, block, bf16, multi);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   int max_blocks = 0;
-  int err = fused_grid_cg_max_blocks(lm, rem, cs, block, bf16, threads,
+  int err = fused_grid_cg_max_blocks(lm, rem, cs, block, bf16, multi, threads,
                                      &max_blocks);
   if (err) return err;
   if (grid < 1 || grid > max_blocks)
@@ -715,7 +801,8 @@ int fused_grid_cg_launch(int lm, int cs, int block, int bf16, const void* F,
   void* args[] = {(void*)&F,        (void*)&b,         (void*)&pre,
                   (void*)&ctc,      (void*)&triples,   (void*)&starts,
                   (void*)&rowptr,   (void*)&col,       (void*)&blk,
-                  (void*)&C,        (void*)&N0,        (void*)&N1,
+                  (void*)&C,        (void*)&n_sys,     (void*)&f_sys_stride,
+                  (void*)&N0,       (void*)&N1,
                   (void*)&N2,       (void*)&lits,      (void*)&tol,
                   (void*)&guard_div, (void*)&reset_period, (void*)&q_tol,
                   (void*)&delta,    (void*)&r,         (void*)&p,

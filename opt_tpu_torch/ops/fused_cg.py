@@ -35,6 +35,16 @@ leaves that iteration uncounted). The preconditioner is elementwise, or
 the per-point block apply z[i] = Σ_j M⁻¹[i·C+j]·r[j]. The twin and the
 solver's eager loop both run it, and the kernel implements the same steps,
 so exits and counted iterations agree by construction.
+
+The per-channel split (the JAX package's ``chan_grid`` form): where every
+coupling is channel-diagonal with channel-identical fields, the C channels
+are C independent one-channel systems over shared fields. One launch then
+holds ``n_sys`` = C systems, solved one after the other inside the kernel,
+each with its own dot products, its own exit and its own iteration count
+(``iters[s]``); the counts are summed for the solver. The planner splits
+when the joint loop's working set exceeds :data:`SPLIT_WORKING_SET_BYTES`
+(the card's L2) and one channel's does not, so each system's loop runs out
+of L2 where the joint loop would stream from device memory.
 """
 
 from __future__ import annotations
@@ -55,6 +65,12 @@ CG_VARIANTS = ("standard", "chronopoulos_gear")
 
 
 COEFFICIENT_DTYPES = (torch.bfloat16, torch.float32)  # the fields the kernel reads
+# The per-channel split engages when the CG loop's working set (7 state
+# planes per channel plus the fields) is beyond this many bytes and one
+# channel's is not: the H100's 50 MiB L2. poisson 1024x1024x4 (132 MiB
+# joint, 48 MiB a channel) splits; poisson 512x512x4 (33 MiB) does not.
+SPLIT_WORKING_SET_BYTES = 50 * 2**20
+STATE_PLANES_PER_CHANNEL = 7  # b, pre, delta, r, p, Ap and one more (ctc or z)
 
 
 def coefficient_dtype(coeff_dtype) -> Optional[torch.dtype]:
@@ -76,13 +92,31 @@ def _narrow(F, coeff_dtype):
     return F.contiguous() if dt is None else F.to(dt).contiguous()
 
 
+def split_triples(triples, ctot: int):
+    """The one-channel triples (Δ, 0, 0, fid) of a channel-separable
+    operator, or None: every triple couples a channel with itself, and
+    every channel has the same set of (Δ, fid)."""
+    if ctot < 2 or any(i != j for (_d, i, j, _f) in triples):
+        return None
+    by_chan = {}
+    for d, i, _j, fid in triples:
+        by_chan.setdefault(i, set()).add((d, fid))
+    if len(by_chan) != ctot or len({frozenset(v) for v in by_chan.values()}) != 1:
+        return None
+    return tuple(sorted((d, 0, 0, fid) for (d, fid) in next(iter(by_chan.values()))))
+
+
 def plan_fused_grid_cg(compiled, plan, fields: Dict, w_layouts: Dict,
-                       coeff_dtype=None) -> Optional[Dict]:
+                       coeff_dtype=None, allow_split: bool = True) -> Optional[Dict]:
     """Decide applicability from the assembled operator and build the loop's
     inputs: exactly one 2-D or 3-D index space holding every unknown,
-    float32. Returns {u_list, offs, channels, ctot, triples, F [T, *dom],
-    rem, isp} or None. The in-bounds masks are folded into F, which is then
-    stored in ``coeff_dtype`` (None: float32)."""
+    float32. Returns {u_list, offs, channels, ctot, chan_grid, triples,
+    F [T, *dom], rem, isp} or None. The in-bounds masks are folded into F,
+    which is then stored in ``coeff_dtype`` (None: float32). ``chan_grid``
+    says that the channels are solved as independent one-channel systems
+    (the module docstring's split; ``triples`` are then one channel's);
+    ``allow_split=False`` (a block preconditioner couples the channels)
+    keeps the joint loop."""
     if not fields or compiled.dtype != torch.float32 or len(w_layouts) != 1:
         return None
     ((isp, (u_list, offs, ctot)),) = w_layouts.items()
@@ -105,13 +139,24 @@ def plan_fused_grid_cg(compiled, plan, fields: Dict, w_layouts: Dict,
                 triples.append((d, offs[u_out] + c, offs[u_in] + c, fid))
         else:
             triples.append((d, offs[u_out] + i, offs[u_in] + j, fid))
+    F = _narrow(torch.stack(field_list, dim=0), coeff_dtype)
+    chan_grid = False
+    plane_bytes = 4 * int(torch.Size(dom).numel())
+    f_bytes = F.numel() * F.element_size()
+    if allow_split and (STATE_PLANES_PER_CHANNEL * ctot * plane_bytes + f_bytes
+                        > SPLIT_WORKING_SET_BYTES):
+        one = split_triples(triples, ctot)
+        if one is not None and (STATE_PLANES_PER_CHANNEL * plane_bytes + f_bytes
+                                <= SPLIT_WORKING_SET_BYTES):
+            chan_grid, triples = True, one
     return {
         "u_list": tuple(u_list),
         "offs": dict(offs),
         "channels": channels,
         "ctot": ctot,
+        "chan_grid": chan_grid,
         "triples": tuple(triples),
-        "F": _narrow(torch.stack(field_list, dim=0), coeff_dtype),
+        "F": F,
         "rem": None,
         "isp": isp,
     }
@@ -257,6 +302,7 @@ def plan_fused_graph_cg(compiled, plan, fields: Dict, grp_exec: Dict,
         "offs": offs,
         "channels": channels,
         "ctot": ctot,
+        "chan_grid": False,
         "triples": tuple(triples),
         "F": _narrow(F, coeff_dtype),
         "rem": rem,
@@ -467,9 +513,33 @@ def _block_prec(pre_blocks):
     return prec
 
 
+def _split_reference(F, triples, b, pre, lits, tol, n_sys, counts, *, ctc=None, **kw):
+    """The twin over ``n_sys`` independent systems: :func:`_run_cg` once per
+    system on its [C / n_sys, *dom] slices of b, pre and ctc with the
+    shared F, in system order. Returns (delta [C, *dom], the summed
+    count); ``counts`` receives each system's."""
+    C = int(b.shape[0])
+    if n_sys < 1 or C % n_sys:
+        raise ValueError(f"fused_grid_cg: {C} channels do not split into {n_sys} systems")
+    if kw.get("rem") is not None or kw.get("pre_blocks") is not None:
+        raise ValueError("fused_grid_cg: the split form takes no remainder and no block "
+                         "preconditioner")
+    cs_ = C // n_sys
+    deltas, total = [], 0
+    for k in range(n_sys):
+        sl = slice(k * cs_, (k + 1) * cs_)
+        d, l = fused_grid_cg_reference(F, triples, b[sl], pre[sl], lits, tol,
+                                       ctc=None if ctc is None else ctc[sl], **kw)
+        deltas.append(d)
+        total += l
+        if counts is not None:
+            counts.append(l)
+    return torch.cat(deltas), total
+
+
 def fused_grid_cg_reference(F, triples, b, pre, lits, tol, *, guard_div=True,
                             ctc=None, reset_period=None, q_tolerance=None, trace=None,
-                            rem=None, cs=False, pre_blocks=None):
+                            rem=None, cs=False, pre_blocks=None, n_sys=1, counts=None):
     """Plain PyTorch twin of the CUDA kernel on packed [C, *dom] tensors:
     the same algebra through :func:`_run_cg`, with the kernel's dot
     products (:func:`_dot`); ``rem`` (a meta's ``"rem"``) adds the graph
@@ -478,7 +548,16 @@ def fused_grid_cg_reference(F, triples, b, pre, lits, tol, *, guard_div=True,
     ``pre_blocks`` (packed [C·C, *dom], :func:`pack_pre_blocks`) the block
     preconditioner in place of the elementwise ``pre``. A bfloat16 F or
     remainder is widened to float32 (exact) and multiplied in float32.
-    ``trace`` as in :func:`_run_cg`. Returns (delta, iterations)."""
+    ``trace`` as in :func:`_run_cg`. ``n_sys`` > 1 solves that many
+    independent systems of C / n_sys channels each over the shared F (the
+    split form; ``triples`` are one system's), each with its own exit; the
+    iterations returned are then the sum, and a ``counts`` list receives
+    each system's. Returns (delta, iterations)."""
+    if n_sys != 1:
+        return _split_reference(
+            F, triples, b, pre, lits, tol, int(n_sys), counts, guard_div=guard_div, ctc=ctc,
+            reset_period=reset_period, q_tolerance=q_tolerance, trace=trace, rem=rem, cs=cs,
+            pre_blocks=pre_blocks)
     F = F.float()
     if ctc is None:
         apply = lambda p: _operator_apply(F, triples, rem, p)  # noqa: E731
@@ -520,24 +599,31 @@ def _device_triples(triples, ctot: int, device):
 
 
 def instance_name(lm: bool, rem: bool, cs: bool = False, block: bool = False,
-                  bf16: bool = False) -> str:
+                  bf16: bool = False, multi: bool = False) -> str:
     """The kernel instance's name: "gn" or "lm", then "_cs" for
-    Chronopoulos–Gear, "_bj" for block-Jacobi, "_bf16" for bfloat16 fields
-    and "_rem" with the remainder phase."""
+    Chronopoulos–Gear, "_bj" for block-Jacobi, "_bf16" for bfloat16 fields,
+    "_rem" with the remainder phase and "_multi" for the instances whose
+    launch holds several independent systems (the per-channel split)."""
     return (("lm" if lm else "gn") + ("_cs" if cs else "") + ("_bj" if block else "")
-            + ("_bf16" if bf16 else "") + ("_rem" if rem else ""))
+            + ("_bf16" if bf16 else "") + ("_rem" if rem else "")
+            + ("_multi" if multi else ""))
 
 
+# (lm, rem, cs, block, bf16, multi): the multi-system instances have no
+# remainder and no block preconditioner
 INSTANCES = tuple(
-    (lm, rem, cs, block, bf16)
+    (lm, rem, cs, block, bf16, False)
     for lm in (False, True) for cs in (False, True) for block in (False, True)
     for bf16 in (False, True) for rem in (False, True)
+) + tuple(
+    (lm, False, cs, False, bf16, True)
+    for lm in (False, True) for cs in (False, True) for bf16 in (False, True)
 )
 
 
 def _grid_size(lib, device, flags) -> int:
     """Co-resident block count of one kernel instance on ``device``
-    (flags: lm, rem, cs, block, bf16)."""
+    (flags: lm, rem, cs, block, bf16, multi)."""
     out = ctypes.c_int(0)
     with torch.cuda.device(device):
         err = lib.fused_grid_cg_max_blocks(*(int(f) for f in flags), BLOCK_THREADS,
@@ -565,8 +651,12 @@ def fused_grid_cg_kernel(meta, b, pre, lits, tol, *, guard_div=True, ctc=None,
     ``reset_period`` and ``q_tolerance``); Chronopoulos–Gear under ``cs``;
     the block preconditioner when ``pre_blocks`` ([C·C, *dom]) is given
     (``pre`` is then not read); bfloat16 fields when the meta's F is
-    bfloat16; the remainder phase when the meta has one (``meta["rem"]``).
-    Returns (delta, iters int32[1] on the device). Does not synchronise.
+    bfloat16; the remainder phase when the meta has one (``meta["rem"]``);
+    the per-channel split when the meta says ``chan_grid``: the C channels
+    as C one-channel systems over the shared fields, solved in turn inside
+    the one launch, each with its own exit and count.
+    Returns (delta, iters int32[n_sys] on the device: one count per system,
+    n_sys = 1 unless split). Does not synchronise.
     Each launch adds one to ``fused_grid_cg_kernel.launches[instance]``
     (:func:`instance_name`)."""
     from ._build import load_library
@@ -587,6 +677,13 @@ def fused_grid_cg_kernel(meta, b, pre, lits, tol, *, guard_div=True, ctc=None,
     if len(dom) not in (2, 3):
         raise ValueError(f"fused_grid_cg_kernel takes a 2-D or 3-D domain, got {dom}")
     N0, N1, N2 = (1,) * (3 - len(dom)) + dom
+    # the split: n_sys systems of c_sys channels each; F is shared, so its
+    # per-system stride is 0
+    n_sys = C if meta.get("chan_grid") else 1
+    c_sys = C // n_sys
+    if n_sys > 1 and (block or rem is not None):
+        raise ValueError("fused_grid_cg_kernel: the split form takes no remainder and no "
+                         "block preconditioner")
     _check_operand("b", b, (C,) + dom, torch.float32, device)
     if block:
         _check_operand("pre_blocks", pre_blocks, (C * C,) + dom, torch.float32, device)
@@ -611,30 +708,31 @@ def fused_grid_cg_kernel(meta, b, pre, lits, tol, *, guard_div=True, ctc=None,
         if nnz * C * C >= 2**31:
             raise ValueError("fused_grid_cg_kernel indexes with int32: remainder too large")
     n_triples = len(meta["triples"])
-    if not 0 < n_triples <= MAX_TRIPLES or C > MAX_CHANNELS:
+    if not 0 < n_triples <= MAX_TRIPLES or c_sys > MAX_CHANNELS:
         raise ValueError(
             f"fused_grid_cg_kernel takes up to {MAX_TRIPLES} triples and "
-            f"{MAX_CHANNELS} channels, got {n_triples} and {C}"
+            f"{MAX_CHANNELS} channels, got {n_triples} and {c_sys}"
         )
-    if any(not 0 <= fid < F.shape[0] for (_d, _i, _j, fid) in meta["triples"]):
-        raise ValueError("fused_grid_cg_kernel: triple field id out of range")
+    if any(not (0 <= fid < F.shape[0] and 0 <= i < c_sys and 0 <= j < c_sys)
+           for (_d, i, j, fid) in meta["triples"]):
+        raise ValueError("fused_grid_cg_kernel: triple field id or channel out of range")
     plane = N0 * N1 * N2
     total = C * plane
     if total >= 2**31 or F.numel() >= 2**31 or (block and C * total >= 2**31):
         raise ValueError("fused_grid_cg_kernel indexes with int32: problem too large")
     with_rem = rem is not None
-    flags = (lm, with_rem, cs, block, bf16)
+    flags = (lm, with_rem, cs, block, bf16, n_sys > 1)
     lib = load_library()
-    grid = min(_grid_size(lib, device, flags), -(-total // BLOCK_THREADS))
-    tr, starts = _device_triples(meta["triples"], int(meta["ctot"]), device)
+    grid = min(_grid_size(lib, device, flags), -(-(c_sys * plane) // BLOCK_THREADS))
+    tr, starts = _device_triples(meta["triples"], c_sys, device)
     delta = torch.empty_like(b)
     r = torch.empty_like(b)
     p = torch.empty_like(b)
     Ap = torch.empty_like(b)
     z = torch.empty_like(b) if (cs or block) else None
     s = torch.empty_like(b) if cs else None
-    part = torch.empty((3 if lm else 2, grid), dtype=torch.float64, device=device)
-    iters = torch.empty(1, dtype=torch.int32, device=device)
+    part = torch.empty((3 if lm else 2, n_sys, grid), dtype=torch.float64, device=device)
+    iters = torch.empty(n_sys, dtype=torch.int32, device=device)
     ptr = lambda t: None if t is None else ctypes.c_void_p(t.data_ptr())  # noqa: E731
     with torch.cuda.device(device):
         err = lib.fused_grid_cg_launch(
@@ -642,7 +740,8 @@ def fused_grid_cg_kernel(meta, b, pre, lits, tol, *, guard_div=True, ctc=None,
             ptr(F), ptr(b), ptr(pre_blocks if block else pre), ptr(ctc), ptr(tr), ptr(starts),
             ptr(rem["rowptr"]) if with_rem else None, ptr(rem["col"]) if with_rem else None,
             ptr(rem["blk"]) if with_rem else None,
-            C, N0, N1, N2, int(lits), ctypes.c_float(float(tol)), int(bool(guard_div)),
+            c_sys, n_sys, 0, N0, N1, N2, int(lits), ctypes.c_float(float(tol)),
+            int(bool(guard_div)),
             int(reset_period) if lm else 0, ctypes.c_float(float(q_tolerance) if lm else 0.0),
             ptr(delta), ptr(r), ptr(p), ptr(Ap), ptr(z), ptr(s),
             ptr(part[0]), ptr(part[1]), ptr(part[2]) if lm else None, ptr(iters),
@@ -688,7 +787,9 @@ def fused_grid_cg(meta, r0, pre, l_iterations, rz_tolerance, *, guard_div=True,
     ``q_tolerance``) runs the LM loop; ``pre_blocks`` ([*dom, C, C], the
     inverted per-point blocks over the packed channels, rows masked)
     replaces the elementwise ``pre`` with the block-Jacobi apply;
-    ``cg_variant="chronopoulos_gear"`` runs the Chronopoulos–Gear loop.
+    ``cg_variant="chronopoulos_gear"`` runs the Chronopoulos–Gear loop. A
+    meta with ``chan_grid`` runs its channels as independent one-channel
+    systems, and the iterations returned are the sum of theirs.
 
     CPU tensors, or ``interpret=True``, run the plain twin. CUDA tensors
     launch the kernel. Any other device raises."""
@@ -702,17 +803,20 @@ def fused_grid_cg(meta, r0, pre, l_iterations, rz_tolerance, *, guard_div=True,
     ctcm = pack(ctc, meta) if ctc is not None else None
     kw = dict(ctc=ctcm, reset_period=reset_period, q_tolerance=q_tolerance,
               cs=cg_variant == "chronopoulos_gear", pre_blocks=pbm)
+    split = bool(meta.get("chan_grid"))
     if interpret or b.device.type == "cpu":
         delta, l = fused_grid_cg_reference(
             meta["F"], meta["triples"], b, prem, l_iterations, rz_tolerance,
-            guard_div=guard_div, rem=meta.get("rem"), **kw,
+            guard_div=guard_div, rem=meta.get("rem"),
+            n_sys=int(b.shape[0]) if split else 1, **kw,
         )
         iters = torch.full((), l, dtype=torch.int32, device=b.device)
     elif b.device.type == "cuda":
         delta, it = fused_grid_cg_kernel(
             meta, b, prem, l_iterations, rz_tolerance, guard_div=guard_div, **kw
         )
-        iters = it[0]
+        # per-system counts: the solver takes the executed total
+        iters = it.sum(dtype=torch.int32) if split else it[0]
     else:
         raise ValueError(
             f"fused_grid_cg runs on CPU (plain twin) or CUDA (kernel) tensors, "

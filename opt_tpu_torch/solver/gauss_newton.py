@@ -226,7 +226,10 @@ class GaussNewtonSolver:
             if asm_cache is None:
                 asm_cache = self._asm_cache(fs, X)
             A, diag, jtf_fn, cg_meta = fs.assemble_stencil(
-                X, self._stencil_plan, asm_cache, coeff_dtype=self._coeff_dtype
+                X, self._stencil_plan, asm_cache, coeff_dtype=self._coeff_dtype,
+                # a block preconditioner couples the channels: no per-channel split
+                allow_split=not (self.ip.preconditioner == "block_jacobi"
+                                 and self.compiled.use_preconditioner),
             )
             r_terms = jtf_fn.r_terms
             if r_terms is None:  # every probe hoisted: evaluate residuals

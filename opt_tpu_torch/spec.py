@@ -24,25 +24,25 @@ declarations, same Energy calls in the same order).
 passes neither values nor gradients and ±inf sentinels stay harmless.
 
 Graph accesses ``X(G.v0)`` read per-edge endpoint values with an index
-gather (ops/graph_ops.edge_gather). ``ComputedArray`` and ``SampledImage``
-are not ported yet and raise ``NotImplementedError``.
+gather (ops/graph_ops.edge_gather). A ``ComputedArray`` is materialized
+once per field-mode run; in slot mode its accesses read a stored value slot
+plus stored per-unknown gradient slots (compile._computed_bundle), so jvp
+probes chain through the stored gradients instead of re-evaluating the
+expression. A ``SampledImage`` is sampled bilinearly with the user's
+derivative images as its position derivatives (ops/sampling.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from .dims import Dim, IndexSpace, as_ispace
 from .ops.graph_ops import edge_gather
+from .ops.sampling import central_difference_images, sample_with_derivs
 from .ops.shift import coordinate_field, in_bounds_mask, shift
-
-COMPUTED_TODO = (
-    "ComputedArray and SampledImage are not ported yet (ROADMAP.md queue 1 "
-    "item 9)"
-)
 
 
 class SpecError(Exception):
@@ -86,7 +86,9 @@ class GraphSlotRef:
 
 
 # Slot keys: ('img', image, offsets) | ('gimg', image, graph, slot) |
-# ('bounds', ispace_dims, offsets, expand)
+# ('bounds', ispace_dims, offsets, expand) |
+# ('cimg', computed array, offsets) |
+# ('cgrad', computed array, offsets, unknown, relative offset)
 
 
 def _img_key(name: str, off: Tuple[int, ...]):
@@ -105,13 +107,15 @@ def _bounds_key(ispace_key, off, expand):
 class SlotInfo:
     key: tuple
     image: Optional[str]
-    kind: str  # 'img' | 'gimg' | 'bounds'
+    kind: str  # 'img' | 'gimg' | 'bounds' | 'cimg' | 'cgrad'
     ispace: IndexSpace
     graph: Optional[str]
     offset: Optional[Tuple[int, ...]]
     expand: int
     channels: int
     is_unknown: bool
+    # True for bounds gates the framework inserted itself (ComputedArray
+    # border zeroing); a user InBounds access resets this to False.
     internal: bool = False
 
 
@@ -179,6 +183,42 @@ class GraphHandle:
         return GraphSlotRef(self._decl.name, item)
 
 
+class ComputedHandle:
+    """A precomputed array (reference ``ComputedArray``).
+
+    ``fn`` is a zero-argument closure building the per-element expression
+    from accessors. In field mode the array is materialized once per run
+    and shifted reads are zero-padded shifts of the materialized field. In
+    slot mode the access reads a precomputed value slot plus stored
+    per-unknown gradient slots (compile._computed_bundle), the reference's
+    ComputedImage value and gradient images. Nested ComputedArrays fall
+    back to inlining with composed offsets.
+    """
+
+    def __init__(self, b: "SpecBuilder", name: str, ispace: IndexSpace, fn):
+        self._b = b
+        self.name = name
+        self.ispace = ispace
+        self.fn = fn
+
+    def __call__(self, *off):
+        return self._b._access_computed(self, tuple(int(o) for o in off))
+
+
+class SampledImageHandle:
+    """Bilinear-sampled 2-D image with user derivative images (reference
+    ``ad.sampledimage``)."""
+
+    def __init__(self, b: "SpecBuilder", image: ImageHandle, dx: Optional[ImageHandle], dy):
+        self._b = b
+        self.image = image
+        self.dx = dx
+        self.dy = dy
+
+    def __call__(self, x, y):
+        return self._b._access_sampled(self, x, y)
+
+
 class SpecBuilder:
     """Executes a user spec function under one of three accessor backends."""
 
@@ -204,7 +244,13 @@ class SpecBuilder:
         self.slot_values = list(slot_values) if slot_values is not None else None
         self.energy_values: List[Any] = []
         self.exclude_values: List[Any] = []
+        self._computed_cache: Dict[str, Any] = {}
+        self._offset_ctx: List[Tuple[int, ...]] = []
         self._dims_seen: Dict[str, Dim] = {}
+        # active while recording a ComputedArray expression's unknown reads
+        # (discover mode only): list of (image, composed offset, channels)
+        self._recording: Optional[List[tuple]] = None
+        self._rec_bailed = False
 
     def __enter__(self):
         _BUILDER_STACK.append(self)
@@ -269,11 +315,13 @@ class SpecBuilder:
                 return _as_dtype(params[name], self.dtype, self.device)
         return torch.ones((), dtype=self.dtype, device=self.device)
 
-    def ComputedArray(self, name: str, dims, fn):
-        raise NotImplementedError(COMPUTED_TODO)
+    def ComputedArray(self, name: str, dims, fn: Callable[[], Any]) -> ComputedHandle:
+        return ComputedHandle(self, name, as_ispace(dims), fn)
 
-    def SampledImage(self, image, dx=None, dy=None):
-        raise NotImplementedError(COMPUTED_TODO)
+    def SampledImage(self, image: ImageHandle, dx=None, dy=None) -> SampledImageHandle:
+        if image.decl.ispace.ndim != 2:
+            raise SpecError("sampled images must be 2D (reference o.t:2481)")
+        return SampledImageHandle(self, image, dx, dy)
 
     # -- spec-level switches --------------------------------------------------
     def UsePreconditioner(self, flag: bool):
@@ -301,7 +349,11 @@ class SpecBuilder:
         *off, expand = args
         return self._bounds(tuple(int(o) for o in off), expand=int(expand))
 
-    def _bounds(self, off: Tuple[int, ...], expand: int):
+    def _bounds(self, off: Tuple[int, ...], expand: int, internal: bool = False):
+        """internal=True marks gates the framework inserts itself
+        (ComputedArray border zeroing); those must not count as a user
+        InBounds, which would disable the automatic bbox mask."""
+        off = self._compose(off)
         ispace = self._grid_ispace_for_ndim(len(off))
         shape = ispace.shape(self.dim_sizes)
         key = _bounds_key(ispace.dims, off, expand)
@@ -314,8 +366,11 @@ class SpecBuilder:
             lambda: SlotInfo(
                 key=key, image=None, kind="bounds", ispace=ispace, graph=None,
                 offset=off, expand=expand, channels=1, is_unknown=False,
+                internal=internal,
             ),
         )
+        if not internal:
+            self.registry.slots[sid].internal = False
         if self.mode == "slots":
             return self.slot_values[sid]
         return torch.ones(shape + (1,), dtype=self.dtype, device=self.device)
@@ -323,9 +378,21 @@ class SpecBuilder:
     def Index(self, axis: int, dims=None):
         ispace = as_ispace(dims) if dims is not None else self._grid_ispace_for_ndim(None)
         shape = ispace.shape(self.dim_sizes)
-        return coordinate_field(shape, int(axis), self.dtype, device=self.device)
+        f = coordinate_field(shape, int(axis), self.dtype, device=self.device)
+        if self._offset_ctx:
+            # inside an inlined ComputedArray expression the call site's
+            # composed offset shifts the coordinates
+            f = f + float(self._compose((0,) * len(shape))[int(axis)])
+        return f
 
     # -- access implementation -------------------------------------------------
+    def _compose(self, off: Tuple[int, ...]) -> Tuple[int, ...]:
+        for ctx in reversed(self._offset_ctx):
+            if len(ctx) != len(off):
+                raise SpecError("offset rank mismatch inside ComputedArray")
+            off = tuple(a + b for a, b in zip(off, ctx))
+        return off
+
     def _grid_ispace_for_ndim(self, ndim: Optional[int]) -> IndexSpace:
         uniq = []
         for d in self.registry.images.values():
@@ -345,9 +412,21 @@ class SpecBuilder:
             raise SpecError(
                 f"{decl.name}: expected {decl.ispace.ndim} offsets, got {len(off)}"
             )
+        off = self._compose(off)
         key = _img_key(decl.name, off)
         shape = decl.ispace.shape(self.dim_sizes) + (decl.channels,)
+        plain_unknown = decl.kind == UNKNOWN and decl.alias is None
+        if self._recording is not None and plain_unknown:
+            self._recording.append((decl.name, off, decl.channels))
         if self.mode == "field":
+            # computed-gradient probing (compile._computed_bundle): unknown
+            # reads at substituted offsets come from the probe inputs, so
+            # the tangent passes separate the per-offset gradient fields
+            subs = self.bindings.get("computed_subs")
+            if subs is not None and plain_unknown:
+                hit = subs.get((decl.name, off))
+                if hit is not None:
+                    return hit
             return shift(self._bound_image(decl), off)
         sid = self.registry.slot_for(
             key,
@@ -379,6 +458,158 @@ class SpecBuilder:
             return self.slot_values[sid]
         E0 = self.registry.dummy_edge_count
         return torch.ones((E0, decl.channels), dtype=self.dtype, device=self.device)
+
+    def _computed_value(self, handle: ComputedHandle) -> torch.Tensor:
+        """handle.fn() as [*spatial, channels] in this run's dtype."""
+        val = _as_dtype(handle.fn(), self.dtype, self.device)
+        return val[..., None] if val.dim() == handle.ispace.ndim else val
+
+    def _access_computed(self, handle: ComputedHandle, off: Tuple[int, ...]):
+        if self.mode == "field":
+            if handle.name not in self._computed_cache:
+                self._offset_ctx.append((0,) * handle.ispace.ndim)
+                try:
+                    self._computed_cache[handle.name] = self._computed_value(handle)
+                finally:
+                    self._offset_ctx.pop()
+            return shift(self._computed_cache[handle.name], self._compose(off))
+        # slots / discover: the precomputed-field form (value array plus
+        # per-unknown gradient arrays, re-made once per nonlinear
+        # iteration). The access reads a value slot (a shift of the
+        # materialized field, zero-padded at borders) plus a zero-valued
+        # linearization term G_t·(x_t − detach(x_t)) per touched unknown
+        # offset, so jvp probes chain first derivatives through the stored
+        # gradient fields instead of re-differentiating the (possibly
+        # large) computed expression per probe.
+        raw_off = off
+        off = self._compose(off)  # fully composed center of this access
+        if self._recording is not None:
+            # nested ComputedArray inside a recording: gradients through the
+            # inner array would be lost, so the OUTER one is inlined
+            self._rec_bailed = True
+            return self._inline_computed(handle, raw_off)
+        reg = self.registry
+        meta = reg.computed_meta.get(handle.name)
+        if meta is None and self.mode == "discover" and handle.name not in reg.computed_failed:
+            meta = self._record_computed(handle, off)
+        if meta is None:
+            return self._inline_computed(handle, raw_off)
+        cc = meta["channels"]
+        key_c = ("cimg", handle.name, off)
+        sid_c = reg.slot_for(
+            key_c,
+            lambda: SlotInfo(
+                key=key_c, image=handle.name, kind="cimg", ispace=handle.ispace,
+                graph=None, offset=off, expand=0, channels=cc, is_unknown=False,
+            ),
+        )
+        parts = []
+        for (uname, t, cu) in meta["touched"]:
+            x_off = tuple(a + b for a, b in zip(off, t))
+            decl = reg.images[uname]
+            key_x = _img_key(uname, x_off)
+            sid_x = reg.slot_for(
+                key_x,
+                lambda: SlotInfo(
+                    key=key_x, image=uname, kind="img", ispace=decl.ispace, graph=None,
+                    offset=x_off, expand=0, channels=decl.channels, is_unknown=True,
+                ),
+            )
+            key_g = ("cgrad", handle.name, off, uname, t)
+            sid_g = reg.slot_for(
+                key_g,
+                lambda: SlotInfo(
+                    key=key_g, image=handle.name, kind="cgrad", ispace=handle.ispace,
+                    graph=None, offset=off, expand=0, channels=cc * cu, is_unknown=False,
+                ),
+            )
+            parts.append((sid_x, sid_g, cu))
+        if self.mode == "slots":
+            val = self.slot_values[sid_c]
+            for sid_x, sid_g, cu in parts:
+                xs = self.slot_values[sid_x]
+                G = self.slot_values[sid_g].reshape(tuple(xs.shape[:-1]) + (cc, cu))
+                d = xs - xs.detach()
+                val = val + torch.sum(G * d[..., None, :], dim=-1)
+            return val
+        sp = handle.ispace.shape(self.dim_sizes)
+        return torch.ones(sp + (cc,), dtype=self.dtype, device=self.device)  # shapes only
+
+    def _record_computed(self, handle: ComputedHandle, off: Tuple[int, ...]):
+        """Discover pass: run the computed expression once, recording which
+        unknowns (at which relative offsets) it reads; registers the
+        metadata every later pass looks up."""
+        reg = self.registry
+        rec: List[tuple] = []
+        prev, prev_bail = self._recording, self._rec_bailed
+        self._recording, self._rec_bailed = rec, False
+        saved_ctx = self._offset_ctx
+        # replace (not push) the context: ``off`` is already fully composed,
+        # so inner reads compose to exactly off + t
+        self._offset_ctx = [off]
+        try:
+            val = self._computed_value(handle)
+        finally:
+            self._offset_ctx = saved_ctx
+            bailed = self._rec_bailed
+            self._recording, self._rec_bailed = prev, prev_bail
+        if bailed:
+            reg.computed_failed.add(handle.name)
+            return None
+        touched, seen = [], set()
+        for (uname, comp, cu) in rec:
+            t = tuple(a - b for a, b in zip(comp, off))
+            if (uname, t) not in seen:
+                seen.add((uname, t))
+                touched.append((uname, t, cu))
+        meta = {"channels": int(val.shape[-1]), "touched": tuple(sorted(touched))}
+        reg.computed_meta[handle.name] = meta
+        return meta
+
+    def _inline_computed(self, handle: ComputedHandle, off: Tuple[int, ...]):
+        """Fallback (nested ComputedArrays): inline with composed offsets.
+        A shifted read of the materialized array is zero (and has zero
+        derivative) wherever the shift leaves the grid; an internal bounds
+        slot gates the inlined value likewise, or the slot form would part
+        from the field-mode residuals at the borders. ``off`` is the raw
+        (uncomposed) access offset; composition happens through the
+        offset-context stack, as for any access."""
+        gate = None
+        if any(o != 0 for o in off):
+            gate = self._bounds(off, expand=0, internal=True)
+        self._offset_ctx.append(off)
+        try:
+            val = self._computed_value(handle)
+        finally:
+            self._offset_ctx.pop()
+        return val if gate is None else val * gate
+
+    def _access_sampled(self, handle: SampledImageHandle, x, y):
+        decl = handle.image.decl
+        if decl.kind == UNKNOWN:
+            raise SpecError("SampledImage over unknowns is not supported")
+
+        # The sampled image and its derivative images are constants; only
+        # the positions carry derivatives. Slot-mode runs must see the REAL
+        # constant images when they are bound (their jvp probes feed the
+        # assembled JᵀJ); only unbound discovery and graph passes take
+        # dummies.
+        def const_field(d):
+            if self.mode == "field" or d.name in self.bindings.get("consts", {}):
+                return self._bound_image(d)
+            shape = d.ispace.shape(self.dim_sizes) + (d.channels,)
+            return torch.ones(shape, dtype=self.dtype, device=self.device)
+
+        img = const_field(decl)
+        if handle.dx is not None:
+            dx, dy = const_field(handle.dx.decl), const_field(handle.dy.decl)
+        else:
+            dx, dy = central_difference_images(img)
+        x = _as_dtype(x, self.dtype, self.device)
+        y = _as_dtype(y, self.dtype, self.device)
+        if x.dim() == img.dim():  # [*sp, 1] channel-style fields
+            x, y = x[..., 0], y[..., 0]
+        return sample_with_derivs(img, dx, dy, x, y)
 
     # -- bindings ---------------------------------------------------------------
     def _bound_image(self, decl: ImageDecl) -> torch.Tensor:
@@ -418,6 +649,11 @@ class SpecRegistry:
         self.use_preconditioner = True
         self.dummy_edge_count = dummy_edge_count
         self.frozen = False
+        # ComputedArray precompute metadata: handle name -> {channels,
+        # touched: ((unknown, relative offset, channels), ...)}; `failed`
+        # lists handles that fall back to inlining (nested ComputedArrays)
+        self.computed_meta: Dict[str, dict] = {}
+        self.computed_failed: set = set()
 
     def declare_image(self, name, channels, ispace, kind, alias=None) -> ImageDecl:
         prev = self.images.get(name)

@@ -74,7 +74,8 @@ def _coeffs(a, device, bf16: bool):
 
 def meta_from_numpy(meta: Dict[str, Any], device) -> Dict[str, Any]:
     """A fused CG descriptor of the JAX package (F, triples, offs, channels,
-    u_list, ctot; for graphs also its [R, L] vertex fold and its one-hot
+    u_list, ctot, chan_grid: the per-channel split, whose triples are one
+    channel's; for graphs also its [R, L] vertex fold and its one-hot
     remainder tiles) -> this port's descriptor, with F (and the remainder
     blocks) in the descriptor's dtype, float32 or bfloat16, over its 2-D or
     3-D grid. A graph's folded fields unfold onto the grid [1, N], its flat
@@ -97,6 +98,7 @@ def meta_from_numpy(meta: Dict[str, Any], device) -> Dict[str, Any]:
         "offs": {k: int(v) for k, v in meta["offs"].items()},
         "channels": {k: int(v) for k, v in meta["channels"].items()},
         "ctot": int(meta["ctot"]),
+        "chan_grid": bool(meta.get("chan_grid", False)),
         "triples": tuple(triples),
         "F": _coeffs(F, device, bf16),
         "rem": rem,

@@ -42,6 +42,29 @@ res = plan.solve({"Offset": pos.copy(), "Angle": np.zeros((n, 3), "f4"), "UrShap
                   "Constraints": con, "G": {"v0": v0, "v1": v1},
                   "w_fitSqrt": 1.0, "w_regSqrt": 1.0}, nIterations=2, lIterations=10)
 assert np.isfinite(res.final_cost) and plan.fused_fallback is None
+# SampledImage (ops/sampling.py), the level loop's prolongation (pyramid.py)
+# and a ComputedArray spec
+from opt_tpu_torch.models.specs import optical_flow, shape_from_shading
+im = rng.rand(8, 8).astype("f4")
+flow = {"I": im, "I_hat": np.roll(im, 1, 0), "I_hat_dx": 0.1 * im, "I_hat_dy": 0.1 * im,
+        "w_fit": 10.0, "w_reg": 0.1}
+X = np.zeros((4, 4, 2), "f4")
+for n in (4, 8):
+    level = {k: (v[:: 8 // n, :: 8 // n] if isinstance(v, np.ndarray) else v) for k, v in flow.items()}
+    plan = ot.Problem(optical_flow).plan(dims={"W": n, "H": n}, device="cpu")
+    res = plan.solve({**level, "X": X}, nIterations=1, lIterations=5)
+    assert np.isfinite(res.final_cost) and plan.fused_fallback is None
+    X = ot.upsample2x_nearest(res.unknowns["X"], (2 * n, 2 * n), scale=2.0)
+assert tuple(X.shape) == (16, 16, 2)
+depth = (2.0 + 0.1 * rng.rand(8, 8)).astype("f4")
+plan = ot.Problem(shape_from_shading).plan(dims={"W": 8, "H": 8}, device="cpu")
+res = plan.solve({"X": depth.copy(), "D_i": depth, "Im": rng.rand(8, 8).astype("f4"),
+                  "edgeMaskR": np.ones((8, 8), "f4"), "edgeMaskC": np.ones((8, 8), "f4"),
+                  "w_p": 1.0, "w_s": 10.0, "w_g": 1.0, "f_x": 500.0, "f_y": 500.0,
+                  "u_x": 4.0, "u_y": 4.0, **{f"L_{i}": 0.1 for i in range(1, 10)}},
+                 nIterations=1, lIterations=5)
+assert np.isfinite(res.final_cost) and plan.fused_fallback is None
+assert {"opt_tpu_torch.ops.sampling", "opt_tpu_torch.pyramid"} <= set(sys.modules)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "opt_tpu" or m.startswith("opt_tpu."))
 assert not bad, bad
