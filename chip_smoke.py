@@ -5,10 +5,11 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernel (40 instances of one template: GN or LM,
+It builds the CUDA kernel (48 instances of one template: GN or LM,
 standard or Chronopoulos-Gear, Jacobi or block-Jacobi, float32 or bfloat16
-fields, each without and with the graph remainder phase, and eight whose
-launch holds several independent systems; one library by one nvcc
+fields, each without and with the graph remainder phase, eight whose
+cooperative launch holds several independent systems in turn and eight
+whose launch holds them side by side, a block each; one library by one nvcc
 process) from opt_tpu_torch/ops/csrc and holds each form
 against its plain PyTorch twin at the main paths' shapes: poisson
 512x512x4 and 2048x2048x4, laplacian 512x512, image_warping's mixed-unknown
@@ -20,29 +21,38 @@ vertices, the remainder), volumetric_mesh_deformation's 3-D systems at
 bfloat16 fields on poisson, image_warping, volumetric and the two meshes,
 shape_from_shading's ComputedArray system at 512x512, optical_flow's at
 256x256x2, intrinsic_image_decomposition's at 512x512x4, and poisson
-1024x1024x4 split into four one-channel systems, GN and LM.
+1024x1024x4 split into four one-channel systems, GN and LM, and the batch
+forms: 512 curve-fit systems and 4 laplacian 16x16 systems a block each
+(GN, LM, Chronopoulos-Gear, bfloat16), each system also against its own
+one-system launch, and 4 poisson 512x512x4 systems in turn with their own
+fields.
 It then solves, through the public API on the card, the poisson bench
 headline (512x512x4, one GN step, up to 2000 CG iterations; also by
 Chronopoulos-Gear and with bfloat16 fields), image_warping at 512x512 by GN
 and by LM (8x400; LM also by Chronopoulos-Gear, block-Jacobi and bfloat16)
 and at 1024x1024 by GN (4x100), the two arap meshes by GN (8x100) and
 volumetric 32^3 by GN (8x40, with Jacobi and block-Jacobi),
-shape_from_shading 512x512 by GN (8x10), optical_flow by the host-driven
-two-level loop (128x128 then 256x256, GN 2x50 a level),
-intrinsic_image_decomposition 512x512 by GN (6x30) and poisson 1024x1024x4
-by one GN step of up to 2000 CG iterations a channel (the split), checks the
-costs against the JAX package's and each solve's one launch of the named
-kernel instance per nonlinear step, solves the arap grid mesh once more in
-float64 against the JAX package's float64 solve, checks the medium golden
-costs, times kernels, twins, assembly and solves with CUDA events,
-profiles the arap grid-mesh solve and the volumetric solve with each
-preconditioner, and prints one JSON line per result.
+shape_from_shading 512x512 by GN (8x10), optical_flow through PyramidPlan
+(128x128 then 256x256, GN 2x50 a level), intrinsic_image_decomposition
+512x512 by GN (6x30), poisson 1024x1024x4 by one GN step of up to 2000 CG
+iterations a channel (the split), 512 LM curve fits in one solve_batched
+(bench.py's batched case, LM 10x20), 4 poisson 512x512x4 instances in one
+solve_batched (GN 1x2000) and a solve_scheduled of 5 outer GN 3x15 solves at
+512x512, checks the costs against the JAX package's and each solve's one
+launch of the named kernel instance per nonlinear step, solves the arap
+grid mesh once more in float64 against the JAX package's float64 solve,
+checks the medium golden costs, times kernels, twins, assembly and solves
+with CUDA events, profiles the batched curve fits, and prints one JSON line
+per result.
 It exits non-zero, with no result line, when CUDA is not available or any
 check fails. It imports neither JAX nor opt_tpu.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -175,6 +185,41 @@ JAX_CPU_INTRINSIC_512_COST = 622690.125
 # (use_pallas_cg="off") ends at 837.70458984375 after 716
 SPLIT_N = 1024
 JAX_CPU_POISSON_1024_SPLIT = (837.7045288085938, 2723)
+# bench.py::bench_batched_curve_fitting (bench.py:793-819): 512 curve fits
+# of N = 256 data points, LM 10x20, in one solve_batched
+BATCH_B, BATCH_N, BATCH_NL, BATCH_LI = 512, 256, 10, 20
+# The same batched solve through the JAX package on the CPU: every instance
+# took 10 steps, the linear counts summed to 10255 (19 to 25 an instance),
+# the final costs to 2.8972860891371965e-3 (each at most 1.25e-5), and the
+# largest |param - truth| was 6.7166146067165755e-06. Its fitted parameters,
+# counts and costs per instance are in BATCH_REF, written by
+#   JAX_PLATFORMS=cpu python -c "import numpy as np, opt_tpu as ot;
+#   from opt_tpu.models.specs import curve_fitting as s; B, N = 512, 256;
+#   r=np.random.RandomState(0); x=np.linspace(0,1,N); t=r.uniform(80,120,(B,2));
+#   d=np.stack([np.stack([x,a*np.cos(b*x)+b*np.sin(a*x)],-1) for a,b in t]).astype('f4');
+#   i0=(t+r.randn(B,2)*0.05).astype('f4'); G={'d':np.arange(N,dtype='i4'),'p':np.zeros(N,'i4')};
+#   res=ot.Problem(s,kind='LMGPU').plan(dims={'N':N,'U':1}).solve_batched(
+#     {'funcParams':i0[:,None,:],'data':d,'G':G},nIterations=10,lIterations=20);
+#   np.savez_compressed('benchdata/batched_curve_fit_jax_cpu.npz',
+#     params=np.asarray(res.unknowns['funcParams'])[:,0,:],
+#     lin_iters=np.asarray(res.num_linear_iterations),
+#     final_costs=np.asarray(res.final_costs),num_iterations=np.asarray(res.num_iterations))"
+BATCH_REF = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchdata",
+                         "batched_curve_fit_jax_cpu.npz")
+JAX_CPU_BATCHED_LIN_ITERS = 10255
+BATCH_PARAM_ATOL = 1e-4  # the fitted parameters against the JAX CPU's
+BATCH_TRUTH_ATOL = 1e-3  # the largest |param - truth|
+BATCH_LIN_RTOL = 0.02  # the summed CG count against the JAX CPU's
+BATCH_POISSON_B = 4  # solve_batched over bench_poisson's input and 3 other seeds
+LAP_BATCH_B, LAP_BATCH_N = 4, 16  # tests/test_pallas.py:196's batch
+# form_sweep: 4 laplacian systems of these sides (256 to 16,384 elements a
+# system) through both batch forms, where fused_cg.BATCH_BLOCK_ELEMS (2048)
+# is set: 45x45 is the last size under it
+SWEEP_B, SWEEP_SIDES = 4, (16, 32, 45, 64, 128)
+# solve_scheduled on tests/test_scheduled.py's spec (sched_inputs below),
+# held to the host-driven loop on the card
+SCHED_N, SCHED_OUTER, SCHED_NL, SCHED_LI = 512, 5, 3, 15
+SCHED_RTOL = 1e-5
 GOLDEN_RTOL = 5e-3  # tests/test_golden_costs.py
 GOLDEN_ATOL = 1e-8  # tests/test_golden_costs.py: near-zero goldens
 # (spec, kind, nIterations, lIterations, golden) from tests/test_golden_costs.py
@@ -237,9 +282,10 @@ K1E = "opt_tpu/ops/pallas_cg.py:561"  # _kernel over a 3-D grid (plan_fused_grid
 K1F = "opt_tpu/ops/pallas_cg.py:586"  # _kernel with coeff_dtype fields
 K1G = "opt_tpu/ops/pallas_cg.py:328"  # _kernel over a ComputedArray operator's fields
 K2 = "opt_tpu/ops/pallas_cg.py:339"  # _kernel's chan_grid=True form
+K1H = "opt_tpu/ops/pallas_cg.py:328"  # _kernel under jax.vmap (gauss_newton.py:983-1004)
 # the card's published peaks (H100 SXM at 700 W). The bound of a CG call
-# is its iteration count times the larger of an iteration's bytes (each
-# input read once per iteration) over the memory rate and an iteration's
+# is the larger of its bytes (each per-system input read once per iteration,
+# the shared triples table once per launch) over the memory rate and its
 # operations over the peak rate of their type (cg_bound)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -305,7 +351,6 @@ F64_STEPS, F64_RTOL = 4, 1e-6
 # knobs. K5 is one apply of a 256x256 tile, no loop: p read, the output
 # written, no vector work.
 ROWS_TO_PORT = [
-    ("K1 (h) batch axis, 4 x laplacian 16x16", dict(fields=5, plane=256, C=1, triples=5, batch=4)),
     ("K5 per-device tile apply, poisson 512x512x4 on 2x2 devices",
      dict(fields=5, plane=256 * 256, C=4, triples=20, vector=0, dots=0)),
 ]
@@ -324,9 +369,10 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bench_poisson_inputs(n):
-    """bench.py::bench_poisson's inputs: RandomState(0), a border mask."""
-    rng = np.random.RandomState(0)
+def bench_poisson_inputs(n, seed=0):
+    """bench.py::bench_poisson's inputs: RandomState(0), a border mask
+    (``seed``: another draw of X and T)."""
+    rng = np.random.RandomState(seed)
     f32 = np.float32
     mask = np.ones((n, n), f32)
     mask[n // 8 : -n // 8, n // 8 : -n // 8] = 0.0
@@ -336,6 +382,58 @@ def bench_poisson_inputs(n):
 def laplacian_inputs(n):
     rng = np.random.RandomState(0)
     return {"X": rng.rand(n, n).astype(np.float32), "A": rng.rand(n, n).astype(np.float32)}
+
+
+def batched_curve_inputs(B, N):
+    """bench.py::bench_batched_curve_fitting's inputs: B truths drawn in
+    [80, 120]^2, noise-free data y = a cos(bx) + b sin(ax) on N points of
+    [0, 1], starts 0.05 from the truths. Returns (truths [B, 2], inputs)."""
+    rng = np.random.RandomState(0)
+    x = np.linspace(0, 1, N)
+    truths = rng.uniform(80, 120, (B, 2))
+    data = np.stack([np.stack([x, a * np.cos(b * x) + b * np.sin(a * x)], -1)
+                     for a, b in truths]).astype(np.float32)
+    init = (truths + rng.randn(B, 2) * 0.05).astype(np.float32)
+    return truths, {"funcParams": init[:, None, :], "data": data,
+                    "G": {"d": np.arange(N, dtype=np.int32), "p": np.zeros(N, np.int32)}}
+
+
+def batched_poisson_inputs(n, B):
+    """B instances of bench_poisson's problem: instance k draws X and T from
+    RandomState(k) (instance 0 is the bench's input); the border mask is
+    shared (unbatched)."""
+    ins = [bench_poisson_inputs(n, seed=k) for k in range(B)]
+    return {"X": np.stack([i["X"] for i in ins]), "T": np.stack([i["T"] for i in ins]),
+            "M": ins[0]["M"]}
+
+
+def laplacian_batch_inputs(n, B):
+    rng = np.random.RandomState(1)
+    return {"X": rng.rand(B, n, n).astype(np.float32), "A": rng.rand(B, n, n).astype(np.float32)}
+
+
+def warp_like_spec(S):
+    """tests/test_scheduled.py's spec: a 2-channel unknown pulled to the
+    constraint image where it is valid, with a smoothness term."""
+    W, H = S.Dim("W"), S.Dim("H")
+    X = S.Unknown("X", 2, (W, H))
+    C = S.Array("C", 2, (W, H))
+    valid = ot.greatereq(C(0, 0), -999999.9)
+    S.Energy(ot.Select(valid, 2.0 * (X(0, 0) - C(0, 0)), 0.0))
+    S.Energy(X(0, 0) - X(1, 0), X(0, 0) - X(0, 1))
+
+
+def sched_inputs(n):
+    """tests/test_scheduled.py::_data at n x n: a random start and two
+    constraint images, three pinned points moved between them."""
+    rng = np.random.RandomState(2)
+    x0 = rng.rand(n, n, 2).astype(np.float32)
+    c0 = np.full((n, n, 2), -1e6, np.float32)
+    c1 = np.full((n, n, 2), -1e6, np.float32)
+    for (i, j) in [(2, 3), (n - 3, n - 2), (5, 9)]:
+        c0[i, j] = x0[i, j]
+        c1[i, j] = x0[i, j] + [0.8, -0.4]
+    return x0, c0, c1
 
 
 def bench_image_warping_inputs(n):
@@ -543,27 +641,55 @@ def system(spec, dims, inputs, kind="gaussNewtonGPU", **ip):
     return meta, fused_cg.pack(r0, meta), fused_cg.pack(pre, meta), lm, variant
 
 
+def batched_system(spec, dims, inputs, kind="gaussNewtonGPU", **ip):
+    """The first step's systems of a batch (``Plan.batched_cg_inputs``)
+    under InitializationParameters(**ip), packed as ``system`` packs one:
+    (batched meta, b [B, C, *dom], pre, LM keywords or None, variant
+    keywords)."""
+    plan = ot.Problem(spec, kind=kind).plan(dims=dims,
+                                           init_params=ot.InitializationParameters(**ip))
+    meta, r0, pre, kw = plan.batched_cg_inputs(inputs)
+    if meta is None or plan.fused_fallback is not None:
+        raise RuntimeError(f"{spec.__name__} {dims} {ip}: no batched fused CG meta")
+    lm = None
+    if kind == "LMGPU":
+        lm = dict(ctc=fused_cg.pack(kw["ctc"], meta), reset_period=kw["reset_period"])
+    return (meta, fused_cg.pack(r0, meta), fused_cg.pack(pre, meta), lm,
+            dict(cs=kw["cg_variant"] == "chronopoulos_gear", pre_blocks=None))
+
+
 def n_systems(meta):
-    """The independent systems a launch on this meta holds: its channels
-    under the per-channel split, else 1."""
+    """The independent systems a launch on this meta holds: its instances
+    under a batch, its channels under the per-channel split, else 1."""
+    if meta.get("batch"):
+        return int(meta["batch"])
     return int(meta["ctot"]) if meta.get("chan_grid") else 1
+
+
+def twin_kw(meta):
+    """The twin's keywords that lay out this meta's systems."""
+    return dict(rem=meta["rem"], n_sys=n_systems(meta), batched=bool(meta.get("batch")))
 
 
 def form_of(meta, lm=None, cs=False, pre_blocks=None):
     """The kernel instance a call with these operands launches."""
+    batch = fused_cg.batched_kernel_form(meta, pre_blocks) if meta.get("batch") else None
     return fused_cg.instance_name(bool(lm), meta["rem"] is not None, bool(cs),
                                   pre_blocks is not None, meta["F"].dtype == torch.bfloat16,
-                                  n_systems(meta) > 1)
+                                  batch == "multi" or (not batch and n_systems(meta) > 1),
+                                  batch == "batch")
 
 
 def meta_shape(meta):
-    """cg_work's shape of a fused CG meta: fields, plane (the points of its
-    domain), channels (of one system under the split, whose iterations are
-    counted per system), triples, the remainder's entries and the bytes of
-    a coefficient."""
+    """cg_work's shape of one system of a fused CG meta: fields, plane (the
+    points of its domain), channels (of one system under the split or a
+    batch, whose iterations are counted per system), triples, the
+    remainder's entries and the bytes of a coefficient."""
     F, rem = meta["F"], meta.get("rem")
-    return dict(fields=int(F.shape[0]), plane=int(np.prod(F.shape[1:])),
-                C=int(meta["ctot"]) // n_systems(meta), triples=len(meta["triples"]),
+    lead = 1 if meta.get("batch") else 0
+    C = int(meta["ctot"]) if lead else int(meta["ctot"]) // n_systems(meta)
+    return dict(fields=int(F.shape[lead]), plane=int(np.prod(F.shape[lead + 1:])),
+                C=C, triples=len(meta["triples"]),
                 nnz=0 if rem is None else int(rem["col"].shape[0]),
                 f_bytes=int(F.element_size()))
 
@@ -571,54 +697,58 @@ def meta_shape(meta):
 def cg_work(fields, plane, C, triples, nnz=0, *, lm=False, cs=False, f_bytes=4,
             pre_planes=None, vector=None, dots=None, batch=1, iters=1,
             reset_period=RESET_PERIOD):
-    """What `iters` CG iterations must do at this shape: (bytes of one
-    iteration, with each input read once: the fields, b, the preconditioner
-    planes (C, or C*C under block-Jacobi), ctc under LM, the triples table
-    and the remainder CSR, whose blocks are coefficients; float32
-    operations of the call; float64 operations of the call). Reads of the
-    stencil that leave the grid count as done; the remainder counts its
-    real entries. Defaults are the GN and LM forms'; `cs` takes
-    Chronopoulos-Gear's vector updates and dots."""
+    """What one launch of `iters` CG iterations on each of `batch` systems
+    of this shape must do: (bytes of the launch: each system's fields, b,
+    preconditioner planes (C, or C*C under block-Jacobi), ctc under LM and
+    remainder CSR, whose blocks are coefficients, read once an iteration,
+    and the triples table, which the systems share and each block copies to
+    shared memory once a launch, read once; float32 operations; float64
+    operations). Reads of the stencil that leave the grid count as done;
+    the remainder counts its real entries. Defaults are the GN and LM
+    forms'; `cs` takes Chronopoulos-Gear's vector updates and dots."""
     n = C * plane
     pre_planes = C if pre_planes is None else pre_planes
     if vector is None:  # dots, updates, z = M^-1 r
         vector = (16 if lm else 13) if cs else (15 if lm else 12)
     dots = (3 if lm else 2) if dots is None else dots  # their float64 sums
-    it_bytes = (fields * plane * f_bytes + (C + pre_planes + (C if lm else 0)) * plane * 4
-                + triples * 6 * 4)
+    it_bytes = fields * plane * f_bytes + (C + pre_planes + (C if lm else 0)) * plane * 4
     if nnz:
         it_bytes += (plane + 1) * 4 + nnz * 4 + nnz * C * C * f_bytes
     apply = 2 * triples * plane + 2 * nnz * C * C + (2 * n if lm else 0)
     per_iter = apply + vector * n + 2 * (pre_planes - C) * plane
     resets = iters // reset_period if lm else 0
-    return batch * it_bytes, batch * (iters * per_iter + resets * apply), batch * iters * dots * n
+    return (batch * iters * it_bytes + triples * 6 * 4,
+            batch * (iters * per_iter + resets * apply), batch * iters * dots * n)
 
 
 def cg_bound(shape, iters, **knobs):
-    """(bound ms of `iters` iterations, "bytes" or "operations"): iters
-    times the larger of one iteration's bytes over the memory rate and its
+    """(bound ms of a launch of `iters` iterations, "bytes" or
+    "operations"): the larger of its bytes over the memory rate and its
     operations over the peak rate of their type."""
-    it_bytes, f32, f64 = cg_work(**shape, iters=iters, **knobs)
-    t_bytes = iters * it_bytes / HBM_BYTES_PER_S
+    n_bytes, f32, f64 = cg_work(**shape, iters=iters, **knobs)
+    t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = f32 / F32_FLOPS + f64 / F64_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_vs_twin(label, meta, b, pre, lits, tol, lm=None, q_tol=Q_TOL, **variant):
+def kernel_vs_twin(label, meta, b, pre, lits, tol, lm=None, q_tol=Q_TOL, bitwise=False,
+                   **variant):
     """Kernel and twin on the same system (``variant``: cs, pre_blocks).
     tol = 0 (and q_tol = -inf under LM) runs `lits` iterations with no exit
     and holds δ to the twin's; otherwise the real exits, which must give
-    equal iteration counts. A split meta runs its systems in the one
-    launch: `lits` and the exits are each system's, the counts are held
-    system by system and reported summed."""
+    equal iteration counts. A split or batched meta runs its systems in the
+    one launch: `lits` and the exits are each system's, the counts are held
+    system by system and reported summed. A batch of tiny systems may reach
+    an exact zero residual before `lits` even with no exit (the loop then
+    stops): its counts are held to the twin's, system by system."""
+    t0 = time.perf_counter()
     lm_kw = dict(lm, q_tolerance=q_tol) if lm else {}
     n_sys = n_systems(meta)
     dk, ik = fused_cg.fused_grid_cg_kernel(meta, b, pre, lits, tol, **lm_kw, **variant)
     trace, counts = [], []
     dr, ir = fused_cg.fused_grid_cg_reference(meta["F"], meta["triples"], b, pre, lits, tol,
                                               trace=None if n_sys > 1 else trace,
-                                              rem=meta["rem"], n_sys=n_sys, counts=counts,
-                                              **lm_kw, **variant)
+                                              counts=counts, **twin_kw(meta), **lm_kw, **variant)
     torch.cuda.synchronize()
     per_system = ik.tolist()
     ik = sum(per_system)
@@ -628,11 +758,15 @@ def kernel_vs_twin(label, meta, b, pre, lits, tol, lm=None, q_tol=Q_TOL, **varia
     line = {"check": "kernel_vs_twin", "case": label, "form": form_of(meta, lm, **variant),
             "lits": lits, "tol": tol, "kernel_iters": ik, "twin_iters": ir,
             "max_abs_err": err, "max_abs_delta": scale, "rel_err": err / max(scale, 1e-30),
-            "bitwise_equal": bool(torch.equal(dk, dr))}
+            "bitwise_equal": bool(torch.equal(dk, dr)), "s": time.perf_counter() - t0}
     if lm:
         line["q_tol"] = q_tol
+    if meta.get("batch"):
+        line["systems_bitwise_equal"] = sum(bool(torch.equal(dk[k], dr[k])) for k in range(n_sys))
+        line["systems"] = n_sys
     if n_sys > 1:
-        line.update(kernel_iters_per_system=per_system, twin_iters_per_system=counts)
+        if n_sys <= 16:
+            line.update(kernel_iters_per_system=per_system, twin_iters_per_system=counts)
         if per_system != counts:
             log(json.dumps(line))
             raise RuntimeError(f"{label}: per-system counts {per_system}, the twin's {counts}")
@@ -645,13 +779,17 @@ def kernel_vs_twin(label, meta, b, pre, lits, tol, lm=None, q_tol=Q_TOL, **varia
     log(json.dumps(line))
     if not finite:
         raise RuntimeError(f"{label}: kernel delta not finite")
+    if bitwise and not line["bitwise_equal"]:
+        raise RuntimeError(f"{label}: kernel and twin not bitwise equal ({err})")
     if ik != ir:
         raise RuntimeError(f"{label}: kernel ran {ik} iterations, the twin {ir}")
     no_exit = tol == 0.0 and (not lm or q_tol == float("-inf"))
     if no_exit:
         # Chronopoulos-Gear keeps one exit even so (a step denominator <= 0);
-        # every case here runs `lits` iterations without reaching it
-        if ik != lits * n_sys:
+        # every case here but the block-per-system ones, whose tiny systems
+        # reach an exact zero residual (their counts are held to the twin's
+        # above), runs `lits` iterations without reaching it
+        if ik != lits * n_sys and not line["form"].endswith("_batch"):
             raise RuntimeError(f"{label}: iteration counts {ik}/{ir}, expected {lits * n_sys}")
         if err > DELTA_RTOL * scale:
             raise RuntimeError(f"{label}: max|dδ| {err} > {DELTA_RTOL}·max|δ| {scale}")
@@ -796,26 +934,6 @@ def volumetric_main_path(pre, inputs):
         form="gn_bj" if pre == "block_jacobi" else "gn", ip={"preconditioner": pre})
 
 
-def flow_main_path(levels):
-    """optical_flow by the host-driven level loop (a plan a level, the flow
-    upsampled and doubled between levels), each level's solve a main path
-    of its own held to the JAX package's final cost there. Returns the
-    launches summed over the levels."""
-    X = levels[0]["X"]
-    total = {}
-    for li, (inp, want) in enumerate(zip(levels, JAX_CPU_FLOW_LEVEL_COSTS)):
-        w, h = inp["I"].shape
-        res, launches, _p = main_path(
-            f"optical_flow level {li} {w}x{h} GN {FLOW_NL}x{FLOW_LI}", optical_flow,
-            "gaussNewtonGPU", {"W": w, "H": h}, {**inp, "X": X}, FLOW_NL, FLOW_LI, want,
-            {"X": (w, h, 2)})
-        for k, v in launches.items():
-            total[k] = total.get(k, 0) + v
-        if li + 1 < len(levels):
-            X = upsample2x_nearest(res.unknowns["X"], levels[li + 1]["I"].shape, scale=2.0)
-    return total
-
-
 def split_main_path(inputs, per_system):
     """poisson 1024x1024x4, 1 GN step of up to 2000 CG iterations a channel,
     through the split: one launch of the multi-system instance, the cost
@@ -897,6 +1015,322 @@ def float64_witness(label, spec, kind, dims, inputs, nl, li, ref, n_steps):
                            f"{ref[:n_steps]}, {launches} kernel launches")
 
 
+def instance_system(meta, b, pre, lm, k):
+    """System k of a batch as a one-system launch takes it: (meta, b, pre,
+    LM keywords)."""
+    one = {key: v for key, v in meta.items() if key != "batch"}
+    one["F"] = meta["F"][k].contiguous()
+    lm_k = None if lm is None else dict(lm, ctc=lm["ctc"][k].contiguous())
+    return one, b[k].contiguous(), pre[k].contiguous(), lm_k
+
+
+def batch_vs_single(label, meta, b, pre, lits, lm=None, **variant):
+    """Each system of a block-per-system launch against its own one-system
+    launch (one block too at these sizes), with the real exits: bitwise
+    equal, count for count."""
+    lm_kw = dict(lm, q_tolerance=Q_TOL) if lm else {}
+    dk, ik = fused_cg.fused_grid_cg_kernel(meta, b, pre, lits, CG_TOL, **lm_kw, **variant)
+    equal, counts = 0, []
+    for k in range(n_systems(meta)):
+        m1, b1, p1, lm1 = instance_system(meta, b, pre, lm, k)
+        kw1 = dict(lm1, q_tolerance=Q_TOL) if lm1 else {}
+        d1, i1 = fused_cg.fused_grid_cg_kernel(m1, b1, p1, lits, CG_TOL, **kw1, **variant)
+        equal += bool(torch.equal(d1, dk[k]))
+        counts.append(i1)
+    torch.cuda.synchronize()
+    counts = torch.cat(counts).tolist()
+    same_counts = counts == ik.tolist()
+    log(json.dumps({"check": "batch_vs_single", "case": label, "form": form_of(meta, lm, **variant),
+                    "systems": n_systems(meta), "systems_bitwise_equal": equal,
+                    "counts_equal": same_counts, "iters": sum(counts)}))
+    if equal != n_systems(meta) or not same_counts:
+        raise RuntimeError(f"{label}: {equal} of {n_systems(meta)} systems equal to their own "
+                           f"launch, counts equal: {same_counts}")
+
+
+def batch_checks(label, system, lits, exit_lits, single=True):
+    """A batch form against its twin as variant_checks holds the others,
+    each system also bitwise equal to the twin's (and, where the
+    one-system launch also takes one block, to its own launch). Returns the
+    no-exit check's max|Δδ|."""
+    meta, b, pre, lm, variant = system
+    no_exit = dict(q_tol=float("-inf")) if lm else {}
+    err = kernel_vs_twin(label, meta, b, pre, lits, 0.0, lm, bitwise=True, **no_exit, **variant)
+    kernel_vs_twin(label, meta, b, pre, exit_lits, CG_TOL, lm, bitwise=True, **variant)
+    bitwise_repeat(label, meta, b, pre, exit_lits, lm, **variant)
+    if single:
+        batch_vs_single(label, meta, b, pre, exit_lits, lm, **variant)
+    return err
+
+
+def batched_curve_main_path(truths, inputs):
+    """bench.py's batched case through the public API: 512 LM 10x20 curve
+    fits in one solve_batched, one launch of the block-per-system LM
+    instance a step; every instance takes 10 steps, its parameters within
+    BATCH_PARAM_ATOL of the JAX CPU's, the largest |param - truth| within
+    BATCH_TRUTH_ATOL, and the summed CG count within BATCH_LIN_RTOL of the
+    JAX CPU's. Returns (result, launches)."""
+    ref = np.load(BATCH_REF)
+    fused_cg.reset_launch_counts()
+    plan = ot.Problem(curve_fitting, kind="LMGPU").plan(dims={"N": BATCH_N, "U": 1})
+    res = plan.solve_batched(dict(inputs), nIterations=BATCH_NL, lIterations=BATCH_LI)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in fused_cg.fused_grid_cg_kernel.launches.items() if v}
+    p = res.unknowns["funcParams"]
+    finite = bool(torch.isfinite(p).all()) and tuple(p.shape) == (BATCH_B, 1, 2)
+    p = p[:, 0, :].double().cpu().numpy()
+    lin = int(res.num_linear_iterations.sum())
+    line = {"check": "main_path", "case": f"curve_fitting x{BATCH_B} LM {BATCH_NL}x{BATCH_LI} "
+            "batched", "form": "lm_batch", "kernel_launches": launches,
+            "fused_fallback": plan.fused_fallback,
+            "nonlinear_iters": sorted(set(res.num_iterations.tolist())),
+            "lin_iters": lin, "jax_cpu_lin_iters": JAX_CPU_BATCHED_LIN_ITERS,
+            "lin_rel_diff": abs(lin - JAX_CPU_BATCHED_LIN_ITERS) / JAX_CPU_BATCHED_LIN_ITERS,
+            "cost_sum": float(res.final_costs.sum()),
+            "jax_cpu_cost_sum": float(ref["final_costs"].sum()),
+            "max_param_diff_to_jax_cpu": float(np.abs(p - ref["params"]).max()),
+            "max_param_err": float(np.abs(p - truths).max()),
+            "jax_cpu_max_param_err": float(np.abs(ref["params"] - truths).max()),
+            "solve_s": res.wall_time_s}
+    log(json.dumps(line))
+    if (launches != {"lm_batch": BATCH_NL} or plan.fused_fallback is not None or not finite
+            or set(res.num_iterations.tolist()) != {BATCH_NL}
+            or line["max_param_diff_to_jax_cpu"] > BATCH_PARAM_ATOL
+            or line["max_param_err"] > BATCH_TRUTH_ATOL or line["lin_rel_diff"] > BATCH_LIN_RTOL):
+        raise RuntimeError(f"batched curve fits failed: {line}")
+    return res, launches
+
+
+def batched_poisson_main_path(inputs):
+    """4 poisson 512x512x4 instances (GN 1x2000) in one solve_batched: one
+    launch of the strided multi-system instance; each instance's cost and
+    count equal to its own single solve on the card, instance 0 within
+    GOLDEN_RTOL of the JAX CPU's bench_poisson cost. Returns launches."""
+    n, B = MAIN_N, BATCH_POISSON_B
+    fused_cg.reset_launch_counts()
+    plan = ot.Problem(poisson_image_editing).plan(dims=_grid(n))
+    res = plan.solve_batched(dict(inputs), nIterations=1, lIterations=2000)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in fused_cg.fused_grid_cg_kernel.launches.items() if v}
+    singles = []
+    for k in range(B):
+        r = plan.solve({"X": inputs["X"][k], "T": inputs["T"][k], "M": inputs["M"]},
+                       nIterations=1, lIterations=2000)
+        singles.append((r.final_cost, r.num_linear_iterations))
+    rel = [abs(float(res.final_costs[k]) - c) / abs(c) for k, (c, _l) in enumerate(singles)]
+    line = {"check": "main_path", "case": f"poisson{n}x4 x{B} GN 1x2000 batched",
+            "form": "gn_multi", "kernel_launches": launches, "fused_fallback": plan.fused_fallback,
+            "final_costs": res.final_costs.tolist(), "single_costs": [c for c, _l in singles],
+            "rel_diff_to_single": rel, "lin_iters": res.num_linear_iterations.tolist(),
+            "single_lin_iters": [l for _c, l in singles],
+            "jax_cpu_cost_instance0": JAX_CPU_POISSON_512_COST, "solve_s": res.wall_time_s}
+    log(json.dumps(line))
+    ok0 = abs(float(res.final_costs[0]) - JAX_CPU_POISSON_512_COST) <= (
+        GOLDEN_RTOL * JAX_CPU_POISSON_512_COST)
+    if (launches != {"gn_multi": 1} or plan.fused_fallback is not None or not ok0
+            or line["lin_iters"] != line["single_lin_iters"] or max(rel) > 1e-6
+            or not bool(torch.isfinite(res.unknowns["X"]).all())):
+        raise RuntimeError(f"batched poisson failed: {line}")
+    return launches
+
+
+def pyramid_flow_main_path(levels):
+    """optical_flow through PyramidPlan (a plan a level, the flow upsampled
+    and doubled between levels by the prolongation), one launch a step;
+    each level's final cost within GOLDEN_RTOL of the JAX package's there.
+    Returns launches."""
+    dims = [{"W": lv["I"].shape[0], "H": lv["I"].shape[1]} for lv in levels]
+
+    def prolong(unknowns, i, next_dims):
+        return {"X": upsample2x_nearest(unknowns["X"], (next_dims["W"], next_dims["H"]),
+                                        scale=2.0)}
+
+    fused_cg.reset_launch_counts()
+    pplan = ot.PyramidPlan(ot.Problem(optical_flow), dims, prolong, nIterations=FLOW_NL,
+                           lIterations=FLOW_LI)
+    res = pplan.solve([dict(lv) for lv in levels])
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in fused_cg.fused_grid_cg_kernel.launches.items() if v}
+    rel = [abs(a - b) / abs(b) for a, b in zip(res.costs, JAX_CPU_FLOW_LEVEL_COSTS)]
+    X = res.unknowns["X"]
+    line = {"check": "main_path", "case": "optical_flow PyramidPlan " + " then ".join(
+                f"{d['W']}x{d['H']}" for d in dims) + f" GN {FLOW_NL}x{FLOW_LI} a level",
+            "form": "gn", "kernel_launches": launches, "level_costs": res.costs,
+            "jax_cpu_level_costs": JAX_CPU_FLOW_LEVEL_COSTS, "rel_diff": rel,
+            "lin_iters": res.num_linear_iterations, "nonlinear_iters": res.num_iterations,
+            "fused_fallback": [p.fused_fallback for p in pplan.plans], "solve_s": res.wall_time_s}
+    log(json.dumps(line))
+    if (launches != {"gn": len(levels) * FLOW_NL} or any(r > GOLDEN_RTOL for r in rel)
+            or any(p.fused_fallback is not None for p in pplan.plans)
+            or tuple(X.shape) != (dims[-1]["W"], dims[-1]["H"], 2)
+            or not bool(torch.isfinite(X).all())):
+        raise RuntimeError(f"PyramidPlan optical_flow failed: {line}")
+    return launches
+
+
+def scheduled_main_path():
+    """solve_scheduled on tests/test_scheduled.py's spec at SCHED_N (5
+    outer solves of GN 3x15, the constraints moved on the card between
+    them), one launch a step, equal at SCHED_RTOL to the host-driven loop on
+    the card. Returns launches."""
+    n = SCHED_N
+    x0, c0, c1 = sched_inputs(n)
+    fused_cg.reset_launch_counts()
+    plan = ot.Problem(warp_like_spec).plan(dims=_grid(n))
+    C0 = torch.as_tensor(c0, device=plan.device)
+    C1 = torch.as_tensor(c1, device=plan.device)
+
+    def schedule(consts, i):
+        a = (i.to(torch.float32) + 1.0) / SCHED_OUTER
+        return {**consts, "C": (1.0 - a) * C0 + a * C1}
+
+    res = plan.solve_scheduled({"X": x0.copy(), "C": c1}, schedule, SCHED_OUTER,
+                               nIterations=SCHED_NL, lIterations=SCHED_LI)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in fused_cg.fused_grid_cg_kernel.launches.items() if v}
+    host = ot.Problem(warp_like_spec).plan(dims=_grid(n), nIterations=SCHED_NL,
+                                           lIterations=SCHED_LI)
+    inputs, host_costs, host_lin = {"X": x0.copy(), "C": c1}, [], 0
+    for i in range(SCHED_OUTER):
+        a = np.float32((i + 1.0) / SCHED_OUTER)
+        inputs["C"] = (1 - a) * c0 + a * c1
+        r = host.solve(dict(inputs))
+        inputs["X"] = r.unknowns["X"]
+        host_costs.append(r.final_cost)
+        host_lin += r.num_linear_iterations
+    rel = [abs(a - b) / abs(b) for a, b in zip(res.costs, host_costs)]
+    dx = float((res.unknowns["X"] - r.unknowns["X"]).abs().max())
+    line = {"check": "main_path", "case": f"solve_scheduled {SCHED_OUTER} x GN "
+            f"{SCHED_NL}x{SCHED_LI} at {n}x{n}", "form": "gn", "kernel_launches": launches,
+            "costs": res.costs, "host_loop_costs": host_costs, "rel_diff": rel,
+            "max_abs_dX": dx, "lin_iters": res.num_linear_iterations, "host_lin_iters": host_lin,
+            "fused_fallback": plan.fused_fallback, "solve_s": res.wall_time_s}
+    log(json.dumps(line))
+    if (launches != {"gn": SCHED_OUTER * SCHED_NL} or plan.fused_fallback is not None
+            or len(rel) != SCHED_OUTER or max(rel) > SCHED_RTOL
+            or not bool(torch.isfinite(res.unknowns["X"]).all())):
+        raise RuntimeError(f"solve_scheduled failed: {line}")
+    return launches
+
+
+def time_batched_launches(label, meta, b, pre, lm, gpu):
+    """The batched CG launch of one LM step (its lIterations and real
+    exits) against the same systems as one-system launches, one after the
+    other: the kernels' device ms (profiler), the ms between CUDA events
+    around the calls (the wrapper's host work included) and the wrapper's
+    host ms a call."""
+    lm_kw = dict(lm, q_tolerance=Q_TOL)
+
+    def batched():
+        fused_cg.fused_grid_cg_kernel(meta, b, pre, BATCH_LI, CG_TOL, **lm_kw)
+
+    singles = [instance_system(meta, b, pre, lm, k) for k in range(n_systems(meta))]
+
+    def one_by_one():
+        for m1, b1, p1, lm1 in singles:
+            fused_cg.fused_grid_cg_kernel(m1, b1, p1, BATCH_LI, CG_TOL,
+                                          **dict(lm1, q_tolerance=Q_TOL))
+
+    dev_batch = kernel_device_ms(batched, 5, 1)
+    dev_singles = kernel_device_ms(one_by_one, 1, len(singles))
+    line = {"timing": label, "gpu": gpu, "systems": len(singles),
+            "batched_launch_device_ms": dev_batch,
+            "single_launches_device_ms": dev_singles,
+            "single_launch_device_ms_each": dev_singles / len(singles),
+            "batched_launch_event_ms": time_cuda(batched, 5),
+            "single_launches_event_ms": time_cuda(one_by_one, 1),
+            "batched_wrapper_host_ms": host_ms(batched, 5),
+            "single_wrapper_host_ms": host_ms(one_by_one, 1) / len(singles)}
+    log(json.dumps(line))
+    return line
+
+
+@contextlib.contextmanager
+def batch_form(form):
+    """Send every batched meta to one form, "batch" or "multi", whatever
+    its size (fused_cg.BATCH_BLOCK_ELEMS moved for the while)."""
+    saved = fused_cg.BATCH_BLOCK_ELEMS
+    fused_cg.BATCH_BLOCK_ELEMS = 2**62 if form == "batch" else -1
+    try:
+        yield
+    finally:
+        fused_cg.BATCH_BLOCK_ELEMS = saved
+
+
+def form_sweep(curve_lm, gpu):
+    """The two forms of a batch on the same systems, device ms a launch
+    (profiler): the 512 curve fits' LM step (BATCH_LI iterations, the real
+    exits), and SWEEP_B laplacian systems of each SWEEP_SIDES side, 50 GN
+    iterations with no exit, on both sides of fused_cg.BATCH_BLOCK_ELEMS.
+    Both forms must run the same counts."""
+    meta, b, pre, lm, _v = curve_lm
+    cases = [(f"curve_fitting x{BATCH_B} LM step", meta, b, pre,
+              dict(lm, q_tolerance=Q_TOL), BATCH_LI, CG_TOL)]
+    for side in SWEEP_SIDES:
+        m, bb, pp, _lm, _v = batched_system(laplacian, _grid(side),
+                                            laplacian_batch_inputs(side, SWEEP_B))
+        cases.append((f"laplacian{side} x{SWEEP_B} GN", m, bb, pp, {}, 50, 0.0))
+    for label, m, bb, pp, kw, lits, tol in cases:
+        line = {"timing": "batch_forms", "case": label, "gpu": gpu,
+                "elems_per_system": int(m["ctot"]) * int(np.prod(m["F"].shape[2:])),
+                "batch_block_elems": fused_cg.BATCH_BLOCK_ELEMS,
+                "chosen": fused_cg.batched_kernel_form(m)}
+        counts = {}
+        for form in ("batch", "multi"):
+            with batch_form(form):
+                call = functools.partial(fused_cg.fused_grid_cg_kernel, m, bb, pp, lits, tol, **kw)
+                counts[form] = call()[1].tolist()
+                line[f"{form}_device_ms"] = kernel_device_ms(call, 3, 1)
+        line["iters"] = sum(counts["batch"])
+        line["faster"] = min(("batch", "multi"), key=lambda f: line[f"{f}_device_ms"])
+        log(json.dumps(line))
+        if counts["batch"] != counts["multi"]:
+            raise RuntimeError(f"{label}: the batch form ran {counts['batch']} iterations, "
+                               f"the multi form {counts['multi']}")
+
+
+def dev_us(e):
+    """A profiler entry's device time, µs."""
+    return float(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)))
+
+
+def kernel_device_ms(fn, reps, launches):
+    """Device ms of the CG kernel a call, mean over `reps` calls of fn
+    after a warm-up, from torch.profiler's kernel entries: the kernel's own
+    time, which CUDA events around a short launch blur with the wrapper's
+    host work: the mean of the launches seen, times the `launches` of a
+    call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ks = [e for e in prof.key_averages() if getattr(e, "device_type", None) == DeviceType.CUDA
+          and "fused_grid_cg_kernel" in e.key]
+    n = sum(e.count for e in ks)
+    if not n:
+        raise RuntimeError("the profiler saw no CG kernel launch")
+    if n != reps * launches:  # a short session may lose an event
+        log(json.dumps({"profiler_cg_launches_seen": n, "made": reps * launches}))
+    return sum(dev_us(e) for e in ks) / 1e3 / n * launches
+
+
+def host_ms(fn, reps):
+    """Mean host ms a call of fn (perf_counter, no synchronisation between
+    the calls): the wrapper's own cost of its asynchronous launches."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
 def time_cuda(fn, reps):
     """Mean ms per call over `reps` calls, CUDA events, after one warm-up."""
     fn()
@@ -910,27 +1344,44 @@ def time_cuda(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def time_pair(label, meta, b, pre, gpu, lm=None, reps=(5, 2), **variant):
-    """ms of TIMED_ITERS CG iterations with no exit of the kernel and of its
-    twin (CUDA events), and the call's bound: (ms, plain ms, bound ms,
-    bound by)."""
+def time_once(fn):
+    """(ms of one call, CUDA events, its result)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def time_pair(label, meta, b, pre, gpu, lm=None, reps=3, lits=TIMED_ITERS, device=False,
+              **variant):
+    """ms of `lits` CG iterations with no exit of the kernel (mean of `reps`
+    launches after a warm-up) and of its twin (one call, which also holds
+    the count), CUDA events, and the call's bound: (ms, plain ms, bound ms,
+    bound by). With `device` the kernel's ms is its device time
+    (kernel_device_ms), for a launch too short for the events to part it
+    from the wrapper's host work; the events' ms is printed beside it."""
     lm_kw = dict(lm, q_tolerance=float("-inf")) if lm else {}
     # with tol = 0 a loop that reaches an exact zero residual still stops
     # (rz <= 0, a denominator <= 0): times and the bound are of the
-    # iterations executed
-    n_sys = n_systems(meta)  # under the split: iterations summed over the systems
-    _d, it = fused_cg.fused_grid_cg_kernel(meta, b, pre, TIMED_ITERS, 0.0, **lm_kw, **variant)
+    # iterations executed, summed over a split's or a batch's systems
+    _d, it = fused_cg.fused_grid_cg_kernel(meta, b, pre, lits, 0.0, **lm_kw, **variant)
     iters = int(it.sum())
-    _d, twin_iters = fused_cg.fused_grid_cg_reference(
-        meta["F"], meta["triples"], b, pre, TIMED_ITERS, 0.0, rem=meta["rem"], n_sys=n_sys,
-        **lm_kw, **variant)
+
+    def call():
+        fused_cg.fused_grid_cg_kernel(meta, b, pre, lits, 0.0, **lm_kw, **variant)
+
+    ms_k = time_cuda(call, reps)
+    extra = {}
+    if device:
+        extra = {"kernel_event_ms": ms_k, "wrapper_host_ms": host_ms(call, reps)}
+        ms_k = kernel_device_ms(call, reps, 1)
+    ms_t, (_d, twin_iters) = time_once(lambda: fused_cg.fused_grid_cg_reference(
+        meta["F"], meta["triples"], b, pre, lits, 0.0, **twin_kw(meta), **lm_kw, **variant))
     if twin_iters != iters:
         raise RuntimeError(f"{label}: timed kernel ran {iters} iterations, the twin {twin_iters}")
-    ms_k = time_cuda(lambda: fused_cg.fused_grid_cg_kernel(
-        meta, b, pre, TIMED_ITERS, 0.0, **lm_kw, **variant), reps[0])
-    ms_t = time_cuda(lambda: fused_cg.fused_grid_cg_reference(
-        meta["F"], meta["triples"], b, pre, TIMED_ITERS, 0.0, rem=meta["rem"], n_sys=n_sys,
-        **lm_kw, **variant), reps[1])
     shape = meta_shape(meta)
     pre_planes = shape["C"] ** 2 if variant.get("pre_blocks") is not None else None
     bound_ms, bound_by = cg_bound(shape, iters, lm=bool(lm), cs=bool(variant.get("cs")),
@@ -941,7 +1392,7 @@ def time_pair(label, meta, b, pre, gpu, lm=None, reps=(5, 2), **variant):
                     "twin_ms_per_cg_iter": ms_t / iters,
                     "bound_ms_per_cg_iter": bound_ms / iters,
                     "kernel_ms": ms_k, "twin_ms": ms_t, "bound_ms": bound_ms,
-                    "bound_by": bound_by}))
+                    "bound_by": bound_by, **extra}))
     return ms_k, ms_t, bound_ms, bound_by
 
 
@@ -961,40 +1412,33 @@ def time_main_path(label, spec, kind, dims, inputs, nl, li, gpu, ip=None):
         fs.masks(u)
         return sv.cg_inputs(u, fs, state, sp)
 
-    ms_assembly = time_cuda(assemble, 3)
+    ms_assembly = time_cuda(assemble, 2)
     plan.solve(dict(inputs), nIterations=nl, lIterations=li)
-    solve_ms = []
-    for _ in range(2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = plan.solve(dict(inputs), nIterations=nl, lIterations=li)
-        torch.cuda.synchronize()
-        solve_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = plan.solve(dict(inputs), nIterations=nl, lIterations=li)
+    torch.cuda.synchronize()
+    solve_ms = [(time.perf_counter() - t0) * 1e3]
     log(json.dumps({"timing": label, "gpu": gpu, "assembly_ms_per_step": ms_assembly,
                     "solve_ms": solve_ms, "nonlinear_iters": res.num_iterations,
                     "lin_iters": res.num_linear_iterations}))
 
 
-def profile_solve(label, spec, dims, inputs, nl, li, gpu, ip=None):
-    """One warm GN solve under torch.profiler (``ip``:
-    InitializationParameters' keywords): device time, the kernel's share,
-    device kernel launches and host synchronisations; the 20 longest
-    kernels go to OUT_DIR."""
+def profile_solve(label, run, gpu):
+    """One warm solve (``run()``, called once before to warm up) under
+    torch.profiler: device time, the kernel's share, device kernel launches
+    and host synchronisations; the 20 longest kernels go to OUT_DIR."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    plan = ot.Problem(spec).plan(dims=dims, init_params=ot.InitializationParameters(**(ip or {})))
-    plan.solve(dict(inputs), nIterations=nl, lIterations=li)
+    run()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        res = plan.solve(dict(inputs), nIterations=nl, lIterations=li)
+        res = run()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
-
-    def dev_us(e):
-        return float(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)))
 
     kernels = [e for e in events if getattr(e, "device_type", None) == DeviceType.CUDA]
     device_ms = sum(dev_us(e) for e in kernels) / 1e3
@@ -1007,8 +1451,8 @@ def profile_solve(label, spec, dims, inputs, nl, li, gpu, ip=None):
             "device_busy_share_of_wall": device_ms / wall_ms,
             "device_kernel_launches": sum(e.count for e in kernels),
             "cg_kernel_launches": sum(e.count for e in kernels if "fused_grid_cg_kernel" in e.key),
-            "host_syncs": syncs, "nonlinear_iters": res.num_iterations,
-            "lin_iters": res.num_linear_iterations}
+            "host_syncs": syncs, "nonlinear_iters": int(np.max(res.num_iterations)),
+            "lin_iters": int(np.sum(res.num_linear_iterations))}
     log(json.dumps(line))
     os.makedirs(OUT_DIR, exist_ok=True)
     top = sorted(kernels, key=dev_us, reverse=True)[:20]
@@ -1033,12 +1477,31 @@ def main() -> int:
     nv = subprocess.run([nvcc_path(), "--version"], capture_output=True, text=True, check=True)
     log(f"nvcc: {nv.stdout.strip().splitlines()[-1]}")
 
-    # 1. build: every instance in one library, by one nvcc process
+    # 1. build: every instance in one library, by one nvcc process in a
+    # thread, while the host makes the first checks' inputs and systems
+    # (their assembly launches no CG kernel)
     t0 = time.perf_counter()
-    info = build_library()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        building = pool.submit(build_library)
+        n = MAIN_N
+        inputs = bench_poisson_inputs(n)
+        meta, b, pre, _, _ = system(poisson_image_editing, _grid(n), inputs)
+        lap = system(laplacian, _grid(n), laplacian_inputs(n))
+        pbig = system(poisson_image_editing, _grid(BIG_N), bench_poisson_inputs(BIG_N))
+        iw_in = bench_image_warping_inputs(IW_N)
+        iw_big_in = bench_image_warping_inputs(IW_BIG_N)
+        mmeta, mb, mpre, _, _ = system(image_warping, _grid(IW_N), iw_in)
+        vmeta, vb, vpre, vlm, _ = system(image_warping, _grid(IW_N), iw_in, "LMGPU")
+        gmeta, gb, gpre, _, _ = system(image_warping, _grid(IW_BIG_N), iw_big_in)
+        wmeta, wb, wpre, wlm, _ = system(image_warping, _grid(IW_BIG_N), iw_big_in, "LMGPU")
+        arap_dims, arap_in = arap_grid_inputs(ARAP_SIDE)
+        arm_dims, arm_in = armadillo_inputs()
+        prep_s = time.perf_counter() - t0
+        info = building.result()
     load_library()
     log(f"build: {'built' if info['built'] else 'cached'} {info['path'].name} in "
-        f"{time.perf_counter() - t0:.2f} s ({info['seconds']:.2f} s of nvcc)")
+        f"{time.perf_counter() - t0:.2f} s ({info['seconds']:.2f} s of nvcc; the first "
+        f"inputs and systems made meanwhile in {prep_s:.2f} s)")
     regs = instance_registers(info["log"])
     log(json.dumps({"registers": {fused_cg.instance_name(*k): v[0] for k, v in sorted(regs.items())},
                     "spill_store_bytes": {fused_cg.instance_name(*k): v[1]
@@ -1046,53 +1509,40 @@ def main() -> int:
                     "build_s": info["seconds"]}))
     if len(regs) != len(fused_cg.INSTANCES):
         raise RuntimeError(f"ptxas reported {len(regs)} instances, expected {len(fused_cg.INSTANCES)}")
+    off_cap = {fused_cg.instance_name(*k): v[0] for k, v in regs.items()
+               if v[0] != (40 if k[1] else 32)}
+    if off_cap:  # the caps of __launch_bounds__: 8 blocks per SM, the remainder 6
+        raise RuntimeError(f"instances off their register cap: {off_cap}")
 
     phases["start_and_build"] = time.perf_counter() - t_start - sum(phases.values())
     # 2. each kernel form against its twin at the main paths' shapes
-    n = MAIN_N
-    inputs = bench_poisson_inputs(n)
-    meta, b, pre, _, _ = system(poisson_image_editing, _grid(n), inputs)
     log(f"poisson {n}x{n}x4: {meta['F'].shape[0]} fields, {len(meta['triples'])} triples")
     err_gn = kernel_vs_twin(f"poisson{n}x4", meta, b, pre, 50, 0.0)
     kernel_vs_twin(f"poisson{n}x4", meta, b, pre, 2000, CG_TOL)
-    lmeta, lb, lpre, _, _ = system(laplacian, _grid(n), laplacian_inputs(n))
-    kernel_vs_twin(f"laplacian{n}", lmeta, lb, lpre, 50, 0.0)
-    kernel_vs_twin(f"laplacian{n}", lmeta, lb, lpre, 2000, CG_TOL)
-    del lmeta, lb, lpre
-    bmeta, bb, bpre, _, _ = system(poisson_image_editing, _grid(BIG_N),
-                                   bench_poisson_inputs(BIG_N))
-    kernel_vs_twin(f"poisson{BIG_N}x4", bmeta, bb, bpre, 50, 0.0)
-    kernel_vs_twin(f"poisson{BIG_N}x4", bmeta, bb, bpre, 200, CG_TOL)
-    del bmeta, bb, bpre
+    kernel_vs_twin(f"laplacian{n}", *lap[:3], 50, 0.0)
+    kernel_vs_twin(f"laplacian{n}", *lap[:3], 2000, CG_TOL)
+    kernel_vs_twin(f"poisson{BIG_N}x4", *pbig[:3], 50, 0.0)
+    kernel_vs_twin(f"poisson{BIG_N}x4", *pbig[:3], 200, CG_TOL)
+    del lap, pbig
     bitwise_repeat(f"poisson{n}x4", meta, b, pre, 300)
 
-    iw_in = bench_image_warping_inputs(IW_N)
-    iw_big_in = bench_image_warping_inputs(IW_BIG_N)
-    mmeta, mb, mpre, _, _ = system(image_warping, _grid(IW_N), iw_in)
     cross = sum(1 for (_d, i, j, _f) in mmeta["triples"] if i != j)
     log(f"image_warping {IW_N}x{IW_N}x3: {mmeta['F'].shape[0]} fields, "
         f"{len(mmeta['triples'])} triples, {cross} cross-channel")
     err_mixed = kernel_vs_twin(f"image_warping{IW_N}x3", mmeta, mb, mpre, 50, 0.0)
     kernel_vs_twin(f"image_warping{IW_N}x3", mmeta, mb, mpre, 400, CG_TOL)
-    vmeta, vb, vpre, vlm, _ = system(image_warping, _grid(IW_N), iw_in, "LMGPU")
     err_lm = kernel_vs_twin(f"image_warping{IW_N}x3", vmeta, vb, vpre, 50, 0.0, vlm,
                             q_tol=float("-inf"))
     kernel_vs_twin(f"image_warping{IW_N}x3", vmeta, vb, vpre, 400, CG_TOL, vlm)
     bitwise_repeat(f"image_warping{IW_N}x3", vmeta, vb, vpre, 400, vlm)
-    gmeta, gb, gpre, _, _ = system(image_warping, _grid(IW_BIG_N), iw_big_in)
     err_k6 = kernel_vs_twin(f"image_warping{IW_BIG_N}x3", gmeta, gb, gpre, 50, 0.0)
     kernel_vs_twin(f"image_warping{IW_BIG_N}x3", gmeta, gb, gpre, 100, CG_TOL)
-    wmeta, wb, wpre, wlm, _ = system(image_warping, _grid(IW_BIG_N), iw_big_in, "LMGPU")
     kernel_vs_twin(f"image_warping{IW_BIG_N}x3", wmeta, wb, wpre, 50, 0.0, wlm,
                    q_tol=float("-inf"))
     kernel_vs_twin(f"image_warping{IW_BIG_N}x3", wmeta, wb, wpre, 100, CG_TOL, wlm)
 
     # the graph forms: K3 (DIA, the grid mesh) and K4 (the remainder, the
     # armadillo), each in the GN and the LM instance
-    t0 = time.perf_counter()
-    arap_dims, arap_in = arap_grid_inputs(ARAP_SIDE)
-    arm_dims, arm_in = armadillo_inputs()
-    log(f"graph inputs built in {time.perf_counter() - t0:.2f} s")
     graph = {}
     for label, dims, gin in (("arap36k", arap_dims, arap_in), ("armadillo31k", arm_dims, arm_in)):
         gm = system(arap_mesh_deformation, dims, gin)
@@ -1194,6 +1644,37 @@ def main() -> int:
     variant_checks(f"poisson{SPLIT_N}x4 split", psplit_lm, 50, 2000)
     del psplit_lm
 
+    # K1 (h), the batch axis: 512 curve-fit systems (2 elements each) and 4
+    # laplacian 16x16 systems a block each, GN, LM, Chronopoulos-Gear and
+    # bfloat16, each system held to the twin and to its own one-system
+    # launch; and 4 poisson 512x512x4 systems with their own fields, in turn
+    curve_truths, curve_in = batched_curve_inputs(BATCH_B, BATCH_N)
+    cdims = {"N": BATCH_N, "U": 1}
+    lap_in = laplacian_batch_inputs(LAP_BATCH_N, LAP_BATCH_B)
+    cs, bf = {"cg_variant": "chronopoulos_gear"}, {"coefficient_dtype": "bfloat16"}
+    batch_cases = [
+        (f"curve_fitting x{BATCH_B}", curve_fitting, cdims, curve_in, BATCH_LI,
+         [("GN", "gaussNewtonGPU", {}), ("LM", "LMGPU", {}), ("LM cs", "LMGPU", cs),
+          ("LM bf16", "LMGPU", bf)]),
+        (f"laplacian{LAP_BATCH_N} x{LAP_BATCH_B}", laplacian, _grid(LAP_BATCH_N), lap_in, 400,
+         [("GN", "gaussNewtonGPU", {}), ("LM", "LMGPU", {}), ("GN cs", "gaussNewtonGPU", cs),
+          ("GN bf16", "gaussNewtonGPU", bf)]),
+    ]
+    for label, spec, dims, binp, exit_lits, forms in batch_cases:
+        for flabel, kind, ip in forms:
+            sysb = batched_system(spec, dims, binp, kind, **ip)
+            if not form_of(sysb[0], sysb[3], **sysb[4]).endswith("_batch"):
+                raise RuntimeError(f"{label} {flabel}: not the block-per-system form")
+            err = batch_checks(f"{label} {flabel}", sysb, 50, exit_lits)
+            if spec is curve_fitting and flabel == "LM":
+                err_batch, curve_lm = err, sysb
+    pbatch_in = batched_poisson_inputs(n, BATCH_POISSON_B)
+    pbatch = batched_system(poisson_image_editing, _grid(n), pbatch_in)
+    if form_of(pbatch[0]) != "gn_multi":
+        raise RuntimeError(f"poisson{n}x4 x{BATCH_POISSON_B}: not the multi-system form")
+    log(f"poisson {n}x{n}x4 x{BATCH_POISSON_B}: {pbatch[0]['F'].shape[1]} fields a system")
+    batch_checks(f"poisson{n}x4 x{BATCH_POISSON_B}", pbatch, 50, 2000, single=False)
+
     phases["kernel_checks"] = time.perf_counter() - t_start - sum(phases.values())
     # 3. the main paths through the public API, each with the launch counts
     # set to 0 just before it and read just after
@@ -1224,12 +1705,15 @@ def main() -> int:
     _r, l_sfs = first_steps_main_path(
         f"shape_from_shading{SFS_N} GN {SFS_NL}x{SFS_LI}", shape_from_shading, _grid(SFS_N),
         sfs_in, SFS_NL, SFS_LI, JAX_CPU_SFS, SFS_FIRST_STEPS, sfs_shape)
-    l_flow = flow_main_path(flow_in)
+    l_flow = pyramid_flow_main_path(flow_in)
     _r, l_intr, _p = main_path(
         f"intrinsic{INTR_N} GN {INTR_NL}x{INTR_LI}", intrinsic_image_decomposition,
         "gaussNewtonGPU", _grid(INTR_N), intr_in, INTR_NL, INTR_LI, JAX_CPU_INTRINSIC_512_COST,
         {"r": (INTR_N, INTR_N, 3), "s": (INTR_N, INTR_N, 1)})
     _r, l_split = split_main_path(split_in, split_counts)
+    _r, l_batch = batched_curve_main_path(curve_truths, curve_in)
+    l_pbatch = batched_poisson_main_path(pbatch_in)
+    l_sched = scheduled_main_path()
 
     phases["main_paths"] = time.perf_counter() - t_start - sum(phases.values())
     cases = medium_inputs()
@@ -1264,33 +1748,41 @@ def main() -> int:
     t_gn = time_pair(f"poisson{n}x4", meta, b, pre, gpu)
     t_mixed = time_pair(f"image_warping{IW_N}x3", mmeta, mb, mpre, gpu)
     t_lm = time_pair(f"image_warping{IW_N}x3", vmeta, vb, vpre, gpu, vlm)
-    t_k6 = time_pair(f"image_warping{IW_BIG_N}x3", gmeta, gb, gpre, gpu, reps=(3, 1))
-    time_pair(f"image_warping{IW_BIG_N}x3", wmeta, wb, wpre, gpu, wlm, reps=(3, 1))
+    t_k6 = time_pair(f"image_warping{IW_BIG_N}x3", gmeta, gb, gpre, gpu, reps=2)
+    time_pair(f"image_warping{IW_BIG_N}x3", wmeta, wb, wpre, gpu, wlm, reps=2)
     del gmeta, gb, gpre, wmeta, wb, wpre, wlm
     t_graph = {}
     for label, (gm, glm, _err) in graph.items():
-        t_graph[label] = time_pair(label, *gm[:3], gpu, reps=(3, 1))
-        time_pair(label, *glm[:3], gpu, glm[3], reps=(3, 1))
-    t_3d = time_pair(f"volumetric{VOL_N}", *vsys[:3], gpu, vsys[3], reps=(5, 1), **vsys[4])
-    t_bj = time_pair(f"volumetric{VOL_N} block_jacobi", *vbj[:3], gpu, vbj[3], reps=(5, 1), **vbj[4])
+        t_graph[label] = time_pair(label, *gm[:3], gpu, reps=2)
+        time_pair(label, *glm[:3], gpu, glm[3], reps=2)
+    t_3d = time_pair(f"volumetric{VOL_N}", *vsys[:3], gpu, vsys[3], reps=3, **vsys[4])
+    t_bj = time_pair(f"volumetric{VOL_N} block_jacobi", *vbj[:3], gpu, vbj[3], reps=3, **vbj[4])
     t_cs = time_pair(f"poisson{n}x4 chronopoulos_gear", *pcs[:3], gpu, pcs[3], **pcs[4])
     t_bf = time_pair(f"poisson{n}x4 bfloat16", *pbf[:3], gpu, pbf[3], **pbf[4])
     for (label, v), sysv in iw_variants.items():
-        time_pair(f"image_warping{IW_N}x3 {label} {v}", *sysv[:3], gpu, sysv[3], reps=(3, 1), **sysv[4])
+        time_pair(f"image_warping{IW_N}x3 {label} {v}", *sysv[:3], gpu, sysv[3], reps=2, **sysv[4])
     del iw_variants
     big = system(volumetric_mesh_deformation, _vol(VOL_BIG_N), vol_big_in)
-    time_pair(f"volumetric{VOL_BIG_N}", *big[:3], gpu, big[3], reps=(3, 1), **big[4])
+    time_pair(f"volumetric{VOL_BIG_N}", *big[:3], gpu, big[3], reps=2, **big[4])
     del big
     t_sfs = time_pair(f"shape_from_shading{SFS_N}", *ssys[:3], gpu, ssys[3], **ssys[4])
     time_pair(f"optical_flow{FLOW_N}x2", *fsys[:3], gpu, fsys[3], **fsys[4])
-    time_pair(f"intrinsic{INTR_N}x4", *isys[:3], gpu, isys[3], reps=(3, 1), **isys[4])
-    t_split = time_pair(f"poisson{SPLIT_N}x4 split", *psplit[:3], gpu, psplit[3], reps=(3, 1),
+    time_pair(f"intrinsic{INTR_N}x4", *isys[:3], gpu, isys[3], reps=2, **isys[4])
+    t_split = time_pair(f"poisson{SPLIT_N}x4 split", *psplit[:3], gpu, psplit[3], reps=2,
                         **psplit[4])
     # the same four channels as one joint system, for the split's worth
     joint = dict(psplit[0], chan_grid=False, triples=tuple(
         (d, c, c, fid) for (d, _i, _j, fid) in psplit[0]["triples"] for c in range(4)))
-    time_pair(f"poisson{SPLIT_N}x4 joint", joint, *psplit[1:3], gpu, reps=(3, 1))
+    time_pair(f"poisson{SPLIT_N}x4 joint", joint, *psplit[1:3], gpu, reps=2)
     del psplit, joint
+    # K1 (h): the LM batch of the curve fits over one step's lIterations,
+    # the same launch against its 512 systems launched one by one, and the
+    # strided multi-system form per system-iteration
+    t_batch = time_pair(f"curve_fitting x{BATCH_B} LM batch", *curve_lm[:3], gpu, curve_lm[3],
+                        lits=BATCH_LI, device=True)
+    time_batched_launches(f"curve_fitting x{BATCH_B} LM step launch", *curve_lm[:4], gpu)
+    form_sweep(curve_lm, gpu)
+    time_pair(f"poisson{n}x4 x{BATCH_POISSON_B} multi", *pbatch[:3], gpu, reps=2)
     time_main_path(f"poisson{n}x4 GN 1x2000", poisson_image_editing, "gaussNewtonGPU",
                    _grid(n), inputs, 1, 2000, gpu)
     time_main_path(f"shape_from_shading{SFS_N} GN {SFS_NL}x{SFS_LI}", shape_from_shading,
@@ -1312,14 +1804,9 @@ def main() -> int:
                        "gaussNewtonGPU", dims, gin, GRAPH_NL, GRAPH_LI, gpu)
     time_main_path(f"volumetric{VOL_N} GN {VOL_NL}x{VOL_LI} jacobi", volumetric_mesh_deformation,
                    "gaussNewtonGPU", _vol(VOL_N), vol_in, VOL_NL, VOL_LI, gpu)
-    profile_solve("arap36k", arap_mesh_deformation, arap_dims, arap_in, GRAPH_NL, GRAPH_LI, gpu)
-    # volumetric by device time: wall-clock solves there swing with the
-    # host-bound assembly; and shape_from_shading, whose assembly re-makes
-    # the ComputedArray bundle every step
-    profile_solve(f"volumetric{VOL_N}_jacobi", volumetric_mesh_deformation, _vol(VOL_N),
-                  vol_in, VOL_NL, VOL_LI, gpu, {"preconditioner": "jacobi"})
-    profile_solve(f"shape_from_shading{SFS_N}", shape_from_shading, _grid(SFS_N), sfs_in,
-                  SFS_NL, SFS_LI, gpu)
+    bplan = ot.Problem(curve_fitting, kind="LMGPU").plan(dims=cdims)
+    profile_solve(f"curve_fitting_x{BATCH_B}_batched", lambda: bplan.solve_batched(
+        dict(curve_in), nIterations=BATCH_NL, lIterations=BATCH_LI), gpu)
     phases["timings_and_profiles"] = time.perf_counter() - t_start - sum(phases.values())
 
     def entry(name, replaces, launches, err, timing):
@@ -1333,6 +1820,16 @@ def main() -> int:
         ms, by = cg_bound(shape, 1)
         bounds.append({"row": row, "bound_ms_per_cg_iter": ms, "bound_by": by})
     log(json.dumps({"bounds_to_port": bounds}))
+    # K1 (h)'s bound of one iteration of every system at the bench's batched
+    # shape and at 4 x laplacian 16x16
+    k1h = {}
+    for row, shape, lm, batch in (
+            (f"curve_fitting x{BATCH_B} LM", meta_shape(curve_lm[0]), True, BATCH_B),
+            (f"laplacian{LAP_BATCH_N} x{LAP_BATCH_B} GN",
+             dict(fields=5, plane=LAP_BATCH_N ** 2, C=1, triples=5), False, LAP_BATCH_B)):
+        ms, by = cg_bound(shape, 1, lm=lm, batch=batch)
+        k1h[row] = {"bound_ms_per_iter_of_all_systems": ms, "bound_by": by}
+    log(json.dumps({"bounds_k1h": k1h}))
 
     # each main-path launch counts in one entry; ms, plain_ms and bound_ms
     # are of TIMED_ITERS iterations; no single PyTorch call runs a CG loop,
@@ -1341,7 +1838,8 @@ def main() -> int:
     # checked and timed above; image_warping's LM variant solves above are
     # their main paths; optical_flow's and intrinsic's solves are K1
     # variant a's further main paths
-    log(json.dumps({"main_path_launches": {"optical_flow": l_flow, "intrinsic": l_intr}}))
+    log(json.dumps({"main_path_launches": {"optical_flow": l_flow, "intrinsic": l_intr,
+                                           "poisson_batched": l_pbatch, "scheduled": l_sched}}))
     log(json.dumps({"command_s": time.perf_counter() - t_start,
                     "checks_and_main_paths_s": phase_s, "phases_s": phases}))
     log(f"gpu: {gpu}")
@@ -1368,6 +1866,8 @@ def main() -> int:
               f"shape_from_shading {SFS_N}x{SFS_N}", K1G, l_sfs["gn"], err_sfs, t_sfs),
         entry(f"fused_grid_cg GN, four one-channel systems in one launch (K2), "
               f"poisson {SPLIT_N}x{SPLIT_N}x4", K2, l_split["gn_multi"], err_split, t_split),
+        entry(f"fused_grid_cg LM, a batch axis: {BATCH_B} curve-fit systems side by side, a "
+              "block each (K1 (h))", K1H, l_batch["lm_batch"], err_batch, t_batch),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -63,8 +63,8 @@ from .lib import (
     neq,
     normalize,
 )
-from .problem import Plan, Problem, SolveResult
-from .pyramid import upsample2x_nearest
+from .problem import BatchedSolveResult, Plan, Problem, SolveResult
+from .pyramid import PyramidPlan, upsample2x_nearest
 from .solver.params import (
     GuardedInvertType,
     InitializationParameters,
@@ -75,12 +75,22 @@ from .spec import SpecError
 
 __version__ = "0.1.0"
 
+
+def enable_double_precision() -> None:
+    """Does nothing: the JAX package needs this global switch (jax x64)
+    before ``plan(double_precision=True)``; torch computes in float64
+    whenever a plan asks for it. Kept so that scripts written for the
+    reference run unchanged."""
+
 __all__ = [
     "Dim",
     "IndexSpace",
     "Problem",
     "Plan",
     "SolveResult",
+    "BatchedSolveResult",
+    "PyramidPlan",
+    "enable_double_precision",
     "SpecError",
     "GuardedInvertType",
     "JacobiScalingType",

@@ -24,7 +24,7 @@ probes (``torch.func``) of the pointwise slot-form residual function, and
 the channel-pair sparsity is detected once per plan by probing randomized
 inputs on a small grid, exactly as the reference package does. Graph
 couplings between slots of different vertex spaces, whose unknowns are
-both on the graph, are not ported yet (ROADMAP.md queue 1 item 10).
+both on the graph, are not ported yet (ROADMAP.md queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -49,7 +49,7 @@ WKey = Tuple[str, str, Tuple[int, ...], int, int]
 GKey = Tuple[str, str, str, str, str, int, int]
 CROSS_SPACE_TODO = (
     "graph couplings between unknowns on slots of different vertex spaces are "
-    "not ported yet (ROADMAP.md queue 1 item 10)"
+    "not ported yet (ROADMAP.md queue 1 item 4)"
 )
 
 # the reference package's probe seed (opt_tpu/assembly.py:497): identical
@@ -581,7 +581,14 @@ def assemble(compiled, plan: AssemblyPlan, X, consts, graphs, params, row_masks,
     preconditioner couples the channels)."""
     slots = compiled.registry.slots
     dt = compiled.dtype
-    X_dev = next(iter(X.values())).device
+    X_ref = next(iter(X.values()))
+    X_dev = X_ref.device
+
+    def _zeros(shape):
+        # zeros that the build phase writes into in place: made from X, so
+        # that under torch.func.vmap (Plan.solve_batched) they carry the
+        # batch axis the written values have
+        return X_ref.new_zeros(shape, dtype=dt)
 
     r_terms_primal = None
     if const_cache is None:
@@ -649,7 +656,7 @@ def assemble(compiled, plan: AssemblyPlan, X, consts, graphs, params, row_masks,
                 for c in cols
             ]
             return ("diag", torch.stack(cols, dim=-1))
-        block = torch.zeros(dom_shape + (c_out, c_in), dtype=dt, device=X_dev)
+        block = _zeros(dom_shape + (c_out, c_in))
         for (i, j), f in pair_fields.items():
             block[..., i, j] = f
         return ("block", block)
@@ -687,7 +694,7 @@ def assemble(compiled, plan: AssemblyPlan, X, consts, graphs, params, row_masks,
             w_packed.append((isp, delta, kind, W, offs[u_out], offs[u_in],
                              unknown_channels[u_out], unknown_channels[u_in]))
             continue
-        block = torch.zeros(dom + (ctot, ctot), dtype=dt, device=X_dev)
+        block = _zeros(dom + (ctot, ctot))
         for (u_out, u_in, pf) in groups:
             oo, oi = offs[u_out], offs[u_in]
             if (u_out, u_in, delta) in plan.scalar_groups:
@@ -731,7 +738,7 @@ def assemble(compiled, plan: AssemblyPlan, X, consts, graphs, params, row_masks,
             parts = [ck for ck in _cks if (ck[2], ck[4]) == (ko, ki)]
             if not parts:
                 return None
-            acc = torch.zeros((_E, _ct, _ct), dtype=dt, device=X_dev)
+            acc = _zeros((_E, _ct, _ct))
             for ck in parts:
                 _g, u_out, _ko, u_in, _ki = ck
                 oo, oi = _offs[u_out], _offs[u_in]
@@ -880,7 +887,7 @@ def assemble(compiled, plan: AssemblyPlan, X, consts, graphs, params, row_masks,
             E = graphs[g][names[0]].shape[0]
             blocks = []
             for k in names:
-                padded = torch.zeros((E, ct), dtype=dt, device=X_dev)
+                padded = _zeros((E, ct))
                 for img, c in edge_parts.get((g, gk, k), {}).items():
                     padded[:, offs[img] : offs[img] + unknown_channels[img]] = c
                 blocks.append(padded)
@@ -955,8 +962,7 @@ def assemble(compiled, plan: AssemblyPlan, X, consts, graphs, params, row_masks,
             B = blocks.get(isp)
             if B is None:
                 ctot = _layout_for(isp)[2]
-                B = torch.zeros(isp.shape(compiled.dim_sizes) + (ctot, ctot), dtype=dt,
-                                device=X_dev)
+                B = _zeros(isp.shape(compiled.dim_sizes) + (ctot, ctot))
             return B
 
         for (isp, delta, kind, W, oo, oi, co, ci) in bp_w_packed:

@@ -147,10 +147,8 @@ class FunctionSet:
             terms = c.local_residual_terms(sv, self.params, self.consts)
             return [t if sc is None else t * sc for t, sc in zip(terms, scales)]
 
-        diag = {
-            name: torch.zeros(c.unknown_shape(name), dtype=c.dtype, device=slot_vals[0].device)
-            for name in c.unknown_names
-        }
+        # made from X: under torch.func.vmap they carry the batch axis
+        diag = {name: X[name].new_zeros(c.unknown_shape(name)) for name in c.unknown_names}
         zeros = [torch.zeros_like(v) for v in slot_vals]
         for sid in c.unknown_slot_ids():
             s = c.registry.slots[sid]

@@ -6,7 +6,7 @@ This has every grid spec (laplacian, poisson_image_editing, image_warping,
 optical_flow, intrinsic_image_decomposition, shape_from_shading and the
 3-D volumetric_mesh_deformation) and the graph specs arap_mesh_deformation
 and curve_fitting; the other three graph specs come with ROADMAP.md queue 1
-item 9.
+item 2.
 """
 
 from __future__ import annotations

@@ -74,19 +74,22 @@ def build_library() -> dict:
 
 
 _INSTANCE = re.compile(
-    r"fused_grid_cg_kernelILb([01])ELb([01])ELb([01])ELb([01])E(f|13__nv_bfloat16)Lb([01])EE"
+    r"fused_grid_cg_kernelILb([01])ELb([01])ELb([01])ELb([01])E(f|13__nv_bfloat16)Li([012])EE"
 )
 
 
 def instance_registers(log: str) -> dict:
-    """{(lm, rem, cs, block, bf16, multi): (registers, spill store bytes,
-    spill load bytes)} from ptxas's -v output."""
+    """{(lm, rem, cs, block, bf16, multi, batch): (registers, spill store
+    bytes, spill load bytes)} from ptxas's -v output (the kernel's FORM: 0
+    one system, 1 multi, 2 batch)."""
     regs, current, spill = {}, None, (0, 0)
     for line in log.splitlines():
         m = _INSTANCE.search(line)
         if m and "Compiling entry function" in line:
             lm, rem, cs, block = (g == "1" for g in m.groups()[:4])
-            current, spill = (lm, rem, cs, block, m.group(5) != "f", m.group(6) == "1"), (0, 0)
+            form = int(m.group(6))
+            current = (lm, rem, cs, block, m.group(5) != "f", form == 1, form == 2)
+            spill = (0, 0)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and current is not None:
@@ -108,11 +111,11 @@ def load_library() -> ctypes.CDLL:
     info = build_library()
     lib = ctypes.CDLL(str(info["path"]))
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # lm, rem, cs, block, bf16, multi, threads, out
+    # lm, rem, cs, block, bf16, form (0 one system, 1 multi, 2 batch), threads, out
     lib.fused_grid_cg_max_blocks.argtypes = [i32] * 7 + [ctypes.POINTER(i32)]
     lib.fused_grid_cg_max_blocks.restype = i32
     lib.fused_grid_cg_launch.argtypes = [
-        i32, i32, i32, i32,  # lm, cs, block, bf16
+        i32, i32, i32, i32, i32,  # lm, cs, block, bf16, batch
         vp, vp, vp, vp, vp, vp,  # F, b, pre, ctc, triples, starts
         vp, vp, vp,  # rowptr, col, blk (the remainder; null without)
         i32, i32, i32,  # C (channels of a system), n_sys, f_sys_stride

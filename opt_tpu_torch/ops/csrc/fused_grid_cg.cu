@@ -1,13 +1,15 @@
 // Whole-loop preconditioned CG for 2-D and 3-D grid stencil operators and
-// graph operators, as one persistent cooperative kernel for Hopper
-// (sm_90a). One template, fused_grid_cg_kernel<LM, REM, CS, BLOCK, FT,
-// MULTI>, in 40 instances: Gauss-Newton or Levenberg-Marquardt (LM), without or with
-// the graph remainder phase (REM), the standard loop or Chronopoulos-Gear
-// (CS), the elementwise Jacobi or the per-point block-Jacobi preconditioner
+// graph operators, as one persistent kernel for Hopper (sm_90a). One
+// template, fused_grid_cg_kernel<LM, REM, CS, BLOCK, FT, FORM>, in 48
+// instances: Gauss-Newton or Levenberg-Marquardt (LM), without or with the
+// graph remainder phase (REM), the standard loop or Chronopoulos-Gear (CS),
+// the elementwise Jacobi or the per-point block-Jacobi preconditioner
 // (BLOCK), float32 or bfloat16 coefficient storage (FT): 32 instances of one
-// system a launch; and 8 more (MULTI, without REM and BLOCK) whose launch
-// holds n_sys independent systems, solved in turn, each with its own dots,
-// exit and count (see the kernel below).
+// system a cooperative launch (FORM one); 8 more (MULTI, without REM and
+// BLOCK) whose cooperative launch holds n_sys independent systems, solved in
+// turn; and 8 (BATCH, without REM and BLOCK) whose ordinary launch holds
+// n_sys independent systems side by side, one block each. Every system has
+// its own dots, exit and count (see the kernel below).
 //
 // Replaces, in opt_tpu/ops/pallas_cg.py:
 //   * _kernel (:328), the Pallas TPU kernel that runs the whole PCG inner
@@ -40,7 +42,15 @@
 //     every channel the same fields) as a sequential Pallas grid=(C,) of
 //     one-channel solves over shared fields, each with its own exit, the
 //     counts summed. Here: n_sys = C systems of one channel in one launch,
-//     the fields' per-system stride 0.
+//     the fields' per-system stride 0;
+//   * _kernel under jax.vmap (opt_tpu/solver/gauss_newton.py
+//     _solve_fused_batched, Plan.solve_batched), where pallas_call's batching
+//     rule turns the batch into a grid axis: B independent solves of one
+//     operator shape, each with its own fields, b, pre, ctc, dots, alpha,
+//     beta, exit and count. Here: n_sys = B systems, the fields' per-system
+//     stride one system's fields; small systems (c_sys*plane up to
+//     ops/fused_cg.py's BATCH_BLOCK_ELEMS) in the BATCH instances, one block
+//     a system, larger ones in the MULTI instances, in turn.
 //
 // The domain is [N0, N1, N2] (a 2-D grid is [1, H, W], a graph [1, 1, N]);
 // state is channel-major [C, N0, N1, N2] float32; a triple row is
@@ -83,12 +93,18 @@
 // poisson 512x512x4 an iteration moves about 25 MB, which fits the H100's
 // 50 MB L2; image_warping 1024x1024x3 (26 fields read by 31 triples) and
 // volumetric 64^3 x 6 (128 fields, 134 MB) stream from HBM. The arithmetic
-// is a few flops per byte.
+// is a few flops per byte. A batch of small systems is the exception: 512
+// curve fits (2 elements, 4 fields a system) move about 50 KB an iteration,
+// so launch latency and the barriers' latency bound the BATCH form, not
+// bytes; it runs the systems side by side so that each iteration of all of
+// them costs one block's barriers.
 //
 // What the design does about it:
 //   * One launch for the whole loop (no per-iteration launch or host round
 //     trip, the TPU kernel's contract): a cooperative grid of co-resident
-//     blocks walks the elements with grid-stride loops. The standard loop
+//     blocks walks the elements with grid-stride loops (the BATCH form: each
+//     block walks its own system with block-stride loops, and every
+//     grid-wide barrier below is a block barrier). The standard loop
 //     has three grid-wide barriers per iteration (apply + <p,Ap>; update +
 //     z + <z,r> (+ <delta,b+r>); p update), Chronopoulos-Gear two (apply +
 //     its two or three dots in one reduction; the update, with u = M^-1 r
@@ -178,12 +194,37 @@ __device__ __forceinline__ double partials_sum(const double* part, int n,
   return s;
 }
 
-// Sums every thread's v into part[blockIdx.x], in a fixed order.
+// Sums every thread's v into *part (the block's own slot), in a fixed order.
 __device__ __forceinline__ void store_partial(double v, double* part,
                                               double* s_warp) {
   v = block_sum(v, s_warp);
-  if (threadIdx.x == 0) part[blockIdx.x] = v;
+  if (threadIdx.x == 0) *part = v;
 }
+
+// Who runs one system, as a compile-time policy of cg_system: its threads,
+// its barrier and the slots of its per-block dot partials.
+//   GridTeam: every block of a cooperative grid (one system a launch, or the
+//     MULTI instances' systems in turn); grid-wide barriers, one partial a
+//     block, summed by every block in the same order.
+//   BlockTeam: one block (the BATCH instances, block k owning system k);
+//     __syncthreads() barriers, one partial.
+struct GridTeam {
+  cg::grid_group& grid;
+  __device__ __forceinline__ int thread() const {
+    return blockIdx.x * blockDim.x + threadIdx.x;
+  }
+  __device__ __forceinline__ int stride() const { return gridDim.x * blockDim.x; }
+  __device__ __forceinline__ int parts() const { return gridDim.x; }
+  __device__ __forceinline__ int part() const { return blockIdx.x; }
+  __device__ __forceinline__ void sync() { grid.sync(); }
+};
+struct BlockTeam {
+  __device__ __forceinline__ int thread() const { return threadIdx.x; }
+  __device__ __forceinline__ int stride() const { return blockDim.x; }
+  __device__ __forceinline__ int parts() const { return 1; }
+  __device__ __forceinline__ int part() const { return 0; }
+  __device__ __forceinline__ void sync() { __syncthreads(); }
+};
 
 __device__ __forceinline__ float safe_div(float num, float den, int guard) {
   if (!guard) return __fdiv_rn(num, den);
@@ -279,15 +320,16 @@ __device__ __forceinline__ double block_prec(const float* __restrict__ pre,
   return acc;
 }
 
-// One system's whole loop: C channels over the domain. The pointers are the
-// launch's own (they stay kernel parameters, not registers); the system's
-// slices start at element o of the state vectors, po of the preconditioner
-// planes, fo of the fields and g of the partials. Every block of the grid
-// runs it with the same arguments and leaves it after the same iteration.
-// Returns the executed iteration count.
-template <bool LM, bool REM, bool CS, bool BLOCK, typename FT>
+// One system's whole loop: C channels over the domain, run by `team`
+// (GridTeam or BlockTeam). The pointers are the launch's own (they stay
+// kernel parameters, not registers); the system's slices start at element
+// o of the state vectors, po of the preconditioner planes, fo of the fields
+// and g of the partials. Every block of the team runs it with the same
+// arguments and leaves it after the same iteration. Returns the executed
+// iteration count.
+template <bool LM, bool REM, bool CS, bool BLOCK, typename FT, typename TEAM>
 __device__ __forceinline__ int cg_system(
-    cg::grid_group& grid, const int* s_tr, const int* s_start, double* s_warp,
+    TEAM& team, const int* s_tr, const int* s_start, double* s_warp,
     double* s_bcast_p, const FT* __restrict__ F, const float* __restrict__ b,
     const float* __restrict__ pre, const float* __restrict__ ctc,
     const int* __restrict__ rowptr, const int* __restrict__ col,
@@ -298,13 +340,14 @@ __device__ __forceinline__ int cg_system(
   const int N12 = N1 * N2;
   const int plane = N0 * N12;
   const int total = o + C * plane;  // one past the system's last element
-  const int stride = gridDim.x * blockDim.x;
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int stride = team.stride();
+  const int tid = team.thread();
   const int first = o + tid;  // this thread's first element of the system
-  const int n_blocks = gridDim.x;
+  const int n_blocks = team.parts();
   double* part0 = part0_ + g;
   double* part1 = part1_ + g;
   double* part2 = LM ? part2_ + g : part2_;
+  const int mine = team.part();  // this block's slot among the partials
   int l = 0;
 
   if constexpr (!CS) {
@@ -329,8 +372,8 @@ __device__ __forceinline__ int cg_system(
         acc += (double)__fmul_rn(rv, zv);
       }
     }
-    store_partial(acc, part1, s_warp);
-    grid.sync();
+    store_partial(acc, part1 + mine, s_warp);
+    team.sync();
     float rz = (float)partials_sum(part1, n_blocks, s_bcast_p);
     const float floor_rz = __fmul_rn(tol, rz);
     float q0 = 0.f;
@@ -362,8 +405,8 @@ __device__ __forceinline__ int cg_system(
         Ap[e] = a;
         acc += (double)__fmul_rn(pe, a);
       }
-      store_partial(acc, part0, s_warp);
-      grid.sync();
+      store_partial(acc, part0 + mine, s_warp);
+      team.sync();
       const float den = (float)partials_sum(part0, n_blocks, s_bcast_p);
       const float alpha = safe_div(rz, den, guard_div);
 
@@ -382,7 +425,7 @@ __device__ __forceinline__ int cg_system(
               const int e = o + c * plane + q;
               delta[e] = __fadd_rn(delta[e], __fmul_rn(alpha, __ldcg(p + e)));
             }
-          grid.sync();  // the stencil below reads neighbours' delta
+          team.sync();  // the stencil below reads neighbours' delta
           for (int q = tid; q < plane; q += stride) {
             int x, y, zc;
             coords(q, N12, N2, x, y, zc);
@@ -417,7 +460,7 @@ __device__ __forceinline__ int cg_system(
       } else if (reset) {
         for (int e = first; e < total; e += stride)
           delta[e] = __fadd_rn(delta[e], __fmul_rn(alpha, p[e]));
-        grid.sync();  // the stencil below reads neighbours' delta
+        team.sync();  // the stencil below reads neighbours' delta
         for (int e = first; e < total; e += stride) {
           const int c = (e - o) / plane;
           const int q = (e - o) - c * plane;
@@ -445,9 +488,9 @@ __device__ __forceinline__ int cg_system(
           if constexpr (LM) acc_q += (double)__fmul_rn(dv, __fadd_rn(b[e], rv));
         }
       }
-      store_partial(acc, part1, s_warp);
-      if constexpr (LM) store_partial(acc_q, part2, s_warp);
-      grid.sync();
+      store_partial(acc, part1 + mine, s_warp);
+      if constexpr (LM) store_partial(acc_q, part2 + mine, s_warp);
+      team.sync();
       const float rz_new = (float)partials_sum(part1, n_blocks, s_bcast_p);
       const float beta = safe_div(rz_new, rz, guard_div);
       ++l;
@@ -470,7 +513,7 @@ __device__ __forceinline__ int cg_system(
         else zv = __fmul_rn(pre[e], r[e]);
         p[e] = __fadd_rn(zv, __fmul_rn(beta, ldv<BLOCK>(p + e)));
       }
-      grid.sync();
+      team.sync();
     }
   } else {
     // Chronopoulos-Gear: z holds u = M^-1 r, Ap holds w = A u.
@@ -499,8 +542,8 @@ __device__ __forceinline__ int cg_system(
         acc += (double)__fmul_rn(rv, uv);
       }
     }
-    store_partial(acc, part1, s_warp);
-    grid.sync();
+    store_partial(acc, part1 + mine, s_warp);
+    team.sync();
     const float floor_rz =
         __fmul_rn(tol, (float)partials_sum(part1, n_blocks, s_bcast_p));
     float gamma = 1.f, alpha_prev = 1.f, q0 = 0.f;
@@ -527,10 +570,10 @@ __device__ __forceinline__ int cg_system(
         if constexpr (LM)
           acc_q += (double)__fmul_rn(ldv<BLOCK>(delta + e), __fadd_rn(b[e], rv));
       }
-      store_partial(acc_g, part0, s_warp);
-      store_partial(acc_d, part1, s_warp);
-      if constexpr (LM) store_partial(acc_q, part2, s_warp);
-      grid.sync();
+      store_partial(acc_g, part0 + mine, s_warp);
+      store_partial(acc_d, part1 + mine, s_warp);
+      if constexpr (LM) store_partial(acc_q, part2 + mine, s_warp);
+      team.sync();
       const float gamma_new = (float)partials_sum(part0, n_blocks, s_bcast_p);
       const float delta_d = (float)partials_sum(part1, n_blocks, s_bcast_p);
       const bool first_it = l == 0;
@@ -585,7 +628,7 @@ __device__ __forceinline__ int cg_system(
       if (used_den <= 0.f) break;
       if constexpr (LM) {
         if (l % reset_period == 0) {
-          grid.sync();  // the stencil below reads neighbours' delta
+          team.sync();  // the stencil below reads neighbours' delta
           if constexpr (BLOCK) {
             for (int q = tid; q < plane; q += stride) {
               int x, y, zc;
@@ -620,29 +663,44 @@ __device__ __forceinline__ int cg_system(
           }
         }
       }
-      grid.sync();
+      team.sync();
     }
   }
   return l;
 }
 
-// The kernel. The MULTI instances hold n_sys independent systems of C
-// channels each, solved one after the other inside the launch. System k
-// reads b, pre, ctc and writes delta and its scratch vectors at k*C planes,
-// reads its fields at F + k*f_sys_stride (0: the systems share the fields,
-// the per-channel split of a channel-separable operator), sums its dots in
-// its own partials (part + k*gridDim.x), leaves its loop at its own exit
-// and writes its own count iters[k]. The exits are uniform across the grid,
-// so every block reaches every barrier of every system. One system's
-// working set is a 1/n_sys share of the joint one: poisson 1024x1024x4
-// moves 48 MiB an iteration a channel, inside the H100's 50 MiB L2, where
-// the joint loop's 132 MiB stream from device memory. The other instances
-// run one system with every offset a compile-time 0: carrying the offsets
-// as variables slowed them at their 32-register cap (a probe on an H100;
-// PERF.md), hence the separate instances (GN and LM, standard and
-// Chronopoulos-Gear, float32 and bfloat16 fields: no remainder, no block
-// preconditioner).
-template <bool LM, bool REM, bool CS, bool BLOCK, typename FT, bool MULTI>
+// The launch's forms (the kernel's FORM parameter).
+#define FGCG_ONE 0    // one system, a cooperative grid
+#define FGCG_MULTI 1  // n_sys systems in turn, a cooperative grid
+#define FGCG_BATCH 2  // n_sys systems side by side, block k owning system k
+
+// The kernel. The MULTI and BATCH instances hold n_sys independent systems
+// of C channels each. System k reads b, pre, ctc and writes delta and its
+// scratch vectors at k*C planes, reads its fields at F + k*f_sys_stride (0:
+// the systems share the fields, the per-channel split of a channel-separable
+// operator; one system's field count times the plane: a batch of
+// independent systems), sums its dots in its own partials (part +
+// k*gridDim.x under MULTI, part + k under BATCH), leaves its loop at its own
+// exit and writes its own count iters[k].
+//   MULTI solves the systems one after the other inside one cooperative
+//   launch. The exits are uniform across the grid, so every block reaches
+//   every barrier of every system. One system's working set is a 1/n_sys
+//   share of the joint one: poisson 1024x1024x4 moves 48 MiB an iteration a
+//   channel, inside the H100's 50 MiB L2, where the joint loop's 132 MiB
+//   stream from device memory.
+//   BATCH is an ordinary launch of n_sys blocks: block k runs system k's
+//   whole loop with block barriers (BlockTeam), so the systems run side by
+//   side, as many at once as the SMs hold, and nothing caps n_sys. It is the
+//   form for many small systems (the JAX package's _kernel under jax.vmap,
+//   Plan.solve_batched): a curve fit's system is 2 elements, where the
+//   cooperative forms would pay three grid barriers per iteration and
+//   system, one system after the other.
+// The ONE instances run one system with every offset a compile-time 0:
+// carrying the offsets as variables slowed them at their 32-register cap (a
+// probe on an H100; PERF.md), hence the separate instances (GN and LM,
+// standard and Chronopoulos-Gear, float32 and bfloat16 fields: no remainder,
+// no block preconditioner, in MULTI and in BATCH form).
+template <bool LM, bool REM, bool CS, bool BLOCK, typename FT, int FORM>
 __global__ void __launch_bounds__(FGCG_BLOCK, REM ? FGCG_MIN_BLOCKS_REM : FGCG_MIN_BLOCKS)
 fused_grid_cg_kernel(const FT* __restrict__ F, const float* __restrict__ b,
                      const float* __restrict__ pre,
@@ -657,7 +715,6 @@ fused_grid_cg_kernel(const FT* __restrict__ F, const float* __restrict__ b,
                      float* delta, float* r, float* p, float* Ap, float* z,
                      float* s, double* part0, double* part1, double* part2,
                      int* iters) {
-  cg::grid_group grid = cg::this_grid();
   __shared__ int s_tr[FGCG_MAX_TRIPLES * FGCG_SROW];
   __shared__ int s_start[FGCG_MAX_CHANNELS + 1];
   __shared__ double s_warp[FGCG_BLOCK / 32];
@@ -679,67 +736,84 @@ fused_grid_cg_kernel(const FT* __restrict__ F, const float* __restrict__ b,
   }
   __syncthreads();
 
-  if constexpr (MULTI) {
-    for (int k = 0; k < n_sys; ++k) {
-      const int o = k * C * plane;  // the system's first state element
-      const int l = cg_system<LM, REM, CS, BLOCK, FT>(
-          grid, s_tr, s_start, s_warp, &s_bcast, F, b, pre, ctc, rowptr, col,
-          blk, C, N0, N1, N2, lits, tol, guard_div, reset_period, q_tol, delta,
-          r, p, Ap, z, s, part0, part1, part2, o, BLOCK ? C * o : o,
-          k * f_sys_stride, k * (int)gridDim.x);
-      if (blockIdx.x == 0 && threadIdx.x == 0) iters[k] = l;
-    }
-  } else {
+  if constexpr (FORM == FGCG_BATCH) {
+    BlockTeam team;
+    const int k = blockIdx.x;  // the block's system
+    const int o = k * C * plane;
     const int l = cg_system<LM, REM, CS, BLOCK, FT>(
-        grid, s_tr, s_start, s_warp, &s_bcast, F, b, pre, ctc, rowptr, col, blk,
-        C, N0, N1, N2, lits, tol, guard_div, reset_period, q_tol, delta, r, p,
-        Ap, z, s, part0, part1, part2, 0, 0, 0, 0);
-    if (blockIdx.x == 0 && threadIdx.x == 0) *iters = l;
+        team, s_tr, s_start, s_warp, &s_bcast, F, b, pre, ctc, rowptr, col,
+        blk, C, N0, N1, N2, lits, tol, guard_div, reset_period, q_tol, delta, r,
+        p, Ap, z, s, part0, part1, part2, o, o, k * f_sys_stride, k);
+    if (threadIdx.x == 0) iters[k] = l;
+  } else {
+    cg::grid_group grid = cg::this_grid();
+    GridTeam team{grid};
+    if constexpr (FORM == FGCG_MULTI) {
+      for (int k = 0; k < n_sys; ++k) {
+        const int o = k * C * plane;  // the system's first state element
+        const int l = cg_system<LM, REM, CS, BLOCK, FT>(
+            team, s_tr, s_start, s_warp, &s_bcast, F, b, pre, ctc, rowptr, col,
+            blk, C, N0, N1, N2, lits, tol, guard_div, reset_period, q_tol,
+            delta, r, p, Ap, z, s, part0, part1, part2, o, BLOCK ? C * o : o,
+            k * f_sys_stride, k * (int)gridDim.x);
+        if (blockIdx.x == 0 && threadIdx.x == 0) iters[k] = l;
+      }
+    } else {
+      const int l = cg_system<LM, REM, CS, BLOCK, FT>(
+          team, s_tr, s_start, s_warp, &s_bcast, F, b, pre, ctc, rowptr, col,
+          blk, C, N0, N1, N2, lits, tol, guard_div, reset_period, q_tol, delta,
+          r, p, Ap, z, s, part0, part1, part2, 0, 0, 0, 0);
+      if (blockIdx.x == 0 && threadIdx.x == 0) *iters = l;
+    }
   }
 }
 
-// the instances of one (LM, CS) pair; the multi-system ones have no
+// the instances of one (LM, CS) pair; the multi-system forms have no
 // remainder and no block preconditioner
 template <bool LM, bool CS>
-static const void* pair_instance(int rem, int block, int bf16, int multi) {
+static const void* pair_instance(int rem, int block, int bf16, int form) {
   typedef __nv_bfloat16 H;
-  if (multi) {
+  if (form == FGCG_MULTI || form == FGCG_BATCH) {
     if (rem || block) return nullptr;
-    return bf16 ? (const void*)fused_grid_cg_kernel<LM, false, CS, false, H, true>
-                : (const void*)fused_grid_cg_kernel<LM, false, CS, false, float, true>;
+    if (form == FGCG_BATCH)
+      return bf16 ? (const void*)fused_grid_cg_kernel<LM, false, CS, false, H, FGCG_BATCH>
+                  : (const void*)fused_grid_cg_kernel<LM, false, CS, false, float, FGCG_BATCH>;
+    return bf16 ? (const void*)fused_grid_cg_kernel<LM, false, CS, false, H, FGCG_MULTI>
+                : (const void*)fused_grid_cg_kernel<LM, false, CS, false, float, FGCG_MULTI>;
   }
+  if (form != FGCG_ONE) return nullptr;
   if (rem) {
     if (block)
-      return bf16 ? (const void*)fused_grid_cg_kernel<LM, true, CS, true, H, false>
-                  : (const void*)fused_grid_cg_kernel<LM, true, CS, true, float, false>;
-    return bf16 ? (const void*)fused_grid_cg_kernel<LM, true, CS, false, H, false>
-                : (const void*)fused_grid_cg_kernel<LM, true, CS, false, float, false>;
+      return bf16 ? (const void*)fused_grid_cg_kernel<LM, true, CS, true, H, FGCG_ONE>
+                  : (const void*)fused_grid_cg_kernel<LM, true, CS, true, float, FGCG_ONE>;
+    return bf16 ? (const void*)fused_grid_cg_kernel<LM, true, CS, false, H, FGCG_ONE>
+                : (const void*)fused_grid_cg_kernel<LM, true, CS, false, float, FGCG_ONE>;
   }
   if (block)
-    return bf16 ? (const void*)fused_grid_cg_kernel<LM, false, CS, true, H, false>
-                : (const void*)fused_grid_cg_kernel<LM, false, CS, true, float, false>;
-  return bf16 ? (const void*)fused_grid_cg_kernel<LM, false, CS, false, H, false>
-              : (const void*)fused_grid_cg_kernel<LM, false, CS, false, float, false>;
+    return bf16 ? (const void*)fused_grid_cg_kernel<LM, false, CS, true, H, FGCG_ONE>
+                : (const void*)fused_grid_cg_kernel<LM, false, CS, true, float, FGCG_ONE>;
+  return bf16 ? (const void*)fused_grid_cg_kernel<LM, false, CS, false, H, FGCG_ONE>
+              : (const void*)fused_grid_cg_kernel<LM, false, CS, false, float, FGCG_ONE>;
 }
 
 // the instance for these flags, or null where there is none
 static const void* kernel_instance(int lm, int rem, int cs, int block,
-                                   int bf16, int multi) {
+                                   int bf16, int form) {
   if (lm)
-    return cs ? pair_instance<true, true>(rem, block, bf16, multi)
-              : pair_instance<true, false>(rem, block, bf16, multi);
-  return cs ? pair_instance<false, true>(rem, block, bf16, multi)
-            : pair_instance<false, false>(rem, block, bf16, multi);
+    return cs ? pair_instance<true, true>(rem, block, bf16, form)
+              : pair_instance<true, false>(rem, block, bf16, form);
+  return cs ? pair_instance<false, true>(rem, block, bf16, form)
+            : pair_instance<false, false>(rem, block, bf16, form);
 }
 
 extern "C" {
 
-// Co-resident block count of one instance (lm, rem, cs, block, bf16, multi:
-// 0 or 1 each) at `threads` threads (the cooperative launch limit): blocks
-// per SM times SMs on the current device.
+// Co-resident block count of one instance (lm, rem, cs, block, bf16: 0 or 1
+// each; form: 0 one system, 1 MULTI, 2 BATCH) at `threads` threads (the
+// cooperative launch limit): blocks per SM times SMs on the current device.
 int fused_grid_cg_max_blocks(int lm, int rem, int cs, int block, int bf16,
-                             int multi, int threads, int* out) {
-  const void* kernel = kernel_instance(lm, rem, cs, block, bf16, multi);
+                             int form, int threads, int* out) {
+  const void* kernel = kernel_instance(lm, rem, cs, block, bf16, form);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -761,19 +835,21 @@ int fused_grid_cg_max_blocks(int lm, int rem, int cs, int block, int bf16,
 // n_sys systems of C channels each (b, ctc, delta, r, p, Ap, z, s:
 // n_sys*C planes; pre: n_sys*C, or n_sys*C*C under block = 1), part0..2
 // n_sys*grid partials each and iters n_sys counts; system k reads its
-// fields at F + k*f_sys_stride elements (0: shared). n_sys > 1 launches the
-// multi-system instance, which takes no remainder and no block = 1. F and blk are float32,
-// or bfloat16 when bf16 = 1. ctc, reset_period, q_tol and part2 are read by
-// the LM instances only; rowptr, col and blk by the remainder instances
-// only, which need N0 == N1 == 1 (a graph's vertex axis); z by the CS and
-// block-Jacobi instances, s by the CS ones. Under block = 1, pre holds C*C
-// planes.
-int fused_grid_cg_launch(int lm, int cs, int block, int bf16, const void* F,
-                         const float* b, const float* pre, const float* ctc,
-                         const int* triples, const int* starts,
-                         const int* rowptr, const int* col, const void* blk,
-                         int C, int n_sys, int f_sys_stride, int N0, int N1,
-                         int N2, int lits, float tol,
+// fields at F + k*f_sys_stride elements (0: shared). batch = 1 launches the
+// BATCH instance, an ordinary launch of grid = n_sys blocks; otherwise
+// n_sys > 1 launches the MULTI instance and n_sys = 1 the one-system one,
+// each a cooperative launch of `grid` blocks. The multi-system forms take
+// no remainder and no block = 1. F and blk are float32, or bfloat16 when
+// bf16 = 1. ctc, reset_period, q_tol and part2 are read by the LM instances
+// only; rowptr, col and blk by the remainder instances only, which need
+// N0 == N1 == 1 (a graph's vertex axis); z by the CS and block-Jacobi
+// instances, s by the CS ones. Under block = 1, pre holds C*C planes.
+int fused_grid_cg_launch(int lm, int cs, int block, int bf16, int batch,
+                         const void* F, const float* b, const float* pre,
+                         const float* ctc, const int* triples,
+                         const int* starts, const int* rowptr, const int* col,
+                         const void* blk, int C, int n_sys, int f_sys_stride,
+                         int N0, int N1, int N2, int lits, float tol,
                          int guard_div, int reset_period, float q_tol,
                          float* delta, float* r, float* p, float* Ap, float* z,
                          float* s, double* part0, double* part1,
@@ -789,15 +865,9 @@ int fused_grid_cg_launch(int lm, int cs, int block, int bf16, const void* F,
   const int rem = rowptr != nullptr;
   if (rem && (col == nullptr || blk == nullptr || N0 != 1 || N1 != 1))
     return (int)cudaErrorInvalidValue;
-  const int multi = n_sys > 1;
-  const void* kernel = kernel_instance(lm, rem, cs, block, bf16, multi);
+  const int form = batch ? FGCG_BATCH : (n_sys > 1 ? FGCG_MULTI : FGCG_ONE);
+  const void* kernel = kernel_instance(lm, rem, cs, block, bf16, form);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  int max_blocks = 0;
-  int err = fused_grid_cg_max_blocks(lm, rem, cs, block, bf16, multi, threads,
-                                     &max_blocks);
-  if (err) return err;
-  if (grid < 1 || grid > max_blocks)
-    return (int)cudaErrorCooperativeLaunchTooLarge;
   void* args[] = {(void*)&F,        (void*)&b,         (void*)&pre,
                   (void*)&ctc,      (void*)&triples,   (void*)&starts,
                   (void*)&rowptr,   (void*)&col,       (void*)&blk,
@@ -809,9 +879,21 @@ int fused_grid_cg_launch(int lm, int cs, int block, int bf16, const void* F,
                   (void*)&Ap,       (void*)&z,         (void*)&s,
                   (void*)&part0,    (void*)&part1,     (void*)&part2,
                   (void*)&iters};
-  cudaError_t e = cudaLaunchCooperativeKernel(kernel, dim3(grid),
-                                              dim3(threads), args, 0,
-                                              (cudaStream_t)stream);
+  cudaError_t e;
+  if (form == FGCG_BATCH) {
+    if (grid != n_sys) return (int)cudaErrorInvalidValue;
+    e = cudaLaunchKernel(kernel, dim3(grid), dim3(threads), args, 0,
+                         (cudaStream_t)stream);
+  } else {
+    int max_blocks = 0;
+    int err = fused_grid_cg_max_blocks(lm, rem, cs, block, bf16, form, threads,
+                                       &max_blocks);
+    if (err) return err;
+    if (grid < 1 || grid > max_blocks)
+      return (int)cudaErrorCooperativeLaunchTooLarge;
+    e = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(threads), args, 0,
+                                    (cudaStream_t)stream);
+  }
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -45,6 +45,16 @@ each with its own dot products, its own exit and its own iteration count
 when the joint loop's working set exceeds :data:`SPLIT_WORKING_SET_BYTES`
 (the card's L2) and one channel's does not, so each system's loop runs out
 of L2 where the joint loop would stream from device memory.
+
+The batch axis (the JAX package's ``_kernel`` under ``jax.vmap``, which
+``Plan.solve_batched`` reaches): a batched meta has ``"batch": B`` and F
+[B, T, *dom], the triples, channels and layout of one instance, and the
+vectors carry a leading batch axis. The B systems are independent, each
+with its own fields, exit and count (``iters`` [B]). A system of at most
+:data:`BATCH_BLOCK_ELEMS` elements runs in the BATCH instances, one block
+a system, all side by side; a larger one in the MULTI instances with the
+fields' per-system stride, one system after the other. Neither takes a
+remainder or a block preconditioner (:func:`batched_kernel_form`).
 """
 
 from __future__ import annotations
@@ -71,6 +81,18 @@ COEFFICIENT_DTYPES = (torch.bfloat16, torch.float32)  # the fields the kernel re
 # joint, 48 MiB a channel) splits; poisson 512x512x4 (33 MiB) does not.
 SPLIT_WORKING_SET_BYTES = 50 * 2**20
 STATE_PLANES_PER_CHANNEL = 7  # b, pre, delta, r, p, Ap and one more (ctc or z)
+# A batched system of at most this many elements (channels x points) runs
+# in the BATCH instances, one block of BLOCK_THREADS threads a system, all
+# systems side by side; a larger one in the MULTI instances, in turn. Set
+# from chip_smoke.py::form_sweep on an H100 (PERF.md): 4 laplacian systems,
+# 50 GN iterations, device ms of the BATCH and the MULTI launch: 0.17 and
+# 1.38 at 256 elements a system, 0.45 and 1.38 at 1024, 1.68 and 1.39 at
+# 4096, 7.1 and 1.5 at 16384. A block's time grows with its system, the
+# MULTI launch's with the number of systems, so a batch of 4, the fewest
+# this form is for, sets the switch: below the crossover near 3300. The
+# bench's curve fit (2 elements) and 4 x laplacian 16x16 (256) fall under
+# it, 4 x poisson 512x512x4 (1 M) over it.
+BATCH_BLOCK_ELEMS = 2048
 
 
 def coefficient_dtype(coeff_dtype) -> Optional[torch.dtype]:
@@ -513,33 +535,53 @@ def _block_prec(pre_blocks):
     return prec
 
 
-def _split_reference(F, triples, b, pre, lits, tol, n_sys, counts, *, ctc=None, **kw):
-    """The twin over ``n_sys`` independent systems: :func:`_run_cg` once per
-    system on its [C / n_sys, *dom] slices of b, pre and ctc with the
-    shared F, in system order. Returns (delta [C, *dom], the summed
+def _systems_reference(F, triples, b, pre, lits, tol, n_sys, counts, *, batched,
+                       ctc=None, rem=None, pre_blocks=None, **kw):
+    """The twin over ``n_sys`` independent systems, in system order:
+    :func:`_run_cg` once per system, each with its own exit. ``batched``:
+    system k is instance k of a batch (F [B, T, *dom], b, pre, ctc
+    [B, C, *dom], pre_blocks [B, C·C, *dom], the remainder's blocks
+    [B, nnz, C, C] over one shared CSR); else the per-channel split, system
+    k the k-th [C / n_sys, *dom] slice of b, pre and ctc over the shared F
+    (no remainder, no block preconditioner). Returns (delta, the summed
     count); ``counts`` receives each system's."""
-    C = int(b.shape[0])
-    if n_sys < 1 or C % n_sys:
-        raise ValueError(f"fused_grid_cg: {C} channels do not split into {n_sys} systems")
-    if kw.get("rem") is not None or kw.get("pre_blocks") is not None:
-        raise ValueError("fused_grid_cg: the split form takes no remainder and no block "
-                         "preconditioner")
-    cs_ = C // n_sys
+    if batched:
+        if n_sys != int(b.shape[0]) or n_sys != int(F.shape[0]):
+            raise ValueError(f"fused_grid_cg: a batch of {n_sys} systems needs F and b with "
+                             f"that leading axis, got {tuple(F.shape)} and {tuple(b.shape)}")
+
+        def one(k):
+            rk = None if rem is None else dict(rem, blk=rem["blk"][k])
+            return fused_grid_cg_reference(
+                F[k], triples, b[k], pre[k], lits, tol, ctc=None if ctc is None else ctc[k],
+                rem=rk, pre_blocks=None if pre_blocks is None else pre_blocks[k], **kw)
+    else:
+        C = int(b.shape[0])
+        if n_sys < 1 or C % n_sys:
+            raise ValueError(f"fused_grid_cg: {C} channels do not split into {n_sys} systems")
+        if rem is not None or pre_blocks is not None:
+            raise ValueError("fused_grid_cg: the split form takes no remainder and no block "
+                             "preconditioner")
+        cs_ = C // n_sys
+
+        def one(k):
+            sl = slice(k * cs_, (k + 1) * cs_)
+            return fused_grid_cg_reference(F, triples, b[sl], pre[sl], lits, tol,
+                                           ctc=None if ctc is None else ctc[sl], **kw)
     deltas, total = [], 0
     for k in range(n_sys):
-        sl = slice(k * cs_, (k + 1) * cs_)
-        d, l = fused_grid_cg_reference(F, triples, b[sl], pre[sl], lits, tol,
-                                       ctc=None if ctc is None else ctc[sl], **kw)
+        d, l = one(k)
         deltas.append(d)
         total += l
         if counts is not None:
             counts.append(l)
-    return torch.cat(deltas), total
+    return (torch.stack if batched else torch.cat)(deltas), total
 
 
 def fused_grid_cg_reference(F, triples, b, pre, lits, tol, *, guard_div=True,
                             ctc=None, reset_period=None, q_tolerance=None, trace=None,
-                            rem=None, cs=False, pre_blocks=None, n_sys=1, counts=None):
+                            rem=None, cs=False, pre_blocks=None, n_sys=1, counts=None,
+                            batched=False):
     """Plain PyTorch twin of the CUDA kernel on packed [C, *dom] tensors:
     the same algebra through :func:`_run_cg`, with the kernel's dot
     products (:func:`_dot`); ``rem`` (a meta's ``"rem"``) adds the graph
@@ -552,12 +594,14 @@ def fused_grid_cg_reference(F, triples, b, pre, lits, tol, *, guard_div=True,
     independent systems of C / n_sys channels each over the shared F (the
     split form; ``triples`` are one system's), each with its own exit; the
     iterations returned are then the sum, and a ``counts`` list receives
-    each system's. Returns (delta, iterations)."""
-    if n_sys != 1:
-        return _split_reference(
-            F, triples, b, pre, lits, tol, int(n_sys), counts, guard_div=guard_div, ctc=ctc,
-            reset_period=reset_period, q_tolerance=q_tolerance, trace=trace, rem=rem, cs=cs,
-            pre_blocks=pre_blocks)
+    each system's. ``batched`` takes the n_sys systems from a leading batch
+    axis of F and of every vector instead (a batched meta: system k is
+    instance k, with its own fields). Returns (delta, iterations)."""
+    if n_sys != 1 or batched:
+        return _systems_reference(
+            F, triples, b, pre, lits, tol, int(n_sys), counts, batched=batched,
+            guard_div=guard_div, ctc=ctc, reset_period=reset_period, q_tolerance=q_tolerance,
+            trace=trace, rem=rem, cs=cs, pre_blocks=pre_blocks)
     F = F.float()
     if ctc is None:
         apply = lambda p: _operator_apply(F, triples, rem, p)  # noqa: E731
@@ -599,31 +643,46 @@ def _device_triples(triples, ctot: int, device):
 
 
 def instance_name(lm: bool, rem: bool, cs: bool = False, block: bool = False,
-                  bf16: bool = False, multi: bool = False) -> str:
+                  bf16: bool = False, multi: bool = False, batch: bool = False) -> str:
     """The kernel instance's name: "gn" or "lm", then "_cs" for
     Chronopoulos–Gear, "_bj" for block-Jacobi, "_bf16" for bfloat16 fields,
-    "_rem" with the remainder phase and "_multi" for the instances whose
-    launch holds several independent systems (the per-channel split)."""
+    "_rem" with the remainder phase, "_multi" for the instances whose
+    cooperative launch holds several independent systems in turn (the
+    per-channel split, a batch of large systems) and "_batch" for those
+    whose launch holds them side by side, one block each (a batch of small
+    systems)."""
     return (("lm" if lm else "gn") + ("_cs" if cs else "") + ("_bj" if block else "")
             + ("_bf16" if bf16 else "") + ("_rem" if rem else "")
-            + ("_multi" if multi else ""))
+            + ("_multi" if multi else "") + ("_batch" if batch else ""))
 
 
-# (lm, rem, cs, block, bf16, multi): the multi-system instances have no
-# remainder and no block preconditioner
+# (lm, rem, cs, block, bf16, multi, batch): the multi-system instances have
+# no remainder and no block preconditioner
 INSTANCES = tuple(
-    (lm, rem, cs, block, bf16, False)
+    (lm, rem, cs, block, bf16, False, False)
     for lm in (False, True) for cs in (False, True) for block in (False, True)
     for bf16 in (False, True) for rem in (False, True)
 ) + tuple(
-    (lm, False, cs, False, bf16, True)
-    for lm in (False, True) for cs in (False, True) for bf16 in (False, True)
+    (lm, False, cs, False, bf16, multi, not multi)
+    for multi in (True, False) for lm in (False, True) for cs in (False, True)
+    for bf16 in (False, True)
 )
 
 
+def batched_kernel_form(meta, pre_blocks=None) -> Optional[str]:
+    """The kernel form a batched meta's launch takes: "batch" (one block a
+    system) for systems of at most :data:`BATCH_BLOCK_ELEMS` elements,
+    "multi" (the systems in turn) for larger ones, or None where no
+    instance takes the operator: a remainder or a block preconditioner."""
+    if meta.get("rem") is not None or pre_blocks is not None:
+        return None
+    elems = int(meta["ctot"]) * int(torch.Size(meta["F"].shape[2:]).numel())
+    return "batch" if elems <= BATCH_BLOCK_ELEMS else "multi"
+
+
 def _grid_size(lib, device, flags) -> int:
-    """Co-resident block count of one kernel instance on ``device``
-    (flags: lm, rem, cs, block, bf16, multi)."""
+    """Co-resident block count of one cooperative kernel instance on
+    ``device`` (flags: lm, rem, cs, block, bf16, multi)."""
     out = ctypes.c_int(0)
     with torch.cuda.device(device):
         err = lib.fused_grid_cg_max_blocks(*(int(f) for f in flags), BLOCK_THREADS,
@@ -654,11 +713,14 @@ def fused_grid_cg_kernel(meta, b, pre, lits, tol, *, guard_div=True, ctc=None,
     bfloat16; the remainder phase when the meta has one (``meta["rem"]``);
     the per-channel split when the meta says ``chan_grid``: the C channels
     as C one-channel systems over the shared fields, solved in turn inside
-    the one launch, each with its own exit and count.
+    the one launch, each with its own exit and count. A batched meta
+    (``meta["batch"]`` = B, F [B, T, *dom]) takes b, pre and ctc as
+    [B, C, *dom] and launches the form :func:`batched_kernel_form` names:
+    B systems with their own fields, exits and counts.
     Returns (delta, iters int32[n_sys] on the device: one count per system,
-    n_sys = 1 unless split). Does not synchronise.
-    Each launch adds one to ``fused_grid_cg_kernel.launches[instance]``
-    (:func:`instance_name`)."""
+    n_sys = B under a batch, C under the split, else 1). Does not
+    synchronise. Each launch adds one to
+    ``fused_grid_cg_kernel.launches[instance]`` (:func:`instance_name`)."""
     from ._build import load_library
 
     F = meta["F"]
@@ -672,26 +734,37 @@ def fused_grid_cg_kernel(meta, b, pre, lits, tol, *, guard_div=True, ctc=None,
     if F.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"fused_grid_cg_kernel takes float32 or bfloat16 fields, got {F.dtype}")
     bf16 = F.dtype == torch.bfloat16
-    C = int(b.shape[0])
-    dom = tuple(int(s) for s in b.shape[1:])
+    batch = int(meta.get("batch") or 0)
+    lead = (batch,) if batch else ()  # the batch axis of every operand
+    C = int(b.shape[len(lead)])
+    dom = tuple(int(s) for s in b.shape[len(lead) + 1:])
     if len(dom) not in (2, 3):
         raise ValueError(f"fused_grid_cg_kernel takes a 2-D or 3-D domain, got {dom}")
     N0, N1, N2 = (1,) * (3 - len(dom)) + dom
-    # the split: n_sys systems of c_sys channels each; F is shared, so its
-    # per-system stride is 0
-    n_sys = C if meta.get("chan_grid") else 1
-    c_sys = C // n_sys
-    if n_sys > 1 and (block or rem is not None):
-        raise ValueError("fused_grid_cg_kernel: the split form takes no remainder and no "
-                         "block preconditioner")
-    _check_operand("b", b, (C,) + dom, torch.float32, device)
+    plane = N0 * N1 * N2
+    form = None
+    if batch:
+        # B systems of C channels, each with its own fields
+        form = batched_kernel_form(meta, pre_blocks)
+        if form is None:
+            raise ValueError("fused_grid_cg_kernel: a batch takes no remainder and no block "
+                             "preconditioner")
+        n_sys, c_sys, f_stride = batch, C, int(F.shape[1]) * plane
+    else:
+        # the split: n_sys systems of c_sys channels each over the shared F
+        n_sys = C if meta.get("chan_grid") else 1
+        c_sys, f_stride = C // n_sys, 0
+        if n_sys > 1 and (block or rem is not None):
+            raise ValueError("fused_grid_cg_kernel: the split form takes no remainder and no "
+                             "block preconditioner")
+    _check_operand("b", b, lead + (C,) + dom, torch.float32, device)
     if block:
         _check_operand("pre_blocks", pre_blocks, (C * C,) + dom, torch.float32, device)
     else:
-        _check_operand("pre", pre, (C,) + dom, torch.float32, device)
-    _check_operand("F", F, (F.shape[0],) + dom, F.dtype, device)
+        _check_operand("pre", pre, lead + (C,) + dom, torch.float32, device)
+    _check_operand("F", F, lead + (F.shape[len(lead)],) + dom, F.dtype, device)
     if lm:
-        _check_operand("ctc", ctc, (C,) + dom, torch.float32, device)
+        _check_operand("ctc", ctc, lead + (C,) + dom, torch.float32, device)
         if reset_period is None or q_tolerance is None or int(reset_period) < 1:
             raise ValueError(
                 "fused_grid_cg_kernel: the LM loop needs reset_period >= 1 and "
@@ -713,17 +786,21 @@ def fused_grid_cg_kernel(meta, b, pre, lits, tol, *, guard_div=True, ctc=None,
             f"fused_grid_cg_kernel takes up to {MAX_TRIPLES} triples and "
             f"{MAX_CHANNELS} channels, got {n_triples} and {c_sys}"
         )
-    if any(not (0 <= fid < F.shape[0] and 0 <= i < c_sys and 0 <= j < c_sys)
+    n_fields = int(F.shape[len(lead)])
+    if any(not (0 <= fid < n_fields and 0 <= i < c_sys and 0 <= j < c_sys)
            for (_d, i, j, fid) in meta["triples"]):
         raise ValueError("fused_grid_cg_kernel: triple field id or channel out of range")
-    plane = N0 * N1 * N2
-    total = C * plane
+    total = b.numel()
     if total >= 2**31 or F.numel() >= 2**31 or (block and C * total >= 2**31):
         raise ValueError("fused_grid_cg_kernel indexes with int32: problem too large")
     with_rem = rem is not None
-    flags = (lm, with_rem, cs, block, bf16, n_sys > 1)
+    multi = form == "multi" if batch else n_sys > 1
+    flags = (lm, with_rem, cs, block, bf16, multi, form == "batch")
     lib = load_library()
-    grid = min(_grid_size(lib, device, flags), -(-(c_sys * plane) // BLOCK_THREADS))
+    if form == "batch":
+        grid = n_sys  # one block a system
+    else:
+        grid = min(_grid_size(lib, device, flags[:6]), -(-(c_sys * plane) // BLOCK_THREADS))
     tr, starts = _device_triples(meta["triples"], c_sys, device)
     delta = torch.empty_like(b)
     r = torch.empty_like(b)
@@ -731,16 +808,17 @@ def fused_grid_cg_kernel(meta, b, pre, lits, tol, *, guard_div=True, ctc=None,
     Ap = torch.empty_like(b)
     z = torch.empty_like(b) if (cs or block) else None
     s = torch.empty_like(b) if cs else None
-    part = torch.empty((3 if lm else 2, n_sys, grid), dtype=torch.float64, device=device)
+    part = torch.empty((3 if lm else 2, n_sys, 1 if form == "batch" else grid),
+                       dtype=torch.float64, device=device)
     iters = torch.empty(n_sys, dtype=torch.int32, device=device)
     ptr = lambda t: None if t is None else ctypes.c_void_p(t.data_ptr())  # noqa: E731
     with torch.cuda.device(device):
         err = lib.fused_grid_cg_launch(
-            int(lm), int(cs), int(block), int(bf16),
+            int(lm), int(cs), int(block), int(bf16), int(form == "batch"),
             ptr(F), ptr(b), ptr(pre_blocks if block else pre), ptr(ctc), ptr(tr), ptr(starts),
             ptr(rem["rowptr"]) if with_rem else None, ptr(rem["col"]) if with_rem else None,
             ptr(rem["blk"]) if with_rem else None,
-            c_sys, n_sys, 0, N0, N1, N2, int(lits), ctypes.c_float(float(tol)),
+            c_sys, n_sys, f_stride, N0, N1, N2, int(lits), ctypes.c_float(float(tol)),
             int(bool(guard_div)),
             int(reset_period) if lm else 0, ctypes.c_float(float(q_tolerance) if lm else 0.0),
             ptr(delta), ptr(r), ptr(p), ptr(Ap), ptr(z), ptr(s),
@@ -764,18 +842,25 @@ reset_launch_counts()
 
 def pack(d, meta):
     """[*dom, C_u] per unknown -> channel-major packed [C, *kernel dom]
-    (a graph's vertex axis [N] becomes [1, N])."""
+    (a graph's vertex axis [N] becomes [1, N]); under a batched meta
+    [B, *dom, C_u] -> [B, C, *kernel dom]."""
     u_list = meta["u_list"]
+    lead = 1 if meta.get("batch") else 0
     a = torch.cat([d[u] for u in u_list], dim=-1) if len(u_list) > 1 else d[u_list[0]]
-    return torch.movedim(a, -1, 0).reshape((a.shape[-1],) + tuple(meta["F"].shape[1:])).contiguous()
+    dom = tuple(meta["F"].shape[1 + lead:])
+    return torch.movedim(a, -1, lead).reshape(
+        tuple(a.shape[:lead]) + (a.shape[-1],) + dom).contiguous()
 
 
 def pack_pre_blocks(pre_blocks, meta):
     """Per-point inverted blocks [*dom, C, C] over the packed channels ->
-    channel-major [C·C, *kernel dom], plane i·C + j holding M⁻¹[i, j]."""
+    channel-major [C·C, *kernel dom], plane i·C + j holding M⁻¹[i, j]
+    (under a batched meta with a leading batch axis on both sides)."""
+    lead = 1 if meta.get("batch") else 0
     C = int(pre_blocks.shape[-1])
     flat = pre_blocks.reshape(tuple(pre_blocks.shape[:-2]) + (C * C,))
-    return torch.movedim(flat, -1, 0).reshape((C * C,) + tuple(meta["F"].shape[1:])).contiguous()
+    return torch.movedim(flat, -1, lead).reshape(
+        tuple(flat.shape[:lead]) + (C * C,) + tuple(meta["F"].shape[1 + lead:])).contiguous()
 
 
 def fused_grid_cg(meta, r0, pre, l_iterations, rz_tolerance, *, guard_div=True,
@@ -789,7 +874,10 @@ def fused_grid_cg(meta, r0, pre, l_iterations, rz_tolerance, *, guard_div=True,
     replaces the elementwise ``pre`` with the block-Jacobi apply;
     ``cg_variant="chronopoulos_gear"`` runs the Chronopoulos–Gear loop. A
     meta with ``chan_grid`` runs its channels as independent one-channel
-    systems, and the iterations returned are the sum of theirs.
+    systems, and the iterations returned are the sum of theirs. A batched
+    meta (``"batch"``: B) takes r0, pre, ctc and pre_blocks with a leading
+    batch axis and returns delta with one and the iterations as int32 [B],
+    one count per instance.
 
     CPU tensors, or ``interpret=True``, run the plain twin. CUDA tensors
     launch the kernel. Any other device raises."""
@@ -804,26 +892,31 @@ def fused_grid_cg(meta, r0, pre, l_iterations, rz_tolerance, *, guard_div=True,
     kw = dict(ctc=ctcm, reset_period=reset_period, q_tolerance=q_tolerance,
               cs=cg_variant == "chronopoulos_gear", pre_blocks=pbm)
     split = bool(meta.get("chan_grid"))
+    batch = int(meta.get("batch") or 0)
     if interpret or b.device.type == "cpu":
+        counts = []
         delta, l = fused_grid_cg_reference(
             meta["F"], meta["triples"], b, prem, l_iterations, rz_tolerance,
-            guard_div=guard_div, rem=meta.get("rem"),
-            n_sys=int(b.shape[0]) if split else 1, **kw,
+            guard_div=guard_div, rem=meta.get("rem"), counts=counts, batched=bool(batch),
+            n_sys=batch or (int(b.shape[0]) if split else 1), **kw,
         )
-        iters = torch.full((), l, dtype=torch.int32, device=b.device)
+        iters = torch.tensor(counts if batch else l, dtype=torch.int32, device=b.device)
     elif b.device.type == "cuda":
         delta, it = fused_grid_cg_kernel(
             meta, b, prem, l_iterations, rz_tolerance, guard_div=guard_div, **kw
         )
-        # per-system counts: the solver takes the executed total
-        iters = it.sum(dtype=torch.int32) if split else it[0]
+        # per-system counts: the solver takes the executed total of a split
+        # and each instance's count of a batch
+        iters = it if batch else (it.sum(dtype=torch.int32) if split else it[0])
     else:
         raise ValueError(
             f"fused_grid_cg runs on CPU (plain twin) or CUDA (kernel) tensors, "
             f"not {b.device}"
         )
-    spatial = tuple(r0[meta["u_list"][0]].shape[:-1])
-    packed = torch.movedim(delta.reshape((delta.shape[0],) + spatial), 0, -1)
+    lead = tuple(delta.shape[:1]) if batch else ()
+    spatial = tuple(r0[meta["u_list"][0]].shape[len(lead):-1])
+    packed = torch.movedim(delta.reshape(lead + (delta.shape[len(lead)],) + spatial),
+                           len(lead), -1)
     out = {}
     for u in meta["u_list"]:
         o = meta["offs"][u]

@@ -27,6 +27,7 @@ from .compile import CompiledProblem, compile_spec
 from .ops import fused_cg, graph_ops
 from .solver.gauss_newton import GaussNewtonSolver
 from .solver.params import InitializationParameters, normalize_solver_params
+from .spec import UNKNOWN, SpecError
 from .utils.logging import log_solver
 
 _KIND_ALIASES = {
@@ -146,6 +147,18 @@ def resolve_device(device) -> torch.device:
 
 
 @dataclasses.dataclass
+class BatchedSolveResult:
+    """Results of a batched solve: every field has a leading batch axis."""
+
+    unknowns: Dict[str, torch.Tensor]
+    final_costs: np.ndarray  # [B]
+    costs: np.ndarray  # [B, nIterations] (NaN-padded past each instance's exit)
+    num_iterations: np.ndarray  # [B]
+    num_linear_iterations: np.ndarray  # [B]
+    wall_time_s: float = 0.0
+
+
+@dataclasses.dataclass
 class SolveResult:
     unknowns: Dict[str, torch.Tensor]
     final_cost: float
@@ -169,11 +182,28 @@ class Problem:
         kind: Optional[str] = None,
         double_precision: bool = False,
         init_params: Optional[InitializationParameters] = None,
+        mesh=None,
+        dynamic_topology: Optional[bool] = None,
         device="cuda",
         **solver_params,
     ) -> "Plan":
         """Compile for concrete sizes on ``device``, the card unless the
-        caller asks for the CPU (Opt_ProblemPlan)."""
+        caller asks for the CPU (Opt_ProblemPlan). ``mesh`` (several
+        devices) and ``dynamic_topology=True`` take the reference's
+        keywords and are not ported yet: they raise."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= (a solve sharded over several devices) is not ported yet "
+                "(ROADMAP.md queue 1 item 8)"
+            )
+        if dynamic_topology:
+            raise NotImplementedError(
+                "dynamic_topology=True is not ported yet (ROADMAP.md queue 1 item 4)"
+            )
+        if dynamic_topology is not None:
+            init_params = dataclasses.replace(
+                init_params or InitializationParameters(), dynamic_topology=False
+            )
         dev = resolve_device(device)
         dtype = torch.float64 if double_precision else torch.float32
         compiled = compile_spec(self.spec_fn, dims, dtype)
@@ -390,6 +420,173 @@ class Plan:
         self._leaf_buckets = None
         self.__dict__.pop("_sentinel_memo", None)
         self._unk_sentinels = {}
+
+    # -- batched and scheduled solves --------------------------------------------
+    def _normalize_batched(self, inputs: Dict[str, Any]):
+        """solve_batched's inputs as tensors on the plan's device, as the JAX
+        package takes them (opt_tpu/problem.py:999-1087): the batch size B
+        from the first image with a leading batch axis; batched and shared
+        leaves keep their own axes (name -> 0 or None), shared unknowns are
+        broadcast over the batch; floating images are sanitised, and the
+        unknowns' ±inf markers kept for the restore; graphs are shared and
+        their tables built once. Returns (unknowns [B, ...], consts, graphs,
+        params, const axes, param axes, {unknown: its input with ±inf})."""
+        reg = self.compiled.registry
+        dt, dev = self.compiled.dtype, self.device
+
+        def tensor(v):
+            return v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+
+        B = None
+        for name, val in inputs.items():
+            if name in reg.images and reg.images[name].alias is None:
+                d = reg.images[name]
+                shape = tuple(tensor(val).shape)
+                extra = len(shape) - d.ispace.ndim
+                if extra == 2 or (extra == 1 and shape[-1] != d.channels):
+                    B = int(shape[0])
+                    break
+        if B is None:
+            raise SpecError(
+                "solve_batched: could not infer batch size; pass at least one "
+                "image with a leading batch axis"
+            )
+        unknowns, consts, graphs, params = {}, {}, {}, {}
+        c_axes, p_axes, restore = {}, {}, {}
+        for name, val in inputs.items():
+            if name in reg.graphs:
+                graphs[name] = self.compiled._graph_input(name, val, dev)
+                continue
+            if name in reg.params:
+                arr = tensor(val).to(device=dev, dtype=dt)
+                params[name] = arr
+                p_axes[name] = 0 if arr.dim() >= 1 else None
+                continue
+            if name not in reg.images:
+                raise SpecError(f"unknown input {name!r}")
+            d = reg.images[name]
+            if d.alias is not None:
+                continue
+            arr = tensor(val).to(dev)
+            if arr.is_floating_point():
+                arr = arr.to(dt)
+            nd = d.ispace.ndim
+            batched = arr.dim() == nd + 2 or (arr.dim() == nd + 1 and arr.shape[-1] != d.channels)
+            if arr.dim() == nd or (batched and arr.dim() == nd + 1):
+                arr = arr[..., None]
+            expect = d.ispace.shape(self.compiled.dim_sizes) + (d.channels,)
+            got = tuple(arr.shape[1:]) if batched else tuple(arr.shape)
+            if got != expect or (batched and arr.shape[0] != B):
+                raise SpecError(
+                    f"image {name!r}: expected shape {expect} (optionally with a leading "
+                    f"batch axis of {B}), got {tuple(arr.shape)}"
+                )
+            if arr.is_floating_point():
+                if d.kind == UNKNOWN and bool(torch.isinf(arr).any()):
+                    restore[name] = arr
+                arr = self.compiled._sanitize_sentinels(arr)
+            if d.kind == UNKNOWN:
+                unknowns[name] = (arr if batched else arr.expand((B,) + expect)).contiguous()
+            else:
+                consts[name] = arr.contiguous()
+                c_axes[name] = 0 if batched else None
+        missing = [n for n, d in reg.images.items()
+                   if d.alias is None and n not in inputs] + [n for n in reg.graphs
+                                                              if n not in inputs]
+        if missing:
+            raise SpecError(f"missing inputs: {missing}")
+        for pn in reg.params:
+            if pn not in params:
+                params[pn] = torch.zeros((), dtype=dt, device=dev)
+                p_axes[pn] = None
+        return (unknowns, consts, self._augment_incidence(graphs), params, c_axes, p_axes,
+                restore)
+
+    def solve_batched(self, inputs: Dict[str, Any], **solver_param_overrides) -> BatchedSolveResult:
+        """Solve a batch of problem instances at once (the JAX package's
+        one-program batched solve). Image and scalar-parameter inputs carry a
+        leading batch axis, or their unbatched shape, in which case they are
+        shared; graph index arrays are topology shared by the batch. Each
+        nonlinear step assembles every instance's system under
+        ``torch.func.vmap`` and runs the CG of all of them as one batched
+        fused loop (one kernel launch on the card); each instance exits on
+        its own. The assembled operator is validated on instance 0."""
+        sp = normalize_solver_params({**self.solver_params, **solver_param_overrides})
+        unknowns, consts, graphs, params, c_axes, p_axes, restore = self._normalize_batched(inputs)
+        if not self._fused_validated and self.solver._stencil_plan is not None:
+            self._validate_fused(
+                {k: v[0] for k, v in unknowns.items()},
+                {k: (v[0] if c_axes[k] == 0 else v) for k, v in consts.items()},
+                graphs,
+                {k: (v[0] if p_axes[k] == 0 else v) for k, v in params.items()},
+            )
+        t0 = time.perf_counter()
+        state, costs = self.solver.solve_batched(unknowns, consts, graphs, params, sp,
+                                                 c_axes, p_axes)
+        B = costs.shape[0]
+        # one device->host transfer for every scalar result
+        flat = torch.cat([state["n_iter"].double(), state["lin_iters"].double(),
+                          state["prev_cost"].double(), costs.double().reshape(-1)]).cpu().numpy()
+        wall = time.perf_counter() - t0
+        X = dict(state["X"])
+        for name, orig in restore.items():
+            X[name] = torch.where(torch.isinf(orig), orig, X[name])
+        fdt = np.float64 if self.compiled.dtype == torch.float64 else np.float32
+        return BatchedSolveResult(
+            unknowns=X,
+            final_costs=flat[2 * B:3 * B].astype(fdt),
+            costs=flat[3 * B:].reshape(B, -1).astype(fdt),
+            num_iterations=flat[:B].astype(np.int32),
+            num_linear_iterations=flat[B:2 * B].astype(np.int32),
+            wall_time_s=wall,
+        )
+
+    def batched_cg_inputs(self, inputs: Dict[str, Any]):
+        """The first step's PCG systems of a batch as ``solve_batched`` hands
+        them to the batched fused CG (``cg_inputs``' batched form): (batched
+        meta: ``"batch"`` B and F [B, T, *dom]; r0 and pre with a leading
+        batch axis; the keywords of ``ops.fused_cg.fused_grid_cg``). All
+        four are None where the batched operator has no fused form."""
+        sp = normalize_solver_params(self.solver_params)
+        unknowns, consts, graphs, params, c_axes, p_axes, _r = self._normalize_batched(inputs)
+        return self.solver.batched_cg_inputs(unknowns, consts, graphs, params, sp, c_axes, p_axes)
+
+    def solve_scheduled(self, inputs: Dict[str, Any], schedule, num_outer: int,
+                        **solver_param_overrides) -> SolveResult:
+        """Run ``num_outer`` chained solves, the unknowns carried from one to
+        the next, with the constants of solve i given by
+        ``schedule(consts, i)``: the reference apps' host hooks that swap
+        inputs between outer solves (constraint annealing). The JAX package
+        runs the whole schedule as one program; here the nonlinear loop is
+        host-driven already, so the schedule is a host loop, and the scalar
+        results come back in one transfer at the end. ``schedule`` receives
+        the bound, sanitised constants (±inf clamped to finite sentinels)
+        and ``i`` as a 0-dim int32 tensor on the plan's device, and returns
+        constants of the same shapes and dtypes."""
+        sp = normalize_solver_params({**self.solver_params, **solver_param_overrides})
+        unknowns, consts, graphs, params = self._normalize_and_place(inputs)
+        self._validate_fused(unknowns, consts, graphs, params)
+        max_iters = int(sp["nIterations"])
+        t0 = time.perf_counter()
+        X, finals, lin = unknowns, [], []
+        for i in range(int(num_outer)):
+            c_i = schedule(consts, torch.tensor(i, dtype=torch.int32, device=self.device))
+            state, _costs = self.solver.solve(X, c_i, graphs, params, sp)
+            X = state["X"]
+            finals.append(state["prev_cost"].double())
+            lin.append(state["lin_iters"].double())
+        scalars = torch.stack(finals + lin).tolist() if finals else []
+        wall = time.perf_counter() - t0
+        self._state = None
+        n = len(finals)
+        return SolveResult(
+            unknowns=self._restore_sentinels(X),
+            final_cost=float(scalars[n - 1]) if n else float("nan"),
+            costs=[float(c) for c in scalars[:n]],
+            num_iterations=int(num_outer) * max_iters,
+            wall_time_s=wall,
+            num_linear_iterations=int(sum(scalars[n:])),
+        )
 
     # -- full solve (Opt_ProblemSolve) --------------------------------------------
     def solve(self, inputs: Dict[str, Any], *, stepwise: bool = False,

@@ -21,8 +21,11 @@ The JAX package runs a whole solve as one XLA program. Here the nonlinear
 loop runs on the host with one device→host read per nonlinear step; the CG
 loop runs either as one CUDA kernel launch (ops/fused_cg.py; the plain twin
 on the CPU) or as the eager loop of ``_run_cg`` on the assembled operator.
-Dynamic topology and the explicit sparse-J path are not ported yet and
-raise ``NotImplementedError``.
+A batch of instances (:meth:`GaussNewtonSolver.solve_batched`, the JAX
+package's ``_solve_fused_batched``) assembles every instance's system at
+once under ``torch.func.vmap`` and solves them by one batched CG launch a
+step. Dynamic topology and the explicit sparse-J path are not ported yet
+and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,10 +35,17 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from ..compile import CompiledProblem
 from ..functions import FunctionSet, tree_dot
-from ..ops.fused_cg import CG_VARIANTS, _run_cg, coefficient_dtype, fused_grid_cg
+from ..ops.fused_cg import (
+    CG_VARIANTS,
+    _run_cg,
+    batched_kernel_form,
+    coefficient_dtype,
+    fused_grid_cg,
+)
 from .params import (
     FLOAT_EPSILON,
     GuardedInvertType,
@@ -47,6 +57,51 @@ from .params import (
 def _f32(v) -> float:
     """A solver parameter as the JAX package traces it: rounded to float32."""
     return float(np.float32(v))
+
+
+def _vmap(fn, in_dims):
+    """``torch.func.vmap`` of ``fn`` whose result may hold non-tensor leaves
+    (a fused CG meta's triples and layout, a const cache's slot ids): only
+    the tensors leave the transform, batched on axis 0; the other leaves
+    are taken as the one trace made them, so they must not depend on the
+    instance. Nothing batched is stored on an object from inside ``fn``."""
+    static = {}
+
+    def inner(*args):
+        leaves, spec = tree_flatten(fn(*args))
+        is_t = [isinstance(v, torch.Tensor) for v in leaves]
+        static["spec"] = spec
+        static["leaves"] = [None if t else v for v, t in zip(leaves, is_t)]
+        static["is_t"] = is_t
+        return tuple(v for v, t in zip(leaves, is_t) if t)
+
+    def outer(*args):
+        tensors = iter(torch.func.vmap(inner, in_dims=in_dims)(*args))
+        leaves = [next(tensors) if t else v
+                  for v, t in zip(static["leaves"], static["is_t"])]
+        return tree_unflatten(leaves, static["spec"])
+
+    return outer
+
+
+def _tensor_dims(tree):
+    """vmap in_dims for a pytree batched on axis 0 in every tensor leaf."""
+    return tree_map(lambda v: 0 if isinstance(v, torch.Tensor) else None, tree)
+
+
+def _instance(tree, k: int):
+    """Instance k of a pytree batched on axis 0 in every tensor leaf."""
+    return tree_map(lambda v: v[k] if isinstance(v, torch.Tensor) else v, tree)
+
+
+def _select(cond, new, old):
+    """Per instance: ``new`` where ``cond`` [B], else ``old`` (pytrees of
+    tensors batched on axis 0)."""
+    def pick(a, b):
+        c = cond.reshape(cond.shape + (1,) * (a.dim() - 1))
+        return torch.where(c, a, b)
+
+    return tree_map(pick, new, old)
 
 
 class GaussNewtonSolver:
@@ -72,11 +127,30 @@ class GaussNewtonSolver:
         self._coeff_dtype = coefficient_dtype(self.ip.coefficient_dtype)
         if self.ip.dynamic_topology and compiled.registry.graphs:
             raise NotImplementedError(
-                "dynamic_topology is not ported yet (ROADMAP.md queue 1 item 10)"
+                "dynamic_topology is not ported yet (ROADMAP.md queue 1 item 4)"
             )
         if self.ip.use_explicit_jtj:
             raise NotImplementedError(
-                "use_explicit_jtj is not ported yet (ROADMAP.md queue 1 item 12)"
+                "use_explicit_jtj is not ported yet (ROADMAP.md queue 1 item 5)"
+            )
+        if self.ip.collect_per_kernel_timing:
+            raise NotImplementedError(
+                "collect_per_kernel_timing is not ported yet (ROADMAP.md queue 1 item 6)"
+            )
+        if self.ip.edge_reorder not in (False, None, "owner"):
+            raise ValueError(
+                f"edge_reorder={self.ip.edge_reorder!r}: the only implemented mode is "
+                "\"owner\" (or False to disable)"
+            )
+        if self.ip.edge_reorder == "owner":
+            raise NotImplementedError(
+                "edge_reorder='owner' (multi-device) is not ported yet "
+                "(ROADMAP.md queue 1 item 8)"
+            )
+        if self.ip.aligned_graph_assembly:
+            raise NotImplementedError(
+                "aligned_graph_assembly is not to be ported: the reference package's "
+                "experimental graph assembly, measured slower there"
             )
         self._stencil_plan = None
         # why a step ran the eager loop where the fused one was asked for
@@ -216,20 +290,21 @@ class GaussNewtonSolver:
         return fs.assemble_const(X0, self._stencil_plan)
 
     # ---- shared PCG pieces -------------------------------------------------
-    def _linear_system(self, X, fs: FunctionSet, asm_cache=None):
+    def _linear_system(self, X, fs: FunctionSet, asm_cache=None, batched=False):
         """The undamped system at X, shared by GN and LM: (A = JᵀJ·(),
         the assembled diag(JᵀJ) or None where nothing was assembled, the
         residual terms, r0 = -JᵀF, cg_meta: the fused grid CG descriptor or
-        None)."""
+        None). ``batched``: one instance of a batch (no per-channel split)."""
         fs.masks(X)
         if self._stencil_plan is not None:
             if asm_cache is None:
                 asm_cache = self._asm_cache(fs, X)
             A, diag, jtf_fn, cg_meta = fs.assemble_stencil(
                 X, self._stencil_plan, asm_cache, coeff_dtype=self._coeff_dtype,
-                # a block preconditioner couples the channels: no per-channel split
-                allow_split=not (self.ip.preconditioner == "block_jacobi"
-                                 and self.compiled.use_preconditioner),
+                # a block preconditioner couples the channels, and a batch's
+                # systems are whole instances: no per-channel split
+                allow_split=not (batched or (self.ip.preconditioner == "block_jacobi"
+                                             and self.compiled.use_preconditioner)),
             )
             r_terms = jtf_fn.r_terms
             if r_terms is None:  # every probe hoisted: evaluate residuals
@@ -240,12 +315,12 @@ class GaussNewtonSolver:
         r0 = {k: -v for k, v in JT(r_terms).items()}
         return (lambda v: JT(J(v))), None, r_terms, r0, None
 
-    def gn_system(self, X, fs: FunctionSet, asm_cache=None):
+    def gn_system(self, X, fs: FunctionSet, asm_cache=None, batched=False):
         """The linear system of one GN step at X: (A, r0 = -JᵀF, pre, cg_meta)
         with pre the row-masked guarded-inverted Jacobi diagonal (ones when
         the spec disables the preconditioner) and cg_meta the fused grid CG
         descriptor or None."""
-        A, diag, _r, r0, cg_meta = self._linear_system(X, fs, asm_cache)
+        A, diag, _r, r0, cg_meta = self._linear_system(X, fs, asm_cache, batched)
         if self.compiled.use_preconditioner:
             pre_raw = diag if diag is not None else fs.jtj_diag(X)
         else:
@@ -290,15 +365,16 @@ class GaussNewtonSolver:
         pm = torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
         return Minv * pm[..., :, None]
 
-    def _system(self, X, fs: FunctionSet, state, sp, asm_cache=None):
+    def _system(self, X, fs: FunctionSet, state, sp, asm_cache=None, batched=False):
         """The linear solve of one step at X: {meta, A, r0, pre, pre_apply,
         lm} with ``pre_apply`` the block-Jacobi apply or None and ``lm`` the
         LM loop's keywords {ctc, reset_period, q_tolerance} or None; under
-        LM also what ``_lm_finish`` reads (``_lm_parts``)."""
+        LM also what ``_lm_finish`` reads (``_lm_parts``). ``batched``: one
+        instance of a batch (``_linear_system``)."""
         if not self.uses_lambda:
-            A, r0, pre, meta = self.gn_system(X, fs, asm_cache)
+            A, r0, pre, meta = self.gn_system(X, fs, asm_cache, batched)
             return dict(meta=meta, A=A, r0=r0, pre=pre, pre_apply=self._block_pre(A), lm=None)
-        s = self._lm_parts(X, fs, state, sp, asm_cache)
+        s = self._lm_parts(X, fs, state, sp, asm_cache, batched)
         # block-Jacobi inverts the damped blocks B + diag(CtC): the same ctc
         # the operator applies, so M models A + CtC per point
         return dict(
@@ -327,8 +403,8 @@ class GaussNewtonSolver:
     def _cg(self, s, sp, device):
         """One linear solve of the system ``s`` (``_system``): the fused loop
         where the operator has a kernel form (with the block preconditioner
-        when there is one), else the eager ``_run_cg`` on the operator.
-        Returns (delta, iterations as a 0-dim int32 tensor)."""
+        when there is one), else :meth:`_eager_cg`. Returns (delta,
+        iterations as a 0-dim int32 tensor)."""
         kw = self._fused_keywords(s)
         if (s["meta"] is not None and self._pallas_mode is not None
                 and (s["pre_apply"] is None or kw["pre_blocks"] is not None)):
@@ -337,6 +413,11 @@ class GaussNewtonSolver:
                 guard_div=self.ip.guard_division_by_zero,
                 interpret=self._pallas_mode == "interpret", **kw,
             )
+        return self._eager_cg(s, sp, device)
+
+    def _eager_cg(self, s, sp, device):
+        """The eager ``_run_cg`` on the system's operator (``_cg``'s
+        fallback, and the batch's where no batched kernel form exists)."""
         self._note_no_kernel()
         pre, lm = s["pre"], s["lm"]
         M = s["pre_apply"] or (lambda r: {k: pre[k] * r[k] for k in r})
@@ -356,10 +437,15 @@ class GaussNewtonSolver:
         )
         return delta, torch.full((), l, dtype=torch.int32, device=device)
 
-    def _gn_step(self, state, fs: FunctionSet, sp, asm_cache=None):
+    def _gn_step(self, state, fs: FunctionSet, sp, asm_cache=None, eager=False):
         X = state["X"]
-        delta, l_done = self._cg(self._system(X, fs, state, sp, asm_cache), sp,
-                                 state["n_iter"].device)
+        cg = self._eager_cg if eager else self._cg
+        delta, l_done = cg(self._system(X, fs, state, sp, asm_cache), sp, state["n_iter"].device)
+        return self._gn_finish(state, fs, delta, l_done)
+
+    def _gn_finish(self, state, fs: FunctionSet, delta, l_done):
+        """The GN update X + δ, its cost and the counts."""
+        X = state["X"]
         X_new = {k: X[k] + delta[k] for k in X}
         return {
             **state,
@@ -369,12 +455,12 @@ class GaussNewtonSolver:
             "lin_iters": state["lin_iters"] + l_done,
         }
 
-    def _lm_parts(self, X, fs: FunctionSet, state, sp, asm_cache=None):
+    def _lm_parts(self, X, fs: FunctionSet, state, sp, asm_cache=None, batched=False):
         """Everything one LM step needs at X: the damped system and what
         ``_lm_finish`` reads (opt_tpu/solver/gauss_newton.py:640-700)."""
         dt = self.compiled.dtype
         radius = state["trust_region_radius"].to(dt)
-        A_base, diag, r_terms, r0, cg_meta = self._linear_system(X, fs, asm_cache)
+        A_base, diag, r_terms, r0, cg_meta = self._linear_system(X, fs, asm_cache, batched)
         if diag is None:
             diag = fs.jtj_diag(X)
         # diag: the actual diag(JᵀJ), also under UsePreconditioner(false)
@@ -415,10 +501,11 @@ class GaussNewtonSolver:
             "A_base": A_base, "r_terms": r_terms, "SSq": SSq,
         }
 
-    def _lm_step(self, state, fs: FunctionSet, sp, asm_cache=None):
+    def _lm_step(self, state, fs: FunctionSet, sp, asm_cache=None, eager=False):
         X = state["X"]
         s = self._system(X, fs, state, sp, asm_cache)
-        delta, l_done = self._cg(s, sp, state["n_iter"].device)
+        cg = self._eager_cg if eager else self._cg
+        delta, l_done = cg(s, sp, state["n_iter"].device)
         return self._lm_finish(
             state, fs, sp, X, delta, l_done, s["r_terms"], fs.jvp_fn(X), s["SSq"]
         )
@@ -484,3 +571,144 @@ class GaussNewtonSolver:
             state = self._step_fn(state, fs, sp, asm_cache)
             costs.append(state["prev_cost"])
         return state, costs
+
+    # -- batched solve -----------------------------------------------------------
+    def _launches_kernel(self, device) -> bool:
+        """Whether the fused loop on ``device`` is the CUDA kernel (not the
+        plain twin): where a batched operator has no kernel form, the step
+        runs the eager loop instead, instance by instance."""
+        return self._pallas_mode == "auto" and device.type == "cuda"
+
+    def _batched_init(self, X, consts, graphs, params, sp, const_axes, param_axes):
+        """The batch's initial state and const cache, each instance's as
+        ``_init_state`` and ``_asm_cache`` make it (under vmap), and the
+        per-leaf in-dims: (state, cache, args of ``_batched_step``)."""
+        comp = self.compiled
+        c_dims = {k: const_axes.get(k) for k in consts}
+        p_dims = {k: param_axes.get(k) for k in params}
+        state = _vmap(lambda x, c, p: self._init_state(x, c, graphs, p, sp),
+                      (0, c_dims, p_dims))(X, consts, params)
+        cache = None
+        if self._stencil_plan is not None:
+            plan = self._stencil_plan
+            cache = _vmap(lambda x, c, p: FunctionSet(comp, c, graphs, p).assemble_const(x, plan),
+                          (0, c_dims, p_dims))(X, consts, params)
+        return state, (consts, params, c_dims, p_dims, graphs, sp, cache)
+
+    def solve_batched(self, X, consts, graphs, params, sp, const_axes, param_axes):
+        """A batch of independent instances, the counterpart of the JAX
+        package's ``_solve_fused_batched`` + ``_solve_core``: X holds every
+        unknown with a leading batch axis [B, ...]; each constant image and
+        parameter is batched on axis 0 or shared (``const_axes`` /
+        ``param_axes``: name -> 0 or None); graphs are shared. Each step
+        builds every instance's system at once under ``torch.func.vmap``,
+        solves them by one batched ``fused_grid_cg`` call (one kernel
+        launch on the card) and applies the GN or LM update under vmap. An
+        instance that is done, or at nIterations, keeps its state, counts
+        and cost history, as the reference's while_loop batching rule keeps
+        them. The host reads one flag a step: is any instance active.
+        Returns (state batched on axis 0, costs [B, max(1, nIterations)],
+        NaN past each instance's last step)."""
+        n_it = int(sp["nIterations"])
+        state, args = self._batched_init(X, consts, graphs, params, sp, const_axes, param_axes)
+        B = int(state["n_iter"].shape[0])
+        costs = torch.full((B, max(1, n_it)), float("nan"), dtype=self.compiled.dtype,
+                           device=state["n_iter"].device)
+        cols = torch.arange(costs.shape[1], device=costs.device)
+        for _ in range(n_it):
+            active = ~state["done"] & (state["n_iter"] < n_it)
+            if not bool(active.any()):
+                break
+            new = self._batched_step(state, *args)
+            hit = active[:, None] & (cols[None, :] == state["n_iter"][:, None].long())
+            costs = torch.where(hit, new["prev_cost"][:, None].to(costs.dtype), costs)
+            state = _select(active, new, state)
+        return state, costs
+
+    def batched_cg_inputs(self, X, consts, graphs, params, sp, const_axes, param_axes):
+        """What the batch's first step hands the batched fused loop: (the
+        batched meta, r0, pre, keywords of ``fused_grid_cg``), r0 and pre
+        with a leading batch axis; meta None where the batched operator has
+        no fused form."""
+        state, args = self._batched_init(X, consts, graphs, params, sp, const_axes, param_axes)
+        s = self._batched_system(state, *args)
+        return (None,) * 4 if s is None else (s["meta"], s["r0"], s["pre"], s["kw"])
+
+    def _batched_system(self, state, consts, params, c_dims, p_dims, graphs, sp, cache):
+        """Every instance's linear system of one step, built under vmap:
+        {meta (batched: "batch" B, F [B, T, *dom]), r0, pre, kw (the
+        keywords of ``fused_grid_cg``), extra (what ``_lm_finish`` reads)},
+        or None where the fused loop cannot take it (no fused loop, no
+        fused form, a block preconditioner the loop cannot host)."""
+        comp = self.compiled
+        if (self._stencil_plan is None or self._pallas_mode is None
+                or comp.dtype != torch.float32):
+            return None  # composed operator, float64, fused CG off
+
+        def system(st, c, p, cc):
+            s = self._system(st["X"], FunctionSet(comp, c, graphs, p), st, sp, cc, batched=True)
+            out = {"meta": s["meta"], "r0": s["r0"], "pre": s["pre"],
+                   "kw": self._fused_keywords(s), "blocks": s["pre_apply"] is not None}
+            if self.uses_lambda:
+                out.update(r_terms=s["r_terms"], SSq=s["SSq"])
+            return out
+
+        s = _vmap(system, (_tensor_dims(state), c_dims, p_dims, _tensor_dims(cache)))(
+            state, consts, params, cache)
+        meta, kw = s["meta"], s["kw"]
+        if meta is None or (s["blocks"] and kw["pre_blocks"] is None):
+            return None
+        # the meta's structure is instance 0's; a shared remainder CSR left
+        # the vmap expanded over the batch
+        meta = dict(meta, batch=int(state["n_iter"].shape[0]), F=meta["F"].contiguous())
+        if meta["rem"] is not None:
+            rem = meta["rem"]
+            meta["rem"] = dict(rem, rowptr=rem["rowptr"][0], col=rem["col"][0],
+                               blk=rem["blk"].contiguous())
+        return {"meta": meta, "r0": s["r0"], "pre": s["pre"], "kw": kw,
+                "extra": {k: s[k] for k in ("r_terms", "SSq") if k in s}}
+
+    def _batched_step(self, state, consts, params, c_dims, p_dims, graphs, sp, cache):
+        """One step of every instance (:meth:`solve_batched`): the stepped
+        state, batched on axis 0."""
+        comp = self.compiled
+        args = (consts, params, c_dims, p_dims, graphs, sp, cache)
+        s = self._batched_system(state, *args)
+        if s is None:
+            return self._step_each(state, *args)
+        meta, kw = s["meta"], s["kw"]
+        if (self._launches_kernel(state["n_iter"].device)
+                and batched_kernel_form(meta, kw["pre_blocks"]) is None):
+            # no batched instance takes a remainder or a block preconditioner
+            return self._step_each(state, *args, eager=True)
+        delta, l_done = fused_grid_cg(
+            meta, s["r0"], s["pre"], sp["lIterations"], sp["cg_rz_tolerance"],
+            guard_div=self.ip.guard_division_by_zero,
+            interpret=self._pallas_mode == "interpret", **kw,
+        )
+
+        def finish(st, c, p, d, l, ex):
+            fs = FunctionSet(comp, c, graphs, p)
+            if self.uses_lambda:
+                X = st["X"]
+                return self._lm_finish(st, fs, sp, X, d, l, ex["r_terms"], fs.jvp_fn(X),
+                                       ex["SSq"])
+            return self._gn_finish(st, fs, d, l)
+
+        extra = s["extra"]
+        return _vmap(finish, (_tensor_dims(state), c_dims, p_dims, 0, 0, _tensor_dims(extra)))(
+            state, consts, params, delta, l_done, extra)
+
+    def _step_each(self, state, consts, params, c_dims, p_dims, graphs, sp, cache,
+                   eager=False):
+        """One step of every instance, one instance after the other (the
+        batch's eager path; ``eager`` skips the fused loop)."""
+        B = int(state["n_iter"].shape[0])
+        out = []
+        for k in range(B):
+            c = {n: v[k] if c_dims[n] == 0 else v for n, v in consts.items()}
+            p = {n: v[k] if p_dims[n] == 0 else v for n, v in params.items()}
+            cc = None if cache is None else _instance(cache, k)
+            fs = FunctionSet(self.compiled, c, graphs, p)
+            out.append(self._step_fn(_instance(state, k), fs, sp, cc, eager=eager))
+        return tree_map(lambda *v: torch.stack(v), *out)

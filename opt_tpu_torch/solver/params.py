@@ -48,11 +48,13 @@ class InitializationParameters:
     # "interpret": the plain twin on any device; False/"off": the solver's
     # eager CG loop.
     use_pallas_cg: Any = "auto"
-    # Explicit sparse-J path (not ported yet: ROADMAP.md queue 1 item 12).
+    # Explicit sparse-J path (not ported yet: ROADMAP.md queue 1 item 5).
     use_explicit_jtj: bool = False
-    # Dynamic graph topology (graphs: ROADMAP.md queue 1 item 10).
+    # Dynamic graph topology (graphs; not ported yet: ROADMAP.md queue 1
+    # item 4).
     dynamic_topology: bool = False
-    # Per-kernel timing report (ROADMAP.md queue 1 item 13).
+    # Per-kernel timing report (not ported yet: ROADMAP.md queue 1 item 6;
+    # True raises).
     collect_per_kernel_timing: bool = False
     # CG inner-loop variant: "standard" (the reference's PCG recurrence) or
     # "chronopoulos_gear" (one reduction per iteration: rᵀu and uᵀAu from the
@@ -62,10 +64,12 @@ class InitializationParameters:
     # inverses of the assembled Δ=0 channel blocks); "auto" resolves per
     # device count.
     preconditioner: str = "auto"
-    # Bind-time edge renumbering for graph problems on a mesh.
+    # Bind-time edge renumbering for graph problems on a mesh: False/None,
+    # or "owner" (multi-device, not ported yet: ROADMAP.md queue 1 item 8;
+    # raises); "auto" resolves per device count (resolve_auto_policy).
     edge_reorder: Any = "auto"
     # Incidence-aligned graph assembly (experimental in the reference
-    # package; not to be ported).
+    # package; not to be ported: True raises).
     aligned_graph_assembly: bool = False
     # Narrower storage for the assembled coefficient fields the CG loop
     # reads, e.g. "bfloat16"; products stay in the solve dtype. None = the

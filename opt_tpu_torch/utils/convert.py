@@ -72,7 +72,7 @@ def _coeffs(a, device, bf16: bool):
     return (t.to(torch.bfloat16) if bf16 else t).contiguous()
 
 
-def meta_from_numpy(meta: Dict[str, Any], device) -> Dict[str, Any]:
+def meta_from_numpy(meta: Dict[str, Any], device, batch: bool = False) -> Dict[str, Any]:
     """A fused CG descriptor of the JAX package (F, triples, offs, channels,
     u_list, ctot, chan_grid: the per-channel split, whose triples are one
     channel's; for graphs also its [R, L] vertex fold and its one-hot
@@ -81,19 +81,25 @@ def meta_from_numpy(meta: Dict[str, Any], device) -> Dict[str, Any]:
     3-D grid. A graph's folded fields unfold onto the grid [1, N], its flat
     offsets d become (0, d), and its remainder tiles become the block CSR,
     rows in vertex order and each row's entries in ascending endpoint
-    order."""
+    order. ``batch``: F has a leading batch axis (the descriptor a
+    ``jax.vmap`` over instances made, as ``Plan.solve_batched`` runs it);
+    the result is a batched meta (``"batch"``: B) with F [B, T, *dom]."""
     bf16 = _is_bf16(meta["F"])
     F = np.asarray(meta["F"], np.float32)
+    lead = F.shape[:1] if batch else ()
     triples = [(tuple(int(o) for o in d), int(i), int(j), int(fid))
                for (d, i, j, fid) in meta["triples"]]
     rem = None
     if meta.get("fold") is not None:
         R, L, N = (int(x) for x in meta["fold"])
-        F = F.reshape(F.shape[0], R * L)[:, :N].reshape(F.shape[0], 1, N)
+        T = F.shape[len(lead)]
+        F = F.reshape(lead + (T, R * L))[..., :N].reshape(lead + (T, 1, N))
         triples = [((0, d[0]), i, j, fid) for (d, i, j, fid) in triples]
         if meta.get("rem") is not None:
+            if batch:
+                raise ValueError("meta_from_numpy: a batched remainder is not carried across")
             rem = _rem_from_tiles(meta["rem"], L, N, device)
-    return {
+    out = {
         "u_list": tuple(meta["u_list"]),
         "offs": {k: int(v) for k, v in meta["offs"].items()},
         "channels": {k: int(v) for k, v in meta["channels"].items()},
@@ -103,6 +109,9 @@ def meta_from_numpy(meta: Dict[str, Any], device) -> Dict[str, Any]:
         "F": _coeffs(F, device, bf16),
         "rem": rem,
     }
+    if batch:
+        out["batch"] = int(lead[0])
+    return out
 
 
 def pre_blocks_from_numpy(pre_blocks, device) -> torch.Tensor:

@@ -64,6 +64,20 @@ res = plan.solve({"X": depth.copy(), "D_i": depth, "Im": rng.rand(8, 8).astype("
                   "u_x": 4.0, "u_y": 4.0, **{f"L_{i}": 0.1 for i in range(1, 10)}},
                  nIterations=1, lIterations=5)
 assert np.isfinite(res.final_cost) and plan.fused_fallback is None
+# the batched, scheduled and pyramid solves
+plan = ot.Problem(laplacian).plan(dims={"W": 8, "H": 8}, device="cpu")
+res = plan.solve_batched({"X": rng.rand(3, 8, 8).astype("f4"), "A": rng.rand(8, 8).astype("f4")},
+                         nIterations=2, lIterations=10)
+assert res.final_costs.shape == (3,) and np.isfinite(res.final_costs).all()
+res = plan.solve_scheduled({"X": rng.rand(8, 8).astype("f4"), "A": rng.rand(8, 8).astype("f4")},
+                           lambda c, i: c, 2, nIterations=1, lIterations=5)
+assert len(res.costs) == 2
+pp = ot.PyramidPlan(ot.Problem(laplacian), [{"W": 4, "H": 4}, {"W": 8, "H": 8}],
+                    lambda u, i, d: {"X": ot.upsample2x_nearest(u["X"], (d["W"], d["H"]))},
+                    device="cpu", nIterations=1, lIterations=5)
+res = pp.solve([{"X": np.zeros((4, 4), "f4"), "A": rng.rand(4, 4).astype("f4")},
+                {"X": np.zeros((8, 8), "f4"), "A": rng.rand(8, 8).astype("f4")}])
+assert len(res.costs) == 2 and np.isfinite(res.final_cost)
 assert {"opt_tpu_torch.ops.sampling", "opt_tpu_torch.pyramid"} <= set(sys.modules)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "opt_tpu" or m.startswith("opt_tpu."))
@@ -119,3 +133,51 @@ def test_fused_grid_cg_refuses_other_devices():
     x = {"X": torch.ones((4, 4, 1), device="meta")}
     with pytest.raises(ValueError, match="CPU .* or CUDA"):
         fused_cg.fused_grid_cg(meta, x, x, 5, 0.0)
+
+
+# -- the reference's keywords and switches the port has not reached ---------------
+
+
+@pytest.mark.parametrize("kw,item", [({"mesh": object()}, "item 8"),
+                                     ({"dynamic_topology": True}, "item 4")])
+def test_plan_takes_the_reference_keywords_and_raises(kw, item):
+    """Problem.plan takes ``mesh=`` and ``dynamic_topology=`` as the JAX
+    package does; a solve over several devices or a dynamic topology is not
+    ported yet and says so, naming its roadmap item."""
+    with pytest.raises(NotImplementedError, match=item):
+        ott.Problem(tspecs.laplacian).plan(dims={"W": 8, "H": 8}, device="cpu", **kw)
+
+
+def test_plan_takes_the_default_keywords():
+    plan = ott.Problem(tspecs.laplacian).plan(dims={"W": 8, "H": 8}, device="cpu", mesh=None,
+                                              dynamic_topology=False)
+    assert plan.solver.ip.dynamic_topology is False
+
+
+@pytest.mark.parametrize("field,value,error,match", [
+    ("collect_per_kernel_timing", True, NotImplementedError, "item 6"),
+    ("edge_reorder", "owner", NotImplementedError, "item 8"),
+    ("edge_reorder", "bogus", ValueError, "only implemented mode"),
+    ("aligned_graph_assembly", True, NotImplementedError, "not to be ported"),
+])
+def test_unported_init_params_raise(field, value, error, match):
+    """InitializationParameters that the port does not read raise, where the
+    JAX package would act on them."""
+    ip = ott.InitializationParameters(**{field: value})
+    with pytest.raises(error, match=match):
+        ott.Problem(tspecs.laplacian).plan(dims={"W": 8, "H": 8}, device="cpu", init_params=ip)
+
+
+@pytest.mark.parametrize("value", [False, None, "auto"])
+def test_edge_reorder_off_is_accepted(value):
+    ip = ott.InitializationParameters(edge_reorder=value)
+    ott.Problem(tspecs.laplacian).plan(dims={"W": 8, "H": 8}, device="cpu", init_params=ip)
+
+
+def test_enable_double_precision_is_exported():
+    """A script written for the reference calls it before a float64 plan."""
+    assert "enable_double_precision" in ott.__all__
+    assert ott.enable_double_precision() is None
+    plan = ott.Problem(tspecs.laplacian).plan(dims={"W": 8, "H": 8}, device="cpu",
+                                              double_precision=True)
+    assert plan.compiled.dtype == torch.float64
