@@ -44,6 +44,19 @@ grid mesh once more in float64 against the JAX package's float64 solve,
 checks the medium golden costs, times kernels, twins, assembly and solves
 with CUDA events, profiles the batched curve fits, and prints one JSON line
 per result.
+The sharded path: it builds the per-tile apply of a solve sharded over a
+2-D mesh of ranks (opt_tpu_torch/ops/csrc/tile_apply.cu, in the same
+library) and holds it bitwise against its twin on the four tiles of a 2x2
+split of poisson 512x512x4, image_warping 512x512x3, a radius-2 stencil
+and bfloat16 fields. As soon as the library is built it starts four
+ranks by the spawn method, one 2x2 mesh under gloo, all four on the one
+card, which solve through the public API, beside the checks and solves
+above, poisson 512x512x4 (GN 1x2000) and image_warping 512x512 (GN and
+LM 8x400, and LM under the mesh's auto policy) as 2x2 tiles, each held to
+the single-device solve on the card (and poisson to the JAX package's),
+with the tile kernel launched once per apply; it times the tile kernel
+against its bound, and the sharded solves (four ranks sharing one card:
+not a scaling figure).
 It exits non-zero, with no result line, when CUDA is not available or any
 check fails. It imports neither JAX nor opt_tpu.
 """
@@ -54,10 +67,13 @@ import concurrent.futures
 import contextlib
 import functools
 import json
+import multiprocessing
 import os
+import queue as queue_mod
 import subprocess
 import sys
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -75,8 +91,9 @@ from opt_tpu_torch.models.specs import (
     shape_from_shading,
     volumetric_mesh_deformation,
 )
-from opt_tpu_torch.ops import fused_cg
+from opt_tpu_torch.ops import fused_cg, sharded_cg
 from opt_tpu_torch.ops._build import build_library, instance_registers, load_library, nvcc_path
+from opt_tpu_torch.parallel.mesh import split_bounds
 from opt_tpu_torch.pyramid import upsample2x_nearest
 from opt_tpu_torch.utils.reorder import grid_embed_order, permute_vertices, remap_edges
 
@@ -271,6 +288,7 @@ CG_TOL = 1e-12  # SOLVER_PARAMETER_DEFAULTS["cg_rz_tolerance"]
 Q_TOL = 1e-4  # SOLVER_PARAMETER_DEFAULTS["q_tolerance"]
 RESET_PERIOD = 10  # SOLVER_PARAMETER_DEFAULTS["residual_reset_period"]
 TIMED_ITERS = 100  # iterations of a timed loop
+PROFILE_SESSIONS = 3  # kernel_device_ms: profiler sessions before CUDA events
 KERNEL_SOURCE = "opt_tpu_torch/ops/csrc/fused_grid_cg.cu"
 K1 = "opt_tpu/ops/pallas_cg.py:328"
 K3 = "opt_tpu/ops/pallas_cg.py:335"  # _kernel's flat1d=True graph form
@@ -283,6 +301,8 @@ K1F = "opt_tpu/ops/pallas_cg.py:586"  # _kernel with coeff_dtype fields
 K1G = "opt_tpu/ops/pallas_cg.py:328"  # _kernel over a ComputedArray operator's fields
 K2 = "opt_tpu/ops/pallas_cg.py:339"  # _kernel's chan_grid=True form
 K1H = "opt_tpu/ops/pallas_cg.py:328"  # _kernel under jax.vmap (gauss_newton.py:983-1004)
+K5 = "opt_tpu/ops/pallas_cg.py:1167"  # _tile_apply_kernel, inside sharded_fused_grid_cg
+K5_SOURCE = "opt_tpu_torch/ops/csrc/tile_apply.cu"
 # the card's published peaks (H100 SXM at 700 W). The bound of a CG call
 # is the larger of its bytes (each per-system input read once per iteration,
 # the shared triples table once per launch) over the memory rate and its
@@ -344,16 +364,23 @@ JAX_CPU_ARAP36K_F64_COSTS = [
     62966.05437434709, 61263.52447705914, 66067.29685116408, 63485.283247330124,
 ]
 F64_STEPS, F64_RTOL = 4, 1e-6
-# The rows of the TPU kernel table still to port: the shapes of the JAX
-# package's fused-CG descriptor at each reference case (fields, plane =
-# the points of the domain, channels, triples; opt_tpu/ops/pallas_cg.py's
-# planners), and how the form differs from the ported GN form: cg_work's
-# knobs. K5 is one apply of a 256x256 tile, no loop: p read, the output
-# written, no vector work.
-ROWS_TO_PORT = [
-    ("K5 per-device tile apply, poisson 512x512x4 on 2x2 devices",
-     dict(fields=5, plane=256 * 256, C=4, triples=20, vector=0, dots=0)),
+# The sharded solves: four ranks, a 2x2 mesh, on the one card under gloo
+# (NCCL refuses two ranks on one device). Each case: label, spec, kind,
+# grid side, nonlinear x CG iterations, InitializationParameters. The
+# single-device references are this run's own solves on the card (and
+# poisson's the JAX CPU's too); the mesh's auto policy takes CS and
+# block-Jacobi, so the pinned cases name the standard loop and Jacobi.
+MESH_SHAPE = (2, 2)
+PINNED = {"cg_variant": "standard", "preconditioner": "jacobi"}
+CS_BJ = {"cg_variant": "chronopoulos_gear", "preconditioner": "block_jacobi"}
+SHARDED_CASES = [
+    ("poisson512x4 GN 1x2000", "poisson", "gaussNewtonGPU", MAIN_N, 1, 2000, PINNED),
+    ("image_warping512 GN 8x400", "image_warping", "gaussNewtonGPU", IW_N, 8, 400, PINNED),
+    ("image_warping512 LM 8x400", "image_warping", "LMGPU", IW_N, 8, 400, PINNED),
+    ("image_warping512 LM 8x400 auto", "image_warping", "LMGPU", IW_N, 8, 400, {}),
 ]
+SHARDED_ITER_RTOL = 0.01  # a sharded solve's CG count against the single-device one
+SHARDED_TIMEOUT_S = 600  # the ranks' whole run
 OUT_DIR = os.path.join("build", "profiles")  # git-ignored
 
 
@@ -1294,29 +1321,38 @@ def dev_us(e):
     return float(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)))
 
 
-def kernel_device_ms(fn, reps, launches):
-    """Device ms of the CG kernel a call, mean over `reps` calls of fn
+def kernel_device_ms(fn, reps, launches, kernel="fused_grid_cg_kernel"):
+    """Device ms of the named kernel a call, mean over `reps` calls of fn
     after a warm-up, from torch.profiler's kernel entries: the kernel's own
     time, which CUDA events around a short launch blur with the wrapper's
     host work: the mean of the launches seen, times the `launches` of a
-    call."""
+    call. On the H100 a session misses the last fused_grid_cg_kernel
+    launch, and at times all of them: a session that saw none is
+    repeated, and after PROFILE_SESSIONS of them the CUDA events time the
+    calls instead (the log says so)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ks = [e for e in prof.key_averages() if getattr(e, "device_type", None) == DeviceType.CUDA
-          and "fused_grid_cg_kernel" in e.key]
-    n = sum(e.count for e in ks)
-    if not n:
-        raise RuntimeError("the profiler saw no CG kernel launch")
-    if n != reps * launches:  # a short session may lose an event
-        log(json.dumps({"profiler_cg_launches_seen": n, "made": reps * launches}))
-    return sum(dev_us(e) for e in ks) / 1e3 / n * launches
+    for session in range(1, PROFILE_SESSIONS + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ks = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == DeviceType.CUDA and kernel in e.key]
+        n = sum(e.count for e in ks)
+        if n:
+            if n != reps * launches:
+                log(json.dumps({"profiler_launches_seen": n, "made": reps * launches,
+                                "kernel": kernel, "session": session}))
+            return sum(dev_us(e) for e in ks) / 1e3 / n * launches
+        log(json.dumps({"profiler_launches_seen": 0, "made": reps * launches,
+                        "kernel": kernel, "session": session}))
+    log(json.dumps({"device_ms_by": "cuda_events", "kernel": kernel,
+                    "why": f"the profiler saw no launch in {PROFILE_SESSIONS} sessions"}))
+    return time_cuda(fn, reps)
 
 
 def host_ms(fn, reps):
@@ -1462,6 +1498,286 @@ def profile_solve(label, run, gpu):
         json.dump(dict(line, top_kernels=top_kernels), f, indent=1)
 
 
+def radius2_spec(S):
+    """A second-neighbour stencil (tests/test_sharding.py's radius-2 case):
+    a halo of two rows and columns."""
+    W, H = S.Dim("W"), S.Dim("H")
+    X = S.Unknown("X", 1, (W, H))
+    A = S.Array("A", 1, (W, H))
+    S.Energy(0.3 * (X(0, 0) - A(0, 0)))
+    for dx, dy in ot.Stencil([(2, 0), (-2, 0), (0, 2), (0, -2)]):
+        S.Energy(ot.Select(ot.InBounds(dx, dy), X(0, 0) - X(dx, dy), 0.0))
+
+
+def radius2_inputs(n):
+    rng = np.random.RandomState(5)
+    return {"X": rng.rand(n, n).astype(np.float32), "A": rng.rand(n, n).astype(np.float32)}
+
+
+def tiles_of(meta):
+    """The tiles ((r0, r1), (c0, c1)) of a 2x2 split of a meta's grid, the
+    fields' halo (ah, aw), and a random p over the grid with its
+    zero-padded extension."""
+    F = meta["F"]
+    ah, aw = sharded_cg.halo_widths(meta["triples"])
+    H, W = int(F.shape[1]), int(F.shape[2])
+    g = torch.Generator(device=F.device).manual_seed(0)
+    p = torch.randn((int(meta["ctot"]), H, W), generator=g, device=F.device)
+    pad = torch.nn.functional.pad(p, (aw, aw, ah, ah))
+    tiles = [(rb, cb) for rb in split_bounds(H, MESH_SHAPE[0]) for cb in split_bounds(W, MESH_SHAPE[1])]
+    return tiles, (ah, aw), p, pad
+
+
+def tile_operands(meta, tile, halo, pad):
+    """(the tile's fields, its halo-extended p) of one tile."""
+    (r0, r1), (c0, c1) = tile
+    ah, aw = halo
+    return (meta["F"][:, r0:r1, c0:c1].contiguous(),
+            pad[:, r0:r1 + 2 * ah, c0:c1 + 2 * aw].contiguous())
+
+
+def tile_checks(label, meta):
+    """K5 against its twin on the four tiles of a 2x2 split of a system's
+    grid, p random: bitwise, and bitwise against the whole grid's apply
+    (the twin's _stencil_apply) cropped to the tile. Returns the largest
+    |kernel - twin|."""
+    tiles, (ah, aw), p, pad = tiles_of(meta)
+    triples = meta["triples"]
+    whole = fused_cg._stencil_apply(meta["F"].float(), triples, p)
+    err = 0.0
+    for tile in tiles:
+        Ft, pe = tile_operands(meta, tile, (ah, aw), pad)
+        k = sharded_cg.tile_apply_kernel(Ft, triples, pe, ah, aw)
+        t = sharded_cg.tile_apply_reference(Ft, triples, pe, ah, aw)
+        torch.cuda.synchronize()
+        (r0, r1), (c0, c1) = tile
+        err = max(err, float((k - t).abs().max()))
+        if not (torch.equal(k, t) and torch.equal(k, whole[:, r0:r1, c0:c1])):
+            raise RuntimeError(f"tile_apply {label} tile {tile}: not bitwise equal to the twin "
+                               f"and the whole-grid apply (max |diff| {err})")
+    log(json.dumps({"check": "tile_apply", "case": label, "tiles": len(tiles),
+                    "tile": [tiles[0][0][1] - tiles[0][0][0], tiles[0][1][1] - tiles[0][1][0]],
+                    "halo": [ah, aw], "fields": int(meta["F"].shape[0]),
+                    "triples": len(triples), "field_dtype": str(meta["F"].dtype),
+                    "bitwise_equal": True, "max_abs_err": err}))
+    return err
+
+
+def time_tile_apply(label, meta, gpu, reps=200):
+    """K5's device ms per apply on the first tile of a 2x2 split (the
+    profiler's kernel time; CUDA events beside it), its twin's ms (events),
+    and the apply's bound: the larger of its bytes (the tile's fields, the
+    halo-extended p and the output, each once) over the memory rate and its
+    2 flops a triple a point over the float32 peak. (ms, plain ms, bound ms,
+    bound by)."""
+    tiles, halo, _p, pad = tiles_of(meta)
+    Ft, pe = tile_operands(meta, tiles[0], halo, pad)
+    triples = meta["triples"]
+    th, tw = int(Ft.shape[1]), int(Ft.shape[2])
+
+    def call():
+        sharded_cg.tile_apply_kernel(Ft, triples, pe, *halo)
+
+    event_ms = time_cuda(call, reps)
+    ms_k = kernel_device_ms(call, reps, 1, kernel="tile_apply_kernel")
+    ms_t = time_cuda(lambda: sharded_cg.tile_apply_reference(Ft, triples, pe, *halo), 20)
+    n_bytes = Ft.numel() * Ft.element_size() + pe.numel() * 4 + int(meta["ctot"]) * th * tw * 4
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = 2 * len(triples) * th * tw / F32_FLOPS
+    bound_ms, by = max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    log(json.dumps({"timing": f"tile_apply {label}", "gpu": gpu, "tile": [th, tw],
+                    "halo": list(halo), "kernel_ms_per_apply": ms_k,
+                    "kernel_event_ms_per_apply": event_ms, "twin_ms_per_apply": ms_t,
+                    "bound_ms_per_apply": bound_ms, "bound_by": by, "bytes": n_bytes,
+                    "library_ms": None}))
+    return ms_k, ms_t, bound_ms, by
+
+
+def sharded_rank(rank, world, store, device, cases, results):
+    """One rank of the sharded solves (started by the spawn method): joins
+    the gloo world, takes its place in the 2x2 mesh on ``device`` and
+    solves every case through the public API, its tile-kernel launch count
+    and the mesh's counts set to 0 just before each solve and read just
+    after; puts {rank, cases} (or {rank, error}) on ``results``."""
+    import torch.distributed as dist
+
+    from opt_tpu_torch.parallel import initialize, make_mesh
+
+    try:
+        torch.set_num_threads(1)
+        initialize("file://" + store, world_size=world, rank=rank, backend="gloo")
+        dev = torch.device(device)
+        mesh = make_mesh(MESH_SHAPE, device=dev)
+        out = {"rank": rank, "cases": {}}
+        for label, name, kind, n, nl, li, ip in cases:
+            spec = poisson_image_editing if name == "poisson" else image_warping
+            inputs = bench_poisson_inputs(n) if name == "poisson" else bench_image_warping_inputs(n)
+            plan = ot.Problem(spec, kind=kind).plan(
+                dims=_grid(n), mesh=mesh, device=dev.type,
+                init_params=ot.InitializationParameters(**ip))
+            sharded_cg.reset_launch_counts()
+            mesh.reset_counts()
+            plan.solver.cg_stats.clear()
+            t0 = time.perf_counter()
+            res = plan.solve(dict(inputs), nIterations=nl, lIterations=li)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            stats = plan.solver.cg_stats
+            out["cases"][label] = {
+                "cost": res.final_cost, "costs": res.costs, "lin": res.num_linear_iterations,
+                "steps": res.num_iterations, "fused_fallback": res.fused_fallback,
+                "tile_kernel_launches": sharded_cg.tile_apply_kernel.launches,
+                "cg_calls": len(stats), "kernel": all(st["kernel"] for st in stats),
+                "iterations": [st["iterations"] for st in stats],
+                "applies": [st["applies"] for st in stats],
+                "all_reduce": mesh.counts["all_reduce"], "p2p_phases": mesh.counts["p2p_phases"],
+                "wall_ms": wall_ms, "solve_ms": res.wall_time_s * 1e3,
+                "tile": [list(b) for b in plan.rules.tile],
+                "variant": [plan.solver.ip.cg_variant, plan.solver.ip.preconditioner],
+                "unknowns_ok": all(tuple(v.shape[:2]) == (n, n) and bool(torch.isfinite(v).all())
+                                   for v in res.unknowns.values()),
+            }
+        # what an iteration's communication costs here: one all_reduce of
+        # three dots, one halo phase of a 256x256x4 tile (its strips through
+        # the host), each the mean of 200
+        x = torch.zeros(3, dtype=torch.float64)
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            dist.all_reduce(x)
+        out["all_reduce_us"] = (time.perf_counter() - t0) / 200 * 1e6
+        tile = torch.zeros((4, 256, 256), device=dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            mesh.extend(tile, 1, 0)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out["halo_phase_us"] = (time.perf_counter() - t0) / 200 * 1e6
+        results.put(out)
+    except BaseException:
+        results.put({"rank": rank, "error": traceback.format_exc()})
+        raise
+    finally:
+        if dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def start_sharded(cases, device="cuda:0", world=4):
+    """Start ``world`` ranks of the sharded solves by the spawn method (a
+    process that has used CUDA cannot fork them). They are daemons: if this
+    process ends first, they end with it. Returns the handle
+    :func:`collect_sharded` takes."""
+    ctx = multiprocessing.get_context("spawn")
+    os.makedirs(os.path.join("build", "ranks"), exist_ok=True)
+    store = os.path.abspath(os.path.join("build", "ranks", f"store_{os.getpid()}"))
+    if os.path.exists(store):
+        os.remove(store)
+    results = ctx.Queue()
+    procs = [ctx.Process(target=sharded_rank, args=(r, world, store, device, cases, results),
+                         daemon=True)
+             for r in range(world)]
+    for proc in procs:
+        proc.start()
+    return procs, results, store
+
+
+def collect_sharded(handle):
+    """Wait for every rank's results and stop the ranks. Returns the
+    results by rank."""
+    procs, results, store = handle
+    world = len(procs)
+    got = {}
+    try:
+        deadline = time.perf_counter() + SHARDED_TIMEOUT_S
+        while len(got) < world:
+            try:
+                msg = results.get(timeout=max(1.0, deadline - time.perf_counter()))
+            except queue_mod.Empty:
+                raise RuntimeError(f"sharded solves: {world - len(got)} rank(s) silent after "
+                                   f"{SHARDED_TIMEOUT_S} s") from None
+            if "error" in msg:
+                raise RuntimeError(f"sharded rank {msg['rank']} failed:\n{msg['error']}")
+            got[msg["rank"]] = msg
+    finally:
+        for proc in procs:
+            proc.join(timeout=30)
+        for proc in procs:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join()
+        if os.path.exists(store):
+            os.remove(store)
+    return [got[r] for r in range(world)]
+
+
+def sharded_main_paths(handle, single, gpu):
+    """The sharded solves on 2x2 ranks on the one card (the ranks of
+    ``handle``, :func:`start_sharded`), each held to the single-device solve
+    of the same case on the card (``single``: label -> (final cost, CG
+    count)), poisson also to the JAX CPU's; every rank agrees, reports no
+    fallback, launched the tile kernel once an apply of its sharded loop,
+    one apply a CG iteration (LM: plus a reset every RESET_PERIOD), and
+    returns finite global unknowns. Returns (the results by rank, the
+    tile-kernel launches of each case summed over the ranks)."""
+    t0 = time.perf_counter()
+    ranks = collect_sharded(handle)
+    log(json.dumps({"sharded_communication": gpu, "all_reduce_us": [r["all_reduce_us"] for r in ranks],
+                    "halo_phase_us": [r["halo_phase_us"] for r in ranks]}))
+    launches = {}
+    for label, name, kind, n, nl, li, ip in SHARDED_CASES:
+        cases = [r["cases"][label] for r in ranks]
+        first = cases[0]
+        want_cost, want_lin = single[label]
+        rel = abs(first["cost"] - want_cost) / abs(want_cost)
+        line = {"check": "sharded_main_path", "case": label, "mesh": list(MESH_SHAPE),
+                "gpu": gpu, "final_cost": first["cost"], "single_device_cost": want_cost,
+                "rel_diff": rel, "lin_iters": first["lin"], "single_device_lin_iters": want_lin,
+                "variant": first["variant"], "nonlinear_iters": first["steps"],
+                "tile_kernel_launches": [c["tile_kernel_launches"] for c in cases],
+                "all_reduce": first["all_reduce"], "p2p_phases": first["p2p_phases"],
+                "wall_ms": [c["wall_ms"] for c in cases],
+                "ms_per_cg_iter": [c["solve_ms"] / max(1, c["lin"]) for c in cases],
+                "note": "four ranks on one card under gloo: not a scaling figure"}
+        if name == "poisson":
+            line.update(jax_cpu_cost=JAX_CPU_POISSON_512_COST,
+                        jax_cpu_lin_iters=POISSON_STANDARD_CG_ITERS)
+        log(json.dumps(line))
+        faults = []
+        for r, c in zip(ranks, cases):
+            applies = sum(c["applies"])
+            # the standard loop applies once an iteration, LM also once a reset
+            standard = ip.get("cg_variant") == "standard"
+            want_applies = sum(it + (it // RESET_PERIOD if kind == "LMGPU" else 0)
+                               for it in c["iterations"]) if standard else applies
+            if (c["cost"], c["lin"], c["costs"]) != (first["cost"], first["lin"], first["costs"]):
+                faults.append(f"rank {r['rank']} parts from rank 0")
+            if c["fused_fallback"] is not None or not c["kernel"] or c["cg_calls"] != c["steps"]:
+                faults.append(f"rank {r['rank']}: fallback {c['fused_fallback']}, kernel "
+                              f"{c['kernel']}, {c['cg_calls']} sharded calls for {c['steps']} steps")
+            if c["tile_kernel_launches"] != applies or applies != want_applies:
+                faults.append(f"rank {r['rank']}: {c['tile_kernel_launches']} tile launches, "
+                              f"{applies} applies, {want_applies} expected")
+            if not c["unknowns_ok"]:
+                faults.append(f"rank {r['rank']}: unknowns not finite of the global shape")
+        if rel > GOLDEN_RTOL:
+            faults.append(f"cost {first['cost']} against the single-device {want_cost}")
+        if abs(first["lin"] - want_lin) > SHARDED_ITER_RTOL * want_lin:
+            faults.append(f"{first['lin']} CG iterations against the single-device {want_lin}")
+        if name == "poisson" and (
+                abs(first["cost"] - JAX_CPU_POISSON_512_COST) > GOLDEN_RTOL * JAX_CPU_POISSON_512_COST
+                or abs(first["lin"] - POISSON_STANDARD_CG_ITERS)
+                > SHARDED_ITER_RTOL * POISSON_STANDARD_CG_ITERS):
+            faults.append(f"{first['cost']} after {first['lin']} CG iterations against the JAX "
+                          f"CPU's {JAX_CPU_POISSON_512_COST} after {POISSON_STANDARD_CG_ITERS}")
+        if faults:
+            raise RuntimeError(f"sharded {label}: " + "; ".join(faults))
+        launches[label] = sum(c["tile_kernel_launches"] for c in cases)
+    log(json.dumps({"sharded_wait_s": time.perf_counter() - t0}))
+    return ranks, launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phases = {}  # seconds of each phase of this run
@@ -1513,6 +1829,14 @@ def main() -> int:
                if v[0] != (40 if k[1] else 32)}
     if off_cap:  # the caps of __launch_bounds__: 8 blocks per SM, the remainder 6
         raise RuntimeError(f"instances off their register cap: {off_cap}")
+    # the sharded main paths (3b): 2x2 ranks on the card, the tile kernel
+    # (K5), started as soon as the library is built and read after the
+    # goldens, beside every check and solve of this process but the timings
+    log("sharded solves: 4 ranks started by the spawn method, a 2x2 mesh under gloo, all "
+        "four on the one card (NCCL refuses two ranks on one device), beside this process's "
+        "checks and solves; their times are of four ranks sharing one card, not a scaling "
+        "figure")
+    sharded = start_sharded(SHARDED_CASES)
 
     phases["start_and_build"] = time.perf_counter() - t_start - sum(phases.values())
     # 2. each kernel form against its twin at the main paths' shapes
@@ -1675,16 +1999,23 @@ def main() -> int:
     log(f"poisson {n}x{n}x4 x{BATCH_POISSON_B}: {pbatch[0]['F'].shape[1]} fields a system")
     batch_checks(f"poisson{n}x4 x{BATCH_POISSON_B}", pbatch, 50, 2000, single=False)
 
+    # K5, the sharded solve's per-tile apply, on the four tiles of a 2x2
+    # split: bitwise against its twin and the whole grid's apply
+    err_k5 = tile_checks(f"poisson{n}x4", meta)
+    tile_checks(f"image_warping{IW_N}x3", mmeta)
+    tile_checks(f"radius2 {n}x{n}", system(radius2_spec, _grid(n), radius2_inputs(n))[0])
+    tile_checks(f"poisson{n}x4 bfloat16", pbf[0])
+
     phases["kernel_checks"] = time.perf_counter() - t_start - sum(phases.values())
     # 3. the main paths through the public API, each with the launch counts
     # set to 0 just before it and read just after
-    _res, l_poisson, _p = main_path(f"poisson{n}x4 GN 1x2000", poisson_image_editing,
-                                    "gaussNewtonGPU", _grid(n), inputs, 1, 2000,
-                                    JAX_CPU_POISSON_512_COST, {"X": (n, n, 4)})
-    runs = {}
+    res_poisson, l_poisson, _p = main_path(f"poisson{n}x4 GN 1x2000", poisson_image_editing,
+                                           "gaussNewtonGPU", _grid(n), inputs, 1, 2000,
+                                           JAX_CPU_POISSON_512_COST, {"X": (n, n, 4)})
+    runs, iw_res = {}, {}
     for (nn, kind, nl, li), want in JAX_CPU_IMAGE_WARPING_COSTS.items():
         label = f"image_warping{nn} {'LM' if kind == 'LMGPU' else 'GN'} {nl}x{li}"
-        _r, runs[(nn, kind)], _p = main_path(
+        iw_res[(nn, kind)], runs[(nn, kind)], _p = main_path(
             label, image_warping, kind, _grid(nn), iw_in if nn == IW_N else iw_big_in, nl, li,
             want, {"Offset": (nn, nn, 2), "Angle": (nn, nn, 1)})
     _r, l_arap = graph_main_path("arap36k", arap_dims, arap_in, "gn")
@@ -1714,8 +2045,15 @@ def main() -> int:
     _r, l_batch = batched_curve_main_path(curve_truths, curve_in)
     l_pbatch = batched_poisson_main_path(pbatch_in)
     l_sched = scheduled_main_path()
+    # the single-device solve the sharded auto-policy case is held to
+    res_auto, _l, _p = main_path(
+        f"image_warping{IW_N} LM 8x400 chronopoulos_gear block_jacobi", image_warping, "LMGPU",
+        _grid(IW_N), iw_in, 8, 400, None, {"Offset": (IW_N, IW_N, 2), "Angle": (IW_N, IW_N, 1)},
+        form="lm_cs_bj", ip=CS_BJ)
 
     phases["main_paths"] = time.perf_counter() - t_start - sum(phases.values())
+    single = {SHARDED_CASES[0][0]: res_poisson, SHARDED_CASES[1][0]: iw_res[(IW_N, "gaussNewtonGPU")],
+              SHARDED_CASES[2][0]: iw_res[(IW_N, "LMGPU")], SHARDED_CASES[3][0]: res_auto}
     cases = medium_inputs()
     for name, (spec, kind, nl, li, golden) in MEDIUM_GOLDENS.items():
         fused_cg.reset_launch_counts()
@@ -1742,10 +2080,15 @@ def main() -> int:
                     "golden": golden, "rel_diff": abs(r.final_cost - golden) / golden}))
     float64_witness(label, spec, kind, mdims, minputs, nl, li, JAX_CPU_SFS_MEDIUM_F64_COSTS, nl)
     phases["goldens"] = time.perf_counter() - t_start - sum(phases.values())
+    _ranks, l_k5 = sharded_main_paths(
+        sharded, {k: (r.final_cost, r.num_linear_iterations) for k, r in single.items()}, gpu)
+    phases["sharded_main_paths_after_goldens"] = (time.perf_counter() - t_start
+                                                  - sum(phases.values()))
     phase_s = time.perf_counter() - t_start
 
     # 4. times on the card
     t_gn = time_pair(f"poisson{n}x4", meta, b, pre, gpu)
+    t_k5 = time_tile_apply(f"poisson{n}x4", meta, gpu)
     t_mixed = time_pair(f"image_warping{IW_N}x3", mmeta, mb, mpre, gpu)
     t_lm = time_pair(f"image_warping{IW_N}x3", vmeta, vb, vpre, gpu, vlm)
     t_k6 = time_pair(f"image_warping{IW_BIG_N}x3", gmeta, gb, gpre, gpu, reps=2)
@@ -1809,17 +2152,12 @@ def main() -> int:
         dict(curve_in), nIterations=BATCH_NL, lIterations=BATCH_LI), gpu)
     phases["timings_and_profiles"] = time.perf_counter() - t_start - sum(phases.values())
 
-    def entry(name, replaces, launches, err, timing):
+    def entry(name, replaces, launches, err, timing, source=KERNEL_SOURCE):
         ms, plain, bound_ms, bound_by = timing
-        return {"name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": replaces,
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
-    bounds = []
-    for row, shape in ROWS_TO_PORT:
-        ms, by = cg_bound(shape, 1)
-        bounds.append({"row": row, "bound_ms_per_cg_iter": ms, "bound_by": by})
-    log(json.dumps({"bounds_to_port": bounds}))
     # K1 (h)'s bound of one iteration of every system at the bench's batched
     # shape and at 4 x laplacian 16x16
     k1h = {}
@@ -1837,9 +2175,13 @@ def main() -> int:
     # case) and on the two meshes, and the variants' other instances, are
     # checked and timed above; image_warping's LM variant solves above are
     # their main paths; optical_flow's and intrinsic's solves are K1
-    # variant a's further main paths
+    # variant a's further main paths. K5's ms, plain_ms and bound_ms are of
+    # one apply of a tile (no PyTorch call applies a per-point-coefficient
+    # stencil: library_ms null), its launches those of the sharded poisson
+    # solve; the sharded image_warping solves are its further main paths
     log(json.dumps({"main_path_launches": {"optical_flow": l_flow, "intrinsic": l_intr,
-                                           "poisson_batched": l_pbatch, "scheduled": l_sched}}))
+                                           "poisson_batched": l_pbatch, "scheduled": l_sched,
+                                           "sharded_tile_apply": l_k5}}))
     log(json.dumps({"command_s": time.perf_counter() - t_start,
                     "checks_and_main_paths_s": phase_s, "phases_s": phases}))
     log(f"gpu: {gpu}")
@@ -1868,6 +2210,10 @@ def main() -> int:
               f"poisson {SPLIT_N}x{SPLIT_N}x4", K2, l_split["gn_multi"], err_split, t_split),
         entry(f"fused_grid_cg LM, a batch axis: {BATCH_B} curve-fit systems side by side, a "
               "block each (K1 (h))", K1H, l_batch["lm_batch"], err_batch, t_batch),
+        entry(f"tile_apply, one rank's part of the sharded apply (K5), poisson {n}x{n}x4 on "
+              f"{MESH_SHAPE[0]}x{MESH_SHAPE[1]} ranks; launches summed over the four ranks, ms "
+              "of one apply of a 256x256 tile", K5, l_k5[SHARDED_CASES[0][0]], err_k5, t_k5,
+              source=K5_SOURCE),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,12 @@ Exclusion follows the reference kernels: excluded unknowns have their rows
 masked out of JᵀF, the diagonal and JᵀJ·p, and their residuals out of the
 cost, but residual instances centered at excluded pixels still feed the
 gradients of active unknowns.
+
+Under a mesh of ranks (``parallel/mesh.py``) a set works on its rank's
+extended region and is given the rank's ``ShardingRules`` as its
+``window``: the cost sums then take the residual centres in the rank's
+tile only, in float64, and add the ranks' sums in one all_reduce. Every
+other operator is per point and is read on the tile by the solver.
 """
 
 from __future__ import annotations
@@ -56,8 +62,9 @@ def tree_dot(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]) -> torch.Te
 class FunctionSet:
     """Per-(problem, bound-constants) operator bundle used by the solver."""
 
-    def __init__(self, compiled: CompiledProblem, consts, graphs, params):
+    def __init__(self, compiled: CompiledProblem, consts, graphs, params, window=None):
         self.c = compiled
+        self.window = window  # ShardingRules: cost sums over the owned tile
         self.consts = consts
         self.graphs = graphs
         self.params = params
@@ -80,14 +87,17 @@ class FunctionSet:
 
     # -- costs ---------------------------------------------------------------
     def _masked_half_sq_sum(self, terms: List[torch.Tensor], excl) -> torch.Tensor:
+        win = self.window
         total = None
         for term, val in zip(self.c.terms, terms):
             sq = val * val
             m = self.c.term_cost_mask(term, excl)
             if m is not None:
                 sq = sq * (1.0 - m)  # m: 1.0 = excluded center
-            s = torch.sum(sq)
+            s = torch.sum(sq) if win is None else win.owned_sum(sq)
             total = s if total is None else total + s
+        if win is not None:
+            total = win.mesh.all_reduce_sum(total).to(self.c.dtype)
         return 0.5 * total
 
     def cost(self, X) -> torch.Tensor:

@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels at first use.
 
 ``nvcc`` compiles ``csrc/fused_grid_cg.cu`` (every instance of the fused
-CG kernel) into one shared library with a plain C interface, bound with
-``ctypes``. The library goes to ``build/opt_tpu_torch/`` at the repository
+CG kernel) and ``csrc/tile_apply.cu`` (the sharded solve's per-tile apply)
+into one shared library with a plain C interface, bound with ``ctypes``. The library goes to ``build/opt_tpu_torch/`` at the repository
 root, named by a hash of the sources and flags, so an edited source rebuilds
 and an unchanged one loads the cached library. Nothing here runs on
-``import opt_tpu_torch``.
+``import opt_tpu_torch``. The ranks of a sharded solve load a library built
+beforehand (``python -m opt_tpu_torch.ops._build``, or any call that
+builds it) and never start ``nvcc`` themselves.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("fused_grid_cg.cu",)
+SOURCES = ("fused_grid_cg.cu", "tile_apply.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "opt_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -49,9 +51,11 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def build_library() -> dict:
+def build_library(build: bool = True) -> dict:
     """Compile the sources if their hash has no library yet. Returns
-    {path, built, seconds, log} (log: nvcc's output, -Xptxas -v included)."""
+    {path, built, seconds, log} (log: nvcc's output, -Xptxas -v included).
+    ``build=False`` raises instead of compiling where the library is
+    missing."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     digest = _source_hash()
     lib = BUILD_DIR / f"libopt_tpu_torch_{digest}.so"
@@ -59,6 +63,11 @@ def build_library() -> dict:
     if lib.exists():
         return {"path": lib, "built": False, "seconds": 0.0,
                 "log": log.read_text() if log.exists() else ""}
+    if not build:
+        raise RuntimeError(
+            f"the kernel library {lib.name} is not built: build it before starting the "
+            "ranks (python -m opt_tpu_torch.ops._build)"
+        )
     tmp = BUILD_DIR / f".tmp_{os.getpid()}_{lib.name}"
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
     t0 = time.perf_counter()
@@ -102,13 +111,14 @@ def instance_registers(log: str) -> dict:
     return regs
 
 
-def load_library() -> ctypes.CDLL:
-    """The kernels' shared library, built if needed, with its functions'
-    ``argtypes``/``restype`` declared."""
+def load_library(build: bool = True) -> ctypes.CDLL:
+    """The kernels' shared library, built if needed (``build=False``: raise
+    where it is missing), with its functions' ``argtypes``/``restype``
+    declared."""
     lib = _LOADED.get("lib")
     if lib is not None:
         return lib
-    info = build_library()
+    info = build_library(build)
     lib = ctypes.CDLL(str(info["path"]))
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # lm, rem, cs, block, bf16, form (0 one system, 1 multi, 2 batch), threads, out
@@ -127,6 +137,17 @@ def load_library() -> ctypes.CDLL:
         i32, i32, vp,  # grid, threads, stream
     ]
     lib.fused_grid_cg_launch.restype = i32
+    lib.tile_apply_launch.argtypes = [
+        i32, vp, vp, vp, vp, vp,  # bf16, F, p_ext, out, triples, starts
+        i32, i32, i32, i32, i32, i32,  # n_triples, C, th, tw, ah, aw
+        vp,  # stream
+    ]
+    lib.tile_apply_launch.restype = i32
     _LOADED["lib"] = lib
     _LOADED["info"] = info
     return lib
+
+
+if __name__ == "__main__":
+    built = build_library()
+    print(f"{'built' if built['built'] else 'cached'} {built['path']} in {built['seconds']:.1f} s")

@@ -355,7 +355,7 @@ def safe_div(num, den, guard_div: bool):
 
 def _run_cg(b, apply, prec, dot, lits: int, tol: float, *, guard_div: bool,
             reset_period: Optional[int] = None, q_tol: Optional[float] = None,
-            cs: bool = False, trace: Optional[list] = None):
+            cs: bool = False, trace: Optional[list] = None, dots=None):
     """The shared PCG loop over abstract ``apply``/``prec``/``dot`` (vectors
     are tensors or dicts of tensors). With ``reset_period`` it runs the LM
     body (``apply`` then includes + CtC·p): r = b − A·δ every
@@ -365,8 +365,13 @@ def _run_cg(b, apply, prec, dot, lits: int, tol: float, *, guard_div: bool,
     Returns (delta, iterations executed). The host reads one flag per
     iteration to exit, so exits and counts match the on-device loop
     exactly. A ``trace`` list receives (l, rᵀz, floor, ζ or None) after
-    each iteration."""
+    each iteration. ``dots`` maps a list of (x, y) pairs to their dots, as
+    ``dot`` one by one does by default: the dots taken at one point of an
+    iteration (LM's rᵀz and Q; the Chronopoulos–Gear γ, δ and Q) go to it
+    together, so a sharded loop reduces them in one all_reduce."""
     lm = reset_period is not None
+    if dots is None:
+        dots = lambda pairs: [dot(x, y) for x, y in pairs]  # noqa: E731
     if lm and int(reset_period) < 1:
         raise ValueError(f"residual_reset_period must be >= 1, got {reset_period}")
     r = b
@@ -375,7 +380,7 @@ def _run_cg(b, apply, prec, dot, lits: int, tol: float, *, guard_div: bool,
     floor = tol * rz
     lits = int(lits)
     if cs:
-        return _run_cs(b, apply, prec, dot, lits, floor, rz, guard_div=guard_div,
+        return _run_cs(b, apply, prec, dots, lits, floor, rz, guard_div=guard_div,
                        reset_period=reset_period, q_tol=q_tol, trace=trace)
     delta = _zeros_like(b)
     Q0 = torch.zeros_like(rz)
@@ -390,14 +395,17 @@ def _run_cg(b, apply, prec, dot, lits: int, tol: float, *, guard_div: bool,
         else:
             r = _lin(-alpha, Ap, r)
         z = prec(r)
-        rz_new = dot(z, r)
+        if lm:
+            rz_new, q = dots([(z, r), (delta, _lin(1.0, r, b))])
+        else:
+            rz_new = dot(z, r)
         beta = safe_div(rz_new, rz, guard_div)
         p = _lin(beta, p, z)
         rz = rz_new
         l += 1
         zeta = None
         if lm:
-            Q1 = 0.5 * dot(delta, _lin(1.0, r, b))  # t:478-481
+            Q1 = 0.5 * q  # t:478-481
             zeta = (l * (Q1 - Q0)) / Q1
             stop = (zeta < q_tol) | (rz_new <= floor)
             Q0 = Q1
@@ -410,7 +418,7 @@ def _run_cg(b, apply, prec, dot, lits: int, tol: float, *, guard_div: bool,
     return delta, l
 
 
-def _run_cs(b, apply, prec, dot, lits: int, floor, rz0, *, guard_div: bool,
+def _run_cs(b, apply, prec, dots, lits: int, floor, rz0, *, guard_div: bool,
             reset_period=None, q_tol=None, trace=None):
     """Chronopoulos–Gear (the JAX package's gn_cs_body / lm_cs_body and
     cs_pipeline): u = M⁻¹r, w = A·u, γ = ⟨r, u⟩ and δ = ⟨u, w⟩ (and under LM
@@ -420,7 +428,8 @@ def _run_cs(b, apply, prec, dot, lits: int, floor, rz0, *, guard_div: bool,
     The rᵀz floor (LM: or ζ = l·(Q − Q0)/Q < q_tol) is tested before the
     update, from the second iteration on, and stops the loop with that
     iteration uncounted; a denominator ≤ 0 stops it after the update.
-    Under LM, r = b − A·δ after each ``reset_period``-th counted update."""
+    Under LM, r = b − A·δ after each ``reset_period``-th counted update.
+    ``dots`` as in :func:`_run_cg`: an iteration's dots go to it at once."""
     lm = reset_period is not None
     r = b
     delta, p, s = _zeros_like(b), _zeros_like(b), _zeros_like(b)
@@ -431,12 +440,12 @@ def _run_cs(b, apply, prec, dot, lits: int, floor, rz0, *, guard_div: bool,
     while l < lits:
         u = prec(r)
         w = apply(u)
-        gamma_new = dot(r, u)
-        delta_d = dot(u, w)
+        pairs = [(r, u), (u, w)] + ([(delta, _lin(1.0, r, b))] if lm else [])
+        gamma_new, delta_d, *q = dots(pairs)
         first = l == 0
         zeta = None
         if lm:
-            Q = 0.5 * dot(delta, _lin(1.0, r, b))
+            Q = 0.5 * q[0]
             zeta = (l * (Q - Q0)) / Q
             stop = (gamma_new <= floor) | (zeta < q_tol)
         else:

@@ -1,0 +1,210 @@
+"""The PCG loop of a 2-D grid operator sharded over a 2-D mesh of ranks:
+the counterpart of ``opt_tpu/ops/pallas_cg.py::sharded_fused_grid_cg``.
+
+Each rank holds a tile [C, th, tw] of every CG vector and the tile of the
+operator's fields. An iteration extends the search direction by the
+stencil's halo from the neighbouring tiles (two P2P phases,
+``parallel/mesh.py::Mesh.extend``: rows, then columns of the row-extended
+tile, so the corners come along), applies the operator to the tile
+(:func:`tile_apply`: the CUDA kernel ``csrc/tile_apply.cu`` on the card,
+its plain twin :func:`tile_apply_reference` on the CPU), and reduces its
+dots over the mesh in one float64 all_reduce per point of the iteration.
+The loop algebra is ``fused_cg._run_cg``, the one driver of the
+single-device twin, so the exits and the counted iterations are those of
+the single-device loop up to the dots' summation order. Unlike the
+single-device kernel, the loop is on the host here: one apply launch an
+iteration, the vector updates in PyTorch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, Optional
+
+import torch
+
+from .fused_cg import (
+    CG_VARIANTS,
+    MAX_CHANNELS,
+    MAX_TRIPLES,
+    _block_prec,
+    _run_cg,
+    pack,
+    pack_pre_blocks,
+)
+
+
+def halo_widths(triples):
+    """(ah, aw): the largest |offset| of the triples along each axis."""
+    ah = max((abs(d[0]) for d, *_ in triples), default=0)
+    aw = max((abs(d[1]) for d, *_ in triples), default=0)
+    return ah, aw
+
+
+def tile_apply_reference(F, triples, p_ext, ah: int, aw: int):
+    """out[i] = Σ_t F[fid_t] · p_ext[j_t] read at (ah + dx_t, aw + dy_t) of
+    the halo-extended tile p_ext [C, th + 2ah, tw + 2aw], by static slices,
+    summed in the triples' order for each output channel (a bfloat16 F is
+    widened exactly and multiplied in float32). Returns [C, th, tw]: the
+    plain twin of the CUDA kernel."""
+    th, tw = int(F.shape[1]), int(F.shape[2])
+    acc = [None] * int(p_ext.shape[0])
+    sliced = {}
+    for (dx, dy), i, j, fid in triples:
+        pk = sliced.get((dx, dy, j))
+        if pk is None:
+            pk = p_ext[j, ah + dx:ah + dx + th, aw + dy:aw + dy + tw]
+            sliced[(dx, dy, j)] = pk
+        t = F[fid].float() * pk
+        acc[i] = t if acc[i] is None else acc[i] + t
+    zeros = p_ext.new_zeros((th, tw))
+    return torch.stack([a if a is not None else zeros for a in acc])
+
+
+@functools.lru_cache(maxsize=32)
+def _device_table(triples, C: int, device):
+    """The triples sorted stably by output channel as int32 rows (dx, dy, j,
+    fid), and the per-channel row starts [C + 1], on the device; cached by
+    value (the same every CG iteration)."""
+    rows = sorted(triples, key=lambda t: t[1])
+    starts = [0] * (C + 1)
+    for _d, i, _j, _f in rows:
+        starts[i + 1] += 1
+    for c in range(C):
+        starts[c + 1] += starts[c]
+    flat = [(int(d[0]), int(d[1]), int(j), int(f)) for d, _i, j, f in rows]
+    return (torch.tensor(flat, dtype=torch.int32).reshape(-1, 4).to(device),
+            torch.tensor(starts, dtype=torch.int32).to(device))
+
+
+def tile_apply_kernel(F, triples, p_ext, ah: int, aw: int):
+    """Launch the CUDA kernel (``csrc/tile_apply.cu``) on CUDA tensors: F
+    [T, th, tw] float32 or bfloat16, p_ext [C, th + 2ah, tw + 2aw] float32.
+    Returns out [C, th, tw]; does not synchronise. Each launch adds one to
+    ``tile_apply_kernel.launches``. A kernel that does not build or launch
+    raises."""
+    import torch.distributed as dist
+
+    from ._build import load_library
+
+    if p_ext.device.type != "cuda" or F.device != p_ext.device:
+        raise ValueError(f"tile_apply_kernel needs CUDA tensors on one device, got "
+                         f"{F.device} and {p_ext.device}")
+    if F.dtype not in (torch.float32, torch.bfloat16) or p_ext.dtype != torch.float32:
+        raise ValueError(f"tile_apply_kernel takes float32 or bfloat16 fields and a float32 "
+                         f"p, got {F.dtype} and {p_ext.dtype}")
+    if F.dim() != 3 or p_ext.dim() != 3:
+        raise ValueError(f"tile_apply_kernel takes F [T, th, tw] and p_ext [C, rows, cols], "
+                         f"got {tuple(F.shape)} and {tuple(p_ext.shape)}")
+    C, th, tw = int(p_ext.shape[0]), int(F.shape[1]), int(F.shape[2])
+    if tuple(p_ext.shape) != (C, th + 2 * ah, tw + 2 * aw):
+        raise ValueError(f"tile_apply_kernel: p_ext {tuple(p_ext.shape)} is not the tile "
+                         f"{(th, tw)} of F {tuple(F.shape)} extended by ({ah}, {aw})")
+    if not (0 < len(triples) <= MAX_TRIPLES and C <= MAX_CHANNELS):
+        raise ValueError(f"tile_apply_kernel takes up to {MAX_TRIPLES} triples and "
+                         f"{MAX_CHANNELS} channels, got {len(triples)} and {C}")
+    if any(not (0 <= f < F.shape[0] and 0 <= i < C and 0 <= j < C and abs(d[0]) <= ah
+                and abs(d[1]) <= aw) for d, i, j, f in triples):
+        raise ValueError("tile_apply_kernel: a triple's field, channel or offset is out of range")
+    if p_ext.numel() >= 2**31 or F.numel() >= 2**31:
+        raise ValueError("tile_apply_kernel indexes with int32: tile too large")
+    F, p_ext = F.contiguous(), p_ext.contiguous()
+    # the ranks of a world load the library their launcher built
+    alone = not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1
+    lib = load_library(build=alone)
+    table, starts = _device_table(tuple(triples), C, p_ext.device)
+    out = torch.empty((C, th, tw), dtype=torch.float32, device=p_ext.device)
+    with torch.cuda.device(p_ext.device):
+        err = lib.tile_apply_launch(
+            int(F.dtype == torch.bfloat16), ctypes.c_void_p(F.data_ptr()),
+            ctypes.c_void_p(p_ext.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(table.data_ptr()), ctypes.c_void_p(starts.data_ptr()),
+            len(triples), C, th, tw, int(ah), int(aw),
+            ctypes.c_void_p(torch.cuda.current_stream(p_ext.device).cuda_stream),
+        )
+    if err != 0:
+        raise RuntimeError(f"tile_apply kernel launch failed: CUDA error {err}")
+    tile_apply_kernel.launches += 1
+    return out
+
+
+tile_apply_kernel.launches = 0
+
+
+def reset_launch_counts() -> None:
+    """Set the tile kernel's launch count to 0."""
+    tile_apply_kernel.launches = 0
+
+
+def tile_apply(F, triples, p_ext, ah: int, aw: int):
+    """The per-tile apply: the CUDA kernel on CUDA tensors, the plain twin
+    on CPU tensors; any other device raises."""
+    if p_ext.device.type == "cuda":
+        return tile_apply_kernel(F, triples, p_ext, ah, aw)
+    if p_ext.device.type == "cpu":
+        return tile_apply_reference(F, triples, p_ext, ah, aw)
+    raise ValueError(f"tile_apply runs on CPU (plain twin) or CUDA (kernel) tensors, "
+                     f"not {p_ext.device}")
+
+
+def sharded_fused_grid_cg(meta: Dict, mesh, r0, pre, l_iterations, rz_tolerance, *,
+                          guard_div: bool = True, interpret: bool = False, ctc=None,
+                          reset_period=None, q_tolerance=None, pre_blocks=None,
+                          cg_variant: str = "standard", stats: Optional[list] = None):
+    """Run the PCG loop of this rank's tile: ``meta`` is a fused-CG meta of
+    a 2-D grid whose F is the tile's fields [T, th, tw]; r0, pre and ctc
+    are dicts of [th, tw, C_u] tiles, pre_blocks [th, tw, C, C]; ``mesh``
+    the rank's :class:`~opt_tpu_torch.parallel.mesh.Mesh`. The keywords
+    are ``fused_cg.fused_grid_cg``'s: ``ctc`` runs the LM loop, whose
+    residual reset A·δ goes through the same halo; ``cg_variant`` picks
+    Chronopoulos–Gear, ``pre_blocks`` the block preconditioner. The apply
+    is :func:`tile_apply` (``interpret``: the twin on every device). Every
+    rank of the mesh must call it together. Returns (delta dict of tiles,
+    iterations as a 0-dim int32 tensor); a ``stats`` list receives
+    {iterations, applies, kernel, all_reduce, p2p_phases} of the call."""
+    if cg_variant not in CG_VARIANTS:
+        raise ValueError(f"cg_variant must be one of {CG_VARIANTS}, got {cg_variant!r}")
+    if meta.get("rem") is not None or meta.get("chan_grid") or meta.get("batch"):
+        raise ValueError("sharded_fused_grid_cg takes a joint 2-D grid operator: no graph "
+                         "remainder, no per-channel split, no batch")
+    F = meta["F"]
+    if F.dim() != 3:
+        raise ValueError(f"sharded_fused_grid_cg takes 2-D grid fields [T, th, tw], got "
+                         f"{tuple(F.shape)}")
+    triples = tuple(meta["triples"])
+    ah, aw = halo_widths(triples)
+    b = pack(r0, meta)
+    prec_m = _block_prec(pack_pre_blocks(pre_blocks, meta)) if pre_blocks is not None else None
+    prem = pack(pre, meta) if pre_blocks is None else None
+    ctcm = pack(ctc, meta) if ctc is not None else None
+    kernel = not interpret and b.device.type == "cuda"
+    Fa = F if kernel else F.float()
+    op = tile_apply_reference if interpret else tile_apply
+    applies = [0]
+    before = dict(mesh.counts)
+
+    def apply(p):
+        pe = mesh.extend(mesh.extend(p, ah, 0), aw, 1)
+        out = op(Fa, triples, pe, ah, aw)
+        applies[0] += 1
+        return out if ctcm is None else out + ctcm * p
+
+    prec = prec_m or (lambda r: prem * r)
+    lm = ctc is not None
+    if lm and (reset_period is None or q_tolerance is None):
+        raise ValueError("the LM loop needs reset_period and q_tolerance")
+    delta, l = _run_cg(
+        b, apply, prec, mesh.all_reduce_dot, l_iterations, rz_tolerance, guard_div=guard_div,
+        reset_period=reset_period if lm else None, q_tol=q_tolerance if lm else None,
+        cs=cg_variant == "chronopoulos_gear", dots=mesh.all_reduce_dots,
+    )
+    if stats is not None:
+        stats.append({"iterations": l, "applies": applies[0], "kernel": kernel,
+                      **{k: mesh.counts[k] - before[k] for k in before}})
+    packed = delta.movedim(0, -1)
+    out = {}
+    for u in meta["u_list"]:
+        o = meta["offs"][u]
+        out[u] = packed[..., o:o + meta["channels"][u]]
+    return out, torch.tensor(l, dtype=torch.int32, device=b.device)

@@ -9,6 +9,13 @@ The plan runs on the card: ``plan(...)`` places every input and all solver
 state on CUDA and raises where CUDA is absent. A caller who wants the CPU
 asks for it with ``plan(..., device="cpu")``; the port never falls back to
 the CPU by itself.
+
+``plan(..., mesh=make_mesh(...))`` (``parallel/mesh.py``) shards a 2-D grid
+problem as spatial tiles over a 2-D mesh of ``torch.distributed`` ranks:
+every rank plans, binds the same global inputs and solves together with the
+others; each compiles the problem at the dims of its extended region (its
+tile plus the stencil's reach), and ``solve`` returns the global unknowns
+on every rank.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import torch
 
 from .compile import CompiledProblem, compile_spec
 from .ops import fused_cg, graph_ops
+from .parallel.mesh import ShardingRules, grid_reach
 from .solver.gauss_newton import GaussNewtonSolver
 from .solver.params import InitializationParameters, normalize_solver_params
 from .spec import UNKNOWN, SpecError
@@ -135,6 +143,40 @@ def graph_group_tables(idxs, names, n: int, device, dtype, max_offsets: int) -> 
     return out
 
 
+def _refuse_under_mesh(compiled: CompiledProblem, double_precision: bool) -> None:
+    """What a mesh cannot take yet raises, naming its ROADMAP.md item: the
+    sharded plan tiles one 2-D grid index space in float32."""
+    reg = compiled.registry
+    if reg.graphs:
+        raise NotImplementedError(
+            "a mesh on a graph spec is not ported yet: the owner-block exchange and "
+            "_reorder_edges (ROADMAP.md queue 1 item 8b)"
+        )
+    spaces = {d.ispace for d in reg.images.values()}
+    isp = next(iter(spaces)) if len(spaces) == 1 else None
+    if isp is None or isp.ndim != 2 or isp.dims[0] == isp.dims[1]:
+        raise NotImplementedError(
+            f"a mesh tiles one 2-D grid index space, this spec has {sorted(map(repr, spaces))}: "
+            "3-D tiles and several index spaces are not ported yet (ROADMAP.md queue 1 item 8c)"
+        )
+    reads = sorted(k for k, v in reg.reads.items() if v)
+    if reads:
+        raise NotImplementedError(
+            f"a mesh on a spec that reads {', '.join(reads)} is not ported yet: Index needs "
+            "the tile's global origin, a SampledImage reads outside any halo and a "
+            "ComputedArray's reach is not recorded (ROADMAP.md queue 1 item 8d)"
+        )
+    if double_precision:
+        raise NotImplementedError(
+            "a float64 plan on a mesh is not ported yet: the sharded loop is float32 "
+            "(ROADMAP.md queue 1 item 8e)"
+        )
+
+
+def _mesh_not_ported(what: str):
+    return NotImplementedError(f"{what} on a mesh is not ported yet (ROADMAP.md queue 1 item 8e)")
+
+
 def resolve_device(device) -> torch.device:
     """The plan's device: CPU or CUDA, checked, never chosen implicitly."""
     dev = torch.device(device)
@@ -166,6 +208,7 @@ class SolveResult:
     num_iterations: int
     wall_time_s: float
     num_linear_iterations: int = 0  # PCG iterations actually executed
+    fused_fallback: Optional[str] = None  # Plan.fused_fallback after the solve
 
 
 class Problem:
@@ -188,14 +231,12 @@ class Problem:
         **solver_params,
     ) -> "Plan":
         """Compile for concrete sizes on ``device``, the card unless the
-        caller asks for the CPU (Opt_ProblemPlan). ``mesh`` (several
-        devices) and ``dynamic_topology=True`` take the reference's
-        keywords and are not ported yet: they raise."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (a solve sharded over several devices) is not ported yet "
-                "(ROADMAP.md queue 1 item 8)"
-            )
+        caller asks for the CPU (Opt_ProblemPlan). ``mesh``
+        (``parallel.make_mesh``) of several ranks shards a 2-D grid spec
+        over them: this rank's plan, on the mesh's device, which must be
+        of the kind ``device`` names; a 1x1 mesh is the single-device plan.
+        A mesh on what it cannot take yet, and ``dynamic_topology=True``,
+        raise ``NotImplementedError`` naming their ROADMAP.md item."""
         if dynamic_topology:
             raise NotImplementedError(
                 "dynamic_topology=True is not ported yet (ROADMAP.md queue 1 item 4)"
@@ -207,18 +248,33 @@ class Problem:
         dev = resolve_device(device)
         dtype = torch.float64 if double_precision else torch.float32
         compiled = compile_spec(self.spec_fn, dims, dtype)
-        return Plan(self, compiled, kind or self.kind, init_params, solver_params, dev)
+        rules = None
+        if mesh is not None:
+            _refuse_under_mesh(compiled, double_precision)
+        if mesh is not None and mesh.size > 1:
+            if mesh.device.type != dev.type:
+                raise ValueError(f"the mesh's device is {mesh.device}, the plan asked for {dev}")
+            dev = mesh.device
+            (isp,) = {d.ispace for d in compiled.registry.images.values()}
+            rules = ShardingRules(mesh, isp.shape(compiled.dim_sizes), grid_reach(compiled))
+            region = {d.name: n for d, n in zip(isp.dims, rules.region_shape)}
+            compiled = compile_spec(self.spec_fn, dict(dims, **region), dtype)
+        return Plan(self, compiled, kind or self.kind, init_params, solver_params, dev, rules)
 
 
 class Plan:
     def __init__(self, problem, compiled: CompiledProblem, kind, init_params,
-                 solver_params, device):
+                 solver_params, device, rules: Optional[ShardingRules] = None):
         self.problem = problem
         self.compiled = compiled
         self.kind = kind
         self.device = device
         self.uses_lambda = _uses_lambda(kind)
-        self.solver = GaussNewtonSolver(compiled, self.uses_lambda, init_params)
+        # under a mesh: this rank's tile and region (compiled is the region's)
+        self.rules = rules
+        self.solver = GaussNewtonSolver(compiled, self.uses_lambda, init_params, rules)
+        if rules is not None and self.solver._stencil_plan is None:
+            raise _mesh_not_ported("the composed operator (use_fused_jtj=False)")
         self.solver_params = normalize_solver_params(solver_params)
         self._state = None
         self._bound = None  # (consts, graphs, params)
@@ -242,7 +298,16 @@ class Plan:
         self._fused_validated = True
         if not self.solver.ip.validate_fused_jtj:
             return
-        if not self.solver.validate_assembly(unknowns, consts, graphs, params):
+        ok = self.solver.validate_assembly(unknowns, consts, graphs, params)
+        if self.rules is not None:
+            # every rank checks its region; a mesh has no fallback
+            if not self.rules.mesh.all_true(ok):
+                raise RuntimeError(
+                    "opt_tpu_torch: the assembled JtJ failed validation against the composed "
+                    "operator on a rank's region; a sharded plan has no fallback"
+                )
+            return
+        if not ok:
             print(
                 "opt_tpu_torch: the assembled JtJ failed validation against the "
                 "composed operator at the real inputs; this plan falls back to "
@@ -296,7 +361,7 @@ class Plan:
         buckets = self.__dict__.get("_leaf_buckets")
         if cache is None or set(cache) != set(inputs):
             unknowns, consts, graphs, params = self.compiled.normalize_inputs(
-                inputs, device=self.device
+                self._local_inputs(inputs), device=self.device
             )
             graphs = self._augment_incidence(graphs)
             self._leaf_cache = dict(inputs)
@@ -305,7 +370,7 @@ class Plan:
         changed = {k: v for k, v in inputs.items() if cache[k] is not v}
         if changed:
             u, c, g, p = self.compiled.normalize_inputs(
-                changed, device=self.device, partial=True
+                self._local_inputs(changed), device=self.device, partial=True
             )
             g = self._augment_incidence(g)
             for bucket, new in zip(buckets, (u, c, g, p)):
@@ -387,9 +452,34 @@ class Plan:
 
     @property
     def unknowns(self) -> Dict[str, torch.Tensor]:
+        """The unknowns (under a mesh the global arrays: every rank must
+        read them together)."""
         if self._state is None:
             raise RuntimeError("call init() first")
-        return self._restore_sentinels(self._state["X"])
+        return self._global_unknowns(self._state["X"])
+
+    def _global_unknowns(self, X):
+        """The unknowns as the caller gave them: under a mesh the tiles
+        gathered into the global arrays on every rank; ±inf markers put
+        back."""
+        if self.rules is not None:
+            X = {k: self.rules.gather(v) for k, v in X.items()}
+        return self._restore_sentinels(X)
+
+    def _local_inputs(self, inputs):
+        """Under a mesh, the region of every global image input."""
+        if self.rules is None:
+            return inputs
+        out = {}
+        for name, v in inputs.items():
+            if name in self.compiled.registry.images:
+                a = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+                if tuple(a.shape[:2]) != self.rules.dom:
+                    raise SpecError(f"image {name!r}: expected the global grid {self.rules.dom} "
+                                    f"(and channels), got {tuple(a.shape)}")
+                v = self.rules.local(a)
+            out[name] = v
+        return out
 
     def _system_at(self, inputs):
         from .functions import FunctionSet
@@ -407,6 +497,8 @@ class Plan:
         plans, ctc with the initial trust region's damping, reset_period
         and q_tolerance). pre is the row-masked preconditioner (pre_lm
         under LM); cg_meta is None where the operator does not qualify."""
+        if self.rules is not None:
+            raise _mesh_not_ported("cg_inputs")
         sp = normalize_solver_params(self.solver_params)
         unknowns, consts, graphs, params, fs = self._system_at(inputs)
         state = self.solver.init(unknowns, consts, graphs, params, sp)
@@ -511,6 +603,8 @@ class Plan:
         ``torch.func.vmap`` and runs the CG of all of them as one batched
         fused loop (one kernel launch on the card); each instance exits on
         its own. The assembled operator is validated on instance 0."""
+        if self.rules is not None:
+            raise _mesh_not_ported("solve_batched")
         sp = normalize_solver_params({**self.solver_params, **solver_param_overrides})
         unknowns, consts, graphs, params, c_axes, p_axes, restore = self._normalize_batched(inputs)
         if not self._fused_validated and self.solver._stencil_plan is not None:
@@ -547,6 +641,8 @@ class Plan:
         meta: ``"batch"`` B and F [B, T, *dom]; r0 and pre with a leading
         batch axis; the keywords of ``ops.fused_cg.fused_grid_cg``). All
         four are None where the batched operator has no fused form."""
+        if self.rules is not None:
+            raise _mesh_not_ported("batched_cg_inputs")
         sp = normalize_solver_params(self.solver_params)
         unknowns, consts, graphs, params, c_axes, p_axes, _r = self._normalize_batched(inputs)
         return self.solver.batched_cg_inputs(unknowns, consts, graphs, params, sp, c_axes, p_axes)
@@ -563,6 +659,8 @@ class Plan:
         the bound, sanitised constants (±inf clamped to finite sentinels)
         and ``i`` as a 0-dim int32 tensor on the plan's device, and returns
         constants of the same shapes and dtypes."""
+        if self.rules is not None:
+            raise _mesh_not_ported("solve_scheduled")
         sp = normalize_solver_params({**self.solver_params, **solver_param_overrides})
         unknowns, consts, graphs, params = self._normalize_and_place(inputs)
         self._validate_fused(unknowns, consts, graphs, params)
@@ -618,10 +716,11 @@ class Plan:
         self._state = state
         self._bound = (consts, graphs, params)
         return SolveResult(
-            unknowns=self._restore_sentinels(state["X"]),
+            unknowns=self._global_unknowns(state["X"]),
             final_cost=float(scalars[0]),
             costs=[float(c) for c in scalars[3:]],
             num_iterations=int(scalars[1]),
             wall_time_s=wall,
             num_linear_iterations=int(scalars[2]),
+            fused_fallback=self.fused_fallback,
         )

@@ -24,8 +24,10 @@ on the CPU) or as the eager loop of ``_run_cg`` on the assembled operator.
 A batch of instances (:meth:`GaussNewtonSolver.solve_batched`, the JAX
 package's ``_solve_fused_batched``) assembles every instance's system at
 once under ``torch.func.vmap`` and solves them by one batched CG launch a
-step. Dynamic topology and the explicit sparse-J path are not ported yet
-and raise ``NotImplementedError``.
+step. Under a mesh of ranks (``sharding_rules``: ``parallel/mesh.py``)
+each rank's solver works on its extended region and runs the sharded loop
+(ops/sharded_cg.py) on its tile. Dynamic topology and the explicit
+sparse-J path are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from ..ops.fused_cg import (
     coefficient_dtype,
     fused_grid_cg,
 )
+from ..ops.sharded_cg import sharded_fused_grid_cg
 from .params import (
     FLOAT_EPSILON,
     GuardedInvertType,
@@ -105,18 +108,26 @@ def _select(cond, new, old):
 
 
 class GaussNewtonSolver:
-    """One solver instance per compiled problem."""
+    """One solver instance per compiled problem. Under a mesh,
+    ``sharding_rules`` is the rank's ``ShardingRules`` and ``compiled`` the
+    problem at the dims of the rank's extended region."""
 
     def __init__(
         self,
         compiled: CompiledProblem,
         uses_lambda: bool,
         init_params: Optional[InitializationParameters] = None,
+        sharding_rules=None,
     ):
         self.compiled = compiled
         self.uses_lambda = bool(uses_lambda)
+        self.rules = sharding_rules
+        # the sharded loop's record of each CG call (sharded_fused_grid_cg)
+        self.cg_stats = []
         self.ip = resolve_auto_policy(
-            init_params or InitializationParameters(), 1, bool(compiled.registry.graphs)
+            init_params or InitializationParameters(),
+            sharding_rules.mesh.size if sharding_rules is not None else 1,
+            bool(compiled.registry.graphs),
         )
         if self.ip.cg_variant not in CG_VARIANTS:
             raise ValueError(f"cg_variant must be one of {CG_VARIANTS}, got {self.ip.cg_variant!r}")
@@ -144,8 +155,8 @@ class GaussNewtonSolver:
             )
         if self.ip.edge_reorder == "owner":
             raise NotImplementedError(
-                "edge_reorder='owner' (multi-device) is not ported yet "
-                "(ROADMAP.md queue 1 item 8)"
+                "edge_reorder='owner' (graphs over a mesh) is not ported yet "
+                "(ROADMAP.md queue 1 item 8b)"
             )
         if self.ip.aligned_graph_assembly:
             raise NotImplementedError(
@@ -167,7 +178,8 @@ class GaussNewtonSolver:
         if mode == "interpret":
             self._pallas_mode = "interpret"
         elif mode in (False, "off", None):
-            self._pallas_mode = None
+            # under a mesh the sharded loop is the only loop: its plain twin
+            self._pallas_mode = None if sharding_rules is None else "interpret"
         else:  # "auto", True, "on": kernel for CUDA tensors, twin for CPU
             self._pallas_mode = "auto"
 
@@ -199,9 +211,14 @@ class GaussNewtonSolver:
             file=sys.stderr,
         )
 
+    def _fs(self, consts, graphs, params) -> FunctionSet:
+        """The step's operator bundle; under a mesh its cost sums cover the
+        rank's tile and reduce over the mesh."""
+        return FunctionSet(self.compiled, consts, graphs, params, window=self.rules)
+
     # -- state -----------------------------------------------------------------
     def _init_state(self, X, consts, graphs, params, sp):
-        fs = FunctionSet(self.compiled, consts, graphs, params)
+        fs = self._fs(consts, graphs, params)
         dt = self.compiled.dtype
         device = next(iter(X.values())).device
         return {
@@ -226,8 +243,7 @@ class GaussNewtonSolver:
         """One nonlinear iteration, or the state unchanged once done."""
         if bool(state["done"]) or int(state["n_iter"]) >= sp["nIterations"]:
             return state
-        fs = FunctionSet(self.compiled, consts, graphs, params)
-        return self._step_fn(state, fs, sp)
+        return self._step_fn(state, self._fs(consts, graphs, params), sp)
 
     @property
     def _step_fn(self):
@@ -301,10 +317,12 @@ class GaussNewtonSolver:
                 asm_cache = self._asm_cache(fs, X)
             A, diag, jtf_fn, cg_meta = fs.assemble_stencil(
                 X, self._stencil_plan, asm_cache, coeff_dtype=self._coeff_dtype,
-                # a block preconditioner couples the channels, and a batch's
-                # systems are whole instances: no per-channel split
-                allow_split=not (batched or (self.ip.preconditioner == "block_jacobi"
-                                             and self.compiled.use_preconditioner)),
+                # a block preconditioner couples the channels, a batch's
+                # systems are whole instances and a mesh's loop is joint (as
+                # the JAX package's): no per-channel split
+                allow_split=not (batched or self.rules is not None
+                                 or (self.ip.preconditioner == "block_jacobi"
+                                     and self.compiled.use_preconditioner)),
             )
             r_terms = jtf_fn.r_terms
             if r_terms is None:  # every probe hoisted: evaluate residuals
@@ -403,8 +421,11 @@ class GaussNewtonSolver:
     def _cg(self, s, sp, device):
         """One linear solve of the system ``s`` (``_system``): the fused loop
         where the operator has a kernel form (with the block preconditioner
-        when there is one), else :meth:`_eager_cg`. Returns (delta,
-        iterations as a 0-dim int32 tensor)."""
+        when there is one), else :meth:`_eager_cg`; under a mesh
+        :meth:`_sharded_cg`. Returns (delta, iterations as a 0-dim int32
+        tensor)."""
+        if self.rules is not None:
+            return self._sharded_cg(s, sp)
         kw = self._fused_keywords(s)
         if (s["meta"] is not None and self._pallas_mode is not None
                 and (s["pre_apply"] is None or kw["pre_blocks"] is not None)):
@@ -414,6 +435,29 @@ class GaussNewtonSolver:
                 interpret=self._pallas_mode == "interpret", **kw,
             )
         return self._eager_cg(s, sp, device)
+
+    def _sharded_cg(self, s, sp):
+        """The linear solve of a step under a mesh: the system assembled on
+        the rank's extended region, read on its tile, solved by the sharded
+        loop with every other rank; delta comes back over the region (the
+        neighbours' in the halo), so X keeps its halo. A system the loop
+        cannot take raises: a mesh never falls back quietly."""
+        meta, rules = s["meta"], self.rules
+        kw = self._fused_keywords(s)
+        if meta is None or (s["pre_apply"] is not None and kw["pre_blocks"] is None):
+            raise RuntimeError("this step's operator has no form the sharded CG loop takes")
+        crop = lambda d: {k: rules.crop(v) for k, v in d.items()}  # noqa: E731
+        if kw.get("ctc") is not None:
+            kw["ctc"] = crop(kw["ctc"])
+        if kw["pre_blocks"] is not None:
+            kw["pre_blocks"] = rules.crop(kw["pre_blocks"])
+        delta, l = sharded_fused_grid_cg(
+            dict(meta, F=rules.crop_fields(meta["F"])), rules.mesh, crop(s["r0"]),
+            crop(s["pre"]), sp["lIterations"], sp["cg_rz_tolerance"],
+            guard_div=self.ip.guard_division_by_zero,
+            interpret=self._pallas_mode == "interpret", stats=self.cg_stats, **kw,
+        )
+        return rules.extend_region(delta), l
 
     def _eager_cg(self, s, sp, device):
         """The eager ``_run_cg`` on the system's operator (``_cg``'s
@@ -567,8 +611,7 @@ class GaussNewtonSolver:
         for _ in range(int(sp["nIterations"])):
             if bool(state["done"]):
                 break
-            fs = FunctionSet(self.compiled, consts, graphs, params)
-            state = self._step_fn(state, fs, sp, asm_cache)
+            state = self._step_fn(state, self._fs(consts, graphs, params), sp, asm_cache)
             costs.append(state["prev_cost"])
         return state, costs
 

@@ -316,11 +316,13 @@ class SpecBuilder:
         return torch.ones((), dtype=self.dtype, device=self.device)
 
     def ComputedArray(self, name: str, dims, fn: Callable[[], Any]) -> ComputedHandle:
+        self.registry.reads["ComputedArray"] = True
         return ComputedHandle(self, name, as_ispace(dims), fn)
 
     def SampledImage(self, image: ImageHandle, dx=None, dy=None) -> SampledImageHandle:
         if image.decl.ispace.ndim != 2:
             raise SpecError("sampled images must be 2D (reference o.t:2481)")
+        self.registry.reads["SampledImage"] = True
         return SampledImageHandle(self, image, dx, dy)
 
     # -- spec-level switches --------------------------------------------------
@@ -376,6 +378,7 @@ class SpecBuilder:
         return torch.ones(shape + (1,), dtype=self.dtype, device=self.device)
 
     def Index(self, axis: int, dims=None):
+        self.registry.reads["Index"] = True
         ispace = as_ispace(dims) if dims is not None else self._grid_ispace_for_ndim(None)
         shape = ispace.shape(self.dim_sizes)
         f = coordinate_field(shape, int(axis), self.dtype, device=self.device)
@@ -654,6 +657,9 @@ class SpecRegistry:
         # lists handles that fall back to inlining (nested ComputedArrays)
         self.computed_meta: Dict[str, dict] = {}
         self.computed_failed: set = set()
+        # which position-dependent constructs the spec reads (a sharded
+        # plan cannot take them yet): "Index", "SampledImage", "ComputedArray"
+        self.reads: Dict[str, bool] = {}
 
     def declare_image(self, name, channels, ispace, kind, alias=None) -> ImageDecl:
         prev = self.images.get(name)

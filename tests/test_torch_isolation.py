@@ -101,6 +101,7 @@ def test_import_and_cpu_solve_load_no_jax_and_no_kernel():
 def test_sources_import_no_jax():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|opt_tpu)\b(?!_torch)", re.M)
     files = sorted((REPO / "opt_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert {"distributed.py", "mesh.py"} <= {f.name for f in files if f.parent.name == "parallel"}
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders
 
@@ -142,10 +143,15 @@ def test_fused_grid_cg_refuses_other_devices():
                                      ({"dynamic_topology": True}, "item 4")])
 def test_plan_takes_the_reference_keywords_and_raises(kw, item):
     """Problem.plan takes ``mesh=`` and ``dynamic_topology=`` as the JAX
-    package does; a solve over several devices or a dynamic topology is not
-    ported yet and says so, naming its roadmap item."""
+    package does; a mesh on a graph spec (its item 8b: a 2-D grid plans on
+    a mesh) and a dynamic topology are not ported yet and say so, naming
+    their roadmap item."""
+    if "mesh" in kw:
+        spec, dims = tspecs.arap_mesh_deformation, {"N": 8}
+    else:
+        spec, dims = tspecs.laplacian, {"W": 8, "H": 8}
     with pytest.raises(NotImplementedError, match=item):
-        ott.Problem(tspecs.laplacian).plan(dims={"W": 8, "H": 8}, device="cpu", **kw)
+        ott.Problem(spec).plan(dims=dims, device="cpu", **kw)
 
 
 def test_plan_takes_the_default_keywords():
