@@ -5,12 +5,13 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernel (48 instances of one template: GN or LM,
+It builds the CUDA kernel (96 instances of one template: GN or LM,
 standard or Chronopoulos-Gear, Jacobi or block-Jacobi, float32 or bfloat16
-fields, each without and with the graph remainder phase, eight whose
-cooperative launch holds several independent systems in turn and eight
-whose launch holds them side by side, a block each; one library by one nvcc
-process) from opt_tpu_torch/ops/csrc and holds each form
+fields, each without and with the graph remainder phase, each in three
+forms: one system a cooperative launch, several independent systems in
+turn in one, or side by side in an ordinary launch, a block each; one unit
+a form, each by its own nvcc process, linked into one library) from
+opt_tpu_torch/ops/csrc and holds each form
 against its plain PyTorch twin at the main paths' shapes: poisson
 512x512x4 and 2048x2048x4, laplacian 512x512, image_warping's mixed-unknown
 GN system and its first LM system, each at 512x512x3 and 1024x1024x3, the
@@ -25,7 +26,13 @@ shape_from_shading's ComputedArray system at 512x512, optical_flow's at
 forms: 512 curve-fit systems and 4 laplacian 16x16 systems a block each
 (GN, LM, Chronopoulos-Gear, bfloat16), each system also against its own
 one-system launch, and 4 poisson 512x512x4 systems in turn with their own
-fields.
+fields; the batch forms with the graph remainder and the block
+preconditioner: 64 deformations of a 300-vertex random mesh and 4 of a
+40-vertex one a block each (GN, LM, Chronopoulos-Gear, bfloat16,
+block-Jacobi), the 512 curve fits under block-Jacobi, and the armadillo x4
+(GN, LM, bfloat16, block-Jacobi) and image_warping 512x512 x4 under
+block-Jacobi (GN, LM, LM Chronopoulos-Gear) in turn in one launch, each
+system also against its own one-system launch.
 It then solves, through the public API on the card, the poisson bench
 headline (512x512x4, one GN step, up to 2000 CG iterations; also by
 Chronopoulos-Gear and with bfloat16 fields), image_warping at 512x512 by GN
@@ -37,8 +44,11 @@ shape_from_shading 512x512 by GN (8x10), optical_flow through PyramidPlan
 512x512 by GN (6x30), poisson 1024x1024x4 by one GN step of up to 2000 CG
 iterations a channel (the split), 512 LM curve fits in one solve_batched
 (bench.py's batched case, LM 10x20), 4 poisson 512x512x4 instances in one
-solve_batched (GN 1x2000) and a solve_scheduled of 5 outer GN 3x15 solves at
-512x512, checks the costs against the JAX package's and each solve's one
+solve_batched (GN 1x2000), the armadillo posed to 4 handle targets in one
+solve_batched (GN 8x100, one remainder multi-system launch a step),
+image_warping 512x512 x4 in one solve_batched under block-Jacobi (LM
+8x400), and a solve_scheduled of 5 outer GN 3x15 solves at 512x512, checks
+the costs against the JAX package's and each solve's one
 launch of the named kernel instance per nonlinear step, solves the arap
 grid mesh once more in float64 against the JAX package's float64 solve,
 checks the medium golden costs, times kernels, twins, assembly and solves
@@ -229,6 +239,28 @@ BATCH_TRUTH_ATOL = 1e-3  # the largest |param - truth|
 BATCH_LIN_RTOL = 0.02  # the summed CG count against the JAX CPU's
 BATCH_POISSON_B = 4  # solve_batched over bench_poisson's input and 3 other seeds
 LAP_BATCH_B, LAP_BATCH_N = 4, 16  # tests/test_pallas.py:196's batch
+# K1 (h) x K4 and K1 (h) x K1 (d), the batch axis of the remainder and
+# block-Jacobi forms: the armadillo posed to four handle targets in one
+# solve_batched (instance 0 bench_arap_irregular's pull of 0.2 of the
+# height, the others ARM_BATCH_PULLS[1:]), GN 8x100; image_warping 512x512
+# four times under block-Jacobi (instance 0 the bench's constraints, the
+# others moved by a seeded offset), LM 8x400. Each instance's first two step
+# costs are held to its own solve on the card at BATCH_STEP_RTOL (the
+# batched assembly under vmap rounds apart from the single one).
+ARM_BATCH_PULLS = (0.2, 0.10, 0.15, 0.25)
+IW_BJ_BATCH_B = 4
+BATCH_STEP_RTOL = 1e-4
+# random irregular meshes (a ring with chords under a random numbering: the
+# remainder form) for the batch form: RANDOM_MESH_B systems of
+# RANDOM_MESH_N vertices (1,800 elements), and SMALL_MESH_B of SMALL_MESH_N
+# (240 elements), whose one-system launch also takes one block, so that
+# each system is also held bitwise to its own launch
+RANDOM_MESH_N, RANDOM_MESH_B = 300, 64
+SMALL_MESH_N, SMALL_MESH_B = 40, 4
+# iterations of the no-exit and the real-exit checks: the twin runs the
+# systems one after the other
+RANDOM_MESH_LITS, RANDOM_MESH_EXIT_LITS = 10, 20
+SMALL_MESH_LITS, SMALL_MESH_EXIT_LITS = 30, 60
 # form_sweep: 4 laplacian systems of these sides (256 to 16,384 elements a
 # system) through both batch forms, where fused_cg.BATCH_BLOCK_ELEMS (2048)
 # is set: 45x45 is the last size under it
@@ -289,7 +321,7 @@ Q_TOL = 1e-4  # SOLVER_PARAMETER_DEFAULTS["q_tolerance"]
 RESET_PERIOD = 10  # SOLVER_PARAMETER_DEFAULTS["residual_reset_period"]
 TIMED_ITERS = 100  # iterations of a timed loop
 PROFILE_SESSIONS = 3  # kernel_device_ms: profiler sessions before CUDA events
-KERNEL_SOURCE = "opt_tpu_torch/ops/csrc/fused_grid_cg.cu"
+KERNEL_SOURCE = "opt_tpu_torch/ops/csrc/fused_grid_cg.cuh"
 K1 = "opt_tpu/ops/pallas_cg.py:328"
 K3 = "opt_tpu/ops/pallas_cg.py:335"  # _kernel's flat1d=True graph form
 K4 = "opt_tpu/ops/pallas_cg.py:338"  # _kernel's rem_pairs remainder
@@ -645,6 +677,73 @@ def armadillo_inputs():
     }
 
 
+def armadillo_batch_inputs():
+    """The armadillo posed to len(ARM_BATCH_PULLS) handle targets: instance
+    k pulls the highest 1% of vertices up by ARM_BATCH_PULLS[k] of the
+    height (instance 0 is armadillo_inputs'); Offset and Constraints are
+    batched, the graph and the rest shared."""
+    dims, base = armadillo_inputs()
+    pos = base["UrShape"]
+    z = pos[:, 2]
+    hi = z >= np.quantile(z, 0.99)
+    cons = []
+    for pull in ARM_BATCH_PULLS:
+        con = base["Constraints"].copy()
+        con[hi] = pos[hi] + np.array([0.0, 0.0, pull * (z.max() - z.min())], np.float32)
+        cons.append(con)
+    B = len(ARM_BATCH_PULLS)
+    return dims, dict(base, Offset=np.stack([pos] * B), Constraints=np.stack(cons))
+
+
+def iw_batch_inputs(n, B):
+    """B image_warping instances: instance 0 bench_image_warping_inputs(n),
+    instance k its constraint targets moved by one offset drawn from
+    RandomState(k) (in [-2, 2]^2, kept >= 0 so that every constraint stays
+    valid); Constraints batched, the rest shared."""
+    base = bench_image_warping_inputs(n)
+    con0 = base["Constraints"]
+    valid = (con0 >= 0).all(-1)
+    cons = [con0]
+    for k in range(1, B):
+        con = con0.copy()
+        con[valid] = np.maximum(con0[valid] + np.random.RandomState(k).uniform(-2, 2, 2), 0.0)
+        cons.append(con.astype(np.float32))
+    return dict(base, Constraints=np.stack(cons))
+
+
+def random_mesh_inputs(N, B, seed=3):
+    """B deformations of one random irregular mesh (tests/test_torch_graph.py's
+    random_mesh: a ring with N // 2 random chords, both edge directions,
+    under a random numbering, so that no vertex-id offset covers its reads
+    and the operator is all remainder; 4 vertices pinned), each with its
+    own Offset and Angle, so that each system's blocks are its own."""
+    rng = np.random.RandomState(seed)
+    f32 = np.float32
+    ring0 = np.arange(N)
+    a = rng.randint(0, N, N // 2)
+    b = (a + rng.randint(2, N - 1, N // 2)) % N
+    v0 = np.concatenate([ring0, a])
+    v1 = np.concatenate([(ring0 + 1) % N, b])
+    perm = rng.permutation(N)
+    v0, v1 = perm[v0], perm[v1]
+    pos = rng.rand(N, 3).astype(f32)
+    con = -np.ones((N, 3), f32)
+    pinned = rng.choice(N, 4, replace=False)
+    con[pinned] = pos[pinned] + rng.rand(4, 3).astype(f32)
+    return {"N": N}, {
+        "Offset": (pos + 0.05 * rng.rand(B, N, 3)).astype(f32),
+        "Angle": (0.2 * rng.randn(B, N, 3)).astype(f32), "UrShape": pos, "Constraints": con,
+        "G": {"v0": np.concatenate([v0, v1]).astype(np.int32),
+              "v1": np.concatenate([v1, v0]).astype(np.int32)},
+        "w_fitSqrt": np.sqrt(1.0).astype(f32), "w_regSqrt": np.sqrt(0.5).astype(f32),
+    }
+
+
+def instance_inputs(inputs, batched, k):
+    """Instance k of a batch's inputs: the `batched` names sliced."""
+    return {name: v[k] if name in batched else v for name, v in inputs.items()}
+
+
 def _grid(n):
     return {"W": n, "H": n}
 
@@ -681,8 +780,10 @@ def batched_system(spec, dims, inputs, kind="gaussNewtonGPU", **ip):
     lm = None
     if kind == "LMGPU":
         lm = dict(ctc=fused_cg.pack(kw["ctc"], meta), reset_period=kw["reset_period"])
+    pb = kw["pre_blocks"]
     return (meta, fused_cg.pack(r0, meta), fused_cg.pack(pre, meta), lm,
-            dict(cs=kw["cg_variant"] == "chronopoulos_gear", pre_blocks=None))
+            dict(cs=kw["cg_variant"] == "chronopoulos_gear",
+                 pre_blocks=None if pb is None else fused_cg.pack_pre_blocks(pb, meta)))
 
 
 def n_systems(meta):
@@ -1042,26 +1143,33 @@ def float64_witness(label, spec, kind, dims, inputs, nl, li, ref, n_steps):
                            f"{ref[:n_steps]}, {launches} kernel launches")
 
 
-def instance_system(meta, b, pre, lm, k):
-    """System k of a batch as a one-system launch takes it: (meta, b, pre,
-    LM keywords)."""
+def instance_system(meta, b, pre, lm, variant, k):
+    """System k of a batch as a one-system launch takes it: (meta with its
+    fields and remainder blocks, b, pre, LM keywords, variant keywords with
+    its block preconditioner)."""
     one = {key: v for key, v in meta.items() if key != "batch"}
     one["F"] = meta["F"][k].contiguous()
+    if meta["rem"] is not None:
+        one["rem"] = dict(meta["rem"], blk=meta["rem"]["blk"][k].contiguous())
     lm_k = None if lm is None else dict(lm, ctc=lm["ctc"][k].contiguous())
-    return one, b[k].contiguous(), pre[k].contiguous(), lm_k
+    pb = variant.get("pre_blocks")
+    var_k = dict(variant, pre_blocks=None if pb is None else pb[k].contiguous())
+    return one, b[k].contiguous(), pre[k].contiguous(), lm_k, var_k
 
 
 def batch_vs_single(label, meta, b, pre, lits, lm=None, **variant):
-    """Each system of a block-per-system launch against its own one-system
-    launch (one block too at these sizes), with the real exits: bitwise
-    equal, count for count."""
+    """Each system of a batched launch against its own one-system launch,
+    with the real exits: bitwise equal, count for count. The one-system
+    launch must partition the dots as the batched one does: one block for
+    a block-per-system launch (systems of at most BLOCK_THREADS elements),
+    the same grid for the multi-system form."""
     lm_kw = dict(lm, q_tolerance=Q_TOL) if lm else {}
     dk, ik = fused_cg.fused_grid_cg_kernel(meta, b, pre, lits, CG_TOL, **lm_kw, **variant)
     equal, counts = 0, []
     for k in range(n_systems(meta)):
-        m1, b1, p1, lm1 = instance_system(meta, b, pre, lm, k)
+        m1, b1, p1, lm1, var1 = instance_system(meta, b, pre, lm, variant, k)
         kw1 = dict(lm1, q_tolerance=Q_TOL) if lm1 else {}
-        d1, i1 = fused_cg.fused_grid_cg_kernel(m1, b1, p1, lits, CG_TOL, **kw1, **variant)
+        d1, i1 = fused_cg.fused_grid_cg_kernel(m1, b1, p1, lits, CG_TOL, **kw1, **var1)
         equal += bool(torch.equal(d1, dk[k]))
         counts.append(i1)
     torch.cuda.synchronize()
@@ -1075,12 +1183,14 @@ def batch_vs_single(label, meta, b, pre, lits, lm=None, **variant):
                            f"launch, counts equal: {same_counts}")
 
 
-def batch_checks(label, system, lits, exit_lits, single=True):
+def batch_checks(label, system, lits, exit_lits, single=True, form=None):
     """A batch form against its twin as variant_checks holds the others,
-    each system also bitwise equal to the twin's (and, where the
-    one-system launch also takes one block, to its own launch). Returns the
-    no-exit check's max|Δδ|."""
+    each system also bitwise equal to the twin's (and, with `single`, to
+    its own one-system launch: batch_vs_single). ``form``: the instance the
+    launch must take. Returns the no-exit check's max|Δδ|."""
     meta, b, pre, lm, variant = system
+    if form is not None and form_of(meta, lm, **variant) != form:
+        raise RuntimeError(f"{label}: takes {form_of(meta, lm, **variant)}, not {form}")
     no_exit = dict(q_tol=float("-inf")) if lm else {}
     err = kernel_vs_twin(label, meta, b, pre, lits, 0.0, lm, bitwise=True, **no_exit, **variant)
     kernel_vs_twin(label, meta, b, pre, exit_lits, CG_TOL, lm, bitwise=True, **variant)
@@ -1159,6 +1269,106 @@ def batched_poisson_main_path(inputs):
             or not bool(torch.isfinite(res.unknowns["X"]).all())):
         raise RuntimeError(f"batched poisson failed: {line}")
     return launches
+
+
+def batched_graph_main_path(dims, inputs):
+    """The armadillo posed to four handle targets (armadillo_batch_inputs),
+    GN 8x100 in one solve_batched: one launch of the remainder's
+    multi-system instance a step, no fallback; instance 0's first two step
+    costs within FIRST_STEPS_RTOL of the JAX CPU's (the solve does not
+    settle: JAX_CPU_GRAPH_COSTS), each instance's first two step costs
+    within BATCH_STEP_RTOL of its own solve on the card and its CG count in
+    those two steps equal to that solve's. Returns launches."""
+    B, N = len(ARM_BATCH_PULLS), dims["N"]
+    batched = ("Offset", "Constraints")
+    fused_cg.reset_launch_counts()
+    plan = ot.Problem(arap_mesh_deformation).plan(dims=dims)
+    res = plan.solve_batched(dict(inputs), nIterations=GRAPH_NL, lIterations=GRAPH_LI)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in fused_cg.fused_grid_cg_kernel.launches.items() if v}
+    two = plan.solve_batched(dict(inputs), nIterations=2, lIterations=GRAPH_LI)
+    singles = [plan.solve(instance_inputs(inputs, batched, k), nIterations=2,
+                          lIterations=GRAPH_LI) for k in range(B)]
+    ref = JAX_CPU_GRAPH_COSTS["armadillo31k"]["first_costs"]
+    rel0 = [abs(float(res.costs[0, i]) - c) / abs(c) for i, c in enumerate(ref)]
+    rel = [[abs(float(res.costs[k, i]) - c) / abs(c) for i, c in enumerate(s.costs)]
+           for k, s in enumerate(singles)]
+    finite = all(bool(torch.isfinite(v).all()) and tuple(v.shape) == (B, N, 3)
+                 for v in res.unknowns.values())
+    line = {"check": "main_path", "case": f"armadillo31k x{B} GN {GRAPH_NL}x{GRAPH_LI} batched",
+            "form": "gn_rem_multi", "kernel_launches": launches,
+            "fused_fallback": plan.fused_fallback, "pulls": list(ARM_BATCH_PULLS),
+            "costs": res.costs.tolist(), "lin_iters": res.num_linear_iterations.tolist(),
+            "jax_cpu_first_costs_instance0": ref, "first_rel_diff_instance0": rel0,
+            "single_first_costs": [s.costs for s in singles], "first_rel_diff_to_single": rel,
+            "first_two_lin_iters": two.num_linear_iterations.tolist(),
+            "single_first_two_lin_iters": [s.num_linear_iterations for s in singles],
+            "solve_s": res.wall_time_s}
+    log(json.dumps(line))
+    if (launches != {"gn_rem_multi": GRAPH_NL} or plan.fused_fallback is not None or not finite
+            or not np.isfinite(res.costs).all() or max(rel0) > FIRST_STEPS_RTOL
+            or max(max(r) for r in rel) > BATCH_STEP_RTOL
+            or line["first_two_lin_iters"] != line["single_first_two_lin_iters"]):
+        raise RuntimeError(f"batched armadillo failed: {line}")
+    return launches
+
+
+def batched_bj_main_path(inputs):
+    """image_warping 512x512 four times (iw_batch_inputs), LM 8x400 under
+    block-Jacobi in one solve_batched: one launch of the block-Jacobi LM
+    multi-system instance a step, no fallback; instance 0 within
+    GOLDEN_RTOL of the JAX CPU's block-Jacobi solve, each instance within
+    GOLDEN_RTOL of its own solve on the card. Returns launches."""
+    n, B = IW_N, IW_BJ_BATCH_B
+    want, _want_iters = JAX_CPU_VARIANT_COSTS[("image_warping", "block_jacobi")]
+    fused_cg.reset_launch_counts()
+    plan = ot.Problem(image_warping, kind="LMGPU").plan(
+        dims=_grid(n), init_params=ot.InitializationParameters(preconditioner="block_jacobi"))
+    res = plan.solve_batched(dict(inputs), nIterations=8, lIterations=400)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in fused_cg.fused_grid_cg_kernel.launches.items() if v}
+    singles = [plan.solve(instance_inputs(inputs, ("Constraints",), k), nIterations=8,
+                          lIterations=400) for k in range(B)]
+    rel = [abs(float(res.final_costs[k]) - s.final_cost) / abs(s.final_cost)
+           for k, s in enumerate(singles)]
+    finite = all(bool(torch.isfinite(v).all()) and tuple(v.shape[:3]) == (B, n, n)
+                 for v in res.unknowns.values())
+    line = {"check": "main_path", "case": f"image_warping{n} x{B} LM 8x400 block_jacobi batched",
+            "form": "lm_bj_multi", "kernel_launches": launches,
+            "fused_fallback": plan.fused_fallback, "final_costs": res.final_costs.tolist(),
+            "single_costs": [s.final_cost for s in singles], "rel_diff_to_single": rel,
+            "lin_iters": res.num_linear_iterations.tolist(),
+            "single_lin_iters": [s.num_linear_iterations for s in singles],
+            "jax_cpu_cost_instance0": want,
+            "rel_diff_instance0": abs(float(res.final_costs[0]) - want) / want,
+            "solve_s": res.wall_time_s}
+    log(json.dumps(line))
+    if (launches != {"lm_bj_multi": 8} or plan.fused_fallback is not None or not finite
+            or line["rel_diff_instance0"] > GOLDEN_RTOL or max(rel) > GOLDEN_RTOL):
+        raise RuntimeError(f"batched image_warping block-Jacobi failed: {line}")
+    return launches
+
+
+def batched_step_before_after(dims, inputs, gpu):
+    """One GN step of the armadillo batch through solve_batched, host ms
+    around it ending in a sync (after a warm-up): the kernel path, one
+    gn_rem_multi launch, beside the path such a batch took before the
+    batch forms had a remainder: each instance's step in turn through the
+    eager CG loop (here a plan with use_pallas_cg="off", which also skips
+    the batched assembly the old path built and discarded)."""
+    out = {}
+    for path, ip in (("kernel", {}), ("eager_instance_by_instance", {"use_pallas_cg": "off"})):
+        plan = ot.Problem(arap_mesh_deformation).plan(
+            dims=dims, init_params=ot.InitializationParameters(**ip))
+        plan.solve_batched(dict(inputs), nIterations=1, lIterations=GRAPH_LI)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = plan.solve_batched(dict(inputs), nIterations=1, lIterations=GRAPH_LI)
+        torch.cuda.synchronize()
+        out[path] = {"step_ms": (time.perf_counter() - t0) * 1e3,
+                     "lin_iters": r.num_linear_iterations.tolist(), "costs": r.costs[:, 0].tolist()}
+    log(json.dumps({"timing": f"armadillo31k x{len(ARM_BATCH_PULLS)} GN one batched step",
+                    "gpu": gpu, **out}))
 
 
 def pyramid_flow_main_path(levels):
@@ -1251,10 +1461,10 @@ def time_batched_launches(label, meta, b, pre, lm, gpu):
     def batched():
         fused_cg.fused_grid_cg_kernel(meta, b, pre, BATCH_LI, CG_TOL, **lm_kw)
 
-    singles = [instance_system(meta, b, pre, lm, k) for k in range(n_systems(meta))]
+    singles = [instance_system(meta, b, pre, lm, {}, k) for k in range(n_systems(meta))]
 
     def one_by_one():
-        for m1, b1, p1, lm1 in singles:
+        for m1, b1, p1, lm1, _v in singles:
             fused_cg.fused_grid_cg_kernel(m1, b1, p1, BATCH_LI, CG_TOL,
                                           **dict(lm1, q_tolerance=Q_TOL))
 
@@ -1392,13 +1602,15 @@ def time_once(fn):
 
 
 def time_pair(label, meta, b, pre, gpu, lm=None, reps=3, lits=TIMED_ITERS, device=False,
-              **variant):
+              twin=True, **variant):
     """ms of `lits` CG iterations with no exit of the kernel (mean of `reps`
     launches after a warm-up) and of its twin (one call, which also holds
-    the count), CUDA events, and the call's bound: (ms, plain ms, bound ms,
-    bound by). With `device` the kernel's ms is its device time
-    (kernel_device_ms), for a launch too short for the events to part it
-    from the wrapper's host work; the events' ms is printed beside it."""
+    the count; ``twin=False``: not timed, plain ms None, for forms whose
+    counts the checks above held), CUDA events, and the call's bound: (ms,
+    plain ms, bound ms, bound by). With `device` the kernel's ms is its
+    device time (kernel_device_ms), for a launch too short for the events to
+    part it from the wrapper's host work; the events' ms is printed beside
+    it."""
     lm_kw = dict(lm, q_tolerance=float("-inf")) if lm else {}
     # with tol = 0 a loop that reaches an exact zero residual still stops
     # (rz <= 0, a denominator <= 0): times and the bound are of the
@@ -1414,10 +1626,13 @@ def time_pair(label, meta, b, pre, gpu, lm=None, reps=3, lits=TIMED_ITERS, devic
     if device:
         extra = {"kernel_event_ms": ms_k, "wrapper_host_ms": host_ms(call, reps)}
         ms_k = kernel_device_ms(call, reps, 1)
-    ms_t, (_d, twin_iters) = time_once(lambda: fused_cg.fused_grid_cg_reference(
-        meta["F"], meta["triples"], b, pre, lits, 0.0, **twin_kw(meta), **lm_kw, **variant))
-    if twin_iters != iters:
-        raise RuntimeError(f"{label}: timed kernel ran {iters} iterations, the twin {twin_iters}")
+    ms_t = None
+    if twin:
+        ms_t, (_d, twin_iters) = time_once(lambda: fused_cg.fused_grid_cg_reference(
+            meta["F"], meta["triples"], b, pre, lits, 0.0, **twin_kw(meta), **lm_kw, **variant))
+        if twin_iters != iters:
+            raise RuntimeError(f"{label}: timed kernel ran {iters} iterations, the twin "
+                               f"{twin_iters}")
     shape = meta_shape(meta)
     pre_planes = shape["C"] ** 2 if variant.get("pre_blocks") is not None else None
     bound_ms, bound_by = cg_bound(shape, iters, lm=bool(lm), cs=bool(variant.get("cs")),
@@ -1425,7 +1640,7 @@ def time_pair(label, meta, b, pre, gpu, lm=None, reps=3, lits=TIMED_ITERS, devic
     form = form_of(meta, lm, **variant)
     log(json.dumps({"timing": label, "form": form, "gpu": gpu, "iters": iters,
                     "kernel_ms_per_cg_iter": ms_k / iters,
-                    "twin_ms_per_cg_iter": ms_t / iters,
+                    "twin_ms_per_cg_iter": None if ms_t is None else ms_t / iters,
                     "bound_ms_per_cg_iter": bound_ms / iters,
                     "kernel_ms": ms_k, "twin_ms": ms_t, "bound_ms": bound_ms,
                     "bound_by": bound_by, **extra}))
@@ -1793,9 +2008,9 @@ def main() -> int:
     nv = subprocess.run([nvcc_path(), "--version"], capture_output=True, text=True, check=True)
     log(f"nvcc: {nv.stdout.strip().splitlines()[-1]}")
 
-    # 1. build: every instance in one library, by one nvcc process in a
-    # thread, while the host makes the first checks' inputs and systems
-    # (their assembly launches no CG kernel)
+    # 1. build: every unit by its own nvcc process, all started together from
+    # a thread, then one link, while the host makes the first checks' inputs
+    # and systems (their assembly launches no CG kernel)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         building = pool.submit(build_library)
@@ -1822,7 +2037,7 @@ def main() -> int:
     log(json.dumps({"registers": {fused_cg.instance_name(*k): v[0] for k, v in sorted(regs.items())},
                     "spill_store_bytes": {fused_cg.instance_name(*k): v[1]
                                           for k, v in sorted(regs.items()) if v[1]},
-                    "build_s": info["seconds"]}))
+                    "build_s": info["seconds"], "units_s": info["units_s"]}))
     if len(regs) != len(fused_cg.INSTANCES):
         raise RuntimeError(f"ptxas reported {len(regs)} instances, expected {len(fused_cg.INSTANCES)}")
     off_cap = {fused_cg.instance_name(*k): v[0] for k, v in regs.items()
@@ -1999,6 +2214,77 @@ def main() -> int:
     log(f"poisson {n}x{n}x4 x{BATCH_POISSON_B}: {pbatch[0]['F'].shape[1]} fields a system")
     batch_checks(f"poisson{n}x4 x{BATCH_POISSON_B}", pbatch, 50, 2000, single=False)
 
+    # K1 (h) x K4 and K1 (h) x K1 (d): the batch forms with the remainder and
+    # with the block preconditioner. The block-per-system form on 64
+    # deformations of a 300-vertex random mesh (sent to that form: their
+    # remainder blocks count past BATCH_BLOCK_ELEMS) and on 4 of a 40-vertex
+    # one (each system also against its own one-block launch), and on the
+    # curve fits under block-Jacobi; the multi-system form on the armadillo
+    # x4 and on image_warping 512x512 x4 under block-Jacobi, each system
+    # also against its own one-system launch (the same grid)
+    bj = {"preconditioner": "block_jacobi"}
+    rdims, rin = random_mesh_inputs(RANDOM_MESH_N, RANDOM_MESH_B)
+    sdims, sin = random_mesh_inputs(SMALL_MESH_N, SMALL_MESH_B)
+    rlabel = f"random{RANDOM_MESH_N} x{RANDOM_MESH_B}"
+    slabel = f"random{SMALL_MESH_N} x{SMALL_MESH_B}"
+    gn, lmk = "gaussNewtonGPU", "LMGPU"
+    batch_sys = {}
+    with batch_form("batch"):
+        # (label, dims, inputs, kind, InitializationParameters, lits, exit
+        # lits, each system against its own launch, instance); the
+        # Chronopoulos-Gear case reuses the GN system (the assembly does not
+        # depend on the loop)
+        small = (SMALL_MESH_LITS, SMALL_MESH_EXIT_LITS, True)
+        for label, dims, binp, kind, ip, lits, exit_lits, single, form in (
+                (f"{rlabel} GN", rdims, rin, gn, {}, RANDOM_MESH_LITS, RANDOM_MESH_EXIT_LITS,
+                 False, "gn_rem_batch"),
+                (f"{rlabel} LM", rdims, rin, lmk, {}, RANDOM_MESH_LITS, RANDOM_MESH_EXIT_LITS,
+                 False, "lm_rem_batch"),
+                (f"{slabel} GN", sdims, sin, gn, {}, *small, "gn_rem_batch"),
+                (f"{slabel} GN cs", sdims, sin, gn, cs, *small, "gn_cs_rem_batch"),
+                (f"{slabel} LM", sdims, sin, lmk, {}, *small, "lm_rem_batch"),
+                (f"{slabel} LM bf16", sdims, sin, lmk, bf, *small, "lm_bf16_rem_batch"),
+                (f"{slabel} GN block_jacobi", sdims, sin, gn, bj, *small, "gn_bj_rem_batch")):
+            if ip is cs:
+                sysb = sysb[:4] + (dict(sysb[4], cs=True),)
+            else:
+                sysb = batched_system(arap_mesh_deformation, dims, binp, kind, **ip)
+            batch_checks(label, sysb, lits, exit_lits, single=single, form=form)
+            if label.startswith(rlabel):
+                batch_sys[form] = (label, sysb)
+        del sdims, sin
+    for flabel, kind, form in (("GN", gn, "gn_bj_batch"), ("LM", lmk, "lm_bj_batch")):
+        label = f"curve_fitting x{BATCH_B} {flabel} block_jacobi"
+        sysb = batched_system(curve_fitting, cdims, curve_in, kind, **bj)
+        batch_checks(label, sysb, 50, BATCH_LI, form=form)
+        batch_sys[form] = (label, sysb)
+    arm_bdims, arm_bin = armadillo_batch_inputs()
+    iw_bin = iw_batch_inputs(IW_N, IW_BJ_BATCH_B)
+    alabel = f"armadillo31k x{len(ARM_BATCH_PULLS)}"
+    ilabel = f"image_warping{IW_N}x3 x{IW_BJ_BATCH_B}"
+    multi_sys = {}
+    for label, spec, dims, binp, kind, ip, exit_lits, form in (
+            (f"{alabel} GN", arap_mesh_deformation, arm_bdims, arm_bin, gn, {}, GRAPH_LI,
+             "gn_rem_multi"),
+            (f"{alabel} LM", arap_mesh_deformation, arm_bdims, arm_bin, lmk, {}, GRAPH_LI,
+             "lm_rem_multi"),
+            (f"{alabel} GN bf16", arap_mesh_deformation, arm_bdims, arm_bin, gn, bf, GRAPH_LI,
+             "gn_bf16_rem_multi"),
+            (f"{alabel} GN block_jacobi", arap_mesh_deformation, arm_bdims, arm_bin, gn, bj,
+             GRAPH_LI, "gn_bj_rem_multi"),
+            (f"{ilabel} GN block_jacobi", image_warping, _grid(IW_N), iw_bin, gn, bj, 400,
+             "gn_bj_multi"),
+            (f"{ilabel} LM block_jacobi", image_warping, _grid(IW_N), iw_bin, lmk, bj, 400,
+             "lm_bj_multi"),
+            (f"{ilabel} LM cs block_jacobi", image_warping, _grid(IW_N), iw_bin, lmk,
+             cs, 400, "lm_cs_bj_multi")):
+        if ip is cs:  # the LM block-Jacobi system, by Chronopoulos-Gear
+            sysm = sysm[:4] + (dict(sysm[4], cs=True),)
+        else:
+            sysm = batched_system(spec, dims, binp, kind, **ip)
+        err = batch_checks(label, sysm, 50, exit_lits, form=form)
+        multi_sys[form] = (label, sysm, err)
+
     # K5, the sharded solve's per-tile apply, on the four tiles of a 2x2
     # split: bitwise against its twin and the whole grid's apply
     err_k5 = tile_checks(f"poisson{n}x4", meta)
@@ -2044,6 +2330,8 @@ def main() -> int:
     _r, l_split = split_main_path(split_in, split_counts)
     _r, l_batch = batched_curve_main_path(curve_truths, curve_in)
     l_pbatch = batched_poisson_main_path(pbatch_in)
+    l_arm_batch = batched_graph_main_path(arm_bdims, arm_bin)
+    l_bj_batch = batched_bj_main_path(iw_bin)
     l_sched = scheduled_main_path()
     # the single-device solve the sharded auto-policy case is held to
     res_auto, _l, _p = main_path(
@@ -2126,6 +2414,19 @@ def main() -> int:
     time_batched_launches(f"curve_fitting x{BATCH_B} LM step launch", *curve_lm[:4], gpu)
     form_sweep(curve_lm, gpu)
     time_pair(f"poisson{n}x4 x{BATCH_POISSON_B} multi", *pbatch[:3], gpu, reps=2)
+    # the batch forms with the remainder and the block preconditioner: ms
+    # per system-iteration of each multi-system instance (the twin timed for
+    # the two in the kernels line), ms per launch of each block-per-system
+    # one, beside its bound; one batched GN step before and after
+    t_multi = {form: time_pair(label, *sysm[:3], gpu, sysm[3], reps=2,
+                               twin=form in ("gn_rem_multi", "lm_bj_multi"), **sysm[4])
+               for form, (label, sysm, _err) in multi_sys.items()}
+    with batch_form("batch"):
+        for form, (label, sysb) in batch_sys.items():
+            time_pair(label, *sysb[:3], gpu, sysb[3], lits=BATCH_LI, device=True, twin=False,
+                      **sysb[4])
+    del batch_sys
+    batched_step_before_after(arm_bdims, arm_bin, gpu)
     time_main_path(f"poisson{n}x4 GN 1x2000", poisson_image_editing, "gaussNewtonGPU",
                    _grid(n), inputs, 1, 2000, gpu)
     time_main_path(f"shape_from_shading{SFS_N} GN {SFS_NL}x{SFS_LI}", shape_from_shading,
@@ -2181,6 +2482,8 @@ def main() -> int:
     # solve; the sharded image_warping solves are its further main paths
     log(json.dumps({"main_path_launches": {"optical_flow": l_flow, "intrinsic": l_intr,
                                            "poisson_batched": l_pbatch, "scheduled": l_sched,
+                                           "armadillo_batched": l_arm_batch,
+                                           "image_warping_block_jacobi_batched": l_bj_batch,
                                            "sharded_tile_apply": l_k5}}))
     log(json.dumps({"command_s": time.perf_counter() - t_start,
                     "checks_and_main_paths_s": phase_s, "phases_s": phases}))
@@ -2210,6 +2513,13 @@ def main() -> int:
               f"poisson {SPLIT_N}x{SPLIT_N}x4", K2, l_split["gn_multi"], err_split, t_split),
         entry(f"fused_grid_cg LM, a batch axis: {BATCH_B} curve-fit systems side by side, a "
               "block each (K1 (h))", K1H, l_batch["lm_batch"], err_batch, t_batch),
+        entry(f"fused_grid_cg GN with the graph remainder, a batch axis (K1 (h) x K4): "
+              f"{alabel} (the armadillo posed to {len(ARM_BATCH_PULLS)} handle targets), the "
+              "systems in turn in one launch; ms of 100 iterations of each system", K4,
+              l_arm_batch["gn_rem_multi"], multi_sys["gn_rem_multi"][2], t_multi["gn_rem_multi"]),
+        entry(f"fused_grid_cg LM block-Jacobi, a batch axis (K1 (h) x K1 (d)): {ilabel}, the "
+              "systems in turn in one launch; ms of 100 iterations of each system", K1D,
+              l_bj_batch["lm_bj_multi"], multi_sys["lm_bj_multi"][2], t_multi["lm_bj_multi"]),
         entry(f"tile_apply, one rank's part of the sharded apply (K5), poisson {n}x{n}x4 on "
               f"{MESH_SHAPE[0]}x{MESH_SHAPE[1]} ranks; launches summed over the four ranks, ms "
               "of one apply of a 256x256 tile", K5, l_k5[SHARDED_CASES[0][0]], err_k5, t_k5,

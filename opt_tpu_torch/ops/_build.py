@@ -1,13 +1,17 @@
 """Build and load the port's CUDA kernels at first use.
 
-``nvcc`` compiles ``csrc/fused_grid_cg.cu`` (every instance of the fused
-CG kernel) and ``csrc/tile_apply.cu`` (the sharded solve's per-tile apply)
-into one shared library with a plain C interface, bound with ``ctypes``. The library goes to ``build/opt_tpu_torch/`` at the repository
-root, named by a hash of the sources and flags, so an edited source rebuilds
-and an unchanged one loads the cached library. Nothing here runs on
-``import opt_tpu_torch``. The ranks of a sharded solve load a library built
-beforehand (``python -m opt_tpu_torch.ops._build``, or any call that
-builds it) and never start ``nvcc`` themselves.
+``nvcc`` compiles the fused CG kernel (``csrc/fused_grid_cg.cuh``, the
+template; ``csrc/fused_grid_cg_one.cu``, ``_multi.cu`` and ``_batch.cu``, its
+instances, one form a unit; ``csrc/fused_grid_cg.cu``, their C interface)
+and ``csrc/tile_apply.cu`` (the sharded solve's per-tile apply): each unit
+by its own ``nvcc`` process, all started together, then one link into one
+shared library with a plain C interface, bound with ``ctypes``. The library
+goes to ``build/opt_tpu_torch/`` at the repository root, named by a hash of
+the sources and flags, so an edited source rebuilds and an unchanged one
+loads the cached library. Nothing here runs on ``import opt_tpu_torch``.
+The ranks of a sharded solve load a library built beforehand (``python -m
+opt_tpu_torch.ops._build``, or any call that builds it) and never start
+``nvcc`` themselves.
 """
 
 from __future__ import annotations
@@ -19,14 +23,18 @@ import re
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("fused_grid_cg.cu", "tile_apply.cu")
+# the units nvcc compiles, each by its own process, and every source they read
+UNITS = ("fused_grid_cg_one.cu", "fused_grid_cg_multi.cu", "fused_grid_cg_batch.cu",
+         "fused_grid_cg.cu", "tile_apply.cu")
+SOURCES = UNITS + ("fused_grid_cg.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "opt_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LOADED = {}
@@ -51,9 +59,18 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmd) -> tuple:
+    """(return code, the command and its output, seconds) of one nvcc call."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    return proc.returncode, " ".join(cmd) + "\n" + proc.stdout + proc.stderr, time.perf_counter() - t0
+
+
 def build_library(build: bool = True) -> dict:
-    """Compile the sources if their hash has no library yet. Returns
-    {path, built, seconds, log} (log: nvcc's output, -Xptxas -v included).
+    """Compile the sources if their hash has no library yet: every unit to
+    an object at once, one nvcc process each, then one link. Returns {path,
+    built, seconds (the whole build's wall time), units_s (each unit's
+    nvcc seconds), log (nvcc's output, -Xptxas -v included)}.
     ``build=False`` raises instead of compiling where the library is
     missing."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -61,25 +78,35 @@ def build_library(build: bool = True) -> dict:
     lib = BUILD_DIR / f"libopt_tpu_torch_{digest}.so"
     log = BUILD_DIR / f"libopt_tpu_torch_{digest}.log"
     if lib.exists():
-        return {"path": lib, "built": False, "seconds": 0.0,
+        return {"path": lib, "built": False, "seconds": 0.0, "units_s": {},
                 "log": log.read_text() if log.exists() else ""}
     if not build:
         raise RuntimeError(
             f"the kernel library {lib.name} is not built: build it before starting the "
             "ranks (python -m opt_tpu_torch.ops._build)"
         )
-    tmp = BUILD_DIR / f".tmp_{os.getpid()}_{lib.name}"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    work = BUILD_DIR / f".tmp_{os.getpid()}_{digest}"
+    work.mkdir(exist_ok=True)
+    nvcc = nvcc_path()
+    objs = [work / (Path(u).stem + ".o") for u in UNITS]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with ThreadPoolExecutor(len(UNITS)) as pool:
+        runs = list(pool.map(_run, ([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / u)]
+                                    for u, o in zip(UNITS, objs))))
+    tmp = work / lib.name
+    if all(rc == 0 for rc, _out, _s in runs):
+        runs.append(_run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)]))
     seconds = time.perf_counter() - t0
-    out = " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{out}")
+    out = "".join(o for _rc, o, _s in runs)
+    failed = [rc for rc, _o, _s in runs if rc != 0]
+    if failed:
+        shutil.rmtree(work, ignore_errors=True)
+        raise RuntimeError(f"nvcc failed ({failed[0]}):\n{out}")
     log.write_text(out)
     os.replace(tmp, lib)
-    return {"path": lib, "built": True, "seconds": seconds, "log": out}
+    shutil.rmtree(work, ignore_errors=True)
+    return {"path": lib, "built": True, "seconds": seconds, "log": out,
+            "units_s": {u: s for u, (_rc, _o, s) in zip(UNITS + ("link",), runs)}}
 
 
 _INSTANCE = re.compile(
@@ -128,7 +155,7 @@ def load_library(build: bool = True) -> ctypes.CDLL:
         i32, i32, i32, i32, i32,  # lm, cs, block, bf16, batch
         vp, vp, vp, vp, vp, vp,  # F, b, pre, ctc, triples, starts
         vp, vp, vp,  # rowptr, col, blk (the remainder; null without)
-        i32, i32, i32,  # C (channels of a system), n_sys, f_sys_stride
+        i32, i32, i32, i32,  # C (channels of a system), n_sys, f_sys_stride, blk_sys_stride
         i32, i32, i32,  # N0, N1, N2
         i32, f32, i32,  # lits, tol, guard_div
         i32, f32,  # reset_period, q_tol
@@ -150,4 +177,5 @@ def load_library(build: bool = True) -> ctypes.CDLL:
 
 if __name__ == "__main__":
     built = build_library()
-    print(f"{'built' if built['built'] else 'cached'} {built['path']} in {built['seconds']:.1f} s")
+    print(f"{'built' if built['built'] else 'cached'} {built['path']} in {built['seconds']:.1f} s "
+          f"{built['units_s']}")

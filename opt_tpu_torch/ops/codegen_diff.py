@@ -5,7 +5,9 @@ and local-memory loads and stores, and the PTX, line for line.
     python -m opt_tpu_torch.ops.codegen_diff OLD.cu NEW.cu [--instances gn,gn_bf16] [--out DIR]
 
 Each source is compiled once with the build's arch and optimisation flags
-(``_build.NVCC_FLAGS``). An instance is a one-system instance named as
+(``_build.NVCC_FLAGS``): the unit that instantiates the one-system form,
+``csrc/fused_grid_cg_one.cu`` (an older tree's single
+``csrc/fused_grid_cg.cu``). An instance is a one-system instance named as
 ``fused_cg.instance_name`` names it (``gn``, ``lm_cs``, ``gn_bf16_rem``...);
 its template's last argument may be the older ``bool MULTI`` or the ``int
 FORM`` of today's source. Prints one JSON line an instance and writes each

@@ -31,7 +31,7 @@
 //     reads the zero halo, and its field is zero there too (the planner
 //     folded each offset's in-bounds mask into its field);
 //   * acc = __fadd_rn(acc, __fmul_rn(F, p)) in the table's order for each
-//     channel, from 0, as fused_grid_cg.cu's stencil phase sums (no fused
+//     channel, from 0, as fused_grid_cg.cuh's stencil phase sums (no fused
 //     multiply-add): bitwise equal to the plain PyTorch version
 //     (sharded_cg.py::tile_apply_reference);
 //   * F is float32 or bfloat16 (widened exactly with __bfloat162float);

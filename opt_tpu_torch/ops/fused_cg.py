@@ -7,10 +7,11 @@ mixed-unknown and LM forms, its Chronopoulos–Gear ``cs`` form, its
 block-Jacobi ``block_pre`` form and with bfloat16 coefficient fields;
 ``_hbm_tiled_kernel`` for grids beyond VMEM; its ``flat1d`` DIA form and
 its ``rem_pairs`` irregular remainder for graphs). Here the same loop runs
-as one persistent cooperative CUDA kernel (``csrc/fused_grid_cg.cu``: one
+as one persistent cooperative CUDA kernel (``csrc/fused_grid_cg.cuh``: one
 template whose instances are GN or LM, standard or Chronopoulos–Gear,
 Jacobi or block-Jacobi, float32 or bfloat16 fields, each with and without
-the remainder phase) for CUDA tensors, and as its plain PyTorch twin
+the remainder phase, each in a one-system, a multi-system and a batch form)
+for CUDA tensors, and as its plain PyTorch twin
 (:func:`fused_grid_cg_reference`) for CPU tensors or on request.
 
 The operator is expressed as per-channel-pair triples over the packed
@@ -50,11 +51,12 @@ The batch axis (the JAX package's ``_kernel`` under ``jax.vmap``, which
 ``Plan.solve_batched`` reaches): a batched meta has ``"batch": B`` and F
 [B, T, *dom], the triples, channels and layout of one instance, and the
 vectors carry a leading batch axis. The B systems are independent, each
-with its own fields, exit and count (``iters`` [B]). A system of at most
-:data:`BATCH_BLOCK_ELEMS` elements runs in the BATCH instances, one block
-a system, all side by side; a larger one in the MULTI instances with the
-fields' per-system stride, one system after the other. Neither takes a
-remainder or a block preconditioner (:func:`batched_kernel_form`).
+with its own fields, exit and count (``iters`` [B]); a remainder's CSR is
+shared and its blocks are per system (blk [B, nnz, C, C]), as are the
+block preconditioner's planes ([B, C·C, *dom]). A small system runs in the
+BATCH instances, one block a system, all side by side; a larger one in the
+MULTI instances with the fields' and the blocks' per-system strides, one
+system after the other (:func:`batched_kernel_form`).
 """
 
 from __future__ import annotations
@@ -67,7 +69,7 @@ import torch
 
 from .shift import in_bounds_mask, shift
 
-# per-kernel capacity of the CUDA source (csrc/fused_grid_cg.cu)
+# per-kernel capacity of the CUDA source (csrc/fused_grid_cg.cuh)
 MAX_TRIPLES = 512
 MAX_CHANNELS = 64
 BLOCK_THREADS = 256
@@ -81,9 +83,11 @@ COEFFICIENT_DTYPES = (torch.bfloat16, torch.float32)  # the fields the kernel re
 # joint, 48 MiB a channel) splits; poisson 512x512x4 (33 MiB) does not.
 SPLIT_WORKING_SET_BYTES = 50 * 2**20
 STATE_PLANES_PER_CHANNEL = 7  # b, pre, delta, r, p, Ap and one more (ctc or z)
-# A batched system of at most this many elements (channels x points) runs
-# in the BATCH instances, one block of BLOCK_THREADS threads a system, all
-# systems side by side; a larger one in the MULTI instances, in turn. Set
+# A batched system of at most this many values an iteration
+# (batched_kernel_form: its elements, channels x points, plus its remainder
+# blocks' and block preconditioner's values) runs in the BATCH instances,
+# one block of BLOCK_THREADS threads a system, all systems side by side; a
+# larger one in the MULTI instances, in turn. Set
 # from chip_smoke.py::form_sweep on an H100 (PERF.md): 4 laplacian systems,
 # 50 GN iterations, device ms of the BATCH and the MULTI launch: 0.17 and
 # 1.38 at 256 elements a system, 0.45 and 1.38 at 1024, 1.68 and 1.39 at
@@ -562,7 +566,8 @@ def _systems_reference(F, triples, b, pre, lits, tol, n_sys, counts, *, batched,
         def one(k):
             rk = None if rem is None else dict(rem, blk=rem["blk"][k])
             return fused_grid_cg_reference(
-                F[k], triples, b[k], pre[k], lits, tol, ctc=None if ctc is None else ctc[k],
+                F[k], triples, b[k], None if pre is None else pre[k], lits, tol,
+                ctc=None if ctc is None else ctc[k],
                 rem=rk, pre_blocks=None if pre_blocks is None else pre_blocks[k], **kw)
     else:
         C = int(b.shape[0])
@@ -665,28 +670,33 @@ def instance_name(lm: bool, rem: bool, cs: bool = False, block: bool = False,
             + ("_multi" if multi else "") + ("_batch" if batch else ""))
 
 
-# (lm, rem, cs, block, bf16, multi, batch): the multi-system instances have
-# no remainder and no block preconditioner
+# (lm, rem, cs, block, bf16, multi, batch): every combination of the five
+# flags in each of the three forms (one system, multi, batch)
 INSTANCES = tuple(
-    (lm, rem, cs, block, bf16, False, False)
+    (lm, rem, cs, block, bf16, multi, batch)
+    for multi, batch in ((False, False), (True, False), (False, True))
     for lm in (False, True) for cs in (False, True) for block in (False, True)
     for bf16 in (False, True) for rem in (False, True)
-) + tuple(
-    (lm, False, cs, False, bf16, multi, not multi)
-    for multi in (True, False) for lm in (False, True) for cs in (False, True)
-    for bf16 in (False, True)
 )
 
 
-def batched_kernel_form(meta, pre_blocks=None) -> Optional[str]:
+def batched_kernel_form(meta, pre_blocks=None) -> str:
     """The kernel form a batched meta's launch takes: "batch" (one block a
-    system) for systems of at most :data:`BATCH_BLOCK_ELEMS` elements,
-    "multi" (the systems in turn) for larger ones, or None where no
-    instance takes the operator: a remainder or a block preconditioner."""
-    if meta.get("rem") is not None or pre_blocks is not None:
-        return None
-    elems = int(meta["ctot"]) * int(torch.Size(meta["F"].shape[2:]).numel())
-    return "batch" if elems <= BATCH_BLOCK_ELEMS else "multi"
+    system) for systems of at most :data:`BATCH_BLOCK_ELEMS` values, else
+    "multi" (the systems in turn). A system's values are its elements (C ×
+    points), plus nnz·C·C under a remainder and C·C × points under a block
+    preconditioner: a block reads the remainder's blocks and the C·C
+    planes every iteration beside its state, so they lengthen its
+    iteration as its elements do, while the multi form spreads them over
+    the grid."""
+    C = int(meta["ctot"])
+    points = int(torch.Size(meta["F"].shape[2:]).numel())
+    values = C * points
+    if meta.get("rem") is not None:
+        values += int(meta["rem"]["col"].shape[0]) * C * C
+    if pre_blocks is not None:
+        values += C * C * points
+    return "batch" if values <= BATCH_BLOCK_ELEMS else "multi"
 
 
 def _grid_size(lib, device, flags) -> int:
@@ -724,8 +734,10 @@ def fused_grid_cg_kernel(meta, b, pre, lits, tol, *, guard_div=True, ctc=None,
     as C one-channel systems over the shared fields, solved in turn inside
     the one launch, each with its own exit and count. A batched meta
     (``meta["batch"]`` = B, F [B, T, *dom]) takes b, pre and ctc as
-    [B, C, *dom] and launches the form :func:`batched_kernel_form` names:
-    B systems with their own fields, exits and counts.
+    [B, C, *dom], pre_blocks as [B, C·C, *dom] and the remainder's blocks as
+    [B, nnz, C, C] over one shared CSR, and launches the form
+    :func:`batched_kernel_form` names: B systems with their own fields,
+    blocks, exits and counts.
     Returns (delta, iters int32[n_sys] on the device: one count per system,
     n_sys = B under a batch, C under the split, else 1). Does not
     synchronise. Each launch adds one to
@@ -735,8 +747,6 @@ def fused_grid_cg_kernel(meta, b, pre, lits, tol, *, guard_div=True, ctc=None,
     F = meta["F"]
     rem = meta.get("rem")
     device = b.device
-    if device.type != "cuda":
-        raise ValueError(f"fused_grid_cg_kernel needs CUDA tensors, got {device}")
     lm = ctc is not None
     block = pre_blocks is not None
     cs = bool(cs)
@@ -753,11 +763,8 @@ def fused_grid_cg_kernel(meta, b, pre, lits, tol, *, guard_div=True, ctc=None,
     plane = N0 * N1 * N2
     form = None
     if batch:
-        # B systems of C channels, each with its own fields
+        # B systems of C channels, each with its own fields (and blocks)
         form = batched_kernel_form(meta, pre_blocks)
-        if form is None:
-            raise ValueError("fused_grid_cg_kernel: a batch takes no remainder and no block "
-                             "preconditioner")
         n_sys, c_sys, f_stride = batch, C, int(F.shape[1]) * plane
     else:
         # the split: n_sys systems of c_sys channels each over the shared F
@@ -768,7 +775,7 @@ def fused_grid_cg_kernel(meta, b, pre, lits, tol, *, guard_div=True, ctc=None,
                              "block preconditioner")
     _check_operand("b", b, lead + (C,) + dom, torch.float32, device)
     if block:
-        _check_operand("pre_blocks", pre_blocks, (C * C,) + dom, torch.float32, device)
+        _check_operand("pre_blocks", pre_blocks, lead + (C * C,) + dom, torch.float32, device)
     else:
         _check_operand("pre", pre, lead + (C,) + dom, torch.float32, device)
     _check_operand("F", F, lead + (F.shape[len(lead)],) + dom, F.dtype, device)
@@ -779,16 +786,17 @@ def fused_grid_cg_kernel(meta, b, pre, lits, tol, *, guard_div=True, ctc=None,
                 "fused_grid_cg_kernel: the LM loop needs reset_period >= 1 and "
                 f"q_tolerance, got {reset_period} and {q_tolerance}"
             )
-    nnz = 0
+    blk_stride = 0  # a batch system's remainder blocks
     if rem is not None:
         nnz = int(rem["col"].shape[0])
         if N0 != 1 or N1 != 1:
             raise ValueError("fused_grid_cg_kernel: a remainder needs the graph domain [1, N]")
         _check_operand("rowptr", rem["rowptr"], (N2 + 1,), torch.int32, device)
         _check_operand("col", rem["col"], (nnz,), torch.int32, device)
-        _check_operand("blk", rem["blk"], (nnz, C, C), F.dtype, device)
-        if nnz * C * C >= 2**31:
+        _check_operand("blk", rem["blk"], lead + (nnz, C, C), F.dtype, device)
+        if rem["blk"].numel() >= 2**31:
             raise ValueError("fused_grid_cg_kernel indexes with int32: remainder too large")
+        blk_stride = nnz * C * C if batch else 0
     n_triples = len(meta["triples"])
     if not 0 < n_triples <= MAX_TRIPLES or c_sys > MAX_CHANNELS:
         raise ValueError(
@@ -802,6 +810,8 @@ def fused_grid_cg_kernel(meta, b, pre, lits, tol, *, guard_div=True, ctc=None,
     total = b.numel()
     if total >= 2**31 or F.numel() >= 2**31 or (block and C * total >= 2**31):
         raise ValueError("fused_grid_cg_kernel indexes with int32: problem too large")
+    if device.type != "cuda":  # after the operand checks, which hold on any device
+        raise ValueError(f"fused_grid_cg_kernel needs CUDA tensors, got {device}")
     with_rem = rem is not None
     multi = form == "multi" if batch else n_sys > 1
     flags = (lm, with_rem, cs, block, bf16, multi, form == "batch")
@@ -827,7 +837,8 @@ def fused_grid_cg_kernel(meta, b, pre, lits, tol, *, guard_div=True, ctc=None,
             ptr(F), ptr(b), ptr(pre_blocks if block else pre), ptr(ctc), ptr(tr), ptr(starts),
             ptr(rem["rowptr"]) if with_rem else None, ptr(rem["col"]) if with_rem else None,
             ptr(rem["blk"]) if with_rem else None,
-            c_sys, n_sys, f_stride, N0, N1, N2, int(lits), ctypes.c_float(float(tol)),
+            c_sys, n_sys, f_stride, blk_stride, N0, N1, N2, int(lits),
+            ctypes.c_float(float(tol)),
             int(bool(guard_div)),
             int(reset_period) if lm else 0, ctypes.c_float(float(q_tolerance) if lm else 0.0),
             ptr(delta), ptr(r), ptr(p), ptr(Ap), ptr(z), ptr(s),

@@ -44,7 +44,6 @@ from ..functions import FunctionSet, tree_dot
 from ..ops.fused_cg import (
     CG_VARIANTS,
     _run_cg,
-    batched_kernel_form,
     coefficient_dtype,
     fused_grid_cg,
 )
@@ -461,7 +460,7 @@ class GaussNewtonSolver:
 
     def _eager_cg(self, s, sp, device):
         """The eager ``_run_cg`` on the system's operator (``_cg``'s
-        fallback, and the batch's where no batched kernel form exists)."""
+        fallback)."""
         self._note_no_kernel()
         pre, lm = s["pre"], s["lm"]
         M = s["pre_apply"] or (lambda r: {k: pre[k] * r[k] for k in r})
@@ -481,10 +480,10 @@ class GaussNewtonSolver:
         )
         return delta, torch.full((), l, dtype=torch.int32, device=device)
 
-    def _gn_step(self, state, fs: FunctionSet, sp, asm_cache=None, eager=False):
+    def _gn_step(self, state, fs: FunctionSet, sp, asm_cache=None):
         X = state["X"]
-        cg = self._eager_cg if eager else self._cg
-        delta, l_done = cg(self._system(X, fs, state, sp, asm_cache), sp, state["n_iter"].device)
+        delta, l_done = self._cg(self._system(X, fs, state, sp, asm_cache), sp,
+                                 state["n_iter"].device)
         return self._gn_finish(state, fs, delta, l_done)
 
     def _gn_finish(self, state, fs: FunctionSet, delta, l_done):
@@ -545,11 +544,10 @@ class GaussNewtonSolver:
             "A_base": A_base, "r_terms": r_terms, "SSq": SSq,
         }
 
-    def _lm_step(self, state, fs: FunctionSet, sp, asm_cache=None, eager=False):
+    def _lm_step(self, state, fs: FunctionSet, sp, asm_cache=None):
         X = state["X"]
         s = self._system(X, fs, state, sp, asm_cache)
-        cg = self._eager_cg if eager else self._cg
-        delta, l_done = cg(s, sp, state["n_iter"].device)
+        delta, l_done = self._cg(s, sp, state["n_iter"].device)
         return self._lm_finish(
             state, fs, sp, X, delta, l_done, s["r_terms"], fs.jvp_fn(X), s["SSq"]
         )
@@ -616,12 +614,6 @@ class GaussNewtonSolver:
         return state, costs
 
     # -- batched solve -----------------------------------------------------------
-    def _launches_kernel(self, device) -> bool:
-        """Whether the fused loop on ``device`` is the CUDA kernel (not the
-        plain twin): where a batched operator has no kernel form, the step
-        runs the eager loop instead, instance by instance."""
-        return self._pallas_mode == "auto" and device.type == "cuda"
-
     def _batched_init(self, X, consts, graphs, params, sp, const_axes, param_axes):
         """The batch's initial state and const cache, each instance's as
         ``_init_state`` and ``_asm_cache`` make it (under vmap), and the
@@ -719,15 +711,10 @@ class GaussNewtonSolver:
         s = self._batched_system(state, *args)
         if s is None:
             return self._step_each(state, *args)
-        meta, kw = s["meta"], s["kw"]
-        if (self._launches_kernel(state["n_iter"].device)
-                and batched_kernel_form(meta, kw["pre_blocks"]) is None):
-            # no batched instance takes a remainder or a block preconditioner
-            return self._step_each(state, *args, eager=True)
         delta, l_done = fused_grid_cg(
-            meta, s["r0"], s["pre"], sp["lIterations"], sp["cg_rz_tolerance"],
+            s["meta"], s["r0"], s["pre"], sp["lIterations"], sp["cg_rz_tolerance"],
             guard_div=self.ip.guard_division_by_zero,
-            interpret=self._pallas_mode == "interpret", **kw,
+            interpret=self._pallas_mode == "interpret", **s["kw"],
         )
 
         def finish(st, c, p, d, l, ex):
@@ -742,10 +729,9 @@ class GaussNewtonSolver:
         return _vmap(finish, (_tensor_dims(state), c_dims, p_dims, 0, 0, _tensor_dims(extra)))(
             state, consts, params, delta, l_done, extra)
 
-    def _step_each(self, state, consts, params, c_dims, p_dims, graphs, sp, cache,
-                   eager=False):
+    def _step_each(self, state, consts, params, c_dims, p_dims, graphs, sp, cache):
         """One step of every instance, one instance after the other (the
-        batch's eager path; ``eager`` skips the fused loop)."""
+        batch's path where the fused loop cannot take the batched system)."""
         B = int(state["n_iter"].shape[0])
         out = []
         for k in range(B):
@@ -753,5 +739,5 @@ class GaussNewtonSolver:
             p = {n: v[k] if p_dims[n] == 0 else v for n, v in params.items()}
             cc = None if cache is None else _instance(cache, k)
             fs = FunctionSet(self.compiled, c, graphs, p)
-            out.append(self._step_fn(_instance(state, k), fs, sp, cc, eager=eager))
+            out.append(self._step_fn(_instance(state, k), fs, sp, cc))
         return tree_map(lambda *v: torch.stack(v), *out)

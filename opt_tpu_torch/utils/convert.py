@@ -81,9 +81,11 @@ def meta_from_numpy(meta: Dict[str, Any], device, batch: bool = False) -> Dict[s
     3-D grid. A graph's folded fields unfold onto the grid [1, N], its flat
     offsets d become (0, d), and its remainder tiles become the block CSR,
     rows in vertex order and each row's entries in ascending endpoint
-    order. ``batch``: F has a leading batch axis (the descriptor a
-    ``jax.vmap`` over instances made, as ``Plan.solve_batched`` runs it);
-    the result is a batched meta (``"batch"``: B) with F [B, T, *dom]."""
+    order. ``batch``: F (and the remainder's blocks) have a leading batch
+    axis (the descriptor a ``jax.vmap`` over instances made, as
+    ``Plan.solve_batched`` runs it; the tiles' tables are shared); the
+    result is a batched meta (``"batch"``: B) with F [B, T, *dom] and the
+    remainder's blocks [B, nnz, C, C] over one CSR."""
     bf16 = _is_bf16(meta["F"])
     F = np.asarray(meta["F"], np.float32)
     lead = F.shape[:1] if batch else ()
@@ -96,8 +98,6 @@ def meta_from_numpy(meta: Dict[str, Any], device, batch: bool = False) -> Dict[s
         F = F.reshape(lead + (T, R * L))[..., :N].reshape(lead + (T, 1, N))
         triples = [((0, d[0]), i, j, fid) for (d, i, j, fid) in triples]
         if meta.get("rem") is not None:
-            if batch:
-                raise ValueError("meta_from_numpy: a batched remainder is not carried across")
             rem = _rem_from_tiles(meta["rem"], L, N, device)
     out = {
         "u_list": tuple(meta["u_list"]),
@@ -124,8 +124,9 @@ def pre_blocks_from_numpy(pre_blocks, device) -> torch.Tensor:
 def _rem_from_tiles(rem, lanes: int, n: int, device):
     """The JAX package's one-hot remainder tiles (table [TT, 2, T] of
     window-local source and destination lanes, -1 padding; rows [TT, 2] of
-    destination and source window rows; blocks [TT, C, C, T]) -> the
-    kernel's CSR {rowptr, col, blk}."""
+    destination and source window rows; blocks [TT, C, C, T], or
+    [B, TT, C, C, T] for a batch) -> the kernel's CSR {rowptr, col, blk}
+    (blk [nnz, C, C], or [B, nnz, C, C])."""
     table = np.asarray(rem["table"])
     rows = np.asarray(rem["rows"]).astype(np.int64)
     bf16 = _is_bf16(rem["blocks"])
@@ -135,7 +136,7 @@ def _rem_from_tiles(rem, lanes: int, n: int, device):
     u = rows[t_idx, 1] * lanes + table[t_idx, 0, lane]
     order = np.lexsort((u, v))
     v, u = v[order], u[order]
-    blk = np.moveaxis(blocks, -1, 1)[t_idx[order], lane[order]]  # [nnz, C, C]
+    blk = np.moveaxis(blocks, -1, -3)[..., t_idx[order], lane[order], :, :]  # [(B,) nnz, C, C]
     rowptr = np.zeros(n + 1, np.int64)
     np.cumsum(np.bincount(v, minlength=n), out=rowptr[1:])
     return {

@@ -3,7 +3,8 @@ JAX package: the four cases of tests/test_batched.py through both packages,
 the batched twin against the Pallas kernel under ``jax.vmap`` (the
 tests/test_pallas.py:196 case, called directly) and against its own
 single-system form, the per-instance exits of the while_loop batching
-rule, and the batched operator that no kernel instance takes."""
+rule, and a batched operator with a remainder, which the batch forms take
+(tests/test_torch_batched_graph.py holds those forms to the JAX package)."""
 
 import jax
 import jax.numpy as jnp
@@ -232,7 +233,14 @@ def _wide_margin_tol(meta_np, r0, pre, ctc=None):
         rz0 = float((pack(r0)[b] * pack(pre)[b] * pack(r0)[b]).sum())
         seqs.append([float(z) if ctc is not None else float(rz) / rz0
                      for (_l, rz, _fl, z) in trace])
-    def clear(vs, q):  # the first value under q is under q/m, those before over m·q
+    return clear_threshold(seqs)
+
+
+def clear_threshold(seqs):
+    """The largest threshold q in 1e-1 ... 1e-5 that every sequence of exit
+    quantities crosses by a wide margin: its first value under q is under
+    q/MARGIN, and every value before it over MARGIN·q."""
+    def clear(vs, q):
         first = next((i for i, v in enumerate(vs) if v < q), None)
         return (first is not None and vs[first] < q / MARGIN
                 and all(v > MARGIN * q for v in vs[:first]))
@@ -294,14 +302,19 @@ def test_batched_wrapper_packs_and_counts_per_instance():
 
 
 def test_batched_instance_names():
-    """The eight batch instances, beside the forty earlier ones."""
+    """Every flag combination in each form: 32 one-system, 32 multi-system
+    and 32 batch instances, the remainder and block-Jacobi ones among
+    them."""
     names = [fused_cg.instance_name(*f) for f in fused_cg.INSTANCES]
-    assert len(names) == len(set(names)) == 48
-    assert sum(n.endswith("_batch") for n in names) == 8
+    assert len(names) == len(set(names)) == 96
+    assert sum(n.endswith("_batch") for n in names) == 32
+    assert sum(n.endswith("_multi") for n in names) == 32
     assert "lm_batch" in names and "gn_cs_bf16_batch" in names
+    assert {"gn_rem_batch", "lm_bj_batch", "gn_rem_multi", "lm_bj_multi",
+            "lm_cs_bj_bf16_rem_batch", "gn_bj_rem_multi"} <= set(names)
 
 
-# -- the batched operator no instance takes -------------------------------------------
+# -- a batched operator with a remainder ----------------------------------------------
 
 
 def _random_mesh(N=60, seed=3):
@@ -329,24 +342,31 @@ def _random_mesh(N=60, seed=3):
 
 
 def test_batched_remainder_reports_no_kernel(monkeypatch, capsys):
-    """A batched graph operator with a remainder has no batched kernel
-    instance: on the card (faked here) each instance's step runs the eager
-    loop, never the kernel or the twin, ``fused_fallback`` says
-    "no_kernel" and stderr names it; the results are the per-instance
-    solves through the eager loop."""
+    """A batched graph operator with a remainder no longer reports
+    "no_kernel": it has a batch form ("multi" for this mesh's 6 channels
+    and remainder blocks), the batch runs one batched fused-loop call a step
+    (the twin here, on CPU tensors; the kernel of that form on the card),
+    never an instance's step by itself, ``fused_fallback`` stays None and
+    stderr is silent; the results are the per-instance solves through the
+    eager loop."""
     N, inputs = _random_mesh()
     sp = dict(nIterations=1, lIterations=50, cg_rz_tolerance=1e-8)
     plan = ott.Problem(tspecs.arap_mesh_deformation).plan(dims={"N": N}, device="cpu")
     meta = plan.cg_inputs({**inputs, "Offset": inputs["Offset"][0]})[0]
     assert meta["rem"] is not None
-    assert fused_cg.batched_kernel_form(dict(meta, batch=2)) is None
-    monkeypatch.setattr(GaussNewtonSolver, "_launches_kernel", lambda self, device: True)
+    assert fused_cg.batched_kernel_form(dict(meta, batch=2)) == "multi"
     calls = []
-    monkeypatch.setattr(fused_cg, "fused_grid_cg_kernel", lambda *a, **k: calls.append(1))
-    monkeypatch.setattr(fused_cg, "fused_grid_cg_reference", lambda *a, **k: calls.append(1))
+    twin = fused_cg.fused_grid_cg_reference
+
+    def spy(*a, **k):  # the batched call, and each system's within it
+        calls.append((k.get("batched", False), k.get("n_sys", 1)))
+        return twin(*a, **k)
+
+    monkeypatch.setattr(fused_cg, "fused_grid_cg_reference", spy)
+    monkeypatch.setattr(GaussNewtonSolver, "_step_each", lambda *a, **k: 1 / 0)
     res = plan.solve_batched(dict(inputs), **sp)
-    assert plan.fused_fallback == "no_kernel" and not calls
-    assert "no form the fused CG kernel takes" in capsys.readouterr().err
+    assert plan.fused_fallback is None and calls == [(True, 2)] + [(False, 1)] * 2
+    assert "no form the fused CG kernel takes" not in capsys.readouterr().err
     for k in range(2):
         eager = ott.Problem(tspecs.arap_mesh_deformation).plan(
             dims={"N": N}, device="cpu", init_params=ott.InitializationParameters(
