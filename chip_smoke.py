@@ -67,6 +67,15 @@ the single-device solve on the card (and poisson to the JAX package's),
 with the tile kernel launched once per apply; it times the tile kernel
 against its bound, and the sharded solves (four ranks sharing one card:
 not a scaling figure).
+The tiled route: where one system's state fits the card's shared memory at
+one tile a block (fused_cg.tiled_grid_plan: the 2-D float32 GN and LM
+systems at 512x512 and below), the launch takes the tiled kernel
+(opt_tpu_torch/ops/csrc/tiled_grid_cg.cu, instances gn_tiled and
+lm_tiled, in the same library); every check above of such a system runs
+it, three more shapes check it (the radius-2 stencil, image_warping on a
+grid its tiles do not divide, and on a grid of one tile), the template's
+gn and lm instances stay checked and timed beside it at 512x512x3, and
+the main paths of those systems launch it once a step.
 It exits non-zero, with no result line, when CUDA is not available or any
 check fails. It imports neither JAX nor opt_tpu.
 """
@@ -322,6 +331,14 @@ RESET_PERIOD = 10  # SOLVER_PARAMETER_DEFAULTS["residual_reset_period"]
 TIMED_ITERS = 100  # iterations of a timed loop
 PROFILE_SESSIONS = 3  # kernel_device_ms: profiler sessions before CUDA events
 KERNEL_SOURCE = "opt_tpu_torch/ops/csrc/fused_grid_cg.cuh"
+TILED_SOURCE = "opt_tpu_torch/ops/csrc/tiled_grid_cg.cu"
+# the CG kernels' names, as the profiler's entries carry them
+CG_KERNELS = ("fused_grid_cg_kernel", "tiled_grid_cg_kernel")
+# the tiled kernel's further checks: image_warping on a grid its ceil split
+# leaves ragged in both axes (12 x 11 tiles of 42 x 28, the last 38 and 21),
+# and on a grid of one tile
+RAGGED_DIMS = {"W": 500, "H": 301}
+SINGLE_N = 16
 K1 = "opt_tpu/ops/pallas_cg.py:328"
 K3 = "opt_tpu/ops/pallas_cg.py:335"  # _kernel's flat1d=True graph form
 K4 = "opt_tpu/ops/pallas_cg.py:338"  # _kernel's rem_pairs remainder
@@ -495,19 +512,21 @@ def sched_inputs(n):
     return x0, c0, c1
 
 
-def bench_image_warping_inputs(n):
+def bench_image_warping_inputs(n, m=None):
     """bench.py::bench_image_warping's inputs: RandomState(0), 16 fit
-    constraints, w_fitSqrt = sqrt(100), w_regSqrt = sqrt(0.01)."""
+    constraints, w_fitSqrt = sqrt(100), w_regSqrt = sqrt(0.01); on an
+    n x m grid where `m` is given."""
     rng = np.random.RandomState(0)
     f32 = np.float32
-    ur = np.stack(np.meshgrid(np.arange(n), np.arange(n), indexing="ij"), -1).astype(f32)
-    con = -np.ones((n, n, 2), f32)
+    mm = n if m is None else m
+    ur = np.stack(np.meshgrid(np.arange(n), np.arange(mm), indexing="ij"), -1).astype(f32)
+    con = -np.ones((n, mm, 2), f32)
     for _ in range(16):
-        i, j = rng.randint(0, n, 2)
+        i, j = rng.randint(0, n, 2) if m is None else (rng.randint(0, n), rng.randint(0, m))
         con[i, j] = [i + rng.randn() * 3, j + rng.randn() * 3]
     return {
-        "Offset": ur.copy(), "Angle": np.zeros((n, n), f32), "UrShape": ur,
-        "Constraints": con, "Mask": np.zeros((n, n), f32),
+        "Offset": ur.copy(), "Angle": np.zeros((n, mm), f32), "UrShape": ur,
+        "Constraints": con, "Mask": np.zeros((n, mm), f32),
         "w_fitSqrt": np.sqrt(100.0).astype(f32), "w_regSqrt": np.sqrt(0.01).astype(f32),
     }
 
@@ -799,13 +818,37 @@ def twin_kw(meta):
     return dict(rem=meta["rem"], n_sys=n_systems(meta), batched=bool(meta.get("batch")))
 
 
-def form_of(meta, lm=None, cs=False, pre_blocks=None):
-    """The kernel instance a call with these operands launches."""
-    batch = fused_cg.batched_kernel_form(meta, pre_blocks) if meta.get("batch") else None
-    return fused_cg.instance_name(bool(lm), meta["rem"] is not None, bool(cs),
-                                  pre_blocks is not None, meta["F"].dtype == torch.bfloat16,
-                                  batch == "multi" or (not batch and n_systems(meta) > 1),
-                                  batch == "batch")
+def form_of(meta, b, lm=None, cs=False, pre_blocks=None, template=False):
+    """The kernel instance a call with these operands launches (with
+    `template`: the template's, which template_grid_cg_kernel launches)."""
+    with template_route() if template else contextlib.nullcontext():
+        return fused_cg.launch_instance(meta, b, lm=bool(lm), cs=bool(cs), pre_blocks=pre_blocks)
+
+
+def tiled_line(label, meta, b, lm=None):
+    """The tiled route's plan of a system, printed: tiles, halo, threads
+    and shared memory a block; raises where the system does not take it."""
+    plan = fused_cg.route_plan(meta, b, lm=bool(lm))
+    if plan is None:
+        raise RuntimeError(f"{label}: does not take the tiled kernel")
+    log(json.dumps({"tiled_plan": label, "form": form_of(meta, b, lm), "grid": list(b.shape[1:]),
+                    "channels": int(b.shape[0]), "triples": len(meta["triples"]),
+                    "tiles": list(plan["tiles"]), "tile": list(plan["tile"]),
+                    "halo": plan["halo"], "threads": plan["threads"],
+                    "smem_bytes": plan["smem_bytes"]}))
+    return plan
+
+
+@contextlib.contextmanager
+def template_route():
+    """Send every launch to the template for the while (fused_cg.route_plan
+    replaced), to time a main path as it ran before the tiled route."""
+    saved = fused_cg.route_plan
+    fused_cg.route_plan = lambda *a, **k: None
+    try:
+        yield
+    finally:
+        fused_cg.route_plan = saved
 
 
 def meta_shape(meta):
@@ -860,7 +903,7 @@ def cg_bound(shape, iters, **knobs):
 
 
 def kernel_vs_twin(label, meta, b, pre, lits, tol, lm=None, q_tol=Q_TOL, bitwise=False,
-                   **variant):
+                   template=False, **variant):
     """Kernel and twin on the same system (``variant``: cs, pre_blocks).
     tol = 0 (and q_tol = -inf under LM) runs `lits` iterations with no exit
     and holds δ to the twin's; otherwise the real exits, which must give
@@ -868,60 +911,69 @@ def kernel_vs_twin(label, meta, b, pre, lits, tol, lm=None, q_tol=Q_TOL, bitwise
     one launch: `lits` and the exits are each system's, the counts are held
     system by system and reported summed. A batch of tiny systems may reach
     an exact zero residual before `lits` even with no exit (the loop then
-    stops): its counts are held to the twin's, system by system."""
-    t0 = time.perf_counter()
+    stops): its counts are held to the twin's, system by system. With
+    `template`, the template's instance is held the same way to the same
+    twin result, in a second line (a system the tiled route takes)."""
     lm_kw = dict(lm, q_tolerance=q_tol) if lm else {}
     n_sys = n_systems(meta)
-    dk, ik = fused_cg.fused_grid_cg_kernel(meta, b, pre, lits, tol, **lm_kw, **variant)
     trace, counts = [], []
     dr, ir = fused_cg.fused_grid_cg_reference(meta["F"], meta["triples"], b, pre, lits, tol,
                                               trace=None if n_sys > 1 else trace,
                                               counts=counts, **twin_kw(meta), **lm_kw, **variant)
-    torch.cuda.synchronize()
-    per_system = ik.tolist()
-    ik = sum(per_system)
-    err = float((dk - dr).abs().max())
-    scale = float(dr.abs().max())
-    finite = bool(torch.isfinite(dk).all())
-    line = {"check": "kernel_vs_twin", "case": label, "form": form_of(meta, lm, **variant),
-            "lits": lits, "tol": tol, "kernel_iters": ik, "twin_iters": ir,
-            "max_abs_err": err, "max_abs_delta": scale, "rel_err": err / max(scale, 1e-30),
-            "bitwise_equal": bool(torch.equal(dk, dr)), "s": time.perf_counter() - t0}
-    if lm:
-        line["q_tol"] = q_tol
-    if meta.get("batch"):
-        line["systems_bitwise_equal"] = sum(bool(torch.equal(dk[k], dr[k])) for k in range(n_sys))
-        line["systems"] = n_sys
-    if n_sys > 1:
-        if n_sys <= 16:
-            line.update(kernel_iters_per_system=per_system, twin_iters_per_system=counts)
-        if per_system != counts:
-            log(json.dumps(line))
-            raise RuntimeError(f"{label}: per-system counts {per_system}, the twin's {counts}")
-    if ik != ir:  # the twin's exit quantities where the two counts stop
-        line["twin_at_exits"] = [
-            {"iter": l, "rz": float(rz), "rz_floor": float(fl),
-             "zeta": None if z is None else float(z), "q_tol": q_tol if lm else None}
-            for (l, rz, fl, z) in trace if l in (ik, ir)
-        ]
-    log(json.dumps(line))
-    if not finite:
-        raise RuntimeError(f"{label}: kernel delta not finite")
-    if bitwise and not line["bitwise_equal"]:
-        raise RuntimeError(f"{label}: kernel and twin not bitwise equal ({err})")
-    if ik != ir:
-        raise RuntimeError(f"{label}: kernel ran {ik} iterations, the twin {ir}")
-    no_exit = tol == 0.0 and (not lm or q_tol == float("-inf"))
-    if no_exit:
-        # Chronopoulos-Gear keeps one exit even so (a step denominator <= 0);
-        # every case here but the block-per-system ones, whose tiny systems
-        # reach an exact zero residual (their counts are held to the twin's
-        # above), runs `lits` iterations without reaching it
-        if ik != lits * n_sys and not line["form"].endswith("_batch"):
-            raise RuntimeError(f"{label}: iteration counts {ik}/{ir}, expected {lits * n_sys}")
-        if err > DELTA_RTOL * scale:
-            raise RuntimeError(f"{label}: max|dδ| {err} > {DELTA_RTOL}·max|δ| {scale}")
-    return err
+    errs = []
+    for tpl in (False, True) if template else (False,):
+        t0 = time.perf_counter()
+        launch = fused_cg.template_grid_cg_kernel if tpl else fused_cg.fused_grid_cg_kernel
+        dk, ik = launch(meta, b, pre, lits, tol, **lm_kw, **variant)
+        torch.cuda.synchronize()
+        per_system = ik.tolist()
+        ik = sum(per_system)
+        err = float((dk - dr).abs().max())
+        scale = float(dr.abs().max())
+        finite = bool(torch.isfinite(dk).all())
+        line = {"check": "kernel_vs_twin", "case": label,
+                "form": form_of(meta, b, lm, template=tpl, **variant),
+                "lits": lits, "tol": tol, "kernel_iters": ik, "twin_iters": ir,
+                "max_abs_err": err, "max_abs_delta": scale, "rel_err": err / max(scale, 1e-30),
+                "bitwise_equal": bool(torch.equal(dk, dr)), "s": time.perf_counter() - t0}
+        if lm:
+            line["q_tol"] = q_tol
+        if meta.get("batch"):
+            line["systems_bitwise_equal"] = sum(bool(torch.equal(dk[k], dr[k]))
+                                                for k in range(n_sys))
+            line["systems"] = n_sys
+        if n_sys > 1:
+            if n_sys <= 16:
+                line.update(kernel_iters_per_system=per_system, twin_iters_per_system=counts)
+            if per_system != counts:
+                log(json.dumps(line))
+                raise RuntimeError(f"{label}: per-system counts {per_system}, the twin's {counts}")
+        if ik != ir:  # the twin's exit quantities where the two counts stop
+            line["twin_at_exits"] = [
+                {"iter": l, "rz": float(rz), "rz_floor": float(fl),
+                 "zeta": None if z is None else float(z), "q_tol": q_tol if lm else None}
+                for (l, rz, fl, z) in trace if l in (ik, ir)
+            ]
+        log(json.dumps(line))
+        if not finite:
+            raise RuntimeError(f"{label}: kernel delta not finite")
+        if bitwise and not line["bitwise_equal"]:
+            raise RuntimeError(f"{label}: kernel and twin not bitwise equal ({err})")
+        if ik != ir:
+            raise RuntimeError(f"{label}: kernel ran {ik} iterations, the twin {ir}")
+        no_exit = tol == 0.0 and (not lm or q_tol == float("-inf"))
+        if no_exit:
+            # Chronopoulos-Gear keeps one exit even so (a step denominator
+            # <= 0); every case here but the block-per-system ones, whose tiny
+            # systems reach an exact zero residual (their counts are held to
+            # the twin's above), runs `lits` iterations without reaching it
+            if ik != lits * n_sys and not line["form"].endswith("_batch"):
+                raise RuntimeError(f"{label}: iteration counts {ik}/{ir}, "
+                                   f"expected {lits * n_sys}")
+            if err > DELTA_RTOL * scale:
+                raise RuntimeError(f"{label}: max|dδ| {err} > {DELTA_RTOL}·max|δ| {scale}")
+        errs.append(err)
+    return errs[0]
 
 
 def bitwise_repeat(label, meta, b, pre, lits, lm=None, **variant):
@@ -930,20 +982,21 @@ def bitwise_repeat(label, meta, b, pre, lits, lm=None, **variant):
     d2, i2 = fused_cg.fused_grid_cg_kernel(meta, b, pre, lits, CG_TOL, **lm_kw, **variant)
     torch.cuda.synchronize()
     same = bool(torch.equal(d1, d2)) and i1.tolist() == i2.tolist()
-    log(json.dumps({"check": "bitwise_repeat", "case": label, "form": form_of(meta, lm, **variant),
-                    "iters": int(i1.sum()), "equal": same}))
+    log(json.dumps({"check": "bitwise_repeat", "case": label,
+                    "form": form_of(meta, b, lm, **variant), "iters": int(i1.sum()),
+                    "equal": same}))
     if not same:
         raise RuntimeError(f"{label}: two launches on the same input differ")
 
 
-def variant_checks(label, system, lits, exit_lits):
+def variant_checks(label, system, lits, exit_lits, bitwise=False):
     """A variant system's kernel against its twin: `lits` iterations with
     no exit, the real exits with up to `exit_lits`, and a bitwise repeat.
     Returns the first check's max|Δδ|."""
     meta, b, pre, lm, variant = system
     no_exit = dict(q_tol=float("-inf")) if lm else {}
-    err = kernel_vs_twin(label, meta, b, pre, lits, 0.0, lm, **no_exit, **variant)
-    kernel_vs_twin(label, meta, b, pre, exit_lits, CG_TOL, lm, **variant)
+    err = kernel_vs_twin(label, meta, b, pre, lits, 0.0, lm, bitwise=bitwise, **no_exit, **variant)
+    kernel_vs_twin(label, meta, b, pre, exit_lits, CG_TOL, lm, bitwise=bitwise, **variant)
     bitwise_repeat(label, meta, b, pre, exit_lits, lm, **variant)
     return err
 
@@ -953,14 +1006,17 @@ def main_path(label, spec, kind, dims, inputs, nl, li, want, shapes, form=None, 
     launch counts set to 0 just before it; returns (result, launches by
     instance, plan). ``want``: the JAX package's final cost, or None where
     the caller holds the costs itself; ``ip``: InitializationParameters'
-    keywords."""
+    keywords; ``form``: the instance that must run each step (by default
+    "gn" or "lm", or its tiled instance where that is the one launched)."""
     fused_cg.reset_launch_counts()
     plan = ot.Problem(spec, kind=kind).plan(dims=dims,
                                            init_params=ot.InitializationParameters(**(ip or {})))
     res = plan.solve(dict(inputs), nIterations=nl, lIterations=li)
     torch.cuda.synchronize()
     launches = {k: v for k, v in fused_cg.fused_grid_cg_kernel.launches.items() if v}
-    form = form or ("lm" if kind == "LMGPU" else "gn")
+    if form is None:
+        form = "lm" if kind == "LMGPU" else "gn"
+        form += "_tiled" if launches.get(form + "_tiled") else ""
     line = {"check": "main_path", "case": label, "form": form, "final_cost": res.final_cost,
             "costs": res.costs, "nonlinear_iters": res.num_iterations,
             "lin_iters": res.num_linear_iterations, "kernel_launches": launches,
@@ -1158,24 +1214,25 @@ def instance_system(meta, b, pre, lm, variant, k):
 
 
 def batch_vs_single(label, meta, b, pre, lits, lm=None, **variant):
-    """Each system of a batched launch against its own one-system launch,
-    with the real exits: bitwise equal, count for count. The one-system
-    launch must partition the dots as the batched one does: one block for
-    a block-per-system launch (systems of at most BLOCK_THREADS elements),
-    the same grid for the multi-system form."""
+    """Each system of a batched launch against its own one-system launch
+    of the template, with the real exits: bitwise equal, count for count.
+    The one-system launch must partition the dots as the batched one does:
+    one block for a block-per-system launch (systems of at most
+    BLOCK_THREADS elements), the same grid for the multi-system form."""
     lm_kw = dict(lm, q_tolerance=Q_TOL) if lm else {}
     dk, ik = fused_cg.fused_grid_cg_kernel(meta, b, pre, lits, CG_TOL, **lm_kw, **variant)
     equal, counts = 0, []
     for k in range(n_systems(meta)):
         m1, b1, p1, lm1, var1 = instance_system(meta, b, pre, lm, variant, k)
         kw1 = dict(lm1, q_tolerance=Q_TOL) if lm1 else {}
-        d1, i1 = fused_cg.fused_grid_cg_kernel(m1, b1, p1, lits, CG_TOL, **kw1, **var1)
+        d1, i1 = fused_cg.template_grid_cg_kernel(m1, b1, p1, lits, CG_TOL, **kw1, **var1)
         equal += bool(torch.equal(d1, dk[k]))
         counts.append(i1)
     torch.cuda.synchronize()
     counts = torch.cat(counts).tolist()
     same_counts = counts == ik.tolist()
-    log(json.dumps({"check": "batch_vs_single", "case": label, "form": form_of(meta, lm, **variant),
+    log(json.dumps({"check": "batch_vs_single", "case": label,
+                    "form": form_of(meta, b, lm, **variant),
                     "systems": n_systems(meta), "systems_bitwise_equal": equal,
                     "counts_equal": same_counts, "iters": sum(counts)}))
     if equal != n_systems(meta) or not same_counts:
@@ -1189,8 +1246,8 @@ def batch_checks(label, system, lits, exit_lits, single=True, form=None):
     its own one-system launch: batch_vs_single). ``form``: the instance the
     launch must take. Returns the no-exit check's max|Δδ|."""
     meta, b, pre, lm, variant = system
-    if form is not None and form_of(meta, lm, **variant) != form:
-        raise RuntimeError(f"{label}: takes {form_of(meta, lm, **variant)}, not {form}")
+    if form is not None and form_of(meta, b, lm, **variant) != form:
+        raise RuntimeError(f"{label}: takes {form_of(meta, b, lm, **variant)}, not {form}")
     no_exit = dict(q_tol=float("-inf")) if lm else {}
     err = kernel_vs_twin(label, meta, b, pre, lits, 0.0, lm, bitwise=True, **no_exit, **variant)
     kernel_vs_twin(label, meta, b, pre, exit_lits, CG_TOL, lm, bitwise=True, **variant)
@@ -1392,12 +1449,12 @@ def pyramid_flow_main_path(levels):
     X = res.unknowns["X"]
     line = {"check": "main_path", "case": "optical_flow PyramidPlan " + " then ".join(
                 f"{d['W']}x{d['H']}" for d in dims) + f" GN {FLOW_NL}x{FLOW_LI} a level",
-            "form": "gn", "kernel_launches": launches, "level_costs": res.costs,
+            "form": "gn_tiled", "kernel_launches": launches, "level_costs": res.costs,
             "jax_cpu_level_costs": JAX_CPU_FLOW_LEVEL_COSTS, "rel_diff": rel,
             "lin_iters": res.num_linear_iterations, "nonlinear_iters": res.num_iterations,
             "fused_fallback": [p.fused_fallback for p in pplan.plans], "solve_s": res.wall_time_s}
     log(json.dumps(line))
-    if (launches != {"gn": len(levels) * FLOW_NL} or any(r > GOLDEN_RTOL for r in rel)
+    if (launches != {"gn_tiled": len(levels) * FLOW_NL} or any(r > GOLDEN_RTOL for r in rel)
             or any(p.fused_fallback is not None for p in pplan.plans)
             or tuple(X.shape) != (dims[-1]["W"], dims[-1]["H"], 2)
             or not bool(torch.isfinite(X).all())):
@@ -1438,12 +1495,12 @@ def scheduled_main_path():
     rel = [abs(a - b) / abs(b) for a, b in zip(res.costs, host_costs)]
     dx = float((res.unknowns["X"] - r.unknowns["X"]).abs().max())
     line = {"check": "main_path", "case": f"solve_scheduled {SCHED_OUTER} x GN "
-            f"{SCHED_NL}x{SCHED_LI} at {n}x{n}", "form": "gn", "kernel_launches": launches,
+            f"{SCHED_NL}x{SCHED_LI} at {n}x{n}", "form": "gn_tiled", "kernel_launches": launches,
             "costs": res.costs, "host_loop_costs": host_costs, "rel_diff": rel,
             "max_abs_dX": dx, "lin_iters": res.num_linear_iterations, "host_lin_iters": host_lin,
             "fused_fallback": plan.fused_fallback, "solve_s": res.wall_time_s}
     log(json.dumps(line))
-    if (launches != {"gn": SCHED_OUTER * SCHED_NL} or plan.fused_fallback is not None
+    if (launches != {"gn_tiled": SCHED_OUTER * SCHED_NL} or plan.fused_fallback is not None
             or len(rel) != SCHED_OUTER or max(rel) > SCHED_RTOL
             or not bool(torch.isfinite(res.unknowns["X"]).all())):
         raise RuntimeError(f"solve_scheduled failed: {line}")
@@ -1531,8 +1588,8 @@ def dev_us(e):
     return float(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)))
 
 
-def kernel_device_ms(fn, reps, launches, kernel="fused_grid_cg_kernel"):
-    """Device ms of the named kernel a call, mean over `reps` calls of fn
+def kernel_device_ms(fn, reps, launches, kernel=CG_KERNELS):
+    """Device ms of the named kernel (or kernels) a call, mean over `reps` calls of fn
     after a warm-up, from torch.profiler's kernel entries: the kernel's own
     time, which CUDA events around a short launch blur with the wrapper's
     host work: the mean of the launches seen, times the `launches` of a
@@ -1550,8 +1607,10 @@ def kernel_device_ms(fn, reps, launches, kernel="fused_grid_cg_kernel"):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+        names = (kernel,) if isinstance(kernel, str) else kernel
         ks = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) == DeviceType.CUDA and kernel in e.key]
+              if getattr(e, "device_type", None) == DeviceType.CUDA
+              and any(k in e.key for k in names)]
         n = sum(e.count for e in ks)
         if n:
             if n != reps * launches:
@@ -1560,7 +1619,7 @@ def kernel_device_ms(fn, reps, launches, kernel="fused_grid_cg_kernel"):
             return sum(dev_us(e) for e in ks) / 1e3 / n * launches
         log(json.dumps({"profiler_launches_seen": 0, "made": reps * launches,
                         "kernel": kernel, "session": session}))
-    log(json.dumps({"device_ms_by": "cuda_events", "kernel": kernel,
+    log(json.dumps({"device_ms_by": "cuda_events", "kernel": names,
                     "why": f"the profiler saw no launch in {PROFILE_SESSIONS} sessions"}))
     return time_cuda(fn, reps)
 
@@ -1602,7 +1661,7 @@ def time_once(fn):
 
 
 def time_pair(label, meta, b, pre, gpu, lm=None, reps=3, lits=TIMED_ITERS, device=False,
-              twin=True, **variant):
+              twin=True, template=False, **variant):
     """ms of `lits` CG iterations with no exit of the kernel (mean of `reps`
     launches after a warm-up) and of its twin (one call, which also holds
     the count; ``twin=False``: not timed, plain ms None, for forms whose
@@ -1610,16 +1669,18 @@ def time_pair(label, meta, b, pre, gpu, lm=None, reps=3, lits=TIMED_ITERS, devic
     plain ms, bound ms, bound by). With `device` the kernel's ms is its
     device time (kernel_device_ms), for a launch too short for the events to
     part it from the wrapper's host work; the events' ms is printed beside
-    it."""
+    it. With `template` the template's instance is timed, where the tiled
+    route would take the system."""
     lm_kw = dict(lm, q_tolerance=float("-inf")) if lm else {}
+    launch = fused_cg.template_grid_cg_kernel if template else fused_cg.fused_grid_cg_kernel
     # with tol = 0 a loop that reaches an exact zero residual still stops
     # (rz <= 0, a denominator <= 0): times and the bound are of the
     # iterations executed, summed over a split's or a batch's systems
-    _d, it = fused_cg.fused_grid_cg_kernel(meta, b, pre, lits, 0.0, **lm_kw, **variant)
+    _d, it = launch(meta, b, pre, lits, 0.0, **lm_kw, **variant)
     iters = int(it.sum())
 
     def call():
-        fused_cg.fused_grid_cg_kernel(meta, b, pre, lits, 0.0, **lm_kw, **variant)
+        launch(meta, b, pre, lits, 0.0, **lm_kw, **variant)
 
     ms_k = time_cuda(call, reps)
     extra = {}
@@ -1637,7 +1698,7 @@ def time_pair(label, meta, b, pre, gpu, lm=None, reps=3, lits=TIMED_ITERS, devic
     pre_planes = shape["C"] ** 2 if variant.get("pre_blocks") is not None else None
     bound_ms, bound_by = cg_bound(shape, iters, lm=bool(lm), cs=bool(variant.get("cs")),
                                   pre_planes=pre_planes)
-    form = form_of(meta, lm, **variant)
+    form = form_of(meta, b, lm, template=template, **variant)
     log(json.dumps({"timing": label, "form": form, "gpu": gpu, "iters": iters,
                     "kernel_ms_per_cg_iter": ms_k / iters,
                     "twin_ms_per_cg_iter": None if ms_t is None else ms_t / iters,
@@ -1647,10 +1708,10 @@ def time_pair(label, meta, b, pre, gpu, lm=None, reps=3, lits=TIMED_ITERS, devic
     return ms_k, ms_t, bound_ms, bound_by
 
 
-def time_main_path(label, spec, kind, dims, inputs, nl, li, gpu, ip=None):
+def time_main_path(label, spec, kind, dims, inputs, nl, li, gpu, ip=None, reps=1):
     """Assembly ms per nonlinear step (the step's system, CUDA events) and
-    the whole solve's wall time (host clock, synchronised), after a warm-up
-    solve; ``ip``: InitializationParameters' keywords."""
+    the whole solve's wall time (host clock, synchronised) of `reps` solves,
+    after a warm-up solve; ``ip``: InitializationParameters' keywords."""
     plan = ot.Problem(spec, kind=kind).plan(dims=dims,
                                            init_params=ot.InitializationParameters(**(ip or {})))
     u, c, g, prm = plan._normalize_and_place(inputs)
@@ -1666,13 +1727,36 @@ def time_main_path(label, spec, kind, dims, inputs, nl, li, gpu, ip=None):
     ms_assembly = time_cuda(assemble, 2)
     plan.solve(dict(inputs), nIterations=nl, lIterations=li)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = plan.solve(dict(inputs), nIterations=nl, lIterations=li)
-    torch.cuda.synchronize()
-    solve_ms = [(time.perf_counter() - t0) * 1e3]
+    solve_ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        res = plan.solve(dict(inputs), nIterations=nl, lIterations=li)
+        torch.cuda.synchronize()
+        solve_ms.append((time.perf_counter() - t0) * 1e3)
     log(json.dumps({"timing": label, "gpu": gpu, "assembly_ms_per_step": ms_assembly,
                     "solve_ms": solve_ms, "nonlinear_iters": res.num_iterations,
                     "lin_iters": res.num_linear_iterations}))
+
+
+def tiled_floor(gpu, tiles=(12, 11), tile=4):
+    """The tiled kernel's time an iteration with almost no work: laplacian
+    on a grid of `tiles` tiles of `tile` x `tile` points, one block each
+    (a plan forced past tiled_grid_plan's, which would take fewer tiles
+    here), 100 iterations with no exit, CUDA events: the floor its two
+    grid barriers and dot reductions set, against which the routed
+    shapes' times are read. Returns ms an iteration."""
+    n1, n2 = tiles[0] * tile, tiles[1] * tile
+    rng = np.random.RandomState(0)
+    inputs = {"X": rng.rand(n1, n2).astype(np.float32), "A": rng.rand(n1, n2).astype(np.float32)}
+    m, b, p, _lm, _v = system(laplacian, {"W": n1, "H": n2}, inputs)
+    h = 1
+    plan = {"tiles": tiles, "tile": (tile, tile), "halo": h, "threads": fused_cg.TILED_THREADS,
+            "smem_bytes": fused_cg.tiled_smem_bytes(False, 1, tile, tile, h, len(m["triples"]))}
+    ms = time_cuda(lambda: fused_cg.tiled_grid_cg_kernel(m, b, p, TIMED_ITERS, 0.0, plan), 5)
+    log(json.dumps({"timing": "tiled_floor", "gpu": gpu, "grid": [n1, n2],
+                    "tiles": list(tiles), "tile": [tile, tile], "iters": TIMED_ITERS,
+                    "kernel_ms_per_cg_iter": ms / TIMED_ITERS}))
+    return ms / TIMED_ITERS
 
 
 def profile_solve(label, run, gpu):
@@ -1693,7 +1777,8 @@ def profile_solve(label, run, gpu):
 
     kernels = [e for e in events if getattr(e, "device_type", None) == DeviceType.CUDA]
     device_ms = sum(dev_us(e) for e in kernels) / 1e3
-    cg_ms = sum(dev_us(e) for e in kernels if "fused_grid_cg_kernel" in e.key) / 1e3
+    cg = [e for e in kernels if any(k in e.key for k in CG_KERNELS)]
+    cg_ms = sum(dev_us(e) for e in cg) / 1e3
     syncs = {e.key: e.count for e in events
              if "Synchronize" in e.key or e.key in ("aten::item", "aten::_local_scalar_dense")}
     line = {"profile": label, "gpu": gpu, "wall_ms": wall_ms, "device_ms": device_ms,
@@ -1701,9 +1786,10 @@ def profile_solve(label, run, gpu):
             "cg_kernel_share_of_device": cg_ms / device_ms if device_ms else None,
             "device_busy_share_of_wall": device_ms / wall_ms,
             "device_kernel_launches": sum(e.count for e in kernels),
-            "cg_kernel_launches": sum(e.count for e in kernels if "fused_grid_cg_kernel" in e.key),
+            "cg_kernel_launches": sum(e.count for e in cg),
             "host_syncs": syncs, "nonlinear_iters": int(np.max(res.num_iterations)),
             "lin_iters": int(np.sum(res.num_linear_iterations))}
+    line["cg_kernels"] = sorted({e.key for e in cg})
     log(json.dumps(line))
     os.makedirs(OUT_DIR, exist_ok=True)
     top = sorted(kernels, key=dev_us, reverse=True)[:20]
@@ -2037,11 +2123,15 @@ def main() -> int:
     log(json.dumps({"registers": {fused_cg.instance_name(*k): v[0] for k, v in sorted(regs.items())},
                     "spill_store_bytes": {fused_cg.instance_name(*k): v[1]
                                           for k, v in sorted(regs.items()) if v[1]},
+                    "tiled_registers_spill_store_load_bytes": {
+                        fused_cg.instance_name(*k): list(regs[k])
+                        for k in fused_cg.TILED_INSTANCES if k in regs},
                     "build_s": info["seconds"], "units_s": info["units_s"]}))
-    if len(regs) != len(fused_cg.INSTANCES):
-        raise RuntimeError(f"ptxas reported {len(regs)} instances, expected {len(fused_cg.INSTANCES)}")
+    want = len(fused_cg.INSTANCES) + len(fused_cg.TILED_INSTANCES)
+    if len(regs) != want:
+        raise RuntimeError(f"ptxas reported {len(regs)} instances, expected {want}")
     off_cap = {fused_cg.instance_name(*k): v[0] for k, v in regs.items()
-               if v[0] != (40 if k[1] else 32)}
+               if len(k) == 7 and v[0] != (40 if k[1] else 32)}
     if off_cap:  # the caps of __launch_bounds__: 8 blocks per SM, the remainder 6
         raise RuntimeError(f"instances off their register cap: {off_cap}")
     # the sharded main paths (3b): 2x2 ranks on the card, the tile kernel
@@ -2054,12 +2144,23 @@ def main() -> int:
     sharded = start_sharded(SHARDED_CASES)
 
     phases["start_and_build"] = time.perf_counter() - t_start - sum(phases.values())
-    # 2. each kernel form against its twin at the main paths' shapes
+    # 2. each kernel form against its twin at the main paths' shapes; the
+    # 2-D float32 GN and LM systems at 512x512 take the tiled kernel (their
+    # plans printed), the larger ones the template
+    tiled_line(f"poisson{n}x4", meta, b)
+    tiled_line(f"laplacian{n}", *lap[:2])
+    tiled_line(f"image_warping{IW_N}x3 GN", mmeta, mb)
+    tiled_line(f"image_warping{IW_N}x3 LM", vmeta, vb, vlm)
+    for label, (m_, b_, lm_) in {f"poisson{BIG_N}x4": (pbig[0], pbig[1], None),
+                                 f"image_warping{IW_BIG_N}x3 GN": (gmeta, gb, None),
+                                 f"image_warping{IW_BIG_N}x3 LM": (wmeta, wb, wlm)}.items():
+        if fused_cg.route_plan(m_, b_, lm=lm_ is not None) is not None:
+            raise RuntimeError(f"{label}: takes the tiled kernel, whose tiles it overflows")
     log(f"poisson {n}x{n}x4: {meta['F'].shape[0]} fields, {len(meta['triples'])} triples")
-    err_gn = kernel_vs_twin(f"poisson{n}x4", meta, b, pre, 50, 0.0)
-    kernel_vs_twin(f"poisson{n}x4", meta, b, pre, 2000, CG_TOL)
-    kernel_vs_twin(f"laplacian{n}", *lap[:3], 50, 0.0)
-    kernel_vs_twin(f"laplacian{n}", *lap[:3], 2000, CG_TOL)
+    err_gn = kernel_vs_twin(f"poisson{n}x4", meta, b, pre, 50, 0.0, bitwise=True, template=True)
+    kernel_vs_twin(f"poisson{n}x4", meta, b, pre, 2000, CG_TOL, bitwise=True)
+    kernel_vs_twin(f"laplacian{n}", *lap[:3], 50, 0.0, bitwise=True)
+    kernel_vs_twin(f"laplacian{n}", *lap[:3], 2000, CG_TOL, bitwise=True)
     kernel_vs_twin(f"poisson{BIG_N}x4", *pbig[:3], 50, 0.0)
     kernel_vs_twin(f"poisson{BIG_N}x4", *pbig[:3], 200, CG_TOL)
     del lap, pbig
@@ -2068,12 +2169,40 @@ def main() -> int:
     cross = sum(1 for (_d, i, j, _f) in mmeta["triples"] if i != j)
     log(f"image_warping {IW_N}x{IW_N}x3: {mmeta['F'].shape[0]} fields, "
         f"{len(mmeta['triples'])} triples, {cross} cross-channel")
-    err_mixed = kernel_vs_twin(f"image_warping{IW_N}x3", mmeta, mb, mpre, 50, 0.0)
-    kernel_vs_twin(f"image_warping{IW_N}x3", mmeta, mb, mpre, 400, CG_TOL)
+    # the tiled instances, and the template's gn and lm on the same twin results
+    err_mixed = kernel_vs_twin(f"image_warping{IW_N}x3", mmeta, mb, mpre, 50, 0.0, bitwise=True,
+                               template=True)
+    kernel_vs_twin(f"image_warping{IW_N}x3", mmeta, mb, mpre, 400, CG_TOL, bitwise=True,
+                   template=True)
+    bitwise_repeat(f"image_warping{IW_N}x3", mmeta, mb, mpre, 400)
     err_lm = kernel_vs_twin(f"image_warping{IW_N}x3", vmeta, vb, vpre, 50, 0.0, vlm,
-                            q_tol=float("-inf"))
-    kernel_vs_twin(f"image_warping{IW_N}x3", vmeta, vb, vpre, 400, CG_TOL, vlm)
+                            q_tol=float("-inf"), bitwise=True, template=True)
+    kernel_vs_twin(f"image_warping{IW_N}x3", vmeta, vb, vpre, 400, CG_TOL, vlm, bitwise=True,
+                   template=True)
     bitwise_repeat(f"image_warping{IW_N}x3", vmeta, vb, vpre, 400, vlm)
+    # the tiled kernel on a radius-2 stencil (a halo of 2), on a grid its
+    # tiles leave ragged in both axes and on a grid of one tile, GN and LM
+    r2 = system(radius2_spec, _grid(n), radius2_inputs(n))
+    if tiled_line(f"radius2 {n}x{n}", *r2[:2])["halo"] != 2:
+        raise RuntimeError("the radius-2 stencil must take a halo of 2")
+    variant_checks(f"radius2 {n}x{n}", r2, 50, 400, bitwise=True)
+    rag_in = bench_image_warping_inputs(RAGGED_DIMS["W"], RAGGED_DIMS["H"])
+    one_in = bench_image_warping_inputs(SINGLE_N)
+    for kind, label in (("gaussNewtonGPU", "GN"), ("LMGPU", "LM")):
+        rag = system(image_warping, RAGGED_DIMS, rag_in, kind)
+        plan = tiled_line(f"image_warping {RAGGED_DIMS['W']}x{RAGGED_DIMS['H']} {label}",
+                          rag[0], rag[1], rag[3])
+        (th, tw), (tr, tc) = plan["tile"], plan["tiles"]
+        if RAGGED_DIMS["W"] % th == 0 or RAGGED_DIMS["H"] % tw == 0 or tr * tc < 2:
+            raise RuntimeError(f"image_warping {RAGGED_DIMS}: tiles {plan} are not ragged")
+        variant_checks(f"image_warping {RAGGED_DIMS['W']}x{RAGGED_DIMS['H']} {label}", rag, 50,
+                       400, bitwise=True)
+        one = system(image_warping, _grid(SINGLE_N), one_in, kind)
+        if tiled_line(f"image_warping{SINGLE_N} {label}", one[0], one[1],
+                      one[3])["tiles"] != (1, 1):
+            raise RuntimeError(f"image_warping{SINGLE_N}: not one tile")
+        variant_checks(f"image_warping{SINGLE_N} {label}", one, 50, 400, bitwise=True)
+    del rag, one
     err_k6 = kernel_vs_twin(f"image_warping{IW_BIG_N}x3", gmeta, gb, gpre, 50, 0.0)
     kernel_vs_twin(f"image_warping{IW_BIG_N}x3", gmeta, gb, gpre, 100, CG_TOL)
     kernel_vs_twin(f"image_warping{IW_BIG_N}x3", wmeta, wb, wpre, 50, 0.0, wlm,
@@ -2155,17 +2284,20 @@ def main() -> int:
     ssys = system(shape_from_shading, _grid(SFS_N), sfs_in)
     log(f"shape_from_shading {SFS_N}x{SFS_N}: {ssys[0]['F'].shape[0]} fields, "
         f"{len(ssys[0]['triples'])} triples")
-    err_sfs = variant_checks(f"shape_from_shading{SFS_N}", ssys, 50, 400)
+    tiled_line(f"shape_from_shading{SFS_N}", *ssys[:2])
+    err_sfs = variant_checks(f"shape_from_shading{SFS_N}", ssys, 50, 400, bitwise=True)
     flow_in = flow_levels(FLOW_N)
     fsys = system(optical_flow, _grid(FLOW_N), flow_in[-1])
     log(f"optical_flow {FLOW_N}x{FLOW_N}x2: {fsys[0]['F'].shape[0]} fields, "
         f"{len(fsys[0]['triples'])} triples")
-    variant_checks(f"optical_flow{FLOW_N}x2", fsys, 50, 400)
+    tiled_line(f"optical_flow{FLOW_N}x2", *fsys[:2])
+    variant_checks(f"optical_flow{FLOW_N}x2", fsys, 50, 400, bitwise=True)
     intr_in = intrinsic_inputs(INTR_N)
     isys = system(intrinsic_image_decomposition, _grid(INTR_N), intr_in)
     log(f"intrinsic {INTR_N}x{INTR_N}x4: {isys[0]['F'].shape[0]} fields, "
         f"{len(isys[0]['triples'])} triples")
-    variant_checks(f"intrinsic{INTR_N}x4", isys, 50, 400)
+    tiled_line(f"intrinsic{INTR_N}x4", *isys[:2])
+    variant_checks(f"intrinsic{INTR_N}x4", isys, 50, 400, bitwise=True)
     split_in = bench_poisson_inputs(SPLIT_N)
     psplit = system(poisson_image_editing, _grid(SPLIT_N), split_in)
     if not psplit[0]["chan_grid"] or meta["chan_grid"] or mmeta["chan_grid"]:
@@ -2202,14 +2334,14 @@ def main() -> int:
     for label, spec, dims, binp, exit_lits, forms in batch_cases:
         for flabel, kind, ip in forms:
             sysb = batched_system(spec, dims, binp, kind, **ip)
-            if not form_of(sysb[0], sysb[3], **sysb[4]).endswith("_batch"):
+            if not form_of(sysb[0], sysb[1], sysb[3], **sysb[4]).endswith("_batch"):
                 raise RuntimeError(f"{label} {flabel}: not the block-per-system form")
             err = batch_checks(f"{label} {flabel}", sysb, 50, exit_lits)
             if spec is curve_fitting and flabel == "LM":
                 err_batch, curve_lm = err, sysb
     pbatch_in = batched_poisson_inputs(n, BATCH_POISSON_B)
     pbatch = batched_system(poisson_image_editing, _grid(n), pbatch_in)
-    if form_of(pbatch[0]) != "gn_multi":
+    if form_of(pbatch[0], pbatch[1]) != "gn_multi":
         raise RuntimeError(f"poisson{n}x4 x{BATCH_POISSON_B}: not the multi-system form")
     log(f"poisson {n}x{n}x4 x{BATCH_POISSON_B}: {pbatch[0]['F'].shape[1]} fields a system")
     batch_checks(f"poisson{n}x4 x{BATCH_POISSON_B}", pbatch, 50, 2000, single=False)
@@ -2289,7 +2421,8 @@ def main() -> int:
     # split: bitwise against its twin and the whole grid's apply
     err_k5 = tile_checks(f"poisson{n}x4", meta)
     tile_checks(f"image_warping{IW_N}x3", mmeta)
-    tile_checks(f"radius2 {n}x{n}", system(radius2_spec, _grid(n), radius2_inputs(n))[0])
+    tile_checks(f"radius2 {n}x{n}", r2[0])
+    del r2
     tile_checks(f"poisson{n}x4 bfloat16", pbf[0])
 
     phases["kernel_checks"] = time.perf_counter() - t_start - sum(phases.values())
@@ -2297,13 +2430,15 @@ def main() -> int:
     # set to 0 just before it and read just after
     res_poisson, l_poisson, _p = main_path(f"poisson{n}x4 GN 1x2000", poisson_image_editing,
                                            "gaussNewtonGPU", _grid(n), inputs, 1, 2000,
-                                           JAX_CPU_POISSON_512_COST, {"X": (n, n, 4)})
+                                           JAX_CPU_POISSON_512_COST, {"X": (n, n, 4)},
+                                           form="gn_tiled")
     runs, iw_res = {}, {}
     for (nn, kind, nl, li), want in JAX_CPU_IMAGE_WARPING_COSTS.items():
         label = f"image_warping{nn} {'LM' if kind == 'LMGPU' else 'GN'} {nl}x{li}"
+        form = ("lm" if kind == "LMGPU" else "gn") + ("_tiled" if nn == IW_N else "")
         iw_res[(nn, kind)], runs[(nn, kind)], _p = main_path(
             label, image_warping, kind, _grid(nn), iw_in if nn == IW_N else iw_big_in, nl, li,
-            want, {"Offset": (nn, nn, 2), "Angle": (nn, nn, 1)})
+            want, {"Offset": (nn, nn, 2), "Angle": (nn, nn, 1)}, form=form)
     _r, l_arap = graph_main_path("arap36k", arap_dims, arap_in, "gn")
     _r, l_arm = graph_main_path("armadillo31k", arm_dims, arm_in, "gn_rem")
     float64_witness(f"arap36k GN {GRAPH_NL}x{GRAPH_LI}", arap_mesh_deformation, "gaussNewtonGPU",
@@ -2321,12 +2456,12 @@ def main() -> int:
     sfs_shape = {"X": (SFS_N, SFS_N, 1)}
     _r, l_sfs = first_steps_main_path(
         f"shape_from_shading{SFS_N} GN {SFS_NL}x{SFS_LI}", shape_from_shading, _grid(SFS_N),
-        sfs_in, SFS_NL, SFS_LI, JAX_CPU_SFS, SFS_FIRST_STEPS, sfs_shape)
+        sfs_in, SFS_NL, SFS_LI, JAX_CPU_SFS, SFS_FIRST_STEPS, sfs_shape, form="gn_tiled")
     l_flow = pyramid_flow_main_path(flow_in)
     _r, l_intr, _p = main_path(
         f"intrinsic{INTR_N} GN {INTR_NL}x{INTR_LI}", intrinsic_image_decomposition,
         "gaussNewtonGPU", _grid(INTR_N), intr_in, INTR_NL, INTR_LI, JAX_CPU_INTRINSIC_512_COST,
-        {"r": (INTR_N, INTR_N, 3), "s": (INTR_N, INTR_N, 1)})
+        {"r": (INTR_N, INTR_N, 3), "s": (INTR_N, INTR_N, 1)}, form="gn_tiled")
     _r, l_split = split_main_path(split_in, split_counts)
     _r, l_batch = batched_curve_main_path(curve_truths, curve_in)
     l_pbatch = batched_poisson_main_path(pbatch_in)
@@ -2354,9 +2489,11 @@ def main() -> int:
                         "final_cost": r.final_cost, "golden": golden,
                         "rel_diff": abs(r.final_cost - golden) / golden,
                         "kernel_launches": used, "nonlinear_iters": r.num_iterations}))
-        form = "lm" if kind == "LMGPU" else "gn"
-        if not ok or used[form] != r.num_iterations or p.fused_fallback is not None:
-            raise RuntimeError(f"golden {name} failed")
+        base = "lm" if kind == "LMGPU" else "gn"
+        ran = {k: v for k, v in used.items() if v}  # the template's or the tiled instance
+        if (not ok or p.fused_fallback is not None
+                or ran not in ({base: r.num_iterations}, {base + "_tiled": r.num_iterations})):
+            raise RuntimeError(f"golden {name} failed ({ran})")
     # shape_from_shading's medium case, held as the SFS_MEDIUM comment says
     spec, kind, nl, li, golden = SFS_MEDIUM
     mdims, minputs = cases["shape_from_shading"]
@@ -2374,11 +2511,21 @@ def main() -> int:
                                                   - sum(phases.values()))
     phase_s = time.perf_counter() - t_start
 
-    # 4. times on the card
-    t_gn = time_pair(f"poisson{n}x4", meta, b, pre, gpu)
+    # 4. times on the card. The tiled instances and the template's on the
+    # same systems in turns (tiled, template, template, tiled); the first of
+    # each go into the kernels line
+    t_tiled, t_tpl = {}, {}
+    for key, (label, m_, b_, p_, lm_) in {
+            "gn": (f"poisson{n}x4", meta, b, pre, None),
+            "gn_iw": (f"image_warping{IW_N}x3", mmeta, mb, mpre, None),
+            "lm_iw": (f"image_warping{IW_N}x3", vmeta, vb, vpre, vlm)}.items():
+        for template in (False, True, True, False):
+            t = time_pair(label, m_, b_, p_, gpu, lm_, twin=not template and key not in t_tiled,
+                          template=template)
+            (t_tpl if template else t_tiled).setdefault(key, t)
+    t_gn, t_mixed, t_lm = t_tiled["gn"], t_tiled["gn_iw"], t_tiled["lm_iw"]
     t_k5 = time_tile_apply(f"poisson{n}x4", meta, gpu)
-    t_mixed = time_pair(f"image_warping{IW_N}x3", mmeta, mb, mpre, gpu)
-    t_lm = time_pair(f"image_warping{IW_N}x3", vmeta, vb, vpre, gpu, vlm)
+    tiled_floor(gpu)
     t_k6 = time_pair(f"image_warping{IW_BIG_N}x3", gmeta, gb, gpre, gpu, reps=2)
     time_pair(f"image_warping{IW_BIG_N}x3", wmeta, wb, wpre, gpu, wlm, reps=2)
     del gmeta, gb, gpre, wmeta, wb, wpre, wlm
@@ -2427,8 +2574,23 @@ def main() -> int:
                       **sysb[4])
     del batch_sys
     batched_step_before_after(arm_bdims, arm_bin, gpu)
-    time_main_path(f"poisson{n}x4 GN 1x2000", poisson_image_editing, "gaussNewtonGPU",
-                   _grid(n), inputs, 1, 2000, gpu)
+    # the main paths the tiled route changed, as they ran on the template
+    # before it and on the tiled kernel, in turns: solve times, then each
+    # solve profiled (device time, the CG kernel's share)
+    routed = [(f"poisson{n}x4 GN 1x2000", poisson_image_editing, "gaussNewtonGPU", inputs, 1,
+               2000)] + [(f"image_warping{IW_N} {label} 8x400", image_warping, kind, iw_in, 8, 400)
+                         for kind, label in (("gaussNewtonGPU", "GN"), ("LMGPU", "LM"))]
+    for route in ("template", "tiled", "tiled", "template"):
+        with (template_route() if route == "template" else contextlib.nullcontext()):
+            for label, spec, kind, inp, nl, li in routed:
+                time_main_path(f"{label} {route}", spec, kind, _grid(n), inp, nl, li, gpu,
+                               reps=2)
+    for route in ("template", "tiled"):
+        with (template_route() if route == "template" else contextlib.nullcontext()):
+            for label, spec, kind, inp, nl, li in routed:
+                rplan = ot.Problem(spec, kind=kind).plan(dims=_grid(n))
+                profile_solve(f"{label} {route}".replace(" ", "_"), lambda: rplan.solve(
+                    dict(inp), nIterations=nl, lIterations=li), gpu)  # run at once
     time_main_path(f"shape_from_shading{SFS_N} GN {SFS_NL}x{SFS_LI}", shape_from_shading,
                    "gaussNewtonGPU", _grid(SFS_N), sfs_in, SFS_NL, SFS_LI, gpu)
     for li, inp in enumerate(flow_in):  # each level from a zero flow
@@ -2440,9 +2602,10 @@ def main() -> int:
     time_main_path(f"poisson{SPLIT_N}x4 GN 1x2000 split", poisson_image_editing,
                    "gaussNewtonGPU", _grid(SPLIT_N), split_in, 1, 2000, gpu)
     for (nn, kind, nl, li) in JAX_CPU_IMAGE_WARPING_COSTS:
+        if nn == IW_N:
+            continue  # timed above, on both routes
         label = f"image_warping{nn} {'LM' if kind == 'LMGPU' else 'GN'} {nl}x{li}"
-        time_main_path(label, image_warping, kind, _grid(nn),
-                       iw_in if nn == IW_N else iw_big_in, nl, li, gpu)
+        time_main_path(label, image_warping, kind, _grid(nn), iw_big_in, nl, li, gpu)
     for label, dims, gin in (("arap36k", arap_dims, arap_in), ("armadillo31k", arm_dims, arm_in)):
         time_main_path(f"{label} GN {GRAPH_NL}x{GRAPH_LI}", arap_mesh_deformation,
                        "gaussNewtonGPU", dims, gin, GRAPH_NL, GRAPH_LI, gpu)
@@ -2453,11 +2616,14 @@ def main() -> int:
         dict(curve_in), nIterations=BATCH_NL, lIterations=BATCH_LI), gpu)
     phases["timings_and_profiles"] = time.perf_counter() - t_start - sum(phases.values())
 
-    def entry(name, replaces, launches, err, timing, source=KERNEL_SOURCE):
+    def entry(name, replaces, launches, err, timing, source=KERNEL_SOURCE, template=None):
         ms, plain, bound_ms, bound_by = timing
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        e = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        if template is not None:  # the template's ms on the same system, in this run
+            e["template_ms"] = template[0]
+        return e
 
     # K1 (h)'s bound of one iteration of every system at the bench's batched
     # shape and at 4 x laplacian 16x16
@@ -2489,10 +2655,13 @@ def main() -> int:
                     "checks_and_main_paths_s": phase_s, "phases_s": phases}))
     log(f"gpu: {gpu}")
     log(json.dumps({"kernels": [
-        entry("fused_grid_cg GN (K1, grid GN form)", K1, l_poisson["gn"], err_gn, t_gn),
-        entry("fused_grid_cg GN, mixed unknowns (K1 variant a)", K1,
-              runs[(IW_N, "gaussNewtonGPU")]["gn"], err_mixed, t_mixed),
-        entry("fused_grid_cg LM (K1 variant b)", K1, runs[(IW_N, "LMGPU")]["lm"], err_lm, t_lm),
+        entry(f"tiled_grid_cg GN (K1, grid GN form), poisson {n}x{n}x4, gn_tiled", K1,
+              l_poisson["gn_tiled"], err_gn, t_gn, TILED_SOURCE, t_tpl["gn"]),
+        entry(f"tiled_grid_cg GN, mixed unknowns (K1 variant a), image_warping {IW_N}x{IW_N}x3, "
+              "gn_tiled", K1, runs[(IW_N, "gaussNewtonGPU")]["gn_tiled"], err_mixed, t_mixed,
+              TILED_SOURCE, t_tpl["gn_iw"]),
+        entry(f"tiled_grid_cg LM (K1 variant b), image_warping {IW_N}x{IW_N}x3, lm_tiled", K1,
+              runs[(IW_N, "LMGPU")]["lm_tiled"], err_lm, t_lm, TILED_SOURCE, t_tpl["lm_iw"]),
         entry(f"fused_grid_cg GN beyond VMEM (K6), image_warping {IW_BIG_N}x{IW_BIG_N}x3", K6,
               runs[(IW_BIG_N, "gaussNewtonGPU")]["gn"], err_k6, t_k6),
         entry("fused_grid_cg GN, graph DIA form (K3), arap 36,864-vertex grid mesh", K3,
@@ -2507,8 +2676,9 @@ def main() -> int:
               l_vol["gn"], err_3d, t_3d),
         entry(f"fused_grid_cg GN bfloat16 fields (K1 variant f), poisson {n}x{n}x4", K1F,
               l_pbf["gn_bf16"], err_bf, t_bf),
-        entry(f"fused_grid_cg GN over a ComputedArray operator (K1 variant g), "
-              f"shape_from_shading {SFS_N}x{SFS_N}", K1G, l_sfs["gn"], err_sfs, t_sfs),
+        entry(f"tiled_grid_cg GN over a ComputedArray operator (K1 variant g), "
+              f"shape_from_shading {SFS_N}x{SFS_N}, gn_tiled", K1G, l_sfs["gn_tiled"], err_sfs,
+              t_sfs, TILED_SOURCE),
         entry(f"fused_grid_cg GN, four one-channel systems in one launch (K2), "
               f"poisson {SPLIT_N}x{SPLIT_N}x4", K2, l_split["gn_multi"], err_split, t_split),
         entry(f"fused_grid_cg LM, a batch axis: {BATCH_B} curve-fit systems side by side, a "

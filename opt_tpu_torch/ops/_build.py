@@ -2,8 +2,10 @@
 
 ``nvcc`` compiles the fused CG kernel (``csrc/fused_grid_cg.cuh``, the
 template; ``csrc/fused_grid_cg_one.cu``, ``_multi.cu`` and ``_batch.cu``, its
-instances, one form a unit; ``csrc/fused_grid_cg.cu``, their C interface)
-and ``csrc/tile_apply.cu`` (the sharded solve's per-tile apply): each unit
+instances, one form a unit; ``csrc/fused_grid_cg.cu``, their C interface),
+``csrc/tiled_grid_cg.cu`` (the CG loop of a 2-D grid whose state fits one
+tile a block) and ``csrc/tile_apply.cu`` (the sharded solve's per-tile
+apply): each unit
 by its own ``nvcc`` process, all started together, then one link into one
 shared library with a plain C interface, bound with ``ctypes``. The library
 goes to ``build/opt_tpu_torch/`` at the repository root, named by a hash of
@@ -29,7 +31,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 # the units nvcc compiles, each by its own process, and every source they read
 UNITS = ("fused_grid_cg_one.cu", "fused_grid_cg_multi.cu", "fused_grid_cg_batch.cu",
-         "fused_grid_cg.cu", "tile_apply.cu")
+         "fused_grid_cg.cu", "tiled_grid_cg.cu", "tile_apply.cu")
 SOURCES = UNITS + ("fused_grid_cg.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "opt_tpu_torch"
 NVCC_FLAGS = (
@@ -112,19 +114,27 @@ def build_library(build: bool = True) -> dict:
 _INSTANCE = re.compile(
     r"fused_grid_cg_kernelILb([01])ELb([01])ELb([01])ELb([01])E(f|13__nv_bfloat16)Li([012])EE"
 )
+_TILED_INSTANCE = re.compile(r"tiled_grid_cg_kernelILb([01])EE")
 
 
 def instance_registers(log: str) -> dict:
     """{(lm, rem, cs, block, bf16, multi, batch): (registers, spill store
     bytes, spill load bytes)} from ptxas's -v output (the kernel's FORM: 0
-    one system, 1 multi, 2 batch)."""
+    one system, 1 multi, 2 batch), and the tiled kernel's two instances
+    under (lm, False, False, False, False, False, False, True)."""
     regs, current, spill = {}, None, (0, 0)
     for line in log.splitlines():
-        m = _INSTANCE.search(line)
-        if m and "Compiling entry function" in line:
-            lm, rem, cs, block = (g == "1" for g in m.groups()[:4])
-            form = int(m.group(6))
-            current = (lm, rem, cs, block, m.group(5) != "f", form == 1, form == 2)
+        if "Compiling entry function" in line:
+            m = _INSTANCE.search(line)
+            t = _TILED_INSTANCE.search(line)
+            if m:
+                lm, rem, cs, block = (g == "1" for g in m.groups()[:4])
+                form = int(m.group(6))
+                current = (lm, rem, cs, block, m.group(5) != "f", form == 1, form == 2)
+            elif t:
+                current = (t.group(1) == "1",) + (False,) * 6 + (True,)
+            else:
+                current = None
             spill = (0, 0)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -164,6 +174,17 @@ def load_library(build: bool = True) -> ctypes.CDLL:
         i32, i32, vp,  # grid, threads, stream
     ]
     lib.fused_grid_cg_launch.restype = i32
+    lib.tiled_grid_cg_device_limits.argtypes = [ctypes.POINTER(i32), ctypes.POINTER(i32)]
+    lib.tiled_grid_cg_device_limits.restype = i32
+    lib.tiled_grid_cg_launch.argtypes = [
+        i32, vp, vp, vp, vp, vp, vp,  # lm, F, b, pre, ctc, triples, starts
+        i32, i32, i32, i32,  # C, n_triples, N1, N2
+        i32, i32, i32, i32, i32,  # tiles_r, tiles_c, th, tw, h
+        i32, f32, i32, i32, f32,  # lits, tol, guard_div, reset_period, q_tol
+        vp, vp, vp, vp, vp,  # delta, r_ring, partA, partB, iters
+        i32, i32, vp,  # threads, smem_bytes, stream
+    ]
+    lib.tiled_grid_cg_launch.restype = i32
     lib.tile_apply_launch.argtypes = [
         i32, vp, vp, vp, vp, vp,  # bf16, F, p_ext, out, triples, starts
         i32, i32, i32, i32, i32, i32,  # n_triples, C, th, tw, ah, aw

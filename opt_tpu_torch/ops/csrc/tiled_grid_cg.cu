@@ -1,0 +1,470 @@
+// Whole-loop preconditioned CG for a 2-D grid stencil operator whose state
+// fits the card's shared memory: one persistent cooperative launch per CG
+// solve, one block a tile, for Hopper (sm_90a). Two instances,
+// tiled_grid_cg_kernel<LM>: the standard Gauss-Newton loop and the standard
+// Levenberg-Marquardt loop of fused_grid_cg.cuh (lines 66-78), Jacobi
+// preconditioner, float32 fields, one system.
+//
+// Replaces, in opt_tpu/ops/pallas_cg.py: _kernel (:328), the Pallas TPU
+// kernel that runs the whole PCG inner loop of a grid problem in one
+// launch, in its 2-D grid GN form (also with mixed unknowns packed into the
+// channels, and with fields from ComputedArray slots) and its lm=True form,
+// at the grid sizes whose state fits one tile a block
+// (ops/fused_cg.py::tiled_grid_plan). The other forms, and these two at
+// larger sizes, run the template of fused_grid_cg.cuh.
+//
+// The arithmetic is the template's (fused_grid_cg.cuh:139-146): float32
+// products with explicit round-to-nearest intrinsics and no fused
+// multiply-add, each output's stencil sum over the triples of its channel in
+// their order (ops/fused_cg.py::_device_triples sorts them stably by output
+// channel), each dot as float32 products summed in double. The kernel is
+// therefore bitwise equal to the template and to the plain PyTorch twin
+// (ops/fused_cg.py::fused_grid_cg_reference). A read that leaves the grid
+// multiplies the zero-filled halo beyond the grid's edge (the template skips
+// it): each sum starts at +0 and the planner folded the in-bounds masks into
+// the fields, so the two give the same bits.
+//
+// What bounds it: the bytes of the inputs. An iteration must read the
+// coefficient fields at every point (image_warping 512x512x3: 26 fields, 27
+// MB), the preconditioner and, under LM, the damping ctc. The template
+// also moved the state vectors (r, delta, p, Ap) through L2 in three sweeps
+// an iteration, read p once per stencil triple, and summed 1056 blocks'
+// dot partials in every block, behind three grid barriers.
+//
+// What the design does about it:
+//   * The grid is cut into at most one tile per SM (a ceil split of both
+//     axes, parallel/mesh.py::split_bounds), one block of 512 threads a tile
+//     (one block per SM, so up to 128 registers a thread for the stencil's
+//     index arithmetic and sums; 16 warps hide the shared-memory latency).
+//   * The tile's state stays in dynamic shared memory for the whole solve:
+//     r, delta and Ap as [C][rows][cols], p with a halo of h rows and h
+//     columns (h the largest |d1| or |d2| of the triples) as
+//     [C][rows + 2h][cols + 2h], zero beyond the grid's edge. Only the
+//     inputs are read from global memory, once an iteration, coalesced.
+//   * Only r's border goes through global memory: after the update each
+//     block writes the h-wide ring of its tile's r to a grid-sized array.
+//     After the barrier each block forms p = pre*r + beta*p over its tile
+//     and its halo, reading the neighbours' r from that array and pre from
+//     the input. Its halo copy of p is updated by the owner's own
+//     arithmetic, so it stays bitwise equal to the owner's p; p itself is
+//     never exchanged.
+//   * Two grid barriers an iteration: (1) the apply Ap = A p (+ ctc p) and
+//     <p, Ap>; (2) the delta and r update, z = pre*r (kept in Ap's space for
+//     the p update), <z, r> and, under LM, <delta, b + r> in the same
+//     record, and r's ring. An LM reset iteration (r = b - (A delta + ctc
+//     delta) every reset_period) writes delta's ring to the output array and
+//     takes one more barrier before its stencil over delta, which it reads
+//     from a haloed copy built in Ap's space.
+//   * Dot sums: each block sums its threads' doubles in a fixed shuffle
+//     tree, one partial record a block (one or two doubles), and every block
+//     sums the <= 132 records in the same fixed order, so every block takes
+//     the same exit.
+//   * Each thread walks the tile's points at a fixed stride with all C
+//     channels at each point; the point's row and column advance by
+//     addition (one division a phase).
+//   * The dynamic shared memory is set (cudaFuncSetAttribute) before the
+//     occupancy query and the launch; a launch that needs more blocks than
+//     can be co-resident is refused and the error returned.
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
+
+#define TGCG_THREADS 512
+#define TGCG_WARPS (TGCG_THREADS / 32)
+#define TGCG_MAX_TRIPLES 512
+#define TGCG_MAX_CHANNELS 64
+#define TGCG_ROW 6  // a triple as the host gives it: d0, d1, d2, i, j, fid
+
+__device__ __forceinline__ float tg_safe_div(float num, float den, int guard) {
+  if (!guard) return __fdiv_rn(num, den);
+  return den > 0.f ? __fdiv_rn(num, den) : 0.f;
+}
+
+// Block sum of v (both components) in a fixed order; valid in thread 0.
+__device__ __forceinline__ double2 tg_block_sum(double2 v, double2* s_warp) {
+  for (int o = 16; o > 0; o >>= 1) {
+    v.x += __shfl_down_sync(0xffffffffu, v.x, o);
+    v.y += __shfl_down_sync(0xffffffffu, v.y, o);
+  }
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) s_warp[warp] = v;
+  __syncthreads();
+  double2 s = make_double2(0.0, 0.0);
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < TGCG_WARPS; ++w) {
+      s.x += s_warp[w].x;
+      s.y += s_warp[w].y;
+    }
+  }
+  return s;  // the grid barrier that follows orders the next use of s_warp
+}
+
+// Sum of the n blocks' partial records, in the same fixed order in every
+// block: one warp reads them, lane k the records k, k + 32, ...
+__device__ __forceinline__ double2 tg_partials_sum(const double2* part, int n,
+                                                   double2* s_bcast) {
+  if (threadIdx.x < 32) {
+    double2 s = make_double2(0.0, 0.0);
+    for (int k = threadIdx.x; k < n; k += 32) {
+      const double2 v = __ldcg(part + k);
+      s.x += v.x;
+      s.y += v.y;
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      s.x += __shfl_down_sync(0xffffffffu, s.x, o);
+      s.y += __shfl_down_sync(0xffffffffu, s.y, o);
+    }
+    if (threadIdx.x == 0) *s_bcast = s;
+  }
+  __syncthreads();
+  return *s_bcast;  // rewritten only after the next grid barrier
+}
+
+// A walk over the points of a [rows][cols] frame at the block's stride:
+// point q = y*cols + x from threadIdx.x, advanced by addition.
+struct TgWalk {
+  int q, y, x, sy, sx;
+  __device__ __forceinline__ TgWalk(int cols) {
+    q = threadIdx.x;
+    y = q / cols;
+    x = q - y * cols;
+    sy = TGCG_THREADS / cols;
+    sx = TGCG_THREADS - sy * cols;
+  }
+  __device__ __forceinline__ void next(int cols) {
+    q += TGCG_THREADS;
+    y += sy;
+    x += sx;
+    if (x >= cols) {
+      x -= cols;
+      ++y;
+    }
+  }
+};
+
+// sum over the triples k0..k1 of F[field k][g] * src[sp[k] + e], from +0, in
+// the triples' order: g is the output point in the grid, e its place in the
+// haloed frame of src (sp[k] holds the source channel's frame and the
+// offset within it)
+__device__ __forceinline__ float tg_stencil(const float* __restrict__ F,
+                                            const float* src, const int* s_f,
+                                            const int* s_p, int k0, int k1,
+                                            int g, int e) {
+  float a = 0.f;
+  for (int k = k0; k < k1; ++k)
+    a = __fadd_rn(a, __fmul_rn(F[s_f[k] + g], src[s_p[k] + e]));
+  return a;
+}
+
+// The dynamic shared memory of a launch, in bytes, in the kernel's layout:
+// the block-sum records, r, delta, p (haloed), Ap (haloed under LM), the
+// triples' field and source offsets and the channels' first triples.
+__host__ __device__ __forceinline__ long long tg_smem_bytes(int lm, int C, int th,
+                                                           int tw, int h,
+                                                           int n_triples) {
+  const long long pts = (long long)th * tw;
+  const long long ext = (long long)(th + 2 * h) * (tw + 2 * h);
+  return 16LL * (TGCG_WARPS + 1) + 4LL * C * (2 * pts + ext + (lm ? ext : pts)) +
+         4LL * (2 * n_triples + C + 1);
+}
+
+// One CG solve of C channels on the grid [N1, N2], block k owning tile
+// (k / tiles_c, k % tiles_c) of the ceil split into th x tw tiles with a
+// halo of h. delta receives the solution (and, on LM reset iterations,
+// delta's rings); r_ring is scratch of the grid's size, of which each block
+// writes only its ring; partA and partB hold one record a block.
+template <bool LM>
+__global__ void __launch_bounds__(TGCG_THREADS, 1)
+tiled_grid_cg_kernel(const float* __restrict__ F, const float* __restrict__ b,
+                     const float* __restrict__ pre,
+                     const float* __restrict__ ctc,
+                     const int* __restrict__ triples,
+                     const int* __restrict__ starts, int C, int n_triples,
+                     int N1, int N2, int tiles_c, int th, int tw, int h,
+                     int lits, float tol, int guard_div, int reset_period,
+                     float q_tol, float* delta, float* r_ring, double2* partA,
+                     double2* partB, int* iters) {
+  extern __shared__ double2 smem[];
+  double2* s_warp = smem;                 // TGCG_WARPS records
+  double2* s_bcast = smem + TGCG_WARPS;   // one record
+  const int pts_max = th * tw;
+  const int ext_max = (th + 2 * h) * (tw + 2 * h);
+  float* s_r = (float*)(smem + TGCG_WARPS + 1);
+  float* s_d = s_r + C * pts_max;
+  float* s_pe = s_d + C * pts_max;  // p, haloed
+  float* s_ap = s_pe + C * ext_max;  // Ap; z; under LM also haloed delta
+  int* s_f = (int*)(s_ap + C * (LM ? ext_max : pts_max));
+  int* s_p = s_f + n_triples;
+  int* s_start = s_p + n_triples;
+
+  cg::grid_group grid = cg::this_grid();
+  const int plane = N1 * N2;
+  const int y0 = (blockIdx.x / tiles_c) * th;  // the tile's first row, column
+  const int x0 = (blockIdx.x % tiles_c) * tw;
+  const int rows = min(N1, y0 + th) - y0;
+  const int cols = min(N2, x0 + tw) - x0;
+  const int pts = rows * cols;
+  const int pcols = cols + 2 * h;
+  const int ext = (rows + 2 * h) * pcols;
+  const int n_blocks = gridDim.x;
+
+  for (int k = threadIdx.x; k <= C; k += TGCG_THREADS) s_start[k] = starts[k];
+  for (int k = threadIdx.x; k < n_triples; k += TGCG_THREADS) {
+    const int* t = triples + TGCG_ROW * k;
+    s_f[k] = t[5] * plane;
+    s_p[k] = t[4] * ext + t[1] * pcols + t[2];
+  }
+
+  // r = b, delta = 0 on the tile; p = pre*b on the tile and its halo (0
+  // beyond the grid); rz0 = <r, p>
+  double2 acc = make_double2(0.0, 0.0);
+  for (TgWalk w(pcols); w.q < ext; w.next(pcols)) {
+    const int gy = y0 + w.y - h, gx = x0 + w.x - h;
+    const bool in_grid = gy >= 0 && gy < N1 && gx >= 0 && gx < N2;
+    const bool inner = w.y >= h && w.y < h + rows && w.x >= h && w.x < h + cols;
+    const int t = (w.y - h) * cols + (w.x - h);
+    for (int c = 0; c < C; ++c) {
+      float zv = 0.f;
+      if (in_grid) {
+        const int g = c * plane + gy * N2 + gx;
+        const float bv = b[g];
+        zv = __fmul_rn(pre[g], bv);
+        if (inner) {
+          s_r[c * pts + t] = bv;
+          s_d[c * pts + t] = 0.f;
+          acc.x += (double)__fmul_rn(bv, zv);
+        }
+      }
+      s_pe[c * ext + w.q] = zv;
+    }
+  }
+  acc = tg_block_sum(acc, s_warp);
+  if (threadIdx.x == 0) partB[blockIdx.x] = acc;
+  grid.sync();
+  float rz = (float)tg_partials_sum(partB, n_blocks, s_bcast).x;
+  const float floor_rz = __fmul_rn(tol, rz);
+  float q0 = 0.f;
+  int l = 0;
+
+  while (l < lits) {
+    // phase 1: Ap = A p (+ ctc p) on the tile, the partials of <p, Ap>
+    acc = make_double2(0.0, 0.0);
+    for (TgWalk w(cols); w.q < pts; w.next(cols)) {
+      const int gq = (y0 + w.y) * N2 + x0 + w.x;
+      const int e = (w.y + h) * pcols + w.x + h;
+      for (int c = 0; c < C; ++c) {
+        // ctc is read before the stencil's chain of sums, so its latency
+        // overlaps the chain's
+        const float cv = LM ? ctc[c * plane + gq] : 0.f;
+        float a = tg_stencil(F, s_pe, s_f, s_p, s_start[c], s_start[c + 1], gq, e);
+        const float pv = s_pe[c * ext + e];
+        if constexpr (LM) a = __fadd_rn(a, __fmul_rn(cv, pv));
+        s_ap[c * pts + w.q] = a;
+        acc.x += (double)__fmul_rn(pv, a);
+      }
+    }
+    acc = tg_block_sum(acc, s_warp);
+    if (threadIdx.x == 0) partA[blockIdx.x] = acc;
+    grid.sync();
+    const float den = (float)tg_partials_sum(partA, n_blocks, s_bcast).x;
+    const float alpha = tg_safe_div(rz, den, guard_div);
+
+    // phase 2: delta += alpha p; r -= alpha Ap, or on an LM reset iteration
+    // r = b - (A delta + ctc delta); the partials of <z, r> (z = pre r) and,
+    // under LM, of <delta, b + r>; r's ring to r_ring
+    bool reset = false;
+    if constexpr (LM) reset = (l + 1) % reset_period == 0;
+    acc = make_double2(0.0, 0.0);
+    if (!reset) {
+      for (TgWalk w(cols); w.q < pts; w.next(cols)) {
+        const int gq = (y0 + w.y) * N2 + x0 + w.x;
+        const int e = (w.y + h) * pcols + w.x + h;
+        const bool ring = w.y < h || w.y >= rows - h || w.x < h || w.x >= cols - h;
+        for (int c = 0; c < C; ++c) {
+          const int t = c * pts + w.q;
+          const int g = c * plane + gq;
+          const float dv = __fadd_rn(s_d[t], __fmul_rn(alpha, s_pe[c * ext + e]));
+          s_d[t] = dv;
+          const float rv = __fsub_rn(s_r[t], __fmul_rn(alpha, s_ap[t]));
+          s_r[t] = rv;
+          const float zv = __fmul_rn(pre[g], rv);
+          s_ap[t] = zv;  // for the p update
+          acc.x += (double)__fmul_rn(zv, rv);
+          if constexpr (LM) acc.y += (double)__fmul_rn(dv, __fadd_rn(b[g], rv));
+          if (ring) r_ring[g] = rv;
+        }
+      }
+    } else {
+      for (TgWalk w(cols); w.q < pts; w.next(cols)) {
+        const int gq = (y0 + w.y) * N2 + x0 + w.x;
+        const int e = (w.y + h) * pcols + w.x + h;
+        const bool ring = w.y < h || w.y >= rows - h || w.x < h || w.x >= cols - h;
+        for (int c = 0; c < C; ++c) {
+          const int t = c * pts + w.q;
+          const float dv = __fadd_rn(s_d[t], __fmul_rn(alpha, s_pe[c * ext + e]));
+          s_d[t] = dv;
+          if (ring) delta[c * plane + gq] = dv;
+        }
+      }
+      grid.sync();  // the stencil below reads the neighbours' delta
+      for (TgWalk w(pcols); w.q < ext; w.next(pcols)) {
+        const int gy = y0 + w.y - h, gx = x0 + w.x - h;
+        const bool in_grid = gy >= 0 && gy < N1 && gx >= 0 && gx < N2;
+        const bool inner = w.y >= h && w.y < h + rows && w.x >= h && w.x < h + cols;
+        const int t = (w.y - h) * cols + (w.x - h);
+        for (int c = 0; c < C; ++c) {
+          float dv = 0.f;
+          if (inner) dv = s_d[c * pts + t];
+          else if (in_grid) dv = __ldcg(delta + c * plane + gy * N2 + gx);
+          s_ap[c * ext + w.q] = dv;
+        }
+      }
+      __syncthreads();
+      for (TgWalk w(cols); w.q < pts; w.next(cols)) {
+        const int gq = (y0 + w.y) * N2 + x0 + w.x;
+        const int e = (w.y + h) * pcols + w.x + h;
+        const bool ring = w.y < h || w.y >= rows - h || w.x < h || w.x >= cols - h;
+        for (int c = 0; c < C; ++c) {
+          const int t = c * pts + w.q;
+          const int g = c * plane + gq;
+          const float dv = s_d[t];
+          const float cv = ctc[g];
+          const float bv = b[g];
+          float a = tg_stencil(F, s_ap, s_f, s_p, s_start[c], s_start[c + 1], gq, e);
+          a = __fadd_rn(a, __fmul_rn(cv, dv));
+          const float rv = __fsub_rn(bv, a);
+          s_r[t] = rv;
+          acc.x += (double)__fmul_rn(__fmul_rn(pre[g], rv), rv);
+          acc.y += (double)__fmul_rn(dv, __fadd_rn(bv, rv));
+          if (ring) r_ring[g] = rv;
+        }
+      }
+    }
+    acc = tg_block_sum(acc, s_warp);
+    if (threadIdx.x == 0) partB[blockIdx.x] = acc;
+    grid.sync();
+    const double2 sums = tg_partials_sum(partB, n_blocks, s_bcast);
+    const float rz_new = (float)sums.x;
+    const float beta = tg_safe_div(rz_new, rz, guard_div);
+    ++l;
+    if constexpr (LM) {
+      const float q1 = __fmul_rn(0.5f, (float)sums.y);
+      const float zeta = __fdiv_rn(__fmul_rn((float)l, __fsub_rn(q1, q0)), q1);
+      if (zeta < q_tol || rz_new <= floor_rz) break;
+      q0 = q1;
+    } else {
+      if (rz_new <= floor_rz || den <= 0.f) break;
+    }
+    rz = rz_new;
+
+    // phase 3: p = z + beta p on the tile (z kept in Ap's space; pre r after
+    // a reset) and on its halo (pre times the neighbours' r ring)
+    for (TgWalk w(pcols); w.q < ext; w.next(pcols)) {
+      const int gy = y0 + w.y - h, gx = x0 + w.x - h;
+      if (gy < 0 || gy >= N1 || gx < 0 || gx >= N2) continue;  // stays 0
+      const bool inner = w.y >= h && w.y < h + rows && w.x >= h && w.x < h + cols;
+      const int t = (w.y - h) * cols + (w.x - h);
+      const int gq = gy * N2 + gx;
+      for (int c = 0; c < C; ++c) {
+        const int g = c * plane + gq;
+        float zv;
+        if (!inner) zv = __fmul_rn(pre[g], __ldcg(r_ring + g));
+        else if (reset) zv = __fmul_rn(pre[g], s_r[c * pts + t]);
+        else zv = s_ap[c * pts + t];
+        float* pp = s_pe + c * ext + w.q;
+        *pp = __fadd_rn(zv, __fmul_rn(beta, *pp));
+      }
+    }
+    __syncthreads();
+  }
+
+  for (TgWalk w(cols); w.q < pts; w.next(cols)) {
+    const int gq = (y0 + w.y) * N2 + x0 + w.x;
+    for (int c = 0; c < C; ++c) delta[c * plane + gq] = s_d[c * pts + w.q];
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) *iters = l;
+}
+
+static const void* tiled_instance(int lm) {
+  return lm ? (const void*)tiled_grid_cg_kernel<true>
+            : (const void*)tiled_grid_cg_kernel<false>;
+}
+
+extern "C" {
+
+// The current device's SM count and the shared memory a block may opt in
+// to (bytes), for the planner (ops/fused_cg.py::tiled_grid_plan).
+int tiled_grid_cg_device_limits(int* sms, int* smem_per_block) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(smem_per_block, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev);
+  return (int)e;
+}
+
+// Launches one solve on `stream`: tiles_r x tiles_c blocks of `threads`
+// threads, each with smem_bytes of dynamic shared memory (which must be
+// tg_smem_bytes of these arguments). F [T, N1, N2], b, pre, ctc (LM only),
+// delta and r_ring [C, N1, N2] float32; triples [n_triples, 6] sorted by
+// output channel with their per-channel starts [C + 1]; partA and partB
+// tiles_r*tiles_c double2 records each; iters one int. Returns the CUDA
+// error: cudaErrorCooperativeLaunchTooLarge where the blocks cannot all be
+// co-resident.
+int tiled_grid_cg_launch(int lm, const float* F, const float* b,
+                         const float* pre, const float* ctc,
+                         const int* triples, const int* starts, int C,
+                         int n_triples, int N1, int N2, int tiles_r,
+                         int tiles_c, int th, int tw, int h, int lits,
+                         float tol, int guard_div, int reset_period,
+                         float q_tol, float* delta, float* r_ring,
+                         double2* partA, double2* partB, int* iters, int threads,
+                         int smem_bytes, void* stream) {
+  if (threads != TGCG_THREADS || C < 1 || C > TGCG_MAX_CHANNELS ||
+      n_triples < 1 || n_triples > TGCG_MAX_TRIPLES || tiles_r < 1 ||
+      tiles_c < 1 || h < 0 || th < (h > 1 ? h : 1) || tw < (h > 1 ? h : 1) ||
+      (tiles_r - 1) * th >= N1 || (tiles_c - 1) * tw >= N2 ||
+      N1 - (tiles_r - 1) * th < h || N2 - (tiles_c - 1) * tw < h ||
+      tiles_r * th < N1 || tiles_c * tw < N2)
+    return (int)cudaErrorInvalidValue;
+  if (lm && (ctc == nullptr || reset_period < 1)) return (int)cudaErrorInvalidValue;
+  if ((long long)smem_bytes != tg_smem_bytes(lm, C, th, tw, h, n_triples))
+    return (int)cudaErrorInvalidValue;
+  const void* kernel = tiled_instance(lm);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e != cudaSuccess) return (int)e;
+  if (!coop) return (int)cudaErrorNotSupported;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                    smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  const int grid = tiles_r * tiles_c;
+  if (grid > per_sm * sms) return (int)cudaErrorCooperativeLaunchTooLarge;
+  void* args[] = {(void*)&F,        (void*)&b,       (void*)&pre,
+                  (void*)&ctc,      (void*)&triples, (void*)&starts,
+                  (void*)&C,        (void*)&n_triples,
+                  (void*)&N1,       (void*)&N2,      (void*)&tiles_c,
+                  (void*)&th,       (void*)&tw,      (void*)&h,
+                  (void*)&lits,     (void*)&tol,     (void*)&guard_div,
+                  (void*)&reset_period, (void*)&q_tol,
+                  (void*)&delta,    (void*)&r_ring,  (void*)&partA,
+                  (void*)&partB,    (void*)&iters};
+  e = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(threads), args,
+                                  (size_t)smem_bytes, (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

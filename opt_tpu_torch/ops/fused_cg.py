@@ -57,6 +57,16 @@ block preconditioner's planes ([B, C·C, *dom]). A small system runs in the
 BATCH instances, one block a system, all side by side; a larger one in the
 MULTI instances with the fields' and the blocks' per-system strides, one
 system after the other (:func:`batched_kernel_form`).
+
+The tiled route: where one system's state fits the card's shared memory at
+one tile a block (:func:`tiled_grid_plan`: a 2-D grid, float32 fields, the
+standard GN or LM loop with the elementwise preconditioner, no batch,
+split or remainder), :func:`fused_grid_cg_kernel` launches
+``csrc/tiled_grid_cg.cu`` (instances ``gn_tiled`` and ``lm_tiled``)
+instead of the template: each block keeps its tile's state in shared
+memory for the whole solve and only r's border goes through device memory.
+It is bitwise equal to the template and to the twin, so the route changes
+no result.
 """
 
 from __future__ import annotations
@@ -69,10 +79,18 @@ import torch
 
 from .shift import in_bounds_mask, shift
 
-# per-kernel capacity of the CUDA source (csrc/fused_grid_cg.cuh)
+# per-kernel capacity of the CUDA sources (csrc/fused_grid_cg.cuh,
+# csrc/tiled_grid_cg.cu)
 MAX_TRIPLES = 512
 MAX_CHANNELS = 64
 BLOCK_THREADS = 256
+# the tiled kernel's block: one a tile, one tile an SM, so 512 threads leave
+# each up to 128 registers
+TILED_THREADS = 512
+# The H100 SXM's SMs and the shared memory a block may opt in to (bytes):
+# the card the kernels are built for (sm_90a), whose numbers decide the
+# route for tensors off the card (which the launchers then refuse).
+SM90_LIMITS = (132, 232448)
 CG_VARIANTS = ("standard", "chronopoulos_gear")
 
 
@@ -657,17 +675,19 @@ def _device_triples(triples, ctot: int, device):
 
 
 def instance_name(lm: bool, rem: bool, cs: bool = False, block: bool = False,
-                  bf16: bool = False, multi: bool = False, batch: bool = False) -> str:
+                  bf16: bool = False, multi: bool = False, batch: bool = False,
+                  tiled: bool = False) -> str:
     """The kernel instance's name: "gn" or "lm", then "_cs" for
     Chronopoulos–Gear, "_bj" for block-Jacobi, "_bf16" for bfloat16 fields,
     "_rem" with the remainder phase, "_multi" for the instances whose
     cooperative launch holds several independent systems in turn (the
-    per-channel split, a batch of large systems) and "_batch" for those
+    per-channel split, a batch of large systems), "_batch" for those
     whose launch holds them side by side, one block each (a batch of small
-    systems)."""
+    systems), and "_tiled" for the tiled kernel's (csrc/tiled_grid_cg.cu)."""
     return (("lm" if lm else "gn") + ("_cs" if cs else "") + ("_bj" if block else "")
             + ("_bf16" if bf16 else "") + ("_rem" if rem else "")
-            + ("_multi" if multi else "") + ("_batch" if batch else ""))
+            + ("_multi" if multi else "") + ("_batch" if batch else "")
+            + ("_tiled" if tiled else ""))
 
 
 # (lm, rem, cs, block, bf16, multi, batch): every combination of the five
@@ -678,6 +698,8 @@ INSTANCES = tuple(
     for lm in (False, True) for cs in (False, True) for block in (False, True)
     for bf16 in (False, True) for rem in (False, True)
 )
+# the tiled kernel's two instances, as instance_name's flags (tiled last)
+TILED_INSTANCES = tuple((lm,) + (False,) * 6 + (True,) for lm in (False, True))
 
 
 def batched_kernel_form(meta, pre_blocks=None) -> str:
@@ -722,9 +744,9 @@ def _check_operand(name, t, shape, dtype, device):
         raise ValueError(f"fused_grid_cg: {name} is not contiguous")
 
 
-def fused_grid_cg_kernel(meta, b, pre, lits, tol, *, guard_div=True, ctc=None,
-                         reset_period=None, q_tolerance=None, cs=False, pre_blocks=None):
-    """Launch the CUDA kernel on packed [C, *dom] float32 CUDA tensors (dom
+def template_grid_cg_kernel(meta, b, pre, lits, tol, *, guard_div=True, ctc=None,
+                            reset_period=None, q_tolerance=None, cs=False, pre_blocks=None):
+    """Launch the template kernel on packed [C, *dom] float32 CUDA tensors (dom
     2-D or 3-D): the GN loop, or the LM loop when ``ctc`` is given (with
     ``reset_period`` and ``q_tolerance``); Chronopoulos–Gear under ``cs``;
     the block preconditioner when ``pre_blocks`` ([C·C, *dom]) is given
@@ -852,9 +874,227 @@ def fused_grid_cg_kernel(meta, b, pre, lits, tol, *, guard_div=True, ctc=None,
     return delta, iters
 
 
+def tiled_smem_bytes(lm: bool, C: int, th: int, tw: int, h: int, n_triples: int) -> int:
+    """The tiled kernel's dynamic shared memory a block, in bytes, in its
+    layout (csrc/tiled_grid_cg.cu::tg_smem_bytes): the block-sum records,
+    r, δ, p with its halo, Ap (with the halo under LM, where a reset
+    iteration builds δ's haloed copy there), and the triples' offsets."""
+    pts, ext = th * tw, (th + 2 * h) * (tw + 2 * h)
+    return (16 * (TILED_THREADS // 32 + 1) + 4 * C * (2 * pts + ext + (ext if lm else pts))
+            + 4 * (2 * n_triples + C + 1))
+
+
+@functools.lru_cache(maxsize=64)
+def _tile_split(N1: int, N2: int, h: int, sm_count: int):
+    """(tiles_r, tiles_c, th, tw) of the ceil split of the grid [N1, N2]
+    into at most ``sm_count`` tiles, each at least max(h, 1) wide in both
+    axes (so a halo reaches only the adjacent tiles, whose rings hold it),
+    or None. The split whose largest tile with its halo holds the fewest
+    points wins (its block's work and shared memory), counted up to
+    TILED_THREADS (a block walks fewer with idle threads); then the fewest
+    tiles (fewer blocks in each barrier), the widest rows."""
+    best, key = None, None
+    lo = max(h, 1)
+    for tr in range(1, min(N1, sm_count) + 1):
+        th = -(-N1 // tr)
+        if N1 - (tr - 1) * th < lo:
+            continue
+        for tc in range(1, min(N2, sm_count // tr) + 1):
+            tw = -(-N2 // tc)
+            if N2 - (tc - 1) * tw < lo:
+                continue
+            k = (max((th + 2 * h) * (tw + 2 * h), TILED_THREADS), tr * tc, -tw)
+            if key is None or k < key:
+                best, key = (tr, tc, th, tw), k
+    return best
+
+
+def tiled_grid_plan(meta, C: int, dom, *, lm: bool, cs: bool = False, block: bool = False,
+                    sm_count: int, smem_per_block: int) -> Optional[Dict]:
+    """Whether a launch on ``meta`` with C channels on the domain ``dom``
+    takes the tiled kernel, and how: None, or {tiles: (rows, columns of
+    tiles), tile: (th, tw), halo: h, threads, smem_bytes}. Taken for float32
+    fields on a 2-D grid (dom [N1, N2] or [1, N1, N2] with N1 > 1: not the
+    graph domain [1, N]) under the standard GN or LM loop (``lm``) with the
+    elementwise preconditioner (not ``cs``, not ``block``), one system (no
+    batch, no split, no remainder), up to the kernel's channels and
+    triples, when the grid splits into at most ``sm_count`` tiles
+    (:func:`_tile_split`) whose state and halo fit ``smem_per_block``. h is
+    the largest |offset| of the triples in either axis."""
+    if (meta["F"].dtype != torch.float32 or cs or block or meta.get("batch")
+            or meta.get("chan_grid") or meta.get("rem") is not None):
+        return None
+    dom = tuple(int(s) for s in dom)
+    triples = meta["triples"]
+    if len(dom) == 3 and dom[0] == 1:
+        if any(len(d) == 3 and d[0] != 0 for (d, _i, _j, _f) in triples):
+            return None
+        dom = dom[1:]
+    if len(dom) != 2 or dom[0] < 2 or not 1 <= C <= MAX_CHANNELS:
+        return None
+    if not 0 < len(triples) <= MAX_TRIPLES:
+        return None
+    h = max(abs(int(o)) for (d, _i, _j, _f) in triples for o in d[-2:])
+    split = _tile_split(dom[0], dom[1], h, int(sm_count))
+    if split is None:
+        return None
+    tr, tc, th, tw = split
+    smem = tiled_smem_bytes(lm, C, th, tw, h, len(triples))
+    if smem > smem_per_block:
+        return None
+    return {"tiles": (tr, tc), "tile": (th, tw), "halo": h, "threads": TILED_THREADS,
+            "smem_bytes": smem}
+
+
+def tile_bounds(plan, N1: int, N2: int) -> list:
+    """The tiles of a :func:`tiled_grid_plan` on the grid [N1, N2] in block
+    order (block k is tile row k // columns, column k % columns), each as
+    ((first row, row past the last), (first column, column past the last)):
+    the ceil split of each axis, as the kernel cuts it."""
+    (tr, tc), (th, tw) = plan["tiles"], plan["tile"]
+    return [((r * th, min(N1, (r + 1) * th)), (c * tw, min(N2, (c + 1) * tw)))
+            for r in range(tr) for c in range(tc)]
+
+
+_LIMITS = {}
+
+
+def device_limits(device) -> tuple:
+    """(SMs, shared memory a block may opt in to) of a CUDA device, from the
+    CUDA runtime; :data:`SM90_LIMITS` for any other device."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return SM90_LIMITS
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _LIMITS:
+        from ._build import load_library
+
+        sms, smem = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(index):
+            err = load_library().tiled_grid_cg_device_limits(ctypes.byref(sms), ctypes.byref(smem))
+        if err != 0:
+            raise RuntimeError(f"tiled_grid_cg device query failed: CUDA error {err}")
+        _LIMITS[index] = (int(sms.value), int(smem.value))
+    return _LIMITS[index]
+
+
+def route_plan(meta, b, *, lm: bool, cs: bool = False, block: bool = False) -> Optional[Dict]:
+    """:func:`tiled_grid_plan` for a launch on ``meta`` with the packed
+    vector ``b``, at the limits of ``b``'s device: the tiled kernel's plan,
+    or None where the launch takes the template."""
+    if meta.get("batch"):
+        return None
+    sms, smem = device_limits(b.device)
+    return tiled_grid_plan(meta, int(b.shape[0]), b.shape[1:], lm=lm, cs=cs, block=block,
+                           sm_count=sms, smem_per_block=smem)
+
+
+def launch_instance(meta, b, *, lm: bool = False, cs: bool = False, pre_blocks=None) -> str:
+    """The name of the instance :func:`fused_grid_cg_kernel` launches for
+    these operands."""
+    block = pre_blocks is not None
+    if route_plan(meta, b, lm=lm, cs=cs, block=block) is not None:
+        return instance_name(lm, False, tiled=True)
+    form = batched_kernel_form(meta, pre_blocks) if meta.get("batch") else None
+    multi = form == "multi" if form else bool(meta.get("chan_grid"))
+    return instance_name(lm, meta.get("rem") is not None, cs, block,
+                         meta["F"].dtype == torch.bfloat16, multi, form == "batch")
+
+
+def tiled_grid_cg_kernel(meta, b, pre, lits, tol, plan, *, guard_div=True, ctc=None,
+                         reset_period=None, q_tolerance=None):
+    """Launch the tiled kernel (csrc/tiled_grid_cg.cu) on packed [C, *dom]
+    float32 CUDA tensors, dom a 2-D grid [N1, N2] (or [1, N1, N2]), as
+    ``plan`` (:func:`tiled_grid_plan`) cuts it: the GN loop, or the LM loop
+    when ``ctc`` is given (with ``reset_period`` and ``q_tolerance``).
+    Returns (delta, iters int32[1] on the device). Does not synchronise. A
+    launch the card refuses (more tiles than co-resident blocks, shared
+    memory beyond the block's) raises. Each launch adds one to
+    ``fused_grid_cg_kernel.launches["gn_tiled" or "lm_tiled"]``."""
+    from ._build import load_library
+
+    F = meta["F"]
+    device = b.device
+    lm = ctc is not None
+    if F.dtype != torch.float32:
+        raise ValueError(f"tiled_grid_cg_kernel takes float32 fields, got {F.dtype}")
+    C = int(b.shape[0])
+    dom = tuple(int(s) for s in b.shape[1:])
+    if len(dom) == 3 and dom[0] == 1:
+        dom = dom[1:]
+    if len(dom) != 2:
+        raise ValueError(f"tiled_grid_cg_kernel takes a 2-D grid, got {tuple(b.shape[1:])}")
+    N1, N2 = dom
+    full = tuple(b.shape[1:])
+    _check_operand("b", b, (C,) + full, torch.float32, device)
+    _check_operand("pre", pre, (C,) + full, torch.float32, device)
+    _check_operand("F", F, (F.shape[0],) + full, torch.float32, device)
+    if lm:
+        _check_operand("ctc", ctc, (C,) + full, torch.float32, device)
+        if reset_period is None or q_tolerance is None or int(reset_period) < 1:
+            raise ValueError(
+                "tiled_grid_cg_kernel: the LM loop needs reset_period >= 1 and "
+                f"q_tolerance, got {reset_period} and {q_tolerance}"
+            )
+    triples = meta["triples"]
+    n_fields = int(F.shape[0])
+    if not 0 < len(triples) <= MAX_TRIPLES or not 1 <= C <= MAX_CHANNELS or any(
+            not (0 <= fid < n_fields and 0 <= i < C and 0 <= j < C)
+            for (_d, i, j, fid) in triples):
+        raise ValueError("tiled_grid_cg_kernel: triples, channels or field ids out of range")
+    if b.numel() >= 2**31 or F.numel() >= 2**31:
+        raise ValueError("tiled_grid_cg_kernel indexes with int32: problem too large")
+    (tr, tc), (th, tw), h = plan["tiles"], plan["tile"], plan["halo"]
+    if device.type != "cuda":  # after the operand checks, which hold on any device
+        raise ValueError(f"tiled_grid_cg_kernel needs CUDA tensors, got {device}")
+    lib = load_library()
+    tr_rows, starts = _device_triples(triples, C, device)
+    delta = torch.empty_like(b)
+    r_ring = torch.empty_like(b)
+    part = torch.empty((2, tr * tc, 2), dtype=torch.float64, device=device)
+    iters = torch.empty(1, dtype=torch.int32, device=device)
+    ptr = lambda t: None if t is None else ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    with torch.cuda.device(device):
+        err = lib.tiled_grid_cg_launch(
+            int(lm), ptr(F), ptr(b), ptr(pre), ptr(ctc), ptr(tr_rows), ptr(starts),
+            C, len(triples), N1, N2, tr, tc, th, tw, h, int(lits),
+            ctypes.c_float(float(tol)), int(bool(guard_div)),
+            int(reset_period) if lm else 0, ctypes.c_float(float(q_tolerance) if lm else 0.0),
+            ptr(delta), ptr(r_ring), ptr(part[0]), ptr(part[1]), ptr(iters),
+            int(plan["threads"]), int(plan["smem_bytes"]),
+            ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream),
+        )
+    if err != 0:
+        raise RuntimeError(f"tiled_grid_cg kernel launch failed: CUDA error {err} "
+                           f"({tr}x{tc} tiles of {th}x{tw}, {plan['smem_bytes']} bytes of "
+                           "shared memory a block)")
+    fused_grid_cg_kernel.launches[instance_name(lm, False, tiled=True)] += 1
+    return delta, iters
+
+
+def fused_grid_cg_kernel(meta, b, pre, lits, tol, *, guard_div=True, ctc=None,
+                         reset_period=None, q_tolerance=None, cs=False, pre_blocks=None):
+    """Launch the whole CG loop on CUDA tensors: the tiled kernel
+    (:func:`tiled_grid_cg_kernel`) where :func:`route_plan` gives a plan,
+    else the template (:func:`template_grid_cg_kernel`, whose docstring
+    gives the operands and forms). Both are bitwise equal to the twin, so
+    the route changes no result; a tiled launch that fails raises and is
+    not retried. Returns (delta, iters int32[n_sys] on the device). Each
+    launch adds one to ``fused_grid_cg_kernel.launches[instance]``
+    (:func:`instance_name`)."""
+    plan = route_plan(meta, b, lm=ctc is not None, cs=cs, block=pre_blocks is not None)
+    if plan is None:
+        return template_grid_cg_kernel(
+            meta, b, pre, lits, tol, guard_div=guard_div, ctc=ctc, reset_period=reset_period,
+            q_tolerance=q_tolerance, cs=cs, pre_blocks=pre_blocks)
+    return tiled_grid_cg_kernel(meta, b, pre, lits, tol, plan, guard_div=guard_div, ctc=ctc,
+                                reset_period=reset_period, q_tolerance=q_tolerance)
+
+
 def reset_launch_counts():
-    """Set the kernel's launch counts, one per instance, to 0."""
-    fused_grid_cg_kernel.launches = {instance_name(*f): 0 for f in INSTANCES}
+    """Set the kernels' launch counts, one per instance, to 0."""
+    fused_grid_cg_kernel.launches = {instance_name(*f): 0
+                                     for f in INSTANCES + TILED_INSTANCES}
 
 
 reset_launch_counts()
