@@ -69,13 +69,18 @@ against its bound, and the sharded solves (four ranks sharing one card:
 not a scaling figure).
 The tiled route: where one system's state fits the card's shared memory at
 one tile a block (fused_cg.tiled_grid_plan: the 2-D float32 GN and LM
-systems at 512x512 and below), the launch takes the tiled kernel
-(opt_tpu_torch/ops/csrc/tiled_grid_cg.cu, instances gn_tiled and
-lm_tiled, in the same library); every check above of such a system runs
-it, three more shapes check it (the radius-2 stencil, image_warping on a
-grid its tiles do not divide, and on a grid of one tile), the template's
-gn and lm instances stay checked and timed beside it at 512x512x3, and
-the main paths of those systems launch it once a step.
+systems at 512x512 and below, with the Jacobi or the block-Jacobi
+preconditioner, and a batch of such block-Jacobi systems in turn), the
+launch takes the tiled kernel (opt_tpu_torch/ops/csrc/tiled_grid_cg.cu,
+launches gn_tiled, lm_tiled, gn_bj_tiled, lm_bj_tiled, gn_bj_multi_tiled
+and lm_bj_multi_tiled, in the same library); every check above of such a
+system runs it, three more shapes check it with each preconditioner (the
+radius-2 stencil, image_warping on a grid its tiles do not divide, and on
+a grid of one tile), each system of a multi-system launch is held bitwise
+to its own one-system launch, the template's gn, lm, gn_bj, lm_bj,
+gn_bj_multi and lm_bj_multi instances stay checked and timed beside it on
+the same systems, and the main paths of those systems launch it once a
+step.
 It exits non-zero, with no result line, when CUDA is not available or any
 check fails. It imports neither JAX nor opt_tpu.
 """
@@ -85,6 +90,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import functools
+import itertools
 import json
 import multiprocessing
 import os
@@ -825,14 +831,17 @@ def form_of(meta, b, lm=None, cs=False, pre_blocks=None, template=False):
         return fused_cg.launch_instance(meta, b, lm=bool(lm), cs=bool(cs), pre_blocks=pre_blocks)
 
 
-def tiled_line(label, meta, b, lm=None):
-    """The tiled route's plan of a system, printed: tiles, halo, threads
-    and shared memory a block; raises where the system does not take it."""
-    plan = fused_cg.route_plan(meta, b, lm=bool(lm))
+def tiled_line(label, meta, b, lm=None, pre_blocks=None):
+    """The tiled route's plan of a system (of each system of a batch),
+    printed: tiles, halo, threads and shared memory a block; raises where
+    the system does not take it."""
+    plan = fused_cg.route_plan(meta, b, lm=bool(lm), pre_blocks=pre_blocks)
     if plan is None:
         raise RuntimeError(f"{label}: does not take the tiled kernel")
-    log(json.dumps({"tiled_plan": label, "form": form_of(meta, b, lm), "grid": list(b.shape[1:]),
-                    "channels": int(b.shape[0]), "triples": len(meta["triples"]),
+    lead = 1 if meta.get("batch") else 0
+    log(json.dumps({"tiled_plan": label, "form": form_of(meta, b, lm, pre_blocks=pre_blocks),
+                    "systems": n_systems(meta), "grid": list(b.shape[lead + 1:]),
+                    "channels": int(b.shape[lead]), "triples": len(meta["triples"]),
                     "tiles": list(plan["tiles"]), "tile": list(plan["tile"]),
                     "halo": plan["halo"], "threads": plan["threads"],
                     "smem_bytes": plan["smem_bytes"]}))
@@ -867,7 +876,7 @@ def meta_shape(meta):
 
 def cg_work(fields, plane, C, triples, nnz=0, *, lm=False, cs=False, f_bytes=4,
             pre_planes=None, vector=None, dots=None, batch=1, iters=1,
-            reset_period=RESET_PERIOD):
+            reset_period=RESET_PERIOD, planes_once=0):
     """What one launch of `iters` CG iterations on each of `batch` systems
     of this shape must do: (bytes of the launch: each system's fields, b,
     preconditioner planes (C, or C*C under block-Jacobi), ctc under LM and
@@ -876,19 +885,26 @@ def cg_work(fields, plane, C, triples, nnz=0, *, lm=False, cs=False, f_bytes=4,
     shared memory once a launch, read once; float32 operations; float64
     operations). Reads of the stencil that leave the grid count as done;
     the remainder counts its real entries. Defaults are the GN and LM
-    forms'; `cs` takes Chronopoulos-Gear's vector updates and dots."""
+    forms'; `cs` takes Chronopoulos-Gear's vector updates and dots.
+    `planes_once` (a count of systems, 0 by default): the preconditioner's
+    planes, which stay the same for the whole solve, read once a launch for
+    each of that many systems instead of once an iteration: the least a
+    kernel that keeps them on chip must read."""
     n = C * plane
     pre_planes = C if pre_planes is None else pre_planes
     if vector is None:  # dots, updates, z = M^-1 r
         vector = (16 if lm else 13) if cs else (15 if lm else 12)
     dots = (3 if lm else 2) if dots is None else dots  # their float64 sums
-    it_bytes = fields * plane * f_bytes + (C + pre_planes + (C if lm else 0)) * plane * 4
+    it_bytes = fields * plane * f_bytes + (C + (C if lm else 0)) * plane * 4
+    once = planes_once * pre_planes * plane * 4
+    if not planes_once:
+        it_bytes += pre_planes * plane * 4
     if nnz:
         it_bytes += (plane + 1) * 4 + nnz * 4 + nnz * C * C * f_bytes
     apply = 2 * triples * plane + 2 * nnz * C * C + (2 * n if lm else 0)
     per_iter = apply + vector * n + 2 * (pre_planes - C) * plane
     resets = iters // reset_period if lm else 0
-    return (batch * iters * it_bytes + triples * 6 * 4,
+    return (batch * iters * it_bytes + once + triples * 6 * 4,
             batch * (iters * per_iter + resets * apply), batch * iters * dots * n)
 
 
@@ -989,14 +1005,17 @@ def bitwise_repeat(label, meta, b, pre, lits, lm=None, **variant):
         raise RuntimeError(f"{label}: two launches on the same input differ")
 
 
-def variant_checks(label, system, lits, exit_lits, bitwise=False):
+def variant_checks(label, system, lits, exit_lits, bitwise=False, template=False):
     """A variant system's kernel against its twin: `lits` iterations with
-    no exit, the real exits with up to `exit_lits`, and a bitwise repeat.
-    Returns the first check's max|Δδ|."""
+    no exit, the real exits with up to `exit_lits`, and a bitwise repeat
+    (with `template`, the template's instance is held to the same twin
+    results too). Returns the first check's max|Δδ|."""
     meta, b, pre, lm, variant = system
     no_exit = dict(q_tol=float("-inf")) if lm else {}
-    err = kernel_vs_twin(label, meta, b, pre, lits, 0.0, lm, bitwise=bitwise, **no_exit, **variant)
-    kernel_vs_twin(label, meta, b, pre, exit_lits, CG_TOL, lm, bitwise=bitwise, **variant)
+    err = kernel_vs_twin(label, meta, b, pre, lits, 0.0, lm, bitwise=bitwise, template=template,
+                         **no_exit, **variant)
+    kernel_vs_twin(label, meta, b, pre, exit_lits, CG_TOL, lm, bitwise=bitwise,
+                   template=template, **variant)
     bitwise_repeat(label, meta, b, pre, exit_lits, lm, **variant)
     return err
 
@@ -1148,7 +1167,8 @@ def variant_main_path(name, variant, inputs):
     one solver variant ("chronopoulos_gear", "block_jacobi" or
     "bfloat16"), held to the JAX package's solve of the same plan
     (JAX_CPU_VARIANT_COSTS); Chronopoulos-Gear also to its CG iteration
-    count. Returns (result, launches)."""
+    count. image_warping's block-Jacobi steps take the tiled instance
+    lm_bj_tiled. Returns (result, launches)."""
     want, want_iters = JAX_CPU_VARIANT_COSTS[(name, variant)]
     ip = {"chronopoulos_gear": {"cg_variant": "chronopoulos_gear"},
           "block_jacobi": {"preconditioner": "block_jacobi"},
@@ -1163,7 +1183,8 @@ def variant_main_path(name, variant, inputs):
         n = IW_N
         res, launches, _p = main_path(
             f"image_warping{n} LM 8x400 {variant}", image_warping, "LMGPU", _grid(n), inputs,
-            8, 400, want, {"Offset": (n, n, 2), "Angle": (n, n, 1)}, form="lm" + suffix, ip=ip)
+            8, 400, want, {"Offset": (n, n, 2), "Angle": (n, n, 1)},
+            form="lm" + suffix + ("_tiled" if variant == "block_jacobi" else ""), ip=ip)
     line = {"check": "variant_iters", "case": f"{name} {variant}",
             "lin_iters": res.num_linear_iterations, "jax_cpu_lin_iters": want_iters}
     if name == "poisson":
@@ -1215,24 +1236,31 @@ def instance_system(meta, b, pre, lm, variant, k):
 
 def batch_vs_single(label, meta, b, pre, lits, lm=None, **variant):
     """Each system of a batched launch against its own one-system launch
-    of the template, with the real exits: bitwise equal, count for count.
-    The one-system launch must partition the dots as the batched one does:
-    one block for a block-per-system launch (systems of at most
-    BLOCK_THREADS elements), the same grid for the multi-system form."""
+    on the batch's route, with the real exits: bitwise equal, count for
+    count. The one-system launch must partition the dots as the batched
+    one does: one block for a block-per-system launch (systems of at most
+    BLOCK_THREADS elements), the same grid for the template's multi-system
+    form, the same tiles for the tiled one (whose systems then take the
+    one-system tiled instance)."""
     lm_kw = dict(lm, q_tolerance=Q_TOL) if lm else {}
+    form = form_of(meta, b, lm, **variant)
     dk, ik = fused_cg.fused_grid_cg_kernel(meta, b, pre, lits, CG_TOL, **lm_kw, **variant)
+    single = (fused_cg.fused_grid_cg_kernel if form.endswith("_tiled")
+              else fused_cg.template_grid_cg_kernel)
     equal, counts = 0, []
     for k in range(n_systems(meta)):
         m1, b1, p1, lm1, var1 = instance_system(meta, b, pre, lm, variant, k)
         kw1 = dict(lm1, q_tolerance=Q_TOL) if lm1 else {}
-        d1, i1 = fused_cg.template_grid_cg_kernel(m1, b1, p1, lits, CG_TOL, **kw1, **var1)
+        if single is fused_cg.fused_grid_cg_kernel and not form_of(
+                m1, b1, lm1, **var1).endswith("_tiled"):
+            raise RuntimeError(f"{label}: system {k} alone does not take the tiled kernel")
+        d1, i1 = single(m1, b1, p1, lits, CG_TOL, **kw1, **var1)
         equal += bool(torch.equal(d1, dk[k]))
         counts.append(i1)
     torch.cuda.synchronize()
     counts = torch.cat(counts).tolist()
     same_counts = counts == ik.tolist()
-    log(json.dumps({"check": "batch_vs_single", "case": label,
-                    "form": form_of(meta, b, lm, **variant),
+    log(json.dumps({"check": "batch_vs_single", "case": label, "form": form,
                     "systems": n_systems(meta), "systems_bitwise_equal": equal,
                     "counts_equal": same_counts, "iters": sum(counts)}))
     if equal != n_systems(meta) or not same_counts:
@@ -1240,17 +1268,20 @@ def batch_vs_single(label, meta, b, pre, lits, lm=None, **variant):
                            f"launch, counts equal: {same_counts}")
 
 
-def batch_checks(label, system, lits, exit_lits, single=True, form=None):
+def batch_checks(label, system, lits, exit_lits, single=True, form=None, template=False):
     """A batch form against its twin as variant_checks holds the others,
     each system also bitwise equal to the twin's (and, with `single`, to
     its own one-system launch: batch_vs_single). ``form``: the instance the
-    launch must take. Returns the no-exit check's max|Δδ|."""
+    launch must take; with `template`, the template's instance is held to
+    the same twin results too. Returns the no-exit check's max|Δδ|."""
     meta, b, pre, lm, variant = system
     if form is not None and form_of(meta, b, lm, **variant) != form:
         raise RuntimeError(f"{label}: takes {form_of(meta, b, lm, **variant)}, not {form}")
     no_exit = dict(q_tol=float("-inf")) if lm else {}
-    err = kernel_vs_twin(label, meta, b, pre, lits, 0.0, lm, bitwise=True, **no_exit, **variant)
-    kernel_vs_twin(label, meta, b, pre, exit_lits, CG_TOL, lm, bitwise=True, **variant)
+    err = kernel_vs_twin(label, meta, b, pre, lits, 0.0, lm, bitwise=True, template=template,
+                         **no_exit, **variant)
+    kernel_vs_twin(label, meta, b, pre, exit_lits, CG_TOL, lm, bitwise=True, template=template,
+                   **variant)
     bitwise_repeat(label, meta, b, pre, exit_lits, lm, **variant)
     if single:
         batch_vs_single(label, meta, b, pre, exit_lits, lm, **variant)
@@ -1370,17 +1401,39 @@ def batched_graph_main_path(dims, inputs):
     return launches
 
 
+def bj_batch_plan():
+    """image_warping 512x512's LM plan under block-Jacobi, as the batched
+    block-Jacobi main path solves it."""
+    return ot.Problem(image_warping, kind="LMGPU").plan(
+        dims=_grid(IW_N), init_params=ot.InitializationParameters(preconditioner="block_jacobi"))
+
+
+def time_batched_bj(label, inputs, gpu, reps):
+    """Wall ms (host clock, synchronised) of `reps` solve_batched calls of
+    the batched block-Jacobi main path (LM 8x400), after a warm-up solve."""
+    plan = bj_batch_plan()
+    plan.solve_batched(dict(inputs), nIterations=8, lIterations=400)
+    torch.cuda.synchronize()
+    solve_ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        res = plan.solve_batched(dict(inputs), nIterations=8, lIterations=400)
+        torch.cuda.synchronize()
+        solve_ms.append((time.perf_counter() - t0) * 1e3)
+    log(json.dumps({"timing": label, "gpu": gpu, "solve_ms": solve_ms,
+                    "lin_iters": res.num_linear_iterations.tolist()}))
+
+
 def batched_bj_main_path(inputs):
     """image_warping 512x512 four times (iw_batch_inputs), LM 8x400 under
-    block-Jacobi in one solve_batched: one launch of the block-Jacobi LM
-    multi-system instance a step, no fallback; instance 0 within
+    block-Jacobi in one solve_batched: one launch of the tiled block-Jacobi
+    LM multi-system instance (lm_bj_multi_tiled) a step, no fallback; instance 0 within
     GOLDEN_RTOL of the JAX CPU's block-Jacobi solve, each instance within
     GOLDEN_RTOL of its own solve on the card. Returns launches."""
     n, B = IW_N, IW_BJ_BATCH_B
     want, _want_iters = JAX_CPU_VARIANT_COSTS[("image_warping", "block_jacobi")]
     fused_cg.reset_launch_counts()
-    plan = ot.Problem(image_warping, kind="LMGPU").plan(
-        dims=_grid(n), init_params=ot.InitializationParameters(preconditioner="block_jacobi"))
+    plan = bj_batch_plan()
     res = plan.solve_batched(dict(inputs), nIterations=8, lIterations=400)
     torch.cuda.synchronize()
     launches = {k: v for k, v in fused_cg.fused_grid_cg_kernel.launches.items() if v}
@@ -1391,7 +1444,7 @@ def batched_bj_main_path(inputs):
     finite = all(bool(torch.isfinite(v).all()) and tuple(v.shape[:3]) == (B, n, n)
                  for v in res.unknowns.values())
     line = {"check": "main_path", "case": f"image_warping{n} x{B} LM 8x400 block_jacobi batched",
-            "form": "lm_bj_multi", "kernel_launches": launches,
+            "form": "lm_bj_multi_tiled", "kernel_launches": launches,
             "fused_fallback": plan.fused_fallback, "final_costs": res.final_costs.tolist(),
             "single_costs": [s.final_cost for s in singles], "rel_diff_to_single": rel,
             "lin_iters": res.num_linear_iterations.tolist(),
@@ -1400,7 +1453,7 @@ def batched_bj_main_path(inputs):
             "rel_diff_instance0": abs(float(res.final_costs[0]) - want) / want,
             "solve_s": res.wall_time_s}
     log(json.dumps(line))
-    if (launches != {"lm_bj_multi": 8} or plan.fused_fallback is not None or not finite
+    if (launches != {"lm_bj_multi_tiled": 8} or plan.fused_fallback is not None or not finite
             or line["rel_diff_instance0"] > GOLDEN_RTOL or max(rel) > GOLDEN_RTOL):
         raise RuntimeError(f"batched image_warping block-Jacobi failed: {line}")
     return launches
@@ -1670,7 +1723,9 @@ def time_pair(label, meta, b, pre, gpu, lm=None, reps=3, lits=TIMED_ITERS, devic
     device time (kernel_device_ms), for a launch too short for the events to
     part it from the wrapper's host work; the events' ms is printed beside
     it. With `template` the template's instance is timed, where the tiled
-    route would take the system."""
+    route would take the system. Under block-Jacobi the bound reads the C*C
+    planes once a launch (the bound with them read every iteration is
+    printed beside it)."""
     lm_kw = dict(lm, q_tolerance=float("-inf")) if lm else {}
     launch = fused_cg.template_grid_cg_kernel if template else fused_cg.fused_grid_cg_kernel
     # with tol = 0 a loop that reaches an exact zero residual still stops
@@ -1696,8 +1751,14 @@ def time_pair(label, meta, b, pre, gpu, lm=None, reps=3, lits=TIMED_ITERS, devic
                                f"{twin_iters}")
     shape = meta_shape(meta)
     pre_planes = shape["C"] ** 2 if variant.get("pre_blocks") is not None else None
-    bound_ms, bound_by = cg_bound(shape, iters, lm=bool(lm), cs=bool(variant.get("cs")),
-                                  pre_planes=pre_planes)
+    knobs = dict(lm=bool(lm), cs=bool(variant.get("cs")), pre_planes=pre_planes)
+    if pre_planes is None:
+        bound_ms, bound_by = cg_bound(shape, iters, **knobs)
+    else:  # the C*C planes, the same for the whole solve, read once a launch
+        bound_ms, bound_by = cg_bound(shape, iters, planes_once=n_systems(meta), **knobs)
+        every = cg_bound(shape, iters, **knobs)[0]  # and, beside it, once an iteration
+        extra.update(bound_ms_planes_every_iter=every,
+                     bound_ms_planes_every_iter_per_cg_iter=every / iters)
     form = form_of(meta, b, lm, template=template, **variant)
     log(json.dumps({"timing": label, "form": form, "gpu": gpu, "iters": iters,
                     "kernel_ms_per_cg_iter": ms_k / iters,
@@ -2181,27 +2242,33 @@ def main() -> int:
                    template=True)
     bitwise_repeat(f"image_warping{IW_N}x3", vmeta, vb, vpre, 400, vlm)
     # the tiled kernel on a radius-2 stencil (a halo of 2), on a grid its
-    # tiles leave ragged in both axes and on a grid of one tile, GN and LM
+    # tiles leave ragged in both axes and on a grid of one tile, GN and LM,
+    # with the Jacobi and the block-Jacobi preconditioner (the C*C planes
+    # staged over each tile and its halo)
+    bj = {"preconditioner": "block_jacobi"}
     r2 = system(radius2_spec, _grid(n), radius2_inputs(n))
-    if tiled_line(f"radius2 {n}x{n}", *r2[:2])["halo"] != 2:
-        raise RuntimeError("the radius-2 stencil must take a halo of 2")
-    variant_checks(f"radius2 {n}x{n}", r2, 50, 400, bitwise=True)
+    r2bj = system(radius2_spec, _grid(n), radius2_inputs(n), **bj)
+    for label, sys_ in ((f"radius2 {n}x{n}", r2), (f"radius2 {n}x{n} block_jacobi", r2bj)):
+        if tiled_line(label, sys_[0], sys_[1], pre_blocks=sys_[4]["pre_blocks"])["halo"] != 2:
+            raise RuntimeError("the radius-2 stencil must take a halo of 2")
+        variant_checks(label, sys_, 50, 400, bitwise=True)
+    del r2bj
     rag_in = bench_image_warping_inputs(RAGGED_DIMS["W"], RAGGED_DIMS["H"])
     one_in = bench_image_warping_inputs(SINGLE_N)
-    for kind, label in (("gaussNewtonGPU", "GN"), ("LMGPU", "LM")):
-        rag = system(image_warping, RAGGED_DIMS, rag_in, kind)
-        plan = tiled_line(f"image_warping {RAGGED_DIMS['W']}x{RAGGED_DIMS['H']} {label}",
-                          rag[0], rag[1], rag[3])
+    for (kind, label), (ip, pl) in itertools.product(
+            (("gaussNewtonGPU", "GN"), ("LMGPU", "LM")), (({}, ""), (bj, " block_jacobi"))):
+        rag = system(image_warping, RAGGED_DIMS, rag_in, kind, **ip)
+        rlabel = f"image_warping {RAGGED_DIMS['W']}x{RAGGED_DIMS['H']} {label}{pl}"
+        plan = tiled_line(rlabel, rag[0], rag[1], rag[3], rag[4]["pre_blocks"])
         (th, tw), (tr, tc) = plan["tile"], plan["tiles"]
         if RAGGED_DIMS["W"] % th == 0 or RAGGED_DIMS["H"] % tw == 0 or tr * tc < 2:
             raise RuntimeError(f"image_warping {RAGGED_DIMS}: tiles {plan} are not ragged")
-        variant_checks(f"image_warping {RAGGED_DIMS['W']}x{RAGGED_DIMS['H']} {label}", rag, 50,
-                       400, bitwise=True)
-        one = system(image_warping, _grid(SINGLE_N), one_in, kind)
-        if tiled_line(f"image_warping{SINGLE_N} {label}", one[0], one[1],
-                      one[3])["tiles"] != (1, 1):
+        variant_checks(rlabel, rag, 50, 400, bitwise=True)
+        one = system(image_warping, _grid(SINGLE_N), one_in, kind, **ip)
+        olabel = f"image_warping{SINGLE_N} {label}{pl}"
+        if tiled_line(olabel, one[0], one[1], one[3], one[4]["pre_blocks"])["tiles"] != (1, 1):
             raise RuntimeError(f"image_warping{SINGLE_N}: not one tile")
-        variant_checks(f"image_warping{SINGLE_N} {label}", one, 50, 400, bitwise=True)
+        variant_checks(olabel, one, 50, 400, bitwise=True)
     del rag, one
     err_k6 = kernel_vs_twin(f"image_warping{IW_BIG_N}x3", gmeta, gb, gpre, 50, 0.0)
     kernel_vs_twin(f"image_warping{IW_BIG_N}x3", gmeta, gb, gpre, 100, CG_TOL)
@@ -2258,13 +2325,19 @@ def main() -> int:
     err_bf = variant_checks(f"poisson{n}x4 bfloat16", pbf, 50, 2000)
     iw_variants = {}
     for kind, label in (("gaussNewtonGPU", "GN"), ("LMGPU", "LM")):
-        for ip in ({"cg_variant": "chronopoulos_gear"}, {"preconditioner": "block_jacobi"},
-                   {"coefficient_dtype": "bfloat16"}):
+        for ip in ({"cg_variant": "chronopoulos_gear"}, bj, {"coefficient_dtype": "bfloat16"}):
             if kind == "gaussNewtonGPU" and "preconditioner" not in ip:
                 continue  # GN CS and bf16 are held on poisson
             (v,) = ip.values()
             sysv = system(image_warping, _grid(IW_N), iw_in, kind, **ip)
-            variant_checks(f"image_warping{IW_N}x3 {label} {v}", sysv, 50, 400)
+            vlabel = f"image_warping{IW_N}x3 {label} {v}"
+            if ip is bj:  # the tiled instance, and the template's on the same twin results
+                tiled_line(vlabel, sysv[0], sysv[1], sysv[3], sysv[4]["pre_blocks"])
+                err = variant_checks(vlabel, sysv, 50, 400, bitwise=True, template=True)
+                if label == "LM":
+                    err_lm_bj = err
+            else:
+                variant_checks(vlabel, sysv, 50, 400)
             iw_variants[(label, v)] = sysv
     for ip in ({"cg_variant": "chronopoulos_gear"}, {"preconditioner": "block_jacobi"},
                {"coefficient_dtype": "bfloat16"}):
@@ -2353,8 +2426,10 @@ def main() -> int:
     # one (each system also against its own one-block launch), and on the
     # curve fits under block-Jacobi; the multi-system form on the armadillo
     # x4 and on image_warping 512x512 x4 under block-Jacobi, each system
-    # also against its own one-system launch (the same grid)
-    bj = {"preconditioner": "block_jacobi"}
+    # also against its own one-system launch (the same grid; image_warping's
+    # take the tiled kernel, the systems in turn, each against its own
+    # one-system tiled launch, with the template's gn_bj_multi and
+    # lm_bj_multi held to the same twin results)
     rdims, rin = random_mesh_inputs(RANDOM_MESH_N, RANDOM_MESH_B)
     sdims, sin = random_mesh_inputs(SMALL_MESH_N, SMALL_MESH_B)
     rlabel = f"random{RANDOM_MESH_N} x{RANDOM_MESH_B}"
@@ -2405,16 +2480,19 @@ def main() -> int:
             (f"{alabel} GN block_jacobi", arap_mesh_deformation, arm_bdims, arm_bin, gn, bj,
              GRAPH_LI, "gn_bj_rem_multi"),
             (f"{ilabel} GN block_jacobi", image_warping, _grid(IW_N), iw_bin, gn, bj, 400,
-             "gn_bj_multi"),
+             "gn_bj_multi_tiled"),
             (f"{ilabel} LM block_jacobi", image_warping, _grid(IW_N), iw_bin, lmk, bj, 400,
-             "lm_bj_multi"),
+             "lm_bj_multi_tiled"),
             (f"{ilabel} LM cs block_jacobi", image_warping, _grid(IW_N), iw_bin, lmk,
              cs, 400, "lm_cs_bj_multi")):
         if ip is cs:  # the LM block-Jacobi system, by Chronopoulos-Gear
             sysm = sysm[:4] + (dict(sysm[4], cs=True),)
         else:
             sysm = batched_system(spec, dims, binp, kind, **ip)
-        err = batch_checks(label, sysm, 50, exit_lits, form=form)
+        tiled = form.endswith("_tiled")
+        if tiled:
+            tiled_line(label, sysm[0], sysm[1], sysm[3], sysm[4]["pre_blocks"])
+        err = batch_checks(label, sysm, 50, exit_lits, form=form, template=tiled)
         multi_sys[form] = (label, sysm, err)
 
     # K5, the sharded solve's per-tile apply, on the four tiles of a 2x2
@@ -2450,8 +2528,8 @@ def main() -> int:
                     "block_jacobi_lin_iters": vol_bj_res.num_linear_iterations}))
     _r, l_pcs = variant_main_path("poisson", "chronopoulos_gear", inputs)
     _r, l_pbf = variant_main_path("poisson", "bfloat16", inputs)
-    for v in ("chronopoulos_gear", "block_jacobi", "bfloat16"):
-        variant_main_path("image_warping", v, iw_in)
+    l_iw_variant = {v: variant_main_path("image_warping", v, iw_in)[1]
+                    for v in ("chronopoulos_gear", "block_jacobi", "bfloat16")}
 
     sfs_shape = {"X": (SFS_N, SFS_N, 1)}
     _r, l_sfs = first_steps_main_path(
@@ -2512,18 +2590,28 @@ def main() -> int:
     phase_s = time.perf_counter() - t_start
 
     # 4. times on the card. The tiled instances and the template's on the
-    # same systems in turns (tiled, template, template, tiled); the first of
-    # each go into the kernels line
+    # same systems in turns (tiled, template, template, tiled): Jacobi and
+    # block-Jacobi, one system, and image_warping x4 under block-Jacobi, the
+    # systems in turn (ms per system-iteration); the first of each go into
+    # the kernels line
     t_tiled, t_tpl = {}, {}
-    for key, (label, m_, b_, p_, lm_) in {
-            "gn": (f"poisson{n}x4", meta, b, pre, None),
-            "gn_iw": (f"image_warping{IW_N}x3", mmeta, mb, mpre, None),
-            "lm_iw": (f"image_warping{IW_N}x3", vmeta, vb, vpre, vlm)}.items():
+    iw_bj = {label: iw_variants[(label, "block_jacobi")] for label in ("GN", "LM")}
+    mlabel, msys, _err = multi_sys["lm_bj_multi_tiled"]
+    for key, (label, m_, b_, p_, lm_, var_, reps_) in {
+            "gn": (f"poisson{n}x4", meta, b, pre, None, {}, 3),
+            "gn_iw": (f"image_warping{IW_N}x3", mmeta, mb, mpre, None, {}, 3),
+            "lm_iw": (f"image_warping{IW_N}x3", vmeta, vb, vpre, vlm, {}, 3),
+            "gn_bj_iw": (f"image_warping{IW_N}x3 GN block_jacobi", *iw_bj["GN"], 3),
+            "lm_bj_iw": (f"image_warping{IW_N}x3 LM block_jacobi", *iw_bj["LM"], 3),
+            "lm_bj_multi": (mlabel, *msys, 2)}.items():
         for template in (False, True, True, False):
-            t = time_pair(label, m_, b_, p_, gpu, lm_, twin=not template and key not in t_tiled,
-                          template=template)
+            t = time_pair(label, m_, b_, p_, gpu, lm_, reps=reps_,
+                          twin=not template and key not in t_tiled, template=template, **var_)
             (t_tpl if template else t_tiled).setdefault(key, t)
+    del iw_bj, msys
     t_gn, t_mixed, t_lm = t_tiled["gn"], t_tiled["gn_iw"], t_tiled["lm_iw"]
+    phases["tiled_vs_template_kernel_turns"] = (time.perf_counter() - t_start
+                                                - sum(phases.values()))
     t_k5 = time_tile_apply(f"poisson{n}x4", meta, gpu)
     tiled_floor(gpu)
     t_k6 = time_pair(f"image_warping{IW_BIG_N}x3", gmeta, gb, gpre, gpu, reps=2)
@@ -2538,7 +2626,9 @@ def main() -> int:
     t_cs = time_pair(f"poisson{n}x4 chronopoulos_gear", *pcs[:3], gpu, pcs[3], **pcs[4])
     t_bf = time_pair(f"poisson{n}x4 bfloat16", *pbf[:3], gpu, pbf[3], **pbf[4])
     for (label, v), sysv in iw_variants.items():
-        time_pair(f"image_warping{IW_N}x3 {label} {v}", *sysv[:3], gpu, sysv[3], reps=2, **sysv[4])
+        if v != "block_jacobi":  # timed above, on both routes
+            time_pair(f"image_warping{IW_N}x3 {label} {v}", *sysv[:3], gpu, sysv[3], reps=2,
+                      **sysv[4])
     del iw_variants
     big = system(volumetric_mesh_deformation, _vol(VOL_BIG_N), vol_big_in)
     time_pair(f"volumetric{VOL_BIG_N}", *big[:3], gpu, big[3], reps=2, **big[4])
@@ -2563,11 +2653,13 @@ def main() -> int:
     time_pair(f"poisson{n}x4 x{BATCH_POISSON_B} multi", *pbatch[:3], gpu, reps=2)
     # the batch forms with the remainder and the block preconditioner: ms
     # per system-iteration of each multi-system instance (the twin timed for
-    # the two in the kernels line), ms per launch of each block-per-system
-    # one, beside its bound; one batched GN step before and after
+    # gn_rem_multi, in the kernels line; lm_bj_multi_tiled is timed above),
+    # ms per launch of each block-per-system one, beside its bound; one
+    # batched GN step before and after
     t_multi = {form: time_pair(label, *sysm[:3], gpu, sysm[3], reps=2,
-                               twin=form in ("gn_rem_multi", "lm_bj_multi"), **sysm[4])
-               for form, (label, sysm, _err) in multi_sys.items()}
+                               twin=form == "gn_rem_multi", **sysm[4])
+               for form, (label, sysm, _err) in multi_sys.items()
+               if form != "lm_bj_multi_tiled"}
     with batch_form("batch"):
         for form, (label, sysb) in batch_sys.items():
             time_pair(label, *sysb[:3], gpu, sysb[3], lits=BATCH_LI, device=True, twin=False,
@@ -2575,22 +2667,41 @@ def main() -> int:
     del batch_sys
     batched_step_before_after(arm_bdims, arm_bin, gpu)
     # the main paths the tiled route changed, as they ran on the template
-    # before it and on the tiled kernel, in turns: solve times, then each
-    # solve profiled (device time, the CG kernel's share)
+    # before it and on the tiled kernel, in turns: solve times (two solves a
+    # route of the Jacobi paths; four of image_warping LM under block-Jacobi,
+    # beside the Jacobi one, and of the x4 batch under block-Jacobi), then
+    # each solve profiled (device time, the CG kernel's share; image_warping
+    # LM under block-Jacobi on the tiled route only)
     routed = [(f"poisson{n}x4 GN 1x2000", poisson_image_editing, "gaussNewtonGPU", inputs, 1,
-               2000)] + [(f"image_warping{IW_N} {label} 8x400", image_warping, kind, iw_in, 8, 400)
-                         for kind, label in (("gaussNewtonGPU", "GN"), ("LMGPU", "LM"))]
-    for route in ("template", "tiled", "tiled", "template"):
+               2000, {})] + [(f"image_warping{IW_N} {label} 8x400", image_warping, kind, iw_in, 8,
+                              400, {}) for kind, label in (("gaussNewtonGPU", "GN"),
+                                                           ("LMGPU", "LM"))]
+    bj_lm = (f"image_warping{IW_N} LM 8x400 block_jacobi", image_warping, "LMGPU", iw_in, 8, 400,
+             bj)
+    blabel = f"image_warping{IW_N} x{IW_BJ_BATCH_B} LM 8x400 block_jacobi batched"
+    for turn, route in enumerate(("template", "tiled", "tiled", "template")):
         with (template_route() if route == "template" else contextlib.nullcontext()):
-            for label, spec, kind, inp, nl, li in routed:
-                time_main_path(f"{label} {route}", spec, kind, _grid(n), inp, nl, li, gpu,
+            for label, spec, kind, inp, nl, li, ip in (routed if turn in (1, 3) else []) + [bj_lm]:
+                time_main_path(f"{label} {route}", spec, kind, _grid(n), inp, nl, li, gpu, ip=ip,
                                reps=2)
+            time_batched_bj(f"{blabel} {route}", iw_bin, gpu, reps=2)
+    phases["route_solve_turns"] = time.perf_counter() - t_start - sum(phases.values())
     for route in ("template", "tiled"):
         with (template_route() if route == "template" else contextlib.nullcontext()):
-            for label, spec, kind, inp, nl, li in routed:
+            for label, spec, kind, inp, nl, li, ip in routed:
                 rplan = ot.Problem(spec, kind=kind).plan(dims=_grid(n))
                 profile_solve(f"{label} {route}".replace(" ", "_"), lambda: rplan.solve(
                     dict(inp), nIterations=nl, lIterations=li), gpu)  # run at once
+            if route == "tiled":  # image_warping LM under block-Jacobi, beside its Jacobi solve
+                label, spec, kind, inp, nl, li, ip = bj_lm
+                rplan = ot.Problem(spec, kind=kind).plan(
+                    dims=_grid(n), init_params=ot.InitializationParameters(**ip))
+                profile_solve(f"{label} {route}".replace(" ", "_"), lambda: rplan.solve(
+                    dict(inp), nIterations=nl, lIterations=li), gpu)  # run at once
+            bplan_bj = bj_batch_plan()
+            profile_solve(f"{blabel} {route}".replace(" ", "_"), lambda: bplan_bj.solve_batched(
+                dict(iw_bin), nIterations=8, lIterations=400), gpu)  # run at once
+    phases["route_profiles"] = time.perf_counter() - t_start - sum(phases.values())
     time_main_path(f"shape_from_shading{SFS_N} GN {SFS_NL}x{SFS_LI}", shape_from_shading,
                    "gaussNewtonGPU", _grid(SFS_N), sfs_in, SFS_NL, SFS_LI, gpu)
     for li, inp in enumerate(flow_in):  # each level from a zero flow
@@ -2672,6 +2783,10 @@ def main() -> int:
               l_pcs["gn_cs"], err_cs, t_cs),
         entry(f"fused_grid_cg GN block-Jacobi (K1 variant d), volumetric {VOL_N}^3 x 6", K1D,
               l_vol_bj["gn_bj"], err_bj, t_bj),
+        entry(f"tiled_grid_cg LM block-Jacobi (K1 variant d), image_warping "
+              f"{IW_N}x{IW_N}x3, lm_bj_tiled, the C*C planes staged in shared memory", K1D,
+              l_iw_variant["block_jacobi"]["lm_bj_tiled"], err_lm_bj, t_tiled["lm_bj_iw"],
+              TILED_SOURCE, t_tpl["lm_bj_iw"]),
         entry(f"fused_grid_cg GN on a 3-D grid (K1 variant e), volumetric {VOL_N}^3 x 6", K1E,
               l_vol["gn"], err_3d, t_3d),
         entry(f"fused_grid_cg GN bfloat16 fields (K1 variant f), poisson {n}x{n}x4", K1F,
@@ -2687,9 +2802,10 @@ def main() -> int:
               f"{alabel} (the armadillo posed to {len(ARM_BATCH_PULLS)} handle targets), the "
               "systems in turn in one launch; ms of 100 iterations of each system", K4,
               l_arm_batch["gn_rem_multi"], multi_sys["gn_rem_multi"][2], t_multi["gn_rem_multi"]),
-        entry(f"fused_grid_cg LM block-Jacobi, a batch axis (K1 (h) x K1 (d)): {ilabel}, the "
-              "systems in turn in one launch; ms of 100 iterations of each system", K1D,
-              l_bj_batch["lm_bj_multi"], multi_sys["lm_bj_multi"][2], t_multi["lm_bj_multi"]),
+        entry(f"tiled_grid_cg LM block-Jacobi, a batch axis (K1 (h) x K1 (d)): {ilabel}, the "
+              "systems in turn in one launch, lm_bj_multi_tiled; ms of 100 iterations of each "
+              "system", K1D, l_bj_batch["lm_bj_multi_tiled"], multi_sys["lm_bj_multi_tiled"][2],
+              t_tiled["lm_bj_multi"], TILED_SOURCE, t_tpl["lm_bj_multi"]),
         entry(f"tile_apply, one rank's part of the sharded apply (K5), poisson {n}x{n}x4 on "
               f"{MESH_SHAPE[0]}x{MESH_SHAPE[1]} ranks; launches summed over the four ranks, ms "
               "of one apply of a 256x256 tile", K5, l_k5[SHARDED_CASES[0][0]], err_k5, t_k5,

@@ -114,14 +114,16 @@ def build_library(build: bool = True) -> dict:
 _INSTANCE = re.compile(
     r"fused_grid_cg_kernelILb([01])ELb([01])ELb([01])ELb([01])E(f|13__nv_bfloat16)Li([012])EE"
 )
-_TILED_INSTANCE = re.compile(r"tiled_grid_cg_kernelILb([01])EE")
+_TILED_INSTANCE = re.compile(r"tiled_grid_cg_kernelILb([01])ELb([01])EE")
 
 
 def instance_registers(log: str) -> dict:
     """{(lm, rem, cs, block, bf16, multi, batch): (registers, spill store
     bytes, spill load bytes)} from ptxas's -v output (the kernel's FORM: 0
-    one system, 1 multi, 2 batch), and the tiled kernel's two instances
-    under (lm, False, False, False, False, False, False, True)."""
+    one system, 1 multi, 2 batch), and the tiled kernel's four instances
+    (tiled_grid_cg_kernel<LM, BLOCK>) under (lm, False, False, block,
+    False, multi, False, True): a block instance under both multi = False
+    and True, the one kernel that solves one system or several in turn."""
     regs, current, spill = {}, None, (0, 0)
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -130,9 +132,11 @@ def instance_registers(log: str) -> dict:
             if m:
                 lm, rem, cs, block = (g == "1" for g in m.groups()[:4])
                 form = int(m.group(6))
-                current = (lm, rem, cs, block, m.group(5) != "f", form == 1, form == 2)
+                current = [(lm, rem, cs, block, m.group(5) != "f", form == 1, form == 2)]
             elif t:
-                current = (t.group(1) == "1",) + (False,) * 6 + (True,)
+                lm, block = (g == "1" for g in t.groups())
+                current = [(lm, False, False, block, False, multi, False, True)
+                           for multi in ((False, True) if block else (False,))]
             else:
                 current = None
             spill = (0, 0)
@@ -143,7 +147,8 @@ def instance_registers(log: str) -> dict:
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m and current is not None:
-            regs[current] = (int(m.group(1)),) + spill
+            for key in current:
+                regs[key] = (int(m.group(1)),) + spill
             current = None
     return regs
 
@@ -177,10 +182,12 @@ def load_library(build: bool = True) -> ctypes.CDLL:
     lib.tiled_grid_cg_device_limits.argtypes = [ctypes.POINTER(i32), ctypes.POINTER(i32)]
     lib.tiled_grid_cg_device_limits.restype = i32
     lib.tiled_grid_cg_launch.argtypes = [
-        i32, vp, vp, vp, vp, vp, vp,  # lm, F, b, pre, ctc, triples, starts
+        i32, i32,  # lm, block
+        vp, vp, vp, vp, vp, vp,  # F, b, pre, ctc, triples, starts
         i32, i32, i32, i32,  # C, n_triples, N1, N2
         i32, i32, i32, i32, i32,  # tiles_r, tiles_c, th, tw, h
         i32, f32, i32, i32, f32,  # lits, tol, guard_div, reset_period, q_tol
+        i32, i32,  # n_sys, f_stride (a system's fields, under block)
         vp, vp, vp, vp, vp,  # delta, r_ring, partA, partB, iters
         i32, i32, vp,  # threads, smem_bytes, stream
     ]

@@ -1,17 +1,22 @@
 // Whole-loop preconditioned CG for a 2-D grid stencil operator whose state
 // fits the card's shared memory: one persistent cooperative launch per CG
-// solve, one block a tile, for Hopper (sm_90a). Two instances,
-// tiled_grid_cg_kernel<LM>: the standard Gauss-Newton loop and the standard
-// Levenberg-Marquardt loop of fused_grid_cg.cuh (lines 66-78), Jacobi
-// preconditioner, float32 fields, one system.
+// solve, one block a tile, for Hopper (sm_90a). Four instances,
+// tiled_grid_cg_kernel<LM, BLOCK>: the standard Gauss-Newton loop and the
+// standard Levenberg-Marquardt loop of fused_grid_cg.cuh (lines 66-78),
+// float32 fields, with the Jacobi preconditioner (one system) or with
+// block-Jacobi (one system, or several independent systems in turn in one
+// launch: the same loop over n_sys). Their launches count, in
+// ops/fused_cg.py, as gn_tiled, lm_tiled, gn_bj_tiled, lm_bj_tiled and, for
+// a batch of systems, gn_bj_multi_tiled and lm_bj_multi_tiled.
 //
 // Replaces, in opt_tpu/ops/pallas_cg.py: _kernel (:328), the Pallas TPU
 // kernel that runs the whole PCG inner loop of a grid problem in one
 // launch, in its 2-D grid GN form (also with mixed unknowns packed into the
-// channels, and with fields from ComputedArray slots) and its lm=True form,
-// at the grid sizes whose state fits one tile a block
-// (ops/fused_cg.py::tiled_grid_plan). The other forms, and these two at
-// larger sizes, run the template of fused_grid_cg.cuh.
+// channels, and with fields from ComputedArray slots), its lm=True form and
+// its block_pre=True form (prec, :367-381), also under jax.vmap
+// (opt_tpu/solver/gauss_newton.py:983-1004), at the grid sizes whose state
+// fits one tile a block (ops/fused_cg.py::tiled_grid_plan). The other
+// forms, and these at larger sizes, run the template of fused_grid_cg.cuh.
 //
 // The arithmetic is the template's (fused_grid_cg.cuh:139-146): float32
 // products with explicit round-to-nearest intrinsics and no fused
@@ -30,6 +35,10 @@
 // also moved the state vectors (r, delta, p, Ap) through L2 in three sweeps
 // an iteration, read p once per stencil triple, and summed 1056 blocks'
 // dot partials in every block, behind three grid barriers.
+//
+// Under block-Jacobi an iteration also reads the C*C inverse blocks at
+// every point (image_warping: 9 planes, 9.4 MB), which stay the same for
+// the whole solve.
 //
 // What the design does about it:
 //   * The grid is cut into at most one tile per SM (a ceil split of both
@@ -62,6 +71,18 @@
 //   * Each thread walks the tile's points at a fixed stride with all C
 //     channels at each point; the point's row and column advance by
 //     addition (one division a phase).
+//   * Under BLOCK the tile's C*C planes over the tile and its halo are
+//     staged in shared memory once a solve, beside its state, and read
+//     from there after. z at a point is the template's block apply (the sum
+//     over j ascending from +0 of M^-1[i][j] * r[j]), formed after every
+//     channel's r at the point is updated; on the halo from the
+//     neighbours' r ring, which holds all C channels. The staged planes
+//     take 4*C*C*(th+2h)*(tw+2h) bytes; a shape whose planes do not fit is
+//     refused by the planner and keeps the template.
+//   * Under BLOCK the launch solves its systems one after the other (one
+//     for a single system), each with its own dots, exit and count; a grid
+//     barrier before each system after the first, and each block reloads
+//     its tile's state for it.
 //   * The dynamic shared memory is set (cudaFuncSetAttribute) before the
 //     occupancy query and the launch; a launch that needs more blocks than
 //     can be co-resident is refused and the error returned.
@@ -159,80 +180,95 @@ __device__ __forceinline__ float tg_stencil(const float* __restrict__ F,
   return a;
 }
 
+// z_i = (M^-1 r)_i at a point, m the point's first preconditioner plane
+// (stride ms between planes) and r its first channel (stride rs), r read
+// through L2 (__ldcg) when RING (the neighbours' r ring). Under BLOCK the
+// sum over j ascending from +0 of m[(i*C + j)*ms] * r[j*rs], the template's
+// block_prec arithmetic (fused_grid_cg.cuh:316-333); else m[i*ms] * r[i*rs].
+template <bool BLOCK, bool RING>
+__device__ __forceinline__ float tg_z(const float* m, int ms, const float* r, int rs, int C,
+                                      int i) {
+  auto rj = [&](int j) { return RING ? __ldcg(r + j * rs) : r[j * rs]; };
+  if constexpr (BLOCK) {
+    const float* mi = m + i * C * ms;
+    float a = 0.f;
+    for (int j = 0; j < C; ++j) a = __fadd_rn(a, __fmul_rn(mi[j * ms], rj(j)));
+    return a;
+  } else {
+    return __fmul_rn(m[i * ms], rj(i));
+  }
+}
+
 // The dynamic shared memory of a launch, in bytes, in the kernel's layout:
-// the block-sum records, r, delta, p (haloed), Ap (haloed under LM), the
-// triples' field and source offsets and the channels' first triples.
-__host__ __device__ __forceinline__ long long tg_smem_bytes(int lm, int C, int th,
-                                                           int tw, int h,
+// the block-sum records, r, delta, p (haloed), Ap (haloed under LM), under
+// block-Jacobi the C*C preconditioner planes over the tile and its halo,
+// the triples' field and source offsets and the channels' first triples.
+__host__ __device__ __forceinline__ long long tg_smem_bytes(int lm, int block, int C,
+                                                           int th, int tw, int h,
                                                            int n_triples) {
   const long long pts = (long long)th * tw;
   const long long ext = (long long)(th + 2 * h) * (tw + 2 * h);
   return 16LL * (TGCG_WARPS + 1) + 4LL * C * (2 * pts + ext + (lm ? ext : pts)) +
-         4LL * (2 * n_triples + C + 1);
+         (block ? 4LL * C * C * ext : 0LL) + 4LL * (2 * n_triples + C + 1);
 }
 
-// One CG solve of C channels on the grid [N1, N2], block k owning tile
-// (k / tiles_c, k % tiles_c) of the ceil split into th x tw tiles with a
-// halo of h. delta receives the solution (and, on LM reset iterations,
-// delta's rings); r_ring is scratch of the grid's size, of which each block
-// writes only its ring; partA and partB hold one record a block.
-template <bool LM>
-__global__ void __launch_bounds__(TGCG_THREADS, 1)
-tiled_grid_cg_kernel(const float* __restrict__ F, const float* __restrict__ b,
-                     const float* __restrict__ pre,
-                     const float* __restrict__ ctc,
-                     const int* __restrict__ triples,
-                     const int* __restrict__ starts, int C, int n_triples,
-                     int N1, int N2, int tiles_c, int th, int tw, int h,
-                     int lits, float tol, int guard_div, int reset_period,
-                     float q_tol, float* delta, float* r_ring, double2* partA,
-                     double2* partB, int* iters) {
-  extern __shared__ double2 smem[];
-  double2* s_warp = smem;                 // TGCG_WARPS records
-  double2* s_bcast = smem + TGCG_WARPS;   // one record
-  const int pts_max = th * tw;
-  const int ext_max = (th + 2 * h) * (tw + 2 * h);
-  float* s_r = (float*)(smem + TGCG_WARPS + 1);
-  float* s_d = s_r + C * pts_max;
-  float* s_pe = s_d + C * pts_max;  // p, haloed
-  float* s_ap = s_pe + C * ext_max;  // Ap; z; under LM also haloed delta
-  int* s_f = (int*)(s_ap + C * (LM ? ext_max : pts_max));
-  int* s_p = s_f + n_triples;
-  int* s_start = s_p + n_triples;
+// The tile's view of the launch, the same for every system of it: its
+// shared-memory arrays, its place in the grid and the triples' offsets.
+struct TgTile {
+  double2* s_warp;   // TGCG_WARPS block-sum records
+  double2* s_bcast;  // one record
+  float *s_r, *s_d, *s_pe, *s_ap, *s_m;
+  const int *s_f, *s_p, *s_start;
+  int N1, N2, plane, y0, x0, rows, cols, pts, pcols, ext, h, n_blocks;
+};
 
-  cg::grid_group grid = cg::this_grid();
-  const int plane = N1 * N2;
-  const int y0 = (blockIdx.x / tiles_c) * th;  // the tile's first row, column
-  const int x0 = (blockIdx.x % tiles_c) * tw;
-  const int rows = min(N1, y0 + th) - y0;
-  const int cols = min(N2, x0 + tw) - x0;
-  const int pts = rows * cols;
-  const int pcols = cols + 2 * h;
-  const int ext = (rows + 2 * h) * pcols;
-  const int n_blocks = gridDim.x;
+// One CG solve of C channels on the grid [N1, N2] by every block of the
+// launch, each on its tile: F, b, pre (under BLOCK the C*C planes), ctc and
+// delta are the system's own. Returns the executed iteration count, the
+// same in every block.
+template <bool LM, bool BLOCK>
+__device__ __forceinline__ int tg_solve(cg::grid_group& grid, const TgTile& tt,
+                                        const float* __restrict__ F,
+                                        const float* __restrict__ b,
+                                        const float* __restrict__ pre,
+                                        const float* __restrict__ ctc, int C, int lits,
+                                        float tol, int guard_div, int reset_period,
+                                        float q_tol, float* delta, float* r_ring,
+                                        double2* partA, double2* partB) {
+  double2* s_warp = tt.s_warp;
+  double2* s_bcast = tt.s_bcast;
+  float* s_r = tt.s_r;
+  float* s_d = tt.s_d;
+  float* s_pe = tt.s_pe;
+  float* s_ap = tt.s_ap;
+  float* s_m = tt.s_m;
+  const int* s_f = tt.s_f;
+  const int* s_p = tt.s_p;
+  const int* s_start = tt.s_start;
+  const int N1 = tt.N1, N2 = tt.N2, plane = tt.plane, y0 = tt.y0, x0 = tt.x0;
+  const int rows = tt.rows, cols = tt.cols, pts = tt.pts, pcols = tt.pcols;
+  const int ext = tt.ext, h = tt.h, n_blocks = tt.n_blocks;
 
-  for (int k = threadIdx.x; k <= C; k += TGCG_THREADS) s_start[k] = starts[k];
-  for (int k = threadIdx.x; k < n_triples; k += TGCG_THREADS) {
-    const int* t = triples + TGCG_ROW * k;
-    s_f[k] = t[5] * plane;
-    s_p[k] = t[4] * ext + t[1] * pcols + t[2];
-  }
-
-  // r = b, delta = 0 on the tile; p = pre*b on the tile and its halo (0
-  // beyond the grid); rz0 = <r, p>
+  // r = b, delta = 0 on the tile; p = M^-1 b on the tile and its halo (0
+  // beyond the grid); rz0 = <r, p>. Under BLOCK the point's C*C planes are
+  // staged here, once a solve, and read from shared memory after.
   double2 acc = make_double2(0.0, 0.0);
   for (TgWalk w(pcols); w.q < ext; w.next(pcols)) {
     const int gy = y0 + w.y - h, gx = x0 + w.x - h;
     const bool in_grid = gy >= 0 && gy < N1 && gx >= 0 && gx < N2;
     const bool inner = w.y >= h && w.y < h + rows && w.x >= h && w.x < h + cols;
     const int t = (w.y - h) * cols + (w.x - h);
+    const int gq = gy * N2 + gx;
+    if constexpr (BLOCK)
+      for (int k = 0; k < C * C; ++k)
+        s_m[k * ext + w.q] = in_grid ? pre[k * plane + gq] : 0.f;
     for (int c = 0; c < C; ++c) {
       float zv = 0.f;
       if (in_grid) {
-        const int g = c * plane + gy * N2 + gx;
-        const float bv = b[g];
-        zv = __fmul_rn(pre[g], bv);
+        zv = tg_z<BLOCK, false>(BLOCK ? s_m + w.q : pre + gq, BLOCK ? ext : plane, b + gq,
+                                plane, C, c);
         if (inner) {
+          const float bv = b[c * plane + gq];
           s_r[c * pts + t] = bv;
           s_d[c * pts + t] = 0.f;
           acc.x += (double)__fmul_rn(bv, zv);
@@ -273,7 +309,7 @@ tiled_grid_cg_kernel(const float* __restrict__ F, const float* __restrict__ b,
     const float alpha = tg_safe_div(rz, den, guard_div);
 
     // phase 2: delta += alpha p; r -= alpha Ap, or on an LM reset iteration
-    // r = b - (A delta + ctc delta); the partials of <z, r> (z = pre r) and,
+    // r = b - (A delta + ctc delta); the partials of <z, r> (z = M^-1 r) and,
     // under LM, of <delta, b + r>; r's ring to r_ring
     bool reset = false;
     if constexpr (LM) reset = (l + 1) % reset_period == 0;
@@ -290,11 +326,21 @@ tiled_grid_cg_kernel(const float* __restrict__ F, const float* __restrict__ b,
           s_d[t] = dv;
           const float rv = __fsub_rn(s_r[t], __fmul_rn(alpha, s_ap[t]));
           s_r[t] = rv;
-          const float zv = __fmul_rn(pre[g], rv);
-          s_ap[t] = zv;  // for the p update
-          acc.x += (double)__fmul_rn(zv, rv);
+          if constexpr (!BLOCK) {
+            const float zv = __fmul_rn(pre[g], rv);
+            s_ap[t] = zv;  // for the p update
+            acc.x += (double)__fmul_rn(zv, rv);
+          }
           if constexpr (LM) acc.y += (double)__fmul_rn(dv, __fadd_rn(b[g], rv));
           if (ring) r_ring[g] = rv;
+        }
+        if constexpr (BLOCK) {
+          // z at the point needs every channel's r there: after the update
+          for (int i = 0; i < C; ++i) {
+            const float zv = tg_z<true, false>(s_m + e, ext, s_r + w.q, pts, C, i);
+            acc.x += (double)__fmul_rn(zv, s_r[i * pts + w.q]);
+            s_ap[i * pts + w.q] = zv;  // for the p update
+          }
         }
       }
     } else {
@@ -337,9 +383,17 @@ tiled_grid_cg_kernel(const float* __restrict__ F, const float* __restrict__ b,
           a = __fadd_rn(a, __fmul_rn(cv, dv));
           const float rv = __fsub_rn(bv, a);
           s_r[t] = rv;
-          acc.x += (double)__fmul_rn(__fmul_rn(pre[g], rv), rv);
+          if constexpr (!BLOCK) acc.x += (double)__fmul_rn(__fmul_rn(pre[g], rv), rv);
           acc.y += (double)__fmul_rn(dv, __fadd_rn(bv, rv));
           if (ring) r_ring[g] = rv;
+        }
+        if constexpr (BLOCK) {
+          // z is not kept (Ap's space holds delta's haloed copy, which the
+          // neighbouring points' stencils still read): phase 3 forms it again
+          for (int i = 0; i < C; ++i)
+            acc.x += (double)__fmul_rn(
+                tg_z<true, false>(s_m + e, ext, s_r + w.q, pts, C, i),
+                s_r[i * pts + w.q]);
         }
       }
     }
@@ -360,19 +414,20 @@ tiled_grid_cg_kernel(const float* __restrict__ F, const float* __restrict__ b,
     }
     rz = rz_new;
 
-    // phase 3: p = z + beta p on the tile (z kept in Ap's space; pre r after
-    // a reset) and on its halo (pre times the neighbours' r ring)
+    // phase 3: p = z + beta p on the tile (z kept in Ap's space; M^-1 r
+    // after a reset) and on its halo (M^-1 times the neighbours' r ring)
     for (TgWalk w(pcols); w.q < ext; w.next(pcols)) {
       const int gy = y0 + w.y - h, gx = x0 + w.x - h;
       if (gy < 0 || gy >= N1 || gx < 0 || gx >= N2) continue;  // stays 0
       const bool inner = w.y >= h && w.y < h + rows && w.x >= h && w.x < h + cols;
       const int t = (w.y - h) * cols + (w.x - h);
       const int gq = gy * N2 + gx;
+      const float* m = BLOCK ? s_m + w.q : pre + gq;  // the point's first plane
+      const int ms = BLOCK ? ext : plane;
       for (int c = 0; c < C; ++c) {
-        const int g = c * plane + gq;
         float zv;
-        if (!inner) zv = __fmul_rn(pre[g], __ldcg(r_ring + g));
-        else if (reset) zv = __fmul_rn(pre[g], s_r[c * pts + t]);
+        if (!inner) zv = tg_z<BLOCK, true>(m, ms, r_ring + gq, plane, C, c);
+        else if (reset) zv = tg_z<BLOCK, false>(m, ms, s_r + t, pts, C, c);
         else zv = s_ap[c * pts + t];
         float* pp = s_pe + c * ext + w.q;
         *pp = __fadd_rn(zv, __fmul_rn(beta, *pp));
@@ -385,12 +440,96 @@ tiled_grid_cg_kernel(const float* __restrict__ F, const float* __restrict__ b,
     const int gq = (y0 + w.y) * N2 + x0 + w.x;
     for (int c = 0; c < C; ++c) delta[c * plane + gq] = s_d[c * pts + w.q];
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) *iters = l;
+  return l;
 }
 
-static const void* tiled_instance(int lm) {
-  return lm ? (const void*)tiled_grid_cg_kernel<true>
-            : (const void*)tiled_grid_cg_kernel<false>;
+// The kernel, block k owning tile (k / tiles_c, k % tiles_c) of the ceil
+// split of the grid [N1, N2] into th x tw tiles with a halo of h. delta
+// receives the solution (and, on LM reset iterations, delta's rings);
+// r_ring is scratch of one system's size, of which each block writes only
+// its ring; partA and partB hold one record a block. Under BLOCK pre holds
+// the C*C planes of M^-1 (plane i*C + j: M^-1[i][j]), and the launch holds
+// n_sys independent systems (1 for one system), solved in turn: system s
+// reads its fields at F + s*f_stride, b and ctc at s*C planes and its C*C
+// planes at s*C*C planes, writes delta at s*C planes and its count to
+// iters[s]; a grid barrier before each system after the first frees the
+// partial records, r_ring and the tile's shared memory for it. Without
+// BLOCK n_sys is 1.
+template <bool LM, bool BLOCK>
+__global__ void __launch_bounds__(TGCG_THREADS, 1)
+tiled_grid_cg_kernel(const float* __restrict__ F, const float* __restrict__ b,
+                     const float* __restrict__ pre,
+                     const float* __restrict__ ctc,
+                     const int* __restrict__ triples,
+                     const int* __restrict__ starts, int C, int n_triples,
+                     int N1, int N2, int tiles_c, int th, int tw, int h,
+                     int lits, float tol, int guard_div, int reset_period,
+                     float q_tol, int n_sys, int f_stride, float* delta,
+                     float* r_ring, double2* partA, double2* partB, int* iters) {
+  extern __shared__ double2 smem[];
+  const int pts_max = th * tw;
+  const int ext_max = (th + 2 * h) * (tw + 2 * h);
+  TgTile tt;
+  tt.s_warp = smem;
+  tt.s_bcast = smem + TGCG_WARPS;
+  tt.s_r = (float*)(smem + TGCG_WARPS + 1);
+  tt.s_d = tt.s_r + C * pts_max;
+  tt.s_pe = tt.s_d + C * pts_max;                     // p, haloed
+  tt.s_ap = tt.s_pe + C * ext_max;                    // Ap; z; under LM also haloed delta
+  tt.s_m = tt.s_ap + C * (LM ? ext_max : pts_max);    // under BLOCK: the C*C planes
+  int* s_f = (int*)(tt.s_m + (BLOCK ? C * C * ext_max : 0));
+  int* s_p = s_f + n_triples;
+  int* s_start = s_p + n_triples;
+  tt.s_f = s_f;
+  tt.s_p = s_p;
+  tt.s_start = s_start;
+
+  cg::grid_group grid = cg::this_grid();
+  tt.N1 = N1;
+  tt.N2 = N2;
+  tt.plane = N1 * N2;
+  tt.y0 = (blockIdx.x / tiles_c) * th;  // the tile's first row, column
+  tt.x0 = (blockIdx.x % tiles_c) * tw;
+  tt.rows = min(N1, tt.y0 + th) - tt.y0;
+  tt.cols = min(N2, tt.x0 + tw) - tt.x0;
+  tt.pts = tt.rows * tt.cols;
+  tt.pcols = tt.cols + 2 * h;
+  tt.ext = (tt.rows + 2 * h) * tt.pcols;
+  tt.h = h;
+  tt.n_blocks = gridDim.x;
+
+  for (int k = threadIdx.x; k <= C; k += TGCG_THREADS) s_start[k] = starts[k];
+  for (int k = threadIdx.x; k < n_triples; k += TGCG_THREADS) {
+    const int* t = triples + TGCG_ROW * k;
+    s_f[k] = t[5] * tt.plane;
+    s_p[k] = t[4] * tt.ext + t[1] * tt.pcols + t[2];
+  }
+
+  if constexpr (BLOCK) {
+    const int vec = C * tt.plane;  // one system's vector
+    for (int s = 0; s < n_sys; ++s) {
+      if (s > 0) grid.sync();  // every block is done with the last system
+      const int l = tg_solve<LM, BLOCK>(
+          grid, tt, F + s * f_stride, b + s * vec, pre + s * C * vec,
+          LM ? ctc + s * vec : ctc, C, lits, tol, guard_div, reset_period, q_tol,
+          delta + s * vec, r_ring, partA, partB);
+      if (blockIdx.x == 0 && threadIdx.x == 0) iters[s] = l;
+    }
+  } else {
+    const int l = tg_solve<LM, BLOCK>(grid, tt, F, b, pre, ctc, C, lits, tol, guard_div,
+                                      reset_period, q_tol, delta, r_ring, partA, partB);
+    if (blockIdx.x == 0 && threadIdx.x == 0) *iters = l;
+  }
+}
+
+// The four instances: GN and LM, each with the elementwise preconditioner
+// and with block-Jacobi (one system or several in turn)
+static const void* tiled_instance(int lm, int block) {
+  if (block)
+    return lm ? (const void*)tiled_grid_cg_kernel<true, true>
+              : (const void*)tiled_grid_cg_kernel<false, true>;
+  return lm ? (const void*)tiled_grid_cg_kernel<true, false>
+            : (const void*)tiled_grid_cg_kernel<false, false>;
 }
 
 extern "C" {
@@ -410,19 +549,22 @@ int tiled_grid_cg_device_limits(int* sms, int* smem_per_block) {
 
 // Launches one solve on `stream`: tiles_r x tiles_c blocks of `threads`
 // threads, each with smem_bytes of dynamic shared memory (which must be
-// tg_smem_bytes of these arguments). F [T, N1, N2], b, pre, ctc (LM only),
-// delta and r_ring [C, N1, N2] float32; triples [n_triples, 6] sorted by
-// output channel with their per-channel starts [C + 1]; partA and partB
-// tiles_r*tiles_c double2 records each; iters one int. Returns the CUDA
+// tg_smem_bytes of these arguments). F [T, N1, N2], b, ctc (LM only),
+// delta and r_ring [C, N1, N2] float32, pre [C, N1, N2] or under `block`
+// [C*C, N1, N2]; under `block` n_sys systems (n_sys = 1 without it), F
+// [n_sys, T, N1, N2] (f_stride = T*N1*N2), b, ctc and delta [n_sys, C, N1,
+// N2], pre [n_sys, C*C, N1, N2], r_ring one system's; triples [n_triples,
+// 6] sorted by output channel with their per-channel starts [C + 1]; partA
+// and partB tiles_r*tiles_c double2 records each; iters n_sys ints. Returns the CUDA
 // error: cudaErrorCooperativeLaunchTooLarge where the blocks cannot all be
 // co-resident.
-int tiled_grid_cg_launch(int lm, const float* F, const float* b,
+int tiled_grid_cg_launch(int lm, int block, const float* F, const float* b,
                          const float* pre, const float* ctc,
                          const int* triples, const int* starts, int C,
                          int n_triples, int N1, int N2, int tiles_r,
                          int tiles_c, int th, int tw, int h, int lits,
                          float tol, int guard_div, int reset_period,
-                         float q_tol, float* delta, float* r_ring,
+                         float q_tol, int n_sys, int f_stride, float* delta, float* r_ring,
                          double2* partA, double2* partB, int* iters, int threads,
                          int smem_bytes, void* stream) {
   if (threads != TGCG_THREADS || C < 1 || C > TGCG_MAX_CHANNELS ||
@@ -433,9 +575,11 @@ int tiled_grid_cg_launch(int lm, const float* F, const float* b,
       tiles_r * th < N1 || tiles_c * tw < N2)
     return (int)cudaErrorInvalidValue;
   if (lm && (ctc == nullptr || reset_period < 1)) return (int)cudaErrorInvalidValue;
-  if ((long long)smem_bytes != tg_smem_bytes(lm, C, th, tw, h, n_triples))
+  if (block ? (n_sys < 1 || f_stride < 0) : n_sys != 1)
     return (int)cudaErrorInvalidValue;
-  const void* kernel = tiled_instance(lm);
+  if ((long long)smem_bytes != tg_smem_bytes(lm, block, C, th, tw, h, n_triples))
+    return (int)cudaErrorInvalidValue;
+  const void* kernel = tiled_instance(lm, block);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (e != cudaSuccess) return (int)e;
@@ -459,6 +603,7 @@ int tiled_grid_cg_launch(int lm, const float* F, const float* b,
                   (void*)&th,       (void*)&tw,      (void*)&h,
                   (void*)&lits,     (void*)&tol,     (void*)&guard_div,
                   (void*)&reset_period, (void*)&q_tol,
+                  (void*)&n_sys,    (void*)&f_stride,
                   (void*)&delta,    (void*)&r_ring,  (void*)&partA,
                   (void*)&partB,    (void*)&iters};
   e = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(threads), args,

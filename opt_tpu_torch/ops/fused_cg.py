@@ -60,13 +60,17 @@ system after the other (:func:`batched_kernel_form`).
 
 The tiled route: where one system's state fits the card's shared memory at
 one tile a block (:func:`tiled_grid_plan`: a 2-D grid, float32 fields, the
-standard GN or LM loop with the elementwise preconditioner, no batch,
-split or remainder), :func:`fused_grid_cg_kernel` launches
-``csrc/tiled_grid_cg.cu`` (instances ``gn_tiled`` and ``lm_tiled``)
-instead of the template: each block keeps its tile's state in shared
-memory for the whole solve and only r's border goes through device memory.
-It is bitwise equal to the template and to the twin, so the route changes
-no result.
+standard GN or LM loop with the elementwise or the block preconditioner, no
+split or remainder; a batch only under block-Jacobi in the multi form,
+:func:`route_plan`), :func:`fused_grid_cg_kernel` launches
+``csrc/tiled_grid_cg.cu`` (launches ``gn_tiled``, ``lm_tiled``,
+``gn_bj_tiled``, ``lm_bj_tiled``, and under a batch ``gn_bj_multi_tiled``
+and ``lm_bj_multi_tiled``, which run the block-Jacobi kernel over the
+systems in turn) instead of the template: each block keeps its
+tile's state (and under block-Jacobi its C·C planes) in shared memory for
+the whole solve and only r's border goes through device memory. It is
+bitwise equal to the template and to the twin, so the route changes no
+result.
 """
 
 from __future__ import annotations
@@ -698,8 +702,13 @@ INSTANCES = tuple(
     for lm in (False, True) for cs in (False, True) for block in (False, True)
     for bf16 in (False, True) for rem in (False, True)
 )
-# the tiled kernel's two instances, as instance_name's flags (tiled last)
-TILED_INSTANCES = tuple((lm,) + (False,) * 6 + (True,) for lm in (False, True))
+# the tiled kernel's six launch names, as instance_name's flags (tiled last):
+# GN and LM with the elementwise preconditioner, with block-Jacobi, and with
+# block-Jacobi over a batch's systems in turn (the block-Jacobi kernel's
+# launches on a batched meta)
+TILED_INSTANCES = tuple((lm, False, False, block, False, multi, False, True)
+                        for block, multi in ((False, False), (True, False), (True, True))
+                        for lm in (False, True))
 
 
 def batched_kernel_form(meta, pre_blocks=None) -> str:
@@ -874,14 +883,17 @@ def template_grid_cg_kernel(meta, b, pre, lits, tol, *, guard_div=True, ctc=None
     return delta, iters
 
 
-def tiled_smem_bytes(lm: bool, C: int, th: int, tw: int, h: int, n_triples: int) -> int:
+def tiled_smem_bytes(lm: bool, C: int, th: int, tw: int, h: int, n_triples: int,
+                     block: bool = False) -> int:
     """The tiled kernel's dynamic shared memory a block, in bytes, in its
     layout (csrc/tiled_grid_cg.cu::tg_smem_bytes): the block-sum records,
     r, δ, p with its halo, Ap (with the halo under LM, where a reset
-    iteration builds δ's haloed copy there), and the triples' offsets."""
+    iteration builds δ's haloed copy there), under ``block`` the C·C
+    preconditioner planes over the tile and its halo, and the triples'
+    offsets."""
     pts, ext = th * tw, (th + 2 * h) * (tw + 2 * h)
     return (16 * (TILED_THREADS // 32 + 1) + 4 * C * (2 * pts + ext + (ext if lm else pts))
-            + 4 * (2 * n_triples + C + 1))
+            + (4 * C * C * ext if block else 0) + 4 * (2 * n_triples + C + 1))
 
 
 @functools.lru_cache(maxsize=64)
@@ -915,13 +927,15 @@ def tiled_grid_plan(meta, C: int, dom, *, lm: bool, cs: bool = False, block: boo
     takes the tiled kernel, and how: None, or {tiles: (rows, columns of
     tiles), tile: (th, tw), halo: h, threads, smem_bytes}. Taken for float32
     fields on a 2-D grid (dom [N1, N2] or [1, N1, N2] with N1 > 1: not the
-    graph domain [1, N]) under the standard GN or LM loop (``lm``) with the
-    elementwise preconditioner (not ``cs``, not ``block``), one system (no
-    batch, no split, no remainder), up to the kernel's channels and
-    triples, when the grid splits into at most ``sm_count`` tiles
-    (:func:`_tile_split`) whose state and halo fit ``smem_per_block``. h is
-    the largest |offset| of the triples in either axis."""
-    if (meta["F"].dtype != torch.float32 or cs or block or meta.get("batch")
+    graph domain [1, N]) under the standard GN or LM loop (``lm``, not
+    ``cs``) with the elementwise or the block preconditioner (``block``),
+    one system or, under ``block``, a batch of them in turn (no split, no
+    remainder), up to the kernel's channels and triples, when the grid
+    splits into at most ``sm_count`` tiles (:func:`_tile_split`) whose
+    state and halo, and under ``block`` the C·C planes over them, fit
+    ``smem_per_block``. h is the largest |offset| of the triples in either
+    axis."""
+    if (meta["F"].dtype != torch.float32 or cs or (meta.get("batch") and not block)
             or meta.get("chan_grid") or meta.get("rem") is not None):
         return None
     dom = tuple(int(s) for s in dom)
@@ -939,7 +953,7 @@ def tiled_grid_plan(meta, C: int, dom, *, lm: bool, cs: bool = False, block: boo
     if split is None:
         return None
     tr, tc, th, tw = split
-    smem = tiled_smem_bytes(lm, C, th, tw, h, len(triples))
+    smem = tiled_smem_bytes(lm, C, th, tw, h, len(triples), block)
     if smem > smem_per_block:
         return None
     return {"tiles": (tr, tc), "tile": (th, tw), "halo": h, "threads": TILED_THREADS,
@@ -978,23 +992,29 @@ def device_limits(device) -> tuple:
     return _LIMITS[index]
 
 
-def route_plan(meta, b, *, lm: bool, cs: bool = False, block: bool = False) -> Optional[Dict]:
+def route_plan(meta, b, *, lm: bool, cs: bool = False, pre_blocks=None) -> Optional[Dict]:
     """:func:`tiled_grid_plan` for a launch on ``meta`` with the packed
-    vector ``b``, at the limits of ``b``'s device: the tiled kernel's plan,
-    or None where the launch takes the template."""
-    if meta.get("batch"):
+    vector ``b`` (and the block preconditioner's planes ``pre_blocks``, or
+    None), at the limits of ``b``'s device: the tiled kernel's plan, or
+    None where the launch takes the template. A batched meta takes the
+    tiled kernel only under the block preconditioner and in the form
+    :func:`batched_kernel_form` calls "multi" (the systems in turn); the
+    "batch" form and a batch without ``pre_blocks`` keep the template."""
+    block = pre_blocks is not None
+    lead = 1 if meta.get("batch") else 0
+    if lead and not (block and batched_kernel_form(meta, pre_blocks) == "multi"):
         return None
     sms, smem = device_limits(b.device)
-    return tiled_grid_plan(meta, int(b.shape[0]), b.shape[1:], lm=lm, cs=cs, block=block,
-                           sm_count=sms, smem_per_block=smem)
+    return tiled_grid_plan(meta, int(b.shape[lead]), b.shape[lead + 1:], lm=lm, cs=cs,
+                           block=block, sm_count=sms, smem_per_block=smem)
 
 
 def launch_instance(meta, b, *, lm: bool = False, cs: bool = False, pre_blocks=None) -> str:
     """The name of the instance :func:`fused_grid_cg_kernel` launches for
     these operands."""
     block = pre_blocks is not None
-    if route_plan(meta, b, lm=lm, cs=cs, block=block) is not None:
-        return instance_name(lm, False, tiled=True)
+    if route_plan(meta, b, lm=lm, cs=cs, pre_blocks=pre_blocks) is not None:
+        return instance_name(lm, False, block=block, multi=bool(meta.get("batch")), tiled=True)
     form = batched_kernel_form(meta, pre_blocks) if meta.get("batch") else None
     multi = form == "multi" if form else bool(meta.get("chan_grid"))
     return instance_name(lm, meta.get("rem") is not None, cs, block,
@@ -1002,47 +1022,62 @@ def launch_instance(meta, b, *, lm: bool = False, cs: bool = False, pre_blocks=N
 
 
 def tiled_grid_cg_kernel(meta, b, pre, lits, tol, plan, *, guard_div=True, ctc=None,
-                         reset_period=None, q_tolerance=None):
+                         reset_period=None, q_tolerance=None, pre_blocks=None):
     """Launch the tiled kernel (csrc/tiled_grid_cg.cu) on packed [C, *dom]
     float32 CUDA tensors, dom a 2-D grid [N1, N2] (or [1, N1, N2]), as
     ``plan`` (:func:`tiled_grid_plan`) cuts it: the GN loop, or the LM loop
-    when ``ctc`` is given (with ``reset_period`` and ``q_tolerance``).
-    Returns (delta, iters int32[1] on the device). Does not synchronise. A
-    launch the card refuses (more tiles than co-resident blocks, shared
-    memory beyond the block's) raises. Each launch adds one to
-    ``fused_grid_cg_kernel.launches["gn_tiled" or "lm_tiled"]``."""
+    when ``ctc`` is given (with ``reset_period`` and ``q_tolerance``); the
+    block preconditioner when ``pre_blocks`` ([C·C, *dom]) is given (``pre``
+    is then not read). A batched meta (``meta["batch"]`` = B, F
+    [B, T, *dom]) takes b, ctc and the vectors as [B, C, *dom] and
+    pre_blocks as [B, C·C, *dom] (it needs them: only the block-Jacobi
+    kernel takes several systems) and solves the B systems in turn in the
+    one launch, counted as ``*_bj_multi_tiled``.
+    Returns (delta, iters int32[n_sys] on the device, n_sys = B under a
+    batch, else 1). Does not synchronise. A launch the card refuses (more
+    tiles than co-resident blocks, shared memory beyond the block's)
+    raises. Each launch adds one to ``fused_grid_cg_kernel.launches[name]``
+    (:func:`instance_name`: ``gn_tiled``, ``lm_bj_tiled``,
+    ``lm_bj_multi_tiled``, ...)."""
     from ._build import load_library
 
     F = meta["F"]
     device = b.device
     lm = ctc is not None
+    block = pre_blocks is not None
     if F.dtype != torch.float32:
         raise ValueError(f"tiled_grid_cg_kernel takes float32 fields, got {F.dtype}")
-    C = int(b.shape[0])
-    dom = tuple(int(s) for s in b.shape[1:])
-    if len(dom) == 3 and dom[0] == 1:
-        dom = dom[1:]
+    n_sys = int(meta.get("batch") or 0)
+    multi = n_sys > 0
+    lead = (n_sys,) if multi else ()  # the batch axis of every operand
+    if multi and not block:
+        raise ValueError("tiled_grid_cg_kernel: a batch takes the block preconditioner")
+    C = int(b.shape[len(lead)])
+    full = tuple(int(s) for s in b.shape[len(lead) + 1:])
+    dom = full[1:] if len(full) == 3 and full[0] == 1 else full
     if len(dom) != 2:
-        raise ValueError(f"tiled_grid_cg_kernel takes a 2-D grid, got {tuple(b.shape[1:])}")
+        raise ValueError(f"tiled_grid_cg_kernel takes a 2-D grid, got {full}")
     N1, N2 = dom
-    full = tuple(b.shape[1:])
-    _check_operand("b", b, (C,) + full, torch.float32, device)
-    _check_operand("pre", pre, (C,) + full, torch.float32, device)
-    _check_operand("F", F, (F.shape[0],) + full, torch.float32, device)
+    _check_operand("b", b, lead + (C,) + full, torch.float32, device)
+    if block:
+        _check_operand("pre_blocks", pre_blocks, lead + (C * C,) + full, torch.float32, device)
+    else:
+        _check_operand("pre", pre, (C,) + full, torch.float32, device)
+    n_fields = int(F.shape[len(lead)])
+    _check_operand("F", F, lead + (n_fields,) + full, torch.float32, device)
     if lm:
-        _check_operand("ctc", ctc, (C,) + full, torch.float32, device)
+        _check_operand("ctc", ctc, lead + (C,) + full, torch.float32, device)
         if reset_period is None or q_tolerance is None or int(reset_period) < 1:
             raise ValueError(
                 "tiled_grid_cg_kernel: the LM loop needs reset_period >= 1 and "
                 f"q_tolerance, got {reset_period} and {q_tolerance}"
             )
     triples = meta["triples"]
-    n_fields = int(F.shape[0])
     if not 0 < len(triples) <= MAX_TRIPLES or not 1 <= C <= MAX_CHANNELS or any(
             not (0 <= fid < n_fields and 0 <= i < C and 0 <= j < C)
             for (_d, i, j, fid) in triples):
         raise ValueError("tiled_grid_cg_kernel: triples, channels or field ids out of range")
-    if b.numel() >= 2**31 or F.numel() >= 2**31:
+    if b.numel() >= 2**31 or F.numel() >= 2**31 or (block and C * b.numel() >= 2**31):
         raise ValueError("tiled_grid_cg_kernel indexes with int32: problem too large")
     (tr, tc), (th, tw), h = plan["tiles"], plan["tile"], plan["halo"]
     if device.type != "cuda":  # after the operand checks, which hold on any device
@@ -1050,16 +1085,17 @@ def tiled_grid_cg_kernel(meta, b, pre, lits, tol, plan, *, guard_div=True, ctc=N
     lib = load_library()
     tr_rows, starts = _device_triples(triples, C, device)
     delta = torch.empty_like(b)
-    r_ring = torch.empty_like(b)
+    r_ring = torch.empty((C,) + full, dtype=torch.float32, device=device)  # one system's
     part = torch.empty((2, tr * tc, 2), dtype=torch.float64, device=device)
-    iters = torch.empty(1, dtype=torch.int32, device=device)
+    iters = torch.empty(max(n_sys, 1), dtype=torch.int32, device=device)
     ptr = lambda t: None if t is None else ctypes.c_void_p(t.data_ptr())  # noqa: E731
     with torch.cuda.device(device):
         err = lib.tiled_grid_cg_launch(
-            int(lm), ptr(F), ptr(b), ptr(pre), ptr(ctc), ptr(tr_rows), ptr(starts),
-            C, len(triples), N1, N2, tr, tc, th, tw, h, int(lits),
-            ctypes.c_float(float(tol)), int(bool(guard_div)),
+            int(lm), int(block), ptr(F), ptr(b), ptr(pre_blocks if block else pre),
+            ptr(ctc), ptr(tr_rows), ptr(starts), C, len(triples), N1, N2, tr, tc, th, tw, h,
+            int(lits), ctypes.c_float(float(tol)), int(bool(guard_div)),
             int(reset_period) if lm else 0, ctypes.c_float(float(q_tolerance) if lm else 0.0),
+            max(n_sys, 1), n_fields * N1 * N2 if multi else 0,
             ptr(delta), ptr(r_ring), ptr(part[0]), ptr(part[1]), ptr(iters),
             int(plan["threads"]), int(plan["smem_bytes"]),
             ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream),
@@ -1068,7 +1104,8 @@ def tiled_grid_cg_kernel(meta, b, pre, lits, tol, plan, *, guard_div=True, ctc=N
         raise RuntimeError(f"tiled_grid_cg kernel launch failed: CUDA error {err} "
                            f"({tr}x{tc} tiles of {th}x{tw}, {plan['smem_bytes']} bytes of "
                            "shared memory a block)")
-    fused_grid_cg_kernel.launches[instance_name(lm, False, tiled=True)] += 1
+    fused_grid_cg_kernel.launches[instance_name(lm, False, block=block, multi=multi,
+                                                tiled=True)] += 1
     return delta, iters
 
 
@@ -1082,13 +1119,14 @@ def fused_grid_cg_kernel(meta, b, pre, lits, tol, *, guard_div=True, ctc=None,
     not retried. Returns (delta, iters int32[n_sys] on the device). Each
     launch adds one to ``fused_grid_cg_kernel.launches[instance]``
     (:func:`instance_name`)."""
-    plan = route_plan(meta, b, lm=ctc is not None, cs=cs, block=pre_blocks is not None)
+    plan = route_plan(meta, b, lm=ctc is not None, cs=cs, pre_blocks=pre_blocks)
     if plan is None:
         return template_grid_cg_kernel(
             meta, b, pre, lits, tol, guard_div=guard_div, ctc=ctc, reset_period=reset_period,
             q_tolerance=q_tolerance, cs=cs, pre_blocks=pre_blocks)
     return tiled_grid_cg_kernel(meta, b, pre, lits, tol, plan, guard_div=guard_div, ctc=ctc,
-                                reset_period=reset_period, q_tolerance=q_tolerance)
+                                reset_period=reset_period, q_tolerance=q_tolerance,
+                                pre_blocks=pre_blocks)
 
 
 def reset_launch_counts():

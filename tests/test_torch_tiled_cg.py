@@ -173,17 +173,21 @@ def _ring(rows, cols, h):
 
 
 def emulate(F, triples, b, pre, lits, tol, plan, *, ctc=None, reset_period=None,
-            q_tolerance=None, guard_div=True):
+            q_tolerance=None, guard_div=True, pre_blocks=None):
     """The tiled kernel's loop in plain PyTorch, tile by tile: each tile
     keeps r, δ and Ap of its own points and p over its points and a halo of
     h (zero beyond the grid); after the update only r's ring goes to a
     grid-sized array (NaN elsewhere, so a read off the rings shows), from
-    which each tile forms p = pre·r + β·p over its halo; an LM reset
+    which each tile forms p = M⁻¹·r + β·p over its halo; an LM reset
     iteration writes δ's ring the same way and applies A to δ's haloed
-    copy. Sums of the stencil start at +0 over the triples of the output
-    channel in their order; dots are taken over the whole grid as the
-    twin's ``_dot`` takes them, and the scalar steps are the twin's.
-    Returns (δ, iterations)."""
+    copy. The preconditioner's planes (``pre``, or under ``pre_blocks``
+    the C·C planes of the block apply) are staged once a tile over the tile
+    and its halo, NaN beyond the grid (so a plane read off the grid shows),
+    and read only from there; the block apply at a halo point takes every
+    channel of the neighbours' r ring. Sums of the stencil start at +0 over
+    the triples of the output channel in their order; dots are taken over
+    the whole grid as the twin's ``_dot`` takes them, and the scalar steps
+    are the twin's. Returns (δ, iterations)."""
     C, N1, N2 = (int(s) for s in b.shape)
     h = plan["halo"]
     tiles = fused_cg.tile_bounds(plan, N1, N2)
@@ -240,11 +244,20 @@ def emulate(F, triples, b, pre, lits, tol, plan, *, ctc=None, reset_period=None,
         inner(e).copy_(parts_inner)
         return e
 
+    # each tile's preconditioner planes over it and its halo, staged once
+    planes = pre if pre_blocks is None else pre_blocks
+    staged = []
+    for t in tiles:
+        m = ext(planes, t)
+        staged.append(torch.where(on_grid(t), m, float("nan")))
+
+    def prec(m, x):  # z = M⁻¹ x on a frame, m the frame's planes
+        return m * x if pre_blocks is None else fused_cg._block_prec(m)(x)
+
     r = [crop(b, t).clone() for t in tiles]
     d = [torch.zeros_like(x) for x in r]
-    z0 = pre * b
-    pe = [torch.where(on_grid(t), ext(z0, t), 0.0) for t in tiles]
-    rz = fused_cg._dot(b, z0)
+    pe = [torch.where(on_grid(t), prec(m, ext(b, t)), 0.0) for t, m in zip(tiles, staged)]
+    rz = fused_cg._dot(b, glob([inner(p) for p in pe]))
     floor = tol * rz
     Q0 = torch.zeros_like(rz)
     l = 0
@@ -268,7 +281,7 @@ def emulate(F, triples, b, pre, lits, tol, plan, *, ctc=None, reset_period=None,
                 r[k] = crop(b, t) - a
         else:
             r = [rk - alpha * ak for rk, ak in zip(r, Ap)]
-        z = [crop(pre, t) * rk for t, rk in zip(tiles, r)]
+        z = [prec(inner(m), rk) for m, rk in zip(staged, r)]
         if lm:
             rz_new = fused_cg._dot(glob(z), glob(r))
             q = fused_cg._dot(glob(d), b + glob(r))
@@ -277,7 +290,8 @@ def emulate(F, triples, b, pre, lits, tol, plan, *, ctc=None, reset_period=None,
         beta = fused_cg.safe_div(rz_new, rz, guard_div)
         r_ring = rings(r)
         for k, t in enumerate(tiles):
-            zh = halo_of(z[k], pre * r_ring, t)
+            zh = prec(staged[k], ext(r_ring, t))
+            inner(zh).copy_(z[k])
             pe[k] = torch.where(on_grid(t), zh + beta * pe[k], 0.0)
         rz = rz_new
         l += 1
@@ -312,24 +326,36 @@ def test_plan_takes_2d_float32_gn_and_lm(kind):
         ctc is not None, 3, *plan["tile"], 1, len(meta["triples"]))
 
 
-@pytest.mark.parametrize("case", ["bf16", "cs", "block", "rem", "split", "batch", "3d", "graph"])
-def test_plan_refuses_other_forms(case):
+@pytest.mark.parametrize("block", [False, True])
+@pytest.mark.parametrize("case", ["bf16", "cs", "rem", "split", "batch", "3d", "graph"])
+def test_plan_refuses_other_forms(case, block):
+    """The forms the tiled kernel does not take, with the elementwise and
+    with the block preconditioner. A batch is taken under block-Jacobi in
+    the multi form only (route_plan): a batch of small systems, which
+    batched_kernel_form sends to the block-per-system form, is refused with
+    either preconditioner."""
     dom = (64, 64)
     meta = _synthetic_meta(dom, _five_point(2))
-    kw = dict(lm=False, sm_count=SMS, smem_per_block=SMEM)
+    kw = dict(lm=False, block=block, sm_count=SMS, smem_per_block=SMEM)
     C = 2
     if case == "bf16":
         meta["F"] = meta["F"].to(torch.bfloat16)
     elif case == "cs":
         kw["cs"] = True
-    elif case == "block":
-        kw["block"] = True
     elif case == "rem":
         meta["rem"] = {"rowptr": None, "col": None, "blk": None}
     elif case == "split":
         meta["chan_grid"] = True
     elif case == "batch":
-        meta["batch"] = 4
+        dom = (8, 8)  # 2 x 64 values, and 4 x 64 more under block-Jacobi: the batch form
+        meta = _synthetic_meta(dom, _five_point(2), batch=4, ctot=2)
+        meta["F"] = torch.zeros((4, 5) + dom)
+        b = torch.zeros((4, C) + dom)
+        pb = torch.zeros((4, C * C) + dom) if block else None
+        assert fused_cg.batched_kernel_form(meta, pb) == "batch"
+        assert fused_cg.route_plan(meta, b, lm=False, pre_blocks=pb) is None
+        assert fused_cg.launch_instance(meta, b, pre_blocks=pb) == (
+            "gn_bj_batch" if block else "gn_batch")
     elif case == "3d":
         dom = (4, 64, 64)
         meta = _synthetic_meta(dom, [((0, 0, 0), 0, 0, 0), ((1, 0, 0), 0, 0, 1)])
@@ -338,10 +364,11 @@ def test_plan_refuses_other_forms(case):
         dom = (1, 4096)
         meta = _synthetic_meta(dom, [((0, 0), 0, 0, 0), ((0, 1), 0, 0, 1)])
         C = 1
-    assert fused_cg.tiled_grid_plan(meta, C, dom, **kw) is None
-    if case not in ("3d", "graph", "cs", "block"):  # the same meta as it came, taken
+    if case != "batch":
+        assert fused_cg.tiled_grid_plan(meta, C, dom, **kw) is None
+    if case not in ("3d", "graph", "cs"):  # the same meta as it came, taken
         base = _synthetic_meta((64, 64), _five_point(2))
-        assert fused_cg.tiled_grid_plan(base, 2, (64, 64), lm=False, sm_count=SMS,
+        assert fused_cg.tiled_grid_plan(base, 2, (64, 64), lm=False, block=block, sm_count=SMS,
                                         smem_per_block=SMEM) is not None
 
 
@@ -370,6 +397,40 @@ def test_plan_at_the_main_path_sizes(n, C, lm, taken):
     if taken:
         assert plan["tiles"][0] * plan["tiles"][1] == SMS
         assert plan["smem_bytes"] <= SMEM
+
+
+def _iw_like_triples(C=3):
+    """31 triples over 3 channels, as image_warping's operator has: a
+    five-point stencil a channel and 16 cross-channel couplings."""
+    pairs = [(i, j) for i in range(C) for j in range(C) if i != j]
+    cross = ([((0, 0), i, j) for i, j in pairs] + [((1, 0), i, j) for i, j in pairs]
+             + [((0, 1), i, j) for i, j in pairs[:4]])
+    return _five_point(C) + [(d, i, j, 15 + k) for k, (d, i, j) in enumerate(cross)]
+
+
+@pytest.mark.parametrize("lm,smem", [(True, 181340), (False, 179132)])
+def test_plan_takes_block_jacobi_with_its_planes_in_shared_memory(lm, smem):
+    """image_warping 512²×3 under block-Jacobi: the 12×11 tiles of 43×47 of
+    the Jacobi plan, and shared memory for the 9 planes over each tile and
+    its halo (4·9·45·49 = 79,380 B) beside the state: 181,340 B under LM
+    (101,960 + 79,380), 179,132 B under GN (99,752 + 79,380)."""
+    n = 512
+    meta = _synthetic_meta((1, 1), _iw_like_triples())
+    meta["F"] = torch.empty((31, n, n))  # uninitialised: only its shape is read
+    kw = dict(lm=lm, sm_count=SMS, smem_per_block=SMEM)
+    jacobi = fused_cg.tiled_grid_plan(meta, 3, (n, n), **kw)
+    plan = fused_cg.tiled_grid_plan(meta, 3, (n, n), block=True, **kw)
+    assert plan["tiles"] == jacobi["tiles"] == (12, 11) and plan["tile"] == (43, 47)
+    assert plan["halo"] == 1 and plan["smem_bytes"] == smem
+    assert smem - jacobi["smem_bytes"] == 4 * 9 * 45 * 49 == 79380
+    assert plan["smem_bytes"] == fused_cg.tiled_smem_bytes(lm, 3, 43, 47, 1, 31, block=True)
+    # the planes overflow: refused, and the launch keeps the template
+    assert fused_cg.tiled_grid_plan(meta, 3, (n, n), block=True, lm=lm, sm_count=SMS,
+                                    smem_per_block=smem - 1) is None
+    six = _synthetic_meta((1, 1), _five_point(6))
+    six["F"] = torch.empty((5, n, n))
+    assert fused_cg.tiled_grid_plan(six, 6, (n, n), **kw) is not None
+    assert fused_cg.tiled_grid_plan(six, 6, (n, n), block=True, **kw) is None
 
 
 def test_plan_refuses_beyond_the_tiles_and_the_shared_memory():
@@ -425,30 +486,66 @@ def test_route_names_the_tiled_instance(kind):
     assert fused_cg.launch_instance(meta, b, lm=lm, cs=True) == ("lm_cs" if lm else "gn_cs")
     bf = dict(meta, F=meta["F"].to(torch.bfloat16))
     assert fused_cg.launch_instance(bf, b, lm=lm) == ("lm_bf16" if lm else "gn_bf16")
+    pb = torch.zeros((9,) + tuple(b.shape[1:]))
+    assert fused_cg.launch_instance(meta, b, lm=lm, pre_blocks=pb) == (
+        "lm_bj_tiled" if lm else "gn_bj_tiled")
+    assert fused_cg.launch_instance(meta, b, lm=lm, cs=True, pre_blocks=pb) == (
+        "lm_cs_bj" if lm else "gn_cs_bj")
+
+
+@pytest.mark.parametrize("lm", [False, True])
+def test_route_takes_the_multi_form_of_a_block_batch(lm):
+    """A batched meta takes the tiled kernel under block-Jacobi in the
+    multi form (the systems in turn): 4 × 64²×3 systems; without the
+    block preconditioner it keeps the template's strided multi form."""
+    n, B = 64, 4
+    meta = _synthetic_meta((1, 1), _iw_like_triples(), batch=B, ctot=3)
+    meta["F"] = torch.zeros((B, 31, n, n))
+    b = torch.zeros((B, 3, n, n))
+    pb = torch.zeros((B, 9, n, n))
+    assert fused_cg.batched_kernel_form(meta, pb) == "multi"
+    plan = fused_cg.route_plan(meta, b, lm=lm, pre_blocks=pb)
+    assert plan is not None and plan == fused_cg.tiled_grid_plan(
+        meta, 3, (n, n), lm=lm, block=True, sm_count=SMS, smem_per_block=SMEM)
+    # the planner itself refuses the batch without the block preconditioner
+    assert fused_cg.tiled_grid_plan(meta, 3, (n, n), lm=lm, block=False, sm_count=SMS,
+                                    smem_per_block=SMEM) is None
+    name = "lm" if lm else "gn"
+    assert fused_cg.launch_instance(meta, b, lm=lm, pre_blocks=pb) == name + "_bj_multi_tiled"
+    assert fused_cg.route_plan(meta, b, lm=lm) is None
+    assert fused_cg.launch_instance(meta, b, lm=lm) == name + "_multi"
+    assert fused_cg.launch_instance(meta, b, lm=lm, cs=True, pre_blocks=pb) == (
+        name + "_cs_bj_multi")
 
 
 def test_instance_names_and_launch_counts():
     names = [fused_cg.instance_name(*f) for f in fused_cg.TILED_INSTANCES]
-    assert names == ["gn_tiled", "lm_tiled"]
+    assert names == ["gn_tiled", "lm_tiled", "gn_bj_tiled", "lm_bj_tiled",
+                     "gn_bj_multi_tiled", "lm_bj_multi_tiled"]
     fused_cg.reset_launch_counts()
-    assert {"gn", "lm", "gn_tiled", "lm_tiled"} <= set(fused_cg.fused_grid_cg_kernel.launches)
-    assert len(fused_cg.fused_grid_cg_kernel.launches) == 98
+    assert set(names) | {"gn", "lm", "gn_bj", "lm_bj_multi"} <= set(
+        fused_cg.fused_grid_cg_kernel.launches)
+    assert len(fused_cg.fused_grid_cg_kernel.launches) == 96 + 6
 
 
 def test_build_compiles_the_tiled_unit_and_reads_its_registers():
     assert "tiled_grid_cg.cu" in _build.UNITS and "tiled_grid_cg.cu" in _build.SOURCES
     assert (_build.CSRC / "tiled_grid_cg.cu").exists()
-    log = "\n".join([
-        "ptxas info    : Compiling entry function '_Z20tiled_grid_cg_kernelILb1EEvPKfS1_' "
-        "for 'sm_90a'",
-        "ptxas info    : Used 72 registers, used 1 barriers, 416 bytes cmem[0]",
-        "ptxas info    : Compiling entry function '_Z20tiled_grid_cg_kernelILb0EEvPKfS1_' "
-        "for 'sm_90a'",
-        "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
-        "ptxas info    : Used 64 registers, used 1 barriers, 416 bytes cmem[0]",
-    ])
-    regs = _build.instance_registers(log)
-    assert regs == {fused_cg.TILED_INSTANCES[1]: (72, 0, 0), fused_cg.TILED_INSTANCES[0]: (64, 4, 4)}
+    # four kernels, tiled_grid_cg_kernel<LM, BLOCK>; a block kernel's
+    # registers stand under its one-system and its multi-system launch names
+    lines, want = [], {}
+    for k, (lm, block) in enumerate(((0, 0), (1, 0), (0, 1), (1, 1))):
+        lines.append("ptxas info    : Compiling entry function "
+                     f"'_Z20tiled_grid_cg_kernelILb{lm}ELb{block}EEvPKfS1_' for 'sm_90a'")
+        if k == 0:
+            lines.append("    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads")
+        lines.append(f"ptxas info    : Used {64 + 8 * k} registers, used 1 barriers, 416 bytes "
+                     "cmem[0]")
+        for multi in ((False, True) if block else (False,)):
+            want[(bool(lm), False, False, bool(block), False, multi, False, True)] = (
+                (64 + 8 * k,) + ((4, 4) if k == 0 else (0, 0)))
+    regs = _build.instance_registers("\n".join(lines))
+    assert regs == want and set(regs) == set(fused_cg.TILED_INSTANCES)
 
 
 # -- the emulation against the twin, bitwise ------------------------------------------
@@ -529,10 +626,24 @@ def test_emulation_matches_pallas_interpret(kind, lits, tol, q_tol):
 
 @pytest.mark.parametrize("kind", ["gaussNewtonGPU", "LMGPU"])
 def test_kernel_wrapper_refuses_cpu_tensors_on_the_tiled_route(kind):
+    """Every launch the tiled route takes (Jacobi, block-Jacobi, a batch of
+    block-Jacobi systems in the multi form) reaches the tiled wrapper, whose
+    device check raises for CPU tensors: nothing gives way to the template
+    or to the twin."""
     meta, b, pre, ctc = _torch_system(kind)
     lm = _lm_kw(ctc, 1e-4)
     with pytest.raises(ValueError, match="tiled_grid_cg_kernel needs CUDA"):
         fused_cg.fused_grid_cg_kernel(meta, b, pre, 10, 0.0, **lm)
+    pb = torch.zeros((9,) + tuple(b.shape[1:]))
+    with pytest.raises(ValueError, match="tiled_grid_cg_kernel needs CUDA"):
+        fused_cg.fused_grid_cg_kernel(meta, b, None, 10, 0.0, pre_blocks=pb, **lm)
+    B = 4  # 24²×3 systems and their 9 planes: past BATCH_BLOCK_ELEMS, the multi form
+    batched = dict(meta, F=meta["F"][None].expand(B, -1, -1, -1).contiguous(), batch=B)
+    rep_ = lambda t: t[None].expand(B, *t.shape).contiguous()  # noqa: E731
+    lmb = {k: rep_(v) if k == "ctc" else v for k, v in lm.items()}
+    with pytest.raises(ValueError, match="tiled_grid_cg_kernel needs CUDA"):
+        fused_cg.fused_grid_cg_kernel(batched, rep_(b), None, 10, 0.0, pre_blocks=rep_(pb),
+                                      **lmb)
 
 
 def test_tiled_wrapper_checks_operands_first():
@@ -540,6 +651,13 @@ def test_tiled_wrapper_checks_operands_first():
     plan = _forced_plan(N, N, 3, 2, 1)
     with pytest.raises(ValueError, match="pre has shape"):
         fused_cg.tiled_grid_cg_kernel(meta, b, pre[:, :-1], 10, 0.0, plan)
+    with pytest.raises(ValueError, match="pre_blocks has shape"):
+        fused_cg.tiled_grid_cg_kernel(meta, b, None, 10, 0.0, plan,
+                                      pre_blocks=torch.zeros((8, N, N)))
+    batched = dict(meta, F=meta["F"][None].expand(2, -1, -1, -1).contiguous(), batch=2)
+    with pytest.raises(ValueError, match="a batch takes the block preconditioner"):
+        fused_cg.tiled_grid_cg_kernel(batched, b[None].expand(2, -1, -1, -1).contiguous(),
+                                      pre, 10, 0.0, plan)
     with pytest.raises(ValueError, match="reset_period"):
         fused_cg.tiled_grid_cg_kernel(meta, b, pre, 10, 0.0, plan, ctc=pre)
     with pytest.raises(ValueError, match="float32 fields"):
