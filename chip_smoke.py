@@ -81,6 +81,19 @@ to its own one-system launch, the template's gn, lm, gn_bj, lm_bj,
 gn_bj_multi and lm_bj_multi instances stay checked and timed beside it on
 the same systems, and the main paths of those systems launch it once a
 step.
+The graph route: a graph system with the remainder whose vertex partition
+fits the card's shared memory (fused_cg.graph_tile_plan: float32, the
+standard GN or LM loop, the Jacobi preconditioner, one system or a batch
+in turn) takes the graph kernel (opt_tpu_torch/ops/csrc/tiled_graph_cg.cu,
+launches gn_rem_tiled, lm_rem_tiled, gn_rem_multi_tiled and
+lm_rem_multi_tiled, in the same library); its plan is printed (graph_plan
+lines), it is held bitwise to the twin on the armadillo, a 300-vertex
+random mesh and a 64x64 grid mesh with DIA offsets and a remainder (no
+exit, the real exits, a repeat) and on the armadillo x4 (each system also
+to its own one-system launch), with the template's instances held to the
+same twin results and timed beside it in turns; the armadillo's two main
+paths launch it once a step and are held cost for cost and count for
+count to the same solves on the template route.
 It exits non-zero, with no result line, when CUDA is not available or any
 check fails. It imports neither JAX nor opt_tpu.
 """
@@ -338,8 +351,12 @@ TIMED_ITERS = 100  # iterations of a timed loop
 PROFILE_SESSIONS = 3  # kernel_device_ms: profiler sessions before CUDA events
 KERNEL_SOURCE = "opt_tpu_torch/ops/csrc/fused_grid_cg.cuh"
 TILED_SOURCE = "opt_tpu_torch/ops/csrc/tiled_grid_cg.cu"
+GRAPH_SOURCE = "opt_tpu_torch/ops/csrc/tiled_graph_cg.cu"
 # the CG kernels' names, as the profiler's entries carry them
-CG_KERNELS = ("fused_grid_cg_kernel", "tiled_grid_cg_kernel")
+CG_KERNELS = ("fused_grid_cg_kernel", "tiled_grid_cg_kernel", "tiled_graph_cg_kernel")
+# the graph kernel's DIA-plus-remainder check: dense_grid_mesh_inputs at this
+# side (4,096 vertices), 13 DIA offsets and the fourteenth's reads in the CSR
+DENSE_SIDE = 64
 # the tiled kernel's further checks: image_warping on a grid its ceil split
 # leaves ragged in both axes (12 x 11 tiles of 42 x 28, the last 38 and 21),
 # and on a grid of one tile
@@ -764,6 +781,35 @@ def random_mesh_inputs(N, B, seed=3):
     }
 
 
+def dense_grid_mesh_inputs(n_side):
+    """tests/test_torch_graph.py::dense_grid_mesh at `n_side`: a grid mesh
+    numbered row-major with seven edge directions, both ways, whose reads
+    sit at fourteen vertex-id offsets (±1, ±2, ±n-1, ±n, ±n+1, ±2n, ±2n+1),
+    one more than the kernel's triple table holds at six channels: thirteen
+    become DIA offsets and the fourteenth's reads the remainder."""
+    f32 = np.float32
+    N = n_side * n_side
+    ii, jj = np.meshgrid(np.arange(n_side), np.arange(n_side), indexing="ij")
+    pos = np.stack([ii.ravel(), jj.ravel(), np.zeros(N)], -1).astype(f32)
+    vid = np.arange(N).reshape(n_side, n_side)
+    v0, v1 = [], []
+    for a, b in ((0, 1), (1, 0), (1, 1), (1, -1), (0, 2), (2, 0), (2, 1)):
+        ok = (ii + a < n_side) & (jj + b >= 0) & (jj + b < n_side)
+        v0.append(vid[ii[ok], jj[ok]])
+        v1.append(vid[ii[ok] + a, jj[ok] + b])
+    v0, v1 = np.concatenate(v0), np.concatenate(v1)
+    con = -np.ones((N, 3), f32)
+    con[0] = pos[0]
+    con[-1] = pos[-1] + np.array([3.0, 0.0, 2.0], f32)
+    return {"N": N}, {
+        "Offset": pos.copy(), "Angle": np.zeros((N, 3), f32), "UrShape": pos,
+        "Constraints": con,
+        "G": {"v0": np.concatenate([v0, v1]).astype(np.int32),
+              "v1": np.concatenate([v1, v0]).astype(np.int32)},
+        "w_fitSqrt": np.float32(1.0), "w_regSqrt": np.float32(np.sqrt(0.5)),
+    }
+
+
 def instance_inputs(inputs, batched, k):
     """Instance k of a batch's inputs: the `batched` names sliced."""
     return {name: v[k] if name in batched else v for name, v in inputs.items()}
@@ -848,6 +894,26 @@ def tiled_line(label, meta, b, lm=None, pre_blocks=None):
     return plan
 
 
+def graph_plan_line(label, meta, b, lm=None):
+    """The graph route's plan of a system (of each system of a batch),
+    printed: vertex ranges, the largest range, halo, frame and entry span,
+    threads and shared memory a block; raises where the system does not
+    take it."""
+    plan = fused_cg.route_plan(meta, b, lm=bool(lm))
+    if plan is None or meta.get("rem") is None:
+        raise RuntimeError(f"{label}: does not take the graph kernel")
+    lead = 1 if meta.get("batch") else 0
+    log(json.dumps({"graph_plan": label, "form": form_of(meta, b, lm),
+                    "systems": n_systems(meta), "vertices": int(b.shape[-1]),
+                    "channels": int(b.shape[lead]), "triples": len(meta["triples"]),
+                    "remainder_entries": int(meta["rem"]["col"].shape[0]),
+                    "ranges": plan["blocks"], "max_range": plan["max_range"],
+                    "max_halo": plan["max_halo"], "max_frame": plan["max_frame"],
+                    "max_entry_span": plan["max_entries"], "threads": plan["threads"],
+                    "smem_bytes": plan["smem_bytes"]}))
+    return plan
+
+
 @contextlib.contextmanager
 def template_route():
     """Send every launch to the template for the while (fused_cg.route_plan
@@ -876,7 +942,7 @@ def meta_shape(meta):
 
 def cg_work(fields, plane, C, triples, nnz=0, *, lm=False, cs=False, f_bytes=4,
             pre_planes=None, vector=None, dots=None, batch=1, iters=1,
-            reset_period=RESET_PERIOD, planes_once=0):
+            reset_period=RESET_PERIOD, planes_once=0, inputs_once=0):
     """What one launch of `iters` CG iterations on each of `batch` systems
     of this shape must do: (bytes of the launch: each system's fields, b,
     preconditioner planes (C, or C*C under block-Jacobi), ctc under LM and
@@ -889,16 +955,20 @@ def cg_work(fields, plane, C, triples, nnz=0, *, lm=False, cs=False, f_bytes=4,
     `planes_once` (a count of systems, 0 by default): the preconditioner's
     planes, which stay the same for the whole solve, read once a launch for
     each of that many systems instead of once an iteration: the least a
-    kernel that keeps them on chip must read."""
+    kernel that keeps them on chip must read. `inputs_once` (a count of
+    systems, 0 by default): so too the fields, b and ctc, which also stay
+    the same for the whole solve; only the remainder CSR is then read
+    every iteration (a graph's fields fit on chip beside its state: the
+    graph kernel stages them once a solve)."""
     n = C * plane
     pre_planes = C if pre_planes is None else pre_planes
     if vector is None:  # dots, updates, z = M^-1 r
         vector = (16 if lm else 13) if cs else (15 if lm else 12)
     dots = (3 if lm else 2) if dots is None else dots  # their float64 sums
-    it_bytes = fields * plane * f_bytes + (C + (C if lm else 0)) * plane * 4
-    once = planes_once * pre_planes * plane * 4
-    if not planes_once:
-        it_bytes += pre_planes * plane * 4
+    inputs = fields * plane * f_bytes + (C + (C if lm else 0)) * plane * 4  # F, b, ctc
+    planes = pre_planes * plane * 4
+    once = inputs_once * (inputs + planes) + planes_once * planes
+    it_bytes = (0 if inputs_once else inputs) + (0 if inputs_once or planes_once else planes)
     if nnz:
         it_bytes += (plane + 1) * 4 + nnz * 4 + nnz * C * C * f_bytes
     apply = 2 * triples * plane + 2 * nnz * C * C + (2 * n if lm else 0)
@@ -1056,16 +1126,44 @@ def main_path(label, spec, kind, dims, inputs, nl, li, want, shapes, form=None, 
     return res, launches, plan
 
 
+def route_equal(label, res, launches, solve, form):
+    """The same solve (``solve()``, a result) on the template route, launch
+    counts from 0: its costs and CG counts must equal ``res``'s to the last
+    digit, in as many launches of the template's instance (``form`` without
+    "_tiled") as ``res`` made of ``form``."""
+    fused_cg.reset_launch_counts()
+    with template_route():
+        tres = solve()
+    torch.cuda.synchronize()
+    tl = {k: v for k, v in fused_cg.fused_grid_cg_kernel.launches.items() if v}
+    # a batch's costs are NaN past each instance's exit: equal there too
+    same = bool(np.array_equal(np.asarray(res.costs), np.asarray(tres.costs), equal_nan=True))
+    lin = np.asarray(res.num_linear_iterations).tolist()
+    tlin = np.asarray(tres.num_linear_iterations).tolist()
+    line = {"check": "route_equal", "case": label, "form": form, "launches": launches,
+            "template_launches": tl, "costs_equal": same, "lin_iters": lin,
+            "template_lin_iters": tlin}
+    log(json.dumps(line))
+    if not same or lin != tlin or tl != {form[:-len("_tiled")]: launches[form]}:
+        raise RuntimeError(f"{label}: the tiled route's solve differs from the template's")
+
+
 def graph_main_path(label, dims, inputs, form):
     """An arap solve (GN 8x100) through the kernel, held as the
     JAX_CPU_GRAPH_COSTS comment says: the first two steps' costs to the JAX
     package's, the whole trajectory to the same solve through the plain
-    version on the card. Returns (result, launches)."""
+    version on the card; on the graph kernel (a tiled `form`) also cost for
+    cost and count for count to the same solve on the template route.
+    Returns (result, launches)."""
     N = dims["N"]
     ref = JAX_CPU_GRAPH_COSTS[label]
     res, launches, _plan = main_path(
         f"{label} GN {GRAPH_NL}x{GRAPH_LI}", arap_mesh_deformation, "gaussNewtonGPU", dims,
         inputs, GRAPH_NL, GRAPH_LI, None, {"Offset": (N, 3), "Angle": (N, 3)}, form=form)
+    if form.endswith("_tiled"):
+        route_equal(f"{label} GN {GRAPH_NL}x{GRAPH_LI}", res, launches, lambda: ot.Problem(
+            arap_mesh_deformation).plan(dims=dims).solve(
+                dict(inputs), nIterations=GRAPH_NL, lIterations=GRAPH_LI), form)
     fused_cg.reset_launch_counts()
     twin_plan = ot.Problem(arap_mesh_deformation).plan(
         dims=dims, init_params=ot.InitializationParameters(use_pallas_cg="interpret"))
@@ -1361,8 +1459,10 @@ def batched_poisson_main_path(inputs):
 
 def batched_graph_main_path(dims, inputs):
     """The armadillo posed to four handle targets (armadillo_batch_inputs),
-    GN 8x100 in one solve_batched: one launch of the remainder's
-    multi-system instance a step, no fallback; instance 0's first two step
+    GN 8x100 in one solve_batched: one launch of the graph kernel's
+    multi-system instance (gn_rem_multi_tiled) a step, no fallback, costs
+    and counts equal to the same solve on the template route (gn_rem_multi);
+    instance 0's first two step
     costs within FIRST_STEPS_RTOL of the JAX CPU's (the solve does not
     settle: JAX_CPU_GRAPH_COSTS), each instance's first two step costs
     within BATCH_STEP_RTOL of its own solve on the card and its CG count in
@@ -1384,7 +1484,7 @@ def batched_graph_main_path(dims, inputs):
     finite = all(bool(torch.isfinite(v).all()) and tuple(v.shape) == (B, N, 3)
                  for v in res.unknowns.values())
     line = {"check": "main_path", "case": f"armadillo31k x{B} GN {GRAPH_NL}x{GRAPH_LI} batched",
-            "form": "gn_rem_multi", "kernel_launches": launches,
+            "form": "gn_rem_multi_tiled", "kernel_launches": launches,
             "fused_fallback": plan.fused_fallback, "pulls": list(ARM_BATCH_PULLS),
             "costs": res.costs.tolist(), "lin_iters": res.num_linear_iterations.tolist(),
             "jax_cpu_first_costs_instance0": ref, "first_rel_diff_instance0": rel0,
@@ -1393,11 +1493,14 @@ def batched_graph_main_path(dims, inputs):
             "single_first_two_lin_iters": [s.num_linear_iterations for s in singles],
             "solve_s": res.wall_time_s}
     log(json.dumps(line))
-    if (launches != {"gn_rem_multi": GRAPH_NL} or plan.fused_fallback is not None or not finite
-            or not np.isfinite(res.costs).all() or max(rel0) > FIRST_STEPS_RTOL
+    if (launches != {"gn_rem_multi_tiled": GRAPH_NL} or plan.fused_fallback is not None
+            or not finite or not np.isfinite(res.costs).all() or max(rel0) > FIRST_STEPS_RTOL
             or max(max(r) for r in rel) > BATCH_STEP_RTOL
             or line["first_two_lin_iters"] != line["single_first_two_lin_iters"]):
         raise RuntimeError(f"batched armadillo failed: {line}")
+    route_equal(line["case"], res, launches, lambda: ot.Problem(arap_mesh_deformation).plan(
+        dims=dims).solve_batched(dict(inputs), nIterations=GRAPH_NL, lIterations=GRAPH_LI),
+        "gn_rem_multi_tiled")
     return launches
 
 
@@ -1408,16 +1511,15 @@ def bj_batch_plan():
         dims=_grid(IW_N), init_params=ot.InitializationParameters(preconditioner="block_jacobi"))
 
 
-def time_batched_bj(label, inputs, gpu, reps):
+def time_batched(label, plan, inputs, nl, li, gpu, reps):
     """Wall ms (host clock, synchronised) of `reps` solve_batched calls of
-    the batched block-Jacobi main path (LM 8x400), after a warm-up solve."""
-    plan = bj_batch_plan()
-    plan.solve_batched(dict(inputs), nIterations=8, lIterations=400)
+    a batched main path (`plan`, nl x li), after a warm-up solve."""
+    plan.solve_batched(dict(inputs), nIterations=nl, lIterations=li)
     torch.cuda.synchronize()
     solve_ms = []
     for _ in range(reps):
         t0 = time.perf_counter()
-        res = plan.solve_batched(dict(inputs), nIterations=8, lIterations=400)
+        res = plan.solve_batched(dict(inputs), nIterations=nl, lIterations=li)
         torch.cuda.synchronize()
         solve_ms.append((time.perf_counter() - t0) * 1e3)
     log(json.dumps({"timing": label, "gpu": gpu, "solve_ms": solve_ms,
@@ -1723,9 +1825,11 @@ def time_pair(label, meta, b, pre, gpu, lm=None, reps=3, lits=TIMED_ITERS, devic
     device time (kernel_device_ms), for a launch too short for the events to
     part it from the wrapper's host work; the events' ms is printed beside
     it. With `template` the template's instance is timed, where the tiled
-    route would take the system. Under block-Jacobi the bound reads the C*C
-    planes once a launch (the bound with them read every iteration is
-    printed beside it)."""
+    route would take the system. With the graph remainder the bound reads
+    the fields, b, the preconditioner and ctc once a launch, the CSR every
+    iteration; else under block-Jacobi it reads the C*C planes once a
+    launch (the bound with them read every iteration is printed beside
+    it)."""
     lm_kw = dict(lm, q_tolerance=float("-inf")) if lm else {}
     launch = fused_cg.template_grid_cg_kernel if template else fused_cg.fused_grid_cg_kernel
     # with tol = 0 a loop that reaches an exact zero residual still stops
@@ -1752,7 +1856,12 @@ def time_pair(label, meta, b, pre, gpu, lm=None, reps=3, lits=TIMED_ITERS, devic
     shape = meta_shape(meta)
     pre_planes = shape["C"] ** 2 if variant.get("pre_blocks") is not None else None
     knobs = dict(lm=bool(lm), cs=bool(variant.get("cs")), pre_planes=pre_planes)
-    if pre_planes is None:
+    if meta.get("rem") is not None:  # the inputs, the same for the whole solve, once
+        bound_ms, bound_by = cg_bound(shape, iters, inputs_once=n_systems(meta), **knobs)
+        every = cg_bound(shape, iters, **knobs)[0]  # and, beside it, once an iteration
+        extra.update(bound_ms_inputs_every_iter=every,
+                     bound_ms_inputs_every_iter_per_cg_iter=every / iters)
+    elif pre_planes is None:
         bound_ms, bound_by = cg_bound(shape, iters, **knobs)
     else:  # the C*C planes, the same for the whole solve, read once a launch
         bound_ms, bound_by = cg_bound(shape, iters, planes_once=n_systems(meta), **knobs)
@@ -2276,13 +2385,19 @@ def main() -> int:
                    q_tol=float("-inf"))
     kernel_vs_twin(f"image_warping{IW_BIG_N}x3", wmeta, wb, wpre, 100, CG_TOL, wlm)
 
-    # the graph forms: K3 (DIA, the grid mesh) and K4 (the remainder, the
-    # armadillo), each in the GN and the LM instance
+    # the graph forms: K3 (DIA, the grid mesh, on the template) and K4 (the
+    # remainder, the armadillo: the graph kernel, gn_rem_tiled and
+    # lm_rem_tiled, with the template's gn_rem and lm_rem held bitwise to the
+    # same twin results), each in the GN and the LM instance
     graph = {}
     for label, dims, gin in (("arap36k", arap_dims, arap_in), ("armadillo31k", arm_dims, arm_in)):
         gm = system(arap_mesh_deformation, dims, gin)
         glm = system(arap_mesh_deformation, dims, gin, "LMGPU")
         rem = gm[0]["rem"]
+        routed = rem is not None
+        if routed:
+            graph_plan_line(f"{label} GN", *gm[:2])
+            graph_plan_line(f"{label} LM", *glm[:2], glm[3])
         offsets = sorted({d[1] for (d, _i, _j, _f) in gm[0]["triples"]})
         log(json.dumps({"graph_system": label, "vertices": dims["N"],
                         "fields": int(gm[0]["F"].shape[0]), "triples": len(gm[0]["triples"]),
@@ -2290,15 +2405,32 @@ def main() -> int:
                         "remainder_entries": None if rem is None else int(rem["col"].shape[0]),
                         "remainder_max_row": None if rem is None
                         else int((rem["rowptr"][1:] - rem["rowptr"][:-1]).max())}))
-        err = kernel_vs_twin(label, *gm[:3], 50, 0.0)
-        kernel_vs_twin(label, *gm[:3], GRAPH_LI, CG_TOL)
-        kernel_vs_twin(label, *glm[:3], 50, 0.0, glm[3], q_tol=float("-inf"))
-        kernel_vs_twin(label, *glm[:3], GRAPH_LI, CG_TOL, glm[3])
+        held = dict(bitwise=routed, template=routed)
+        err = kernel_vs_twin(label, *gm[:3], 50, 0.0, **held)
+        kernel_vs_twin(label, *gm[:3], GRAPH_LI, CG_TOL, **held)
+        kernel_vs_twin(label, *glm[:3], 50, 0.0, glm[3], q_tol=float("-inf"), **held)
+        kernel_vs_twin(label, *glm[:3], GRAPH_LI, CG_TOL, glm[3], **held)
         bitwise_repeat(label, *gm[:3], GRAPH_LI)
         bitwise_repeat(label, *glm[:3], GRAPH_LI, glm[3])
         graph[label] = (gm, glm, err)
     if graph["arap36k"][0][0]["rem"] is not None or graph["armadillo31k"][0][0]["rem"] is None:
         raise RuntimeError("the grid mesh must take the DIA form and the armadillo the remainder")
+    # the graph kernel on a 300-vertex random mesh (one system, all
+    # remainder) and on the DIA-plus-remainder grid mesh, GN and LM, each
+    # with the template's instance on the same twin results
+    rdims1, rin1 = random_mesh_inputs(RANDOM_MESH_N, 1)
+    rin1 = instance_inputs(rin1, ("Offset", "Angle"), 0)
+    ddims, din = dense_grid_mesh_inputs(DENSE_SIDE)
+    for label, dims, gin in ((f"random{RANDOM_MESH_N}", rdims1, rin1),
+                             (f"dense_grid{DENSE_SIDE}", ddims, din)):
+        for kind, klabel in (("gaussNewtonGPU", "GN"), ("LMGPU", "LM")):
+            gs = system(arap_mesh_deformation, dims, gin, kind)
+            offsets = sorted({d[1] for (d, _i, _j, _f) in gs[0]["triples"]} - {0})
+            if gs[0]["rem"] is None or bool(offsets) != label.startswith("dense"):
+                raise RuntimeError(f"{label}: not the expected remainder form ({offsets})")
+            graph_plan_line(f"{label} {klabel}", *gs[:2], gs[3])
+            variant_checks(f"{label} {klabel}", gs, 50, GRAPH_LI, bitwise=True, template=True)
+    del rin1, din
 
     # the 3-D grid form (K1 e) and the variants (K1 c, d, f), each held to
     # the twin: 50 iterations with no exit, the real exits, a bitwise repeat
@@ -2472,9 +2604,9 @@ def main() -> int:
     multi_sys = {}
     for label, spec, dims, binp, kind, ip, exit_lits, form in (
             (f"{alabel} GN", arap_mesh_deformation, arm_bdims, arm_bin, gn, {}, GRAPH_LI,
-             "gn_rem_multi"),
+             "gn_rem_multi_tiled"),
             (f"{alabel} LM", arap_mesh_deformation, arm_bdims, arm_bin, lmk, {}, GRAPH_LI,
-             "lm_rem_multi"),
+             "lm_rem_multi_tiled"),
             (f"{alabel} GN bf16", arap_mesh_deformation, arm_bdims, arm_bin, gn, bf, GRAPH_LI,
              "gn_bf16_rem_multi"),
             (f"{alabel} GN block_jacobi", arap_mesh_deformation, arm_bdims, arm_bin, gn, bj,
@@ -2490,7 +2622,9 @@ def main() -> int:
         else:
             sysm = batched_system(spec, dims, binp, kind, **ip)
         tiled = form.endswith("_tiled")
-        if tiled:
+        if tiled and sysm[0]["rem"] is not None:
+            graph_plan_line(label, *sysm[:2], sysm[3])
+        elif tiled:
             tiled_line(label, sysm[0], sysm[1], sysm[3], sysm[4]["pre_blocks"])
         err = batch_checks(label, sysm, 50, exit_lits, form=form, template=tiled)
         multi_sys[form] = (label, sysm, err)
@@ -2518,7 +2652,7 @@ def main() -> int:
             label, image_warping, kind, _grid(nn), iw_in if nn == IW_N else iw_big_in, nl, li,
             want, {"Offset": (nn, nn, 2), "Angle": (nn, nn, 1)}, form=form)
     _r, l_arap = graph_main_path("arap36k", arap_dims, arap_in, "gn")
-    _r, l_arm = graph_main_path("armadillo31k", arm_dims, arm_in, "gn_rem")
+    _r, l_arm = graph_main_path("armadillo31k", arm_dims, arm_in, "gn_rem_tiled")
     float64_witness(f"arap36k GN {GRAPH_NL}x{GRAPH_LI}", arap_mesh_deformation, "gaussNewtonGPU",
                     arap_dims, arap_in, GRAPH_NL, GRAPH_LI, JAX_CPU_ARAP36K_F64_COSTS, F64_STEPS)
     vol_res, l_vol = volumetric_main_path("jacobi", vol_in)
@@ -2597,18 +2731,23 @@ def main() -> int:
     t_tiled, t_tpl = {}, {}
     iw_bj = {label: iw_variants[(label, "block_jacobi")] for label in ("GN", "LM")}
     mlabel, msys, _err = multi_sys["lm_bj_multi_tiled"]
+    agm, aglm = graph["armadillo31k"][:2]
+    glabel, gsys, _err = multi_sys["gn_rem_multi_tiled"]
     for key, (label, m_, b_, p_, lm_, var_, reps_) in {
             "gn": (f"poisson{n}x4", meta, b, pre, None, {}, 3),
             "gn_iw": (f"image_warping{IW_N}x3", mmeta, mb, mpre, None, {}, 3),
             "lm_iw": (f"image_warping{IW_N}x3", vmeta, vb, vpre, vlm, {}, 3),
             "gn_bj_iw": (f"image_warping{IW_N}x3 GN block_jacobi", *iw_bj["GN"], 3),
             "lm_bj_iw": (f"image_warping{IW_N}x3 LM block_jacobi", *iw_bj["LM"], 3),
-            "lm_bj_multi": (mlabel, *msys, 2)}.items():
+            "lm_bj_multi": (mlabel, *msys, 2),
+            "gn_rem": ("armadillo31k", *agm, 2),
+            "lm_rem": ("armadillo31k", *aglm, 2),
+            "gn_rem_multi": (glabel, *gsys, 2)}.items():
         for template in (False, True, True, False):
             t = time_pair(label, m_, b_, p_, gpu, lm_, reps=reps_,
                           twin=not template and key not in t_tiled, template=template, **var_)
             (t_tpl if template else t_tiled).setdefault(key, t)
-    del iw_bj, msys
+    del iw_bj, msys, gsys
     t_gn, t_mixed, t_lm = t_tiled["gn"], t_tiled["gn_iw"], t_tiled["lm_iw"]
     phases["tiled_vs_template_kernel_turns"] = (time.perf_counter() - t_start
                                                 - sum(phases.values()))
@@ -2617,10 +2756,11 @@ def main() -> int:
     t_k6 = time_pair(f"image_warping{IW_BIG_N}x3", gmeta, gb, gpre, gpu, reps=2)
     time_pair(f"image_warping{IW_BIG_N}x3", wmeta, wb, wpre, gpu, wlm, reps=2)
     del gmeta, gb, gpre, wmeta, wb, wpre, wlm
-    t_graph = {}
-    for label, (gm, glm, _err) in graph.items():
-        t_graph[label] = time_pair(label, *gm[:3], gpu, reps=2)
-        time_pair(label, *glm[:3], gpu, glm[3], reps=2)
+    # the DIA form (K3) on the template; the armadillo's were timed above, on
+    # both routes
+    gm, glm = graph["arap36k"][:2]
+    t_graph = time_pair("arap36k", *gm[:3], gpu, reps=2)
+    time_pair("arap36k", *glm[:3], gpu, glm[3], reps=2)
     t_3d = time_pair(f"volumetric{VOL_N}", *vsys[:3], gpu, vsys[3], reps=3, **vsys[4])
     t_bj = time_pair(f"volumetric{VOL_N} block_jacobi", *vbj[:3], gpu, vbj[3], reps=3, **vbj[4])
     t_cs = time_pair(f"poisson{n}x4 chronopoulos_gear", *pcs[:3], gpu, pcs[3], **pcs[4])
@@ -2652,14 +2792,13 @@ def main() -> int:
     form_sweep(curve_lm, gpu)
     time_pair(f"poisson{n}x4 x{BATCH_POISSON_B} multi", *pbatch[:3], gpu, reps=2)
     # the batch forms with the remainder and the block preconditioner: ms
-    # per system-iteration of each multi-system instance (the twin timed for
-    # gn_rem_multi, in the kernels line; lm_bj_multi_tiled is timed above),
-    # ms per launch of each block-per-system one, beside its bound; one
-    # batched GN step before and after
-    t_multi = {form: time_pair(label, *sysm[:3], gpu, sysm[3], reps=2,
-                               twin=form == "gn_rem_multi", **sysm[4])
-               for form, (label, sysm, _err) in multi_sys.items()
-               if form != "lm_bj_multi_tiled"}
+    # per system-iteration of each multi-system instance (lm_bj_multi_tiled
+    # and gn_rem_multi_tiled are timed above, on both routes), ms per launch
+    # of each block-per-system one, beside its bound; one batched GN step
+    # before and after
+    for form, (label, sysm, _err) in multi_sys.items():
+        if form not in ("lm_bj_multi_tiled", "gn_rem_multi_tiled"):
+            time_pair(label, *sysm[:3], gpu, sysm[3], reps=2, twin=False, **sysm[4])
     with batch_form("batch"):
         for form, (label, sysb) in batch_sys.items():
             time_pair(label, *sysb[:3], gpu, sysb[3], lits=BATCH_LI, device=True, twin=False,
@@ -2679,12 +2818,18 @@ def main() -> int:
     bj_lm = (f"image_warping{IW_N} LM 8x400 block_jacobi", image_warping, "LMGPU", iw_in, 8, 400,
              bj)
     blabel = f"image_warping{IW_N} x{IW_BJ_BATCH_B} LM 8x400 block_jacobi batched"
+    arm_label = f"armadillo31k GN {GRAPH_NL}x{GRAPH_LI}"
+    arm_blabel = f"armadillo31k x{len(ARM_BATCH_PULLS)} GN {GRAPH_NL}x{GRAPH_LI} batched"
     for turn, route in enumerate(("template", "tiled", "tiled", "template")):
         with (template_route() if route == "template" else contextlib.nullcontext()):
             for label, spec, kind, inp, nl, li, ip in (routed if turn in (1, 3) else []) + [bj_lm]:
                 time_main_path(f"{label} {route}", spec, kind, _grid(n), inp, nl, li, gpu, ip=ip,
                                reps=2)
-            time_batched_bj(f"{blabel} {route}", iw_bin, gpu, reps=2)
+            time_batched(f"{blabel} {route}", bj_batch_plan(), iw_bin, 8, 400, gpu, reps=2)
+            time_main_path(f"{arm_label} {route}", arap_mesh_deformation, "gaussNewtonGPU",
+                           arm_dims, arm_in, GRAPH_NL, GRAPH_LI, gpu, reps=2)
+            time_batched(f"{arm_blabel} {route}", ot.Problem(arap_mesh_deformation).plan(
+                dims=arm_bdims), arm_bin, GRAPH_NL, GRAPH_LI, gpu, reps=2)
     phases["route_solve_turns"] = time.perf_counter() - t_start - sum(phases.values())
     for route in ("template", "tiled"):
         with (template_route() if route == "template" else contextlib.nullcontext()):
@@ -2701,6 +2846,9 @@ def main() -> int:
             bplan_bj = bj_batch_plan()
             profile_solve(f"{blabel} {route}".replace(" ", "_"), lambda: bplan_bj.solve_batched(
                 dict(iw_bin), nIterations=8, lIterations=400), gpu)  # run at once
+            aplan = ot.Problem(arap_mesh_deformation).plan(dims=arm_bdims)
+            profile_solve(f"{arm_blabel} {route}".replace(" ", "_"), lambda: aplan.solve_batched(
+                dict(arm_bin), nIterations=GRAPH_NL, lIterations=GRAPH_LI), gpu)  # run at once
     phases["route_profiles"] = time.perf_counter() - t_start - sum(phases.values())
     time_main_path(f"shape_from_shading{SFS_N} GN {SFS_NL}x{SFS_LI}", shape_from_shading,
                    "gaussNewtonGPU", _grid(SFS_N), sfs_in, SFS_NL, SFS_LI, gpu)
@@ -2717,9 +2865,8 @@ def main() -> int:
             continue  # timed above, on both routes
         label = f"image_warping{nn} {'LM' if kind == 'LMGPU' else 'GN'} {nl}x{li}"
         time_main_path(label, image_warping, kind, _grid(nn), iw_big_in, nl, li, gpu)
-    for label, dims, gin in (("arap36k", arap_dims, arap_in), ("armadillo31k", arm_dims, arm_in)):
-        time_main_path(f"{label} GN {GRAPH_NL}x{GRAPH_LI}", arap_mesh_deformation,
-                       "gaussNewtonGPU", dims, gin, GRAPH_NL, GRAPH_LI, gpu)
+    time_main_path(f"arap36k GN {GRAPH_NL}x{GRAPH_LI}", arap_mesh_deformation,
+                   "gaussNewtonGPU", arap_dims, arap_in, GRAPH_NL, GRAPH_LI, gpu)
     time_main_path(f"volumetric{VOL_N} GN {VOL_NL}x{VOL_LI} jacobi", volumetric_mesh_deformation,
                    "gaussNewtonGPU", _vol(VOL_N), vol_in, VOL_NL, VOL_LI, gpu)
     bplan = ot.Problem(curve_fitting, kind="LMGPU").plan(dims=cdims)
@@ -2776,9 +2923,10 @@ def main() -> int:
         entry(f"fused_grid_cg GN beyond VMEM (K6), image_warping {IW_BIG_N}x{IW_BIG_N}x3", K6,
               runs[(IW_BIG_N, "gaussNewtonGPU")]["gn"], err_k6, t_k6),
         entry("fused_grid_cg GN, graph DIA form (K3), arap 36,864-vertex grid mesh", K3,
-              l_arap["gn"], graph["arap36k"][2], t_graph["arap36k"]),
-        entry("fused_grid_cg GN with the graph remainder (K4), arap armadillo 31,106 vertices",
-              K4, l_arm["gn_rem"], graph["armadillo31k"][2], t_graph["armadillo31k"]),
+              l_arap["gn"], graph["arap36k"][2], t_graph),
+        entry("tiled_graph_cg GN with the graph remainder (K4), arap armadillo 31,106 "
+              "vertices, gn_rem_tiled", K4, l_arm["gn_rem_tiled"], graph["armadillo31k"][2],
+              t_tiled["gn_rem"], GRAPH_SOURCE, t_tpl["gn_rem"]),
         entry(f"fused_grid_cg GN Chronopoulos-Gear (K1 variant c), poisson {n}x{n}x4", K1C,
               l_pcs["gn_cs"], err_cs, t_cs),
         entry(f"fused_grid_cg GN block-Jacobi (K1 variant d), volumetric {VOL_N}^3 x 6", K1D,
@@ -2798,10 +2946,12 @@ def main() -> int:
               f"poisson {SPLIT_N}x{SPLIT_N}x4", K2, l_split["gn_multi"], err_split, t_split),
         entry(f"fused_grid_cg LM, a batch axis: {BATCH_B} curve-fit systems side by side, a "
               "block each (K1 (h))", K1H, l_batch["lm_batch"], err_batch, t_batch),
-        entry(f"fused_grid_cg GN with the graph remainder, a batch axis (K1 (h) x K4): "
+        entry(f"tiled_graph_cg GN with the graph remainder, a batch axis (K1 (h) x K4): "
               f"{alabel} (the armadillo posed to {len(ARM_BATCH_PULLS)} handle targets), the "
-              "systems in turn in one launch; ms of 100 iterations of each system", K4,
-              l_arm_batch["gn_rem_multi"], multi_sys["gn_rem_multi"][2], t_multi["gn_rem_multi"]),
+              "systems in turn in one launch, gn_rem_multi_tiled; ms of 100 iterations of each "
+              "system", K4, l_arm_batch["gn_rem_multi_tiled"],
+              multi_sys["gn_rem_multi_tiled"][2], t_tiled["gn_rem_multi"], GRAPH_SOURCE,
+              t_tpl["gn_rem_multi"]),
         entry(f"tiled_grid_cg LM block-Jacobi, a batch axis (K1 (h) x K1 (d)): {ilabel}, the "
               "systems in turn in one launch, lm_bj_multi_tiled; ms of 100 iterations of each "
               "system", K1D, l_bj_batch["lm_bj_multi_tiled"], multi_sys["lm_bj_multi_tiled"][2],

@@ -4,8 +4,9 @@
 template; ``csrc/fused_grid_cg_one.cu``, ``_multi.cu`` and ``_batch.cu``, its
 instances, one form a unit; ``csrc/fused_grid_cg.cu``, their C interface),
 ``csrc/tiled_grid_cg.cu`` (the CG loop of a 2-D grid whose state fits one
-tile a block) and ``csrc/tile_apply.cu`` (the sharded solve's per-tile
-apply): each unit
+tile a block), ``csrc/tiled_graph_cg.cu`` (the CG loop of a graph with the
+remainder, one vertex range a block; both include ``csrc/tiled_cg.cuh``)
+and ``csrc/tile_apply.cu`` (the sharded solve's per-tile apply): each unit
 by its own ``nvcc`` process, all started together, then one link into one
 shared library with a plain C interface, bound with ``ctypes``. The library
 goes to ``build/opt_tpu_torch/`` at the repository root, named by a hash of
@@ -31,8 +32,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 # the units nvcc compiles, each by its own process, and every source they read
 UNITS = ("fused_grid_cg_one.cu", "fused_grid_cg_multi.cu", "fused_grid_cg_batch.cu",
-         "fused_grid_cg.cu", "tiled_grid_cg.cu", "tile_apply.cu")
-SOURCES = UNITS + ("fused_grid_cg.cuh",)
+         "fused_grid_cg.cu", "tiled_grid_cg.cu", "tiled_graph_cg.cu", "tile_apply.cu")
+SOURCES = UNITS + ("fused_grid_cg.cuh", "tiled_cg.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "opt_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -115,21 +116,29 @@ _INSTANCE = re.compile(
     r"fused_grid_cg_kernelILb([01])ELb([01])ELb([01])ELb([01])E(f|13__nv_bfloat16)Li([012])EE"
 )
 _TILED_INSTANCE = re.compile(r"tiled_grid_cg_kernelILb([01])ELb([01])EE")
+_GRAPH_INSTANCE = re.compile(r"tiled_graph_cg_kernelILb([01])EE")
 
 
 def instance_registers(log: str) -> dict:
     """{(lm, rem, cs, block, bf16, multi, batch): (registers, spill store
     bytes, spill load bytes)} from ptxas's -v output (the kernel's FORM: 0
-    one system, 1 multi, 2 batch), and the tiled kernel's four instances
+    one system, 1 multi, 2 batch), the tiled kernel's four instances
     (tiled_grid_cg_kernel<LM, BLOCK>) under (lm, False, False, block,
     False, multi, False, True): a block instance under both multi = False
-    and True, the one kernel that solves one system or several in turn."""
+    and True, the one kernel that solves one system or several in turn;
+    and the graph kernel's two (tiled_graph_cg_kernel<LM>) under (lm, True,
+    False, False, False, multi, False, True), multi False and True."""
     regs, current, spill = {}, None, (0, 0)
     for line in log.splitlines():
         if "Compiling entry function" in line:
             m = _INSTANCE.search(line)
             t = _TILED_INSTANCE.search(line)
-            if m:
+            g = _GRAPH_INSTANCE.search(line)
+            if g:
+                lm = g.group(1) == "1"
+                current = [(lm, True, False, False, False, multi, False, True)
+                           for multi in (False, True)]
+            elif m:
                 lm, rem, cs, block = (g == "1" for g in m.groups()[:4])
                 form = int(m.group(6))
                 current = [(lm, rem, cs, block, m.group(5) != "f", form == 1, form == 2)]
@@ -192,6 +201,18 @@ def load_library(build: bool = True) -> ctypes.CDLL:
         i32, i32, vp,  # threads, smem_bytes, stream
     ]
     lib.tiled_grid_cg_launch.restype = i32
+    lib.tiled_graph_cg_launch.argtypes = [
+        i32,  # lm
+        vp, vp, vp, vp, vp, vp, vp,  # F, b, pre, ctc, blk, triples, starts
+        vp, vp, vp, vp, vp,  # rowptr, lcol, blocks, halo, border
+        i32, i32, i32, i32, i32,  # C, T, n_triples, N, n_blocks
+        i32, i32, i32, i32,  # nvm, nfm, nhm, nem (the largest range, frame, halo, entries)
+        i32, f32, i32, i32, f32,  # lits, tol, guard_div, reset_period, q_tol
+        i32, i32, i32,  # n_sys, f_stride, blk_stride (a system's fields and blocks)
+        vp, vp, vp, vp, vp,  # delta, r_ring, partA, partB, iters
+        i32, i32, vp,  # threads, smem_bytes, stream
+    ]
+    lib.tiled_graph_cg_launch.restype = i32
     lib.tile_apply_launch.argtypes = [
         i32, vp, vp, vp, vp, vp,  # bf16, F, p_ext, out, triples, starts
         i32, i32, i32, i32, i32, i32,  # n_triples, C, th, tw, ah, aw

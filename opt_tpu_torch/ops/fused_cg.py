@@ -68,9 +68,13 @@ split or remainder; a batch only under block-Jacobi in the multi form,
 and ``lm_bj_multi_tiled``, which run the block-Jacobi kernel over the
 systems in turn) instead of the template: each block keeps its
 tile's state (and under block-Jacobi its C·C planes) in shared memory for
-the whole solve and only r's border goes through device memory. It is
-bitwise equal to the template and to the twin, so the route changes no
-result.
+the whole solve and only r's border goes through device memory. A graph
+meta with the remainder takes the graph kernel instead
+(:func:`graph_tile_plan`, ``csrc/tiled_graph_cg.cu``: ``gn_rem_tiled``,
+``lm_rem_tiled``, ``gn_rem_multi_tiled``, ``lm_rem_multi_tiled``), one
+contiguous vertex range a block under a partition built once per
+topology. Both are bitwise equal to the template and to the twin, so the
+route changes no result.
 """
 
 from __future__ import annotations
@@ -79,6 +83,7 @@ import ctypes
 import functools
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from .shift import in_bounds_mask, shift
@@ -237,11 +242,15 @@ def graph_dia_offset_cap(compiled, plan) -> int:
 
 
 def _merge_remainders(parts, n: int):
-    """One destination-sorted CSR from several groups' (row, col, blk):
-    each row's entries group by group, in group order."""
+    """One destination-sorted CSR from several groups' (rowptr, col, blk,
+    row, partitions): each row's entries group by group, in group order. A
+    single group's CSR keeps its :class:`GraphPartitions`, which the graph
+    route needs; a merged one is built anew every step, has none and keeps
+    the template."""
     if len(parts) == 1:
-        rowptr, col, blk, _row = parts[0]
-        return {"rowptr": rowptr, "col": col, "blk": blk.contiguous()}
+        rowptr, col, blk, _row, partitions = parts[0]
+        return {"rowptr": rowptr, "col": col, "blk": blk.contiguous(),
+                "partitions": partitions}
     row = torch.cat([p[3] for p in parts])
     order = torch.argsort(row, stable=True)
     rowptr = torch.zeros(n + 1, dtype=torch.int64, device=row.device)
@@ -338,7 +347,7 @@ def plan_fused_graph_cg(compiled, plan, fields: Dict, grp_exec: Dict,
             if inv != list(range(ct)):
                 inv_t = torch.as_tensor(inv, device=blk.device)
                 blk = blk[:, inv_t][:, :, inv_t]
-            rem_parts.append((csr["rowptr"], csr["col"], blk, csr["row"]))
+            rem_parts.append((csr["rowptr"], csr["col"], blk, csr["row"], csr["partitions"]))
     if not field_list or len(triples) > MAX_TRIPLES or ctot > MAX_CHANNELS:
         return None
     rem = _merge_remainders(rem_parts, N) if rem_parts else None
@@ -702,13 +711,17 @@ INSTANCES = tuple(
     for lm in (False, True) for cs in (False, True) for block in (False, True)
     for bf16 in (False, True) for rem in (False, True)
 )
-# the tiled kernel's six launch names, as instance_name's flags (tiled last):
-# GN and LM with the elementwise preconditioner, with block-Jacobi, and with
-# block-Jacobi over a batch's systems in turn (the block-Jacobi kernel's
-# launches on a batched meta)
+# the tiled grid kernel's six launch names, as instance_name's flags (tiled
+# last): GN and LM with the elementwise preconditioner, with block-Jacobi,
+# and with block-Jacobi over a batch's systems in turn (the block-Jacobi
+# kernel's launches on a batched meta)
 TILED_INSTANCES = tuple((lm, False, False, block, False, multi, False, True)
                         for block, multi in ((False, False), (True, False), (True, True))
                         for lm in (False, True))
+# the graph kernel's four (csrc/tiled_graph_cg.cu): GN and LM with the
+# remainder, one system and a batch's systems in turn
+TILED_INSTANCES += tuple((lm, True, False, False, False, multi, False, True)
+                         for multi in (False, True) for lm in (False, True))
 
 
 def batched_kernel_form(meta, pre_blocks=None) -> str:
@@ -970,6 +983,155 @@ def tile_bounds(plan, N1: int, N2: int) -> list:
             for r in range(tr) for c in range(tc)]
 
 
+class GraphPartitions:
+    """The graph route's vertex partitions of one remainder CSR (one
+    topology), built on the host at the first launch that asks and kept
+    for every later GN step: the partitions by (ranges, fields, dlo, dhi)
+    and their tables' copies on each device. A plain object, not a dict,
+    so that the solver's vmap hands it through as one leaf."""
+
+    def __init__(self):
+        self.partitions = {}
+        self.device = {}
+
+    def partition(self, rem, n: int, C: int, T: int, dlo: int, dhi: int) -> Dict:
+        """The remainder ``rem``'s :func:`graph_partition` into ``n``
+        ranges, a vertex weighing its T fields and its 3·C values of state
+        and an entry its C×C block and its column, for DIA offsets in
+        [-dlo, dhi]: built at the first call, kept for the later ones."""
+        key = (n, T, dlo, dhi)
+        if key not in self.partitions:
+            self.partitions[key] = graph_partition(
+                rem["rowptr"].cpu().numpy(), rem["col"].cpu().numpy(), n,
+                vertex_bytes=4 * (T + 3 * C), entry_bytes=4 * (C * C + 1), dlo=dlo, dhi=dhi)
+        return self.partitions[key]
+
+    def tables(self, part: Dict, device) -> tuple:
+        """The partition ``part``'s blocks, halo, lcol and border on
+        ``device``, uploaded at the first launch there."""
+        key = (id(part), str(device))
+        if key not in self.device:
+            self.device[key] = tuple(torch.as_tensor(part[k]).to(device)
+                                     for k in ("blocks", "halo", "lcol", "border"))
+        return self.device[key]
+
+
+def graph_partition(rowptr, col, n_blocks: int, *, vertex_bytes: int, entry_bytes: int,
+                    dlo: int = 0, dhi: int = 0) -> Dict:
+    """Cut the vertices [0, N) of a destination-sorted CSR (rowptr [N+1],
+    col [nnz]) into ``n_blocks`` contiguous ranges (fewer where N is
+    smaller) of about equal bytes, a vertex weighing ``vertex_bytes`` and
+    each of its entries ``entry_bytes``. For each range [v0, v1): its halo,
+    the sorted vertices outside it that its entries read or that a DIA
+    offset in [-dlo, dhi] reads from it (the window [v0 - dlo, v1 + dhi)
+    within [0, N)); its frame, the range and its halo sorted by vertex id
+    (the range after the halo's first ``own_at`` vertices). Returns numpy
+    arrays: blocks [n, 5] int32 (v0, v1, own_at, halo_off, nh), halo
+    [Σ nh] int32 (each block's, in block order), lcol [nnz] int32 (each
+    entry's column as a place in its block's frame), border [N] uint8 (1
+    where some block's halo holds the vertex: its owner writes r there),
+    the largest range, halo, frame and entry span."""
+    rowptr = np.asarray(rowptr, dtype=np.int64)
+    col = np.asarray(col, dtype=np.int64)
+    N = int(rowptr.shape[0]) - 1
+    n = max(1, min(int(n_blocks), N))
+    cum = np.concatenate([[0], np.cumsum(vertex_bytes + entry_bytes * np.diff(rowptr))])
+    cuts = np.searchsorted(cum, cum[-1] * np.arange(1, n) / n, side="left")
+    bounds = [0]
+    for k, c in enumerate(cuts.tolist()):  # strictly increasing, every range non-empty
+        bounds.append(min(max(int(c), bounds[-1] + 1), N - (n - 1 - k)))
+    bounds.append(N)
+    blocks = np.zeros((n, 5), dtype=np.int32)
+    halos, lcol = [], np.zeros(col.shape[0], dtype=np.int32)
+    border = np.zeros(N, dtype=np.uint8)
+    off = max_frame = max_entries = 0
+    for k in range(n):
+        v0, v1 = bounds[k], bounds[k + 1]
+        e0, e1 = int(rowptr[v0]), int(rowptr[v1])
+        c = col[e0:e1]
+        reads = np.concatenate([c, np.arange(max(0, v0 - dlo), min(N, v1 + dhi))])
+        halo = np.unique(reads[(reads < v0) | (reads >= v1)])
+        own_at = int(np.searchsorted(halo, v0))
+        pos = np.searchsorted(halo, c)
+        lcol[e0:e1] = np.where((c >= v0) & (c < v1), own_at + c - v0,
+                               np.where(pos < own_at, pos, pos + v1 - v0))
+        border[halo] = 1
+        blocks[k] = (v0, v1, own_at, off, halo.shape[0])
+        halos.append(halo)
+        off += halo.shape[0]
+        max_frame = max(max_frame, v1 - v0 + halo.shape[0])
+        max_entries = max(max_entries, e1 - e0)
+    return {"blocks": blocks, "halo": np.concatenate(halos).astype(np.int32), "lcol": lcol,
+            "border": border, "max_range": int((blocks[:, 1] - blocks[:, 0]).max()),
+            "max_halo": int(blocks[:, 4].max()), "max_frame": int(max_frame),
+            "max_entries": int(max_entries)}
+
+
+def tiled_graph_smem_bytes(lm: bool, C: int, T: int, nvm: int, nfm: int, nhm: int, nem: int,
+                           n_triples: int) -> int:
+    """The graph kernel's dynamic shared memory a block, in bytes, in its
+    layout (csrc/tiled_graph_cg.cu::tgr_smem_bytes): the block-sum records,
+    the fields over the largest range ``nvm`` (its stride made odd), r and
+    Ap (under LM also b and ctc) over the range, p, δ and pre over the
+    largest frame ``nfm``, the columns' frame places over the largest entry
+    span ``nem``, the halo ``nhm``, the row starts, the triples' offsets and
+    the border flags."""
+    return (16 * (TILED_THREADS // 32 + 1)
+            + 4 * (T * (nvm | 1) + (4 if lm else 2) * C * nvm + 3 * C * nfm + nem + nhm
+                   + nvm + 1 + 3 * n_triples + C + 1)
+            + ((nvm + 3) & ~3))
+
+
+def graph_tile_plan(meta, C: int, N: int, *, lm: bool, cs: bool = False, block: bool = False,
+                    sm_count: int, smem_per_block: int) -> Optional[Dict]:
+    """Whether a launch on the graph ``meta`` (C channels on the domain
+    [1, N]) takes the graph kernel (csrc/tiled_graph_cg.cu), and how: None,
+    or {blocks, max_range, max_halo, max_frame, max_entries, threads,
+    smem_bytes, partition (:func:`graph_partition`)}. Taken for a meta with
+    the remainder whose CSR carries its :class:`GraphPartitions` (one
+    group's), float32 fields and blocks, under the standard GN or LM loop
+    (``lm``, not ``cs``) with the elementwise preconditioner (not
+    ``block``), one system or a batch in the form
+    :func:`batched_kernel_form` calls "multi", an even number of channels
+    (the kernel reads a block row two floats a load) up to the kernel's
+    channels and triples, when a partition into at most ``sm_count`` ranges
+    fits ``smem_per_block``. It starts at one range for every
+    TILED_THREADS outputs and takes more (up to ``sm_count``) until the
+    largest range's state, fields and frame fit. Built once per topology:
+    the partitions stay in the CSR's :class:`GraphPartitions`."""
+    rem = meta.get("rem")
+    if rem is None or not isinstance(rem.get("partitions"), GraphPartitions):
+        return None
+    F = meta["F"]
+    batch = bool(meta.get("batch"))
+    if (F.dtype != torch.float32 or rem["blk"].dtype != torch.float32 or cs or block
+            or meta.get("chan_grid") or (batch and batched_kernel_form(meta) != "multi")):
+        return None
+    lead = 1 if batch else 0
+    triples = meta["triples"]
+    if (tuple(F.shape[lead + 1:]) != (1, N) or not 2 <= C <= MAX_CHANNELS or C % 2
+            or not 0 < len(triples) <= MAX_TRIPLES
+            or any(len(d) != 2 or d[0] != 0 for (d, _i, _j, _f) in triples)):
+        return None
+    T = int(F.shape[lead])
+    offsets = [int(d[1]) for (d, _i, _j, _f) in triples]
+    dlo, dhi = max(0, -min(offsets)), max(0, max(offsets))
+    cap = max(1, min(int(sm_count), N))
+    n = min(cap, max(1, -(-(C * N) // TILED_THREADS)))
+    while True:
+        part = rem["partitions"].partition(rem, n, C, T, dlo, dhi)
+        smem = tiled_graph_smem_bytes(lm, C, T, part["max_range"], part["max_frame"],
+                                      part["max_halo"], part["max_entries"], len(triples))
+        if smem <= smem_per_block:
+            return {"blocks": int(part["blocks"].shape[0]), "max_range": part["max_range"],
+                    "max_halo": part["max_halo"], "max_frame": part["max_frame"],
+                    "max_entries": part["max_entries"], "threads": TILED_THREADS,
+                    "smem_bytes": smem, "partition": part}
+        if n == cap:
+            return None
+        n = min(cap, max(n + 1, n * 5 // 4))
+
+
 _LIMITS = {}
 
 
@@ -999,9 +1161,15 @@ def route_plan(meta, b, *, lm: bool, cs: bool = False, pre_blocks=None) -> Optio
     None where the launch takes the template. A batched meta takes the
     tiled kernel only under the block preconditioner and in the form
     :func:`batched_kernel_form` calls "multi" (the systems in turn); the
-    "batch" form and a batch without ``pre_blocks`` keep the template."""
+    "batch" form and a batch without ``pre_blocks`` keep the template. A
+    meta with the graph remainder takes :func:`graph_tile_plan`'s plan (the
+    graph kernel) or None."""
     block = pre_blocks is not None
     lead = 1 if meta.get("batch") else 0
+    if meta.get("rem") is not None:
+        sms, smem = device_limits(b.device)
+        return graph_tile_plan(meta, int(b.shape[lead]), int(b.shape[-1]), lm=lm, cs=cs,
+                               block=block, sm_count=sms, smem_per_block=smem)
     if lead and not (block and batched_kernel_form(meta, pre_blocks) == "multi"):
         return None
     sms, smem = device_limits(b.device)
@@ -1014,7 +1182,8 @@ def launch_instance(meta, b, *, lm: bool = False, cs: bool = False, pre_blocks=N
     these operands."""
     block = pre_blocks is not None
     if route_plan(meta, b, lm=lm, cs=cs, pre_blocks=pre_blocks) is not None:
-        return instance_name(lm, False, block=block, multi=bool(meta.get("batch")), tiled=True)
+        return instance_name(lm, meta.get("rem") is not None, block=block,
+                             multi=bool(meta.get("batch")), tiled=True)
     form = batched_kernel_form(meta, pre_blocks) if meta.get("batch") else None
     multi = form == "multi" if form else bool(meta.get("chan_grid"))
     return instance_name(lm, meta.get("rem") is not None, cs, block,
@@ -1109,10 +1278,100 @@ def tiled_grid_cg_kernel(meta, b, pre, lits, tol, plan, *, guard_div=True, ctc=N
     return delta, iters
 
 
+def tiled_graph_cg_kernel(meta, b, pre, lits, tol, plan, *, guard_div=True, ctc=None,
+                          reset_period=None, q_tolerance=None):
+    """Launch the graph kernel (csrc/tiled_graph_cg.cu) on packed [C, 1, N]
+    float32 CUDA tensors, the graph domain [1, N] with the meta's remainder
+    (rowptr [N+1], col [nnz] int32, blk [nnz, C, C] float32), as ``plan``
+    (:func:`graph_tile_plan`) partitions it: the GN loop, or the LM loop
+    when ``ctc`` is given (with ``reset_period`` and ``q_tolerance``), with
+    the elementwise preconditioner ``pre``. A batched meta (``meta["batch"]``
+    = B, F [B, T, 1, N], blk [B, nnz, C, C]) takes b, pre, ctc as
+    [B, C, 1, N] and solves the B systems in turn in the one launch,
+    counted as ``*_rem_multi_tiled``. Returns (delta, iters int32[n_sys] on
+    the device, n_sys = B under a batch, else 1). Does not synchronise. A
+    launch the card refuses (more ranges than co-resident blocks, shared
+    memory beyond the block's) raises. Each launch adds one to
+    ``fused_grid_cg_kernel.launches[name]`` (``gn_rem_tiled``,
+    ``lm_rem_multi_tiled``, ...)."""
+    from ._build import load_library
+
+    F, rem = meta["F"], meta.get("rem")
+    device = b.device
+    lm = ctc is not None
+    if F.dtype != torch.float32:
+        raise ValueError(f"tiled_graph_cg_kernel takes float32 fields, got {F.dtype}")
+    if rem is None:
+        raise ValueError("tiled_graph_cg_kernel needs the meta's graph remainder")
+    n_sys = int(meta.get("batch") or 0)
+    multi = n_sys > 0
+    lead = (n_sys,) if multi else ()  # the batch axis of every operand
+    C = int(b.shape[len(lead)])
+    full = tuple(int(s) for s in b.shape[len(lead) + 1:])
+    if len(full) != 2 or full[0] != 1:
+        raise ValueError(f"tiled_graph_cg_kernel takes the graph domain [1, N], got {full}")
+    N = full[1]
+    _check_operand("b", b, lead + (C,) + full, torch.float32, device)
+    _check_operand("pre", pre, lead + (C,) + full, torch.float32, device)
+    T = int(F.shape[len(lead)])
+    _check_operand("F", F, lead + (T,) + full, torch.float32, device)
+    if lm:
+        _check_operand("ctc", ctc, lead + (C,) + full, torch.float32, device)
+        if reset_period is None or q_tolerance is None or int(reset_period) < 1:
+            raise ValueError(
+                "tiled_graph_cg_kernel: the LM loop needs reset_period >= 1 and "
+                f"q_tolerance, got {reset_period} and {q_tolerance}"
+            )
+    nnz = int(rem["col"].shape[0])
+    _check_operand("rowptr", rem["rowptr"], (N + 1,), torch.int32, device)
+    _check_operand("col", rem["col"], (nnz,), torch.int32, device)
+    _check_operand("blk", rem["blk"], lead + (nnz, C, C), torch.float32, device)
+    triples = meta["triples"]
+    if (not 0 < len(triples) <= MAX_TRIPLES or not 2 <= C <= MAX_CHANNELS or C % 2 or any(
+            len(d) != 2 or d[0] != 0 or not (0 <= fid < T and 0 <= i < C and 0 <= j < C)
+            for (d, i, j, fid) in triples)):
+        raise ValueError("tiled_graph_cg_kernel: triples, offsets, channels (an even count) or "
+                         "field ids out of range")
+    if b.numel() >= 2**31 or F.numel() >= 2**31 or rem["blk"].numel() >= 2**31:
+        raise ValueError("tiled_graph_cg_kernel indexes with int32: problem too large")
+    if device.type != "cuda":  # after the operand checks, which hold on any device
+        raise ValueError(f"tiled_graph_cg_kernel needs CUDA tensors, got {device}")
+    lib = load_library()
+    tr_rows, starts = _device_triples(triples, C, device)
+    blocks, halo, lcol, border = rem["partitions"].tables(plan["partition"], device)
+    n_blocks = int(plan["blocks"])
+    delta = torch.empty_like(b)
+    r_ring = torch.empty((N, C), dtype=torch.float32, device=device)  # one system's
+    parts = torch.empty((2, n_blocks, 2), dtype=torch.float64, device=device)
+    iters = torch.empty(max(n_sys, 1), dtype=torch.int32, device=device)
+    ptr = lambda t: None if t is None else ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    with torch.cuda.device(device):
+        err = lib.tiled_graph_cg_launch(
+            int(lm), ptr(F), ptr(b), ptr(pre), ptr(ctc), ptr(rem["blk"]), ptr(tr_rows),
+            ptr(starts), ptr(rem["rowptr"]), ptr(lcol), ptr(blocks), ptr(halo), ptr(border),
+            C, T, len(triples), N, n_blocks, plan["max_range"], plan["max_frame"],
+            plan["max_halo"], plan["max_entries"], int(lits), ctypes.c_float(float(tol)),
+            int(bool(guard_div)), int(reset_period) if lm else 0,
+            ctypes.c_float(float(q_tolerance) if lm else 0.0), max(n_sys, 1),
+            T * N if multi else 0, nnz * C * C if multi else 0,
+            ptr(delta), ptr(r_ring), ptr(parts[0]), ptr(parts[1]), ptr(iters),
+            int(plan["threads"]), int(plan["smem_bytes"]),
+            ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream),
+        )
+    if err != 0:
+        raise RuntimeError(f"tiled_graph_cg kernel launch failed: CUDA error {err} "
+                           f"({n_blocks} vertex ranges of up to {plan['max_range']} vertices, "
+                           f"frames of up to {plan['max_frame']}, {plan['smem_bytes']} bytes "
+                           "of shared memory a block)")
+    fused_grid_cg_kernel.launches[instance_name(lm, True, multi=multi, tiled=True)] += 1
+    return delta, iters
+
+
 def fused_grid_cg_kernel(meta, b, pre, lits, tol, *, guard_div=True, ctc=None,
                          reset_period=None, q_tolerance=None, cs=False, pre_blocks=None):
     """Launch the whole CG loop on CUDA tensors: the tiled kernel
-    (:func:`tiled_grid_cg_kernel`) where :func:`route_plan` gives a plan,
+    (:func:`tiled_grid_cg_kernel`, or :func:`tiled_graph_cg_kernel` for a
+    meta with the graph remainder) where :func:`route_plan` gives a plan,
     else the template (:func:`template_grid_cg_kernel`, whose docstring
     gives the operands and forms). Both are bitwise equal to the twin, so
     the route changes no result; a tiled launch that fails raises and is
@@ -1124,6 +1383,10 @@ def fused_grid_cg_kernel(meta, b, pre, lits, tol, *, guard_div=True, ctc=None,
         return template_grid_cg_kernel(
             meta, b, pre, lits, tol, guard_div=guard_div, ctc=ctc, reset_period=reset_period,
             q_tolerance=q_tolerance, cs=cs, pre_blocks=pre_blocks)
+    if meta.get("rem") is not None:
+        return tiled_graph_cg_kernel(meta, b, pre, lits, tol, plan, guard_div=guard_div,
+                                     ctc=ctc, reset_period=reset_period,
+                                     q_tolerance=q_tolerance)
     return tiled_grid_cg_kernel(meta, b, pre, lits, tol, plan, guard_div=guard_div, ctc=ctc,
                                 reset_period=reset_period, q_tolerance=q_tolerance,
                                 pre_blocks=pre_blocks)

@@ -83,7 +83,9 @@ def graph_group_tables(idxs, names, n: int, device, dtype, max_offsets: int) -> 
       merged (``dedup_reads``), or None when there are none;
     * ``csr``: the remainder as the kernel's destination-sorted CSR
       (rowptr [N+1], col [nnz], src [nnz] flat [N·Dm] positions, row
-      [nnz]).
+      [nnz]), and ``partitions``, the graph route's vertex partitions of
+      this topology, built at its first launch and kept for every later
+      step (``fused_cg.GraphPartitions``).
     """
     idx_list = [idxs[k] for k in names]
     inc = graph_ops.combined_incidence_table(idx_list, n)
@@ -139,6 +141,7 @@ def graph_group_tables(idxs, names, n: int, device, dtype, max_offsets: int) -> 
         out["csr"] = {
             "rowptr": as_dev(rowptr, torch.int32), "col": as_dev(col, torch.int32),
             "src": as_dev(src), "row": as_dev(src // cross2.shape[1]),
+            "partitions": fused_cg.GraphPartitions(),
         }
     return out
 
