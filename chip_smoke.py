@@ -68,19 +68,25 @@ with the tile kernel launched once per apply; it times the tile kernel
 against its bound, and the sharded solves (four ranks sharing one card:
 not a scaling figure).
 The tiled route: where one system's state fits the card's shared memory at
-one tile a block (fused_cg.tiled_grid_plan: the 2-D float32 GN and LM
-systems at 512x512 and below, with the Jacobi or the block-Jacobi
-preconditioner, and a batch of such block-Jacobi systems in turn), the
-launch takes the tiled kernel (opt_tpu_torch/ops/csrc/tiled_grid_cg.cu,
-launches gn_tiled, lm_tiled, gn_bj_tiled, lm_bj_tiled, gn_bj_multi_tiled
-and lm_bj_multi_tiled, in the same library); every check above of such a
-system runs it, three more shapes check it with each preconditioner (the
-radius-2 stencil, image_warping on a grid its tiles do not divide, and on
-a grid of one tile), each system of a multi-system launch is held bitwise
-to its own one-system launch, the template's gn, lm, gn_bj, lm_bj,
-gn_bj_multi and lm_bj_multi instances stay checked and timed beside it on
-the same systems, and the main paths of those systems launch it once a
-step.
+one tile a block (fused_cg.tiled_grid_plan: the 2-D GN and LM systems at
+512x512 and below, float32 fields with the Jacobi or the block-Jacobi
+preconditioner, bfloat16 fields with the Jacobi one, Chronopoulos-Gear on
+float32 fields with the Jacobi one, and a batch of float32 block-Jacobi
+systems in turn), the launch takes the tiled kernel
+(opt_tpu_torch/ops/csrc/tiled_grid_cg.cu, launches gn_tiled, lm_tiled,
+gn_bf16_tiled, lm_bf16_tiled, gn_bj_tiled, lm_bj_tiled, gn_bj_multi_tiled
+and lm_bj_multi_tiled; its Chronopoulos-Gear loop, one grid barrier an
+iteration, opt_tpu_torch/ops/csrc/tiled_grid_cs.cu, gn_cs_tiled and
+lm_cs_tiled; in the same library); every check above of such a system
+runs it, three more shapes check it in each form (the radius-2 stencil,
+image_warping on a grid its tiles do not divide, and on a grid of one
+tile), each system of a multi-system launch is held bitwise to its own
+one-system launch, the template's gn, lm, gn_cs, lm_cs, gn_bf16, lm_bf16,
+gn_bj, lm_bj, gn_bj_multi and lm_bj_multi instances stay checked and timed
+beside it on the same systems in turns, and the main paths of those
+systems launch it once a step (poisson's and image_warping LM's
+Chronopoulos-Gear and bfloat16 solves also held cost for cost and count
+for count to the same solves on the template route).
 The graph route: a graph system with the remainder whose vertex partition
 fits the card's shared memory (fused_cg.graph_tile_plan: float32, the
 standard GN or LM loop, the Jacobi preconditioner, one system or a batch
@@ -351,6 +357,7 @@ TIMED_ITERS = 100  # iterations of a timed loop
 PROFILE_SESSIONS = 3  # kernel_device_ms: profiler sessions before CUDA events
 KERNEL_SOURCE = "opt_tpu_torch/ops/csrc/fused_grid_cg.cuh"
 TILED_SOURCE = "opt_tpu_torch/ops/csrc/tiled_grid_cg.cu"
+TILED_CS_SOURCE = "opt_tpu_torch/ops/csrc/tiled_grid_cs.cu"
 GRAPH_SOURCE = "opt_tpu_torch/ops/csrc/tiled_graph_cg.cu"
 # the CG kernels' names, as the profiler's entries carry them
 CG_KERNELS = ("fused_grid_cg_kernel", "tiled_grid_cg_kernel", "tiled_graph_cg_kernel")
@@ -877,15 +884,16 @@ def form_of(meta, b, lm=None, cs=False, pre_blocks=None, template=False):
         return fused_cg.launch_instance(meta, b, lm=bool(lm), cs=bool(cs), pre_blocks=pre_blocks)
 
 
-def tiled_line(label, meta, b, lm=None, pre_blocks=None):
+def tiled_line(label, meta, b, lm=None, pre_blocks=None, cs=False):
     """The tiled route's plan of a system (of each system of a batch),
     printed: tiles, halo, threads and shared memory a block; raises where
     the system does not take it."""
-    plan = fused_cg.route_plan(meta, b, lm=bool(lm), pre_blocks=pre_blocks)
+    plan = fused_cg.route_plan(meta, b, lm=bool(lm), cs=cs, pre_blocks=pre_blocks)
     if plan is None:
         raise RuntimeError(f"{label}: does not take the tiled kernel")
     lead = 1 if meta.get("batch") else 0
-    log(json.dumps({"tiled_plan": label, "form": form_of(meta, b, lm, pre_blocks=pre_blocks),
+    log(json.dumps({"tiled_plan": label,
+                    "form": form_of(meta, b, lm, cs=cs, pre_blocks=pre_blocks),
                     "systems": n_systems(meta), "grid": list(b.shape[lead + 1:]),
                     "channels": int(b.shape[lead]), "triples": len(meta["triples"]),
                     "tiles": list(plan["tiles"]), "tile": list(plan["tile"]),
@@ -944,11 +952,12 @@ def cg_work(fields, plane, C, triples, nnz=0, *, lm=False, cs=False, f_bytes=4,
             pre_planes=None, vector=None, dots=None, batch=1, iters=1,
             reset_period=RESET_PERIOD, planes_once=0, inputs_once=0):
     """What one launch of `iters` CG iterations on each of `batch` systems
-    of this shape must do: (bytes of the launch: each system's fields, b,
-    preconditioner planes (C, or C*C under block-Jacobi), ctc under LM and
-    remainder CSR, whose blocks are coefficients, read once an iteration,
-    and the triples table, which the systems share and each block copies to
-    shared memory once a launch, read once; float32 operations; float64
+    of this shape must do: (bytes of the launch: each system's fields,
+    preconditioner planes (C, or C*C under block-Jacobi), under LM b (which
+    Q reads) and ctc, and remainder CSR, whose blocks are coefficients, read
+    once an iteration; under GN b read once a launch, to form r0; and the
+    triples table, which the systems share and each block copies to shared
+    memory once a launch, read once; float32 operations; float64
     operations). Reads of the stencil that leave the grid count as done;
     the remainder counts its real entries. Defaults are the GN and LM
     forms'; `cs` takes Chronopoulos-Gear's vector updates and dots.
@@ -956,18 +965,20 @@ def cg_work(fields, plane, C, triples, nnz=0, *, lm=False, cs=False, f_bytes=4,
     planes, which stay the same for the whole solve, read once a launch for
     each of that many systems instead of once an iteration: the least a
     kernel that keeps them on chip must read. `inputs_once` (a count of
-    systems, 0 by default): so too the fields, b and ctc, which also stay
-    the same for the whole solve; only the remainder CSR is then read
-    every iteration (a graph's fields fit on chip beside its state: the
+    systems, 0 by default): so too the fields and LM's b and ctc, which
+    also stay the same for the whole solve; only the remainder CSR is then
+    read every iteration (a graph's fields fit on chip beside its state: the
     graph kernel stages them once a solve)."""
     n = C * plane
     pre_planes = C if pre_planes is None else pre_planes
     if vector is None:  # dots, updates, z = M^-1 r
         vector = (16 if lm else 13) if cs else (15 if lm else 12)
     dots = (3 if lm else 2) if dots is None else dots  # their float64 sums
-    inputs = fields * plane * f_bytes + (C + (C if lm else 0)) * plane * 4  # F, b, ctc
+    b_bytes = C * plane * 4
+    inputs = fields * plane * f_bytes + (2 * b_bytes if lm else 0)  # F; LM's b, ctc
     planes = pre_planes * plane * 4
-    once = inputs_once * (inputs + planes) + planes_once * planes
+    once = (inputs_once * (inputs + planes) + planes_once * planes
+            + (0 if lm else batch * b_bytes))  # GN's b, for r0
     it_bytes = (0 if inputs_once else inputs) + (0 if inputs_once or planes_once else planes)
     if nnz:
         it_bytes += (plane + 1) * 4 + nnz * 4 + nnz * C * C * f_bytes
@@ -1265,8 +1276,11 @@ def variant_main_path(name, variant, inputs):
     one solver variant ("chronopoulos_gear", "block_jacobi" or
     "bfloat16"), held to the JAX package's solve of the same plan
     (JAX_CPU_VARIANT_COSTS); Chronopoulos-Gear also to its CG iteration
-    count. image_warping's block-Jacobi steps take the tiled instance
-    lm_bj_tiled. Returns (result, launches)."""
+    count. Every step takes the variant's tiled instance (gn_cs_tiled,
+    gn_bf16_tiled, lm_cs_tiled, lm_bj_tiled, lm_bf16_tiled); the
+    Chronopoulos-Gear and bfloat16 solves are also held cost for cost and
+    count for count to the same solve on the template route. Returns
+    (result, launches)."""
     want, want_iters = JAX_CPU_VARIANT_COSTS[(name, variant)]
     ip = {"chronopoulos_gear": {"cg_variant": "chronopoulos_gear"},
           "block_jacobi": {"preconditioner": "block_jacobi"},
@@ -1274,15 +1288,21 @@ def variant_main_path(name, variant, inputs):
     suffix = {"chronopoulos_gear": "_cs", "block_jacobi": "_bj", "bfloat16": "_bf16"}[variant]
     if name == "poisson":
         n = MAIN_N
-        res, launches, _p = main_path(
-            f"poisson{n}x4 GN 1x2000 {variant}", poisson_image_editing, "gaussNewtonGPU",
-            _grid(n), inputs, 1, 2000, want, {"X": (n, n, 4)}, form="gn" + suffix, ip=ip)
+        spec, kind, dims, nl, li = poisson_image_editing, "gaussNewtonGPU", _grid(n), 1, 2000
+        label = f"poisson{n}x4 GN 1x2000 {variant}"
+        shapes = {"X": (n, n, 4)}
     else:
         n = IW_N
-        res, launches, _p = main_path(
-            f"image_warping{n} LM 8x400 {variant}", image_warping, "LMGPU", _grid(n), inputs,
-            8, 400, want, {"Offset": (n, n, 2), "Angle": (n, n, 1)},
-            form="lm" + suffix + ("_tiled" if variant == "block_jacobi" else ""), ip=ip)
+        spec, kind, dims, nl, li = image_warping, "LMGPU", _grid(n), 8, 400
+        label = f"image_warping{n} LM 8x400 {variant}"
+        shapes = {"Offset": (n, n, 2), "Angle": (n, n, 1)}
+    form = ("lm" if kind == "LMGPU" else "gn") + suffix + "_tiled"
+    res, launches, _p = main_path(label, spec, kind, dims, inputs, nl, li, want, shapes,
+                                  form=form, ip=ip)
+    if variant != "block_jacobi":
+        route_equal(label, res, launches, lambda: ot.Problem(spec, kind=kind).plan(
+            dims=dims, init_params=ot.InitializationParameters(**ip)).solve(
+                dict(inputs), nIterations=nl, lIterations=li), form)
     line = {"check": "variant_iters", "case": f"{name} {variant}",
             "lin_iters": res.num_linear_iterations, "jax_cpu_lin_iters": want_iters}
     if name == "poisson":
@@ -1908,22 +1928,26 @@ def time_main_path(label, spec, kind, dims, inputs, nl, li, gpu, ip=None, reps=1
                     "lin_iters": res.num_linear_iterations}))
 
 
-def tiled_floor(gpu, tiles=(12, 11), tile=4):
+def tiled_floor(gpu, tiles=(12, 11), tile=4, cs=False):
     """The tiled kernel's time an iteration with almost no work: laplacian
     on a grid of `tiles` tiles of `tile` x `tile` points, one block each
     (a plan forced past tiled_grid_plan's, which would take fewer tiles
     here), 100 iterations with no exit, CUDA events: the floor its two
-    grid barriers and dot reductions set, against which the routed
-    shapes' times are read. Returns ms an iteration."""
+    grid barriers and dot reductions set (with `cs`, gn_cs_tiled's one),
+    against which the routed shapes' times are read. Returns ms an
+    iteration."""
     n1, n2 = tiles[0] * tile, tiles[1] * tile
     rng = np.random.RandomState(0)
     inputs = {"X": rng.rand(n1, n2).astype(np.float32), "A": rng.rand(n1, n2).astype(np.float32)}
     m, b, p, _lm, _v = system(laplacian, {"W": n1, "H": n2}, inputs)
     h = 1
     plan = {"tiles": tiles, "tile": (tile, tile), "halo": h, "threads": fused_cg.TILED_THREADS,
-            "smem_bytes": fused_cg.tiled_smem_bytes(False, 1, tile, tile, h, len(m["triples"]))}
-    ms = time_cuda(lambda: fused_cg.tiled_grid_cg_kernel(m, b, p, TIMED_ITERS, 0.0, plan), 5)
-    log(json.dumps({"timing": "tiled_floor", "gpu": gpu, "grid": [n1, n2],
+            "smem_bytes": fused_cg.tiled_smem_bytes(False, 1, tile, tile, h, len(m["triples"]),
+                                                    cs=cs)}
+    ms = time_cuda(lambda: fused_cg.tiled_grid_cg_kernel(m, b, p, TIMED_ITERS, 0.0, plan, cs=cs),
+                   5)
+    log(json.dumps({"timing": "tiled_floor_cs" if cs else "tiled_floor", "gpu": gpu,
+                    "form": "gn_cs_tiled" if cs else "gn_tiled", "grid": [n1, n2],
                     "tiles": list(tiles), "tile": [tile, tile], "iters": TIMED_ITERS,
                     "kernel_ms_per_cg_iter": ms / TIMED_ITERS}))
     return ms / TIMED_ITERS
@@ -2353,31 +2377,40 @@ def main() -> int:
     # the tiled kernel on a radius-2 stencil (a halo of 2), on a grid its
     # tiles leave ragged in both axes and on a grid of one tile, GN and LM,
     # with the Jacobi and the block-Jacobi preconditioner (the C*C planes
-    # staged over each tile and its halo)
+    # staged over each tile and its halo), by Chronopoulos-Gear and with
+    # bfloat16 fields (each of these two with the template's instance held to
+    # the same twin results)
     bj = {"preconditioner": "block_jacobi"}
+    cs, bf = {"cg_variant": "chronopoulos_gear"}, {"coefficient_dtype": "bfloat16"}
+    tiled_forms = (({}, ""), (bj, " block_jacobi"), (cs, " chronopoulos_gear"),
+                   (bf, " bfloat16"))
     r2 = system(radius2_spec, _grid(n), radius2_inputs(n))
-    r2bj = system(radius2_spec, _grid(n), radius2_inputs(n), **bj)
-    for label, sys_ in ((f"radius2 {n}x{n}", r2), (f"radius2 {n}x{n} block_jacobi", r2bj)):
-        if tiled_line(label, sys_[0], sys_[1], pre_blocks=sys_[4]["pre_blocks"])["halo"] != 2:
+    for ip, pl in tiled_forms:
+        label = f"radius2 {n}x{n}{pl}"
+        sys_ = system(radius2_spec, _grid(n), radius2_inputs(n), **ip) if ip else r2
+        if tiled_line(label, sys_[0], sys_[1], pre_blocks=sys_[4]["pre_blocks"],
+                      cs=sys_[4]["cs"])["halo"] != 2:
             raise RuntimeError("the radius-2 stencil must take a halo of 2")
-        variant_checks(label, sys_, 50, 400, bitwise=True)
-    del r2bj
+        variant_checks(label, sys_, 50, 400, bitwise=True, template=ip is cs or ip is bf)
+    del sys_
     rag_in = bench_image_warping_inputs(RAGGED_DIMS["W"], RAGGED_DIMS["H"])
     one_in = bench_image_warping_inputs(SINGLE_N)
     for (kind, label), (ip, pl) in itertools.product(
-            (("gaussNewtonGPU", "GN"), ("LMGPU", "LM")), (({}, ""), (bj, " block_jacobi"))):
+            (("gaussNewtonGPU", "GN"), ("LMGPU", "LM")), tiled_forms):
+        new = ip is cs or ip is bf  # this PR's forms, also held on the template
         rag = system(image_warping, RAGGED_DIMS, rag_in, kind, **ip)
         rlabel = f"image_warping {RAGGED_DIMS['W']}x{RAGGED_DIMS['H']} {label}{pl}"
-        plan = tiled_line(rlabel, rag[0], rag[1], rag[3], rag[4]["pre_blocks"])
+        plan = tiled_line(rlabel, rag[0], rag[1], rag[3], rag[4]["pre_blocks"], rag[4]["cs"])
         (th, tw), (tr, tc) = plan["tile"], plan["tiles"]
         if RAGGED_DIMS["W"] % th == 0 or RAGGED_DIMS["H"] % tw == 0 or tr * tc < 2:
             raise RuntimeError(f"image_warping {RAGGED_DIMS}: tiles {plan} are not ragged")
-        variant_checks(rlabel, rag, 50, 400, bitwise=True)
+        variant_checks(rlabel, rag, 50, 400, bitwise=True, template=new)
         one = system(image_warping, _grid(SINGLE_N), one_in, kind, **ip)
         olabel = f"image_warping{SINGLE_N} {label}{pl}"
-        if tiled_line(olabel, one[0], one[1], one[3], one[4]["pre_blocks"])["tiles"] != (1, 1):
+        if tiled_line(olabel, one[0], one[1], one[3], one[4]["pre_blocks"],
+                      one[4]["cs"])["tiles"] != (1, 1):
             raise RuntimeError(f"image_warping{SINGLE_N}: not one tile")
-        variant_checks(olabel, one, 50, 400, bitwise=True)
+        variant_checks(olabel, one, 50, 400, bitwise=True, template=new)
     del rag, one
     err_k6 = kernel_vs_twin(f"image_warping{IW_BIG_N}x3", gmeta, gb, gpre, 50, 0.0)
     kernel_vs_twin(f"image_warping{IW_BIG_N}x3", gmeta, gb, gpre, 100, CG_TOL)
@@ -2449,28 +2482,29 @@ def main() -> int:
     vbj = system(volumetric_mesh_deformation, _vol(VOL_N), vol_in,
                          preconditioner="block_jacobi")
     err_bj = variant_checks(f"volumetric{VOL_N} block_jacobi", vbj, 50, 400)
-    pcs = system(poisson_image_editing, _grid(n), inputs, cg_variant="chronopoulos_gear")
-    err_cs = variant_checks(f"poisson{n}x4 chronopoulos_gear", pcs, 50, 2000)
-    pbf = system(poisson_image_editing, _grid(n), inputs, coefficient_dtype="bfloat16")
+    # poisson and image_warping by Chronopoulos-Gear and with bfloat16 fields
+    # (image_warping also under block-Jacobi), GN and LM: the tiled instances,
+    # and the template's on the same twin results
+    pcs = system(poisson_image_editing, _grid(n), inputs, **cs)
+    tiled_line(f"poisson{n}x4 chronopoulos_gear", pcs[0], pcs[1], cs=True)
+    err_cs = variant_checks(f"poisson{n}x4 chronopoulos_gear", pcs, 50, 2000, bitwise=True,
+                            template=True)
+    pbf = system(poisson_image_editing, _grid(n), inputs, **bf)
     if pbf[0]["F"].dtype != torch.bfloat16:
         raise RuntimeError("coefficient_dtype='bfloat16' did not narrow the fields")
-    err_bf = variant_checks(f"poisson{n}x4 bfloat16", pbf, 50, 2000)
-    iw_variants = {}
+    tiled_line(f"poisson{n}x4 bfloat16", pbf[0], pbf[1])
+    err_bf = variant_checks(f"poisson{n}x4 bfloat16", pbf, 50, 2000, bitwise=True, template=True)
+    iw_variants, iw_errs = {}, {}
     for kind, label in (("gaussNewtonGPU", "GN"), ("LMGPU", "LM")):
-        for ip in ({"cg_variant": "chronopoulos_gear"}, bj, {"coefficient_dtype": "bfloat16"}):
-            if kind == "gaussNewtonGPU" and "preconditioner" not in ip:
-                continue  # GN CS and bf16 are held on poisson
+        for ip in (cs, bj, bf):
             (v,) = ip.values()
             sysv = system(image_warping, _grid(IW_N), iw_in, kind, **ip)
             vlabel = f"image_warping{IW_N}x3 {label} {v}"
-            if ip is bj:  # the tiled instance, and the template's on the same twin results
-                tiled_line(vlabel, sysv[0], sysv[1], sysv[3], sysv[4]["pre_blocks"])
-                err = variant_checks(vlabel, sysv, 50, 400, bitwise=True, template=True)
-                if label == "LM":
-                    err_lm_bj = err
-            else:
-                variant_checks(vlabel, sysv, 50, 400)
+            tiled_line(vlabel, sysv[0], sysv[1], sysv[3], sysv[4]["pre_blocks"], sysv[4]["cs"])
+            iw_errs[(label, v)] = variant_checks(vlabel, sysv, 50, 400, bitwise=True,
+                                                 template=True)
             iw_variants[(label, v)] = sysv
+    err_lm_bj = iw_errs[("LM", "block_jacobi")]
     for ip in ({"cg_variant": "chronopoulos_gear"}, {"preconditioner": "block_jacobi"},
                {"coefficient_dtype": "bfloat16"}):
         (v,) = ip.values()
@@ -2527,7 +2561,6 @@ def main() -> int:
     curve_truths, curve_in = batched_curve_inputs(BATCH_B, BATCH_N)
     cdims = {"N": BATCH_N, "U": 1}
     lap_in = laplacian_batch_inputs(LAP_BATCH_N, LAP_BATCH_B)
-    cs, bf = {"cg_variant": "chronopoulos_gear"}, {"coefficient_dtype": "bfloat16"}
     batch_cases = [
         (f"curve_fitting x{BATCH_B}", curve_fitting, cdims, curve_in, BATCH_LI,
          [("GN", "gaussNewtonGPU", {}), ("LM", "LMGPU", {}), ("LM cs", "LMGPU", cs),
@@ -2724,10 +2757,10 @@ def main() -> int:
     phase_s = time.perf_counter() - t_start
 
     # 4. times on the card. The tiled instances and the template's on the
-    # same systems in turns (tiled, template, template, tiled): Jacobi and
-    # block-Jacobi, one system, and image_warping x4 under block-Jacobi, the
-    # systems in turn (ms per system-iteration); the first of each go into
-    # the kernels line
+    # same systems in turns (tiled, template, template, tiled): Jacobi,
+    # block-Jacobi, Chronopoulos-Gear and bfloat16 fields, one system, and
+    # image_warping x4 under block-Jacobi, the systems in turn (ms per
+    # system-iteration); the first of each go into the kernels line
     t_tiled, t_tpl = {}, {}
     iw_bj = {label: iw_variants[(label, "block_jacobi")] for label in ("GN", "LM")}
     mlabel, msys, _err = multi_sys["lm_bj_multi_tiled"]
@@ -2739,6 +2772,12 @@ def main() -> int:
             "lm_iw": (f"image_warping{IW_N}x3", vmeta, vb, vpre, vlm, {}, 3),
             "gn_bj_iw": (f"image_warping{IW_N}x3 GN block_jacobi", *iw_bj["GN"], 3),
             "lm_bj_iw": (f"image_warping{IW_N}x3 LM block_jacobi", *iw_bj["LM"], 3),
+            "gn_cs": (f"poisson{n}x4 chronopoulos_gear", *pcs, 3),
+            "lm_cs_iw": (f"image_warping{IW_N}x3 LM chronopoulos_gear",
+                         *iw_variants[("LM", "chronopoulos_gear")], 3),
+            "gn_bf16": (f"poisson{n}x4 bfloat16", *pbf, 3),
+            "lm_bf16_iw": (f"image_warping{IW_N}x3 LM bfloat16", *iw_variants[("LM", "bfloat16")],
+                           3),
             "lm_bj_multi": (mlabel, *msys, 2),
             "gn_rem": ("armadillo31k", *agm, 2),
             "lm_rem": ("armadillo31k", *aglm, 2),
@@ -2753,6 +2792,7 @@ def main() -> int:
                                                 - sum(phases.values()))
     t_k5 = time_tile_apply(f"poisson{n}x4", meta, gpu)
     tiled_floor(gpu)
+    tiled_floor(gpu, cs=True)
     t_k6 = time_pair(f"image_warping{IW_BIG_N}x3", gmeta, gb, gpre, gpu, reps=2)
     time_pair(f"image_warping{IW_BIG_N}x3", wmeta, wb, wpre, gpu, wlm, reps=2)
     del gmeta, gb, gpre, wmeta, wb, wpre, wlm
@@ -2763,13 +2803,7 @@ def main() -> int:
     time_pair("arap36k", *glm[:3], gpu, glm[3], reps=2)
     t_3d = time_pair(f"volumetric{VOL_N}", *vsys[:3], gpu, vsys[3], reps=3, **vsys[4])
     t_bj = time_pair(f"volumetric{VOL_N} block_jacobi", *vbj[:3], gpu, vbj[3], reps=3, **vbj[4])
-    t_cs = time_pair(f"poisson{n}x4 chronopoulos_gear", *pcs[:3], gpu, pcs[3], **pcs[4])
-    t_bf = time_pair(f"poisson{n}x4 bfloat16", *pbf[:3], gpu, pbf[3], **pbf[4])
-    for (label, v), sysv in iw_variants.items():
-        if v != "block_jacobi":  # timed above, on both routes
-            time_pair(f"image_warping{IW_N}x3 {label} {v}", *sysv[:3], gpu, sysv[3], reps=2,
-                      **sysv[4])
-    del iw_variants
+    del iw_variants  # the LM ones timed above, on both routes
     big = system(volumetric_mesh_deformation, _vol(VOL_BIG_N), vol_big_in)
     time_pair(f"volumetric{VOL_BIG_N}", *big[:3], gpu, big[3], reps=2, **big[4])
     del big
@@ -2817,12 +2851,19 @@ def main() -> int:
                                                            ("LMGPU", "LM"))]
     bj_lm = (f"image_warping{IW_N} LM 8x400 block_jacobi", image_warping, "LMGPU", iw_in, 8, 400,
              bj)
+    # the Chronopoulos-Gear and bfloat16 solves of poisson and image_warping
+    # LM, whose steps the tiled route now takes
+    variants = [(f"poisson{n}x4 GN 1x2000 {v}", poisson_image_editing, "gaussNewtonGPU", inputs,
+                 1, 2000, ip) for v, ip in (("chronopoulos_gear", cs), ("bfloat16", bf))]
+    variants += [(f"image_warping{IW_N} LM 8x400 {v}", image_warping, "LMGPU", iw_in, 8, 400, ip)
+                 for v, ip in (("chronopoulos_gear", cs), ("bfloat16", bf))]
     blabel = f"image_warping{IW_N} x{IW_BJ_BATCH_B} LM 8x400 block_jacobi batched"
     arm_label = f"armadillo31k GN {GRAPH_NL}x{GRAPH_LI}"
     arm_blabel = f"armadillo31k x{len(ARM_BATCH_PULLS)} GN {GRAPH_NL}x{GRAPH_LI} batched"
     for turn, route in enumerate(("template", "tiled", "tiled", "template")):
         with (template_route() if route == "template" else contextlib.nullcontext()):
-            for label, spec, kind, inp, nl, li, ip in (routed if turn in (1, 3) else []) + [bj_lm]:
+            for label, spec, kind, inp, nl, li, ip in ((routed if turn in (1, 3) else [])
+                                                       + [bj_lm] + variants):
                 time_main_path(f"{label} {route}", spec, kind, _grid(n), inp, nl, li, gpu, ip=ip,
                                reps=2)
             time_batched(f"{blabel} {route}", bj_batch_plan(), iw_bin, 8, 400, gpu, reps=2)
@@ -2927,8 +2968,14 @@ def main() -> int:
         entry("tiled_graph_cg GN with the graph remainder (K4), arap armadillo 31,106 "
               "vertices, gn_rem_tiled", K4, l_arm["gn_rem_tiled"], graph["armadillo31k"][2],
               t_tiled["gn_rem"], GRAPH_SOURCE, t_tpl["gn_rem"]),
-        entry(f"fused_grid_cg GN Chronopoulos-Gear (K1 variant c), poisson {n}x{n}x4", K1C,
-              l_pcs["gn_cs"], err_cs, t_cs),
+        entry(f"tiled_grid_cs GN Chronopoulos-Gear (K1 variant c), poisson {n}x{n}x4, "
+              "gn_cs_tiled, one grid barrier an iteration", K1C, l_pcs["gn_cs_tiled"], err_cs,
+              t_tiled["gn_cs"], TILED_CS_SOURCE, t_tpl["gn_cs"]),
+        entry(f"tiled_grid_cs LM Chronopoulos-Gear (K1 variant c), image_warping "
+              f"{IW_N}x{IW_N}x3, lm_cs_tiled, one grid barrier an iteration (two on a reset "
+              "iteration)", K1C, l_iw_variant["chronopoulos_gear"]["lm_cs_tiled"],
+              iw_errs[("LM", "chronopoulos_gear")], t_tiled["lm_cs_iw"], TILED_CS_SOURCE,
+              t_tpl["lm_cs_iw"]),
         entry(f"fused_grid_cg GN block-Jacobi (K1 variant d), volumetric {VOL_N}^3 x 6", K1D,
               l_vol_bj["gn_bj"], err_bj, t_bj),
         entry(f"tiled_grid_cg LM block-Jacobi (K1 variant d), image_warping "
@@ -2937,8 +2984,13 @@ def main() -> int:
               TILED_SOURCE, t_tpl["lm_bj_iw"]),
         entry(f"fused_grid_cg GN on a 3-D grid (K1 variant e), volumetric {VOL_N}^3 x 6", K1E,
               l_vol["gn"], err_3d, t_3d),
-        entry(f"fused_grid_cg GN bfloat16 fields (K1 variant f), poisson {n}x{n}x4", K1F,
-              l_pbf["gn_bf16"], err_bf, t_bf),
+        entry(f"tiled_grid_cg GN bfloat16 fields (K1 variant f), poisson {n}x{n}x4, "
+              "gn_bf16_tiled", K1F, l_pbf["gn_bf16_tiled"], err_bf, t_tiled["gn_bf16"],
+              TILED_SOURCE, t_tpl["gn_bf16"]),
+        entry(f"tiled_grid_cg LM bfloat16 fields (K1 variant f), image_warping "
+              f"{IW_N}x{IW_N}x3, lm_bf16_tiled", K1F, l_iw_variant["bfloat16"]["lm_bf16_tiled"],
+              iw_errs[("LM", "bfloat16")], t_tiled["lm_bf16_iw"], TILED_SOURCE,
+              t_tpl["lm_bf16_iw"]),
         entry(f"tiled_grid_cg GN over a ComputedArray operator (K1 variant g), "
               f"shape_from_shading {SFS_N}x{SFS_N}, gn_tiled", K1G, l_sfs["gn_tiled"], err_sfs,
               t_sfs, TILED_SOURCE),

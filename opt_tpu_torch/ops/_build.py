@@ -3,9 +3,11 @@
 ``nvcc`` compiles the fused CG kernel (``csrc/fused_grid_cg.cuh``, the
 template; ``csrc/fused_grid_cg_one.cu``, ``_multi.cu`` and ``_batch.cu``, its
 instances, one form a unit; ``csrc/fused_grid_cg.cu``, their C interface),
-``csrc/tiled_grid_cg.cu`` (the CG loop of a 2-D grid whose state fits one
-tile a block), ``csrc/tiled_graph_cg.cu`` (the CG loop of a graph with the
-remainder, one vertex range a block; both include ``csrc/tiled_cg.cuh``)
+``csrc/tiled_grid_cg.cu`` (the standard CG loop of a 2-D grid whose state
+fits one tile a block) and ``csrc/tiled_grid_cs.cu`` (its Chronopoulos–Gear
+loop; both include ``csrc/tiled_grid.cuh``), ``csrc/tiled_graph_cg.cu``
+(the CG loop of a graph with the remainder, one vertex range a block; the
+three include ``csrc/tiled_cg.cuh``)
 and ``csrc/tile_apply.cu`` (the sharded solve's per-tile apply): each unit
 by its own ``nvcc`` process, all started together, then one link into one
 shared library with a plain C interface, bound with ``ctypes``. The library
@@ -32,8 +34,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 # the units nvcc compiles, each by its own process, and every source they read
 UNITS = ("fused_grid_cg_one.cu", "fused_grid_cg_multi.cu", "fused_grid_cg_batch.cu",
-         "fused_grid_cg.cu", "tiled_grid_cg.cu", "tiled_graph_cg.cu", "tile_apply.cu")
-SOURCES = UNITS + ("fused_grid_cg.cuh", "tiled_cg.cuh")
+         "fused_grid_cg.cu", "tiled_grid_cg.cu", "tiled_grid_cs.cu", "tiled_graph_cg.cu",
+         "tile_apply.cu")
+SOURCES = UNITS + ("fused_grid_cg.cuh", "tiled_cg.cuh", "tiled_grid.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "opt_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -115,24 +118,28 @@ def build_library(build: bool = True) -> dict:
 _INSTANCE = re.compile(
     r"fused_grid_cg_kernelILb([01])ELb([01])ELb([01])ELb([01])E(f|13__nv_bfloat16)Li([012])EE"
 )
-_TILED_INSTANCE = re.compile(r"tiled_grid_cg_kernelILb([01])ELb([01])EE")
+_TILED_INSTANCE = re.compile(r"tiled_grid_cg_kernelILb([01])ELb([01])E(f|13__nv_bfloat16)E")
+_TILED_CS_INSTANCE = re.compile(r"tiled_grid_cs_kernelILb([01])EE")
 _GRAPH_INSTANCE = re.compile(r"tiled_graph_cg_kernelILb([01])EE")
 
 
 def instance_registers(log: str) -> dict:
     """{(lm, rem, cs, block, bf16, multi, batch): (registers, spill store
     bytes, spill load bytes)} from ptxas's -v output (the kernel's FORM: 0
-    one system, 1 multi, 2 batch), the tiled kernel's four instances
-    (tiled_grid_cg_kernel<LM, BLOCK>) under (lm, False, False, block,
-    False, multi, False, True): a block instance under both multi = False
+    one system, 1 multi, 2 batch), the tiled kernel's six instances
+    (tiled_grid_cg_kernel<LM, BLOCK, FT>) under (lm, False, False, block,
+    bf16, multi, False, True): a block instance under both multi = False
     and True, the one kernel that solves one system or several in turn;
-    and the graph kernel's two (tiled_graph_cg_kernel<LM>) under (lm, True,
-    False, False, False, multi, False, True), multi False and True."""
+    its Chronopoulos–Gear kernel's two (tiled_grid_cs_kernel<LM>) under
+    (lm, False, True, False, False, False, False, True); and the graph
+    kernel's two (tiled_graph_cg_kernel<LM>) under (lm, True, False, False,
+    False, multi, False, True), multi False and True."""
     regs, current, spill = {}, None, (0, 0)
     for line in log.splitlines():
         if "Compiling entry function" in line:
             m = _INSTANCE.search(line)
             t = _TILED_INSTANCE.search(line)
+            c = _TILED_CS_INSTANCE.search(line)
             g = _GRAPH_INSTANCE.search(line)
             if g:
                 lm = g.group(1) == "1"
@@ -143,9 +150,11 @@ def instance_registers(log: str) -> dict:
                 form = int(m.group(6))
                 current = [(lm, rem, cs, block, m.group(5) != "f", form == 1, form == 2)]
             elif t:
-                lm, block = (g == "1" for g in t.groups())
-                current = [(lm, False, False, block, False, multi, False, True)
+                lm, block = (g == "1" for g in t.groups()[:2])
+                current = [(lm, False, False, block, t.group(3) != "f", multi, False, True)
                            for multi in ((False, True) if block else (False,))]
+            elif c:
+                current = [(c.group(1) == "1", False, True, False, False, False, False, True)]
             else:
                 current = None
             spill = (0, 0)
@@ -190,17 +199,25 @@ def load_library(build: bool = True) -> ctypes.CDLL:
     lib.fused_grid_cg_launch.restype = i32
     lib.tiled_grid_cg_device_limits.argtypes = [ctypes.POINTER(i32), ctypes.POINTER(i32)]
     lib.tiled_grid_cg_device_limits.restype = i32
-    lib.tiled_grid_cg_launch.argtypes = [
-        i32, i32,  # lm, block
+    tiled_shape = [
         vp, vp, vp, vp, vp, vp,  # F, b, pre, ctc, triples, starts
         i32, i32, i32, i32,  # C, n_triples, N1, N2
         i32, i32, i32, i32, i32,  # tiles_r, tiles_c, th, tw, h
         i32, f32, i32, i32, f32,  # lits, tol, guard_div, reset_period, q_tol
+    ]
+    lib.tiled_grid_cg_launch.argtypes = [
+        i32, i32, i32, *tiled_shape,  # lm, block, bf16
         i32, i32,  # n_sys, f_stride (a system's fields, under block)
         vp, vp, vp, vp, vp,  # delta, r_ring, partA, partB, iters
         i32, i32, vp,  # threads, smem_bytes, stream
     ]
     lib.tiled_grid_cg_launch.restype = i32
+    lib.tiled_grid_cs_launch.argtypes = [
+        i32, *tiled_shape,  # lm
+        vp, vp, vp, vp, vp, vp,  # delta, r_ring, w_ring, partA, partB, iters
+        i32, i32, vp,  # threads, smem_bytes, stream
+    ]
+    lib.tiled_grid_cs_launch.restype = i32
     lib.tiled_graph_cg_launch.argtypes = [
         i32,  # lm
         vp, vp, vp, vp, vp, vp, vp,  # F, b, pre, ctc, blk, triples, starts

@@ -1,5 +1,6 @@
-// What the two tiled CG kernels share (tiled_grid_cg.cu, one tile of a 2-D
-// grid a block; tiled_graph_cg.cu, one vertex range of a graph a block):
+// What the tiled CG kernels share (tiled_grid_cg.cu and tiled_grid_cs.cu,
+// one tile of a 2-D grid a block; tiled_graph_cg.cu, one vertex range of a
+// graph a block):
 // the block of 512 threads, one a streaming multiprocessor, the guarded
 // division of alpha and beta, and the dot products' fixed-order sums, so
 // that every block of a launch reads the same alpha, beta and exit.

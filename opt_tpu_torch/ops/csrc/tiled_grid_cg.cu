@@ -1,19 +1,23 @@
 // Whole-loop preconditioned CG for a 2-D grid stencil operator whose state
 // fits the card's shared memory: one persistent cooperative launch per CG
-// solve, one block a tile, for Hopper (sm_90a). Four instances,
-// tiled_grid_cg_kernel<LM, BLOCK>: the standard Gauss-Newton loop and the
+// solve, one block a tile, for Hopper (sm_90a). Six instances,
+// tiled_grid_cg_kernel<LM, BLOCK, FT>: the standard Gauss-Newton loop and the
 // standard Levenberg-Marquardt loop of fused_grid_cg.cuh (lines 66-78),
-// float32 fields, with the Jacobi preconditioner (one system) or with
+// float32 fields with the Jacobi preconditioner (one system) or with
 // block-Jacobi (one system, or several independent systems in turn in one
-// launch: the same loop over n_sys). Their launches count, in
-// ops/fused_cg.py, as gn_tiled, lm_tiled, gn_bj_tiled, lm_bj_tiled and, for
-// a batch of systems, gn_bj_multi_tiled and lm_bj_multi_tiled.
+// launch: the same loop over n_sys), and bfloat16 fields (FT) with the Jacobi
+// preconditioner. Their launches count, in ops/fused_cg.py, as gn_tiled,
+// lm_tiled, gn_bf16_tiled, lm_bf16_tiled, gn_bj_tiled, lm_bj_tiled and, for
+// a batch of systems, gn_bj_multi_tiled and lm_bj_multi_tiled. Its checks
+// and launch, tg_launch, also start the Chronopoulos-Gear kernel of
+// tiled_grid_cs.cu (gn_cs_tiled, lm_cs_tiled).
 //
 // Replaces, in opt_tpu/ops/pallas_cg.py: _kernel (:328), the Pallas TPU
 // kernel that runs the whole PCG inner loop of a grid problem in one
 // launch, in its 2-D grid GN form (also with mixed unknowns packed into the
 // channels, and with fields from ComputedArray slots), its lm=True form and
-// its block_pre=True form (prec, :367-381), also under jax.vmap
+// its block_pre=True form (prec, :367-381), with bfloat16 coefficient fields
+// (coeff_dtype, :586-592, :670-672), also under jax.vmap
 // (opt_tpu/solver/gauss_newton.py:983-1004), at the grid sizes whose state
 // fits one tile a block (ops/fused_cg.py::tiled_grid_plan). The other
 // forms, and these at larger sizes, run the template of fused_grid_cg.cuh.
@@ -31,7 +35,9 @@
 //
 // What bounds it: the bytes of the inputs. An iteration must read the
 // coefficient fields at every point (image_warping 512x512x3: 26 fields, 27
-// MB), the preconditioner and, under LM, the damping ctc. The template
+// MB; half that in bfloat16, which the stencil widens exactly as it reads
+// each field, so products and sums stay the float32 ones), the
+// preconditioner and, under LM, the damping ctc. The template
 // also moved the state vectors (r, delta, p, Ap) through L2 in three sweeps
 // an iteration, read p once per stencil triple, and summed 1056 blocks'
 // dot partials in every block, behind three grid barriers.
@@ -87,52 +93,7 @@
 //     occupancy query and the launch; a launch that needs more blocks than
 //     can be co-resident is refused and the error returned.
 
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
-
-#include "tiled_cg.cuh"
-
-namespace cg = cooperative_groups;
-
-#define TGCG_MAX_TRIPLES 512
-#define TGCG_MAX_CHANNELS 64
-#define TGCG_ROW 6  // a triple as the host gives it: d0, d1, d2, i, j, fid
-
-// A walk over the points of a [rows][cols] frame at the block's stride:
-// point q = y*cols + x from threadIdx.x, advanced by addition.
-struct TgWalk {
-  int q, y, x, sy, sx;
-  __device__ __forceinline__ TgWalk(int cols) {
-    q = threadIdx.x;
-    y = q / cols;
-    x = q - y * cols;
-    sy = TGCG_THREADS / cols;
-    sx = TGCG_THREADS - sy * cols;
-  }
-  __device__ __forceinline__ void next(int cols) {
-    q += TGCG_THREADS;
-    y += sy;
-    x += sx;
-    if (x >= cols) {
-      x -= cols;
-      ++y;
-    }
-  }
-};
-
-// sum over the triples k0..k1 of F[field k][g] * src[sp[k] + e], from +0, in
-// the triples' order: g is the output point in the grid, e its place in the
-// haloed frame of src (sp[k] holds the source channel's frame and the
-// offset within it)
-__device__ __forceinline__ float tg_stencil(const float* __restrict__ F,
-                                            const float* src, const int* s_f,
-                                            const int* s_p, int k0, int k1,
-                                            int g, int e) {
-  float a = 0.f;
-  for (int k = k0; k < k1; ++k)
-    a = __fadd_rn(a, __fmul_rn(F[s_f[k] + g], src[s_p[k] + e]));
-  return a;
-}
+#include "tiled_grid.cuh"
 
 // z_i = (M^-1 r)_i at a point, m the point's first preconditioner plane
 // (stride ms between planes) and r its first channel (stride rs), r read
@@ -153,36 +114,13 @@ __device__ __forceinline__ float tg_z(const float* m, int ms, const float* r, in
   }
 }
 
-// The dynamic shared memory of a launch, in bytes, in the kernel's layout:
-// the block-sum records, r, delta, p (haloed), Ap (haloed under LM), under
-// block-Jacobi the C*C preconditioner planes over the tile and its halo,
-// the triples' field and source offsets and the channels' first triples.
-__host__ __device__ __forceinline__ long long tg_smem_bytes(int lm, int block, int C,
-                                                           int th, int tw, int h,
-                                                           int n_triples) {
-  const long long pts = (long long)th * tw;
-  const long long ext = (long long)(th + 2 * h) * (tw + 2 * h);
-  return 16LL * (TGCG_WARPS + 1) + 4LL * C * (2 * pts + ext + (lm ? ext : pts)) +
-         (block ? 4LL * C * C * ext : 0LL) + 4LL * (2 * n_triples + C + 1);
-}
-
-// The tile's view of the launch, the same for every system of it: its
-// shared-memory arrays, its place in the grid and the triples' offsets.
-struct TgTile {
-  double2* s_warp;   // TGCG_WARPS block-sum records
-  double2* s_bcast;  // one record
-  float *s_r, *s_d, *s_pe, *s_ap, *s_m;
-  const int *s_f, *s_p, *s_start;
-  int N1, N2, plane, y0, x0, rows, cols, pts, pcols, ext, h, n_blocks;
-};
-
 // One CG solve of C channels on the grid [N1, N2] by every block of the
 // launch, each on its tile: F, b, pre (under BLOCK the C*C planes), ctc and
 // delta are the system's own. Returns the executed iteration count, the
 // same in every block.
-template <bool LM, bool BLOCK>
+template <bool LM, bool BLOCK, typename FT>
 __device__ __forceinline__ int tg_solve(cg::grid_group& grid, const TgTile& tt,
-                                        const float* __restrict__ F,
+                                        const FT* __restrict__ F,
                                         const float* __restrict__ b,
                                         const float* __restrict__ pre,
                                         const float* __restrict__ ctc, int C, int lits,
@@ -409,9 +347,9 @@ __device__ __forceinline__ int tg_solve(cg::grid_group& grid, const TgTile& tt,
 // iters[s]; a grid barrier before each system after the first frees the
 // partial records, r_ring and the tile's shared memory for it. Without
 // BLOCK n_sys is 1.
-template <bool LM, bool BLOCK>
+template <bool LM, bool BLOCK, typename FT>
 __global__ void __launch_bounds__(TGCG_THREADS, 1)
-tiled_grid_cg_kernel(const float* __restrict__ F, const float* __restrict__ b,
+tiled_grid_cg_kernel(const FT* __restrict__ F, const float* __restrict__ b,
                      const float* __restrict__ pre,
                      const float* __restrict__ ctc,
                      const int* __restrict__ triples,
@@ -432,58 +370,74 @@ tiled_grid_cg_kernel(const float* __restrict__ F, const float* __restrict__ b,
   tt.s_ap = tt.s_pe + C * ext_max;                    // Ap; z; under LM also haloed delta
   tt.s_m = tt.s_ap + C * (LM ? ext_max : pts_max);    // under BLOCK: the C*C planes
   int* s_f = (int*)(tt.s_m + (BLOCK ? C * C * ext_max : 0));
-  int* s_p = s_f + n_triples;
-  int* s_start = s_p + n_triples;
-  tt.s_f = s_f;
-  tt.s_p = s_p;
-  tt.s_start = s_start;
+  tg_tile_setup(tt, triples, starts, C, n_triples, N1, N2, tiles_c, th, tw, h, s_f,
+                s_f + n_triples, s_f + 2 * n_triples);
 
   cg::grid_group grid = cg::this_grid();
-  tt.N1 = N1;
-  tt.N2 = N2;
-  tt.plane = N1 * N2;
-  tt.y0 = (blockIdx.x / tiles_c) * th;  // the tile's first row, column
-  tt.x0 = (blockIdx.x % tiles_c) * tw;
-  tt.rows = min(N1, tt.y0 + th) - tt.y0;
-  tt.cols = min(N2, tt.x0 + tw) - tt.x0;
-  tt.pts = tt.rows * tt.cols;
-  tt.pcols = tt.cols + 2 * h;
-  tt.ext = (tt.rows + 2 * h) * tt.pcols;
-  tt.h = h;
-  tt.n_blocks = gridDim.x;
-
-  for (int k = threadIdx.x; k <= C; k += TGCG_THREADS) s_start[k] = starts[k];
-  for (int k = threadIdx.x; k < n_triples; k += TGCG_THREADS) {
-    const int* t = triples + TGCG_ROW * k;
-    s_f[k] = t[5] * tt.plane;
-    s_p[k] = t[4] * tt.ext + t[1] * tt.pcols + t[2];
-  }
-
   if constexpr (BLOCK) {
     const int vec = C * tt.plane;  // one system's vector
     for (int s = 0; s < n_sys; ++s) {
       if (s > 0) grid.sync();  // every block is done with the last system
-      const int l = tg_solve<LM, BLOCK>(
+      const int l = tg_solve<LM, BLOCK, FT>(
           grid, tt, F + s * f_stride, b + s * vec, pre + s * C * vec,
           LM ? ctc + s * vec : ctc, C, lits, tol, guard_div, reset_period, q_tol,
           delta + s * vec, r_ring, partA, partB);
       if (blockIdx.x == 0 && threadIdx.x == 0) iters[s] = l;
     }
   } else {
-    const int l = tg_solve<LM, BLOCK>(grid, tt, F, b, pre, ctc, C, lits, tol, guard_div,
-                                      reset_period, q_tol, delta, r_ring, partA, partB);
+    const int l = tg_solve<LM, BLOCK, FT>(grid, tt, F, b, pre, ctc, C, lits, tol, guard_div,
+                                          reset_period, q_tol, delta, r_ring, partA, partB);
     if (blockIdx.x == 0 && threadIdx.x == 0) *iters = l;
   }
 }
 
-// The four instances: GN and LM, each with the elementwise preconditioner
-// and with block-Jacobi (one system or several in turn)
-static const void* tiled_instance(int lm, int block) {
+// The six instances: GN and LM, each with float32 fields and the
+// elementwise preconditioner, with block-Jacobi (one system or several in
+// turn) and with bfloat16 fields; null for bf16 with block-Jacobi, which no
+// instance takes.
+static const void* tiled_instance(int lm, int block, int bf16) {
   if (block)
-    return lm ? (const void*)tiled_grid_cg_kernel<true, true>
-              : (const void*)tiled_grid_cg_kernel<false, true>;
-  return lm ? (const void*)tiled_grid_cg_kernel<true, false>
-            : (const void*)tiled_grid_cg_kernel<false, false>;
+    return bf16 ? nullptr
+           : lm ? (const void*)tiled_grid_cg_kernel<true, true, float>
+                : (const void*)tiled_grid_cg_kernel<false, true, float>;
+  if (bf16)
+    return lm ? (const void*)tiled_grid_cg_kernel<true, false, __nv_bfloat16>
+              : (const void*)tiled_grid_cg_kernel<false, false, __nv_bfloat16>;
+  return lm ? (const void*)tiled_grid_cg_kernel<true, false, float>
+            : (const void*)tiled_grid_cg_kernel<false, false, float>;
+}
+
+// tiled_grid.cuh describes it
+int tg_launch(const void* kernel, void** args, int C, int n_triples, int N1, int N2,
+              int tiles_r, int tiles_c, int th, int tw, int h, long long need,
+              int threads, int smem_bytes, void* stream) {
+  if (kernel == nullptr || threads != TGCG_THREADS || C < 1 || C > TGCG_MAX_CHANNELS ||
+      n_triples < 1 || n_triples > TGCG_MAX_TRIPLES || tiles_r < 1 ||
+      tiles_c < 1 || h < 0 || th < (h > 1 ? h : 1) || tw < (h > 1 ? h : 1) ||
+      (tiles_r - 1) * th >= N1 || (tiles_c - 1) * tw >= N2 ||
+      N1 - (tiles_r - 1) * th < h || N2 - (tiles_c - 1) * tw < h ||
+      tiles_r * th < N1 || tiles_c * tw < N2 || (long long)smem_bytes != need)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e != cudaSuccess) return (int)e;
+  if (!coop) return (int)cudaErrorNotSupported;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                    smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  const int grid = tiles_r * tiles_c;
+  if (grid > per_sm * sms) return (int)cudaErrorCooperativeLaunchTooLarge;
+  e = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(threads), args,
+                                  (size_t)smem_bytes, (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 extern "C" {
@@ -503,53 +457,27 @@ int tiled_grid_cg_device_limits(int* sms, int* smem_per_block) {
 
 // Launches one solve on `stream`: tiles_r x tiles_c blocks of `threads`
 // threads, each with smem_bytes of dynamic shared memory (which must be
-// tg_smem_bytes of these arguments). F [T, N1, N2], b, ctc (LM only),
-// delta and r_ring [C, N1, N2] float32, pre [C, N1, N2] or under `block`
-// [C*C, N1, N2]; under `block` n_sys systems (n_sys = 1 without it), F
-// [n_sys, T, N1, N2] (f_stride = T*N1*N2), b, ctc and delta [n_sys, C, N1,
-// N2], pre [n_sys, C*C, N1, N2], r_ring one system's; triples [n_triples,
-// 6] sorted by output channel with their per-channel starts [C + 1]; partA
-// and partB tiles_r*tiles_c double2 records each; iters n_sys ints. Returns the CUDA
-// error: cudaErrorCooperativeLaunchTooLarge where the blocks cannot all be
-// co-resident.
-int tiled_grid_cg_launch(int lm, int block, const float* F, const float* b,
+// tg_smem_bytes of these arguments). F [T, N1, N2] (bfloat16 under bf16, else
+// float32), b, ctc (LM only), delta and r_ring [C, N1, N2] float32, pre
+// [C, N1, N2] or under `block` [C*C, N1, N2]; under `block` n_sys systems
+// (n_sys = 1 without it), F [n_sys, T, N1, N2] (f_stride = T*N1*N2), b, ctc
+// and delta [n_sys, C, N1, N2], pre [n_sys, C*C, N1, N2], r_ring one
+// system's; triples [n_triples, 6] sorted by output channel with their
+// per-channel starts [C + 1]; partA and partB tiles_r*tiles_c double2
+// records each; iters n_sys ints. Returns the CUDA error (tg_launch's;
+// cudaErrorInvalidValue too for bf16 with block, which no instance takes).
+int tiled_grid_cg_launch(int lm, int block, int bf16, const void* F, const float* b,
                          const float* pre, const float* ctc,
                          const int* triples, const int* starts, int C,
                          int n_triples, int N1, int N2, int tiles_r,
                          int tiles_c, int th, int tw, int h, int lits,
                          float tol, int guard_div, int reset_period,
                          float q_tol, int n_sys, int f_stride, float* delta, float* r_ring,
-                         double2* partA, double2* partB, int* iters, int threads,
-                         int smem_bytes, void* stream) {
-  if (threads != TGCG_THREADS || C < 1 || C > TGCG_MAX_CHANNELS ||
-      n_triples < 1 || n_triples > TGCG_MAX_TRIPLES || tiles_r < 1 ||
-      tiles_c < 1 || h < 0 || th < (h > 1 ? h : 1) || tw < (h > 1 ? h : 1) ||
-      (tiles_r - 1) * th >= N1 || (tiles_c - 1) * tw >= N2 ||
-      N1 - (tiles_r - 1) * th < h || N2 - (tiles_c - 1) * tw < h ||
-      tiles_r * th < N1 || tiles_c * tw < N2)
-    return (int)cudaErrorInvalidValue;
+                         double2* partA, double2* partB, int* iters,
+                         int threads, int smem_bytes, void* stream) {
   if (lm && (ctc == nullptr || reset_period < 1)) return (int)cudaErrorInvalidValue;
   if (block ? (n_sys < 1 || f_stride < 0) : n_sys != 1)
     return (int)cudaErrorInvalidValue;
-  if ((long long)smem_bytes != tg_smem_bytes(lm, block, C, th, tw, h, n_triples))
-    return (int)cudaErrorInvalidValue;
-  const void* kernel = tiled_instance(lm, block);
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (e != cudaSuccess) return (int)e;
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (e != cudaSuccess) return (int)e;
-  if (!coop) return (int)cudaErrorNotSupported;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
-                                                    smem_bytes);
-  if (e != cudaSuccess) return (int)e;
-  const int grid = tiles_r * tiles_c;
-  if (grid > per_sm * sms) return (int)cudaErrorCooperativeLaunchTooLarge;
   void* args[] = {(void*)&F,        (void*)&b,       (void*)&pre,
                   (void*)&ctc,      (void*)&triples, (void*)&starts,
                   (void*)&C,        (void*)&n_triples,
@@ -560,10 +488,10 @@ int tiled_grid_cg_launch(int lm, int block, const float* F, const float* b,
                   (void*)&n_sys,    (void*)&f_stride,
                   (void*)&delta,    (void*)&r_ring,  (void*)&partA,
                   (void*)&partB,    (void*)&iters};
-  e = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(threads), args,
-                                  (size_t)smem_bytes, (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return tg_launch(tiled_instance(lm, block, bf16), args, C, n_triples, N1, N2, tiles_r,
+                   tiles_c, th, tw, h,
+                   tg_smem_bytes(lm, block, 0, C, th, tw, h, n_triples), threads,
+                   smem_bytes, stream);
 }
 
 }  // extern "C"

@@ -59,22 +59,26 @@ MULTI instances with the fields' and the blocks' per-system strides, one
 system after the other (:func:`batched_kernel_form`).
 
 The tiled route: where one system's state fits the card's shared memory at
-one tile a block (:func:`tiled_grid_plan`: a 2-D grid, float32 fields, the
-standard GN or LM loop with the elementwise or the block preconditioner, no
-split or remainder; a batch only under block-Jacobi in the multi form,
+one tile a block (:func:`tiled_grid_plan`: a 2-D grid, no split or
+remainder; the standard GN or LM loop with float32 fields and the
+elementwise or the block preconditioner, or with bfloat16 fields and the
+elementwise one; or the Chronopoulos–Gear loop with float32 fields and the
+elementwise one; a batch only under block-Jacobi in the multi form,
 :func:`route_plan`), :func:`fused_grid_cg_kernel` launches
 ``csrc/tiled_grid_cg.cu`` (launches ``gn_tiled``, ``lm_tiled``,
-``gn_bj_tiled``, ``lm_bj_tiled``, and under a batch ``gn_bj_multi_tiled``
-and ``lm_bj_multi_tiled``, which run the block-Jacobi kernel over the
-systems in turn) instead of the template: each block keeps its
+``gn_bf16_tiled``, ``lm_bf16_tiled``, ``gn_bj_tiled``, ``lm_bj_tiled``,
+and under a batch ``gn_bj_multi_tiled`` and ``lm_bj_multi_tiled``, which
+run the block-Jacobi kernel over the systems in turn) or
+``csrc/tiled_grid_cs.cu`` (``gn_cs_tiled``, ``lm_cs_tiled``: one grid
+barrier an iteration) instead of the template: each block keeps its
 tile's state (and under block-Jacobi its C·C planes) in shared memory for
-the whole solve and only r's border goes through device memory. A graph
-meta with the remainder takes the graph kernel instead
-(:func:`graph_tile_plan`, ``csrc/tiled_graph_cg.cu``: ``gn_rem_tiled``,
-``lm_rem_tiled``, ``gn_rem_multi_tiled``, ``lm_rem_multi_tiled``), one
-contiguous vertex range a block under a partition built once per
-topology. Both are bitwise equal to the template and to the twin, so the
-route changes no result.
+the whole solve and only r's border (Chronopoulos–Gear: w's) goes through
+device memory. A graph meta with the remainder takes the graph kernel
+instead (:func:`graph_tile_plan`, ``csrc/tiled_graph_cg.cu``:
+``gn_rem_tiled``, ``lm_rem_tiled``, ``gn_rem_multi_tiled``,
+``lm_rem_multi_tiled``), one contiguous vertex range a block under a
+partition built once per topology. All are bitwise equal to the template
+and to the twin, so the route changes no result.
 """
 
 from __future__ import annotations
@@ -722,6 +726,10 @@ TILED_INSTANCES = tuple((lm, False, False, block, False, multi, False, True)
 # remainder, one system and a batch's systems in turn
 TILED_INSTANCES += tuple((lm, True, False, False, False, multi, False, True)
                          for multi in (False, True) for lm in (False, True))
+# the tiled grid kernel's Chronopoulos–Gear launches (csrc/tiled_grid_cs.cu)
+# and its launches on bfloat16 fields, GN and LM, one system each
+TILED_INSTANCES += tuple((lm, False, cs, False, not cs, False, False, True)
+                         for cs in (True, False) for lm in (False, True))
 
 
 def batched_kernel_form(meta, pre_blocks=None) -> str:
@@ -897,16 +905,24 @@ def template_grid_cg_kernel(meta, b, pre, lits, tol, *, guard_div=True, ctc=None
 
 
 def tiled_smem_bytes(lm: bool, C: int, th: int, tw: int, h: int, n_triples: int,
-                     block: bool = False) -> int:
+                     block: bool = False, cs: bool = False) -> int:
     """The tiled kernel's dynamic shared memory a block, in bytes, in its
-    layout (csrc/tiled_grid_cg.cu::tg_smem_bytes): the block-sum records,
+    layout (csrc/tiled_grid.cuh::tg_smem_bytes): the block-sum records,
     r, δ, p with its halo, Ap (with the halo under LM, where a reset
     iteration builds δ's haloed copy there), under ``block`` the C·C
     preconditioner planes over the tile and its halo, and the triples'
-    offsets."""
+    offsets. Under ``cs`` (csrc/tiled_grid_cs.cu): the block-sum records
+    (two sets under LM), r, s and u with the halo, p and δ with the halo
+    under LM (over the tile under GN), w over the tile, and the triples'
+    offsets. bfloat16 fields are not staged: the same bytes."""
     pts, ext = th * tw, (th + 2 * h) * (tw + 2 * h)
-    return (16 * (TILED_THREADS // 32 + 1) + 4 * C * (2 * pts + ext + (ext if lm else pts))
-            + (4 * C * C * ext if block else 0) + 4 * (2 * n_triples + C + 1))
+    records = 16 * (TILED_THREADS // 32 + 1)
+    triples = 4 * (2 * n_triples + C + 1)
+    if cs:
+        return records * (2 if lm else 1) + 4 * C * (5 * ext + pts if lm else
+                                                     3 * ext + 3 * pts) + triples
+    return (records + 4 * C * (2 * pts + ext + (ext if lm else pts))
+            + (4 * C * C * ext if block else 0) + triples)
 
 
 @functools.lru_cache(maxsize=64)
@@ -938,18 +954,26 @@ def tiled_grid_plan(meta, C: int, dom, *, lm: bool, cs: bool = False, block: boo
                     sm_count: int, smem_per_block: int) -> Optional[Dict]:
     """Whether a launch on ``meta`` with C channels on the domain ``dom``
     takes the tiled kernel, and how: None, or {tiles: (rows, columns of
-    tiles), tile: (th, tw), halo: h, threads, smem_bytes}. Taken for float32
-    fields on a 2-D grid (dom [N1, N2] or [1, N1, N2] with N1 > 1: not the
-    graph domain [1, N]) under the standard GN or LM loop (``lm``, not
-    ``cs``) with the elementwise or the block preconditioner (``block``),
-    one system or, under ``block``, a batch of them in turn (no split, no
-    remainder), up to the kernel's channels and triples, when the grid
-    splits into at most ``sm_count`` tiles (:func:`_tile_split`) whose
+    tiles), tile: (th, tw), halo: h, threads, smem_bytes}. Taken on a 2-D
+    grid (dom [N1, N2] or [1, N1, N2] with N1 > 1: not the graph domain
+    [1, N]), GN or LM (``lm``), in one of these forms: the standard loop
+    with float32 fields and the elementwise or the block preconditioner
+    (``block``), one system or, under ``block``, a batch of them in turn;
+    the standard loop with bfloat16 fields and the elementwise
+    preconditioner, one system; the Chronopoulos–Gear loop (``cs``) with
+    float32 fields and the elementwise preconditioner, one system. No
+    split, no remainder, up to the kernel's channels and triples, when the
+    grid splits into at most ``sm_count`` tiles (:func:`_tile_split`) whose
     state and halo, and under ``block`` the C·C planes over them, fit
     ``smem_per_block``. h is the largest |offset| of the triples in either
-    axis."""
-    if (meta["F"].dtype != torch.float32 or cs or (meta.get("batch") and not block)
-            or meta.get("chan_grid") or meta.get("rem") is not None):
+    axis. Chronopoulos–Gear or bfloat16 with block-Jacobi, the two
+    together, and a batch without block-Jacobi keep the template."""
+    bf16 = meta["F"].dtype == torch.bfloat16
+    if meta["F"].dtype not in (torch.float32, torch.bfloat16):
+        return None
+    if ((cs or bf16) and block) or (cs and bf16) or (meta.get("batch") and not block):
+        return None
+    if meta.get("chan_grid") or meta.get("rem") is not None:
         return None
     dom = tuple(int(s) for s in dom)
     triples = meta["triples"]
@@ -966,7 +990,7 @@ def tiled_grid_plan(meta, C: int, dom, *, lm: bool, cs: bool = False, block: boo
     if split is None:
         return None
     tr, tc, th, tw = split
-    smem = tiled_smem_bytes(lm, C, th, tw, h, len(triples), block)
+    smem = tiled_smem_bytes(lm, C, th, tw, h, len(triples), block, cs)
     if smem > smem_per_block:
         return None
     return {"tiles": (tr, tc), "tile": (th, tw), "halo": h, "threads": TILED_THREADS,
@@ -1181,46 +1205,55 @@ def launch_instance(meta, b, *, lm: bool = False, cs: bool = False, pre_blocks=N
     """The name of the instance :func:`fused_grid_cg_kernel` launches for
     these operands."""
     block = pre_blocks is not None
+    bf16 = meta["F"].dtype == torch.bfloat16
     if route_plan(meta, b, lm=lm, cs=cs, pre_blocks=pre_blocks) is not None:
-        return instance_name(lm, meta.get("rem") is not None, block=block,
+        return instance_name(lm, meta.get("rem") is not None, cs, block, bf16,
                              multi=bool(meta.get("batch")), tiled=True)
     form = batched_kernel_form(meta, pre_blocks) if meta.get("batch") else None
     multi = form == "multi" if form else bool(meta.get("chan_grid"))
-    return instance_name(lm, meta.get("rem") is not None, cs, block,
-                         meta["F"].dtype == torch.bfloat16, multi, form == "batch")
+    return instance_name(lm, meta.get("rem") is not None, cs, block, bf16, multi,
+                         form == "batch")
 
 
 def tiled_grid_cg_kernel(meta, b, pre, lits, tol, plan, *, guard_div=True, ctc=None,
-                         reset_period=None, q_tolerance=None, pre_blocks=None):
-    """Launch the tiled kernel (csrc/tiled_grid_cg.cu) on packed [C, *dom]
-    float32 CUDA tensors, dom a 2-D grid [N1, N2] (or [1, N1, N2]), as
-    ``plan`` (:func:`tiled_grid_plan`) cuts it: the GN loop, or the LM loop
-    when ``ctc`` is given (with ``reset_period`` and ``q_tolerance``); the
-    block preconditioner when ``pre_blocks`` ([C·C, *dom]) is given (``pre``
-    is then not read). A batched meta (``meta["batch"]`` = B, F
-    [B, T, *dom]) takes b, ctc and the vectors as [B, C, *dom] and
-    pre_blocks as [B, C·C, *dom] (it needs them: only the block-Jacobi
-    kernel takes several systems) and solves the B systems in turn in the
-    one launch, counted as ``*_bj_multi_tiled``.
+                         reset_period=None, q_tolerance=None, pre_blocks=None, cs=False):
+    """Launch the tiled kernel (csrc/tiled_grid_cg.cu; under ``cs``
+    csrc/tiled_grid_cs.cu) on packed [C, *dom] float32 CUDA tensors, dom a
+    2-D grid [N1, N2] (or [1, N1, N2]), as ``plan`` (:func:`tiled_grid_plan`)
+    cuts it: the GN loop, or the LM loop when ``ctc`` is given (with
+    ``reset_period`` and ``q_tolerance``); Chronopoulos–Gear under ``cs``;
+    bfloat16 fields when the meta's F is bfloat16 (else float32); the block
+    preconditioner when ``pre_blocks`` ([C·C, *dom]) is given (``pre`` is
+    then not read; not with ``cs`` or bfloat16 fields, nor ``cs`` with
+    bfloat16 fields: no tiled instance takes those). A batched meta
+    (``meta["batch"]`` = B, F [B, T, *dom]) takes b, ctc and the vectors as
+    [B, C, *dom] and pre_blocks as [B, C·C, *dom] (it needs them: only the
+    block-Jacobi kernel takes several systems) and solves the B systems in
+    turn in the one launch, counted as ``*_bj_multi_tiled``.
     Returns (delta, iters int32[n_sys] on the device, n_sys = B under a
     batch, else 1). Does not synchronise. A launch the card refuses (more
     tiles than co-resident blocks, shared memory beyond the block's)
     raises. Each launch adds one to ``fused_grid_cg_kernel.launches[name]``
-    (:func:`instance_name`: ``gn_tiled``, ``lm_bj_tiled``,
-    ``lm_bj_multi_tiled``, ...)."""
+    (:func:`instance_name`: ``gn_tiled``, ``lm_cs_tiled``,
+    ``gn_bf16_tiled``, ``lm_bj_tiled``, ``lm_bj_multi_tiled``, ...)."""
     from ._build import load_library
 
     F = meta["F"]
     device = b.device
     lm = ctc is not None
     block = pre_blocks is not None
-    if F.dtype != torch.float32:
-        raise ValueError(f"tiled_grid_cg_kernel takes float32 fields, got {F.dtype}")
+    cs = bool(cs)
+    if F.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"tiled_grid_cg_kernel takes float32 or bfloat16 fields, got {F.dtype}")
+    bf16 = F.dtype == torch.bfloat16
     n_sys = int(meta.get("batch") or 0)
     multi = n_sys > 0
     lead = (n_sys,) if multi else ()  # the batch axis of every operand
     if multi and not block:
         raise ValueError("tiled_grid_cg_kernel: a batch takes the block preconditioner")
+    if ((cs or bf16) and block) or (cs and bf16):
+        raise ValueError("tiled_grid_cg_kernel: no tiled instance takes Chronopoulos–Gear or "
+                         "bfloat16 fields with the block preconditioner, or the two together")
     C = int(b.shape[len(lead)])
     full = tuple(int(s) for s in b.shape[len(lead) + 1:])
     dom = full[1:] if len(full) == 3 and full[0] == 1 else full
@@ -1233,7 +1266,7 @@ def tiled_grid_cg_kernel(meta, b, pre, lits, tol, plan, *, guard_div=True, ctc=N
     else:
         _check_operand("pre", pre, (C,) + full, torch.float32, device)
     n_fields = int(F.shape[len(lead)])
-    _check_operand("F", F, lead + (n_fields,) + full, torch.float32, device)
+    _check_operand("F", F, lead + (n_fields,) + full, F.dtype, device)
     if lm:
         _check_operand("ctc", ctc, lead + (C,) + full, torch.float32, device)
         if reset_period is None or q_tolerance is None or int(reset_period) < 1:
@@ -1255,25 +1288,33 @@ def tiled_grid_cg_kernel(meta, b, pre, lits, tol, plan, *, guard_div=True, ctc=N
     tr_rows, starts = _device_triples(triples, C, device)
     delta = torch.empty_like(b)
     r_ring = torch.empty((C,) + full, dtype=torch.float32, device=device)  # one system's
-    part = torch.empty((2, tr * tc, 2), dtype=torch.float64, device=device)
+    # Chronopoulos-Gear: w's rings by the iteration's parity, two records a
+    # block (LM's three dots) in each parity's partials
+    w_ring = torch.empty((2, C) + full, dtype=torch.float32, device=device) if cs else None
+    part = torch.empty((2, tr * tc, 4 if cs else 2), dtype=torch.float64, device=device)
     iters = torch.empty(max(n_sys, 1), dtype=torch.int32, device=device)
     ptr = lambda t: None if t is None else ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    shape = (ptr(F), ptr(b), ptr(pre_blocks if block else pre), ptr(ctc), ptr(tr_rows),
+             ptr(starts), C, len(triples), N1, N2, tr, tc, th, tw, h,
+             int(lits), ctypes.c_float(float(tol)), int(bool(guard_div)),
+             int(reset_period) if lm else 0, ctypes.c_float(float(q_tolerance) if lm else 0.0))
+    launch = (int(plan["threads"]), int(plan["smem_bytes"]),
+              ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
     with torch.cuda.device(device):
-        err = lib.tiled_grid_cg_launch(
-            int(lm), int(block), ptr(F), ptr(b), ptr(pre_blocks if block else pre),
-            ptr(ctc), ptr(tr_rows), ptr(starts), C, len(triples), N1, N2, tr, tc, th, tw, h,
-            int(lits), ctypes.c_float(float(tol)), int(bool(guard_div)),
-            int(reset_period) if lm else 0, ctypes.c_float(float(q_tolerance) if lm else 0.0),
-            max(n_sys, 1), n_fields * N1 * N2 if multi else 0,
-            ptr(delta), ptr(r_ring), ptr(part[0]), ptr(part[1]), ptr(iters),
-            int(plan["threads"]), int(plan["smem_bytes"]),
-            ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream),
-        )
+        if cs:
+            err = lib.tiled_grid_cs_launch(
+                int(lm), *shape, ptr(delta), ptr(r_ring), ptr(w_ring), ptr(part[0]),
+                ptr(part[1]), ptr(iters), *launch)
+        else:
+            err = lib.tiled_grid_cg_launch(
+                int(lm), int(block), int(bf16), *shape, max(n_sys, 1),
+                n_fields * N1 * N2 if multi else 0, ptr(delta), ptr(r_ring), ptr(part[0]),
+                ptr(part[1]), ptr(iters), *launch)
     if err != 0:
         raise RuntimeError(f"tiled_grid_cg kernel launch failed: CUDA error {err} "
                            f"({tr}x{tc} tiles of {th}x{tw}, {plan['smem_bytes']} bytes of "
                            "shared memory a block)")
-    fused_grid_cg_kernel.launches[instance_name(lm, False, block=block, multi=multi,
+    fused_grid_cg_kernel.launches[instance_name(lm, False, cs, block, bf16, multi=multi,
                                                 tiled=True)] += 1
     return delta, iters
 
@@ -1389,7 +1430,7 @@ def fused_grid_cg_kernel(meta, b, pre, lits, tol, *, guard_div=True, ctc=None,
                                      q_tolerance=q_tolerance)
     return tiled_grid_cg_kernel(meta, b, pre, lits, tol, plan, guard_div=guard_div, ctc=ctc,
                                 reset_period=reset_period, q_tolerance=q_tolerance,
-                                pre_blocks=pre_blocks)
+                                pre_blocks=pre_blocks, cs=cs)
 
 
 def reset_launch_counts():

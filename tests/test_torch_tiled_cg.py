@@ -7,7 +7,8 @@ decomposition tile by tile (each tile's state on its own, p with a halo,
 only r's ring exchanged, p recomputed over the halo from the neighbours'
 r, an LM reset iteration exchanging δ's ring) held bitwise to the twin
 ``fused_grid_cg_reference`` and to the JAX package's Pallas kernel in
-interpret mode; and the wrapper's host-side contract on the CPU."""
+interpret mode, on float32 fields and on bfloat16 ones; and the wrapper's
+host-side contract on the CPU."""
 
 import jax
 import numpy as np
@@ -21,6 +22,7 @@ from opt_tpu.functions import FunctionSet as JFunctionSet
 from opt_tpu.models import specs as jspecs
 from opt_tpu_torch.ops import _build, fused_cg
 from opt_tpu_torch.utils.convert import meta_from_numpy
+from tests.test_torch_cg_variants import jax_cg_call
 
 torch.set_num_threads(2)
 
@@ -78,8 +80,17 @@ def _jax_system(kind):
     kernel, as numpy: (meta, r0, pre, ctc or None). GN from the assembly
     (as tests/test_torch_fused_cg.py::_jax_system), LM from one LM step
     with the kernel spied on (as tests/test_torch_lm.py::_jax_lm_system);
-    "gaussNewtonGPU-lattice" on the lattice inputs."""
+    "gaussNewtonGPU-lattice" on the lattice inputs. A kind ending in " bf16"
+    (as "LMGPU-lattice bf16"): the first step's system with bfloat16 fields
+    (tests/test_torch_cg_variants.py::jax_cg_call)."""
     if kind in _SYSTEMS:
+        return _SYSTEMS[kind]
+    if kind.endswith(" bf16"):
+        base = kind.removesuffix(" bf16")
+        jmeta, r0, pre, kw = jax_cg_call("image_warping", {"W": N, "H": N},
+                                         _iw_inputs(base.endswith("lattice")), base.split("-")[0],
+                                         coefficient_dtype="bfloat16")
+        _SYSTEMS[kind] = (jmeta, r0, pre, kw.get("ctc"))
         return _SYSTEMS[kind]
     plan = _jplan(kind)
     u, c, g, p = plan._normalize_and_place(_iw_inputs(kind.endswith("lattice")))
@@ -136,10 +147,12 @@ def radius2_spec(S):
         S.Energy(ott.Select(ott.InBounds(dx, dy), X(0, 0) - X(dx, dy), 0.0))
 
 
-def _radius2_system(w, h, kind="gaussNewtonGPU"):
+def _radius2_system(w, h, kind="gaussNewtonGPU", bf16=False):
     rng = np.random.RandomState(5)
     inputs = {"X": rng.rand(w, h).astype(np.float32), "A": rng.rand(w, h).astype(np.float32)}
-    plan = ott.Problem(radius2_spec, kind=kind).plan(dims={"W": w, "H": h}, device="cpu")
+    ip = ott.InitializationParameters(coefficient_dtype="bfloat16") if bf16 else None
+    plan = ott.Problem(radius2_spec, kind=kind).plan(dims={"W": w, "H": h}, device="cpu",
+                                                     init_params=ip)
     meta, r0, pre, kw = plan.cg_inputs(inputs)
     ctc = fused_cg.pack(kw["ctc"], meta) if kind == "LMGPU" else None
     return meta, fused_cg.pack(r0, meta), fused_cg.pack(pre, meta), ctc
@@ -327,13 +340,17 @@ def test_plan_takes_2d_float32_gn_and_lm(kind):
 
 
 @pytest.mark.parametrize("block", [False, True])
-@pytest.mark.parametrize("case", ["bf16", "cs", "rem", "split", "batch", "3d", "graph"])
+@pytest.mark.parametrize("case", ["bf16", "cs", "cs_bf16", "rem", "split", "batch", "3d",
+                                  "graph"])
 def test_plan_refuses_other_forms(case, block):
     """The forms the tiled kernel does not take, with the elementwise and
-    with the block preconditioner. A batch is taken under block-Jacobi in
-    the multi form only (route_plan): a batch of small systems, which
-    batched_kernel_form sends to the block-per-system form, is refused with
-    either preconditioner."""
+    with the block preconditioner. bfloat16 fields and Chronopoulos–Gear are
+    taken with the elementwise preconditioner (tests/test_torch_tiled_bf16.py,
+    tests/test_torch_tiled_cs.py) and refused with the block one, and the two
+    together are refused with either. A batch is
+    taken under block-Jacobi in the multi form only (route_plan): a batch of
+    small systems, which batched_kernel_form sends to the block-per-system
+    form, is refused with either preconditioner."""
     dom = (64, 64)
     meta = _synthetic_meta(dom, _five_point(2))
     kw = dict(lm=False, block=block, sm_count=SMS, smem_per_block=SMEM)
@@ -341,6 +358,9 @@ def test_plan_refuses_other_forms(case, block):
     if case == "bf16":
         meta["F"] = meta["F"].to(torch.bfloat16)
     elif case == "cs":
+        kw["cs"] = True
+    elif case == "cs_bf16":
+        meta["F"] = meta["F"].to(torch.bfloat16)
         kw["cs"] = True
     elif case == "rem":
         meta["rem"] = {"rowptr": None, "col": None, "blk": None}
@@ -364,7 +384,12 @@ def test_plan_refuses_other_forms(case, block):
         dom = (1, 4096)
         meta = _synthetic_meta(dom, [((0, 0), 0, 0, 0), ((0, 1), 0, 0, 1)])
         C = 1
-    if case != "batch":
+    if case in ("bf16", "cs") and not block:  # taken, at the float32 standard plan's tiles
+        plan = fused_cg.tiled_grid_plan(meta, C, dom, **kw)
+        assert plan["tiles"] == fused_cg.tiled_grid_plan(
+            _synthetic_meta(dom, _five_point(2)), C, dom, lm=False, sm_count=SMS,
+            smem_per_block=SMEM)["tiles"]
+    elif case != "batch":
         assert fused_cg.tiled_grid_plan(meta, C, dom, **kw) is None
     if case not in ("3d", "graph", "cs"):  # the same meta as it came, taken
         base = _synthetic_meta((64, 64), _five_point(2))
@@ -483,9 +508,10 @@ def test_route_names_the_tiled_instance(kind):
     meta, b, _pre, ctc = _torch_system(kind)
     lm = ctc is not None
     assert fused_cg.launch_instance(meta, b, lm=lm) == ("lm_tiled" if lm else "gn_tiled")
-    assert fused_cg.launch_instance(meta, b, lm=lm, cs=True) == ("lm_cs" if lm else "gn_cs")
+    assert fused_cg.launch_instance(meta, b, lm=lm, cs=True) == (
+        "lm_cs_tiled" if lm else "gn_cs_tiled")
     bf = dict(meta, F=meta["F"].to(torch.bfloat16))
-    assert fused_cg.launch_instance(bf, b, lm=lm) == ("lm_bf16" if lm else "gn_bf16")
+    assert fused_cg.launch_instance(bf, b, lm=lm) == ("lm_bf16_tiled" if lm else "gn_bf16_tiled")
     pb = torch.zeros((9,) + tuple(b.shape[1:]))
     assert fused_cg.launch_instance(meta, b, lm=lm, pre_blocks=pb) == (
         "lm_bj_tiled" if lm else "gn_bj_tiled")
@@ -522,22 +548,24 @@ def test_instance_names_and_launch_counts():
     names = [fused_cg.instance_name(*f) for f in fused_cg.TILED_INSTANCES]
     assert names == ["gn_tiled", "lm_tiled", "gn_bj_tiled", "lm_bj_tiled",
                      "gn_bj_multi_tiled", "lm_bj_multi_tiled", "gn_rem_tiled", "lm_rem_tiled",
-                     "gn_rem_multi_tiled", "lm_rem_multi_tiled"]
+                     "gn_rem_multi_tiled", "lm_rem_multi_tiled", "gn_cs_tiled", "lm_cs_tiled",
+                     "gn_bf16_tiled", "lm_bf16_tiled"]
     fused_cg.reset_launch_counts()
     assert set(names) | {"gn", "lm", "gn_bj", "lm_bj_multi"} <= set(
         fused_cg.fused_grid_cg_kernel.launches)
-    assert len(fused_cg.fused_grid_cg_kernel.launches) == 96 + 6 + 4
+    assert len(fused_cg.fused_grid_cg_kernel.launches) == 96 + 14
 
 
 def test_build_compiles_the_tiled_unit_and_reads_its_registers():
     assert "tiled_grid_cg.cu" in _build.UNITS and "tiled_grid_cg.cu" in _build.SOURCES
     assert (_build.CSRC / "tiled_grid_cg.cu").exists()
-    # four kernels, tiled_grid_cg_kernel<LM, BLOCK>; a block kernel's
-    # registers stand under its one-system and its multi-system launch names
+    # the four float32 kernels, tiled_grid_cg_kernel<LM, BLOCK, float>; a
+    # block kernel's registers stand under its one-system and its
+    # multi-system launch names
     lines, want = [], {}
     for k, (lm, block) in enumerate(((0, 0), (1, 0), (0, 1), (1, 1))):
         lines.append("ptxas info    : Compiling entry function "
-                     f"'_Z20tiled_grid_cg_kernelILb{lm}ELb{block}EEvPKfS1_' for 'sm_90a'")
+                     f"'_Z20tiled_grid_cg_kernelILb{lm}ELb{block}EfEvPKT1_PKfS4_' for 'sm_90a'")
         if k == 0:
             lines.append("    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads")
         lines.append(f"ptxas info    : Used {64 + 8 * k} registers, used 1 barriers, 416 bytes "
@@ -546,8 +574,9 @@ def test_build_compiles_the_tiled_unit_and_reads_its_registers():
             want[(bool(lm), False, False, bool(block), False, multi, False, True)] = (
                 (64 + 8 * k,) + ((4, 4) if k == 0 else (0, 0)))
     regs = _build.instance_registers("\n".join(lines))
-    # the grid kernel's six launch names (the graph kernel's four:
-    # tests/test_torch_tiled_graph.py)
+    # the grid kernel's six float32 launch names (the graph kernel's four:
+    # tests/test_torch_tiled_graph.py; the bf16 and Chronopoulos-Gear ones:
+    # tests/test_torch_tiled_bf16.py, tests/test_torch_tiled_cs.py)
     assert regs == want and set(regs) == set(fused_cg.TILED_INSTANCES[:6])
 
 
@@ -560,7 +589,9 @@ def _twin(meta, b, pre, lits, tol, ctc=None, q_tol=None):
 
 
 # (system, tiles, lits, tol, q_tol): no exit (tol 0, q_tol -inf under LM), and the
-# real exits
+# real exits; float32 fields, and bfloat16 ones (gn_bf16_tiled, lm_bf16_tiled: the
+# stencil widens each field exactly as it reads it, so this emulation, which
+# widens F, is their loop too), also on tiles the split leaves ragged (5×4 of 24²)
 _EMULATION_CASES = [
     ("image_warping GN", (3, 2), 30, 0.0, None),
     ("image_warping GN", (3, 2), 400, 1e-12, None),
@@ -570,18 +601,34 @@ _EMULATION_CASES = [
     ("radius2 23x19 GN", (3, 2), 40, 0.0, None),
     ("radius2 23x19 GN", (3, 2), 400, 1e-12, None),
     ("radius2 23x19 LM", (3, 2), 40, 0.0, -np.inf),
+    ("image_warping GN bf16", (3, 2), 30, 0.0, None),
+    ("image_warping GN bf16", (3, 2), 400, 1e-12, None),
+    ("image_warping GN bf16", (5, 4), 30, 0.0, None),
+    ("image_warping GN bf16", (1, 1), 30, 0.0, None),
+    ("image_warping LM bf16", (3, 2), 30, 0.0, -np.inf),
+    ("image_warping LM bf16", (3, 2), 400, 1e-12, 1e-4),
+    ("image_warping LM bf16", (5, 4), 30, 0.0, -np.inf),
+    ("radius2 23x19 GN bf16", (3, 2), 40, 0.0, None),
+    ("radius2 23x19 GN bf16", (3, 2), 400, 1e-12, None),
+    ("radius2 23x19 LM bf16", (3, 2), 40, 0.0, -np.inf),
 ]
 
 
 def _system(name):
+    """(meta, b, pre, ctc or None) of a named case: "image_warping" or
+    "radius2 23x19", then "GN" or "LM", then "bf16" for bfloat16 fields."""
+    words = name.split()
+    kind = "LMGPU" if "LM" in words else "gaussNewtonGPU"
+    bf16 = words[-1] == "bf16"
     if name.startswith("image_warping"):
-        return _torch_system("LMGPU" if name.endswith("LM") else "gaussNewtonGPU")
-    return _radius2_system(23, 19, "LMGPU" if name.endswith("LM") else "gaussNewtonGPU")
+        return _torch_system(kind + (" bf16" if bf16 else ""))
+    return _radius2_system(23, 19, kind, bf16)
 
 
 @pytest.mark.parametrize("name,tiles,lits,tol,q_tol", _EMULATION_CASES)
 def test_emulation_is_bitwise_the_twin(name, tiles, lits, tol, q_tol):
     meta, b, pre, ctc = _system(name)
+    assert meta["F"].dtype == (torch.bfloat16 if name.endswith("bf16") else torch.float32)
     C, N1, N2 = b.shape
     h = fused_cg.tiled_grid_plan(meta, C, (N1, N2), lm=ctc is not None, sm_count=SMS,
                                  smem_per_block=SMEM)["halo"]
@@ -603,15 +650,20 @@ def test_emulation_is_bitwise_the_twin(name, tiles, lits, tol, q_tol):
 # GN on the lattice system, whose rᵀz/rᵀz₀ falls to 7.3e-10 at iteration 14
 # (never under 1.7e-9 before): the exit at tol 8e-10; the bench-like GN system amplifies
 # the dots' sum order to 1e-3 of δ in 25 iterations, so it is held to the
-# twin only, bitwise, above
+# twin only, bitwise, above. With bfloat16 fields (the Pallas kernel's
+# coefficient_dtype bfloat16) on the lattice system, GN and LM
 @pytest.mark.parametrize("kind,lits,tol,q_tol", [
     ("gaussNewtonGPU-lattice", 60, 8e-10, None),
     ("gaussNewtonGPU-lattice", 25, 0.0, None),
     ("LMGPU", 25, 0.0, -np.inf),
+    ("gaussNewtonGPU-lattice bf16", 25, 0.0, None),
+    ("gaussNewtonGPU-lattice bf16", 60, 8e-10, None),
+    ("LMGPU-lattice bf16", 25, 0.0, -np.inf),
 ])
 def test_emulation_matches_pallas_interpret(kind, lits, tol, q_tol):
     """The emulation on 3×2 tiles against the JAX package's fused kernel in
-    interpret mode: equal counts, δ within JAX_RTOL · max|δ|."""
+    interpret mode on the same fields: equal counts, δ within JAX_RTOL ·
+    max|δ|."""
     jmeta, r0, jpre, jctc = _jax_system(kind)
     meta, b, pre, ctc = _torch_system(kind)
     lm = {} if jctc is None else dict(ctc=jctc, reset_period=RESET, q_tolerance=q_tol)
@@ -663,14 +715,15 @@ def test_tiled_wrapper_checks_operands_first():
                                       pre, 10, 0.0, plan)
     with pytest.raises(ValueError, match="reset_period"):
         fused_cg.tiled_grid_cg_kernel(meta, b, pre, 10, 0.0, plan, ctc=pre)
-    with pytest.raises(ValueError, match="float32 fields"):
-        fused_cg.tiled_grid_cg_kernel(dict(meta, F=meta["F"].to(torch.bfloat16)), b, pre, 10,
+    with pytest.raises(ValueError, match="float32 or bfloat16 fields"):
+        fused_cg.tiled_grid_cg_kernel(dict(meta, F=meta["F"].to(torch.float16)), b, pre, 10,
                                       0.0, plan)
 
 
 def test_template_wrapper_still_takes_the_other_forms_on_cpu():
-    """A Chronopoulos–Gear launch routes to the template, whose device
-    check speaks for it."""
+    """A Chronopoulos–Gear launch under block-Jacobi routes to the template,
+    whose device check speaks for it."""
     meta, b, pre, _ctc = _torch_system("gaussNewtonGPU")
-    with pytest.raises(ValueError, match="fused_grid_cg_kernel needs CUDA"):
-        fused_cg.fused_grid_cg_kernel(meta, b, pre, 10, 0.0, cs=True)
+    pb = torch.zeros((9,) + tuple(b.shape[1:]))
+    with pytest.raises(ValueError, match="^fused_grid_cg_kernel needs CUDA"):
+        fused_cg.fused_grid_cg_kernel(meta, b, None, 10, 0.0, cs=True, pre_blocks=pb)

@@ -444,7 +444,7 @@ def test_the_second_gn_step_reuses_the_partition(monkeypatch):
 
 
 def test_instance_names_and_launch_counts():
-    names = [fused_cg.instance_name(*f) for f in fused_cg.TILED_INSTANCES[6:]]
+    names = [fused_cg.instance_name(*f) for f in fused_cg.TILED_INSTANCES[6:10]]
     assert names == ["gn_rem_tiled", "lm_rem_tiled", "gn_rem_multi_tiled", "lm_rem_multi_tiled"]
     fused_cg.fused_grid_cg_kernel.launches["gn_rem_tiled"] = 3
     fused_cg.reset_launch_counts()
@@ -467,7 +467,7 @@ def test_build_compiles_the_graph_unit_and_reads_its_registers():
     want = {(False, True, False, False, False, m, False, True): (72, 0, 0) for m in (0, 1)}
     want.update({(True, True, False, False, False, m, False, True): (80, 8, 8) for m in (0, 1)})
     assert regs == {tuple(bool(x) for x in k): v for k, v in want.items()}
-    assert set(regs) == set(fused_cg.TILED_INSTANCES[6:])
+    assert set(regs) == set(fused_cg.TILED_INSTANCES[6:10])
 
 
 # -- the emulation against the twin, bitwise ------------------------------------------
