@@ -26,7 +26,9 @@ shape_from_shading's ComputedArray system at 512x512, optical_flow's at
 forms: 512 curve-fit systems and 4 laplacian 16x16 systems a block each
 (GN, LM, Chronopoulos-Gear, bfloat16), each system also against its own
 one-system launch, and 4 poisson 512x512x4 systems in turn with their own
-fields; the batch forms with the graph remainder and the block
+fields (and image_warping 512x512 x4 LM, image_warping 500x301 x3 and a
+radius-2 stencil x3 with per-instance fields, GN and LM); the batch forms
+with the graph remainder and the block
 preconditioner: 64 deformations of a 300-vertex random mesh and 4 of a
 40-vertex one a block each (GN, LM, Chronopoulos-Gear, bfloat16,
 block-Jacobi), the 512 curve fits under block-Jacobi, and the armadillo x4
@@ -46,8 +48,8 @@ iterations a channel (the split), 512 LM curve fits in one solve_batched
 (bench.py's batched case, LM 10x20), 4 poisson 512x512x4 instances in one
 solve_batched (GN 1x2000), the armadillo posed to 4 handle targets in one
 solve_batched (GN 8x100, one remainder multi-system launch a step),
-image_warping 512x512 x4 in one solve_batched under block-Jacobi (LM
-8x400), and a solve_scheduled of 5 outer GN 3x15 solves at 512x512, checks
+image_warping 512x512 x4 in one solve_batched, LM 8x400, with the Jacobi
+and under block-Jacobi, and a solve_scheduled of 5 outer GN 3x15 solves at 512x512, checks
 the costs against the JAX package's and each solve's one
 launch of the named kernel instance per nonlinear step, solves the arap
 grid mesh once more in float64 against the JAX package's float64 solve,
@@ -71,22 +73,25 @@ The tiled route: where one system's state fits the card's shared memory at
 one tile a block (fused_cg.tiled_grid_plan: the 2-D GN and LM systems at
 512x512 and below, float32 fields with the Jacobi or the block-Jacobi
 preconditioner, bfloat16 fields with the Jacobi one, Chronopoulos-Gear on
-float32 fields with the Jacobi one, and a batch of float32 block-Jacobi
-systems in turn), the launch takes the tiled kernel
-(opt_tpu_torch/ops/csrc/tiled_grid_cg.cu, launches gn_tiled, lm_tiled,
-gn_bf16_tiled, lm_bf16_tiled, gn_bj_tiled, lm_bj_tiled, gn_bj_multi_tiled
-and lm_bj_multi_tiled; its Chronopoulos-Gear loop, one grid barrier an
-iteration, opt_tpu_torch/ops/csrc/tiled_grid_cs.cu, gn_cs_tiled and
-lm_cs_tiled; in the same library); every check above of such a system
-runs it, three more shapes check it in each form (the radius-2 stencil,
-image_warping on a grid its tiles do not divide, and on a grid of one
-tile), each system of a multi-system launch is held bitwise to its own
-one-system launch, the template's gn, lm, gn_cs, lm_cs, gn_bf16, lm_bf16,
-gn_bj, lm_bj, gn_bj_multi and lm_bj_multi instances stay checked and timed
-beside it on the same systems in turns, and the main paths of those
-systems launch it once a step (poisson's and image_warping LM's
-Chronopoulos-Gear and bfloat16 solves also held cost for cost and count
-for count to the same solves on the template route).
+float32 fields with the Jacobi one; and several float32 systems in turn
+under the standard loop: the per-channel split, whose one-channel systems
+fit one tile an SM at 1024x1024, and a batch), the launch takes the tiled
+kernel (opt_tpu_torch/ops/csrc/tiled_grid_cg.cu, launches gn_tiled,
+lm_tiled, gn_bf16_tiled, lm_bf16_tiled, gn_bj_tiled, lm_bj_tiled,
+gn_multi_tiled, lm_multi_tiled, gn_bj_multi_tiled and lm_bj_multi_tiled;
+its Chronopoulos-Gear loop, one grid barrier an iteration,
+opt_tpu_torch/ops/csrc/tiled_grid_cs.cu, gn_cs_tiled and lm_cs_tiled; in
+the same library); every check above of such a system runs it, three more
+shapes check it in each form (the radius-2 stencil, image_warping on a
+grid its tiles do not divide, and on a grid of one tile; the split forced
+at 500x301 and on a three-channel radius-2 stencil), each system of a
+batch launch is held bitwise to its own one-system launch, the template's
+gn, lm, gn_cs, lm_cs, gn_bf16, lm_bf16, gn_bj, lm_bj, gn_multi, lm_multi,
+gn_bj_multi and lm_bj_multi instances stay checked and timed beside it on
+the same systems in turns, and the main paths of those systems launch it
+once a step (poisson's and image_warping LM's Chronopoulos-Gear and
+bfloat16 solves, the split and the poisson batch also held cost for cost
+and count for count to the same solves on the template route).
 The graph route: a graph system with the remainder whose vertex partition
 fits the card's shared memory (fused_cg.graph_tile_plan: float32, the
 standard GN or LM loop, the Jacobi preconditioner, one system or a batch
@@ -475,14 +480,16 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bench_poisson_inputs(n, seed=0):
+def bench_poisson_inputs(n, seed=0, m=None):
     """bench.py::bench_poisson's inputs: RandomState(0), a border mask
-    (``seed``: another draw of X and T)."""
+    (``seed``: another draw of X and T); on an n x m grid where `m` is
+    given."""
     rng = np.random.RandomState(seed)
     f32 = np.float32
-    mask = np.ones((n, n), f32)
-    mask[n // 8 : -n // 8, n // 8 : -n // 8] = 0.0
-    return {"X": rng.rand(n, n, 4).astype(f32), "T": rng.rand(n, n, 4).astype(f32), "M": mask}
+    m = n if m is None else m
+    mask = np.ones((n, m), f32)
+    mask[n // 8 : -n // 8, m // 8 : -m // 8] = 0.0
+    return {"X": rng.rand(n, m, 4).astype(f32), "T": rng.rand(n, m, 4).astype(f32), "M": mask}
 
 
 def laplacian_inputs(n):
@@ -744,12 +751,12 @@ def armadillo_batch_inputs():
     return dims, dict(base, Offset=np.stack([pos] * B), Constraints=np.stack(cons))
 
 
-def iw_batch_inputs(n, B):
-    """B image_warping instances: instance 0 bench_image_warping_inputs(n),
+def iw_batch_inputs(n, B, m=None):
+    """B image_warping instances: instance 0 bench_image_warping_inputs(n, m),
     instance k its constraint targets moved by one offset drawn from
     RandomState(k) (in [-2, 2]^2, kept >= 0 so that every constraint stays
     valid); Constraints batched, the rest shared."""
-    base = bench_image_warping_inputs(n)
+    base = bench_image_warping_inputs(n, m)
     con0 = base["Constraints"]
     valid = (con0 >= 0).all(-1)
     cons = [con0]
@@ -885,9 +892,9 @@ def form_of(meta, b, lm=None, cs=False, pre_blocks=None, template=False):
 
 
 def tiled_line(label, meta, b, lm=None, pre_blocks=None, cs=False):
-    """The tiled route's plan of a system (of each system of a batch),
-    printed: tiles, halo, threads and shared memory a block; raises where
-    the system does not take it."""
+    """The tiled route's plan of a system (of each system of a batch or a
+    split), printed: tiles, halo, threads and shared memory a block, a
+    system's channels; raises where the system does not take it."""
     plan = fused_cg.route_plan(meta, b, lm=bool(lm), cs=cs, pre_blocks=pre_blocks)
     if plan is None:
         raise RuntimeError(f"{label}: does not take the tiled kernel")
@@ -895,8 +902,8 @@ def tiled_line(label, meta, b, lm=None, pre_blocks=None, cs=False):
     log(json.dumps({"tiled_plan": label,
                     "form": form_of(meta, b, lm, cs=cs, pre_blocks=pre_blocks),
                     "systems": n_systems(meta), "grid": list(b.shape[lead + 1:]),
-                    "channels": int(b.shape[lead]), "triples": len(meta["triples"]),
-                    "tiles": list(plan["tiles"]), "tile": list(plan["tile"]),
+                    "channels": 1 if meta.get("chan_grid") else int(b.shape[lead]),
+                    "triples": len(meta["triples"]), "tiles": list(plan["tiles"]), "tile": list(plan["tile"]),
                     "halo": plan["halo"], "threads": plan["threads"],
                     "smem_bytes": plan["smem_bytes"]}))
     return plan
@@ -1248,15 +1255,17 @@ def volumetric_main_path(pre, inputs):
 
 def split_main_path(inputs, per_system):
     """poisson 1024x1024x4, 1 GN step of up to 2000 CG iterations a channel,
-    through the split: one launch of the multi-system instance, the cost
-    and the summed count held to the JAX package's split solve, and the
-    count equal to the sum of `per_system`, the kernel's counts on the same
-    system."""
+    through the split: one launch of the tiled multi-system instance
+    (gn_multi_tiled), the cost and the summed count held to the JAX
+    package's split solve, the count equal to the sum of `per_system`, the
+    kernel's counts on the same system, and cost and count equal to the
+    same solve on the template route (gn_multi)."""
     n = SPLIT_N
     want, want_iters = JAX_CPU_POISSON_1024_SPLIT
-    res, launches, plan = main_path(f"poisson{n}x4 GN 1x2000 split", poisson_image_editing,
-                                    "gaussNewtonGPU", _grid(n), inputs, 1, 2000, want,
-                                    {"X": (n, n, 4)}, form="gn_multi")
+    label = f"poisson{n}x4 GN 1x2000 split"
+    res, launches, plan = main_path(label, poisson_image_editing, "gaussNewtonGPU", _grid(n),
+                                    inputs, 1, 2000, want, {"X": (n, n, 4)},
+                                    form="gn_multi_tiled")
     meta = plan.cg_inputs(dict(inputs))[0]
     log(json.dumps({"check": "split", "case": f"poisson{n}x4", "chan_grid": meta["chan_grid"],
                     "iters_per_channel": per_system, "lin_iters": res.num_linear_iterations,
@@ -1268,6 +1277,8 @@ def split_main_path(inputs, per_system):
     if abs(res.num_linear_iterations - want_iters) > rel * want_iters + add:
         raise RuntimeError(f"poisson{n}x4 split: {res.num_linear_iterations} CG iterations "
                            f"against the JAX CPU's {want_iters}")
+    route_equal(label, res, launches, lambda: ot.Problem(poisson_image_editing).plan(
+        dims=_grid(n)).solve(dict(inputs), nIterations=1, lIterations=2000), "gn_multi_tiled")
     return res, launches
 
 
@@ -1446,9 +1457,11 @@ def batched_curve_main_path(truths, inputs):
 
 def batched_poisson_main_path(inputs):
     """4 poisson 512x512x4 instances (GN 1x2000) in one solve_batched: one
-    launch of the strided multi-system instance; each instance's cost and
-    count equal to its own single solve on the card, instance 0 within
-    GOLDEN_RTOL of the JAX CPU's bench_poisson cost. Returns launches."""
+    launch of the tiled multi-system instance (gn_multi_tiled), the systems
+    in turn; each instance's cost and count equal to its own single solve
+    on the card, instance 0 within GOLDEN_RTOL of the JAX CPU's
+    bench_poisson cost, costs and counts equal to the same solve on the
+    template route (gn_multi). Returns launches."""
     n, B = MAIN_N, BATCH_POISSON_B
     fused_cg.reset_launch_counts()
     plan = ot.Problem(poisson_image_editing).plan(dims=_grid(n))
@@ -1462,7 +1475,8 @@ def batched_poisson_main_path(inputs):
         singles.append((r.final_cost, r.num_linear_iterations))
     rel = [abs(float(res.final_costs[k]) - c) / abs(c) for k, (c, _l) in enumerate(singles)]
     line = {"check": "main_path", "case": f"poisson{n}x4 x{B} GN 1x2000 batched",
-            "form": "gn_multi", "kernel_launches": launches, "fused_fallback": plan.fused_fallback,
+            "form": "gn_multi_tiled", "kernel_launches": launches,
+            "fused_fallback": plan.fused_fallback,
             "final_costs": res.final_costs.tolist(), "single_costs": [c for c, _l in singles],
             "rel_diff_to_single": rel, "lin_iters": res.num_linear_iterations.tolist(),
             "single_lin_iters": [l for _c, l in singles],
@@ -1470,10 +1484,13 @@ def batched_poisson_main_path(inputs):
     log(json.dumps(line))
     ok0 = abs(float(res.final_costs[0]) - JAX_CPU_POISSON_512_COST) <= (
         GOLDEN_RTOL * JAX_CPU_POISSON_512_COST)
-    if (launches != {"gn_multi": 1} or plan.fused_fallback is not None or not ok0
+    if (launches != {"gn_multi_tiled": 1} or plan.fused_fallback is not None or not ok0
             or line["lin_iters"] != line["single_lin_iters"] or max(rel) > 1e-6
             or not bool(torch.isfinite(res.unknowns["X"]).all())):
         raise RuntimeError(f"batched poisson failed: {line}")
+    route_equal(line["case"], res, launches, lambda: ot.Problem(poisson_image_editing).plan(
+        dims=_grid(n)).solve_batched(dict(inputs), nIterations=1, lIterations=2000),
+        "gn_multi_tiled")
     return launches
 
 
@@ -1524,11 +1541,11 @@ def batched_graph_main_path(dims, inputs):
     return launches
 
 
-def bj_batch_plan():
-    """image_warping 512x512's LM plan under block-Jacobi, as the batched
-    block-Jacobi main path solves it."""
+def bj_batch_plan(pre="block_jacobi"):
+    """image_warping 512x512's LM plan under block-Jacobi (or `pre`), as the
+    batched image_warping main paths solve it."""
     return ot.Problem(image_warping, kind="LMGPU").plan(
-        dims=_grid(IW_N), init_params=ot.InitializationParameters(preconditioner="block_jacobi"))
+        dims=_grid(IW_N), init_params=ot.InitializationParameters(preconditioner=pre))
 
 
 def time_batched(label, plan, inputs, nl, li, gpu, reps):
@@ -1546,16 +1563,20 @@ def time_batched(label, plan, inputs, nl, li, gpu, reps):
                     "lin_iters": res.num_linear_iterations.tolist()}))
 
 
-def batched_bj_main_path(inputs):
+def batched_iw_main_path(inputs, pre="block_jacobi"):
     """image_warping 512x512 four times (iw_batch_inputs), LM 8x400 under
-    block-Jacobi in one solve_batched: one launch of the tiled block-Jacobi
-    LM multi-system instance (lm_bj_multi_tiled) a step, no fallback; instance 0 within
-    GOLDEN_RTOL of the JAX CPU's block-Jacobi solve, each instance within
-    GOLDEN_RTOL of its own solve on the card. Returns launches."""
+    block-Jacobi (or `pre`, "jacobi") in one solve_batched: one launch of
+    the tiled LM multi-system instance (lm_bj_multi_tiled; lm_multi_tiled)
+    a step, no fallback; instance 0 within GOLDEN_RTOL of the JAX CPU's
+    solve, each instance within GOLDEN_RTOL of its own solve on the card.
+    Returns launches."""
     n, B = IW_N, IW_BJ_BATCH_B
-    want, _want_iters = JAX_CPU_VARIANT_COSTS[("image_warping", "block_jacobi")]
+    bj = pre == "block_jacobi"
+    want = (JAX_CPU_VARIANT_COSTS[("image_warping", "block_jacobi")][0] if bj
+            else JAX_CPU_IMAGE_WARPING_COSTS[(IW_N, "LMGPU", 8, 400)])
+    form = "lm_bj_multi_tiled" if bj else "lm_multi_tiled"
     fused_cg.reset_launch_counts()
-    plan = bj_batch_plan()
+    plan = bj_batch_plan(pre)
     res = plan.solve_batched(dict(inputs), nIterations=8, lIterations=400)
     torch.cuda.synchronize()
     launches = {k: v for k, v in fused_cg.fused_grid_cg_kernel.launches.items() if v}
@@ -1565,8 +1586,8 @@ def batched_bj_main_path(inputs):
            for k, s in enumerate(singles)]
     finite = all(bool(torch.isfinite(v).all()) and tuple(v.shape[:3]) == (B, n, n)
                  for v in res.unknowns.values())
-    line = {"check": "main_path", "case": f"image_warping{n} x{B} LM 8x400 block_jacobi batched",
-            "form": "lm_bj_multi_tiled", "kernel_launches": launches,
+    line = {"check": "main_path", "case": f"image_warping{n} x{B} LM 8x400 {pre} batched",
+            "form": form, "kernel_launches": launches,
             "fused_fallback": plan.fused_fallback, "final_costs": res.final_costs.tolist(),
             "single_costs": [s.final_cost for s in singles], "rel_diff_to_single": rel,
             "lin_iters": res.num_linear_iterations.tolist(),
@@ -1575,9 +1596,9 @@ def batched_bj_main_path(inputs):
             "rel_diff_instance0": abs(float(res.final_costs[0]) - want) / want,
             "solve_s": res.wall_time_s}
     log(json.dumps(line))
-    if (launches != {"lm_bj_multi_tiled": 8} or plan.fused_fallback is not None or not finite
+    if (launches != {form: 8} or plan.fused_fallback is not None or not finite
             or line["rel_diff_instance0"] > GOLDEN_RTOL or max(rel) > GOLDEN_RTOL):
-        raise RuntimeError(f"batched image_warping block-Jacobi failed: {line}")
+        raise RuntimeError(f"batched image_warping {pre} failed: {line}")
     return launches
 
 
@@ -2007,6 +2028,56 @@ def radius2_spec(S):
 def radius2_inputs(n):
     rng = np.random.RandomState(5)
     return {"X": rng.rand(n, n).astype(np.float32), "A": rng.rand(n, n).astype(np.float32)}
+
+
+def radius2_rgb_spec(S):
+    """radius2_spec over three channels with channel-identical fields: a
+    separable operator, which a lowered criterion splits (forced_split)."""
+    W, H = S.Dim("W"), S.Dim("H")
+    X = S.Unknown("X", 3, (W, H))
+    A = S.Array("A", 3, (W, H))
+    S.Energy(0.3 * (X(0, 0) - A(0, 0)))
+    for dx, dy in ot.Stencil([(2, 0), (-2, 0), (0, 2), (0, -2)]):
+        S.Energy(ot.Select(ot.InBounds(dx, dy), X(0, 0) - X(dx, dy), 0.0))
+
+
+def radius2_rgb_inputs(n):
+    rng = np.random.RandomState(6)
+    return {"X": rng.rand(n, n, 3).astype(np.float32), "A": rng.rand(n, n, 3).astype(np.float32)}
+
+
+def radius2w_spec(S):
+    """radius2_spec with a fit weight a point, so that a batch's instances
+    have their own fields."""
+    W, H = S.Dim("W"), S.Dim("H")
+    X = S.Unknown("X", 1, (W, H))
+    A = S.Array("A", 1, (W, H))
+    Wt = S.Array("Wt", 1, (W, H))
+    S.Energy(Wt(0, 0) * (X(0, 0) - A(0, 0)))
+    for dx, dy in ot.Stencil([(2, 0), (-2, 0), (0, 2), (0, -2)]):
+        S.Energy(ot.Select(ot.InBounds(dx, dy), X(0, 0) - X(dx, dy), 0.0))
+
+
+def radius2w_batch_inputs(n, B):
+    rng = np.random.RandomState(8)
+    out = {k: rng.rand(B, n, n).astype(np.float32) for k in ("X", "A")}
+    out["Wt"] = (0.2 + rng.rand(B, n, n)).astype(np.float32)
+    return out
+
+
+@contextlib.contextmanager
+def forced_split(planes, dims):
+    """The planner's split criterion (fused_cg.SPLIT_WORKING_SET_BYTES)
+    lowered to `planes` float32 planes of the grid `dims` for the while, so
+    that a separable operator at a size that does not split by default
+    splits: the split's kernels at other shapes than poisson
+    1024x1024x4."""
+    saved = fused_cg.SPLIT_WORKING_SET_BYTES
+    fused_cg.SPLIT_WORKING_SET_BYTES = planes * 4 * int(np.prod(list(dims.values())))
+    try:
+        yield
+    finally:
+        fused_cg.SPLIT_WORKING_SET_BYTES = saved
 
 
 def tiles_of(meta):
@@ -2544,15 +2615,40 @@ def main() -> int:
                            f"poisson {n}x{n}x4 nor image_warping")
     log(f"poisson {SPLIT_N}x{SPLIT_N}x4 split: {n_systems(psplit[0])} systems, "
         f"{psplit[0]['F'].shape[0]} fields, {len(psplit[0]['triples'])} triples a system")
-    err_split = variant_checks(f"poisson{SPLIT_N}x4 split", psplit, 50, 2000)
+    # the split's one-channel systems in turn on the tiled kernel
+    # (gn_multi_tiled, lm_multi_tiled), the template's gn_multi and lm_multi
+    # held to the same twin results
+    tiled_line(f"poisson{SPLIT_N}x4 split GN", *psplit[:2])
+    err_split = variant_checks(f"poisson{SPLIT_N}x4 split", psplit, 50, 2000, bitwise=True,
+                               template=True)
     # the first GN step's counts a channel, with the real exits (held to the
     # twin's just above): the main path's count must be their sum
     split_counts = fused_cg.fused_grid_cg_kernel(*psplit[:3], 2000, CG_TOL)[1].tolist()
     psplit_lm = system(poisson_image_editing, _grid(SPLIT_N), split_in, "LMGPU")
     if not psplit_lm[0]["chan_grid"]:
         raise RuntimeError(f"the planner must split poisson {SPLIT_N}x{SPLIT_N}x4 under LM")
-    variant_checks(f"poisson{SPLIT_N}x4 split", psplit_lm, 50, 2000)
+    tiled_line(f"poisson{SPLIT_N}x4 split LM", *psplit_lm[:2], psplit_lm[3])
+    variant_checks(f"poisson{SPLIT_N}x4 split", psplit_lm, 50, 2000, bitwise=True,
+                   template=True)
     del psplit_lm
+    # the split forced where it does not engage by default: poisson on a
+    # grid its tiles leave ragged, and a three-channel radius-2 stencil (a
+    # halo of 2), GN and LM
+    for label, spec, dims, sin, planes, exit_lits in (
+            (f"poisson {RAGGED_DIMS['W']}x{RAGGED_DIMS['H']}x4 forced split",
+             poisson_image_editing, RAGGED_DIMS,
+             bench_poisson_inputs(RAGGED_DIMS["W"], m=RAGGED_DIMS["H"]), 30, 2000),
+            (f"radius2 {n}x{n}x3 forced split", radius2_rgb_spec, _grid(n),
+             radius2_rgb_inputs(n), 20, 400)):
+        for kind, klabel in (("gaussNewtonGPU", "GN"), ("LMGPU", "LM")):
+            with forced_split(planes, dims):
+                fsplit = system(spec, dims, sin, kind)
+            if not fsplit[0]["chan_grid"]:
+                raise RuntimeError(f"{label}: not split")
+            tiled_line(f"{label} {klabel}", *fsplit[:2], fsplit[3])
+            variant_checks(f"{label} {klabel}", fsplit, 50, exit_lits, bitwise=True,
+                           template=True)
+    del fsplit
 
     # K1 (h), the batch axis: 512 curve-fit systems (2 elements each) and 4
     # laplacian 16x16 systems a block each, GN, LM, Chronopoulos-Gear and
@@ -2579,10 +2675,13 @@ def main() -> int:
                 err_batch, curve_lm = err, sysb
     pbatch_in = batched_poisson_inputs(n, BATCH_POISSON_B)
     pbatch = batched_system(poisson_image_editing, _grid(n), pbatch_in)
-    if form_of(pbatch[0], pbatch[1]) != "gn_multi":
-        raise RuntimeError(f"poisson{n}x4 x{BATCH_POISSON_B}: not the multi-system form")
     log(f"poisson {n}x{n}x4 x{BATCH_POISSON_B}: {pbatch[0]['F'].shape[1]} fields a system")
-    batch_checks(f"poisson{n}x4 x{BATCH_POISSON_B}", pbatch, 50, 2000, single=False)
+    # the systems in turn on the tiled kernel (gn_multi_tiled), each also
+    # against its own one-system launch (gn_tiled, the same tiles), the
+    # template's gn_multi held to the same twin results
+    tiled_line(f"poisson{n}x4 x{BATCH_POISSON_B}", *pbatch[:2])
+    err_pbatch = batch_checks(f"poisson{n}x4 x{BATCH_POISSON_B}", pbatch, 50, 2000,
+                              form="gn_multi_tiled", template=True)
 
     # K1 (h) x K4 and K1 (h) x K1 (d): the batch forms with the remainder and
     # with the block preconditioner. The block-per-system form on 64
@@ -2634,6 +2733,14 @@ def main() -> int:
     iw_bin = iw_batch_inputs(IW_N, IW_BJ_BATCH_B)
     alabel = f"armadillo31k x{len(ARM_BATCH_PULLS)}"
     ilabel = f"image_warping{IW_N}x3 x{IW_BJ_BATCH_B}"
+    # a batch of 3 on a grid the tiles leave ragged, and of the radius-2
+    # stencil (a halo of 2) with its own fields an instance, under the Jacobi
+    # preconditioner: the tiled kernel's systems in turn (gn_multi_tiled,
+    # lm_multi_tiled)
+    rag_bin = iw_batch_inputs(RAGGED_DIMS["W"], 3, RAGGED_DIMS["H"])
+    r2w_bin = radius2w_batch_inputs(n, 3)
+    rglabel = f"image_warping {RAGGED_DIMS['W']}x{RAGGED_DIMS['H']}x3 x3"
+    r2label = f"radius2w {n}x{n} x3"
     multi_sys = {}
     for label, spec, dims, binp, kind, ip, exit_lits, form in (
             (f"{alabel} GN", arap_mesh_deformation, arm_bdims, arm_bin, gn, {}, GRAPH_LI,
@@ -2649,18 +2756,28 @@ def main() -> int:
             (f"{ilabel} LM block_jacobi", image_warping, _grid(IW_N), iw_bin, lmk, bj, 400,
              "lm_bj_multi_tiled"),
             (f"{ilabel} LM cs block_jacobi", image_warping, _grid(IW_N), iw_bin, lmk,
-             cs, 400, "lm_cs_bj_multi")):
+             cs, 400, "lm_cs_bj_multi"),
+            (f"{ilabel} LM", image_warping, _grid(IW_N), iw_bin, lmk, {}, 400, "lm_multi_tiled"),
+            (f"{rglabel} GN", image_warping, RAGGED_DIMS, rag_bin, gn, {}, 400, "gn_multi_tiled"),
+            (f"{rglabel} LM", image_warping, RAGGED_DIMS, rag_bin, lmk, {}, 400,
+             "lm_multi_tiled"),
+            (f"{r2label} GN", radius2w_spec, _grid(n), r2w_bin, gn, {}, 400, "gn_multi_tiled"),
+            (f"{r2label} LM", radius2w_spec, _grid(n), r2w_bin, lmk, {}, 400,
+             "lm_multi_tiled")):
         if ip is cs:  # the LM block-Jacobi system, by Chronopoulos-Gear
             sysm = sysm[:4] + (dict(sysm[4], cs=True),)
         else:
             sysm = batched_system(spec, dims, binp, kind, **ip)
+        if spec is radius2w_spec and bool((sysm[0]["F"][0] == sysm[0]["F"][1]).all()):
+            raise RuntimeError(f"{label}: the instances' fields are the same")
         tiled = form.endswith("_tiled")
         if tiled and sysm[0]["rem"] is not None:
             graph_plan_line(label, *sysm[:2], sysm[3])
         elif tiled:
             tiled_line(label, sysm[0], sysm[1], sysm[3], sysm[4]["pre_blocks"])
         err = batch_checks(label, sysm, 50, exit_lits, form=form, template=tiled)
-        multi_sys[form] = (label, sysm, err)
+        multi_sys.setdefault(form, (label, sysm, err))  # a form's first case is timed
+    del rag_bin, r2w_bin
 
     # K5, the sharded solve's per-tile apply, on the four tiles of a 2x2
     # split: bitwise against its twin and the whole grid's apply
@@ -2711,7 +2828,8 @@ def main() -> int:
     _r, l_batch = batched_curve_main_path(curve_truths, curve_in)
     l_pbatch = batched_poisson_main_path(pbatch_in)
     l_arm_batch = batched_graph_main_path(arm_bdims, arm_bin)
-    l_bj_batch = batched_bj_main_path(iw_bin)
+    l_bj_batch = batched_iw_main_path(iw_bin)
+    l_iw_batch = batched_iw_main_path(iw_bin, "jacobi")
     l_sched = scheduled_main_path()
     # the single-device solve the sharded auto-policy case is held to
     res_auto, _l, _p = main_path(
@@ -2759,11 +2877,14 @@ def main() -> int:
     # 4. times on the card. The tiled instances and the template's on the
     # same systems in turns (tiled, template, template, tiled): Jacobi,
     # block-Jacobi, Chronopoulos-Gear and bfloat16 fields, one system, and
-    # image_warping x4 under block-Jacobi, the systems in turn (ms per
-    # system-iteration); the first of each go into the kernels line
+    # the systems in turn (ms per system-iteration): poisson 1024x1024x4's
+    # split, 4 x poisson 512x512x4 and image_warping x4 LM, Jacobi, and
+    # image_warping x4 under block-Jacobi; the first of each go into the
+    # kernels line
     t_tiled, t_tpl = {}, {}
     iw_bj = {label: iw_variants[(label, "block_jacobi")] for label in ("GN", "LM")}
     mlabel, msys, _err = multi_sys["lm_bj_multi_tiled"]
+    jlabel, jsys, _err = multi_sys["lm_multi_tiled"]
     agm, aglm = graph["armadillo31k"][:2]
     glabel, gsys, _err = multi_sys["gn_rem_multi_tiled"]
     for key, (label, m_, b_, p_, lm_, var_, reps_) in {
@@ -2779,6 +2900,9 @@ def main() -> int:
             "lm_bf16_iw": (f"image_warping{IW_N}x3 LM bfloat16", *iw_variants[("LM", "bfloat16")],
                            3),
             "lm_bj_multi": (mlabel, *msys, 2),
+            "gn_multi_split": (f"poisson{SPLIT_N}x4 split", *psplit, 2),
+            "gn_multi_batch": (f"poisson{n}x4 x{BATCH_POISSON_B}", *pbatch, 2),
+            "lm_multi_iw": (jlabel, *jsys, 2),
             "gn_rem": ("armadillo31k", *agm, 2),
             "lm_rem": ("armadillo31k", *aglm, 2),
             "gn_rem_multi": (glabel, *gsys, 2)}.items():
@@ -2786,7 +2910,7 @@ def main() -> int:
             t = time_pair(label, m_, b_, p_, gpu, lm_, reps=reps_,
                           twin=not template and key not in t_tiled, template=template, **var_)
             (t_tpl if template else t_tiled).setdefault(key, t)
-    del iw_bj, msys, gsys
+    del iw_bj, msys, gsys, jsys
     t_gn, t_mixed, t_lm = t_tiled["gn"], t_tiled["gn_iw"], t_tiled["lm_iw"]
     phases["tiled_vs_template_kernel_turns"] = (time.perf_counter() - t_start
                                                 - sum(phases.values()))
@@ -2810,28 +2934,27 @@ def main() -> int:
     t_sfs = time_pair(f"shape_from_shading{SFS_N}", *ssys[:3], gpu, ssys[3], **ssys[4])
     time_pair(f"optical_flow{FLOW_N}x2", *fsys[:3], gpu, fsys[3], **fsys[4])
     time_pair(f"intrinsic{INTR_N}x4", *isys[:3], gpu, isys[3], reps=2, **isys[4])
-    t_split = time_pair(f"poisson{SPLIT_N}x4 split", *psplit[:3], gpu, psplit[3], reps=2,
-                        **psplit[4])
-    # the same four channels as one joint system, for the split's worth
+    # the same four channels as one joint system, for the split's worth (the
+    # split itself is timed above, on both routes)
     joint = dict(psplit[0], chan_grid=False, triples=tuple(
         (d, c, c, fid) for (d, _i, _j, fid) in psplit[0]["triples"] for c in range(4)))
     time_pair(f"poisson{SPLIT_N}x4 joint", joint, *psplit[1:3], gpu, reps=2)
     del psplit, joint
     # K1 (h): the LM batch of the curve fits over one step's lIterations,
-    # the same launch against its 512 systems launched one by one, and the
-    # strided multi-system form per system-iteration
+    # the same launch against its 512 systems launched one by one (the
+    # strided multi-system forms are timed above, on both routes)
     t_batch = time_pair(f"curve_fitting x{BATCH_B} LM batch", *curve_lm[:3], gpu, curve_lm[3],
                         lits=BATCH_LI, device=True)
     time_batched_launches(f"curve_fitting x{BATCH_B} LM step launch", *curve_lm[:4], gpu)
     form_sweep(curve_lm, gpu)
-    time_pair(f"poisson{n}x4 x{BATCH_POISSON_B} multi", *pbatch[:3], gpu, reps=2)
     # the batch forms with the remainder and the block preconditioner: ms
-    # per system-iteration of each multi-system instance (lm_bj_multi_tiled
-    # and gn_rem_multi_tiled are timed above, on both routes), ms per launch
-    # of each block-per-system one, beside its bound; one batched GN step
-    # before and after
+    # per system-iteration of each multi-system instance (lm_bj_multi_tiled,
+    # gn_rem_multi_tiled, gn_multi_tiled and lm_multi_tiled are timed above,
+    # on both routes), ms per launch of each block-per-system one, beside its
+    # bound; one batched GN step before and after
     for form, (label, sysm, _err) in multi_sys.items():
-        if form not in ("lm_bj_multi_tiled", "gn_rem_multi_tiled"):
+        if form not in ("lm_bj_multi_tiled", "gn_rem_multi_tiled", "gn_multi_tiled",
+                        "lm_multi_tiled"):
             time_pair(label, *sysm[:3], gpu, sysm[3], reps=2, twin=False, **sysm[4])
     with batch_form("batch"):
         for form, (label, sysb) in batch_sys.items():
@@ -2858,6 +2981,11 @@ def main() -> int:
     variants += [(f"image_warping{IW_N} LM 8x400 {v}", image_warping, "LMGPU", iw_in, 8, 400, ip)
                  for v, ip in (("chronopoulos_gear", cs), ("bfloat16", bf))]
     blabel = f"image_warping{IW_N} x{IW_BJ_BATCH_B} LM 8x400 block_jacobi batched"
+    # the paths of the systems in turn this PR's route takes: the split, the
+    # poisson batch and image_warping x4 LM with the Jacobi preconditioner
+    slabel = f"poisson{SPLIT_N}x4 GN 1x2000 split"
+    pblabel = f"poisson{n}x4 x{BATCH_POISSON_B} GN 1x2000 batched"
+    jblabel = f"image_warping{IW_N} x{IW_BJ_BATCH_B} LM 8x400 jacobi batched"
     arm_label = f"armadillo31k GN {GRAPH_NL}x{GRAPH_LI}"
     arm_blabel = f"armadillo31k x{len(ARM_BATCH_PULLS)} GN {GRAPH_NL}x{GRAPH_LI} batched"
     for turn, route in enumerate(("template", "tiled", "tiled", "template")):
@@ -2867,6 +2995,12 @@ def main() -> int:
                 time_main_path(f"{label} {route}", spec, kind, _grid(n), inp, nl, li, gpu, ip=ip,
                                reps=2)
             time_batched(f"{blabel} {route}", bj_batch_plan(), iw_bin, 8, 400, gpu, reps=2)
+            time_main_path(f"{slabel} {route}", poisson_image_editing, "gaussNewtonGPU",
+                           _grid(SPLIT_N), split_in, 1, 2000, gpu, reps=2)
+            time_batched(f"{pblabel} {route}", ot.Problem(poisson_image_editing).plan(
+                dims=_grid(n)), pbatch_in, 1, 2000, gpu, reps=2)
+            time_batched(f"{jblabel} {route}", bj_batch_plan("jacobi"), iw_bin, 8, 400, gpu,
+                         reps=2)
             time_main_path(f"{arm_label} {route}", arap_mesh_deformation, "gaussNewtonGPU",
                            arm_dims, arm_in, GRAPH_NL, GRAPH_LI, gpu, reps=2)
             time_batched(f"{arm_blabel} {route}", ot.Problem(arap_mesh_deformation).plan(
@@ -2887,6 +3021,9 @@ def main() -> int:
             bplan_bj = bj_batch_plan()
             profile_solve(f"{blabel} {route}".replace(" ", "_"), lambda: bplan_bj.solve_batched(
                 dict(iw_bin), nIterations=8, lIterations=400), gpu)  # run at once
+            splan = ot.Problem(poisson_image_editing).plan(dims=_grid(SPLIT_N))
+            profile_solve(f"{slabel} {route}".replace(" ", "_"), lambda: splan.solve(
+                dict(split_in), nIterations=1, lIterations=2000), gpu)  # run at once
             aplan = ot.Problem(arap_mesh_deformation).plan(dims=arm_bdims)
             profile_solve(f"{arm_blabel} {route}".replace(" ", "_"), lambda: aplan.solve_batched(
                 dict(arm_bin), nIterations=GRAPH_NL, lIterations=GRAPH_LI), gpu)  # run at once
@@ -2899,8 +3036,6 @@ def main() -> int:
                        "gaussNewtonGPU", {"W": w, "H": h}, inp, FLOW_NL, FLOW_LI, gpu)
     time_main_path(f"intrinsic{INTR_N} GN {INTR_NL}x{INTR_LI}", intrinsic_image_decomposition,
                    "gaussNewtonGPU", _grid(INTR_N), intr_in, INTR_NL, INTR_LI, gpu)
-    time_main_path(f"poisson{SPLIT_N}x4 GN 1x2000 split", poisson_image_editing,
-                   "gaussNewtonGPU", _grid(SPLIT_N), split_in, 1, 2000, gpu)
     for (nn, kind, nl, li) in JAX_CPU_IMAGE_WARPING_COSTS:
         if nn == IW_N:
             continue  # timed above, on both routes
@@ -2949,6 +3084,7 @@ def main() -> int:
                                            "poisson_batched": l_pbatch, "scheduled": l_sched,
                                            "armadillo_batched": l_arm_batch,
                                            "image_warping_block_jacobi_batched": l_bj_batch,
+                                           "image_warping_batched": l_iw_batch,
                                            "sharded_tile_apply": l_k5}}))
     log(json.dumps({"command_s": time.perf_counter() - t_start,
                     "checks_and_main_paths_s": phase_s, "phases_s": phases}))
@@ -2994,8 +3130,18 @@ def main() -> int:
         entry(f"tiled_grid_cg GN over a ComputedArray operator (K1 variant g), "
               f"shape_from_shading {SFS_N}x{SFS_N}, gn_tiled", K1G, l_sfs["gn_tiled"], err_sfs,
               t_sfs, TILED_SOURCE),
-        entry(f"fused_grid_cg GN, four one-channel systems in one launch (K2), "
-              f"poisson {SPLIT_N}x{SPLIT_N}x4", K2, l_split["gn_multi"], err_split, t_split),
+        entry(f"tiled_grid_cg GN, four one-channel systems in turn in one launch (K2), "
+              f"poisson {SPLIT_N}x{SPLIT_N}x4 split, gn_multi_tiled; ms of 100 iterations of "
+              "each system", K2, l_split["gn_multi_tiled"], err_split, t_tiled["gn_multi_split"],
+              TILED_SOURCE, t_tpl["gn_multi_split"]),
+        entry(f"tiled_grid_cg GN, a batch axis (K1 (h)): poisson {n}x{n}x4 x{BATCH_POISSON_B}, "
+              "the systems in turn in one launch, gn_multi_tiled; ms of 100 iterations of each "
+              "system", K1H, l_pbatch["gn_multi_tiled"], err_pbatch, t_tiled["gn_multi_batch"],
+              TILED_SOURCE, t_tpl["gn_multi_batch"]),
+        entry(f"tiled_grid_cg LM, a batch axis (K1 (h)): {jlabel}, the systems in turn in one "
+              "launch, lm_multi_tiled; ms of 100 iterations of each system", K1H,
+              l_iw_batch["lm_multi_tiled"], multi_sys["lm_multi_tiled"][2],
+              t_tiled["lm_multi_iw"], TILED_SOURCE, t_tpl["lm_multi_iw"]),
         entry(f"fused_grid_cg LM, a batch axis: {BATCH_B} curve-fit systems side by side, a "
               "block each (K1 (h))", K1H, l_batch["lm_batch"], err_batch, t_batch),
         entry(f"tiled_graph_cg GN with the graph remainder, a batch axis (K1 (h) x K4): "

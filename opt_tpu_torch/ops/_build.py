@@ -118,7 +118,8 @@ def build_library(build: bool = True) -> dict:
 _INSTANCE = re.compile(
     r"fused_grid_cg_kernelILb([01])ELb([01])ELb([01])ELb([01])E(f|13__nv_bfloat16)Li([012])EE"
 )
-_TILED_INSTANCE = re.compile(r"tiled_grid_cg_kernelILb([01])ELb([01])E(f|13__nv_bfloat16)E")
+_TILED_INSTANCE = re.compile(
+    r"tiled_grid_cg_kernelILb([01])ELb([01])E(f|13__nv_bfloat16)Lb([01])EE")
 _TILED_CS_INSTANCE = re.compile(r"tiled_grid_cs_kernelILb([01])EE")
 _GRAPH_INSTANCE = re.compile(r"tiled_graph_cg_kernelILb([01])EE")
 
@@ -126,10 +127,11 @@ _GRAPH_INSTANCE = re.compile(r"tiled_graph_cg_kernelILb([01])EE")
 def instance_registers(log: str) -> dict:
     """{(lm, rem, cs, block, bf16, multi, batch): (registers, spill store
     bytes, spill load bytes)} from ptxas's -v output (the kernel's FORM: 0
-    one system, 1 multi, 2 batch), the tiled kernel's six instances
-    (tiled_grid_cg_kernel<LM, BLOCK, FT>) under (lm, False, False, block,
-    bf16, multi, False, True): a block instance under both multi = False
-    and True, the one kernel that solves one system or several in turn;
+    one system, 1 multi, 2 batch), the tiled kernel's eight instances
+    (tiled_grid_cg_kernel<LM, BLOCK, FT, MULTI>) under (lm, False, False,
+    block, bf16, multi, False, True): a block instance under both multi =
+    False and True, the one kernel that solves one system or several in
+    turn, the others under their MULTI;
     its Chronopoulos–Gear kernel's two (tiled_grid_cs_kernel<LM>) under
     (lm, False, True, False, False, False, False, True); and the graph
     kernel's two (tiled_graph_cg_kernel<LM>) under (lm, True, False, False,
@@ -152,7 +154,7 @@ def instance_registers(log: str) -> dict:
             elif t:
                 lm, block = (g == "1" for g in t.groups()[:2])
                 current = [(lm, False, False, block, t.group(3) != "f", multi, False, True)
-                           for multi in ((False, True) if block else (False,))]
+                           for multi in ((False, True) if block else (t.group(4) == "1",))]
             elif c:
                 current = [(c.group(1) == "1", False, True, False, False, False, False, True)]
             else:
@@ -206,8 +208,8 @@ def load_library(build: bool = True) -> ctypes.CDLL:
         i32, f32, i32, i32, f32,  # lits, tol, guard_div, reset_period, q_tol
     ]
     lib.tiled_grid_cg_launch.argtypes = [
-        i32, i32, i32, *tiled_shape,  # lm, block, bf16
-        i32, i32,  # n_sys, f_stride (a system's fields, under block)
+        i32, i32, i32, i32, *tiled_shape,  # lm, block, bf16, multi
+        i32, i32,  # n_sys, f_stride (a system's fields: 0 under the split)
         vp, vp, vp, vp, vp,  # delta, r_ring, partA, partB, iters
         i32, i32, vp,  # threads, smem_bytes, stream
     ]

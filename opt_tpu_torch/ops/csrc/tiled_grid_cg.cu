@@ -1,14 +1,16 @@
 // Whole-loop preconditioned CG for a 2-D grid stencil operator whose state
 // fits the card's shared memory: one persistent cooperative launch per CG
-// solve, one block a tile, for Hopper (sm_90a). Six instances,
-// tiled_grid_cg_kernel<LM, BLOCK, FT>: the standard Gauss-Newton loop and the
-// standard Levenberg-Marquardt loop of fused_grid_cg.cuh (lines 66-78),
-// float32 fields with the Jacobi preconditioner (one system) or with
-// block-Jacobi (one system, or several independent systems in turn in one
-// launch: the same loop over n_sys), and bfloat16 fields (FT) with the Jacobi
-// preconditioner. Their launches count, in ops/fused_cg.py, as gn_tiled,
+// solve, one block a tile, for Hopper (sm_90a). Eight instances,
+// tiled_grid_cg_kernel<LM, BLOCK, FT, MULTI>: the standard Gauss-Newton loop
+// and the standard Levenberg-Marquardt loop of fused_grid_cg.cuh (lines
+// 66-78), float32 fields with the Jacobi preconditioner (one system, or,
+// under MULTI, several independent systems in turn in one launch) or
+// block-Jacobi (one kernel for one system or several in turn: the same
+// loop over n_sys), and bfloat16 fields (FT) with the Jacobi preconditioner
+// (one system). Their launches count, in ops/fused_cg.py, as gn_tiled,
 // lm_tiled, gn_bf16_tiled, lm_bf16_tiled, gn_bj_tiled, lm_bj_tiled and, for
-// a batch of systems, gn_bj_multi_tiled and lm_bj_multi_tiled. Its checks
+// several systems, gn_multi_tiled and lm_multi_tiled (the per-channel split,
+// a batch) and gn_bj_multi_tiled and lm_bj_multi_tiled (a batch). Its checks
 // and launch, tg_launch, also start the Chronopoulos-Gear kernel of
 // tiled_grid_cs.cu (gn_cs_tiled, lm_cs_tiled).
 //
@@ -18,9 +20,11 @@
 // channels, and with fields from ComputedArray slots), its lm=True form and
 // its block_pre=True form (prec, :367-381), with bfloat16 coefficient fields
 // (coeff_dtype, :586-592, :670-672), also under jax.vmap
-// (opt_tpu/solver/gauss_newton.py:983-1004), at the grid sizes whose state
-// fits one tile a block (ops/fused_cg.py::tiled_grid_plan). The other
-// forms, and these at larger sizes, run the template of fused_grid_cg.cuh.
+// (opt_tpu/solver/gauss_newton.py:983-1004) and with chan_grid=True (:339,
+// :513, :1057-1128: the channels as one-channel systems over shared
+// fields), at the grid sizes whose state fits one tile a block
+// (ops/fused_cg.py::tiled_grid_plan). The other forms, and these at larger
+// sizes, run the template of fused_grid_cg.cuh.
 //
 // The arithmetic is the template's (fused_grid_cg.cuh:139-146): float32
 // products with explicit round-to-nearest intrinsics and no fused
@@ -85,10 +89,15 @@
 //     neighbours' r ring, which holds all C channels. The staged planes
 //     take 4*C*C*(th+2h)*(tw+2h) bytes; a shape whose planes do not fit is
 //     refused by the planner and keeps the template.
-//   * Under BLOCK the launch solves its systems one after the other (one
-//     for a single system), each with its own dots, exit and count; a grid
-//     barrier before each system after the first, and each block reloads
-//     its tile's state for it.
+//   * The MULTI instances (and every block-Jacobi launch) solve the
+//     launch's systems one after the other, each with its own dots, exit
+//     and count; a grid barrier before each system after the first, and
+//     each block reloads its tile's state for it. The per-channel split is
+//     C systems of one channel over the same fields (a field stride of 0);
+//     a batch, B systems of C channels with their own fields. The Jacobi
+//     one-system instances keep no loop: wrapped around their solve it
+//     cost them 3-8% an iteration on the H100, with other register counts
+//     (PERF.md).
 //   * The dynamic shared memory is set (cudaFuncSetAttribute) before the
 //     occupancy query and the launch; a launch that needs more blocks than
 //     can be co-resident is refused and the error returned.
@@ -340,14 +349,15 @@ __device__ __forceinline__ int tg_solve(cg::grid_group& grid, const TgTile& tt,
 // receives the solution (and, on LM reset iterations, delta's rings);
 // r_ring is scratch of one system's size, of which each block writes only
 // its ring; partA and partB hold one record a block. Under BLOCK pre holds
-// the C*C planes of M^-1 (plane i*C + j: M^-1[i][j]), and the launch holds
-// n_sys independent systems (1 for one system), solved in turn: system s
-// reads its fields at F + s*f_stride, b and ctc at s*C planes and its C*C
-// planes at s*C*C planes, writes delta at s*C planes and its count to
+// the C*C planes of M^-1 (plane i*C + j: M^-1[i][j]). The launch holds
+// n_sys independent systems of C channels (1 for one system; 1 under
+// bfloat16 fields), solved in turn: system s reads its fields at
+// F + s*f_stride, b, ctc and the elementwise pre at s*C planes (the C*C
+// planes at s*C*C planes), writes delta at s*C planes and its count to
 // iters[s]; a grid barrier before each system after the first frees the
 // partial records, r_ring and the tile's shared memory for it. Without
-// BLOCK n_sys is 1.
-template <bool LM, bool BLOCK, typename FT>
+// MULTI n_sys is 1 (BLOCK implies MULTI: one kernel for both).
+template <bool LM, bool BLOCK, typename FT, bool MULTI>
 __global__ void __launch_bounds__(TGCG_THREADS, 1)
 tiled_grid_cg_kernel(const FT* __restrict__ F, const float* __restrict__ b,
                      const float* __restrict__ pre,
@@ -374,12 +384,13 @@ tiled_grid_cg_kernel(const FT* __restrict__ F, const float* __restrict__ b,
                 s_f + n_triples, s_f + 2 * n_triples);
 
   cg::grid_group grid = cg::this_grid();
-  if constexpr (BLOCK) {
-    const int vec = C * tt.plane;  // one system's vector
+  if constexpr (MULTI) {
+    const int vec = C * tt.plane;               // one system's vector
+    const int pre_vec = BLOCK ? C * vec : vec;  // and its preconditioner planes
     for (int s = 0; s < n_sys; ++s) {
       if (s > 0) grid.sync();  // every block is done with the last system
       const int l = tg_solve<LM, BLOCK, FT>(
-          grid, tt, F + s * f_stride, b + s * vec, pre + s * C * vec,
+          grid, tt, F + s * f_stride, b + s * vec, pre + s * pre_vec,
           LM ? ctc + s * vec : ctc, C, lits, tol, guard_div, reset_period, q_tol,
           delta + s * vec, r_ring, partA, partB);
       if (blockIdx.x == 0 && threadIdx.x == 0) iters[s] = l;
@@ -391,20 +402,25 @@ tiled_grid_cg_kernel(const FT* __restrict__ F, const float* __restrict__ b,
   }
 }
 
-// The six instances: GN and LM, each with float32 fields and the
-// elementwise preconditioner, with block-Jacobi (one system or several in
-// turn) and with bfloat16 fields; null for bf16 with block-Jacobi, which no
+// The eight instances: GN and LM, each with float32 fields and the
+// elementwise preconditioner, one system and several in turn (`multi`),
+// with block-Jacobi (one kernel for both) and with bfloat16 fields (one
+// system); null for bf16 with block-Jacobi or several systems, which no
 // instance takes.
-static const void* tiled_instance(int lm, int block, int bf16) {
+static const void* tiled_instance(int lm, int block, int bf16, int multi) {
   if (block)
     return bf16 ? nullptr
-           : lm ? (const void*)tiled_grid_cg_kernel<true, true, float>
-                : (const void*)tiled_grid_cg_kernel<false, true, float>;
+           : lm ? (const void*)tiled_grid_cg_kernel<true, true, float, true>
+                : (const void*)tiled_grid_cg_kernel<false, true, float, true>;
   if (bf16)
-    return lm ? (const void*)tiled_grid_cg_kernel<true, false, __nv_bfloat16>
-              : (const void*)tiled_grid_cg_kernel<false, false, __nv_bfloat16>;
-  return lm ? (const void*)tiled_grid_cg_kernel<true, false, float>
-            : (const void*)tiled_grid_cg_kernel<false, false, float>;
+    return multi ? nullptr
+           : lm  ? (const void*)tiled_grid_cg_kernel<true, false, __nv_bfloat16, false>
+                 : (const void*)tiled_grid_cg_kernel<false, false, __nv_bfloat16, false>;
+  if (multi)
+    return lm ? (const void*)tiled_grid_cg_kernel<true, false, float, true>
+              : (const void*)tiled_grid_cg_kernel<false, false, float, true>;
+  return lm ? (const void*)tiled_grid_cg_kernel<true, false, float, false>
+            : (const void*)tiled_grid_cg_kernel<false, false, float, false>;
 }
 
 // tiled_grid.cuh describes it
@@ -457,16 +473,18 @@ int tiled_grid_cg_device_limits(int* sms, int* smem_per_block) {
 
 // Launches one solve on `stream`: tiles_r x tiles_c blocks of `threads`
 // threads, each with smem_bytes of dynamic shared memory (which must be
-// tg_smem_bytes of these arguments). F [T, N1, N2] (bfloat16 under bf16, else
-// float32), b, ctc (LM only), delta and r_ring [C, N1, N2] float32, pre
-// [C, N1, N2] or under `block` [C*C, N1, N2]; under `block` n_sys systems
-// (n_sys = 1 without it), F [n_sys, T, N1, N2] (f_stride = T*N1*N2), b, ctc
-// and delta [n_sys, C, N1, N2], pre [n_sys, C*C, N1, N2], r_ring one
-// system's; triples [n_triples, 6] sorted by output channel with their
-// per-channel starts [C + 1]; partA and partB tiles_r*tiles_c double2
-// records each; iters n_sys ints. Returns the CUDA error (tg_launch's;
-// cudaErrorInvalidValue too for bf16 with block, which no instance takes).
-int tiled_grid_cg_launch(int lm, int block, int bf16, const void* F, const float* b,
+// tg_smem_bytes of these arguments). n_sys systems of C channels (n_sys = 1
+// without `multi` or `block`; `multi` is not taken under bf16): F
+// [T, N1, N2] shared by the systems (f_stride 0: the
+// per-channel split, C = 1) or [n_sys, T, N1, N2] (f_stride = T*N1*N2: a
+// batch), bfloat16 under bf16, else float32; b, ctc (LM only) and delta
+// [n_sys, C, N1, N2] float32, pre [n_sys, C, N1, N2] or under `block`
+// [n_sys, C*C, N1, N2]; r_ring [C, N1, N2], one system's; triples
+// [n_triples, 6] sorted by output channel with their per-channel starts
+// [C + 1]; partA and partB tiles_r*tiles_c double2 records each; iters
+// n_sys ints. Returns the CUDA error (tg_launch's; cudaErrorInvalidValue
+// too for bf16 with block or multi, which no instance takes).
+int tiled_grid_cg_launch(int lm, int block, int bf16, int multi, const void* F, const float* b,
                          const float* pre, const float* ctc,
                          const int* triples, const int* starts, int C,
                          int n_triples, int N1, int N2, int tiles_r,
@@ -476,7 +494,7 @@ int tiled_grid_cg_launch(int lm, int block, int bf16, const void* F, const float
                          double2* partA, double2* partB, int* iters,
                          int threads, int smem_bytes, void* stream) {
   if (lm && (ctc == nullptr || reset_period < 1)) return (int)cudaErrorInvalidValue;
-  if (block ? (n_sys < 1 || f_stride < 0) : n_sys != 1)
+  if (n_sys < 1 || f_stride < 0 || (!multi && !block && n_sys != 1))
     return (int)cudaErrorInvalidValue;
   void* args[] = {(void*)&F,        (void*)&b,       (void*)&pre,
                   (void*)&ctc,      (void*)&triples, (void*)&starts,
@@ -488,7 +506,7 @@ int tiled_grid_cg_launch(int lm, int block, int bf16, const void* F, const float
                   (void*)&n_sys,    (void*)&f_stride,
                   (void*)&delta,    (void*)&r_ring,  (void*)&partA,
                   (void*)&partB,    (void*)&iters};
-  return tg_launch(tiled_instance(lm, block, bf16), args, C, n_triples, N1, N2, tiles_r,
+  return tg_launch(tiled_instance(lm, block, bf16, multi), args, C, n_triples, N1, N2, tiles_r,
                    tiles_c, th, tw, h,
                    tg_smem_bytes(lm, block, 0, C, th, tw, h, n_triples), threads,
                    smem_bytes, stream);

@@ -59,16 +59,17 @@ MULTI instances with the fields' and the blocks' per-system strides, one
 system after the other (:func:`batched_kernel_form`).
 
 The tiled route: where one system's state fits the card's shared memory at
-one tile a block (:func:`tiled_grid_plan`: a 2-D grid, no split or
-remainder; the standard GN or LM loop with float32 fields and the
-elementwise or the block preconditioner, or with bfloat16 fields and the
-elementwise one; or the Chronopoulos–Gear loop with float32 fields and the
-elementwise one; a batch only under block-Jacobi in the multi form,
-:func:`route_plan`), :func:`fused_grid_cg_kernel` launches
-``csrc/tiled_grid_cg.cu`` (launches ``gn_tiled``, ``lm_tiled``,
+one tile a block (:func:`tiled_grid_plan`: a 2-D grid, no remainder; the
+standard GN or LM loop with float32 fields and the elementwise or the
+block preconditioner, or with bfloat16 fields and the elementwise one; or
+the Chronopoulos–Gear loop with float32 fields and the elementwise one;
+the split and a batch in the multi form, :func:`route_plan`, only under
+the standard loop with float32 fields), :func:`fused_grid_cg_kernel`
+launches ``csrc/tiled_grid_cg.cu`` (launches ``gn_tiled``, ``lm_tiled``,
 ``gn_bf16_tiled``, ``lm_bf16_tiled``, ``gn_bj_tiled``, ``lm_bj_tiled``,
-and under a batch ``gn_bj_multi_tiled`` and ``lm_bj_multi_tiled``, which
-run the block-Jacobi kernel over the systems in turn) or
+and for several systems in turn ``gn_multi_tiled`` and ``lm_multi_tiled``,
+the split's one-channel systems or a batch's, and ``gn_bj_multi_tiled``
+and ``lm_bj_multi_tiled``, a batch under block-Jacobi) or
 ``csrc/tiled_grid_cs.cu`` (``gn_cs_tiled``, ``lm_cs_tiled``: one grid
 barrier an iteration) instead of the template: each block keeps its
 tile's state (and under block-Jacobi its C·C planes) in shared memory for
@@ -730,6 +731,10 @@ TILED_INSTANCES += tuple((lm, True, False, False, False, multi, False, True)
 # and its launches on bfloat16 fields, GN and LM, one system each
 TILED_INSTANCES += tuple((lm, False, cs, False, not cs, False, False, True)
                          for cs in (True, False) for lm in (False, True))
+# the tiled grid kernel's Jacobi launches on several systems in turn: the
+# per-channel split's one-channel systems, a batch's systems
+TILED_INSTANCES += tuple((lm, False, False, False, False, True, False, True)
+                         for lm in (False, True))
 
 
 def batched_kernel_form(meta, pre_blocks=None) -> str:
@@ -952,28 +957,32 @@ def _tile_split(N1: int, N2: int, h: int, sm_count: int):
 
 def tiled_grid_plan(meta, C: int, dom, *, lm: bool, cs: bool = False, block: bool = False,
                     sm_count: int, smem_per_block: int) -> Optional[Dict]:
-    """Whether a launch on ``meta`` with C channels on the domain ``dom``
-    takes the tiled kernel, and how: None, or {tiles: (rows, columns of
-    tiles), tile: (th, tw), halo: h, threads, smem_bytes}. Taken on a 2-D
-    grid (dom [N1, N2] or [1, N1, N2] with N1 > 1: not the graph domain
-    [1, N]), GN or LM (``lm``), in one of these forms: the standard loop
-    with float32 fields and the elementwise or the block preconditioner
-    (``block``), one system or, under ``block``, a batch of them in turn;
-    the standard loop with bfloat16 fields and the elementwise
+    """Whether a launch on ``meta`` whose systems have C channels each on
+    the domain ``dom`` takes the tiled kernel, and how: None, or {tiles:
+    (rows, columns of tiles), tile: (th, tw), halo: h, threads,
+    smem_bytes}. Taken on a 2-D grid (dom [N1, N2] or [1, N1, N2] with
+    N1 > 1: not the graph domain [1, N]), GN or LM (``lm``), in one of
+    these forms: the standard loop with float32 fields and the elementwise
+    or the block preconditioner (``block``), one system or several in turn
+    (a batched meta; or, with the elementwise preconditioner, the
+    per-channel split, ``chan_grid``, whose systems have one channel: C is
+    then 1); the standard loop with bfloat16 fields and the elementwise
     preconditioner, one system; the Chronopoulos–Gear loop (``cs``) with
     float32 fields and the elementwise preconditioner, one system. No
-    split, no remainder, up to the kernel's channels and triples, when the
-    grid splits into at most ``sm_count`` tiles (:func:`_tile_split`) whose
+    remainder, up to the kernel's channels and triples, when the grid
+    splits into at most ``sm_count`` tiles (:func:`_tile_split`) whose
     state and halo, and under ``block`` the C·C planes over them, fit
     ``smem_per_block``. h is the largest |offset| of the triples in either
     axis. Chronopoulos–Gear or bfloat16 with block-Jacobi, the two
-    together, and a batch without block-Jacobi keep the template."""
+    together, and either with the split or a batch keep the template (so
+    does the split under block-Jacobi, which the template refuses too)."""
     bf16 = meta["F"].dtype == torch.bfloat16
     if meta["F"].dtype not in (torch.float32, torch.bfloat16):
         return None
-    if ((cs or bf16) and block) or (cs and bf16) or (meta.get("batch") and not block):
+    split, multi = bool(meta.get("chan_grid")), bool(meta.get("chan_grid") or meta.get("batch"))
+    if (cs or bf16) and (block or multi) or (cs and bf16) or (split and block):
         return None
-    if meta.get("chan_grid") or meta.get("rem") is not None:
+    if meta.get("rem") is not None:
         return None
     dom = tuple(int(s) for s in dom)
     triples = meta["triples"]
@@ -1183,22 +1192,23 @@ def route_plan(meta, b, *, lm: bool, cs: bool = False, pre_blocks=None) -> Optio
     vector ``b`` (and the block preconditioner's planes ``pre_blocks``, or
     None), at the limits of ``b``'s device: the tiled kernel's plan, or
     None where the launch takes the template. A batched meta takes the
-    tiled kernel only under the block preconditioner and in the form
-    :func:`batched_kernel_form` calls "multi" (the systems in turn); the
-    "batch" form and a batch without ``pre_blocks`` keep the template. A
-    meta with the graph remainder takes :func:`graph_tile_plan`'s plan (the
-    graph kernel) or None."""
+    tiled kernel only in the form :func:`batched_kernel_form` calls
+    "multi" (the systems in turn), planned at one system's C channels; the
+    "batch" form keeps the template. The per-channel split is planned at
+    one channel, its systems'. A meta with the graph remainder takes
+    :func:`graph_tile_plan`'s plan (the graph kernel) or None."""
     block = pre_blocks is not None
     lead = 1 if meta.get("batch") else 0
     if meta.get("rem") is not None:
         sms, smem = device_limits(b.device)
         return graph_tile_plan(meta, int(b.shape[lead]), int(b.shape[-1]), lm=lm, cs=cs,
                                block=block, sm_count=sms, smem_per_block=smem)
-    if lead and not (block and batched_kernel_form(meta, pre_blocks) == "multi"):
+    if lead and batched_kernel_form(meta, pre_blocks) != "multi":
         return None
+    C = 1 if meta.get("chan_grid") else int(b.shape[lead])
     sms, smem = device_limits(b.device)
-    return tiled_grid_plan(meta, int(b.shape[lead]), b.shape[lead + 1:], lm=lm, cs=cs,
-                           block=block, sm_count=sms, smem_per_block=smem)
+    return tiled_grid_plan(meta, C, b.shape[lead + 1:], lm=lm, cs=cs, block=block,
+                           sm_count=sms, smem_per_block=smem)
 
 
 def launch_instance(meta, b, *, lm: bool = False, cs: bool = False, pre_blocks=None) -> str:
@@ -1208,7 +1218,8 @@ def launch_instance(meta, b, *, lm: bool = False, cs: bool = False, pre_blocks=N
     bf16 = meta["F"].dtype == torch.bfloat16
     if route_plan(meta, b, lm=lm, cs=cs, pre_blocks=pre_blocks) is not None:
         return instance_name(lm, meta.get("rem") is not None, cs, block, bf16,
-                             multi=bool(meta.get("batch")), tiled=True)
+                             multi=bool(meta.get("batch") or meta.get("chan_grid")),
+                             tiled=True)
     form = batched_kernel_form(meta, pre_blocks) if meta.get("batch") else None
     multi = form == "multi" if form else bool(meta.get("chan_grid"))
     return instance_name(lm, meta.get("rem") is not None, cs, block, bf16, multi,
@@ -1225,17 +1236,21 @@ def tiled_grid_cg_kernel(meta, b, pre, lits, tol, plan, *, guard_div=True, ctc=N
     bfloat16 fields when the meta's F is bfloat16 (else float32); the block
     preconditioner when ``pre_blocks`` ([C·C, *dom]) is given (``pre`` is
     then not read; not with ``cs`` or bfloat16 fields, nor ``cs`` with
-    bfloat16 fields: no tiled instance takes those). A batched meta
-    (``meta["batch"]`` = B, F [B, T, *dom]) takes b, ctc and the vectors as
-    [B, C, *dom] and pre_blocks as [B, C·C, *dom] (it needs them: only the
-    block-Jacobi kernel takes several systems) and solves the B systems in
-    turn in the one launch, counted as ``*_bj_multi_tiled``.
-    Returns (delta, iters int32[n_sys] on the device, n_sys = B under a
-    batch, else 1). Does not synchronise. A launch the card refuses (more
-    tiles than co-resident blocks, shared memory beyond the block's)
-    raises. Each launch adds one to ``fused_grid_cg_kernel.launches[name]``
-    (:func:`instance_name`: ``gn_tiled``, ``lm_cs_tiled``,
-    ``gn_bf16_tiled``, ``lm_bj_tiled``, ``lm_bj_multi_tiled``, ...)."""
+    bfloat16 fields: no tiled instance takes those). Several systems, in
+    turn in the one launch, each with its own exit and count (the standard
+    loop with float32 fields only): a batched meta (``meta["batch"]`` = B,
+    F [B, T, *dom]) takes b, pre, ctc as [B, C, *dom] and pre_blocks as
+    [B, C·C, *dom], B systems with their own fields; the per-channel split
+    (``meta["chan_grid"]``, the triples one channel's) takes the C channels
+    of b, pre and ctc as C one-channel systems over the shared F. Both are
+    counted as ``*_multi_tiled`` (``gn_multi_tiled``,
+    ``lm_bj_multi_tiled``, ...). Returns (delta, iters int32[n_sys] on the
+    device, n_sys = B under a batch, C under the split, else 1). Does not
+    synchronise. A launch the card refuses (more tiles than co-resident
+    blocks, shared memory beyond the block's) raises. Each launch adds one
+    to ``fused_grid_cg_kernel.launches[name]`` (:func:`instance_name`:
+    ``gn_tiled``, ``lm_cs_tiled``, ``gn_bf16_tiled``, ``lm_bj_tiled``,
+    ``gn_multi_tiled``, ...)."""
     from ._build import load_library
 
     F = meta["F"]
@@ -1246,14 +1261,13 @@ def tiled_grid_cg_kernel(meta, b, pre, lits, tol, plan, *, guard_div=True, ctc=N
     if F.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"tiled_grid_cg_kernel takes float32 or bfloat16 fields, got {F.dtype}")
     bf16 = F.dtype == torch.bfloat16
-    n_sys = int(meta.get("batch") or 0)
-    multi = n_sys > 0
-    lead = (n_sys,) if multi else ()  # the batch axis of every operand
-    if multi and not block:
-        raise ValueError("tiled_grid_cg_kernel: a batch takes the block preconditioner")
-    if ((cs or bf16) and block) or (cs and bf16):
+    batch = int(meta.get("batch") or 0)
+    split = bool(meta.get("chan_grid"))
+    lead = (batch,) if batch else ()  # the batch axis of every operand
+    if ((cs or bf16) and (block or batch or split)) or (cs and bf16) or (split and block):
         raise ValueError("tiled_grid_cg_kernel: no tiled instance takes Chronopoulos–Gear or "
-                         "bfloat16 fields with the block preconditioner, or the two together")
+                         "bfloat16 fields with the block preconditioner, several systems or "
+                         "each other, or the split with the block preconditioner")
     C = int(b.shape[len(lead)])
     full = tuple(int(s) for s in b.shape[len(lead) + 1:])
     dom = full[1:] if len(full) == 3 and full[0] == 1 else full
@@ -1264,7 +1278,7 @@ def tiled_grid_cg_kernel(meta, b, pre, lits, tol, plan, *, guard_div=True, ctc=N
     if block:
         _check_operand("pre_blocks", pre_blocks, lead + (C * C,) + full, torch.float32, device)
     else:
-        _check_operand("pre", pre, (C,) + full, torch.float32, device)
+        _check_operand("pre", pre, lead + (C,) + full, torch.float32, device)
     n_fields = int(F.shape[len(lead)])
     _check_operand("F", F, lead + (n_fields,) + full, F.dtype, device)
     if lm:
@@ -1274,9 +1288,11 @@ def tiled_grid_cg_kernel(meta, b, pre, lits, tol, plan, *, guard_div=True, ctc=N
                 "tiled_grid_cg_kernel: the LM loop needs reset_period >= 1 and "
                 f"q_tolerance, got {reset_period} and {q_tolerance}"
             )
+    # n_sys systems of c_sys channels: a batch's, the split's channels
+    n_sys, c_sys = (batch, C) if batch else ((C, 1) if split else (1, C))
     triples = meta["triples"]
-    if not 0 < len(triples) <= MAX_TRIPLES or not 1 <= C <= MAX_CHANNELS or any(
-            not (0 <= fid < n_fields and 0 <= i < C and 0 <= j < C)
+    if not 0 < len(triples) <= MAX_TRIPLES or not 1 <= c_sys <= MAX_CHANNELS or any(
+            not (0 <= fid < n_fields and 0 <= i < c_sys and 0 <= j < c_sys)
             for (_d, i, j, fid) in triples):
         raise ValueError("tiled_grid_cg_kernel: triples, channels or field ids out of range")
     if b.numel() >= 2**31 or F.numel() >= 2**31 or (block and C * b.numel() >= 2**31):
@@ -1285,17 +1301,17 @@ def tiled_grid_cg_kernel(meta, b, pre, lits, tol, plan, *, guard_div=True, ctc=N
     if device.type != "cuda":  # after the operand checks, which hold on any device
         raise ValueError(f"tiled_grid_cg_kernel needs CUDA tensors, got {device}")
     lib = load_library()
-    tr_rows, starts = _device_triples(triples, C, device)
+    tr_rows, starts = _device_triples(triples, c_sys, device)
     delta = torch.empty_like(b)
-    r_ring = torch.empty((C,) + full, dtype=torch.float32, device=device)  # one system's
+    r_ring = torch.empty((c_sys,) + full, dtype=torch.float32, device=device)  # one system's
     # Chronopoulos-Gear: w's rings by the iteration's parity, two records a
     # block (LM's three dots) in each parity's partials
     w_ring = torch.empty((2, C) + full, dtype=torch.float32, device=device) if cs else None
     part = torch.empty((2, tr * tc, 4 if cs else 2), dtype=torch.float64, device=device)
-    iters = torch.empty(max(n_sys, 1), dtype=torch.int32, device=device)
+    iters = torch.empty(n_sys, dtype=torch.int32, device=device)
     ptr = lambda t: None if t is None else ctypes.c_void_p(t.data_ptr())  # noqa: E731
     shape = (ptr(F), ptr(b), ptr(pre_blocks if block else pre), ptr(ctc), ptr(tr_rows),
-             ptr(starts), C, len(triples), N1, N2, tr, tc, th, tw, h,
+             ptr(starts), c_sys, len(triples), N1, N2, tr, tc, th, tw, h,
              int(lits), ctypes.c_float(float(tol)), int(bool(guard_div)),
              int(reset_period) if lm else 0, ctypes.c_float(float(q_tolerance) if lm else 0.0))
     launch = (int(plan["threads"]), int(plan["smem_bytes"]),
@@ -1307,15 +1323,15 @@ def tiled_grid_cg_kernel(meta, b, pre, lits, tol, plan, *, guard_div=True, ctc=N
                 ptr(part[1]), ptr(iters), *launch)
         else:
             err = lib.tiled_grid_cg_launch(
-                int(lm), int(block), int(bf16), *shape, max(n_sys, 1),
-                n_fields * N1 * N2 if multi else 0, ptr(delta), ptr(r_ring), ptr(part[0]),
+                int(lm), int(block), int(bf16), int(bool(batch or split)), *shape, n_sys,
+                n_fields * N1 * N2 if batch else 0, ptr(delta), ptr(r_ring), ptr(part[0]),
                 ptr(part[1]), ptr(iters), *launch)
     if err != 0:
         raise RuntimeError(f"tiled_grid_cg kernel launch failed: CUDA error {err} "
                            f"({tr}x{tc} tiles of {th}x{tw}, {plan['smem_bytes']} bytes of "
                            "shared memory a block)")
-    fused_grid_cg_kernel.launches[instance_name(lm, False, cs, block, bf16, multi=multi,
-                                                tiled=True)] += 1
+    fused_grid_cg_kernel.launches[instance_name(lm, False, cs, block, bf16,
+                                                multi=bool(batch or split), tiled=True)] += 1
     return delta, iters
 
 

@@ -1,0 +1,97 @@
+#!/usr/bin/env python3
+"""Time the tiled kernel's one-system instances of a source tree on the card.
+
+    python3 scripts/tiled_one_system_times.py [--root TREE] [--label NAME]
+
+Imports opt_tpu_torch from TREE (default: this checkout), builds its
+kernels there, and times gn_tiled on poisson 512x512x4 (bench_poisson's
+inputs), lm_tiled on image_warping 512x512's first LM system, and their
+bfloat16 instances gn_bf16_tiled and lm_bf16_tiled: ms per CG iteration,
+100 iterations with no exit, CUDA events, three launches after a warm-up.
+It also prints each instance's registers and spills from ptxas. Run it on
+two trees in turns (A, B, B, A) in one command to compare two versions of
+the kernel on one card; each JSON line names the tree's label and the
+card's name and power limit."""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    ap.add_argument("--label", default="tree")
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.root))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("tiled_one_system_times: needs a CUDA card", file=sys.stderr)
+        return 2
+    import opt_tpu_torch as ot
+    from opt_tpu_torch.models.specs import image_warping, poisson_image_editing
+    from opt_tpu_torch.ops import fused_cg
+    from opt_tpu_torch.ops._build import build_library, instance_registers
+
+    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    info = build_library()
+    regs = instance_registers(info["log"])
+    n, f32 = 512, np.float32
+    rng = np.random.RandomState(0)
+    mask = np.ones((n, n), f32)
+    mask[n // 8: -n // 8, n // 8: -n // 8] = 0.0
+    poisson = {"X": rng.rand(n, n, 4).astype(f32), "T": rng.rand(n, n, 4).astype(f32), "M": mask}
+    rng = np.random.RandomState(0)
+    ur = np.stack(np.meshgrid(np.arange(n), np.arange(n), indexing="ij"), -1).astype(f32)
+    con = -np.ones((n, n, 2), f32)
+    for _ in range(16):
+        i, j = rng.randint(0, n, 2)
+        con[i, j] = [i + rng.randn() * 3, j + rng.randn() * 3]
+    warp = {"Offset": ur.copy(), "Angle": np.zeros((n, n), f32), "UrShape": ur,
+            "Constraints": con, "Mask": np.zeros((n, n), f32),
+            "w_fitSqrt": np.sqrt(100.0).astype(f32), "w_regSqrt": np.sqrt(0.01).astype(f32)}
+    for spec, kind, inputs, dtype in ((poisson_image_editing, "gaussNewtonGPU", poisson, None),
+                                      (image_warping, "LMGPU", warp, None),
+                                      (poisson_image_editing, "gaussNewtonGPU", poisson,
+                                       "bfloat16"),
+                                      (image_warping, "LMGPU", warp, "bfloat16")):
+        plan = ot.Problem(spec, kind=kind).plan(
+            dims={"W": n, "H": n}, init_params=ot.InitializationParameters(
+                coefficient_dtype=dtype))
+        meta, r0, pre, kw = plan.cg_inputs(inputs)
+        b, p = fused_cg.pack(r0, meta), fused_cg.pack(pre, meta)
+        lm = {}
+        if kind == "LMGPU":
+            lm = dict(ctc=fused_cg.pack(kw["ctc"], meta), reset_period=kw["reset_period"],
+                      q_tolerance=float("-inf"))
+        name = fused_cg.launch_instance(meta, b, lm=bool(lm))
+
+        def call():
+            return fused_cg.fused_grid_cg_kernel(meta, b, p, 100, 0.0, **lm)
+
+        call()
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(3):
+            _d, it = call()
+        e1.record()
+        torch.cuda.synchronize()
+        key = next(k for k in fused_cg.TILED_INSTANCES if fused_cg.instance_name(*k) == name)
+        print(json.dumps({"tree": args.label, "instance": name, "gpu": gpu,
+                          "iters": int(it.sum()),
+                          "kernel_ms_per_cg_iter": e0.elapsed_time(e1) / 3 / int(it.sum()),
+                          "registers_spill_store_load_bytes": list(regs.get(key, ()))}),
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -347,10 +347,12 @@ def test_plan_refuses_other_forms(case, block):
     with the block preconditioner. bfloat16 fields and Chronopoulos–Gear are
     taken with the elementwise preconditioner (tests/test_torch_tiled_bf16.py,
     tests/test_torch_tiled_cs.py) and refused with the block one, and the two
-    together are refused with either. A batch is
-    taken under block-Jacobi in the multi form only (route_plan): a batch of
+    together are refused with either. The per-channel split is taken with the
+    elementwise preconditioner, planned at one channel, and refused with the
+    block one (tests/test_torch_tiled_multi.py). A batch is taken in the
+    multi form only (route_plan), with either preconditioner: a batch of
     small systems, which batched_kernel_form sends to the block-per-system
-    form, is refused with either preconditioner."""
+    form, is refused with either."""
     dom = (64, 64)
     meta = _synthetic_meta(dom, _five_point(2))
     kw = dict(lm=False, block=block, sm_count=SMS, smem_per_block=SMEM)
@@ -365,7 +367,8 @@ def test_plan_refuses_other_forms(case, block):
     elif case == "rem":
         meta["rem"] = {"rowptr": None, "col": None, "blk": None}
     elif case == "split":
-        meta["chan_grid"] = True
+        meta = _synthetic_meta(dom, _five_point(1), chan_grid=True, ctot=2)
+        C = 1  # the split's systems are one channel each
     elif case == "batch":
         dom = (8, 8)  # 2 x 64 values, and 4 x 64 more under block-Jacobi: the batch form
         meta = _synthetic_meta(dom, _five_point(2), batch=4, ctot=2)
@@ -376,6 +379,14 @@ def test_plan_refuses_other_forms(case, block):
         assert fused_cg.route_plan(meta, b, lm=False, pre_blocks=pb) is None
         assert fused_cg.launch_instance(meta, b, pre_blocks=pb) == (
             "gn_bj_batch" if block else "gn_batch")
+        # larger systems, the multi form, take the tiled kernel
+        big = dict(meta, F=torch.zeros((4, 5, 64, 64)))
+        bb = torch.zeros((4, C, 64, 64))
+        pbb = torch.zeros((4, C * C, 64, 64)) if block else None
+        assert fused_cg.batched_kernel_form(big, pbb) == "multi"
+        assert fused_cg.route_plan(big, bb, lm=False, pre_blocks=pbb) is not None
+        assert fused_cg.launch_instance(big, bb, pre_blocks=pbb) == (
+            "gn_bj_multi_tiled" if block else "gn_multi_tiled")
     elif case == "3d":
         dom = (4, 64, 64)
         meta = _synthetic_meta(dom, [((0, 0, 0), 0, 0, 0), ((1, 0, 0), 0, 0, 1)])
@@ -389,6 +400,10 @@ def test_plan_refuses_other_forms(case, block):
         assert plan["tiles"] == fused_cg.tiled_grid_plan(
             _synthetic_meta(dom, _five_point(2)), C, dom, lm=False, sm_count=SMS,
             smem_per_block=SMEM)["tiles"]
+    elif case == "split" and not block:  # taken, at one channel's plan
+        plan = fused_cg.tiled_grid_plan(meta, C, dom, **kw)
+        assert plan == fused_cg.tiled_grid_plan(_synthetic_meta(dom, _five_point(1)), 1, dom,
+                                                lm=False, sm_count=SMS, smem_per_block=SMEM)
     elif case != "batch":
         assert fused_cg.tiled_grid_plan(meta, C, dom, **kw) is None
     if case not in ("3d", "graph", "cs"):  # the same meta as it came, taken
@@ -521,9 +536,10 @@ def test_route_names_the_tiled_instance(kind):
 
 @pytest.mark.parametrize("lm", [False, True])
 def test_route_takes_the_multi_form_of_a_block_batch(lm):
-    """A batched meta takes the tiled kernel under block-Jacobi in the
-    multi form (the systems in turn): 4 × 64²×3 systems; without the
-    block preconditioner it keeps the template's strided multi form."""
+    """A batched meta takes the tiled kernel in the multi form (the systems
+    in turn): 4 × 64²×3 systems, under block-Jacobi and, at the Jacobi
+    plan, without it; by Chronopoulos–Gear it keeps the template's strided
+    multi form."""
     n, B = 64, 4
     meta = _synthetic_meta((1, 1), _iw_like_triples(), batch=B, ctot=3)
     meta["F"] = torch.zeros((B, 31, n, n))
@@ -533,13 +549,18 @@ def test_route_takes_the_multi_form_of_a_block_batch(lm):
     plan = fused_cg.route_plan(meta, b, lm=lm, pre_blocks=pb)
     assert plan is not None and plan == fused_cg.tiled_grid_plan(
         meta, 3, (n, n), lm=lm, block=True, sm_count=SMS, smem_per_block=SMEM)
-    # the planner itself refuses the batch without the block preconditioner
-    assert fused_cg.tiled_grid_plan(meta, 3, (n, n), lm=lm, block=False, sm_count=SMS,
-                                    smem_per_block=SMEM) is None
+    # without the block preconditioner, the one-system Jacobi plan
+    jacobi = fused_cg.tiled_grid_plan(meta, 3, (n, n), lm=lm, block=False, sm_count=SMS,
+                                      smem_per_block=SMEM)
+    assert jacobi is not None and jacobi == fused_cg.tiled_grid_plan(
+        _synthetic_meta((1, 1), _iw_like_triples()), 3, (n, n), lm=lm, sm_count=SMS,
+        smem_per_block=SMEM)
     name = "lm" if lm else "gn"
     assert fused_cg.launch_instance(meta, b, lm=lm, pre_blocks=pb) == name + "_bj_multi_tiled"
-    assert fused_cg.route_plan(meta, b, lm=lm) is None
-    assert fused_cg.launch_instance(meta, b, lm=lm) == name + "_multi"
+    assert fused_cg.route_plan(meta, b, lm=lm) == jacobi
+    assert fused_cg.launch_instance(meta, b, lm=lm) == name + "_multi_tiled"
+    assert fused_cg.route_plan(meta, b, lm=lm, cs=True) is None
+    assert fused_cg.launch_instance(meta, b, lm=lm, cs=True) == name + "_cs_multi"
     assert fused_cg.launch_instance(meta, b, lm=lm, cs=True, pre_blocks=pb) == (
         name + "_cs_bj_multi")
 
@@ -549,35 +570,39 @@ def test_instance_names_and_launch_counts():
     assert names == ["gn_tiled", "lm_tiled", "gn_bj_tiled", "lm_bj_tiled",
                      "gn_bj_multi_tiled", "lm_bj_multi_tiled", "gn_rem_tiled", "lm_rem_tiled",
                      "gn_rem_multi_tiled", "lm_rem_multi_tiled", "gn_cs_tiled", "lm_cs_tiled",
-                     "gn_bf16_tiled", "lm_bf16_tiled"]
+                     "gn_bf16_tiled", "lm_bf16_tiled", "gn_multi_tiled", "lm_multi_tiled"]
     fused_cg.reset_launch_counts()
     assert set(names) | {"gn", "lm", "gn_bj", "lm_bj_multi"} <= set(
         fused_cg.fused_grid_cg_kernel.launches)
-    assert len(fused_cg.fused_grid_cg_kernel.launches) == 96 + 14
+    assert len(fused_cg.fused_grid_cg_kernel.launches) == 96 + 16
 
 
 def test_build_compiles_the_tiled_unit_and_reads_its_registers():
     assert "tiled_grid_cg.cu" in _build.UNITS and "tiled_grid_cg.cu" in _build.SOURCES
     assert (_build.CSRC / "tiled_grid_cg.cu").exists()
-    # the four float32 kernels, tiled_grid_cg_kernel<LM, BLOCK, float>; a
-    # block kernel's registers stand under its one-system and its
-    # multi-system launch names
+    # the six float32 kernels, tiled_grid_cg_kernel<LM, BLOCK, float, MULTI>:
+    # the Jacobi ones for one system and for several (MULTI) under their own
+    # launch names, a block-Jacobi kernel's registers under its one-system
+    # and its multi-system names
     lines, want = [], {}
-    for k, (lm, block) in enumerate(((0, 0), (1, 0), (0, 1), (1, 1))):
+    for k, (lm, block, multi) in enumerate(((0, 0, 0), (1, 0, 0), (0, 1, 1), (1, 1, 1),
+                                            (0, 0, 1), (1, 0, 1))):
         lines.append("ptxas info    : Compiling entry function "
-                     f"'_Z20tiled_grid_cg_kernelILb{lm}ELb{block}EfEvPKT1_PKfS4_' for 'sm_90a'")
+                     f"'_Z20tiled_grid_cg_kernelILb{lm}ELb{block}EfLb{multi}EEvPKT1_PKfS4_' "
+                     "for 'sm_90a'")
         if k == 0:
             lines.append("    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads")
         lines.append(f"ptxas info    : Used {64 + 8 * k} registers, used 1 barriers, 416 bytes "
                      "cmem[0]")
-        for multi in ((False, True) if block else (False,)):
-            want[(bool(lm), False, False, bool(block), False, multi, False, True)] = (
+        for m in (False, True) if block else (bool(multi),):
+            want[(bool(lm), False, False, bool(block), False, m, False, True)] = (
                 (64 + 8 * k,) + ((4, 4) if k == 0 else (0, 0)))
     regs = _build.instance_registers("\n".join(lines))
-    # the grid kernel's six float32 launch names (the graph kernel's four:
+    # the grid kernel's eight float32 launch names (the graph kernel's four:
     # tests/test_torch_tiled_graph.py; the bf16 and Chronopoulos-Gear ones:
     # tests/test_torch_tiled_bf16.py, tests/test_torch_tiled_cs.py)
-    assert regs == want and set(regs) == set(fused_cg.TILED_INSTANCES[:6])
+    assert regs == want and set(regs) == set(fused_cg.TILED_INSTANCES[:6]
+                                             + fused_cg.TILED_INSTANCES[-2:])
 
 
 # -- the emulation against the twin, bitwise ------------------------------------------
@@ -710,7 +735,7 @@ def test_tiled_wrapper_checks_operands_first():
         fused_cg.tiled_grid_cg_kernel(meta, b, None, 10, 0.0, plan,
                                       pre_blocks=torch.zeros((8, N, N)))
     batched = dict(meta, F=meta["F"][None].expand(2, -1, -1, -1).contiguous(), batch=2)
-    with pytest.raises(ValueError, match="a batch takes the block preconditioner"):
+    with pytest.raises(ValueError, match="pre has shape"):  # a batch's pre has its batch axis
         fused_cg.tiled_grid_cg_kernel(batched, b[None].expand(2, -1, -1, -1).contiguous(),
                                       pre, 10, 0.0, plan)
     with pytest.raises(ValueError, match="reset_period"):
