@@ -81,17 +81,24 @@ lm_tiled, gn_bf16_tiled, lm_bf16_tiled, gn_bj_tiled, lm_bj_tiled,
 gn_multi_tiled, lm_multi_tiled, gn_bj_multi_tiled and lm_bj_multi_tiled;
 its Chronopoulos-Gear loop, one grid barrier an iteration,
 opt_tpu_torch/ops/csrc/tiled_grid_cs.cu, gn_cs_tiled and lm_cs_tiled; in
-the same library); every check above of such a system runs it, three more
+the same library); where a one-system float32 Jacobi GN or LM system's
+state does not fit but its r and haloed p do (image_warping 1024x1024x3),
+the same kernel in its hbm layout, delta and Ap in a device frame a block
+(gn_hbm_tiled, lm_hbm_tiled; the tiled_plan lines print the layout, the
+timing lines the layout's own floor beside the bound); every check above
+of such a system runs it, three more
 shapes check it in each form (the radius-2 stencil, image_warping on a
 grid its tiles do not divide, and on a grid of one tile; the split forced
-at 500x301 and on a three-channel radius-2 stencil), each system of a
-batch launch is held bitwise to its own one-system launch, the template's
+at 500x301 and on a three-channel radius-2 stencil; the hbm layout forced
+at image_warping 512x512 and 500x301 and on the radius-2 stencil), each
+system of a batch launch is held bitwise to its own one-system launch, the template's
 gn, lm, gn_cs, lm_cs, gn_bf16, lm_bf16, gn_bj, lm_bj, gn_multi, lm_multi,
 gn_bj_multi and lm_bj_multi instances stay checked and timed beside it on
 the same systems in turns, and the main paths of those systems launch it
 once a step (poisson's and image_warping LM's Chronopoulos-Gear and
-bfloat16 solves, the split and the poisson batch also held cost for cost
-and count for count to the same solves on the template route).
+bfloat16 solves, the split, the poisson batch and image_warping 1024x1024
+GN 4x100, on the hbm layout, also held cost for cost and count for count
+to the same solves on the template route).
 The graph route: a graph system with the remainder whose vertex partition
 fits the card's shared memory (fused_cg.graph_tile_plan: float32, the
 standard GN or LM loop, the Jacobi preconditioner, one system or a batch
@@ -894,7 +901,8 @@ def form_of(meta, b, lm=None, cs=False, pre_blocks=None, template=False):
 def tiled_line(label, meta, b, lm=None, pre_blocks=None, cs=False):
     """The tiled route's plan of a system (of each system of a batch or a
     split), printed: tiles, halo, threads and shared memory a block, a
-    system's channels; raises where the system does not take it."""
+    system's channels, the layout ("resident", or "hbm": δ and Ap in device
+    memory); raises where the system does not take it."""
     plan = fused_cg.route_plan(meta, b, lm=bool(lm), cs=cs, pre_blocks=pre_blocks)
     if plan is None:
         raise RuntimeError(f"{label}: does not take the tiled kernel")
@@ -905,7 +913,7 @@ def tiled_line(label, meta, b, lm=None, pre_blocks=None, cs=False):
                     "channels": 1 if meta.get("chan_grid") else int(b.shape[lead]),
                     "triples": len(meta["triples"]), "tiles": list(plan["tiles"]), "tile": list(plan["tile"]),
                     "halo": plan["halo"], "threads": plan["threads"],
-                    "smem_bytes": plan["smem_bytes"]}))
+                    "smem_bytes": plan["smem_bytes"], "layout": plan["layout"]}))
     return plan
 
 
@@ -939,6 +947,35 @@ def template_route():
         yield
     finally:
         fused_cg.route_plan = saved
+
+
+@contextlib.contextmanager
+def forced_hbm(meta, b, lm=None):
+    """Send a one-system launch on this system to the tiled kernel's hbm
+    layout for the while: the card's shared memory a block is seen as just
+    the hbm layout's need at the system's tiles, below the resident one's
+    (fused_cg.device_limits replaced), so that the layout's instances run
+    at shapes whose state would fit (tiles ragged, a halo of 2)."""
+    sms, smem = fused_cg.device_limits(b.device)
+    C, dom = int(b.shape[0]), tuple(b.shape[1:])
+    plan = fused_cg.tiled_grid_plan(meta, C, dom, lm=bool(lm), sm_count=sms,
+                                    smem_per_block=smem)
+    need = fused_cg.tiled_smem_bytes(bool(lm), C, *plan["tile"], plan["halo"],
+                                     len(meta["triples"]), hbm=True)
+    saved = fused_cg.device_limits
+    fused_cg.device_limits = lambda device: (sms, need)
+    try:
+        yield
+    finally:
+        fused_cg.device_limits = saved
+
+
+def hbm_frame_bytes(shape, iters):
+    """What the hbm layout moves beside the inputs in `iters` iterations of
+    one system: δ read and written, Ap written and read back, and pre read
+    once more (z formed again), 4 bytes each at every point of every
+    channel (an LM reset's haloed δ not counted)."""
+    return iters * 5 * 4 * shape["C"] * shape["plane"]
 
 
 def meta_shape(meta):
@@ -1148,7 +1185,7 @@ def route_equal(label, res, launches, solve, form):
     """The same solve (``solve()``, a result) on the template route, launch
     counts from 0: its costs and CG counts must equal ``res``'s to the last
     digit, in as many launches of the template's instance (``form`` without
-    "_tiled") as ``res`` made of ``form``."""
+    "_tiled", and "_hbm" in the hbm layout) as ``res`` made of ``form``."""
     fused_cg.reset_launch_counts()
     with template_route():
         tres = solve()
@@ -1162,7 +1199,8 @@ def route_equal(label, res, launches, solve, form):
             "template_launches": tl, "costs_equal": same, "lin_iters": lin,
             "template_lin_iters": tlin}
     log(json.dumps(line))
-    if not same or lin != tlin or tl != {form[:-len("_tiled")]: launches[form]}:
+    if not same or lin != tlin or tl != {form.removesuffix("_tiled").removesuffix("_hbm"):
+                                         launches[form]}:
         raise RuntimeError(f"{label}: the tiled route's solve differs from the template's")
 
 
@@ -1870,7 +1908,8 @@ def time_pair(label, meta, b, pre, gpu, lm=None, reps=3, lits=TIMED_ITERS, devic
     the fields, b, the preconditioner and ctc once a launch, the CSR every
     iteration; else under block-Jacobi it reads the C*C planes once a
     launch (the bound with them read every iteration is printed beside
-    it)."""
+    it). A form in the hbm layout also prints its own floor, the bound plus
+    the frames' bytes (hbm_frame_bytes)."""
     lm_kw = dict(lm, q_tolerance=float("-inf")) if lm else {}
     launch = fused_cg.template_grid_cg_kernel if template else fused_cg.fused_grid_cg_kernel
     # with tol = 0 a loop that reaches an exact zero residual still stops
@@ -1910,6 +1949,10 @@ def time_pair(label, meta, b, pre, gpu, lm=None, reps=3, lits=TIMED_ITERS, devic
         extra.update(bound_ms_planes_every_iter=every,
                      bound_ms_planes_every_iter_per_cg_iter=every / iters)
     form = form_of(meta, b, lm, template=template, **variant)
+    if form.endswith("_hbm_tiled"):  # the least the layout itself moves
+        floor_ms = bound_ms + hbm_frame_bytes(shape, iters) / HBM_BYTES_PER_S * 1e3
+        extra.update(layout="hbm", layout_floor_ms=floor_ms,
+                     layout_floor_ms_per_cg_iter=floor_ms / iters)
     log(json.dumps({"timing": label, "form": form, "gpu": gpu, "iters": iters,
                     "kernel_ms_per_cg_iter": ms_k / iters,
                     "twin_ms_per_cg_iter": None if ms_t is None else ms_t / iters,
@@ -2411,16 +2454,18 @@ def main() -> int:
     phases["start_and_build"] = time.perf_counter() - t_start - sum(phases.values())
     # 2. each kernel form against its twin at the main paths' shapes; the
     # 2-D float32 GN and LM systems at 512x512 take the tiled kernel (their
-    # plans printed), the larger ones the template
+    # plans printed), at 1024x1024x3 in its hbm layout, poisson 2048x2048x4
+    # the template
     tiled_line(f"poisson{n}x4", meta, b)
     tiled_line(f"laplacian{n}", *lap[:2])
     tiled_line(f"image_warping{IW_N}x3 GN", mmeta, mb)
     tiled_line(f"image_warping{IW_N}x3 LM", vmeta, vb, vlm)
-    for label, (m_, b_, lm_) in {f"poisson{BIG_N}x4": (pbig[0], pbig[1], None),
-                                 f"image_warping{IW_BIG_N}x3 GN": (gmeta, gb, None),
+    for label, (m_, b_, lm_) in {f"image_warping{IW_BIG_N}x3 GN": (gmeta, gb, None),
                                  f"image_warping{IW_BIG_N}x3 LM": (wmeta, wb, wlm)}.items():
-        if fused_cg.route_plan(m_, b_, lm=lm_ is not None) is not None:
-            raise RuntimeError(f"{label}: takes the tiled kernel, whose tiles it overflows")
+        if tiled_line(label, m_, b_, lm_)["layout"] != "hbm":
+            raise RuntimeError(f"{label}: not in the tiled kernel's hbm layout")
+    if fused_cg.route_plan(pbig[0], pbig[1], lm=False) is not None:
+        raise RuntimeError(f"poisson{BIG_N}x4: takes the tiled kernel, whose tiles it overflows")
     log(f"poisson {n}x{n}x4: {meta['F'].shape[0]} fields, {len(meta['triples'])} triples")
     err_gn = kernel_vs_twin(f"poisson{n}x4", meta, b, pre, 50, 0.0, bitwise=True, template=True)
     kernel_vs_twin(f"poisson{n}x4", meta, b, pre, 2000, CG_TOL, bitwise=True)
@@ -2483,11 +2528,37 @@ def main() -> int:
             raise RuntimeError(f"image_warping{SINGLE_N}: not one tile")
         variant_checks(olabel, one, 50, 400, bitwise=True, template=new)
     del rag, one
-    err_k6 = kernel_vs_twin(f"image_warping{IW_BIG_N}x3", gmeta, gb, gpre, 50, 0.0)
-    kernel_vs_twin(f"image_warping{IW_BIG_N}x3", gmeta, gb, gpre, 100, CG_TOL)
+    # K6: image_warping 1024x1024x3 on the tiled kernel's hbm layout
+    # (gn_hbm_tiled, lm_hbm_tiled), the template's gn and lm held to the same
+    # twin results
+    err_k6 = kernel_vs_twin(f"image_warping{IW_BIG_N}x3", gmeta, gb, gpre, 50, 0.0,
+                            bitwise=True, template=True)
+    kernel_vs_twin(f"image_warping{IW_BIG_N}x3", gmeta, gb, gpre, 100, CG_TOL, bitwise=True,
+                   template=True)
+    bitwise_repeat(f"image_warping{IW_BIG_N}x3", gmeta, gb, gpre, 100)
     kernel_vs_twin(f"image_warping{IW_BIG_N}x3", wmeta, wb, wpre, 50, 0.0, wlm,
-                   q_tol=float("-inf"))
-    kernel_vs_twin(f"image_warping{IW_BIG_N}x3", wmeta, wb, wpre, 100, CG_TOL, wlm)
+                   q_tol=float("-inf"), bitwise=True, template=True)
+    kernel_vs_twin(f"image_warping{IW_BIG_N}x3", wmeta, wb, wpre, 100, CG_TOL, wlm,
+                   bitwise=True, template=True)
+    bitwise_repeat(f"image_warping{IW_BIG_N}x3", wmeta, wb, wpre, 100, wlm)
+    # the hbm layout forced where the resident state would fit, so that
+    # every tile edge case runs in it: image_warping 512x512x3, on a grid its
+    # tiles leave ragged, and the radius-2 stencil (a halo of 2), GN and LM
+    for kind, klabel in (("gaussNewtonGPU", "GN"), ("LMGPU", "LM")):
+        for label, spec, dims, hin in (
+                (f"image_warping{IW_N}x3", image_warping, _grid(IW_N), iw_in),
+                (f"image_warping {RAGGED_DIMS['W']}x{RAGGED_DIMS['H']}", image_warping,
+                 RAGGED_DIMS, rag_in),
+                (f"radius2 {n}x{n}", radius2_spec, _grid(n), radius2_inputs(n))):
+            hm, hb, hp, hlm, _v = system(spec, dims, hin, kind)
+            flabel = f"{label} {klabel} forced hbm"
+            with forced_hbm(hm, hb, hlm):
+                if tiled_line(flabel, hm, hb, hlm)["layout"] != "hbm":
+                    raise RuntimeError(f"{flabel}: not in the hbm layout")
+                kernel_vs_twin(flabel, hm, hb, hp, 50, 0.0, hlm, bitwise=True,
+                               **({"q_tol": float("-inf")} if hlm else {}))
+                kernel_vs_twin(flabel, hm, hb, hp, 400, CG_TOL, hlm, bitwise=True)
+    del hm, hb, hp, hlm
 
     # the graph forms: K3 (DIA, the grid mesh, on the template) and K4 (the
     # remainder, the armadillo: the graph kernel, gn_rem_tiled and
@@ -2797,10 +2868,18 @@ def main() -> int:
     runs, iw_res = {}, {}
     for (nn, kind, nl, li), want in JAX_CPU_IMAGE_WARPING_COSTS.items():
         label = f"image_warping{nn} {'LM' if kind == 'LMGPU' else 'GN'} {nl}x{li}"
-        form = ("lm" if kind == "LMGPU" else "gn") + ("_tiled" if nn == IW_N else "")
+        form = ("lm" if kind == "LMGPU" else "gn") + ("_tiled" if nn == IW_N
+                                                      else "_hbm_tiled")
         iw_res[(nn, kind)], runs[(nn, kind)], _p = main_path(
             label, image_warping, kind, _grid(nn), iw_in if nn == IW_N else iw_big_in, nl, li,
             want, {"Offset": (nn, nn, 2), "Angle": (nn, nn, 1)}, form=form)
+    # K6's main path, on the hbm layout: the same solve on the template route
+    # gives the same costs and counts
+    k6_label = f"image_warping{IW_BIG_N} GN 4x100"
+    route_equal(k6_label, iw_res[(IW_BIG_N, "gaussNewtonGPU")],
+                runs[(IW_BIG_N, "gaussNewtonGPU")], lambda: ot.Problem(image_warping).plan(
+                    dims=_grid(IW_BIG_N)).solve(dict(iw_big_in), nIterations=4,
+                                                lIterations=100), "gn_hbm_tiled")
     _r, l_arap = graph_main_path("arap36k", arap_dims, arap_in, "gn")
     _r, l_arm = graph_main_path("armadillo31k", arm_dims, arm_in, "gn_rem_tiled")
     float64_witness(f"arap36k GN {GRAPH_NL}x{GRAPH_LI}", arap_mesh_deformation, "gaussNewtonGPU",
@@ -2891,6 +2970,8 @@ def main() -> int:
             "gn": (f"poisson{n}x4", meta, b, pre, None, {}, 3),
             "gn_iw": (f"image_warping{IW_N}x3", mmeta, mb, mpre, None, {}, 3),
             "lm_iw": (f"image_warping{IW_N}x3", vmeta, vb, vpre, vlm, {}, 3),
+            "gn_hbm": (f"image_warping{IW_BIG_N}x3", gmeta, gb, gpre, None, {}, 2),
+            "lm_hbm": (f"image_warping{IW_BIG_N}x3", wmeta, wb, wpre, wlm, {}, 2),
             "gn_bj_iw": (f"image_warping{IW_N}x3 GN block_jacobi", *iw_bj["GN"], 3),
             "lm_bj_iw": (f"image_warping{IW_N}x3 LM block_jacobi", *iw_bj["LM"], 3),
             "gn_cs": (f"poisson{n}x4 chronopoulos_gear", *pcs, 3),
@@ -2917,8 +2998,9 @@ def main() -> int:
     t_k5 = time_tile_apply(f"poisson{n}x4", meta, gpu)
     tiled_floor(gpu)
     tiled_floor(gpu, cs=True)
-    t_k6 = time_pair(f"image_warping{IW_BIG_N}x3", gmeta, gb, gpre, gpu, reps=2)
-    time_pair(f"image_warping{IW_BIG_N}x3", wmeta, wb, wpre, gpu, wlm, reps=2)
+    # K6's own floor: the bound and what the hbm layout moves beside it
+    k6_floor = {key: t_tiled[key][2] + hbm_frame_bytes(meta_shape(m_), TIMED_ITERS)
+                / HBM_BYTES_PER_S * 1e3 for key, m_ in (("gn_hbm", gmeta), ("lm_hbm", wmeta))}
     del gmeta, gb, gpre, wmeta, wb, wpre, wlm
     # the DIA form (K3) on the template; the armadillo's were timed above, on
     # both routes
@@ -3005,6 +3087,8 @@ def main() -> int:
                            arm_dims, arm_in, GRAPH_NL, GRAPH_LI, gpu, reps=2)
             time_batched(f"{arm_blabel} {route}", ot.Problem(arap_mesh_deformation).plan(
                 dims=arm_bdims), arm_bin, GRAPH_NL, GRAPH_LI, gpu, reps=2)
+            time_main_path(f"{k6_label} {route}", image_warping, "gaussNewtonGPU",
+                           _grid(IW_BIG_N), iw_big_in, 4, 100, gpu)
     phases["route_solve_turns"] = time.perf_counter() - t_start - sum(phases.values())
     for route in ("template", "tiled"):
         with (template_route() if route == "template" else contextlib.nullcontext()):
@@ -3027,6 +3111,9 @@ def main() -> int:
             aplan = ot.Problem(arap_mesh_deformation).plan(dims=arm_bdims)
             profile_solve(f"{arm_blabel} {route}".replace(" ", "_"), lambda: aplan.solve_batched(
                 dict(arm_bin), nIterations=GRAPH_NL, lIterations=GRAPH_LI), gpu)  # run at once
+            kplan = ot.Problem(image_warping).plan(dims=_grid(IW_BIG_N))
+            profile_solve(f"{k6_label} {route}".replace(" ", "_"), lambda: kplan.solve(
+                dict(iw_big_in), nIterations=4, lIterations=100), gpu)  # run at once
     phases["route_profiles"] = time.perf_counter() - t_start - sum(phases.values())
     time_main_path(f"shape_from_shading{SFS_N} GN {SFS_NL}x{SFS_LI}", shape_from_shading,
                    "gaussNewtonGPU", _grid(SFS_N), sfs_in, SFS_NL, SFS_LI, gpu)
@@ -3036,11 +3123,6 @@ def main() -> int:
                        "gaussNewtonGPU", {"W": w, "H": h}, inp, FLOW_NL, FLOW_LI, gpu)
     time_main_path(f"intrinsic{INTR_N} GN {INTR_NL}x{INTR_LI}", intrinsic_image_decomposition,
                    "gaussNewtonGPU", _grid(INTR_N), intr_in, INTR_NL, INTR_LI, gpu)
-    for (nn, kind, nl, li) in JAX_CPU_IMAGE_WARPING_COSTS:
-        if nn == IW_N:
-            continue  # timed above, on both routes
-        label = f"image_warping{nn} {'LM' if kind == 'LMGPU' else 'GN'} {nl}x{li}"
-        time_main_path(label, image_warping, kind, _grid(nn), iw_big_in, nl, li, gpu)
     time_main_path(f"arap36k GN {GRAPH_NL}x{GRAPH_LI}", arap_mesh_deformation,
                    "gaussNewtonGPU", arap_dims, arap_in, GRAPH_NL, GRAPH_LI, gpu)
     time_main_path(f"volumetric{VOL_N} GN {VOL_NL}x{VOL_LI} jacobi", volumetric_mesh_deformation,
@@ -3050,13 +3132,16 @@ def main() -> int:
         dict(curve_in), nIterations=BATCH_NL, lIterations=BATCH_LI), gpu)
     phases["timings_and_profiles"] = time.perf_counter() - t_start - sum(phases.values())
 
-    def entry(name, replaces, launches, err, timing, source=KERNEL_SOURCE, template=None):
+    def entry(name, replaces, launches, err, timing, source=KERNEL_SOURCE, template=None,
+              floor_ms=None):
         ms, plain, bound_ms, bound_by = timing
         e = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
         if template is not None:  # the template's ms on the same system, in this run
             e["template_ms"] = template[0]
+        if floor_ms is not None:  # the hbm layout's own floor, beside the bound
+            e["layout_floor_ms"] = floor_ms
         return e
 
     # K1 (h)'s bound of one iteration of every system at the bench's batched
@@ -3097,8 +3182,10 @@ def main() -> int:
               TILED_SOURCE, t_tpl["gn_iw"]),
         entry(f"tiled_grid_cg LM (K1 variant b), image_warping {IW_N}x{IW_N}x3, lm_tiled", K1,
               runs[(IW_N, "LMGPU")]["lm_tiled"], err_lm, t_lm, TILED_SOURCE, t_tpl["lm_iw"]),
-        entry(f"fused_grid_cg GN beyond VMEM (K6), image_warping {IW_BIG_N}x{IW_BIG_N}x3", K6,
-              runs[(IW_BIG_N, "gaussNewtonGPU")]["gn"], err_k6, t_k6),
+        entry(f"tiled_grid_cg GN beyond shared memory (K6), image_warping "
+              f"{IW_BIG_N}x{IW_BIG_N}x3, gn_hbm_tiled: r and haloed p in shared memory, delta "
+              "and Ap in device frames", K6, runs[(IW_BIG_N, "gaussNewtonGPU")]["gn_hbm_tiled"],
+              err_k6, t_tiled["gn_hbm"], TILED_SOURCE, t_tpl["gn_hbm"], k6_floor["gn_hbm"]),
         entry("fused_grid_cg GN, graph DIA form (K3), arap 36,864-vertex grid mesh", K3,
               l_arap["gn"], graph["arap36k"][2], t_graph),
         entry("tiled_graph_cg GN with the graph remainder (K4), arap armadillo 31,106 "

@@ -3,9 +3,10 @@
 ``nvcc`` compiles the fused CG kernel (``csrc/fused_grid_cg.cuh``, the
 template; ``csrc/fused_grid_cg_one.cu``, ``_multi.cu`` and ``_batch.cu``, its
 instances, one form a unit; ``csrc/fused_grid_cg.cu``, their C interface),
-``csrc/tiled_grid_cg.cu`` (the standard CG loop of a 2-D grid whose state
-fits one tile a block) and ``csrc/tiled_grid_cs.cu`` (its Chronopoulos–Gear
-loop; both include ``csrc/tiled_grid.cuh``), ``csrc/tiled_graph_cg.cu``
+``csrc/tiled_grid_cg.cu`` (the standard CG loop of a 2-D grid whose state,
+or whose r and haloed p, fit one tile a block) and ``csrc/tiled_grid_cs.cu``
+(its Chronopoulos–Gear loop; both include ``csrc/tiled_grid.cuh``),
+``csrc/tiled_graph_cg.cu``
 (the CG loop of a graph with the remainder, one vertex range a block; the
 three include ``csrc/tiled_cg.cuh``)
 and ``csrc/tile_apply.cu`` (the sharded solve's per-tile apply): each unit
@@ -119,7 +120,7 @@ _INSTANCE = re.compile(
     r"fused_grid_cg_kernelILb([01])ELb([01])ELb([01])ELb([01])E(f|13__nv_bfloat16)Li([012])EE"
 )
 _TILED_INSTANCE = re.compile(
-    r"tiled_grid_cg_kernelILb([01])ELb([01])E(f|13__nv_bfloat16)Lb([01])EE")
+    r"tiled_grid_cg_kernelILb([01])ELb([01])E(f|13__nv_bfloat16)Lb([01])ELb([01])EE")
 _TILED_CS_INSTANCE = re.compile(r"tiled_grid_cs_kernelILb([01])EE")
 _GRAPH_INSTANCE = re.compile(r"tiled_graph_cg_kernelILb([01])EE")
 
@@ -127,11 +128,12 @@ _GRAPH_INSTANCE = re.compile(r"tiled_graph_cg_kernelILb([01])EE")
 def instance_registers(log: str) -> dict:
     """{(lm, rem, cs, block, bf16, multi, batch): (registers, spill store
     bytes, spill load bytes)} from ptxas's -v output (the kernel's FORM: 0
-    one system, 1 multi, 2 batch), the tiled kernel's eight instances
-    (tiled_grid_cg_kernel<LM, BLOCK, FT, MULTI>) under (lm, False, False,
-    block, bf16, multi, False, True): a block instance under both multi =
-    False and True, the one kernel that solves one system or several in
-    turn, the others under their MULTI;
+    one system, 1 multi, 2 batch), the tiled kernel's ten instances
+    (tiled_grid_cg_kernel<LM, BLOCK, FT, MULTI, HBM>) under (lm, False,
+    False, block, bf16, multi, False, True): a block instance under both
+    multi = False and True, the one kernel that solves one system or
+    several in turn, the others under their MULTI; an HBM one under (lm,
+    False, False, False, False, False, False, True, True);
     its Chronopoulos–Gear kernel's two (tiled_grid_cs_kernel<LM>) under
     (lm, False, True, False, False, False, False, True); and the graph
     kernel's two (tiled_graph_cg_kernel<LM>) under (lm, True, False, False,
@@ -151,6 +153,8 @@ def instance_registers(log: str) -> dict:
                 lm, rem, cs, block = (g == "1" for g in m.groups()[:4])
                 form = int(m.group(6))
                 current = [(lm, rem, cs, block, m.group(5) != "f", form == 1, form == 2)]
+            elif t and t.group(5) == "1":
+                current = [(t.group(1) == "1",) + (False,) * 6 + (True, True)]
             elif t:
                 lm, block = (g == "1" for g in t.groups()[:2])
                 current = [(lm, False, False, block, t.group(3) != "f", multi, False, True)
@@ -208,9 +212,9 @@ def load_library(build: bool = True) -> ctypes.CDLL:
         i32, f32, i32, i32, f32,  # lits, tol, guard_div, reset_period, q_tol
     ]
     lib.tiled_grid_cg_launch.argtypes = [
-        i32, i32, i32, i32, *tiled_shape,  # lm, block, bf16, multi
+        i32, i32, i32, i32, i32, *tiled_shape,  # lm, block, bf16, multi, hbm
         i32, i32,  # n_sys, f_stride (a system's fields: 0 under the split)
-        vp, vp, vp, vp, vp,  # delta, r_ring, partA, partB, iters
+        vp, vp, vp, vp, vp, vp,  # delta, r_ring, partA, partB, iters, frames (hbm)
         i32, i32, vp,  # threads, smem_bytes, stream
     ]
     lib.tiled_grid_cg_launch.restype = i32

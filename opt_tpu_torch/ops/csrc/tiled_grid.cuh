@@ -62,17 +62,19 @@ __device__ __forceinline__ float tg_stencil(const FT* __restrict__ F, const floa
 // The dynamic shared memory of a launch, in bytes, in the kernels' layouts.
 // The standard loop (tiled_grid_cg.cu): the block-sum records, r, delta, p
 // (haloed), Ap (haloed under LM), under block-Jacobi the C*C preconditioner
-// planes over the tile and its halo. Chronopoulos-Gear (tiled_grid_cs.cu):
-// the block-sum records (two sets under LM, whose three dots take two
-// records), r, s and u haloed, p and delta haloed under LM (over the tile
-// under GN), w over the tile. Then the triples' field and source offsets and
-// the channels' first triples.
-__host__ __device__ __forceinline__ long long tg_smem_bytes(int lm, int block, int cs,
+// planes over the tile and its halo; in the hbm layout only the records, r
+// and p (haloed), delta and Ap living in a device frame a block.
+// Chronopoulos-Gear (tiled_grid_cs.cu): the block-sum records (two sets
+// under LM, whose three dots take two records), r, s and u haloed, p and
+// delta haloed under LM (over the tile under GN), w over the tile. Then the
+// triples' field and source offsets and the channels' first triples.
+__host__ __device__ __forceinline__ long long tg_smem_bytes(int lm, int block, int cs, int hbm,
                                                            int C, int th, int tw, int h,
                                                            int n_triples) {
   const long long pts = (long long)th * tw;
   const long long ext = (long long)(th + 2 * h) * (tw + 2 * h);
   const long long triples = 4LL * (2 * n_triples + C + 1);
+  if (hbm) return 16LL * (TGCG_WARPS + 1) + 4LL * C * (pts + ext) + triples;
   if (cs)
     return 16LL * (TGCG_WARPS + 1) * (lm ? 2 : 1) +
            4LL * C * (lm ? 5 * ext + pts : 3 * ext + 3 * pts) + triples;
@@ -83,8 +85,9 @@ __host__ __device__ __forceinline__ long long tg_smem_bytes(int lm, int block, i
 // The tile's view of the launch, the same for every system of it: its
 // shared-memory arrays, its place in the grid and the triples' offsets.
 // The standard loop keeps r, delta, p and Ap in s_r, s_d, s_pe, s_ap (and
-// the C*C planes in s_m); Chronopoulos-Gear r, delta, p and w in s_r, s_d,
-// s_pe, s_ap, and s and u in s_s, s_u.
+// the C*C planes in s_m; in the hbm layout s_d and s_ap point into the
+// block's device frame instead); Chronopoulos-Gear r, delta, p and w in
+// s_r, s_d, s_pe, s_ap, and s and u in s_s, s_u.
 struct TgTile {
   double2* s_warp;   // TGCG_WARPS block-sum records (two sets under CS LM)
   double2* s_bcast;  // one record (two under CS LM)

@@ -343,6 +343,6 @@ extern "C" int tiled_grid_cs_launch(int lm, const float* F, const float* b,
   const void* kernel = lm ? (const void*)tiled_grid_cs_kernel<true>
                           : (const void*)tiled_grid_cs_kernel<false>;
   return tg_launch(kernel, args, C, n_triples, N1, N2, tiles_r, tiles_c, th, tw, h,
-                   tg_smem_bytes(lm, 0, 1, C, th, tw, h, n_triples), threads, smem_bytes,
+                   tg_smem_bytes(lm, 0, 1, 0, C, th, tw, h, n_triples), threads, smem_bytes,
                    stream);
 }

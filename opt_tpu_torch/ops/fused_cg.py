@@ -74,7 +74,13 @@ and ``lm_bj_multi_tiled``, a batch under block-Jacobi) or
 barrier an iteration) instead of the template: each block keeps its
 tile's state (and under block-Jacobi its C·C planes) in shared memory for
 the whole solve and only r's border (Chronopoulos–Gear: w's) goes through
-device memory. A graph meta with the remainder takes the graph kernel
+device memory. Where that state does not fit but r over the tile and p
+over its halo do, a one-system standard GN or LM launch with float32
+fields and the elementwise preconditioner takes the same kernel in its
+"hbm" layout (``gn_hbm_tiled``, ``lm_hbm_tiled``: δ and Ap in a device
+frame a block; image_warping 1024²×3, the JAX package's
+``_hbm_tiled_kernel`` case). poisson 2048²×4 fits neither layout and keeps
+the template. A graph meta with the remainder takes the graph kernel
 instead (:func:`graph_tile_plan`, ``csrc/tiled_graph_cg.cu``:
 ``gn_rem_tiled``, ``lm_rem_tiled``, ``gn_rem_multi_tiled``,
 ``lm_rem_multi_tiled``), one contiguous vertex range a block under a
@@ -694,18 +700,19 @@ def _device_triples(triples, ctot: int, device):
 
 def instance_name(lm: bool, rem: bool, cs: bool = False, block: bool = False,
                   bf16: bool = False, multi: bool = False, batch: bool = False,
-                  tiled: bool = False) -> str:
+                  tiled: bool = False, hbm: bool = False) -> str:
     """The kernel instance's name: "gn" or "lm", then "_cs" for
     Chronopoulos–Gear, "_bj" for block-Jacobi, "_bf16" for bfloat16 fields,
     "_rem" with the remainder phase, "_multi" for the instances whose
     cooperative launch holds several independent systems in turn (the
     per-channel split, a batch of large systems), "_batch" for those
     whose launch holds them side by side, one block each (a batch of small
-    systems), and "_tiled" for the tiled kernel's (csrc/tiled_grid_cg.cu)."""
+    systems), "_hbm" for the tiled kernel's hbm layout (δ and Ap in device
+    memory), and "_tiled" for the tiled kernel's (csrc/tiled_grid_cg.cu)."""
     return (("lm" if lm else "gn") + ("_cs" if cs else "") + ("_bj" if block else "")
             + ("_bf16" if bf16 else "") + ("_rem" if rem else "")
             + ("_multi" if multi else "") + ("_batch" if batch else "")
-            + ("_tiled" if tiled else ""))
+            + ("_hbm" if hbm else "") + ("_tiled" if tiled else ""))
 
 
 # (lm, rem, cs, block, bf16, multi, batch): every combination of the five
@@ -734,6 +741,10 @@ TILED_INSTANCES += tuple((lm, False, cs, False, not cs, False, False, True)
 # the tiled grid kernel's Jacobi launches on several systems in turn: the
 # per-channel split's one-channel systems, a batch's systems
 TILED_INSTANCES += tuple((lm, False, False, False, False, True, False, True)
+                         for lm in (False, True))
+# the tiled grid kernel's one-system Jacobi launches in the hbm layout (the
+# ninth flag, hbm)
+TILED_INSTANCES += tuple((lm, False, False, False, False, False, False, True, True)
                          for lm in (False, True))
 
 
@@ -910,19 +921,24 @@ def template_grid_cg_kernel(meta, b, pre, lits, tol, *, guard_div=True, ctc=None
 
 
 def tiled_smem_bytes(lm: bool, C: int, th: int, tw: int, h: int, n_triples: int,
-                     block: bool = False, cs: bool = False) -> int:
+                     block: bool = False, cs: bool = False, hbm: bool = False) -> int:
     """The tiled kernel's dynamic shared memory a block, in bytes, in its
     layout (csrc/tiled_grid.cuh::tg_smem_bytes): the block-sum records,
     r, δ, p with its halo, Ap (with the halo under LM, where a reset
     iteration builds δ's haloed copy there), under ``block`` the C·C
     preconditioner planes over the tile and its halo, and the triples'
-    offsets. Under ``cs`` (csrc/tiled_grid_cs.cu): the block-sum records
-    (two sets under LM), r, s and u with the halo, p and δ with the halo
-    under LM (over the tile under GN), w over the tile, and the triples'
-    offsets. bfloat16 fields are not staged: the same bytes."""
+    offsets. Under ``hbm``, the layout whose δ and Ap live in a device
+    frame a block: the records, r, p with its halo and the triples'
+    offsets, the same under GN and LM. Under ``cs``
+    (csrc/tiled_grid_cs.cu): the block-sum records (two sets under LM), r,
+    s and u with the halo, p and δ with the halo under LM (over the tile
+    under GN), w over the tile, and the triples' offsets. bfloat16 fields
+    are not staged: the same bytes."""
     pts, ext = th * tw, (th + 2 * h) * (tw + 2 * h)
     records = 16 * (TILED_THREADS // 32 + 1)
     triples = 4 * (2 * n_triples + C + 1)
+    if hbm:
+        return records + 4 * C * (pts + ext) + triples
     if cs:
         return records * (2 if lm else 1) + 4 * C * (5 * ext + pts if lm else
                                                      3 * ext + 3 * pts) + triples
@@ -960,7 +976,7 @@ def tiled_grid_plan(meta, C: int, dom, *, lm: bool, cs: bool = False, block: boo
     """Whether a launch on ``meta`` whose systems have C channels each on
     the domain ``dom`` takes the tiled kernel, and how: None, or {tiles:
     (rows, columns of tiles), tile: (th, tw), halo: h, threads,
-    smem_bytes}. Taken on a 2-D grid (dom [N1, N2] or [1, N1, N2] with
+    smem_bytes, layout}. Taken on a 2-D grid (dom [N1, N2] or [1, N1, N2] with
     N1 > 1: not the graph domain [1, N]), GN or LM (``lm``), in one of
     these forms: the standard loop with float32 fields and the elementwise
     or the block preconditioner (``block``), one system or several in turn
@@ -972,10 +988,15 @@ def tiled_grid_plan(meta, C: int, dom, *, lm: bool, cs: bool = False, block: boo
     remainder, up to the kernel's channels and triples, when the grid
     splits into at most ``sm_count`` tiles (:func:`_tile_split`) whose
     state and halo, and under ``block`` the C·C planes over them, fit
-    ``smem_per_block``. h is the largest |offset| of the triples in either
-    axis. Chronopoulos–Gear or bfloat16 with block-Jacobi, the two
-    together, and either with the split or a batch keep the template (so
-    does the split under block-Jacobi, which the template refuses too)."""
+    ``smem_per_block``: the layout "resident". Where that state does not
+    fit, the standard loop with float32 fields and the elementwise
+    preconditioner, one system, takes the layout "hbm" if r over the tile
+    and p over its frame fit (``tiled_smem_bytes(..., hbm=True)``: δ and
+    Ap then live in a device frame a block; image_warping 1024²×3). h is
+    the largest |offset| of the triples in either axis.
+    Chronopoulos–Gear or bfloat16 with block-Jacobi, the two together, and
+    either with the split or a batch keep the template (so does the split
+    under block-Jacobi, which the template refuses too)."""
     bf16 = meta["F"].dtype == torch.bfloat16
     if meta["F"].dtype not in (torch.float32, torch.bfloat16):
         return None
@@ -1000,10 +1021,16 @@ def tiled_grid_plan(meta, C: int, dom, *, lm: bool, cs: bool = False, block: boo
         return None
     tr, tc, th, tw = split
     smem = tiled_smem_bytes(lm, C, th, tw, h, len(triples), block, cs)
+    layout = "resident"
     if smem > smem_per_block:
-        return None
+        if cs or block or bf16 or multi:
+            return None
+        smem = tiled_smem_bytes(lm, C, th, tw, h, len(triples), hbm=True)
+        if smem > smem_per_block:
+            return None
+        layout = "hbm"
     return {"tiles": (tr, tc), "tile": (th, tw), "halo": h, "threads": TILED_THREADS,
-            "smem_bytes": smem}
+            "smem_bytes": smem, "layout": layout}
 
 
 def tile_bounds(plan, N1: int, N2: int) -> list:
@@ -1216,10 +1243,11 @@ def launch_instance(meta, b, *, lm: bool = False, cs: bool = False, pre_blocks=N
     these operands."""
     block = pre_blocks is not None
     bf16 = meta["F"].dtype == torch.bfloat16
-    if route_plan(meta, b, lm=lm, cs=cs, pre_blocks=pre_blocks) is not None:
+    plan = route_plan(meta, b, lm=lm, cs=cs, pre_blocks=pre_blocks)
+    if plan is not None:
         return instance_name(lm, meta.get("rem") is not None, cs, block, bf16,
                              multi=bool(meta.get("batch") or meta.get("chan_grid")),
-                             tiled=True)
+                             tiled=True, hbm=plan.get("layout") == "hbm")
     form = batched_kernel_form(meta, pre_blocks) if meta.get("batch") else None
     multi = form == "multi" if form else bool(meta.get("chan_grid"))
     return instance_name(lm, meta.get("rem") is not None, cs, block, bf16, multi,
@@ -1244,8 +1272,11 @@ def tiled_grid_cg_kernel(meta, b, pre, lits, tol, plan, *, guard_div=True, ctc=N
     (``meta["chan_grid"]``, the triples one channel's) takes the C channels
     of b, pre and ctc as C one-channel systems over the shared F. Both are
     counted as ``*_multi_tiled`` (``gn_multi_tiled``,
-    ``lm_bj_multi_tiled``, ...). Returns (delta, iters int32[n_sys] on the
-    device, n_sys = B under a batch, C under the split, else 1). Does not
+    ``lm_bj_multi_tiled``, ...). A plan in the "hbm" layout (one system,
+    the standard loop, float32 fields, the elementwise preconditioner)
+    launches ``gn_hbm_tiled`` or ``lm_hbm_tiled`` with δ's and Ap's frames
+    in a device scratch allocated here. Returns (delta, iters int32[n_sys]
+    on the device, n_sys = B under a batch, C under the split, else 1). Does not
     synchronise. A launch the card refuses (more tiles than co-resident
     blocks, shared memory beyond the block's) raises. Each launch adds one
     to ``fused_grid_cg_kernel.launches[name]`` (:func:`instance_name`:
@@ -1263,11 +1294,15 @@ def tiled_grid_cg_kernel(meta, b, pre, lits, tol, plan, *, guard_div=True, ctc=N
     bf16 = F.dtype == torch.bfloat16
     batch = int(meta.get("batch") or 0)
     split = bool(meta.get("chan_grid"))
+    hbm = plan.get("layout") == "hbm"
     lead = (batch,) if batch else ()  # the batch axis of every operand
     if ((cs or bf16) and (block or batch or split)) or (cs and bf16) or (split and block):
         raise ValueError("tiled_grid_cg_kernel: no tiled instance takes Chronopoulos–Gear or "
                          "bfloat16 fields with the block preconditioner, several systems or "
                          "each other, or the split with the block preconditioner")
+    if hbm and (cs or bf16 or block or batch or split):
+        raise ValueError("tiled_grid_cg_kernel: the hbm layout takes one system of the "
+                         "standard loop with float32 fields and the elementwise preconditioner")
     C = int(b.shape[len(lead)])
     full = tuple(int(s) for s in b.shape[len(lead) + 1:])
     dom = full[1:] if len(full) == 3 and full[0] == 1 else full
@@ -1309,6 +1344,10 @@ def tiled_grid_cg_kernel(meta, b, pre, lits, tol, plan, *, guard_div=True, ctc=N
     w_ring = torch.empty((2, C) + full, dtype=torch.float32, device=device) if cs else None
     part = torch.empty((2, tr * tc, 4 if cs else 2), dtype=torch.float64, device=device)
     iters = torch.empty(n_sys, dtype=torch.int32, device=device)
+    # the hbm layout: δ's frame and Ap's (haloed under LM) a block
+    pts, ext = th * tw, (th + 2 * h) * (tw + 2 * h)
+    frames = (torch.empty(tr * tc * C * (pts + (ext if lm else pts)), dtype=torch.float32,
+                          device=device) if hbm else None)
     ptr = lambda t: None if t is None else ctypes.c_void_p(t.data_ptr())  # noqa: E731
     shape = (ptr(F), ptr(b), ptr(pre_blocks if block else pre), ptr(ctc), ptr(tr_rows),
              ptr(starts), c_sys, len(triples), N1, N2, tr, tc, th, tw, h,
@@ -1323,15 +1362,16 @@ def tiled_grid_cg_kernel(meta, b, pre, lits, tol, plan, *, guard_div=True, ctc=N
                 ptr(part[1]), ptr(iters), *launch)
         else:
             err = lib.tiled_grid_cg_launch(
-                int(lm), int(block), int(bf16), int(bool(batch or split)), *shape, n_sys,
-                n_fields * N1 * N2 if batch else 0, ptr(delta), ptr(r_ring), ptr(part[0]),
-                ptr(part[1]), ptr(iters), *launch)
+                int(lm), int(block), int(bf16), int(bool(batch or split)), int(hbm), *shape,
+                n_sys, n_fields * N1 * N2 if batch else 0, ptr(delta), ptr(r_ring),
+                ptr(part[0]), ptr(part[1]), ptr(iters), ptr(frames), *launch)
     if err != 0:
         raise RuntimeError(f"tiled_grid_cg kernel launch failed: CUDA error {err} "
                            f"({tr}x{tc} tiles of {th}x{tw}, {plan['smem_bytes']} bytes of "
                            "shared memory a block)")
     fused_grid_cg_kernel.launches[instance_name(lm, False, cs, block, bf16,
-                                                multi=bool(batch or split), tiled=True)] += 1
+                                                multi=bool(batch or split), tiled=True,
+                                                hbm=hbm)] += 1
     return delta, iters
 
 

@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
 """Time the tiled kernel's one-system instances of a source tree on the card.
 
-    python3 scripts/tiled_one_system_times.py [--root TREE] [--label NAME]
+    python3 scripts/tiled_one_system_times.py [--root TREE] [--label NAME] [--hbm]
 
 Imports opt_tpu_torch from TREE (default: this checkout), builds its
 kernels there, and times gn_tiled on poisson 512x512x4 (bench_poisson's
 inputs), lm_tiled on image_warping 512x512's first LM system, and their
 bfloat16 instances gn_bf16_tiled and lm_bf16_tiled: ms per CG iteration,
 100 iterations with no exit, CUDA events, three launches after a warm-up.
-It also prints each instance's registers and spills from ptxas. Run it on
-two trees in turns (A, B, B, A) in one command to compare two versions of
-the kernel on one card; each JSON line names the tree's label and the
-card's name and power limit."""
+With --hbm it times image_warping 1024x1024's first GN and LM systems
+instead, on the route the tree takes (gn_hbm_tiled and lm_hbm_tiled where
+the tree has the tiled kernel's hbm layout) and on the template (gn, lm),
+in turns (route, template, template, route). Each launch's delta is also
+held to the plain twin's on the same system (bitwise_equal). It prints
+each instance's registers and spills from ptxas. Run it on two trees in
+turns (A, B, B, A) in one command to compare two versions of the kernel on
+one card; each JSON line names the tree's label and the card's name and
+power limit."""
 
 import argparse
 import json
@@ -26,6 +31,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--label", default="tree")
+    ap.add_argument("--hbm", action="store_true",
+                    help="image_warping 1024x1024 GN and LM, the route and the template")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -43,7 +50,7 @@ def main() -> int:
                          check=True).stdout.strip().splitlines()[0]
     info = build_library()
     regs = instance_registers(info["log"])
-    n, f32 = 512, np.float32
+    n, f32 = (1024 if args.hbm else 512), np.float32
     rng = np.random.RandomState(0)
     mask = np.ones((n, n), f32)
     mask[n // 8: -n // 8, n // 8: -n // 8] = 0.0
@@ -57,11 +64,14 @@ def main() -> int:
     warp = {"Offset": ur.copy(), "Angle": np.zeros((n, n), f32), "UrShape": ur,
             "Constraints": con, "Mask": np.zeros((n, n), f32),
             "w_fitSqrt": np.sqrt(100.0).astype(f32), "w_regSqrt": np.sqrt(0.01).astype(f32)}
-    for spec, kind, inputs, dtype in ((poisson_image_editing, "gaussNewtonGPU", poisson, None),
-                                      (image_warping, "LMGPU", warp, None),
-                                      (poisson_image_editing, "gaussNewtonGPU", poisson,
-                                       "bfloat16"),
-                                      (image_warping, "LMGPU", warp, "bfloat16")):
+    cases = ((poisson_image_editing, "gaussNewtonGPU", poisson, None),
+             (image_warping, "LMGPU", warp, None),
+             (poisson_image_editing, "gaussNewtonGPU", poisson, "bfloat16"),
+             (image_warping, "LMGPU", warp, "bfloat16"))
+    if args.hbm:
+        cases = ((image_warping, "gaussNewtonGPU", warp, None),
+                 (image_warping, "LMGPU", warp, None))
+    for spec, kind, inputs, dtype in cases:
         plan = ot.Problem(spec, kind=kind).plan(
             dims={"W": n, "H": n}, init_params=ot.InitializationParameters(
                 coefficient_dtype=dtype))
@@ -71,25 +81,36 @@ def main() -> int:
         if kind == "LMGPU":
             lm = dict(ctc=fused_cg.pack(kw["ctc"], meta), reset_period=kw["reset_period"],
                       q_tolerance=float("-inf"))
-        name = fused_cg.launch_instance(meta, b, lm=bool(lm))
+        twin = fused_cg.fused_grid_cg_reference(meta["F"], meta["triples"], b, p, 100, 0.0,
+                                                **lm)[0]
+        route = fused_cg.launch_instance(meta, b, lm=bool(lm))
+        turns = (False, True, True, False) if args.hbm else (False,)
+        for template in turns:
+            launch = (fused_cg.template_grid_cg_kernel if template
+                      else fused_cg.fused_grid_cg_kernel)
+            name = "lm" if lm else "gn"
+            name = name if template else route
 
-        def call():
-            return fused_cg.fused_grid_cg_kernel(meta, b, p, 100, 0.0, **lm)
+            def call():
+                return launch(meta, b, p, 100, 0.0, **lm)
 
-        call()
-        torch.cuda.synchronize()
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(3):
-            _d, it = call()
-        e1.record()
-        torch.cuda.synchronize()
-        key = next(k for k in fused_cg.TILED_INSTANCES if fused_cg.instance_name(*k) == name)
-        print(json.dumps({"tree": args.label, "instance": name, "gpu": gpu,
-                          "iters": int(it.sum()),
-                          "kernel_ms_per_cg_iter": e0.elapsed_time(e1) / 3 / int(it.sum()),
-                          "registers_spill_store_load_bytes": list(regs.get(key, ()))}),
-              flush=True)
+            d, _it = call()
+            torch.cuda.synchronize()
+            same = bool(torch.equal(d, twin))
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            for _ in range(3):
+                _d, it = call()
+            e1.record()
+            torch.cuda.synchronize()
+            key = next((k for k in fused_cg.TILED_INSTANCES + fused_cg.INSTANCES
+                        if fused_cg.instance_name(*k) == name), None)
+            print(json.dumps({"tree": args.label, "instance": name, "gpu": gpu,
+                              "grid": [n, n], "iters": int(it.sum()),
+                              "kernel_ms_per_cg_iter": e0.elapsed_time(e1) / 3 / int(it.sum()),
+                              "bitwise_equal_to_twin": same,
+                              "registers_spill_store_load_bytes": list(regs.get(key, ()))}),
+                  flush=True)
     return 0
 
 

@@ -93,13 +93,13 @@ def test_plan_refuses_other_field_types():
 
 
 def test_build_reads_the_bf16_kernels_registers():
-    """tiled_grid_cg_kernel<LM, false, __nv_bfloat16, false> stands under
-    gn_bf16_tiled and lm_bf16_tiled."""
+    """tiled_grid_cg_kernel<LM, false, __nv_bfloat16, false, false> stands
+    under gn_bf16_tiled and lm_bf16_tiled."""
     lines = []
     for lm in (0, 1):
         lines.append("ptxas info    : Compiling entry function "
-                     f"'_Z20tiled_grid_cg_kernelILb{lm}ELb0E13__nv_bfloat16Lb0EEvPKT1_PKfS5_S5_PKiS7_"
-                     "iiiiiiiiifiifiiPfS8_P7double2SA_Pi' for 'sm_90a'")
+                     f"'_Z20tiled_grid_cg_kernelILb{lm}ELb0E13__nv_bfloat16Lb0ELb0EEvPKT1_PKfS5_S5_PKi"
+                     "S7_iiiiiiiiifiifiiPfS8_P7double2SA_PiS8_' for 'sm_90a'")
         lines.append(f"ptxas info    : Used {116 + 4 * lm} registers, used 1 barriers")
     regs = _build.instance_registers("\n".join(lines))
     assert regs == {(False, False, False, False, True, False, False, True): (116, 0, 0),

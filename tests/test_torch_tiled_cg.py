@@ -422,11 +422,13 @@ def test_plan_takes_a_leading_unit_axis_and_refuses_a_deep_offset():
 
 
 @pytest.mark.parametrize("n,C,lm,taken", [(512, 3, False, True), (512, 3, True, True),
-                                          (512, 4, False, True), (1024, 3, False, False),
-                                          (1024, 3, True, False), (2048, 4, False, False)])
+                                          (512, 4, False, True), (1024, 3, False, True),
+                                          (1024, 3, True, True), (2048, 4, False, False)])
 def test_plan_at_the_main_path_sizes(n, C, lm, taken):
     """512²×3 (image_warping) and 512²×4 (poisson) fit one tile an SM of an
-    H100; 1024²×3 and 2048²×4 do not, and keep the template."""
+    H100; 1024²×3 does not, but its r and haloed p do: the hbm layout
+    (gn_hbm_tiled, lm_hbm_tiled); 2048²×4 fits neither and keeps the
+    template."""
     T = 26 if C == 3 else 5
     meta = _synthetic_meta((n, n), [(d, c, c, k % T) for c in range(C)
                                     for k, d in enumerate(((0, 0), (1, 0), (-1, 0), (0, 1),
@@ -437,6 +439,7 @@ def test_plan_at_the_main_path_sizes(n, C, lm, taken):
     if taken:
         assert plan["tiles"][0] * plan["tiles"][1] == SMS
         assert plan["smem_bytes"] <= SMEM
+        assert plan["layout"] == ("hbm" if n == 1024 else "resident")
 
 
 def _iw_like_triples(C=3):
@@ -474,13 +477,19 @@ def test_plan_takes_block_jacobi_with_its_planes_in_shared_memory(lm, smem):
 
 
 def test_plan_refuses_beyond_the_tiles_and_the_shared_memory():
+    """Below the resident layout's shared memory the one-system Jacobi
+    launch takes the hbm layout; below that layout's too, nothing."""
     meta = _synthetic_meta((512, 512), _five_point(3))
     assert fused_cg.tiled_grid_plan(meta, 3, (512, 512), lm=False, sm_count=4,
                                     smem_per_block=SMEM) is None
     plan = fused_cg.tiled_grid_plan(meta, 3, (512, 512), lm=False, sm_count=SMS,
                                     smem_per_block=SMEM)
+    assert plan["layout"] == "resident"
+    hbm = fused_cg.tiled_grid_plan(meta, 3, (512, 512), lm=False, sm_count=SMS,
+                                   smem_per_block=plan["smem_bytes"] - 1)
+    assert hbm["layout"] == "hbm" and hbm["tiles"] == plan["tiles"]
     assert fused_cg.tiled_grid_plan(meta, 3, (512, 512), lm=False, sm_count=SMS,
-                                    smem_per_block=plan["smem_bytes"] - 1) is None
+                                    smem_per_block=hbm["smem_bytes"] - 1) is None
 
 
 @pytest.mark.parametrize("N1,N2,tr,tc,h", [(37, 29, 3, 2, 1), (500, 300, 11, 12, 1),
@@ -570,39 +579,42 @@ def test_instance_names_and_launch_counts():
     assert names == ["gn_tiled", "lm_tiled", "gn_bj_tiled", "lm_bj_tiled",
                      "gn_bj_multi_tiled", "lm_bj_multi_tiled", "gn_rem_tiled", "lm_rem_tiled",
                      "gn_rem_multi_tiled", "lm_rem_multi_tiled", "gn_cs_tiled", "lm_cs_tiled",
-                     "gn_bf16_tiled", "lm_bf16_tiled", "gn_multi_tiled", "lm_multi_tiled"]
+                     "gn_bf16_tiled", "lm_bf16_tiled", "gn_multi_tiled", "lm_multi_tiled",
+                     "gn_hbm_tiled", "lm_hbm_tiled"]
     fused_cg.reset_launch_counts()
     assert set(names) | {"gn", "lm", "gn_bj", "lm_bj_multi"} <= set(
         fused_cg.fused_grid_cg_kernel.launches)
-    assert len(fused_cg.fused_grid_cg_kernel.launches) == 96 + 16
+    assert len(fused_cg.fused_grid_cg_kernel.launches) == 96 + 18
 
 
 def test_build_compiles_the_tiled_unit_and_reads_its_registers():
     assert "tiled_grid_cg.cu" in _build.UNITS and "tiled_grid_cg.cu" in _build.SOURCES
     assert (_build.CSRC / "tiled_grid_cg.cu").exists()
-    # the six float32 kernels, tiled_grid_cg_kernel<LM, BLOCK, float, MULTI>:
-    # the Jacobi ones for one system and for several (MULTI) under their own
-    # launch names, a block-Jacobi kernel's registers under its one-system
-    # and its multi-system names
+    # the eight float32 kernels, tiled_grid_cg_kernel<LM, BLOCK, float,
+    # MULTI, HBM>: the Jacobi ones for one system, for several (MULTI) and in
+    # the hbm layout (HBM) under their own launch names, a block-Jacobi
+    # kernel's registers under its one-system and its multi-system names
     lines, want = [], {}
-    for k, (lm, block, multi) in enumerate(((0, 0, 0), (1, 0, 0), (0, 1, 1), (1, 1, 1),
-                                            (0, 0, 1), (1, 0, 1))):
+    for k, (lm, block, multi, hbm) in enumerate((
+            (0, 0, 0, 0), (1, 0, 0, 0), (0, 1, 1, 0), (1, 1, 1, 0), (0, 0, 1, 0), (1, 0, 1, 0),
+            (0, 0, 0, 1), (1, 0, 0, 1))):
         lines.append("ptxas info    : Compiling entry function "
-                     f"'_Z20tiled_grid_cg_kernelILb{lm}ELb{block}EfLb{multi}EEvPKT1_PKfS4_' "
+                     f"'_Z20tiled_grid_cg_kernelILb{lm}ELb{block}EfLb{multi}ELb{hbm}EEvPKT1_PKfS4_' "
                      "for 'sm_90a'")
         if k == 0:
             lines.append("    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads")
         lines.append(f"ptxas info    : Used {64 + 8 * k} registers, used 1 barriers, 416 bytes "
                      "cmem[0]")
         for m in (False, True) if block else (bool(multi),):
-            want[(bool(lm), False, False, bool(block), False, m, False, True)] = (
+            key = (bool(lm), False, False, bool(block), False, m, False, True)
+            want[key + ((True,) if hbm else ())] = (
                 (64 + 8 * k,) + ((4, 4) if k == 0 else (0, 0)))
     regs = _build.instance_registers("\n".join(lines))
-    # the grid kernel's eight float32 launch names (the graph kernel's four:
+    # the grid kernel's ten float32 launch names (the graph kernel's four:
     # tests/test_torch_tiled_graph.py; the bf16 and Chronopoulos-Gear ones:
     # tests/test_torch_tiled_bf16.py, tests/test_torch_tiled_cs.py)
     assert regs == want and set(regs) == set(fused_cg.TILED_INSTANCES[:6]
-                                             + fused_cg.TILED_INSTANCES[-2:])
+                                             + fused_cg.TILED_INSTANCES[-4:])
 
 
 # -- the emulation against the twin, bitwise ------------------------------------------
