@@ -82,7 +82,8 @@ gn_multi_tiled, lm_multi_tiled, gn_bj_multi_tiled and lm_bj_multi_tiled;
 its Chronopoulos-Gear loop, one grid barrier an iteration,
 opt_tpu_torch/ops/csrc/tiled_grid_cs.cu, gn_cs_tiled and lm_cs_tiled; in
 the same library); where a one-system float32 Jacobi GN or LM system's
-state does not fit but its r and haloed p do (image_warping 1024x1024x3),
+state does not fit but its r and haloed p do, at up to four channels
+(image_warping 1024x1024x3),
 the same kernel in its hbm layout, delta and Ap in a device frame a block
 (gn_hbm_tiled, lm_hbm_tiled; the tiled_plan lines print the layout, the
 timing lines the layout's own floor beside the bound); every check above
@@ -2998,9 +2999,6 @@ def main() -> int:
     t_k5 = time_tile_apply(f"poisson{n}x4", meta, gpu)
     tiled_floor(gpu)
     tiled_floor(gpu, cs=True)
-    # K6's own floor: the bound and what the hbm layout moves beside it
-    k6_floor = {key: t_tiled[key][2] + hbm_frame_bytes(meta_shape(m_), TIMED_ITERS)
-                / HBM_BYTES_PER_S * 1e3 for key, m_ in (("gn_hbm", gmeta), ("lm_hbm", wmeta))}
     del gmeta, gb, gpre, wmeta, wb, wpre, wlm
     # the DIA form (K3) on the template; the armadillo's were timed above, on
     # both routes
@@ -3132,16 +3130,13 @@ def main() -> int:
         dict(curve_in), nIterations=BATCH_NL, lIterations=BATCH_LI), gpu)
     phases["timings_and_profiles"] = time.perf_counter() - t_start - sum(phases.values())
 
-    def entry(name, replaces, launches, err, timing, source=KERNEL_SOURCE, template=None,
-              floor_ms=None):
+    def entry(name, replaces, launches, err, timing, source=KERNEL_SOURCE, template=None):
         ms, plain, bound_ms, bound_by = timing
         e = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
         if template is not None:  # the template's ms on the same system, in this run
             e["template_ms"] = template[0]
-        if floor_ms is not None:  # the hbm layout's own floor, beside the bound
-            e["layout_floor_ms"] = floor_ms
         return e
 
     # K1 (h)'s bound of one iteration of every system at the bench's batched
@@ -3185,7 +3180,7 @@ def main() -> int:
         entry(f"tiled_grid_cg GN beyond shared memory (K6), image_warping "
               f"{IW_BIG_N}x{IW_BIG_N}x3, gn_hbm_tiled: r and haloed p in shared memory, delta "
               "and Ap in device frames", K6, runs[(IW_BIG_N, "gaussNewtonGPU")]["gn_hbm_tiled"],
-              err_k6, t_tiled["gn_hbm"], TILED_SOURCE, t_tpl["gn_hbm"], k6_floor["gn_hbm"]),
+              err_k6, t_tiled["gn_hbm"], TILED_SOURCE, t_tpl["gn_hbm"]),
         entry("fused_grid_cg GN, graph DIA form (K3), arap 36,864-vertex grid mesh", K3,
               l_arap["gn"], graph["arap36k"][2], t_graph),
         entry("tiled_graph_cg GN with the graph remainder (K4), arap armadillo 31,106 "

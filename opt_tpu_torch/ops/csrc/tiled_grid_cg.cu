@@ -111,7 +111,9 @@
 //   * The hbm layout (HBM; the TPU kernel's row windows and DMA
 //     semaphores are not carried over): where the resident state does not
 //     fit (image_warping 1024x1024x3: 12x11 tiles of 86x94, about 392 KB a
-//     block), r over the tile and p over its frame, which the ring
+//     block) and C is at most 4 (TG_FRAME_CHUNK, the values of a point
+//     each thread holds in registers), r over the tile and p over its
+//     frame, which the ring
 //     exchange and the stencil read, still do (198,920 B); delta and Ap,
 //     which only the owning block reads back, move to a block-private
 //     frame of a device scratch, the same walks writing and reading them,
@@ -200,7 +202,8 @@ __device__ __forceinline__ void tg_sum_triples(const FT* __restrict__ F, const f
 // into ap, the block's frame, and the partials of <p, Ap>, the resident
 // loop's arithmetic in its order (each channel's stencil sum, then ctc*p,
 // the channels in turn): tg_sum_triples, TG_FIELD_CHUNK fields at a time,
-// under LM the first four channels' ctc read with them.
+// under LM the channels' ctc read with them (the layout takes up to
+// TG_FRAME_CHUNK channels).
 #define TG_FIELD_CHUNK 16
 template <bool LM, typename FT>
 __device__ __forceinline__ double2 tg_apply_frames(const TgTile& tt, const FT* __restrict__ F,
@@ -220,7 +223,7 @@ __device__ __forceinline__ double2 tg_apply_frames(const TgTile& tt, const FT* _
     tg_sum_triples<TG_FIELD_CHUNK, false>(F, tt.s_pe, tt, C, gq, e, [&](int c, float a) {
       const float pv = tt.s_pe[c * ext + e];
       if constexpr (LM)
-        a = __fadd_rn(a, __fmul_rn(c < 4 ? tg_pick4(cv, c) : ctc[c * plane + gq], pv));
+        a = __fadd_rn(a, __fmul_rn(tg_pick4(cv, c), pv));
       ap[c * pts + w.q] = a;
       acc.x += (double)__fmul_rn(pv, a);
     });
@@ -232,16 +235,16 @@ __device__ __forceinline__ double2 tg_apply_frames(const TgTile& tt, const FT* _
 // reset: delta += alpha p and r -= alpha Ap over the tile, the partials of
 // <z, r> (z = pre*r) and, under LM, of <delta, b + r>, and r's ring to
 // r_ring, the resident loop's arithmetic in its order. delta (d) and Ap
-// (ap) lie in the block's device frame. With up to TG_FRAME_CHUNK channels
-// the thread takes TG_FRAME_POINTS points of its walk at once and loads
-// their delta, Ap, pre and (LM) b before it stores or sums anything, so
-// that those loads are in flight together (in the resident loop's order
-// each point's would wait for the last's); the sums then take the points
-// and channels in the walk's order. More channels take one point at a
-// time, TG_FRAME_CHUNK channels a load. A load past the tile or the
-// channels reads a valid place and is not used. z is not kept: phase 3
-// forms it again from pre and r, which costs a read of pre in place of a
-// write and a read of z.
+// (ap) lie in the block's device frame. The thread takes TG_FRAME_POINTS
+// points of its walk at once and loads their delta, Ap, pre and (LM) b of
+// every channel (the layout takes up to TG_FRAME_CHUNK) before it stores
+// or sums anything, so that those loads are in flight together (in the
+// resident loop's order each point's would wait for the last's); the sums
+// then take the points and channels in the walk's order. A load past the
+// tile or the channels reads a valid place and is not used. z is not kept:
+// phase 3 forms it again from pre and r, which costs a read of pre in
+// place of a write and a read of z. TG_FRAME_CHUNK is the layout's most
+// channels (fused_cg.HBM_MAX_CHANNELS), a point's values in registers.
 #define TG_FRAME_CHUNK 4
 #define TG_FRAME_POINTS 4
 template <bool LM>
@@ -267,70 +270,47 @@ __device__ __forceinline__ double2 tg_update_frames(const TgTile& tt, float* __r
     if constexpr (LM) acc.y += (double)__fmul_rn(dv, __fadd_rn(bl, rv));
     if (y < h || y >= rows - h || x < h || x >= cols - h) r_ring[c * plane + gq] = rv;
   };
-  if (C <= TG_FRAME_CHUNK) {
-    for (TgWalk w(cols); w.q < pts; w.next(cols)) {
-      int vq[TG_FRAME_POINTS], vy[TG_FRAME_POINTS], vx[TG_FRAME_POINTS];
-      float dk[TG_FRAME_POINTS][TG_FRAME_CHUNK], ak[TG_FRAME_POINTS][TG_FRAME_CHUNK];
-      float pk[TG_FRAME_POINTS][TG_FRAME_CHUNK], bk[TG_FRAME_POINTS][TG_FRAME_CHUNK];
-      TgWalk u = w;
-#pragma unroll
-      for (int i = 0; i < TG_FRAME_POINTS; ++i) {
-        if (i > 0) u.next(cols);
-        vq[i] = u.q;
-        vy[i] = u.y;
-        vx[i] = u.x;
-        const bool in = u.q < pts;  // else read the first point's places
-        const int q = in ? u.q : w.q;
-        const int gq = (y0 + (in ? u.y : w.y)) * N2 + x0 + (in ? u.x : w.x);
-#pragma unroll
-        for (int k = 0; k < TG_FRAME_CHUNK; ++k) {
-          const int c = min(k, C - 1);
-          dk[i][k] = d[c * pts + q];
-          ak[i][k] = ap[c * pts + q];
-          pk[i][k] = pre[c * plane + gq];
-          bk[i][k] = LM ? b[c * plane + gq] : 0.f;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < TG_FRAME_POINTS; ++i) {
-        if (vq[i] >= pts) break;
-#pragma unroll
-        for (int k = 0; k < TG_FRAME_CHUNK; ++k) {
-          if (k >= C) break;
-          update(vq[i], vy[i], vx[i], k, dk[i][k], ak[i][k], pk[i][k], bk[i][k]);
-        }
-      }
-      w = u;  // the loop's step moves past the last point taken
-    }
-    return acc;
-  }
   for (TgWalk w(cols); w.q < pts; w.next(cols)) {
-    const int gq = (y0 + w.y) * N2 + x0 + w.x;
-    for (int c0 = 0; c0 < C; c0 += TG_FRAME_CHUNK) {
-      float dk[TG_FRAME_CHUNK], ak[TG_FRAME_CHUNK];
+    int vq[TG_FRAME_POINTS], vy[TG_FRAME_POINTS], vx[TG_FRAME_POINTS];
+    float dk[TG_FRAME_POINTS][TG_FRAME_CHUNK], ak[TG_FRAME_POINTS][TG_FRAME_CHUNK];
+    float pk[TG_FRAME_POINTS][TG_FRAME_CHUNK], bk[TG_FRAME_POINTS][TG_FRAME_CHUNK];
+    TgWalk u = w;
+#pragma unroll
+    for (int i = 0; i < TG_FRAME_POINTS; ++i) {
+      if (i > 0) u.next(cols);
+      vq[i] = u.q;
+      vy[i] = u.y;
+      vx[i] = u.x;
+      const bool in = u.q < pts;  // else read the first point's places
+      const int q = in ? u.q : w.q;
+      const int gq = (y0 + (in ? u.y : w.y)) * N2 + x0 + (in ? u.x : w.x);
 #pragma unroll
       for (int k = 0; k < TG_FRAME_CHUNK; ++k) {
-        const int c = min(c0 + k, C - 1);
-        dk[k] = d[c * pts + w.q];
-        ak[k] = ap[c * pts + w.q];
-      }
-#pragma unroll
-      for (int k = 0; k < TG_FRAME_CHUNK; ++k) {
-        const int c = c0 + k;
-        if (c >= C) break;
-        update(w.q, w.y, w.x, c, dk[k], ak[k], pre[c * plane + gq],
-               LM ? b[c * plane + gq] : 0.f);
+        const int c = min(k, C - 1);
+        dk[i][k] = d[c * pts + q];
+        ak[i][k] = ap[c * pts + q];
+        pk[i][k] = pre[c * plane + gq];
+        bk[i][k] = LM ? b[c * plane + gq] : 0.f;
       }
     }
+#pragma unroll
+    for (int i = 0; i < TG_FRAME_POINTS; ++i) {
+      if (vq[i] >= pts) break;
+#pragma unroll
+      for (int k = 0; k < TG_FRAME_CHUNK; ++k) {
+        if (k >= C) break;
+        update(vq[i], vy[i], vx[i], k, dk[i][k], ak[i][k], pk[i][k], bk[i][k]);
+      }
+    }
+    w = u;  // the loop's step moves past the last point taken
   }
   return acc;
 }
 
-// Phase 2 of tg_solve in the hbm layout on an LM reset iteration, with up
-// to TG_FRAME_CHUNK channels: delta += alpha p (its ring to the output
-// array), a grid barrier, delta's haloed copy in Ap's frame (the
-// neighbours' ring from the output array), then r = b - (A delta + ctc
-// delta), the partials of <z, r> and <delta, b + r> and r's ring, the
+// Phase 2 of tg_solve in the hbm layout on an LM reset iteration:
+// delta += alpha p (its ring to the output array), a grid barrier,
+// delta's haloed copy in Ap's frame (the neighbours' ring from the output
+// array), then r = b - (A delta + ctc delta), the partials of <z, r> and <delta, b + r> and r's ring, the
 // resident loop's arithmetic in its order. Each walk loads TG_FRAME_POINTS
 // points before it stores any, and the stencil reads its fields and delta
 // TG_RESET_CHUNK triples at a time (tg_sum_triples), so that the loads are
@@ -438,9 +418,12 @@ __device__ __forceinline__ double2 tg_reset_frames(
 // Phase 3 of tg_solve in the hbm layout: p = z + beta p over the tile and
 // its halo, z = pre*r from the tile's r or, on the halo, from the
 // neighbours' r ring (p stays 0 beyond the grid), the resident loop's
-// arithmetic. The thread loads TG_FRAME_POINTS points' pre and r of
-// TG_FRAME_CHUNK channels before it updates any, so that those loads are
-// in flight together; nothing is summed here, so the order is free.
+// arithmetic. The thread loads TG_FRAME_POINTS points' pre and r of every
+// channel before it updates any, so that those loads are in flight
+// together; nothing is summed here, so the order is free. The channels go
+// in chunks of TG_FRAME_CHUNK, one chunk for every C the layout takes:
+// written without that loop, the GN instance spilled 64 B at its 128
+// registers and ran 4-5% slower an iteration on the H100 (PERF.md).
 __device__ __forceinline__ void tg_p_frames(const TgTile& tt, const float* __restrict__ pre,
                                             const float* __restrict__ r_ring, float beta,
                                             int C) {
@@ -495,8 +478,8 @@ __device__ __forceinline__ void tg_p_frames(const TgTile& tt, const float* __res
 // delta are the system's own. Returns the executed iteration count, the
 // same in every block. Under HBM (the hbm layout) delta and Ap lie in the
 // block's device frame: phase 1 is tg_apply_frames, phase 2
-// tg_update_frames (on an LM reset with up to TG_FRAME_CHUNK channels
-// tg_reset_frames) and phase 3 tg_p_frames.
+// tg_update_frames (on an LM reset tg_reset_frames) and phase 3
+// tg_p_frames.
 template <bool LM, bool BLOCK, typename FT, bool HBM>
 __device__ __forceinline__ int tg_solve(cg::grid_group& grid, const TgTile& tt,
                                         const FT* __restrict__ F,
@@ -589,10 +572,10 @@ __device__ __forceinline__ int tg_solve(cg::grid_group& grid, const TgTile& tt,
     bool reset = false;
     if constexpr (LM) reset = (l + 1) % reset_period == 0;
     acc = make_double2(0.0, 0.0);
-    if (HBM && !reset) {
-      if constexpr (HBM) acc = tg_update_frames<LM>(tt, s_d, s_ap, pre, b, alpha, C, r_ring);
-    } else if (HBM && LM && C <= TG_FRAME_CHUNK) {
-      if constexpr (HBM && LM)
+    if constexpr (HBM) {
+      if (!reset)
+        acc = tg_update_frames<LM>(tt, s_d, s_ap, pre, b, alpha, C, r_ring);
+      else if constexpr (LM)
         acc = tg_reset_frames(grid, tt, F, b, pre, ctc, alpha, C, s_d, s_ap, delta, r_ring);
     } else if (!reset) {
       for (TgWalk w(cols); w.q < pts; w.next(cols)) {
@@ -893,7 +876,8 @@ int tiled_grid_cg_device_limits(int* sms, int* smem_per_block) {
 // [C + 1]; partA and partB tiles_r*tiles_c double2 records each; iters
 // n_sys ints. Returns the CUDA error (tg_launch's; cudaErrorInvalidValue
 // too for bf16 with block or multi, hbm with block, bf16 or multi, or hbm
-// without frames, which no instance takes).
+// without frames or with more than TG_FRAME_CHUNK channels, which no
+// instance takes).
 int tiled_grid_cg_launch(int lm, int block, int bf16, int multi, int hbm, const void* F,
                          const float* b,
                          const float* pre, const float* ctc,
@@ -905,7 +889,7 @@ int tiled_grid_cg_launch(int lm, int block, int bf16, int multi, int hbm, const 
                          double2* partA, double2* partB, int* iters, float* frames,
                          int threads, int smem_bytes, void* stream) {
   if (lm && (ctc == nullptr || reset_period < 1)) return (int)cudaErrorInvalidValue;
-  if (hbm && frames == nullptr) return (int)cudaErrorInvalidValue;
+  if (hbm && (frames == nullptr || C > TG_FRAME_CHUNK)) return (int)cudaErrorInvalidValue;
   if (n_sys < 1 || f_stride < 0 || (!multi && !block && n_sys != 1))
     return (int)cudaErrorInvalidValue;
   void* args[] = {(void*)&F,        (void*)&b,       (void*)&pre,

@@ -76,11 +76,11 @@ tile's state (and under block-Jacobi its C·C planes) in shared memory for
 the whole solve and only r's border (Chronopoulos–Gear: w's) goes through
 device memory. Where that state does not fit but r over the tile and p
 over its halo do, a one-system standard GN or LM launch with float32
-fields and the elementwise preconditioner takes the same kernel in its
-"hbm" layout (``gn_hbm_tiled``, ``lm_hbm_tiled``: δ and Ap in a device
-frame a block; image_warping 1024²×3, the JAX package's
-``_hbm_tiled_kernel`` case). poisson 2048²×4 fits neither layout and keeps
-the template. A graph meta with the remainder takes the graph kernel
+fields, the elementwise preconditioner and up to ``HBM_MAX_CHANNELS``
+channels takes the same kernel in its "hbm" layout (``gn_hbm_tiled``,
+``lm_hbm_tiled``: δ and Ap in a device frame a block; image_warping
+1024²×3, the JAX package's ``_hbm_tiled_kernel`` case). poisson 2048²×4
+fits neither layout and keeps the template. A graph meta with the remainder takes the graph kernel
 instead (:func:`graph_tile_plan`, ``csrc/tiled_graph_cg.cu``:
 ``gn_rem_tiled``, ``lm_rem_tiled``, ``gn_rem_multi_tiled``,
 ``lm_rem_multi_tiled``), one contiguous vertex range a block under a
@@ -103,6 +103,9 @@ from .shift import in_bounds_mask, shift
 # csrc/tiled_grid_cg.cu)
 MAX_TRIPLES = 512
 MAX_CHANNELS = 64
+# the tiled kernel's hbm layout: each thread holds a point's values of every
+# channel in registers (csrc/tiled_grid_cg.cu, TG_FRAME_CHUNK)
+HBM_MAX_CHANNELS = 4
 BLOCK_THREADS = 256
 # the tiled kernel's block: one a tile, one tile an SM, so 512 threads leave
 # each up to 128 registers
@@ -990,9 +993,10 @@ def tiled_grid_plan(meta, C: int, dom, *, lm: bool, cs: bool = False, block: boo
     state and halo, and under ``block`` the C·C planes over them, fit
     ``smem_per_block``: the layout "resident". Where that state does not
     fit, the standard loop with float32 fields and the elementwise
-    preconditioner, one system, takes the layout "hbm" if r over the tile
-    and p over its frame fit (``tiled_smem_bytes(..., hbm=True)``: δ and
-    Ap then live in a device frame a block; image_warping 1024²×3). h is
+    preconditioner, one system of up to ``HBM_MAX_CHANNELS`` channels,
+    takes the layout "hbm" if r over the tile and p over its frame fit
+    (``tiled_smem_bytes(..., hbm=True)``: δ and Ap then live in a device
+    frame a block; image_warping 1024²×3). h is
     the largest |offset| of the triples in either axis.
     Chronopoulos–Gear or bfloat16 with block-Jacobi, the two together, and
     either with the split or a batch keep the template (so does the split
@@ -1023,7 +1027,7 @@ def tiled_grid_plan(meta, C: int, dom, *, lm: bool, cs: bool = False, block: boo
     smem = tiled_smem_bytes(lm, C, th, tw, h, len(triples), block, cs)
     layout = "resident"
     if smem > smem_per_block:
-        if cs or block or bf16 or multi:
+        if cs or block or bf16 or multi or C > HBM_MAX_CHANNELS:
             return None
         smem = tiled_smem_bytes(lm, C, th, tw, h, len(triples), hbm=True)
         if smem > smem_per_block:
@@ -1300,10 +1304,11 @@ def tiled_grid_cg_kernel(meta, b, pre, lits, tol, plan, *, guard_div=True, ctc=N
         raise ValueError("tiled_grid_cg_kernel: no tiled instance takes Chronopoulos–Gear or "
                          "bfloat16 fields with the block preconditioner, several systems or "
                          "each other, or the split with the block preconditioner")
-    if hbm and (cs or bf16 or block or batch or split):
-        raise ValueError("tiled_grid_cg_kernel: the hbm layout takes one system of the "
-                         "standard loop with float32 fields and the elementwise preconditioner")
     C = int(b.shape[len(lead)])
+    if hbm and (cs or bf16 or block or batch or split or C > HBM_MAX_CHANNELS):
+        raise ValueError("tiled_grid_cg_kernel: the hbm layout takes one system of the "
+                         "standard loop with float32 fields and the elementwise preconditioner, "
+                         f"up to {HBM_MAX_CHANNELS} channels")
     full = tuple(int(s) for s in b.shape[len(lead) + 1:])
     dom = full[1:] if len(full) == 3 and full[0] == 1 else full
     if len(dom) != 2:

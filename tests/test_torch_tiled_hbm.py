@@ -8,9 +8,10 @@ The kernel runs only on the card (chip_smoke.py holds it bitwise to the
 twin and to the template's ``gn``/``lm`` there). Here: which launches
 ``tiled_grid_plan`` takes in the hbm layout and which it refuses; a plan
 forced into that layout at 24² (``smem_per_block`` between the two
-layouts' needs), on whose tiles the emulation of the kernel's loop
+layouts' needs), on whose tiles the emulation of the resident loop
 (tests/test_torch_tiled_cg.py::emulate: the layout moves δ and Ap, not the
-arithmetic) is bitwise the twin ``fused_grid_cg_reference``; the twin
+arithmetic, so this checks the tiling, not the hbm code) is bitwise the
+twin ``fused_grid_cg_reference``; the twin
 against the Pallas HBM-streaming kernel ``_hbm_tiled_cg`` in interpret
 mode; and the wrapper's host-side contract on the CPU."""
 
@@ -127,6 +128,25 @@ def test_plan_refuses_the_hbm_layout_for_other_forms(case, lm):
 
 
 @pytest.mark.parametrize("lm", [False, True])
+@pytest.mark.parametrize("C", [4, 5])
+def test_plan_takes_the_hbm_layout_up_to_four_channels(C, lm):
+    """Where only the hbm layout would fit, a launch of up to
+    HBM_MAX_CHANNELS (4) channels takes it and one of more is refused: each
+    thread of the hbm instances holds a point's values of every channel in
+    registers, and the launch refuses more channels on the card."""
+    n = 256
+    meta = _big_meta(n, C)
+    meta["F"] = torch.empty((1 + max(f for (_d, _i, _j, f) in meta["triples"]), n, n))
+    plan = fused_cg.tiled_grid_plan(meta, C, (n, n), lm=lm, sm_count=SMS,
+                                    smem_per_block=_between(meta, C, (n, n), lm))
+    assert fused_cg.HBM_MAX_CHANNELS == 4
+    if C <= fused_cg.HBM_MAX_CHANNELS:
+        assert plan["layout"] == "hbm"
+    else:
+        assert plan is None
+
+
+@pytest.mark.parametrize("lm", [False, True])
 def test_plan_refuses_2048x4_in_either_layout(lm):
     """poisson 2048²×4 fits neither layout and keeps the template."""
     meta = _synthetic_meta((1, 1), [(d, c, c, k) for c in range(4) for k, d in enumerate(
@@ -180,8 +200,12 @@ _FORCED_CASES = [
 @pytest.mark.parametrize("kind,lits,tol,q_tol", _FORCED_CASES)
 def test_emulation_on_the_forced_hbm_plan_is_bitwise_the_twin(kind, lits, tol, q_tol):
     """image_warping 24²×3 on the tiles of a plan the limit forces into the
-    hbm layout: the emulation of the kernel's loop, tile by tile, with δ's
-    ring exchanged at each LM reset, equals the twin bit for bit."""
+    hbm layout: the emulation of the resident loop, tile by tile, with δ's
+    ring exchanged at each LM reset, equals the twin bit for bit. This
+    checks the hbm plan's tiling, not the hbm instances' code (where δ and
+    Ap live, the chunked loads of tg_sum_triples and the four-point walks
+    of csrc/tiled_grid_cg.cu), which runs only on the card: chip_smoke.py
+    holds it bitwise to the twin there."""
     meta, b, pre, ctc = _torch_system(kind)
     plan = _forced_hbm_plan(meta, b, ctc is not None)
     tr, tc = plan["tiles"]
