@@ -112,7 +112,14 @@ exit, the real exits, a repeat) and on the armadillo x4 (each system also
 to its own one-system launch), with the template's instances held to the
 same twin results and timed beside it in turns; the armadillo's two main
 paths launch it once a step and are held cost for cost and count for
-count to the same solves on the template route.
+count to the same solves on the template route. A graph without the
+remainder takes the same kernel in its stream layout, the fields read from
+device memory (gn_dia_tiled, lm_dia_tiled): held bitwise to the twin and
+the template on the 192x192 grid mesh, grid meshes of 64x64, 37x50 and
+8x8, and curve_fitting's medium system (one vertex of two channels), the
+grid mesh's main path launching it once a step; beside its times, a plain
+read of the mesh's fields from the L2 (l2_floor, a Triton launch of
+scripts/l2_read_floor.py) gives the floor the fields set an iteration.
 It exits non-zero, with no result line, when CUDA is not available or any
 check fails. It imports neither JAX nor opt_tpu.
 """
@@ -330,6 +337,13 @@ MEDIUM_GOLDENS = {
     "intrinsic_image_decomposition": (intrinsic_image_decomposition, "gaussNewtonGPU", 6, 30,
                                       845.5782470703125),
 }
+# the instance each medium golden's solve launches once a step: the tiled
+# grid kernel's, the template's (3-D) or, for curve_fitting's one vertex,
+# the graph kernel's stream layout
+GOLDEN_FORMS = {"laplacian": "gn_tiled", "poisson_image_editing": "gn_tiled",
+                "image_warping": "lm_tiled", "curve_fitting": "lm_dia_tiled",
+                "volumetric_mesh_deformation": "gn", "optical_flow": "gn_tiled",
+                "intrinsic_image_decomposition": "gn_tiled"}
 # arap_mesh_deformation's medium golden is left out: its GN 10x60 solve does
 # not settle and ends where float32 rounding takes it (tests/test_torch_graph.py
 # holds it step by step from the JAX package's states)
@@ -404,6 +418,11 @@ F32_FLOPS = 67e12
 F64_FLOPS = 34e12
 
 ARAP_SIDE = 192  # bench.py::bench_arap_graph: 36,864 vertices
+# the graph kernel's stream layout (a graph without the remainder) also on
+# arap grid meshes of 64 x 64 (48 ranges, a halo of 128 against ranges of
+# 86), 37 x 50 (22 ranges that end inside rows, a halo of 100) and 8 x 8
+# (one range): rows x columns
+DIA_MESHES = ((64, 64), (37, 50), (8, 8))
 ARMADILLO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchdata",
                          "armadillo31k.npz")
 GRAPH_NL, GRAPH_LI = 8, 100  # bench.py's GN 8x100 on both meshes
@@ -694,15 +713,17 @@ def _vol(n):
     return {"W": n, "H": n, "D": n}
 
 
-def arap_grid_inputs(n_side):
-    """bench.py::bench_arap_graph's inputs: an n_side^2-vertex grid mesh,
-    both edge directions, one corner pinned and the other pulled by
-    (10, 0, 5), w_fitSqrt = 1, w_regSqrt = sqrt(0.5)."""
-    N = n_side * n_side
+def arap_grid_inputs(n_side, cols=None):
+    """bench.py::bench_arap_graph's inputs: an n_side^2-vertex grid mesh
+    (n_side x cols with `cols`), numbered row-major, both edge directions,
+    one corner pinned and the other pulled by (10, 0, 5), w_fitSqrt = 1,
+    w_regSqrt = sqrt(0.5)."""
+    cols = n_side if cols is None else cols
+    N = n_side * cols
     f32 = np.float32
-    ii, jj = np.meshgrid(np.arange(n_side), np.arange(n_side), indexing="ij")
+    ii, jj = np.meshgrid(np.arange(n_side), np.arange(cols), indexing="ij")
     pos = np.stack([ii.ravel(), jj.ravel(), np.zeros(N)], -1).astype(f32)
-    vid = np.arange(N).reshape(n_side, n_side)
+    vid = np.arange(N).reshape(n_side, cols)
     v0 = np.concatenate([vid[:-1].ravel(), vid[:, :-1].ravel()])
     v1 = np.concatenate([vid[1:].ravel(), vid[:, 1:].ravel()])
     con = -np.ones((N, 3), f32)
@@ -921,20 +942,23 @@ def tiled_line(label, meta, b, lm=None, pre_blocks=None, cs=False):
 def graph_plan_line(label, meta, b, lm=None):
     """The graph route's plan of a system (of each system of a batch),
     printed: vertex ranges, the largest range, halo, frame and entry span,
-    threads and shared memory a block; raises where the system does not
-    take it."""
+    threads and shared memory a block, the layout ("resident": the fields
+    staged; "stream": read from device memory, a graph without the
+    remainder); raises where the system does not take it."""
     plan = fused_cg.route_plan(meta, b, lm=bool(lm))
-    if plan is None or meta.get("rem") is None:
+    if plan is None or "partition" not in plan:
         raise RuntimeError(f"{label}: does not take the graph kernel")
     lead = 1 if meta.get("batch") else 0
+    rem = meta.get("rem")
     log(json.dumps({"graph_plan": label, "form": form_of(meta, b, lm),
                     "systems": n_systems(meta), "vertices": int(b.shape[-1]),
                     "channels": int(b.shape[lead]), "triples": len(meta["triples"]),
-                    "remainder_entries": int(meta["rem"]["col"].shape[0]),
+                    "fields": int(meta["F"].shape[lead]),
+                    "remainder_entries": 0 if rem is None else int(rem["col"].shape[0]),
                     "ranges": plan["blocks"], "max_range": plan["max_range"],
                     "max_halo": plan["max_halo"], "max_frame": plan["max_frame"],
                     "max_entry_span": plan["max_entries"], "threads": plan["threads"],
-                    "smem_bytes": plan["smem_bytes"]}))
+                    "smem_bytes": plan["smem_bytes"], "layout": plan["layout"]}))
     return plan
 
 
@@ -1045,7 +1069,7 @@ def cg_bound(shape, iters, **knobs):
 
 
 def kernel_vs_twin(label, meta, b, pre, lits, tol, lm=None, q_tol=Q_TOL, bitwise=False,
-                   template=False, **variant):
+                   template=False, early=False, **variant):
     """Kernel and twin on the same system (``variant``: cs, pre_blocks).
     tol = 0 (and q_tol = -inf under LM) runs `lits` iterations with no exit
     and holds δ to the twin's; otherwise the real exits, which must give
@@ -1055,7 +1079,9 @@ def kernel_vs_twin(label, meta, b, pre, lits, tol, lm=None, q_tol=Q_TOL, bitwise
     an exact zero residual before `lits` even with no exit (the loop then
     stops): its counts are held to the twin's, system by system. With
     `template`, the template's instance is held the same way to the same
-    twin result, in a second line (a system the tiled route takes)."""
+    twin result, in a second line (a system the tiled route takes). With
+    `early`, a system of two unknowns whose loop reaches an exact zero
+    residual before `lits` with no exit: its count is held to the twin's."""
     lm_kw = dict(lm, q_tolerance=q_tol) if lm else {}
     n_sys = n_systems(meta)
     trace, counts = [], []
@@ -1109,7 +1135,7 @@ def kernel_vs_twin(label, meta, b, pre, lits, tol, lm=None, q_tol=Q_TOL, bitwise
             # <= 0); every case here but the block-per-system ones, whose tiny
             # systems reach an exact zero residual (their counts are held to
             # the twin's above), runs `lits` iterations without reaching it
-            if ik != lits * n_sys and not line["form"].endswith("_batch"):
+            if ik != lits * n_sys and not line["form"].endswith("_batch") and not early:
                 raise RuntimeError(f"{label}: iteration counts {ik}/{ir}, "
                                    f"expected {lits * n_sys}")
             if err > DELTA_RTOL * scale:
@@ -1131,15 +1157,17 @@ def bitwise_repeat(label, meta, b, pre, lits, lm=None, **variant):
         raise RuntimeError(f"{label}: two launches on the same input differ")
 
 
-def variant_checks(label, system, lits, exit_lits, bitwise=False, template=False):
+def variant_checks(label, system, lits, exit_lits, bitwise=False, template=False,
+                   early=False):
     """A variant system's kernel against its twin: `lits` iterations with
     no exit, the real exits with up to `exit_lits`, and a bitwise repeat
     (with `template`, the template's instance is held to the same twin
-    results too). Returns the first check's max|Δδ|."""
+    results too; `early`: kernel_vs_twin's). Returns the first check's
+    max|Δδ|."""
     meta, b, pre, lm, variant = system
     no_exit = dict(q_tol=float("-inf")) if lm else {}
     err = kernel_vs_twin(label, meta, b, pre, lits, 0.0, lm, bitwise=bitwise, template=template,
-                         **no_exit, **variant)
+                         early=early, **no_exit, **variant)
     kernel_vs_twin(label, meta, b, pre, exit_lits, CG_TOL, lm, bitwise=bitwise,
                    template=template, **variant)
     bitwise_repeat(label, meta, b, pre, exit_lits, lm, **variant)
@@ -1186,7 +1214,8 @@ def route_equal(label, res, launches, solve, form):
     """The same solve (``solve()``, a result) on the template route, launch
     counts from 0: its costs and CG counts must equal ``res``'s to the last
     digit, in as many launches of the template's instance (``form`` without
-    "_tiled", and "_hbm" in the hbm layout) as ``res`` made of ``form``."""
+    "_tiled", and "_hbm" in the hbm layout, "_dia" in the graph kernel's
+    stream layout) as ``res`` made of ``form``."""
     fused_cg.reset_launch_counts()
     with template_route():
         tres = solve()
@@ -1200,8 +1229,8 @@ def route_equal(label, res, launches, solve, form):
             "template_launches": tl, "costs_equal": same, "lin_iters": lin,
             "template_lin_iters": tlin}
     log(json.dumps(line))
-    if not same or lin != tlin or tl != {form.removesuffix("_tiled").removesuffix("_hbm"):
-                                         launches[form]}:
+    template_form = form.removesuffix("_tiled").removesuffix("_hbm").removesuffix("_dia")
+    if not same or lin != tlin or tl != {template_form: launches[form]}:
         raise RuntimeError(f"{label}: the tiled route's solve differs from the template's")
 
 
@@ -1390,12 +1419,16 @@ def float64_witness(label, spec, kind, dims, inputs, nl, li, ref, n_steps):
 
 def instance_system(meta, b, pre, lm, variant, k):
     """System k of a batch as a one-system launch takes it: (meta with its
-    fields and remainder blocks, b, pre, LM keywords, variant keywords with
-    its block preconditioner)."""
+    fields and remainder blocks, or its empty CSR where the graph has no
+    remainder, b, pre, LM keywords, variant keywords with its block
+    preconditioner)."""
     one = {key: v for key, v in meta.items() if key != "batch"}
     one["F"] = meta["F"][k].contiguous()
     if meta["rem"] is not None:
         one["rem"] = dict(meta["rem"], blk=meta["rem"]["blk"][k].contiguous())
+    if meta.get("empty_csr") is not None:  # the batched meta's is expanded over the batch
+        empty = meta["empty_csr"]
+        one["empty_csr"] = dict(empty, rowptr=empty["rowptr"][k], col=empty["col"][k])
     lm_k = None if lm is None else dict(lm, ctc=lm["ctc"][k].contiguous())
     pb = variant.get("pre_blocks")
     var_k = dict(variant, pre_blocks=None if pb is None else pb[k].contiguous())
@@ -1895,6 +1928,9 @@ def time_once(fn):
     return start.elapsed_time(end), out
 
 
+TIMED_ITERS_RUN = {}  # (label, form) -> iterations of time_pair's last timed launches
+
+
 def time_pair(label, meta, b, pre, gpu, lm=None, reps=3, lits=TIMED_ITERS, device=False,
               twin=True, template=False, **variant):
     """ms of `lits` CG iterations with no exit of the kernel (mean of `reps`
@@ -1954,6 +1990,7 @@ def time_pair(label, meta, b, pre, gpu, lm=None, reps=3, lits=TIMED_ITERS, devic
         floor_ms = bound_ms + hbm_frame_bytes(shape, iters) / HBM_BYTES_PER_S * 1e3
         extra.update(layout="hbm", layout_floor_ms=floor_ms,
                      layout_floor_ms_per_cg_iter=floor_ms / iters)
+    TIMED_ITERS_RUN[(label, form)] = iters
     log(json.dumps({"timing": label, "form": form, "gpu": gpu, "iters": iters,
                     "kernel_ms_per_cg_iter": ms_k / iters,
                     "twin_ms_per_cg_iter": None if ms_t is None else ms_t / iters,
@@ -2016,6 +2053,34 @@ def tiled_floor(gpu, tiles=(12, 11), tile=4, cs=False):
                     "tiles": list(tiles), "tile": [tile, tile], "iters": TIMED_ITERS,
                     "kernel_ms_per_cg_iter": ms / TIMED_ITERS}))
     return ms / TIMED_ITERS
+
+
+def l2_floor(gpu, label, F, timed):
+    """The least time the card takes to read a graph's fields ``F`` once
+    from its L2, where the stream layout's fields stay between iterations
+    (arap36k's 26.7 MB in the 50 MB L2): one launch of a plain read of them
+    repeated 100 times (scripts/l2_read_floor.py, a Triton kernel, loads
+    that bypass L1), CUDA events, ms a read; beside it the same bytes at
+    the memory rate, and each of ``timed`` (kernel ms an iteration by
+    form, from time_pair in this call) over the read. Returns ms a read."""
+    import importlib.util
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    # Triton's compiled kernels stay in the checkout's git-ignored build/
+    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(root, "build", "triton"))
+    path = os.path.join(root, "scripts", "l2_read_floor.py")
+    spec = importlib.util.spec_from_file_location("l2_read_floor", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    ms = mod.l2_read_ms(F)
+    n_bytes = F.numel() * F.element_size()
+    log(json.dumps({"timing": "l2_read_floor", "case": label, "gpu": gpu, "bytes": n_bytes,
+                    "reps": 100, "ms_per_read": ms, "bytes_per_s": n_bytes / ms * 1e3,
+                    "memory_rate_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+                    "kernel_ms_per_cg_iter": timed,
+                    "kernel_over_read": {k: v / ms for k, v in timed.items()}}))
+    return ms
 
 
 def profile_solve(label, run, gpu):
@@ -2561,19 +2626,20 @@ def main() -> int:
                 kernel_vs_twin(flabel, hm, hb, hp, 400, CG_TOL, hlm, bitwise=True)
     del hm, hb, hp, hlm
 
-    # the graph forms: K3 (DIA, the grid mesh, on the template) and K4 (the
-    # remainder, the armadillo: the graph kernel, gn_rem_tiled and
-    # lm_rem_tiled, with the template's gn_rem and lm_rem held bitwise to the
-    # same twin results), each in the GN and the LM instance
+    # the graph forms on the graph kernel, each in the GN and the LM instance,
+    # with the template's held bitwise to the same twin results: K3 (DIA,
+    # the grid mesh: gn_dia_tiled and lm_dia_tiled, the fields streamed,
+    # against gn and lm) and K4 (the remainder, the armadillo: gn_rem_tiled
+    # and lm_rem_tiled, the fields staged, against gn_rem and lm_rem)
     graph = {}
-    for label, dims, gin in (("arap36k", arap_dims, arap_in), ("armadillo31k", arm_dims, arm_in)):
+    for label, dims, gin, layout in (("arap36k", arap_dims, arap_in, "stream"),
+                                     ("armadillo31k", arm_dims, arm_in, "resident")):
         gm = system(arap_mesh_deformation, dims, gin)
         glm = system(arap_mesh_deformation, dims, gin, "LMGPU")
         rem = gm[0]["rem"]
-        routed = rem is not None
-        if routed:
-            graph_plan_line(f"{label} GN", *gm[:2])
-            graph_plan_line(f"{label} LM", *glm[:2], glm[3])
+        for klabel, (m_, b_, lm_) in (("GN", gm[:2] + (None,)), ("LM", glm[:2] + glm[3:4])):
+            if graph_plan_line(f"{label} {klabel}", m_, b_, lm_)["layout"] != layout:
+                raise RuntimeError(f"{label} {klabel}: not in the graph kernel's {layout} layout")
         offsets = sorted({d[1] for (d, _i, _j, _f) in gm[0]["triples"]})
         log(json.dumps({"graph_system": label, "vertices": dims["N"],
                         "fields": int(gm[0]["F"].shape[0]), "triples": len(gm[0]["triples"]),
@@ -2581,7 +2647,7 @@ def main() -> int:
                         "remainder_entries": None if rem is None else int(rem["col"].shape[0]),
                         "remainder_max_row": None if rem is None
                         else int((rem["rowptr"][1:] - rem["rowptr"][:-1]).max())}))
-        held = dict(bitwise=routed, template=routed)
+        held = dict(bitwise=True, template=True)
         err = kernel_vs_twin(label, *gm[:3], 50, 0.0, **held)
         kernel_vs_twin(label, *gm[:3], GRAPH_LI, CG_TOL, **held)
         kernel_vs_twin(label, *glm[:3], 50, 0.0, glm[3], q_tol=float("-inf"), **held)
@@ -2591,6 +2657,30 @@ def main() -> int:
         graph[label] = (gm, glm, err)
     if graph["arap36k"][0][0]["rem"] is not None or graph["armadillo31k"][0][0]["rem"] is None:
         raise RuntimeError("the grid mesh must take the DIA form and the armadillo the remainder")
+    # the stream layout on grid meshes whose halo is larger than a range, one
+    # of them ragged, and on one range, GN and LM, each with the template's
+    # instance on the same twin results
+    for rows, cols in DIA_MESHES:
+        ddims, din = arap_grid_inputs(rows, cols)
+        for kind, klabel in (("gaussNewtonGPU", "GN"), ("LMGPU", "LM")):
+            gs = system(arap_mesh_deformation, ddims, din, kind)
+            dlabel = f"arap grid {rows}x{cols} {klabel}"
+            if graph_plan_line(dlabel, *gs[:2], gs[3])["layout"] != "stream":
+                raise RuntimeError(f"{dlabel}: not in the graph kernel's stream layout")
+            variant_checks(dlabel, gs, 50, GRAPH_LI, bitwise=True, template=True)
+    # and on one vertex of two channels, offset 0 only (one range, two
+    # live lanes): the medium golden's curve_fitting system, GN and LM,
+    # whose loop reaches an exact zero residual before 50 iterations even
+    # with no exit
+    cdims_m, cin_m = medium_inputs()["curve_fitting"]
+    for kind, klabel in (("gaussNewtonGPU", "GN"), ("LMGPU", "LM")):
+        gs = system(curve_fitting, cdims_m, cin_m, kind)
+        dlabel = f"curve_fitting medium {klabel}"
+        if graph_plan_line(dlabel, *gs[:2], gs[3])["layout"] != "stream":
+            raise RuntimeError(f"{dlabel}: not in the graph kernel's stream layout")
+        variant_checks(dlabel, gs, 50, MEDIUM_GOLDENS["curve_fitting"][3], bitwise=True,
+                       template=True, early=True)
+    del gs, din, cin_m
     # the graph kernel on a 300-vertex random mesh (one system, all
     # remainder) and on the DIA-plus-remainder grid mesh, GN and LM, each
     # with the template's instance on the same twin results
@@ -2881,7 +2971,7 @@ def main() -> int:
                 runs[(IW_BIG_N, "gaussNewtonGPU")], lambda: ot.Problem(image_warping).plan(
                     dims=_grid(IW_BIG_N)).solve(dict(iw_big_in), nIterations=4,
                                                 lIterations=100), "gn_hbm_tiled")
-    _r, l_arap = graph_main_path("arap36k", arap_dims, arap_in, "gn")
+    _r, l_arap = graph_main_path("arap36k", arap_dims, arap_in, "gn_dia_tiled")
     _r, l_arm = graph_main_path("armadillo31k", arm_dims, arm_in, "gn_rem_tiled")
     float64_witness(f"arap36k GN {GRAPH_NL}x{GRAPH_LI}", arap_mesh_deformation, "gaussNewtonGPU",
                     arap_dims, arap_in, GRAPH_NL, GRAPH_LI, JAX_CPU_ARAP36K_F64_COSTS, F64_STEPS)
@@ -2932,11 +3022,11 @@ def main() -> int:
                         "final_cost": r.final_cost, "golden": golden,
                         "rel_diff": abs(r.final_cost - golden) / golden,
                         "kernel_launches": used, "nonlinear_iters": r.num_iterations}))
-        base = "lm" if kind == "LMGPU" else "gn"
-        ran = {k: v for k, v in used.items() if v}  # the template's or the tiled instance
+        ran = {k: v for k, v in used.items() if v}
         if (not ok or p.fused_fallback is not None
-                or ran not in ({base: r.num_iterations}, {base + "_tiled": r.num_iterations})):
-            raise RuntimeError(f"golden {name} failed ({ran})")
+                or ran != {GOLDEN_FORMS[name]: r.num_iterations}):
+            raise RuntimeError(f"golden {name} failed ({ran}, expected "
+                               f"{GOLDEN_FORMS[name]} once a step)")
     # shape_from_shading's medium case, held as the SFS_MEDIUM comment says
     spec, kind, nl, li, golden = SFS_MEDIUM
     mdims, minputs = cases["shape_from_shading"]
@@ -2966,6 +3056,7 @@ def main() -> int:
     mlabel, msys, _err = multi_sys["lm_bj_multi_tiled"]
     jlabel, jsys, _err = multi_sys["lm_multi_tiled"]
     agm, aglm = graph["armadillo31k"][:2]
+    dgm, dglm = graph["arap36k"][:2]
     glabel, gsys, _err = multi_sys["gn_rem_multi_tiled"]
     for key, (label, m_, b_, p_, lm_, var_, reps_) in {
             "gn": (f"poisson{n}x4", meta, b, pre, None, {}, 3),
@@ -2987,24 +3078,24 @@ def main() -> int:
             "lm_multi_iw": (jlabel, *jsys, 2),
             "gn_rem": ("armadillo31k", *agm, 2),
             "lm_rem": ("armadillo31k", *aglm, 2),
+            "gn_dia": ("arap36k", *dgm, 2),
+            "lm_dia": ("arap36k", *dglm, 2),
             "gn_rem_multi": (glabel, *gsys, 2)}.items():
         for template in (False, True, True, False):
             t = time_pair(label, m_, b_, p_, gpu, lm_, reps=reps_,
                           twin=not template and key not in t_tiled, template=template, **var_)
             (t_tpl if template else t_tiled).setdefault(key, t)
-    del iw_bj, msys, gsys, jsys
+    del iw_bj, msys, gsys, jsys, dgm, dglm
     t_gn, t_mixed, t_lm = t_tiled["gn"], t_tiled["gn_iw"], t_tiled["lm_iw"]
     phases["tiled_vs_template_kernel_turns"] = (time.perf_counter() - t_start
                                                 - sum(phases.values()))
     t_k5 = time_tile_apply(f"poisson{n}x4", meta, gpu)
     tiled_floor(gpu)
     tiled_floor(gpu, cs=True)
+    l2_floor(gpu, "arap36k", graph["arap36k"][0][0]["F"],
+             {f: t_tiled[key][0] / TIMED_ITERS_RUN[("arap36k", f)]
+              for key, f in (("gn_dia", "gn_dia_tiled"), ("lm_dia", "lm_dia_tiled"))})
     del gmeta, gb, gpre, wmeta, wb, wpre, wlm
-    # the DIA form (K3) on the template; the armadillo's were timed above, on
-    # both routes
-    gm, glm = graph["arap36k"][:2]
-    t_graph = time_pair("arap36k", *gm[:3], gpu, reps=2)
-    time_pair("arap36k", *glm[:3], gpu, glm[3], reps=2)
     t_3d = time_pair(f"volumetric{VOL_N}", *vsys[:3], gpu, vsys[3], reps=3, **vsys[4])
     t_bj = time_pair(f"volumetric{VOL_N} block_jacobi", *vbj[:3], gpu, vbj[3], reps=3, **vbj[4])
     del iw_variants  # the LM ones timed above, on both routes
@@ -3067,6 +3158,7 @@ def main() -> int:
     pblabel = f"poisson{n}x4 x{BATCH_POISSON_B} GN 1x2000 batched"
     jblabel = f"image_warping{IW_N} x{IW_BJ_BATCH_B} LM 8x400 jacobi batched"
     arm_label = f"armadillo31k GN {GRAPH_NL}x{GRAPH_LI}"
+    arap_label = f"arap36k GN {GRAPH_NL}x{GRAPH_LI}"
     arm_blabel = f"armadillo31k x{len(ARM_BATCH_PULLS)} GN {GRAPH_NL}x{GRAPH_LI} batched"
     for turn, route in enumerate(("template", "tiled", "tiled", "template")):
         with (template_route() if route == "template" else contextlib.nullcontext()):
@@ -3083,6 +3175,8 @@ def main() -> int:
                          reps=2)
             time_main_path(f"{arm_label} {route}", arap_mesh_deformation, "gaussNewtonGPU",
                            arm_dims, arm_in, GRAPH_NL, GRAPH_LI, gpu, reps=2)
+            time_main_path(f"{arap_label} {route}", arap_mesh_deformation, "gaussNewtonGPU",
+                           arap_dims, arap_in, GRAPH_NL, GRAPH_LI, gpu, reps=2)
             time_batched(f"{arm_blabel} {route}", ot.Problem(arap_mesh_deformation).plan(
                 dims=arm_bdims), arm_bin, GRAPH_NL, GRAPH_LI, gpu, reps=2)
             time_main_path(f"{k6_label} {route}", image_warping, "gaussNewtonGPU",
@@ -3112,6 +3206,9 @@ def main() -> int:
             kplan = ot.Problem(image_warping).plan(dims=_grid(IW_BIG_N))
             profile_solve(f"{k6_label} {route}".replace(" ", "_"), lambda: kplan.solve(
                 dict(iw_big_in), nIterations=4, lIterations=100), gpu)  # run at once
+            gplan = ot.Problem(arap_mesh_deformation).plan(dims=arap_dims)
+            profile_solve(f"{arap_label} {route}".replace(" ", "_"), lambda: gplan.solve(
+                dict(arap_in), nIterations=GRAPH_NL, lIterations=GRAPH_LI), gpu)  # run at once
     phases["route_profiles"] = time.perf_counter() - t_start - sum(phases.values())
     time_main_path(f"shape_from_shading{SFS_N} GN {SFS_NL}x{SFS_LI}", shape_from_shading,
                    "gaussNewtonGPU", _grid(SFS_N), sfs_in, SFS_NL, SFS_LI, gpu)
@@ -3121,8 +3218,6 @@ def main() -> int:
                        "gaussNewtonGPU", {"W": w, "H": h}, inp, FLOW_NL, FLOW_LI, gpu)
     time_main_path(f"intrinsic{INTR_N} GN {INTR_NL}x{INTR_LI}", intrinsic_image_decomposition,
                    "gaussNewtonGPU", _grid(INTR_N), intr_in, INTR_NL, INTR_LI, gpu)
-    time_main_path(f"arap36k GN {GRAPH_NL}x{GRAPH_LI}", arap_mesh_deformation,
-                   "gaussNewtonGPU", arap_dims, arap_in, GRAPH_NL, GRAPH_LI, gpu)
     time_main_path(f"volumetric{VOL_N} GN {VOL_NL}x{VOL_LI} jacobi", volumetric_mesh_deformation,
                    "gaussNewtonGPU", _vol(VOL_N), vol_in, VOL_NL, VOL_LI, gpu)
     bplan = ot.Problem(curve_fitting, kind="LMGPU").plan(dims=cdims)
@@ -3181,8 +3276,10 @@ def main() -> int:
               f"{IW_BIG_N}x{IW_BIG_N}x3, gn_hbm_tiled: r and haloed p in shared memory, delta "
               "and Ap in device frames", K6, runs[(IW_BIG_N, "gaussNewtonGPU")]["gn_hbm_tiled"],
               err_k6, t_tiled["gn_hbm"], TILED_SOURCE, t_tpl["gn_hbm"]),
-        entry("fused_grid_cg GN, graph DIA form (K3), arap 36,864-vertex grid mesh", K3,
-              l_arap["gn"], graph["arap36k"][2], t_graph),
+        entry("tiled_graph_cg GN, graph DIA form (K3), arap 36,864-vertex grid mesh, "
+              "gn_dia_tiled: the fields read from device memory (the stream layout)", K3,
+              l_arap["gn_dia_tiled"], graph["arap36k"][2], t_tiled["gn_dia"], GRAPH_SOURCE,
+              t_tpl["gn_dia"]),
         entry("tiled_graph_cg GN with the graph remainder (K4), arap armadillo 31,106 "
               "vertices, gn_rem_tiled", K4, l_arm["gn_rem_tiled"], graph["armadillo31k"][2],
               t_tiled["gn_rem"], GRAPH_SOURCE, t_tpl["gn_rem"]),

@@ -7,7 +7,8 @@ instances, one form a unit; ``csrc/fused_grid_cg.cu``, their C interface),
 or whose r and haloed p, fit one tile a block) and ``csrc/tiled_grid_cs.cu``
 (its Chronopoulos–Gear loop; both include ``csrc/tiled_grid.cuh``),
 ``csrc/tiled_graph_cg.cu``
-(the CG loop of a graph with the remainder, one vertex range a block; the
+(the CG loop of a graph, one vertex range a block: with the remainder, its
+fields staged, or without it, its fields read from device memory; the
 three include ``csrc/tiled_cg.cuh``)
 and ``csrc/tile_apply.cu`` (the sharded solve's per-tile apply): each unit
 by its own ``nvcc`` process, all started together, then one link into one
@@ -122,7 +123,7 @@ _INSTANCE = re.compile(
 _TILED_INSTANCE = re.compile(
     r"tiled_grid_cg_kernelILb([01])ELb([01])E(f|13__nv_bfloat16)Lb([01])ELb([01])EE")
 _TILED_CS_INSTANCE = re.compile(r"tiled_grid_cs_kernelILb([01])EE")
-_GRAPH_INSTANCE = re.compile(r"tiled_graph_cg_kernelILb([01])EE")
+_GRAPH_INSTANCE = re.compile(r"tiled_graph_cg_kernelILb([01])ELb([01])EE")
 
 
 def instance_registers(log: str) -> dict:
@@ -136,8 +137,10 @@ def instance_registers(log: str) -> dict:
     False, False, False, False, False, False, True, True);
     its Chronopoulos–Gear kernel's two (tiled_grid_cs_kernel<LM>) under
     (lm, False, True, False, False, False, False, True); and the graph
-    kernel's two (tiled_graph_cg_kernel<LM>) under (lm, True, False, False,
-    False, multi, False, True), multi False and True."""
+    kernel's four (tiled_graph_cg_kernel<LM, STREAM>): the resident ones
+    under (lm, True, False, False, False, multi, False, True), multi False
+    and True, the stream ones under (lm, False, False, False, False, False,
+    False, True, False, True)."""
     regs, current, spill = {}, None, (0, 0)
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -145,7 +148,9 @@ def instance_registers(log: str) -> dict:
             t = _TILED_INSTANCE.search(line)
             c = _TILED_CS_INSTANCE.search(line)
             g = _GRAPH_INSTANCE.search(line)
-            if g:
+            if g and g.group(2) == "1":
+                current = [(g.group(1) == "1",) + (False,) * 6 + (True, False, True)]
+            elif g:
                 lm = g.group(1) == "1"
                 current = [(lm, True, False, False, False, multi, False, True)
                            for multi in (False, True)]
@@ -225,7 +230,7 @@ def load_library(build: bool = True) -> ctypes.CDLL:
     ]
     lib.tiled_grid_cs_launch.restype = i32
     lib.tiled_graph_cg_launch.argtypes = [
-        i32,  # lm
+        i32, i32,  # lm, stream
         vp, vp, vp, vp, vp, vp, vp,  # F, b, pre, ctc, blk, triples, starts
         vp, vp, vp, vp, vp,  # rowptr, lcol, blocks, halo, border
         i32, i32, i32, i32, i32,  # C, T, n_triples, N, n_blocks

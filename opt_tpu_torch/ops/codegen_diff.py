@@ -7,12 +7,16 @@ and local-memory loads and stores, and the PTX, line for line.
 Each source is compiled once with the build's arch and optimisation flags
 (``_build.NVCC_FLAGS``): the unit that instantiates the one-system form,
 ``csrc/fused_grid_cg_one.cu`` (an older tree's single
-``csrc/fused_grid_cg.cu``). An instance is a one-system instance named as
-``fused_cg.instance_name`` names it (``gn``, ``lm_cs``, ``gn_bf16_rem``...);
-its template's last argument may be the older ``bool MULTI`` or the ``int
-FORM`` of today's source. Prints one JSON line an instance and writes each
-source's PTX and SASS of it, and the PTX diff, to DIR. Needs the CUDA
-toolkit.
+``csrc/fused_grid_cg.cu``), or the graph kernel's ``csrc/tiled_graph_cg.cu``.
+An instance is a one-system instance named as ``fused_cg.instance_name``
+names it (``gn``, ``lm_cs``, ``gn_bf16_rem``...; its template's last
+argument may be the older ``bool MULTI`` or the ``int FORM`` of today's
+source), or a graph kernel's (``gn_rem_tiled``, ``lm_rem_tiled``,
+``gn_dia_tiled``...: tiled_graph_cg_kernel<LM> of an older tree,
+<LM, STREAM> of today's). Prints one JSON line an instance (with the
+count of SASS lines that differ, the function's name left out) and
+writes each source's PTX and SASS of it, and the PTX diff, to DIR. Needs
+the CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -36,6 +40,9 @@ def instance_pattern(name: str) -> str:
     """The mangled-name pattern of the one-system instance `name`."""
     parts = name.split("_")
     b = lambda f: "Lb1E" if f else "Lb0E"  # noqa: E731
+    if parts[-1] == "tiled":  # the graph kernel's
+        stream = "Lb1E" if "dia" in parts else "(?:Lb0E)?"
+        return "tiled_graph_cg_kernelI" + b(parts[0] == "lm") + stream + "E"
     return ("fused_grid_cg_kernelI" + b(parts[0] == "lm") + b("rem" in parts) + b("cs" in parts)
             + b("bj" in parts) + ("13__nv_bfloat16" if "bf16" in parts else "f") + "L[bi]0EE")
 
@@ -109,7 +116,8 @@ def main() -> int:
         pattern = instance_pattern(name)
         res = {tag: instance_code(out, pattern) for tag, out in built.items()}
         for tag, r in res.items():
-            (args.out / f"{name}.{tag}.sass").write_text("\n".join(r.pop("sass")) + "\n")
+            r["sass_text"] = r.pop("sass")
+            (args.out / f"{name}.{tag}.sass").write_text("\n".join(r["sass_text"]) + "\n")
             r["ptx_text"] = r.pop("ptx")
             (args.out / f"{name}.{tag}.ptx").write_text("\n".join(r["ptx_text"]) + "\n")
         # the mangled names differ between the template forms: compare the
@@ -119,10 +127,18 @@ def main() -> int:
                                          norm(res["new"].pop("ptx_text")),
                                          "old.ptx", "new.ptx", lineterm="", n=2))
         (args.out / f"{name}.ptx.diff").write_text("\n".join(diff) + "\n")
+        sass_diff = list(difflib.unified_diff(
+            [s for s in norm(res["old"]["sass_text"]) if "Function :" not in s],
+            [s for s in norm(res["new"]["sass_text"]) if "Function :" not in s], lineterm="",
+            n=0))
+        for r in res.values():
+            r.pop("sass_text")
         old_ops, new_ops = res["old"].pop("opcodes"), res["new"].pop("opcodes")
         print(json.dumps({
             "instance": name, **res,
             "ptx_changed_lines": sum(1 for s in diff if s[:1] in "+-" and s[:3] not in ("+++", "---")),
+            "sass_changed_lines": sum(1 for s in sass_diff
+                                      if s[:1] in "+-" and s[:3] not in ("+++", "---")),
             "sass_opcode_delta": {op: new_ops[op] - old_ops[op]
                                   for op in sorted(set(old_ops) | set(new_ops))
                                   if new_ops[op] != old_ops[op]},

@@ -1,14 +1,17 @@
-// Whole-loop preconditioned CG for a graph operator with an irregular
-// remainder: one persistent cooperative launch per CG solve, one block a
-// contiguous range of vertices, for Hopper (sm_90a). Two kernels,
-// tiled_graph_cg_kernel<LM>: the standard Gauss-Newton loop and the standard
-// Levenberg-Marquardt loop of fused_grid_cg.cuh (lines 66-78), float32
-// fields and remainder blocks, the Jacobi preconditioner, over the graph
-// domain [1, N], an even number of channels C; each solves n_sys
-// independent systems in turn (1 for one system). Their launches count, in
-// ops/fused_cg.py, as gn_rem_tiled and lm_rem_tiled (one system) and
-// gn_rem_multi_tiled and lm_rem_multi_tiled (a batch of systems over one
-// CSR).
+// Whole-loop preconditioned CG for a graph operator, with or without an
+// irregular remainder: one persistent cooperative launch per CG solve, one
+// block a contiguous range of vertices, for Hopper (sm_90a). Four kernels,
+// tiled_graph_cg_kernel<LM, STREAM>: the standard Gauss-Newton loop and the
+// standard Levenberg-Marquardt loop of fused_grid_cg.cuh (lines 66-78),
+// float32 fields and remainder blocks, the Jacobi preconditioner, over the
+// graph domain [1, N], an even number of channels C; each solves n_sys
+// independent systems in turn (1 for one system). STREAM is the layout:
+// the resident one (false) stages a range's fields in shared memory, the
+// stream one (true) reads them from device memory every iteration. Their
+// launches count, in ops/fused_cg.py, as gn_rem_tiled and lm_rem_tiled
+// (resident, one system), gn_rem_multi_tiled and lm_rem_multi_tiled
+// (resident, a batch of systems over one CSR), and gn_dia_tiled and
+// lm_dia_tiled (stream, one system without the remainder: its CSR empty).
 //
 // Replaces, in opt_tpu/ops/pallas_cg.py: _kernel (:328) in its rem_pairs
 // form (:338, apply :383-409 and :410-494), the Pallas TPU kernel that runs
@@ -16,8 +19,10 @@
 // vertex-id offset covers, with lm=True (:345, :495), also under jax.vmap
 // (opt_tpu/solver/gauss_newton.py:983-1004), where the partition of the
 // vertices (ops/fused_cg.py::graph_tile_plan) fits the card's shared
-// memory. The other remainder forms (Chronopoulos-Gear, bfloat16,
-// block-Jacobi, the block-per-system batch) run the template.
+// memory; and the same kernel in its flat1d form (:335, apply :386-399),
+// the DIA-only graph, one system (the stream layout). The other remainder
+// forms (Chronopoulos-Gear, bfloat16, block-Jacobi, the block-per-system
+// batch) and the DIA-only form's batches and variants run the template.
 //
 // The arithmetic is the template's (fused_grid_cg.cuh:297-314 and
 // :396-419): float32 products with explicit round-to-nearest intrinsics and
@@ -79,6 +84,24 @@
 //     strides), dots, exit and count; they share the partition. A grid
 //     barrier before each system after the first frees the records, the
 //     border array and the shared memory for it.
+//   * The stream layout (STREAM), for the DIA-only graph: its fields do not
+//     fit beside the state (arap on the 192 x 192 grid mesh: 181 fields,
+//     203 KB a range of 280 vertices, against 67 KB of state), so they are
+//     not staged and the apply reads them from device memory, where they
+//     stay in the 50 MB L2 between iterations (26.7 MB). The apply, about
+//     31 triples an output, then costs its instructions and each thread's
+//     chain of loads, not the fields' bytes (staging the 146 rows that fit
+//     measured slower on an H100), so: a warp takes 32 consecutive
+//     vertices of one channel (tgr_for_outputs: one 128-byte segment of a
+//     field row a load, every lane on the same triple); a triple is one
+//     16-byte broadcast load (s_tr: field offset, source offset, offset);
+//     a chunk of TGR_FIELD_CHUNK triples' fields and p values is loaded
+//     before any is summed (tgr_sum_stream); and the bounds check runs only
+//     for vertices that some offset takes outside [0, N), near the graph's
+//     two ends. The sums and their order are the resident layout's,
+//     so the bits are too; with no remainder the CSR loop is empty (rowptr
+//     all zero) and col, lcol and blk are never read. The resident
+//     instances' code is unchanged (if constexpr).
 //   * The dynamic shared memory is set (cudaFuncSetAttribute) before the
 //     occupancy query and the launch; a launch that needs more blocks than
 //     can be co-resident is refused and the error returned.
@@ -94,6 +117,7 @@ namespace cg = cooperative_groups;
 #define TGR_MAX_CHANNELS 64
 #define TGR_ROW 6    // a triple as the host gives it: d0, d1, d2, i, j, fid
 #define TGR_BLOCK 5  // a block's record: v0, v1, own_at, halo_off, nh
+#define TGR_FIELD_CHUNK 16  // the stream layout's field loads in flight a thread
 
 // A walk over the (vertex, channel) pairs of a run of vertices, vertex-major
 // (o = v*C + c), at the block's stride, advanced by addition.
@@ -120,18 +144,21 @@ struct TgrWalk {
 __host__ __device__ __forceinline__ int tgr_field_stride(int nvm) { return nvm | 1; }
 
 // The dynamic shared memory of a launch, in bytes, in the kernel's layout:
-// the block-sum records; the fields [T][nvm | 1]; r and Ap (under LM also b
-// and ctc) [nvm][C]; p, delta and pre [nfm][C]; the columns' frame places
-// [nem], the halo [nhm], the row starts [nvm + 1], the triples' field and
-// source offsets and offsets [3][n_triples], the channels' first triples
+// the block-sum records; the fields [T][nvm | 1] (in the stream layout
+// instead the triples [n_triples] as int4: field offset, source offset,
+// offset); r and Ap (under LM also b and ctc) [nvm][C]; p, delta and pre
+// [nfm][C]; the columns' frame places [nem], the halo [nhm], the row starts
+// [nvm + 1], the triples' field and source offsets and offsets
+// [3][n_triples] (not in the stream layout), the channels' first triples
 // [C + 1]; the border flags [nvm] bytes. nvm, nfm, nhm and nem are the
 // largest range, frame, halo and entry span of the launch's blocks.
-__host__ __device__ __forceinline__ long long tgr_smem_bytes(int lm, int C, int T, int nvm,
-                                                            int nfm, int nhm, int nem,
+__host__ __device__ __forceinline__ long long tgr_smem_bytes(int lm, int stream, int C, int T,
+                                                            int nvm, int nfm, int nhm, int nem,
                                                             int n_triples) {
   return 16LL * (TGCG_WARPS + 1) +
-         4LL * ((long long)T * tgr_field_stride(nvm) + (lm ? 4LL : 2LL) * C * nvm +
-                3LL * C * nfm + nem + nhm + nvm + 1 + 3LL * n_triples + C + 1) +
+         4LL * ((stream ? 4LL * n_triples : (long long)T * tgr_field_stride(nvm)) +
+                (lm ? 4LL : 2LL) * C * nvm + 3LL * C * nfm + nem + nhm + nvm + 1 +
+                (stream ? 0LL : 3LL * n_triples) + C + 1) +
          ((nvm + 3) & ~3);
 }
 
@@ -142,24 +169,73 @@ struct TgrBlock {
   double2* s_bcast;  // one record
   float *s_F, *s_r, *s_ap, *s_b, *s_ctc, *s_p, *s_d, *s_pre;
   const int *s_lcol, *s_halo, *s_row, *s_fo, *s_src, *s_dd, *s_start;
+  const int4* s_tr;  // the stream layout's triples
   const unsigned char* s_border;
   int N, v0, nv, own_at, nh, e0, fs, n_blocks;
+  int dlo, dhi;  // the stream layout: the triples' largest offsets below and above
 };
+
+// One channel's triples [k0, k1) of output vertex v (vl in the range) summed
+// into a from +0 in their order, in the stream layout: TGR_FIELD_CHUNK
+// triples' fields (fv: the system's F at v, a field's row N apart) and
+// source values (sv: src at v's frame place) loaded, with clamped
+// indices, before the chunk's sums, so that no sum waits on a load. Under
+// CHECK a read that leaves [0, N) loads v's own place and is not summed;
+// without it every read must lie inside.
+template <bool CHECK>
+__device__ __forceinline__ float tgr_sum_stream(const TgrBlock& tb,
+                                                const float* __restrict__ fv,
+                                                const float* sv, int v, int k0, int k1) {
+  float a = 0.f;
+  for (; k0 < k1; k0 += TGR_FIELD_CHUNK) {
+    float f[TGR_FIELD_CHUNK], x[TGR_FIELD_CHUNK];
+    unsigned in = 0;  // CHECK: bit j, triple k0 + j reads inside [0, N)
+#pragma unroll
+    for (int j = 0; j < TGR_FIELD_CHUNK; ++j) {
+      const int4 t = tb.s_tr[min(k0 + j, k1 - 1)];
+      bool ok = true;
+      if constexpr (CHECK) {
+        ok = t.z == 0 || (unsigned)(v + t.z) < (unsigned)tb.N;
+        in |= (unsigned)ok << j;
+      }
+      f[j] = __ldg(fv + t.x);
+      x[j] = sv[ok ? t.y : 0];
+    }
+    const int n = k1 - k0;
+#pragma unroll
+    for (int j = 0; j < TGR_FIELD_CHUNK; ++j)
+      if (j < n && (!CHECK || ((in >> j) & 1u))) a = __fadd_rn(a, __fmul_rn(f[j], x[j]));
+  }
+  return a;
+}
 
 // Output (vl, i) of the block's range applied to src (a frame array
 // [nfm][C]): from +0 the triples of channel i in their order, then row v's
 // remainder entries ascending, j ascending inside each (the block's row i
-// of blk, 8 bytes a load: C is even), src read at the entry's column.
-__device__ __forceinline__ float tgr_apply(const TgrBlock& tb, const float* __restrict__ blk,
-                                           const float* src, int C, int vl, int i) {
+// of blk, 8 bytes a load: C is even), src read at the entry's column. The
+// fields come from shared memory, or under STREAM from fb (the system's F
+// at the range's first vertex, through the read-only path) by
+// tgr_sum_stream, which checks each read against [0, N) only for a vertex
+// that some offset takes outside (near the graph's two ends).
+template <bool STREAM>
+__device__ __forceinline__ float tgr_apply(const TgrBlock& tb, const float* __restrict__ fb,
+                                           const float* __restrict__ blk, const float* src,
+                                           int C, int vl, int i) {
   const int v = tb.v0 + vl;
   const int vf = (tb.own_at + vl) * C;
   float a = 0.f;
   const int k1 = tb.s_start[i + 1];
-  for (int k = tb.s_start[i]; k < k1; ++k) {
-    const int d = tb.s_dd[k];
-    if (d == 0 || (unsigned)(v + d) < (unsigned)tb.N)
-      a = __fadd_rn(a, __fmul_rn(tb.s_F[tb.s_fo[k] + vl], src[vf + tb.s_src[k]]));
+  if constexpr (STREAM) {
+    if (v - tb.dlo >= 0 && v + tb.dhi < tb.N)  // every offset reads inside [0, N)
+      a = tgr_sum_stream<false>(tb, fb + vl, src + vf, v, tb.s_start[i], k1);
+    else
+      a = tgr_sum_stream<true>(tb, fb + vl, src + vf, v, tb.s_start[i], k1);
+  } else {
+    for (int k = tb.s_start[i]; k < k1; ++k) {
+      const int d = tb.s_dd[k];
+      if (d == 0 || (unsigned)(v + d) < (unsigned)tb.N)
+        a = __fadd_rn(a, __fmul_rn(tb.s_F[tb.s_fo[k] + vl], src[vf + tb.s_src[k]]));
+    }
   }
   const int e1 = tb.s_row[vl + 1];
   const int h = C >> 1;
@@ -176,6 +252,26 @@ __device__ __forceinline__ float tgr_apply(const TgrBlock& tb, const float* __re
   return a;
 }
 
+// body(vl, i) for every output of the block's range, in the apply's order:
+// vertex-major at the block's stride (TgrWalk), or under STREAM a warp's 32
+// lanes on 32 consecutive vertices of one channel, the warps taking the
+// (32 vertices, channel) slots at their stride, so that a warp's field
+// loads are one segment of a field row and its triples the same.
+template <bool STREAM, typename Body>
+__device__ __forceinline__ void tgr_for_outputs(int nv, int C, Body&& body) {
+  if constexpr (STREAM) {
+    const int lane = threadIdx.x & 31;
+    const int slots = ((nv + 31) >> 5) * C;
+    for (int s = threadIdx.x >> 5; s < slots; s += TGCG_WARPS) {
+      const int q = s / C;
+      const int vl = (q << 5) + lane;
+      if (vl < nv) body(vl, s - q * C);
+    }
+  } else {
+    for (TgrWalk w(C); w.v < nv; w.next(C)) body(w.v, w.c);
+  }
+}
+
 // The frame place of halo vertex m: the halo sorted by vertex id, the range
 // sitting after its first own_at entries.
 __device__ __forceinline__ int tgr_halo_place(const TgrBlock& tb, int m) {
@@ -186,7 +282,7 @@ __device__ __forceinline__ int tgr_halo_place(const TgrBlock& tb, int m) {
 // launch, each on its range: F [T, N], b, pre, ctc [C, N] and blk
 // [nnz, C, C] are the system's own. Writes delta [C, N]. Returns the
 // executed iteration count, the same in every block.
-template <bool LM>
+template <bool LM, bool STREAM>
 __device__ __forceinline__ int tgr_solve(cg::grid_group& grid, const TgrBlock& tb,
                                          const float* __restrict__ F,
                                          const float* __restrict__ b,
@@ -211,12 +307,15 @@ __device__ __forceinline__ int tgr_solve(cg::grid_group& grid, const TgrBlock& t
   const int N = tb.N, v0 = tb.v0, nv = tb.nv, own_at = tb.own_at, nh = tb.nh;
   const int fs = tb.fs, nf = nv + nh, n_blocks = tb.n_blocks;
 
-  // the range's fields, once a solve
-  for (int k = threadIdx.x; k < T * nv; k += TGCG_THREADS) {
-    const int f = k / nv;
-    const int vl = k - f * nv;
-    s_F[f * fs + vl] = F[f * N + v0 + vl];
+  // the range's fields, once a solve (the stream layout reads them from F)
+  if constexpr (!STREAM) {
+    for (int k = threadIdx.x; k < T * nv; k += TGCG_THREADS) {
+      const int f = k / nv;
+      const int vl = k - f * nv;
+      s_F[f * fs + vl] = F[f * N + v0 + vl];
+    }
   }
+  const float* fb = STREAM ? F + v0 : s_F;
   // over the frame: pre, p = pre*b, delta = 0; over the range r = b (and
   // under LM b and ctc); rz0 = <r, p>
   double2 acc = make_double2(0.0, 0.0);
@@ -253,17 +352,17 @@ __device__ __forceinline__ int tgr_solve(cg::grid_group& grid, const TgrBlock& t
   while (l < lits) {
     // phase 1: Ap = A p (+ ctc p) over the range, the partials of <p, Ap>
     acc = make_double2(0.0, 0.0);
-    for (TgrWalk w(C); w.v < nv; w.next(C)) {
-      const int t = w.v * C + w.c;
+    tgr_for_outputs<STREAM>(nv, C, [&](int vl, int i) {
+      const int t = vl * C + i;
       // ctc is read before the apply's chain of sums, so its latency
       // overlaps the chain's
       const float cv = LM ? s_ctc[t] : 0.f;
-      float a = tgr_apply(tb, blk, s_p, C, w.v, w.c);
+      float a = tgr_apply<STREAM>(tb, fb, blk, s_p, C, vl, i);
       const float pv = s_p[own_at * C + t];
       if constexpr (LM) a = __fadd_rn(a, __fmul_rn(cv, pv));
       s_ap[t] = a;
       acc.x += (double)__fmul_rn(pv, a);
-    }
+    });
     acc = tg_block_sum(acc, s_warp);
     if (threadIdx.x == 0) partA[blockIdx.x] = acc;
     grid.sync();
@@ -303,20 +402,20 @@ __device__ __forceinline__ int tgr_solve(cg::grid_group& grid, const TgrBlock& t
         s_d[f] = __fadd_rn(s_d[f], __fmul_rn(alpha, s_p[f]));
       }
       __syncthreads();  // the apply below reads the neighbours' delta
-      for (TgrWalk w(C); w.v < nv; w.next(C)) {
-        const int t = w.v * C + w.c;
+      tgr_for_outputs<STREAM>(nv, C, [&](int vl, int i) {
+        const int t = vl * C + i;
         const int f = own_at * C + t;
         const float dv = s_d[f];
         const float cv = s_ctc[t];
         const float bv = s_b[t];
-        float a = tgr_apply(tb, blk, s_d, C, w.v, w.c);
+        float a = tgr_apply<STREAM>(tb, fb, blk, s_d, C, vl, i);
         a = __fadd_rn(a, __fmul_rn(cv, dv));
         const float rv = __fsub_rn(bv, a);
         s_r[t] = rv;
         acc.x += (double)__fmul_rn(__fmul_rn(s_pre[f], rv), rv);
         acc.y += (double)__fmul_rn(dv, __fadd_rn(bv, rv));
-        if (s_border[w.v]) r_ring[(v0 + w.v) * C + w.c] = rv;
-      }
+        if (s_border[vl]) r_ring[(v0 + vl) * C + i] = rv;
+      });
     }
     acc = tg_block_sum(acc, s_warp);
     if (threadIdx.x == 0) partB[blockIdx.x] = acc;
@@ -367,7 +466,9 @@ __device__ __forceinline__ int tgr_solve(cg::grid_group& grid, const TgrBlock& t
 // holds n_sys independent systems over one CSR, solved in turn: system s
 // reads its fields at F + s*f_stride, b, pre and ctc at s*C*N, its blocks
 // at blk + s*blk_stride, writes delta at s*C*N and its count to iters[s].
-template <bool LM>
+// Under STREAM the fields are read from F (no shared copy), a field's row N
+// apart.
+template <bool LM, bool STREAM>
 __global__ void __launch_bounds__(TGCG_THREADS, 1)
 tiled_graph_cg_kernel(const float* __restrict__ F, const float* __restrict__ b,
                       const float* __restrict__ pre, const float* __restrict__ ctc,
@@ -381,11 +482,14 @@ tiled_graph_cg_kernel(const float* __restrict__ F, const float* __restrict__ b,
                       double2* partA, double2* partB, int* iters) {
   extern __shared__ double2 smem[];
   TgrBlock tb;
-  tb.fs = tgr_field_stride(nvm);
+  tb.fs = STREAM ? N : tgr_field_stride(nvm);
   tb.s_warp = smem;
   tb.s_bcast = smem + TGCG_WARPS;
-  tb.s_F = (float*)(smem + TGCG_WARPS + 1);
-  tb.s_r = tb.s_F + T * tb.fs;
+  float* const s_state = (float*)(smem + TGCG_WARPS + 1);
+  tb.s_F = STREAM ? nullptr : s_state;
+  int4* s_tr = (int4*)s_state;  // 16-byte aligned after the records
+  tb.s_tr = s_tr;
+  tb.s_r = s_state + (STREAM ? 4 * n_triples : T * tb.fs);
   tb.s_ap = tb.s_r + C * nvm;
   tb.s_b = tb.s_ap + C * nvm;                 // under LM
   tb.s_ctc = tb.s_b + (LM ? C * nvm : 0);     // under LM
@@ -395,10 +499,11 @@ tiled_graph_cg_kernel(const float* __restrict__ F, const float* __restrict__ b,
   int* s_lcol = (int*)(tb.s_pre + C * nfm);
   int* s_halo = s_lcol + nem;
   int* s_row = s_halo + nhm;
+  const int nt = STREAM ? 0 : n_triples;  // the stream layout's triples are s_tr
   int* s_fo = s_row + nvm + 1;
-  int* s_src = s_fo + n_triples;
-  int* s_dd = s_src + n_triples;
-  int* s_start = s_dd + n_triples;
+  int* s_src = s_fo + nt;
+  int* s_dd = s_src + nt;
+  int* s_start = s_dd + nt;
   unsigned char* s_border = (unsigned char*)(s_start + C + 1);
   tb.s_lcol = s_lcol;
   tb.s_halo = s_halo;
@@ -429,18 +534,29 @@ tiled_graph_cg_kernel(const float* __restrict__ F, const float* __restrict__ b,
   for (int k = threadIdx.x; k <= C; k += TGCG_THREADS) s_start[k] = starts[k];
   for (int k = threadIdx.x; k < n_triples; k += TGCG_THREADS) {
     const int* t = triples + TGR_ROW * k;
-    s_fo[k] = t[5] * tb.fs;
-    s_src[k] = t[2] * C + t[4];
-    s_dd[k] = t[2];
+    if constexpr (STREAM) {
+      s_tr[k] = make_int4(t[5] * tb.fs, t[2] * C + t[4], t[2], 0);
+    } else {
+      s_fo[k] = t[5] * tb.fs;
+      s_src[k] = t[2] * C + t[4];
+      s_dd[k] = t[2];
+    }
   }
   // the solve's first loop reads them after its own staging: order them
   __syncthreads();
+  tb.dlo = tb.dhi = 0;
+  if constexpr (STREAM) {
+    for (int k = 0; k < n_triples; ++k) {
+      tb.dlo = max(tb.dlo, -s_tr[k].z);
+      tb.dhi = max(tb.dhi, s_tr[k].z);
+    }
+  }
 
   cg::grid_group grid = cg::this_grid();
   const int vec = C * N;  // one system's vector
   for (int s = 0; s < n_sys; ++s) {
     if (s > 0) grid.sync();  // every block is done with the last system
-    const int l = tgr_solve<LM>(grid, tb, F + s * f_stride, b + s * vec, pre + s * vec,
+    const int l = tgr_solve<LM, STREAM>(grid, tb, F + s * f_stride, b + s * vec, pre + s * vec,
                                 LM ? ctc + s * vec : ctc, blk + s * blk_stride, C, T, lits,
                                 tol, guard_div, reset_period, q_tol, delta + s * vec, r_ring,
                                 partA, partB);
@@ -458,12 +574,15 @@ extern "C" {
 // sorted by output channel with their per-channel starts [C + 1]; rowptr
 // [N + 1]; lcol [nnz], blocks [n_blocks, 5], halo and border as the kernel
 // reads them; r_ring [N, C]; partA and partB n_blocks double2 records
-// each; iters n_sys ints. Returns the CUDA error:
+// each; iters n_sys ints. stream_layout picks the stream layout (the fields
+// read from F every iteration); with nnz = 0 (rowptr all zero) lcol and blk
+// are never read and may be null. Returns the CUDA error:
 // cudaErrorCooperativeLaunchTooLarge where the blocks cannot all be
 // co-resident.
-int tiled_graph_cg_launch(int lm, const float* F, const float* b, const float* pre,
-                          const float* ctc, const float* blk, const int* triples,
-                          const int* starts, const int* rowptr, const int* lcol,
+int tiled_graph_cg_launch(int lm, int stream_layout, const float* F, const float* b,
+                          const float* pre, const float* ctc, const float* blk,
+                          const int* triples, const int* starts, const int* rowptr,
+                          const int* lcol,
                           const int* blocks, const int* halo, const unsigned char* border,
                           int C, int T, int n_triples, int N, int n_blocks, int nvm, int nfm,
                           int nhm, int nem, int lits, float tol, int guard_div,
@@ -477,10 +596,14 @@ int tiled_graph_cg_launch(int lm, const float* F, const float* b, const float* p
       blk_stride < 0)
     return (int)cudaErrorInvalidValue;
   if (lm && (ctc == nullptr || reset_period < 1)) return (int)cudaErrorInvalidValue;
-  if ((long long)smem_bytes != tgr_smem_bytes(lm, C, T, nvm, nfm, nhm, nem, n_triples))
+  if ((long long)smem_bytes !=
+      tgr_smem_bytes(lm, stream_layout, C, T, nvm, nfm, nhm, nem, n_triples))
     return (int)cudaErrorInvalidValue;
   const void* kernel =
-      lm ? (const void*)tiled_graph_cg_kernel<true> : (const void*)tiled_graph_cg_kernel<false>;
+      stream_layout ? (lm ? (const void*)tiled_graph_cg_kernel<true, true>
+                          : (const void*)tiled_graph_cg_kernel<false, true>)
+                    : (lm ? (const void*)tiled_graph_cg_kernel<true, false>
+                          : (const void*)tiled_graph_cg_kernel<false, false>);
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        smem_bytes);
   if (e != cudaSuccess) return (int)e;

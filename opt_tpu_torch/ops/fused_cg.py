@@ -84,8 +84,11 @@ fits neither layout and keeps the template. A graph meta with the remainder take
 instead (:func:`graph_tile_plan`, ``csrc/tiled_graph_cg.cu``:
 ``gn_rem_tiled``, ``lm_rem_tiled``, ``gn_rem_multi_tiled``,
 ``lm_rem_multi_tiled``), one contiguous vertex range a block under a
-partition built once per topology. All are bitwise equal to the template
-and to the twin, so the route changes no result.
+partition built once per topology; a one-system graph meta without the
+remainder (the DIA-only form, arap on a grid mesh) takes it too, in its
+"stream" layout, whose fields are read from device memory every
+iteration (``gn_dia_tiled``, ``lm_dia_tiled``). All are bitwise equal to
+the template and to the twin, so the route changes no result.
 """
 
 from __future__ import annotations
@@ -286,7 +289,10 @@ def plan_fused_graph_cg(compiled, plan, fields: Dict, grp_exec: Dict,
     fields and blocks on both sides (M·A·M); then F and the remainder's
     blocks are stored in ``coeff_dtype`` (None: float32). Returns the meta
     or None (the unknowns span several spaces or groups, or more triples or
-    channels than the kernel holds)."""
+    channels than the kernel holds). A meta without the remainder carries
+    under ``"empty_csr"`` the first group's empty CSR (``graph_group_tables``'s
+    entry of that name: rowptr, col and its :class:`GraphPartitions`), by
+    which the graph route partitions it; ``"rem"`` stays None."""
     if compiled.dtype != torch.float32:
         return None
     u_list = list(compiled.unknown_names)
@@ -325,7 +331,7 @@ def plan_fused_graph_cg(compiled, plan, fields: Dict, grp_exec: Dict,
         else:
             _emit(fm, d, offs[u_out] + i, offs[u_in] + j)
 
-    rem_parts = []
+    rem_parts, empties = [], []
     for key, ex in sorted(grp_exec.items()):
         g_ulist, g_offs, ct = ex["layout"]
         if sorted(g_ulist) != sorted(u_list) or ct != ctot or ex["S"].shape[0] != N:
@@ -362,6 +368,8 @@ def plan_fused_graph_cg(compiled, plan, fields: Dict, grp_exec: Dict,
                 inv_t = torch.as_tensor(inv, device=blk.device)
                 blk = blk[:, inv_t][:, :, inv_t]
             rem_parts.append((csr["rowptr"], csr["col"], blk, csr["row"], csr["partitions"]))
+        else:
+            empties.append(ex["tables"]["empty_csr"])
     if not field_list or len(triples) > MAX_TRIPLES or ctot > MAX_CHANNELS:
         return None
     rem = _merge_remainders(rem_parts, N) if rem_parts else None
@@ -377,6 +385,7 @@ def plan_fused_graph_cg(compiled, plan, fields: Dict, grp_exec: Dict,
         "triples": tuple(triples),
         "F": _narrow(F, coeff_dtype),
         "rem": rem,
+        "empty_csr": empties[0] if rem is None else None,
         "isp": isp,
     }
 
@@ -703,19 +712,22 @@ def _device_triples(triples, ctot: int, device):
 
 def instance_name(lm: bool, rem: bool, cs: bool = False, block: bool = False,
                   bf16: bool = False, multi: bool = False, batch: bool = False,
-                  tiled: bool = False, hbm: bool = False) -> str:
+                  tiled: bool = False, hbm: bool = False, dia: bool = False) -> str:
     """The kernel instance's name: "gn" or "lm", then "_cs" for
     Chronopoulos–Gear, "_bj" for block-Jacobi, "_bf16" for bfloat16 fields,
     "_rem" with the remainder phase, "_multi" for the instances whose
     cooperative launch holds several independent systems in turn (the
     per-channel split, a batch of large systems), "_batch" for those
     whose launch holds them side by side, one block each (a batch of small
-    systems), "_hbm" for the tiled kernel's hbm layout (δ and Ap in device
-    memory), and "_tiled" for the tiled kernel's (csrc/tiled_grid_cg.cu)."""
+    systems), "_dia" for the graph kernel's launches on a remainder-less
+    graph (its stream layout: the fields read from device memory), "_hbm"
+    for the tiled kernel's hbm layout (δ and Ap in device memory), and
+    "_tiled" for the tiled kernels' (csrc/tiled_grid_cg.cu,
+    csrc/tiled_graph_cg.cu)."""
     return (("lm" if lm else "gn") + ("_cs" if cs else "") + ("_bj" if block else "")
             + ("_bf16" if bf16 else "") + ("_rem" if rem else "")
             + ("_multi" if multi else "") + ("_batch" if batch else "")
-            + ("_hbm" if hbm else "") + ("_tiled" if tiled else ""))
+            + ("_dia" if dia else "") + ("_hbm" if hbm else "") + ("_tiled" if tiled else ""))
 
 
 # (lm, rem, cs, block, bf16, multi, batch): every combination of the five
@@ -748,6 +760,10 @@ TILED_INSTANCES += tuple((lm, False, False, False, False, True, False, True)
 # the tiled grid kernel's one-system Jacobi launches in the hbm layout (the
 # ninth flag, hbm)
 TILED_INSTANCES += tuple((lm, False, False, False, False, False, False, True, True)
+                         for lm in (False, True))
+# the graph kernel's one-system launches on a remainder-less graph, its
+# stream layout (the tenth flag, dia)
+TILED_INSTANCES += tuple((lm, False, False, False, False, False, False, True, False, True)
                          for lm in (False, True))
 
 
@@ -1132,17 +1148,18 @@ def graph_partition(rowptr, col, n_blocks: int, *, vertex_bytes: int, entry_byte
 
 
 def tiled_graph_smem_bytes(lm: bool, C: int, T: int, nvm: int, nfm: int, nhm: int, nem: int,
-                           n_triples: int) -> int:
+                           n_triples: int, stream: bool = False) -> int:
     """The graph kernel's dynamic shared memory a block, in bytes, in its
     layout (csrc/tiled_graph_cg.cu::tgr_smem_bytes): the block-sum records,
-    the fields over the largest range ``nvm`` (its stride made odd), r and
+    the fields over the largest range ``nvm`` (its stride made odd; not
+    under ``stream``, the layout that reads them from device memory), r and
     Ap (under LM also b and ctc) over the range, p, δ and pre over the
     largest frame ``nfm``, the columns' frame places over the largest entry
-    span ``nem``, the halo ``nhm``, the row starts, the triples' offsets and
-    the border flags."""
+    span ``nem``, the halo ``nhm``, the row starts, the triples' offsets
+    (three ints a triple, four under ``stream``) and the border flags."""
     return (16 * (TILED_THREADS // 32 + 1)
-            + 4 * (T * (nvm | 1) + (4 if lm else 2) * C * nvm + 3 * C * nfm + nem + nhm
-                   + nvm + 1 + 3 * n_triples + C + 1)
+            + 4 * ((0 if stream else T * (nvm | 1)) + (4 if lm else 2) * C * nvm + 3 * C * nfm
+                   + nem + nhm + nvm + 1 + (4 if stream else 3) * n_triples + C + 1)
             + ((nvm + 3) & ~3))
 
 
@@ -1151,25 +1168,37 @@ def graph_tile_plan(meta, C: int, N: int, *, lm: bool, cs: bool = False, block: 
     """Whether a launch on the graph ``meta`` (C channels on the domain
     [1, N]) takes the graph kernel (csrc/tiled_graph_cg.cu), and how: None,
     or {blocks, max_range, max_halo, max_frame, max_entries, threads,
-    smem_bytes, partition (:func:`graph_partition`)}. Taken for a meta with
-    the remainder whose CSR carries its :class:`GraphPartitions` (one
-    group's), float32 fields and blocks, under the standard GN or LM loop
-    (``lm``, not ``cs``) with the elementwise preconditioner (not
+    smem_bytes, layout, partition (:func:`graph_partition`)}. Taken for a
+    meta with the remainder whose CSR carries its :class:`GraphPartitions`
+    (one group's), float32 fields and blocks, under the standard GN or LM
+    loop (``lm``, not ``cs``) with the elementwise preconditioner (not
     ``block``), one system or a batch in the form
     :func:`batched_kernel_form` calls "multi", an even number of channels
     (the kernel reads a block row two floats a load) up to the kernel's
     channels and triples, when a partition into at most ``sm_count`` ranges
-    fits ``smem_per_block``. It starts at one range for every
-    TILED_THREADS outputs and takes more (up to ``sm_count``) until the
-    largest range's state, fields and frame fit. Built once per topology:
+    fits ``smem_per_block``: the layout "resident", the range's fields
+    staged in shared memory once a solve. A meta without the remainder
+    whose empty CSR (``meta["empty_csr"]``) carries its :class:`GraphPartitions`
+    takes it on the same conditions for one system only, in the layout
+    "stream": its fields (arap36k: 181 on 36,864 vertices, 203 KB a range
+    of 280) do not fit beside the state and are read from device memory
+    every iteration. It starts at one range for every TILED_THREADS outputs
+    and takes more (up to ``sm_count``) until the largest range's state,
+    fields (not under "stream") and frame fit. Built once per topology:
     the partitions stay in the CSR's :class:`GraphPartitions`."""
     rem = meta.get("rem")
-    if rem is None or not isinstance(rem.get("partitions"), GraphPartitions):
-        return None
     F = meta["F"]
     batch = bool(meta.get("batch"))
-    if (F.dtype != torch.float32 or rem["blk"].dtype != torch.float32 or cs or block
-            or meta.get("chan_grid") or (batch and batched_kernel_form(meta) != "multi")):
+    stream = rem is None
+    if stream:
+        rem = meta.get("empty_csr")
+        if rem is None or batch:
+            return None
+    if not isinstance(rem.get("partitions"), GraphPartitions):
+        return None
+    if (F.dtype != torch.float32 or (not stream and rem["blk"].dtype != torch.float32) or cs
+            or block or meta.get("chan_grid")
+            or (batch and batched_kernel_form(meta) != "multi")):
         return None
     lead = 1 if batch else 0
     triples = meta["triples"]
@@ -1185,12 +1214,14 @@ def graph_tile_plan(meta, C: int, N: int, *, lm: bool, cs: bool = False, block: 
     while True:
         part = rem["partitions"].partition(rem, n, C, T, dlo, dhi)
         smem = tiled_graph_smem_bytes(lm, C, T, part["max_range"], part["max_frame"],
-                                      part["max_halo"], part["max_entries"], len(triples))
+                                      part["max_halo"], part["max_entries"], len(triples),
+                                      stream)
         if smem <= smem_per_block:
             return {"blocks": int(part["blocks"].shape[0]), "max_range": part["max_range"],
                     "max_halo": part["max_halo"], "max_frame": part["max_frame"],
                     "max_entries": part["max_entries"], "threads": TILED_THREADS,
-                    "smem_bytes": smem, "partition": part}
+                    "smem_bytes": smem, "layout": "stream" if stream else "resident",
+                    "partition": part}
         if n == cap:
             return None
         n = min(cap, max(n + 1, n * 5 // 4))
@@ -1226,11 +1257,12 @@ def route_plan(meta, b, *, lm: bool, cs: bool = False, pre_blocks=None) -> Optio
     tiled kernel only in the form :func:`batched_kernel_form` calls
     "multi" (the systems in turn), planned at one system's C channels; the
     "batch" form keeps the template. The per-channel split is planned at
-    one channel, its systems'. A meta with the graph remainder takes
-    :func:`graph_tile_plan`'s plan (the graph kernel) or None."""
+    one channel, its systems'. A graph meta, with the remainder or with
+    its empty CSR (``meta["empty_csr"]``), takes :func:`graph_tile_plan`'s plan
+    (the graph kernel) or None."""
     block = pre_blocks is not None
     lead = 1 if meta.get("batch") else 0
-    if meta.get("rem") is not None:
+    if meta.get("rem") is not None or meta.get("empty_csr") is not None:
         sms, smem = device_limits(b.device)
         return graph_tile_plan(meta, int(b.shape[lead]), int(b.shape[-1]), lm=lm, cs=cs,
                                block=block, sm_count=sms, smem_per_block=smem)
@@ -1251,7 +1283,8 @@ def launch_instance(meta, b, *, lm: bool = False, cs: bool = False, pre_blocks=N
     if plan is not None:
         return instance_name(lm, meta.get("rem") is not None, cs, block, bf16,
                              multi=bool(meta.get("batch") or meta.get("chan_grid")),
-                             tiled=True, hbm=plan.get("layout") == "hbm")
+                             tiled=True, hbm=plan["layout"] == "hbm",
+                             dia=plan["layout"] == "stream")
     form = batched_kernel_form(meta, pre_blocks) if meta.get("batch") else None
     multi = form == "multi" if form else bool(meta.get("chan_grid"))
     return instance_name(lm, meta.get("rem") is not None, cs, block, bf16, multi,
@@ -1390,23 +1423,32 @@ def tiled_graph_cg_kernel(meta, b, pre, lits, tol, plan, *, guard_div=True, ctc=
     the elementwise preconditioner ``pre``. A batched meta (``meta["batch"]``
     = B, F [B, T, 1, N], blk [B, nnz, C, C]) takes b, pre, ctc as
     [B, C, 1, N] and solves the B systems in turn in the one launch,
-    counted as ``*_rem_multi_tiled``. Returns (delta, iters int32[n_sys] on
-    the device, n_sys = B under a batch, else 1). Does not synchronise. A
-    launch the card refuses (more ranges than co-resident blocks, shared
-    memory beyond the block's) raises. Each launch adds one to
-    ``fused_grid_cg_kernel.launches[name]`` (``gn_rem_tiled``,
-    ``lm_rem_multi_tiled``, ...)."""
+    counted as ``*_rem_multi_tiled``. A plan in the "stream" layout takes a
+    one-system meta without the remainder: its empty CSR (``meta["empty_csr"]``:
+    rowptr [N+1] of zeros, col [0]) and an empty blk [0, C, C] are handed
+    over, the fields are read from device memory, and the launch counts as
+    ``gn_dia_tiled`` or ``lm_dia_tiled``. Returns (delta, iters
+    int32[n_sys] on the device, n_sys = B under a batch, else 1). Does not
+    synchronise. A launch the card refuses (more ranges than co-resident
+    blocks, shared memory beyond the block's) raises. Each launch adds one
+    to ``fused_grid_cg_kernel.launches[name]`` (``gn_rem_tiled``,
+    ``lm_rem_multi_tiled``, ``gn_dia_tiled``, ...)."""
     from ._build import load_library
 
-    F, rem = meta["F"], meta.get("rem")
+    F = meta["F"]
     device = b.device
     lm = ctc is not None
     if F.dtype != torch.float32:
         raise ValueError(f"tiled_graph_cg_kernel takes float32 fields, got {F.dtype}")
-    if rem is None:
-        raise ValueError("tiled_graph_cg_kernel needs the meta's graph remainder")
+    stream = plan["layout"] == "stream"
+    rem = meta.get("empty_csr" if stream else "rem")
+    if rem is None or stream and meta.get("rem") is not None:
+        raise ValueError("tiled_graph_cg_kernel needs the meta's graph remainder, or in the "
+                         "stream layout a meta without it that carries its empty CSR")
     n_sys = int(meta.get("batch") or 0)
     multi = n_sys > 0
+    if stream and multi:
+        raise ValueError("tiled_graph_cg_kernel: the stream layout takes one system")
     lead = (n_sys,) if multi else ()  # the batch axis of every operand
     C = int(b.shape[len(lead)])
     full = tuple(int(s) for s in b.shape[len(lead) + 1:])
@@ -1424,18 +1466,24 @@ def tiled_graph_cg_kernel(meta, b, pre, lits, tol, plan, *, guard_div=True, ctc=
                 "tiled_graph_cg_kernel: the LM loop needs reset_period >= 1 and "
                 f"q_tolerance, got {reset_period} and {q_tolerance}"
             )
-    nnz = int(rem["col"].shape[0])
+    nnz = 0 if stream else int(rem["col"].shape[0])
+    # the stream layout's remainder is empty: the kernel never dereferences
+    # col, lcol or blk (their data pointers may be null)
+    blk = torch.empty((0, C, C), dtype=torch.float32, device=device) if stream else rem["blk"]
     _check_operand("rowptr", rem["rowptr"], (N + 1,), torch.int32, device)
     _check_operand("col", rem["col"], (nnz,), torch.int32, device)
-    _check_operand("blk", rem["blk"], lead + (nnz, C, C), torch.float32, device)
+    _check_operand("blk", blk, lead + (nnz, C, C), torch.float32, device)
     triples = meta["triples"]
     if (not 0 < len(triples) <= MAX_TRIPLES or not 2 <= C <= MAX_CHANNELS or C % 2 or any(
             len(d) != 2 or d[0] != 0 or not (0 <= fid < T and 0 <= i < C and 0 <= j < C)
             for (d, i, j, fid) in triples)):
         raise ValueError("tiled_graph_cg_kernel: triples, offsets, channels (an even count) or "
                          "field ids out of range")
-    if b.numel() >= 2**31 or F.numel() >= 2**31 or rem["blk"].numel() >= 2**31:
+    if b.numel() >= 2**31 or F.numel() >= 2**31 or blk.numel() >= 2**31:
         raise ValueError("tiled_graph_cg_kernel indexes with int32: problem too large")
+    if plan["partition"]["lcol"].shape != (nnz,):
+        raise ValueError(f"tiled_graph_cg_kernel: the plan's partition has "
+                         f"{plan['partition']['lcol'].shape[0]} columns, the CSR {nnz}")
     if device.type != "cuda":  # after the operand checks, which hold on any device
         raise ValueError(f"tiled_graph_cg_kernel needs CUDA tensors, got {device}")
     lib = load_library()
@@ -1449,7 +1497,7 @@ def tiled_graph_cg_kernel(meta, b, pre, lits, tol, plan, *, guard_div=True, ctc=
     ptr = lambda t: None if t is None else ctypes.c_void_p(t.data_ptr())  # noqa: E731
     with torch.cuda.device(device):
         err = lib.tiled_graph_cg_launch(
-            int(lm), ptr(F), ptr(b), ptr(pre), ptr(ctc), ptr(rem["blk"]), ptr(tr_rows),
+            int(lm), int(stream), ptr(F), ptr(b), ptr(pre), ptr(ctc), ptr(blk), ptr(tr_rows),
             ptr(starts), ptr(rem["rowptr"]), ptr(lcol), ptr(blocks), ptr(halo), ptr(border),
             C, T, len(triples), N, n_blocks, plan["max_range"], plan["max_frame"],
             plan["max_halo"], plan["max_entries"], int(lits), ctypes.c_float(float(tol)),
@@ -1465,7 +1513,8 @@ def tiled_graph_cg_kernel(meta, b, pre, lits, tol, plan, *, guard_div=True, ctc=
                            f"({n_blocks} vertex ranges of up to {plan['max_range']} vertices, "
                            f"frames of up to {plan['max_frame']}, {plan['smem_bytes']} bytes "
                            "of shared memory a block)")
-    fused_grid_cg_kernel.launches[instance_name(lm, True, multi=multi, tiled=True)] += 1
+    fused_grid_cg_kernel.launches[instance_name(lm, not stream, multi=multi, tiled=True,
+                                                dia=stream)] += 1
     return delta, iters
 
 
@@ -1473,7 +1522,7 @@ def fused_grid_cg_kernel(meta, b, pre, lits, tol, *, guard_div=True, ctc=None,
                          reset_period=None, q_tolerance=None, cs=False, pre_blocks=None):
     """Launch the whole CG loop on CUDA tensors: the tiled kernel
     (:func:`tiled_grid_cg_kernel`, or :func:`tiled_graph_cg_kernel` for a
-    meta with the graph remainder) where :func:`route_plan` gives a plan,
+    graph meta) where :func:`route_plan` gives a plan,
     else the template (:func:`template_grid_cg_kernel`, whose docstring
     gives the operands and forms). Both are bitwise equal to the twin, so
     the route changes no result; a tiled launch that fails raises and is
@@ -1485,7 +1534,7 @@ def fused_grid_cg_kernel(meta, b, pre, lits, tol, *, guard_div=True, ctc=None,
         return template_grid_cg_kernel(
             meta, b, pre, lits, tol, guard_div=guard_div, ctc=ctc, reset_period=reset_period,
             q_tolerance=q_tolerance, cs=cs, pre_blocks=pre_blocks)
-    if meta.get("rem") is not None:
+    if "partition" in plan:
         return tiled_graph_cg_kernel(meta, b, pre, lits, tol, plan, guard_div=guard_div,
                                      ctc=ctc, reset_period=reset_period,
                                      q_tolerance=q_tolerance)

@@ -85,7 +85,10 @@ def graph_group_tables(idxs, names, n: int, device, dtype, max_offsets: int) -> 
       (rowptr [N+1], col [nnz], src [nnz] flat [N·Dm] positions, row
       [nnz]), and ``partitions``, the graph route's vertex partitions of
       this topology, built at its first launch and kept for every later
-      step (``fused_cg.GraphPartitions``).
+      step (``fused_cg.GraphPartitions``);
+    * ``empty_csr``, for a group without the remainder (None with it): the
+      empty CSR the graph route partitions a remainder-less operator by
+      (rowptr [N+1] all zero, col [0]), with its own ``partitions``.
     """
     idx_list = [idxs[k] for k in names]
     inc = graph_ops.combined_incidence_table(idx_list, n)
@@ -121,7 +124,7 @@ def graph_group_tables(idxs, names, n: int, device, dtype, max_offsets: int) -> 
         "names": list(names), "n": n,
         "inc": torch.as_tensor(inc, dtype=torch.int64).to(device),
         "dia": [],
-        "rem_pos": None, "rem_cross": None, "csr": None,
+        "rem_pos": None, "rem_cross": None, "csr": None, "empty_csr": None,
     }
     if dia is not None:
         offsets, masks, _rp, _rc = dia
@@ -141,6 +144,12 @@ def graph_group_tables(idxs, names, n: int, device, dtype, max_offsets: int) -> 
         out["csr"] = {
             "rowptr": as_dev(rowptr, torch.int32), "col": as_dev(col, torch.int32),
             "src": as_dev(src), "row": as_dev(src // cross2.shape[1]),
+            "partitions": fused_cg.GraphPartitions(),
+        }
+    else:
+        out["empty_csr"] = {
+            "rowptr": torch.zeros(n + 1, dtype=torch.int32, device=device),
+            "col": torch.zeros(0, dtype=torch.int32, device=device),
             "partitions": fused_cg.GraphPartitions(),
         }
     return out

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the tiled kernel's one-system instances of a source tree on the card.
 
-    python3 scripts/tiled_one_system_times.py [--root TREE] [--label NAME] [--hbm]
+    python3 scripts/tiled_one_system_times.py [--root TREE] [--label NAME] [--hbm | --dia]
 
 Imports opt_tpu_torch from TREE (default: this checkout), builds its
 kernels there, and times gn_tiled on poisson 512x512x4 (bench_poisson's
@@ -11,7 +11,11 @@ bfloat16 instances gn_bf16_tiled and lm_bf16_tiled: ms per CG iteration,
 With --hbm it times image_warping 1024x1024's first GN and LM systems
 instead, on the route the tree takes (gn_hbm_tiled and lm_hbm_tiled where
 the tree has the tiled kernel's hbm layout) and on the template (gn, lm),
-in turns (route, template, template, route). Each launch's delta is also
+in turns (route, template, template, route). With --dia it times arap's
+first GN and LM systems on bench.py::bench_arap_graph's 192x192 grid mesh
+(a graph without the remainder) the same way: gn_dia_tiled and
+lm_dia_tiled where the tree has the graph kernel's stream layout, against
+the template's gn and lm. Each launch's delta is also
 held to the plain twin's on the same system (bitwise_equal). It prints
 each instance's registers and spills from ptxas. Run it on two trees in
 turns (A, B, B, A) in one command to compare two versions of the kernel on
@@ -33,6 +37,8 @@ def main() -> int:
     ap.add_argument("--label", default="tree")
     ap.add_argument("--hbm", action="store_true",
                     help="image_warping 1024x1024 GN and LM, the route and the template")
+    ap.add_argument("--dia", action="store_true",
+                    help="arap on the 192x192 grid mesh GN and LM, the route and the template")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -41,7 +47,8 @@ def main() -> int:
         print("tiled_one_system_times: needs a CUDA card", file=sys.stderr)
         return 2
     import opt_tpu_torch as ot
-    from opt_tpu_torch.models.specs import image_warping, poisson_image_editing
+    from opt_tpu_torch.models.specs import (arap_mesh_deformation, image_warping,
+                                            poisson_image_editing)
     from opt_tpu_torch.ops import fused_cg
     from opt_tpu_torch.ops._build import build_library, instance_registers
 
@@ -68,13 +75,19 @@ def main() -> int:
              (image_warping, "LMGPU", warp, None),
              (poisson_image_editing, "gaussNewtonGPU", poisson, "bfloat16"),
              (image_warping, "LMGPU", warp, "bfloat16"))
+    dims = {"W": n, "H": n}
     if args.hbm:
         cases = ((image_warping, "gaussNewtonGPU", warp, None),
                  (image_warping, "LMGPU", warp, None))
+    if args.dia:  # bench.py::bench_arap_graph's inputs, as chip_smoke.py checks them
+        from chip_smoke import arap_grid_inputs
+
+        dims, arap = arap_grid_inputs(192)
+        cases = ((arap_mesh_deformation, "gaussNewtonGPU", arap, None),
+                 (arap_mesh_deformation, "LMGPU", arap, None))
     for spec, kind, inputs, dtype in cases:
         plan = ot.Problem(spec, kind=kind).plan(
-            dims={"W": n, "H": n}, init_params=ot.InitializationParameters(
-                coefficient_dtype=dtype))
+            dims=dims, init_params=ot.InitializationParameters(coefficient_dtype=dtype))
         meta, r0, pre, kw = plan.cg_inputs(inputs)
         b, p = fused_cg.pack(r0, meta), fused_cg.pack(pre, meta)
         lm = {}
@@ -84,7 +97,7 @@ def main() -> int:
         twin = fused_cg.fused_grid_cg_reference(meta["F"], meta["triples"], b, p, 100, 0.0,
                                                 **lm)[0]
         route = fused_cg.launch_instance(meta, b, lm=bool(lm))
-        turns = (False, True, True, False) if args.hbm else (False,)
+        turns = (False, True, True, False) if args.hbm or args.dia else (False,)
         for template in turns:
             launch = (fused_cg.template_grid_cg_kernel if template
                       else fused_cg.fused_grid_cg_kernel)
@@ -106,7 +119,8 @@ def main() -> int:
             key = next((k for k in fused_cg.TILED_INSTANCES + fused_cg.INSTANCES
                         if fused_cg.instance_name(*k) == name), None)
             print(json.dumps({"tree": args.label, "instance": name, "gpu": gpu,
-                              "grid": [n, n], "iters": int(it.sum()),
+                              "grid": list(b.shape[-2:]) if args.dia else [n, n],
+                              "iters": int(it.sum()),
                               "kernel_ms_per_cg_iter": e0.elapsed_time(e1) / 3 / int(it.sum()),
                               "bitwise_equal_to_twin": same,
                               "registers_spill_store_load_bytes": list(regs.get(key, ()))}),

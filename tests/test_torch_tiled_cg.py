@@ -580,11 +580,11 @@ def test_instance_names_and_launch_counts():
                      "gn_bj_multi_tiled", "lm_bj_multi_tiled", "gn_rem_tiled", "lm_rem_tiled",
                      "gn_rem_multi_tiled", "lm_rem_multi_tiled", "gn_cs_tiled", "lm_cs_tiled",
                      "gn_bf16_tiled", "lm_bf16_tiled", "gn_multi_tiled", "lm_multi_tiled",
-                     "gn_hbm_tiled", "lm_hbm_tiled"]
+                     "gn_hbm_tiled", "lm_hbm_tiled", "gn_dia_tiled", "lm_dia_tiled"]
     fused_cg.reset_launch_counts()
     assert set(names) | {"gn", "lm", "gn_bj", "lm_bj_multi"} <= set(
         fused_cg.fused_grid_cg_kernel.launches)
-    assert len(fused_cg.fused_grid_cg_kernel.launches) == 96 + 18
+    assert len(fused_cg.fused_grid_cg_kernel.launches) == 96 + 20
 
 
 def test_build_compiles_the_tiled_unit_and_reads_its_registers():
@@ -610,11 +610,12 @@ def test_build_compiles_the_tiled_unit_and_reads_its_registers():
             want[key + ((True,) if hbm else ())] = (
                 (64 + 8 * k,) + ((4, 4) if k == 0 else (0, 0)))
     regs = _build.instance_registers("\n".join(lines))
-    # the grid kernel's ten float32 launch names (the graph kernel's four:
-    # tests/test_torch_tiled_graph.py; the bf16 and Chronopoulos-Gear ones:
-    # tests/test_torch_tiled_bf16.py, tests/test_torch_tiled_cs.py)
+    # the grid kernel's ten float32 launch names (the graph kernel's six:
+    # tests/test_torch_tiled_graph.py, tests/test_torch_tiled_dia.py; the
+    # bf16 and Chronopoulos-Gear ones: tests/test_torch_tiled_bf16.py,
+    # tests/test_torch_tiled_cs.py)
     assert regs == want and set(regs) == set(fused_cg.TILED_INSTANCES[:6]
-                                             + fused_cg.TILED_INSTANCES[-4:])
+                                             + fused_cg.TILED_INSTANCES[14:18])
 
 
 # -- the emulation against the twin, bitwise ------------------------------------------

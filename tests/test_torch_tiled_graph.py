@@ -344,9 +344,9 @@ def _odd_channels(meta, b):
 def test_plan_refuses_other_forms(case, monkeypatch):
     """The forms the graph kernel does not take keep the template: CS,
     bfloat16, block-Jacobi, the block-per-system batch form, a DIA-only
-    meta, a frame beyond the shared memory, a remainder without its
-    topology's partitions (several groups' CSR merged anew every step),
-    and an odd number of channels."""
+    meta without its empty CSR, a frame beyond the shared memory, a
+    remainder without its topology's partitions (several groups' CSR merged
+    anew every step), and an odd number of channels."""
     meta, b, _pre, _ctc = _system("random")
     N = int(b.shape[-1])
     kw = dict(lm=False, sm_count=SMS, smem_per_block=SMEM)
@@ -371,8 +371,11 @@ def test_plan_refuses_other_forms(case, monkeypatch):
         monkeypatch.setattr(fused_cg, "BATCH_BLOCK_ELEMS", 10**9)
         name = "gn_rem_batch"
     elif case == "dia_only":
+        # without its empty CSR (a meta carried across from the JAX package;
+        # the port's own takes the stream layout, tests/test_torch_tiled_dia.py)
         meta, b, _pre, _ctc = _system("grid")
-        assert meta["rem"] is None
+        assert meta["rem"] is None and meta["empty_csr"] is not None
+        meta = {k: v for k, v in meta.items() if k != "empty_csr"}
         N = int(b.shape[-1])
         name = "gn"
     elif case == "overflow":
@@ -455,10 +458,10 @@ def test_build_compiles_the_graph_unit_and_reads_its_registers():
     assert "tiled_graph_cg.cu" in _build.UNITS and "tiled_cg.cuh" in _build.SOURCES
     assert (_build.CSRC / "tiled_graph_cg.cu").exists()
     log = "\n".join([
-        "ptxas info    : Compiling entry function '_Z21tiled_graph_cg_kernelILb0EEvPKfS1_' "
+        "ptxas info    : Compiling entry function '_Z21tiled_graph_cg_kernelILb0ELb0EEvPKfS1_' "
         "for 'sm_90a'",
         "ptxas info    : Used 72 registers, used 1 barriers, 480 bytes cmem[0]",
-        "ptxas info    : Compiling entry function '_Z21tiled_graph_cg_kernelILb1EEvPKfS1_' "
+        "ptxas info    : Compiling entry function '_Z21tiled_graph_cg_kernelILb1ELb0EEvPKfS1_' "
         "for 'sm_90a'",
         "    16 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads",
         "ptxas info    : Used 80 registers, used 1 barriers, 480 bytes cmem[0]",
