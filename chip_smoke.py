@@ -120,6 +120,23 @@ the template on the 192x192 grid mesh, grid meshes of 64x64, 37x50 and
 grid mesh's main path launching it once a step; beside its times, a plain
 read of the mesh's fields from the L2 (l2_floor, a Triton launch of
 scripts/l2_read_floor.py) gives the floor the fields set an iteration.
+The 3-D route: a one-system float32 GN system on a 3-D grid with the
+Jacobi or the block-Jacobi preconditioner whose fields, state and
+preconditioner fit one box a block (fused_cg.tiled_vol_plan: volumetric
+32^3 x 6 in 128 boxes of 4x8x8) takes the 3-D grid kernel
+(opt_tpu_torch/ops/csrc/tiled_vol_cg.cu, launches gn_vol_tiled and
+gn_bj_vol_tiled, in the same library), its fields staged in shared memory
+once a solve; its plan is printed (vol_plan lines), it is held bitwise to
+the twin and to the template's gn and gn_bj (no exit, the real exits, a
+repeat) at 32^3, on forced splits whose boxes are uneven or one point wide
+(volumetric 8^3 and 7x8x9) and on the 6^3 medium golden (one box); the
+two volumetric main paths launch it once a step and are held cost for
+cost and count for count to the same solves on the template route;
+volumetric 64^3 (its fields do not fit a box) and every LM 3-D system keep
+the template, by name; its time a CG iteration is read against the
+template's in the same call, its bound with the fields read once a launch
+and its boxes' shells every iteration, and the floor its two barriers set
+at the same block count (tiled_floor_vol).
 It exits non-zero, with no result line, when CUDA is not available or any
 check fails. It imports neither JAX nor opt_tpu.
 """
@@ -338,11 +355,11 @@ MEDIUM_GOLDENS = {
                                       845.5782470703125),
 }
 # the instance each medium golden's solve launches once a step: the tiled
-# grid kernel's, the template's (3-D) or, for curve_fitting's one vertex,
-# the graph kernel's stream layout
+# grid kernel's, the 3-D grid kernel's (6^3: one box of the whole grid) or,
+# for curve_fitting's one vertex, the graph kernel's stream layout
 GOLDEN_FORMS = {"laplacian": "gn_tiled", "poisson_image_editing": "gn_tiled",
                 "image_warping": "lm_tiled", "curve_fitting": "lm_dia_tiled",
-                "volumetric_mesh_deformation": "gn", "optical_flow": "gn_tiled",
+                "volumetric_mesh_deformation": "gn_vol_tiled", "optical_flow": "gn_tiled",
                 "intrinsic_image_decomposition": "gn_tiled"}
 # arap_mesh_deformation's medium golden is left out: its GN 10x60 solve does
 # not settle and ends where float32 rounding takes it (tests/test_torch_graph.py
@@ -386,8 +403,15 @@ KERNEL_SOURCE = "opt_tpu_torch/ops/csrc/fused_grid_cg.cuh"
 TILED_SOURCE = "opt_tpu_torch/ops/csrc/tiled_grid_cg.cu"
 TILED_CS_SOURCE = "opt_tpu_torch/ops/csrc/tiled_grid_cs.cu"
 GRAPH_SOURCE = "opt_tpu_torch/ops/csrc/tiled_graph_cg.cu"
+TILED_VOL_SOURCE = "opt_tpu_torch/ops/csrc/tiled_vol_cg.cu"
 # the CG kernels' names, as the profiler's entries carry them
-CG_KERNELS = ("fused_grid_cg_kernel", "tiled_grid_cg_kernel", "tiled_graph_cg_kernel")
+CG_KERNELS = ("fused_grid_cg_kernel", "tiled_grid_cg_kernel", "tiled_graph_cg_kernel",
+              "tiled_vol_cg_kernel")
+# the 3-D grid kernel's forced splits (fused_cg.box_bounds): volumetric on
+# these grids (W, H, D) cut into these boxes, each uneven or one point wide
+# along some axis (tests/test_torch_tiled_vol.py emulates the same)
+VOL_FORCED = (((8, 8, 8), (8, 1, 1)), ((8, 8, 8), (1, 8, 1)), ((8, 8, 8), (1, 1, 8)),
+              ((7, 8, 9), (3, 3, 3)), ((7, 8, 9), (3, 2, 2)))
 # the graph kernel's DIA-plus-remainder check: dense_grid_mesh_inputs at this
 # side (4,096 vertices), 13 DIA offsets and the fourteenth's reads in the CSR
 DENSE_SIDE = 64
@@ -694,23 +718,28 @@ def intrinsic_inputs(n):
             "w_regSqrtAlbedo": 1.0, "w_regSqrtShading": 1.0, "pNorm": 0.8}
 
 
-def volumetric_inputs(n):
-    """bench.py::bench_volumetric's inputs: an n^3 grid, every point's fit
-    target (-1, -1, -1) but for one corner pinned and the opposite one
-    pulled by (4, 0, 2), w_fitSqrt = 2, w_regSqrt = 1."""
+def _shape3(shape):
+    """A 3-D grid's extents: an int is a cube."""
+    return (shape,) * 3 if isinstance(shape, int) else tuple(shape)
+
+
+def volumetric_inputs(shape):
+    """bench.py::bench_volumetric's inputs: a grid of `shape` (an int: a
+    cube), every point's fit target (-1, -1, -1) but for one corner pinned
+    and the opposite one pulled by (4, 0, 2), w_fitSqrt = 2, w_regSqrt = 1."""
     f32 = np.float32
-    gi, gj, gk = np.meshgrid(np.arange(n), np.arange(n), np.arange(n), indexing="ij")
-    pos = np.stack([gi, gj, gk], -1).astype(f32)
-    con = -np.ones((n, n, n, 3), f32)
+    shape = _shape3(shape)
+    pos = np.stack(np.meshgrid(*(np.arange(k) for k in shape), indexing="ij"), -1).astype(f32)
+    con = -np.ones(shape + (3,), f32)
     con[0, 0, 0] = pos[0, 0, 0]
     con[-1, -1, -1] = pos[-1, -1, -1] + np.array([4.0, 0, 2.0], f32)
-    return {"Offset": pos.copy(), "Angle": np.zeros((n, n, n, 3), f32), "UrShape": pos,
+    return {"Offset": pos.copy(), "Angle": np.zeros(shape + (3,), f32), "UrShape": pos,
             "Constraints": con, "w_fitSqrt": np.sqrt(4.0).astype(f32),
             "w_regSqrt": np.sqrt(1.0).astype(f32)}
 
 
-def _vol(n):
-    return {"W": n, "H": n, "D": n}
+def _vol(shape):
+    return dict(zip("WHD", _shape3(shape)))
 
 
 def arap_grid_inputs(n_side, cols=None):
@@ -962,16 +991,65 @@ def graph_plan_line(label, meta, b, lm=None):
     return plan
 
 
+def vol_plan_line(label, meta, b, pre_blocks=None, plan=None):
+    """The 3-D grid kernel's plan of a system, printed: boxes, box, halo,
+    threads and shared memory a block, channels, fields, the layout
+    ("vol"); raises where the system does not take it. ``plan``: a forced
+    plan, printed as such."""
+    forced = plan is not None
+    plan = plan or fused_cg.route_plan(meta, b, lm=False, pre_blocks=pre_blocks)
+    if plan is None or plan.get("layout") != "vol":
+        raise RuntimeError(f"{label}: does not take the 3-D grid kernel")
+    log(json.dumps({"vol_plan": label, "form": form_of(meta, b, pre_blocks=pre_blocks),
+                    "grid": list(b.shape[1:]), "channels": int(b.shape[0]),
+                    "fields": int(meta["F"].shape[0]), "triples": len(meta["triples"]),
+                    "boxes": list(plan["boxes"]), "box": list(plan["box"]),
+                    "halo": plan["halo"], "threads": plan["threads"],
+                    "smem_bytes": plan["smem_bytes"], "layout": plan["layout"],
+                    "forced": forced}))
+    return plan
+
+
+def forced_vol_plan(meta, b, boxes, pre_blocks=None):
+    """A 3-D grid kernel's plan of this system with the split `boxes`
+    (fused_cg.box_plan at the planner's halo, its shared memory counted for
+    them)."""
+    h = fused_cg.route_plan(meta, b, lm=False, pre_blocks=pre_blocks)["halo"]
+    return fused_cg.box_plan(b.shape[1:], boxes, h, meta, int(b.shape[0]),
+                             block=pre_blocks is not None)
+
+
 @contextlib.contextmanager
-def template_route():
-    """Send every launch to the template for the while (fused_cg.route_plan
-    replaced), to time a main path as it ran before the tiled route."""
+def forced_route(plan):
+    """Send every launch to this plan for the while (fused_cg.route_plan
+    replaced): the 3-D grid kernel on a forced split, or with None the
+    template (template_route)."""
     saved = fused_cg.route_plan
-    fused_cg.route_plan = lambda *a, **k: None
+    fused_cg.route_plan = lambda *a, **k: plan
     try:
         yield
     finally:
         fused_cg.route_plan = saved
+
+
+def vol_exchange_bytes(plan, dom, C):
+    """The bytes the 3-D grid kernel's border exchange moves an iteration:
+    each box writes z's shell (its points within h of a face) and reads its
+    halo's points inside the grid, C float32 values a point."""
+    h, points = plan["halo"], 0
+    for bx in fused_cg.box_bounds(plan, *dom):
+        ext = [(max(0, lo - h), min(n, hi + h)) for (lo, hi), n in zip(bx, dom)]
+        inner = [max(0, hi - lo - 2 * h) for lo, hi in bx]
+        size = int(np.prod([hi - lo for lo, hi in bx]))
+        points += size - int(np.prod(inner))  # the shell, written
+        points += int(np.prod([hi - lo for lo, hi in ext])) - size  # the halo, read
+    return 4 * C * points
+
+
+def template_route():
+    """Send every launch to the template for the while, to time a main path
+    as it ran before the tiled route."""
+    return forced_route(None)
 
 
 @contextlib.contextmanager
@@ -1215,7 +1293,8 @@ def route_equal(label, res, launches, solve, form):
     counts from 0: its costs and CG counts must equal ``res``'s to the last
     digit, in as many launches of the template's instance (``form`` without
     "_tiled", and "_hbm" in the hbm layout, "_dia" in the graph kernel's
-    stream layout) as ``res`` made of ``form``."""
+    stream layout, "_vol" on the 3-D grid kernel) as ``res`` made of
+    ``form``."""
     fused_cg.reset_launch_counts()
     with template_route():
         tres = solve()
@@ -1229,7 +1308,8 @@ def route_equal(label, res, launches, solve, form):
             "template_launches": tl, "costs_equal": same, "lin_iters": lin,
             "template_lin_iters": tlin}
     log(json.dumps(line))
-    template_form = form.removesuffix("_tiled").removesuffix("_hbm").removesuffix("_dia")
+    template_form = (form.removesuffix("_tiled").removesuffix("_hbm").removesuffix("_dia")
+                     .removesuffix("_vol"))
     if not same or lin != tlin or tl != {template_form: launches[form]}:
         raise RuntimeError(f"{label}: the tiled route's solve differs from the template's")
 
@@ -1312,13 +1392,21 @@ def first_steps_main_path(label, spec, dims, inputs, nl, li, ref, n_first, shape
 
 def volumetric_main_path(pre, inputs):
     """volumetric 32^3 GN 8x40 through the kernel with `pre` "jacobi" or
-    "block_jacobi", held as the JAX_CPU_VOLUMETRIC comment says."""
+    "block_jacobi", on the 3-D grid kernel (gn_vol_tiled, gn_bj_vol_tiled),
+    held as the JAX_CPU_VOLUMETRIC comment says, and cost for cost and count
+    for count to the same solve on the template route (gn, gn_bj)."""
     n = VOL_N
-    return first_steps_main_path(
-        f"volumetric{n} GN {VOL_NL}x{VOL_LI} {pre}", volumetric_mesh_deformation, _vol(n),
-        inputs, VOL_NL, VOL_LI, JAX_CPU_VOLUMETRIC[pre], VOL_FIRST_STEPS,
-        {"Offset": (n, n, n, 3), "Angle": (n, n, n, 3)},
-        form="gn_bj" if pre == "block_jacobi" else "gn", ip={"preconditioner": pre})
+    label = f"volumetric{n} GN {VOL_NL}x{VOL_LI} {pre}"
+    form = "gn_bj_vol_tiled" if pre == "block_jacobi" else "gn_vol_tiled"
+    ip = {"preconditioner": pre}
+    res, launches = first_steps_main_path(
+        label, volumetric_mesh_deformation, _vol(n), inputs, VOL_NL, VOL_LI,
+        JAX_CPU_VOLUMETRIC[pre], VOL_FIRST_STEPS, {"Offset": (n, n, n, 3), "Angle": (n, n, n, 3)},
+        form=form, ip=ip)
+    route_equal(label, res, launches, lambda: ot.Problem(volumetric_mesh_deformation).plan(
+        dims=_vol(n), init_params=ot.InitializationParameters(**ip)).solve(
+            dict(inputs), nIterations=VOL_NL, lIterations=VOL_LI), form)
+    return res, launches
 
 
 def split_main_path(inputs, per_system):
@@ -1946,7 +2034,12 @@ def time_pair(label, meta, b, pre, gpu, lm=None, reps=3, lits=TIMED_ITERS, devic
     iteration; else under block-Jacobi it reads the C*C planes once a
     launch (the bound with them read every iteration is printed beside
     it). A form in the hbm layout also prints its own floor, the bound plus
-    the frames' bytes (hbm_frame_bytes)."""
+    the frames' bytes (hbm_frame_bytes). On a 3-D grid that the 3-D grid
+    kernel takes (either route's timing) the bound reads the fields, b and
+    the preconditioner once a launch, the every-iteration bound beside it,
+    and apart from both the bytes the kernel's own design moves between
+    its boxes an iteration (their shells of z, vol_exchange_bytes), which
+    stay in the L2: a cost of the design, not of the function."""
     lm_kw = dict(lm, q_tolerance=float("-inf")) if lm else {}
     launch = fused_cg.template_grid_cg_kernel if template else fused_cg.fused_grid_cg_kernel
     # with tol = 0 a loop that reaches an exact zero residual still stops
@@ -1973,7 +2066,18 @@ def time_pair(label, meta, b, pre, gpu, lm=None, reps=3, lits=TIMED_ITERS, devic
     shape = meta_shape(meta)
     pre_planes = shape["C"] ** 2 if variant.get("pre_blocks") is not None else None
     knobs = dict(lm=bool(lm), cs=bool(variant.get("cs")), pre_planes=pre_planes)
-    if meta.get("rem") is not None:  # the inputs, the same for the whole solve, once
+    vplan = None if lm or variant.get("cs") else fused_cg.route_plan(
+        meta, b, lm=False, pre_blocks=variant.get("pre_blocks"))
+    if vplan is not None and vplan.get("layout") == "vol":
+        # a 3-D grid the 3-D grid kernel takes: the fields and the
+        # preconditioner once a launch; the boxes' shells apart
+        ex = vol_exchange_bytes(vplan, tuple(int(n) for n in b.shape[1:]), shape["C"])
+        bound_ms, bound_by = cg_bound(shape, iters, inputs_once=1, **knobs)
+        every = cg_bound(shape, iters, **knobs)[0]  # and, beside it, once an iteration
+        extra.update(exchange_bytes_per_cg_iter=ex, bound_ms_inputs_every_iter=every,
+                     bound_ms_inputs_every_iter_per_cg_iter=every / iters,
+                     exchange_ms_per_cg_iter_at_memory_rate=ex / HBM_BYTES_PER_S * 1e3)
+    elif meta.get("rem") is not None:  # the inputs, the same for the whole solve, once
         bound_ms, bound_by = cg_bound(shape, iters, inputs_once=n_systems(meta), **knobs)
         every = cg_bound(shape, iters, **knobs)[0]  # and, beside it, once an iteration
         extra.update(bound_ms_inputs_every_iter=every,
@@ -2053,6 +2157,24 @@ def tiled_floor(gpu, tiles=(12, 11), tile=4, cs=False):
                     "tiles": list(tiles), "tile": [tile, tile], "iters": TIMED_ITERS,
                     "kernel_ms_per_cg_iter": ms / TIMED_ITERS}))
     return ms / TIMED_ITERS
+
+
+def vol_floor(gpu, boxes):
+    """The 3-D grid kernel's time an iteration with almost no work:
+    volumetric on a grid of one point a box, `boxes` boxes (the count of the
+    32^3 launch), one block each (a plan forced past tiled_vol_plan's, which
+    would take one box here), 100 iterations with no exit, CUDA events: the
+    floor its two grid barriers and dot reductions set at that block count.
+    Returns ms an iteration."""
+    m, b, p, _lm, _v = system(volumetric_mesh_deformation, _vol(boxes),
+                              volumetric_inputs(boxes))
+    plan = forced_vol_plan(m, b, boxes)
+    iters = int(fused_cg.tiled_vol_cg_kernel(m, b, p, TIMED_ITERS, 0.0, plan)[1].item())
+    ms = time_cuda(lambda: fused_cg.tiled_vol_cg_kernel(m, b, p, TIMED_ITERS, 0.0, plan), 5)
+    log(json.dumps({"timing": "tiled_floor_vol", "gpu": gpu, "form": "gn_vol_tiled",
+                    "grid": list(boxes), "boxes": list(boxes), "box": [1, 1, 1],
+                    "iters": iters, "kernel_ms_per_cg_iter": ms / iters}))
+    return ms / iters
 
 
 def l2_floor(gpu, label, F, timed):
@@ -2698,23 +2820,59 @@ def main() -> int:
             variant_checks(f"{label} {klabel}", gs, 50, GRAPH_LI, bitwise=True, template=True)
     del rin1, din
 
-    # the 3-D grid form (K1 e) and the variants (K1 c, d, f), each held to
-    # the twin: 50 iterations with no exit, the real exits, a bitwise repeat
+    # the 3-D grid form (K1 e) and its block-Jacobi form (K1 d) on the 3-D
+    # grid kernel (gn_vol_tiled, gn_bj_vol_tiled), with the template's gn
+    # and gn_bj held to the same twin results, and on forced splits whose
+    # boxes are uneven or one point wide; 64^3 (its fields do not fit a box)
+    # and LM keep the template, by name; and the variants (K1 c, d, f), each
+    # held to the twin: 50 iterations with no exit, the real exits, a
+    # bitwise repeat
     vol_in = volumetric_inputs(VOL_N)
     vol_big_in = volumetric_inputs(VOL_BIG_N)
     vsys = system(volumetric_mesh_deformation, _vol(VOL_N), vol_in)
     log(f"volumetric {VOL_N}^3 x 6: {vsys[0]['F'].shape[0]} fields, "
         f"{len(vsys[0]['triples'])} triples")
-    err_3d = variant_checks(f"volumetric{VOL_N}", vsys, 50, 400)
-    big = system(volumetric_mesh_deformation, _vol(VOL_BIG_N), vol_big_in)
-    variant_checks(f"volumetric{VOL_BIG_N}", big, 50, 400)
+    vol_plan_line(f"volumetric{VOL_N}", *vsys[:2])
+    err_3d = variant_checks(f"volumetric{VOL_N}", vsys, 50, 400, bitwise=True, template=True)
+    vbj = system(volumetric_mesh_deformation, _vol(VOL_N), vol_in, **bj)
+    vol_plan_line(f"volumetric{VOL_N} block_jacobi", *vbj[:2], vbj[4]["pre_blocks"])
+    err_bj = variant_checks(f"volumetric{VOL_N} block_jacobi", vbj, 50, 400, bitwise=True,
+                            template=True)
+    # the medium golden's 6^3 system on the planner's own split, one box of
+    # the whole grid (one block, a haloed frame of 8^3 = 512 points, one a
+    # thread), Jacobi and block-Jacobi, each with the template's instance on
+    # the same twin results; a small system may reach an exact zero early
+    vdims_m, vin_m = medium_inputs()["volumetric_mesh_deformation"]
+    for pl, ip in (("", {}), (" block_jacobi", bj)):
+        ms_ = system(volumetric_mesh_deformation, vdims_m, vin_m, **ip)
+        mlabel_ = f"volumetric medium 6^3{pl}"
+        if tuple(vol_plan_line(mlabel_, *ms_[:2], ms_[4]["pre_blocks"])["boxes"]) != (1, 1, 1):
+            raise RuntimeError(f"{mlabel_}: not one box of the whole grid")
+        variant_checks(mlabel_, ms_, 50, MEDIUM_GOLDENS["volumetric_mesh_deformation"][3],
+                       bitwise=True, template=True, early=True)
+    del ms_, vin_m
+    forced = {}  # each grid's systems, made once for its splits
+    for shape, boxes in VOL_FORCED:
+        for pl, ip in (("", {}), (" block_jacobi", bj)):
+            if (shape, pl) not in forced:
+                forced[(shape, pl)] = system(volumetric_mesh_deformation, _vol(shape),
+                                             volumetric_inputs(shape), **ip)
+            fs = forced[(shape, pl)]
+            flabel = (f"volumetric {'x'.join(map(str, shape))}{pl} forced "
+                      f"{'x'.join(map(str, boxes))}")
+            plan = forced_vol_plan(fs[0], fs[1], boxes, fs[4]["pre_blocks"])
+            vol_plan_line(flabel, *fs[:2], fs[4]["pre_blocks"], plan=plan)
+            with forced_route(plan):  # a small system may reach an exact zero early
+                variant_checks(flabel, fs, 50, 400, bitwise=True, early=True)
+    del fs, forced
+    for kind in ("gaussNewtonGPU", "LMGPU"):
+        big = system(volumetric_mesh_deformation, _vol(VOL_BIG_N), vol_big_in, kind)
+        name = "lm" if big[3] else "gn"
+        if (fused_cg.route_plan(big[0], big[1], lm=bool(big[3])) is not None
+                or form_of(big[0], big[1], big[3]) != name):
+            raise RuntimeError(f"volumetric{VOL_BIG_N} {name}: not on the template")
+        variant_checks(f"volumetric{VOL_BIG_N}", big, 50, 400)
     del big
-    big_lm = system(volumetric_mesh_deformation, _vol(VOL_BIG_N), vol_big_in, "LMGPU")
-    variant_checks(f"volumetric{VOL_BIG_N}", big_lm, 50, 400)
-    del big_lm
-    vbj = system(volumetric_mesh_deformation, _vol(VOL_N), vol_in,
-                         preconditioner="block_jacobi")
-    err_bj = variant_checks(f"volumetric{VOL_N} block_jacobi", vbj, 50, 400)
     # poisson and image_warping by Chronopoulos-Gear and with bfloat16 fields
     # (image_warping also under block-Jacobi), GN and LM: the tiled instances,
     # and the template's on the same twin results
@@ -3080,6 +3238,8 @@ def main() -> int:
             "lm_rem": ("armadillo31k", *aglm, 2),
             "gn_dia": ("arap36k", *dgm, 2),
             "lm_dia": ("arap36k", *dglm, 2),
+            "gn_vol": (f"volumetric{VOL_N}", *vsys, 3),
+            "gn_bj_vol": (f"volumetric{VOL_N} block_jacobi", *vbj, 3),
             "gn_rem_multi": (glabel, *gsys, 2)}.items():
         for template in (False, True, True, False):
             t = time_pair(label, m_, b_, p_, gpu, lm_, reps=reps_,
@@ -3092,12 +3252,27 @@ def main() -> int:
     t_k5 = time_tile_apply(f"poisson{n}x4", meta, gpu)
     tiled_floor(gpu)
     tiled_floor(gpu, cs=True)
-    l2_floor(gpu, "arap36k", graph["arap36k"][0][0]["F"],
-             {f: t_tiled[key][0] / TIMED_ITERS_RUN[("arap36k", f)]
-              for key, f in (("gn_dia", "gn_dia_tiled"), ("lm_dia", "lm_dia_tiled"))})
+    l2_F = graph["arap36k"][0][0]["F"]
+    l2_ms = l2_floor(gpu, "arap36k", l2_F,
+                     {f: t_tiled[key][0] / TIMED_ITERS_RUN[("arap36k", f)]
+                      for key, f in (("gn_dia", "gn_dia_tiled"), ("lm_dia", "lm_dia_tiled"))})
     del gmeta, gb, gpre, wmeta, wb, wpre, wlm
-    t_3d = time_pair(f"volumetric{VOL_N}", *vsys[:3], gpu, vsys[3], reps=3, **vsys[4])
-    t_bj = time_pair(f"volumetric{VOL_N} block_jacobi", *vbj[:3], gpu, vbj[3], reps=3, **vbj[4])
+    # the 3-D kernel's own costs beside its bound, for the kernels line: the
+    # shells' exchange an iteration at the L2 read rate just measured, and
+    # its barrier floor at the 32^3 launch's box count
+    v32 = fused_cg.route_plan(vsys[0], vsys[1], lm=False)
+    vol_floor_ms = vol_floor(gpu, v32["boxes"])
+    vol_ex_bytes = vol_exchange_bytes(v32, tuple(int(k) for k in vsys[1].shape[1:]),
+                                      int(vsys[1].shape[0]))
+    vol_ex_ms = vol_ex_bytes / (l2_F.numel() * l2_F.element_size() / l2_ms)
+    vol_costs = {key: {"exchange_ms": vol_ex_ms * TIMED_ITERS_RUN[(label_, form_)],
+                       "barrier_floor_ms": vol_floor_ms * TIMED_ITERS_RUN[(label_, form_)]}
+                 for key, label_, form_ in (
+                     ("gn_vol", f"volumetric{VOL_N}", "gn_vol_tiled"),
+                     ("gn_bj_vol", f"volumetric{VOL_N} block_jacobi", "gn_bj_vol_tiled"))}
+    log(json.dumps({"timing": "vol_exchange_at_l2_rate", "gpu": gpu,
+                    "bytes_per_cg_iter": vol_ex_bytes, "ms_per_cg_iter": vol_ex_ms,
+                    "barrier_floor_ms_per_cg_iter": vol_floor_ms}))
     del iw_variants  # the LM ones timed above, on both routes
     big = system(volumetric_mesh_deformation, _vol(VOL_BIG_N), vol_big_in)
     time_pair(f"volumetric{VOL_BIG_N}", *big[:3], gpu, big[3], reps=2, **big[4])
@@ -3181,6 +3356,9 @@ def main() -> int:
                 dims=arm_bdims), arm_bin, GRAPH_NL, GRAPH_LI, gpu, reps=2)
             time_main_path(f"{k6_label} {route}", image_warping, "gaussNewtonGPU",
                            _grid(IW_BIG_N), iw_big_in, 4, 100, gpu)
+            time_main_path(f"volumetric{VOL_N} GN {VOL_NL}x{VOL_LI} jacobi {route}",
+                           volumetric_mesh_deformation, "gaussNewtonGPU", _vol(VOL_N), vol_in,
+                           VOL_NL, VOL_LI, gpu)
     phases["route_solve_turns"] = time.perf_counter() - t_start - sum(phases.values())
     for route in ("template", "tiled"):
         with (template_route() if route == "template" else contextlib.nullcontext()):
@@ -3209,6 +3387,12 @@ def main() -> int:
             gplan = ot.Problem(arap_mesh_deformation).plan(dims=arap_dims)
             profile_solve(f"{arap_label} {route}".replace(" ", "_"), lambda: gplan.solve(
                 dict(arap_in), nIterations=GRAPH_NL, lIterations=GRAPH_LI), gpu)  # run at once
+            # volumetric's Jacobi solve only: a profile of its ~25,000 device
+            # launches takes about 19 s
+            vplan = ot.Problem(volumetric_mesh_deformation).plan(dims=_vol(VOL_N))
+            profile_solve(f"volumetric{VOL_N}_GN_{VOL_NL}x{VOL_LI}_jacobi_{route}",
+                          lambda: vplan.solve(dict(vol_in), nIterations=VOL_NL,
+                                              lIterations=VOL_LI), gpu)  # run at once
     phases["route_profiles"] = time.perf_counter() - t_start - sum(phases.values())
     time_main_path(f"shape_from_shading{SFS_N} GN {SFS_NL}x{SFS_LI}", shape_from_shading,
                    "gaussNewtonGPU", _grid(SFS_N), sfs_in, SFS_NL, SFS_LI, gpu)
@@ -3218,20 +3402,20 @@ def main() -> int:
                        "gaussNewtonGPU", {"W": w, "H": h}, inp, FLOW_NL, FLOW_LI, gpu)
     time_main_path(f"intrinsic{INTR_N} GN {INTR_NL}x{INTR_LI}", intrinsic_image_decomposition,
                    "gaussNewtonGPU", _grid(INTR_N), intr_in, INTR_NL, INTR_LI, gpu)
-    time_main_path(f"volumetric{VOL_N} GN {VOL_NL}x{VOL_LI} jacobi", volumetric_mesh_deformation,
-                   "gaussNewtonGPU", _vol(VOL_N), vol_in, VOL_NL, VOL_LI, gpu)
     bplan = ot.Problem(curve_fitting, kind="LMGPU").plan(dims=cdims)
     profile_solve(f"curve_fitting_x{BATCH_B}_batched", lambda: bplan.solve_batched(
         dict(curve_in), nIterations=BATCH_NL, lIterations=BATCH_LI), gpu)
     phases["timings_and_profiles"] = time.perf_counter() - t_start - sum(phases.values())
 
-    def entry(name, replaces, launches, err, timing, source=KERNEL_SOURCE, template=None):
+    def entry(name, replaces, launches, err, timing, source=KERNEL_SOURCE, template=None,
+              costs=None):
         ms, plain, bound_ms, bound_by = timing
         e = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
         if template is not None:  # the template's ms on the same system, in this run
             e["template_ms"] = template[0]
+        e.update(costs or {})  # a design's own costs beside the bound, in this run
         return e
 
     # K1 (h)'s bound of one iteration of every system at the bench's batched
@@ -3291,14 +3475,18 @@ def main() -> int:
               "iteration)", K1C, l_iw_variant["chronopoulos_gear"]["lm_cs_tiled"],
               iw_errs[("LM", "chronopoulos_gear")], t_tiled["lm_cs_iw"], TILED_CS_SOURCE,
               t_tpl["lm_cs_iw"]),
-        entry(f"fused_grid_cg GN block-Jacobi (K1 variant d), volumetric {VOL_N}^3 x 6", K1D,
-              l_vol_bj["gn_bj"], err_bj, t_bj),
+        entry(f"tiled_vol_cg GN block-Jacobi (K1 variant d), volumetric {VOL_N}^3 x 6, "
+              "gn_bj_vol_tiled, the fields and the C*C planes staged in shared memory", K1D,
+              l_vol_bj["gn_bj_vol_tiled"], err_bj, t_tiled["gn_bj_vol"], TILED_VOL_SOURCE,
+              t_tpl["gn_bj_vol"], vol_costs["gn_bj_vol"]),
         entry(f"tiled_grid_cg LM block-Jacobi (K1 variant d), image_warping "
               f"{IW_N}x{IW_N}x3, lm_bj_tiled, the C*C planes staged in shared memory", K1D,
               l_iw_variant["block_jacobi"]["lm_bj_tiled"], err_lm_bj, t_tiled["lm_bj_iw"],
               TILED_SOURCE, t_tpl["lm_bj_iw"]),
-        entry(f"fused_grid_cg GN on a 3-D grid (K1 variant e), volumetric {VOL_N}^3 x 6", K1E,
-              l_vol["gn"], err_3d, t_3d),
+        entry(f"tiled_vol_cg GN on a 3-D grid (K1 variant e), volumetric {VOL_N}^3 x 6, "
+              "gn_vol_tiled, the fields staged in shared memory", K1E, l_vol["gn_vol_tiled"],
+              err_3d, t_tiled["gn_vol"], TILED_VOL_SOURCE, t_tpl["gn_vol"],
+              vol_costs["gn_vol"]),
         entry(f"tiled_grid_cg GN bfloat16 fields (K1 variant f), poisson {n}x{n}x4, "
               "gn_bf16_tiled", K1F, l_pbf["gn_bf16_tiled"], err_bf, t_tiled["gn_bf16"],
               TILED_SOURCE, t_tpl["gn_bf16"]),

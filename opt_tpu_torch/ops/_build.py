@@ -8,8 +8,9 @@ or whose r and haloed p, fit one tile a block) and ``csrc/tiled_grid_cs.cu``
 (its Chronopoulos–Gear loop; both include ``csrc/tiled_grid.cuh``),
 ``csrc/tiled_graph_cg.cu``
 (the CG loop of a graph, one vertex range a block: with the remainder, its
-fields staged, or without it, its fields read from device memory; the
-three include ``csrc/tiled_cg.cuh``)
+fields staged, or without it, its fields read from device memory),
+``csrc/tiled_vol_cg.cu`` (the GN loop of a 3-D grid, one box a block, its
+fields staged; the four include ``csrc/tiled_cg.cuh``)
 and ``csrc/tile_apply.cu`` (the sharded solve's per-tile apply): each unit
 by its own ``nvcc`` process, all started together, then one link into one
 shared library with a plain C interface, bound with ``ctypes``. The library
@@ -37,7 +38,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 # the units nvcc compiles, each by its own process, and every source they read
 UNITS = ("fused_grid_cg_one.cu", "fused_grid_cg_multi.cu", "fused_grid_cg_batch.cu",
          "fused_grid_cg.cu", "tiled_grid_cg.cu", "tiled_grid_cs.cu", "tiled_graph_cg.cu",
-         "tile_apply.cu")
+         "tiled_vol_cg.cu", "tile_apply.cu")
 SOURCES = UNITS + ("fused_grid_cg.cuh", "tiled_cg.cuh", "tiled_grid.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "opt_tpu_torch"
 NVCC_FLAGS = (
@@ -124,6 +125,7 @@ _TILED_INSTANCE = re.compile(
     r"tiled_grid_cg_kernelILb([01])ELb([01])E(f|13__nv_bfloat16)Lb([01])ELb([01])EE")
 _TILED_CS_INSTANCE = re.compile(r"tiled_grid_cs_kernelILb([01])EE")
 _GRAPH_INSTANCE = re.compile(r"tiled_graph_cg_kernelILb([01])ELb([01])EE")
+_VOL_INSTANCE = re.compile(r"tiled_vol_cg_kernelILb([01])EE")
 
 
 def instance_registers(log: str) -> dict:
@@ -140,7 +142,9 @@ def instance_registers(log: str) -> dict:
     kernel's four (tiled_graph_cg_kernel<LM, STREAM>): the resident ones
     under (lm, True, False, False, False, multi, False, True), multi False
     and True, the stream ones under (lm, False, False, False, False, False,
-    False, True, False, True)."""
+    False, True, False, True); and the 3-D grid kernel's two
+    (tiled_vol_cg_kernel<BLOCK>) under (False, False, False, block, False,
+    False, False, True, False, False, True)."""
     regs, current, spill = {}, None, (0, 0)
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -148,7 +152,11 @@ def instance_registers(log: str) -> dict:
             t = _TILED_INSTANCE.search(line)
             c = _TILED_CS_INSTANCE.search(line)
             g = _GRAPH_INSTANCE.search(line)
-            if g and g.group(2) == "1":
+            v = _VOL_INSTANCE.search(line)
+            if v:
+                current = [(False,) * 3 + (v.group(1) == "1",) + (False,) * 3
+                           + (True, False, False, True)]
+            elif g and g.group(2) == "1":
                 current = [(g.group(1) == "1",) + (False,) * 6 + (True, False, True)]
             elif g:
                 lm = g.group(1) == "1"
@@ -241,6 +249,16 @@ def load_library(build: bool = True) -> ctypes.CDLL:
         i32, i32, vp,  # threads, smem_bytes, stream
     ]
     lib.tiled_graph_cg_launch.restype = i32
+    lib.tiled_vol_cg_launch.argtypes = [
+        i32,  # block
+        vp, vp, vp, vp, vp,  # F, b, pre (the C*C planes under block), triples, starts
+        i32, i32, i32, i32, i32, i32,  # C, T, n_triples, N0, N1, N2
+        i32, i32, i32, i32, i32, i32, i32,  # boxes0, boxes1, boxes2, b0, b1, b2, h
+        i32, f32, i32,  # lits, tol, guard_div
+        vp, vp, vp, vp, vp,  # delta, z_ring, partA, partB, iters
+        i32, i32, vp,  # threads, smem_bytes, stream
+    ]
+    lib.tiled_vol_cg_launch.restype = i32
     lib.tile_apply_launch.argtypes = [
         i32, vp, vp, vp, vp, vp,  # bf16, F, p_ext, out, triples, starts
         i32, i32, i32, i32, i32, i32,  # n_triples, C, th, tw, ah, aw

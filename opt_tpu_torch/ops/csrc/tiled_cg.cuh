@@ -1,9 +1,10 @@
 // What the tiled CG kernels share (tiled_grid_cg.cu and tiled_grid_cs.cu,
-// one tile of a 2-D grid a block; tiled_graph_cg.cu, one vertex range of a
-// graph a block):
-// the block of 512 threads, one a streaming multiprocessor, the guarded
-// division of alpha and beta, and the dot products' fixed-order sums, so
-// that every block of a launch reads the same alpha, beta and exit.
+// one tile of a 2-D grid a block; tiled_vol_cg.cu, one box of a 3-D grid a
+// block; tiled_graph_cg.cu, one vertex range of a graph a block):
+// the block of 512 threads, one a streaming multiprocessor, the grid
+// kernels' limits and triple rows, the guarded division of alpha and beta,
+// and the dot products' fixed-order sums, so that every block of a launch
+// reads the same alpha, beta and exit.
 
 #pragma once
 
@@ -11,6 +12,10 @@
 
 #define TGCG_THREADS 512
 #define TGCG_WARPS (TGCG_THREADS / 32)
+// the grid kernels' limits (ops/fused_cg.py: MAX_TRIPLES, MAX_CHANNELS)
+#define TGCG_MAX_TRIPLES 512
+#define TGCG_MAX_CHANNELS 64
+#define TGCG_ROW 6  // a triple as the host gives it: d0, d1, d2, i, j, fid
 
 __device__ __forceinline__ float tg_safe_div(float num, float den, int guard) {
   if (!guard) return __fdiv_rn(num, den);

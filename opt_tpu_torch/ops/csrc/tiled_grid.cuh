@@ -14,10 +14,6 @@
 
 namespace cg = cooperative_groups;
 
-#define TGCG_MAX_TRIPLES 512
-#define TGCG_MAX_CHANNELS 64
-#define TGCG_ROW 6  // a triple as the host gives it: d0, d1, d2, i, j, fid
-
 // A walk over the points of a [rows][cols] frame at the block's stride:
 // point q = y*cols + x from threadIdx.x, advanced by addition.
 struct TgWalk {

@@ -87,14 +87,21 @@ instead (:func:`graph_tile_plan`, ``csrc/tiled_graph_cg.cu``:
 partition built once per topology; a one-system graph meta without the
 remainder (the DIA-only form, arap on a grid mesh) takes it too, in its
 "stream" layout, whose fields are read from device memory every
-iteration (``gn_dia_tiled``, ``lm_dia_tiled``). All are bitwise equal to
-the template and to the twin, so the route changes no result.
+iteration (``gn_dia_tiled``, ``lm_dia_tiled``). A one-system float32 GN
+launch on a 3-D grid [N0, N1, N2] (N0 > 1) with the Jacobi or the
+block-Jacobi preconditioner takes the 3-D grid kernel
+(:func:`tiled_vol_plan`, ``csrc/tiled_vol_cg.cu``: ``gn_vol_tiled``,
+``gn_bj_vol_tiled``), one box a block with the box's fields staged in
+shared memory once a solve, where they fit (volumetric 32³×6; not 64³).
+All are bitwise equal to the template and to the twin, so the route
+changes no result.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
 from typing import Dict, Optional
 
 import numpy as np
@@ -712,7 +719,8 @@ def _device_triples(triples, ctot: int, device):
 
 def instance_name(lm: bool, rem: bool, cs: bool = False, block: bool = False,
                   bf16: bool = False, multi: bool = False, batch: bool = False,
-                  tiled: bool = False, hbm: bool = False, dia: bool = False) -> str:
+                  tiled: bool = False, hbm: bool = False, dia: bool = False,
+                  vol: bool = False) -> str:
     """The kernel instance's name: "gn" or "lm", then "_cs" for
     Chronopoulos–Gear, "_bj" for block-Jacobi, "_bf16" for bfloat16 fields,
     "_rem" with the remainder phase, "_multi" for the instances whose
@@ -721,13 +729,15 @@ def instance_name(lm: bool, rem: bool, cs: bool = False, block: bool = False,
     whose launch holds them side by side, one block each (a batch of small
     systems), "_dia" for the graph kernel's launches on a remainder-less
     graph (its stream layout: the fields read from device memory), "_hbm"
-    for the tiled kernel's hbm layout (δ and Ap in device memory), and
-    "_tiled" for the tiled kernels' (csrc/tiled_grid_cg.cu,
-    csrc/tiled_graph_cg.cu)."""
+    for the tiled kernel's hbm layout (δ and Ap in device memory), "_vol"
+    for the 3-D grid kernel's (csrc/tiled_vol_cg.cu: the fields staged in
+    shared memory, one box a block), and "_tiled" for the tiled kernels'
+    (csrc/tiled_grid_cg.cu, csrc/tiled_graph_cg.cu, csrc/tiled_vol_cg.cu)."""
     return (("lm" if lm else "gn") + ("_cs" if cs else "") + ("_bj" if block else "")
             + ("_bf16" if bf16 else "") + ("_rem" if rem else "")
             + ("_multi" if multi else "") + ("_batch" if batch else "")
-            + ("_dia" if dia else "") + ("_hbm" if hbm else "") + ("_tiled" if tiled else ""))
+            + ("_dia" if dia else "") + ("_hbm" if hbm else "") + ("_vol" if vol else "")
+            + ("_tiled" if tiled else ""))
 
 
 # (lm, rem, cs, block, bf16, multi, batch): every combination of the five
@@ -765,6 +775,11 @@ TILED_INSTANCES += tuple((lm, False, False, False, False, False, False, True, Tr
 # stream layout (the tenth flag, dia)
 TILED_INSTANCES += tuple((lm, False, False, False, False, False, False, True, False, True)
                          for lm in (False, True))
+# the 3-D grid kernel's one-system GN launches (csrc/tiled_vol_cg.cu, the
+# eleventh flag, vol): with the Jacobi and with the block-Jacobi
+# preconditioner
+TILED_INSTANCES += tuple((False, False, False, block, False, False, False, True, False, False,
+                          True) for block in (False, True))
 
 
 def batched_kernel_form(meta, pre_blocks=None) -> str:
@@ -965,29 +980,43 @@ def tiled_smem_bytes(lm: bool, C: int, th: int, tw: int, h: int, n_triples: int,
             + (4 * C * C * ext if block else 0) + triples)
 
 
-@functools.lru_cache(maxsize=64)
-def _tile_split(N1: int, N2: int, h: int, sm_count: int):
-    """(tiles_r, tiles_c, th, tw) of the ceil split of the grid [N1, N2]
-    into at most ``sm_count`` tiles, each at least max(h, 1) wide in both
-    axes (so a halo reaches only the adjacent tiles, whose rings hold it),
-    or None. The split whose largest tile with its halo holds the fewest
+def _ceil_split(dims, h: int, sm_count: int):
+    """(counts, widths) of the ceil split of a grid of extents ``dims`` into
+    at most ``sm_count`` blocks, each at least max(h, 1) wide on every axis
+    (so a halo reaches only the adjacent blocks, whose borders hold it), or
+    None. The split whose largest block with its halo holds the fewest
     points wins (its block's work and shared memory), counted up to
     TILED_THREADS (a block walks fewer with idle threads); then the fewest
-    tiles (fewer blocks in each barrier), the widest rows."""
+    blocks (fewer in each barrier); then the widest block along the last
+    axis, then the one before (the rows that loads and copies read)."""
     best, key = None, None
     lo = max(h, 1)
-    for tr in range(1, min(N1, sm_count) + 1):
-        th = -(-N1 // tr)
-        if N1 - (tr - 1) * th < lo:
+
+    def counts(axis, left):  # every count tuple of the remaining axes
+        if axis == len(dims):
+            yield ()
+            return
+        for k in range(1, min(dims[axis], left) + 1):
+            for rest in counts(axis + 1, left // k):
+                yield (k,) + rest
+
+    for cnt in counts(0, sm_count):
+        widths = tuple(-(-n // k) for n, k in zip(dims, cnt))
+        if any(n - (k - 1) * w < lo for n, k, w in zip(dims, cnt, widths)):
             continue
-        for tc in range(1, min(N2, sm_count // tr) + 1):
-            tw = -(-N2 // tc)
-            if N2 - (tc - 1) * tw < lo:
-                continue
-            k = (max((th + 2 * h) * (tw + 2 * h), TILED_THREADS), tr * tc, -tw)
-            if key is None or k < key:
-                best, key = (tr, tc, th, tw), k
+        k = (max(int(np.prod([w + 2 * h for w in widths])), TILED_THREADS), int(np.prod(cnt)),
+             tuple(-w for w in reversed(widths)))
+        if key is None or k < key:
+            best, key = (cnt, widths), k
     return best
+
+
+@functools.lru_cache(maxsize=64)
+def _tile_split(N1: int, N2: int, h: int, sm_count: int):
+    """(tiles_r, tiles_c, th, tw) of :func:`_ceil_split` of the 2-D grid
+    [N1, N2], or None."""
+    split = _ceil_split((N1, N2), h, sm_count)
+    return None if split is None else split[0] + split[1]
 
 
 def tiled_grid_plan(meta, C: int, dom, *, lm: bool, cs: bool = False, block: bool = False,
@@ -1058,9 +1087,98 @@ def tile_bounds(plan, N1: int, N2: int) -> list:
     order (block k is tile row k // columns, column k % columns), each as
     ((first row, row past the last), (first column, column past the last)):
     the ceil split of each axis, as the kernel cuts it."""
-    (tr, tc), (th, tw) = plan["tiles"], plan["tile"]
-    return [((r * th, min(N1, (r + 1) * th)), (c * tw, min(N2, (c + 1) * tw)))
-            for r in range(tr) for c in range(tc)]
+    return _ceil_bounds(plan["tiles"], plan["tile"], (N1, N2))
+
+
+def _ceil_bounds(counts, widths, dims) -> list:
+    """The blocks of a ceil split in block order (the last axis fastest),
+    each as ((first, past the last) on every axis)."""
+    return list(itertools.product(*([(i * w, min(n, (i + 1) * w)) for i in range(k)]
+                                    for k, w, n in zip(counts, widths, dims))))
+
+
+def tiled_vol_smem_bytes(block: bool, C: int, T: int, b0: int, b1: int, b2: int, h: int,
+                         n_triples: int) -> int:
+    """The 3-D grid kernel's dynamic shared memory a block, in bytes, in its
+    layout (csrc/tiled_vol_cg.cu::tv_smem_bytes): the block-sum records,
+    the triples' field and source offsets (two ints a triple) and the
+    channels' first triples, the T fields over the box, r, δ and Ap over
+    the box, p over the box and its halo, and the preconditioner over the
+    box: C planes, or under ``block`` the C·C planes. Volumetric 32³×6
+    (128 fields, 142 triples, boxes of 4×8×8, h = 1): 171,484 B Jacobi,
+    202,204 B block-Jacobi."""
+    pts, ext = b0 * b1 * b2, (b0 + 2 * h) * (b1 + 2 * h) * (b2 + 2 * h)
+    return (16 * (TILED_THREADS // 32 + 1)
+            + 4 * (T * pts + 3 * C * pts + C * ext + (C * C if block else C) * pts)
+            + 4 * (2 * n_triples + C + 1))
+
+
+@functools.lru_cache(maxsize=64)
+def _box_split(N0: int, N1: int, N2: int, h: int, sm_count: int):
+    """(boxes (B0, B1, B2), box (b0, b1, b2)) of :func:`_ceil_split` of the
+    3-D grid [N0, N1, N2], or None. 32³ at h = 1 on 132 SMs: 8×4×4 boxes of
+    4×8×8."""
+    return _ceil_split((N0, N1, N2), h, sm_count)
+
+
+def tiled_vol_plan(meta, C: int, dom, *, lm: bool, cs: bool = False, block: bool = False,
+                   sm_count: int, smem_per_block: int) -> Optional[Dict]:
+    """Whether a launch on ``meta`` (C channels on the 3-D grid ``dom`` =
+    [N0, N1, N2], N0 > 1) takes the 3-D grid kernel (csrc/tiled_vol_cg.cu),
+    and how: None, or {boxes: (B0, B1, B2), box: (b0, b1, b2), halo: h,
+    threads, smem_bytes, layout: "vol"}. Taken for the standard GN loop
+    (not ``lm``, not ``cs``) on float32 fields, one system (no batch, no
+    split), no remainder, with the Jacobi or the block-Jacobi
+    preconditioner (``block``), up to the kernel's channels and triples,
+    when the grid splits into at most ``sm_count`` boxes (:func:`_box_split`)
+    whose fields, state and preconditioner fit ``smem_per_block``
+    (:func:`tiled_vol_smem_bytes`). h is the largest |offset| of the
+    triples on any axis. Everything else on a 3-D grid keeps the template:
+    LM, Chronopoulos–Gear, bfloat16 fields, a batch, the split, and a grid
+    whose fields do not fit (volumetric 64³×6: about 1 MB of fields a box)."""
+    F = meta["F"]
+    if (lm or cs or F.dtype != torch.float32 or meta.get("rem") is not None
+            or meta.get("batch") or meta.get("chan_grid")):
+        return None
+    dom = tuple(int(s) for s in dom)
+    triples = meta["triples"]
+    if (len(dom) != 3 or dom[0] < 2 or not 1 <= C <= MAX_CHANNELS
+            or not 0 < len(triples) <= MAX_TRIPLES
+            or any(len(d) != 3 for (d, _i, _j, _f) in triples)):
+        return None
+    h = max(abs(int(o)) for (d, _i, _j, _f) in triples for o in d)
+    split = _box_split(*dom, h, int(sm_count))
+    if split is None:
+        return None
+    plan = box_plan(dom, split[0], h, meta, C, block=block)
+    return None if plan["smem_bytes"] > smem_per_block else plan
+
+
+def box_plan(dom, boxes, h: int, meta=None, C: int = 0, *, block: bool = False) -> Dict:
+    """The 3-D grid kernel's plan of the grid ``dom`` = [N0, N1, N2] cut
+    into ``boxes`` = (B0, B1, B2) at the halo h: the ceil split of each
+    axis (:func:`box_bounds`), every box at least max(h, 1) wide on every
+    axis, else ValueError. With ``meta`` (C channels; ``block``: the C·C
+    planes), its shared memory a block (:func:`tiled_vol_smem_bytes`),
+    else 0. :func:`tiled_vol_plan`'s plan is this at :func:`_box_split`'s
+    boxes; other splits are for checks that force them."""
+    dom = tuple(int(n) for n in dom)
+    boxes = tuple(int(k) for k in boxes)
+    box = tuple(-(-n // k) for n, k in zip(dom, boxes))
+    if len(dom) != 3 or any(n - (k - 1) * w < max(h, 1) for n, k, w in zip(dom, boxes, box)):
+        raise ValueError(f"{boxes} boxes of {dom}: a box narrower than max(h, 1) = {max(h, 1)}")
+    smem = 0 if meta is None else tiled_vol_smem_bytes(
+        block, C, int(meta["F"].shape[0]), *box, h, len(meta["triples"]))
+    return {"boxes": boxes, "box": box, "halo": h, "threads": TILED_THREADS,
+            "smem_bytes": smem, "layout": "vol"}
+
+
+def box_bounds(plan, N0: int, N1: int, N2: int) -> list:
+    """The boxes of a :func:`tiled_vol_plan` on the grid [N0, N1, N2] in
+    block order (block k is box (k // (B1·B2), k // B2 % B1, k % B2)), each
+    as ((first, past the last) along axis 0, along axis 1, along axis 2):
+    the ceil split of each axis, as the kernel cuts it."""
+    return _ceil_bounds(plan["boxes"], plan["box"], (N0, N1, N2))
 
 
 class GraphPartitions:
@@ -1259,7 +1377,8 @@ def route_plan(meta, b, *, lm: bool, cs: bool = False, pre_blocks=None) -> Optio
     "batch" form keeps the template. The per-channel split is planned at
     one channel, its systems'. A graph meta, with the remainder or with
     its empty CSR (``meta["empty_csr"]``), takes :func:`graph_tile_plan`'s plan
-    (the graph kernel) or None."""
+    (the graph kernel) or None; a 3-D grid [N0, N1, N2] with N0 > 1
+    :func:`tiled_vol_plan`'s (the 3-D grid kernel, layout "vol") or None."""
     block = pre_blocks is not None
     lead = 1 if meta.get("batch") else 0
     if meta.get("rem") is not None or meta.get("empty_csr") is not None:
@@ -1269,8 +1388,12 @@ def route_plan(meta, b, *, lm: bool, cs: bool = False, pre_blocks=None) -> Optio
     if lead and batched_kernel_form(meta, pre_blocks) != "multi":
         return None
     C = 1 if meta.get("chan_grid") else int(b.shape[lead])
+    dom = tuple(int(s) for s in b.shape[lead + 1:])
     sms, smem = device_limits(b.device)
-    return tiled_grid_plan(meta, C, b.shape[lead + 1:], lm=lm, cs=cs, block=block,
+    if len(dom) == 3 and dom[0] > 1:
+        return tiled_vol_plan(meta, C, dom, lm=lm, cs=cs, block=block, sm_count=sms,
+                              smem_per_block=smem)
+    return tiled_grid_plan(meta, C, dom, lm=lm, cs=cs, block=block,
                            sm_count=sms, smem_per_block=smem)
 
 
@@ -1284,7 +1407,7 @@ def launch_instance(meta, b, *, lm: bool = False, cs: bool = False, pre_blocks=N
         return instance_name(lm, meta.get("rem") is not None, cs, block, bf16,
                              multi=bool(meta.get("batch") or meta.get("chan_grid")),
                              tiled=True, hbm=plan["layout"] == "hbm",
-                             dia=plan["layout"] == "stream")
+                             dia=plan["layout"] == "stream", vol=plan["layout"] == "vol")
     form = batched_kernel_form(meta, pre_blocks) if meta.get("batch") else None
     multi = form == "multi" if form else bool(meta.get("chan_grid"))
     return instance_name(lm, meta.get("rem") is not None, cs, block, bf16, multi,
@@ -1518,11 +1641,81 @@ def tiled_graph_cg_kernel(meta, b, pre, lits, tol, plan, *, guard_div=True, ctc=
     return delta, iters
 
 
+def tiled_vol_cg_kernel(meta, b, pre, lits, tol, plan, *, guard_div=True, pre_blocks=None):
+    """Launch the 3-D grid kernel (csrc/tiled_vol_cg.cu) on packed
+    [C, N0, N1, N2] float32 CUDA tensors, as ``plan`` (:func:`tiled_vol_plan`)
+    cuts the grid into boxes: the GN loop of one system on float32 fields
+    [T, N0, N1, N2], with the elementwise preconditioner ``pre`` or, when
+    ``pre_blocks`` ([C·C, N0, N1, N2]) is given, the block one (``pre`` is
+    then not read). Returns (delta, iters int32[1] on the device). Does not
+    synchronise. The operands are checked first; then a CPU tensor raises,
+    and so does a launch the card refuses (more boxes than co-resident
+    blocks, shared memory beyond the block's): nothing falls back to the
+    template or the twin. Each launch adds one to
+    ``fused_grid_cg_kernel.launches[name]`` (``gn_vol_tiled``,
+    ``gn_bj_vol_tiled``)."""
+    from ._build import load_library
+
+    F = meta["F"]
+    device = b.device
+    block = pre_blocks is not None
+    if F.dtype != torch.float32:
+        raise ValueError(f"tiled_vol_cg_kernel takes float32 fields, got {F.dtype}")
+    if meta.get("rem") is not None or meta.get("batch") or meta.get("chan_grid"):
+        raise ValueError("tiled_vol_cg_kernel takes one system without the remainder")
+    C = int(b.shape[0])
+    dom = tuple(int(s) for s in b.shape[1:])
+    if len(dom) != 3:
+        raise ValueError(f"tiled_vol_cg_kernel takes a 3-D grid, got {dom}")
+    N0, N1, N2 = dom
+    _check_operand("b", b, (C,) + dom, torch.float32, device)
+    if block:
+        _check_operand("pre_blocks", pre_blocks, (C * C,) + dom, torch.float32, device)
+    else:
+        _check_operand("pre", pre, (C,) + dom, torch.float32, device)
+    T = int(F.shape[0])
+    _check_operand("F", F, (T,) + dom, torch.float32, device)
+    triples = meta["triples"]
+    if (not 0 < len(triples) <= MAX_TRIPLES or not 1 <= C <= MAX_CHANNELS or any(
+            len(d) != 3 or not (0 <= fid < T and 0 <= i < C and 0 <= j < C)
+            for (d, i, j, fid) in triples)):
+        raise ValueError("tiled_vol_cg_kernel: triples, offsets, channels or field ids out "
+                         "of range")
+    if b.numel() >= 2**31 or F.numel() >= 2**31 or (block and C * b.numel() >= 2**31):
+        raise ValueError("tiled_vol_cg_kernel indexes with int32: problem too large")
+    (B0, B1, B2), (b0, b1, b2), h = plan["boxes"], plan["box"], plan["halo"]
+    if device.type != "cuda":  # after the operand checks, which hold on any device
+        raise ValueError(f"tiled_vol_cg_kernel needs CUDA tensors, got {device}")
+    lib = load_library()
+    tr_rows, starts = _device_triples(triples, C, device)
+    n_boxes = B0 * B1 * B2
+    delta = torch.empty_like(b)
+    z_ring = torch.empty_like(b)  # each block writes only its box's shell of z
+    part = torch.empty((2, n_boxes, 2), dtype=torch.float64, device=device)
+    iters = torch.empty(1, dtype=torch.int32, device=device)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    with torch.cuda.device(device):
+        err = lib.tiled_vol_cg_launch(
+            int(block), ptr(F), ptr(b), ptr(pre_blocks if block else pre), ptr(tr_rows),
+            ptr(starts), C, T, len(triples), N0, N1, N2, B0, B1, B2, b0, b1, b2, h, int(lits),
+            ctypes.c_float(float(tol)), int(bool(guard_div)), ptr(delta), ptr(z_ring),
+            ptr(part[0]), ptr(part[1]), ptr(iters), int(plan["threads"]),
+            int(plan["smem_bytes"]), ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"tiled_vol_cg kernel launch failed: CUDA error {err} "
+                           f"({B0}x{B1}x{B2} boxes of {b0}x{b1}x{b2}, {plan['smem_bytes']} "
+                           "bytes of shared memory a block)")
+    fused_grid_cg_kernel.launches[instance_name(False, False, block=block, tiled=True,
+                                                vol=True)] += 1
+    return delta, iters
+
+
 def fused_grid_cg_kernel(meta, b, pre, lits, tol, *, guard_div=True, ctc=None,
                          reset_period=None, q_tolerance=None, cs=False, pre_blocks=None):
     """Launch the whole CG loop on CUDA tensors: the tiled kernel
-    (:func:`tiled_grid_cg_kernel`, or :func:`tiled_graph_cg_kernel` for a
-    graph meta) where :func:`route_plan` gives a plan,
+    (:func:`tiled_grid_cg_kernel`, :func:`tiled_graph_cg_kernel` for a
+    graph meta, :func:`tiled_vol_cg_kernel` for a 3-D grid) where
+    :func:`route_plan` gives a plan,
     else the template (:func:`template_grid_cg_kernel`, whose docstring
     gives the operands and forms). Both are bitwise equal to the twin, so
     the route changes no result; a tiled launch that fails raises and is
@@ -1538,6 +1731,9 @@ def fused_grid_cg_kernel(meta, b, pre, lits, tol, *, guard_div=True, ctc=None,
         return tiled_graph_cg_kernel(meta, b, pre, lits, tol, plan, guard_div=guard_div,
                                      ctc=ctc, reset_period=reset_period,
                                      q_tolerance=q_tolerance)
+    if plan["layout"] == "vol":  # GN only: the planner refuses ctc and cs
+        return tiled_vol_cg_kernel(meta, b, pre, lits, tol, plan, guard_div=guard_div,
+                                   pre_blocks=pre_blocks)
     return tiled_grid_cg_kernel(meta, b, pre, lits, tol, plan, guard_div=guard_div, ctc=ctc,
                                 reset_period=reset_period, q_tolerance=q_tolerance,
                                 pre_blocks=pre_blocks, cs=cs)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the tiled kernel's one-system instances of a source tree on the card.
 
-    python3 scripts/tiled_one_system_times.py [--root TREE] [--label NAME] [--hbm | --dia]
+    python3 scripts/tiled_one_system_times.py [--root TREE] [--label NAME] [--hbm | --dia | --vol]
 
 Imports opt_tpu_torch from TREE (default: this checkout), builds its
 kernels there, and times gn_tiled on poisson 512x512x4 (bench_poisson's
@@ -15,7 +15,11 @@ in turns (route, template, template, route). With --dia it times arap's
 first GN and LM systems on bench.py::bench_arap_graph's 192x192 grid mesh
 (a graph without the remainder) the same way: gn_dia_tiled and
 lm_dia_tiled where the tree has the graph kernel's stream layout, against
-the template's gn and lm. Each launch's delta is also
+the template's gn and lm. With --vol it times volumetric 32x32x32's first
+GN system (bench.py::bench_volumetric's inputs) with the Jacobi and with
+the block-Jacobi preconditioner the same way: gn_vol_tiled and
+gn_bj_vol_tiled where the tree has the 3-D grid kernel, against the
+template's gn and gn_bj. Each launch's delta is also
 held to the plain twin's on the same system (bitwise_equal). It prints
 each instance's registers and spills from ptxas. Run it on two trees in
 turns (A, B, B, A) in one command to compare two versions of the kernel on
@@ -39,6 +43,8 @@ def main() -> int:
                     help="image_warping 1024x1024 GN and LM, the route and the template")
     ap.add_argument("--dia", action="store_true",
                     help="arap on the 192x192 grid mesh GN and LM, the route and the template")
+    ap.add_argument("--vol", action="store_true",
+                    help="volumetric 32^3 GN, Jacobi and block-Jacobi, the route and the template")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -48,7 +54,7 @@ def main() -> int:
         return 2
     import opt_tpu_torch as ot
     from opt_tpu_torch.models.specs import (arap_mesh_deformation, image_warping,
-                                            poisson_image_editing)
+                                            poisson_image_editing, volumetric_mesh_deformation)
     from opt_tpu_torch.ops import fused_cg
     from opt_tpu_torch.ops._build import build_library, instance_registers
 
@@ -71,37 +77,47 @@ def main() -> int:
     warp = {"Offset": ur.copy(), "Angle": np.zeros((n, n), f32), "UrShape": ur,
             "Constraints": con, "Mask": np.zeros((n, n), f32),
             "w_fitSqrt": np.sqrt(100.0).astype(f32), "w_regSqrt": np.sqrt(0.01).astype(f32)}
-    cases = ((poisson_image_editing, "gaussNewtonGPU", poisson, None),
-             (image_warping, "LMGPU", warp, None),
-             (poisson_image_editing, "gaussNewtonGPU", poisson, "bfloat16"),
-             (image_warping, "LMGPU", warp, "bfloat16"))
+    bf16 = {"coefficient_dtype": "bfloat16"}
+    cases = ((poisson_image_editing, "gaussNewtonGPU", poisson, {}),
+             (image_warping, "LMGPU", warp, {}),
+             (poisson_image_editing, "gaussNewtonGPU", poisson, bf16),
+             (image_warping, "LMGPU", warp, bf16))
     dims = {"W": n, "H": n}
     if args.hbm:
-        cases = ((image_warping, "gaussNewtonGPU", warp, None),
-                 (image_warping, "LMGPU", warp, None))
+        cases = ((image_warping, "gaussNewtonGPU", warp, {}),
+                 (image_warping, "LMGPU", warp, {}))
     if args.dia:  # bench.py::bench_arap_graph's inputs, as chip_smoke.py checks them
         from chip_smoke import arap_grid_inputs
 
         dims, arap = arap_grid_inputs(192)
-        cases = ((arap_mesh_deformation, "gaussNewtonGPU", arap, None),
-                 (arap_mesh_deformation, "LMGPU", arap, None))
-    for spec, kind, inputs, dtype in cases:
+        cases = ((arap_mesh_deformation, "gaussNewtonGPU", arap, {}),
+                 (arap_mesh_deformation, "LMGPU", arap, {}))
+    if args.vol:  # bench.py::bench_volumetric's inputs, as chip_smoke.py checks them
+        from chip_smoke import _vol, volumetric_inputs
+
+        dims, vol = _vol(32), volumetric_inputs(32)
+        cases = ((volumetric_mesh_deformation, "gaussNewtonGPU", vol, {}),
+                 (volumetric_mesh_deformation, "gaussNewtonGPU", vol,
+                  {"preconditioner": "block_jacobi"}))
+    for spec, kind, inputs, ip in cases:
         plan = ot.Problem(spec, kind=kind).plan(
-            dims=dims, init_params=ot.InitializationParameters(coefficient_dtype=dtype))
+            dims=dims, init_params=ot.InitializationParameters(**ip))
         meta, r0, pre, kw = plan.cg_inputs(inputs)
         b, p = fused_cg.pack(r0, meta), fused_cg.pack(pre, meta)
         lm = {}
         if kind == "LMGPU":
             lm = dict(ctc=fused_cg.pack(kw["ctc"], meta), reset_period=kw["reset_period"],
                       q_tolerance=float("-inf"))
+        if kw["pre_blocks"] is not None:
+            lm["pre_blocks"] = fused_cg.pack_pre_blocks(kw["pre_blocks"], meta)
         twin = fused_cg.fused_grid_cg_reference(meta["F"], meta["triples"], b, p, 100, 0.0,
                                                 **lm)[0]
-        route = fused_cg.launch_instance(meta, b, lm=bool(lm))
-        turns = (False, True, True, False) if args.hbm or args.dia else (False,)
+        route = fused_cg.launch_instance(meta, b, lm="ctc" in lm, pre_blocks=lm.get("pre_blocks"))
+        turns = (False, True, True, False) if args.hbm or args.dia or args.vol else (False,)
         for template in turns:
             launch = (fused_cg.template_grid_cg_kernel if template
                       else fused_cg.fused_grid_cg_kernel)
-            name = "lm" if lm else "gn"
+            name = ("lm" if "ctc" in lm else "gn") + ("_bj" if "pre_blocks" in lm else "")
             name = name if template else route
 
             def call():
@@ -119,7 +135,7 @@ def main() -> int:
             key = next((k for k in fused_cg.TILED_INSTANCES + fused_cg.INSTANCES
                         if fused_cg.instance_name(*k) == name), None)
             print(json.dumps({"tree": args.label, "instance": name, "gpu": gpu,
-                              "grid": list(b.shape[-2:]) if args.dia else [n, n],
+                              "grid": list(b.shape[1:]) if args.dia or args.vol else [n, n],
                               "iters": int(it.sum()),
                               "kernel_ms_per_cg_iter": e0.elapsed_time(e1) / 3 / int(it.sum()),
                               "bitwise_equal_to_twin": same,

@@ -580,11 +580,12 @@ def test_instance_names_and_launch_counts():
                      "gn_bj_multi_tiled", "lm_bj_multi_tiled", "gn_rem_tiled", "lm_rem_tiled",
                      "gn_rem_multi_tiled", "lm_rem_multi_tiled", "gn_cs_tiled", "lm_cs_tiled",
                      "gn_bf16_tiled", "lm_bf16_tiled", "gn_multi_tiled", "lm_multi_tiled",
-                     "gn_hbm_tiled", "lm_hbm_tiled", "gn_dia_tiled", "lm_dia_tiled"]
+                     "gn_hbm_tiled", "lm_hbm_tiled", "gn_dia_tiled", "lm_dia_tiled",
+                     "gn_vol_tiled", "gn_bj_vol_tiled"]
     fused_cg.reset_launch_counts()
     assert set(names) | {"gn", "lm", "gn_bj", "lm_bj_multi"} <= set(
         fused_cg.fused_grid_cg_kernel.launches)
-    assert len(fused_cg.fused_grid_cg_kernel.launches) == 96 + 20
+    assert len(fused_cg.fused_grid_cg_kernel.launches) == 96 + 22
 
 
 def test_build_compiles_the_tiled_unit_and_reads_its_registers():
