@@ -23,9 +23,13 @@ bfloat16 fields on poisson, image_warping, volumetric and the two meshes,
 shape_from_shading's ComputedArray system at 512x512, optical_flow's at
 256x256x2, intrinsic_image_decomposition's at 512x512x4, and poisson
 1024x1024x4 split into four one-channel systems, GN and LM, and the batch
-forms: 512 curve-fit systems and 4 laplacian 16x16 systems a block each
-(GN, LM, Chronopoulos-Gear, bfloat16), each system also against its own
-one-system launch, and 4 poisson 512x512x4 systems in turn with their own
+forms: 512 curve-fit systems and 4 laplacian 16x16 systems side by side
+(GN, LM, Chronopoulos-Gear, bfloat16; GN and LM on the batch kernel,
+opt_tpu_torch/ops/csrc/tiled_batch_cg.cu, gn_batch_tiled and
+lm_batch_tiled, a team of lanes of one warp a system, with the template's
+gn_batch and lm_batch held to the same twin results; Chronopoulos-Gear and
+bfloat16 on the template, a block a system), each system also against its
+own one-system launch, and 4 poisson 512x512x4 systems in turn with their own
 fields (and image_warping 512x512 x4 LM, image_warping 500x301 x3 and a
 radius-2 stencil x3 with per-instance fields, GN and LM); the batch forms
 with the graph remainder and the block
@@ -58,9 +62,11 @@ with CUDA events, profiles the batched curve fits, and prints one JSON line
 per result.
 The sharded path: it builds the per-tile apply of a solve sharded over a
 2-D mesh of ranks (opt_tpu_torch/ops/csrc/tile_apply.cu, in the same
-library) and holds it bitwise against its twin on the four tiles of a 2x2
-split of poisson 512x512x4, image_warping 512x512x3, a radius-2 stencil
-and bfloat16 fields. As soon as the library is built it starts four
+library; a thread a channel of a column over two rows, the triples a
+launch parameter) and holds it bitwise
+against its twin on the four tiles of a 2x2 split of poisson 512x512x4,
+image_warping 512x512x3 and 500x301 (tiles of 250x151 and 250x150), a
+radius-2 stencil and bfloat16 fields. As soon as the library is built it starts four
 ranks by the spawn method, one 2x2 mesh under gloo, all four on the one
 card, which solve through the public API, beside the checks and solves
 above, poisson 512x512x4 (GN 1x2000) and image_warping 512x512 (GN and
@@ -334,8 +340,10 @@ RANDOM_MESH_LITS, RANDOM_MESH_EXIT_LITS = 10, 20
 SMALL_MESH_LITS, SMALL_MESH_EXIT_LITS = 30, 60
 # form_sweep: 4 laplacian systems of these sides (256 to 16,384 elements a
 # system) through both batch forms, where fused_cg.BATCH_BLOCK_ELEMS (2048)
-# is set: 45x45 is the last size under it
-SWEEP_B, SWEEP_SIDES = 4, (16, 32, 45, 64, 128)
+# is set: 45x45 is the last size under it; and, within the "batch" form,
+# the batch kernel against the template's block a system on both sides of
+# fused_cg.BATCH_TEAM_LANE_ELEMS (31 elements a lane: 31x31 under, 32x32 over)
+SWEEP_B, SWEEP_SIDES = 4, (16, 24, 28, 30, 31, 32, 45, 64, 128)
 # solve_scheduled on tests/test_scheduled.py's spec (sched_inputs below),
 # held to the host-driven loop on the card
 SCHED_N, SCHED_OUTER, SCHED_NL, SCHED_LI = 512, 5, 3, 15
@@ -404,9 +412,10 @@ TILED_SOURCE = "opt_tpu_torch/ops/csrc/tiled_grid_cg.cu"
 TILED_CS_SOURCE = "opt_tpu_torch/ops/csrc/tiled_grid_cs.cu"
 GRAPH_SOURCE = "opt_tpu_torch/ops/csrc/tiled_graph_cg.cu"
 TILED_VOL_SOURCE = "opt_tpu_torch/ops/csrc/tiled_vol_cg.cu"
+TILED_BATCH_SOURCE = "opt_tpu_torch/ops/csrc/tiled_batch_cg.cu"
 # the CG kernels' names, as the profiler's entries carry them
 CG_KERNELS = ("fused_grid_cg_kernel", "tiled_grid_cg_kernel", "tiled_graph_cg_kernel",
-              "tiled_vol_cg_kernel")
+              "tiled_vol_cg_kernel", "tiled_batch_cg_kernel")
 # the 3-D grid kernel's forced splits (fused_cg.box_bounds): volumetric on
 # these grids (W, H, D) cut into these boxes, each uneven or one point wide
 # along some axis (tests/test_torch_tiled_vol.py emulates the same)
@@ -1010,6 +1019,20 @@ def vol_plan_line(label, meta, b, pre_blocks=None, plan=None):
     return plan
 
 
+def batch_plan_line(label, system):
+    """The batch kernel's plan of a batched system, printed: lanes a
+    system, systems a block, blocks, shared memory a block; raises where
+    the system does not take it."""
+    meta, b, _pre, lm, variant = system
+    plan = fused_cg.route_plan(meta, b, lm=bool(lm), **variant)
+    if plan is None or plan.get("layout") != "batch":
+        raise RuntimeError(f"{label}: does not take the batch kernel ({plan})")
+    log(json.dumps({"batch_plan": label, "form": form_of(meta, b, lm, **variant),
+                    "systems": n_systems(meta), "elements": int(b[0].numel()),
+                    "fields": int(meta["F"].shape[1]), **plan}))
+    return plan
+
+
 def forced_vol_plan(meta, b, boxes, pre_blocks=None):
     """A 3-D grid kernel's plan of this system with the split `boxes`
     (fused_cg.box_plan at the planner's halo, its shared memory counted for
@@ -1213,7 +1236,8 @@ def kernel_vs_twin(label, meta, b, pre, lits, tol, lm=None, q_tol=Q_TOL, bitwise
             # <= 0); every case here but the block-per-system ones, whose tiny
             # systems reach an exact zero residual (their counts are held to
             # the twin's above), runs `lits` iterations without reaching it
-            if ik != lits * n_sys and not line["form"].endswith("_batch") and not early:
+            if (ik != lits * n_sys and not line["form"].endswith(("_batch", "_batch_tiled"))
+                    and not early):
                 raise RuntimeError(f"{label}: iteration counts {ik}/{ir}, "
                                    f"expected {lits * n_sys}")
             if err > DELTA_RTOL * scale:
@@ -1526,11 +1550,15 @@ def instance_system(meta, b, pre, lm, variant, k):
 def batch_vs_single(label, meta, b, pre, lits, lm=None, **variant):
     """Each system of a batched launch against its own one-system launch
     on the batch's route, with the real exits: bitwise equal, count for
-    count. The one-system launch must partition the dots as the batched
-    one does: one block for a block-per-system launch (systems of at most
-    BLOCK_THREADS elements), the same grid for the template's multi-system
-    form, the same tiles for the tiled one (whose systems then take the
-    one-system tiled instance)."""
+    count. The one-system launch partitions the dots as the batched one
+    does (one block for the template's block-per-system launch, systems of
+    at most BLOCK_THREADS elements; the same grid for the template's
+    multi-system form; the same tiles for the tiled one, whose systems then
+    take the one-system tiled instance), or, for the batch kernel's teams,
+    sums them in another order, whose float64 sums round to the same
+    float32 dots: its systems alone take their one-system tiled instance
+    (a curve fit the graph kernel's stream layout, laplacian 16x16 the
+    tiled grid kernel)."""
     lm_kw = dict(lm, q_tolerance=Q_TOL) if lm else {}
     form = form_of(meta, b, lm, **variant)
     dk, ik = fused_cg.fused_grid_cg_kernel(meta, b, pre, lits, CG_TOL, **lm_kw, **variant)
@@ -1579,8 +1607,8 @@ def batch_checks(label, system, lits, exit_lits, single=True, form=None, templat
 
 def batched_curve_main_path(truths, inputs):
     """bench.py's batched case through the public API: 512 LM 10x20 curve
-    fits in one solve_batched, one launch of the block-per-system LM
-    instance a step; every instance takes 10 steps, its parameters within
+    fits in one solve_batched, one launch of the batch kernel's LM
+    instance (lm_batch_tiled, a team of two lanes a system) a step; every instance takes 10 steps, its parameters within
     BATCH_PARAM_ATOL of the JAX CPU's, the largest |param - truth| within
     BATCH_TRUTH_ATOL, and the summed CG count within BATCH_LIN_RTOL of the
     JAX CPU's. Returns (result, launches)."""
@@ -1595,7 +1623,7 @@ def batched_curve_main_path(truths, inputs):
     p = p[:, 0, :].double().cpu().numpy()
     lin = int(res.num_linear_iterations.sum())
     line = {"check": "main_path", "case": f"curve_fitting x{BATCH_B} LM {BATCH_NL}x{BATCH_LI} "
-            "batched", "form": "lm_batch", "kernel_launches": launches,
+            "batched", "form": "lm_batch_tiled", "kernel_launches": launches,
             "fused_fallback": plan.fused_fallback,
             "nonlinear_iters": sorted(set(res.num_iterations.tolist())),
             "lin_iters": lin, "jax_cpu_lin_iters": JAX_CPU_BATCHED_LIN_ITERS,
@@ -1607,7 +1635,7 @@ def batched_curve_main_path(truths, inputs):
             "jax_cpu_max_param_err": float(np.abs(ref["params"] - truths).max()),
             "solve_s": res.wall_time_s}
     log(json.dumps(line))
-    if (launches != {"lm_batch": BATCH_NL} or plan.fused_fallback is not None or not finite
+    if (launches != {"lm_batch_tiled": BATCH_NL} or plan.fused_fallback is not None or not finite
             or set(res.num_iterations.tolist()) != {BATCH_NL}
             or line["max_param_diff_to_jax_cpu"] > BATCH_PARAM_ATOL
             or line["max_param_err"] > BATCH_TRUTH_ATOL or line["lin_rel_diff"] > BATCH_LIN_RTOL):
@@ -1865,10 +1893,10 @@ def scheduled_main_path():
 
 def time_batched_launches(label, meta, b, pre, lm, gpu):
     """The batched CG launch of one LM step (its lIterations and real
-    exits) against the same systems as one-system launches, one after the
-    other: the kernels' device ms (profiler), the ms between CUDA events
-    around the calls (the wrapper's host work included) and the wrapper's
-    host ms a call."""
+    exits), on its route and on the template's, against the same systems
+    as one-system launches, one after the other: the kernels' device ms
+    (profiler), the ms between CUDA events around the calls (the wrapper's
+    host work included) and the wrapper's host ms a call."""
     lm_kw = dict(lm, q_tolerance=Q_TOL)
 
     def batched():
@@ -1882,9 +1910,13 @@ def time_batched_launches(label, meta, b, pre, lm, gpu):
                                           **dict(lm1, q_tolerance=Q_TOL))
 
     dev_batch = kernel_device_ms(batched, 5, 1)
+    with template_route():
+        dev_template = kernel_device_ms(batched, 5, 1)
     dev_singles = kernel_device_ms(one_by_one, 1, len(singles))
     line = {"timing": label, "gpu": gpu, "systems": len(singles),
-            "batched_launch_device_ms": dev_batch,
+            "form": form_of(meta, b, lm), "batched_launch_device_ms": dev_batch,
+            "template_form": form_of(meta, b, lm, template=True),
+            "template_batched_launch_device_ms": dev_template,
             "single_launches_device_ms": dev_singles,
             "single_launch_device_ms_each": dev_singles / len(singles),
             "batched_launch_event_ms": time_cuda(batched, 5),
@@ -1908,11 +1940,14 @@ def batch_form(form):
 
 
 def form_sweep(curve_lm, gpu):
-    """The two forms of a batch on the same systems, device ms a launch
+    """The forms of a batch on the same systems, device ms a launch
     (profiler): the 512 curve fits' LM step (BATCH_LI iterations, the real
     exits), and SWEEP_B laplacian systems of each SWEEP_SIDES side, 50 GN
-    iterations with no exit, on both sides of fused_cg.BATCH_BLOCK_ELEMS.
-    Both forms must run the same counts."""
+    iterations with no exit, on both sides of fused_cg.BATCH_BLOCK_ELEMS:
+    the "batch" form on the batch kernel (its lane cap,
+    fused_cg.BATCH_TEAM_LANE_ELEMS, lifted for the while; null where the
+    system's slice exceeds its shared memory) and on the template's block
+    a system, and the "multi" form. Every form must run the same counts."""
     meta, b, pre, lm, _v = curve_lm
     cases = [(f"curve_fitting x{BATCH_B} LM step", meta, b, pre,
               dict(lm, q_tolerance=Q_TOL), BATCH_LI, CG_TOL)]
@@ -1920,23 +1955,37 @@ def form_sweep(curve_lm, gpu):
         m, bb, pp, _lm, _v = batched_system(laplacian, _grid(side),
                                             laplacian_batch_inputs(side, SWEEP_B))
         cases.append((f"laplacian{side} x{SWEEP_B} GN", m, bb, pp, {}, 50, 0.0))
+    saved = fused_cg.BATCH_TEAM_LANE_ELEMS
     for label, m, bb, pp, kw, lits, tol in cases:
         line = {"timing": "batch_forms", "case": label, "gpu": gpu,
                 "elems_per_system": int(m["ctot"]) * int(np.prod(m["F"].shape[2:])),
                 "batch_block_elems": fused_cg.BATCH_BLOCK_ELEMS,
-                "chosen": fused_cg.batched_kernel_form(m)}
+                "team_lane_elems": saved, "chosen": fused_cg.batched_kernel_form(m),
+                "chosen_instance": form_of(m, bb, kw or None)}
         counts = {}
-        for form in ("batch", "multi"):
-            with batch_form(form):
-                call = functools.partial(fused_cg.fused_grid_cg_kernel, m, bb, pp, lits, tol, **kw)
-                counts[form] = call()[1].tolist()
-                line[f"{form}_device_ms"] = kernel_device_ms(call, 3, 1)
-        line["iters"] = sum(counts["batch"])
-        line["faster"] = min(("batch", "multi"), key=lambda f: line[f"{f}_device_ms"])
+        call = functools.partial(fused_cg.fused_grid_cg_kernel, m, bb, pp, lits, tol, **kw)
+        for name, form, route in (("team", "batch", contextlib.nullcontext),
+                                  ("template_batch", "batch", template_route),
+                                  ("multi", "multi", contextlib.nullcontext)):
+            with batch_form(form), route():
+                fused_cg.BATCH_TEAM_LANE_ELEMS = 2**62
+                try:
+                    inst = form_of(m, bb, kw or None)
+                    if name == "team" and not inst.endswith("_batch_tiled"):
+                        line["team_device_ms"] = None  # beyond its shared memory
+                        continue
+                    counts[name] = call()[1].tolist()
+                    line[f"{name}_instance"] = inst
+                    line[f"{name}_device_ms"] = kernel_device_ms(call, 3, 1)
+                finally:
+                    fused_cg.BATCH_TEAM_LANE_ELEMS = saved
+        line["iters"] = sum(counts["multi"])
+        line["faster"] = min((k for k in ("team", "template_batch", "multi")
+                              if line.get(f"{k}_device_ms") is not None),
+                             key=lambda k: line[f"{k}_device_ms"])
         log(json.dumps(line))
-        if counts["batch"] != counts["multi"]:
-            raise RuntimeError(f"{label}: the batch form ran {counts['batch']} iterations, "
-                               f"the multi form {counts['multi']}")
+        if any(c != counts["multi"] for c in counts.values()):
+            raise RuntimeError(f"{label}: the forms ran different iteration counts: {counts}")
 
 
 def dev_us(e):
@@ -2353,7 +2402,7 @@ def tile_checks(label, meta):
             raise RuntimeError(f"tile_apply {label} tile {tile}: not bitwise equal to the twin "
                                f"and the whole-grid apply (max |diff| {err})")
     log(json.dumps({"check": "tile_apply", "case": label, "tiles": len(tiles),
-                    "tile": [tiles[0][0][1] - tiles[0][0][0], tiles[0][1][1] - tiles[0][1][0]],
+                    "tile_shapes": [[r1 - r0, c1 - c0] for (r0, r1), (c0, c1) in tiles],
                     "halo": [ah, aw], "fields": int(meta["F"].shape[0]),
                     "triples": len(triples), "field_dtype": str(meta["F"].dtype),
                     "bitwise_equal": True, "max_abs_err": err}))
@@ -2971,9 +3020,14 @@ def main() -> int:
     del fsplit
 
     # K1 (h), the batch axis: 512 curve-fit systems (2 elements each) and 4
-    # laplacian 16x16 systems a block each, GN, LM, Chronopoulos-Gear and
+    # laplacian 16x16 systems side by side, GN, LM, Chronopoulos-Gear and
     # bfloat16, each system held to the twin and to its own one-system
-    # launch; and 4 poisson 512x512x4 systems with their own fields, in turn
+    # launch. GN and LM take the batch kernel (gn_batch_tiled,
+    # lm_batch_tiled: a team of 2 lanes a curve fit, 16 a warp; a warp a
+    # laplacian system), the template's gn_batch and lm_batch held to the
+    # same twin results; Chronopoulos-Gear and bfloat16 keep the template's
+    # block a system. And 4 poisson 512x512x4 systems with their own
+    # fields, in turn
     curve_truths, curve_in = batched_curve_inputs(BATCH_B, BATCH_N)
     cdims = {"N": BATCH_N, "U": 1}
     lap_in = laplacian_batch_inputs(LAP_BATCH_N, LAP_BATCH_B)
@@ -2988,9 +3042,14 @@ def main() -> int:
     for label, spec, dims, binp, exit_lits, forms in batch_cases:
         for flabel, kind, ip in forms:
             sysb = batched_system(spec, dims, binp, kind, **ip)
-            if not form_of(sysb[0], sysb[1], sysb[3], **sysb[4]).endswith("_batch"):
+            team = not ip  # the standard loop, Jacobi, float32: the batch kernel
+            if team:
+                batch_plan_line(f"{label} {flabel}", sysb)
+            elif not form_of(sysb[0], sysb[1], sysb[3], **sysb[4]).endswith("_batch"):
                 raise RuntimeError(f"{label} {flabel}: not the block-per-system form")
-            err = batch_checks(f"{label} {flabel}", sysb, 50, exit_lits)
+            want = fused_cg.instance_name(kind == "LMGPU", False, batch=True, tiled=True)
+            err = batch_checks(f"{label} {flabel}", sysb, 50, exit_lits, template=team,
+                               form=want if team else None)
             if spec is curve_fitting and flabel == "LM":
                 err_batch, curve_lm = err, sysb
     pbatch_in = batched_poisson_inputs(n, BATCH_POISSON_B)
@@ -3099,13 +3158,18 @@ def main() -> int:
         multi_sys.setdefault(form, (label, sysm, err))  # a form's first case is timed
     del rag_bin, r2w_bin
 
-    # K5, the sharded solve's per-tile apply, on the four tiles of a 2x2
-    # split: bitwise against its twin and the whole grid's apply
+    # K5, the sharded solve's per-tile apply (tile_apply_kernel: a thread a
+    # channel of a column over two rows, the triples a launch parameter),
+    # on the four tiles of a 2x2 split: bitwise
+    # against its twin and the whole grid's apply; image_warping 500x301
+    # splits into ragged tiles of 250x151 and 250x150
     err_k5 = tile_checks(f"poisson{n}x4", meta)
     tile_checks(f"image_warping{IW_N}x3", mmeta)
     tile_checks(f"radius2 {n}x{n}", r2[0])
     del r2
     tile_checks(f"poisson{n}x4 bfloat16", pbf[0])
+    tile_checks(f"image_warping {RAGGED_DIMS['W']}x{RAGGED_DIMS['H']}x3",
+                system(image_warping, RAGGED_DIMS, rag_in)[0])
 
     phases["kernel_checks"] = time.perf_counter() - t_start - sum(phases.values())
     # 3. the main paths through the public API, each with the launch counts
@@ -3250,6 +3314,7 @@ def main() -> int:
     phases["tiled_vs_template_kernel_turns"] = (time.perf_counter() - t_start
                                                 - sum(phases.values()))
     t_k5 = time_tile_apply(f"poisson{n}x4", meta, gpu)
+    time_tile_apply(f"image_warping{IW_N}x3", mmeta, gpu)
     tiled_floor(gpu)
     tiled_floor(gpu, cs=True)
     l2_F = graph["arap36k"][0][0]["F"]
@@ -3286,11 +3351,16 @@ def main() -> int:
         (d, c, c, fid) for (d, _i, _j, fid) in psplit[0]["triples"] for c in range(4)))
     time_pair(f"poisson{SPLIT_N}x4 joint", joint, *psplit[1:3], gpu, reps=2)
     del psplit, joint
-    # K1 (h): the LM batch of the curve fits over one step's lIterations,
+    # K1 (h): the LM batch of the curve fits over one step's lIterations on
+    # the batch kernel (lm_batch_tiled) and the template's lm_batch in turns,
     # the same launch against its 512 systems launched one by one (the
     # strided multi-system forms are timed above, on both routes)
-    t_batch = time_pair(f"curve_fitting x{BATCH_B} LM batch", *curve_lm[:3], gpu, curve_lm[3],
-                        lits=BATCH_LI, device=True)
+    t_batch_turns = {}
+    for template in (False, True, True, False):
+        t_batch_turns.setdefault(template, time_pair(
+            f"curve_fitting x{BATCH_B} LM batch", *curve_lm[:3], gpu, curve_lm[3],
+            lits=BATCH_LI, device=True, twin=not t_batch_turns, template=template))
+    t_batch = t_batch_turns[False]
     time_batched_launches(f"curve_fitting x{BATCH_B} LM step launch", *curve_lm[:4], gpu)
     form_sweep(curve_lm, gpu)
     # the batch forms with the remainder and the block preconditioner: ms
@@ -3509,8 +3579,10 @@ def main() -> int:
               "launch, lm_multi_tiled; ms of 100 iterations of each system", K1H,
               l_iw_batch["lm_multi_tiled"], multi_sys["lm_multi_tiled"][2],
               t_tiled["lm_multi_iw"], TILED_SOURCE, t_tpl["lm_multi_iw"]),
-        entry(f"fused_grid_cg LM, a batch axis: {BATCH_B} curve-fit systems side by side, a "
-              "block each (K1 (h))", K1H, l_batch["lm_batch"], err_batch, t_batch),
+        entry(f"tiled_batch_cg LM, a batch axis (K1 (h)): {BATCH_B} curve-fit systems side by "
+              "side, a team of two lanes of one warp each, the state in shared memory, "
+              "lm_batch_tiled; ms of a launch of 20 iterations", K1H, l_batch["lm_batch_tiled"],
+              err_batch, t_batch, TILED_BATCH_SOURCE, t_batch_turns[True]),
         entry(f"tiled_graph_cg GN with the graph remainder, a batch axis (K1 (h) x K4): "
               f"{alabel} (the armadillo posed to {len(ARM_BATCH_PULLS)} handle targets), the "
               "systems in turn in one launch, gn_rem_multi_tiled; ms of 100 iterations of each "
@@ -3522,9 +3594,10 @@ def main() -> int:
               "system", K1D, l_bj_batch["lm_bj_multi_tiled"], multi_sys["lm_bj_multi_tiled"][2],
               t_tiled["lm_bj_multi"], TILED_SOURCE, t_tpl["lm_bj_multi"]),
         entry(f"tile_apply, one rank's part of the sharded apply (K5), poisson {n}x{n}x4 on "
-              f"{MESH_SHAPE[0]}x{MESH_SHAPE[1]} ranks; launches summed over the four ranks, ms "
-              "of one apply of a 256x256 tile", K5, l_k5[SHARDED_CASES[0][0]], err_k5, t_k5,
-              source=K5_SOURCE),
+              f"{MESH_SHAPE[0]}x{MESH_SHAPE[1]} ranks, a thread a channel of a column over two "
+              "rows, the triples a launch parameter; launches summed over the four ranks, ms "
+              "of one apply of a 256x256 tile", K5,
+              l_k5[SHARDED_CASES[0][0]], err_k5, t_k5, source=K5_SOURCE),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,9 @@ or whose r and haloed p, fit one tile a block) and ``csrc/tiled_grid_cs.cu``
 (the CG loop of a graph, one vertex range a block: with the remainder, its
 fields staged, or without it, its fields read from device memory),
 ``csrc/tiled_vol_cg.cu`` (the GN loop of a 3-D grid, one box a block, its
-fields staged; the four include ``csrc/tiled_cg.cuh``)
+fields staged; the four include ``csrc/tiled_cg.cuh``),
+``csrc/tiled_batch_cg.cu`` (the CG loop of a batch of small systems, a
+team of lanes of one warp a system, its state in shared memory)
 and ``csrc/tile_apply.cu`` (the sharded solve's per-tile apply): each unit
 by its own ``nvcc`` process, all started together, then one link into one
 shared library with a plain C interface, bound with ``ctypes``. The library
@@ -38,7 +40,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 # the units nvcc compiles, each by its own process, and every source they read
 UNITS = ("fused_grid_cg_one.cu", "fused_grid_cg_multi.cu", "fused_grid_cg_batch.cu",
          "fused_grid_cg.cu", "tiled_grid_cg.cu", "tiled_grid_cs.cu", "tiled_graph_cg.cu",
-         "tiled_vol_cg.cu", "tile_apply.cu")
+         "tiled_vol_cg.cu", "tiled_batch_cg.cu", "tile_apply.cu")
 SOURCES = UNITS + ("fused_grid_cg.cuh", "tiled_cg.cuh", "tiled_grid.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "opt_tpu_torch"
 NVCC_FLAGS = (
@@ -126,6 +128,7 @@ _TILED_INSTANCE = re.compile(
 _TILED_CS_INSTANCE = re.compile(r"tiled_grid_cs_kernelILb([01])EE")
 _GRAPH_INSTANCE = re.compile(r"tiled_graph_cg_kernelILb([01])ELb([01])EE")
 _VOL_INSTANCE = re.compile(r"tiled_vol_cg_kernelILb([01])EE")
+_BATCH_INSTANCE = re.compile(r"tiled_batch_cg_kernelILb([01])EE")
 
 
 def instance_registers(log: str) -> dict:
@@ -144,7 +147,9 @@ def instance_registers(log: str) -> dict:
     and True, the stream ones under (lm, False, False, False, False, False,
     False, True, False, True); and the 3-D grid kernel's two
     (tiled_vol_cg_kernel<BLOCK>) under (False, False, False, block, False,
-    False, False, True, False, False, True)."""
+    False, False, True, False, False, True); and the batch kernel's two
+    (tiled_batch_cg_kernel<LM>) under (lm, False, False, False, False,
+    False, True, True)."""
     regs, current, spill = {}, None, (0, 0)
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -153,7 +158,10 @@ def instance_registers(log: str) -> dict:
             c = _TILED_CS_INSTANCE.search(line)
             g = _GRAPH_INSTANCE.search(line)
             v = _VOL_INSTANCE.search(line)
-            if v:
+            tb = _BATCH_INSTANCE.search(line)
+            if tb:
+                current = [(tb.group(1) == "1",) + (False,) * 5 + (True, True)]
+            elif v:
                 current = [(False,) * 3 + (v.group(1) == "1",) + (False,) * 3
                            + (True, False, False, True)]
             elif g and g.group(2) == "1":
@@ -259,8 +267,17 @@ def load_library(build: bool = True) -> ctypes.CDLL:
         i32, i32, vp,  # threads, smem_bytes, stream
     ]
     lib.tiled_vol_cg_launch.restype = i32
+    lib.tiled_batch_cg_launch.argtypes = [
+        i32,  # lm
+        vp, vp, vp, vp, vp, vp,  # F, b, pre, ctc, triples, starts
+        i32, i32, i32, i32, i32, i32,  # C, T, n_triples, N0, N1, N2
+        i32, i32, i32,  # n_sys, lanes (a system's team), per_block (systems a block)
+        i32, f32, i32, i32, f32,  # lits, tol, guard_div, reset_period, q_tol
+        vp, vp, vp,  # delta, iters, stream
+    ]
+    lib.tiled_batch_cg_launch.restype = i32
     lib.tile_apply_launch.argtypes = [
-        i32, vp, vp, vp, vp, vp,  # bf16, F, p_ext, out, triples, starts
+        i32, vp, vp, vp, vp, vp,  # bf16, F, p_ext, out, triples (host), starts (host)
         i32, i32, i32, i32, i32, i32,  # n_triples, C, th, tw, ah, aw
         vp,  # stream
     ]

@@ -103,7 +103,12 @@
 // curve fits (2 elements, 4 fields a system) move about 50 KB an iteration,
 // so launch latency and the barriers' latency bound the BATCH form, not
 // bytes; it runs the systems side by side so that each iteration of all of
-// them costs one block's barriers.
+// them costs one block's barriers. (Such a batch under the standard loop,
+// the Jacobi preconditioner and float32 fields, without the remainder, now
+// runs on tiled_batch_cg.cu instead, a team of lanes of one warp a system
+// with its state in shared memory: gn_batch_tiled, lm_batch_tiled. The BATCH
+// instances here keep the Chronopoulos-Gear, bfloat16, block-Jacobi and
+// remainder batches and systems beyond that kernel's shared memory.)
 //
 // What the design does about it:
 //   * One launch for the whole loop (no per-iteration launch or host round
@@ -708,7 +713,11 @@ __device__ __forceinline__ int cg_system(
 //   form for many small systems (the JAX package's _kernel under jax.vmap,
 //   Plan.solve_batched): a curve fit's system is 2 elements, where the
 //   cooperative forms would pay three grid barriers per iteration and
-//   system, one system after the other.
+//   system, one system after the other. fused_cg.route_plan sends the
+//   standard Jacobi float32 batches without the remainder whose systems fit
+//   its shared memory (the curve fits, laplacian 16x16 x4) to
+//   tiled_batch_cg.cu's gn_batch_tiled and lm_batch_tiled instead; the
+//   template's gn_batch and lm_batch stay checked beside them.
 // The ONE instances run one system with every offset a compile-time 0:
 // carrying the offsets as variables slowed them at their 32-register cap (a
 // probe on an H100; PERF.md), hence the separate forms.

@@ -56,7 +56,12 @@ shared and its blocks are per system (blk [B, nnz, C, C]), as are the
 block preconditioner's planes ([B, C·C, *dom]). A small system runs in the
 BATCH instances, one block a system, all side by side; a larger one in the
 MULTI instances with the fields' and the blocks' per-system strides, one
-system after the other (:func:`batched_kernel_form`).
+system after the other (:func:`batched_kernel_form`). Small systems under
+the standard GN or LM loop with the Jacobi preconditioner and float32
+fields, without the remainder, take the batch kernel instead
+(:func:`batch_team_plan`, ``csrc/tiled_batch_cg.cu``: ``gn_batch_tiled``,
+``lm_batch_tiled``), a team of lanes of one warp a system, each system's
+fields and state in its team's slice of shared memory for the whole loop.
 
 The tiled route: where one system's state fits the card's shared memory at
 one tile a block (:func:`tiled_grid_plan`: a 2-D grid, no remainder; the
@@ -148,6 +153,17 @@ STATE_PLANES_PER_CHANNEL = 7  # b, pre, delta, r, p, Ap and one more (ctc or z)
 # bench's curve fit (2 elements) and 4 x laplacian 16x16 (256) fall under
 # it, 4 x poisson 512x512x4 (1 M) over it.
 BATCH_BLOCK_ELEMS = 2048
+# the batch kernel (csrc/tiled_batch_cg.cu): a block is one warp, a system
+# a team of up to BATCH_TEAM_LANES of its lanes; its static shared memory
+# holds the triples' offsets (five ints a triple) and the channels' starts
+BATCH_TEAM_LANES = 32
+BATCH_TEAM_STATIC_SMEM = 4 * (5 * MAX_TRIPLES + MAX_CHANNELS + 1)
+# the most elements a lane of the batch kernel walks: the template's block
+# a system, whose 256 threads walk fewer, was faster from 1,024 elements a
+# system (32 a lane) and the team kernel up to 900 (29 a lane), 4 x
+# laplacian GN on the H100 (chip_smoke.py::form_sweep; PERF.md, Findings), so
+# systems of more than 31 elements a lane keep the template's "batch" form
+BATCH_TEAM_LANE_ELEMS = 31
 
 
 def coefficient_dtype(coeff_dtype) -> Optional[torch.dtype]:
@@ -780,6 +796,10 @@ TILED_INSTANCES += tuple((lm, False, False, False, False, False, False, True, Fa
 # preconditioner
 TILED_INSTANCES += tuple((False, False, False, block, False, False, False, True, False, False,
                           True) for block in (False, True))
+# the batch kernel's (csrc/tiled_batch_cg.cu): GN and LM over a batch of
+# small systems side by side, a team of lanes of one warp a system
+TILED_INSTANCES += tuple((lm, False, False, False, False, False, True, True)
+                         for lm in (False, True))
 
 
 def batched_kernel_form(meta, pre_blocks=None) -> str:
@@ -1345,6 +1365,58 @@ def graph_tile_plan(meta, C: int, N: int, *, lm: bool, cs: bool = False, block: 
         n = min(cap, max(n + 1, n * 5 // 4))
 
 
+def tiled_batch_smem_bytes(lm: bool, C: int, T: int, n_triples: int, plane: int) -> int:
+    """One system's slice of the batch kernel's shared memory, in bytes
+    (csrc/tiled_batch_cg.cu::tb_system_words): each element's stencil as
+    (field value, source place) pairs, plane · n_triples of them; its T
+    fields over the domain's ``plane`` points; a word an element for its
+    pairs' place; then b, pre, (ctc under LM), δ and p with a zero place
+    after each, r and Ap over its C·plane elements; an even count of
+    words."""
+    n = C * plane
+    return 4 * ((2 * plane * n_triples + T * plane + n + (7 if lm else 6) * n + 2 + 1) & ~1)
+
+
+def batch_team_plan(meta, C: int, dom, *, lm: bool, cs: bool = False, block: bool = False,
+                    smem_per_block: int) -> Optional[Dict]:
+    """Whether a launch on the batched ``meta`` (systems of C channels on
+    the domain ``dom``) takes the batch kernel (csrc/tiled_batch_cg.cu),
+    and how: None, or {layout: "batch", lanes, per_block, blocks, threads,
+    smem_bytes}. Taken for a batch in the form :func:`batched_kernel_form`
+    calls "batch" (which :func:`route_plan` tests), under the standard GN or LM loop
+    (not ``cs``) with the elementwise preconditioner (not ``block``),
+    float32 fields, no remainder (a graph's empty CSR is no remainder), up
+    to the kernel's channels and triples, when one system's slice
+    (:func:`tiled_batch_smem_bytes`: its stencil pairs, fields and vectors)
+    fits ``smem_per_block`` beside the static table, and when a lane walks
+    at most :data:`BATCH_TEAM_LANE_ELEMS` of its elements: the caps. A
+    system takes a team of ``lanes`` lanes, one element a lane up to a
+    warp (the smallest power of two at least its C·plane elements, at most
+    :data:`BATCH_TEAM_LANES`); a block, one warp, holds ``per_block`` =
+    32 / lanes systems, fewer where their slices do not fit."""
+    F = meta["F"]
+    if not meta.get("batch") or meta.get("rem") is not None or cs or block or (
+            F.dtype != torch.float32):
+        return None
+    triples = meta["triples"]
+    if not 0 < len(triples) <= MAX_TRIPLES or not 1 <= C <= MAX_CHANNELS:
+        return None
+    B, T = int(F.shape[0]), int(F.shape[1])
+    plane = int(np.prod([int(s) for s in dom]))
+    n = C * plane
+    if -(-n // BATCH_TEAM_LANES) > BATCH_TEAM_LANE_ELEMS:
+        return None
+    one = tiled_batch_smem_bytes(lm, C, T, len(triples), plane)
+    room = int(smem_per_block) - BATCH_TEAM_STATIC_SMEM
+    if one > room or plane * len(triples) >= 2**21:  # a pair's place: 21 bits
+        return None
+    lanes = min(BATCH_TEAM_LANES, 1 << max(0, n - 1).bit_length())
+    per_block = max(1, min(BATCH_TEAM_LANES // lanes, B, room // one))
+    return {"layout": "batch", "lanes": lanes, "per_block": per_block,
+            "blocks": -(-B // per_block), "threads": BATCH_TEAM_LANES,
+            "smem_bytes": per_block * one}
+
+
 _LIMITS = {}
 
 
@@ -1371,16 +1443,21 @@ def route_plan(meta, b, *, lm: bool, cs: bool = False, pre_blocks=None) -> Optio
     """:func:`tiled_grid_plan` for a launch on ``meta`` with the packed
     vector ``b`` (and the block preconditioner's planes ``pre_blocks``, or
     None), at the limits of ``b``'s device: the tiled kernel's plan, or
-    None where the launch takes the template. A batched meta takes the
-    tiled kernel only in the form :func:`batched_kernel_form` calls
-    "multi" (the systems in turn), planned at one system's C channels; the
-    "batch" form keeps the template. The per-channel split is planned at
-    one channel, its systems'. A graph meta, with the remainder or with
+    None where the launch takes the template. A batched meta in the form
+    :func:`batched_kernel_form` calls "batch" takes
+    :func:`batch_team_plan`'s plan (the batch kernel, layout "batch", a
+    team of lanes a system, grid or graph alike) or None; in the form it
+    calls "multi" (the systems in turn) the tiled kernels' plans at one
+    system's C channels. The per-channel split is planned at one channel,
+    its systems'. A graph meta, with the remainder or with
     its empty CSR (``meta["empty_csr"]``), takes :func:`graph_tile_plan`'s plan
     (the graph kernel) or None; a 3-D grid [N0, N1, N2] with N0 > 1
     :func:`tiled_vol_plan`'s (the 3-D grid kernel, layout "vol") or None."""
     block = pre_blocks is not None
     lead = 1 if meta.get("batch") else 0
+    if lead and batched_kernel_form(meta, pre_blocks) == "batch":
+        return batch_team_plan(meta, int(b.shape[1]), tuple(b.shape[2:]), lm=lm, cs=cs,
+                               block=block, smem_per_block=device_limits(b.device)[1])
     if meta.get("rem") is not None or meta.get("empty_csr") is not None:
         sms, smem = device_limits(b.device)
         return graph_tile_plan(meta, int(b.shape[lead]), int(b.shape[-1]), lm=lm, cs=cs,
@@ -1403,6 +1480,8 @@ def launch_instance(meta, b, *, lm: bool = False, cs: bool = False, pre_blocks=N
     block = pre_blocks is not None
     bf16 = meta["F"].dtype == torch.bfloat16
     plan = route_plan(meta, b, lm=lm, cs=cs, pre_blocks=pre_blocks)
+    if plan is not None and plan["layout"] == "batch":
+        return instance_name(lm, False, batch=True, tiled=True)
     if plan is not None:
         return instance_name(lm, meta.get("rem") is not None, cs, block, bf16,
                              multi=bool(meta.get("batch") or meta.get("chan_grid")),
@@ -1710,11 +1789,81 @@ def tiled_vol_cg_kernel(meta, b, pre, lits, tol, plan, *, guard_div=True, pre_bl
     return delta, iters
 
 
+def tiled_batch_cg_kernel(meta, b, pre, lits, tol, plan, *, guard_div=True, ctc=None,
+                          reset_period=None, q_tolerance=None):
+    """Launch the batch kernel (csrc/tiled_batch_cg.cu) on a batched meta
+    (``meta["batch"]`` = B, F [B, T, *dom] float32, no remainder) and
+    packed [B, C, *dom] float32 CUDA tensors b, pre (and ctc), as ``plan``
+    (:func:`batch_team_plan`) lays the systems out: the GN loop, or the LM
+    loop when ``ctc`` is given (with ``reset_period`` and
+    ``q_tolerance``), with the elementwise preconditioner, each system by
+    a team of lanes with its own exit and count. Returns (delta [B, C,
+    *dom], iters int32[B] on the device). Does not synchronise. The
+    operands are checked first; then a CPU tensor raises, and so does a
+    launch the card refuses: nothing falls back to the template or the
+    twin. Each launch adds one to ``fused_grid_cg_kernel.launches`` under
+    ``gn_batch_tiled`` or ``lm_batch_tiled``."""
+    from ._build import load_library
+
+    F = meta["F"]
+    device = b.device
+    lm = ctc is not None
+    B = int(meta.get("batch") or 0)
+    if not B or meta.get("rem") is not None:
+        raise ValueError("tiled_batch_cg_kernel takes a batched meta without the remainder")
+    if F.dtype != torch.float32:
+        raise ValueError(f"tiled_batch_cg_kernel takes float32 fields, got {F.dtype}")
+    C = int(b.shape[1])
+    dom = tuple(int(s) for s in b.shape[2:])
+    if len(dom) not in (2, 3):
+        raise ValueError(f"tiled_batch_cg_kernel takes a 2-D or 3-D domain, got {dom}")
+    N0, N1, N2 = (1,) * (3 - len(dom)) + dom
+    T = int(F.shape[1])
+    _check_operand("b", b, (B, C) + dom, torch.float32, device)
+    _check_operand("pre", pre, (B, C) + dom, torch.float32, device)
+    _check_operand("F", F, (B, T) + dom, torch.float32, device)
+    if lm:
+        _check_operand("ctc", ctc, (B, C) + dom, torch.float32, device)
+        if reset_period is None or q_tolerance is None or int(reset_period) < 1:
+            raise ValueError(
+                "tiled_batch_cg_kernel: the LM loop needs reset_period >= 1 and "
+                f"q_tolerance, got {reset_period} and {q_tolerance}"
+            )
+    triples = meta["triples"]
+    if (not 0 < len(triples) <= MAX_TRIPLES or not 1 <= C <= MAX_CHANNELS or any(
+            not (0 <= fid < T and 0 <= i < C and 0 <= j < C) for (_d, i, j, fid) in triples)):
+        raise ValueError("tiled_batch_cg_kernel: triples, channels or field ids out of range")
+    if b.numel() >= 2**31 or F.numel() >= 2**31:
+        raise ValueError("tiled_batch_cg_kernel indexes with int32: batch too large")
+    if device.type != "cuda":  # after the operand checks, which hold on any device
+        raise ValueError(f"tiled_batch_cg_kernel needs CUDA tensors, got {device}")
+    lib = load_library()
+    tr_rows, starts = _device_triples(triples, C, device)
+    delta = torch.empty_like(b)
+    iters = torch.empty(B, dtype=torch.int32, device=device)
+    ptr = lambda t: None if t is None else ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    with torch.cuda.device(device):
+        err = lib.tiled_batch_cg_launch(
+            int(lm), ptr(F), ptr(b), ptr(pre), ptr(ctc), ptr(tr_rows), ptr(starts), C, T,
+            len(triples), N0, N1, N2, B, int(plan["lanes"]), int(plan["per_block"]), int(lits),
+            ctypes.c_float(float(tol)), int(bool(guard_div)), int(reset_period) if lm else 0,
+            ctypes.c_float(float(q_tolerance) if lm else 0.0), ptr(delta), ptr(iters),
+            ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"tiled_batch_cg kernel launch failed: CUDA error {err} "
+                           f"({plan['blocks']} blocks of {plan['per_block']} systems, "
+                           f"{plan['lanes']} lanes a system, {plan['smem_bytes']} bytes of "
+                           "shared memory a block)")
+    fused_grid_cg_kernel.launches[instance_name(lm, False, batch=True, tiled=True)] += 1
+    return delta, iters
+
+
 def fused_grid_cg_kernel(meta, b, pre, lits, tol, *, guard_div=True, ctc=None,
                          reset_period=None, q_tolerance=None, cs=False, pre_blocks=None):
     """Launch the whole CG loop on CUDA tensors: the tiled kernel
     (:func:`tiled_grid_cg_kernel`, :func:`tiled_graph_cg_kernel` for a
-    graph meta, :func:`tiled_vol_cg_kernel` for a 3-D grid) where
+    graph meta, :func:`tiled_vol_cg_kernel` for a 3-D grid,
+    :func:`tiled_batch_cg_kernel` for a batch of small systems) where
     :func:`route_plan` gives a plan,
     else the template (:func:`template_grid_cg_kernel`, whose docstring
     gives the operands and forms). Both are bitwise equal to the twin, so
@@ -1729,6 +1878,10 @@ def fused_grid_cg_kernel(meta, b, pre, lits, tol, *, guard_div=True, ctc=None,
             q_tolerance=q_tolerance, cs=cs, pre_blocks=pre_blocks)
     if "partition" in plan:
         return tiled_graph_cg_kernel(meta, b, pre, lits, tol, plan, guard_div=guard_div,
+                                     ctc=ctc, reset_period=reset_period,
+                                     q_tolerance=q_tolerance)
+    if plan["layout"] == "batch":
+        return tiled_batch_cg_kernel(meta, b, pre, lits, tol, plan, guard_div=guard_div,
                                      ctc=ctc, reset_period=reset_period,
                                      q_tolerance=q_tolerance)
     if plan["layout"] == "vol":  # GN only: the planner refuses ctc and cs

@@ -14,6 +14,11 @@ single-device twin, so the exits and the counted iterations are those of
 the single-device loop up to the dots' summation order. Unlike the
 single-device kernel, the loop is on the host here: one apply launch an
 iteration, the vector updates in PyTorch.
+
+The apply's kernel gives a thread one channel of one column over two rows
+of the tile, summing each channel's triples in the table's order; the
+table (:func:`_launch_table`, host arrays) goes to the kernel as a launch
+parameter, so no block waits on a load of it before its own loads.
 """
 
 from __future__ import annotations
@@ -63,19 +68,19 @@ def tile_apply_reference(F, triples, p_ext, ah: int, aw: int):
 
 
 @functools.lru_cache(maxsize=32)
-def _device_table(triples, C: int, device):
+def _launch_table(triples, C: int):
     """The triples sorted stably by output channel as int32 rows (dx, dy, j,
-    fid), and the per-channel row starts [C + 1], on the device; cached by
-    value (the same every CG iteration)."""
+    fid), and the per-channel row starts [C + 1], as host arrays, which the
+    launch turns into the kernel's parameter; cached by value (the same
+    every CG iteration)."""
     rows = sorted(triples, key=lambda t: t[1])
     starts = [0] * (C + 1)
     for _d, i, _j, _f in rows:
         starts[i + 1] += 1
     for c in range(C):
         starts[c + 1] += starts[c]
-    flat = [(int(d[0]), int(d[1]), int(j), int(f)) for d, _i, j, f in rows]
-    return (torch.tensor(flat, dtype=torch.int32).reshape(-1, 4).to(device),
-            torch.tensor(starts, dtype=torch.int32).to(device))
+    flat = [v for d, _i, j, f in rows for v in (int(d[0]), int(d[1]), int(j), int(f))]
+    return (ctypes.c_int * len(flat))(*flat), (ctypes.c_int * len(starts))(*starts)
 
 
 def tile_apply_kernel(F, triples, p_ext, ah: int, aw: int):
@@ -113,13 +118,13 @@ def tile_apply_kernel(F, triples, p_ext, ah: int, aw: int):
     # the ranks of a world load the library their launcher built
     alone = not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1
     lib = load_library(build=alone)
-    table, starts = _device_table(tuple(triples), C, p_ext.device)
+    table, starts = _launch_table(tuple(triples), C)
     out = torch.empty((C, th, tw), dtype=torch.float32, device=p_ext.device)
     with torch.cuda.device(p_ext.device):
         err = lib.tile_apply_launch(
             int(F.dtype == torch.bfloat16), ctypes.c_void_p(F.data_ptr()),
             ctypes.c_void_p(p_ext.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            ctypes.c_void_p(table.data_ptr()), ctypes.c_void_p(starts.data_ptr()),
+            ctypes.cast(table, ctypes.c_void_p), ctypes.cast(starts, ctypes.c_void_p),
             len(triples), C, th, tw, int(ah), int(aw),
             ctypes.c_void_p(torch.cuda.current_stream(p_ext.device).cuda_stream),
         )

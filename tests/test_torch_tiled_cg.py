@@ -349,10 +349,13 @@ def test_plan_refuses_other_forms(case, block):
     tests/test_torch_tiled_cs.py) and refused with the block one, and the two
     together are refused with either. The per-channel split is taken with the
     elementwise preconditioner, planned at one channel, and refused with the
-    block one (tests/test_torch_tiled_multi.py). A batch is taken in the
-    multi form only (route_plan), with either preconditioner: a batch of
-    small systems, which batched_kernel_form sends to the block-per-system
-    form, is refused with either."""
+    block one (tests/test_torch_tiled_multi.py). A batch is taken by the
+    tiled grid kernel in the multi form only (route_plan), with either
+    preconditioner: a batch of small systems, which batched_kernel_form
+    sends to the block-per-system form, goes to the batch kernel with the
+    elementwise preconditioner (gn_batch_tiled,
+    tests/test_torch_tiled_batch.py) and keeps the template's gn_bj_batch
+    with the block one."""
     dom = (64, 64)
     meta = _synthetic_meta(dom, _five_point(2))
     kw = dict(lm=False, block=block, sm_count=SMS, smem_per_block=SMEM)
@@ -376,9 +379,10 @@ def test_plan_refuses_other_forms(case, block):
         b = torch.zeros((4, C) + dom)
         pb = torch.zeros((4, C * C) + dom) if block else None
         assert fused_cg.batched_kernel_form(meta, pb) == "batch"
-        assert fused_cg.route_plan(meta, b, lm=False, pre_blocks=pb) is None
+        plan = fused_cg.route_plan(meta, b, lm=False, pre_blocks=pb)
+        assert (plan is None) if block else (plan["layout"] == "batch")
         assert fused_cg.launch_instance(meta, b, pre_blocks=pb) == (
-            "gn_bj_batch" if block else "gn_batch")
+            "gn_bj_batch" if block else "gn_batch_tiled")
         # larger systems, the multi form, take the tiled kernel
         big = dict(meta, F=torch.zeros((4, 5, 64, 64)))
         bb = torch.zeros((4, C, 64, 64))
@@ -581,11 +585,11 @@ def test_instance_names_and_launch_counts():
                      "gn_rem_multi_tiled", "lm_rem_multi_tiled", "gn_cs_tiled", "lm_cs_tiled",
                      "gn_bf16_tiled", "lm_bf16_tiled", "gn_multi_tiled", "lm_multi_tiled",
                      "gn_hbm_tiled", "lm_hbm_tiled", "gn_dia_tiled", "lm_dia_tiled",
-                     "gn_vol_tiled", "gn_bj_vol_tiled"]
+                     "gn_vol_tiled", "gn_bj_vol_tiled", "gn_batch_tiled", "lm_batch_tiled"]
     fused_cg.reset_launch_counts()
     assert set(names) | {"gn", "lm", "gn_bj", "lm_bj_multi"} <= set(
         fused_cg.fused_grid_cg_kernel.launches)
-    assert len(fused_cg.fused_grid_cg_kernel.launches) == 96 + 22
+    assert len(fused_cg.fused_grid_cg_kernel.launches) == 96 + 24
 
 
 def test_build_compiles_the_tiled_unit_and_reads_its_registers():

@@ -307,7 +307,10 @@ def test_route_keeps_cs_and_bf16_systems_in_turn_on_the_template(form, lm):
 
 def test_route_keeps_the_split_under_block_jacobi_and_the_batch_form_on_the_template():
     """The split with the block preconditioner (which the template refuses
-    too) and a batch of small systems (one block a system) are not taken."""
+    too) is not taken, and a batch of small systems is not taken by the
+    tiled grid kernel: it goes to the batch kernel (gn_batch_tiled, a team
+    of lanes a system, tests/test_torch_tiled_batch.py), and under
+    Chronopoulos–Gear to the template's one block a system."""
     meta, _b = _split_meta(64)
     assert fused_cg.tiled_grid_plan(meta, 1, (64, 64), lm=False, block=True, sm_count=SMS,
                                     smem_per_block=SMEM) is None
@@ -315,8 +318,10 @@ def test_route_keeps_the_split_under_block_jacobi_and_the_batch_form_on_the_temp
     small["F"] = torch.zeros((4, 2, 16, 16))
     b = torch.zeros((4, 1, 16, 16))
     assert fused_cg.batched_kernel_form(small) == "batch"
-    assert fused_cg.route_plan(small, b, lm=False) is None
-    assert fused_cg.launch_instance(small, b) == "gn_batch"
+    assert fused_cg.route_plan(small, b, lm=False)["layout"] == "batch"
+    assert fused_cg.launch_instance(small, b) == "gn_batch_tiled"
+    assert fused_cg.route_plan(small, b, lm=False, cs=True) is None
+    assert fused_cg.launch_instance(small, b, cs=True) == "gn_cs_batch"
 
 
 @pytest.mark.parametrize("form", ["split", "batch"])
