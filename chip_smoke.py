@@ -143,6 +143,23 @@ the template, by name; its time a CG iteration is read against the
 template's in the same call, its bound with the fields read once a launch
 and its boxes' shells every iteration, and the floor its two barriers set
 at the same block count (tiled_floor_vol).
+The rest of the graph domain: bench.py's three other graph benchmarks at
+their size and depth (100 x 100 grid meshes, 10,000 vertices):
+cotangent_mesh_smoothing by LM 8x40 on the graph kernel at an odd channel
+count with the remainder (C = 3, lm_rem_tiled), embedded_mesh_deformation
+by LM 8x40 (C = 12, lm_rem_tiled) and robust_nonrigid_alignment by GN 8x50
+in the stream layout at C = 7 (gn_dia_tiled), its graph group covering 6
+of its 7 channels; their GN and LM systems held bitwise to the twin and
+the template, cotangent on a 12 x 12 mesh x3 in the multi form, each main
+path once a step of its instance, held cost for cost to the plain version
+and the template route and to the JAX package's costs as
+JAX_CPU_SPEC_COSTS says (two of the three do not settle), and their medium
+goldens; and arap on the 192 x 192 grid mesh through one
+dynamic_topology=True plan on three topologies of one edge bucket (all
+edges, 5% and 10% of the pairs dropped), gn_rem_tiled once a step, each
+solve's first two steps held to the exact-topology plan's and the whole
+solve to the plain version, with the host ms of each new topology's
+tables and partition.
 It exits non-zero, with no result line, when CUDA is not available or any
 check fails. It imports neither JAX nor opt_tpu.
 """
@@ -167,14 +184,19 @@ import torch
 
 import opt_tpu_torch as ot
 from opt_tpu_torch.functions import FunctionSet
+from opt_tpu_torch import problem as problem_mod
+from opt_tpu_torch.compile import compile_spec
 from opt_tpu_torch.models.specs import (
     arap_mesh_deformation,
+    cotangent_mesh_smoothing,
     curve_fitting,
+    embedded_mesh_deformation,
     image_warping,
     intrinsic_image_decomposition,
     laplacian,
     optical_flow,
     poisson_image_editing,
+    robust_nonrigid_alignment,
     shape_from_shading,
     volumetric_mesh_deformation,
 )
@@ -361,14 +383,24 @@ MEDIUM_GOLDENS = {
     "optical_flow": (optical_flow, "gaussNewtonGPU", 4, 40, 7330.97265625),
     "intrinsic_image_decomposition": (intrinsic_image_decomposition, "gaussNewtonGPU", 6, 30,
                                       845.5782470703125),
+    "cotangent_mesh_smoothing": (cotangent_mesh_smoothing, "LMGPU", 8, 40, 3.7031397819519043),
+    "embedded_mesh_deformation": (embedded_mesh_deformation, "LMGPU", 10, 40,
+                                  47.63282775878906),
+    "robust_nonrigid_alignment": (robust_nonrigid_alignment, "LMGPU", 8, 40,
+                                  33.04822540283203),
 }
 # the instance each medium golden's solve launches once a step: the tiled
-# grid kernel's, the 3-D grid kernel's (6^3: one box of the whole grid) or,
-# for curve_fitting's one vertex, the graph kernel's stream layout
+# grid kernel's, the 3-D grid kernel's (6^3: one box of the whole grid),
+# for curve_fitting's one vertex the graph kernel's stream layout, and for
+# the three 200-vertex ring meshes (a remainder where the ring closes, or
+# the four-slot edges' reads) its resident layout
 GOLDEN_FORMS = {"laplacian": "gn_tiled", "poisson_image_editing": "gn_tiled",
                 "image_warping": "lm_tiled", "curve_fitting": "lm_dia_tiled",
                 "volumetric_mesh_deformation": "gn_vol_tiled", "optical_flow": "gn_tiled",
-                "intrinsic_image_decomposition": "gn_tiled"}
+                "intrinsic_image_decomposition": "gn_tiled",
+                "cotangent_mesh_smoothing": "lm_rem_tiled",
+                "embedded_mesh_deformation": "lm_rem_tiled",
+                "robust_nonrigid_alignment": "lm_rem_tiled"}
 # arap_mesh_deformation's medium golden is left out: its GN 10x60 solve does
 # not settle and ends where float32 rounding takes it (tests/test_torch_graph.py
 # holds it step by step from the JAX package's states)
@@ -508,6 +540,57 @@ JAX_CPU_ARAP36K_F64_COSTS = [
     62966.05437434709, 61263.52447705914, 66067.29685116408, 63485.283247330124,
 ]
 F64_STEPS, F64_RTOL = 4, 1e-6
+# The three other graph specs at bench.py's configurations (GRAPH_SPECS,
+# below the inputs: 100 x 100 grid meshes, 10,000 vertices).
+SPEC_SIDE = 100
+# Their solves through the JAX package on the CPU, float32 and float64:
+# each step's cost and the CG iterations, the "solve" lines of package jax
+# that `JAX_PLATFORMS=cpu python3 scripts/graph_spec_numerics.py --solves`
+# prints (with the port's on the CPU, and the numerics quoted below)
+# robust_nonrigid settles: its final cost is held to the JAX package's at
+# GOLDEN_RTOL and its first two steps at FIRST_STEPS_RTOL (this port on the
+# CPU ends equal to the last digit). The other two do not (ROADMAP.md
+# queue 3): embedded's LM accepts or rejects its later steps on float32
+# rounding (the JAX package ends at 180134.0, this port on the CPU at
+# 184331.6, both packages at 225193 in float64), so its first step is held
+# at FIRST_STEPS_RTOL and its float64 solve's first step at F64_RTOL (the
+# second parts by 1.0e-6); cotangent's float32 cost is rounding at its
+# near-collinear vertex triples (118 discriminants below 1e-6 in float64,
+# quantised to 6e-8 in float32: the initial cost is 44838.8 in float64 in
+# both packages, 36495.4 in float32 in this port, 3218908.75 in the JAX
+# package, whose LM then rejects every step), so only its float64 solve's
+# first three steps are held, at F64_RTOL (the fourth parts by 16%). Each
+# solve through the kernel is held cost for cost to the same solve
+# through the plain version on the card and on the template route.
+JAX_CPU_SPEC_COSTS = {
+    "cotangent10k": {
+        "costs": [3218908.75] * 8, "lin_iters": 320, "first_steps": 0, "settles": False,
+        "f64_costs": [24626.88629884662, 14976.64299720012, 14696.639045336718,
+                      11605.51532895253, 7830.432063066777, 7159.813700278307,
+                      5975.463691507984, 5937.962769094745], "f64_steps": 3},
+    "embedded10k": {
+        "costs": [909260.9375, 304429.46875, 304429.46875, 304429.46875, 304429.46875,
+                  304429.46875, 180134.015625, 180134.015625], "lin_iters": 237,
+        "first_steps": 1, "settles": False,
+        "f64_costs": [909260.143168007, 312321.24066344334, 312321.24066344334,
+                      312321.24066344334, 312321.24066344334, 312321.24066344334,
+                      225192.8130665088, 225192.8130665088], "f64_steps": 1},
+    "robust10k": {
+        "costs": [8.315200805664062, 5.352590560913086, 5.346518516540527, 5.3464837074279785,
+                  5.346484661102295, 5.3464837074279785, 5.3464837074279785,
+                  5.3464837074279785], "lin_iters": 400, "first_steps": 2, "settles": True,
+        "f64_costs": [8.315192013056613, 5.352588633489998, 5.346518243518178,
+                      5.346483672505494, 5.346483240158158, 5.346483230385493,
+                      5.346483230072323, 5.34648323005976], "f64_steps": 0},
+}
+# the odd-C graph kernel in the multi form: cotangent on a 12 x 12 grid mesh
+# (bench_cotangent's construction, DIA and remainder), 3 instances
+ODD_MULTI_SIDE, ODD_MULTI_B = 12, 3
+# dynamic_topology: arap36k (146,688 directed edges, the edge bucket of
+# 262,144) through one plan on three topologies: all edges, then these
+# shares of its edge pairs dropped (seeded; 10% leaves 132,020 edges, still
+# above the bucket below, 131,072). GN at GRAPH_NL x GRAPH_LI.
+DYN_DROPS = (0.0, 0.05, 0.10)
 # The sharded solves: four ranks, a 2x2 mesh, on the one card under gloo
 # (NCCL refuses two ranks on one device). Each case: label, spec, kind,
 # grid side, nonlinear x CG iterations, InitializationParameters. The
@@ -526,6 +609,13 @@ SHARDED_CASES = [
 SHARDED_ITER_RTOL = 0.01  # a sharded solve's CG count against the single-device one
 SHARDED_TIMEOUT_S = 600  # the ranks' whole run
 OUT_DIR = os.path.join("build", "profiles")  # git-ignored
+# The route profiles (template and tiled) of image_warping 512^2 (GN, LM,
+# LM block-Jacobi, x4 block-Jacobi batched) and volumetric 32^3 run this
+# fraction of their solves' nonlinear steps (8 -> 4), not the whole solve:
+# about 66,000 fewer device launches to profile, some 70 s of the script,
+# made room for the graph specs and dynamic topology paths. Their main
+# paths and solve times still run at full depth.
+PROFILE_NL_CUT = 2
 
 
 def log(msg):
@@ -630,10 +720,11 @@ def bench_image_warping_inputs(n, m=None):
 
 def medium_inputs():
     """tests/test_specs.py::_cases draw order at N_GRID=32, N_VERT=200, for
-    the specs in MEDIUM_GOLDENS: name -> (dims, inputs)."""
+    the specs in MEDIUM_GOLDENS and the three graph specs held beside them:
+    name -> (dims, inputs)."""
     rng = np.random.RandomState(0)
     n, N, f32 = 32, 200, np.float32
-    rng.rand(N, 3)  # pos3
+    pos3 = rng.rand(N, 3).astype(f32)
     lap = {"X": rng.rand(n, n).astype(f32), "A": rng.rand(n, n).astype(f32)}
     v0 = np.arange(N, dtype=np.int32)
     cf = {
@@ -672,12 +763,25 @@ def medium_inputs():
         "edgeMaskC": np.ones((n, n), f32), "w_p": 1.0, "w_s": 1.0, "w_g": 1.0, "f_x": 10.0,
         "f_y": 10.0, "u_x": n / 2, "u_y": n / 2, **{f"L_{i}": 0.1 for i in range(1, 10)},
     }
-    grid = {"W": n, "H": n}
+    con3 = -np.ones((N, 3), f32)
+    con3[0] = [0.5, 0.5, 0.5]
+    ring = {"v0": v0, "v1": (v0 + 1) % N}
+    cot = {"X": pos3.copy(), "A": pos3,
+           "G": dict(ring, v2=(v0 + 2) % N, v3=(v0 + 3) % N), "w_fit": 1.0, "w_reg": 0.5}
+    emb = {"Offset": pos3.copy(), "RotMatrix": np.tile(np.eye(3, dtype=f32).ravel(), (N, 1)),
+           "UrShape": pos3, "Constraints": con3, "G": ring, "w_fitSqrt": 3.0,
+           "w_regSqrt": 1.0, "w_rotSqrt": 1.0}
+    rob = {"Offset": pos3.copy(), "Angle": np.zeros((N, 3), f32),
+           "RobustWeights": np.ones((N,), f32), "UrShape": pos3, "Constraints": con3,
+           "ConstraintNormals": np.tile(np.array([0, 0, 1], f32), (N, 1)), "G": ring,
+           "w_fitSqrt": 3.0, "w_regSqrt": 1.0}
+    grid, mesh = {"W": n, "H": n}, {"N": N}
     return {"laplacian": (grid, lap), "poisson_image_editing": (grid, poi),
             "image_warping": (grid, iw), "curve_fitting": ({"N": N, "U": 1}, cf),
             "volumetric_mesh_deformation": ({"W": 6, "H": 6, "D": 6}, vol),
             "optical_flow": (grid, flow), "intrinsic_image_decomposition": (grid, intr),
-            "shape_from_shading": (grid, sfs)}
+            "shape_from_shading": (grid, sfs), "cotangent_mesh_smoothing": (mesh, cot),
+            "embedded_mesh_deformation": (mesh, emb), "robust_nonrigid_alignment": (mesh, rob)}
 
 
 def sfs_inputs(n):
@@ -889,6 +993,102 @@ def dense_grid_mesh_inputs(n_side):
               "v1": np.concatenate([v1, v0]).astype(np.int32)},
         "w_fitSqrt": np.float32(1.0), "w_regSqrt": np.float32(np.sqrt(0.5)),
     }
+
+
+def grid_mesh(n_side):
+    """bench.py::_grid_mesh: an n_side^2-vertex grid mesh numbered
+    row-major, both edge directions: (N, v0, v1, vertex ids [n, n])."""
+    N = n_side * n_side
+    vid = np.arange(N).reshape(n_side, n_side)
+    v0 = np.concatenate([vid[:-1].ravel(), vid[:, :-1].ravel()])
+    v1 = np.concatenate([vid[1:].ravel(), vid[:, 1:].ravel()])
+    return (N, np.concatenate([v0, v1]).astype(np.int32),
+            np.concatenate([v1, v0]).astype(np.int32), vid)
+
+
+def cotangent_inputs(n_side):
+    """bench.py::bench_cotangent's inputs: a rippled grid mesh with seeded
+    noise, each edge's opposite vertices its neighbours in the edge list
+    (np.roll), w_fit 1, w_reg 0.5."""
+    N, v0, v1, _vid = grid_mesh(n_side)
+    rng = np.random.RandomState(0)
+    ii, jj = np.meshgrid(np.arange(n_side), np.arange(n_side), indexing="ij")
+    pos = np.stack([ii.ravel(), jj.ravel(), np.sin(ii.ravel() * 0.2) * 2.0],
+                   -1).astype(np.float32)
+    pos += rng.randn(N, 3).astype(np.float32) * 0.05
+    return {"N": N}, {"X": pos.copy(), "A": pos,
+                      "G": {"v0": v0, "v1": v1, "v2": np.roll(v0, 1), "v3": np.roll(v1, 1)},
+                      "w_fit": 1.0, "w_reg": 0.5}
+
+
+def embedded_inputs(n_side):
+    """bench.py::bench_embedded's inputs: a flat grid mesh, one corner pinned
+    and the other pulled by (6, 0, 3), identity rotations, w_fitSqrt 2,
+    w_regSqrt and w_rotSqrt 1."""
+    N, v0, v1, vid = grid_mesh(n_side)
+    f32 = np.float32
+    ii, jj = np.meshgrid(np.arange(n_side), np.arange(n_side), indexing="ij")
+    pos = np.stack([ii.ravel(), jj.ravel(), np.zeros(N)], -1).astype(f32)
+    con = -np.ones((N, 3), f32)
+    con[vid[0, 0]] = pos[vid[0, 0]]
+    con[vid[-1, -1]] = pos[vid[-1, -1]] + np.array([6.0, 0, 3.0], f32)
+    return {"N": N}, {
+        "Offset": pos.copy(), "RotMatrix": np.tile(np.eye(3, dtype=f32).ravel(), (N, 1)),
+        "UrShape": pos, "Constraints": con, "G": {"v0": v0, "v1": v1},
+        "w_fitSqrt": np.sqrt(4.0).astype(f32), "w_regSqrt": np.sqrt(1.0).astype(f32),
+        "w_rotSqrt": np.sqrt(1.0).astype(f32)}
+
+
+def robust_inputs(n_side):
+    """bench.py::bench_robust_nonrigid's inputs: a rippled grid mesh warped
+    towards its targets, 30% of them unconstrained, seeded unit normals,
+    w_fitSqrt sqrt(10), w_regSqrt 2."""
+    N, v0, v1, _vid = grid_mesh(n_side)
+    f32 = np.float32
+    rng = np.random.RandomState(0)
+    ii, jj = np.meshgrid(np.arange(n_side), np.arange(n_side), indexing="ij")
+    pos = np.stack([ii.ravel(), jj.ravel(), np.sin(ii.ravel() * 0.1)], -1).astype(f32)
+    warp = np.stack([0.4 * np.sin(jj.ravel() * 0.05), 0.2 * np.cos(ii.ravel() * 0.07),
+                     0.1 * np.ones(N)], -1).astype(f32)
+    targets = pos + warp
+    targets[rng.rand(N) > 0.7] = -1e6  # unconstrained vertices
+    normals = rng.randn(N, 3).astype(f32)
+    normals /= np.linalg.norm(normals, axis=-1, keepdims=True)
+    return {"N": N}, {
+        "Offset": pos.copy(), "Angle": np.zeros((N, 3), f32),
+        "RobustWeights": np.ones((N,), f32), "UrShape": pos, "Constraints": targets,
+        "ConstraintNormals": normals, "G": {"v0": v0, "v1": v1},
+        "w_fitSqrt": np.sqrt(10.0).astype(f32), "w_regSqrt": np.sqrt(4.0).astype(f32)}
+
+
+# bench.py's three other graph benchmarks (bench_cotangent, bench_embedded,
+# bench_robust_nonrigid): spec, solver, inputs, nIterations, lIterations,
+# the graph kernel's instance their steps launch and its layout (cotangent
+# C = 3 and embedded C = 12 with the remainder, the fields staged;
+# robust_nonrigid C = 7, its graph group covering 6 of them, DIA only, the
+# fields streamed)
+GRAPH_SPECS = {
+    "cotangent10k": (cotangent_mesh_smoothing, "LMGPU", cotangent_inputs, 8, 40, "lm_rem_tiled",
+                     "resident"),
+    "embedded10k": (embedded_mesh_deformation, "LMGPU", embedded_inputs, 8, 40, "lm_rem_tiled",
+                    "resident"),
+    "robust10k": (robust_nonrigid_alignment, "gaussNewtonGPU", robust_inputs, 8, 50,
+                  "gn_dia_tiled", "stream"),
+}
+
+
+def dynamic_topologies(inputs, drops=DYN_DROPS, seed=0):
+    """The inputs of a mesh given as both directions of each edge (v0, v1
+    then v1, v0: arap_grid_inputs) with each share in `drops` of its edge
+    pairs dropped, the pairs chosen by a seeded permutation."""
+    g = inputs["G"]
+    P = g["v0"].shape[0] // 2
+    out = []
+    for k, drop in enumerate(drops):
+        keep = np.sort(np.random.RandomState(seed + k).permutation(P)[int(round(drop * P)):])
+        keep = np.concatenate([keep, keep + P])
+        out.append(dict(inputs, G={"v0": g["v0"][keep], "v1": g["v1"][keep]}))
+    return out
 
 
 def instance_inputs(inputs, batched, k):
@@ -1412,6 +1612,164 @@ def first_steps_main_path(label, spec, dims, inputs, nl, li, ref, n_first, shape
         raise RuntimeError(f"{label}: kernel solve {res.costs} vs plain version "
                            f"{twin.costs} ({twin_launches} kernel launches in the latter)")
     return res, launches
+
+
+def spec_shapes(spec, dims):
+    """The shape of each unknown of ``spec`` at ``dims``, as a solve returns it."""
+    c = compile_spec(spec, dims, torch.float32)
+    return {u: tuple(c.unknown_shape(u)) for u in c.unknown_names}
+
+
+def spec_kernel_checks(label, dims, inputs):
+    """A GRAPH_SPECS spec's first GN and first LM systems on the graph
+    kernel (their plans printed, in the spec's layout), each held bitwise
+    to the twin with the template's instance held to the same twin results:
+    50 iterations with no exit, the real exits within the main path's
+    lIterations, a repeat. Returns (GN system, LM system, {"GN", "LM":
+    max|Δδ| of the no-exit check})."""
+    spec, _kind, _inputs, _nl, li, _form, layout = GRAPH_SPECS[label]
+    gm = system(spec, dims, inputs)
+    glm = system(spec, dims, inputs, "LMGPU")
+    meta, rem = gm[0], gm[0]["rem"]
+    log(json.dumps({"graph_system": label, "vertices": dims["N"], "channels": meta["ctot"],
+                    "fields": int(meta["F"].shape[0]), "triples": len(meta["triples"]),
+                    "offsets": sorted({d[1] for (d, _i, _j, _f) in meta["triples"]}),
+                    "remainder_entries": None if rem is None else int(rem["col"].shape[0])}))
+    errs = {}
+    for klabel, s_ in (("GN", gm), ("LM", glm)):
+        if graph_plan_line(f"{label} {klabel}", *s_[:2], s_[3])["layout"] != layout:
+            raise RuntimeError(f"{label} {klabel}: not in the graph kernel's {layout} layout")
+        errs[klabel] = variant_checks(f"{label} {klabel}", s_, 50, li, bitwise=True,
+                                      template=True)
+    return gm, glm, errs
+
+
+def odd_multi_checks():
+    """The graph kernel's multi form at an odd channel count: ODD_MULTI_B
+    deformations of cotangent on a ODD_MULTI_SIDE^2 grid mesh (each its own
+    X, so its own blocks) in turn in one launch, GN and LM, held bitwise to
+    the twin and the template, each system to its own one-system launch."""
+    dims, base = cotangent_inputs(ODD_MULTI_SIDE)
+    rng = np.random.RandomState(1)
+    X = np.stack([base["X"] + 0.05 * k * rng.randn(*base["X"].shape).astype(np.float32)
+                  for k in range(ODD_MULTI_B)])
+    inputs = dict(base, X=X)
+    for kind, klabel in (("gaussNewtonGPU", "GN"), ("LMGPU", "LM")):
+        with batch_form("multi"):
+            sysb = batched_system(cotangent_mesh_smoothing, dims, inputs, kind)
+            label = f"cotangent grid {ODD_MULTI_SIDE}x{ODD_MULTI_SIDE} x{ODD_MULTI_B} {klabel}"
+            graph_plan_line(label, *sysb[:2], sysb[3])
+            batch_checks(label, sysb, 30, 60, form=f"{klabel.lower()}_rem_multi_tiled",
+                         template=True)
+
+
+def spec_main_path(label, dims, inputs):
+    """A GRAPH_SPECS solve through the public API at bench.py's size and
+    depth, one launch of its instance a step, held as the
+    JAX_CPU_SPEC_COSTS comment says: its first steps to the JAX package's
+    float32 costs, the whole solve cost for cost to the plain version on the
+    card and, cost for cost and count for count, to the template route; a
+    solve that settles by its final cost; the float64 solve's first steps
+    to the JAX package's float64 costs. Returns (result, launches)."""
+    spec, kind, _inputs, nl, li, form, _layout = GRAPH_SPECS[label]
+    ref = JAX_CPU_SPEC_COSTS[label]
+    klabel = f"{label} {'LM' if kind == 'LMGPU' else 'GN'} {nl}x{li}"
+    res, launches = first_steps_main_path(klabel, spec, dims, inputs, nl, li, ref,
+                                          ref["first_steps"], spec_shapes(spec, dims), form=form,
+                                          kind=kind)
+    route_equal(klabel, res, launches, lambda: ot.Problem(spec, kind=kind).plan(
+        dims=dims).solve(dict(inputs), nIterations=nl, lIterations=li), form)
+    want = ref["costs"][-1]
+    rel = abs(res.final_cost - want) / abs(want)
+    log(json.dumps({"check": "spec_final_cost", "case": klabel, "final_cost": res.final_cost,
+                    "jax_cpu_cost": want, "rel_diff": rel, "settles": ref["settles"],
+                    "jax_cpu_f64_final_cost": ref["f64_costs"][-1]}))
+    if ref["settles"] and rel > GOLDEN_RTOL:
+        raise RuntimeError(f"{klabel}: final cost {res.final_cost} vs JAX {want}")
+    n = ref["f64_steps"]
+    if n:
+        float64_witness(klabel, spec, kind, dims, inputs, n, li, ref["f64_costs"][:n], n)
+    return res, launches
+
+
+@contextlib.contextmanager
+def host_ms_of(module, name, into):
+    """Add the host ms of every call of ``module.name`` to ``into`` (a
+    list) for the while."""
+    saved = getattr(module, name)
+
+    @functools.wraps(saved)
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return saved(*a, **k)
+        finally:
+            into.append((time.perf_counter() - t0) * 1e3)
+
+    setattr(module, name, timed)
+    try:
+        yield into
+    finally:
+        setattr(module, name, saved)
+
+
+def dynamic_main_path(dims, topologies):
+    """arap36k's topologies (dynamic_topologies) through one
+    dynamic_topology=True plan, GN GRAPH_NL x GRAPH_LI each: one
+    gn_rem_tiled launch a step (the padded graph has no DIA split), no
+    fallback; the first two steps' costs within FIRST_STEPS_RTOL of the
+    exact-topology plan's (the DIA form, another summation order), the
+    whole solve cost for cost to the same dynamic plan through the plain
+    version on the card. Prints the host ms a new topology's tables
+    (graph_group_tables) and the graph route's partition (graph_partition)
+    took within the solve. Returns ({topology: launches}, the first system
+    of the last topology as the kernel takes it)."""
+    N = dims["N"]
+    plan = ot.Problem(arap_mesh_deformation).plan(dims=dims, dynamic_topology=True)
+    twin_plan = ot.Problem(arap_mesh_deformation).plan(
+        dims=dims, dynamic_topology=True,
+        init_params=ot.InitializationParameters(use_pallas_cg="interpret"))
+    out = {}
+    for k, inputs in enumerate(topologies):
+        E = int(inputs["G"]["v0"].shape[0])
+        label = f"arap36k dynamic topology {k} ({E} edges) GN {GRAPH_NL}x{GRAPH_LI}"
+        fused_cg.reset_launch_counts()
+        with host_ms_of(problem_mod, "graph_group_tables", []) as t_tab, \
+                host_ms_of(fused_cg, "graph_partition", []) as t_part:
+            res = plan.solve(dict(inputs), nIterations=GRAPH_NL, lIterations=GRAPH_LI)
+            torch.cuda.synchronize()
+        launches = {n: v for n, v in fused_cg.fused_grid_cg_kernel.launches.items() if v}
+        g = plan._normalize_and_place(dict(inputs))[2]["G"]
+        (tabs,) = g["__groups__"].values()
+        exact = ot.Problem(arap_mesh_deformation).plan(dims=dims).solve(
+            dict(inputs), nIterations=2, lIterations=GRAPH_LI)
+        fused_cg.reset_launch_counts()
+        twin = twin_plan.solve(dict(inputs), nIterations=GRAPH_NL, lIterations=GRAPH_LI)
+        torch.cuda.synchronize()
+        twin_launches = sum(fused_cg.fused_grid_cg_kernel.launches.values())
+        first_rel = [abs(a - b) / abs(b) for a, b in zip(res.costs[:2], exact.costs)]
+        line = {"check": "main_path", "case": label, "form": "gn_rem_tiled",
+                "kernel_launches": launches, "fused_fallback": plan.fused_fallback,
+                "edges": E, "padded_edges": int(g["v0"].shape[0]),
+                "remainder_entries": int(tabs["csr"]["col"].shape[0]),
+                "dia_offsets": len(tabs["dia"]),
+                "incidence_width": int(tabs["inc"].shape[1]), "costs": res.costs,
+                "lin_iters": res.num_linear_iterations, "exact_first_costs": exact.costs,
+                "first_rel_diff_to_exact": first_rel, "twin_costs": twin.costs,
+                "costs_equal_to_twin": res.costs == twin.costs,
+                "twin_kernel_launches": twin_launches, "table_host_ms": t_tab,
+                "partition_host_ms": t_part, "solve_s": res.wall_time_s,
+                "cached_topologies": len(plan._inc_cache)}
+        log(json.dumps(line))
+        finite = all(bool(torch.isfinite(v).all()) and tuple(v.shape) == (N, 3)
+                     for v in res.unknowns.values())
+        if (launches != {"gn_rem_tiled": res.num_iterations} or res.num_iterations < 1
+                or plan.fused_fallback is not None or not finite or tabs["dia"]
+                or len(first_rel) < 2 or max(first_rel) > FIRST_STEPS_RTOL
+                or res.costs != twin.costs or twin_launches or twin_plan.fused_fallback):
+            raise RuntimeError(f"{label} failed: {line}")
+        out[k] = launches
+    return out, system(arap_mesh_deformation, dims, topologies[-1], dynamic_topology=True)
 
 
 def volumetric_main_path(pre, inputs):
@@ -2658,6 +3016,8 @@ def main() -> int:
         wmeta, wb, wpre, wlm, _ = system(image_warping, _grid(IW_BIG_N), iw_big_in, "LMGPU")
         arap_dims, arap_in = arap_grid_inputs(ARAP_SIDE)
         arm_dims, arm_in = armadillo_inputs()
+        spec_in = {label: GRAPH_SPECS[label][2](SPEC_SIDE) for label in GRAPH_SPECS}
+        dyn_in = dynamic_topologies(arap_in)
         prep_s = time.perf_counter() - t0
         info = building.result()
     load_library()
@@ -2868,6 +3228,13 @@ def main() -> int:
             graph_plan_line(f"{label} {klabel}", *gs[:2], gs[3])
             variant_checks(f"{label} {klabel}", gs, 50, GRAPH_LI, bitwise=True, template=True)
     del rin1, din
+    # the three other graph specs at bench size on the graph kernel, GN and
+    # LM, with the template's instances on the same twin results: odd
+    # channel counts (cotangent C = 3 with the remainder, the fields staged;
+    # robust_nonrigid C = 7 streamed, its graph group over 6 of its 7
+    # channels) and embedded's C = 12; and the odd-C multi form
+    spec_sys = {label: spec_kernel_checks(label, *spec_in[label]) for label in GRAPH_SPECS}
+    odd_multi_checks()
 
     # the 3-D grid form (K1 e) and its block-Jacobi form (K1 d) on the 3-D
     # grid kernel (gn_vol_tiled, gn_bj_vol_tiled), with the template's gn
@@ -3197,6 +3564,13 @@ def main() -> int:
     _r, l_arm = graph_main_path("armadillo31k", arm_dims, arm_in, "gn_rem_tiled")
     float64_witness(f"arap36k GN {GRAPH_NL}x{GRAPH_LI}", arap_mesh_deformation, "gaussNewtonGPU",
                     arap_dims, arap_in, GRAPH_NL, GRAPH_LI, JAX_CPU_ARAP36K_F64_COSTS, F64_STEPS)
+    l_spec = {label: spec_main_path(label, *spec_in[label])[1] for label in GRAPH_SPECS}
+    l_dyn, dyn_sys = dynamic_main_path(arap_dims, dyn_in)
+    # the last topology's first system, as the kernel takes it (the padded
+    # graph, all remainder), against the twin and the template
+    graph_plan_line("arap36k dynamic topology 2 GN", *dyn_sys[:2])
+    err_dyn = variant_checks("arap36k dynamic topology 2 GN", dyn_sys, 50, GRAPH_LI,
+                             bitwise=True, template=True)
     vol_res, l_vol = volumetric_main_path("jacobi", vol_in)
     vol_bj_res, l_vol_bj = volumetric_main_path("block_jacobi", vol_in)
     log(json.dumps({"check": "block_jacobi_iters", "case": f"volumetric{VOL_N} GN {VOL_NL}x{VOL_LI}",
@@ -3304,7 +3678,14 @@ def main() -> int:
             "lm_dia": ("arap36k", *dglm, 2),
             "gn_vol": (f"volumetric{VOL_N}", *vsys, 3),
             "gn_bj_vol": (f"volumetric{VOL_N} block_jacobi", *vbj, 3),
-            "gn_rem_multi": (glabel, *gsys, 2)}.items():
+            "gn_rem_multi": (glabel, *gsys, 2),
+            "gn_rem_c3": ("cotangent10k GN", *spec_sys["cotangent10k"][0], 2),
+            "lm_rem_c3": ("cotangent10k LM", *spec_sys["cotangent10k"][1], 2),
+            "gn_rem_c12": ("embedded10k GN", *spec_sys["embedded10k"][0], 2),
+            "lm_rem_c12": ("embedded10k LM", *spec_sys["embedded10k"][1], 2),
+            "gn_dia_c7": ("robust10k GN", *spec_sys["robust10k"][0], 2),
+            "lm_dia_c7": ("robust10k LM", *spec_sys["robust10k"][1], 2),
+            "gn_rem_dyn": ("arap36k dynamic topology 2", *dyn_sys, 2)}.items():
         for template in (False, True, True, False):
             t = time_pair(label, m_, b_, p_, gpu, lm_, reps=reps_,
                           twin=not template and key not in t_tiled, template=template, **var_)
@@ -3430,21 +3811,28 @@ def main() -> int:
                            volumetric_mesh_deformation, "gaussNewtonGPU", _vol(VOL_N), vol_in,
                            VOL_NL, VOL_LI, gpu)
     phases["route_solve_turns"] = time.perf_counter() - t_start - sum(phases.values())
+    def cut(label, nl):  # a profiled solve at PROFILE_NL_CUT of its steps, so labelled
+        pl = max(1, nl // PROFILE_NL_CUT)
+        return label.replace(f" {nl}x", f" {pl}x"), pl
+
     for route in ("template", "tiled"):
         with (template_route() if route == "template" else contextlib.nullcontext()):
             for label, spec, kind, inp, nl, li, ip in routed:
                 rplan = ot.Problem(spec, kind=kind).plan(dims=_grid(n))
-                profile_solve(f"{label} {route}".replace(" ", "_"), lambda: rplan.solve(
-                    dict(inp), nIterations=nl, lIterations=li), gpu)  # run at once
+                plabel, pl = cut(label, nl)
+                profile_solve(f"{plabel} {route}".replace(" ", "_"), lambda: rplan.solve(
+                    dict(inp), nIterations=pl, lIterations=li), gpu)  # run at once
             if route == "tiled":  # image_warping LM under block-Jacobi, beside its Jacobi solve
                 label, spec, kind, inp, nl, li, ip = bj_lm
                 rplan = ot.Problem(spec, kind=kind).plan(
                     dims=_grid(n), init_params=ot.InitializationParameters(**ip))
-                profile_solve(f"{label} {route}".replace(" ", "_"), lambda: rplan.solve(
-                    dict(inp), nIterations=nl, lIterations=li), gpu)  # run at once
+                plabel, pl = cut(label, nl)
+                profile_solve(f"{plabel} {route}".replace(" ", "_"), lambda: rplan.solve(
+                    dict(inp), nIterations=pl, lIterations=li), gpu)  # run at once
             bplan_bj = bj_batch_plan()
-            profile_solve(f"{blabel} {route}".replace(" ", "_"), lambda: bplan_bj.solve_batched(
-                dict(iw_bin), nIterations=8, lIterations=400), gpu)  # run at once
+            plabel, pl = cut(blabel, 8)
+            profile_solve(f"{plabel} {route}".replace(" ", "_"), lambda: bplan_bj.solve_batched(
+                dict(iw_bin), nIterations=pl, lIterations=400), gpu)  # run at once
             splan = ot.Problem(poisson_image_editing).plan(dims=_grid(SPLIT_N))
             profile_solve(f"{slabel} {route}".replace(" ", "_"), lambda: splan.solve(
                 dict(split_in), nIterations=1, lIterations=2000), gpu)  # run at once
@@ -3458,10 +3846,11 @@ def main() -> int:
             profile_solve(f"{arap_label} {route}".replace(" ", "_"), lambda: gplan.solve(
                 dict(arap_in), nIterations=GRAPH_NL, lIterations=GRAPH_LI), gpu)  # run at once
             # volumetric's Jacobi solve only: a profile of its ~25,000 device
-            # launches takes about 19 s
+            # launches (8 steps) takes about 19 s
             vplan = ot.Problem(volumetric_mesh_deformation).plan(dims=_vol(VOL_N))
-            profile_solve(f"volumetric{VOL_N}_GN_{VOL_NL}x{VOL_LI}_jacobi_{route}",
-                          lambda: vplan.solve(dict(vol_in), nIterations=VOL_NL,
+            vl = max(1, VOL_NL // PROFILE_NL_CUT)
+            profile_solve(f"volumetric{VOL_N}_GN_{vl}x{VOL_LI}_jacobi_{route}",
+                          lambda: vplan.solve(dict(vol_in), nIterations=vl,
                                               lIterations=VOL_LI), gpu)  # run at once
     phases["route_profiles"] = time.perf_counter() - t_start - sum(phases.values())
     time_main_path(f"shape_from_shading{SFS_N} GN {SFS_NL}x{SFS_LI}", shape_from_shading,
@@ -3475,6 +3864,15 @@ def main() -> int:
     bplan = ot.Problem(curve_fitting, kind="LMGPU").plan(dims=cdims)
     profile_solve(f"curve_fitting_x{BATCH_B}_batched", lambda: bplan.solve_batched(
         dict(curve_in), nIterations=BATCH_NL, lIterations=BATCH_LI), gpu)
+    # the three other graph specs' main paths and the last dynamic topology's
+    for label, (spec, kind, _mk, nl, li, _form, _layout) in GRAPH_SPECS.items():
+        splan = ot.Problem(spec, kind=kind).plan(dims=spec_in[label][0])
+        profile_solve(f"{label}_{'LM' if kind == 'LMGPU' else 'GN'}_{nl}x{li}",
+                      functools.partial(splan.solve, dict(spec_in[label][1]), nIterations=nl,
+                                        lIterations=li), gpu)
+    dplan = ot.Problem(arap_mesh_deformation).plan(dims=arap_dims, dynamic_topology=True)
+    profile_solve(f"arap36k_dynamic_topology_2_GN_{GRAPH_NL}x{GRAPH_LI}", functools.partial(
+        dplan.solve, dict(dyn_in[-1]), nIterations=GRAPH_NL, lIterations=GRAPH_LI), gpu)
     phases["timings_and_profiles"] = time.perf_counter() - t_start - sum(phases.values())
 
     def entry(name, replaces, launches, err, timing, source=KERNEL_SOURCE, template=None,
@@ -3514,7 +3912,8 @@ def main() -> int:
                                            "armadillo_batched": l_arm_batch,
                                            "image_warping_block_jacobi_batched": l_bj_batch,
                                            "image_warping_batched": l_iw_batch,
-                                           "sharded_tile_apply": l_k5}}))
+                                           "sharded_tile_apply": l_k5, "graph_specs": l_spec,
+                                           "dynamic_topology": l_dyn}}))
     log(json.dumps({"command_s": time.perf_counter() - t_start,
                     "checks_and_main_paths_s": phase_s, "phases_s": phases}))
     log(f"gpu: {gpu}")
@@ -3537,6 +3936,25 @@ def main() -> int:
         entry("tiled_graph_cg GN with the graph remainder (K4), arap armadillo 31,106 "
               "vertices, gn_rem_tiled", K4, l_arm["gn_rem_tiled"], graph["armadillo31k"][2],
               t_tiled["gn_rem"], GRAPH_SOURCE, t_tpl["gn_rem"]),
+        entry("tiled_graph_cg LM with the graph remainder at an odd channel count (K4), "
+              "cotangent_mesh_smoothing 10,000 vertices (bench_cotangent), C = 3, lm_rem_tiled",
+              K4, l_spec["cotangent10k"]["lm_rem_tiled"], spec_sys["cotangent10k"][2]["LM"],
+              t_tiled["lm_rem_c3"], GRAPH_SOURCE, t_tpl["lm_rem_c3"]),
+        entry("tiled_graph_cg LM with the graph remainder (K4), embedded_mesh_deformation "
+              "10,000 vertices (bench_embedded), C = 12, lm_rem_tiled", K4,
+              l_spec["embedded10k"]["lm_rem_tiled"], spec_sys["embedded10k"][2]["LM"],
+              t_tiled["lm_rem_c12"], GRAPH_SOURCE, t_tpl["lm_rem_c12"]),
+        entry("tiled_graph_cg GN, graph DIA form at an odd channel count (K3), "
+              "robust_nonrigid_alignment 10,000 vertices (bench_robust_nonrigid), C = 7, a "
+              "graph group over 6 of them, gn_dia_tiled: the fields read from device memory",
+              K3, l_spec["robust10k"]["gn_dia_tiled"], spec_sys["robust10k"][2]["GN"],
+              t_tiled["gn_dia_c7"], GRAPH_SOURCE, t_tpl["gn_dia_c7"]),
+        entry("tiled_graph_cg GN with the graph remainder under dynamic_topology (K4), arap "
+              "36,864-vertex grid mesh on three topologies in one edge bucket (all edges, 5% "
+              "and 10% of the edge pairs dropped), all remainder, gn_rem_tiled; launches "
+              "summed over the three solves", K4,
+              sum(v["gn_rem_tiled"] for v in l_dyn.values()), err_dyn, t_tiled["gn_rem_dyn"],
+              GRAPH_SOURCE, t_tpl["gn_rem_dyn"]),
         entry(f"tiled_grid_cs GN Chronopoulos-Gear (K1 variant c), poisson {n}x{n}x4, "
               "gn_cs_tiled, one grid barrier an iteration", K1C, l_pcs["gn_cs_tiled"], err_cs,
               t_tiled["gn_cs"], TILED_CS_SOURCE, t_tpl["gn_cs"]),

@@ -4,7 +4,7 @@
 // tiled_graph_cg_kernel<LM, STREAM>: the standard Gauss-Newton loop and the
 // standard Levenberg-Marquardt loop of fused_grid_cg.cuh (lines 66-78),
 // float32 fields and remainder blocks, the Jacobi preconditioner, over the
-// graph domain [1, N], an even number of channels C; each solves n_sys
+// graph domain [1, N], any number of channels C from 2; each solves n_sys
 // independent systems in turn (1 for one system). STREAM is the layout:
 // the resident one (false) stages a range's fields in shared memory, the
 // stream one (true) reads them from device memory every iteration. Their
@@ -212,7 +212,10 @@ __device__ __forceinline__ float tgr_sum_stream(const TgrBlock& tb,
 // Output (vl, i) of the block's range applied to src (a frame array
 // [nfm][C]): from +0 the triples of channel i in their order, then row v's
 // remainder entries ascending, j ascending inside each (the block's row i
-// of blk, 8 bytes a load: C is even), src read at the entry's column. The
+// of blk, 8 bytes a load; for an odd C, whose rows start at odd words for
+// every other row, one float first where the row's start is not 8-byte
+// aligned and one last where a float is left over), src read at the
+// entry's column. The
 // fields come from shared memory, or under STREAM from fb (the system's F
 // at the range's first vertex, through the read-only path) by
 // tgr_sum_stream, which checks each read against [0, N) only for a vertex
@@ -238,6 +241,24 @@ __device__ __forceinline__ float tgr_apply(const TgrBlock& tb, const float* __re
     }
   }
   const int e1 = tb.s_row[vl + 1];
+  if (C & 1) {
+    for (int e = tb.s_row[vl]; e < e1; ++e) {
+      const float* su = src + tb.s_lcol[e];
+      const float* row = blk + ((tb.e0 + e) * C + i) * C;
+      int j = 0;
+      if (reinterpret_cast<size_t>(row) & 7) {  // an odd word: one float first
+        a = __fadd_rn(a, __fmul_rn(__ldg(row), su[0]));
+        j = 1;
+      }
+      for (; j + 1 < C; j += 2) {
+        const float2 w = __ldg(reinterpret_cast<const float2*>(row + j));
+        a = __fadd_rn(a, __fmul_rn(w.x, su[j]));
+        a = __fadd_rn(a, __fmul_rn(w.y, su[j + 1]));
+      }
+      if (j < C) a = __fadd_rn(a, __fmul_rn(__ldg(row + j), su[j]));
+    }
+    return a;
+  }
   const int h = C >> 1;
 #pragma unroll 4
   for (int e = tb.s_row[vl]; e < e1; ++e) {
@@ -569,7 +590,7 @@ extern "C" {
 // Launches the solves on `stream`: n_blocks blocks of `threads` threads,
 // each with smem_bytes of dynamic shared memory (which must be
 // tgr_smem_bytes of these arguments). F [n_sys, T, N], b, pre, ctc (LM only)
-// and delta [n_sys, C, N], blk [n_sys, nnz, C, C] float32, C even
+// and delta [n_sys, C, N], blk [n_sys, nnz, C, C] float32, C >= 2
 // (f_stride = T*N, blk_stride = nnz*C*C); triples [n_triples, 6] ((0, 0, d, i, j, fid))
 // sorted by output channel with their per-channel starts [C + 1]; rowptr
 // [N + 1]; lcol [nnz], blocks [n_blocks, 5], halo and border as the kernel
@@ -590,7 +611,7 @@ int tiled_graph_cg_launch(int lm, int stream_layout, const float* F, const float
                           int blk_stride, float* delta, float* r_ring, double2* partA,
                           double2* partB, int* iters, int threads, int smem_bytes,
                           void* stream) {
-  if (threads != TGCG_THREADS || C < 2 || C > TGR_MAX_CHANNELS || (C & 1) || T < 1 ||
+  if (threads != TGCG_THREADS || C < 2 || C > TGR_MAX_CHANNELS || T < 1 ||
       n_triples < 1 || n_triples > TGR_MAX_TRIPLES || N < 1 || n_blocks < 1 || n_blocks > N ||
       nvm < 1 || nfm < nvm || nhm < 0 || nem < 0 || n_sys < 1 || f_stride < 0 ||
       blk_stride < 0)

@@ -308,10 +308,13 @@ def plan_fused_graph_cg(compiled, plan, fields: Dict, grp_exec: Dict,
     1-D vertex space, float32: the same-vertex blocks S and the DIA fields
     of every group as triples on the grid [1, N], the centered fields of
     that space (fit terms) likewise, and the groups' remainders merged into
-    the kernel's block CSR. Each group's row mask is folded into its
+    the kernel's block CSR. A group may cover only some of the unknowns:
+    its channels map into the kernel's, its remainder blocks are zero
+    outside its rows and columns, and a channel no group covers keeps only
+    its centred triples. Each group's row mask is folded into its
     fields and blocks on both sides (M·A·M); then F and the remainder's
     blocks are stored in ``coeff_dtype`` (None: float32). Returns the meta
-    or None (the unknowns span several spaces or groups, or more triples or
+    or None (the unknowns span several spaces, or more triples or
     channels than the kernel holds). A meta without the remainder carries
     under ``"empty_csr"`` the first group's empty CSR (``graph_group_tables``'s
     entry of that name: rowptr, col and its :class:`GraphPartitions`), by
@@ -357,8 +360,8 @@ def plan_fused_graph_cg(compiled, plan, fields: Dict, grp_exec: Dict,
     rem_parts, empties = [], []
     for key, ex in sorted(grp_exec.items()):
         g_ulist, g_offs, ct = ex["layout"]
-        if sorted(g_ulist) != sorted(u_list) or ct != ctot or ex["S"].shape[0] != N:
-            return None  # the group does not span the whole kernel state
+        if ex["S"].shape[0] != N:
+            return None  # the group is not on the kernel's vertex space
         gmap = [0] * ct  # group channel -> kernel channel
         for u in g_ulist:
             for c in range(channels[u]):
@@ -384,12 +387,12 @@ def plan_fused_graph_cg(compiled, plan, fields: Dict, grp_exec: Dict,
             blk = ex["C"].float().reshape(-1, ct, ct)[csr["src"]]  # [nnz, ct, ct]
             if pm is not None:
                 blk = blk * pm[csr["row"]][:, :, None] * pm[csr["col"].long()][:, None, :]
-            inv = [0] * ct
-            for gi, a in enumerate(gmap):
-                inv[a] = gi
-            if inv != list(range(ct)):
-                inv_t = torch.as_tensor(inv, device=blk.device)
-                blk = blk[:, inv_t][:, :, inv_t]
+            if gmap != list(range(ctot)):
+                # into the kernel's channels; zero outside the group's
+                gm = torch.as_tensor(gmap, device=blk.device)
+                full = blk.new_zeros((blk.shape[0], ctot, ctot))
+                full[:, gm[:, None], gm[None, :]] = blk
+                blk = full
             rem_parts.append((csr["rowptr"], csr["col"], blk, csr["row"], csr["partitions"]))
         else:
             empties.append(ex["tables"]["empty_csr"])
@@ -1311,10 +1314,11 @@ def graph_tile_plan(meta, C: int, N: int, *, lm: bool, cs: bool = False, block: 
     (one group's), float32 fields and blocks, under the standard GN or LM
     loop (``lm``, not ``cs``) with the elementwise preconditioner (not
     ``block``), one system or a batch in the form
-    :func:`batched_kernel_form` calls "multi", an even number of channels
-    (the kernel reads a block row two floats a load) up to the kernel's
-    channels and triples, when a partition into at most ``sm_count`` ranges
-    fits ``smem_per_block``: the layout "resident", the range's fields
+    :func:`batched_kernel_form` calls "multi", any number of channels up to
+    the kernel's (a block row is read two floats a load from its first
+    8-byte aligned word, one float at an odd end) and triples, when a
+    partition into at most ``sm_count`` ranges fits ``smem_per_block``:
+    the layout "resident", the range's fields
     staged in shared memory once a solve. A meta without the remainder
     whose empty CSR (``meta["empty_csr"]``) carries its :class:`GraphPartitions`
     takes it on the same conditions for one system only, in the layout
@@ -1340,7 +1344,7 @@ def graph_tile_plan(meta, C: int, N: int, *, lm: bool, cs: bool = False, block: 
         return None
     lead = 1 if batch else 0
     triples = meta["triples"]
-    if (tuple(F.shape[lead + 1:]) != (1, N) or not 2 <= C <= MAX_CHANNELS or C % 2
+    if (tuple(F.shape[lead + 1:]) != (1, N) or not 2 <= C <= MAX_CHANNELS
             or not 0 < len(triples) <= MAX_TRIPLES
             or any(len(d) != 2 or d[0] != 0 for (d, _i, _j, _f) in triples)):
         return None
@@ -1676,10 +1680,10 @@ def tiled_graph_cg_kernel(meta, b, pre, lits, tol, plan, *, guard_div=True, ctc=
     _check_operand("col", rem["col"], (nnz,), torch.int32, device)
     _check_operand("blk", blk, lead + (nnz, C, C), torch.float32, device)
     triples = meta["triples"]
-    if (not 0 < len(triples) <= MAX_TRIPLES or not 2 <= C <= MAX_CHANNELS or C % 2 or any(
+    if (not 0 < len(triples) <= MAX_TRIPLES or not 2 <= C <= MAX_CHANNELS or any(
             len(d) != 2 or d[0] != 0 or not (0 <= fid < T and 0 <= i < C and 0 <= j < C)
             for (d, i, j, fid) in triples)):
-        raise ValueError("tiled_graph_cg_kernel: triples, offsets, channels (an even count) or "
+        raise ValueError("tiled_graph_cg_kernel: triples, offsets, channels or "
                          "field ids out of range")
     if b.numel() >= 2**31 or F.numel() >= 2**31 or blk.numel() >= 2**31:
         raise ValueError("tiled_graph_cg_kernel indexes with int32: problem too large")

@@ -39,6 +39,18 @@ def bucket_size(n: int, minimum: int = 1) -> int:
     return max(int(minimum), 1 << (n - 1).bit_length())
 
 
+def pad_table_width(table, width: int, sentinel: int):
+    """A [N, D] incidence-style table padded to ``width`` columns of
+    ``sentinel`` (unchanged when it is as wide already)."""
+    table = np.asarray(table)
+    n, d = table.shape
+    if d >= width:
+        return table
+    out = np.full((n, width), sentinel, table.dtype)
+    out[:, :d] = table
+    return out
+
+
 def slot_groups(gdecl, dim_sizes):
     """Group a graph's endpoint slots by the index space they point into:
     [(group_key, [slot names, sorted], num_vertices)]. Slots of one group

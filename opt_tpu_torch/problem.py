@@ -63,21 +63,32 @@ def _uses_lambda(kind: str) -> bool:
 DIA_MIN_COVERAGE = 0.98
 DIA_MAX_OFFSETS = 32
 _TABLE_CACHE_MAX = 8
+# under dynamic_topology, the topologies whose tables are kept: per-frame
+# topologies would otherwise grow the cache without bound
+# (opt_tpu/problem.py:757)
+_DYNAMIC_TABLE_CACHE_MAX = 32
+_DYNAMIC_MIN_EDGES = 8  # the smallest edge bucket (opt_tpu/problem.py:284)
 
 
-def graph_group_tables(idxs, names, n: int, device, dtype, max_offsets: int) -> Dict[str, Any]:
+def graph_group_tables(idxs, names, n: int, device, dtype, max_offsets: int,
+                       dynamic: bool = False) -> Dict[str, Any]:
     """The host-built tables of one (graph, vertex-space) group, placed on
     ``device``: the part of the JAX package's ``Plan._augment_incidence``
     (opt_tpu/problem.py:354-762) that a single card needs.
 
     * ``inc`` [N, D]: the combined incidence table (stacked edge-row ids,
       sentinel m·E), through which JᵀF and the same-vertex blocks S gather;
+      under ``dynamic`` (a plan for changing topologies) D is rounded up to
+      a power of two, so that the topologies of one edge bucket mostly
+      share its shape;
     * ``dia``: [(offset, mask [N, D, m-1])] when the numbering puts at
       least ``DIA_MIN_COVERAGE`` of the cross reads at up to
       ``DIA_MAX_OFFSETS`` vertex-id offsets (grid-class meshes), else [].
       At most ``max_offsets`` of them (what the CG kernel's triple table
       holds) become offsets, the most frequent first; the reads of the
-      others join the remainder;
+      others join the remainder. Under ``dynamic`` there is no DIA split
+      (the JAX package's, whose offsets are topology-specialized): every
+      cross read goes to the remainder;
     * ``rem_pos`` [N, Dm, K] and ``rem_cross`` [N, Dm]: the cross reads no
       offset covers (all of them without DIA), duplicate (v, u) reads
       merged (``dedup_reads``), or None when there are none;
@@ -92,11 +103,14 @@ def graph_group_tables(idxs, names, n: int, device, dtype, max_offsets: int) -> 
     """
     idx_list = [idxs[k] for k in names]
     inc = graph_ops.combined_incidence_table(idx_list, n)
+    if dynamic:
+        inc = graph_ops.pad_table_width(inc, graph_ops.bucket_size(inc.shape[1]),
+                                        len(names) * int(idx_list[0].shape[0]))
     cross = graph_ops.combined_cross_table(idx_list, n, inc=inc)
     _n, dd, mm1 = cross.shape
     dia, rem = None, None
     if mm1:
-        probe = graph_ops.dia_split(cross, n, max_offsets=DIA_MAX_OFFSETS)
+        probe = None if dynamic else graph_ops.dia_split(cross, n, max_offsets=DIA_MAX_OFFSETS)
         total = int((cross < n).sum())
         cov = 0.0
         if probe is not None and total:
@@ -247,15 +261,14 @@ class Problem:
         (``parallel.make_mesh``) of several ranks shards a 2-D grid spec
         over them: this rank's plan, on the mesh's device, which must be
         of the kind ``device`` names; a 1x1 mesh is the single-device plan.
-        A mesh on what it cannot take yet, and ``dynamic_topology=True``,
-        raise ``NotImplementedError`` naming their ROADMAP.md item."""
-        if dynamic_topology:
-            raise NotImplementedError(
-                "dynamic_topology=True is not ported yet (ROADMAP.md queue 1 item 4)"
-            )
+        A mesh on what it cannot take yet raises ``NotImplementedError``
+        naming its ROADMAP.md item. ``dynamic_topology=True`` plans for
+        graphs whose edges change from solve to solve (a frame's topology
+        in nonrigid tracking): see ``Plan._pad_dynamic``."""
         if dynamic_topology is not None:
             init_params = dataclasses.replace(
-                init_params or InitializationParameters(), dynamic_topology=False
+                init_params or InitializationParameters(),
+                dynamic_topology=bool(dynamic_topology),
             )
         dev = resolve_device(device)
         dtype = torch.float64 if double_precision else torch.float32
@@ -288,6 +301,7 @@ class Plan:
         if rules is not None and self.solver._stencil_plan is None:
             raise _mesh_not_ported("the composed operator (use_fused_jtj=False)")
         self.solver_params = normalize_solver_params(solver_params)
+        self.dynamic_topology = bool(self.solver.ip.dynamic_topology)
         self._state = None
         self._bound = None  # (consts, graphs, params)
         self._fused_validated = False
@@ -390,14 +404,50 @@ class Plan:
             cache.update(changed)
         return tuple(dict(b) for b in buckets)
 
+    def _pad_dynamic(self, graphs):
+        """Each graph's edge axis padded to its power-of-two bucket (at
+        least 8 edges), as the JAX package pads it (opt_tpu/problem.py:260-315):
+        the padded edges take in-bounds vertex ids round-robin, so that no
+        vertex's incidence width grows by more than one a lap, and a zero
+        in the ``valid`` mask, so that they add nothing to J, JᵀF, the
+        diagonal, the assembled blocks or the cost (compile.py's exact
+        edge-mask semantics). The mask is always there, the caller's
+        (if any) on the first edges, ones else."""
+        out = {}
+        for gname, slots in graphs.items():
+            gdecl = self.compiled.registry.graphs[gname]
+            names = sorted(gdecl.slots)
+            E = int(slots[names[0]].shape[0])
+            Eb = graph_ops.bucket_size(E, minimum=_DYNAMIC_MIN_EDGES)
+            gd = {}
+            for s in names:
+                idx = slots[s]
+                if Eb > E:
+                    n = int(np.prod(gdecl.slots[s].shape(self.compiled.dim_sizes)))
+                    pad = torch.arange(Eb - E, device=idx.device) % n
+                    idx = torch.cat([idx, pad.to(idx.dtype)])
+                gd[s] = idx
+            valid = slots.get("valid")
+            if valid is None:
+                valid = torch.ones((E, 1), dtype=self.compiled.dtype, device=self.device)
+            gd["valid"] = torch.cat([valid, valid.new_zeros((Eb - E, valid.shape[1]))])
+            out[gname] = gd
+        return out
+
     def _augment_incidence(self, graphs):
         """Attach each graph's group tables (``graph_group_tables``) under
         ``"__groups__"``: {group key: tables}. The tables depend only on the
         index data: they are cached by a hash of it (a few topologies, least
-        recently used first out), so a new array with the same edges builds
-        nothing."""
+        recently used first out; 32 under ``dynamic_topology``, whose graphs
+        are first padded by ``_pad_dynamic``), so a new array with the same
+        edges builds nothing. Each cached remainder CSR carries its own
+        ``fused_cg.GraphPartitions`` with its device tables: they go with
+        its topology's entry."""
         if not graphs:
             return graphs
+        if self.dynamic_topology:
+            graphs = self._pad_dynamic(graphs)
+        cap = _DYNAMIC_TABLE_CACHE_MAX if self.dynamic_topology else _TABLE_CACHE_MAX
         cache = self.__dict__.setdefault("_inc_cache", OrderedDict())
         dt = self.compiled.dtype
         max_off = DIA_MAX_OFFSETS
@@ -417,11 +467,12 @@ class Plan:
             groups = cache.pop(key, None)
             if groups is None:
                 groups = {
-                    gk: graph_group_tables(idxs, gnames, n, self.device, dt, max_off)
+                    gk: graph_group_tables(idxs, gnames, n, self.device, dt, max_off,
+                                           dynamic=self.dynamic_topology)
                     for gk, gnames, n in graph_ops.slot_groups(gdecl, self.compiled.dim_sizes)
                 }
             cache[key] = groups
-            while len(cache) > _TABLE_CACHE_MAX:
+            while len(cache) > cap:
                 cache.popitem(last=False)
             out[gname] = dict(slots, __groups__=groups)
         return out

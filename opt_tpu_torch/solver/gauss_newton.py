@@ -26,8 +26,8 @@ package's ``_solve_fused_batched``) assembles every instance's system at
 once under ``torch.func.vmap`` and solves them by one batched CG launch a
 step. Under a mesh of ranks (``sharding_rules``: ``parallel/mesh.py``)
 each rank's solver works on its extended region and runs the sharded loop
-(ops/sharded_cg.py) on its tile. Dynamic topology and the explicit
-sparse-J path are not ported yet and raise ``NotImplementedError``.
+(ops/sharded_cg.py) on its tile. The explicit sparse-J path is not
+ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -135,10 +135,6 @@ class GaussNewtonSolver:
                 f"preconditioner must be 'jacobi' or 'block_jacobi', got {self.ip.preconditioner!r}"
             )
         self._coeff_dtype = coefficient_dtype(self.ip.coefficient_dtype)
-        if self.ip.dynamic_topology and compiled.registry.graphs:
-            raise NotImplementedError(
-                "dynamic_topology is not ported yet (ROADMAP.md queue 1 item 4)"
-            )
         if self.ip.use_explicit_jtj:
             raise NotImplementedError(
                 "use_explicit_jtj is not ported yet (ROADMAP.md queue 1 item 5)"

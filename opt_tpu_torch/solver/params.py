@@ -50,8 +50,9 @@ class InitializationParameters:
     use_pallas_cg: Any = "auto"
     # Explicit sparse-J path (not ported yet: ROADMAP.md queue 1 item 5).
     use_explicit_jtj: bool = False
-    # Dynamic graph topology (graphs; not ported yet: ROADMAP.md queue 1
-    # item 4).
+    # Dynamic graph topology: graphs padded to power-of-two edge buckets
+    # with zero-valid edges, no DIA split, the table cache kept to 32
+    # topologies (problem.py: Plan._pad_dynamic).
     dynamic_topology: bool = False
     # Per-kernel timing report (not ported yet: ROADMAP.md queue 1 item 6;
     # True raises).

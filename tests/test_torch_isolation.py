@@ -144,8 +144,13 @@ def test_fused_grid_cg_refuses_other_devices():
 def test_plan_takes_the_reference_keywords_and_raises(kw, item):
     """Problem.plan takes ``mesh=`` and ``dynamic_topology=`` as the JAX
     package does; a mesh on a graph spec (its item 8b: a 2-D grid plans on
-    a mesh) and a dynamic topology are not ported yet and say so, naming
-    their roadmap item."""
+    a mesh) is not ported yet and says so, naming its roadmap item. A
+    dynamic topology (item 4's first bullet) is ported: the graph plan
+    takes it."""
+    if "dynamic_topology" in kw:
+        plan = ott.Problem(tspecs.arap_mesh_deformation).plan(dims={"N": 8}, device="cpu", **kw)
+        assert plan.dynamic_topology and plan.solver.ip.dynamic_topology is True
+        return
     if "mesh" in kw:
         spec, dims = tspecs.arap_mesh_deformation, {"N": 8}
     else:

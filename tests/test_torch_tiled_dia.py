@@ -241,9 +241,9 @@ def _odd_channels(meta, b):
 @pytest.mark.parametrize("kind", ["GN", "LM"])
 def test_other_dia_forms_keep_the_template(case, kind, monkeypatch):
     """A batched remainder-less meta (either batch form), Chronopoulos–Gear,
-    bfloat16 fields, block-Jacobi, an odd channel count and a meta without
-    its empty CSR (the JAX package's, carried across) keep the template's
-    instance."""
+    bfloat16 fields, block-Jacobi and a meta without its empty CSR (the JAX
+    package's, carried across) keep the template's instance; an odd channel
+    count takes the stream layout."""
     meta, b, _pre, ctc = _system("grid16", kind)
     lm = ctc is not None
     kw, name = {}, "lm" if lm else "gn"
@@ -263,6 +263,9 @@ def test_other_dia_forms_keep_the_template(case, kind, monkeypatch):
         name += "_bj"
     elif case == "odd_channels":
         meta, b = _odd_channels(meta, b)
+        assert fused_cg.route_plan(meta, b, lm=lm)["layout"] == "stream"
+        assert fused_cg.launch_instance(meta, b, lm=lm) == name + "_dia_tiled"
+        return
     else:
         meta = {k: v for k, v in meta.items() if k != "empty_csr"}
     assert fused_cg.route_plan(meta, b, lm=lm, **kw) is None
@@ -453,6 +456,8 @@ def test_wrapper_checks_the_stream_operands_first():
         call(dict(meta, batch=2), b[None].expand(2, -1, -1, -1), pre, 10, 0.0, plan)
     with pytest.raises(ValueError, match="reset_period"):
         call(meta, b, pre, 10, 0.0, plan, ctc=pre)
-    with pytest.raises(ValueError, match="an even count"):
-        odd, b5 = _odd_channels(meta, b)
-        call(odd, b5, pre[:5].contiguous(), 10, 0.0, plan)
+    # an odd channel count passes the operand checks (the device check
+    # raises last, on the CPU)
+    odd, b5 = _odd_channels(meta, b)
+    with pytest.raises(ValueError, match="tiled_graph_cg_kernel needs CUDA"):
+        call(odd, b5, pre[:5].contiguous(), 10, 0.0, fused_cg.route_plan(odd, b5, lm=False))

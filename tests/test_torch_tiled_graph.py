@@ -32,7 +32,8 @@ from opt_tpu_torch.utils.convert import meta_from_numpy
 from opt_tpu_torch.utils.reorder import grid_embed_order, remap_edges
 from tests.test_torch_batched_graph import _jax_calls, _jax_vmapped, _port, _stack
 from tests.test_torch_cg_variants import _pack, jax_cg_call
-from tests.test_torch_graph import _mesh
+from tests.test_torch_graph import _mesh, random_mesh
+from chip_smoke import cotangent_inputs, robust_inputs
 
 torch.set_num_threads(2)
 
@@ -344,9 +345,10 @@ def _odd_channels(meta, b):
 def test_plan_refuses_other_forms(case, monkeypatch):
     """The forms the graph kernel does not take keep the template: CS,
     bfloat16, block-Jacobi, the block-per-system batch form, a DIA-only
-    meta without its empty CSR, a frame beyond the shared memory, a
+    meta without its empty CSR, a frame beyond the shared memory, and a
     remainder without its topology's partitions (several groups' CSR merged
-    anew every step), and an odd number of channels."""
+    anew every step). An odd number of channels is not among them: it
+    takes the resident plan."""
     meta, b, _pre, _ctc = _system("random")
     N = int(b.shape[-1])
     kw = dict(lm=False, sm_count=SMS, smem_per_block=SMEM)
@@ -388,7 +390,11 @@ def test_plan_refuses_other_forms(case, monkeypatch):
         meta = dict(meta, rem={k: v for k, v in meta["rem"].items() if k != "partitions"})
     elif case == "odd_channels":
         meta, b = _odd_channels(meta, b)
-        C = 5
+        plan = fused_cg.graph_tile_plan(meta, 5, N, **kw)
+        assert plan is not None and plan["layout"] == "resident"
+        assert fused_cg.route_plan(meta, b, lm=False) == plan
+        assert fused_cg.launch_instance(meta, b) == "gn_rem_tiled"
+        return
     else:  # a meta carried across from the JAX package
         meta = dict(meta, rem=dict(meta["rem"], partitions={}))
     assert fused_cg.graph_tile_plan(meta, C, N, **kw) is None
@@ -514,6 +520,93 @@ def test_emulation_is_bitwise_the_twin(mesh, kind, n_blocks, lits, tol, q_tol):
         assert le > 3 * RESET  # resets occurred
 
 
+def _cotangent_quads(n_side=10):
+    """cotangent_mesh_smoothing on the edges of a grid's quads, each edge's
+    opposite vertices the quad's other two: every read at a vertex-id
+    offset (±1, ±n-1, ±n, ±n+1), no remainder."""
+    vid = np.arange(n_side * n_side).reshape(n_side, n_side)
+    a, b, c, d = vid[:-1, :-1], vid[:-1, 1:], vid[1:, :-1], vid[1:, 1:]
+    v0, v1 = np.concatenate([a, a]).ravel(), np.concatenate([b, c]).ravel()
+    v2, v3 = np.concatenate([c, b]).ravel(), np.concatenate([d, d]).ravel()
+    dims, inputs = cotangent_inputs(n_side)
+    g = {k: v.astype(np.int32) for k, v in dict(v0=v0, v1=v1, v2=v2, v3=v3).items()}
+    return dims, dict(inputs, G=g)
+
+
+def _robust_random(N=60):
+    """robust_nonrigid_alignment on tests/test_torch_graph.py's random ring
+    mesh: every read in the remainder, 7 channels of which the graph group
+    covers 6."""
+    _N, arap = random_mesh(N)
+    rng = np.random.RandomState(5)
+    normals = rng.randn(N, 3).astype(np.float32)
+    normals /= np.linalg.norm(normals, axis=-1, keepdims=True)
+    return {"N": N}, dict(arap, RobustWeights=np.ones((N,), np.float32),
+                          ConstraintNormals=normals, w_fitSqrt=np.float32(np.sqrt(10.0)))
+
+
+# name -> (spec, inputs, channels, layout): odd channel counts in both layouts
+_ODD_SYSTEMS = {
+    "cotangent_grid": (tspecs.cotangent_mesh_smoothing, lambda: cotangent_inputs(12), 3,
+                       "resident"),
+    "cotangent_quads": (tspecs.cotangent_mesh_smoothing, _cotangent_quads, 3, "stream"),
+    "robust_random": (tspecs.robust_nonrigid_alignment, _robust_random, 7, "resident"),
+    "robust_grid": (tspecs.robust_nonrigid_alignment, lambda: robust_inputs(12), 7, "stream"),
+}
+
+
+def _odd_system(name, kind):
+    """The port's first system of an _ODD_SYSTEMS case: (meta, b, pre, ctc
+    or None, the CSR the emulation reads)."""
+    if (name, kind) not in _SYSTEMS:
+        spec, make, _C, _layout = _ODD_SYSTEMS[name]
+        dims, inputs = make()
+        plan = ott.Problem(spec, kind=KINDS[kind]).plan(dims=dims, device="cpu",
+                                                       residual_reset_period=RESET)
+        meta, r0, pre, kw = plan.cg_inputs(dict(inputs))
+        ctc = fused_cg.pack(kw["ctc"], meta) if kind == "LM" else None
+        b = fused_cg.pack(r0, meta)
+        C = int(b.shape[0])
+        csr = meta["rem"] if meta["rem"] is not None else dict(
+            meta["empty_csr"], blk=torch.empty((0, C, C)))
+        _SYSTEMS[(name, kind)] = (meta, b, fused_cg.pack(pre, meta), ctc, csr)
+    return _SYSTEMS[(name, kind)]
+
+
+# (system, kind, ranges, lits, tol, q_tol): no exit and the real exits
+_ODD_CASES = [
+    (name, kind, n_blocks, lits, tol, q_tol)
+    for name in sorted(_ODD_SYSTEMS)
+    for kind, q_none, q_exit in (("GN", None, None), ("LM", -np.inf, 1e-4))
+    for n_blocks, lits, tol, q_tol in ((5, 30, 0.0, q_none), (3, 400, 1e-8, q_exit))
+]
+
+
+@pytest.mark.parametrize("name,kind,n_blocks,lits,tol,q_tol", _ODD_CASES)
+def test_odd_channel_emulation_is_bitwise_the_twin(name, kind, n_blocks, lits, tol, q_tol):
+    """Odd channel counts, C = 3 (cotangent) and C = 7 (robust_nonrigid,
+    whose graph group leaves RobustWeights out), in both layouts the route
+    gives them: the emulation on several ranges bitwise the twin, equal
+    counts."""
+    meta, b, pre, ctc, csr = _odd_system(name, kind)
+    _spec, _make, C, layout = _ODD_SYSTEMS[name]
+    assert int(b.shape[0]) == C and C % 2 == 1
+    plan = fused_cg.route_plan(meta, b, lm=ctc is not None)
+    assert plan["layout"] == layout and (meta["rem"] is None) == (layout == "stream")
+    part = _partition(dict(meta, rem=csr), n_blocks)
+    assert part["blocks"].shape[0] == n_blocks
+    de, le = emulate(meta["F"], meta["triples"], csr, b, pre, lits, tol, part,
+                     **_lm_kw(ctc, q_tol))
+    dt, lt = _twin(meta, b, pre, lits, tol, ctc, q_tol)
+    assert le == lt
+    if tol == 0.0:
+        assert le == lits
+    else:
+        assert 2 < le < lits
+    assert torch.equal(de, dt)
+    assert bool(torch.isfinite(de).all())
+
+
 @pytest.mark.parametrize("kind", ["GN", "LM"])
 def test_batch_emulation_is_bitwise_its_systems_and_the_batched_twin(kind):
     """A batch of the random mesh in the multi form: each system of the
@@ -633,6 +726,9 @@ def test_graph_wrapper_checks_operands_first():
                                        0.0, plan)
     with pytest.raises(ValueError, match="graph remainder"):
         fused_cg.tiled_graph_cg_kernel(dict(meta, rem=None), b, pre, 10, 0.0, plan)
+    # an odd channel count passes the operand checks (the device check
+    # raises last, on the CPU)
     odd, b5 = _odd_channels(meta, b)
-    with pytest.raises(ValueError, match="an even count"):
-        fused_cg.tiled_graph_cg_kernel(odd, b5, pre[:5].contiguous(), 10, 0.0, plan)
+    oplan = fused_cg.route_plan(odd, b5, lm=False)
+    with pytest.raises(ValueError, match="tiled_graph_cg_kernel needs CUDA"):
+        fused_cg.tiled_graph_cg_kernel(odd, b5, pre[:5].contiguous(), 10, 0.0, oplan)
