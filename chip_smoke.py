@@ -160,6 +160,20 @@ edges, 5% and 10% of the pairs dropped), gn_rem_tiled once a step, each
 solve's first two steps held to the exact-topology plan's and the whole
 solve to the plain version, with the host ms of each new topology's
 tables and partition.
+The rest of the linear operator: ARAP with rotation clusters
+(cluster_arap_spec: a 2-D Offset on arap's 192 x 192 grid mesh, one Angle
+a cluster of 8 x 8 vertices, 576 clusters, a fit over 1% of the
+vertices), whose graph couples unknowns on two vertex spaces, so that its
+assembled operator carries per-pair ELL blocks and no CG kernel takes it:
+GN 8x100 through the public API with fused_fallback "no_kernel" and no CG
+launch, its first two steps held to the JAX package's and to the composed
+operator's, one JtJ.p to the composed one, its float64 solve to the JAX
+package's; Plan.dump_jacobian on image_warping 512x512 (a masked block)
+and arap36k, the COO's Jt(J.p) and Jt.r in float64 on the host held to the
+assembled operator's apply and JtF; and use_explicit_jtj=True (J and Jt as
+CSR, two sparse matvecs a CG iteration) on poisson 512x512x4 GN 1x2000 and
+arap36k GN 2x100, held to the tiled route's solves, its ms per CG
+iteration beside gn_tiled's and gn_dia_tiled's.
 It exits non-zero, with no result line, when CUDA is not available or any
 check fails. It imports neither JAX nor opt_tpu.
 """
@@ -183,7 +197,7 @@ import numpy as np
 import torch
 
 import opt_tpu_torch as ot
-from opt_tpu_torch.functions import FunctionSet
+from opt_tpu_torch.functions import FunctionSet, tree_dot
 from opt_tpu_torch import problem as problem_mod
 from opt_tpu_torch.compile import compile_spec
 from opt_tpu_torch.models.specs import (
@@ -591,6 +605,29 @@ ODD_MULTI_SIDE, ODD_MULTI_B = 12, 3
 # shares of its edge pairs dropped (seeded; 10% leaves 132,020 edges, still
 # above the bucket below, 131,072). GN at GRAPH_NL x GRAPH_LI.
 DYN_DROPS = (0.0, 0.05, 0.10)
+# ARAP with rotation clusters (cluster_arap_spec): arap36k's grid mesh and
+# constraints in 2-D, one rotation a cluster of CLUSTER x CLUSTER vertices
+# (24 x 24 = 576 clusters), a fit over H on CLUSTER_FIT_SHARE of the
+# vertices and the two corners. GN at GRAPH_NL x GRAPH_LI.
+CLUSTER = 8
+CLUSTER_FIT_SHARE = 0.01
+# Its solve through the JAX package on the CPU, float32 and float64, GN
+# GRAPH_NL x GRAPH_LI: each step's cost and the CG count, as
+# `JAX_PLATFORMS=cpu python3 scripts/cluster_arap_numerics.py` prints them.
+# Like arap36k's it does not settle: float32 and float64 part by 7e-6 at
+# the third step, 2e-4 at the fourth, 6.9% at the end (ROADMAP.md queue
+# 3). So its first two steps are held at FIRST_STEPS_RTOL, the float64
+# solve's first CLUSTER_F64_STEPS at F64_RTOL.
+JAX_CPU_CLUSTER_COSTS = {
+    "costs": [42130.5703125, 43331.04296875, 41758.2890625, 42405.546875, 47659.0390625,
+              44832.83984375, 43131.359375, 34107.10546875], "lin_iters": 800,
+    "f64_costs": [42130.574699170895, 43331.0733685287, 41758.5850400699, 42414.299926863045,
+                  47682.00389255693, 42304.80144154036, 42557.149492336925, 36444.63939577949]}
+CLUSTER_F64_STEPS = 3
+CLUSTER_APPLY_RTOL = 1e-5  # one assembled JᵀJ·p against the composed Jᵀ(J·p)
+# the exported J's Jᵀ(J·p) and Jᵀr (float64, host) against the assembled
+# operator's apply and JᵀF (float32, card), of the largest entry
+JACOBIAN_RTOL = 1e-5
 # The sharded solves: four ranks, a 2x2 mesh, on the one card under gloo
 # (NCCL refuses two ranks on one device). Each case: label, spec, kind,
 # grid side, nonlinear x CG iterations, InitializationParameters. The
@@ -613,8 +650,11 @@ OUT_DIR = os.path.join("build", "profiles")  # git-ignored
 # LM block-Jacobi, x4 block-Jacobi batched) and volumetric 32^3 run this
 # fraction of their solves' nonlinear steps (8 -> 4), not the whole solve:
 # about 66,000 fewer device launches to profile, some 70 s of the script,
-# made room for the graph specs and dynamic topology paths. Their main
-# paths and solve times still run at full depth.
+# made room for the graph specs and dynamic topology paths; so do those of
+# image_warping 1024^2 (4 -> 2), arap36k and the armadillo x4 (8 -> 4), and
+# the cluster-rotation solve's profile (8 -> 4), made room for the cross
+# space, Jacobian and explicit-J paths. Their main paths and solve times
+# still run at full depth.
 PROFILE_NL_CUT = 2
 
 
@@ -1075,6 +1115,57 @@ GRAPH_SPECS = {
     "robust10k": (robust_nonrigid_alignment, "gaussNewtonGPU", robust_inputs, 8, 50,
                   "gn_dia_tiled", "stream"),
 }
+
+
+def cluster_arap_spec(dsl):
+    """ARAP with rotation clusters (Jacobson et al., "Fast Automatic
+    Skinning Transformations", 2012), written against the DSL module
+    ``dsl``: a 2-D Offset on the N vertices, one Angle a cluster on the P
+    clusters, the regulariser over G(v0, v1, r) with r the cluster of v0,
+    and a fit over H(c), some of the vertices. Its graph G couples unknowns
+    on two vertex spaces (Offset on N, Angle on P), so the assembled operator
+    carries per-pair ELL blocks and no CG kernel takes it."""
+    def cluster_arap(S):
+        N, P = S.Dim("N"), S.Dim("P")
+        w_fitSqrt = S.Param("w_fitSqrt")
+        w_regSqrt = S.Param("w_regSqrt")
+        Offset = S.Unknown("Offset", 2, (N,))
+        Angle = S.Unknown("Angle", 1, (P,))
+        UrShape = S.Array("UrShape", 2, (N,))
+        Constraints = S.Array("Constraints", 2, (N,))
+        G = S.Graph("G", v0=(N,), v1=(N,), r=(P,))
+        H = S.Graph("H", c=(N,))
+        S.UsePreconditioner(True)
+        e_fit = Offset(H.c) - Constraints(H.c)
+        valid = dsl.greatereq(Constraints(H.c)[..., 0:1], -999999.9)
+        S.Energy(dsl.Select(valid, w_fitSqrt * e_fit, 0.0))
+        arap = (Offset(G.v0) - Offset(G.v1)) - dsl.Rotate2D(
+            Angle(G.r), UrShape(G.v0) - UrShape(G.v1))
+        S.Energy(w_regSqrt * arap)
+
+    return cluster_arap
+
+
+def cluster_arap_inputs(n_side, cluster, fit_share=CLUSTER_FIT_SHARE, seed=0):
+    """arap_grid_inputs(n_side) in 2-D for cluster_arap_spec: the grid mesh's
+    edges as G's (v0, v1), r the cluster of v0 (square clusters of
+    cluster x cluster vertices, numbered row-major), the x and y of its
+    rest positions and constraints (one corner pinned, the other pulled by
+    (10, 0)), zero angles; H's c the two corners and a seeded `fit_share`
+    of the vertices."""
+    dims, g = arap_grid_inputs(n_side)
+    N = dims["N"]
+    per = n_side // cluster
+    v0 = g["G"]["v0"]
+    r = ((v0 // n_side) // cluster) * per + (v0 % n_side) // cluster
+    c = np.union1d([0, N - 1], np.random.RandomState(seed).choice(
+        N, max(1, int(round(fit_share * N))), replace=False)).astype(np.int32)
+    f32 = np.float32
+    return {"N": N, "P": per * per}, {
+        "Offset": g["Offset"][:, :2].copy(), "Angle": np.zeros((per * per, 1), f32),
+        "UrShape": g["UrShape"][:, :2].copy(), "Constraints": g["Constraints"][:, :2].copy(),
+        "G": {"v0": v0, "v1": g["G"]["v1"], "r": r.astype(np.int32)}, "H": {"c": c},
+        "w_fitSqrt": g["w_fitSqrt"], "w_regSqrt": g["w_regSqrt"]}
 
 
 def dynamic_topologies(inputs, drops=DYN_DROPS, seed=0):
@@ -1770,6 +1861,202 @@ def dynamic_main_path(dims, topologies):
             raise RuntimeError(f"{label} failed: {line}")
         out[k] = launches
     return out, system(arap_mesh_deformation, dims, topologies[-1], dynamic_topology=True)
+
+
+def _flat_host(d, names):
+    """A dict of tensors as one float64 numpy vector in ``names`` order."""
+    return np.concatenate([d[k].detach().double().cpu().numpy().reshape(-1) for k in names])
+
+
+def _rel_err(got, want):
+    return float(np.abs(got - want).max() / max(float(np.abs(want).max()), 1e-30))
+
+
+def _apply_draw(plan, seed=11):
+    """A seeded direction for an operator apply: per unknown, uniform in
+    [-1, 1], on the plan's device."""
+    rng = np.random.RandomState(seed)
+    c = plan.compiled
+    return {k: torch.as_tensor(rng.uniform(-1.0, 1.0, c.unknown_shape(k))).to(
+        device=plan.device, dtype=c.dtype) for k in c.unknown_names}
+
+
+def cluster_main_path(dims, inputs):
+    """ARAP with rotation clusters (cluster_arap_spec: Offset on the 36,864
+    vertices, an Angle on each of 576 clusters), GN GRAPH_NL x GRAPH_LI
+    through the public API. Its operator couples two vertex spaces (per-pair
+    ELL blocks), which no CG kernel takes: the plan must report
+    fused_fallback "no_kernel" and launch no CG instance. Held: its first
+    two steps' costs to the JAX package's (JAX_CPU_CLUSTER_COSTS) and to the
+    same plan's on the composed operator (use_fused_jtj=False) on the card,
+    at FIRST_STEPS_RTOL; one assembled JᵀJ·p to the composed Jᵀ(J·p) at
+    CLUSTER_APPLY_RTOL; the float64 solve's first CLUSTER_F64_STEPS costs to
+    the JAX package's float64 solve at F64_RTOL. Returns (the result, its
+    launches: none)."""
+    label = f"cluster_arap{dims['N']}x{dims['P']} GN {GRAPH_NL}x{GRAPH_LI}"
+    spec = cluster_arap_spec(ot)
+    fused_cg.reset_launch_counts()
+    plan = ot.Problem(spec).plan(dims=dims)
+    res = plan.solve(dict(inputs), nIterations=GRAPH_NL, lIterations=GRAPH_LI)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in fused_cg.fused_grid_cg_kernel.launches.items() if v}
+    g = plan._normalize_and_place(dict(inputs))[2]["G"]
+    ell = {f"{ko}<-{ki}": list(t.shape) for (ko, ki), t in g["__ell__"]["ell"].items()}
+    cplan = ot.Problem(spec).plan(dims=dims, init_params=ot.InitializationParameters(
+        use_fused_jtj=False))
+    comp = cplan.solve(dict(inputs), nIterations=2, lIterations=GRAPH_LI)
+    # one apply of the assembled operator against the composed one
+    u, c, gr, p = plan._normalize_and_place(dict(inputs))
+    fs = FunctionSet(plan.compiled, c, gr, p)
+    fs.masks(u)
+    A = fs.assemble_stencil(u, plan.solver._stencil_plan)[0]
+    v = fs.mask_rows(_apply_draw(plan))
+    _r, J, JT = fs.linearize(u)
+    names = list(plan.compiled.unknown_names)
+    apply_rel = _rel_err(_flat_host(A(v), names), _flat_host(JT(J(v)), names))
+    ref = JAX_CPU_CLUSTER_COSTS
+    first = res.costs[:2]
+    first_rel = [abs(a - b) / abs(b) for a, b in zip(first, ref["costs"])]
+    comp_rel = [abs(a - b) / abs(b) for a, b in zip(first, comp.costs)]
+    line = {"check": "main_path", "case": label, "form": "eager loop (no kernel form)",
+            "kernel_launches": launches, "fused_fallback": plan.fused_fallback,
+            "composed_fused_fallback": cplan.fused_fallback, "ell_tables": ell,
+            "costs": res.costs, "final_cost": res.final_cost,
+            "lin_iters": res.num_linear_iterations, "nonlinear_iters": res.num_iterations,
+            "jax_cpu_costs": ref["costs"], "jax_cpu_lin_iters": ref["lin_iters"],
+            "first_rel_diff_to_jax_cpu": first_rel, "composed_first_costs": comp.costs,
+            "first_rel_diff_to_composed": comp_rel, "apply_rel_diff_to_composed": apply_rel,
+            "final_rel_diff_to_jax_cpu": abs(res.final_cost - ref["costs"][-1]) / ref["costs"][-1],
+            "solve_s": res.wall_time_s}
+    log(json.dumps(line))
+    shapes = {"Offset": (dims["N"], 2), "Angle": (dims["P"], 1)}
+    finite = all(tuple(res.unknowns[k].shape) == s and bool(torch.isfinite(res.unknowns[k]).all())
+                 for k, s in shapes.items())
+    if (launches or plan.fused_fallback != "no_kernel" or res.num_iterations != GRAPH_NL
+            or not finite or len(first_rel) < 2 or max(first_rel) > FIRST_STEPS_RTOL
+            or len(comp_rel) < 2 or max(comp_rel) > FIRST_STEPS_RTOL
+            or apply_rel > CLUSTER_APPLY_RTOL or cplan.fused_fallback is not None):
+        raise RuntimeError(f"{label} failed: {line}")
+    float64_witness(label, spec, "gaussNewtonGPU", dims, inputs, GRAPH_NL, GRAPH_LI,
+                    ref["f64_costs"], CLUSTER_F64_STEPS)
+    return res, launches
+
+
+def jacobian_checks(label, spec, dims, inputs):
+    """Plan.dump_jacobian on the card's plan: on the host, Jᵀ(J·p) from the
+    COO in float64 against the assembled operator's apply (the masked p,
+    the masked rows: M·A·M), and Jᵀr against its JᵀF, each at
+    JACOBIAN_RTOL of the largest entry. Prints the nnz and the host ms."""
+    from scipy import sparse
+
+    plan = ot.Problem(spec).plan(dims=dims)
+    plan.dump_jacobian(dict(inputs))  # the probes' first call, apart
+    t0 = time.perf_counter()
+    coo = plan.dump_jacobian(dict(inputs))
+    host_ms = (time.perf_counter() - t0) * 1e3
+    Jh = sparse.csr_matrix((np.asarray(coo["vals"], np.float64), (coo["rows"], coo["cols"])),
+                           shape=coo["shape"])
+    u, c, g, p = plan._normalize_and_place(dict(inputs))
+    fs = FunctionSet(plan.compiled, c, g, p)
+    fs.masks(u)
+    A, _diag, jtf_fn, _meta = fs.assemble_stencil(u, plan.solver._stencil_plan)
+    names = list(plan.compiled.unknown_names)
+    rows_mask = _flat_host(fs.mask_rows({k: torch.ones_like(x) for k, x in u.items()}), names)
+    v = fs.mask_rows(_apply_draw(plan))
+    apply_rel = _rel_err(_flat_host(A(v), names), rows_mask * (Jh.T @ (Jh @ _flat_host(v, names))))
+    r_terms = fs.F(u)
+    r = np.concatenate([t.detach().double().cpu().numpy().reshape(-1) for t in r_terms])
+    jtf_rel = _rel_err(_flat_host(jtf_fn(r_terms), names), rows_mask * (Jh.T @ r))
+    line = {"check": "jacobian", "case": label, "shape": list(coo["shape"]),
+            "nnz": int(len(coo["vals"])), "host_ms": host_ms,
+            "jtjp_rel_diff_to_assembled": apply_rel, "jtr_rel_diff_to_assembled_jtf": jtf_rel,
+            "excluded_rows": int((rows_mask == 0).sum())}
+    log(json.dumps(line))
+    if apply_rel > JACOBIAN_RTOL or jtf_rel > JACOBIAN_RTOL:
+        raise RuntimeError(f"{label}: the exported J disagrees with the assembled operator: "
+                           f"{line}")
+    return line
+
+
+def explicit_main_paths(res_poisson, res_arap, poisson_in, arap_dims, arap_in):
+    """use_explicit_jtj=True through the public API (J and Jᵀ as CSR, two
+    sparse matvecs a CG iteration in the eager loop, no kernel): poisson
+    512x512x4 GN 1x2000, its final cost within GOLDEN_RTOL of the tiled
+    route's solve in this run and of the JAX CPU's; arap36k GN 2xGRAPH_LI,
+    its two steps' costs within FIRST_STEPS_RTOL of the tiled route's.
+    Returns {case: (plan, inputs)} for the timing."""
+    out = {}
+    cases = (("poisson", poisson_image_editing, _grid(MAIN_N), poisson_in, 1, 2000),
+             ("arap36k", arap_mesh_deformation, arap_dims, arap_in, 2, GRAPH_LI))
+    for name, spec, dims, inp, nl, li in cases:
+        label = f"{name} explicit J GN {nl}x{li}"
+        fused_cg.reset_launch_counts()
+        plan = ot.Problem(spec).plan(dims=dims, init_params=ot.InitializationParameters(
+            use_explicit_jtj=True))
+        u, _c, g, _p = plan._normalize_and_place(dict(inp))
+        t0 = time.perf_counter()
+        structure = plan.solver._explicit_structure(g, u)  # kept for the solve
+        structure_ms = (time.perf_counter() - t0) * 1e3
+        res = plan.solve(dict(inp), nIterations=nl, lIterations=li)
+        torch.cuda.synchronize()
+        launches = sum(fused_cg.fused_grid_cg_kernel.launches.values())
+        line = {"check": "main_path", "case": label, "form": "explicit J, eager loop",
+                "costs": res.costs, "final_cost": res.final_cost,
+                "lin_iters": res.num_linear_iterations, "kernel_launches": launches,
+                "fused_fallback": plan.fused_fallback, "solve_s": res.wall_time_s,
+                "nnz_J": int(structure["J"][1].shape[0]), "structure_host_ms": structure_ms}
+        if name == "poisson":
+            rel = [abs(res.final_cost - res_poisson.final_cost) / res_poisson.final_cost,
+                   abs(res.final_cost - JAX_CPU_POISSON_512_COST) / JAX_CPU_POISSON_512_COST]
+            line.update(tiled_final_cost=res_poisson.final_cost,
+                        jax_cpu_final_cost=JAX_CPU_POISSON_512_COST,
+                        rel_diff_to_tiled_and_jax_cpu=rel,
+                        tiled_lin_iters=res_poisson.num_linear_iterations)
+            ok = max(rel) <= GOLDEN_RTOL
+        else:
+            rel = [abs(a - b) / abs(b) for a, b in zip(res.costs, res_arap.costs[:nl])]
+            line.update(tiled_first_costs=res_arap.costs[:nl], first_rel_diff_to_tiled=rel)
+            ok = len(rel) == nl and max(rel) <= FIRST_STEPS_RTOL
+        log(json.dumps(line))
+        if (not ok or launches or plan.fused_fallback is not None
+                or plan.solver._stencil_plan is not None):
+            raise RuntimeError(f"{label} failed: {line}")
+        out[name] = (plan, inp)
+    return out
+
+
+def time_explicit_cg(explicit, t_tiled, gpu):
+    """ms per executed CG iteration of the explicit route (the eager loop,
+    JᵀJ·p as two CSR matvecs, a host flag an iteration), CUDA events over
+    TIMED_ITERS iterations with no exit, beside gn_tiled's (poisson) and
+    gn_dia_tiled's (arap36k) in this call; written down, not gated."""
+    beside = {"poisson": ("gn", f"poisson{MAIN_N}x4", "gn_tiled"),
+              "arap36k": ("gn_dia", "arap36k", "gn_dia_tiled")}
+    for name, (plan, inp) in explicit.items():
+        sv = plan.solver
+        u, c, g, p = plan._normalize_and_place(dict(inp))
+        sp = plan.solver_params
+        fs = FunctionSet(plan.compiled, c, g, p)
+        state = sv.init(u, c, g, p, sp)
+        s = sv._system(u, fs, state, sp)
+        pre = s["pre"]
+
+        def run():
+            return fused_cg._run_cg(s["r0"], s["A"], lambda r: {k: pre[k] * r[k] for k in r},
+                                    tree_dot, TIMED_ITERS, 0.0, guard_div=sv.ip.guard_division_by_zero)
+
+        run()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        _d, iters = run()
+        end.record()
+        torch.cuda.synchronize()
+        key, tlabel, form = beside[name]
+        kernel_ms = t_tiled[key][0] / TIMED_ITERS_RUN[(tlabel, form)]
+        log(json.dumps({"timing": f"{name} explicit J CG iteration", "gpu": gpu,
+                        "ms_per_cg_iter": start.elapsed_time(end) / iters, "iters": iters,
+                        f"{form}_ms_per_cg_iter": kernel_ms}))
 
 
 def volumetric_main_path(pre, inputs):
@@ -3018,6 +3305,9 @@ def main() -> int:
         arm_dims, arm_in = armadillo_inputs()
         spec_in = {label: GRAPH_SPECS[label][2](SPEC_SIDE) for label in GRAPH_SPECS}
         dyn_in = dynamic_topologies(arap_in)
+        cl_dims, cl_in = cluster_arap_inputs(ARAP_SIDE, CLUSTER)
+        iw_mask_in = bench_image_warping_inputs(IW_N)
+        iw_mask_in["Mask"][IW_N // 4 : IW_N // 2, IW_N // 4 : IW_N // 2] = 1.0  # excluded
         prep_s = time.perf_counter() - t0
         info = building.result()
     load_library()
@@ -3560,7 +3850,7 @@ def main() -> int:
                 runs[(IW_BIG_N, "gaussNewtonGPU")], lambda: ot.Problem(image_warping).plan(
                     dims=_grid(IW_BIG_N)).solve(dict(iw_big_in), nIterations=4,
                                                 lIterations=100), "gn_hbm_tiled")
-    _r, l_arap = graph_main_path("arap36k", arap_dims, arap_in, "gn_dia_tiled")
+    res_arap, l_arap = graph_main_path("arap36k", arap_dims, arap_in, "gn_dia_tiled")
     _r, l_arm = graph_main_path("armadillo31k", arm_dims, arm_in, "gn_rem_tiled")
     float64_witness(f"arap36k GN {GRAPH_NL}x{GRAPH_LI}", arap_mesh_deformation, "gaussNewtonGPU",
                     arap_dims, arap_in, GRAPH_NL, GRAPH_LI, JAX_CPU_ARAP36K_F64_COSTS, F64_STEPS)
@@ -3571,6 +3861,12 @@ def main() -> int:
     graph_plan_line("arap36k dynamic topology 2 GN", *dyn_sys[:2])
     err_dyn = variant_checks("arap36k dynamic topology 2 GN", dyn_sys, 50, GRAPH_LI,
                              bitwise=True, template=True)
+    # couplings across vertex spaces (the per-pair ELL blocks, no kernel
+    # form), the Jacobian export and the explicit J
+    _r, l_cluster = cluster_main_path(cl_dims, cl_in)
+    jacobian_checks(f"image_warping{IW_N}x3 masked", image_warping, _grid(IW_N), iw_mask_in)
+    jacobian_checks("arap36k", arap_mesh_deformation, arap_dims, arap_in)
+    explicit = explicit_main_paths(res_poisson, res_arap, inputs, arap_dims, arap_in)
     vol_res, l_vol = volumetric_main_path("jacobi", vol_in)
     vol_bj_res, l_vol_bj = volumetric_main_path("block_jacobi", vol_in)
     log(json.dumps({"check": "block_jacobi_iters", "case": f"volumetric{VOL_N} GN {VOL_NL}x{VOL_LI}",
@@ -3692,6 +3988,8 @@ def main() -> int:
             (t_tpl if template else t_tiled).setdefault(key, t)
     del iw_bj, msys, gsys, jsys, dgm, dglm
     t_gn, t_mixed, t_lm = t_tiled["gn"], t_tiled["gn_iw"], t_tiled["lm_iw"]
+    time_explicit_cg(explicit, t_tiled, gpu)
+    del explicit
     phases["tiled_vs_template_kernel_turns"] = (time.perf_counter() - t_start
                                                 - sum(phases.values()))
     t_k5 = time_tile_apply(f"poisson{n}x4", meta, gpu)
@@ -3837,14 +4135,17 @@ def main() -> int:
             profile_solve(f"{slabel} {route}".replace(" ", "_"), lambda: splan.solve(
                 dict(split_in), nIterations=1, lIterations=2000), gpu)  # run at once
             aplan = ot.Problem(arap_mesh_deformation).plan(dims=arm_bdims)
-            profile_solve(f"{arm_blabel} {route}".replace(" ", "_"), lambda: aplan.solve_batched(
-                dict(arm_bin), nIterations=GRAPH_NL, lIterations=GRAPH_LI), gpu)  # run at once
+            plabel, pl = cut(arm_blabel, GRAPH_NL)
+            profile_solve(f"{plabel} {route}".replace(" ", "_"), lambda: aplan.solve_batched(
+                dict(arm_bin), nIterations=pl, lIterations=GRAPH_LI), gpu)  # run at once
             kplan = ot.Problem(image_warping).plan(dims=_grid(IW_BIG_N))
-            profile_solve(f"{k6_label} {route}".replace(" ", "_"), lambda: kplan.solve(
-                dict(iw_big_in), nIterations=4, lIterations=100), gpu)  # run at once
+            plabel, pl = cut(k6_label, 4)
+            profile_solve(f"{plabel} {route}".replace(" ", "_"), lambda: kplan.solve(
+                dict(iw_big_in), nIterations=pl, lIterations=100), gpu)  # run at once
             gplan = ot.Problem(arap_mesh_deformation).plan(dims=arap_dims)
-            profile_solve(f"{arap_label} {route}".replace(" ", "_"), lambda: gplan.solve(
-                dict(arap_in), nIterations=GRAPH_NL, lIterations=GRAPH_LI), gpu)  # run at once
+            plabel, pl = cut(arap_label, GRAPH_NL)
+            profile_solve(f"{plabel} {route}".replace(" ", "_"), lambda: gplan.solve(
+                dict(arap_in), nIterations=pl, lIterations=GRAPH_LI), gpu)  # run at once
             # volumetric's Jacobi solve only: a profile of its ~25,000 device
             # launches (8 steps) takes about 19 s
             vplan = ot.Problem(volumetric_mesh_deformation).plan(dims=_vol(VOL_N))
@@ -3873,6 +4174,13 @@ def main() -> int:
     dplan = ot.Problem(arap_mesh_deformation).plan(dims=arap_dims, dynamic_topology=True)
     profile_solve(f"arap36k_dynamic_topology_2_GN_{GRAPH_NL}x{GRAPH_LI}", functools.partial(
         dplan.solve, dict(dyn_in[-1]), nIterations=GRAPH_NL, lIterations=GRAPH_LI), gpu)
+    # the cluster solve's eager loop, at PROFILE_NL_CUT of its steps: its 8
+    # steps make some 77,500 device launches to profile
+    cplan = ot.Problem(cluster_arap_spec(ot)).plan(dims=cl_dims)
+    cl_nl = max(1, GRAPH_NL // PROFILE_NL_CUT)
+    profile_solve(f"cluster_arap{cl_dims['N']}x{cl_dims['P']}_GN_{cl_nl}x{GRAPH_LI}",
+                  functools.partial(cplan.solve, dict(cl_in), nIterations=cl_nl,
+                                    lIterations=GRAPH_LI), gpu)
     phases["timings_and_profiles"] = time.perf_counter() - t_start - sum(phases.values())
 
     def entry(name, replaces, launches, err, timing, source=KERNEL_SOURCE, template=None,
@@ -3913,7 +4221,8 @@ def main() -> int:
                                            "image_warping_block_jacobi_batched": l_bj_batch,
                                            "image_warping_batched": l_iw_batch,
                                            "sharded_tile_apply": l_k5, "graph_specs": l_spec,
-                                           "dynamic_topology": l_dyn}}))
+                                           "dynamic_topology": l_dyn,
+                                           "cluster_arap": l_cluster}}))
     log(json.dumps({"command_s": time.perf_counter() - t_start,
                     "checks_and_main_paths_s": phase_s, "phases_s": phases}))
     log(f"gpu: {gpu}")

@@ -16,15 +16,17 @@ the solver assembles, once per nonlinear iteration, coefficient fields
   through the combined incidence table: the same-vertex blocks pre-sum into
   one block S[v] per vertex, cross-vertex blocks at dominant vertex-id
   offsets into per-offset blocks (DIA), and the rest into one block per
-  distinct (v, u) read (the remainder). Every per-vertex sum is a gather
-  and a sum in a fixed order, never an atomic scatter.
+  distinct (v, u) read (the remainder). Couplings between slots of
+  different vertex spaces (a cluster's rotation read by its vertices' edges)
+  go through per-slot ELL tables: per output vertex its incident edges'
+  blocks, applied to the other space's p gathered per edge. Every
+  per-vertex sum is a gather and a sum in a fixed order, never an atomic
+  scatter.
 
 The per-slot Jacobian fields D[t, s] = ∂r_t/∂slot_s come from one-hot jvp
 probes (``torch.func``) of the pointwise slot-form residual function, and
 the channel-pair sparsity is detected once per plan by probing randomized
-inputs on a small grid, exactly as the reference package does. Graph
-couplings between slots of different vertex spaces, whose unknowns are
-both on the graph, are not ported yet (ROADMAP.md queue 1 item 4).
+inputs on a small grid, exactly as the reference package does.
 """
 
 from __future__ import annotations
@@ -47,10 +49,6 @@ from .solver.params import FLOAT_EPSILON
 WKey = Tuple[str, str, Tuple[int, ...], int, int]
 # graph: (graph, u_out, key_out, u_in, key_in, i, j) -> contributions
 GKey = Tuple[str, str, str, str, str, int, int]
-CROSS_SPACE_TODO = (
-    "graph couplings between unknowns on slots of different vertex spaces are "
-    "not ported yet (ROADMAP.md queue 1 item 4)"
-)
 
 # the reference package's probe seed (opt_tpu/assembly.py:497): identical
 # draws make identical structure decisions
@@ -529,8 +527,11 @@ def _graph_layouts(compiled, plan, graphs):
     """The graph couplings grouped per (graph, vertex-space group): returns
     (g_couplings {(g, u_out, k_out, u_in, k_in): {(t, so, si)}},
     g_layouts {(g, gk): (slot names, u_list, offs, ct)},
-    grp_cks {(g, gk): [coupling keys]}, slot_group {(g, slot): gk}). The
-    group packs its unknowns' channels in sorted unknown order."""
+    grp_cks {(g, gk): [coupling keys]} of the couplings within a group,
+    pair_cks {(g, gk_out, gk_in, k_out, k_in): [coupling keys]} of those
+    between slots of different groups (different vertex spaces), and
+    slot_group {(g, slot): gk}). The group packs its unknowns' channels in
+    sorted unknown order."""
     g_couplings: Dict[Tuple, set] = {}
     for key, contribs in plan.g_spec.items():
         g_couplings.setdefault(key[:5], set()).update(contribs)
@@ -555,13 +556,19 @@ def _graph_layouts(compiled, plan, graphs):
             for k in names:
                 slot_group[(g, k)] = gk
     grp_cks: Dict[Tuple, list] = {}
+    pair_cks: Dict[Tuple, list] = {}
     for ck in sorted(g_couplings):
         g, _u_out, k_out, _u_in, k_in = ck
-        gk = slot_group[(g, k_out)]
-        if slot_group[(g, k_in)] != gk:
-            raise NotImplementedError(CROSS_SPACE_TODO)
-        grp_cks.setdefault((g, gk), []).append(ck)
-    return g_couplings, g_layouts, grp_cks, slot_group
+        gk_o, gk_i = slot_group[(g, k_out)], slot_group[(g, k_in)]
+        if gk_o == gk_i:
+            grp_cks.setdefault((g, gk_o), []).append(ck)
+            continue
+        ell = graphs[g].get("__ell__")
+        if ell is None or (k_out, k_in) not in ell["ell"]:
+            raise RuntimeError(f"graph {g!r}: the ELL tables of the coupling {k_out} <- {k_in} "
+                               "across vertex spaces are not bound (Plan._augment_incidence)")
+        pair_cks.setdefault((g, gk_o, gk_i, k_out, k_in), []).append(ck)
+    return g_couplings, g_layouts, grp_cks, pair_cks, slot_group
 
 
 def assemble(compiled, plan: AssemblyPlan, X, consts, graphs, params, row_masks,
@@ -711,7 +718,7 @@ def assemble(compiled, plan: AssemblyPlan, X, consts, graphs, params, row_masks,
     # cross blocks in the rotation order of the combined cross table),
     # gathered per vertex through the combined incidence table. Exclusion
     # masks apply in the loop as out = M·A(M·p) (0/1 diagonal M).
-    g_couplings, g_layouts, grp_cks, slot_group = _graph_layouts(compiled, plan, graphs)
+    g_couplings, g_layouts, grp_cks, pair_cks, slot_group = _graph_layouts(compiled, plan, graphs)
 
     def _group_mask(g, gk):
         """Packed [N, ct] 0/1 row mask of a group, or None."""
@@ -727,6 +734,16 @@ def assemble(compiled, plan: AssemblyPlan, X, consts, graphs, params, row_masks,
             )
         return torch.cat(parts, dim=-1)
 
+    def _coupling_block(ck):
+        """The [E, C_out, C_in] block of a coupling, summed over its
+        contributions in a fixed order."""
+        blk = None
+        for key in sorted(g_couplings[ck]):
+            blk = B_all[key] if blk is None else blk + B_all[key]
+        return blk
+
+    g_masks = {key: _group_mask(*key) for key in
+               set(grp_cks) | {k[:2] for k in pair_cks} | {(k[0], k[2]) for k in pair_cks}}
     grp_exec = {}
     for (g, gk), cks in grp_cks.items():
         names, u_list, offs, ct = g_layouts[(g, gk)]
@@ -743,10 +760,7 @@ def assemble(compiled, plan: AssemblyPlan, X, consts, graphs, params, row_masks,
                 _g, u_out, _ko, u_in, _ki = ck
                 oo, oi = _offs[u_out], _offs[u_in]
                 co, ci = unknown_channels[u_out], unknown_channels[u_in]
-                blk = None
-                for key in sorted(g_couplings[ck]):
-                    blk = B_all[key] if blk is None else blk + B_all[key]
-                acc[:, oo : oo + co, oi : oi + ci] += blk
+                acc[:, oo : oo + co, oi : oi + ci] += _coupling_block(ck)
             return acc
 
         P = {}
@@ -778,7 +792,7 @@ def assemble(compiled, plan: AssemblyPlan, X, consts, graphs, params, row_masks,
         n_out, d_tot = inc.shape
         G = torch.cat(rows, dim=0)[inc.reshape(-1)].reshape(n_out, d_tot, n_stack * ct * ct)
         ex = {"S": G[:, :, : ct * ct].sum(dim=1), "ct": ct, "dia": [], "C": None,
-              "cross": None, "mask": _group_mask(g, gk), "layout": (u_list, offs, ct),
+              "cross": None, "mask": g_masks[(g, gk)], "layout": (u_list, offs, ct),
               "tables": tabs}
         if has_cross:
             Cb = G[:, :, ct * ct :].reshape(n_out, d_tot, m - 1, ct * ct)
@@ -798,6 +812,30 @@ def assemble(compiled, plan: AssemblyPlan, X, consts, graphs, params, row_masks,
                 ex["C"] = C_r  # [N, Dm, ct*ct]
                 ex["cross"] = tabs["rem_cross"]  # [N, Dm], sentinel N
         grp_exec[(g, gk)] = ex
+
+    # couplings between slots of different groups: per (graph, out-group,
+    # in-group, k_out, k_in) the blocks of k_out's incident edges per output
+    # vertex, W [N_out, D, ct_out, ct_in] (the sentinel edge's block zero),
+    # and the in-group's vertex each reads, ell [N_out, D] (sentinel N_in)
+    pair_exec = {}
+    for (g, gk_o, gk_i, k_out, k_in), cks in pair_cks.items():
+        _no, _uo, offs_o, ct_o = g_layouts[(g, gk_o)]
+        _ni, _ui, offs_i, ct_i = g_layouts[(g, gk_i)]
+        E = graphs[g][k_out].shape[0]
+        Wb = _zeros((E, ct_o, ct_i))
+        for ck in cks:
+            _g, u_out, _ko, u_in, _ki = ck
+            oo, oi = offs_o[u_out], offs_i[u_in]
+            co, ci = unknown_channels[u_out], unknown_channels[u_in]
+            Wb[:, oo : oo + co, oi : oi + ci] += _coupling_block(ck)
+        tabs = graphs[g]["__ell__"]
+        inc = tabs["inc"][k_out]  # [N_out, D] edge ids, sentinel E
+        n_out, d_max = inc.shape
+        W_ext = torch.cat([Wb, torch.zeros((1, ct_o, ct_i), dtype=dt, device=X_dev)])
+        pair_exec[(g, gk_o, gk_i, k_out, k_in)] = {
+            "W": W_ext[inc.reshape(-1)].reshape(n_out, d_max, ct_o, ct_i),
+            "ell": tabs["ell"][(k_out, k_in)], "out": (g, gk_o), "in": (g, gk_i),
+        }
 
     def apply_fn(p):
         out = {u: None for u in unknown_channels}
@@ -831,13 +869,25 @@ def assemble(compiled, plan: AssemblyPlan, X, consts, graphs, params, row_masks,
                 sl = acc[..., offs[u] : offs[u] + unknown_channels[u]]
                 out[u] = sl if out[u] is None else out[u] + sl
         # graph groups: the same-vertex blocks, the DIA offsets as shifted
-        # reads, the remainder as one gather of p per distinct (v, u)
-        for ex in grp_exec.values():
-            u_list, offs, ct = ex["layout"]
-            pp = torch.cat([p[u] for u in u_list], dim=-1) if len(u_list) > 1 else p[u_list[0]]
-            pm = ex["mask"]
-            if pm is not None:
-                pp = pp * pm
+        # reads, the remainder as one gather of p per distinct (v, u); then
+        # the couplings across groups, each a gather of the in-group's p
+        # per incident edge, into the out-group's sum before its row mask
+        packed = {}
+
+        def packed_p(key):
+            pp = packed.get(key)
+            if pp is None:
+                _names, u_list, _offs, _ct = g_layouts[key]
+                pp = torch.cat([p[u] for u in u_list], dim=-1) if len(u_list) > 1 else p[u_list[0]]
+                if g_masks[key] is not None:
+                    pp = pp * g_masks[key]
+                packed[key] = pp
+            return pp
+
+        group_acc = {}
+        for key, ex in grp_exec.items():
+            ct = ex["ct"]
+            pp = packed_p(key)
             contrib = _block_matvec(ex["S"], pp, ct)
             for off, W in ex["dia"]:
                 contrib = contrib + _block_matvec(W, shift(pp, (off,)), ct)
@@ -846,8 +896,18 @@ def assemble(compiled, plan: AssemblyPlan, X, consts, graphs, params, row_masks,
                 pc = pp_ext[ex["cross"]]  # [N, Dm, ct]
                 C = ex["C"].reshape(pc.shape[0], pc.shape[1], ct, ct)
                 contrib = contrib + torch.sum(C * pc[:, :, None, :], dim=(1, 3))
-            if pm is not None:
-                contrib = contrib * pm
+            group_acc[key] = contrib
+        for pe in pair_exec.values():
+            pp = packed_p(pe["in"])
+            pp_ext = torch.cat([pp, torch.zeros((1, pp.shape[-1]), dtype=dt, device=X_dev)])
+            pg = pp_ext[pe["ell"]]  # [N_out, D, ct_in]
+            contrib = torch.sum(pe["W"] * pg[:, :, None, :], dim=(1, 3))
+            cur = group_acc.get(pe["out"])
+            group_acc[pe["out"]] = contrib if cur is None else cur + contrib
+        for key, contrib in group_acc.items():
+            _names, u_list, offs, _ct = g_layouts[key]
+            if g_masks[key] is not None:
+                contrib = contrib * g_masks[key]
             for u in u_list:
                 sl = contrib[:, offs[u] : offs[u] + unknown_channels[u]]
                 out[u] = sl if out[u] is None else out[u] + sl
@@ -1052,9 +1112,12 @@ def assemble(compiled, plan: AssemblyPlan, X, consts, graphs, params, row_masks,
             ex["dia"] = [(off, W.to(cdt)) for off, W in ex["dia"]]
             if ex["C"] is not None:
                 ex["C"] = ex["C"].to(cdt)
+        for pe in pair_exec.values():
+            pe["W"] = pe["W"].to(cdt)
 
-    if grp_exec:
-        cg_meta = plan_fused_graph_cg(compiled, plan, fields, grp_exec, coeff_dtype=cdt)
+    if grp_exec or pair_exec:
+        cg_meta = plan_fused_graph_cg(compiled, plan, fields, grp_exec, coeff_dtype=cdt,
+                                      pair_exec=pair_exec)
     else:
         cg_meta = plan_fused_grid_cg(compiled, plan, fields, w_layouts, coeff_dtype=cdt,
                                      allow_split=allow_split)

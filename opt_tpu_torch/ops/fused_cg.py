@@ -303,7 +303,7 @@ def _merge_remainders(parts, n: int):
 
 
 def plan_fused_graph_cg(compiled, plan, fields: Dict, grp_exec: Dict,
-                        coeff_dtype=None) -> Optional[Dict]:
+                        coeff_dtype=None, pair_exec=None) -> Optional[Dict]:
     """The loop's inputs for a graph problem whose unknowns all live on one
     1-D vertex space, float32: the same-vertex blocks S and the DIA fields
     of every group as triples on the grid [1, N], the centered fields of
@@ -314,12 +314,15 @@ def plan_fused_graph_cg(compiled, plan, fields: Dict, grp_exec: Dict,
     its centred triples. Each group's row mask is folded into its
     fields and blocks on both sides (M·A·M); then F and the remainder's
     blocks are stored in ``coeff_dtype`` (None: float32). Returns the meta
-    or None (the unknowns span several spaces, or more triples or
-    channels than the kernel holds). A meta without the remainder carries
+    or None: the operator couples slots of different vertex spaces
+    (``pair_exec``, the assembly's per-pair ELL blocks, which the kernel has
+    no form for; the JAX package's planner refuses them too), the unknowns
+    span several spaces, or it has more triples or channels than the
+    kernel holds. A meta without the remainder carries
     under ``"empty_csr"`` the first group's empty CSR (``graph_group_tables``'s
     entry of that name: rowptr, col and its :class:`GraphPartitions`), by
     which the graph route partitions it; ``"rem"`` stays None."""
-    if compiled.dtype != torch.float32:
+    if pair_exec or not grp_exec or compiled.dtype != torch.float32:
         return None
     u_list = list(compiled.unknown_names)
     isps = {compiled.registry.images[u].ispace for u in u_list}

@@ -225,6 +225,31 @@ def incidence_table(idx, num_vertices: int):
     return table
 
 
+def ell_tables(idx_by_slot, num_vertices_by_slot, width_bucket=None):
+    """Per-slot ELL tables of the couplings between slots of different
+    vertex spaces. For each slot k: ``inc[k]`` [N_k, D_k] edge ids incident
+    to each vertex (sentinel E); for each ordered slot pair (k_out, k_in),
+    k_in != k_out: ``ell[(k_out, k_in)][v, d] = idx_k_in[inc_k_out[v, d]]``
+    (sentinel N_k_in), the vertex whose p-value row (v, d) reads.
+    ``width_bucket`` (a plan for changing topologies) rounds each incidence
+    width up, so that topologies of one edge bucket mostly share shapes;
+    its sentinel rows flow through to the vertex sentinel."""
+    inc = {k: incidence_table(np.asarray(i), num_vertices_by_slot[k])
+           for k, i in idx_by_slot.items()}
+    if width_bucket is not None:
+        inc = {k: pad_table_width(t, width_bucket(t.shape[1]), np.asarray(idx_by_slot[k]).shape[0])
+               for k, t in inc.items()}
+    ell = {}
+    for ko, tko in inc.items():
+        E = np.asarray(idx_by_slot[ko]).shape[0]
+        for ki, iki in idx_by_slot.items():
+            if ki == ko:
+                continue
+            idx_ext = np.concatenate([np.asarray(iki), [num_vertices_by_slot[ki]]]).astype(np.int32)
+            ell[(ko, ki)] = idx_ext[np.minimum(tko, E)]
+    return inc, ell
+
+
 def ell_to_csr(cross, num_vertices: int):
     """A remainder's ELL table [N, D] (sentinel ``num_vertices``) as a
     destination-sorted CSR: (rowptr [N+1] int32, col [nnz] int32, src

@@ -436,13 +436,15 @@ class Plan:
 
     def _augment_incidence(self, graphs):
         """Attach each graph's group tables (``graph_group_tables``) under
-        ``"__groups__"``: {group key: tables}. The tables depend only on the
-        index data: they are cached by a hash of it (a few topologies, least
-        recently used first out; 32 under ``dynamic_topology``, whose graphs
-        are first padded by ``_pad_dynamic``), so a new array with the same
-        edges builds nothing. Each cached remainder CSR carries its own
-        ``fused_cg.GraphPartitions`` with its device tables: they go with
-        its topology's entry."""
+        ``"__groups__"``: {group key: tables}, and, where its operator couples
+        slots of different vertex spaces, their per-slot ELL tables under
+        ``"__ell__"`` (``_ell_tables``). The tables depend only on the index
+        data: they are cached by a hash of it, both kinds in one entry (a few
+        topologies, least recently used first out; 32 under
+        ``dynamic_topology``, whose graphs are first padded by
+        ``_pad_dynamic``), so a new array with the same edges builds nothing.
+        Each cached remainder CSR carries its own ``fused_cg.GraphPartitions``
+        with its device tables: they go with its topology's entry."""
         if not graphs:
             return graphs
         if self.dynamic_topology:
@@ -464,18 +466,53 @@ class Plan:
                 if idxs[s].size and (idxs[s].min() < 0 or idxs[s].max() >= n_s):
                     raise ValueError(f"graph {gname!r}: slot {s!r} indexes outside [0, {n_s})")
             key = (gname, hashlib.sha1(b"".join(idxs[s].tobytes() for s in names)).hexdigest())
-            groups = cache.pop(key, None)
-            if groups is None:
-                groups = {
-                    gk: graph_group_tables(idxs, gnames, n, self.device, dt, max_off,
-                                           dynamic=self.dynamic_topology)
-                    for gk, gnames, n in graph_ops.slot_groups(gdecl, self.compiled.dim_sizes)
+            entry = cache.pop(key, None)
+            if entry is None:
+                sgroups = graph_ops.slot_groups(gdecl, self.compiled.dim_sizes)
+                entry = {
+                    "groups": {
+                        gk: graph_group_tables(idxs, gnames, n, self.device, dt, max_off,
+                                               dynamic=self.dynamic_topology)
+                        for gk, gnames, n in sgroups
+                    },
+                    "ell": self._ell_tables(gname, idxs, sgroups),
                 }
-            cache[key] = groups
+            cache[key] = entry
             while len(cache) > cap:
                 cache.popitem(last=False)
-            out[gname] = dict(slots, __groups__=groups)
+            out[gname] = dict(slots, __groups__=entry["groups"])
+            if entry["ell"] is not None:
+                out[gname]["__ell__"] = entry["ell"]
         return out
+
+    def _ell_tables(self, gname, idxs, sgroups):
+        """The per-slot ELL tables of graph ``gname``'s couplings between
+        slots of different vertex spaces (``graph_ops.ell_tables``), placed
+        on the plan's device: {"inc": {slot: [N_k, D_k]}, "ell": {(k_out,
+        k_in): [N_k_out, D_k_out]}}, or None where the assembly plan has no
+        such coupling (the tables are built only for a graph whose operator
+        reads them). Under ``dynamic_topology`` the incidence widths are
+        bucketed, as the group tables' are."""
+        plan = self.solver._stencil_plan
+        if plan is None:
+            return None
+        group_of = {k: gk for gk, gnames, _n in sgroups for k in gnames}
+        pairs = sorted({(key[2], key[4]) for key in plan.g_spec
+                        if key[0] == gname and group_of[key[2]] != group_of[key[4]]})
+        if not pairs:
+            return None
+        gdecl = self.compiled.registry.graphs[gname]
+        slots = sorted({k for pair in pairs for k in pair})
+        nvert = {k: int(np.prod(gdecl.slots[k].shape(self.compiled.dim_sizes))) for k in slots}
+        inc, ell = graph_ops.ell_tables(
+            {k: idxs[k] for k in slots}, nvert,
+            width_bucket=graph_ops.bucket_size if self.dynamic_topology else None)
+
+        def dev(a):
+            return torch.as_tensor(a, dtype=torch.int64).to(self.device)
+
+        return {"inc": {ko: dev(inc[ko]) for ko in sorted({ko for ko, _ki in pairs})},
+                "ell": {pair: dev(ell[pair]) for pair in pairs}}
 
     # -- parameters (Opt_SetSolverParameter) -------------------------------------
     def set_solver_parameter(self, name: str, value) -> None:
@@ -566,6 +603,20 @@ class Plan:
         unknowns, consts, graphs, params, fs = self._system_at(inputs)
         state = self.solver.init(unknowns, consts, graphs, params, sp)
         return self.solver.cg_inputs(unknowns, fs, state, sp)
+
+    def dump_jacobian(self, inputs: Dict[str, Any], dense: bool = False):
+        """J at ``inputs`` as COO triplets on the host (``jacobian.dump_jacobian``:
+        numpy rows, cols, vals, shape, row_offsets), or as a dense numpy
+        matrix for small problems: the reference's dumpJ/saveJToCRS
+        debugging surface (o.t:2318-2344, solverGPUGaussNewton.t:252-304).
+        The fields are probed on the plan's device."""
+        from .jacobian import dump_jacobian, dump_jacobian_dense
+
+        if self.rules is not None:
+            raise _mesh_not_ported("dump_jacobian")
+        unknowns, consts, graphs, params = self._normalize_and_place(inputs)
+        fn = dump_jacobian_dense if dense else dump_jacobian
+        return fn(self.compiled, unknowns, consts, graphs, params)
 
     def free(self) -> None:
         """Release solver state (Opt_PlanFree analogue)."""

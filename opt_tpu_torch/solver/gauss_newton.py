@@ -26,13 +26,14 @@ package's ``_solve_fused_batched``) assembles every instance's system at
 once under ``torch.func.vmap`` and solves them by one batched CG launch a
 step. Under a mesh of ranks (``sharding_rules``: ``parallel/mesh.py``)
 each rank's solver works on its extended region and runs the sharded loop
-(ops/sharded_cg.py) on its tile. The explicit sparse-J path is not
-ported yet and raises ``NotImplementedError``.
+(ops/sharded_cg.py) on its tile. ``use_explicit_jtj=True`` applies JᵀJ
+as two sparse matvecs of an explicit J (explicit.py) in the eager loop.
 """
 
 from __future__ import annotations
 
 import sys
+from collections import OrderedDict
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -55,6 +56,9 @@ from .params import (
     JacobiScalingType,
     resolve_auto_policy,
 )
+
+_EXPLICIT_STRUCTURES_MAX = 4  # topologies whose explicit J structure is kept
+
 
 def _f32(v) -> float:
     """A solver parameter as the JAX package traces it: rounded to float32."""
@@ -135,10 +139,14 @@ class GaussNewtonSolver:
                 f"preconditioner must be 'jacobi' or 'block_jacobi', got {self.ip.preconditioner!r}"
             )
         self._coeff_dtype = coefficient_dtype(self.ip.coefficient_dtype)
-        if self.ip.use_explicit_jtj:
+        if self.ip.use_explicit_jtj and sharding_rules is not None:
             raise NotImplementedError(
-                "use_explicit_jtj is not ported yet (ROADMAP.md queue 1 item 5)"
+                "use_explicit_jtj on a mesh is not ported yet: the sharded loop runs the "
+                "assembled operator (ROADMAP.md queue 1 item 8e)"
             )
+        # the explicit J's structure a topology (explicit.explicit_structure),
+        # least recently used first out
+        self._explicit_structures = OrderedDict()
         if self.ip.collect_per_kernel_timing:
             raise NotImplementedError(
                 "collect_per_kernel_timing is not ported yet (ROADMAP.md queue 1 item 6)"
@@ -162,7 +170,7 @@ class GaussNewtonSolver:
         # why a step ran the eager loop where the fused one was asked for
         # (Plan.fused_fallback), or None
         self.fused_fallback = None
-        if self.ip.use_fused_jtj:
+        if self.ip.use_fused_jtj and not self.ip.use_explicit_jtj:
             from ..assembly import plan_assembly
 
             self._stencil_plan = plan_assembly(
@@ -307,6 +315,17 @@ class GaussNewtonSolver:
         residual terms, r0 = -JᵀF, cg_meta: the fused grid CG descriptor or
         None). ``batched``: one instance of a batch (no per-channel split)."""
         fs.masks(X)
+        if self.ip.use_explicit_jtj:
+            # the reference's cusparse branch: J and Jᵀ as CSR, two matvecs
+            # a CG iteration (explicit.py), the eager loop
+            from ..explicit import build_explicit_j, explicit_jtj_apply
+
+            r_terms, _J, JT = fs.linearize(X)
+            r0 = {k: -v for k, v in JT(r_terms).items()}
+            J_csr, JT_csr = build_explicit_j(self.compiled, X, fs.consts, fs.graphs, fs.params,
+                                             self._explicit_structure(fs.graphs, X))
+            return (explicit_jtj_apply(self.compiled, J_csr, JT_csr, fs.row_masks), None,
+                    r_terms, r0, None)
         if self._stencil_plan is not None:
             if asm_cache is None:
                 asm_cache = self._asm_cache(fs, X)
@@ -327,6 +346,23 @@ class GaussNewtonSolver:
         r_terms, J, JT = fs.linearize(X)
         r0 = {k: -v for k, v in JT(r_terms).items()}
         return (lambda v: JT(J(v))), None, r_terms, r0, None
+
+    def _explicit_structure(self, graphs, X):
+        """The explicit J's structure at these graphs' topology, built on the
+        host at its first step and kept (a few topologies, keyed by their
+        cached group tables, which the entry holds on to)."""
+        from ..explicit import explicit_structure
+
+        tables = tuple(graphs[g].get("__groups__", graphs[g]) for g in sorted(graphs))
+        key = tuple(id(t) for t in tables)
+        hit = self._explicit_structures.pop(key, None)
+        if hit is None:
+            device = next(iter(X.values())).device
+            hit = (tables, explicit_structure(self.compiled, graphs, device))
+        self._explicit_structures[key] = hit
+        while len(self._explicit_structures) > _EXPLICIT_STRUCTURES_MAX:
+            self._explicit_structures.popitem(last=False)
+        return hit[1]
 
     def gn_system(self, X, fs: FunctionSet, asm_cache=None, batched=False):
         """The linear system of one GN step at X: (A, r0 = -JᵀF, pre, cg_meta)

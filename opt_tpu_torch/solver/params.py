@@ -48,7 +48,8 @@ class InitializationParameters:
     # "interpret": the plain twin on any device; False/"off": the solver's
     # eager CG loop.
     use_pallas_cg: Any = "auto"
-    # Explicit sparse-J path (not ported yet: ROADMAP.md queue 1 item 5).
+    # Explicit sparse-J path: J and Jᵀ as CSR, JᵀJ·p as two sparse matvecs
+    # in the eager CG loop (explicit.py); no assembly plan.
     use_explicit_jtj: bool = False
     # Dynamic graph topology: graphs padded to power-of-two edge buckets
     # with zero-valid edges, no DIA split, the table cache kept to 32

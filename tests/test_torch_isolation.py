@@ -192,3 +192,24 @@ def test_enable_double_precision_is_exported():
     plan = ott.Problem(tspecs.laplacian).plan(dims={"W": 8, "H": 8}, device="cpu",
                                               double_precision=True)
     assert plan.compiled.dtype == torch.float64
+
+
+def test_explicit_jtj_plans_on_the_cpu_and_raises_under_a_mesh():
+    """use_explicit_jtj=True (queue 1 item 5) plans and solves on the CPU,
+    with no assembly plan; a mesh of several ranks cannot take it and says
+    so, naming its roadmap item, rather than running another operator."""
+    import types
+
+    import numpy as np
+
+    ip = ott.InitializationParameters(use_explicit_jtj=True)
+    plan = ott.Problem(tspecs.laplacian).plan(dims={"W": 8, "H": 8}, device="cpu", init_params=ip)
+    assert plan.solver._stencil_plan is None
+    rng = np.random.RandomState(0)
+    res = plan.solve({"X": rng.rand(8, 8).astype("f4"), "A": rng.rand(8, 8).astype("f4")},
+                     nIterations=1, lIterations=20)
+    assert np.isfinite(res.final_cost) and res.num_linear_iterations > 0
+    mesh = types.SimpleNamespace(shape=(2, 2), size=4, coords=(0, 0), device=torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="item 8e"):
+        ott.Problem(tspecs.laplacian).plan(dims={"W": 8, "H": 8}, device="cpu", mesh=mesh,
+                                           init_params=ip)
