@@ -174,6 +174,19 @@ assembled operator's apply and JtF; and use_explicit_jtj=True (J and Jt as
 CSR, two sparse matvecs a CG iteration) on poisson 512x512x4 GN 1x2000 and
 arap36k GN 2x100, held to the tiled route's solves, its ms per CG
 iteration beside gn_tiled's and gn_dia_tiled's.
+The tooling: the example harness (opt_tpu_torch/harness.py) runs
+image_warping 512x512 by GN and LM, three outer 8x400 solves each with the
+constraints annealed from rest to target, a timing table a solve, every
+step one gn_tiled or lm_tiled launch and each kind's first outer solve
+bitwise equal to a direct Plan.solve; seven main paths (poisson, image_warping
+1024x1024, the two arap meshes, volumetric, shape_from_shading and the
+cluster solve) are solved once more with collect_per_kernel_timing, each
+bitwise equal to its untimed solve, its rows disjoint and never negative,
+its instances those that launched, with its plan report's one-line
+summary (the sharded ranks print theirs, with the tile kernel's
+registers); the card's memory is reported after image_warping
+1024x1024's solve; and an image_warping 512x512 LM solve saved after 4 steps
+and restored into a fresh plan ends bitwise equal to the uninterrupted one.
 It exits non-zero, with no result line, when CUDA is not available or any
 check fails. It imports neither JAX nor opt_tpu.
 """
@@ -188,6 +201,7 @@ import json
 import multiprocessing
 import os
 import queue as queue_mod
+import shutil
 import subprocess
 import sys
 import time
@@ -214,10 +228,13 @@ from opt_tpu_torch.models.specs import (
     shape_from_shading,
     volumetric_mesh_deformation,
 )
+from opt_tpu_torch.harness import CombinedSolverBase
 from opt_tpu_torch.ops import fused_cg, sharded_cg
 from opt_tpu_torch.ops._build import build_library, instance_registers, load_library, nvcc_path
 from opt_tpu_torch.parallel.mesh import split_bounds
 from opt_tpu_torch.pyramid import upsample2x_nearest
+from opt_tpu_torch.utils import checkpoint, memory
+from opt_tpu_torch.utils.plan_report import plan_summary
 from opt_tpu_torch.utils.reorder import grid_embed_order, permute_vertices, remap_edges
 
 MAIN_N = 512  # the bench headline's grid side
@@ -656,6 +673,15 @@ OUT_DIR = os.path.join("build", "profiles")  # git-ignored
 # space, Jacobian and explicit-J paths. Their main paths and solve times
 # still run at full depth.
 PROFILE_NL_CUT = 2
+# the tooling's paths: the harness's outer solves of image_warping 512x512
+# (examples/image_warping.py's constraint annealing), where the checkpoint
+# path writes (git-ignored), and the steps before its save
+HARNESS_OUTER = 3
+CKPT_DIR = os.path.join("build", "checkpoints")
+CKPT_STEPS = 4
+# the timer's rows that make up a step's assembly (utils/timer.py)
+ASSEMBLY_ROWS = ("computedBundle", "assembleConst", "assembleFields", "PCGInit1",
+                 "PCGComputeCtC", "blockInverse", "explicitJ")
 
 
 def log(msg):
@@ -3128,6 +3154,9 @@ def sharded_rank(rank, world, store, device, cases, results):
                 "variant": [plan.solver.ip.cg_variant, plan.solver.ip.preconditioner],
                 "unknowns_ok": all(tuple(v.shape[:2]) == (n, n) and bool(torch.isfinite(v).all())
                                    for v in res.unknowns.values()),
+                # the plan report, every rank together (its first cost is a
+                # sum over the ranks)
+                "plan": plan_summary(plan, inputs, plan.solver_params),
             }
         # what an iteration's communication costs here: one all_reduce of
         # three dots, one halo phase of a 256x256x4 tile (its strips through
@@ -3235,7 +3264,14 @@ def sharded_main_paths(handle, single, gpu):
             line.update(jax_cpu_cost=JAX_CPU_POISSON_512_COST,
                         jax_cpu_lin_iters=POISSON_STANDARD_CG_ITERS)
         log(json.dumps(line))
+        log(json.dumps({"plan_summary": f"{label} (rank 0 of {MESH_SHAPE[0]}x{MESH_SHAPE[1]})",
+                        **first["plan"]}))
         faults = []
+        want_k5 = "tile_apply_kernel<float>"
+        if (first["plan"]["path"] != "sharded loop" or first["plan"]["instance"] != want_k5
+                or first["plan"]["registers"] is None):
+            faults.append(f"plan report {first['plan']}, expected the sharded loop on {want_k5} "
+                          "with its registers")
         for r, c in zip(ranks, cases):
             applies = sum(c["applies"])
             # the standard loop applies once an iteration, LM also once a reset
@@ -3267,6 +3303,196 @@ def sharded_main_paths(handle, single, gpu):
         launches[label] = sum(c["tile_kernel_launches"] for c in cases)
     log(json.dumps({"sharded_wait_s": time.perf_counter() - t0}))
     return ranks, launches
+
+
+def iw_targets(inputs):
+    """The fit constraints of an image_warping input as (row, column,
+    target row, target column): where the Constraints image is not -1."""
+    con = inputs["Constraints"]
+    rows, cols = np.nonzero((con != -1).any(-1))
+    return [(float(i), float(j), float(con[i, j, 0]), float(con[i, j, 1]))
+            for i, j in zip(rows, cols)]
+
+
+def iw_constraint_image(mask, targets, alpha):
+    """examples/image_warping.py's WarpSolver.constraint_image (the
+    reference's setConstraintImage, CombinedSolver.h:181-205): each
+    constraint at (1 - alpha) of its rest position and alpha of its target,
+    where the mask leaves its point solved; -1 elsewhere."""
+    h, w = mask.shape
+    con = -np.ones((h, w, 2), np.float32)
+    for x, y, tx, ty in targets:
+        xi, yi = int(x), int(y)
+        if 0 <= xi < h and 0 <= yi < w and mask[xi, yi] == 0:
+            con[xi, yi] = [(1 - alpha) * x + alpha * tx, (1 - alpha) * y + alpha * ty]
+    return con
+
+
+def harness_main_path(inputs, gpu):
+    """The example harness (opt_tpu_torch/harness.py) at full width: a
+    CombinedSolverBase app of image_warping on ``inputs`` (512x512), GN and
+    LM, nonLinearIter 8, linearIter 400, HARNESS_OUTER outer solves with
+    examples/image_warping.py's constraint annealing, collect_timing on (a
+    TIMING table a solve). Held: every plan without fallback, one gn_tiled
+    or lm_tiled launch a step taken and nothing else, and each kind's first
+    outer solve bitwise equal (cost and unknowns) to a direct Plan.solve of
+    the same inputs in this call. Prints the Final Costs block."""
+    n = inputs["Mask"].shape[0]
+    targets = iw_targets(inputs)
+    mask = inputs["Mask"]
+    first, steps, fallbacks = {}, {}, []
+
+    class WarpApp(CombinedSolverBase):
+        collect_timing = True
+
+        def combined_solve_init(self):
+            self.problem_inputs = dict(inputs)
+
+        def pre_single_solve(self):
+            self.problem_inputs["Offset"] = inputs["UrShape"].copy()
+            self.problem_inputs["Angle"] = np.zeros(mask.shape, np.float32)
+
+        def pre_nonlinear_solve(self, i):
+            alpha = (i + 1) / self.solver_params["numIter"]
+            self.problem_inputs["Constraints"] = iw_constraint_image(mask, targets, alpha)
+
+        def post_nonlinear_solve(self, i):
+            kind = self.plan.kind
+            steps[kind] = steps.get(kind, 0) + int(self.plan._state["n_iter"])
+            fallbacks.append(self.plan.fused_fallback)
+            if i == 0:
+                first[kind] = {k: self.problem_inputs[k].clone() for k in ("Offset", "Angle")}
+
+    app = WarpApp(image_warping, _grid(n),
+                  {"numIter": HARNESS_OUTER, "nonLinearIter": 8, "linearIter": 400})
+    app.add_opt_solvers(["gaussNewtonGPU", "LMGPU"])
+    fused_cg.reset_launch_counts()
+    t0 = time.perf_counter()
+    runs = app.solve_all()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: v for k, v in fused_cg.fused_grid_cg_kernel.launches.items() if v}
+    app.report_final_costs()
+    direct = {}
+    for kind in ("gaussNewtonGPU", "LMGPU"):
+        res = ot.Problem(image_warping, kind=kind).plan(dims=_grid(n)).solve(
+            dict(inputs, Constraints=iw_constraint_image(mask, targets, 1 / HARNESS_OUTER)),
+            nIterations=8, lIterations=400)
+        direct[kind] = (res.final_cost, all(torch.equal(res.unknowns[k], first[kind][k])
+                                            for k in first[kind]))
+    line = {"check": "harness", "case": f"image_warping{n} GN and LM {HARNESS_OUTER} x 8x400",
+            "gpu": gpu, "runs": {r.name: [it.cost for it in r.iterations] for r in runs},
+            "outer_ms": {r.name: [it.duration_ms for it in r.iterations] for r in runs},
+            "kernel_launches": launched, "steps": steps, "fused_fallback": fallbacks,
+            "direct_first_costs": {k: v[0] for k, v in direct.items()},
+            "first_outer_bitwise_to_direct": {
+                k: v[1] and v[0] == runs[i].iterations[0].cost for i, (k, v) in
+                enumerate(direct.items())},
+            "wall_s": wall}
+    log(json.dumps(line))
+    if (any(f is not None for f in fallbacks)
+            or launched != {"gn_tiled": steps["gaussNewtonGPU"], "lm_tiled": steps["LMGPU"]}
+            or not all(line["first_outer_bitwise_to_direct"].values())
+            or not all(np.isfinite(it.cost) for r in runs for it in r.iterations)):
+        raise RuntimeError(f"the harness's image_warping run failed: {line}")
+
+
+def timed_main_path(label, spec, dims, inputs, nl, li, untimed, kernel_ms, gpu, ip=None):
+    """One more GN solve of a main path with collect_per_kernel_timing
+    (its table printed), the launch counts from 0: bitwise the untimed
+    solve ``untimed`` of this call; PCGStep1's count its CG iterations; no
+    row negative and the rows' sum at most the whole; its instances those
+    launched (or the eager loop once a step where none was); its plan
+    summary (the plan report, one line) naming the instance that launched.
+    ``kernel_ms``: the kernel's ms a CG iteration by time_pair in this call,
+    printed beside PCGStep1's average. Returns (the plan, the result)."""
+    fused_cg.reset_launch_counts()
+    plan = ot.Problem(spec).plan(dims=dims, init_params=ot.InitializationParameters(
+        collect_per_kernel_timing=True, **(ip or {})))
+    res = plan.solve(dict(inputs), nIterations=nl, lIterations=li)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in fused_cg.fused_grid_cg_kernel.launches.items() if v}
+    rows, ran = plan._timing_phases, plan._timing_instances
+    steps = max(1, res.num_iterations)
+    summary = plan_summary(plan, inputs, plan.solver_params)
+    kernels = sum(st.total_ms for k, st in rows.items() if k not in ("other", "overall"))
+    line = {"timed_main_path": label, "gpu": gpu,
+            "clock": "cuda_events" if plan.device.type == "cuda" else "host",
+            "rows": {k: {"count": st.count, "total_ms": st.total_ms, "avg_ms": st.average_ms}
+                     for k, st in rows.items()},
+            "ms_per_step": {k: st.total_ms / steps for k, st in rows.items()
+                            if k not in ("PCGStep1", "other", "overall")},
+            "assembly_ms_per_step": sum(rows[k].total_ms for k in ASSEMBLY_ROWS if k in rows)
+            / steps,
+            "pcg_step1_ms_per_cg_iter": rows["PCGStep1"].average_ms,
+            "time_pair_kernel_ms_per_cg_iter": kernel_ms, "instances": ran,
+            "kernel_launches": launched, "nonlinear_iters": res.num_iterations,
+            "lin_iters": res.num_linear_iterations, "solve_ms": res.wall_time_s * 1e3}
+    log(json.dumps(line))
+    log(json.dumps({"plan_summary": label, **summary}))
+    want_ran = launched or {"eager loop": res.num_iterations}
+    want_instance = next(iter(launched)) if len(launched) == 1 else None
+    faults = []
+    if (res.costs != untimed.costs or res.final_cost != untimed.final_cost
+            or (res.num_iterations, res.num_linear_iterations)
+            != (untimed.num_iterations, untimed.num_linear_iterations)
+            or not all(torch.equal(res.unknowns[k], untimed.unknowns[k]) for k in res.unknowns)):
+        faults.append("not bitwise the untimed solve")
+    if rows["PCGStep1"].count != res.num_linear_iterations:
+        faults.append("PCGStep1 does not count the CG iterations")
+    if any(st.total_ms < 0 for st in rows.values()) or kernels > rows["overall"].total_ms:
+        faults.append("a negative row, or rows beyond the whole")
+    if ran != want_ran or summary["instance"] != want_instance:
+        faults.append(f"instances {ran}, plan {summary['instance']}, launched {launched}")
+    if faults:
+        raise RuntimeError(f"timed {label}: " + "; ".join(faults))
+    return plan, res
+
+
+def checkpoint_main_path(inputs, gpu):
+    """Checkpoint/resume on the card: image_warping 512x512 LM 8x400 by
+    steps, CKPT_STEPS steps, save, restore into a fresh plan, the rest:
+    bitwise equal (unknowns, cost, counts) to the uninterrupted 8 steps,
+    each step one lm_tiled launch."""
+    n = inputs["Mask"].shape[0]
+
+    def mk():
+        return ot.Problem(image_warping, kind="LMGPU").plan(dims=_grid(n), nIterations=8,
+                                                            lIterations=400)
+
+    def run(plan, k):
+        for _ in range(k):
+            plan.step()
+        return plan
+
+    fused_cg.reset_launch_counts()
+    ref = mk()
+    ref.init(dict(inputs))
+    run(ref, 8)
+    half = mk()
+    half.init(dict(inputs))
+    run(half, CKPT_STEPS)
+    path = checkpoint.save(os.path.join(CKPT_DIR, f"image_warping{n}_lm"), half)
+    fresh = mk()
+    checkpoint.restore(path, fresh, inputs=dict(inputs))
+    run(fresh, 8 - CKPT_STEPS)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in fused_cg.fused_grid_cg_kernel.launches.items() if v}
+    same = (all(torch.equal(fresh.unknowns[k], ref.unknowns[k]) for k in ref.unknowns)
+            and fresh.current_cost() == ref.current_cost()
+            and all(int(fresh._state[k]) == int(ref._state[k]) for k in ("n_iter", "lin_iters")))
+    # a launch a step: the uninterrupted steps, and the interrupted ones
+    # before and after the save (the restored count included the former)
+    steps = int(ref._state["n_iter"]) + int(fresh._state["n_iter"])
+    line = {"check": "checkpoint_resume", "case": f"image_warping{n} LM 8x400, saved after "
+            f"{CKPT_STEPS} steps", "gpu": gpu, "bitwise_to_uninterrupted": same,
+            "final_cost": fresh.current_cost(), "uninterrupted_cost": ref.current_cost(),
+            "lin_iters": int(fresh._state["lin_iters"]), "kernel_launches": launched,
+            "files": sorted(os.listdir(path))}
+    log(json.dumps(line))
+    shutil.rmtree(path)
+    if not same or launched != {"lm_tiled": steps}:
+        raise RuntimeError(f"checkpoint resume failed: {line}")
 
 
 def main() -> int:
@@ -3851,7 +4077,7 @@ def main() -> int:
                     dims=_grid(IW_BIG_N)).solve(dict(iw_big_in), nIterations=4,
                                                 lIterations=100), "gn_hbm_tiled")
     res_arap, l_arap = graph_main_path("arap36k", arap_dims, arap_in, "gn_dia_tiled")
-    _r, l_arm = graph_main_path("armadillo31k", arm_dims, arm_in, "gn_rem_tiled")
+    res_arm, l_arm = graph_main_path("armadillo31k", arm_dims, arm_in, "gn_rem_tiled")
     float64_witness(f"arap36k GN {GRAPH_NL}x{GRAPH_LI}", arap_mesh_deformation, "gaussNewtonGPU",
                     arap_dims, arap_in, GRAPH_NL, GRAPH_LI, JAX_CPU_ARAP36K_F64_COSTS, F64_STEPS)
     l_spec = {label: spec_main_path(label, *spec_in[label])[1] for label in GRAPH_SPECS}
@@ -3863,7 +4089,7 @@ def main() -> int:
                              bitwise=True, template=True)
     # couplings across vertex spaces (the per-pair ELL blocks, no kernel
     # form), the Jacobian export and the explicit J
-    _r, l_cluster = cluster_main_path(cl_dims, cl_in)
+    res_cluster, l_cluster = cluster_main_path(cl_dims, cl_in)
     jacobian_checks(f"image_warping{IW_N}x3 masked", image_warping, _grid(IW_N), iw_mask_in)
     jacobian_checks("arap36k", arap_mesh_deformation, arap_dims, arap_in)
     explicit = explicit_main_paths(res_poisson, res_arap, inputs, arap_dims, arap_in)
@@ -3878,7 +4104,7 @@ def main() -> int:
                     for v in ("chronopoulos_gear", "block_jacobi", "bfloat16")}
 
     sfs_shape = {"X": (SFS_N, SFS_N, 1)}
-    _r, l_sfs = first_steps_main_path(
+    res_sfs, l_sfs = first_steps_main_path(
         f"shape_from_shading{SFS_N} GN {SFS_NL}x{SFS_LI}", shape_from_shading, _grid(SFS_N),
         sfs_in, SFS_NL, SFS_LI, JAX_CPU_SFS, SFS_FIRST_STEPS, sfs_shape, form="gn_tiled")
     l_flow = pyramid_flow_main_path(flow_in)
@@ -4182,6 +4408,40 @@ def main() -> int:
                   functools.partial(cplan.solve, dict(cl_in), nIterations=cl_nl,
                                     lIterations=GRAPH_LI), gpu)
     phases["timings_and_profiles"] = time.perf_counter() - t_start - sum(phases.values())
+
+    # 5. the tooling: the example harness at full width; one more solve of
+    # seven main paths with collect_per_kernel_timing (the timer's table and
+    # checks, each plan's one-line summary, the memory report after
+    # image_warping 1024x1024's); checkpoint/resume on the card
+    harness_main_path(iw_in, gpu)
+
+    def per_iter(key, label, form):  # time_pair's kernel ms a CG iteration, this call
+        return t_tiled[key][0] / TIMED_ITERS_RUN[(label, form)]
+
+    for label, spec, dims, inp, nl, li, untimed, kernel_ms, ip in (
+            (f"poisson{n}x4 GN 1x2000", poisson_image_editing, _grid(n), inputs, 1, 2000,
+             res_poisson, per_iter("gn", f"poisson{n}x4", "gn_tiled"), None),
+            (k6_label, image_warping, _grid(IW_BIG_N), iw_big_in, 4, 100,
+             iw_res[(IW_BIG_N, "gaussNewtonGPU")],
+             per_iter("gn_hbm", f"image_warping{IW_BIG_N}x3", "gn_hbm_tiled"), None),
+            (arap_label, arap_mesh_deformation, arap_dims, arap_in, GRAPH_NL, GRAPH_LI, res_arap,
+             per_iter("gn_dia", "arap36k", "gn_dia_tiled"), None),
+            (arm_label, arap_mesh_deformation, arm_dims, arm_in, GRAPH_NL, GRAPH_LI, res_arm,
+             per_iter("gn_rem", "armadillo31k", "gn_rem_tiled"), None),
+            (f"volumetric{VOL_N} GN {VOL_NL}x{VOL_LI} jacobi", volumetric_mesh_deformation,
+             _vol(VOL_N), vol_in, VOL_NL, VOL_LI, vol_res,
+             per_iter("gn_vol", f"volumetric{VOL_N}", "gn_vol_tiled"), {"preconditioner": "jacobi"}),
+            (f"shape_from_shading{SFS_N} GN {SFS_NL}x{SFS_LI}", shape_from_shading, _grid(SFS_N),
+             sfs_in, SFS_NL, SFS_LI, res_sfs,
+             t_sfs[0] / TIMED_ITERS_RUN[(f"shape_from_shading{SFS_N}", "gn_tiled")], None),
+            (f"cluster_arap{cl_dims['N']}x{cl_dims['P']} GN {GRAPH_NL}x{GRAPH_LI}",
+             cluster_arap_spec(ot), cl_dims, cl_in, GRAPH_NL, GRAPH_LI, res_cluster, None, None)):
+        tplan, _res = timed_main_path(label, spec, dims, inp, nl, li, untimed, kernel_ms, gpu, ip)
+        if label == k6_label:  # the card's memory with image_warping 1024x1024's plan alive
+            memory.report(print_fn=log)
+        del tplan, _res
+    checkpoint_main_path(iw_in, gpu)
+    phases["tooling"] = time.perf_counter() - t_start - sum(phases.values())
 
     def entry(name, replaces, launches, err, timing, source=KERNEL_SOURCE, template=None,
               costs=None):

@@ -37,6 +37,7 @@ from .spec import (
     SpecError,
     SpecRegistry,
 )
+from .utils.timer import phase
 
 # ---------------------------------------------------------------------------
 # FX-graph dependence slicing
@@ -415,7 +416,8 @@ class CompiledProblem:
                 )
             elif s.kind in ("cimg", "cgrad"):
                 if bundle is None:
-                    bundle = self._computed_bundle(unknowns, consts, graphs, params or {})
+                    with phase("computedBundle"):
+                        bundle = self._computed_bundle(unknowns, consts, graphs, params or {})
                 value, grads = bundle[s.image]  # image holds the handle name
                 field = value if s.kind == "cimg" else grads[(s.key[3], s.key[4])]
                 vals.append(shift(field, s.offset))

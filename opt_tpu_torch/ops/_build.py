@@ -120,6 +120,13 @@ def build_library(build: bool = True) -> dict:
             "units_s": {u: s for u, (_rc, _o, s) in zip(UNITS + ("link",), runs)}}
 
 
+def built_log():
+    """The ptxas log of the library built from these sources, or None where
+    it is not built (nothing is compiled or created)."""
+    log = BUILD_DIR / f"libopt_tpu_torch_{_source_hash()}.log"
+    return log.read_text() if log.exists() else None
+
+
 _INSTANCE = re.compile(
     r"fused_grid_cg_kernelILb([01])ELb([01])ELb([01])ELb([01])E(f|13__nv_bfloat16)Li([012])EE"
 )
@@ -194,6 +201,31 @@ def instance_registers(log: str) -> dict:
         if m and current is not None:
             for key in current:
                 regs[key] = (int(m.group(1)),) + spill
+            current = None
+    return regs
+
+
+_TILE_APPLY = re.compile(r"tile_apply_kernelI(f|13__nv_bfloat16)E")
+
+
+def tile_apply_registers(log: str) -> dict:
+    """{"float" or "bfloat16": (registers, spill store bytes, spill load
+    bytes)} of the per-tile apply's two instances (tile_apply_kernel<FT>,
+    csrc/tile_apply.cu) from ptxas's -v output."""
+    regs, current, spill = {}, None, (0, 0)
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = _TILE_APPLY.search(line)
+            current = None if m is None else ("float" if m.group(1) == "f" else "bfloat16")
+            spill = (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and current is not None:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current is not None:
+            regs[current] = (int(m.group(1)),) + spill
             current = None
     return regs
 

@@ -20,8 +20,10 @@ on every rank.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
+import itertools
 import sys
 import time
 from collections import OrderedDict
@@ -36,7 +38,8 @@ from .parallel.mesh import ShardingRules, grid_reach
 from .solver.gauss_newton import GaussNewtonSolver
 from .solver.params import InitializationParameters, normalize_solver_params
 from .spec import UNKNOWN, SpecError
-from .utils.logging import log_solver
+from .utils.logging import log_debug, log_solver, verbosity
+from .utils.timer import SolveTimer, report_solve_timing
 
 _KIND_ALIASES = {
     "gaussnewtongpu": False,
@@ -68,6 +71,8 @@ _TABLE_CACHE_MAX = 8
 # (opt_tpu/problem.py:757)
 _DYNAMIC_TABLE_CACHE_MAX = 32
 _DYNAMIC_MIN_EDGES = 8  # the smallest edge bucket (opt_tpu/problem.py:284)
+# the numbers of the plan reports that set_verbosity(3) writes in this process
+_PLAN_REPORTS = itertools.count()
 
 
 def graph_group_tables(idxs, names, n: int, device, dtype, max_offsets: int,
@@ -284,14 +289,18 @@ class Problem:
             rules = ShardingRules(mesh, isp.shape(compiled.dim_sizes), grid_reach(compiled))
             region = {d.name: n for d, n in zip(isp.dims, rules.region_shape)}
             compiled = compile_spec(self.spec_fn, dict(dims, **region), dtype)
-        return Plan(self, compiled, kind or self.kind, init_params, solver_params, dev, rules)
+        return Plan(self, compiled, kind or self.kind, init_params, solver_params, dev, rules,
+                    dims)
 
 
 class Plan:
     def __init__(self, problem, compiled: CompiledProblem, kind, init_params,
-                 solver_params, device, rules: Optional[ShardingRules] = None):
+                 solver_params, device, rules: Optional[ShardingRules] = None, dims=None):
         self.problem = problem
         self.compiled = compiled
+        # the problem's dims (under a mesh the global grid's; compiled is
+        # the region's)
+        self.dims = dict(compiled.dim_sizes if dims is None else dims)
         self.kind = kind
         self.device = device
         self.uses_lambda = _uses_lambda(kind)
@@ -305,6 +314,11 @@ class Plan:
         self._state = None
         self._bound = None  # (consts, graphs, params)
         self._fused_validated = False
+        # the last timed solve's rows ({row: utils.timer.PhaseStat}) and the
+        # CG instances it ran ({name: launches}), for report_solve_timing
+        self._timing_phases = None
+        self._timing_instances = None
+        self._plan_reported = False  # set_verbosity(3) wrote this plan's report
 
     @property
     def fused_fallback(self) -> Optional[str]:
@@ -604,6 +618,27 @@ class Plan:
         state = self.solver.init(unknowns, consts, graphs, params, sp)
         return self.solver.cg_inputs(unknowns, fs, state, sp)
 
+    def dump_hlo(self, inputs: Dict[str, Any], path: Optional[str] = None,
+                 **solver_param_overrides) -> str:
+        """The port's plan report, in place of the JAX package's compiled-HLO
+        text (the port has no HLO: its CG loop is one hand-written kernel
+        launch a step). The report (``utils/plan_report.py``) names the
+        engaged path, ``fused_fallback``, the CG instance, its route's plan,
+        the fields, triples and remainder, and where the kernel library is
+        built the instance's registers and spills. It builds the first
+        step's system at ``inputs`` and launches no CG loop; the plan's
+        state is left as it was. Written to ``path`` where given; also
+        written once a plan by ``solve()`` under ``set_verbosity(3)``. On a
+        mesh every rank calls it together."""
+        from .utils.plan_report import format_report, plan_summary
+
+        sp = normalize_solver_params({**self.solver_params, **solver_param_overrides})
+        txt = format_report(plan_summary(self, inputs, sp))
+        if path is not None:
+            with open(path, "w") as f:
+                f.write(txt)
+        return txt
+
     def dump_jacobian(self, inputs: Dict[str, Any], dense: bool = False):
         """J at ``inputs`` as COO triplets on the host (``jacobian.dump_jacobian``:
         numpy rows, cols, vals, shape, row_offsets), or as a dense numpy
@@ -716,7 +751,9 @@ class Plan:
         nonlinear step assembles every instance's system under
         ``torch.func.vmap`` and runs the CG of all of them as one batched
         fused loop (one kernel launch on the card); each instance exits on
-        its own. The assembled operator is validated on instance 0."""
+        its own. The assembled operator is validated on instance 0.
+        ``collect_per_kernel_timing`` times nothing here: only ``solve``
+        reports, as in the JAX package."""
         if self.rules is not None:
             raise _mesh_not_ported("solve_batched")
         sp = normalize_solver_params({**self.solver_params, **solver_param_overrides})
@@ -772,7 +809,8 @@ class Plan:
         results come back in one transfer at the end. ``schedule`` receives
         the bound, sanitised constants (±inf clamped to finite sentinels)
         and ``i`` as a 0-dim int32 tensor on the plan's device, and returns
-        constants of the same shapes and dtypes."""
+        constants of the same shapes and dtypes. ``collect_per_kernel_timing``
+        times nothing here: only ``solve`` reports, as in the JAX package."""
         if self.rules is not None:
             raise _mesh_not_ported("solve_scheduled")
         sp = normalize_solver_params({**self.solver_params, **solver_param_overrides})
@@ -803,30 +841,67 @@ class Plan:
     # -- full solve (Opt_ProblemSolve) --------------------------------------------
     def solve(self, inputs: Dict[str, Any], *, stepwise: bool = False,
               **solver_param_overrides) -> SolveResult:
-        sp = normalize_solver_params({**self.solver_params, **solver_param_overrides})
+        """Opt_ProblemSolve: a whole solve from ``inputs`` (``stepwise``:
+        through init and step, as the stepwise API runs it). With
+        ``InitializationParameters(collect_per_kernel_timing=True)`` the
+        solve's phases are timed on the real launches (``utils/timer.py``:
+        CUDA events on the card, no sync added) and the reference's timing
+        table, ``TIMING`` and ``Per-iter times ms`` lines are printed; the
+        rows stay on the plan as ``_timing_phases``. A mesh's plan accepts
+        the flag and times nothing. Under ``set_verbosity(3)`` the plan
+        report (:meth:`dump_hlo`) is written once a plan to
+        ``opt_tpu_torch_solve_plan_<n>.txt``."""
+        timed = bool(self.solver.ip.collect_per_kernel_timing) and self.rules is None
+        result = self._solve(inputs, stepwise, timed, solver_param_overrides)
+        if timed:
+            # Opt.h collectPerKernelTimingInfo: per-solve timing table +
+            # TIMING / Per-iter lines (util.t:469-508)
+            report_solve_timing(self, result)
+        if verbosity() >= 3 and not self._plan_reported:
+            # the verbosity>=3 generated-code dump of the JAX package, once
+            # a plan, numbered so that several plans keep theirs (and, on a
+            # mesh, every rank its own)
+            self._plan_reported = True
+            rank = "" if self.rules is None else f"_rank{self.rules.mesh.rank}"
+            path = f"opt_tpu_torch_solve_plan_{next(_PLAN_REPORTS)}{rank}.txt"
+            self.dump_hlo(inputs, path=path, **solver_param_overrides)
+            log_debug(f"plan report written to {path}")
+        return result
+
+    def _solve(self, inputs, stepwise: bool, timed: bool, overrides) -> SolveResult:
+        """The solve of :meth:`solve`; ``timed``: time its phases
+        (``utils.timer.SolveTimer``) into ``_timing_phases`` and
+        ``_timing_instances``, whatever the plan's init parameters."""
+        sp = normalize_solver_params({**self.solver_params, **overrides})
         unknowns, consts, graphs, params = self._normalize_and_place(inputs)
         self._validate_fused(unknowns, consts, graphs, params)
+        timer = SolveTimer(self.device) if timed else None
         t0 = time.perf_counter()
-        if stepwise:
-            self._bound = (consts, graphs, params)
-            state = self.solver.init(unknowns, consts, graphs, params, sp)
-            cost_t = []
-            while True:
-                before = int(state["n_iter"])
-                state = self.solver.step(state, consts, graphs, params, sp)
-                if int(state["n_iter"]) == before:
-                    break
-                cost_t.append(state["prev_cost"])
-                if bool(state["done"]):
-                    break
-        else:
-            state, cost_t = self.solver.solve(unknowns, consts, graphs, params, sp)
-        # one device->host transfer for every scalar result
-        scalars = torch.stack(
-            [state["prev_cost"].double(), state["n_iter"].double(),
-             state["lin_iters"].double(), *(c.double() for c in cost_t)]
-        ).tolist()
+        with timer or contextlib.nullcontext():
+            if stepwise:
+                self._bound = (consts, graphs, params)
+                state = self.solver.init(unknowns, consts, graphs, params, sp)
+                cost_t = []
+                while True:
+                    before = int(state["n_iter"])
+                    state = self.solver.step(state, consts, graphs, params, sp)
+                    if int(state["n_iter"]) == before:
+                        break
+                    cost_t.append(state["prev_cost"])
+                    if bool(state["done"]):
+                        break
+            else:
+                state, cost_t = self.solver.solve(unknowns, consts, graphs, params, sp)
+            # one device->host transfer for every scalar result
+            scalars = torch.stack(
+                [state["prev_cost"].double(), state["n_iter"].double(),
+                 state["lin_iters"].double(), *(c.double() for c in cost_t)]
+            ).tolist()
         wall = time.perf_counter() - t0
+        if timer is not None:  # read once, after the transfer
+            self._timing_phases = timer.read()
+            self._timing_phases["PCGStep1"].count = int(scalars[2])
+            self._timing_instances = dict(timer.instances)
         self._state = state
         self._bound = (consts, graphs, params)
         return SolveResult(

@@ -42,6 +42,7 @@ from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from ..compile import CompiledProblem
 from ..functions import FunctionSet, tree_dot
+from ..ops import fused_cg
 from ..ops.fused_cg import (
     CG_VARIANTS,
     _run_cg,
@@ -49,6 +50,8 @@ from ..ops.fused_cg import (
     fused_grid_cg,
 )
 from ..ops.sharded_cg import sharded_fused_grid_cg
+from ..utils.timer import active as timing_active
+from ..utils.timer import note_cg, phase
 from .params import (
     FLOAT_EPSILON,
     GuardedInvertType,
@@ -147,10 +150,6 @@ class GaussNewtonSolver:
         # the explicit J's structure a topology (explicit.explicit_structure),
         # least recently used first out
         self._explicit_structures = OrderedDict()
-        if self.ip.collect_per_kernel_timing:
-            raise NotImplementedError(
-                "collect_per_kernel_timing is not ported yet (ROADMAP.md queue 1 item 6)"
-            )
         if self.ip.edge_reorder not in (False, None, "owner"):
             raise ValueError(
                 f"edge_reorder={self.ip.edge_reorder!r}: the only implemented mode is "
@@ -198,14 +197,20 @@ class GaussNewtonSolver:
             inv = lambda v: 1.0 / (FLOAT_EPSILON + v)  # noqa: E731
         return {k: inv(v) for k, v in p.items()}
 
+    def kernel_expected(self) -> bool:
+        """Whether a step is meant to run the fused loop: an assembled
+        float32 operator with the fused loop on. Such a step that runs the
+        eager loop notes it (:meth:`_note_no_kernel`)."""
+        return (self._pallas_mode is not None and self._stencil_plan is not None
+                and self.compiled.dtype == torch.float32)
+
     def _note_no_kernel(self) -> None:
         """A float32 step's assembled operator had no form the fused CG
         loop takes (ops/fused_cg.py's planners returned None), so the step
         runs the eager loop: say so once, on stderr whatever the verbosity,
         and in ``fused_fallback``. float64 plans run the eager loop by
         design (the fused loop is float32) and note nothing."""
-        if (self._pallas_mode is None or self._stencil_plan is None
-                or self.compiled.dtype != torch.float32 or self.fused_fallback is not None):
+        if not self.kernel_expected() or self.fused_fallback is not None:
             return
         self.fused_fallback = "no_kernel"
         print(
@@ -306,45 +311,55 @@ class GaussNewtonSolver:
         computed once per solve before the nonlinear loop."""
         if self._stencil_plan is None:
             return None
-        return fs.assemble_const(X0, self._stencil_plan)
+        with phase("assembleConst"):
+            return fs.assemble_const(X0, self._stencil_plan)
 
     # ---- shared PCG pieces -------------------------------------------------
     def _linear_system(self, X, fs: FunctionSet, asm_cache=None, batched=False):
         """The undamped system at X, shared by GN and LM: (A = JᵀJ·(),
         the assembled diag(JᵀJ) or None where nothing was assembled, the
         residual terms, r0 = -JᵀF, cg_meta: the fused grid CG descriptor or
-        None). ``batched``: one instance of a batch (no per-channel split)."""
-        fs.masks(X)
+        None). ``batched``: one instance of a batch (no per-channel split).
+        Timed as the rows assembleFields (with assembleConst where the
+        solve has no const cache), explicitJ and PCGInit1 (r0)."""
         if self.ip.use_explicit_jtj:
             # the reference's cusparse branch: J and Jᵀ as CSR, two matvecs
             # a CG iteration (explicit.py), the eager loop
             from ..explicit import build_explicit_j, explicit_jtj_apply
 
-            r_terms, _J, JT = fs.linearize(X)
-            r0 = {k: -v for k, v in JT(r_terms).items()}
-            J_csr, JT_csr = build_explicit_j(self.compiled, X, fs.consts, fs.graphs, fs.params,
-                                             self._explicit_structure(fs.graphs, X))
+            with phase("PCGInit1"):
+                fs.masks(X)
+                r_terms, _J, JT = fs.linearize(X)
+                r0 = {k: -v for k, v in JT(r_terms).items()}
+            with phase("explicitJ"):
+                J_csr, JT_csr = build_explicit_j(self.compiled, X, fs.consts, fs.graphs,
+                                                 fs.params, self._explicit_structure(fs.graphs, X))
             return (explicit_jtj_apply(self.compiled, J_csr, JT_csr, fs.row_masks), None,
                     r_terms, r0, None)
         if self._stencil_plan is not None:
-            if asm_cache is None:
-                asm_cache = self._asm_cache(fs, X)
-            A, diag, jtf_fn, cg_meta = fs.assemble_stencil(
-                X, self._stencil_plan, asm_cache, coeff_dtype=self._coeff_dtype,
-                # a block preconditioner couples the channels, a batch's
-                # systems are whole instances and a mesh's loop is joint (as
-                # the JAX package's): no per-channel split
-                allow_split=not (batched or self.rules is not None
-                                 or (self.ip.preconditioner == "block_jacobi"
-                                     and self.compiled.use_preconditioner)),
-            )
-            r_terms = jtf_fn.r_terms
-            if r_terms is None:  # every probe hoisted: evaluate residuals
-                r_terms = fs.F(X)
-            r0 = {k: -v for k, v in jtf_fn(r_terms).items()}
+            with phase("assembleFields"):
+                fs.masks(X)
+                if asm_cache is None:
+                    asm_cache = self._asm_cache(fs, X)
+                A, diag, jtf_fn, cg_meta = fs.assemble_stencil(
+                    X, self._stencil_plan, asm_cache, coeff_dtype=self._coeff_dtype,
+                    # a block preconditioner couples the channels, a batch's
+                    # systems are whole instances and a mesh's loop is joint
+                    # (as the JAX package's): no per-channel split
+                    allow_split=not (batched or self.rules is not None
+                                     or (self.ip.preconditioner == "block_jacobi"
+                                         and self.compiled.use_preconditioner)),
+                )
+            with phase("PCGInit1"):
+                r_terms = jtf_fn.r_terms
+                if r_terms is None:  # every probe hoisted: evaluate residuals
+                    r_terms = fs.F(X)
+                r0 = {k: -v for k, v in jtf_fn(r_terms).items()}
             return A, diag, r_terms, r0, cg_meta
-        r_terms, J, JT = fs.linearize(X)
-        r0 = {k: -v for k, v in JT(r_terms).items()}
+        with phase("PCGInit1"):
+            fs.masks(X)
+            r_terms, J, JT = fs.linearize(X)
+            r0 = {k: -v for k, v in JT(r_terms).items()}
         return (lambda v: JT(J(v))), None, r_terms, r0, None
 
     def _explicit_structure(self, graphs, X):
@@ -370,11 +385,12 @@ class GaussNewtonSolver:
         the spec disables the preconditioner) and cg_meta the fused grid CG
         descriptor or None."""
         A, diag, _r, r0, cg_meta = self._linear_system(X, fs, asm_cache, batched)
-        if self.compiled.use_preconditioner:
-            pre_raw = diag if diag is not None else fs.jtj_diag(X)
-        else:
-            pre_raw = {k: torch.ones_like(v) for k, v in r0.items()}
-        pre = fs.mask_rows(self._guarded_invert(pre_raw))
+        with phase("PCGInit1", count=False):
+            if self.compiled.use_preconditioner:
+                pre_raw = diag if diag is not None else fs.jtj_diag(X)
+            else:
+                pre_raw = {k: torch.ones_like(v) for k, v in r0.items()}
+            pre = fs.mask_rows(self._guarded_invert(pre_raw))
         return A, r0, pre, cg_meta
 
     def _block_pre(self, A, extra_diag=None):
@@ -382,7 +398,8 @@ class GaussNewtonSolver:
         and only where the spec uses a preconditioner), or None."""
         if (self.ip.preconditioner == "block_jacobi" and self.compiled.use_preconditioner
                 and hasattr(A, "block_pre")):
-            return A.block_pre(extra_diag=extra_diag)
+            with phase("blockInverse"):
+                return A.block_pre(extra_diag=extra_diag)
         return None
 
     def _kernel_pre_blocks(self, cg_meta, pre_apply):
@@ -400,19 +417,20 @@ class GaussNewtonSolver:
         u_list, offs, ctot = layouts[isp]
         if tuple(u_list) != cg_meta["u_list"] or offs != cg_meta["offs"] or ctot != cg_meta["ctot"]:
             return None
-        Minv = inv[isp]  # [*dom, C, C]
-        row_masks = getattr(pre_apply, "row_masks", {})
-        parts = []
-        for u in u_list:
-            m = row_masks.get(u)
-            cu = self.compiled.unknown_shape(u)[-1]
-            if m is None:
-                parts.append(torch.ones(Minv.shape[:-2] + (cu,), dtype=Minv.dtype,
-                                        device=Minv.device))
-            else:
-                parts.append(m.expand(m.shape[:-1] + (cu,)))
-        pm = torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
-        return Minv * pm[..., :, None]
+        with phase("blockInverse", count=False):
+            Minv = inv[isp]  # [*dom, C, C]
+            row_masks = getattr(pre_apply, "row_masks", {})
+            parts = []
+            for u in u_list:
+                m = row_masks.get(u)
+                cu = self.compiled.unknown_shape(u)[-1]
+                if m is None:
+                    parts.append(torch.ones(Minv.shape[:-2] + (cu,), dtype=Minv.dtype,
+                                            device=Minv.device))
+                else:
+                    parts.append(m.expand(m.shape[:-1] + (cu,)))
+            pm = torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
+            return Minv * pm[..., :, None]
 
     def _system(self, X, fs: FunctionSet, state, sp, asm_cache=None, batched=False):
         """The linear solve of one step at X: {meta, A, r0, pre, pre_apply,
@@ -454,18 +472,41 @@ class GaussNewtonSolver:
         where the operator has a kernel form (with the block preconditioner
         when there is one), else :meth:`_eager_cg`; under a mesh
         :meth:`_sharded_cg`. Returns (delta, iterations as a 0-dim int32
-        tensor)."""
+        tensor). Timed as the row PCGStep1, with the instance it ran."""
         if self.rules is not None:
             return self._sharded_cg(s, sp)
-        kw = self._fused_keywords(s)
-        if (s["meta"] is not None and self._pallas_mode is not None
-                and (s["pre_apply"] is None or kw["pre_blocks"] is not None)):
-            return fused_grid_cg(
-                s["meta"], s["r0"], s["pre"], sp["lIterations"], sp["cg_rz_tolerance"],
-                guard_div=self.ip.guard_division_by_zero,
-                interpret=self._pallas_mode == "interpret", **kw,
-            )
-        return self._eager_cg(s, sp, device)
+        with phase("PCGStep1"):
+            kw = self._fused_keywords(s)
+            if (s["meta"] is not None and self._pallas_mode is not None
+                    and (s["pre_apply"] is None or kw["pre_blocks"] is not None)):
+                return self._fused_cg(s, sp, kw)
+            note_cg({"eager loop": 1})
+            return self._eager_cg(s, sp, device)
+
+    def _fused_cg(self, s, sp, kw):
+        """``fused_grid_cg`` on the system ``s``. Under a timed solve the
+        instances that launched (the launch counts' growth), or on CPU
+        tensors the twin of the instance the card would launch, go to the
+        timer."""
+        timer = timing_active()
+        before = None if timer is None else dict(fused_cg.fused_grid_cg_kernel.launches)
+        out = fused_grid_cg(
+            s["meta"], s["r0"], s["pre"], sp["lIterations"], sp["cg_rz_tolerance"],
+            guard_div=self.ip.guard_division_by_zero,
+            interpret=self._pallas_mode == "interpret", **kw,
+        )
+        if timer is not None:
+            grew = {k: v - before.get(k, 0)
+                    for k, v in fused_cg.fused_grid_cg_kernel.launches.items()
+                    if v != before.get(k, 0)}
+            if not grew:  # the plain twin ran
+                meta = s["meta"]
+                name = fused_cg.launch_instance(
+                    meta, fused_cg.pack(s["r0"], meta), lm=kw.get("ctc") is not None,
+                    cs=kw["cg_variant"] == "chronopoulos_gear", pre_blocks=kw["pre_blocks"])
+                grew = {f"plain twin of {name}": 1}
+            timer.note_cg(grew)
+        return out
 
     def _sharded_cg(self, s, sp):
         """The linear solve of a step under a mesh: the system assembled on
@@ -522,10 +563,12 @@ class GaussNewtonSolver:
         """The GN update X + δ, its cost and the counts."""
         X = state["X"]
         X_new = {k: X[k] + delta[k] for k in X}
+        with phase("computeCost"):
+            cost = fs.cost(X_new)
         return {
             **state,
             "X": X_new,
-            "prev_cost": fs.cost(X_new).to(state["prev_cost"].dtype),
+            "prev_cost": cost.to(state["prev_cost"].dtype),
             "n_iter": state["n_iter"] + 1,
             "lin_iters": state["lin_iters"] + l_done,
         }
@@ -536,41 +579,45 @@ class GaussNewtonSolver:
         dt = self.compiled.dtype
         radius = state["trust_region_radius"].to(dt)
         A_base, diag, r_terms, r0, cg_meta = self._linear_system(X, fs, asm_cache, batched)
-        if diag is None:
-            diag = fs.jtj_diag(X)
-        # diag: the actual diag(JᵀJ), also under UsePreconditioner(false)
-        if self.compiled.use_preconditioner:
-            pre_raw = diag
-        else:
-            pre_raw = fs.mask_rows({k: torch.ones_like(v) for k, v in diag.items()})
-        pre_guarded = fs.mask_rows(self._guarded_invert(pre_raw))
+        with phase("PCGInit1", count=False):
+            if diag is None:
+                diag = fs.jtj_diag(X)
+            # diag: the actual diag(JᵀJ), also under UsePreconditioner(false)
+            if self.compiled.use_preconditioner:
+                pre_raw = diag
+            else:
+                pre_raw = fs.mask_rows({k: torch.ones_like(v) for k, v in diag.items()})
+            pre_guarded = fs.mask_rows(self._guarded_invert(pre_raw))
 
-        # JacobiScaling ONCE_PER_SOLVE: freeze the guarded-inverted diagonal
-        # of the first nonlinear iteration (PCGSaveSSq, t:607-613)
-        js = self.ip.jacobi_scaling
-        if js == JacobiScalingType.ONCE_PER_SOLVE:
-            first = state["n_iter"] == 0
-            SSq = {k: torch.where(first, pre_guarded[k], state["SSq"][k]) for k in pre_guarded}
-            invS = {k: 1.0 / v for k, v in SSq.items()}
-        elif js == JacobiScalingType.EVERY_ITERATION:
-            SSq = state["SSq"]
-            invS = {k: 1.0 / v for k, v in pre_guarded.items()}
-        else:
-            SSq = state["SSq"]
-            invS = {k: torch.ones_like(v) for k, v in diag.items()}
+            # JacobiScaling ONCE_PER_SOLVE: freeze the guarded-inverted
+            # diagonal of the first nonlinear iteration (PCGSaveSSq,
+            # t:607-613)
+            js = self.ip.jacobi_scaling
+            if js == JacobiScalingType.ONCE_PER_SOLVE:
+                first = state["n_iter"] == 0
+                SSq = {k: torch.where(first, pre_guarded[k], state["SSq"][k])
+                       for k in pre_guarded}
+                invS = {k: 1.0 / v for k, v in SSq.items()}
+            elif js == JacobiScalingType.EVERY_ITERATION:
+                SSq = state["SSq"]
+                invS = {k: 1.0 / v for k, v in pre_guarded.items()}
+            else:
+                SSq = state["SSq"]
+                invS = {k: torch.ones_like(v) for k, v in diag.items()}
 
         # PCGComputeCtC + PCGFinalizeDiagonal (t:631-664)
-        min_d, max_d = _f32(sp["min_lm_diagonal"]), _f32(sp["max_lm_diagonal"])
-        ctc, pre_lm = {}, {}
-        for k in diag:
-            ctc_un = diag[k] / radius
-            mult = invS[k] / radius
-            ctc[k] = torch.clamp(ctc_un, min_d * mult, max_d * mult)
-            pre_lm[k] = 1.0 / (ctc[k] + radius * ctc_un)
-        # select masking: at excluded rows diag = 0, so SSq = 0, invS = inf
-        # and ctc = inf, where multiplicative masking would give NaN
-        ctc = fs.mask_rows_select(ctc)
-        pre_lm = fs.mask_rows_select(pre_lm)
+        with phase("PCGComputeCtC"):
+            min_d, max_d = _f32(sp["min_lm_diagonal"]), _f32(sp["max_lm_diagonal"])
+            ctc, pre_lm = {}, {}
+            for k in diag:
+                ctc_un = diag[k] / radius
+                mult = invS[k] / radius
+                ctc[k] = torch.clamp(ctc_un, min_d * mult, max_d * mult)
+                pre_lm[k] = 1.0 / (ctc[k] + radius * ctc_un)
+            # select masking: at excluded rows diag = 0, so SSq = 0, invS =
+            # inf and ctc = inf, where multiplicative masking would give NaN
+            ctc = fs.mask_rows_select(ctc)
+            pre_lm = fs.mask_rows_select(pre_lm)
         return {
             "meta": cg_meta, "r0": r0, "pre_lm": pre_lm, "ctc": ctc,
             "A_base": A_base, "r_terms": r_terms, "SSq": SSq,
@@ -590,12 +637,14 @@ class GaussNewtonSolver:
         min-radius exits."""
         dt = self.compiled.dtype
         radius = state["trust_region_radius"].to(dt)
-        model_cost = fs.model_cost(X, r_terms, J, delta)
+        with phase("computeModelCost"):
+            model_cost = fs.model_cost(X, r_terms, J, delta)
         prev_cost = state["prev_cost"].to(dt)
         model_cost_change = prev_cost - model_cost
 
         X_new = {k: X[k] + delta[k] for k in X}
-        new_cost = fs.cost(X_new)
+        with phase("computeCost"):
+            new_cost = fs.cost(X_new)
         cost_change = prev_cost - new_cost
         relative_decrease = cost_change / model_cost_change
 

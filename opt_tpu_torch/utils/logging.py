@@ -2,7 +2,8 @@
 verbosity levels documented at Opt.h:16-20).
 
 Level 0: silent. 1 and up: solver progress (cost per nonlinear iteration)
-and bind-time notices (clamped ±inf sentinels), on stderr.
+and bind-time notices (clamped ±inf sentinels), on stderr. 3: debug (the
+plan report, written once a plan by ``Plan.solve``).
 """
 
 from __future__ import annotations
@@ -23,4 +24,9 @@ def verbosity() -> int:
 
 def log_solver(msg: str, *args) -> None:
     if _VERBOSITY >= 1:
+        print(msg % args if args else msg, file=sys.stderr)
+
+
+def log_debug(msg: str, *args) -> None:
+    if _VERBOSITY >= 3:
         print(msg % args if args else msg, file=sys.stderr)

@@ -8,6 +8,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -102,6 +103,9 @@ def test_sources_import_no_jax():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|opt_tpu)\b(?!_torch)", re.M)
     files = sorted((REPO / "opt_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert {"distributed.py", "mesh.py"} <= {f.name for f in files if f.parent.name == "parallel"}
+    assert {"timer.py", "plan_report.py", "checkpoint.py", "memory.py", "io.py"} <= {
+        f.name for f in files if f.parent.name == "utils"}
+    assert REPO / "opt_tpu_torch" / "harness.py" in files
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders
 
@@ -166,7 +170,6 @@ def test_plan_takes_the_default_keywords():
 
 
 @pytest.mark.parametrize("field,value,error,match", [
-    ("collect_per_kernel_timing", True, NotImplementedError, "item 6"),
     ("edge_reorder", "owner", NotImplementedError, "item 8"),
     ("edge_reorder", "bogus", ValueError, "only implemented mode"),
     ("aligned_graph_assembly", True, NotImplementedError, "not to be ported"),
@@ -177,6 +180,20 @@ def test_unported_init_params_raise(field, value, error, match):
     ip = ott.InitializationParameters(**{field: value})
     with pytest.raises(error, match=match):
         ott.Problem(tspecs.laplacian).plan(dims={"W": 8, "H": 8}, device="cpu", init_params=ip)
+
+
+def test_collect_per_kernel_timing_plans_on_the_cpu(capsys):
+    """collect_per_kernel_timing=True (queue 1 item 6a) plans and solves on
+    the CPU and prints the reference's TIMING line, where it raised
+    before it was ported."""
+    ip = ott.InitializationParameters(collect_per_kernel_timing=True)
+    plan = ott.Problem(tspecs.laplacian).plan(dims={"W": 8, "H": 8}, device="cpu", init_params=ip)
+    rng = np.random.RandomState(0)
+    res = plan.solve({"X": rng.rand(8, 8).astype("f4"), "A": rng.rand(8, 8).astype("f4")},
+                     nIterations=2, lIterations=5)
+    out = capsys.readouterr().out
+    assert "TIMING " in out and "Per-iter times ms (nonlinear,linear):" in out
+    assert plan._timing_phases["PCGStep1"].count == res.num_linear_iterations
 
 
 @pytest.mark.parametrize("value", [False, None, "auto"])
