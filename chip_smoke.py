@@ -187,6 +187,14 @@ summary (the sharded ranks print theirs, with the tile kernel's
 registers); the card's memory is reported after image_warping
 1024x1024's solve; and an image_warping 512x512 LM solve saved after 4 steps
 and restored into a fresh plan ends bitwise equal to the uninterrupted one.
+The C API: it builds libopttpu_torch.so (native/include/OptTpu.h over an
+embedded CPython that imports opt_tpu_torch.native_bridge) and the port's C
+client with g++ and gcc (opt_tpu_torch/native/build.py) and runs the client
+at 64x64 and 512x512 side by side, laplacian GN 3x30 on the card through
+Opt_NewState ... Opt_ProblemStep ... Opt_FreeState: each run exits 0 with
+PASS, its plan ran gn_tiled once a step with no fallback, and its final
+cost and written-back X are bitwise those of the same solve in this
+process through opt_tpu_torch.api, and within 5e-3 of the JAX package's.
 It exits non-zero, with no result line, when CUDA is not available or any
 check fails. It imports neither JAX nor opt_tpu.
 """
@@ -682,6 +690,20 @@ CKPT_STEPS = 4
 # the timer's rows that make up a step's assembly (utils/timer.py)
 ASSEMBLY_ROWS = ("computedBundle", "assembleConst", "assembleFields", "PCGInit1",
                  "PCGComputeCtC", "blockInverse", "explicitJ")
+# The C API: the port's C client (opt_tpu_torch/native/client.c) through
+# libopttpu_torch.so on the card, laplacian GN C_API_NL x C_API_LI at each
+# side, with the energy file the JAX package's C client loads
+C_API_SIZES = (64, 512)
+C_API_NL, C_API_LI = 3, 30
+C_API_SPEC = os.path.join("native", "test", "laplacian_spec.py")
+# The JAX package's solve on the CPU of the A each client run draws (srand(42)
+# and rand(); the SHA-256 of A's bytes, its first 16 hex digits, says that
+# the card's machine drew the same), as `JAX_PLATFORMS=cpu python3
+# scripts/c_api_numerics.py` prints it; the card's final cost is held to it
+# at C_API_RTOL
+JAX_CPU_C_API = {64: {"a_sha256": "0d4fcd4a442aaf88", "final_cost": 6.786226749420166},
+                 512: {"a_sha256": "1da5e4ca843e633e", "final_cost": 428.2104797363281}}
+C_API_RTOL = 5e-3
 
 
 def log(msg):
@@ -3495,6 +3517,82 @@ def checkpoint_main_path(inputs, gpu):
         raise RuntimeError(f"checkpoint resume failed: {line}")
 
 
+def c_api_main_path(gpu):
+    """The C API on the card: build libopttpu_torch.so and the port's C
+    client (opt_tpu_torch/native/build.py), run the client at each of
+    C_API_SIZES, side by side, with OPT_TPU_TORCH_DEVICE unset (so the
+    card), and hold each run: exit 0 and PASS; the bridge's line names the
+    kernel path, gn_tiled and no fallback, one gn_tiled launch a step; the
+    final cost and the written-back X bitwise equal to the same solve in
+    this process through opt_tpu_torch.api (init, step until 0) on the A
+    the client wrote; A the one JAX_CPU_C_API was computed on, and the
+    final cost within C_API_RTOL of the JAX package's. Returns {side: the
+    client's launches}."""
+    import hashlib
+
+    from opt_tpu_torch import api
+    from opt_tpu_torch.native.build import BUILD_DIR, build_native, run_client
+
+    info = build_native()
+    log(json.dumps({"c_api_build": {"built": info["built"], "seconds": info["seconds"]}}))
+    spec_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), C_API_SPEC)
+    runs, faults = {}, []
+    # the clients side by side, each a process of its own on the card
+    with concurrent.futures.ThreadPoolExecutor(len(C_API_SIZES)) as pool:
+        clients = {n: pool.submit(run_client, n, n, C_API_NL, C_API_LI,
+                                  BUILD_DIR / f"client_{n}.bin", timeout=300)
+                   for n in C_API_SIZES}
+        clients = {n: f.result() for n, f in clients.items()}
+    for n, run in clients.items():
+        if run["rc"] != 0 or "PASS" not in run["stdout"] or run["solve"] is None or run["A"] is None:
+            raise RuntimeError(f"C client at {n}x{n}: rc {run['rc']}\n{run['stdout'][-3000:]}"
+                               f"\n{run['stderr'][-3000:]}")
+        A, solve = run["A"], run["solve"]
+        # the same solve in this process, as the client runs it
+        fused_cg.reset_launch_counts()
+        state = api.new_state()
+        plan = api.problem_plan(state, api.problem_define(state, spec_path), {"W": n, "H": n})
+        api.set_solver_parameter(plan, "nIterations", C_API_NL)
+        api.set_solver_parameter(plan, "lIterations", C_API_LI)
+        t0 = time.perf_counter()
+        api.problem_init(plan, {"X": A.copy(), "A": A.copy()})
+        while api.problem_step(plan):
+            api.problem_current_cost(plan)
+        X = plan.unknowns["X"].cpu().numpy().reshape(n, n)
+        wall = time.perf_counter() - t0
+        cost, n_iter = api.problem_current_cost(plan), int(plan._state["n_iter"])
+        launched = {k: v for k, v in fused_cg.fused_grid_cg_kernel.launches.items() if v}
+        ref = JAX_CPU_C_API[n]
+        sha = hashlib.sha256(A.tobytes()).hexdigest()[:16]
+        rel = abs(run["final_cost"] - ref["final_cost"]) / ref["final_cost"]
+        runs[n] = {"client_wall_s": run["wall_s"], "client_solve_s": solve["wall_s"],
+                   "in_process_solve_s": wall, "init_cost": run["init_cost"],
+                   "nonlinear_steps": n_iter,
+                   "final_cost": run["final_cost"], "in_process_final_cost": cost,
+                   "jax_cpu_final_cost": ref["final_cost"], "rel_diff_jax": rel,
+                   "path": solve["path"], "instance": solve["instance"],
+                   "fused_fallback": solve["fused_fallback"], "device": solve["device"],
+                   "client_launches": solve["launches"], "in_process_launches": launched}
+        if solve["path"] != "kernel" or solve["instance"] != "gn_tiled" or solve["fused_fallback"]:
+            faults.append(f"{n}: the client's plan ran {solve['path']} {solve['instance']} "
+                          f"(fallback {solve['fused_fallback']})")
+        if solve["launches"] != launched or launched != {"gn_tiled": n_iter}:
+            faults.append(f"{n}: launches {solve['launches']} in the client, {launched} here")
+        if np.float32(run["final_cost"]) != np.float32(cost) or not np.array_equal(
+                run["X"].view(np.uint32), X.astype(np.float32).view(np.uint32)):
+            faults.append(f"{n}: not bitwise the in-process solve ({run['final_cost']} vs {cost})")
+        if sha != ref["a_sha256"]:
+            faults.append(f"{n}: A drawn here is not the A of JAX_CPU_C_API ({sha})")
+        elif not rel <= C_API_RTOL:
+            faults.append(f"{n}: final cost {run['final_cost']} vs the JAX package's "
+                          f"{ref['final_cost']} (rel {rel:.3g})")
+    log(json.dumps({"c_api": {"build_s": info["seconds"], "built": info["built"],
+                              "runs": runs, "gpu": gpu}}))
+    if faults:
+        raise RuntimeError("C API: " + "; ".join(faults))
+    return {n: r["client_launches"] for n, r in runs.items()}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phases = {}  # seconds of each phase of this run
@@ -4443,6 +4541,10 @@ def main() -> int:
     checkpoint_main_path(iw_in, gpu)
     phases["tooling"] = time.perf_counter() - t_start - sum(phases.values())
 
+    # 6. the C API: the port's C client through libopttpu_torch.so on the card
+    l_c_api = c_api_main_path(gpu)
+    phases["c_api"] = time.perf_counter() - t_start - sum(phases.values())
+
     def entry(name, replaces, launches, err, timing, source=KERNEL_SOURCE, template=None,
               costs=None):
         ms, plain, bound_ms, bound_by = timing
@@ -4482,7 +4584,7 @@ def main() -> int:
                                            "image_warping_batched": l_iw_batch,
                                            "sharded_tile_apply": l_k5, "graph_specs": l_spec,
                                            "dynamic_topology": l_dyn,
-                                           "cluster_arap": l_cluster}}))
+                                           "cluster_arap": l_cluster, "c_api": l_c_api}}))
     log(json.dumps({"command_s": time.perf_counter() - t_start,
                     "checks_and_main_paths_s": phase_s, "phases_s": phases}))
     log(f"gpu: {gpu}")

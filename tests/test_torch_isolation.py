@@ -79,6 +79,16 @@ pp = ot.PyramidPlan(ot.Problem(laplacian), [{"W": 4, "H": 4}, {"W": 8, "H": 8}],
 res = pp.solve([{"X": np.zeros((4, 4), "f4"), "A": rng.rand(4, 4).astype("f4")},
                 {"X": np.zeros((8, 8), "f4"), "A": rng.rand(8, 8).astype("f4")}])
 assert len(res.costs) == 2 and np.isfinite(res.final_cost)
+# the Opt.h functions, the C library's bridge and its build script
+import opt_tpu_torch.api as api
+import opt_tpu_torch.native_bridge
+from opt_tpu_torch.native import build
+state = api.new_state(device="cpu")
+plan = api.problem_plan(state, api.problem_define(state, laplacian), {"W": 8, "H": 8})
+api.problem_init(plan, {"X": rng.rand(8, 8).astype("f4"), "A": rng.rand(8, 8).astype("f4")})
+while api.problem_step(plan):
+    pass
+assert np.isfinite(api.problem_current_cost(plan))
 assert {"opt_tpu_torch.ops.sampling", "opt_tpu_torch.pyramid"} <= set(sys.modules)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "opt_tpu" or m.startswith("opt_tpu."))
@@ -106,8 +116,24 @@ def test_sources_import_no_jax():
     assert {"timer.py", "plan_report.py", "checkpoint.py", "memory.py", "io.py"} <= {
         f.name for f in files if f.parent.name == "utils"}
     assert REPO / "opt_tpu_torch" / "harness.py" in files
+    assert {REPO / "opt_tpu_torch" / "api.py", REPO / "opt_tpu_torch" / "native_bridge.py",
+            REPO / "opt_tpu_torch" / "native" / "build.py"} <= set(files)
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders
+
+
+def test_c_library_names_only_the_port():
+    """The port's C library embeds CPython and imports the port's bridge,
+    never the JAX package's; its client loads no energy file of its own
+    that imports anything."""
+    native = REPO / "opt_tpu_torch" / "native"
+    cpp = (native / "opttpu_torch.cpp").read_text()
+    assert re.findall(r'PyImport_ImportModule\("([^"]+)"\)', cpp) == ["opt_tpu_torch.native_bridge"]
+    for src in (cpp, (native / "client.c").read_text()):
+        names = set(re.findall(r"\bopt_tpu\w*(?:\.\w+)*", src))
+        assert names <= {"opt_tpu_torch", "opt_tpu_torch.native_bridge"}, names
+    spec = (REPO / "native" / "test" / "laplacian_spec.py").read_text()
+    assert not re.search(r"^\s*(import|from)\s", spec, re.M)
 
 
 def test_default_plan_without_cuda_raises(monkeypatch):
