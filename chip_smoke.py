@@ -72,9 +72,13 @@ card, which solve through the public API, beside the checks and solves
 above, poisson 512x512x4 (GN 1x2000) and image_warping 512x512 (GN and
 LM 8x400, and LM under the mesh's auto policy) as 2x2 tiles, each held to
 the single-device solve on the card (and poisson to the JAX package's),
-with the tile kernel launched once per apply; it times the tile kernel
-against its bound, and the sharded solves (four ranks sharing one card:
-not a scaling figure).
+with the tile kernel launched once per apply; then graph specs with each
+vertex space in owner blocks over the same ranks (arap36k GN 8x100 with
+the standard loop and Jacobi, and under the mesh's auto policy, and
+embedded10k LM 8x40: the owner-block loop, plain PyTorch, no kernel, one
+all_to_all of p a CG apply), their first steps held to the single-device
+solve on the card; it times the tile kernel against its bound, and the
+sharded solves (four ranks sharing one card: not a scaling figure).
 The tiled route: where one system's state fits the card's shared memory at
 one tile a block (fused_cg.tiled_grid_plan: the 2-D GN and LM systems at
 512x512 and below, float32 fields with the Jacobi or the block-Jacobi
@@ -668,19 +672,37 @@ SHARDED_CASES = [
     ("image_warping512 LM 8x400", "image_warping", "LMGPU", IW_N, 8, 400, PINNED),
     ("image_warping512 LM 8x400 auto", "image_warping", "LMGPU", IW_N, 8, 400, {}),
 ]
+# The graph cases the same ranks solve after SHARDED_CASES, through the
+# public API with dims {"N": N}: each 1-D vertex space split into owner
+# blocks over the 2x2 mesh (ROADMAP.md queue 1 item 8b; no kernel: the JAX
+# package runs XLA's loop there). Each: label, spec name, kind, nonlinear x
+# CG iterations, InitializationParameters, and how many first steps are
+# held to the single-device solve on the card (float32 graph solves do not
+# settle past them, ROADMAP.md queue 3). The auto case resolves to
+# Chronopoulos-Gear, block-Jacobi and the owner reorder. embedded10k at
+# GRAPH_SPECS' depth.
+PINNED_GRAPH = dict(PINNED, edge_reorder=False)
+SHARDED_GRAPH_CASES = [
+    (f"arap36k GN {GRAPH_NL}x{GRAPH_LI}", "arap", "gaussNewtonGPU", GRAPH_NL, GRAPH_LI,
+     PINNED_GRAPH, 2),
+    (f"arap36k GN {GRAPH_NL}x{GRAPH_LI} auto", "arap", "gaussNewtonGPU", GRAPH_NL, GRAPH_LI, {},
+     2),
+    ("embedded10k LM 8x40", "embedded", "LMGPU", 8, 40, PINNED_GRAPH, 1),
+]
 SHARDED_ITER_RTOL = 0.01  # a sharded solve's CG count against the single-device one
 SHARDED_TIMEOUT_S = 600  # the ranks' whole run
 OUT_DIR = os.path.join("build", "profiles")  # git-ignored
 # The route profiles (template and tiled) of image_warping 512^2 (GN, LM,
-# LM block-Jacobi, x4 block-Jacobi batched) and volumetric 32^3 run this
-# fraction of their solves' nonlinear steps (8 -> 4), not the whole solve:
-# about 66,000 fewer device launches to profile, some 70 s of the script,
-# made room for the graph specs and dynamic topology paths; so do those of
-# image_warping 1024^2 (4 -> 2), arap36k and the armadillo x4 (8 -> 4), and
-# the cluster-rotation solve's profile (8 -> 4), made room for the cross
-# space, Jacobian and explicit-J paths. Their main paths and solve times
-# still run at full depth.
-PROFILE_NL_CUT = 2
+# LM block-Jacobi, x4 block-Jacobi batched) and 1024^2, volumetric 32^3,
+# arap36k, the armadillo x4 and the cluster-rotation solve, and the
+# profiles of the three graph specs and the last dynamic topology, run
+# 1/PROFILE_NL_CUT of their solves' nonlinear steps (8 -> 2, 4 -> 1), not
+# the whole solve: a profile's cost is mostly its device launches' events,
+# about 1 ms each. Half their steps made room for the graph specs, dynamic
+# topology, cross-space, Jacobian and explicit-J paths, a quarter for the
+# graph specs on a mesh. Their main paths and solve times still run at
+# full depth.
+PROFILE_NL_CUT = 4
 # the tooling's paths: the harness's outer solves of image_warping 512x512
 # (examples/image_warping.py's constraint annealing), where the checkpoint
 # path writes (git-ignored), and the steps before its save
@@ -3132,12 +3154,14 @@ def time_tile_apply(label, meta, gpu, reps=200):
     return ms_k, ms_t, bound_ms, by
 
 
-def sharded_rank(rank, world, store, device, cases, results):
+def sharded_rank(rank, world, store, device, cases, results, graph_cases=()):
     """One rank of the sharded solves (started by the spawn method): joins
     the gloo world, takes its place in the 2x2 mesh on ``device`` and
     solves every case through the public API, its tile-kernel launch count
     and the mesh's counts set to 0 just before each solve and read just
-    after; puts {rank, cases} (or {rank, error}) on ``results``."""
+    after; then the graph cases (``graph_cases``, SHARDED_GRAPH_CASES' form)
+    likewise, with the fused kernels' launch counts; puts {rank, cases,
+    graph_cases} (or {rank, error}) on ``results``."""
     import torch.distributed as dist
 
     from opt_tpu_torch.parallel import initialize, make_mesh
@@ -3180,6 +3204,44 @@ def sharded_rank(rank, world, store, device, cases, results):
                 # sum over the ranks)
                 "plan": plan_summary(plan, inputs, plan.solver_params),
             }
+        out["graph_cases"] = {}
+        for label, name, kind, nl, li, ip, _first in graph_cases:
+            if name == "arap":
+                spec, (dims, inputs) = arap_mesh_deformation, arap_grid_inputs(ARAP_SIDE)
+            else:
+                spec, (dims, inputs) = embedded_mesh_deformation, embedded_inputs(SPEC_SIDE)
+            plan = ot.Problem(spec, kind=kind).plan(
+                dims=dims, mesh=mesh, device=dev.type,
+                init_params=ot.InitializationParameters(**ip))
+            fused_cg.reset_launch_counts()
+            sharded_cg.reset_launch_counts()
+            mesh.reset_counts()
+            plan.solver.cg_stats.clear()
+            t0 = time.perf_counter()
+            res = plan.solve(dict(inputs), nIterations=nl, lIterations=li)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            stats = plan.solver.cg_stats
+            out["graph_cases"][label] = {
+                "cost": res.final_cost, "costs": res.costs, "lin": res.num_linear_iterations,
+                "steps": res.num_iterations, "fused_fallback": res.fused_fallback,
+                "kernel_launches": (sum(fused_cg.fused_grid_cg_kernel.launches.values())
+                                    + sharded_cg.tile_apply_kernel.launches),
+                "iterations": [st["iterations"] for st in stats],
+                "applies": [st["applies"] for st in stats],
+                "all_to_all": [st["all_to_all"] for st in stats],
+                "all_reduce": mesh.counts["all_reduce"], "all_gather": mesh.counts["all_gather"],
+                "solve_all_to_all": mesh.counts["all_to_all"],
+                "cg_ms": sum(st["s"] for st in stats) * 1e3,
+                "wall_ms": wall_ms, "solve_ms": res.wall_time_s * 1e3,
+                "variant": [plan.solver.ip.cg_variant, plan.solver.ip.preconditioner,
+                            plan.solver.ip.edge_reorder],
+                "unknowns": len(res.unknowns),
+                "unknowns_ok": all(v.shape[0] == dims["N"] and bool(torch.isfinite(v).all())
+                                   for v in res.unknowns.values()),
+                "plan": plan_summary(plan, inputs, plan.solver_params),
+            }
         # what an iteration's communication costs here: one all_reduce of
         # three dots, one halo phase of a 256x256x4 tile (its strips through
         # the host), each the mean of 200
@@ -3206,18 +3268,19 @@ def sharded_rank(rank, world, store, device, cases, results):
             dist.destroy_process_group()
 
 
-def start_sharded(cases, device="cuda:0", world=4):
-    """Start ``world`` ranks of the sharded solves by the spawn method (a
-    process that has used CUDA cannot fork them). They are daemons: if this
-    process ends first, they end with it. Returns the handle
-    :func:`collect_sharded` takes."""
+def start_sharded(cases, graph_cases=(), device="cuda:0", world=4):
+    """Start ``world`` ranks of the sharded solves (the grid ``cases``, then
+    the ``graph_cases``) by the spawn method (a process that has used CUDA
+    cannot fork them). They are daemons: if this process ends first, they
+    end with it. Returns the handle :func:`collect_sharded` takes."""
     ctx = multiprocessing.get_context("spawn")
     os.makedirs(os.path.join("build", "ranks"), exist_ok=True)
     store = os.path.abspath(os.path.join("build", "ranks", f"store_{os.getpid()}"))
     if os.path.exists(store):
         os.remove(store)
     results = ctx.Queue()
-    procs = [ctx.Process(target=sharded_rank, args=(r, world, store, device, cases, results),
+    procs = [ctx.Process(target=sharded_rank,
+                         args=(r, world, store, device, cases, results, graph_cases),
                          daemon=True)
              for r in range(world)]
     for proc in procs:
@@ -3325,6 +3388,107 @@ def sharded_main_paths(handle, single, gpu):
         launches[label] = sum(c["tile_kernel_launches"] for c in cases)
     log(json.dumps({"sharded_wait_s": time.perf_counter() - t0}))
     return ranks, launches
+
+
+def single_steps(spec, kind, dims, inputs, nl, li, ip):
+    """A single-device solve on the card through the stepwise API: (each
+    step's cost, each step's CG count, the final cost)."""
+    plan = ot.Problem(spec, kind=kind).plan(dims=dims,
+                                            init_params=ot.InitializationParameters(**ip))
+    plan.set_solver_parameters({"nIterations": nl, "lIterations": li})
+    plan.init(dict(inputs))
+    costs, counts, done = [], [], 0
+    while True:
+        going = plan.step()
+        lin = int(plan._state["lin_iters"])
+        counts.append(lin - done)
+        costs.append(plan.current_cost())
+        done = lin
+        if not going:
+            break
+    return costs, counts, plan.current_cost()
+
+
+def sharded_graph_references(arap_dims, arap_in, res_arap, emb_dims, emb_in, res_emb):
+    """The single-device solves on the card that SHARDED_GRAPH_CASES are held
+    to: label -> (first steps' costs, their CG counts, final cost). The
+    pinned cases' final costs are the main paths' (arap36k GN 8x100,
+    embedded10k LM 8x40), their first steps' costs and counts from the same
+    solve's first steps through the stepwise API; the auto case's one more
+    arap36k GN 8x100 solve, with CS and block-Jacobi."""
+    out = {}
+    for label, name, kind, nl, li, ip, first in SHARDED_GRAPH_CASES:
+        spec, dims, inputs, res = ((arap_mesh_deformation, arap_dims, arap_in, res_arap)
+                                   if name == "arap" else
+                                   (embedded_mesh_deformation, emb_dims, emb_in, res_emb))
+        single_ip = {k: v for k, v in ip.items() if k != "edge_reorder"} if ip else CS_BJ
+        costs, counts, final = single_steps(spec, kind, dims, inputs,
+                                            first if ip else nl, li, single_ip)
+        out[label] = (costs[:first], counts[:first], res.final_cost if ip else final)
+    return out
+
+
+def sharded_graph_main_paths(ranks, single, gpu):
+    """The graph cases of the sharded ranks (SHARDED_GRAPH_CASES, each vertex
+    space in owner blocks over the 2x2 mesh) held to the single-device solves
+    on the card (``single``: sharded_graph_references): every rank equal to
+    rank 0, no fallback and no kernel launched, the plan report's path the
+    sharded graph loop, one all_to_all a CG apply and no all_gather but the
+    result's, the first steps' costs within FIRST_STEPS_RTOL and their CG
+    counts within SHARDED_ITER_RTOL, the global unknowns finite. Prints one
+    graph_exchange line a case (the exchanges' widths M and ms per sharded
+    CG iteration) and the final cost beside the single-device one and the
+    JAX CPU's."""
+    for label, name, kind, nl, li, ip, n_first in SHARDED_GRAPH_CASES:
+        cases = [r["graph_cases"][label] for r in ranks]
+        first = cases[0]
+        costs, counts, final = single[label]
+        rel = [abs(a - b) / abs(b) for a, b in zip(first["costs"][:n_first], costs)]
+        jax_final = (JAX_CPU_GRAPH_COSTS["arap36k"]["final"] if name == "arap"
+                     else JAX_CPU_SPEC_COSTS["embedded10k"]["costs"][-1])
+        route = first["plan"]["route"]
+        log(json.dumps({"graph_exchange": label, "gpu": gpu, "mesh": list(MESH_SHAPE),
+                        "exchange_M": [r["graph_cases"][label]["plan"]["route"]["graphs"]
+                                       for r in ranks],
+                        "ms_per_sharded_cg_iter": [c["cg_ms"] / max(1, c["lin"]) for c in cases],
+                        "all_to_all_per_cg_call": first["all_to_all"],
+                        "applies_per_cg_call": first["applies"],
+                        "note": "four ranks on one card under gloo: not a scaling figure"}))
+        log(json.dumps({
+            "check": "sharded_graph_main_path", "case": label, "mesh": list(MESH_SHAPE),
+            "gpu": gpu, "variant": first["variant"], "vertices": route["vertices"],
+            "first_costs": first["costs"][:n_first], "single_device_first_costs": costs,
+            "first_rel_diff": rel, "first_cg_counts": first["iterations"][:n_first],
+            "single_device_first_cg_counts": counts, "final_cost": first["cost"],
+            "single_device_final_cost": final, "jax_cpu_final_cost": jax_final,
+            "lin_iters": first["lin"], "nonlinear_iters": first["steps"],
+            "all_reduce": first["all_reduce"], "solve_all_to_all": first["solve_all_to_all"],
+            "all_gather": first["all_gather"], "wall_ms": [c["wall_ms"] for c in cases],
+            "note": "four ranks on one card under gloo: not a scaling figure"}))
+        log(json.dumps({"plan_summary": f"{label} (rank 0 of {MESH_SHAPE[0]}x{MESH_SHAPE[1]})",
+                        **first["plan"]}))
+        faults = []
+        if first["plan"]["path"] != "sharded graph loop":
+            faults.append(f"plan report path {first['plan']['path']!r}")
+        for r, c in zip(ranks, cases):
+            if (c["cost"], c["lin"], c["costs"]) != (first["cost"], first["lin"], first["costs"]):
+                faults.append(f"rank {r['rank']} parts from rank 0")
+            if c["fused_fallback"] is not None or c["kernel_launches"]:
+                faults.append(f"rank {r['rank']}: fallback {c['fused_fallback']}, "
+                              f"{c['kernel_launches']} kernel launches")
+            if len(c["applies"]) != c["steps"] or c["all_to_all"] != c["applies"]:
+                faults.append(f"rank {r['rank']}: {c['all_to_all']} exchanges for "
+                              f"{c['applies']} applies in {c['steps']} steps")
+            if c["all_gather"] != c["unknowns"] or not c["unknowns_ok"]:
+                faults.append(f"rank {r['rank']}: {c['all_gather']} all_gathers, unknowns "
+                              f"finite of the global shape: {c['unknowns_ok']}")
+        if any(x > FIRST_STEPS_RTOL for x in rel) or len(rel) != n_first:
+            faults.append(f"first costs {first['costs'][:n_first]} against {costs}")
+        if any(abs(a - b) > SHARDED_ITER_RTOL * b
+               for a, b in zip(first["iterations"][:n_first], counts)):
+            faults.append(f"first CG counts {first['iterations'][:n_first]} against {counts}")
+        if faults:
+            raise RuntimeError(f"sharded {label}: " + "; ".join(faults))
 
 
 def iw_targets(inputs):
@@ -3660,7 +3824,7 @@ def main() -> int:
         "four on the one card (NCCL refuses two ranks on one device), beside this process's "
         "checks and solves; their times are of four ranks sharing one card, not a scaling "
         "figure")
-    sharded = start_sharded(SHARDED_CASES)
+    sharded = start_sharded(SHARDED_CASES, SHARDED_GRAPH_CASES)
 
     phases["start_and_build"] = time.perf_counter() - t_start - sum(phases.values())
     # 2. each kernel form against its twin at the main paths' shapes; the
@@ -4178,7 +4342,8 @@ def main() -> int:
     res_arm, l_arm = graph_main_path("armadillo31k", arm_dims, arm_in, "gn_rem_tiled")
     float64_witness(f"arap36k GN {GRAPH_NL}x{GRAPH_LI}", arap_mesh_deformation, "gaussNewtonGPU",
                     arap_dims, arap_in, GRAPH_NL, GRAPH_LI, JAX_CPU_ARAP36K_F64_COSTS, F64_STEPS)
-    l_spec = {label: spec_main_path(label, *spec_in[label])[1] for label in GRAPH_SPECS}
+    spec_res = {label: spec_main_path(label, *spec_in[label]) for label in GRAPH_SPECS}
+    l_spec = {label: r[1] for label, r in spec_res.items()}
     l_dyn, dyn_sys = dynamic_main_path(arap_dims, dyn_in)
     # the last topology's first system, as the kernel takes it (the padded
     # graph, all remainder), against the twin and the template
@@ -4223,6 +4388,11 @@ def main() -> int:
         _grid(IW_N), iw_in, 8, 400, None, {"Offset": (IW_N, IW_N, 2), "Angle": (IW_N, IW_N, 1)},
         form="lm_cs_bj", ip=CS_BJ)
 
+    # the single-device solves the sharded graph cases are held to
+    graph_single = sharded_graph_references(arap_dims, arap_in, res_arap,
+                                            *spec_in["embedded10k"],
+                                            spec_res["embedded10k"][0])
+
     phases["main_paths"] = time.perf_counter() - t_start - sum(phases.values())
     single = {SHARDED_CASES[0][0]: res_poisson, SHARDED_CASES[1][0]: iw_res[(IW_N, "gaussNewtonGPU")],
               SHARDED_CASES[2][0]: iw_res[(IW_N, "LMGPU")], SHARDED_CASES[3][0]: res_auto}
@@ -4254,8 +4424,9 @@ def main() -> int:
                     "golden": golden, "rel_diff": abs(r.final_cost - golden) / golden}))
     float64_witness(label, spec, kind, mdims, minputs, nl, li, JAX_CPU_SFS_MEDIUM_F64_COSTS, nl)
     phases["goldens"] = time.perf_counter() - t_start - sum(phases.values())
-    _ranks, l_k5 = sharded_main_paths(
+    ranks, l_k5 = sharded_main_paths(
         sharded, {k: (r.final_cost, r.num_linear_iterations) for k, r in single.items()}, gpu)
+    sharded_graph_main_paths(ranks, graph_single, gpu)
     phases["sharded_main_paths_after_goldens"] = (time.perf_counter() - t_start
                                                   - sum(phases.values()))
     phase_s = time.perf_counter() - t_start
@@ -4471,7 +4642,7 @@ def main() -> int:
             profile_solve(f"{plabel} {route}".replace(" ", "_"), lambda: gplan.solve(
                 dict(arap_in), nIterations=pl, lIterations=GRAPH_LI), gpu)  # run at once
             # volumetric's Jacobi solve only: a profile of its ~25,000 device
-            # launches (8 steps) takes about 19 s
+            # launches (8 steps) takes about 19 s at full depth
             vplan = ot.Problem(volumetric_mesh_deformation).plan(dims=_vol(VOL_N))
             vl = max(1, VOL_NL // PROFILE_NL_CUT)
             profile_solve(f"volumetric{VOL_N}_GN_{vl}x{VOL_LI}_jacobi_{route}",
@@ -4489,15 +4660,18 @@ def main() -> int:
     bplan = ot.Problem(curve_fitting, kind="LMGPU").plan(dims=cdims)
     profile_solve(f"curve_fitting_x{BATCH_B}_batched", lambda: bplan.solve_batched(
         dict(curve_in), nIterations=BATCH_NL, lIterations=BATCH_LI), gpu)
-    # the three other graph specs' main paths and the last dynamic topology's
+    # the three other graph specs' main paths and the last dynamic topology's,
+    # at PROFILE_NL_CUT of their steps
     for label, (spec, kind, _mk, nl, li, _form, _layout) in GRAPH_SPECS.items():
         splan = ot.Problem(spec, kind=kind).plan(dims=spec_in[label][0])
-        profile_solve(f"{label}_{'LM' if kind == 'LMGPU' else 'GN'}_{nl}x{li}",
-                      functools.partial(splan.solve, dict(spec_in[label][1]), nIterations=nl,
+        pl = max(1, nl // PROFILE_NL_CUT)
+        profile_solve(f"{label}_{'LM' if kind == 'LMGPU' else 'GN'}_{pl}x{li}",
+                      functools.partial(splan.solve, dict(spec_in[label][1]), nIterations=pl,
                                         lIterations=li), gpu)
     dplan = ot.Problem(arap_mesh_deformation).plan(dims=arap_dims, dynamic_topology=True)
-    profile_solve(f"arap36k_dynamic_topology_2_GN_{GRAPH_NL}x{GRAPH_LI}", functools.partial(
-        dplan.solve, dict(dyn_in[-1]), nIterations=GRAPH_NL, lIterations=GRAPH_LI), gpu)
+    dl = max(1, GRAPH_NL // PROFILE_NL_CUT)
+    profile_solve(f"arap36k_dynamic_topology_2_GN_{dl}x{GRAPH_LI}", functools.partial(
+        dplan.solve, dict(dyn_in[-1]), nIterations=dl, lIterations=GRAPH_LI), gpu)
     # the cluster solve's eager loop, at PROFILE_NL_CUT of its steps: its 8
     # steps make some 77,500 device launches to profile
     cplan = ot.Problem(cluster_arap_spec(ot)).plan(dims=cl_dims)

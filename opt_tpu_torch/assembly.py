@@ -42,7 +42,9 @@ from torch.fx.experimental.proxy_tensor import make_fx
 from .compile import graph_outputs, node_inputs, op_name
 from .ops.fused_cg import coefficient_dtype, plan_fused_graph_cg, plan_fused_grid_cg
 from .ops.sampling import is_frozen_marker
+from .ops.sharded_cg import _block_matvec, graph_apply, plan_sharded_graph_cg
 from .ops.shift import shift
+from .parallel.mesh import halo_gather_parts
 from .solver.params import FLOAT_EPSILON
 
 # centered: (u_out, u_in, delta, i, j) -> [(term_idx, sid_out, sid_in), ...]
@@ -518,11 +520,6 @@ def _pad_channels(x, lo, hi):
     return x if lo == 0 and hi == 0 else TF.pad(x, (lo, hi))
 
 
-def _block_matvec(W_flat, pv, ct):
-    """out[:, i] = Σ_j W_flat[:, i·ct + j] · pv[:, j] on flat [N, ct²] blocks."""
-    return torch.sum(W_flat.reshape(-1, ct, ct) * pv[:, None, :], dim=-1)
-
-
 def _graph_layouts(compiled, plan, graphs):
     """The graph couplings grouped per (graph, vertex-space group): returns
     (g_couplings {(g, u_out, k_out, u_in, k_in): {(t, so, si)}},
@@ -590,6 +587,8 @@ def assemble(compiled, plan: AssemblyPlan, X, consts, graphs, params, row_masks,
     dt = compiled.dtype
     X_ref = next(iter(X.values()))
     X_dev = X_ref.device
+    # on a graph mesh: the rank's owner blocks (parallel/mesh.py)
+    mesh = None if compiled.graph_rules is None else compiled.graph_rules.mesh
 
     def _zeros(shape):
         # zeros that the build phase writes into in place: made from X, so
@@ -787,10 +786,17 @@ def assemble(compiled, plan: AssemblyPlan, X, consts, graphs, params, row_masks,
             for j in range(n_stack - 1):
                 cols.append(P.get((k, names[(a + 1 + j) % m]), zero))
             rows.append(torch.cat([c.reshape(E, ct * ct) for c in cols], dim=-1))
-        rows.append(torch.zeros((1, n_stack * ct * ct), dtype=dt, device=X_dev))
-        inc = tabs["inc"]  # [N, D], sentinel m*E reads the zero row
-        n_out, d_tot = inc.shape
-        G = torch.cat(rows, dim=0)[inc.reshape(-1)].reshape(n_out, d_tot, n_stack * ct * ct)
+        if mesh is not None:
+            # the rank's vertices gather their incident edges' rows from the
+            # ranks that assembled them: one exchange through the rank-major
+            # stacked rows (opt_tpu/assembly.py:1352-1366)
+            G = halo_gather_parts(mesh, rows, tabs["inc_send"], tabs["inc_loc"])
+            n_out, d_tot = tabs["inc_loc"].shape
+        else:
+            rows.append(torch.zeros((1, n_stack * ct * ct), dtype=dt, device=X_dev))
+            inc = tabs["inc"]  # [N, D], sentinel m*E reads the zero row
+            n_out, d_tot = inc.shape
+            G = torch.cat(rows, dim=0)[inc.reshape(-1)].reshape(n_out, d_tot, n_stack * ct * ct)
         ex = {"S": G[:, :, : ct * ct].sum(dim=1), "ct": ct, "dia": [], "C": None,
               "cross": None, "mask": g_masks[(g, gk)], "layout": (u_list, offs, ct),
               "tables": tabs}
@@ -810,7 +816,7 @@ def assemble(compiled, plan: AssemblyPlan, X, consts, graphs, params, row_masks,
                     part = torch.take_along_dim(C_ext, rem_pos[:, :, k, None], dim=1)
                     C_r = part if C_r is None else C_r + part
                 ex["C"] = C_r  # [N, Dm, ct*ct]
-                ex["cross"] = tabs["rem_cross"]  # [N, Dm], sentinel N
+                ex["cross"] = tabs.get("rem_cross")  # [N, Dm], sentinel N (off a mesh)
         grp_exec[(g, gk)] = ex
 
     # couplings between slots of different groups: per (graph, out-group,
@@ -951,8 +957,12 @@ def assemble(compiled, plan: AssemblyPlan, X, consts, graphs, params, row_masks,
                 for img, c in edge_parts.get((g, gk, k), {}).items():
                     padded[:, offs[img] : offs[img] + unknown_channels[img]] = c
                 blocks.append(padded)
-            blocks.append(torch.zeros((1, ct), dtype=dt, device=X_dev))
-            acc = torch.cat(blocks)[graphs[g]["__groups__"][gk]["inc"]].sum(dim=1)
+            tabs = graphs[g]["__groups__"][gk]
+            if mesh is not None:  # the same exchange (opt_tpu/assembly.py:1789-1797)
+                acc = halo_gather_parts(mesh, blocks, tabs["inc_send"], tabs["inc_loc"]).sum(dim=1)
+            else:
+                blocks.append(torch.zeros((1, ct), dtype=dt, device=X_dev))
+                acc = torch.cat(blocks)[tabs["inc"]].sum(dim=1)
             for u in u_list:
                 sl = acc[:, offs[u] : offs[u] + unknown_channels[u]]
                 out[u] = sl if out[u] is None else out[u] + sl
@@ -1115,7 +1125,21 @@ def assemble(compiled, plan: AssemblyPlan, X, consts, graphs, params, row_masks,
         for pe in pair_exec.values():
             pe["W"] = pe["W"].to(cdt)
 
-    if grp_exec or pair_exec:
+    if mesh is not None:
+        cg_meta = plan_sharded_graph_cg(compiled, plan, fields, grp_exec, mesh)
+
+        def mesh_apply(p):
+            """apply_fn on the rank's blocks: the sharded loop's apply."""
+            out, o = {}, 0
+            Ap = graph_apply(cg_meta, torch.cat([p[u] for u in cg_meta["u_list"]], dim=-1))
+            for u in cg_meta["u_list"]:
+                out[u] = Ap[:, o:o + unknown_channels[u]]
+                o += unknown_channels[u]
+            return out
+
+        mesh_apply.block_pre = make_block_pre
+        apply_fn = mesh_apply
+    elif grp_exec or pair_exec:
         cg_meta = plan_fused_graph_cg(compiled, plan, fields, grp_exec, coeff_dtype=cdt,
                                       pair_exec=pair_exec)
     else:

@@ -136,6 +136,10 @@ class CompiledProblem:
     registry: SpecRegistry
     dim_sizes: Dict[str, int]
     dtype: Any
+    # on a graph mesh: the rank's parallel.mesh.GraphShardingRules (a plan's
+    # own copy of the cached problem, at the rank's local dims), through
+    # which the per-edge reads of other ranks' vertices are exchanged
+    graph_rules: Any = None
 
     @property
     def use_preconditioner(self) -> bool:
@@ -279,20 +283,37 @@ class CompiledProblem:
             p: torch.zeros((), dtype=self.dtype, device=meta)
             for p in self.registry.params
         }
-        out = _comparison_constants(self, zeros_u, zeros_c, zeros_g, zeros_p)
+        # traced on meta tensors: never through a graph mesh's exchanges
+        plain = self if self.graph_rules is None else dataclasses.replace(self, graph_rules=None)
+        out = _comparison_constants(plain, zeros_u, zeros_c, zeros_g, zeros_p)
         self._cmp_thresholds = out
         return out
 
     # ---- field-mode runs ----------------------------------------------------
+    def edge_values(self, unknowns, consts, graphs):
+        """On a graph mesh, {(image, graph, slot): [E_d, C]}: the images read
+        at this rank's edges (the constants' exchanged once and kept, the
+        unknowns' now); None off a mesh. Its exchanges are collectives: a
+        caller under a ``torch.func`` transform passes them in instead."""
+        rules = self.graph_rules
+        if rules is None:
+            return None
+        ev = dict(rules.const_edge_values(self, consts, graphs))
+        ev.update(rules.edge_values(self, unknowns, consts, graphs, "unknowns"))
+        return ev
+
     def _run(self, mode, unknowns, consts, graphs, params, slot_values=None,
-             computed_subs=None):
+             computed_subs=None, edge_values=None):
+        if mode == "field" and edge_values is None:
+            edge_values = self.edge_values(unknowns, consts, graphs)
         builder = SpecBuilder(
             mode,
             self.dim_sizes,
             self.dtype,
             registry=self.registry,
             bindings={"unknowns": unknowns, "consts": consts, "graphs": graphs,
-                      "params": params, "computed_subs": computed_subs},
+                      "params": params, "computed_subs": computed_subs,
+                      "edge_values": edge_values},
             slot_values=slot_values,
             device=_first_device(unknowns, consts, slot_values or []),
         )
@@ -327,11 +348,13 @@ class CompiledProblem:
         # multiplicative 0/1 mask, as in the reference package
         return val * bbox_mask(shape, bmin, bmax, dtype=val.dtype, device=val.device)
 
-    def residual_terms(self, unknowns, consts, graphs, params) -> List[torch.Tensor]:
+    def residual_terms(self, unknowns, consts, graphs, params,
+                       edge_values=None) -> List[torch.Tensor]:
         """All residual terms (bbox-masked), *not* exclusion-masked: residual
         instances centered at excluded pixels still feed the gradients of
-        active unknowns."""
-        b = self._run("field", unknowns, consts, graphs, params)
+        active unknowns. ``edge_values``: on a graph mesh, the per-edge
+        reads (:meth:`edge_values`), exchanged now where not given."""
+        b = self._run("field", unknowns, consts, graphs, params, edge_values=edge_values)
         out = []
         for term, val, sc in zip(self.terms, b.energy_values, self.graph_term_scales(graphs)):
             val = self._apply_bbox(self._normalize_term(val, term), term)
@@ -399,6 +422,7 @@ class CompiledProblem:
         (:meth:`_computed_bundle`): the reference's per-nonlinear-iteration
         ``precompute`` kernels."""
         device = _first_device(unknowns, consts)
+        edge_values = self.edge_values(unknowns, consts, graphs)
         bundle = None
         vals = []
         for s in self.registry.slots:
@@ -421,6 +445,8 @@ class CompiledProblem:
                 value, grads = bundle[s.image]  # image holds the handle name
                 field = value if s.kind == "cimg" else grads[(s.key[3], s.key[4])]
                 vals.append(shift(field, s.offset))
+            elif edge_values is not None:  # gimg on a graph mesh: exchanged
+                vals.append(edge_values[(s.image, s.graph, s.key[3])])
             else:  # gimg: the image at the slot's edge endpoints
                 decl = self.registry.images[s.image]
                 if decl.alias is not None:

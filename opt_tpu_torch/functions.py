@@ -18,6 +18,15 @@ extended region and is given the rank's ``ShardingRules`` as its
 ``window``: the cost sums then take the residual centres in the rank's
 tile only, in float64, and add the ranks' sums in one all_reduce. Every
 other operator is per point and is read on the tile by the solver.
+
+On a graph mesh (``compiled.graph_rules``) a set works on the rank's owner
+blocks and edge block: its cost sums the rank's own residuals the same way.
+The per-edge reads of other ranks' vertices are exchanged outside every
+``torch.func`` transform (a collective has no transpose rule there): the
+residuals are a function of the blocks and of the exchanged per-edge
+values, J·p exchanges p's the same way, and Jᵀ sends the per-edge
+cotangents back to their owners by the reverse exchange
+(``parallel/mesh.py::slot_halo_scatter_add``).
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ import torch
 from .compile import CompiledProblem
 from .ops.graph_ops import edge_scatter_add
 from .ops.shift import shift_adjoint
+from .parallel.mesh import slot_halo_scatter_add
 
 
 def _mask_rows(x: Dict[str, torch.Tensor], row_masks) -> Dict[str, torch.Tensor]:
@@ -106,9 +116,36 @@ class FunctionSet:
         return self._masked_half_sq_sum(self.F(X), excl)
 
     # -- linearization bundle --------------------------------------------------
+    def _mesh_parts(self, X):
+        """On a graph mesh: (the residuals as a function of the blocks X and
+        the unknowns' exchanged per-edge values, those values at X)."""
+        c, rules = self.c, self.c.graph_rules
+        ev_c = rules.const_edge_values(c, self.consts, self.graphs)
+
+        def F(Xb, ev_u):
+            return c.residual_terms(Xb, self.consts, self.graphs, self.params,
+                                    edge_values={**ev_c, **ev_u})
+
+        return F, rules.edge_values(c, X, self.consts, self.graphs, "unknowns")
+
     def linearize(self, X):
         """Returns (residual terms, J·(), Jᵀ·()) at X."""
         _, row_masks = self.masks(X)
+        if self.c.graph_rules is not None:
+            F, ev_u = self._mesh_parts(X)
+            r_terms, vjp_fn = torch.func.vjp(F, X, ev_u)
+            rules = self.c.graph_rules
+
+            def JT(terms):
+                g, g_ev = vjp_fn(list(terms))
+                g = dict(g)
+                for (name, gname, slot), ct in g_ev.items():
+                    g[name] = g[name] + slot_halo_scatter_add(
+                        rules.mesh, ct, int(g[name].shape[0]),
+                        self.graphs[gname]["__slot_halo__"][slot])
+                return _mask_rows(g, row_masks)
+
+            return r_terms, self._mesh_jvp(X, F, ev_u), JT
         r_terms, vjp_fn = torch.func.vjp(self.F, X)
 
         def JT(terms):
@@ -120,9 +157,22 @@ class FunctionSet:
     def jvp_fn(self, X):
         """J·() at X. The tangent dict may list the unknowns in any order
         (torch.func compares dict structure with its key order)."""
+        if self.c.graph_rules is not None:
+            return self._mesh_jvp(X, *self._mesh_parts(X))
 
         def J(p):
             return torch.func.jvp(self.F, (X,), ({k: p[k] for k in X},))[1]
+
+        return J
+
+    def _mesh_jvp(self, X, F, ev_u):
+        """J·() at X on a graph mesh: p's per-edge values exchanged as X's."""
+        rules = self.c.graph_rules
+
+        def J(p):
+            p = {k: p[k] for k in X}
+            ev_p = rules.edge_values(self.c, p, self.consts, self.graphs, "unknowns")
+            return torch.func.jvp(F, (X, ev_u), (p, {k: ev_p[k] for k in ev_u}))[1]
 
         return J
 
@@ -150,6 +200,10 @@ class FunctionSet:
         self-loop edge's cross term is not included."""
         _, row_masks = self.masks(X)
         c = self.c
+        if c.graph_rules is not None:
+            raise NotImplementedError(
+                "the probed Jacobi diagonal on a graph mesh: the mesh runs the assembled "
+                "operator, whose diagonal it reads (ROADMAP.md queue 1 item 8e)")
         slot_vals = c.gather_slot_values(X, self.consts, self.graphs, self.params)
         scales = c.graph_term_scales(self.graphs)
 

@@ -1,5 +1,7 @@
-"""The PCG loop of a 2-D grid operator sharded over a 2-D mesh of ranks:
-the counterpart of ``opt_tpu/ops/pallas_cg.py::sharded_fused_grid_cg``.
+"""The PCG loops of an operator sharded over a mesh of ranks: a 2-D grid's
+(:func:`sharded_fused_grid_cg`, the counterpart of
+``opt_tpu/ops/pallas_cg.py::sharded_fused_grid_cg``) and a graph's over its
+owner blocks (:func:`sharded_graph_cg`).
 
 Each rank holds a tile [C, th, tw] of every CG vector and the tile of the
 operator's fields. An iteration extends the search direction by the
@@ -19,12 +21,23 @@ The apply's kernel gives a thread one channel of one column over two rows
 of the tile, summing each channel's triples in the table's order; the
 table (:func:`_launch_table`, host arrays) goes to the kernel as a launch
 parameter, so no block waits on a load of it before its own loads.
+
+On a graph mesh the JAX package runs XLA's loop on the assembled operator
+(it plans no graph kernel under a mesh, opt_tpu/assembly.py:2070, and its
+sharded kernel declines graphs, pallas_cg.py:1233), so the port's graph
+loop is plain PyTorch too: each rank holds its owner block of every CG
+vector [B, C], and an apply is one exchange of p's rows that the rank's
+cross reads need (``parallel/mesh.py::halo_gather``: each DIA offset's
+read and the remainder's, through one table) and the block apply of the
+same-vertex blocks S, the DIA blocks and the remainder's C, in the JAX
+package's order (opt_tpu/assembly.py:1627-1650).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import time
 from typing import Dict, Optional
 
 import torch
@@ -212,4 +225,157 @@ def sharded_fused_grid_cg(meta: Dict, mesh, r0, pre, l_iterations, rz_tolerance,
     for u in meta["u_list"]:
         o = meta["offs"][u]
         out[u] = packed[..., o:o + meta["channels"][u]]
+    return out, torch.tensor(l, dtype=torch.int32, device=b.device)
+
+
+# ---------------------------------------------------------------------------
+# Graphs: the owner blocks' loop
+# ---------------------------------------------------------------------------
+
+
+def plan_sharded_graph_cg(compiled, plan, fields: Dict, grp_exec: Dict, mesh) -> Dict:
+    """The meta of :func:`sharded_graph_cg` for a rank of a graph mesh,
+    from its assembly (``assembly.assemble``'s centred fields and group
+    executors, cut to the rank's owner block): the unknowns packed [B, C]
+    in ``u_list`` order on their one vertex space; ``centered``, the
+    centred fields (each at its own vertex: the mesh takes no offsets) as
+    (out channel, in channel, field [B]) in the order the single-device
+    loop's triples take them; ``groups``, each graph group's channel map
+    ``gmap`` into the packed channels, its blocks S [B, ct²], the DIA
+    blocks [B, ct²] and the remainder's C [B, Dm, ct²] (or None), its row
+    mask [B, ct] (or None) and its cross-read exchange (send [ndev, M],
+    loc [B, n_dia + Dm], the DIA reads first), None where it reads
+    nothing of another vertex."""
+    u_list = list(compiled.unknown_names)
+    (isp,) = {compiled.registry.images[u].ispace for u in u_list}
+    channels = {u: compiled.unknown_shape(u)[-1] for u in u_list}
+    offs, ctot = {}, 0
+    for u in u_list:
+        offs[u] = ctot
+        ctot += channels[u]
+    centered = []
+    for (u_out, u_in, _delta, i, j), f in sorted(fields.items()):
+        if (u_out, u_in, _delta) in plan.scalar_groups:
+            centered += [(offs[u_out] + c, offs[u_in] + c, f) for c in range(channels[u_out])]
+        else:
+            centered.append((offs[u_out] + i, offs[u_in] + j, f))
+    groups = []
+    for _key, ex in sorted(grp_exec.items()):
+        g_ulist, g_offs, ct = ex["layout"]
+        gmap = [offs[u] + c for u in g_ulist for c in range(channels[u])]
+        tabs = ex["tables"]
+        groups.append({
+            "ct": ct, "gmap": gmap, "S": ex["S"], "dia": [W for _off, W in ex["dia"]],
+            "C": ex["C"], "mask": ex["mask"], "send": tabs["x_send"], "loc": tabs["x_loc"],
+            "n_dia": tabs["n_dia"], "M": tabs["x_M"],
+        })
+    return {"graph_mesh": True, "u_list": tuple(u_list), "offs": offs, "channels": channels,
+            "ctot": ctot, "isp": isp, "n": int(compiled.unknown_shape(u_list[0])[0]),
+            "centered": centered, "groups": groups, "mesh": mesh}
+
+
+def _block_matvec(W_flat, pv, ct: int):
+    """out[:, i] = Σ_j W_flat[:, i·ct + j] · pv[:, j] on flat [N, ct²] blocks
+    (the assembled graph operator's apply, on one device or a rank's block)."""
+    return torch.sum(W_flat.reshape(-1, ct, ct) * pv[:, None, :], dim=-1)
+
+
+def graph_apply(meta: Dict, p: torch.Tensor) -> torch.Tensor:
+    """A·p on this rank's owner block p [B, C] (the rank's rows of the
+    assembled JᵀJ·p): the centred fields, then each group's S·p, its DIA
+    blocks and its remainder on p read through the group's exchange (one
+    all_to_all of the mesh a group that reads another vertex), each
+    group's sum masked on both sides. Every rank calls it together."""
+    mesh = meta["mesh"]
+    cols = [None] * meta["ctot"]
+
+    def add(i, v):
+        cols[i] = v if cols[i] is None else cols[i] + v
+
+    for i, j, f in meta["centered"]:
+        add(i, f * p[:, j])
+    for grp in meta["groups"]:
+        ct, mask = grp["ct"], grp["mask"]
+        pp = p[:, grp["gmap"]] if grp["gmap"] != list(range(meta["ctot"])) else p
+        if mask is not None:
+            pp = pp * mask
+        contrib = _block_matvec(grp["S"], pp, ct)
+        if grp["loc"] is not None:
+            from ..parallel.mesh import halo_gather
+
+            pe = halo_gather(mesh, pp, grp["send"], grp["loc"])  # [B, n_dia + Dm, ct]
+            for k, W in enumerate(grp["dia"]):
+                contrib = contrib + _block_matvec(W, pe[:, k], ct)
+            if grp["C"] is not None:
+                pc = pe[:, grp["n_dia"]:]
+                C = grp["C"].reshape(pc.shape[0], pc.shape[1], ct, ct)
+                contrib = contrib + torch.sum(C * pc[:, :, None, :], dim=(1, 3))
+        if mask is not None:
+            contrib = contrib * mask
+        for c, i in enumerate(grp["gmap"]):
+            add(i, contrib[:, c])
+    zero = p.new_zeros(p.shape[:1])
+    return torch.stack([c if c is not None else zero for c in cols], dim=-1)
+
+
+def sharded_graph_cg(meta: Dict, mesh, r0, pre, l_iterations, rz_tolerance, *,
+                     guard_div: bool = True, ctc=None, reset_period=None, q_tolerance=None,
+                     pre_blocks=None, cg_variant: str = "standard",
+                     stats: Optional[list] = None):
+    """Run the PCG loop of this rank's owner block of a graph operator
+    (``meta``: :func:`plan_sharded_graph_cg`); r0, pre and ctc are dicts of
+    [B, C_u] blocks, pre_blocks [B, C, C] (the inverted per-vertex blocks,
+    which are local). The keywords are ``fused_cg.fused_grid_cg``'s:
+    ``ctc`` runs the LM loop, whose residual reset A·δ goes through the same
+    exchange; ``cg_variant`` picks Chronopoulos–Gear. The loop algebra is
+    ``fused_cg._run_cg``; its dots are float64 sums over the block reduced
+    over the mesh (``Mesh.all_reduce_dots``), so every rank takes the same
+    exits. Every rank of the mesh must call it together. Returns (delta
+    dict of blocks, iterations as a 0-dim int32 tensor); a ``stats`` list
+    receives {iterations, applies, kernel (False: no kernel), s (the
+    loop's host seconds), all_reduce, all_to_all, all_gather, p2p_phases}
+    of the call."""
+    if cg_variant not in CG_VARIANTS:
+        raise ValueError(f"cg_variant must be one of {CG_VARIANTS}, got {cg_variant!r}")
+    if not meta.get("graph_mesh"):
+        raise ValueError("sharded_graph_cg takes plan_sharded_graph_cg's meta")
+    u_list = meta["u_list"]
+
+    def pack(d):
+        return torch.cat([d[u] for u in u_list], dim=-1) if len(u_list) > 1 else d[u_list[0]]
+
+    b = pack(r0)
+    if pre_blocks is not None:
+        Minv = pre_blocks
+        prec = lambda r: torch.sum(Minv * r[:, None, :], dim=-1)  # noqa: E731
+    else:
+        prem = pack(pre)
+        prec = lambda r: prem * r  # noqa: E731
+    ctcm = pack(ctc) if ctc is not None else None
+    applies = [0]
+    before = dict(mesh.counts)
+
+    def apply(p):
+        out = graph_apply(meta, p)
+        applies[0] += 1
+        return out if ctcm is None else out + ctcm * p
+
+    lm = ctc is not None
+    if lm and (reset_period is None or q_tolerance is None):
+        raise ValueError("the LM loop needs reset_period and q_tolerance")
+    t0 = time.perf_counter()
+    delta, l = _run_cg(
+        b, apply, prec, mesh.all_reduce_dot, l_iterations, rz_tolerance, guard_div=guard_div,
+        reset_period=reset_period if lm else None, q_tol=q_tolerance if lm else None,
+        cs=cg_variant == "chronopoulos_gear", dots=mesh.all_reduce_dots,
+    )
+    if stats is not None:
+        # s: the loop's host seconds (it reads one exit flag an iteration)
+        stats.append({"iterations": l, "applies": applies[0], "kernel": False,
+                      "s": time.perf_counter() - t0,
+                      **{k: mesh.counts[k] - before[k] for k in before}})
+    out, o = {}, 0
+    for u in u_list:
+        out[u] = delta[:, o:o + meta["channels"][u]]
+        o += meta["channels"][u]
     return out, torch.tensor(l, dtype=torch.int32, device=b.device)

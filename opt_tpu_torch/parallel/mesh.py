@@ -1,10 +1,10 @@
-"""Spatial tiling of 2-D grid problems over a 2-D mesh of ranks: the grid
-half of ``opt_tpu/parallel/mesh.py``.
+"""Solves sharded over a 2-D mesh of ranks: ``opt_tpu/parallel/mesh.py``.
 
 The JAX package shards a grid's tensors over a ('gx', 'gy') device mesh
 with ``NamedSharding`` and lets XLA's partitioner turn stencil reads into
 halo exchanges. Here every rank is a process of one ``torch.distributed``
-group and holds its own tile; the communication is written out:
+group and holds its own tile; the communication is written out. The grid
+half:
 
 * :meth:`Mesh.extend`: a tile's halo from its neighbours along one mesh
   axis (``batch_isend_irecv``; under gloo with CUDA tensors the strips pass
@@ -21,16 +21,41 @@ group and holds its own tile; the communication is written out:
   clipped at the global edges), the slicing of the caller's global inputs
   and the gather of the results.
 
-The mesh counts its all_reduces and its P2P phases (``counts``). The graph
-half of the JAX module (owner blocks, halo tables) is not ported yet.
+The graph half (owner blocks): each 1-D vertex space that a graph slot
+points into splits into contiguous owner blocks over the ranks in flat
+(row-major) order, the JAX package's ``"gv"`` axis, and each graph's edges
+into contiguous blocks of edge ids (after the optional owner reorder).
+Every irregular read of another rank's rows goes through one exchange
+whose tables are built once at bind time on the host:
+
+* :func:`build_halo_tables`: for an id table whose rows are split over the
+  ranks, what each rank sends every other one (``send``) and the ids
+  localized into [own block | received halo | zero row] (``loc``);
+* :meth:`Mesh.all_to_all` moves the rows (one ``all_to_all_single``);
+  :func:`halo_gather` / :func:`halo_gather_parts` read through it,
+  :func:`grouped_slot_halo_gather` serves every array read at one
+  (graph, slot) with one exchange, and :func:`slot_halo_scatter_add` is the
+  reverse exchange (the transpose of the read);
+* :class:`GraphShardingRules`: the owner bounds of every vertex space,
+  this rank's edge block, the slicing of the caller's global inputs and
+  the gather of the results.
+
+Where the device count divides the sizes, the tables are the JAX
+package's bit for bit; elsewhere the JAX package replicates, and the
+port's ranks, being processes, split by :func:`split_bounds`' ceil split
+instead (some blocks shorter, the last ones possibly empty).
+
+The mesh counts its all_reduces, all_to_alls, all_gathers and P2P phases
+(``counts``).
 """
 
 from __future__ import annotations
 
 import math
 import os
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -102,8 +127,8 @@ class Mesh:
         return r if self.group is None else dist.get_global_rank(self.group, r)
 
     def reset_counts(self) -> None:
-        """Set the all_reduce and P2P-phase counts to 0."""
-        self.counts = {"all_reduce": 0, "p2p_phases": 0}
+        """Set the collective and P2P-phase counts to 0."""
+        self.counts = {"all_reduce": 0, "p2p_phases": 0, "all_to_all": 0, "all_gather": 0}
 
     # -- moving tensors ------------------------------------------------------
     def _staged(self, t: torch.Tensor) -> bool:
@@ -209,7 +234,29 @@ class Mesh:
         h = t.cpu() if self._staged(t) else t.contiguous()
         out = [torch.empty_like(h) for _ in range(self.size)]
         dist.all_gather(out, h, group=self.group)
+        self.counts["all_gather"] += 1
         return [o.to(t.device) for o in out]
+
+    def all_to_all(self, send_rows: torch.Tensor) -> torch.Tensor:
+        """One all_to_all of equal parts: ``send_rows`` [size, M, ...] holds
+        in row d what this rank sends rank d; returns [size, M, ...] with
+        row s what rank s sent this rank. Under gloo, CUDA rows pass
+        through pinned host buffers."""
+        if self.size == 1:
+            return send_rows
+        staged = self._staged(send_rows)
+        if staged:
+            inp = self._host_buffer("a2a_send", send_rows.shape, send_rows.dtype)
+            inp.copy_(send_rows)
+            out = self._host_buffer("a2a_recv", send_rows.shape, send_rows.dtype)
+        else:
+            inp = send_rows.contiguous()
+            out = torch.empty_like(inp)
+        dist.all_to_all_single(out, inp, group=self.group)
+        self.counts["all_to_all"] += 1
+        # the next exchange's blocking copy to the host waits for this copy,
+        # before the buffer is received into again
+        return out.to(send_rows.device, non_blocking=True) if staged else out
 
 
 def split_bounds(n: int, parts: int) -> list:
@@ -256,6 +303,8 @@ class ShardingRules:
     of them, :meth:`crop` the tile out of the region, and :meth:`gather`
     puts the tiles back together on every rank."""
 
+    kind = "grid"
+
     def __init__(self, mesh: Mesh, dom: Sequence[int], halo: Sequence[int] = (0, 0)):
         self.mesh = mesh
         self.dom = (int(dom[0]), int(dom[1]))
@@ -281,8 +330,9 @@ class ShardingRules:
     def region_shape(self) -> Tuple[int, int]:
         return tuple(e - s for s, e in self.region)
 
-    def local(self, x):
-        """The extended region of a global [H, W, ...] array."""
+    def local(self, x, name=None):
+        """The extended region of a global [H, W, ...] array (``name``, the
+        image's, as :class:`GraphShardingRules` takes it: not needed here)."""
         (r0, r1), (c0, c1) = self.region
         return x[r0:r1, c0:c1]
 
@@ -308,9 +358,10 @@ class ShardingRules:
         parts = torch.split(packed.movedim(0, -1), widths, dim=-1)
         return {k: v.contiguous() for k, v in zip(names, parts)}
 
-    def gather(self, x: torch.Tensor) -> torch.Tensor:
+    def gather(self, x: torch.Tensor, name=None) -> torch.Tensor:
         """The global [H, W, ...] array from every rank's region-shaped
-        ``x`` (each rank contributes its tile), on every rank."""
+        ``x`` (each rank contributes its tile), on every rank (``name`` as
+        in :meth:`local`)."""
         t = self.crop(x)
         rows = max(e - s for s, e in self.bounds[0])
         cols = max(e - s for s, e in self.bounds[1])
@@ -327,3 +378,289 @@ class ShardingRules:
         """The float64 sum of a region-shaped tensor over the tiles of every
         rank: each point of the grid counted once."""
         return torch.sum(self.crop(t), dtype=torch.float64)
+
+
+# ---------------------------------------------------------------------------
+# Owner blocks: the graph half
+# ---------------------------------------------------------------------------
+
+
+def _owners(ids, bounds) -> np.ndarray:
+    """The block of ``bounds`` ([start, stop) a rank, contiguous, in rank
+    order) holding each of ``ids``; ids past the last block map to the
+    last rank."""
+    stops = np.asarray([e for _s, e in bounds], np.int64)
+    return np.minimum(np.searchsorted(stops, np.asarray(ids, np.int64), side="right"),
+                      len(bounds) - 1)
+
+
+def build_halo_tables(cross, num_vertices: int, ndev: int, m_bucket=None,
+                      bounds=None) -> Optional[Dict[str, Any]]:
+    """The exchange schedule of an id table (host-side, numpy): the
+    counterpart of the JAX package's ``build_halo_tables``.
+
+    ``cross``: int array [R, ...] of global source-row ids, sentinel
+    ``num_vertices``. The requester rows (axis 0) and the source rows may
+    live in different block-split spaces (vertex rows requesting stacked
+    edge rows for the assembly's incidence gather); for the CG loop's p
+    reads they coincide. ``bounds``: (source blocks, requester blocks),
+    each [(start, stop)] a rank; by default the ceil split of each
+    (:func:`split_bounds`), which where ``ndev`` divides both counts is the
+    JAX package's even split, and then the tables are its tables.
+
+    Returns {send [ndev, ndev, M] int32: row s, column d, the rows of s's
+    own source block (sender-local, sentinel: s's block size, its zero
+    row) that s sends d; loc [R, ...] int32: each id localized into the
+    requester's [own source block | halo (ndev·M, rank s's rows at s·M) |
+    zero row]; M}, or None for one rank. ``m_bucket`` rounds M up (a
+    dynamic topology's bucket)."""
+    cross = np.asarray(cross)
+    n = int(num_vertices)
+    R = int(cross.shape[0])
+    if ndev <= 1:
+        return None
+    src_b, req_b = bounds if bounds is not None else (split_bounds(n, ndev),
+                                                      split_bounds(R, ndev))
+    src_start = np.asarray([s for s, _e in src_b], np.int64)
+    src_size = np.asarray([e - s for s, e in src_b], np.int64)
+    row_dev = _owners(np.arange(R), req_b).reshape((-1,) + (1,) * (cross.ndim - 1))
+    row_dev_b = np.broadcast_to(row_dev, cross.shape)
+    valid = cross < n
+    owner = _owners(np.where(valid, cross, 0), src_b)
+    remote = valid & (owner != row_dev_b)
+
+    # the unique (requester d, source s, global id g) triples as one
+    # np.unique over a key sorted by (d, s, g): each (d, s) group is
+    # contiguous with its ids ascending
+    d_all = row_dev_b[remote].astype(np.int64)
+    g_all = cross[remote].astype(np.int64)
+    key = (d_all * ndev + owner[remote]) * n + g_all
+    uk = np.unique(key)
+    grp = uk // n  # = d * ndev + s
+    g_u = uk % n
+    counts = np.bincount(grp, minlength=ndev * ndev)
+    M = int(counts.max()) if len(uk) else 0
+    Mp = max(1, M)
+    if m_bucket is not None:
+        Mp = int(m_bucket(Mp))
+    starts = np.zeros(ndev * ndev + 1, np.int64)
+    np.cumsum(counts, out=starts[1:])
+    slot = np.arange(len(uk)) - starts[grp]
+    d_u, s_u = grp // ndev, grp % ndev
+
+    send = np.broadcast_to(src_size[:, None, None], (ndev, ndev, Mp)).astype(np.int32)
+    send[s_u, d_u, slot] = (g_u - src_start[s_u]).astype(np.int32)
+    halo_index = (src_size[d_u] + s_u * Mp + slot).astype(np.int32)
+
+    loc = (src_size[row_dev_b] + ndev * Mp).astype(np.int32)  # the zero row
+    own = valid & (owner == row_dev_b)
+    loc[own] = (cross[own] - src_start[row_dev_b[own]]).astype(np.int32)
+    if len(uk):
+        loc[remote] = halo_index[np.searchsorted(uk, key)]
+    return {"send": send, "loc": loc, "M": Mp}
+
+
+def map_stacked_rows_device_major(inc, E: int, m: int, ndev: int, bounds=None):
+    """A combined-incidence table (ids k·E + e into m slot-major stacked
+    edge-row blocks, sentinel m·E) re-indexed into rank-major order, so that
+    each rank's source block is what it assembles from its own edges:
+    [slot-0 rows of its edges | slot-1 rows | ...], row (k, e) ↦
+    m·e0 + k·E_d + (e − e0) for the edge block [e0, e0 + E_d) holding e.
+    ``bounds``: the edge blocks (default the ceil split of E; where ndev
+    divides E this is the JAX package's mapping). The sentinel stays.
+    Returns the int64 table, or None for one rank."""
+    inc = np.asarray(inc)
+    if ndev <= 1:
+        return None
+    eb = bounds if bounds is not None else split_bounds(E, ndev)
+    k = inc // E
+    e = inc % E
+    d = _owners(e, eb)
+    e0 = np.asarray([s for s, _e in eb], np.int64)[d]
+    size = np.asarray([t - s for s, t in eb], np.int64)[d]
+    mapped = m * e0 + k * size + (e - e0)
+    return np.where(inc >= m * E, m * E, mapped).astype(np.int64)
+
+
+def owner_edge_order(idx0, n0: int, ndev: int) -> np.ndarray:
+    """The owner reorder of a graph's edges: a stable argsort by the owner
+    block (the ceil split of the n0 vertices) of each edge's first-slot
+    vertex. Where ndev divides n0 this is the JAX package's
+    ``Plan._reorder_edges`` permutation."""
+    owner = _owners(np.asarray(idx0, np.int64), split_bounds(n0, ndev))
+    return np.argsort(owner, kind="stable")
+
+
+def halo_gather_parts(mesh: "Mesh", parts, send: torch.Tensor, loc: torch.Tensor) -> torch.Tensor:
+    """Rows read through a localized id table with one all_to_all: this
+    rank's source block is ``parts`` ([rows_i, C] each) concatenated;
+    ``send`` [ndev, M] is this rank's row of the tables' send (what it
+    sends each rank), ``loc`` [rows, ...] this rank's requester rows of
+    loc. Returns [*loc.shape, C]."""
+    blk = torch.cat(list(parts)) if len(parts) > 1 else parts[0]
+    zero = blk.new_zeros((1,) + tuple(blk.shape[1:]))
+    out_buf = torch.cat([blk, zero])[send]  # [ndev, M, C]
+    recv = mesh.all_to_all(out_buf)
+    full = torch.cat([blk, recv.reshape((-1,) + tuple(blk.shape[1:])), zero])
+    return full[loc]
+
+
+def halo_gather(mesh: "Mesh", pp: torch.Tensor, send: torch.Tensor, loc: torch.Tensor):
+    """p read through a localized id table with one all_to_all: pp [B, C]
+    this rank's owner block; returns [*loc.shape, C]."""
+    return halo_gather_parts(mesh, [pp], send, loc)
+
+
+def slot_halo_gather(mesh: "Mesh", arr: torch.Tensor, tables: Dict) -> torch.Tensor:
+    """Per-edge reads X[idx[e]] of this rank's edges through a slot's
+    exchange tables ({send, loc [E_d, 1]}): arr [B, C] the owner block.
+    Returns [E_d, C]."""
+    return halo_gather(mesh, arr, tables["send"], tables["loc"])[:, 0, :]
+
+
+def grouped_slot_halo_gather(mesh: "Mesh", items, tables: Dict) -> Dict[str, torch.Tensor]:
+    """Several owner blocks' per-edge reads at one (graph, slot) with one
+    exchange a dtype: ``items`` [(name, [B, C_i])] stack along channels.
+    Returns {name: [E_d, C_i]}."""
+    groups: Dict[Any, list] = {}
+    for name, arr in items:
+        groups.setdefault(arr.dtype, []).append((name, arr))
+    out = {}
+    for grp in groups.values():
+        cat = grp[0][1] if len(grp) == 1 else torch.cat([a for _n, a in grp], dim=-1)
+        got = slot_halo_gather(mesh, cat, tables)
+        o = 0
+        for name, a in grp:
+            out[name] = got[:, o:o + a.shape[-1]]
+            o += a.shape[-1]
+    return out
+
+
+def slot_halo_scatter_add(mesh: "Mesh", ct: torch.Tensor, num_rows: int, tables: Dict):
+    """The transpose of :func:`slot_halo_gather`: per-edge values ct
+    [E_d, C] summed into this rank's owner block [num_rows, C] (out[idx[e]]
+    += ct[e]) through the reverse exchange: the contributions to received
+    rows go back to their owners in one all_to_all, and each owner adds
+    them at the rows it sent."""
+    send, loc = tables["send"], tables["loc"][:, 0]
+    ndev, M = int(send.shape[0]), int(send.shape[1])
+    C = tuple(ct.shape[1:])
+    full = ct.new_zeros((num_rows + ndev * M + 1,) + C).index_add_(0, loc, ct)
+    back = mesh.all_to_all(full[num_rows:num_rows + ndev * M].reshape((ndev, M) + C))
+    own = ct.new_zeros((num_rows + 1,) + C).index_add_(0, send.reshape(-1),
+                                                     back.reshape((-1,) + C))
+    return full[:num_rows] + own[:num_rows]
+
+
+class GraphShardingRules:
+    """This rank's part of a graph problem over a mesh: every 1-D vertex
+    space that a graph slot points into is split into owner blocks
+    (``space_bounds``), each graph's edges into edge blocks (by their
+    count at bind time, :meth:`edge_bounds`). Images on a split space are
+    held as this rank's block; images on other 1-D spaces are replicated
+    and read by a plain take. Every rank is given the same global inputs:
+    :meth:`local` slices a rank's part out of them and :meth:`gather` puts
+    the blocks back together on every rank. ``compiled`` is the problem at
+    the global dims; the rank's plan compiles it at :attr:`local_dims`."""
+
+    kind = "graph"
+
+    def __init__(self, mesh: Mesh, compiled):
+        self.mesh = mesh
+        reg = compiled.registry
+        self.global_dims = dict(compiled.dim_sizes)
+        spaces = []
+        for g in reg.graphs.values():
+            for isp in g.slots.values():
+                if isp not in spaces:
+                    spaces.append(isp)
+        self.spaces = spaces
+        self.space_bounds = {
+            isp: split_bounds(int(np.prod(isp.shape(self.global_dims))), mesh.size)
+            for isp in spaces}
+        self.local_dims = {}
+        for isp, b in self.space_bounds.items():
+            s, e = b[mesh.rank]
+            self.local_dims[isp.dims[0].name] = e - s
+        self.split_images = {n for n, d in reg.images.items() if d.ispace in self.space_bounds}
+        self.image_space = {n: d.ispace for n, d in reg.images.items()}
+        self._const_cache = None
+
+    # -- blocks -----------------------------------------------------------------
+    def block(self, isp) -> Tuple[int, int]:
+        """This rank's [start, stop) of a split space."""
+        return self.space_bounds[isp][self.mesh.rank]
+
+    def edge_bounds(self, E: int) -> list:
+        """The edge blocks of a graph of E edges."""
+        return split_bounds(E, self.mesh.size)
+
+    def local(self, a, name: str):
+        """This rank's part of the global image ``name``: its block on a
+        split space, the whole array on a replicated one."""
+        if name not in self.split_images:
+            return a
+        s, e = self.block(self.image_space[name])
+        return a[s:e]
+
+    def gather(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        """The global [N, ...] image ``name`` from every rank's block of it,
+        on every rank (one all_gather of blocks padded to the largest)."""
+        if name not in self.split_images:
+            return x
+        bounds = self.space_bounds[self.image_space[name]]
+        rows = max(e - s for s, e in bounds)
+        pad = x.new_zeros((rows,) + tuple(x.shape[1:]))
+        pad[:x.shape[0]] = x
+        parts = self.mesh.all_gather(pad)
+        return torch.cat([p[:e - s] for p, (s, e) in zip(parts, bounds)])
+
+    @staticmethod
+    def owned_sum(t: torch.Tensor) -> torch.Tensor:
+        """The float64 sum of a rank's own residuals (its edges, its block)."""
+        return torch.sum(t, dtype=torch.float64)
+
+    # -- per-edge reads ---------------------------------------------------------
+    def edge_values(self, compiled, unknowns, consts, graphs, which="all") -> Dict[tuple, Any]:
+        """{(image, graph, slot): [E_d, C]}: every image read at a graph slot,
+        at this rank's edges. Split images ride one exchange a (graph,
+        slot) and dtype (:func:`grouped_slot_halo_gather`); replicated ones
+        are a plain take at the global ids. ``which``: "unknowns", "consts"
+        or "all" of the images."""
+        reg = compiled.registry
+        want: Dict[tuple, list] = {}
+        for s in reg.slots:
+            if s.kind != "gimg":
+                continue
+            decl = reg.images[s.image]
+            is_u = decl.kind == "unknown"
+            if which == "unknowns" and not is_u or which == "consts" and is_u:
+                continue
+            lst = want.setdefault((s.graph, s.key[3]), [])
+            if s.image not in lst:
+                lst.append(s.image)
+        out = {}
+        for (g, slot), names in want.items():
+            gd = graphs[g]
+            items = []
+            for name in names:
+                arr = (unknowns if reg.images[name].kind == "unknown" else consts)[name]
+                if name in self.split_images:
+                    items.append((name, arr))
+                else:
+                    out[(name, g, slot)] = torch.index_select(arr, 0, gd[slot])
+            if items:
+                got = grouped_slot_halo_gather(self.mesh, items, gd["__slot_halo__"][slot])
+                for name, v in got.items():
+                    out[(name, g, slot)] = v
+        return out
+
+    def const_edge_values(self, compiled, consts, graphs) -> Dict[tuple, Any]:
+        """:meth:`edge_values` of the constants, exchanged once for the same
+        constant and graph tensors and kept."""
+        key = (tuple(sorted((k, id(v)) for k, v in consts.items())),
+               tuple(sorted((g, id(d.get("__slot_halo__"))) for g, d in graphs.items())))
+        if self._const_cache is None or self._const_cache[0] != key:
+            self._const_cache = (key, self.edge_values(compiled, {}, consts, graphs, "consts"),
+                                 consts, graphs)
+        return self._const_cache[1]

@@ -15,7 +15,12 @@ problem as spatial tiles over a 2-D mesh of ``torch.distributed`` ranks:
 every rank plans, binds the same global inputs and solves together with the
 others; each compiles the problem at the dims of its extended region (its
 tile plus the stencil's reach), and ``solve`` returns the global unknowns
-on every rank.
+on every rank. A graph problem on a mesh splits each vertex space of its
+graph slots into owner blocks and each graph's edges into edge blocks: a
+rank compiles the problem at its blocks' sizes, binds its part of the
+global inputs with the exchange tables of the reads it makes of other
+ranks' rows (``Plan._augment_mesh``), and ``solve`` returns the global
+unknowns on every rank.
 """
 
 from __future__ import annotations
@@ -34,7 +39,14 @@ import torch
 
 from .compile import CompiledProblem, compile_spec
 from .ops import fused_cg, graph_ops
-from .parallel.mesh import ShardingRules, grid_reach
+from .parallel.mesh import (
+    GraphShardingRules,
+    ShardingRules,
+    build_halo_tables,
+    grid_reach,
+    map_stacked_rows_device_major,
+    owner_edge_order,
+)
 from .solver.gauss_newton import GaussNewtonSolver
 from .solver.params import InitializationParameters, normalize_solver_params
 from .spec import UNKNOWN, SpecError
@@ -106,6 +118,47 @@ def graph_group_tables(idxs, names, n: int, device, dtype, max_offsets: int,
       empty CSR the graph route partitions a remainder-less operator by
       (rowptr [N+1] all zero, col [0]), with its own ``partitions``.
     """
+    inc, dia, rem = _group_tables_np(idxs, names, n, max_offsets, dynamic)
+    out = {
+        "names": list(names), "n": n,
+        "inc": torch.as_tensor(inc, dtype=torch.int64).to(device),
+        "dia": [],
+        "rem_pos": None, "rem_cross": None, "csr": None, "empty_csr": None,
+    }
+    if dia is not None:
+        offsets, masks = dia
+        out["dia"] = [
+            (int(off), torch.as_tensor(masks[k]).to(device=device, dtype=dtype))
+            for k, off in enumerate(offsets)
+        ]
+    if rem is not None:
+        pos_k, cross2 = rem
+        rowptr, col, src = graph_ops.ell_to_csr(cross2, n)
+
+        def as_dev(a, dt=torch.int64):
+            return torch.as_tensor(a).to(device=device, dtype=dt)
+
+        out["rem_pos"] = as_dev(pos_k)
+        out["rem_cross"] = as_dev(cross2)
+        out["csr"] = {
+            "rowptr": as_dev(rowptr, torch.int32), "col": as_dev(col, torch.int32),
+            "src": as_dev(src), "row": as_dev(src // cross2.shape[1]),
+            "partitions": fused_cg.GraphPartitions(),
+        }
+    else:
+        out["empty_csr"] = {
+            "rowptr": torch.zeros(n + 1, dtype=torch.int32, device=device),
+            "col": torch.zeros(0, dtype=torch.int32, device=device),
+            "partitions": fused_cg.GraphPartitions(),
+        }
+    return out
+
+
+def _group_tables_np(idxs, names, n: int, max_offsets: int, dynamic: bool):
+    """The host (numpy) tables of one group, over all its vertices and
+    edges: (inc [N, D], dia (offsets, masks [k, N, D, m-1]) or None, rem
+    (pos_k [N, Dm, K], cross [N, Dm]) or None), as
+    :func:`graph_group_tables` describes them."""
     idx_list = [idxs[k] for k in names]
     inc = graph_ops.combined_incidence_table(idx_list, n)
     if dynamic:
@@ -139,50 +192,125 @@ def graph_group_tables(idxs, names, n: int, device, dtype, max_offsets: int,
             rem = ded
         if not (rem[1] < n).any():
             rem = None
-    out = {
-        "names": list(names), "n": n,
-        "inc": torch.as_tensor(inc, dtype=torch.int64).to(device),
-        "dia": [],
-        "rem_pos": None, "rem_cross": None, "csr": None, "empty_csr": None,
-    }
+    return inc, None if dia is None else dia[:2], rem
+
+
+def mesh_group_tables(idxs, names, n: int, device, dtype, max_offsets: int, rules,
+                      isp) -> Dict[str, Any]:
+    """A group's tables for this rank of a graph mesh: the single-device
+    tables (:func:`_group_tables_np`, built over the whole graph on the
+    host) cut to the rank's owner block of vertices, with the exchanges
+    that replace their reads of other ranks' rows (the mesh branch of the
+    JAX package's ``_augment_incidence``, opt_tpu/problem.py:652-746):
+
+    * ``inc_send`` [ndev, M], ``inc_loc`` [B, D]: the incidence gather of
+      the stacked per-edge rows through the rank-major row order
+      (``map_stacked_rows_device_major``), for the assembly and JᵀF;
+    * ``x_send``, ``x_loc`` [B, n_dia + Dm]: the CG operator's cross reads
+      of p, one exchange for all of them: first each DIA offset's read
+      v + off (the zero row past the graph's ends), then the remainder's
+      ``rem_cross``; None where the group has none;
+    * ``dia``: [(offset, mask [B, D, m-1])], ``rem_pos`` [B, Dm, K]: the
+      rank's rows of the single-device tables, read locally.
+    """
+    inc, dia, rem = _group_tables_np(idxs, names, n, max_offsets, False)
+    mesh = rules.mesh
+    ndev, rank, m = mesh.size, mesh.rank, len(names)
+    E = int(idxs[names[0]].shape[0])
+    vb = rules.space_bounds[isp]
+    v0, v1 = vb[rank]
+    eb = rules.edge_bounds(E)
+    mapped = map_stacked_rows_device_major(inc, E, m, ndev, eb)
+    # a rank's source block: the m stacked rows of each of its edges
+    h_inc = build_halo_tables(mapped, m * E, ndev, bounds=([(m * a, m * b) for a, b in eb], vb))
+
+    def dev(a, dt=torch.int64):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(device=device, dtype=dt)
+
+    out = {"names": list(names), "n": v1 - v0, "rows": (v0, v1),
+           "inc_send": dev(h_inc["send"][rank]), "inc_loc": dev(h_inc["loc"][v0:v1]),
+           "inc_M": h_inc["M"], "dia": [], "rem_pos": None,
+           "x_send": None, "x_loc": None, "x_M": None, "n_dia": 0}
+    cols = []
     if dia is not None:
-        offsets, masks, _rp, _rc = dia
-        out["dia"] = [
-            (int(off), torch.as_tensor(masks[k]).to(device=device, dtype=dtype))
-            for k, off in enumerate(offsets)
-        ]
+        offsets, masks = dia
+        v = np.arange(n, dtype=np.int64)
+        for k, off in enumerate(offsets):
+            u = v + int(off)
+            cols.append(np.where((u >= 0) & (u < n), u, n)[:, None])
+            out["dia"].append((int(off), dev(masks[k][v0:v1], dtype)))
+        out["n_dia"] = len(offsets)
     if rem is not None:
-        pos_k, cross2 = rem
-        rowptr, col, src = graph_ops.ell_to_csr(cross2, n)
-
-        def as_dev(a, dt=torch.int64):
-            return torch.as_tensor(a).to(device=device, dtype=dt)
-
-        out["rem_pos"] = as_dev(pos_k)
-        out["rem_cross"] = as_dev(cross2)
-        out["csr"] = {
-            "rowptr": as_dev(rowptr, torch.int32), "col": as_dev(col, torch.int32),
-            "src": as_dev(src), "row": as_dev(src // cross2.shape[1]),
-            "partitions": fused_cg.GraphPartitions(),
-        }
-    else:
-        out["empty_csr"] = {
-            "rowptr": torch.zeros(n + 1, dtype=torch.int32, device=device),
-            "col": torch.zeros(0, dtype=torch.int32, device=device),
-            "partitions": fused_cg.GraphPartitions(),
-        }
+        out["rem_pos"] = dev(rem[0][v0:v1])
+        cols.append(rem[1])
+    if cols:
+        h_x = build_halo_tables(np.concatenate(cols, axis=1), n, ndev, bounds=(vb, vb))
+        out.update(x_send=dev(h_x["send"][rank]), x_loc=dev(h_x["loc"][v0:v1]), x_M=h_x["M"])
     return out
 
 
-def _refuse_under_mesh(compiled: CompiledProblem, double_precision: bool) -> None:
+def _refuse_graph_mesh(compiled: CompiledProblem, double_precision: bool,
+                       dynamic_topology: bool) -> None:
+    """What a graph mesh cannot take yet raises, naming its ROADMAP.md item:
+    it splits the 1-D vertex spaces of the graph slots into owner blocks,
+    its unknowns on one of them, in float32, for one topology."""
+    reg = compiled.registry
+    if dynamic_topology:
+        raise _mesh_not_ported("dynamic_topology=True")
+    if double_precision:
+        raise NotImplementedError(
+            "a float64 plan on a mesh is not ported yet: the sharded loop is float32 "
+            "(ROADMAP.md queue 1 item 8e)"
+        )
+    grids = sorted({repr(d.ispace) for d in reg.images.values() if d.ispace.ndim != 1})
+    if grids:
+        raise NotImplementedError(
+            f"a mesh on a spec with both a grid ({', '.join(grids)}) and a graph is not "
+            "ported yet (ROADMAP.md queue 1 item 8c)"
+        )
+    reads = sorted(k for k, v in reg.reads.items() if v)
+    if reads:
+        raise NotImplementedError(
+            f"a mesh on a spec that reads {', '.join(reads)} is not ported yet (ROADMAP.md "
+            "queue 1 item 8d)"
+        )
+    spaces = {isp for g in reg.graphs.values() for isp in g.slots.values()}
+    u_spaces = {reg.images[u].ispace for u in reg.unknown_names}
+    if len(u_spaces) != 1 or not u_spaces <= spaces:
+        raise NotImplementedError(
+            f"a graph mesh takes unknowns on one vertex space of the graph slots, this spec's "
+            f"are on {sorted(map(repr, u_spaces))}: several index spaces are not ported yet "
+            "(ROADMAP.md queue 1 item 8c)"
+        )
+    for s in reg.slots:
+        if s.kind in ("img", "bounds") and any(int(o) for o in s.offset):
+            raise NotImplementedError(
+                f"a graph mesh reads 1-D images at their own vertex; {s.image or 'InBounds'} "
+                f"at offset {s.offset} is a stencil on a vertex space, which is not ported "
+                "yet (ROADMAP.md queue 1 item 8c)"
+            )
+        if s.kind != "gimg":
+            continue
+        decl = reg.images[s.image]
+        if decl.alias is not None:
+            raise _mesh_not_ported(f"the alias image {s.image!r} read at a graph slot")
+        if decl.ispace in spaces and decl.ispace != reg.graphs[s.graph].slots[s.key[3]]:
+            raise NotImplementedError(
+                f"{s.image!r} on {decl.ispace!r} read at slot {s.key[3]!r} of {s.graph!r}, "
+                "which points into another vertex space: several index spaces are not "
+                "ported yet (ROADMAP.md queue 1 item 8c)"
+            )
+
+
+def _refuse_under_mesh(compiled: CompiledProblem, double_precision: bool,
+                       dynamic_topology: bool = False) -> None:
     """What a mesh cannot take yet raises, naming its ROADMAP.md item: the
-    sharded plan tiles one 2-D grid index space in float32."""
+    sharded plan tiles one 2-D grid index space, or splits a graph's vertex
+    spaces into owner blocks, in float32."""
     reg = compiled.registry
     if reg.graphs:
-        raise NotImplementedError(
-            "a mesh on a graph spec is not ported yet: the owner-block exchange and "
-            "_reorder_edges (ROADMAP.md queue 1 item 8b)"
-        )
+        _refuse_graph_mesh(compiled, double_precision, dynamic_topology)
+        return
     spaces = {d.ispace for d in reg.images.values()}
     isp = next(iter(spaces)) if len(spaces) == 1 else None
     if isp is None or isp.ndim != 2 or isp.dims[0] == isp.dims[1]:
@@ -263,9 +391,10 @@ class Problem:
     ) -> "Plan":
         """Compile for concrete sizes on ``device``, the card unless the
         caller asks for the CPU (Opt_ProblemPlan). ``mesh``
-        (``parallel.make_mesh``) of several ranks shards a 2-D grid spec
-        over them: this rank's plan, on the mesh's device, which must be
-        of the kind ``device`` names; a 1x1 mesh is the single-device plan.
+        (``parallel.make_mesh``) of several ranks shards a 2-D grid spec,
+        or a graph spec by owner blocks, over them: this rank's plan, on the
+        mesh's device, which must be of the kind ``device`` names; a 1x1
+        mesh is the single-device plan.
         A mesh on what it cannot take yet raises ``NotImplementedError``
         naming its ROADMAP.md item. ``dynamic_topology=True`` plans for
         graphs whose edges change from solve to solve (a frame's topology
@@ -278,24 +407,33 @@ class Problem:
         dev = resolve_device(device)
         dtype = torch.float64 if double_precision else torch.float32
         compiled = compile_spec(self.spec_fn, dims, dtype)
-        rules = None
+        rules, plan_on = None, None
         if mesh is not None:
-            _refuse_under_mesh(compiled, double_precision)
+            _refuse_under_mesh(compiled, double_precision,
+                               bool(init_params is not None and init_params.dynamic_topology))
         if mesh is not None and mesh.size > 1:
             if mesh.device.type != dev.type:
                 raise ValueError(f"the mesh's device is {mesh.device}, the plan asked for {dev}")
             dev = mesh.device
-            (isp,) = {d.ispace for d in compiled.registry.images.values()}
-            rules = ShardingRules(mesh, isp.shape(compiled.dim_sizes), grid_reach(compiled))
-            region = {d.name: n for d, n in zip(isp.dims, rules.region_shape)}
-            compiled = compile_spec(self.spec_fn, dict(dims, **region), dtype)
+            if compiled.registry.graphs:
+                # the rank's problem at its owner blocks' sizes, its own copy
+                # holding the rules; the assembly is planned at the global dims
+                rules, plan_on = GraphShardingRules(mesh, compiled), compiled
+                compiled = dataclasses.replace(
+                    compile_spec(self.spec_fn, dict(dims, **rules.local_dims), dtype),
+                    graph_rules=rules)
+            else:
+                (isp,) = {d.ispace for d in compiled.registry.images.values()}
+                rules = ShardingRules(mesh, isp.shape(compiled.dim_sizes), grid_reach(compiled))
+                region = {d.name: n for d, n in zip(isp.dims, rules.region_shape)}
+                compiled = compile_spec(self.spec_fn, dict(dims, **region), dtype)
         return Plan(self, compiled, kind or self.kind, init_params, solver_params, dev, rules,
-                    dims)
+                    dims, plan_on)
 
 
 class Plan:
     def __init__(self, problem, compiled: CompiledProblem, kind, init_params,
-                 solver_params, device, rules: Optional[ShardingRules] = None, dims=None):
+                 solver_params, device, rules=None, dims=None, plan_on=None):
         self.problem = problem
         self.compiled = compiled
         # the problem's dims (under a mesh the global grid's; compiled is
@@ -304,9 +442,11 @@ class Plan:
         self.kind = kind
         self.device = device
         self.uses_lambda = _uses_lambda(kind)
-        # under a mesh: this rank's tile and region (compiled is the region's)
+        # under a mesh: this rank's tile and region (compiled is the region's),
+        # or on a graph its owner blocks (compiled is the blocks')
         self.rules = rules
-        self.solver = GaussNewtonSolver(compiled, self.uses_lambda, init_params, rules)
+        self.solver = GaussNewtonSolver(compiled, self.uses_lambda, init_params, rules,
+                                        plan_on=plan_on)
         if rules is not None and self.solver._stencil_plan is None:
             raise _mesh_not_ported("the composed operator (use_fused_jtj=False)")
         self.solver_params = normalize_solver_params(solver_params)
@@ -463,6 +603,8 @@ class Plan:
             return graphs
         if self.dynamic_topology:
             graphs = self._pad_dynamic(graphs)
+        if self._graph_mesh:
+            return self._augment_mesh(graphs)
         cap = _DYNAMIC_TABLE_CACHE_MAX if self.dynamic_topology else _TABLE_CACHE_MAX
         cache = self.__dict__.setdefault("_inc_cache", OrderedDict())
         dt = self.compiled.dtype
@@ -497,6 +639,93 @@ class Plan:
             out[gname] = dict(slots, __groups__=entry["groups"])
             if entry["ell"] is not None:
                 out[gname]["__ell__"] = entry["ell"]
+        return out
+
+    @property
+    def _graph_mesh(self) -> bool:
+        return getattr(self.rules, "kind", None) == "graph"
+
+    def _reorder_edges(self, graphs):
+        """Each graph's edges (every slot and ``valid``) in the owner order:
+        stably sorted by the owner block of their first slot's vertex
+        (``parallel.mesh.owner_edge_order``), so that a rank's edge block
+        mostly accumulates into the vertices it owns, which shrinks the
+        assembly's incidence exchange toward the partition boundary
+        (``InitializationParameters(edge_reorder="owner")``, the JAX
+        package's ``Plan._reorder_edges``, opt_tpu/problem.py:317-352). The
+        energy is a sum over edges: only its float order changes."""
+        ndev = self.rules.mesh.size
+        out = {}
+        for gname, slots in graphs.items():
+            gdecl = self.compiled.registry.graphs[gname]
+            first = sorted(gdecl.slots)[0]
+            n0 = int(np.prod(gdecl.slots[first].shape(self.dims)))
+            perm = owner_edge_order(slots[first].detach().cpu().numpy(), n0, ndev)
+            idx = torch.as_tensor(perm, device=slots[first].device)
+            out[gname] = {k: v[idx] for k, v in slots.items()}
+        return out
+
+    def _augment_mesh(self, graphs):
+        """:meth:`_augment_incidence` on a graph mesh: each graph becomes
+        this rank's edge block of its slots (global vertex ids) and of
+        ``valid``, with ``"__groups__"``: {group key: this rank's
+        :func:`mesh_group_tables`}, ``"__slot_halo__"``: {slot: {send, loc
+        [E_d, 1], M}}, the exchange of the per-edge reads at that slot (the
+        JAX package's per-slot ``__halo_send____slot_<s>`` tables), and
+        ``"__edges__"``: the block's [start, stop) of the edge ids. The
+        edges are put in the owner order first under
+        ``edge_reorder="owner"``. The tables are cached by a hash of the
+        (reordered) index data."""
+        rules = self.rules
+        if self.solver.ip.edge_reorder == "owner":
+            graphs = self._reorder_edges(graphs)
+        cache = self.__dict__.setdefault("_inc_cache", OrderedDict())
+        max_off = DIA_MAX_OFFSETS
+        if self.solver._stencil_plan is not None:
+            max_off = min(max_off, fused_cg.graph_dia_offset_cap(
+                self.compiled, self.solver._stencil_plan))
+        ndev, rank = rules.mesh.size, rules.mesh.rank
+        out = {}
+        for gname, slots in graphs.items():
+            gdecl = self.compiled.registry.graphs[gname]
+            names = sorted(gdecl.slots)
+            idxs = {s: slots[s].detach().cpu().numpy().astype(np.int64) for s in names}
+            nvert = {s: int(np.prod(gdecl.slots[s].shape(self.dims))) for s in names}
+            for s in names:
+                if idxs[s].size and (idxs[s].min() < 0 or idxs[s].max() >= nvert[s]):
+                    raise ValueError(f"graph {gname!r}: slot {s!r} indexes outside "
+                                     f"[0, {nvert[s]})")
+            E = int(idxs[names[0]].shape[0])
+            key = (gname, hashlib.sha1(b"".join(idxs[s].tobytes() for s in names)).hexdigest())
+            entry = cache.pop(key, None)
+            if entry is None:
+                eb = rules.edge_bounds(E)
+                e0, e1 = eb[rank]
+                halo = {}
+                for s in names:
+                    isp = gdecl.slots[s]
+                    h = build_halo_tables(idxs[s][:, None], nvert[s], ndev,
+                                          bounds=(rules.space_bounds[isp], eb))
+                    halo[s] = {"send": torch.as_tensor(h["send"][rank], dtype=torch.int64,
+                                                       device=self.device),
+                               "loc": torch.as_tensor(h["loc"][e0:e1], dtype=torch.int64,
+                                                      device=self.device),
+                               "M": h["M"]}
+                entry = {
+                    "groups": {
+                        gk: mesh_group_tables(idxs, gnames, n, self.device, self.compiled.dtype,
+                                              max_off, rules, gdecl.slots[gnames[0]])
+                        for gk, gnames, n in graph_ops.slot_groups(gdecl, self.dims)
+                    },
+                    "slot_halo": halo, "edges": (e0, e1),
+                }
+            cache[key] = entry
+            while len(cache) > _TABLE_CACHE_MAX:
+                cache.popitem(last=False)
+            e0, e1 = entry["edges"]
+            out[gname] = {k: v[e0:e1] for k, v in slots.items()}
+            out[gname].update(__groups__=entry["groups"], __slot_halo__=entry["slot_halo"],
+                              __edges__=entry["edges"])
         return out
 
     def _ell_tables(self, gname, idxs, sgroups):
@@ -573,25 +802,28 @@ class Plan:
         return self._global_unknowns(self._state["X"])
 
     def _global_unknowns(self, X):
-        """The unknowns as the caller gave them: under a mesh the tiles
-        gathered into the global arrays on every rank; ±inf markers put
-        back."""
+        """The unknowns as the caller gave them: under a mesh the tiles (or
+        owner blocks) gathered into the global arrays on every rank; ±inf
+        markers put back."""
         if self.rules is not None:
-            X = {k: self.rules.gather(v) for k, v in X.items()}
+            X = {k: self.rules.gather(v, k) for k, v in X.items()}
         return self._restore_sentinels(X)
 
     def _local_inputs(self, inputs):
-        """Under a mesh, the region of every global image input."""
+        """Under a mesh, the region of every global image input (on a graph
+        mesh the rank's owner block of it, or the whole of a replicated
+        one)."""
         if self.rules is None:
             return inputs
         out = {}
         for name, v in inputs.items():
             if name in self.compiled.registry.images:
                 a = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
-                if tuple(a.shape[:2]) != self.rules.dom:
-                    raise SpecError(f"image {name!r}: expected the global grid {self.rules.dom} "
-                                    f"(and channels), got {tuple(a.shape)}")
-                v = self.rules.local(a)
+                dom = self.compiled.registry.images[name].ispace.shape(self.dims)
+                if tuple(a.shape[:len(dom)]) != dom:
+                    raise SpecError(f"image {name!r}: expected the global {dom} (and "
+                                    f"channels), got {tuple(a.shape)}")
+                v = self.rules.local(a, name)
             out[name] = v
         return out
 

@@ -49,7 +49,7 @@ from ..ops.fused_cg import (
     coefficient_dtype,
     fused_grid_cg,
 )
-from ..ops.sharded_cg import sharded_fused_grid_cg
+from ..ops.sharded_cg import sharded_fused_grid_cg, sharded_graph_cg
 from ..utils.timer import active as timing_active
 from ..utils.timer import note_cg, phase
 from .params import (
@@ -124,6 +124,7 @@ class GaussNewtonSolver:
         uses_lambda: bool,
         init_params: Optional[InitializationParameters] = None,
         sharding_rules=None,
+        plan_on: Optional[CompiledProblem] = None,
     ):
         self.compiled = compiled
         self.uses_lambda = bool(uses_lambda)
@@ -155,11 +156,6 @@ class GaussNewtonSolver:
                 f"edge_reorder={self.ip.edge_reorder!r}: the only implemented mode is "
                 "\"owner\" (or False to disable)"
             )
-        if self.ip.edge_reorder == "owner":
-            raise NotImplementedError(
-                "edge_reorder='owner' (graphs over a mesh) is not ported yet "
-                "(ROADMAP.md queue 1 item 8b)"
-            )
         if self.ip.aligned_graph_assembly:
             raise NotImplementedError(
                 "aligned_graph_assembly is not to be ported: the reference package's "
@@ -172,8 +168,10 @@ class GaussNewtonSolver:
         if self.ip.use_fused_jtj and not self.ip.use_explicit_jtj:
             from ..assembly import plan_assembly
 
+            # a graph mesh's rank plans at the global dims (``plan_on``): the
+            # structure probes must not depend on the size of its blocks
             self._stencil_plan = plan_assembly(
-                compiled.spec_fn, compiled,
+                compiled.spec_fn, plan_on or compiled,
                 memory_limit_bytes=self.ip.fused_jtj_memory_limit_bytes,
             )
         mode = self.ip.use_pallas_cg
@@ -284,6 +282,8 @@ class GaussNewtonSolver:
             err = torch.zeros((), dtype=c.dtype, device=device)
             scale = torch.zeros((), dtype=c.dtype, device=device)
             for k in ref:
+                if not ref[k].numel():  # a rank of a graph mesh that owns none
+                    continue
                 # compare only where both operators are finite
                 ok = torch.isfinite(ref[k]) & torch.isfinite(got[k])
                 diff = torch.where(ok, torch.abs(ref[k] - got[k]), 0.0)
@@ -512,12 +512,19 @@ class GaussNewtonSolver:
         """The linear solve of a step under a mesh: the system assembled on
         the rank's extended region, read on its tile, solved by the sharded
         loop with every other rank; delta comes back over the region (the
-        neighbours' in the halo), so X keeps its halo. A system the loop
-        cannot take raises: a mesh never falls back quietly."""
+        neighbours' in the halo), so X keeps its halo. On a graph the
+        system is the rank's owner block's and ``sharded_graph_cg`` solves
+        it. A system the loop cannot take raises: a mesh never falls back
+        quietly."""
         meta, rules = s["meta"], self.rules
         kw = self._fused_keywords(s)
         if meta is None or (s["pre_apply"] is not None and kw["pre_blocks"] is None):
             raise RuntimeError("this step's operator has no form the sharded CG loop takes")
+        if rules.kind == "graph":
+            # the owner blocks' loop: the system is the rank's already
+            return sharded_graph_cg(
+                meta, rules.mesh, s["r0"], s["pre"], sp["lIterations"], sp["cg_rz_tolerance"],
+                guard_div=self.ip.guard_division_by_zero, stats=self.cg_stats, **kw)
         crop = lambda d: {k: rules.crop(v) for k, v in d.items()}  # noqa: E731
         if kw.get("ctc") is not None:
             kw["ctc"] = crop(kw["ctc"])

@@ -67,8 +67,9 @@ class InitializationParameters:
     # device count.
     preconditioner: str = "auto"
     # Bind-time edge renumbering for graph problems on a mesh: False/None,
-    # or "owner" (multi-device, not ported yet: ROADMAP.md queue 1 item 8;
-    # raises); "auto" resolves per device count (resolve_auto_policy).
+    # or "owner" (a graph's edges sorted by the owner block of their first
+    # slot, problem.py: Plan._reorder_edges; off a mesh it reorders
+    # nothing); "auto" resolves per device count (resolve_auto_policy).
     edge_reorder: Any = "auto"
     # Incidence-aligned graph assembly (experimental in the reference
     # package; not to be ported: True raises).

@@ -447,6 +447,11 @@ class SpecBuilder:
         if decl.ispace.ndim != 1:
             raise SpecError("graph-accessed images must live on a 1-D index space")
         if self.mode == "field":
+            # on a graph mesh, this rank's edges' reads, exchanged already
+            # (parallel/mesh.py: GraphShardingRules.edge_values)
+            ev = self.bindings.get("edge_values")
+            if ev is not None:
+                return ev[(decl.name, ref.graph, ref.slot)]
             return edge_gather(self._bound_image(decl), self._bound_graph_index(ref))
         key = _gimg_key(decl.name, ref.graph, ref.slot)
         sid = self.registry.slot_for(

@@ -16,7 +16,8 @@ package's orbax branch is a JAX library, so ``use_orbax=True`` raises.
 
 On a mesh every rank calls both: ``save`` gathers the global unknowns (as
 the JAX package's npz branch does) and rank 0 writes them; ``restore``
-gives each rank its extended region of them (``ShardingRules.local``).
+gives each rank its extended region of them (``ShardingRules.local``), on
+a graph its owner blocks (``GraphShardingRules.local``).
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from ..solver.params import normalize_solver_params
 
 _META_NAME = "opt_tpu_meta.json"
 _STATE_NAME = "state.npz"
-_REGION_ENTRIES = ("X", "SSq")  # per-unknown state, region-shaped on a mesh
+_REGION_ENTRIES = ("X", "SSq")  # per-unknown state, the rank's part on a mesh
 
 
 def _meta(plan) -> Dict[str, Any]:
@@ -72,7 +73,7 @@ def save(path: str, plan, use_orbax: Optional[bool] = None) -> str:
     rules = plan.rules
     if rules is not None:  # the global arrays, on every rank
         for k in _REGION_ENTRIES:
-            state[k] = {n: rules.gather(v) for n, v in state[k].items()}
+            state[k] = {n: rules.gather(v, n) for n, v in state[k].items()}
     path = os.path.abspath(path)
     if rules is None or rules.mesh.rank == 0:
         os.makedirs(path, exist_ok=True)
@@ -116,7 +117,7 @@ def restore(path: str, plan, inputs: Optional[Dict[str, Any]] = None):
             d[parts[-1]] = torch.as_tensor(np.array(arr)).to(plan.device)
     if plan.rules is not None:  # each rank's extended region
         for k in _REGION_ENTRIES:
-            state[k] = {n: plan.rules.local(v).contiguous() for n, v in state[k].items()}
+            state[k] = {n: plan.rules.local(v, n).contiguous() for n, v in state[k].items()}
     plan._state = state
     plan.solver_params = normalize_solver_params({**plan.solver_params, **meta["solver_params"]})
     return state

@@ -9,7 +9,8 @@ the solve would, launches no CG loop and leaves the plan's state alone, and
 says:
 
 * the engaged path: the kernel, its plain twin (CPU tensors), the eager
-  loop, the explicit J or the sharded loop, and ``fused_fallback``;
+  loop, the explicit J, the sharded loop or the sharded graph loop, and
+  ``fused_fallback``;
 * the CG instance (``fused_cg.launch_instance``) and its route's plan:
   ``tiled_grid_plan``'s layout, tiles and shared memory a block,
   ``graph_tile_plan``'s vertex ranges and halos, ``tiled_vol_plan``'s boxes
@@ -17,7 +18,11 @@ says:
 * the fields, the triples and the graph remainder's entries;
 * where the kernel library is built, the instance's registers and spills
   from ptxas (``_build.instance_registers``), and on a mesh those of the
-  per-tile apply (``tile_apply_kernel``).
+  per-tile apply (``tile_apply_kernel``);
+* on a graph mesh, which launches no kernel, the rank's owner block and
+  edge blocks and the width M (rows a pair of ranks) of each exchange: the
+  per-edge reads of each slot, each group's incidence gather and its CG
+  cross reads.
 """
 
 from __future__ import annotations
@@ -73,7 +78,9 @@ def plan_summary(plan, inputs, sp) -> Dict[str, Any]:
     meta = s["meta"]
     fused = (meta is not None and solver._pallas_mode is not None
              and (s["pre_apply"] is None or kw["pre_blocks"] is not None))
-    if plan.rules is not None:
+    if getattr(plan.rules, "kind", None) == "graph":
+        path = "sharded graph loop"
+    elif plan.rules is not None:
         path = "sharded loop"
     elif solver.ip.use_explicit_jtj:
         path = "explicit J"
@@ -90,6 +97,14 @@ def plan_summary(plan, inputs, sp) -> Dict[str, Any]:
            "path": path, "fused_fallback": fallback, "cg_variant": solver.ip.cg_variant,
            "preconditioner": solver.ip.preconditioner, "instance": None, "route": None}
     bf16 = False
+    if path == "sharded graph loop":
+        out["route"] = _graph_mesh_route(plan, graphs)
+        if meta is not None:
+            out.update(channels=int(meta["ctot"]), groups=len(meta["groups"]),
+                       dia_offsets=[len(g["dia"]) for g in meta["groups"]],
+                       remainder_width=[0 if g["C"] is None else int(g["C"].shape[1])
+                                        for g in meta["groups"]])
+        return out
     if meta is not None:
         lead = 1 if meta.get("batch") else 0
         rem = meta.get("rem")
@@ -116,6 +131,23 @@ def plan_summary(plan, inputs, sp) -> Dict[str, Any]:
                         "region": [list(r) for r in rules.region], "halo": list(rules.halo)}
     if out["instance"] is not None:
         out.update(_registers(path, out["instance"], bf16))
+    return out
+
+
+def _graph_mesh_route(plan, graphs) -> Dict[str, Any]:
+    """A graph mesh rank's blocks (vertices of each split space, edges of
+    each graph) and the width M of each exchange."""
+    rules = plan.rules
+    out = {"mesh": list(rules.mesh.shape), "rank": rules.mesh.rank,
+           "vertices": {repr(isp): list(rules.block(isp)) for isp in rules.spaces},
+           "graphs": {}}
+    for g, gd in sorted(graphs.items()):
+        out["graphs"][g] = {
+            "slot": {s: t["M"] for s, t in sorted(gd["__slot_halo__"].items())},
+            "incidence": {gk: t["inc_M"] for gk, t in sorted(gd["__groups__"].items())},
+            "cross": {gk: t["x_M"] for gk, t in sorted(gd["__groups__"].items())},
+            "edges": list(gd["__edges__"]),
+        }
     return out
 
 

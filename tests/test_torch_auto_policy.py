@@ -33,7 +33,8 @@ def test_single_device_resolution():
     ("resolved_grid", ["chronopoulos_gear", "block_jacobi", False]),
     # :88: explicit values pass through
     ("resolved_manual", ["standard", "jacobi", False]),
-    # :74: a graph's resolution at the mesh's size (its plan on a mesh is item 8b)
+    # :74: a graph's resolution at the mesh's size (a graph plan on a mesh
+    # takes it: tests/test_torch_sharding.py's "arap_auto")
     ("resolved_graph", ["chronopoulos_gear", "block_jacobi", "owner"]),
 ])
 def test_mesh_resolution(world, case, want):

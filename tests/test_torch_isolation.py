@@ -173,20 +173,17 @@ def test_fused_grid_cg_refuses_other_devices():
                                      ({"dynamic_topology": True}, "item 4")])
 def test_plan_takes_the_reference_keywords_and_raises(kw, item):
     """Problem.plan takes ``mesh=`` and ``dynamic_topology=`` as the JAX
-    package does; a mesh on a graph spec (its item 8b: a 2-D grid plans on
-    a mesh) is not ported yet and says so, naming its roadmap item. A
-    dynamic topology (item 4's first bullet) is ported: the graph plan
-    takes it."""
+    package does. A graph spec plans on a mesh (item 8b); what a mesh does
+    not take yet raises before the mesh is read, naming its roadmap item: a
+    float64 graph plan on a mesh (item 8e). A dynamic topology (item 4's
+    first bullet) is ported: the graph plan takes it."""
     if "dynamic_topology" in kw:
         plan = ott.Problem(tspecs.arap_mesh_deformation).plan(dims={"N": 8}, device="cpu", **kw)
         assert plan.dynamic_topology and plan.solver.ip.dynamic_topology is True
         return
-    if "mesh" in kw:
-        spec, dims = tspecs.arap_mesh_deformation, {"N": 8}
-    else:
-        spec, dims = tspecs.laplacian, {"W": 8, "H": 8}
     with pytest.raises(NotImplementedError, match=item):
-        ott.Problem(spec).plan(dims=dims, device="cpu", **kw)
+        ott.Problem(tspecs.arap_mesh_deformation).plan(dims={"N": 8}, device="cpu",
+                                                      double_precision=True, **kw)
 
 
 def test_plan_takes_the_default_keywords():
@@ -196,14 +193,21 @@ def test_plan_takes_the_default_keywords():
 
 
 @pytest.mark.parametrize("field,value,error,match", [
-    ("edge_reorder", "owner", NotImplementedError, "item 8"),
+    ("edge_reorder", "owner", None, None),
     ("edge_reorder", "bogus", ValueError, "only implemented mode"),
     ("aligned_graph_assembly", True, NotImplementedError, "not to be ported"),
 ])
 def test_unported_init_params_raise(field, value, error, match):
     """InitializationParameters that the port does not read raise, where the
-    JAX package would act on them."""
+    JAX package would act on them. ``edge_reorder="owner"`` is ported
+    (item 8b): a plan takes it, and off a mesh it reorders nothing, as in
+    the JAX package."""
     ip = ott.InitializationParameters(**{field: value})
+    if error is None:
+        plan = ott.Problem(tspecs.laplacian).plan(dims={"W": 8, "H": 8}, device="cpu",
+                                                  init_params=ip)
+        assert plan.solver.ip.edge_reorder == "owner"
+        return
     with pytest.raises(error, match=match):
         ott.Problem(tspecs.laplacian).plan(dims={"W": 8, "H": 8}, device="cpu", init_params=ip)
 
