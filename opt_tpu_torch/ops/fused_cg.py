@@ -133,6 +133,11 @@ CG_VARIANTS = ("standard", "chronopoulos_gear")
 
 
 COEFFICIENT_DTYPES = (torch.bfloat16, torch.float32)  # the fields the kernel reads
+# The solve dtypes whose operator the planners give the fused loop. The
+# kernels take float32; the plain twin computes in its inputs' dtype, so a
+# float64 entry here runs the twin in float64 (how the parity tests hold
+# the fused loop to the JAX package's float64 solve).
+LOOP_DTYPES = (torch.float32,)
 # The per-channel split engages when the CG loop's working set (7 state
 # planes per channel plus the fields) is beyond this many bytes and one
 # channel's is not: the H100's 50 MiB L2. poisson 1024x1024x4 (132 MiB
@@ -180,6 +185,12 @@ def coefficient_dtype(coeff_dtype) -> Optional[torch.dtype]:
     return dt
 
 
+def _widen(x):
+    """A bfloat16 coefficient widened to float32 (exactly); any other dtype
+    as it is."""
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
 def _narrow(F, coeff_dtype):
     dt = coefficient_dtype(coeff_dtype)
     return F.contiguous() if dt is None else F.to(dt).contiguous()
@@ -210,7 +221,7 @@ def plan_fused_grid_cg(compiled, plan, fields: Dict, w_layouts: Dict,
     (the module docstring's split; ``triples`` are then one channel's);
     ``allow_split=False`` (a block preconditioner couples the channels)
     keeps the joint loop."""
-    if not fields or compiled.dtype != torch.float32 or len(w_layouts) != 1:
+    if not fields or compiled.dtype not in LOOP_DTYPES or len(w_layouts) != 1:
         return None
     ((isp, (u_list, offs, ctot)),) = w_layouts.items()
     if isp.ndim not in (2, 3) or sorted(compiled.unknown_names) != sorted(u_list):
@@ -322,7 +333,7 @@ def plan_fused_graph_cg(compiled, plan, fields: Dict, grp_exec: Dict,
     under ``"empty_csr"`` the first group's empty CSR (``graph_group_tables``'s
     entry of that name: rowptr, col and its :class:`GraphPartitions`), by
     which the graph route partitions it; ``"rem"`` stays None."""
-    if pair_exec or not grp_exec or compiled.dtype != torch.float32:
+    if pair_exec or not grp_exec or compiled.dtype not in LOOP_DTYPES:
         return None
     u_list = list(compiled.unknown_names)
     isps = {compiled.registry.images[u].ispace for u in u_list}
@@ -370,7 +381,7 @@ def plan_fused_graph_cg(compiled, plan, fields: Dict, grp_exec: Dict,
             for c in range(channels[u]):
                 gmap[g_offs[u] + c] = offs[u] + c
         pm = ex["mask"]
-        S = ex["S"].float()  # widened from a narrowed coefficient dtype
+        S = _widen(ex["S"])
         for i in range(ct):
             for j in range(ct):
                 col = S[:, i * ct + j]
@@ -381,13 +392,13 @@ def plan_fused_graph_cg(compiled, plan, fields: Dict, grp_exec: Dict,
             pm_s = shift(pm, (off,)) if pm is not None else None
             for i in range(ct):
                 for j in range(ct):
-                    col = W[:, i * ct + j].float() * _bounds(off)
+                    col = _widen(W[:, i * ct + j]) * _bounds(off)
                     if pm is not None:
                         col = col * pm[:, i] * pm_s[:, j]
                     _emit(col, off, gmap[i], gmap[j])
         if ex["C"] is not None:
             csr = ex["tables"]["csr"]
-            blk = ex["C"].float().reshape(-1, ct, ct)[csr["src"]]  # [nnz, ct, ct]
+            blk = _widen(ex["C"]).reshape(-1, ct, ct)[csr["src"]]  # [nnz, ct, ct]
             if pm is not None:
                 blk = blk * pm[csr["row"]][:, :, None] * pm[csr["col"].long()][:, None, :]
             if gmap != list(range(ctot)):
@@ -589,7 +600,7 @@ def _remainder_apply(rem, p, acc):
     start = rem["rowptr"][:-1].long()
     count = rem["rowptr"][1:].long() - start
     col = rem["col"].long()
-    blk = rem["blk"].float()
+    blk = _widen(rem["blk"])
     for k in range(int(count.max()) if count.numel() else 0):
         live = k < count
         e = torch.where(live, start + k, 0)
@@ -699,7 +710,7 @@ def fused_grid_cg_reference(F, triples, b, pre, lits, tol, *, guard_div=True,
             F, triples, b, pre, lits, tol, int(n_sys), counts, batched=batched,
             guard_div=guard_div, ctc=ctc, reset_period=reset_period, q_tolerance=q_tolerance,
             trace=trace, rem=rem, cs=cs, pre_blocks=pre_blocks)
-    F = F.float()
+    F = _widen(F)
     if ctc is None:
         apply = lambda p: _operator_apply(F, triples, rem, p)  # noqa: E731
         reset_period = q_tolerance = None

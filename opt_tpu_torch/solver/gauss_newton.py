@@ -197,10 +197,11 @@ class GaussNewtonSolver:
 
     def kernel_expected(self) -> bool:
         """Whether a step is meant to run the fused loop: an assembled
-        float32 operator with the fused loop on. Such a step that runs the
+        operator of a dtype the loop takes (``fused_cg.LOOP_DTYPES``: float32)
+        with the fused loop on. Such a step that runs the
         eager loop notes it (:meth:`_note_no_kernel`)."""
         return (self._pallas_mode is not None and self._stencil_plan is not None
-                and self.compiled.dtype == torch.float32)
+                and self.compiled.dtype in fused_cg.LOOP_DTYPES)
 
     def _note_no_kernel(self) -> None:
         """A float32 step's assembled operator had no form the fused CG
@@ -765,7 +766,7 @@ class GaussNewtonSolver:
         fused form, a block preconditioner the loop cannot host)."""
         comp = self.compiled
         if (self._stencil_plan is None or self._pallas_mode is None
-                or comp.dtype != torch.float32):
+                or comp.dtype not in fused_cg.LOOP_DTYPES):
             return None  # composed operator, float64, fused CG off
 
         def system(st, c, p, cc):

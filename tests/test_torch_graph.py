@@ -37,6 +37,7 @@ from opt_tpu_torch.utils.convert import (
     state_from_numpy,
     state_to_numpy,
 )
+from tests.float32_limits import cg_bound, jacobi_condition, jax_float64
 from tests.test_golden_costs import GOLDEN, _medium_cases
 
 torch.set_num_threads(2)
@@ -288,45 +289,109 @@ def test_meta_structure(mesh):
 # ---------------------------------------------------------------------------
 
 
-def _one_gn_step_pair(jp, tp, inputs):
-    """One GN step from ``inputs`` in both packages (the JAX plan on its XLA
-    loop): the same δ to 1e-5 and the same CG iteration count, the rz floor
-    crossed well inside the budget. Returns, for each call of the port's
-    twin, whether it had a remainder."""
+def _twin_solve(tp, inputs):
+    """``tp.solve(inputs)`` with a spy on the port's twin: returns the
+    result and, for each call of the twin, (its vectors' dtype, whether it
+    had a remainder)."""
     calls = []
     orig = fused_cg.fused_grid_cg_reference
 
-    def spy(*a, **k):
-        calls.append(k.get("rem") is not None)
-        return orig(*a, **k)
+    def spy(F, triples, b, *a, **k):
+        calls.append((b.dtype, k.get("rem") is not None))
+        return orig(F, triples, b, *a, **k)
 
     fused_cg.fused_grid_cg_reference = spy
     try:
-        tr = tp.solve(dict(inputs))
+        return tp.solve(dict(inputs)), calls
     finally:
         fused_cg.fused_grid_cg_reference = orig
+
+
+def _one_gn_step_pair(jp, tp, inputs, f32_bound=False):
+    """One GN step from ``inputs`` in both packages (the JAX plan on its XLA
+    loop): the same δ to 1e-5 and the same CG iteration count, the rz floor
+    crossed well inside the budget. With ``f32_bound`` the float32 δ are
+    held instead to the float64 step (see :func:`test_one_gn_step_matches_jax`).
+    Returns, for each call of the port's twin, whether it had a remainder,
+    and both results."""
+    tr, twin = _twin_solve(tp, inputs)
+    calls = [rem for dt, rem in twin if dt == torch.float32]
+    assert len(calls) == len(twin)
     jr = jp.solve(dict(inputs))
     assert jp.solver._pallas_mode is None and jp.fused_fallback is None
     assert tp.fused_fallback is None
     assert tr.num_linear_iterations == jr.num_linear_iterations < 400
-    for k in ("Offset", "Angle"):
+    for k in ("Offset", "Angle") if not f32_bound else ():
         jd = np.asarray(jr.unknowns[k]) - inputs[k]
         td = tr.unknowns[k].numpy() - inputs[k]
         _close(td, jd, 1e-5)
-    return calls
+    return calls, tr, jr
 
 
 _STEP_KW = dict(nIterations=1, lIterations=400, cg_rz_tolerance=1e-8)
+# the meshes whose two float32 steps part past 1e-5 by their sum orders
+# (see test_one_gn_step_matches_jax): there the float32 steps are held to
+# the float64 one by the float32 reach
+_F32_BOUNDED = {"random"}
+_JAX_F64 = {}
+
+
+def jax_float64_steps():
+    """The JAX package's float64 GN step on each mesh (run by
+    tests/float32_limits.py::jax_float64 in a process with x64 on)."""
+    out = {}
+    for mesh in MESHES:
+        N, inputs = _mesh(mesh)
+        jp = ot.Problem(jspecs.arap_mesh_deformation).plan(
+            dims={"N": N}, double_precision=True,
+            init_params=ot.InitializationParameters(use_pallas_cg="off"), **_STEP_KW)
+        jr = jp.solve(dict(inputs))
+        for k in ("Offset", "Angle"):
+            out[f"{mesh}_{k}"] = np.asarray(jr.unknowns[k]) - inputs[k]
+        out[f"{mesh}_iters"] = np.asarray(jr.num_linear_iterations)
+    return out
 
 
 @pytest.mark.parametrize("mesh", sorted(MESHES))
-def test_one_gn_step_matches_jax(mesh):
+def test_one_gn_step_matches_jax(mesh, monkeypatch):
     """One GN step from the inputs: the port's fused loop (its twin, on the
     CPU) and JAX's XLA loop on its assembled operator give the same δ and
-    the same CG iteration count."""
-    _N, inputs = _mesh(mesh)
+    the same CG iteration count, in float32 and, through the same twin
+    (``fused_cg.LOOP_DTYPES`` widened to float64), in float64: δ at 1e-5 of
+    the largest entry (the packages agree to 2.2e-11 in float64).
+
+    On the grid mesh the float32 pair holds at 1e-5 too. On the random mesh
+    the step runs CG to an rz floor of 1e-8 in 82 iterations, past the point
+    where float32's rounding stays below 1e-5 of the step: its
+    Jacobi-scaled condition number is 1039, so the float32 reach is
+    k·κ·u = 5.1e-3 of the largest entry (tests/float32_limits.py), and the
+    two packages' float32 steps part by up to 4.8e-5 by their sum orders
+    alone, each 8–9e-4 from the float64 step. There each package's float32
+    δ is held to the float64 step by k·κ·u, with equal CG counts."""
+    N, inputs = _mesh(mesh)
     jp, tp = _plans(mesh, jax_mode="off", **_STEP_KW)
-    assert _one_gn_step_pair(jp, tp, inputs) == [mesh == "random"]
+    bounded = mesh in _F32_BOUNDED
+    calls, tr, jr = _one_gn_step_pair(jp, tp, inputs, f32_bound=bounded)
+    assert calls == [mesh == "random"]
+    if not _JAX_F64:
+        _JAX_F64.update(jax_float64("tests.test_torch_graph", "jax_float64_steps"))
+    monkeypatch.setattr(fused_cg, "LOOP_DTYPES", (torch.float32, torch.float64))
+    t64 = ott.Problem(tspecs.arap_mesh_deformation).plan(
+        dims={"N": N}, device="cpu", double_precision=True, **_STEP_KW)
+    r64, twin = _twin_solve(t64, inputs)
+    assert twin == [(torch.float64, mesh == "random")] and t64.fused_fallback is None
+    assert r64.num_linear_iterations == int(_JAX_F64[f"{mesh}_iters"]) < 400
+    d64 = {k: r64.unknowns[k].numpy() - inputs[k] for k in ("Offset", "Angle")}
+    for k in ("Offset", "Angle"):
+        _close(d64[k], _JAX_F64[f"{mesh}_{k}"], 1e-5)
+    if not bounded:
+        return
+    bound = cg_bound(tr.num_linear_iterations,
+                     jacobi_condition(t64.dump_jacobian(dict(inputs), dense=True)))
+    for k in ("Offset", "Angle"):
+        for res in (tr, jr):
+            d32 = np.asarray(res.unknowns[k]).astype(np.float64) - inputs[k]
+            _close(d32, d64[k], bound)
 
 
 def test_offsets_beyond_the_kernel_table_join_the_remainder():
@@ -347,7 +412,7 @@ def test_offsets_beyond_the_kernel_table_join_the_remainder():
     assert meta is not None and meta["rem"] is not None
     assert len(meta["triples"]) <= fused_cg.MAX_TRIPLES
     assert len({d for (d, _i, _j, _f) in meta["triples"]}) == 14  # 13 offsets and (0, 0)
-    assert _one_gn_step_pair(jp, tp, inputs) == [True]
+    assert _one_gn_step_pair(jp, tp, inputs)[0] == [True]
 
 
 def test_no_kernel_form_is_reported(monkeypatch, capsys):
@@ -410,7 +475,7 @@ def test_two_graphs_share_one_remainder():
     v = {k: torch.as_tensor(rng.uniform(-1, 1, tuple(x.shape)).astype(f32)) for k, x in u.items()}
     got = fused_cg._operator_apply(meta["F"], meta["triples"], meta["rem"], fused_cg.pack(v, meta))
     _close(got, fused_cg.pack(tA(v), meta).numpy(), 1e-5)
-    assert _one_gn_step_pair(jp, tp, inputs) == [True]
+    assert _one_gn_step_pair(jp, tp, inputs)[0] == [True]
 
 
 def _twin_system(mesh, lm):

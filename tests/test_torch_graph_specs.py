@@ -34,6 +34,7 @@ from opt_tpu_torch.functions import FunctionSet as TFunctionSet
 from opt_tpu_torch.models import specs as tspecs
 from opt_tpu_torch.ops import fused_cg
 import tests.test_golden_costs as tg
+from tests.float32_limits import U32, jax_float64
 import tests.test_specs as ts
 
 torch.set_num_threads(2)
@@ -94,8 +95,7 @@ def _operators(name, size):
     fs.masks(u)
     jA = fs.assemble_stencil(u, jp.solver._stencil_plan)[0]
     composed = fs.make_jtj_apply(u)[3]
-    rng = np.random.RandomState(7)
-    v = {k: rng.uniform(-1, 1, np.shape(x)).astype(np.float32) for k, x in u.items()}
+    v = _probe(u)
     jv = {k: jax.numpy.asarray(x) for k, x in v.items()}
     def pack(d):
         return fused_cg.pack({k: torch.as_tensor(np.array(x)) for k, x in d.items()}, meta)
@@ -104,20 +104,103 @@ def _operators(name, size):
     return meta, got.numpy(), pack(jA(jv)).numpy(), pack(composed(jv)).numpy()
 
 
+_JAX_F64 = {}
+
+
+def _probe(u):
+    rng = np.random.RandomState(7)
+    return {k: rng.uniform(-1, 1, np.shape(x)).astype(np.float32) for k, x in u.items()}
+
+
+def jax_float64_cotangent():
+    """The JAX package's float64 assembled and composed JᵀJ·p of cotangent
+    at each size (run by tests/float32_limits.py::jax_float64 in a process
+    with x64 on), on :func:`_probe`'s p."""
+    out = {}
+    for size in SIZES:
+        _dims, inputs = _case("cotangent_mesh_smoothing", size)
+        jp = _plans("cotangent_mesh_smoothing", size, double_precision=True)[0]
+        u, c, g, p = jp._normalize_and_place(dict(inputs))
+        fs = JFunctionSet(jp.compiled, c, g, p)
+        fs.masks(u)
+        v = {k: jax.numpy.asarray(x.astype(np.float64)) for k, x in _probe(u).items()}
+        out[f"{size}_assembled"] = fs.assemble_stencil(u, jp.solver._stencil_plan)[0](v)["X"]
+        out[f"{size}_composed"] = fs.make_jtj_apply(u)[3](v)["X"]
+    return out
+
+
+def _cotangent_float64(size, meta):
+    """cotangent's operator in float64 at ``size``'s inputs: the port's
+    fused operator (the twin's apply of a float64 plan's meta, with
+    ``fused_cg.LOOP_DTYPES`` widened to float64 by the caller) and the JAX
+    package's assembled and composed JᵀJ·p, all packed as ``meta`` packs;
+    and the float32 reach of an apply, derived from the inputs.
+
+    The reach: a residual's weight is w = √(½(cot + cot)), each cot a·b/√disc
+    with disc = |a|²|b|² − (a·b)² for the unit edge vectors a, b, which
+    cancels near collinear edges: disc's float32 rounding is up to
+    2u/(1 − c²) of it (c = a·b), u = 2⁻²⁴. J's entries carry w or ∂w/∂X
+    ∝ disc^(-3/2): up to 3u/(1 − c²); a field of JᵀJ is a product of two:
+    6u/(1 − c²); the apply's sums add at most 16u more. So each output is
+    within (6/min(1 − c²) + 16)·u of the float64 one, relative to the same
+    sum over |F|·|p|, which bounds the largest output."""
+    dims, inputs = _case("cotangent_mesh_smoothing", size)
+    if not _JAX_F64:
+        _JAX_F64.update(jax_float64("tests.test_torch_graph_specs", "jax_float64_cotangent"))
+    tp = ott.Problem(tspecs.cotangent_mesh_smoothing, kind="LMGPU").plan(
+        dims=dims, device="cpu", double_precision=True)
+    m64 = tp.cg_inputs(dict(inputs))[0]
+    assert tp.fused_fallback is None and m64["F"].dtype == torch.float64
+    assert m64["triples"] == meta["triples"]
+    u = tp._normalize_and_place(dict(inputs))[0]
+    p64 = fused_cg.pack({k: torch.as_tensor(x.astype(np.float64))
+                         for k, x in _probe(u).items()}, m64)
+    port = fused_cg._operator_apply(m64["F"], m64["triples"], m64["rem"], p64).numpy()
+    jax64 = {k: fused_cg.pack({"X": torch.as_tensor(_JAX_F64[f"{size}_{k}"])}, meta).numpy()
+             for k in ("assembled", "composed")}
+    x, gi = inputs["X"].astype(np.float64), inputs["G"]
+    unit = lambda a: a / np.linalg.norm(a, axis=-1, keepdims=True)  # noqa: E731
+    cos = [(unit(x[gi[a]] - x[gi[o]]) * unit(x[gi[b]] - x[gi[o]])).sum(-1)
+           for a, b, o in (("v0", "v1", "v2"), ("v0", "v1", "v3"))]
+    reach = (6.0 / float(min((1.0 - c * c).min() for c in cos)) + 16.0) * U32
+    rem = meta["rem"]
+    rem_abs = None if rem is None else dict(rem, blk=rem["blk"].double().abs())
+    scale = fused_cg._operator_apply(meta["F"].double().abs(), meta["triples"], rem_abs,
+                                     p64.abs())
+    return port, jax64, reach * float(scale.abs().max())
+
+
 @pytest.mark.parametrize("size", SIZES)
 @pytest.mark.parametrize("name", SPECS)
-def test_fused_operator_matches_jax(name, size):
-    """The port's kernel inputs (triples on [1, N] and the remainder CSR, or
-    the empty one) applied by the twin equal the JAX package's assembled
+def test_fused_operator_matches_jax(name, size, monkeypatch):
+    """The port's fused operator (the twin's apply of the meta), against the
+    JAX package's on the same random p: its assembled (default stencil)
     operator and its composed Jᵀ(J·p) at 1e-6 of the largest entry: for
     robust_nonrigid through the partial group's meta, RobustWeights' channel
     keeping only its centred triples (at offset 0, coupled to Offset by the
-    fit term) and no remainder entry."""
+    fit term) and no remainder entry.
+
+    cotangent's fields round in float32 by up to 6u/(1 − c²) for its most
+    collinear edges (:func:`_cotangent_float64`: 3.9e-5 and 1.3e-4 of the
+    apply at the two sizes), and the two packages' float32 applies part by
+    6.9e-6 and 1.5e-5 of the largest entry on some hosts: so its operators
+    are held at 1e-6 in float64, the port's fused operator built and applied
+    in float64 against the JAX package's assembled and composed applies
+    (measured 5.9e-16 to 1.0e-15), and in float32 the twin's apply and the JAX
+    package's are held to the float64 one by that reach."""
     meta, got, assembled, composed = _operators(name, size)
     C = CHANNELS[name]
     assert meta["ctot"] == C and len(meta["triples"]) <= fused_cg.MAX_TRIPLES
-    for want in (assembled, composed):
-        np.testing.assert_allclose(got, want, rtol=0, atol=STEP_RTOL * np.abs(want).max())
+    if name == "cotangent_mesh_smoothing":
+        monkeypatch.setattr(fused_cg, "LOOP_DTYPES", (torch.float32, torch.float64))
+        port, jax64, reach = _cotangent_float64(size, meta)
+        for want in jax64.values():
+            np.testing.assert_allclose(port, want, rtol=0, atol=STEP_RTOL * np.abs(want).max())
+        for f32 in (got, assembled, composed):
+            np.testing.assert_allclose(f32, port, rtol=0, atol=reach)
+    else:
+        for want in (assembled, composed):
+            np.testing.assert_allclose(got, want, rtol=0, atol=STEP_RTOL * np.abs(want).max())
     if name == "robust_nonrigid_alignment":
         w = meta["offs"]["RobustWeights"]
         assert {d for (d, i, j, _f) in meta["triples"] if w in (i, j)} == {(0, 0)}
