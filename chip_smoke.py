@@ -77,8 +77,13 @@ vertex space in owner blocks over the same ranks (arap36k GN 8x100 with
 the standard loop and Jacobi, and under the mesh's auto policy, and
 embedded10k LM 8x40: the owner-block loop, plain PyTorch, no kernel, one
 all_to_all of p a CG apply), their first steps held to the single-device
-solve on the card; it times the tile kernel against its bound, and the
-sharded solves (four ranks sharing one card: not a scaling figure).
+solve on the card; then 3-D tiles and several vertex spaces on the same
+ranks (volumetric 32x32x32 GN 8x40 split along its first two axes, pinned
+and under the mesh's auto policy, its apply plain PyTorch; the cluster
+ARAP GN 8x100 with Offset and Angle on two vertex spaces, every read of
+another rank's rows one all_to_all a CG apply), held likewise; it times the
+tile kernel against its bound, and the sharded solves (four ranks sharing
+one card: not a scaling figure).
 The tiled route: where one system's state fits the card's shared memory at
 one tile a block (fused_cg.tiled_grid_plan: the 2-D GN and LM systems at
 512x512 and below, float32 fields with the Jacobi or the block-Jacobi
@@ -672,22 +677,33 @@ SHARDED_CASES = [
     ("image_warping512 LM 8x400", "image_warping", "LMGPU", IW_N, 8, 400, PINNED),
     ("image_warping512 LM 8x400 auto", "image_warping", "LMGPU", IW_N, 8, 400, {}),
 ]
-# The graph cases the same ranks solve after SHARDED_CASES, through the
-# public API with dims {"N": N}: each 1-D vertex space split into owner
-# blocks over the 2x2 mesh (ROADMAP.md queue 1 item 8b; no kernel: the JAX
-# package runs XLA's loop there). Each: label, spec name, kind, nonlinear x
-# CG iterations, InitializationParameters, and how many first steps are
-# held to the single-device solve on the card (float32 graph solves do not
-# settle past them, ROADMAP.md queue 3). The auto case resolves to
-# Chronopoulos-Gear, block-Jacobi and the owner reorder. embedded10k at
-# GRAPH_SPECS' depth.
+# The graph, 3-D grid and several-space cases the same ranks solve after
+# SHARDED_CASES, through the public API (no kernel: the JAX package runs
+# XLA's loop for each). The graph cases split each 1-D vertex space into
+# owner blocks over the 2x2 mesh (ROADMAP.md queue 1 item 8b); the auto
+# case resolves to Chronopoulos-Gear, block-Jacobi and the owner reorder;
+# embedded10k at GRAPH_SPECS' depth. Then (item 8c) volumetric 32^3 split
+# along its first two axes (tiles of 16x16x32, the third axis whole),
+# pinned and under the mesh's auto policy (Chronopoulos-Gear and
+# block-Jacobi), and the cluster ARAP (Offset on the 36,864 vertices, an
+# Angle on each of the 576 clusters, each space in owner blocks). Each:
+# label, name (mesh_case_problem), kind, nonlinear x CG iterations,
+# InitializationParameters, and how many first steps are held to the
+# single-device solve on the card under the same settings (these float32
+# solves do not settle past them, ROADMAP.md queue 3).
 PINNED_GRAPH = dict(PINNED, edge_reorder=False)
-SHARDED_GRAPH_CASES = [
+SHARDED_MESH_CASES = [
     (f"arap36k GN {GRAPH_NL}x{GRAPH_LI}", "arap", "gaussNewtonGPU", GRAPH_NL, GRAPH_LI,
      PINNED_GRAPH, 2),
     (f"arap36k GN {GRAPH_NL}x{GRAPH_LI} auto", "arap", "gaussNewtonGPU", GRAPH_NL, GRAPH_LI, {},
      2),
     ("embedded10k LM 8x40", "embedded", "LMGPU", 8, 40, PINNED_GRAPH, 1),
+    (f"volumetric{VOL_N} GN {VOL_NL}x{VOL_LI}", "volumetric", "gaussNewtonGPU", VOL_NL, VOL_LI,
+     PINNED_GRAPH, VOL_FIRST_STEPS),
+    (f"volumetric{VOL_N} GN {VOL_NL}x{VOL_LI} auto", "volumetric", "gaussNewtonGPU", VOL_NL,
+     VOL_LI, {}, VOL_FIRST_STEPS),
+    (f"cluster_arap GN {GRAPH_NL}x{GRAPH_LI}", "cluster", "gaussNewtonGPU", GRAPH_NL, GRAPH_LI,
+     PINNED_GRAPH, 2),
 ]
 SHARDED_ITER_RTOL = 0.01  # a sharded solve's CG count against the single-device one
 SHARDED_TIMEOUT_S = 600  # the ranks' whole run
@@ -3154,14 +3170,26 @@ def time_tile_apply(label, meta, gpu, reps=200):
     return ms_k, ms_t, bound_ms, by
 
 
-def sharded_rank(rank, world, store, device, cases, results, graph_cases=()):
+def mesh_case_problem(name):
+    """The spec, dims and inputs of a SHARDED_MESH_CASES name."""
+    if name == "arap":
+        return (arap_mesh_deformation, *arap_grid_inputs(ARAP_SIDE))
+    if name == "embedded":
+        return (embedded_mesh_deformation, *embedded_inputs(SPEC_SIDE))
+    if name == "volumetric":
+        return volumetric_mesh_deformation, _vol(VOL_N), volumetric_inputs(VOL_N)
+    return (cluster_arap_spec(ot), *cluster_arap_inputs(ARAP_SIDE, CLUSTER))
+
+
+def sharded_rank(rank, world, store, device, cases, results, mesh_cases=()):
     """One rank of the sharded solves (started by the spawn method): joins
     the gloo world, takes its place in the 2x2 mesh on ``device`` and
     solves every case through the public API, its tile-kernel launch count
     and the mesh's counts set to 0 just before each solve and read just
-    after; then the graph cases (``graph_cases``, SHARDED_GRAPH_CASES' form)
-    likewise, with the fused kernels' launch counts; puts {rank, cases,
-    graph_cases} (or {rank, error}) on ``results``."""
+    after; then the graph, 3-D and several-space cases (``mesh_cases``,
+    SHARDED_MESH_CASES' form) likewise, with the fused kernels' launch
+    counts; puts {rank, cases, mesh_cases} (or {rank, error}) on
+    ``results``."""
     import torch.distributed as dist
 
     from opt_tpu_torch.parallel import initialize, make_mesh
@@ -3204,12 +3232,9 @@ def sharded_rank(rank, world, store, device, cases, results, graph_cases=()):
                 # sum over the ranks)
                 "plan": plan_summary(plan, inputs, plan.solver_params),
             }
-        out["graph_cases"] = {}
-        for label, name, kind, nl, li, ip, _first in graph_cases:
-            if name == "arap":
-                spec, (dims, inputs) = arap_mesh_deformation, arap_grid_inputs(ARAP_SIDE)
-            else:
-                spec, (dims, inputs) = embedded_mesh_deformation, embedded_inputs(SPEC_SIDE)
+        out["mesh_cases"] = {}
+        for label, name, kind, nl, li, ip, _first in mesh_cases:
+            spec, dims, inputs = mesh_case_problem(name)
             plan = ot.Problem(spec, kind=kind).plan(
                 dims=dims, mesh=mesh, device=dev.type,
                 init_params=ot.InitializationParameters(**ip))
@@ -3223,23 +3248,24 @@ def sharded_rank(rank, world, store, device, cases, results, graph_cases=()):
                 torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
             stats = plan.solver.cg_stats
-            out["graph_cases"][label] = {
+            out["mesh_cases"][label] = {
                 "cost": res.final_cost, "costs": res.costs, "lin": res.num_linear_iterations,
                 "steps": res.num_iterations, "fused_fallback": res.fused_fallback,
                 "kernel_launches": (sum(fused_cg.fused_grid_cg_kernel.launches.values())
                                     + sharded_cg.tile_apply_kernel.launches),
                 "iterations": [st["iterations"] for st in stats],
                 "applies": [st["applies"] for st in stats],
-                "all_to_all": [st["all_to_all"] for st in stats],
-                "all_reduce": mesh.counts["all_reduce"], "all_gather": mesh.counts["all_gather"],
-                "solve_all_to_all": mesh.counts["all_to_all"],
+                "loops": sorted({st["loop"] for st in stats}),
+                **{k: [st[k] for st in stats] for k in ("all_to_all", "all_reduce", "p2p_phases")},
+                "solve_counts": dict(mesh.counts),
                 "cg_ms": sum(st["s"] for st in stats) * 1e3,
                 "wall_ms": wall_ms, "solve_ms": res.wall_time_s * 1e3,
                 "variant": [plan.solver.ip.cg_variant, plan.solver.ip.preconditioner,
                             plan.solver.ip.edge_reorder],
                 "unknowns": len(res.unknowns),
-                "unknowns_ok": all(v.shape[0] == dims["N"] and bool(torch.isfinite(v).all())
-                                   for v in res.unknowns.values()),
+                "unknowns_ok": all(tuple(v.shape) == np.shape(inputs[k])
+                                   and bool(torch.isfinite(v).all())
+                                   for k, v in res.unknowns.items()),
                 "plan": plan_summary(plan, inputs, plan.solver_params),
             }
         # what an iteration's communication costs here: one all_reduce of
@@ -3268,11 +3294,12 @@ def sharded_rank(rank, world, store, device, cases, results, graph_cases=()):
             dist.destroy_process_group()
 
 
-def start_sharded(cases, graph_cases=(), device="cuda:0", world=4):
+def start_sharded(cases, mesh_cases=(), device="cuda:0", world=4):
     """Start ``world`` ranks of the sharded solves (the grid ``cases``, then
-    the ``graph_cases``) by the spawn method (a process that has used CUDA
-    cannot fork them). They are daemons: if this process ends first, they
-    end with it. Returns the handle :func:`collect_sharded` takes."""
+    the ``mesh_cases``) by the spawn method (a
+    process that has used CUDA cannot fork them). They are daemons: if this
+    process ends first, they end with it. Returns the handle
+    :func:`collect_sharded` takes."""
     ctx = multiprocessing.get_context("spawn")
     os.makedirs(os.path.join("build", "ranks"), exist_ok=True)
     store = os.path.abspath(os.path.join("build", "ranks", f"store_{os.getpid()}"))
@@ -3280,7 +3307,7 @@ def start_sharded(cases, graph_cases=(), device="cuda:0", world=4):
         os.remove(store)
     results = ctx.Queue()
     procs = [ctx.Process(target=sharded_rank,
-                         args=(r, world, store, device, cases, results, graph_cases),
+                         args=(r, world, store, device, cases, results, mesh_cases),
                          daemon=True)
              for r in range(world)]
     for proc in procs:
@@ -3409,79 +3436,98 @@ def single_steps(spec, kind, dims, inputs, nl, li, ip):
     return costs, counts, plan.current_cost()
 
 
-def sharded_graph_references(arap_dims, arap_in, res_arap, emb_dims, emb_in, res_emb):
-    """The single-device solves on the card that SHARDED_GRAPH_CASES are held
-    to: label -> (first steps' costs, their CG counts, final cost). The
-    pinned cases' final costs are the main paths' (arap36k GN 8x100,
-    embedded10k LM 8x40), their first steps' costs and counts from the same
-    solve's first steps through the stepwise API; the auto case's one more
-    arap36k GN 8x100 solve, with CS and block-Jacobi."""
+def sharded_mesh_references(main):
+    """The single-device solves on the card that SHARDED_MESH_CASES are held
+    to: label -> (first steps' costs, their CG counts, final cost, CG
+    count). ``main``: name -> (spec, dims, inputs, the main path's result).
+    The pinned cases' finals are the main paths' (arap36k GN 8x100,
+    embedded10k LM 8x40, volumetric 32^3 GN 8x40 with Jacobi, the cluster
+    ARAP GN 8x100), their first steps' from the same solve's first steps
+    through the stepwise API; an auto case's one more solve, with
+    Chronopoulos-Gear and block-Jacobi."""
     out = {}
-    for label, name, kind, nl, li, ip, first in SHARDED_GRAPH_CASES:
-        spec, dims, inputs, res = ((arap_mesh_deformation, arap_dims, arap_in, res_arap)
-                                   if name == "arap" else
-                                   (embedded_mesh_deformation, emb_dims, emb_in, res_emb))
+    for label, name, kind, nl, li, ip, first in SHARDED_MESH_CASES:
+        spec, dims, inputs, res = main[name]
         single_ip = {k: v for k, v in ip.items() if k != "edge_reorder"} if ip else CS_BJ
         costs, counts, final = single_steps(spec, kind, dims, inputs,
                                             first if ip else nl, li, single_ip)
-        out[label] = (costs[:first], counts[:first], res.final_cost if ip else final)
+        out[label] = (costs[:first], counts[:first], res.final_cost if ip else final,
+                      res.num_linear_iterations if ip else sum(counts))
     return out
 
 
-def sharded_graph_main_paths(ranks, single, gpu):
-    """The graph cases of the sharded ranks (SHARDED_GRAPH_CASES, each vertex
-    space in owner blocks over the 2x2 mesh) held to the single-device solves
-    on the card (``single``: sharded_graph_references): every rank equal to
-    rank 0, no fallback and no kernel launched, the plan report's path the
-    sharded graph loop, one all_to_all a CG apply and no all_gather but the
-    result's, the first steps' costs within FIRST_STEPS_RTOL and their CG
-    counts within SHARDED_ITER_RTOL, the global unknowns finite. Prints one
-    graph_exchange line a case (the exchanges' widths M and ms per sharded
-    CG iteration) and the final cost beside the single-device one and the
-    JAX CPU's."""
-    for label, name, kind, nl, li, ip, n_first in SHARDED_GRAPH_CASES:
-        cases = [r["graph_cases"][label] for r in ranks]
+def sharded_mesh_main_paths(ranks, single, gpu):
+    """The graph, 3-D and several-space cases of the sharded ranks
+    (SHARDED_MESH_CASES) held to the single-device solves on the card
+    (``single``: sharded_mesh_references): every rank equal to rank 0, no
+    fallback and no kernel launched, the plan report's path the sharded 3-D
+    loop or the sharded graph loop, per CG apply two halo phases (3-D) or one
+    all_to_all (graph: every group's and coupling's reads together), no
+    all_gather but the result's, the first steps' costs within
+    FIRST_STEPS_RTOL and their CG counts within SHARDED_ITER_RTOL, the global
+    unknowns finite. Prints one mesh_exchange line a case (the
+    communication per CG iteration, the exchanges' widths, ms per sharded
+    CG iteration, the ranks' walls) and the final cost beside the
+    single-device one (and the JAX CPU's where the script has it)."""
+    jax_finals = {"arap": JAX_CPU_GRAPH_COSTS["arap36k"]["final"],
+                  "embedded": JAX_CPU_SPEC_COSTS["embedded10k"]["costs"][-1]}
+    for label, name, kind, nl, li, ip, n_first in SHARDED_MESH_CASES:
+        cases = [r["mesh_cases"][label] for r in ranks]
         first = cases[0]
-        costs, counts, final = single[label]
+        costs, counts, final, lin = single[label]
         rel = [abs(a - b) / abs(b) for a, b in zip(first["costs"][:n_first], costs)]
-        jax_final = (JAX_CPU_GRAPH_COSTS["arap36k"]["final"] if name == "arap"
-                     else JAX_CPU_SPEC_COSTS["embedded10k"]["costs"][-1])
         route = first["plan"]["route"]
-        log(json.dumps({"graph_exchange": label, "gpu": gpu, "mesh": list(MESH_SHAPE),
-                        "exchange_M": [r["graph_cases"][label]["plan"]["route"]["graphs"]
-                                       for r in ranks],
-                        "ms_per_sharded_cg_iter": [c["cg_ms"] / max(1, c["lin"]) for c in cases],
-                        "all_to_all_per_cg_call": first["all_to_all"],
-                        "applies_per_cg_call": first["applies"],
-                        "note": "four ranks on one card under gloo: not a scaling figure"}))
+        vol = name == "volumetric"
+        iters = max(1, first["lin"])
+        if vol:  # a halo strip's values: rows, then columns of the row-extended tile
+            (r0, r1), (c0, c1) = route["tile"]
+            (ah, aw), whole, ch = route["halo"], route["whole"], first["plan"]["channels"]
+            widths = {"halo": [ah, aw], "row_strip": [ah, c1 - c0, *whole, ch],
+                      "column_strip": [r1 - r0 + 2 * ah, aw, *whole, ch]}
+        else:
+            widths = [r["mesh_cases"][label]["plan"]["route"]["graphs"] for r in ranks]
         log(json.dumps({
-            "check": "sharded_graph_main_path", "case": label, "mesh": list(MESH_SHAPE),
-            "gpu": gpu, "variant": first["variant"], "vertices": route["vertices"],
+            "mesh_exchange": label, "gpu": gpu, "mesh": list(MESH_SHAPE),
+            "loop": first["plan"]["path"],
+            "per_cg_iteration": {k: sum(first[k]) / iters
+                                 for k in ("p2p_phases", "all_reduce", "all_to_all")},
+            "exchange_widths": widths,
+            "ms_per_sharded_cg_iter": [c["cg_ms"] / max(1, c["lin"]) for c in cases],
+            "applies_per_cg_call": first["applies"],
+            "wall_ms": [c["wall_ms"] for c in cases],
+            "note": "four ranks on one card under gloo: not a scaling figure"}))
+        log(json.dumps({
+            "check": "sharded_mesh_main_path", "case": label, "mesh": list(MESH_SHAPE),
+            "gpu": gpu, "variant": first["variant"], "vertices": route.get("vertices"),
             "first_costs": first["costs"][:n_first], "single_device_first_costs": costs,
             "first_rel_diff": rel, "first_cg_counts": first["iterations"][:n_first],
             "single_device_first_cg_counts": counts, "final_cost": first["cost"],
-            "single_device_final_cost": final, "jax_cpu_final_cost": jax_final,
-            "lin_iters": first["lin"], "nonlinear_iters": first["steps"],
-            "all_reduce": first["all_reduce"], "solve_all_to_all": first["solve_all_to_all"],
-            "all_gather": first["all_gather"], "wall_ms": [c["wall_ms"] for c in cases],
-            "note": "four ranks on one card under gloo: not a scaling figure"}))
+            "single_device_final_cost": final, "jax_cpu_final_cost": jax_finals.get(name),
+            "lin_iters": first["lin"], "single_device_lin_iters": lin,
+            "nonlinear_iters": first["steps"], "solve_counts": first["solve_counts"]}))
         log(json.dumps({"plan_summary": f"{label} (rank 0 of {MESH_SHAPE[0]}x{MESH_SHAPE[1]})",
                         **first["plan"]}))
         faults = []
-        if first["plan"]["path"] != "sharded graph loop":
-            faults.append(f"plan report path {first['plan']['path']!r}")
+        want_path = "sharded 3-D loop" if vol else "sharded graph loop"
+        if first["plan"]["path"] != want_path or first["loops"] != [want_path]:
+            faults.append(f"plan report path {first['plan']['path']!r}, loops {first['loops']}")
+        if name == "cluster" and first["plan"].get("couplings", 0) < 1:
+            faults.append("no coupling across vertex spaces in the plan")
         for r, c in zip(ranks, cases):
             if (c["cost"], c["lin"], c["costs"]) != (first["cost"], first["lin"], first["costs"]):
                 faults.append(f"rank {r['rank']} parts from rank 0")
             if c["fused_fallback"] is not None or c["kernel_launches"]:
                 faults.append(f"rank {r['rank']}: fallback {c['fused_fallback']}, "
                               f"{c['kernel_launches']} kernel launches")
-            if len(c["applies"]) != c["steps"] or c["all_to_all"] != c["applies"]:
-                faults.append(f"rank {r['rank']}: {c['all_to_all']} exchanges for "
-                              f"{c['applies']} applies in {c['steps']} steps")
-            if c["all_gather"] != c["unknowns"] or not c["unknowns_ok"]:
-                faults.append(f"rank {r['rank']}: {c['all_gather']} all_gathers, unknowns "
-                              f"finite of the global shape: {c['unknowns_ok']}")
+            per_apply = c["p2p_phases"] if vol else c["all_to_all"]
+            if (len(c["applies"]) != c["steps"]
+                    or per_apply != [(2 if vol else 1) * a for a in c["applies"]]):
+                faults.append(f"rank {r['rank']}: {per_apply} exchanges for {c['applies']} "
+                              f"applies in {c['steps']} steps")
+            if c["solve_counts"]["all_gather"] != c["unknowns"] or not c["unknowns_ok"]:
+                faults.append(f"rank {r['rank']}: {c['solve_counts']['all_gather']} "
+                              f"all_gathers, unknowns finite of the global shape: "
+                              f"{c['unknowns_ok']}")
         if any(x > FIRST_STEPS_RTOL for x in rel) or len(rel) != n_first:
             faults.append(f"first costs {first['costs'][:n_first]} against {costs}")
         if any(abs(a - b) > SHARDED_ITER_RTOL * b
@@ -3824,7 +3870,7 @@ def main() -> int:
         "four on the one card (NCCL refuses two ranks on one device), beside this process's "
         "checks and solves; their times are of four ranks sharing one card, not a scaling "
         "figure")
-    sharded = start_sharded(SHARDED_CASES, SHARDED_GRAPH_CASES)
+    sharded = start_sharded(SHARDED_CASES, SHARDED_MESH_CASES)
 
     phases["start_and_build"] = time.perf_counter() - t_start - sum(phases.values())
     # 2. each kernel form against its twin at the main paths' shapes; the
@@ -4388,10 +4434,16 @@ def main() -> int:
         _grid(IW_N), iw_in, 8, 400, None, {"Offset": (IW_N, IW_N, 2), "Angle": (IW_N, IW_N, 1)},
         form="lm_cs_bj", ip=CS_BJ)
 
-    # the single-device solves the sharded graph cases are held to
-    graph_single = sharded_graph_references(arap_dims, arap_in, res_arap,
-                                            *spec_in["embedded10k"],
-                                            spec_res["embedded10k"][0])
+    # the single-device solves the sharded graph, 3-D and several-space
+    # cases are held to
+    t_ref = time.perf_counter()
+    mesh_single = sharded_mesh_references({
+        "arap": (arap_mesh_deformation, arap_dims, arap_in, res_arap),
+        "embedded": (embedded_mesh_deformation, *spec_in["embedded10k"],
+                     spec_res["embedded10k"][0]),
+        "volumetric": (volumetric_mesh_deformation, _vol(VOL_N), vol_in, vol_res),
+        "cluster": (cluster_arap_spec(ot), cl_dims, cl_in, res_cluster)})
+    log(json.dumps({"sharded_mesh_references_s": time.perf_counter() - t_ref}))
 
     phases["main_paths"] = time.perf_counter() - t_start - sum(phases.values())
     single = {SHARDED_CASES[0][0]: res_poisson, SHARDED_CASES[1][0]: iw_res[(IW_N, "gaussNewtonGPU")],
@@ -4426,7 +4478,7 @@ def main() -> int:
     phases["goldens"] = time.perf_counter() - t_start - sum(phases.values())
     ranks, l_k5 = sharded_main_paths(
         sharded, {k: (r.final_cost, r.num_linear_iterations) for k, r in single.items()}, gpu)
-    sharded_graph_main_paths(ranks, graph_single, gpu)
+    sharded_mesh_main_paths(ranks, mesh_single, gpu)
     phases["sharded_main_paths_after_goldens"] = (time.perf_counter() - t_start
                                                   - sum(phases.values()))
     phase_s = time.perf_counter() - t_start

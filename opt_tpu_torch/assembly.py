@@ -42,7 +42,13 @@ from torch.fx.experimental.proxy_tensor import make_fx
 from .compile import graph_outputs, node_inputs, op_name
 from .ops.fused_cg import coefficient_dtype, plan_fused_graph_cg, plan_fused_grid_cg
 from .ops.sampling import is_frozen_marker
-from .ops.sharded_cg import _block_matvec, graph_apply, plan_sharded_graph_cg
+from .ops.sharded_cg import (
+    _block_matvec,
+    graph_apply,
+    pack_spaces,
+    plan_sharded_graph_cg,
+    unpack_spaces,
+)
 from .ops.shift import shift
 from .parallel.mesh import halo_gather_parts
 from .solver.params import FLOAT_EPSILON
@@ -835,11 +841,20 @@ def assemble(compiled, plan: AssemblyPlan, X, consts, graphs, params, row_masks,
             co, ci = unknown_channels[u_out], unknown_channels[u_in]
             Wb[:, oo : oo + co, oi : oi + ci] += _coupling_block(ck)
         tabs = graphs[g]["__ell__"]
-        inc = tabs["inc"][k_out]  # [N_out, D] edge ids, sentinel E
-        n_out, d_max = inc.shape
-        W_ext = torch.cat([Wb, torch.zeros((1, ct_o, ct_i), dtype=dt, device=X_dev)])
+        if mesh is not None:
+            # the rank's out-vertices gather their incident edges' blocks
+            # from the ranks that assembled them; the in-group's p comes
+            # through the pair's exchange in the CG loop (Plan._mesh_ell_tables)
+            t = tabs["inc"][k_out]
+            n_out, d_max = t["loc"].shape
+            W = halo_gather_parts(mesh, [Wb.reshape(E, ct_o * ct_i)], t["send"], t["loc"])
+        else:
+            inc = tabs["inc"][k_out]  # [N_out, D] edge ids, sentinel E
+            n_out, d_max = inc.shape
+            W_ext = torch.cat([Wb, torch.zeros((1, ct_o, ct_i), dtype=dt, device=X_dev)])
+            W = W_ext[inc.reshape(-1)]
         pair_exec[(g, gk_o, gk_i, k_out, k_in)] = {
-            "W": W_ext[inc.reshape(-1)].reshape(n_out, d_max, ct_o, ct_i),
+            "W": W.reshape(n_out, d_max, ct_o, ct_i),
             "ell": tabs["ell"][(k_out, k_in)], "out": (g, gk_o), "in": (g, gk_i),
         }
 
@@ -1126,16 +1141,11 @@ def assemble(compiled, plan: AssemblyPlan, X, consts, graphs, params, row_masks,
             pe["W"] = pe["W"].to(cdt)
 
     if mesh is not None:
-        cg_meta = plan_sharded_graph_cg(compiled, plan, fields, grp_exec, mesh)
+        cg_meta = plan_sharded_graph_cg(compiled, plan, fields, grp_exec, mesh, pair_exec)
 
         def mesh_apply(p):
             """apply_fn on the rank's blocks: the sharded loop's apply."""
-            out, o = {}, 0
-            Ap = graph_apply(cg_meta, torch.cat([p[u] for u in cg_meta["u_list"]], dim=-1))
-            for u in cg_meta["u_list"]:
-                out[u] = Ap[:, o:o + unknown_channels[u]]
-                o += unknown_channels[u]
-            return out
+            return unpack_spaces(cg_meta, graph_apply(cg_meta, pack_spaces(cg_meta, p)))
 
         mesh_apply.block_pre = make_block_pre
         apply_fn = mesh_apply

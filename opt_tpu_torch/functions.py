@@ -142,7 +142,7 @@ class FunctionSet:
                 for (name, gname, slot), ct in g_ev.items():
                     g[name] = g[name] + slot_halo_scatter_add(
                         rules.mesh, ct, int(g[name].shape[0]),
-                        self.graphs[gname]["__slot_halo__"][slot])
+                        rules.read_tables(self.graphs[gname], gname, slot, name))
                 return _mask_rows(g, row_masks)
 
             return r_terms, self._mesh_jvp(X, F, ev_u), JT

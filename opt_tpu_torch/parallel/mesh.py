@@ -32,7 +32,8 @@ whose tables are built once at bind time on the host:
   ranks, what each rank sends every other one (``send``) and the ids
   localized into [own block | received halo | zero row] (``loc``);
 * :meth:`Mesh.all_to_all` moves the rows (one ``all_to_all_single``);
-  :func:`halo_gather` / :func:`halo_gather_parts` read through it,
+  :func:`halo_gather` / :func:`halo_gather_parts` read through it, and
+  :func:`halo_gather_many` serves several tables with one exchange,
   :func:`grouped_slot_halo_gather` serves every array read at one
   (graph, slot) with one exchange, and :func:`slot_halo_scatter_add` is the
   reverse exchange (the transpose of the read);
@@ -143,7 +144,7 @@ class Mesh:
         return buf
 
     def extend(self, p: torch.Tensor, a: int, axis: int, edge: str = "zeros") -> torch.Tensor:
-        """A packed tile [C, rows, cols] with ``a`` rows (``axis`` 0) or
+        """A packed tile [C, rows, cols, *whole] with ``a`` rows (``axis`` 0) or
         columns (``axis`` 1) of its neighbours' tiles on each side: the last
         ``a`` of the neighbour one step lower along the axis, the first
         ``a`` of the one a step higher. Beyond the global edge ``edge``
@@ -294,20 +295,26 @@ def grid_reach(compiled) -> Tuple[int, int]:
 
 
 class ShardingRules:
-    """This rank's part of a 2-D grid [H, W] over a mesh: its tile, a ceil
-    split of each axis over the mesh's (the tile of mesh position (gx, gy)
-    is rows ``bounds[0][gx]``, columns ``bounds[1][gy]``), and its extended
-    region, the tile plus ``halo`` (rows, columns) on each side, clipped at
-    the global edges. Every rank is given the same global inputs (as the
-    JAX package's host-global arrays): :meth:`local` slices the region out
-    of them, :meth:`crop` the tile out of the region, and :meth:`gather`
-    puts the tiles back together on every rank."""
+    """This rank's part of a 2-D grid [H, W] over a mesh, or of a 3-D grid
+    [H, W, D] split along its first two axes (the JAX package's
+    ``_spec_for_image``, opt_tpu/parallel/mesh.py:72-73): its tile, a ceil
+    split of each split axis over the mesh's (the tile of mesh position
+    (gx, gy) is rows ``bounds[0][gx]``, columns ``bounds[1][gy]``, and all
+    of every further axis, ``whole``), and its extended region, the tile
+    plus ``halo`` (rows, columns) on each side, clipped at the global edges.
+    A further axis is whole on every rank, so its reads need no halo. Every
+    rank is given the same global inputs (as the JAX package's host-global
+    arrays): :meth:`local` slices the region out of them, :meth:`crop` the
+    tile out of the region, and :meth:`gather` puts the tiles back together
+    on every rank. Regions and tiles are [rows, cols, *whole, ...]; fields
+    [T, rows, cols, *whole]."""
 
     kind = "grid"
 
     def __init__(self, mesh: Mesh, dom: Sequence[int], halo: Sequence[int] = (0, 0)):
         self.mesh = mesh
         self.dom = (int(dom[0]), int(dom[1]))
+        self.whole = tuple(int(n) for n in dom[2:])
         self.halo = (int(halo[0]), int(halo[1]))
         self.bounds = tuple(split_bounds(self.dom[d], mesh.shape[d]) for d in (0, 1))
         for d in (0, 1):
@@ -331,25 +338,27 @@ class ShardingRules:
         return tuple(e - s for s, e in self.region)
 
     def local(self, x, name=None):
-        """The extended region of a global [H, W, ...] array (``name``, the
-        image's, as :class:`GraphShardingRules` takes it: not needed here)."""
+        """The extended region of a global [H, W, *whole, ...] array
+        (``name``, the image's, as :class:`GraphShardingRules` takes it: not
+        needed here)."""
         (r0, r1), (c0, c1) = self.region
         return x[r0:r1, c0:c1]
 
     def crop(self, x: torch.Tensor) -> torch.Tensor:
-        """The tile of a region-shaped [rows, cols, ...] tensor."""
+        """The tile of a region-shaped [rows, cols, *whole, ...] tensor."""
         (r0, r1), (c0, c1) = self.tile
         (e0, _), (f0, _) = self.region
         return x[r0 - e0:r1 - e0, c0 - f0:c1 - f0]
 
     def crop_fields(self, F: torch.Tensor) -> torch.Tensor:
-        """The tile of region-shaped fields [T, rows, cols], contiguous."""
+        """The tile of region-shaped fields [T, rows, cols, *whole],
+        contiguous."""
         return self.crop(F.movedim(0, -1)).movedim(-1, 0).contiguous()
 
     def extend_region(self, d: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """Tile-shaped [rows, cols, C_u] tensors, one a name, as region-shaped
-        ones: the neighbours' values in the halo (one exchange a mesh axis
-        for all of them together)."""
+        """Tile-shaped [rows, cols, *whole, C_u] tensors, one a name, as
+        region-shaped ones: the neighbours' values in the halo (one exchange
+        a split axis for all of them together)."""
         names = list(d)
         widths = [int(d[k].shape[-1]) for k in names]
         packed = torch.cat([d[k] for k in names], dim=-1).movedim(-1, 0)
@@ -359,9 +368,9 @@ class ShardingRules:
         return {k: v.contiguous() for k, v in zip(names, parts)}
 
     def gather(self, x: torch.Tensor, name=None) -> torch.Tensor:
-        """The global [H, W, ...] array from every rank's region-shaped
-        ``x`` (each rank contributes its tile), on every rank (``name`` as
-        in :meth:`local`)."""
+        """The global [H, W, *whole, ...] array from every rank's
+        region-shaped ``x`` (each rank contributes its tile), on every rank
+        (``name`` as in :meth:`local`)."""
         t = self.crop(x)
         rows = max(e - s for s, e in self.bounds[0])
         cols = max(e - s for s, e in self.bounds[1])
@@ -498,11 +507,31 @@ def halo_gather_parts(mesh: "Mesh", parts, send: torch.Tensor, loc: torch.Tensor
     sends each rank), ``loc`` [rows, ...] this rank's requester rows of
     loc. Returns [*loc.shape, C]."""
     blk = torch.cat(list(parts)) if len(parts) > 1 else parts[0]
-    zero = blk.new_zeros((1,) + tuple(blk.shape[1:]))
-    out_buf = torch.cat([blk, zero])[send]  # [ndev, M, C]
-    recv = mesh.all_to_all(out_buf)
-    full = torch.cat([blk, recv.reshape((-1,) + tuple(blk.shape[1:])), zero])
-    return full[loc]
+    return halo_gather_many(mesh, [(blk, send, loc)])[0]
+
+
+def halo_gather_many(mesh: "Mesh", reqs) -> list:
+    """Several reads through localized id tables with one all_to_all: each
+    request (blk [rows, C_k] this rank's source block, send [ndev, M_k],
+    loc) as :func:`halo_gather` takes it. What this rank sends a rank, of
+    every request, travels side by side in one [ndev, Σ_k M_k·C_k]
+    exchange. Returns each request's [*loc.shape, C_k]."""
+    if not reqs:
+        return []
+    ndev = int(reqs[0][1].shape[0])
+    parts, zeros = [], []
+    for blk, send, _loc in reqs:
+        zero = blk.new_zeros((1,) + tuple(blk.shape[1:]))
+        zeros.append(zero)
+        parts.append(torch.cat([blk, zero])[send].reshape(ndev, -1))
+    recv = mesh.all_to_all(torch.cat(parts, dim=1) if len(parts) > 1 else parts[0])
+    out, o = [], 0
+    for (blk, _send, loc), part, zero in zip(reqs, parts, zeros):
+        w = int(part.shape[1])
+        got = recv[:, o:o + w].reshape((-1,) + tuple(blk.shape[1:]))
+        o += w
+        out.append(torch.cat([blk, got, zero])[loc])
+    return out
 
 
 def halo_gather(mesh: "Mesh", pp: torch.Tensor, send: torch.Tensor, loc: torch.Tensor):
@@ -557,8 +586,12 @@ class GraphShardingRules:
     space that a graph slot points into is split into owner blocks
     (``space_bounds``), each graph's edges into edge blocks (by their
     count at bind time, :meth:`edge_bounds`). Images on a split space are
-    held as this rank's block; images on other 1-D spaces are replicated
-    and read by a plain take. Every rank is given the same global inputs:
+    held as this rank's block, the unknowns on any number of split spaces;
+    images on other 1-D spaces are replicated and read by a plain take. A
+    space of fewer vertices than ranks leaves the last ranks an empty block
+    (the ceil split). A split image read at a slot that points into another
+    split space is exchanged against its own space's bounds
+    (:meth:`read_tables`). Every rank is given the same global inputs:
     :meth:`local` slices a rank's part out of them and :meth:`gather` puts
     the blocks back together on every rank. ``compiled`` is the problem at
     the global dims; the rank's plan compiles it at :attr:`local_dims`."""
@@ -584,12 +617,44 @@ class GraphShardingRules:
             self.local_dims[isp.dims[0].name] = e - s
         self.split_images = {n for n, d in reg.images.items() if d.ispace in self.space_bounds}
         self.image_space = {n: d.ispace for n, d in reg.images.items()}
+        # {graph: {(slot, space key): space}}: a split image read at a slot
+        # that points into another split space, whose exchange is built
+        # against the bounds of the image's space
+        self.split_reads: Dict[str, Dict[tuple, Any]] = {}
+        for s in reg.slots:
+            if s.kind != "gimg" or s.image not in self.split_images:
+                continue
+            isp = self.image_space[s.image]
+            if isp != reg.graphs[s.graph].slots[s.key[3]]:
+                self.split_reads.setdefault(s.graph, {})[(s.key[3], self.space_key(isp))] = isp
+        self.slot_space = {(g, k): isp for g, gd in reg.graphs.items()
+                           for k, isp in gd.slots.items()}
         self._const_cache = None
 
     # -- blocks -----------------------------------------------------------------
     def block(self, isp) -> Tuple[int, int]:
-        """This rank's [start, stop) of a split space."""
+        """This rank's [start, stop) of a split space (empty where the space
+        has fewer vertices than the ceil split reaches this rank with)."""
         return self.space_bounds[isp][self.mesh.rank]
+
+    def space_size(self, isp) -> int:
+        """The global vertex count of a split space."""
+        return int(np.prod(isp.shape(self.global_dims)))
+
+    @staticmethod
+    def space_key(isp) -> str:
+        """A split space's key in the graph tables: its dim's name."""
+        return isp.dims[0].name
+
+    def read_tables(self, gd: Dict, g: str, slot: str, name: str) -> Dict:
+        """The exchange of split image ``name``'s rows read at ``slot`` of
+        graph ``g`` (its bound tables ``gd``): the slot's own
+        (``__slot_halo__``) where the image lies on the slot's space, else
+        the one built against the image's space (``__split_read__``)."""
+        isp = self.image_space[name]
+        if isp == self.slot_space[(g, slot)]:
+            return gd["__slot_halo__"][slot]
+        return gd["__split_read__"][(slot, self.space_key(isp))]
 
     def edge_bounds(self, E: int) -> list:
         """The edge blocks of a graph of E edges."""
@@ -623,10 +688,11 @@ class GraphShardingRules:
     # -- per-edge reads ---------------------------------------------------------
     def edge_values(self, compiled, unknowns, consts, graphs, which="all") -> Dict[tuple, Any]:
         """{(image, graph, slot): [E_d, C]}: every image read at a graph slot,
-        at this rank's edges. Split images ride one exchange a (graph,
-        slot) and dtype (:func:`grouped_slot_halo_gather`); replicated ones
-        are a plain take at the global ids. ``which``: "unknowns", "consts"
-        or "all" of the images."""
+        at this rank's edges. Split images ride one exchange a (graph, slot,
+        the images' vertex space) and dtype (:func:`grouped_slot_halo_gather`,
+        through :meth:`read_tables`); replicated ones are a plain take at
+        the global ids. ``which``: "unknowns", "consts" or "all" of the
+        images."""
         reg = compiled.registry
         want: Dict[tuple, list] = {}
         for s in reg.slots:
@@ -649,8 +715,12 @@ class GraphShardingRules:
                     items.append((name, arr))
                 else:
                     out[(name, g, slot)] = torch.index_select(arr, 0, gd[slot])
-            if items:
-                got = grouped_slot_halo_gather(self.mesh, items, gd["__slot_halo__"][slot])
+            by_space: Dict[Any, list] = {}
+            for name, arr in items:
+                by_space.setdefault(self.image_space[name], []).append((name, arr))
+            for part in by_space.values():
+                got = grouped_slot_halo_gather(self.mesh, part,
+                                               self.read_tables(gd, g, slot, part[0][0]))
                 for name, v in got.items():
                     out[(name, g, slot)] = v
         return out

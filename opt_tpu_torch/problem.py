@@ -253,7 +253,7 @@ def _refuse_graph_mesh(compiled: CompiledProblem, double_precision: bool,
                        dynamic_topology: bool) -> None:
     """What a graph mesh cannot take yet raises, naming its ROADMAP.md item:
     it splits the 1-D vertex spaces of the graph slots into owner blocks,
-    its unknowns on one of them, in float32, for one topology."""
+    its unknowns on any of them, in float32, for one topology."""
     reg = compiled.registry
     if dynamic_topology:
         raise _mesh_not_ported("dynamic_topology=True")
@@ -266,7 +266,8 @@ def _refuse_graph_mesh(compiled: CompiledProblem, double_precision: bool,
     if grids:
         raise NotImplementedError(
             f"a mesh on a spec with both a grid ({', '.join(grids)}) and a graph is not "
-            "ported yet (ROADMAP.md queue 1 item 8c)"
+            "ported yet: a rank would need a tile and owner blocks together (ROADMAP.md "
+            "queue 1 item 8c)"
         )
     reads = sorted(k for k, v in reg.reads.items() if v)
     if reads:
@@ -276,10 +277,10 @@ def _refuse_graph_mesh(compiled: CompiledProblem, double_precision: bool,
         )
     spaces = {isp for g in reg.graphs.values() for isp in g.slots.values()}
     u_spaces = {reg.images[u].ispace for u in reg.unknown_names}
-    if len(u_spaces) != 1 or not u_spaces <= spaces:
+    if not u_spaces <= spaces:
         raise NotImplementedError(
-            f"a graph mesh takes unknowns on one vertex space of the graph slots, this spec's "
-            f"are on {sorted(map(repr, u_spaces))}: several index spaces are not ported yet "
+            f"a graph mesh splits the vertex spaces of the graph slots, this spec's unknowns "
+            f"are on {sorted(map(repr, u_spaces - spaces))} too, which no slot points into "
             "(ROADMAP.md queue 1 item 8c)"
         )
     for s in reg.slots:
@@ -287,36 +288,36 @@ def _refuse_graph_mesh(compiled: CompiledProblem, double_precision: bool,
             raise NotImplementedError(
                 f"a graph mesh reads 1-D images at their own vertex; {s.image or 'InBounds'} "
                 f"at offset {s.offset} is a stencil on a vertex space, which is not ported "
-                "yet (ROADMAP.md queue 1 item 8c)"
+                "yet: an owner block has no halo along its space (ROADMAP.md queue 1 "
+                "item 8c)"
             )
         if s.kind != "gimg":
             continue
-        decl = reg.images[s.image]
-        if decl.alias is not None:
+        if reg.images[s.image].alias is not None:
             raise _mesh_not_ported(f"the alias image {s.image!r} read at a graph slot")
-        if decl.ispace in spaces and decl.ispace != reg.graphs[s.graph].slots[s.key[3]]:
-            raise NotImplementedError(
-                f"{s.image!r} on {decl.ispace!r} read at slot {s.key[3]!r} of {s.graph!r}, "
-                "which points into another vertex space: several index spaces are not "
-                "ported yet (ROADMAP.md queue 1 item 8c)"
-            )
 
 
 def _refuse_under_mesh(compiled: CompiledProblem, double_precision: bool,
                        dynamic_topology: bool = False) -> None:
     """What a mesh cannot take yet raises, naming its ROADMAP.md item: the
-    sharded plan tiles one 2-D grid index space, or splits a graph's vertex
-    spaces into owner blocks, in float32."""
+    sharded plan tiles one 2-D or 3-D grid index space along its first two
+    axes, or splits a graph's vertex spaces into owner blocks, in float32."""
     reg = compiled.registry
     if reg.graphs:
         _refuse_graph_mesh(compiled, double_precision, dynamic_topology)
         return
     spaces = {d.ispace for d in reg.images.values()}
-    isp = next(iter(spaces)) if len(spaces) == 1 else None
-    if isp is None or isp.ndim != 2 or isp.dims[0] == isp.dims[1]:
+    if len(spaces) != 1:
         raise NotImplementedError(
-            f"a mesh tiles one 2-D grid index space, this spec has {sorted(map(repr, spaces))}: "
-            "3-D tiles and several index spaces are not ported yet (ROADMAP.md queue 1 item 8c)"
+            f"a mesh tiles one grid index space, this spec has {sorted(map(repr, spaces))}: "
+            "a grid spec over several index spaces is not ported yet (ROADMAP.md queue 1 "
+            "item 8c)"
+        )
+    (isp,) = spaces
+    if isp.ndim not in (2, 3) or len(set(isp.dims)) != isp.ndim:
+        raise NotImplementedError(
+            f"a mesh tiles a 2-D or 3-D grid of distinct dims, this spec's is {isp!r} "
+            "(ROADMAP.md queue 1 item 8c)"
         )
     reads = sorted(k for k, v in reg.reads.items() if v)
     if reads:
@@ -671,7 +672,11 @@ class Plan:
         ``valid``, with ``"__groups__"``: {group key: this rank's
         :func:`mesh_group_tables`}, ``"__slot_halo__"``: {slot: {send, loc
         [E_d, 1], M}}, the exchange of the per-edge reads at that slot (the
-        JAX package's per-slot ``__halo_send____slot_<s>`` tables), and
+        JAX package's per-slot ``__halo_send____slot_<s>`` tables),
+        ``"__split_read__"``: {(slot, space): the same}, for a split image on
+        another vertex space read at that slot, built against the bounds of
+        the space whose rows are read, ``"__ell__"`` where the operator couples
+        slots of different vertex spaces (:meth:`_mesh_ell_tables`), and
         ``"__edges__"``: the block's [start, stop) of the edge ids. The
         edges are put in the owner order first under
         ``edge_reorder="owner"``. The tables are cached by a hash of the
@@ -684,7 +689,7 @@ class Plan:
         if self.solver._stencil_plan is not None:
             max_off = min(max_off, fused_cg.graph_dia_offset_cap(
                 self.compiled, self.solver._stencil_plan))
-        ndev, rank = rules.mesh.size, rules.mesh.rank
+        rank = rules.mesh.rank
         out = {}
         for gname, slots in graphs.items():
             gdecl = self.compiled.registry.graphs[gname]
@@ -701,23 +706,22 @@ class Plan:
             if entry is None:
                 eb = rules.edge_bounds(E)
                 e0, e1 = eb[rank]
-                halo = {}
-                for s in names:
-                    isp = gdecl.slots[s]
-                    h = build_halo_tables(idxs[s][:, None], nvert[s], ndev,
-                                          bounds=(rules.space_bounds[isp], eb))
-                    halo[s] = {"send": torch.as_tensor(h["send"][rank], dtype=torch.int64,
-                                                       device=self.device),
-                               "loc": torch.as_tensor(h["loc"][e0:e1], dtype=torch.int64,
-                                                      device=self.device),
-                               "M": h["M"]}
+                halo = {s: self._rank_tables(idxs[s][:, None], nvert[s],
+                                             rules.space_bounds[gdecl.slots[s]], eb)
+                        for s in names}
+                # a split image read at a slot into another space
+                split = {(s, sk): self._rank_tables(idxs[s][:, None], rules.space_size(isp),
+                                                    rules.space_bounds[isp], eb)
+                         for (s, sk), isp in rules.split_reads.get(gname, {}).items()}
+                sgroups = graph_ops.slot_groups(gdecl, self.dims)
                 entry = {
                     "groups": {
                         gk: mesh_group_tables(idxs, gnames, n, self.device, self.compiled.dtype,
                                               max_off, rules, gdecl.slots[gnames[0]])
-                        for gk, gnames, n in graph_ops.slot_groups(gdecl, self.dims)
+                        for gk, gnames, n in sgroups
                     },
-                    "slot_halo": halo, "edges": (e0, e1),
+                    "slot_halo": halo, "split_read": split, "edges": (e0, e1),
+                    "ell": self._mesh_ell_tables(gname, idxs, sgroups, eb),
                 }
             cache[key] = entry
             while len(cache) > _TABLE_CACHE_MAX:
@@ -725,8 +729,55 @@ class Plan:
             e0, e1 = entry["edges"]
             out[gname] = {k: v[e0:e1] for k, v in slots.items()}
             out[gname].update(__groups__=entry["groups"], __slot_halo__=entry["slot_halo"],
-                              __edges__=entry["edges"])
+                              __split_read__=entry["split_read"], __edges__=entry["edges"])
+            if entry["ell"] is not None:
+                out[gname]["__ell__"] = entry["ell"]
         return out
+
+    def _coupled_slot_pairs(self, gname, sgroups):
+        """The (k_out, k_in) slot pairs of graph ``gname`` whose couplings the
+        assembly plan has across vertex spaces (slots of different groups)."""
+        plan = self.solver._stencil_plan
+        if plan is None:
+            return []
+        group_of = {k: gk for gk, gnames, _n in sgroups for k in gnames}
+        return sorted({(key[2], key[4]) for key in plan.g_spec
+                       if key[0] == gname and group_of[key[2]] != group_of[key[4]]})
+
+    def _mesh_ell_tables(self, gname, idxs, sgroups, eb):
+        """:meth:`_ell_tables` on a graph mesh, in owner-block form: the
+        global ELL tables (``graph_ops.ell_tables``) cut to this rank's block
+        of each output slot's space, each with the exchange that replaces
+        its reads of other ranks' rows: {"inc": {k_out: {send, loc [B_out,
+        D], M}}, the blocks W of k_out's incident edges from the ranks whose
+        edge blocks assembled them; "ell": {(k_out, k_in): {send, loc
+        [B_out, D], M}}, the in-space's p at each incident edge's k_in
+        vertex}, or None where the assembly plan has no such coupling."""
+        pairs = self._coupled_slot_pairs(gname, sgroups)
+        if not pairs:
+            return None
+        rules, gdecl = self.rules, self.compiled.registry.graphs[gname]
+        slots = sorted({k for pair in pairs for k in pair})
+        nvert = {k: rules.space_size(gdecl.slots[k]) for k in slots}
+        inc, ell = graph_ops.ell_tables({k: idxs[k] for k in slots}, nvert)
+        E = int(idxs[slots[0]].shape[0])
+        bounds = {k: rules.space_bounds[gdecl.slots[k]] for k in slots}
+        return {"inc": {ko: self._rank_tables(inc[ko], E, eb, bounds[ko])
+                        for ko in sorted({ko for ko, _ki in pairs})},
+                "ell": {(ko, ki): self._rank_tables(ell[(ko, ki)], nvert[ki], bounds[ki],
+                                                    bounds[ko])
+                        for ko, ki in pairs}}
+
+    def _rank_tables(self, cross, n: int, src, req) -> Dict[str, Any]:
+        """This rank's part of ``build_halo_tables(cross, n, bounds=(src,
+        req))`` on the plan's device: its row of send [ndev, M], its block of
+        requester rows of loc, and M."""
+        rank = self.rules.mesh.rank
+        h = build_halo_tables(cross, n, self.rules.mesh.size, bounds=(src, req))
+        r0, r1 = req[rank]
+        return {"send": torch.as_tensor(h["send"][rank], dtype=torch.int64, device=self.device),
+                "loc": torch.as_tensor(h["loc"][r0:r1], dtype=torch.int64, device=self.device),
+                "M": h["M"]}
 
     def _ell_tables(self, gname, idxs, sgroups):
         """The per-slot ELL tables of graph ``gname``'s couplings between
@@ -736,12 +787,7 @@ class Plan:
         such coupling (the tables are built only for a graph whose operator
         reads them). Under ``dynamic_topology`` the incidence widths are
         bucketed, as the group tables' are."""
-        plan = self.solver._stencil_plan
-        if plan is None:
-            return None
-        group_of = {k: gk for gk, gnames, _n in sgroups for k in gnames}
-        pairs = sorted({(key[2], key[4]) for key in plan.g_spec
-                        if key[0] == gname and group_of[key[2]] != group_of[key[4]]})
+        pairs = self._coupled_slot_pairs(gname, sgroups)
         if not pairs:
             return None
         gdecl = self.compiled.registry.graphs[gname]

@@ -406,17 +406,35 @@ class GaussNewtonSolver:
     def _kernel_pre_blocks(self, cg_meta, pre_apply):
         """A block-Jacobi apply's inverted blocks packed for the fused loop
         ([*dom, C, C] over the meta's channels) with the row masks folded
-        into the output rows, as pre_apply masks its output; None where the
-        loop cannot host it (several index spaces, another layout)."""
+        into the output rows, as pre_apply masks its output; on a graph
+        mesh ([B, C, C] blocks) a list of each vertex space's, in the meta's
+        space order; None where the loop cannot host it (several index
+        spaces off a mesh, another layout)."""
         if cg_meta is None or self._pallas_mode is None:
             return None
         inv = getattr(pre_apply, "inv", None)
         layouts = getattr(pre_apply, "layouts", None)
-        isp = cg_meta.get("isp")
-        if not inv or layouts is None or isp is None or set(inv) != {isp}:
+        if not inv or layouts is None:
             return None
-        u_list, offs, ctot = layouts[isp]
-        if tuple(u_list) != cg_meta["u_list"] or offs != cg_meta["offs"] or ctot != cg_meta["ctot"]:
+        spaces = cg_meta.get("spaces")
+        if spaces is not None:
+            if set(inv) != {sp["isp"] for sp in spaces}:
+                return None
+            blocks = [self._masked_block_inverse(inv, layouts, pre_apply, sp["isp"],
+                                                 sp["u_list"], sp["offs"], sp["ct"])
+                      for sp in spaces]
+            return None if any(b is None for b in blocks) else blocks
+        isp = cg_meta.get("isp")
+        if isp is None or set(inv) != {isp}:
+            return None
+        return self._masked_block_inverse(inv, layouts, pre_apply, isp, cg_meta["u_list"],
+                                          cg_meta["offs"], cg_meta["ctot"])
+
+    def _masked_block_inverse(self, inv, layouts, pre_apply, isp, u_list, offs, ctot):
+        """inv[isp] with the row masks folded into its output rows, or None
+        where its layout is not (u_list, offs, ctot)."""
+        lu, lo, lc = layouts[isp]
+        if tuple(lu) != tuple(u_list) or lo != offs or lc != ctot:
             return None
         with phase("blockInverse", count=False):
             Minv = inv[isp]  # [*dom, C, C]
@@ -512,10 +530,12 @@ class GaussNewtonSolver:
     def _sharded_cg(self, s, sp):
         """The linear solve of a step under a mesh: the system assembled on
         the rank's extended region, read on its tile, solved by the sharded
-        loop with every other rank; delta comes back over the region (the
-        neighbours' in the halo), so X keeps its halo. On a graph the
-        system is the rank's owner block's and ``sharded_graph_cg`` solves
-        it. A system the loop cannot take raises: a mesh never falls back
+        loop with every other rank (a 2-D tile's, or a 3-D tile's, whose
+        third axis is whole: ``sharded_fused_grid_cg`` takes both); delta
+        comes back over the region (the neighbours' in the halo), so X keeps
+        its halo. On a graph the system is the rank's owner blocks' (of one
+        vertex space or several) and ``sharded_graph_cg`` solves it. A
+        system the loop cannot take raises: a mesh never falls back
         quietly."""
         meta, rules = s["meta"], self.rules
         kw = self._fused_keywords(s)

@@ -9,7 +9,8 @@ the solve would, launches no CG loop and leaves the plan's state alone, and
 says:
 
 * the engaged path: the kernel, its plain twin (CPU tensors), the eager
-  loop, the explicit J, the sharded loop or the sharded graph loop, and
+  loop, the explicit J, the sharded loop (2-D tiles), the sharded 3-D loop
+  (3-D tiles, whose apply is plain PyTorch) or the sharded graph loop, and
   ``fused_fallback``;
 * the CG instance (``fused_cg.launch_instance``) and its route's plan:
   ``tiled_grid_plan``'s layout, tiles and shared memory a block,
@@ -19,10 +20,11 @@ says:
 * where the kernel library is built, the instance's registers and spills
   from ptxas (``_build.instance_registers``), and on a mesh those of the
   per-tile apply (``tile_apply_kernel``);
-* on a graph mesh, which launches no kernel, the rank's owner block and
+* on a graph mesh, which launches no kernel, the rank's owner blocks and
   edge blocks and the width M (rows a pair of ranks) of each exchange: the
-  per-edge reads of each slot, each group's incidence gather and its CG
-  cross reads.
+  per-edge reads of each slot (and of a split image read at a slot into
+  another space), each group's incidence gather and its CG cross reads,
+  and each coupling across vertex spaces' block gather and CG reads.
 """
 
 from __future__ import annotations
@@ -81,7 +83,7 @@ def plan_summary(plan, inputs, sp) -> Dict[str, Any]:
     if getattr(plan.rules, "kind", None) == "graph":
         path = "sharded graph loop"
     elif plan.rules is not None:
-        path = "sharded loop"
+        path = "sharded 3-D loop" if plan.rules.whole else "sharded loop"
     elif solver.ip.use_explicit_jtj:
         path = "explicit J"
     elif fused:
@@ -100,10 +102,13 @@ def plan_summary(plan, inputs, sp) -> Dict[str, Any]:
     if path == "sharded graph loop":
         out["route"] = _graph_mesh_route(plan, graphs)
         if meta is not None:
-            out.update(channels=int(meta["ctot"]), groups=len(meta["groups"]),
+            out.update(channels=sum(int(sp["ct"]) for sp in meta["spaces"]),
+                       spaces={repr(sp["isp"]): int(sp["ct"]) for sp in meta["spaces"]},
+                       groups=len(meta["groups"]),
                        dia_offsets=[len(g["dia"]) for g in meta["groups"]],
                        remainder_width=[0 if g["C"] is None else int(g["C"].shape[1])
-                                        for g in meta["groups"]])
+                                        for g in meta["groups"]],
+                       couplings=len(meta["pairs"]))
         return out
     if meta is not None:
         lead = 1 if meta.get("batch") else 0
@@ -123,12 +128,16 @@ def plan_summary(plan, inputs, sp) -> Dict[str, Any]:
         route = fused_cg.route_plan(meta, b, lm=lm, cs=cs, pre_blocks=pbm)
         out["route"] = "template" if route is None else {
             k: _plain(v) for k, v in route.items() if _plain(v) is not None}
-    elif path == "sharded loop":
+    elif path in ("sharded loop", "sharded 3-D loop"):
+        # a 3-D tile's apply is plain PyTorch (ops/sharded_cg.py::tile_apply_reference)
         rules = plan.rules
-        out["instance"] = "tile_apply_kernel<__nv_bfloat16>" if bf16 else "tile_apply_kernel<float>"
+        if path == "sharded loop":
+            out["instance"] = ("tile_apply_kernel<__nv_bfloat16>" if bf16
+                               else "tile_apply_kernel<float>")
         out["route"] = {"mesh": list(rules.mesh.shape), "rank": rules.mesh.rank,
                         "tile": [list(t) for t in rules.tile],
-                        "region": [list(r) for r in rules.region], "halo": list(rules.halo)}
+                        "region": [list(r) for r in rules.region], "halo": list(rules.halo),
+                        "whole": list(rules.whole)}
     if out["instance"] is not None:
         out.update(_registers(path, out["instance"], bf16))
     return out
@@ -148,6 +157,14 @@ def _graph_mesh_route(plan, graphs) -> Dict[str, Any]:
             "cross": {gk: t["x_M"] for gk, t in sorted(gd["__groups__"].items())},
             "edges": list(gd["__edges__"]),
         }
+        if gd.get("__split_read__"):
+            out["graphs"][g]["split_read"] = {f"{s}@{sp}": t["M"] for (s, sp), t in
+                                              sorted(gd["__split_read__"].items())}
+        ell = gd.get("__ell__")
+        if ell is not None:  # the couplings across vertex spaces
+            out["graphs"][g]["coupling_blocks"] = {k: t["M"] for k, t in sorted(ell["inc"].items())}
+            out["graphs"][g]["coupling_reads"] = {f"{ko}<-{ki}": t["M"] for (ko, ki), t in
+                                                  sorted(ell["ell"].items())}
     return out
 
 
