@@ -705,6 +705,22 @@ SHARDED_MESH_CASES = [
     (f"cluster_arap GN {GRAPH_NL}x{GRAPH_LI}", "cluster", "gaussNewtonGPU", GRAPH_NL, GRAPH_LI,
      PINNED_GRAPH, 2),
 ]
+# Then (item 8d's grid half) the grid specs that read Index, a SampledImage
+# or a ComputedArray: shape_from_shading 512^2 GN 8x10 (tiles of 256^2, a
+# region's halo of 3: its ComputedArrays' reach) and optical_flow's pyramid
+# through PyramidPlan (levels 128^2 and 256^2, GN 2x50 a level, the flow
+# gathered, prolonged and cut to the next level's regions between levels),
+# pinned, with K5 at every CG apply. Each: label, name, grid side (the
+# finest level's), nonlinear x CG iterations, InitializationParameters,
+# and how many first steps (a level's, for the pyramid) are held at
+# FIRST_STEPS_RTOL to the single-device solve on the card under the same
+# settings: SFS's 512^2 GN path parts from its third step (ROADMAP.md
+# queue 3); a pyramid level's final cost is held at GOLDEN_RTOL besides.
+SHARDED_READ_CASES = [
+    (f"shape_from_shading{SFS_N} GN {SFS_NL}x{SFS_LI}", "sfs", SFS_N, SFS_NL, SFS_LI, PINNED, 2),
+    (f"optical_flow{FLOW_N} pyramid GN {FLOW_NL}x{FLOW_LI}", "flow", FLOW_N, FLOW_NL, FLOW_LI,
+     PINNED, 1),
+]
 SHARDED_ITER_RTOL = 0.01  # a sharded solve's CG count against the single-device one
 SHARDED_TIMEOUT_S = 600  # the ranks' whole run
 OUT_DIR = os.path.join("build", "profiles")  # git-ignored
@@ -2543,19 +2559,20 @@ def batched_step_before_after(dims, inputs, gpu):
                     "gpu": gpu, **out}))
 
 
+def flow_prolong(unknowns, i, next_dims):
+    """optical_flow's prolongation between pyramid levels: the flow upsampled
+    and doubled (bench.py::bench_optical_flow)."""
+    return {"X": upsample2x_nearest(unknowns["X"], (next_dims["W"], next_dims["H"]), scale=2.0)}
+
+
 def pyramid_flow_main_path(levels):
     """optical_flow through PyramidPlan (a plan a level, the flow upsampled
     and doubled between levels by the prolongation), one launch a step;
     each level's final cost within GOLDEN_RTOL of the JAX package's there.
-    Returns launches."""
+    Returns (launches, the PyramidPlan, its result)."""
     dims = [{"W": lv["I"].shape[0], "H": lv["I"].shape[1]} for lv in levels]
-
-    def prolong(unknowns, i, next_dims):
-        return {"X": upsample2x_nearest(unknowns["X"], (next_dims["W"], next_dims["H"]),
-                                        scale=2.0)}
-
     fused_cg.reset_launch_counts()
-    pplan = ot.PyramidPlan(ot.Problem(optical_flow), dims, prolong, nIterations=FLOW_NL,
+    pplan = ot.PyramidPlan(ot.Problem(optical_flow), dims, flow_prolong, nIterations=FLOW_NL,
                            lIterations=FLOW_LI)
     res = pplan.solve([dict(lv) for lv in levels])
     torch.cuda.synchronize()
@@ -2574,7 +2591,7 @@ def pyramid_flow_main_path(levels):
             or tuple(X.shape) != (dims[-1]["W"], dims[-1]["H"], 2)
             or not bool(torch.isfinite(X).all())):
         raise RuntimeError(f"PyramidPlan optical_flow failed: {line}")
-    return launches
+    return launches, pplan, res
 
 
 def scheduled_main_path():
@@ -3181,15 +3198,79 @@ def mesh_case_problem(name):
     return (cluster_arap_spec(ot), *cluster_arap_inputs(ARAP_SIDE, CLUSTER))
 
 
-def sharded_rank(rank, world, store, device, cases, results, mesh_cases=()):
+def read_case_solve(mesh, device, name, n, nl, li, ip):
+    """One rank's solve of a SHARDED_READ_CASES case through the public API:
+    shape_from_shading n^2 by ``Plan.solve``, optical_flow's two levels up
+    to n^2 by ``PyramidPlan.solve``; the tile kernel's launch count and the
+    mesh's counts set to 0 just before the solve and read just after.
+    Returns its costs (each level's steps' costs), CG counts, per step CG
+    iterations and applies, K5 launches, the mesh's counts, the sharded
+    loops' ms, walls, the unknowns' shape, finiteness and digest, and each
+    level's plan report."""
+    import hashlib
+
+    init = ot.InitializationParameters(**ip)
+    if name == "sfs":
+        levels = [sfs_inputs(n)]
+        plans = [ot.Problem(shape_from_shading).plan(dims=_grid(n), mesh=mesh,
+                                                     device=device.type, init_params=init)]
+
+        def run():
+            return plans[0].solve(dict(levels[0]), nIterations=nl, lIterations=li)
+    else:
+        levels = flow_levels(n)
+        pplan = ot.PyramidPlan(ot.Problem(optical_flow), [_grid(lv["I"].shape[0]) for lv in levels],
+                               flow_prolong, mesh=mesh, device=device.type, init_params=init,
+                               nIterations=nl, lIterations=li)
+        plans = pplan.plans
+
+        def run():
+            return pplan.solve([dict(lv) for lv in levels])
+    sharded_cg.reset_launch_counts()
+    mesh.reset_counts()
+    for plan in plans:
+        plan.solver.cg_stats.clear()
+    t0 = time.perf_counter()
+    res = run()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches, counts = sharded_cg.tile_apply_kernel.launches, dict(mesh.counts)
+    stats = [st for plan in plans for st in plan.solver.cg_stats]
+    X = res.unknowns["X"]
+    return {
+        "cost": res.final_cost, "costs": res.costs, "lin": res.num_linear_iterations,
+        "steps": res.num_iterations,
+        "level_costs": [res.costs] if name == "sfs" else pplan.level_costs,
+        "level_lin": [res.num_linear_iterations] if name == "sfs" else pplan.level_lin_iters,
+        "fused_fallback": [plan.fused_fallback for plan in plans],
+        "tile_kernel_launches": launches, "cg_calls": len(stats),
+        "kernel": all(st["kernel"] for st in stats),
+        "loops": sorted({st["loop"] for st in stats}),
+        "level_iterations": [[st["iterations"] for st in plan.solver.cg_stats] for plan in plans],
+        "applies": [st["applies"] for st in stats],
+        **{k: [st[k] for st in stats] for k in ("all_reduce", "p2p_phases")},
+        "solve_counts": counts, "cg_ms": sum(st["s"] for st in stats) * 1e3,
+        "wall_ms": wall_ms, "solve_ms": res.wall_time_s * 1e3,
+        "shape": list(X.shape), "finite": bool(torch.isfinite(X).all()),
+        "digest": hashlib.sha256(X.cpu().numpy().tobytes()).hexdigest(),
+        # the plan reports, every rank together (a first cost is a sum over
+        # the ranks)
+        "plans": [plan_summary(plan, lv, plan.solver_params) for plan, lv in zip(plans, levels)],
+    }
+
+
+def sharded_rank(rank, world, store, device, cases, results, mesh_cases=(), read_cases=()):
     """One rank of the sharded solves (started by the spawn method): joins
     the gloo world, takes its place in the 2x2 mesh on ``device`` and
     solves every case through the public API, its tile-kernel launch count
     and the mesh's counts set to 0 just before each solve and read just
-    after; then the graph, 3-D and several-space cases (``mesh_cases``,
-    SHARDED_MESH_CASES' form) likewise, with the fused kernels' launch
-    counts; puts {rank, cases, mesh_cases} (or {rank, error}) on
-    ``results``."""
+    after; then the grid specs that read Index, a SampledImage or a
+    ComputedArray (``read_cases``, SHARDED_READ_CASES' form,
+    :func:`read_case_solve`) and the graph, 3-D and several-space cases
+    (``mesh_cases``, SHARDED_MESH_CASES' form) likewise, the latter with
+    the fused kernels' launch counts; puts {rank, cases, read_cases,
+    mesh_cases} (or {rank, error}) on ``results``."""
     import torch.distributed as dist
 
     from opt_tpu_torch.parallel import initialize, make_mesh
@@ -3232,6 +3313,8 @@ def sharded_rank(rank, world, store, device, cases, results, mesh_cases=()):
                 # sum over the ranks)
                 "plan": plan_summary(plan, inputs, plan.solver_params),
             }
+        out["read_cases"] = {label: read_case_solve(mesh, dev, name, n, nl, li, ip)
+                             for label, name, n, nl, li, ip, _first in read_cases}
         out["mesh_cases"] = {}
         for label, name, kind, nl, li, ip, _first in mesh_cases:
             spec, dims, inputs = mesh_case_problem(name)
@@ -3294,9 +3377,9 @@ def sharded_rank(rank, world, store, device, cases, results, mesh_cases=()):
             dist.destroy_process_group()
 
 
-def start_sharded(cases, mesh_cases=(), device="cuda:0", world=4):
-    """Start ``world`` ranks of the sharded solves (the grid ``cases``, then
-    the ``mesh_cases``) by the spawn method (a
+def start_sharded(cases, mesh_cases=(), read_cases=(), device="cuda:0", world=4):
+    """Start ``world`` ranks of the sharded solves (the grid ``cases``, the
+    ``read_cases``, then the ``mesh_cases``) by the spawn method (a
     process that has used CUDA cannot fork them). They are daemons: if this
     process ends first, they end with it. Returns the handle
     :func:`collect_sharded` takes."""
@@ -3307,7 +3390,8 @@ def start_sharded(cases, mesh_cases=(), device="cuda:0", world=4):
         os.remove(store)
     results = ctx.Queue()
     procs = [ctx.Process(target=sharded_rank,
-                         args=(r, world, store, device, cases, results, mesh_cases),
+                         args=(r, world, store, device, cases, results, mesh_cases,
+                               read_cases),
                          daemon=True)
              for r in range(world)]
     for proc in procs:
@@ -3533,6 +3617,94 @@ def sharded_mesh_main_paths(ranks, single, gpu):
         if any(abs(a - b) > SHARDED_ITER_RTOL * b
                for a, b in zip(first["iterations"][:n_first], counts)):
             faults.append(f"first CG counts {first['iterations'][:n_first]} against {counts}")
+        if faults:
+            raise RuntimeError(f"sharded {label}: " + "; ".join(faults))
+
+
+def sharded_read_main_paths(ranks, single, gpu):
+    """The grid specs that read Index, a SampledImage or a ComputedArray
+    (SHARDED_READ_CASES), as the sharded ranks solved them, held to the
+    single-device solves on the card under the same settings (``single``:
+    label -> (each level's first steps' costs, their CG counts or None
+    where the solve gives a level's count only, each level's final cost,
+    each level's CG count)): each level's first steps' costs within
+    FIRST_STEPS_RTOL and their CG counts within SHARDED_ITER_RTOL; a
+    pyramid's level CG counts equal and its level final costs within
+    GOLDEN_RTOL. Every rank equal to rank 0, its global
+    unknowns bitwise among them; no fallback; the plan report's path the
+    sharded loop on K5 with its registers; K5 launched once an apply, one
+    apply a CG iteration. Prints each case's check, plan_summary (one a
+    level) and mesh_exchange lines (ms a sharded CG iteration among
+    them)."""
+    for label, name, n, nl, li, ip, n_first in SHARDED_READ_CASES:
+        cases = [r["read_cases"][label] for r in ranks]
+        first = cases[0]
+        s_first, s_counts, s_finals, s_lin = single[label]
+        got_first = [lc[:n_first] for lc in first["level_costs"]]
+        rel = [[abs(a - b) / abs(b) for a, b in zip(g, w)] for g, w in zip(got_first, s_first)]
+        got_counts = [its[:n_first] for its in first["level_iterations"]]
+        finals = [lc[-1] for lc in first["level_costs"]]
+        final_rel = [abs(a - b) / abs(b) for a, b in zip(finals, s_finals)]
+        iters = max(1, first["lin"])
+        route = first["plans"][-1]["route"]
+        (r0, r1), (c0, c1) = route["tile"]
+        log(json.dumps({
+            "mesh_exchange": label, "gpu": gpu, "mesh": list(MESH_SHAPE),
+            "loop": first["plans"][-1]["path"],
+            "per_cg_iteration": {k: sum(first[k]) / iters for k in ("p2p_phases", "all_reduce")},
+            "tile": [r1 - r0, c1 - c0], "region": route["region"], "region_halo": route["halo"],
+            "ms_per_sharded_cg_iter": [c["cg_ms"] / max(1, c["lin"]) for c in cases],
+            "applies_per_cg_call": first["applies"], "wall_ms": [c["wall_ms"] for c in cases],
+            "note": "four ranks on one card under gloo: not a scaling figure"}))
+        log(json.dumps({
+            "check": "sharded_main_path", "case": label, "mesh": list(MESH_SHAPE), "gpu": gpu,
+            "variant": [first["plans"][-1]["cg_variant"], first["plans"][-1]["preconditioner"]],
+            "first_costs": got_first, "single_device_first_costs": s_first,
+            "first_rel_diff": rel, "first_cg_counts": got_counts,
+            "single_device_first_cg_counts": s_counts, "level_final_costs": finals,
+            "single_device_level_final_costs": s_finals, "level_final_rel_diff": final_rel,
+            "level_lin_iters": first["level_lin"], "single_device_level_lin_iters": s_lin,
+            "nonlinear_iters": first["steps"],
+            "tile_kernel_launches": [c["tile_kernel_launches"] for c in cases],
+            "solve_counts": first["solve_counts"],
+            "ms_per_cg_iter": [c["solve_ms"] / max(1, c["lin"]) for c in cases]}))
+        for k, summary in enumerate(first["plans"]):
+            log(json.dumps({"plan_summary": f"{label} level {k} (rank 0 of "
+                            f"{MESH_SHAPE[0]}x{MESH_SHAPE[1]})", **summary}))
+        faults = []
+        want_k5 = "tile_apply_kernel<float>"
+        for k, summary in enumerate(first["plans"]):
+            if (summary["path"] != "sharded loop" or summary["instance"] != want_k5
+                    or summary["registers"] is None or summary["fused_fallback"] is not None):
+                faults.append(f"level {k}'s plan report {summary}, expected the sharded loop on "
+                              f"{want_k5} with its registers")
+        for r, c in zip(ranks, cases):
+            applies = sum(c["applies"])
+            if (c["costs"], c["lin"], c["level_costs"], c["digest"]) != (
+                    first["costs"], first["lin"], first["level_costs"], first["digest"]):
+                faults.append(f"rank {r['rank']} parts from rank 0")
+            if (c["fused_fallback"] != [None] * len(c["fused_fallback"]) or not c["kernel"]
+                    or c["cg_calls"] != c["steps"] or c["loops"] != ["sharded loop"]):
+                faults.append(f"rank {r['rank']}: fallback {c['fused_fallback']}, kernel "
+                              f"{c['kernel']}, {c['cg_calls']} sharded calls for {c['steps']} "
+                              f"steps, loops {c['loops']}")
+            iterations = sum(map(sum, c["level_iterations"]))
+            if c["tile_kernel_launches"] != applies or applies != iterations:
+                faults.append(f"rank {r['rank']}: {c['tile_kernel_launches']} tile launches, "
+                              f"{applies} applies, {iterations} CG iterations")
+            if c["shape"][:2] != [n, n] or not c["finite"]:
+                faults.append(f"rank {r['rank']}: unknowns {c['shape']}, finite {c['finite']}")
+        if (any(x > FIRST_STEPS_RTOL for lv in rel for x in lv)
+                or any(len(lv) != n_first for lv in rel)):
+            faults.append(f"first costs {got_first} against {s_first}")
+        if s_counts is not None and any(abs(a - b) > SHARDED_ITER_RTOL * b
+                                        for g, w in zip(got_counts, s_counts)
+                                        for a, b in zip(g, w)):
+            faults.append(f"first CG counts {got_counts} against {s_counts}")
+        if name == "flow" and (first["level_lin"] != s_lin
+                               or any(x > GOLDEN_RTOL for x in final_rel)):
+            faults.append(f"level finals {finals} after {first['level_lin']} CG iterations "
+                          f"against {s_finals} after {s_lin}")
         if faults:
             raise RuntimeError(f"sharded {label}: " + "; ".join(faults))
 
@@ -3870,7 +4042,7 @@ def main() -> int:
         "four on the one card (NCCL refuses two ranks on one device), beside this process's "
         "checks and solves; their times are of four ranks sharing one card, not a scaling "
         "figure")
-    sharded = start_sharded(SHARDED_CASES, SHARDED_MESH_CASES)
+    sharded = start_sharded(SHARDED_CASES, SHARDED_MESH_CASES, SHARDED_READ_CASES)
 
     phases["start_and_build"] = time.perf_counter() - t_start - sum(phases.values())
     # 2. each kernel form against its twin at the main paths' shapes; the
@@ -4361,6 +4533,8 @@ def main() -> int:
     tile_checks(f"poisson{n}x4 bfloat16", pbf[0])
     tile_checks(f"image_warping {RAGGED_DIMS['W']}x{RAGGED_DIMS['H']}x3",
                 system(image_warping, RAGGED_DIMS, rag_in)[0])
+    tile_checks(f"shape_from_shading{SFS_N}", ssys[0])
+    tile_checks(f"optical_flow{FLOW_N}x2", fsys[0])
 
     phases["kernel_checks"] = time.perf_counter() - t_start - sum(phases.values())
     # 3. the main paths through the public API, each with the launch counts
@@ -4416,7 +4590,17 @@ def main() -> int:
     res_sfs, l_sfs = first_steps_main_path(
         f"shape_from_shading{SFS_N} GN {SFS_NL}x{SFS_LI}", shape_from_shading, _grid(SFS_N),
         sfs_in, SFS_NL, SFS_LI, JAX_CPU_SFS, SFS_FIRST_STEPS, sfs_shape, form="gn_tiled")
-    l_flow = pyramid_flow_main_path(flow_in)
+    l_flow, flow_pplan, flow_res = pyramid_flow_main_path(flow_in)
+    # the single-device solves the sharded shape_from_shading and pyramid
+    # are held to: SFS's first steps through the stepwise API (the pinned
+    # settings are the single device's defaults), the pyramid's levels
+    sfs_costs, sfs_counts, _c = single_steps(shape_from_shading, "gaussNewtonGPU", _grid(SFS_N),
+                                             sfs_in, SHARDED_READ_CASES[0][6], SFS_LI, PINNED)
+    read_single = {
+        SHARDED_READ_CASES[0][0]: ([sfs_costs], [sfs_counts], [res_sfs.final_cost],
+                                   [res_sfs.num_linear_iterations]),
+        SHARDED_READ_CASES[1][0]: ([lc[:SHARDED_READ_CASES[1][6]] for lc in flow_pplan.level_costs],
+                                   None, list(flow_res.costs), flow_pplan.level_lin_iters)}
     _r, l_intr, _p = main_path(
         f"intrinsic{INTR_N} GN {INTR_NL}x{INTR_LI}", intrinsic_image_decomposition,
         "gaussNewtonGPU", _grid(INTR_N), intr_in, INTR_NL, INTR_LI, JAX_CPU_INTRINSIC_512_COST,
@@ -4479,6 +4663,7 @@ def main() -> int:
     ranks, l_k5 = sharded_main_paths(
         sharded, {k: (r.final_cost, r.num_linear_iterations) for k, r in single.items()}, gpu)
     sharded_mesh_main_paths(ranks, mesh_single, gpu)
+    sharded_read_main_paths(ranks, read_single, gpu)
     phases["sharded_main_paths_after_goldens"] = (time.perf_counter() - t_start
                                                   - sum(phases.values()))
     phase_s = time.perf_counter() - t_start
@@ -4541,6 +4726,8 @@ def main() -> int:
                                                 - sum(phases.values()))
     t_k5 = time_tile_apply(f"poisson{n}x4", meta, gpu)
     time_tile_apply(f"image_warping{IW_N}x3", mmeta, gpu)
+    time_tile_apply(f"shape_from_shading{SFS_N}", ssys[0], gpu)
+    time_tile_apply(f"optical_flow{FLOW_N}x2", fsys[0], gpu)
     tiled_floor(gpu)
     tiled_floor(gpu, cs=True)
     l2_F = graph["arap36k"][0][0]["F"]

@@ -36,6 +36,7 @@ from .spec import (
     SpecBuilder,
     SpecError,
     SpecRegistry,
+    whole_image_key,
 )
 from .utils.timer import phase
 
@@ -140,6 +141,10 @@ class CompiledProblem:
     # own copy of the cached problem, at the rank's local dims), through
     # which the per-edge reads of other ranks' vertices are exchanged
     graph_rules: Any = None
+    # on a grid mesh: the global coordinates of the rank's region's first
+    # point along each axis, which Index adds (set on a plan's own copy, as
+    # graph_rules is)
+    grid_origin: Any = None
 
     @property
     def use_preconditioner(self) -> bool:
@@ -163,9 +168,12 @@ class CompiledProblem:
         converts only the given subset (no missing-input check, no
         parameter defaulting)."""
         unknowns, consts, graphs, params = {}, {}, {}, {}
+        # a sampled image bound whole under a grid mesh: the global shape,
+        # which the plan checked (Plan._local_inputs)
+        whole = {whole_image_key(n): n for n in self.registry.sampled}
         for name, val in inputs.items():
-            if name in self.registry.images:
-                decl = self.registry.images[name]
+            if name in self.registry.images or name in whole:
+                decl = self.registry.images[whole.get(name, name)]
                 if decl.alias is not None:
                     continue  # const views read the unknown's buffer
                 arr = torch.as_tensor(np.asarray(val) if not isinstance(val, torch.Tensor) else val)
@@ -175,7 +183,7 @@ class CompiledProblem:
                 if arr.dim() == decl.ispace.ndim:
                     arr = arr[..., None]
                 expect = decl.ispace.shape(self.dim_sizes) + (decl.channels,)
-                if tuple(arr.shape) != expect:
+                if name not in whole and tuple(arr.shape) != expect:
                     raise SpecError(
                         f"image {name!r}: expected shape {expect}, got {tuple(arr.shape)}"
                     )
@@ -313,7 +321,7 @@ class CompiledProblem:
             registry=self.registry,
             bindings={"unknowns": unknowns, "consts": consts, "graphs": graphs,
                       "params": params, "computed_subs": computed_subs,
-                      "edge_values": edge_values},
+                      "edge_values": edge_values, "origin": self.grid_origin},
             slot_values=slot_values,
             device=_first_device(unknowns, consts, slot_values or []),
         )

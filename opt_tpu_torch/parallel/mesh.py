@@ -272,11 +272,17 @@ def grid_reach(compiled) -> Tuple[int, int]:
     """The halo (rows, columns) a rank's extended region needs: per axis,
     the largest distance between two reads of one residual or exclusion
     term (its centre counts as a read; an ``InBoundsExpanded`` gate reads
-    its offset ± its expansion). Every field at a tile's point q is a sum
-    over residuals that read q; their centres and all their other reads
-    lie within this distance of q, inside the region, where the region's
-    arithmetic is the whole grid's. It covers the CG operator's offsets,
-    which are differences of two reads of one residual."""
+    its offset ± its expansion; a ComputedArray read at an offset reads
+    what its expression reads about that offset, the expression's reach
+    recorded at discovery, ``registry.computed_reach``). Every field at
+    a tile's point q is a sum over residuals that read q; their centres and
+    all their other reads lie within this distance of q, inside the region,
+    where the region's arithmetic is the whole grid's. It covers the CG
+    operator's offsets, which are differences of two reads of one residual.
+    A ComputedArray that is inlined (``computed_failed``) has no slot of
+    its own: its reads are the term's slots at their composed offsets,
+    counted as any read. A SampledImage reads the whole image and needs no
+    halo."""
     reg = compiled.registry
     reach = [0, 0]
     for term in list(compiled.terms) + list(reg.exclude_terms):
@@ -286,9 +292,12 @@ def grid_reach(compiled) -> Tuple[int, int]:
             if s.offset is None:
                 continue
             e = int(s.expand) if s.kind == "bounds" else 0
+            r_lo, r_hi = (-e, -e), (e, e)
+            if s.kind in ("cimg", "cgrad"):
+                r_lo, r_hi = reg.computed_reach[s.image]
             for d in (0, 1):
-                lo[d] = min(lo[d], int(s.offset[d]) - e)
-                hi[d] = max(hi[d], int(s.offset[d]) + e)
+                lo[d] = min(lo[d], int(s.offset[d]) + r_lo[d])
+                hi[d] = max(hi[d], int(s.offset[d]) + r_hi[d])
         for d in (0, 1):
             reach[d] = max(reach[d], hi[d] - lo[d])
     return reach[0], reach[1]
@@ -336,6 +345,12 @@ class ShardingRules:
     @property
     def region_shape(self) -> Tuple[int, int]:
         return tuple(e - s for s, e in self.region)
+
+    @property
+    def origin(self) -> Tuple[int, ...]:
+        """The global coordinates of the region's first point, a further
+        (whole) axis's 0 included."""
+        return tuple(s for s, _e in self.region) + (0,) * len(self.whole)
 
     def local(self, x, name=None):
         """The extended region of a global [H, W, *whole, ...] array

@@ -49,7 +49,7 @@ from .parallel.mesh import (
 )
 from .solver.gauss_newton import GaussNewtonSolver
 from .solver.params import InitializationParameters, normalize_solver_params
-from .spec import UNKNOWN, SpecError
+from .spec import UNKNOWN, SpecError, whole_image_key
 from .utils.logging import log_debug, log_solver, verbosity
 from .utils.timer import SolveTimer, report_solve_timing
 
@@ -319,13 +319,6 @@ def _refuse_under_mesh(compiled: CompiledProblem, double_precision: bool,
             f"a mesh tiles a 2-D or 3-D grid of distinct dims, this spec's is {isp!r} "
             "(ROADMAP.md queue 1 item 8c)"
         )
-    reads = sorted(k for k, v in reg.reads.items() if v)
-    if reads:
-        raise NotImplementedError(
-            f"a mesh on a spec that reads {', '.join(reads)} is not ported yet: Index needs "
-            "the tile's global origin, a SampledImage reads outside any halo and a "
-            "ComputedArray's reach is not recorded (ROADMAP.md queue 1 item 8d)"
-        )
     if double_precision:
         raise NotImplementedError(
             "a float64 plan on a mesh is not ported yet: the sharded loop is float32 "
@@ -424,10 +417,14 @@ class Problem:
                     compile_spec(self.spec_fn, dict(dims, **rules.local_dims), dtype),
                     graph_rules=rules)
             else:
+                # the rank's problem at its region's sizes, its own copy
+                # holding the region's global origin (Index reads it); the
+                # assembly is planned on the cached one
                 (isp,) = {d.ispace for d in compiled.registry.images.values()}
                 rules = ShardingRules(mesh, isp.shape(compiled.dim_sizes), grid_reach(compiled))
                 region = {d.name: n for d, n in zip(isp.dims, rules.region_shape)}
-                compiled = compile_spec(self.spec_fn, dict(dims, **region), dtype)
+                plan_on = compile_spec(self.spec_fn, dict(dims, **region), dtype)
+                compiled = dataclasses.replace(plan_on, grid_origin=rules.origin)
         return Plan(self, compiled, kind or self.kind, init_params, solver_params, dev, rules,
                     dims, plan_on)
 
@@ -858,17 +855,22 @@ class Plan:
     def _local_inputs(self, inputs):
         """Under a mesh, the region of every global image input (on a graph
         mesh the rank's owner block of it, or the whole of a replicated
-        one)."""
+        one); on a grid mesh an image that a SampledImage reads is given
+        whole too, under ``spec.whole_image_key``: it is sampled at global
+        positions, anywhere in the image."""
         if self.rules is None:
             return inputs
         out = {}
+        reg = self.compiled.registry
         for name, v in inputs.items():
-            if name in self.compiled.registry.images:
+            if name in reg.images:
                 a = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
-                dom = self.compiled.registry.images[name].ispace.shape(self.dims)
+                dom = reg.images[name].ispace.shape(self.dims)
                 if tuple(a.shape[:len(dom)]) != dom:
                     raise SpecError(f"image {name!r}: expected the global {dom} (and "
                                     f"channels), got {tuple(a.shape)}")
+                if name in reg.sampled:
+                    out[whole_image_key(name)] = a
                 v = self.rules.local(a, name)
             out[name] = v
         return out

@@ -103,6 +103,13 @@ def _bounds_key(ispace_key, off, expand):
     return ("bounds", ispace_key, off, expand)
 
 
+def whole_image_key(name: str) -> str:
+    """The constants' key under which a grid mesh binds the whole global
+    array of an image that a SampledImage reads (the image's own name holds
+    the rank's region of it, which its stencil reads, if any, take)."""
+    return "__whole__/" + name
+
+
 @dataclasses.dataclass
 class SlotInfo:
     key: tuple
@@ -251,6 +258,9 @@ class SpecBuilder:
         # (discover mode only): list of (image, composed offset, channels)
         self._recording: Optional[List[tuple]] = None
         self._rec_bailed = False
+        # beside it, every grid read of the expression, of any image or
+        # bounds gate: list of (composed offset, expansion)
+        self._rec_reach: Optional[List[tuple]] = None
 
     def __enter__(self):
         _BUILDER_STACK.append(self)
@@ -323,6 +333,7 @@ class SpecBuilder:
         if image.decl.ispace.ndim != 2:
             raise SpecError("sampled images must be 2D (reference o.t:2481)")
         self.registry.reads["SampledImage"] = True
+        self.registry.sampled.update(h.decl.name for h in (image, dx, dy) if h is not None)
         return SampledImageHandle(self, image, dx, dy)
 
     # -- spec-level switches --------------------------------------------------
@@ -356,6 +367,8 @@ class SpecBuilder:
         (ComputedArray border zeroing); those must not count as a user
         InBounds, which would disable the automatic bbox mask."""
         off = self._compose(off)
+        if self._rec_reach is not None:
+            self._rec_reach.append((off, expand))
         ispace = self._grid_ispace_for_ndim(len(off))
         shape = ispace.shape(self.dim_sizes)
         key = _bounds_key(ispace.dims, off, expand)
@@ -382,6 +395,11 @@ class SpecBuilder:
         ispace = as_ispace(dims) if dims is not None else self._grid_ispace_for_ndim(None)
         shape = ispace.shape(self.dim_sizes)
         f = coordinate_field(shape, int(axis), self.dtype, device=self.device)
+        origin = self.bindings.get("origin")
+        if origin is not None:
+            # under a grid mesh the run covers the rank's region: its global
+            # coordinates start at the region's origin
+            f = f + float(origin[int(axis)])
         if self._offset_ctx:
             # inside an inlined ComputedArray expression the call site's
             # composed offset shifts the coordinates
@@ -421,6 +439,8 @@ class SpecBuilder:
         plain_unknown = decl.kind == UNKNOWN and decl.alias is None
         if self._recording is not None and plain_unknown:
             self._recording.append((decl.name, off, decl.channels))
+        if self._rec_reach is not None:
+            self._rec_reach.append((off, 0))
         if self.mode == "field":
             # computed-gradient probing (compile._computed_bundle): unknown
             # reads at substituted offsets come from the probe inputs, so
@@ -549,8 +569,9 @@ class SpecBuilder:
         metadata every later pass looks up."""
         reg = self.registry
         rec: List[tuple] = []
-        prev, prev_bail = self._recording, self._rec_bailed
-        self._recording, self._rec_bailed = rec, False
+        reach: List[tuple] = []
+        prev, prev_bail, prev_reach = self._recording, self._rec_bailed, self._rec_reach
+        self._recording, self._rec_bailed, self._rec_reach = rec, False, reach
         saved_ctx = self._offset_ctx
         # replace (not push) the context: ``off`` is already fully composed,
         # so inner reads compose to exactly off + t
@@ -560,7 +581,7 @@ class SpecBuilder:
         finally:
             self._offset_ctx = saved_ctx
             bailed = self._rec_bailed
-            self._recording, self._rec_bailed = prev, prev_bail
+            self._recording, self._rec_bailed, self._rec_reach = prev, prev_bail, prev_reach
         if bailed:
             reg.computed_failed.add(handle.name)
             return None
@@ -570,6 +591,12 @@ class SpecBuilder:
             if (uname, t) not in seen:
                 seen.add((uname, t))
                 touched.append((uname, t, cu))
+        # the expression's reach about the element it computes: per axis the
+        # lowest and highest relative offset of its reads, a gate's
+        # widened by its expansion (parallel/mesh.py::grid_reach)
+        reg.computed_reach[handle.name] = (
+            tuple(min([0] + [c[d] - e - off[d] for c, e in reach]) for d in range(len(off))),
+            tuple(max([0] + [c[d] + e - off[d] for c, e in reach]) for d in range(len(off))))
         meta = {"channels": int(val.shape[-1]), "touched": tuple(sorted(touched))}
         reg.computed_meta[handle.name] = meta
         return meta
@@ -603,6 +630,9 @@ class SpecBuilder:
         # assembled JᵀJ); only unbound discovery and graph passes take
         # dummies.
         def const_field(d):
+            whole = self.bindings.get("consts", {}).get(whole_image_key(d.name))
+            if whole is not None:  # under a grid mesh: the global image
+                return whole
             if self.mode == "field" or d.name in self.bindings.get("consts", {}):
                 return self._bound_image(d)
             shape = d.ispace.shape(self.dim_sizes) + (d.channels,)
@@ -662,9 +692,15 @@ class SpecRegistry:
         # lists handles that fall back to inlining (nested ComputedArrays)
         self.computed_meta: Dict[str, dict] = {}
         self.computed_failed: set = set()
-        # which position-dependent constructs the spec reads (a sharded
-        # plan cannot take them yet): "Index", "SampledImage", "ComputedArray"
+        # handle name -> (lowest, highest) offset per axis that its
+        # expression reads about the element it computes
+        self.computed_reach: Dict[str, tuple] = {}
+        # which position-dependent constructs the spec reads (a graph mesh
+        # cannot take them yet): "Index", "SampledImage", "ComputedArray"
         self.reads: Dict[str, bool] = {}
+        # the images a SampledImage reads (the image and its dx, dy): a grid
+        # mesh binds them whole (whole_image_key)
+        self.sampled: set = set()
 
     def declare_image(self, name, channels, ispace, kind, alias=None) -> ImageDecl:
         prev = self.images.get(name)

@@ -348,15 +348,24 @@ if job == "sharding":
         G = S.Graph("G", a=(N,), b=(N,))
         S.Energy(X(0, 0) - X(1, 0))
         S.Energy(Y(G.a) - Y(G.b))
+    def graph_index(S):
+        N = S.Dim("N")
+        X = S.Unknown("X", 1, (N,))
+        G = S.Graph("G", a=(N,), b=(N,))
+        S.Energy(X(G.a) - X(G.b), X(0) - 0.01 * S.Index(0, dims=(N,)))
     refusals = {{"arap_mesh_deformation": ({{"N": 64}}, {{"dynamic_topology": True}}),
                  "grid_and_graph": ({{"W": 8, "H": 8, "N": 16}}, {{}}),
-                 "optical_flow": ({{"W": 16, "H": 16}}, {{}}),
-                 "shape_from_shading": ({{"W": 16, "H": 16}}, {{}})}}
+                 "graph_index": ({{"N": 16}}, {{}}),
+                 "solve_scheduled": ({{"W": 16, "H": 16}}, {{}})}}
     import opt_tpu_torch.models.specs as tspecs
     for name, (dims, kw) in refusals.items():
         try:
-            spec = grid_and_graph if name == "grid_and_graph" else getattr(tspecs, name)
-            ot.Problem(spec).plan(dims=dims, mesh=mesh, device="cpu", **kw)
+            spec = {{"grid_and_graph": grid_and_graph, "graph_index": graph_index,
+                     "solve_scheduled": tspecs.laplacian}}.get(name) or getattr(tspecs, name)
+            plan = ot.Problem(spec).plan(dims=dims, mesh=mesh, device="cpu", **kw)
+            if name == "solve_scheduled":
+                a = np.zeros((16, 16), np.float32)
+                plan.solve_scheduled({{"X": a, "A": a}}, lambda consts, i: consts, 2)
             out["refuse_" + name] = ["planned", ""]
         except Exception as e:
             out["refuse_" + name] = [type(e).__name__, str(e)]
@@ -699,14 +708,17 @@ def test_edge_reorder_owner_shrinks_the_incidence_exchange(world):
 @pytest.mark.parametrize("spec,item", [
     ("arap_mesh_deformation", "item 8e"),
     ("grid_and_graph", "item 8c"),
-    ("optical_flow", "item 8d"),
-    ("shape_from_shading", "item 8d"),
+    ("graph_index", "item 8d"),
+    ("solve_scheduled", "item 8e"),
 ])
 def test_mesh_refusals_name_their_item(world, spec, item):
     """A mesh on a dynamic graph topology, a spec with both a grid and a
-    graph, or a spec that reads Index, a SampledImage or a ComputedArray
-    raises, naming its ROADMAP item (a 3-D grid no longer raises:
-    tests/test_torch_sharding_spaces.py solves volumetric on a mesh)."""
+    graph, a graph spec that reads Index on its vertex space, or
+    ``solve_scheduled`` on a grid mesh raises, naming its ROADMAP item (a
+    3-D grid no longer raises: tests/test_torch_sharding_spaces.py solves
+    volumetric on a mesh; nor does a grid spec that reads Index, a
+    SampledImage or a ComputedArray: tests/test_torch_sharding_reads.py
+    solves shape_from_shading and optical_flow on a mesh)."""
     for r in world["ranks"]:
         kind, msg = r["refuse_" + spec]
         assert kind == "NotImplementedError" and item in msg, (kind, msg)
