@@ -204,6 +204,20 @@ Opt_NewState ... Opt_ProblemStep ... Opt_FreeState: each run exits 0 with
 PASS, its plan ran gn_tiled once a step with no fallback, and its final
 cost and written-back X are bitwise those of the same solve in this
 process through opt_tpu_torch.api, and within 5e-3 of the JAX package's.
+The example apps: each of the twelve apps of opt_tpu_torch/examples/ runs
+in-process without --small (the synthetic fallback's sizes where
+OPT_TPU_EXAMPLE_DATA names no reference data), through main(argv), in a working directory of its
+own under build/examples/ with --results inside it, one line an app (dims,
+depth, wall s, the Final Costs, the instances launched, the fallbacks):
+every cost finite, no fallback, every launch of the instance its first
+system routes to (a Hopper instance where the route has one), and its
+first solve bitwise equal to a direct Plan.solve of the same spec, kind
+and inputs, which ends at or below its initial cost (optical_flow's
+coarsest GN level overshoots in both packages and is exempt). The driver
+entry (opt_tpu_torch/entry.py): entry()'s one GN step of image_warping
+64x64 bitwise a one-step Plan.solve, and dryrun_multichip(4) on 2x2 gloo
+ranks on the card, the tile kernel launched at every CG apply of both grid
+solves on every rank.
 It exits non-zero, with no result line, when CUDA is not available or any
 check fails. It imports neither JAX nor opt_tpu.
 """
@@ -215,14 +229,11 @@ import contextlib
 import functools
 import itertools
 import json
-import multiprocessing
 import os
-import queue as queue_mod
 import shutil
 import subprocess
 import sys
 import time
-import traceback
 
 import numpy as np
 import torch
@@ -758,6 +769,26 @@ C_API_SPEC = os.path.join("native", "test", "laplacian_spec.py")
 JAX_CPU_C_API = {64: {"a_sha256": "0d4fcd4a442aaf88", "final_cost": 6.786226749420166},
                  512: {"a_sha256": "1da5e4ca843e633e", "final_cost": 428.2104797363281}}
 C_API_RTOL = 5e-3
+# The example apps (opt_tpu_torch/examples/), each in-process at its full
+# (non --small) configuration, in a working directory of its own under
+# EXAMPLES_DIR (git-ignored) with --results inside it; EXAMPLE_CUTS caps an
+# app's (numIter, nonLinearIter), each cut printed on the app's line
+EXAMPLE_APPS = ("minimal", "curve_fitting", "poisson_image_editing", "image_warping",
+                "intrinsic_image_decomposition", "shape_from_shading", "optical_flow",
+                "volumetric_mesh_deformation", "arap_mesh_deformation",
+                "cotangent_mesh_smoothing", "embedded_mesh_deformation",
+                "robust_nonrigid_alignment")
+EXAMPLE_CUTS = {"image_warping": (3, 8), "shape_from_shading": (1, 10),
+                "volumetric_mesh_deformation": (1, 8), "arap_mesh_deformation": (3, 20),
+                "embedded_mesh_deformation": (4, 5), "robust_nonrigid_alignment": (3, 10)}
+# The apps whose first solve is not held to end at or below its initial
+# cost, and why: optical_flow's coarsest level (16x16, GN 1x50 from a zero
+# flow) rises from 11.44 to 137.8 in both packages (the JAX package's
+# float64 solve: 137.84); its undamped GN step overshoots where its CG runs
+# past about 15 iterations (ROADMAP.md queue 3)
+EXAMPLE_RISES = {"optical_flow": "undamped GN 1x50 on the coarsest level overshoots"}
+EXAMPLES_DIR = os.path.join("build", "examples")
+ENTRY_RANKS = 4  # dryrun_multichip's gloo ranks, all on the one card
 
 
 def log(msg):
@@ -3260,185 +3291,128 @@ def read_case_solve(mesh, device, name, n, nl, li, ip):
     }
 
 
-def sharded_rank(rank, world, store, device, cases, results, mesh_cases=(), read_cases=()):
-    """One rank of the sharded solves (started by the spawn method): joins
-    the gloo world, takes its place in the 2x2 mesh on ``device`` and
-    solves every case through the public API, its tile-kernel launch count
-    and the mesh's counts set to 0 just before each solve and read just
-    after; then the grid specs that read Index, a SampledImage or a
-    ComputedArray (``read_cases``, SHARDED_READ_CASES' form,
-    :func:`read_case_solve`) and the graph, 3-D and several-space cases
-    (``mesh_cases``, SHARDED_MESH_CASES' form) likewise, the latter with
-    the fused kernels' launch counts; puts {rank, cases, read_cases,
-    mesh_cases} (or {rank, error}) on ``results``."""
+def sharded_work(world, device, cases, mesh_cases=(), read_cases=()):
+    """One rank's part of the sharded solves, run by a rank that
+    opt_tpu_torch.entry.start_ranks started in a gloo world of ``world``:
+    takes its place in the 2x2 mesh on ``device`` and solves every case
+    through the public API, its tile-kernel launch count and the mesh's
+    counts set to 0 just before each solve and read just after; then the
+    grid specs that read Index, a SampledImage or a ComputedArray
+    (``read_cases``, SHARDED_READ_CASES' form, :func:`read_case_solve`)
+    and the graph, 3-D and several-space cases (``mesh_cases``,
+    SHARDED_MESH_CASES' form) likewise, the latter with the fused kernels'
+    launch counts. Returns {cases, read_cases, mesh_cases, all_reduce_us,
+    halo_phase_us}."""
     import torch.distributed as dist
 
-    from opt_tpu_torch.parallel import initialize, make_mesh
+    from opt_tpu_torch.parallel import make_mesh
 
-    try:
-        torch.set_num_threads(1)
-        initialize("file://" + store, world_size=world, rank=rank, backend="gloo")
-        dev = torch.device(device)
-        mesh = make_mesh(MESH_SHAPE, device=dev)
-        out = {"rank": rank, "cases": {}}
-        for label, name, kind, n, nl, li, ip in cases:
-            spec = poisson_image_editing if name == "poisson" else image_warping
-            inputs = bench_poisson_inputs(n) if name == "poisson" else bench_image_warping_inputs(n)
-            plan = ot.Problem(spec, kind=kind).plan(
-                dims=_grid(n), mesh=mesh, device=dev.type,
-                init_params=ot.InitializationParameters(**ip))
-            sharded_cg.reset_launch_counts()
-            mesh.reset_counts()
-            plan.solver.cg_stats.clear()
-            t0 = time.perf_counter()
-            res = plan.solve(dict(inputs), nIterations=nl, lIterations=li)
-            if dev.type == "cuda":
-                torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-            stats = plan.solver.cg_stats
-            out["cases"][label] = {
-                "cost": res.final_cost, "costs": res.costs, "lin": res.num_linear_iterations,
-                "steps": res.num_iterations, "fused_fallback": res.fused_fallback,
-                "tile_kernel_launches": sharded_cg.tile_apply_kernel.launches,
-                "cg_calls": len(stats), "kernel": all(st["kernel"] for st in stats),
-                "iterations": [st["iterations"] for st in stats],
-                "applies": [st["applies"] for st in stats],
-                "all_reduce": mesh.counts["all_reduce"], "p2p_phases": mesh.counts["p2p_phases"],
-                "wall_ms": wall_ms, "solve_ms": res.wall_time_s * 1e3,
-                "tile": [list(b) for b in plan.rules.tile],
-                "variant": [plan.solver.ip.cg_variant, plan.solver.ip.preconditioner],
-                "unknowns_ok": all(tuple(v.shape[:2]) == (n, n) and bool(torch.isfinite(v).all())
-                                   for v in res.unknowns.values()),
-                # the plan report, every rank together (its first cost is a
-                # sum over the ranks)
-                "plan": plan_summary(plan, inputs, plan.solver_params),
-            }
-        out["read_cases"] = {label: read_case_solve(mesh, dev, name, n, nl, li, ip)
-                             for label, name, n, nl, li, ip, _first in read_cases}
-        out["mesh_cases"] = {}
-        for label, name, kind, nl, li, ip, _first in mesh_cases:
-            spec, dims, inputs = mesh_case_problem(name)
-            plan = ot.Problem(spec, kind=kind).plan(
-                dims=dims, mesh=mesh, device=dev.type,
-                init_params=ot.InitializationParameters(**ip))
-            fused_cg.reset_launch_counts()
-            sharded_cg.reset_launch_counts()
-            mesh.reset_counts()
-            plan.solver.cg_stats.clear()
-            t0 = time.perf_counter()
-            res = plan.solve(dict(inputs), nIterations=nl, lIterations=li)
-            if dev.type == "cuda":
-                torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-            stats = plan.solver.cg_stats
-            out["mesh_cases"][label] = {
-                "cost": res.final_cost, "costs": res.costs, "lin": res.num_linear_iterations,
-                "steps": res.num_iterations, "fused_fallback": res.fused_fallback,
-                "kernel_launches": (sum(fused_cg.fused_grid_cg_kernel.launches.values())
-                                    + sharded_cg.tile_apply_kernel.launches),
-                "iterations": [st["iterations"] for st in stats],
-                "applies": [st["applies"] for st in stats],
-                "loops": sorted({st["loop"] for st in stats}),
-                **{k: [st[k] for st in stats] for k in ("all_to_all", "all_reduce", "p2p_phases")},
-                "solve_counts": dict(mesh.counts),
-                "cg_ms": sum(st["s"] for st in stats) * 1e3,
-                "wall_ms": wall_ms, "solve_ms": res.wall_time_s * 1e3,
-                "variant": [plan.solver.ip.cg_variant, plan.solver.ip.preconditioner,
-                            plan.solver.ip.edge_reorder],
-                "unknowns": len(res.unknowns),
-                "unknowns_ok": all(tuple(v.shape) == np.shape(inputs[k])
-                                   and bool(torch.isfinite(v).all())
-                                   for k, v in res.unknowns.items()),
-                "plan": plan_summary(plan, inputs, plan.solver_params),
-            }
-        # what an iteration's communication costs here: one all_reduce of
-        # three dots, one halo phase of a 256x256x4 tile (its strips through
-        # the host), each the mean of 200
-        x = torch.zeros(3, dtype=torch.float64)
-        dist.barrier()
+    dev = torch.device(device)
+    mesh = make_mesh(MESH_SHAPE, device=dev)
+    out = {"cases": {}}
+    for label, name, kind, n, nl, li, ip in cases:
+        spec = poisson_image_editing if name == "poisson" else image_warping
+        inputs = bench_poisson_inputs(n) if name == "poisson" else bench_image_warping_inputs(n)
+        plan = ot.Problem(spec, kind=kind).plan(
+            dims=_grid(n), mesh=mesh, device=dev.type,
+            init_params=ot.InitializationParameters(**ip))
+        sharded_cg.reset_launch_counts()
+        mesh.reset_counts()
+        plan.solver.cg_stats.clear()
         t0 = time.perf_counter()
-        for _ in range(200):
-            dist.all_reduce(x)
-        out["all_reduce_us"] = (time.perf_counter() - t0) / 200 * 1e6
-        tile = torch.zeros((4, 256, 256), device=dev)
-        dist.barrier()
-        t0 = time.perf_counter()
-        for _ in range(200):
-            mesh.extend(tile, 1, 0)
+        res = plan.solve(dict(inputs), nIterations=nl, lIterations=li)
         if dev.type == "cuda":
             torch.cuda.synchronize()
-        out["halo_phase_us"] = (time.perf_counter() - t0) / 200 * 1e6
-        results.put(out)
-    except BaseException:
-        results.put({"rank": rank, "error": traceback.format_exc()})
-        raise
-    finally:
-        if dist.is_available() and dist.is_initialized():
-            dist.destroy_process_group()
-
-
-def start_sharded(cases, mesh_cases=(), read_cases=(), device="cuda:0", world=4):
-    """Start ``world`` ranks of the sharded solves (the grid ``cases``, the
-    ``read_cases``, then the ``mesh_cases``) by the spawn method (a
-    process that has used CUDA cannot fork them). They are daemons: if this
-    process ends first, they end with it. Returns the handle
-    :func:`collect_sharded` takes."""
-    ctx = multiprocessing.get_context("spawn")
-    os.makedirs(os.path.join("build", "ranks"), exist_ok=True)
-    store = os.path.abspath(os.path.join("build", "ranks", f"store_{os.getpid()}"))
-    if os.path.exists(store):
-        os.remove(store)
-    results = ctx.Queue()
-    procs = [ctx.Process(target=sharded_rank,
-                         args=(r, world, store, device, cases, results, mesh_cases,
-                               read_cases),
-                         daemon=True)
-             for r in range(world)]
-    for proc in procs:
-        proc.start()
-    return procs, results, store
-
-
-def collect_sharded(handle):
-    """Wait for every rank's results and stop the ranks. Returns the
-    results by rank."""
-    procs, results, store = handle
-    world = len(procs)
-    got = {}
-    try:
-        deadline = time.perf_counter() + SHARDED_TIMEOUT_S
-        while len(got) < world:
-            try:
-                msg = results.get(timeout=max(1.0, deadline - time.perf_counter()))
-            except queue_mod.Empty:
-                raise RuntimeError(f"sharded solves: {world - len(got)} rank(s) silent after "
-                                   f"{SHARDED_TIMEOUT_S} s") from None
-            if "error" in msg:
-                raise RuntimeError(f"sharded rank {msg['rank']} failed:\n{msg['error']}")
-            got[msg["rank"]] = msg
-    finally:
-        for proc in procs:
-            proc.join(timeout=30)
-        for proc in procs:
-            if proc.is_alive():
-                proc.terminate()
-                proc.join()
-        if os.path.exists(store):
-            os.remove(store)
-    return [got[r] for r in range(world)]
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        stats = plan.solver.cg_stats
+        out["cases"][label] = {
+            "cost": res.final_cost, "costs": res.costs, "lin": res.num_linear_iterations,
+            "steps": res.num_iterations, "fused_fallback": res.fused_fallback,
+            "tile_kernel_launches": sharded_cg.tile_apply_kernel.launches,
+            "cg_calls": len(stats), "kernel": all(st["kernel"] for st in stats),
+            "iterations": [st["iterations"] for st in stats],
+            "applies": [st["applies"] for st in stats],
+            "all_reduce": mesh.counts["all_reduce"], "p2p_phases": mesh.counts["p2p_phases"],
+            "wall_ms": wall_ms, "solve_ms": res.wall_time_s * 1e3,
+            "tile": [list(b) for b in plan.rules.tile],
+            "variant": [plan.solver.ip.cg_variant, plan.solver.ip.preconditioner],
+            "unknowns_ok": all(tuple(v.shape[:2]) == (n, n) and bool(torch.isfinite(v).all())
+                               for v in res.unknowns.values()),
+            # the plan report, every rank together (its first cost is a
+            # sum over the ranks)
+            "plan": plan_summary(plan, inputs, plan.solver_params),
+        }
+    out["read_cases"] = {label: read_case_solve(mesh, dev, name, n, nl, li, ip)
+                         for label, name, n, nl, li, ip, _first in read_cases}
+    out["mesh_cases"] = {}
+    for label, name, kind, nl, li, ip, _first in mesh_cases:
+        spec, dims, inputs = mesh_case_problem(name)
+        plan = ot.Problem(spec, kind=kind).plan(
+            dims=dims, mesh=mesh, device=dev.type,
+            init_params=ot.InitializationParameters(**ip))
+        fused_cg.reset_launch_counts()
+        sharded_cg.reset_launch_counts()
+        mesh.reset_counts()
+        plan.solver.cg_stats.clear()
+        t0 = time.perf_counter()
+        res = plan.solve(dict(inputs), nIterations=nl, lIterations=li)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        stats = plan.solver.cg_stats
+        out["mesh_cases"][label] = {
+            "cost": res.final_cost, "costs": res.costs, "lin": res.num_linear_iterations,
+            "steps": res.num_iterations, "fused_fallback": res.fused_fallback,
+            "kernel_launches": (sum(fused_cg.fused_grid_cg_kernel.launches.values())
+                                + sharded_cg.tile_apply_kernel.launches),
+            "iterations": [st["iterations"] for st in stats],
+            "applies": [st["applies"] for st in stats],
+            "loops": sorted({st["loop"] for st in stats}),
+            **{k: [st[k] for st in stats] for k in ("all_to_all", "all_reduce", "p2p_phases")},
+            "solve_counts": dict(mesh.counts),
+            "cg_ms": sum(st["s"] for st in stats) * 1e3,
+            "wall_ms": wall_ms, "solve_ms": res.wall_time_s * 1e3,
+            "variant": [plan.solver.ip.cg_variant, plan.solver.ip.preconditioner,
+                        plan.solver.ip.edge_reorder],
+            "unknowns": len(res.unknowns),
+            "unknowns_ok": all(tuple(v.shape) == np.shape(inputs[k])
+                               and bool(torch.isfinite(v).all())
+                               for k, v in res.unknowns.items()),
+            "plan": plan_summary(plan, inputs, plan.solver_params),
+        }
+    # what an iteration's communication costs here: one all_reduce of
+    # three dots, one halo phase of a 256x256x4 tile (its strips through
+    # the host), each the mean of 200
+    x = torch.zeros(3, dtype=torch.float64)
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        dist.all_reduce(x)
+    out["all_reduce_us"] = (time.perf_counter() - t0) / 200 * 1e6
+    tile = torch.zeros((4, 256, 256), device=dev)
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        mesh.extend(tile, 1, 0)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    out["halo_phase_us"] = (time.perf_counter() - t0) / 200 * 1e6
+    return out
 
 
 def sharded_main_paths(handle, single, gpu):
     """The sharded solves on 2x2 ranks on the one card (the ranks of
-    ``handle``, :func:`start_sharded`), each held to the single-device solve
-    of the same case on the card (``single``: label -> (final cost, CG
-    count)), poisson also to the JAX CPU's; every rank agrees, reports no
+    ``handle``, opt_tpu_torch.entry.start_ranks over :func:`sharded_work`),
+    each held to the single-device solve of the same case on the card
+    (``single``: label -> (final cost, CG count)), poisson also to the JAX CPU's; every rank agrees, reports no
     fallback, launched the tile kernel once an apply of its sharded loop,
     one apply a CG iteration (LM: plus a reset every RESET_PERIOD), and
     returns finite global unknowns. Returns (the results by rank, the
     tile-kernel launches of each case summed over the ranks)."""
+    from opt_tpu_torch import entry
+
     t0 = time.perf_counter()
-    ranks = collect_sharded(handle)
+    ranks = entry.collect_ranks(handle, SHARDED_TIMEOUT_S)
     log(json.dumps({"sharded_communication": gpu, "all_reduce_us": [r["all_reduce_us"] for r in ranks],
                     "halo_phase_us": [r["halo_phase_us"] for r in ranks]}))
     launches = {}
@@ -3975,6 +3949,263 @@ def c_api_main_path(gpu):
     return {n: r["client_launches"] for n, r in runs.items()}
 
 
+TILED_NAMES = frozenset(fused_cg.instance_name(*k) for k in fused_cg.TILED_INSTANCES)
+
+
+def _snapshot(inputs):
+    """A copy of a solve's inputs: an app replaces or changes them later."""
+    if isinstance(inputs, torch.Tensor):
+        return inputs.clone()
+    if isinstance(inputs, np.ndarray):
+        return inputs.copy()
+    if isinstance(inputs, dict):
+        return {k: _snapshot(v) for k, v in inputs.items()}
+    return inputs
+
+
+@contextlib.contextmanager
+def recorded_solves():
+    """Within: every Plan.solve, Plan.solve_scheduled and PyramidPlan.solve
+    recorded, in order, on the yielded list: {how, plan, inputs (a copy),
+    kw, res, and the schedule, or the pyramid's first level's (cost, CG
+    count)}."""
+    calls = []
+    solve, scheduled, pyramid = ot.Plan.solve, ot.Plan.solve_scheduled, ot.PyramidPlan.solve
+
+    def rec_solve(self, inputs, **kw):
+        snap = _snapshot(inputs)
+        res = solve(self, inputs, **kw)
+        calls.append({"how": "solve", "plan": self, "inputs": snap, "kw": kw, "res": res})
+        return res
+
+    def rec_scheduled(self, inputs, schedule, num_outer, **kw):
+        snap = _snapshot(inputs)
+        res = scheduled(self, inputs, schedule, num_outer, **kw)
+        calls.append({"how": "scheduled", "plan": self, "inputs": snap, "kw": kw, "res": res,
+                      "schedule": schedule, "num_outer": num_outer})
+        return res
+
+    def rec_pyramid(self, level_inputs, **kw):
+        snap = _snapshot(level_inputs[0])
+        res = pyramid(self, level_inputs, **kw)
+        calls.append({"how": "pyramid", "plan": self.plans[0], "plans": self.plans,
+                      "inputs": snap, "kw": kw, "res": res,
+                      "level0": (self.level_costs[0][-1], self.level_lin_iters[0])})
+        return res
+
+    ot.Plan.solve, ot.Plan.solve_scheduled, ot.PyramidPlan.solve = (rec_solve, rec_scheduled,
+                                                                    rec_pyramid)
+    try:
+        yield calls
+    finally:
+        ot.Plan.solve, ot.Plan.solve_scheduled, ot.PyramidPlan.solve = solve, scheduled, pyramid
+
+
+@contextlib.contextmanager
+def capped_depth(cut):
+    """Within: a harness app's (numIter, nonLinearIter) capped at ``cut``
+    (None: as the app sets them)."""
+    init = CombinedSolverBase.__init__
+
+    def capped(self, spec_fn, dims, params):
+        params = dict(params)
+        params["numIter"] = min(int(params.get("numIter", 1)), cut[0])
+        params["nonLinearIter"] = min(int(params.get("nonLinearIter", 10)), cut[1])
+        init(self, spec_fn, dims, params)
+
+    if cut is not None:
+        CombinedSolverBase.__init__ = capped
+    try:
+        yield
+    finally:
+        CombinedSolverBase.__init__ = init
+
+
+def first_solve_direct(call):
+    """The app's first solve (``call``, :func:`recorded_solves`) run again
+    as a direct Plan.solve on a fresh plan of the same spec, kind, dims,
+    dtype, init and solver parameters, on the same inputs (a scheduled
+    solve's first outer solve: the constants its schedule gives at i = 0; a
+    pyramid's: its first level), launch counts from 0. Returns (the app's
+    (cost, CG count or None), the direct result, its initial cost, its
+    launches, the instance the first step's system routes to)."""
+    plan = call["plan"]
+    direct = ot.Problem(plan.problem.spec_fn, kind=plan.kind).plan(
+        dims=plan.dims, double_precision=plan.compiled.dtype == torch.float64,
+        init_params=plan.solver.ip, device=str(plan.device),
+        **{**plan.solver_params, **call["kw"]})
+    inputs = dict(call["inputs"])
+    if call["how"] == "scheduled":
+        consts = direct._normalize_and_place(inputs)[1]
+        inputs.update(call["schedule"](consts, torch.tensor(0, dtype=torch.int32,
+                                                            device=direct.device)))
+        app = (call["res"].costs[0], None)
+    elif call["how"] == "pyramid":
+        app = call["level0"]
+    else:
+        app = (call["res"].final_cost, call["res"].num_linear_iterations)
+    meta, r0, _pre, kw = direct.cg_inputs(inputs)
+    pb = kw["pre_blocks"]
+    routed = fused_cg.launch_instance(
+        meta, fused_cg.pack(r0, meta), lm=plan.kind == "LMGPU",
+        cs=kw["cg_variant"] == "chronopoulos_gear",
+        pre_blocks=None if pb is None else fused_cg.pack_pre_blocks(pb, meta))
+    direct.init(inputs)
+    initial = direct.current_cost()
+    fused_cg.reset_launch_counts()
+    res = direct.solve(inputs)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in fused_cg.fused_grid_cg_kernel.launches.items() if v}
+    return app, res, initial, launches, routed
+
+
+def example_main_path(app, gpu):
+    """One example app (opt_tpu_torch/examples/<app>.py) in-process without
+    --small (the synthetic fallback's sizes unless OPT_TPU_EXAMPLE_DATA
+    names the reference's data), through main(argv), in a working directory of its
+    own with --results inside it, launch counts from 0. Held: every cost it
+    prints finite; no plan with a fallback; every launch of one instance,
+    the one its first step's system routes to (a Hopper instance where the
+    route has one); its first solve bitwise a direct Plan.solve of the same
+    spec, kind and inputs (:func:`first_solve_direct`), which ends at or
+    below its initial cost (but for EXAMPLE_RISES). Prints one line;
+    returns the app's launches."""
+    import importlib
+    import io
+    import tempfile
+
+    mod = importlib.import_module(f"opt_tpu_torch.examples.{app}")
+    os.makedirs(EXAMPLES_DIR, exist_ok=True)
+    here = os.getcwd()
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory(dir=EXAMPLES_DIR) as work:
+        os.chdir(work)
+        try:
+            with recorded_solves() as calls, capped_depth(EXAMPLE_CUTS.get(app)), \
+                    contextlib.redirect_stdout(out):
+                fused_cg.reset_launch_counts()
+                t0 = time.perf_counter()
+                mod.main(["--results", os.path.join(work, "results")])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            launched = {k: v for k, v in fused_cg.fused_grid_cg_kernel.launches.items() if v}
+            written = sorted(os.listdir(work))
+        finally:
+            os.chdir(here)
+    text = out.getvalue()
+    lines = text.splitlines()
+    if "**Final Costs**" in lines:
+        block = lines[lines.index("**Final Costs**") + 1:]
+        costs = {ln.split(": ")[0]: float(ln.split(": ")[1])
+                 for ln in itertools.takewhile(lambda ln: ": " in ln, block)}
+    else:
+        costs = {"final": float(text.split("final cost")[1].strip(": ").split()[0])}
+    first = calls[0]
+    (app_cost, app_lin), res, initial, direct_launches, routed = first_solve_direct(first)
+    bitwise = res.final_cost == app_cost and app_lin in (None, res.num_linear_iterations)
+    if first["how"] == "solve":
+        bitwise = bitwise and res.costs == first["res"].costs and all(
+            torch.equal(res.unknowns[k], first["res"].unknowns[k]) for k in res.unknowns)
+    plans = [p for c in calls for p in c.get("plans", [c["plan"]])]
+    fallbacks = sorted({str(p.fused_fallback) for p in plans})
+    sp = {**first["plan"].solver_params, **first["kw"]}
+    outer = sum(c["num_outer"] if c["how"] == "scheduled" else 1 for c in calls)
+    line = {"check": "example_app", "app": app, "gpu": gpu, "dims": first["plan"].dims,
+            "depth": {"solves": outer, "how": first["how"], "nIterations": sp["nIterations"],
+                      "lIterations": sp["lIterations"], "cut": EXAMPLE_CUTS.get(app)},
+            "wall_s": wall, "final_costs": costs, "instances": launched,
+            "hopper": routed in TILED_NAMES, "routed": routed, "fused_fallback": fallbacks,
+            "first_solve": {"app_cost": app_cost, "direct_cost": res.final_cost,
+                            "initial_cost": initial, "bitwise": bitwise,
+                            "direct_instances": direct_launches,
+                            "rise_expected": EXAMPLE_RISES.get(app)},
+            "written": written}
+    log(json.dumps(line))
+    faults = []
+    if not costs or not all(np.isfinite(list(costs.values()))):
+        faults.append(f"final costs {costs}")
+    if fallbacks != ["None"]:
+        faults.append(f"fallbacks {fallbacks}")
+    if set(launched) != {routed} or set(direct_launches) != {routed}:
+        faults.append(f"launched {launched}, the direct solve {direct_launches}, routed {routed}")
+    if not bitwise:
+        faults.append(f"first solve {app_cost} ({app_lin} CG) against the direct "
+                      f"{res.final_cost} ({res.num_linear_iterations})")
+    if not (res.final_cost <= initial or app in EXAMPLE_RISES):
+        faults.append(f"first solve ends at {res.final_cost}, above its initial {initial}")
+    if faults:
+        raise RuntimeError(f"example {app}: " + "; ".join(faults))
+    return launched
+
+
+def start_dryrun():
+    """dryrun_multichip(ENTRY_RANKS) on the card (opt_tpu_torch/entry.py),
+    its ranks started now by the spawn method, from the repository root,
+    to run beside the example apps; :func:`entry_main_path` collects them."""
+    from opt_tpu_torch import entry
+
+    entry.prepare_device(None)
+    return entry.start_ranks(entry.dryrun_rank, ENTRY_RANKS)
+
+
+def entry_main_path(gpu, dryrun):
+    """opt_tpu_torch/entry.py on the card: entry()'s step (fn(*example_args))
+    bitwise a one-step Plan.solve of the same inputs (X, cost, CG count) in
+    the same single launch of its instance; the ranks of
+    dryrun_multichip(ENTRY_RANKS) (``dryrun``, :func:`start_dryrun`) on 2x2
+    gloo ranks on the card, each of whose checks passed, every rank
+    agreeing, with the tile kernel (K5) launched at every CG apply of both
+    grid solves on every rank. Returns {"step": its launches, case: K5's
+    launches summed over the ranks}."""
+    from opt_tpu_torch import entry
+
+    fn, args = entry.entry()
+    fused_cg.reset_launch_counts()
+    state = fn(*args)
+    torch.cuda.synchronize()
+    step_launches = {k: v for k, v in fused_cg.fused_grid_cg_kernel.launches.items() if v}
+    fused_cg.reset_launch_counts()
+    res = ot.Problem(image_warping).plan(dims=_grid(64)).solve(entry._warp_inputs(64),
+                                                               nIterations=1)
+    torch.cuda.synchronize()
+    solve_launches = {k: v for k, v in fused_cg.fused_grid_cg_kernel.launches.items() if v}
+    bitwise = (float(state["prev_cost"]) == res.final_cost
+               and int(state["lin_iters"]) == res.num_linear_iterations
+               and all(torch.equal(state["X"][k], res.unknowns[k]) for k in res.unknowns))
+    t0 = time.perf_counter()
+    ranks = entry.collect_ranks(dryrun)
+    wall = time.perf_counter() - t0
+    cases = ("grid", "grid_cs_bj", "graph")
+    line = {"check": "entry", "gpu": gpu, "step_cost": float(state["prev_cost"]),
+            "solve_cost": res.final_cost, "step_lin_iters": int(state["lin_iters"]),
+            "step_bitwise_to_solve": bitwise, "step_launches": step_launches,
+            "solve_launches": solve_launches, "dryrun_wait_s": wall,
+            "dryrun": {c: {"costs": [r[c]["cost"] for r in ranks],
+                           "lin_iters": [r[c]["lin"] for r in ranks],
+                           **({"applies": [r[c]["applies"] for r in ranks],
+                               "tile_kernel_launches": [r[c]["tile_kernel_launches"]
+                                                        for r in ranks],
+                               "variant": ranks[0][c]["variant"],
+                               "x_digest": ranks[0][c]["x_digest"]} if c != "graph" else {})}
+                       for c in cases}}
+    log(json.dumps(line))
+    faults = []
+    if not bitwise or step_launches != solve_launches or sum(step_launches.values()) != 1:
+        faults.append(f"step {line['step_cost']} ({step_launches}) against the one-step solve "
+                      f"{res.final_cost} ({solve_launches}), bitwise {bitwise}")
+    for c in cases:
+        if len({(r[c]["cost"], r[c]["lin"]) for r in ranks}) != 1:
+            faults.append(f"{c}: the ranks part")
+    for c in ("grid", "grid_cs_bj"):
+        if any(r[c]["tile_kernel_launches"] != r[c]["applies"] or r[c]["applies"] < 1
+               for r in ranks):
+            faults.append(f"{c}: K5 not launched at every CG apply of every rank")
+    if faults:
+        raise RuntimeError("entry: " + "; ".join(faults))
+    return {"step": step_launches,
+            **{c: sum(r[c]["tile_kernel_launches"] for r in ranks) for c in cases[:2]}}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phases = {}  # seconds of each phase of this run
@@ -4042,7 +4273,11 @@ def main() -> int:
         "four on the one card (NCCL refuses two ranks on one device), beside this process's "
         "checks and solves; their times are of four ranks sharing one card, not a scaling "
         "figure")
-    sharded = start_sharded(SHARDED_CASES, SHARDED_MESH_CASES, SHARDED_READ_CASES)
+    from opt_tpu_torch import entry
+
+    sharded = entry.start_ranks(
+        functools.partial(sharded_work, cases=SHARDED_CASES, mesh_cases=SHARDED_MESH_CASES,
+                          read_cases=SHARDED_READ_CASES), 4, "cuda:0")
 
     phases["start_and_build"] = time.perf_counter() - t_start - sum(phases.values())
     # 2. each kernel form against its twin at the main paths' shapes; the
@@ -4792,11 +5027,10 @@ def main() -> int:
     del batch_sys
     batched_step_before_after(arm_bdims, arm_bin, gpu)
     # the main paths the tiled route changed, as they ran on the template
-    # before it and on the tiled kernel, in turns: solve times (two solves a
-    # route of the Jacobi paths; four of image_warping LM under block-Jacobi,
-    # beside the Jacobi one, and of the x4 batch under block-Jacobi), then
-    # each solve profiled (device time, the CG kernel's share; image_warping
-    # LM under block-Jacobi on the tiled route only)
+    # before it and on the tiled kernel, one turn a route (each time_main_path
+    # a warm-up solve and two timed ones): solve times, then each solve
+    # profiled (device time, the CG kernel's share; image_warping LM under
+    # block-Jacobi on the tiled route only)
     routed = [(f"poisson{n}x4 GN 1x2000", poisson_image_editing, "gaussNewtonGPU", inputs, 1,
                2000, {})] + [(f"image_warping{IW_N} {label} 8x400", image_warping, kind, iw_in, 8,
                               400, {}) for kind, label in (("gaussNewtonGPU", "GN"),
@@ -4818,10 +5052,9 @@ def main() -> int:
     arm_label = f"armadillo31k GN {GRAPH_NL}x{GRAPH_LI}"
     arap_label = f"arap36k GN {GRAPH_NL}x{GRAPH_LI}"
     arm_blabel = f"armadillo31k x{len(ARM_BATCH_PULLS)} GN {GRAPH_NL}x{GRAPH_LI} batched"
-    for turn, route in enumerate(("template", "tiled", "tiled", "template")):
+    for route in ("template", "tiled"):
         with (template_route() if route == "template" else contextlib.nullcontext()):
-            for label, spec, kind, inp, nl, li, ip in ((routed if turn in (1, 3) else [])
-                                                       + [bj_lm] + variants):
+            for label, spec, kind, inp, nl, li, ip in routed + [bj_lm] + variants:
                 time_main_path(f"{label} {route}", spec, kind, _grid(n), inp, nl, li, gpu, ip=ip,
                                reps=2)
             time_batched(f"{blabel} {route}", bj_batch_plan(), iw_bin, 8, 400, gpu, reps=2)
@@ -4958,6 +5191,16 @@ def main() -> int:
     l_c_api = c_api_main_path(gpu)
     phases["c_api"] = time.perf_counter() - t_start - sum(phases.values())
 
+    # 7. the example apps without --small, and the driver entry:
+    # one step against a one-step solve, the multi-rank dry run on the card
+    # (the dry run's ranks started first, from the repository root, to run
+    # beside the apps; the entry phase waits for what is left of them)
+    dryrun = start_dryrun()
+    l_examples = {app: example_main_path(app, gpu) for app in EXAMPLE_APPS}
+    phases["examples"] = time.perf_counter() - t_start - sum(phases.values())
+    l_entry = entry_main_path(gpu, dryrun)
+    phases["entry"] = time.perf_counter() - t_start - sum(phases.values())
+
     def entry(name, replaces, launches, err, timing, source=KERNEL_SOURCE, template=None,
               costs=None):
         ms, plain, bound_ms, bound_by = timing
@@ -4997,7 +5240,8 @@ def main() -> int:
                                            "image_warping_batched": l_iw_batch,
                                            "sharded_tile_apply": l_k5, "graph_specs": l_spec,
                                            "dynamic_topology": l_dyn,
-                                           "cluster_arap": l_cluster, "c_api": l_c_api}}))
+                                           "cluster_arap": l_cluster, "c_api": l_c_api,
+                                           "examples": l_examples, "entry": l_entry}}))
     log(json.dumps({"command_s": time.perf_counter() - t_start,
                     "checks_and_main_paths_s": phase_s, "phases_s": phases}))
     log(f"gpu: {gpu}")

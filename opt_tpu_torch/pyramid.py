@@ -47,6 +47,7 @@ class PyramidPlan:
         the prolongation still sees the global arrays
     device : every level's plan's device (the card unless the caller asks
         for the CPU)
+    double_precision : float64 plans at every level
 
     After a solve, ``level_costs`` holds each level's cost after each of
     its steps and ``level_lin_iters`` each level's CG iterations.
@@ -61,13 +62,14 @@ class PyramidPlan:
         init_params: Optional[InitializationParameters] = None,
         mesh=None,
         device="cuda",
+        double_precision: bool = False,
         **solver_params,
     ):
         if not level_dims:
             raise ValueError("need at least one pyramid level")
         self.plans = [
             problem.plan(dims=d, kind=kind, init_params=init_params, mesh=mesh, device=device,
-                         **solver_params)
+                         double_precision=double_precision, **solver_params)
             for d in level_dims
         ]
         self.level_dims = list(level_dims)

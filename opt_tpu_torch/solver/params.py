@@ -55,8 +55,11 @@ class InitializationParameters:
     # with zero-valid edges, no DIA split, the table cache kept to 32
     # topologies (problem.py: Plan._pad_dynamic).
     dynamic_topology: bool = False
-    # Per-kernel timing report (not ported yet: ROADMAP.md queue 1 item 6;
-    # True raises).
+    # Opt_InitializationParameters.collectPerKernelTimingInfo (Opt.h:21-25):
+    # after each Plan.solve, print the per-phase timing table plus the
+    # greppable ``TIMING`` / ``Per-iter times ms (nonlinear, linear)`` lines
+    # (util.t:469-508 format; utils/timer.report_solve_timing). A mesh's
+    # plan accepts the flag and times nothing.
     collect_per_kernel_timing: bool = False
     # CG inner-loop variant: "standard" (the reference's PCG recurrence) or
     # "chronopoulos_gear" (one reduction per iteration: rᵀu and uᵀAu from the
