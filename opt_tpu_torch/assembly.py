@@ -40,7 +40,13 @@ import torch.nn.functional as TF
 from torch.fx.experimental.proxy_tensor import make_fx
 
 from .compile import graph_outputs, node_inputs, op_name
-from .ops.fused_cg import coefficient_dtype, plan_fused_graph_cg, plan_fused_grid_cg
+from .ops.fused_cg import (
+    LOOP_DTYPES,
+    SHARDED_LOOP_DTYPES,
+    coefficient_dtype,
+    plan_fused_graph_cg,
+    plan_fused_grid_cg,
+)
 from .ops.sampling import is_frozen_marker
 from .ops.sharded_cg import (
     _block_matvec,
@@ -575,7 +581,7 @@ def _graph_layouts(compiled, plan, graphs):
 
 
 def assemble(compiled, plan: AssemblyPlan, X, consts, graphs, params, row_masks,
-             const_cache=None, coeff_dtype=None, allow_split=True):
+             const_cache=None, coeff_dtype=None, allow_split=True, sharded=False):
     """Assemble the coefficient fields at linearization point X.
 
     Returns (apply_fn, diag, jtf_fn, cg_meta): the row/column-masked JᵀJ·p
@@ -588,7 +594,8 @@ def assemble(compiled, plan: AssemblyPlan, X, consts, graphs, params, row_masks,
     coefficient storage the CG loop reads, after the full-precision
     diagonal and block sources are read off. ``allow_split=False`` keeps a
     channel-separable grid operator's fused loop joint (a block
-    preconditioner couples the channels)."""
+    preconditioner couples the channels). ``sharded``: the descriptor is
+    for a grid mesh's sharded loop, which takes float64 too."""
     slots = compiled.registry.slots
     dt = compiled.dtype
     X_ref = next(iter(X.values()))
@@ -1154,6 +1161,7 @@ def assemble(compiled, plan: AssemblyPlan, X, consts, graphs, params, row_masks,
                                       pair_exec=pair_exec)
     else:
         cg_meta = plan_fused_grid_cg(compiled, plan, fields, w_layouts, coeff_dtype=cdt,
-                                     allow_split=allow_split)
+                                     allow_split=allow_split,
+                                     dtypes=SHARDED_LOOP_DTYPES if sharded else LOOP_DTYPES)
     jtf_fn.r_terms = r_terms_primal
     return apply_fn, diag, jtf_fn, cg_meta

@@ -205,18 +205,19 @@ def instance_registers(log: str) -> dict:
     return regs
 
 
-_TILE_APPLY = re.compile(r"tile_apply_kernelI(f|13__nv_bfloat16)E")
+_TILE_APPLY = re.compile(r"tile_apply_kernelI(f|d|13__nv_bfloat16)E")
+_TILE_APPLY_TYPES = {"f": "float", "d": "double", "13__nv_bfloat16": "bfloat16"}
 
 
 def tile_apply_registers(log: str) -> dict:
-    """{"float" or "bfloat16": (registers, spill store bytes, spill load
-    bytes)} of the per-tile apply's two instances (tile_apply_kernel<FT>,
-    csrc/tile_apply.cu) from ptxas's -v output."""
+    """{"float", "bfloat16" or "double": (registers, spill store bytes,
+    spill load bytes)} of the per-tile apply's three instances
+    (tile_apply_kernel<FT>, csrc/tile_apply.cu) from ptxas's -v output."""
     regs, current, spill = {}, None, (0, 0)
     for line in log.splitlines():
         if "Compiling entry function" in line:
             m = _TILE_APPLY.search(line)
-            current = None if m is None else ("float" if m.group(1) == "f" else "bfloat16")
+            current = None if m is None else _TILE_APPLY_TYPES[m.group(1)]
             spill = (0, 0)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -309,7 +310,7 @@ def load_library(build: bool = True) -> ctypes.CDLL:
     ]
     lib.tiled_batch_cg_launch.restype = i32
     lib.tile_apply_launch.argtypes = [
-        i32, vp, vp, vp, vp, vp,  # bf16, F, p_ext, out, triples (host), starts (host)
+        i32, vp, vp, vp, vp, vp,  # ftype, F, p_ext, out, triples (host), starts (host)
         i32, i32, i32, i32, i32, i32,  # n_triples, C, th, tw, ah, aw
         vp,  # stream
     ]

@@ -40,8 +40,12 @@
 //     channel, from 0, as fused_grid_cg.cuh's stencil phase sums (no fused
 //     multiply-add): bitwise equal to the plain PyTorch version
 //     (sharded_cg.py::tile_apply_reference);
-//   * F is float32 or bfloat16 (widened exactly with __bfloat162float);
-//     p_ext and out are float32.
+//   * F is float32 or bfloat16 (widened exactly with __bfloat162float),
+//     p_ext and out float32; or all three float64 (tile_apply_kernel<double>,
+//     a float64 plan on a mesh), summed by __dadd_rn(acc, __dmul_rn(F, p))
+//     in the same order. A float64 apply moves twice the bytes of a float32
+//     one and does its adds and multiplies at the card's float64 rate
+//     (34 TFLOP/s against 67), still far below the bytes' time.
 // A block that stages p's haloed window and the named field planes in
 // shared memory (each value read from device memory once, four points a
 // thread, 16-byte field loads and stores) was slower on both main-path
@@ -66,6 +70,16 @@ struct TaTable {
   unsigned short start[TA_MAX_CHANNELS + 1];
 };
 
+// The type of p_ext, out and the sums for fields of type FT.
+template <typename FT>
+struct TaVec {
+  typedef float T;
+};
+template <>
+struct TaVec<double> {
+  typedef double T;
+};
+
 __device__ __forceinline__ float ta_ldf(const float* __restrict__ a, int i) {
   return a[i];
 }
@@ -73,12 +87,23 @@ __device__ __forceinline__ float ta_ldf(const __nv_bfloat16* __restrict__ a,
                                         int i) {
   return __bfloat162float(a[i]);
 }
+__device__ __forceinline__ double ta_ldf(const double* __restrict__ a, int i) {
+  return a[i];
+}
+__device__ __forceinline__ float ta_madd_rn(float acc, float f, float p) {
+  return __fadd_rn(acc, __fmul_rn(f, p));
+}
+__device__ __forceinline__ double ta_madd_rn(double acc, double f, double p) {
+  return __dadd_rn(acc, __dmul_rn(f, p));
+}
 
 template <typename FT>
 __global__ void __launch_bounds__(TA_BLOCK)
-    tile_apply_kernel(const FT* __restrict__ F, const float* __restrict__ p_ext,
-                      float* __restrict__ out, const __grid_constant__ TaTable tab,
-                      int th, int tw, int aw) {
+    tile_apply_kernel(const FT* __restrict__ F,
+                      const typename TaVec<FT>::T* __restrict__ p_ext,
+                      typename TaVec<FT>::T* __restrict__ out,
+                      const __grid_constant__ TaTable tab, int th, int tw, int aw) {
+  typedef typename TaVec<FT>::T T;
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y0 = blockIdx.y * TA_ROWS;
   // y0 < th always; said here, it spares the first row its bound test, and
@@ -89,9 +114,9 @@ __global__ void __launch_bounds__(TA_BLOCK)
   const int i = blockIdx.z;
   const int q = y0 * tw + x;
   const int qe = y0 * ew + x;
-  float a[TA_ROWS];
+  T a[TA_ROWS];
 #pragma unroll
-  for (int r = 0; r < TA_ROWS; ++r) a[r] = 0.f;
+  for (int r = 0; r < TA_ROWS; ++r) a[r] = T(0);
   const int k1 = tab.start[i + 1];
   for (int k = tab.start[i]; k < k1; ++k) {
     const int f = tab.fid[k] * plane + q;
@@ -99,7 +124,7 @@ __global__ void __launch_bounds__(TA_BLOCK)
 #pragma unroll
     for (int r = 0; r < TA_ROWS; ++r)
       if (y0 + r < th)
-        a[r] = __fadd_rn(a[r], __fmul_rn(ta_ldf(F, f + r * tw), p_ext[s + r * ew]));
+        a[r] = ta_madd_rn(a[r], ta_ldf(F, f + r * tw), p_ext[s + r * ew]);
   }
 #pragma unroll
   for (int r = 0; r < TA_ROWS; ++r)
@@ -108,15 +133,17 @@ __global__ void __launch_bounds__(TA_BLOCK)
 
 extern "C" {
 
-// Launches the apply on `stream`; `triples` (n_triples rows of dx, dy, j,
-// fid, sorted by output channel) and `starts` (C + 1 row starts) are host
-// arrays. Returns the CUDA error code (0: launched).
-int tile_apply_launch(int bf16, const void* F, const float* p_ext, float* out,
+// Launches the apply on `stream`: `ftype` 0 float32 fields, p_ext and out;
+// 1 bfloat16 fields, float32 p_ext and out; 2 float64 fields, p_ext and
+// out. `triples` (n_triples rows of dx, dy, j, fid, sorted by output
+// channel) and `starts` (C + 1 row starts) are host arrays. Returns the
+// CUDA error code (0: launched).
+int tile_apply_launch(int ftype, const void* F, const void* p_ext, void* out,
                       const int* triples, const int* starts, int n_triples,
                       int C, int th, int tw, int ah, int aw, void* stream) {
   if (n_triples < 1 || n_triples > TA_MAX_TRIPLES || C < 1 ||
       C > TA_MAX_CHANNELS || th < 1 || tw < 1 ||
-      (th + TA_ROWS - 1) / TA_ROWS > 65535)
+      (th + TA_ROWS - 1) / TA_ROWS > 65535 || ftype < 0 || ftype > 2)
     return (int)cudaErrorInvalidValue;
   const int ew = tw + 2 * aw;
   const int eplane = (th + 2 * ah) * ew;
@@ -130,12 +157,18 @@ int tile_apply_launch(int bf16, const void* F, const float* p_ext, float* out,
   for (int c = 0; c <= C; ++c) tab.start[c] = (unsigned short)starts[c];
   const dim3 grid((tw + TA_BLOCK - 1) / TA_BLOCK, (th + TA_ROWS - 1) / TA_ROWS, C);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
+  if (ftype == 2)
+    tile_apply_kernel<double><<<grid, TA_BLOCK, 0, s>>>(
+        static_cast<const double*>(F), static_cast<const double*>(p_ext),
+        static_cast<double*>(out), tab, th, tw, aw);
+  else if (ftype == 1)
     tile_apply_kernel<__nv_bfloat16><<<grid, TA_BLOCK, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(F), p_ext, out, tab, th, tw, aw);
+        static_cast<const __nv_bfloat16*>(F), static_cast<const float*>(p_ext),
+        static_cast<float*>(out), tab, th, tw, aw);
   else
     tile_apply_kernel<float><<<grid, TA_BLOCK, 0, s>>>(
-        static_cast<const float*>(F), p_ext, out, tab, th, tw, aw);
+        static_cast<const float*>(F), static_cast<const float*>(p_ext),
+        static_cast<float*>(out), tab, th, tw, aw);
   return (int)cudaGetLastError();
 }
 

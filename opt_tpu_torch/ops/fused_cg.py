@@ -138,6 +138,11 @@ COEFFICIENT_DTYPES = (torch.bfloat16, torch.float32)  # the fields the kernel re
 # float64 entry here runs the twin in float64 (how the parity tests hold
 # the fused loop to the JAX package's float64 solve).
 LOOP_DTYPES = (torch.float32,)
+# The solve dtypes whose grid operator the planner gives the sharded loop
+# (ops/sharded_cg.py): K5 has a float64 instance, and the loop's vector
+# algebra runs in its vectors' dtype, so a float64 plan on a mesh keeps
+# the assembled operator (a float64 plan off a mesh runs the eager loop).
+SHARDED_LOOP_DTYPES = (torch.float32, torch.float64)
 # The per-channel split engages when the CG loop's working set (7 state
 # planes per channel plus the fields) is beyond this many bytes and one
 # channel's is not: the H100's 50 MiB L2. poisson 1024x1024x4 (132 MiB
@@ -211,17 +216,19 @@ def split_triples(triples, ctot: int):
 
 
 def plan_fused_grid_cg(compiled, plan, fields: Dict, w_layouts: Dict,
-                       coeff_dtype=None, allow_split: bool = True) -> Optional[Dict]:
+                       coeff_dtype=None, allow_split: bool = True,
+                       dtypes=LOOP_DTYPES) -> Optional[Dict]:
     """Decide applicability from the assembled operator and build the loop's
-    inputs: exactly one 2-D or 3-D index space holding every unknown,
-    float32. Returns {u_list, offs, channels, ctot, chan_grid, triples,
+    inputs: exactly one 2-D or 3-D index space holding every unknown, of a
+    solve dtype in ``dtypes`` (the sharded loop's: SHARDED_LOOP_DTYPES).
+    Returns {u_list, offs, channels, ctot, chan_grid, triples,
     F [T, *dom], rem, isp} or None. The in-bounds masks are folded into F,
     which is then stored in ``coeff_dtype`` (None: float32). ``chan_grid``
     says that the channels are solved as independent one-channel systems
     (the module docstring's split; ``triples`` are then one channel's);
     ``allow_split=False`` (a block preconditioner couples the channels)
     keeps the joint loop."""
-    if not fields or compiled.dtype not in LOOP_DTYPES or len(w_layouts) != 1:
+    if not fields or compiled.dtype not in dtypes or len(w_layouts) != 1:
         return None
     ((isp, (u_list, offs, ctot)),) = w_layouts.items()
     if isp.ndim not in (2, 3) or sorted(compiled.unknown_names) != sorted(u_list):

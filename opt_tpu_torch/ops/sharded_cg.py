@@ -74,7 +74,8 @@ def tile_apply_reference(F, triples, p_ext, ah: int, aw: int):
     """out[i] = Σ_t F[fid_t] · p_ext[j_t] read at (ah + dx_t, aw + dy_t) of
     the halo-extended tile p_ext [C, th + 2ah, tw + 2aw], by static slices,
     summed in the triples' order for each output channel (a bfloat16 F is
-    widened exactly and multiplied in float32). Returns [C, th, tw]: the
+    widened exactly and multiplied in float32; float32 and float64 fields
+    are taken as they are). Returns [C, th, tw]: the
     plain twin of the CUDA kernel. A 3-D tile (F [T, th, tw, D], p_ext
     [C, th + 2ah, tw + 2aw, D]) keeps its third axis whole, so a triple's
     third offset reads inside the tile, zero past its ends: the apply of a
@@ -89,10 +90,22 @@ def tile_apply_reference(F, triples, p_ext, ah: int, aw: int):
             pk = shift(p_ext[j, ah + d[0]:ah + d[0] + th, aw + d[1]:aw + d[1] + tw],
                        (0, 0) + tuple(d[2:]))
             sliced[(d, j)] = pk
-        t = F[fid].float() * pk
+        f = F[fid]
+        t = (f.float() if f.dtype == torch.bfloat16 else f) * pk
         acc[i] = t if acc[i] is None else acc[i] + t
     zeros = p_ext.new_zeros(tuple(F.shape[1:]))
     return torch.stack([a if a is not None else zeros for a in acc])
+
+
+# (fields' dtype, p's dtype) -> tile_apply_launch's ftype
+_TILE_TYPES = {(torch.float32, torch.float32): 0, (torch.bfloat16, torch.float32): 1,
+               (torch.float64, torch.float64): 2}
+
+
+def tile_instance(F) -> str:
+    """The instance of K5 that fields ``F`` launch."""
+    return {torch.bfloat16: "tile_apply_kernel<__nv_bfloat16>",
+            torch.float64: "tile_apply_kernel<double>"}.get(F.dtype, "tile_apply_kernel<float>")
 
 
 @functools.lru_cache(maxsize=32)
@@ -113,8 +126,10 @@ def _launch_table(triples, C: int):
 
 def tile_apply_kernel(F, triples, p_ext, ah: int, aw: int):
     """Launch the CUDA kernel (``csrc/tile_apply.cu``) on CUDA tensors: F
-    [T, th, tw] float32 or bfloat16, p_ext [C, th + 2ah, tw + 2aw] float32.
-    Returns out [C, th, tw]; does not synchronise. Each launch adds one to
+    [T, th, tw] float32 or bfloat16 with p_ext [C, th + 2ah, tw + 2aw]
+    float32 (``tile_apply_kernel<float>``, ``<__nv_bfloat16>``), or both
+    float64 (``tile_apply_kernel<double>``). Returns out [C, th, tw] in
+    p_ext's dtype; does not synchronise. Each launch adds one to
     ``tile_apply_kernel.launches``. A kernel that does not build or launch
     raises."""
     import torch.distributed as dist
@@ -124,9 +139,11 @@ def tile_apply_kernel(F, triples, p_ext, ah: int, aw: int):
     if p_ext.device.type != "cuda" or F.device != p_ext.device:
         raise ValueError(f"tile_apply_kernel needs CUDA tensors on one device, got "
                          f"{F.device} and {p_ext.device}")
-    if F.dtype not in (torch.float32, torch.bfloat16) or p_ext.dtype != torch.float32:
-        raise ValueError(f"tile_apply_kernel takes float32 or bfloat16 fields and a float32 "
-                         f"p, got {F.dtype} and {p_ext.dtype}")
+    ftype = _TILE_TYPES.get((F.dtype, p_ext.dtype))
+    if ftype is None:
+        raise ValueError(f"tile_apply_kernel takes float32 or bfloat16 fields with a float32 "
+                         f"p, or float64 fields with a float64 p, got {F.dtype} and "
+                         f"{p_ext.dtype}")
     if F.dim() != 3 or p_ext.dim() != 3:
         raise ValueError(f"tile_apply_kernel takes F [T, th, tw] and p_ext [C, rows, cols], "
                          f"got {tuple(F.shape)} and {tuple(p_ext.shape)}")
@@ -147,10 +164,10 @@ def tile_apply_kernel(F, triples, p_ext, ah: int, aw: int):
     alone = not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1
     lib = load_library(build=alone)
     table, starts = _launch_table(tuple(triples), C)
-    out = torch.empty((C, th, tw), dtype=torch.float32, device=p_ext.device)
+    out = torch.empty((C, th, tw), dtype=p_ext.dtype, device=p_ext.device)
     with torch.cuda.device(p_ext.device):
         err = lib.tile_apply_launch(
-            int(F.dtype == torch.bfloat16), ctypes.c_void_p(F.data_ptr()),
+            ftype, ctypes.c_void_p(F.data_ptr()),
             ctypes.c_void_p(p_ext.data_ptr()), ctypes.c_void_p(out.data_ptr()),
             ctypes.cast(table, ctypes.c_void_p), ctypes.cast(starts, ctypes.c_void_p),
             len(triples), C, th, tw, int(ah), int(aw),
@@ -216,7 +233,7 @@ def sharded_fused_grid_cg(meta: Dict, mesh, r0, pre, l_iterations, rz_tolerance,
     prem = pack(pre, meta) if pre_blocks is None else None
     ctcm = pack(ctc, meta) if ctc is not None else None
     kernel = not (interpret or vol) and b.device.type == "cuda"
-    Fa = F if kernel else F.float()
+    Fa = F.float() if F.dtype == torch.bfloat16 and not kernel else F
     op = tile_apply if kernel else tile_apply_reference
     applies = [0]
     before = dict(mesh.counts)

@@ -12,9 +12,10 @@ half:
   beyond the global edge is zeros: the port's operator reads zero outside
   the domain, where the JAX package's torus wrap reads values its folded
   masks multiply by zero;
-* :meth:`Mesh.all_reduce_dots`: dot products as float32 products summed in
-  float64 per tile, then one float64 ``all_reduce`` for any number of them,
-  rounded to float32 the same on every rank, so every rank takes the same
+* :meth:`Mesh.all_reduce_dots`: dot products as products in the vectors'
+  dtype (float32, or float64 for a float64 plan) summed in float64 per
+  tile, then one float64 ``all_reduce`` for any number of them, rounded to
+  the vectors' dtype the same on every rank, so every rank takes the same
   exits;
 * :class:`ShardingRules`: this rank's tile (a ceil split, uneven sizes
   allowed) and its extended region (the tile plus the stencil's reach,
@@ -205,9 +206,10 @@ class Mesh:
         return h if host else h.to(t.device)
 
     def all_reduce_dots(self, pairs: Sequence[tuple]) -> list:
-        """⟨x, y⟩ over the whole grid for each pair of tiles: float32
-        products summed in float64 per tile, one float64 all_reduce for all
-        of them, each rounded to float32 (``fused_cg._dot``'s rounding).
+        """⟨x, y⟩ over the whole grid for each pair of tiles: products in
+        the tiles' dtype summed in float64 per tile, one float64 all_reduce
+        for all of them, each rounded to the tiles' dtype (``fused_cg._dot``'s
+        rounding).
         Under gloo the dots of CUDA tiles stay on the host as 0-dim
         tensors: the loop's scalar algebra and its exit test then run
         there, and the vector updates take them as scalars, with no copy

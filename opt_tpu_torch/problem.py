@@ -249,19 +249,13 @@ def mesh_group_tables(idxs, names, n: int, device, dtype, max_offsets: int, rule
     return out
 
 
-def _refuse_graph_mesh(compiled: CompiledProblem, double_precision: bool,
-                       dynamic_topology: bool) -> None:
+def _refuse_graph_mesh(compiled: CompiledProblem, dynamic_topology: bool) -> None:
     """What a graph mesh cannot take yet raises, naming its ROADMAP.md item:
     it splits the 1-D vertex spaces of the graph slots into owner blocks,
-    its unknowns on any of them, in float32, for one topology."""
+    its unknowns on any of them, for one topology."""
     reg = compiled.registry
     if dynamic_topology:
         raise _mesh_not_ported("dynamic_topology=True")
-    if double_precision:
-        raise NotImplementedError(
-            "a float64 plan on a mesh is not ported yet: the sharded loop is float32 "
-            "(ROADMAP.md queue 1 item 8e)"
-        )
     grids = sorted({repr(d.ispace) for d in reg.images.values() if d.ispace.ndim != 1})
     if grids:
         raise NotImplementedError(
@@ -297,14 +291,14 @@ def _refuse_graph_mesh(compiled: CompiledProblem, double_precision: bool,
             raise _mesh_not_ported(f"the alias image {s.image!r} read at a graph slot")
 
 
-def _refuse_under_mesh(compiled: CompiledProblem, double_precision: bool,
-                       dynamic_topology: bool = False) -> None:
+def _refuse_under_mesh(compiled: CompiledProblem, dynamic_topology: bool = False) -> None:
     """What a mesh cannot take yet raises, naming its ROADMAP.md item: the
     sharded plan tiles one 2-D or 3-D grid index space along its first two
-    axes, or splits a graph's vertex spaces into owner blocks, in float32."""
+    axes, or splits a graph's vertex spaces into owner blocks, in float32 or
+    float64."""
     reg = compiled.registry
     if reg.graphs:
-        _refuse_graph_mesh(compiled, double_precision, dynamic_topology)
+        _refuse_graph_mesh(compiled, dynamic_topology)
         return
     spaces = {d.ispace for d in reg.images.values()}
     if len(spaces) != 1:
@@ -318,11 +312,6 @@ def _refuse_under_mesh(compiled: CompiledProblem, double_precision: bool,
         raise NotImplementedError(
             f"a mesh tiles a 2-D or 3-D grid of distinct dims, this spec's is {isp!r} "
             "(ROADMAP.md queue 1 item 8c)"
-        )
-    if double_precision:
-        raise NotImplementedError(
-            "a float64 plan on a mesh is not ported yet: the sharded loop is float32 "
-            "(ROADMAP.md queue 1 item 8e)"
         )
 
 
@@ -403,7 +392,7 @@ class Problem:
         compiled = compile_spec(self.spec_fn, dims, dtype)
         rules, plan_on = None, None
         if mesh is not None:
-            _refuse_under_mesh(compiled, double_precision,
+            _refuse_under_mesh(compiled,
                                bool(init_params is not None and init_params.dynamic_topology))
         if mesh is not None and mesh.size > 1:
             if mesh.device.type != dev.type:

@@ -350,6 +350,7 @@ class GaussNewtonSolver:
                     allow_split=not (batched or self.rules is not None
                                      or (self.ip.preconditioner == "block_jacobi"
                                          and self.compiled.use_preconditioner)),
+                    sharded=self.rules is not None,
                 )
             with phase("PCGInit1"):
                 r_terms = jtf_fn.r_terms

@@ -32,9 +32,8 @@ from __future__ import annotations
 import json
 from typing import Any, Dict
 
-import torch
 
-from ..ops import fused_cg
+from ..ops import fused_cg, sharded_cg
 
 HEADER = ("opt_tpu_torch plan report (the port has no HLO: this is the first step's "
           "linear solve as this plan runs it)")
@@ -49,7 +48,12 @@ def _plain(v):
     return None
 
 
-def _registers(path: str, instance: str, bf16: bool) -> Dict[str, Any]:
+# K5's instances by the key of _build.tile_apply_registers
+_TILE_KEYS = {"tile_apply_kernel<float>": "float", "tile_apply_kernel<__nv_bfloat16>": "bfloat16",
+              "tile_apply_kernel<double>": "double"}
+
+
+def _registers(path: str, instance: str) -> Dict[str, Any]:
     """The instance's (registers, spill store bytes, spill load bytes) from
     the built library's ptxas log, or None where it is not built here."""
     from ..ops import _build  # only where it is read: importing it builds nothing
@@ -58,7 +62,7 @@ def _registers(path: str, instance: str, bf16: bool) -> Dict[str, Any]:
     if log is None:
         return {"registers": None, "spill_store_bytes": None, "spill_load_bytes": None}
     if path == "sharded loop":
-        regs = _build.tile_apply_registers(log).get("bfloat16" if bf16 else "float")
+        regs = _build.tile_apply_registers(log).get(_TILE_KEYS[instance])
     else:
         regs = {fused_cg.instance_name(*k): v
                 for k, v in _build.instance_registers(log).items()}.get(instance)
@@ -98,7 +102,6 @@ def plan_summary(plan, inputs, sp) -> Dict[str, Any]:
            "device": str(plan.device), "dtype": str(plan.compiled.dtype).replace("torch.", ""),
            "path": path, "fused_fallback": fallback, "cg_variant": solver.ip.cg_variant,
            "preconditioner": solver.ip.preconditioner, "instance": None, "route": None}
-    bf16 = False
     if path == "sharded graph loop":
         out["route"] = _graph_mesh_route(plan, graphs)
         if meta is not None:
@@ -113,7 +116,6 @@ def plan_summary(plan, inputs, sp) -> Dict[str, Any]:
     if meta is not None:
         lead = 1 if meta.get("batch") else 0
         rem = meta.get("rem")
-        bf16 = meta["F"].dtype == torch.bfloat16
         out.update(fields=int(meta["F"].shape[lead]),
                    field_dtype=str(meta["F"].dtype).replace("torch.", ""),
                    channels=int(meta["ctot"]), triples=len(meta["triples"]),
@@ -132,14 +134,13 @@ def plan_summary(plan, inputs, sp) -> Dict[str, Any]:
         # a 3-D tile's apply is plain PyTorch (ops/sharded_cg.py::tile_apply_reference)
         rules = plan.rules
         if path == "sharded loop":
-            out["instance"] = ("tile_apply_kernel<__nv_bfloat16>" if bf16
-                               else "tile_apply_kernel<float>")
+            out["instance"] = sharded_cg.tile_instance(meta["F"])
         out["route"] = {"mesh": list(rules.mesh.shape), "rank": rules.mesh.rank,
                         "tile": [list(t) for t in rules.tile],
                         "region": [list(r) for r in rules.region], "halo": list(rules.halo),
                         "whole": list(rules.whole)}
     if out["instance"] is not None:
-        out.update(_registers(path, out["instance"], bf16))
+        out.update(_registers(path, out["instance"]))
     return out
 
 

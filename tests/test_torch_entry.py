@@ -17,8 +17,8 @@ at 18.7727 (JAX) and 19.2120 (port), float64 at 18.5806. Its float32 cost
 is held finite and below the initial cost; the method is held in float64,
 where the two packages' single-device solves of the same step agree at
 1e-8 (the JAX side in a process of its own,
-tests/float32_limits.py::jax_float64; the port's mesh is float32 only,
-ROADMAP.md queue 1 item 8e). A rank that raises makes the parent raise;
+tests/float32_limits.py::jax_float64). A rank that raises makes the
+parent raise;
 without ``device`` both entry points plan on the card and raise where CUDA
 is missing.
 """

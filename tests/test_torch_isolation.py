@@ -173,17 +173,18 @@ def test_fused_grid_cg_refuses_other_devices():
                                      ({"dynamic_topology": True}, "item 4")])
 def test_plan_takes_the_reference_keywords_and_raises(kw, item):
     """Problem.plan takes ``mesh=`` and ``dynamic_topology=`` as the JAX
-    package does. A graph spec plans on a mesh (item 8b); what a mesh does
-    not take yet raises before the mesh is read, naming its roadmap item: a
-    float64 graph plan on a mesh (item 8e). A dynamic topology (item 4's
-    first bullet) is ported: the graph plan takes it."""
+    package does. A graph spec plans on a mesh (item 8b), in float64 too;
+    what a mesh does not take yet raises before the mesh is read, naming
+    its roadmap item: a dynamic topology on a mesh (item 8e). A dynamic
+    topology (item 4's first bullet) is ported: the graph plan takes it."""
     if "dynamic_topology" in kw:
         plan = ott.Problem(tspecs.arap_mesh_deformation).plan(dims={"N": 8}, device="cpu", **kw)
         assert plan.dynamic_topology and plan.solver.ip.dynamic_topology is True
         return
     with pytest.raises(NotImplementedError, match=item):
         ott.Problem(tspecs.arap_mesh_deformation).plan(dims={"N": 8}, device="cpu",
-                                                      double_precision=True, **kw)
+                                                      double_precision=True,
+                                                      dynamic_topology=True, **kw)
 
 
 def test_plan_takes_the_default_keywords():
