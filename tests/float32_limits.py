@@ -21,6 +21,13 @@ The bounds:
   the step's largest entry, and the cost after the step within k·κ·u of the
   float64 cost (first order in u). κ comes from the dense float64 Jacobian
   (:func:`jacobi_condition`); an LM system's damping only lowers it.
+* :func:`capped_cg_reach`: a solve whose CG stops at its iteration cap
+  before its rz floor. Its float32 rounding delays the convergence of CG
+  (finite-precision CG follows exact CG on a nearby problem, later:
+  Greenbaum 1989), so its capped step is the float64 one of fewer
+  iterations; up to one fewer a step, the float64 solve capped one lower
+  bounds that part. To it adds the k·κ·u reach above, relative to the
+  whole solve's largest move of an unknown.
 * the cotangent weights' bound is derived where it is used
   (``tests/test_torch_graph_specs.py``).
 """
@@ -52,6 +59,14 @@ def jacobi_condition(J) -> float:
 def cg_bound(iterations: int, kappa: float) -> float:
     """k·κ·u: the relative float32 reach of a PCG solve of k iterations."""
     return float(iterations) * float(kappa) * U32
+
+
+def capped_cg_reach(iterations: int, kappa: float, move: float, one_fewer: float) -> float:
+    """The float32 reach of a solve capped below its rz floor: k·κ·u times
+    ``move`` (the float64 solve's largest move of an unknown from its
+    inputs) plus ``one_fewer``, the largest difference between the float64
+    solve and the same solve capped one CG iteration a step lower."""
+    return cg_bound(iterations, kappa) * float(move) + float(one_fewer)
 
 
 def jax_float64(module: str, func: str) -> dict:

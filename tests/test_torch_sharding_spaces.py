@@ -21,7 +21,11 @@ and rank against rank (bit for bit). The tolerances are those of
 tests/test_torch_sharding.py's cases: the pinned ones (1e-4 on the cost
 and the unknowns) as its poisson, radius-2 and pinned arap cases, the
 block-Jacobi and auto ones (1e-3) as its image_warping and arap_auto
-cases. Also checked: the 3-D region's halo exchange against slicing the
+cases. U = 3's Y is held in float64 instead (F64_LEGS): the float32 Ys of
+every solve land 1.4e-4 to 2.7e-4 from the float64 Y, past 1e-4, while in
+float64 the packages and the mesh agree to 1e-12; each float32 Y is then
+held to the float64 one by the float32 reach of its capped solve
+(tests/float32_limits.py::capped_cg_reach). Also checked: the 3-D region's halo exchange against slicing the
 global tensor, the 3-D tile apply against the whole-grid apply, the
 exchange widths M against a count from the global tables, one all_to_all
 a CG apply, the plan report, a 3-D checkpoint, and the three mesh
@@ -51,6 +55,7 @@ from opt_tpu_torch.ops import sharded_cg
 from opt_tpu_torch.ops.fused_cg import _stencil_apply
 from opt_tpu_torch.parallel import mesh as port_mesh
 from opt_tpu_torch.parallel.mesh import ShardingRules
+from tests.float32_limits import capped_cg_reach, jacobi_condition
 
 torch.set_num_threads(2)
 
@@ -153,6 +158,11 @@ CASES = {
 }
 
 
+# the cases also solved in float64, whose float32 unknowns are held to the
+# float64 ones by the float32 reach (test_mesh_solve_matches_jax_mesh_solve)
+F64_LEGS = ("two_space_u3",)
+
+
 def inputs_of(case):
     spec = CASES[case][0]
     return case_inputs(case if case == "two_space_u3" else spec)
@@ -216,6 +226,19 @@ for name, (spec, kind, ip, _single, nl, li, extra, _tol, unknown) in ns["CASES"]
         checkpoint.restore(ck, fresh, inputs=dict(inputs))
         got["restored"] = all(torch.equal(fresh.unknowns[k], v) for k, v in res.unknowns.items())
     out[name] = got
+for name in ns["F64_LEGS"]:
+    spec, kind, ip, _single, nl, li, extra, _tol, unknown = ns["CASES"][name]
+    dims, inputs = ns["inputs_of"](name)
+    plan = ot.Problem(specs[spec], kind=kind).plan(
+        dims=dims, mesh=mesh, device="cpu", double_precision=True,
+        init_params=ot.InitializationParameters(**ip))
+    res = plan.solve(dict(inputs), nIterations=nl, lIterations=li, **extra)
+    if rank == 0:
+        np.save(f"{{out_dir}}/{{name}}_f64.npy", res.unknowns[unknown].numpy())
+    out[name + "_f64"] = {{"cost": res.final_cost, "lin": res.num_linear_iterations,
+                          "fallback": res.fused_fallback,
+                          "loops": [st["loop"] for st in plan.solver.cg_stats],
+                          "dtype": str(res.unknowns[unknown].dtype)}}
 # the 3-D halo: a 3-channel 9x8x5 tile extended by one row and two columns
 g = torch.as_tensor(np.random.RandomState(7).rand(3, 9, 8, 5).astype("f4"))
 rules = ShardingRules(mesh, (9, 8, 5), (1, 2))
@@ -274,20 +297,24 @@ sys.path.insert(0, sys.argv[1])
 import opt_tpu as ot
 from opt_tpu.parallel.mesh import make_mesh
 
-shared, out = sys.argv[2:4]
+shared, out, precision = sys.argv[2:5]
+f64 = precision == "float64"
+if f64:  # process-global: the float64 legs run in a process of their own
+    ot.enable_double_precision()
 ns = {}
 exec(open(shared).read(), ns)
 mesh = make_mesh(jax.devices()[:4], shape=(2, 2))
 specs = ns["specs"](ot)
 got = {}
 for name, (spec, kind, ip, _single, nl, li, extra, _tol, unknown) in ns["CASES"].items():
-    if spec == "volumetric":
+    if spec == "volumetric" or (f64 and name not in ns["F64_LEGS"]):
         continue
     dims, inputs = ns["inputs_of"](name)
     res = ot.Problem(specs[spec], kind=kind).plan(
-        dims=dims, mesh=mesh,
+        dims=dims, mesh=mesh, double_precision=f64,
         init_params=ot.InitializationParameters(validate_fused_jtj=False, **ip),
     ).solve(inputs, nIterations=nl, lIterations=li, **extra)
+    name = name + "_f64" if f64 else name
     got[name + "__cost"] = np.float64(res.final_cost)
     got[name + "__lin"] = np.int64(res.num_linear_iterations)
     got[name + "__X"] = np.asarray(res.unknowns[unknown])
@@ -311,14 +338,16 @@ GRAPH = [k for k in CASES if k not in GRID]
 def jax_mesh_solves(tmp_path):
     """The JAX package's 2x2 mesh solve of every case: the grid cases here
     (the tile kernel declines a 3-D grid, so XLA's loop runs), the graph
-    cases in a process of their own (JAX_GRAPH)."""
+    cases in a process of their own (JAX_GRAPH), the float64 legs in
+    another."""
     import jax
 
     (tmp_path / "shared.py").write_text(SHARED)
-    out_file = tmp_path / "jax_graph.npz"
-    graph = subprocess.Popen(
-        [sys.executable, "-c", JAX_GRAPH, REPO, str(tmp_path / "shared.py"), str(out_file)],
+    out_files = {p: tmp_path / f"jax_graph_{p}.npz" for p in ("float32", "float64")}
+    procs = {p: subprocess.Popen(
+        [sys.executable, "-c", JAX_GRAPH, REPO, str(tmp_path / "shared.py"), str(f), p],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for p, f in out_files.items()}
     try:
         mesh = jax_make_mesh(jax.devices()[:WORLD], shape=(2, 2))
         specs = NS["specs"](ot)
@@ -332,13 +361,15 @@ def jax_mesh_solves(tmp_path):
             ).solve(inputs, nIterations=nl, lIterations=li, **extra)
             out[name] = (res.final_cost, res.num_linear_iterations,
                          np.asarray(res.unknowns[unknown]))
-        log = graph.communicate(timeout=900)[0]
+        logs = {p: proc.communicate(timeout=900)[0] for p, proc in procs.items()}
     finally:
-        if graph.poll() is None:
-            graph.kill()
-    assert graph.returncode == 0, log[-4000:]
-    got = np.load(out_file)
-    for name in GRAPH:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+    for p, proc in procs.items():
+        assert proc.returncode == 0, logs[p][-4000:]
+    got = {**np.load(out_files["float32"]), **np.load(out_files["float64"])}
+    for name in GRAPH + [n + "_f64" for n in NS["F64_LEGS"]]:
         out[name] = (float(got[name + "__cost"]), int(got[name + "__lin"]), got[name + "__X"])
     return out
 
@@ -381,18 +412,23 @@ def world(tmp_path_factory):
 _SINGLE = {}
 
 
-def port_single(name):
+def port_single(name, double_precision=False, l_iterations=None):
     """The port's solve of a case on one device (the CPU), with the case's
-    single-rank variants: (final cost, CG count, the compared unknown)."""
-    if name not in _SINGLE:
+    single-rank variants, in float32 or float64, at the case's CG
+    iterations a step or ``l_iterations``: (final cost, CG count, the
+    compared unknown, the move of every unknown from the inputs)."""
+    key = (name, double_precision, l_iterations)
+    if key not in _SINGLE:
         spec, kind, _ip, single, nl, li, extra, _tol, unknown = CASES[name]
         dims, inputs = NS["inputs_of"](name)
         res = ott.Problem(NS["specs"](ott)[spec], kind=kind).plan(
-            dims=dims, device="cpu", init_params=ott.InitializationParameters(**single),
-        ).solve(inputs, nIterations=nl, lIterations=li, **extra)
-        _SINGLE[name] = (res.final_cost, res.num_linear_iterations,
-                         res.unknowns[unknown].numpy())
-    return _SINGLE[name]
+            dims=dims, device="cpu", double_precision=double_precision,
+            init_params=ott.InitializationParameters(**single),
+        ).solve(inputs, nIterations=nl, lIterations=l_iterations or li, **extra)
+        move = max(float(np.abs(v.numpy() - inputs[k]).max()) for k, v in res.unknowns.items())
+        _SINGLE[key] = (res.final_cost, res.num_linear_iterations,
+                        res.unknowns[unknown].numpy(), move)
+    return _SINGLE[key][:3]
 
 
 def _held(name, got_cost, got_X, cost, X):
@@ -402,26 +438,86 @@ def _held(name, got_cost, got_X, cost, X):
     assert np.abs(got_X - X).max() <= atol, np.abs(got_X - X).max()
 
 
+F64_RTOL, F64_ATOL = 1e-9, 1e-9  # a float64 solve against another (5e-13 apart)
+
+
+def _f64_held(got, got_X, cost, lin, X):
+    assert got["lin"] == lin, (got["lin"], lin)
+    assert np.isclose(got["cost"], cost, rtol=F64_RTOL), (got["cost"], cost)
+    assert got_X.shape == X.shape and got_X.dtype == np.float64
+    assert np.abs(got_X - X).max() <= F64_ATOL, np.abs(got_X - X).max()
+
+
+def float32_reach(name):
+    """The float32 reach of a float64 leg's unknown: the capped solve's
+    (tests/float32_limits.py::capped_cg_reach) from the port's float64
+    single-rank solves at the case's CG iterations a step and one fewer,
+    and the Jacobi-scaled condition number of its float64 Jacobian at the
+    inputs."""
+    spec, kind, _ip, single, nl, li, _extra, _tol, _unknown = CASES[name]
+    dims, inputs = NS["inputs_of"](name)
+    plan = ott.Problem(NS["specs"](ott)[spec], kind=kind).plan(
+        dims=dims, device="cpu", double_precision=True,
+        init_params=ott.InitializationParameters(**single))
+    kappa = jacobi_condition(plan.dump_jacobian(dict(inputs), dense=True))
+    _c, lin, X64 = port_single(name, True)
+    move = _SINGLE[(name, True, None)][3]
+    fewer = port_single(name, True, li - 1)[2]
+    return capped_cg_reach(lin, kappa, move, float(np.abs(X64 - fewer).max()))
+
+
+def _f32_held(name, got_cost, got_X, cost, X64):
+    """A float32 result of a float64 leg: the cost at the case's rtol, the
+    unknown within the float32 reach of the float64 one."""
+    rtol, _atol = CASES[name][7]
+    assert np.isclose(got_cost, cost, rtol=rtol), (got_cost, cost)
+    assert got_X.shape == X64.shape
+    reach = float32_reach(name)
+    assert np.abs(got_X - X64).max() <= reach, (np.abs(got_X - X64).max(), reach)
+
+
 @pytest.mark.parametrize("name", list(CASES))
 def test_mesh_solve_matches_jax_mesh_solve(world, name):
     """The port on a 2x2 gloo world against the JAX package on a 2x2
     device mesh, under the same settings: equal CG counts, the cost and
-    the unknowns at the case's tolerances."""
+    the unknowns at the case's tolerances. A float64 leg (F64_LEGS): the
+    float64 mesh solves at 1e-9 with equal CG counts, and each float32
+    mesh solve's unknown (the port's, the JAX package's) within the float32
+    reach of the port's float64 one, their costs at the case's rtol."""
     cost, lin, X = world["jax"][name]
     got = world["ranks"][0][name]
     assert got["lin"] == lin, (got["lin"], lin)
-    _held(name, got["cost"], np.load(world["dir"] / f"{name}.npy"), cost, X)
+    got_X = np.load(world["dir"] / f"{name}.npy")
+    if name not in NS["F64_LEGS"]:
+        _held(name, got["cost"], got_X, cost, X)
+        return
+    f64, X64 = world["ranks"][0][name + "_f64"], np.load(world["dir"] / f"{name}_f64.npy")
+    _f64_held(f64, X64, *world["jax"][name + "_f64"])
+    for got_cost, got_X32 in ((got["cost"], got_X), (cost, X)):
+        _f32_held(name, got_cost, got_X32, f64["cost"], X64)
 
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_mesh_solve_matches_single_rank(world, name):
     """The port's mesh solve against its own single-rank solve with the
     mesh's resolved variants: equal CG counts, the cost and the unknowns at
-    the case's tolerances."""
+    the case's tolerances. A float64 leg: the float64 mesh solve against
+    the float64 single rank at 1e-9 with equal CG counts, and the float32
+    mesh and single-rank unknowns within the float32 reach of the float64
+    one."""
     cost, lin, X = port_single(name)
     got = world["ranks"][0][name]
     assert got["lin"] == lin, (got["lin"], lin)
-    _held(name, got["cost"], np.load(world["dir"] / f"{name}.npy"), cost, X)
+    got_X = np.load(world["dir"] / f"{name}.npy")
+    if name not in NS["F64_LEGS"]:
+        _held(name, got["cost"], got_X, cost, X)
+        return
+    f64, X64 = world["ranks"][0][name + "_f64"], np.load(world["dir"] / f"{name}_f64.npy")
+    assert f64["fallback"] is None and f64["dtype"] == "torch.float64"
+    assert set(f64["loops"]) == {"sharded graph loop"}
+    _f64_held(f64, X64, *port_single(name, True))
+    for got_cost, got_X32 in ((got["cost"], got_X), (cost, X)):
+        _f32_held(name, got_cost, got_X32, f64["cost"], X64)
 
 
 @pytest.mark.parametrize("name", list(CASES))
