@@ -218,6 +218,22 @@ entry (opt_tpu_torch/entry.py): entry()'s one GN step of image_warping
 64x64 bitwise a one-step Plan.solve, and dryrun_multichip(4) on 2x2 gloo
 ranks on the card, the tile kernel launched at every CG apply of both grid
 solves on every rank.
+The options a mesh takes since slice 27 (SHARDED_OPTION_CASES), on the same
+ranks after the other sharded cases: the two bundled specs no other
+sharded case runs, intrinsic_image_decomposition 512x512 GN 6x30 (K5 at
+every apply) and robust_nonrigid_alignment on 10,000 vertices GN 8x50
+(owner blocks), their first steps held to the single-device solve on the
+card; float64 plans, poisson 512x512x4 GN 1x2000 (K5's float64 instance,
+tile_apply_kernel<double>, at every apply, held bitwise to its twin on
+poisson's 256x256 tile and timed against its bound) and arap36k GN 2x100,
+each held to the single-device float64 solve on the card at 1e-9 with
+equal CG counts; the composed operator (use_fused_jtj=False) on
+shape_from_shading 512x512 GN 8x10 and arap36k GN 2x100, no kernel, their
+first steps held to the single-device composed solve with equal CG counts;
+and poisson 512x512x4 GN 1x2000 timed (collect_per_kernel_timing): bitwise
+the untimed sharded solve, rank 0's table printed, and each rank's ms a
+sharded CG iteration split into K5, the halo phases, the all_reduces and
+the rest (a sharded_split line).
 It exits non-zero, with no result line, when CUDA is not available or any
 check fails. It imports neither JAX nor opt_tpu.
 """
@@ -733,6 +749,39 @@ SHARDED_READ_CASES = [
      PINNED, 1),
 ]
 SHARDED_ITER_RTOL = 0.01  # a sharded solve's CG count against the single-device one
+# The options a mesh takes since slice 27, solved by the same ranks after
+# SHARDED_READ_CASES: item 8f's two bundled specs at bench.py's sizes
+# (intrinsic 512^2 GN 6x30, bench.py:664, K5 at every apply; robust10k GN
+# 8x50, bench.py:588, owner blocks), their first steps within
+# FIRST_STEPS_RTOL and CG counts within SHARDED_ITER_RTOL of the
+# single-device solve on the card; float64 plans (poisson 512^2x4 GN
+# 1x2000 on K5's float64 instance, arap36k GN 2x100 on owner blocks), every
+# step's cost within F64_MESH_RTOL of the single-device float64 solve's on
+# the card, the CG counts equal; the composed operator (use_fused_jtj=False,
+# no kernel: shape_from_shading 512^2 GN 8x10, arap36k GN 2x100), its
+# first steps within FIRST_STEPS_RTOL of the single-device composed solve,
+# the CG counts equal. Each: label, name (option_case_problem), kind,
+# nonlinear x CG iterations, InitializationParameters, float64, the steps
+# held, the CG counts' relative tolerance.
+F64_MESH_RTOL = 1e-9
+COMPOSED = dict(PINNED, use_fused_jtj=False)
+SHARDED_OPTION_CASES = [
+    (f"intrinsic{INTR_N} GN {INTR_NL}x{INTR_LI}", "intrinsic", "gaussNewtonGPU", INTR_NL,
+     INTR_LI, PINNED, False, 2, SHARDED_ITER_RTOL),
+    ("robust10k GN 8x50", "robust", "gaussNewtonGPU", 8, 50, PINNED_GRAPH, False, 2,
+     SHARDED_ITER_RTOL),
+    (f"poisson{MAIN_N}x4 GN 1x2000 float64", "poisson", "gaussNewtonGPU", 1, 2000, PINNED, True,
+     1, 0.0),
+    (f"arap36k GN 2x{GRAPH_LI} float64", "arap", "gaussNewtonGPU", 2, GRAPH_LI, PINNED_GRAPH,
+     True, 2, 0.0),
+    (f"shape_from_shading{SFS_N} GN {SFS_NL}x{SFS_LI} composed", "sfs", "gaussNewtonGPU",
+     SFS_NL, SFS_LI, COMPOSED, False, 2, 0.0),
+    (f"arap36k GN 2x{GRAPH_LI} composed", "arap", "gaussNewtonGPU", 2, GRAPH_LI,
+     dict(COMPOSED, edge_reorder=False), False, 2, 0.0),
+]
+# the sharded case solved once more with collect_per_kernel_timing, whose
+# rows split a sharded CG iteration (poisson 512^2x4 GN 1x2000)
+TIMED_SHARDED_CASE = 0  # an index into SHARDED_CASES
 SHARDED_TIMEOUT_S = 600  # the ranks' whole run
 OUT_DIR = os.path.join("build", "profiles")  # git-ignored
 # The route profiles (template and tiled) of image_warping 512^2 (GN, LM,
@@ -3141,13 +3190,14 @@ def forced_split(planes, dims):
 
 def tiles_of(meta):
     """The tiles ((r0, r1), (c0, c1)) of a 2x2 split of a meta's grid, the
-    fields' halo (ah, aw), and a random p over the grid with its
-    zero-padded extension."""
+    fields' halo (ah, aw), and a random p over the grid (float64 with
+    float64 fields, else float32) with its zero-padded extension."""
     F = meta["F"]
     ah, aw = sharded_cg.halo_widths(meta["triples"])
     H, W = int(F.shape[1]), int(F.shape[2])
     g = torch.Generator(device=F.device).manual_seed(0)
-    p = torch.randn((int(meta["ctot"]), H, W), generator=g, device=F.device)
+    dt = torch.float64 if F.dtype == torch.float64 else torch.float32
+    p = torch.randn((int(meta["ctot"]), H, W), generator=g, device=F.device, dtype=dt)
     pad = torch.nn.functional.pad(p, (aw, aw, ah, ah))
     tiles = [(rb, cb) for rb in split_bounds(H, MESH_SHAPE[0]) for cb in split_bounds(W, MESH_SHAPE[1])]
     return tiles, (ah, aw), p, pad
@@ -3168,7 +3218,7 @@ def tile_checks(label, meta):
     |kernel - twin|."""
     tiles, (ah, aw), p, pad = tiles_of(meta)
     triples = meta["triples"]
-    whole = fused_cg._stencil_apply(meta["F"].float(), triples, p)
+    whole = fused_cg._stencil_apply(meta["F"].to(p.dtype), triples, p)
     err = 0.0
     for tile in tiles:
         Ft, pe = tile_operands(meta, tile, (ah, aw), pad)
@@ -3181,6 +3231,7 @@ def tile_checks(label, meta):
             raise RuntimeError(f"tile_apply {label} tile {tile}: not bitwise equal to the twin "
                                f"and the whole-grid apply (max |diff| {err})")
     log(json.dumps({"check": "tile_apply", "case": label, "tiles": len(tiles),
+                    "instance": sharded_cg.tile_instance(meta["F"]),
                     "tile_shapes": [[r1 - r0, c1 - c0] for (r0, r1), (c0, c1) in tiles],
                     "halo": [ah, aw], "fields": int(meta["F"].shape[0]),
                     "triples": len(triples), "field_dtype": str(meta["F"].dtype),
@@ -3192,9 +3243,10 @@ def time_tile_apply(label, meta, gpu, reps=200):
     """K5's device ms per apply on the first tile of a 2x2 split (the
     profiler's kernel time; CUDA events beside it), its twin's ms (events),
     and the apply's bound: the larger of its bytes (the tile's fields, the
-    halo-extended p and the output, each once) over the memory rate and its
-    2 flops a triple a point over the float32 peak. (ms, plain ms, bound ms,
-    bound by)."""
+    halo-extended p and the output, each once, at their element sizes) over
+    the memory rate and its 2 flops a triple a point over the peak of their
+    type (float64's for a float64 apply, else float32's). (ms, plain ms,
+    bound ms, bound by)."""
     tiles, halo, _p, pad = tiles_of(meta)
     Ft, pe = tile_operands(meta, tiles[0], halo, pad)
     triples = meta["triples"]
@@ -3206,11 +3258,14 @@ def time_tile_apply(label, meta, gpu, reps=200):
     event_ms = time_cuda(call, reps)
     ms_k = kernel_device_ms(call, reps, 1, kernel="tile_apply_kernel")
     ms_t = time_cuda(lambda: sharded_cg.tile_apply_reference(Ft, triples, pe, *halo), 20)
-    n_bytes = Ft.numel() * Ft.element_size() + pe.numel() * 4 + int(meta["ctot"]) * th * tw * 4
+    n_bytes = (Ft.numel() * Ft.element_size()
+               + (pe.numel() + int(meta["ctot"]) * th * tw) * pe.element_size())
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = 2 * len(triples) * th * tw / F32_FLOPS
+    flops = F64_FLOPS if pe.dtype == torch.float64 else F32_FLOPS
+    t_ops = 2 * len(triples) * th * tw / flops
     bound_ms, by = max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
     log(json.dumps({"timing": f"tile_apply {label}", "gpu": gpu, "tile": [th, tw],
+                    "instance": sharded_cg.tile_instance(Ft),
                     "halo": list(halo), "kernel_ms_per_apply": ms_k,
                     "kernel_event_ms_per_apply": event_ms, "twin_ms_per_apply": ms_t,
                     "bound_ms_per_apply": bound_ms, "bound_by": by, "bytes": n_bytes,
@@ -3291,7 +3346,81 @@ def read_case_solve(mesh, device, name, n, nl, li, ip):
     }
 
 
-def sharded_work(world, device, cases, mesh_cases=(), read_cases=()):
+def option_case_problem(name):
+    """The spec, dims and inputs of a SHARDED_OPTION_CASES name."""
+    if name == "intrinsic":
+        return intrinsic_image_decomposition, _grid(INTR_N), intrinsic_inputs(INTR_N)
+    if name == "robust":
+        return (robust_nonrigid_alignment, *robust_inputs(SPEC_SIDE))
+    if name == "poisson":
+        return poisson_image_editing, _grid(MAIN_N), bench_poisson_inputs(MAIN_N)
+    if name == "sfs":
+        return shape_from_shading, _grid(SFS_N), sfs_inputs(SFS_N)
+    return (arap_mesh_deformation, *arap_grid_inputs(ARAP_SIDE))
+
+
+def _digest(unknowns):
+    """SHA-256 of a solve's unknowns, in name order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(unknowns):
+        h.update(unknowns[k].contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def option_case_solve(mesh, device, spec, kind, dims, inputs, nl, li, ip, dbl=False,
+                      timed=False):
+    """One rank's solve of a sharded case through the public API, in
+    float64 where ``dbl``, timed (collect_per_kernel_timing) where
+    ``timed``: the kernels' launch counts and the mesh's counts set to 0
+    just before the solve and read just after. Returns its costs, CG counts
+    (per step too), K5's and the CG kernels' launches, the loops it ran,
+    the mesh's counts, ms of the sharded loops, walls, the unknowns'
+    finiteness and digest, the plan report and, timed, the timer's rows
+    {row: [entries, total ms]} and what the solve printed."""
+    import io
+
+    init = ot.InitializationParameters(**ip, collect_per_kernel_timing=timed)
+    plan = ot.Problem(spec, kind=kind).plan(dims=dims, mesh=mesh, device=device.type,
+                                            double_precision=dbl, init_params=init)
+    fused_cg.reset_launch_counts()
+    sharded_cg.reset_launch_counts()
+    mesh.reset_counts()
+    plan.solver.cg_stats.clear()
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        res = plan.solve(dict(inputs), nIterations=nl, lIterations=li)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    stats = plan.solver.cg_stats
+    out = {
+        "cost": res.final_cost, "costs": res.costs, "lin": res.num_linear_iterations,
+        "steps": res.num_iterations, "fused_fallback": res.fused_fallback,
+        "tile_kernel_launches": sharded_cg.tile_apply_kernel.launches,
+        "cg_kernel_launches": sum(fused_cg.fused_grid_cg_kernel.launches.values()),
+        "iterations": [st["iterations"] for st in stats],
+        "applies": [st["applies"] for st in stats],
+        "loops": sorted({st["loop"] for st in stats}), "kernel": [st["kernel"] for st in stats],
+        **{k: [st[k] for st in stats] for k in ("all_to_all", "all_reduce", "p2p_phases")},
+        "solve_counts": dict(mesh.counts), "cg_ms": sum(st["s"] for st in stats) * 1e3,
+        "wall_ms": wall_ms, "solve_ms": res.wall_time_s * 1e3,
+        "dtype": str(plan.compiled.dtype),
+        "finite": all(bool(torch.isfinite(v).all()) for v in res.unknowns.values()),
+        "digest": _digest(res.unknowns),
+        "plan": plan_summary(plan, inputs, plan.solver_params),
+    }
+    if timed:
+        out["rows"] = {k: [v.count, v.total_ms] for k, v in plan._timing_phases.items()}
+        out["instances"] = dict(plan._timing_instances)
+        out["printed"] = printed.getvalue()
+    return out
+
+
+def sharded_work(world, device, cases, mesh_cases=(), read_cases=(), option_cases=(),
+                 timed_case=None):
     """One rank's part of the sharded solves, run by a rank that
     opt_tpu_torch.entry.start_ranks started in a gloo world of ``world``:
     takes its place in the 2x2 mesh on ``device`` and solves every case
@@ -3301,8 +3430,11 @@ def sharded_work(world, device, cases, mesh_cases=(), read_cases=()):
     (``read_cases``, SHARDED_READ_CASES' form, :func:`read_case_solve`)
     and the graph, 3-D and several-space cases (``mesh_cases``,
     SHARDED_MESH_CASES' form) likewise, the latter with the fused kernels'
-    launch counts. Returns {cases, read_cases, mesh_cases, all_reduce_us,
-    halo_phase_us}."""
+    launch counts; then the options a mesh takes since slice 27
+    (``option_cases``, SHARDED_OPTION_CASES' form) and ``timed_case``
+    (an index into ``cases``) once more with collect_per_kernel_timing
+    (:func:`option_case_solve`). Returns {cases, read_cases, mesh_cases,
+    option_cases, timed, all_reduce_us, halo_phase_us}."""
     import torch.distributed as dist
 
     from opt_tpu_torch.parallel import make_mesh
@@ -3338,6 +3470,7 @@ def sharded_work(world, device, cases, mesh_cases=(), read_cases=()):
             "variant": [plan.solver.ip.cg_variant, plan.solver.ip.preconditioner],
             "unknowns_ok": all(tuple(v.shape[:2]) == (n, n) and bool(torch.isfinite(v).all())
                                for v in res.unknowns.values()),
+            "digest": _digest(res.unknowns),
             # the plan report, every rank together (its first cost is a
             # sum over the ranks)
             "plan": plan_summary(plan, inputs, plan.solver_params),
@@ -3380,6 +3513,17 @@ def sharded_work(world, device, cases, mesh_cases=(), read_cases=()):
                                for k, v in res.unknowns.items()),
             "plan": plan_summary(plan, inputs, plan.solver_params),
         }
+    out["option_cases"] = {}
+    for label, name, kind, nl, li, ip, dbl, _first, _count_rtol in option_cases:
+        spec, dims, inputs = option_case_problem(name)
+        out["option_cases"][label] = option_case_solve(mesh, dev, spec, kind, dims, inputs, nl,
+                                                       li, ip, dbl)
+    if timed_case is not None:
+        label, name, kind, n, nl, li, ip = cases[timed_case]
+        spec = poisson_image_editing if name == "poisson" else image_warping
+        inputs = bench_poisson_inputs(n) if name == "poisson" else bench_image_warping_inputs(n)
+        out["timed"] = option_case_solve(mesh, dev, spec, kind, _grid(n), inputs, nl, li, ip,
+                                         timed=True)
     # what an iteration's communication costs here: one all_reduce of
     # three dots, one halo phase of a 256x256x4 tile (its strips through
     # the host), each the mean of 200
@@ -3475,10 +3619,10 @@ def sharded_main_paths(handle, single, gpu):
     return ranks, launches
 
 
-def single_steps(spec, kind, dims, inputs, nl, li, ip):
+def single_steps(spec, kind, dims, inputs, nl, li, ip, double_precision=False):
     """A single-device solve on the card through the stepwise API: (each
     step's cost, each step's CG count, the final cost)."""
-    plan = ot.Problem(spec, kind=kind).plan(dims=dims,
+    plan = ot.Problem(spec, kind=kind).plan(dims=dims, double_precision=double_precision,
                                             init_params=ot.InitializationParameters(**ip))
     plan.set_solver_parameters({"nIterations": nl, "lIterations": li})
     plan.init(dict(inputs))
@@ -3681,6 +3825,158 @@ def sharded_read_main_paths(ranks, single, gpu):
                           f"against {s_finals} after {s_lin}")
         if faults:
             raise RuntimeError(f"sharded {label}: " + "; ".join(faults))
+
+
+def sharded_option_references():
+    """The single-device solves on the card that SHARDED_OPTION_CASES are
+    held to, under the same settings (edge_reorder aside), through the
+    stepwise API: label -> (the held steps' costs, their CG counts). A
+    float64 case's every step (the eager loop: no float64 instance of a
+    fused CG kernel), a composed case's first steps (the eager loop on the
+    composed operator), item 8f's first steps (the fused kernels)."""
+    out = {}
+    for label, name, kind, nl, li, ip, dbl, n_first, _rtol in SHARDED_OPTION_CASES:
+        spec, dims, inputs = option_case_problem(name)
+        single_ip = {k: v for k, v in ip.items() if k != "edge_reorder"}
+        costs, counts, _final = single_steps(spec, kind, dims, inputs, n_first, li, single_ip,
+                                             double_precision=dbl)
+        out[label] = (costs[:n_first], counts[:n_first])
+    return out
+
+
+def sharded_option_main_paths(ranks, single, gpu):
+    """The options a mesh takes since slice 27 (SHARDED_OPTION_CASES), as
+    the sharded ranks solved them, held to the single-device solves on the
+    card (``single``: sharded_option_references): the held steps' costs
+    within F64_MESH_RTOL (float64) or FIRST_STEPS_RTOL, their CG counts
+    within the case's tolerance (0: equal). Every rank equal to rank 0, its
+    unknowns bitwise among them and finite; no fallback; the loop and the
+    plan report's path and instance the case's: the sharded loop on K5
+    (tile_apply_kernel<float> or <double>, launched once an apply, with its
+    registers), the sharded graph loop, or the sharded composed loop, these
+    with no kernel launched. Prints a check, mesh_exchange and plan_summary
+    line a case. Returns the K5 launches of each case, summed over the
+    ranks."""
+    launches = {}
+    for label, name, kind, nl, li, ip, dbl, n_first, count_rtol in SHARDED_OPTION_CASES:
+        cases = [r["option_cases"][label] for r in ranks]
+        first = cases[0]
+        s_costs, s_counts = single[label]
+        rel = [abs(a - b) / abs(b) for a, b in zip(first["costs"][:n_first], s_costs)]
+        composed = not ip.get("use_fused_jtj", True)
+        graph = name in ("robust", "arap")
+        want_loop = ("sharded composed loop" if composed else
+                     "sharded graph loop" if graph else "sharded loop")
+        want_k5 = None if composed or graph else (
+            "tile_apply_kernel<double>" if dbl else "tile_apply_kernel<float>")
+        iters = max(1, first["lin"])
+        log(json.dumps({
+            "mesh_exchange": label, "gpu": gpu, "mesh": list(MESH_SHAPE), "loop": want_loop,
+            "per_cg_iteration": {k: sum(first[k]) / iters
+                                 for k in ("p2p_phases", "all_reduce", "all_to_all")},
+            "ms_per_sharded_cg_iter": [c["cg_ms"] / max(1, c["lin"]) for c in cases],
+            "applies_per_cg_call": first["applies"], "wall_ms": [c["wall_ms"] for c in cases],
+            "note": "four ranks on one card under gloo: not a scaling figure"}))
+        log(json.dumps({
+            "check": "sharded_option_main_path", "case": label, "mesh": list(MESH_SHAPE),
+            "gpu": gpu, "dtype": first["dtype"], "held_costs": first["costs"][:n_first],
+            "single_device_held_costs": s_costs, "held_rel_diff": rel,
+            "held_cg_counts": first["iterations"][:n_first],
+            "single_device_held_cg_counts": s_counts, "final_cost": first["cost"],
+            "lin_iters": first["lin"], "nonlinear_iters": first["steps"],
+            "tile_kernel_launches": [c["tile_kernel_launches"] for c in cases],
+            "solve_counts": first["solve_counts"]}))
+        log(json.dumps({"plan_summary": f"{label} (rank 0 of {MESH_SHAPE[0]}x{MESH_SHAPE[1]})",
+                        **first["plan"]}))
+        faults = []
+        plan = first["plan"]
+        if (plan["path"] != want_loop or plan["instance"] != want_k5
+                or (want_k5 is not None and plan["registers"] is None)
+                or plan["fused_fallback"] is not None):
+            faults.append(f"plan report {plan}, expected {want_loop} on {want_k5}")
+        for r, c in zip(ranks, cases):
+            applies = sum(c["applies"])
+            if (c["costs"], c["lin"], c["digest"]) != (first["costs"], first["lin"],
+                                                       first["digest"]):
+                faults.append(f"rank {r['rank']} parts from rank 0")
+            if (c["fused_fallback"] is not None or c["loops"] != [want_loop]
+                    or len(c["applies"]) != c["steps"] or not c["finite"]
+                    or c["dtype"] != ("torch.float64" if dbl else "torch.float32")):
+                faults.append(f"rank {r['rank']}: fallback {c['fused_fallback']}, loops "
+                              f"{c['loops']}, {len(c['applies'])} sharded calls for "
+                              f"{c['steps']} steps, finite {c['finite']}, {c['dtype']}")
+            want_launches = applies if want_k5 is not None else 0
+            if c["tile_kernel_launches"] != want_launches or c["cg_kernel_launches"]:
+                faults.append(f"rank {r['rank']}: {c['tile_kernel_launches']} K5 launches for "
+                              f"{applies} applies ({want_launches} expected), "
+                              f"{c['cg_kernel_launches']} CG kernel launches")
+            if want_k5 is not None and c["kernel"] != [True] * c["steps"]:
+                faults.append(f"rank {r['rank']}: a sharded call without K5: {c['kernel']}")
+        tol = F64_MESH_RTOL if dbl else FIRST_STEPS_RTOL
+        if any(x > tol for x in rel) or len(rel) != n_first:
+            faults.append(f"held costs {first['costs'][:n_first]} against {s_costs}")
+        if any(abs(a - b) > count_rtol * b for a, b in zip(first["iterations"][:n_first],
+                                                           s_counts)):
+            faults.append(f"held CG counts {first['iterations'][:n_first]} against {s_counts}")
+        if faults:
+            raise RuntimeError(f"sharded {label}: " + "; ".join(faults))
+        launches[label] = sum(c["tile_kernel_launches"] for c in cases)
+    return launches
+
+
+# the timer's rows of a sharded CG iteration (utils/timer.py): K5, the halo
+# phases, the collectives; PCGStep1 is the loop's own work besides them
+SPLIT_ROWS = {"k5": "tileApply", "halo_phases": "haloExchange", "all_reduces": "allReduce",
+              "all_to_alls": "allToAll"}
+
+
+def sharded_split(ranks, gpu):
+    """The timed sharded solve (TIMED_SHARDED_CASE, collect_per_kernel_timing)
+    against its untimed solve in SHARDED_CASES: bitwise (costs, CG count,
+    unknowns' digest) on every rank; every rank keeps its rows, rank 0
+    printed the reference's table, TIMING and Per-iter lines, the others
+    nothing. Prints one sharded_split line: each rank's ms a sharded CG
+    iteration split into K5 (tileApply), the halo phases (haloExchange),
+    the all_reduces (allReduce) and the rest (PCGStep1: the loop's vector
+    updates and local dot sums), with their entries a CG iteration, and
+    rank 0's printed table. A row's entries outside the CG loop (the
+    region's extension after a solve, the cost's all_reduce) count in it
+    too: a few a step against the loop's few a CG iteration."""
+    label = SHARDED_CASES[TIMED_SHARDED_CASE][0]
+    faults, split = [], []
+    for r in ranks:
+        t, u = r["timed"], r["cases"][label]
+        if (t["costs"], t["lin"], t["digest"]) != (u["costs"], u["lin"], u["digest"]):
+            faults.append(f"rank {r['rank']}: timed {t['costs']} / {t['lin']} against the "
+                          f"untimed {u['costs']} / {u['lin']}, digests equal "
+                          f"{t['digest'] == u['digest']}")
+        rows, lin = t["rows"], max(1, t["lin"])
+        need = ("PCGStep1", "tileApply", "haloExchange", "allReduce")
+        if any(k not in rows for k in need) or any(ms < 0 for _c, ms in rows.values()):
+            faults.append(f"rank {r['rank']}: rows {sorted(rows)}")
+            continue
+        if rows["tileApply"][0] != t["tile_kernel_launches"] or rows["PCGStep1"][0] != t["lin"]:
+            faults.append(f"rank {r['rank']}: {rows['tileApply'][0]} tileApply entries for "
+                          f"{t['tile_kernel_launches']} K5 launches, PCGStep1 "
+                          f"{rows['PCGStep1'][0]} for {t['lin']} CG iterations")
+        printed = "TIMING " in t["printed"] and "Per-iter times ms" in t["printed"]
+        if printed != (r["rank"] == 0):
+            faults.append(f"rank {r['rank']}: printed the table: {printed}")
+        part = {k: rows[row][1] / lin for k, row in SPLIT_ROWS.items() if row in rows}
+        part["rest"] = rows["PCGStep1"][1] / lin
+        split.append({"rank": r["rank"], "ms_per_cg_iter": part,
+                      "total_ms_per_cg_iter": sum(part.values()),
+                      "entries_per_cg_iter": {k: rows[row][0] / lin for k, row in
+                                              SPLIT_ROWS.items() if row in rows},
+                      "solve_ms": rows["overall"][1], "lin_iters": t["lin"]})
+    log(json.dumps({"sharded_split": label, "gpu": gpu, "mesh": list(MESH_SHAPE),
+                    "ranks": split, "timed_by": "CUDA events on each rank's stream",
+                    "note": "four ranks on one card under gloo: not a scaling figure"}))
+    log("rank 0's timing table of the timed sharded solve:\n"
+        + ranks[0].get("timed", {}).get("printed", "").rstrip())
+    if faults:
+        raise RuntimeError(f"timed sharded {label}: " + "; ".join(faults))
+    return split
 
 
 def iw_targets(inputs):
@@ -4277,7 +4573,8 @@ def main() -> int:
 
     sharded = entry.start_ranks(
         functools.partial(sharded_work, cases=SHARDED_CASES, mesh_cases=SHARDED_MESH_CASES,
-                          read_cases=SHARDED_READ_CASES), 4, "cuda:0")
+                          read_cases=SHARDED_READ_CASES, option_cases=SHARDED_OPTION_CASES,
+                          timed_case=TIMED_SHARDED_CASE), 4, "cuda:0")
 
     phases["start_and_build"] = time.perf_counter() - t_start - sum(phases.values())
     # 2. each kernel form against its twin at the main paths' shapes; the
@@ -4770,6 +5067,10 @@ def main() -> int:
                 system(image_warping, RAGGED_DIMS, rag_in)[0])
     tile_checks(f"shape_from_shading{SFS_N}", ssys[0])
     tile_checks(f"optical_flow{FLOW_N}x2", fsys[0])
+    # K5's float64 instance on poisson's fields in float64 (a float64 plan
+    # on a mesh assembles them so; the planner folds the same masks)
+    meta64 = dict(meta, F=meta["F"].double())
+    err_k5_64 = tile_checks(f"poisson{n}x4 float64", meta64)
 
     phases["kernel_checks"] = time.perf_counter() - t_start - sum(phases.values())
     # 3. the main paths through the public API, each with the launch counts
@@ -4863,6 +5164,9 @@ def main() -> int:
         "volumetric": (volumetric_mesh_deformation, _vol(VOL_N), vol_in, vol_res),
         "cluster": (cluster_arap_spec(ot), cl_dims, cl_in, res_cluster)})
     log(json.dumps({"sharded_mesh_references_s": time.perf_counter() - t_ref}))
+    t_ref = time.perf_counter()
+    option_single = sharded_option_references()
+    log(json.dumps({"sharded_option_references_s": time.perf_counter() - t_ref}))
 
     phases["main_paths"] = time.perf_counter() - t_start - sum(phases.values())
     single = {SHARDED_CASES[0][0]: res_poisson, SHARDED_CASES[1][0]: iw_res[(IW_N, "gaussNewtonGPU")],
@@ -4899,6 +5203,8 @@ def main() -> int:
         sharded, {k: (r.final_cost, r.num_linear_iterations) for k, r in single.items()}, gpu)
     sharded_mesh_main_paths(ranks, mesh_single, gpu)
     sharded_read_main_paths(ranks, read_single, gpu)
+    l_options = sharded_option_main_paths(ranks, option_single, gpu)
+    sharded_split(ranks, gpu)
     phases["sharded_main_paths_after_goldens"] = (time.perf_counter() - t_start
                                                   - sum(phases.values()))
     phase_s = time.perf_counter() - t_start
@@ -4960,6 +5266,7 @@ def main() -> int:
     phases["tiled_vs_template_kernel_turns"] = (time.perf_counter() - t_start
                                                 - sum(phases.values()))
     t_k5 = time_tile_apply(f"poisson{n}x4", meta, gpu)
+    t_k5_64 = time_tile_apply(f"poisson{n}x4 float64", meta64, gpu)
     time_tile_apply(f"image_warping{IW_N}x3", mmeta, gpu)
     time_tile_apply(f"shape_from_shading{SFS_N}", ssys[0], gpu)
     time_tile_apply(f"optical_flow{FLOW_N}x2", fsys[0], gpu)
@@ -5238,7 +5545,9 @@ def main() -> int:
                                            "armadillo_batched": l_arm_batch,
                                            "image_warping_block_jacobi_batched": l_bj_batch,
                                            "image_warping_batched": l_iw_batch,
-                                           "sharded_tile_apply": l_k5, "graph_specs": l_spec,
+                                           "sharded_tile_apply": l_k5,
+                                           "sharded_options_tile_apply": l_options,
+                                           "graph_specs": l_spec,
                                            "dynamic_topology": l_dyn,
                                            "cluster_arap": l_cluster, "c_api": l_c_api,
                                            "examples": l_examples, "entry": l_entry}}))
@@ -5344,6 +5653,11 @@ def main() -> int:
               "rows, the triples a launch parameter; launches summed over the four ranks, ms "
               "of one apply of a 256x256 tile", K5,
               l_k5[SHARDED_CASES[0][0]], err_k5, t_k5, source=K5_SOURCE),
+        entry(f"tile_apply<double>, K5's float64 instance, poisson {n}x{n}x4 in float64 on "
+              f"{MESH_SHAPE[0]}x{MESH_SHAPE[1]} ranks (a float64 plan on a mesh), the float32 "
+              "instance's design over 8-byte fields, p and out; launches summed over the four "
+              "ranks, ms of one apply of a 256x256 tile", K5,
+              l_options[SHARDED_OPTION_CASES[2][0]], err_k5_64, t_k5_64, source=K5_SOURCE),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -197,13 +197,13 @@ class FunctionSet:
         channels and scattered back through the slot's shift adjoint (grid
         slots) or summed per vertex over the slot's edges (graph slots).
         As in the reference's per-endpoint scatter, the sum is per slot: a
-        self-loop edge's cross term is not included."""
+        self-loop edge's cross term is not included. On a graph mesh the
+        per-edge values are the rank's edge block's, and a graph slot's
+        channels go back to their owners' rows together, by one reverse
+        exchange (``slot_halo_scatter_add``, opt_tpu/functions.py:220-238)."""
         _, row_masks = self.masks(X)
         c = self.c
-        if c.graph_rules is not None:
-            raise NotImplementedError(
-                "the probed Jacobi diagonal on a graph mesh: the mesh runs the assembled "
-                "operator, whose diagonal it reads (ROADMAP.md queue 1 item 8e)")
+        rules = c.graph_rules
         slot_vals = c.gather_slot_values(X, self.consts, self.graphs, self.params)
         scales = c.graph_term_scales(self.graphs)
 
@@ -216,6 +216,7 @@ class FunctionSet:
         zeros = [torch.zeros_like(v) for v in slot_vals]
         for sid in c.unknown_slot_ids():
             s = c.registry.slots[sid]
+            per_ch = []  # a graph slot's channels on a mesh, sent back together
             for ch in range(s.channels):
                 tangents = list(zeros)
                 t = torch.zeros_like(slot_vals[sid])
@@ -229,6 +230,9 @@ class FunctionSet:
                         contrib = sq if contrib is None else contrib + sq
                 if contrib is None:
                     break  # slot feeds no term (channel-independent)
+                if rules is not None and s.kind == "gimg":
+                    per_ch.append(contrib)
+                    continue
                 if s.kind == "img":
                     add = shift_adjoint(contrib[..., None], s.offset)[..., 0]
                 else:
@@ -236,6 +240,10 @@ class FunctionSet:
                     idx = self.graphs[s.graph][s.key[3]]
                     add = edge_scatter_add(contrib[:, None], idx, n_rows)[:, 0]
                 diag[s.image][..., ch] += add
+            if per_ch:
+                diag[s.image] = diag[s.image] + slot_halo_scatter_add(
+                    rules.mesh, torch.stack(per_ch, dim=-1), int(diag[s.image].shape[0]),
+                    rules.read_tables(self.graphs[s.graph], s.graph, s.key[3], s.image))
         return _mask_rows(diag, row_masks)
 
     def mask_rows(self, x):

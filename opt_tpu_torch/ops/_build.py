@@ -206,18 +206,20 @@ def instance_registers(log: str) -> dict:
 
 
 _TILE_APPLY = re.compile(r"tile_apply_kernelI(f|d|13__nv_bfloat16)E")
-_TILE_APPLY_TYPES = {"f": "float", "d": "double", "13__nv_bfloat16": "bfloat16"}
+_TILE_APPLY_TYPES = {"f": "float", "d": "double", "13__nv_bfloat16": "__nv_bfloat16"}
 
 
 def tile_apply_registers(log: str) -> dict:
-    """{"float", "bfloat16" or "double": (registers, spill store bytes,
-    spill load bytes)} of the per-tile apply's three instances
-    (tile_apply_kernel<FT>, csrc/tile_apply.cu) from ptxas's -v output."""
+    """{instance, "tile_apply_kernel<float>", "<__nv_bfloat16>" or
+    "<double>": (registers, spill store bytes, spill load bytes)} of the
+    per-tile apply's three instances (csrc/tile_apply.cu) from ptxas's -v
+    output."""
     regs, current, spill = {}, None, (0, 0)
     for line in log.splitlines():
         if "Compiling entry function" in line:
             m = _TILE_APPLY.search(line)
-            current = None if m is None else _TILE_APPLY_TYPES[m.group(1)]
+            current = None if m is None else (
+                f"tile_apply_kernel<{_TILE_APPLY_TYPES[m.group(1)]}>")
             spill = (0, 0)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)

@@ -60,6 +60,7 @@ from .fused_cg import (
     pack,
     pack_pre_blocks,
 )
+from ..utils.timer import phase
 from .shift import shift
 
 
@@ -240,7 +241,8 @@ def sharded_fused_grid_cg(meta: Dict, mesh, r0, pre, l_iterations, rz_tolerance,
 
     def apply(p):
         pe = mesh.extend(mesh.extend(p, ah, 0), aw, 1)
-        out = op(Fa, triples, pe, ah, aw)
+        with phase("tileApply"):
+            out = op(Fa, triples, pe, ah, aw)
         applies[0] += 1
         return out if ctcm is None else out + ctcm * p
 
@@ -489,3 +491,64 @@ def sharded_graph_cg(meta: Dict, mesh, r0, pre, l_iterations, rz_tolerance, *,
                       "loop": "sharded graph loop", "s": time.perf_counter() - t0,
                       **{k: mesh.counts[k] - before[k] for k in before}})
     return unpack_spaces(meta, delta), torch.tensor(l, dtype=torch.int32, device=b.device)
+
+
+# ---------------------------------------------------------------------------
+# The composed operator: any mesh
+# ---------------------------------------------------------------------------
+
+
+def sharded_composed_cg(apply, mesh, r0, pre, l_iterations, rz_tolerance, *,
+                        guard_div: bool = True, ctc=None, reset_period=None, q_tolerance=None,
+                        cg_variant: str = "standard", stats: Optional[list] = None):
+    """Run the PCG loop of the composed operator Jᵀ(J·p) on this rank's
+    part of the unknowns (``use_fused_jtj=False`` on a mesh): ``apply``
+    maps a dict of the rank's tiles or owner blocks to Jᵀ(J·p) on them
+    (exchanging what it reads of other ranks itself); r0, pre and ctc are
+    dicts of the same. The JAX package runs XLA's loop on its composed
+    operator there; this is the port's: the vectors are the dicts'
+    tensors flattened into one, the loop algebra ``fused_cg._run_cg`` and
+    its dots float64 sums reduced over the mesh (``Mesh.all_reduce_dots``),
+    so every rank takes the same exits. No kernel: ``apply`` is autograd's
+    J·p and Jᵀ·r. The keywords are ``fused_cg.fused_grid_cg``'s. Every rank
+    of the mesh must call it together. Returns (delta dict, iterations as
+    a 0-dim int32 tensor); a ``stats`` list receives {iterations, applies,
+    kernel (False), loop "sharded composed loop", s (the loop's host
+    seconds), all_reduce, all_to_all, all_gather, p2p_phases} of the call."""
+    if cg_variant not in CG_VARIANTS:
+        raise ValueError(f"cg_variant must be one of {CG_VARIANTS}, got {cg_variant!r}")
+    names = list(r0)
+    shapes = [tuple(r0[k].shape) for k in names]
+    sizes = [int(r0[k].numel()) for k in names]
+
+    def flat(d):
+        return torch.cat([d[k].reshape(-1) for k in names])
+
+    def unflat(v):
+        return {k: t.reshape(sh) for k, t, sh in zip(names, torch.split(v, sizes), shapes)}
+
+    b, prem = flat(r0), flat(pre)
+    ctcm = flat(ctc) if ctc is not None else None
+    applies = [0]
+    before = dict(mesh.counts)
+
+    def A(p):
+        out = flat(apply(unflat(p)))
+        applies[0] += 1
+        return out if ctcm is None else out + ctcm * p
+
+    lm = ctc is not None
+    if lm and (reset_period is None or q_tolerance is None):
+        raise ValueError("the LM loop needs reset_period and q_tolerance")
+    t0 = time.perf_counter()
+    delta, l = _run_cg(
+        b, A, lambda r: prem * r, mesh.all_reduce_dot, l_iterations, rz_tolerance,
+        guard_div=guard_div, reset_period=reset_period if lm else None,
+        q_tol=q_tolerance if lm else None, cs=cg_variant == "chronopoulos_gear",
+        dots=mesh.all_reduce_dots,
+    )
+    if stats is not None:
+        stats.append({"iterations": l, "applies": applies[0], "kernel": False,
+                      "loop": "sharded composed loop", "s": time.perf_counter() - t0,
+                      **{k: mesh.counts[k] - before[k] for k in before}})
+    return unflat(delta), torch.tensor(l, dtype=torch.int32, device=b.device)

@@ -48,7 +48,9 @@ port's ranks, being processes, split by :func:`split_bounds`' ceil split
 instead (some blocks shorter, the last ones possibly empty).
 
 The mesh counts its all_reduces, all_to_alls, all_gathers and P2P phases
-(``counts``).
+(``counts``); under a timed solve (``utils/timer.py``) the halo phases,
+all_reduces and all_to_alls are rows of the rank's timing table:
+``haloExchange``, ``allReduce``, ``allToAll``.
 """
 
 from __future__ import annotations
@@ -60,6 +62,9 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from ..utils.timer import phase
+
 
 def _world(group) -> Tuple[int, int]:
     if dist.is_available() and dist.is_initialized():
@@ -157,53 +162,55 @@ class Mesh:
             return p
         if edge not in ("zeros", "clip"):
             raise ValueError(f"edge must be 'zeros' or 'clip', got {edge!r}")
-        dim = axis + 1
-        n = int(p.shape[dim])
-        if a > n:
-            raise ValueError(f"a halo of {a} is wider than the tile's {n}: a one-hop exchange")
-        strip = list(p.shape)
-        strip[dim] = a
-        ops, got = [], {}
-        for side, peer, start in (("lo", self.neighbours[axis][0], 0),
-                                  ("hi", self.neighbours[axis][1], n - a)):
-            if peer is None:
-                continue
-            out = p.narrow(dim, start, a)
-            if self._staged(p):
-                send = self._host_buffer(("send", side), strip, p.dtype)
-                send.copy_(out)
-                recv = self._host_buffer(("recv", side), strip, p.dtype)
-            else:
-                send = out.contiguous()
-                recv = torch.empty(strip, dtype=p.dtype, device=p.device)
-            ops += [dist.P2POp(dist.isend, send, peer, self.group),
-                    dist.P2POp(dist.irecv, recv, peer, self.group)]
-            got[side] = recv
-        if ops:
-            for work in dist.batch_isend_irecv(ops):
-                work.wait()
-            self.counts["p2p_phases"] += 1
+        with phase("haloExchange"):
+            dim = axis + 1
+            n = int(p.shape[dim])
+            if a > n:
+                raise ValueError(f"a halo of {a} is wider than the tile's {n}: a one-hop exchange")
+            strip = list(p.shape)
+            strip[dim] = a
+            ops, got = [], {}
+            for side, peer, start in (("lo", self.neighbours[axis][0], 0),
+                                      ("hi", self.neighbours[axis][1], n - a)):
+                if peer is None:
+                    continue
+                out = p.narrow(dim, start, a)
+                if self._staged(p):
+                    send = self._host_buffer(("send", side), strip, p.dtype)
+                    send.copy_(out)
+                    recv = self._host_buffer(("recv", side), strip, p.dtype)
+                else:
+                    send = out.contiguous()
+                    recv = torch.empty(strip, dtype=p.dtype, device=p.device)
+                ops += [dist.P2POp(dist.isend, send, peer, self.group),
+                        dist.P2POp(dist.irecv, recv, peer, self.group)]
+                got[side] = recv
+            if ops:
+                for work in dist.batch_isend_irecv(ops):
+                    work.wait()
+                self.counts["p2p_phases"] += 1
 
-        def halo(side):
-            t = got.get(side)
-            if t is not None:
-                # the next exchange's blocking copy to the host waits for
-                # this copy, before the buffer is received into again
-                return t.to(p.device, non_blocking=True)
-            return p.new_zeros(strip) if edge == "zeros" else None
+            def halo(side):
+                t = got.get(side)
+                if t is not None:
+                    # the next exchange's blocking copy to the host waits for
+                    # this copy, before the buffer is received into again
+                    return t.to(p.device, non_blocking=True)
+                return p.new_zeros(strip) if edge == "zeros" else None
 
-        lo, hi = halo("lo"), halo("hi")
-        return torch.cat([t for t in (lo, p, hi) if t is not None], dim)
+            lo, hi = halo("lo"), halo("hi")
+            return torch.cat([t for t in (lo, p, hi) if t is not None], dim)
 
     def _all_reduce(self, t: torch.Tensor, host: bool = False) -> torch.Tensor:
         """Sum ``t`` over the ranks (every rank gets the same bits). A sum
         that went through host memory stays there with ``host``."""
         if self.size == 1:
             return t
-        h = t.cpu() if self._staged(t) else t.clone()
-        dist.all_reduce(h, group=self.group)
-        self.counts["all_reduce"] += 1
-        return h if host else h.to(t.device)
+        with phase("allReduce"):
+            h = t.cpu() if self._staged(t) else t.clone()
+            dist.all_reduce(h, group=self.group)
+            self.counts["all_reduce"] += 1
+            return h if host else h.to(t.device)
 
     def all_reduce_dots(self, pairs: Sequence[tuple]) -> list:
         """⟨x, y⟩ over the whole grid for each pair of tiles: products in
@@ -247,19 +254,20 @@ class Mesh:
         through pinned host buffers."""
         if self.size == 1:
             return send_rows
-        staged = self._staged(send_rows)
-        if staged:
-            inp = self._host_buffer("a2a_send", send_rows.shape, send_rows.dtype)
-            inp.copy_(send_rows)
-            out = self._host_buffer("a2a_recv", send_rows.shape, send_rows.dtype)
-        else:
-            inp = send_rows.contiguous()
-            out = torch.empty_like(inp)
-        dist.all_to_all_single(out, inp, group=self.group)
-        self.counts["all_to_all"] += 1
-        # the next exchange's blocking copy to the host waits for this copy,
-        # before the buffer is received into again
-        return out.to(send_rows.device, non_blocking=True) if staged else out
+        with phase("allToAll"):
+            staged = self._staged(send_rows)
+            if staged:
+                inp = self._host_buffer("a2a_send", send_rows.shape, send_rows.dtype)
+                inp.copy_(send_rows)
+                out = self._host_buffer("a2a_recv", send_rows.shape, send_rows.dtype)
+            else:
+                inp = send_rows.contiguous()
+                out = torch.empty_like(inp)
+            dist.all_to_all_single(out, inp, group=self.group)
+            self.counts["all_to_all"] += 1
+            # the next exchange's blocking copy to the host waits for this
+            # copy, before the buffer is received into again
+            return out.to(send_rows.device, non_blocking=True) if staged else out
 
 
 def split_bounds(n: int, parts: int) -> list:

@@ -319,6 +319,12 @@ def _mesh_not_ported(what: str):
     return NotImplementedError(f"{what} on a mesh is not ported yet (ROADMAP.md queue 1 item 8e)")
 
 
+def _port_only_on_mesh(what: str):
+    return NotImplementedError(
+        f"{what} is a port-only helper of the single-device solve (the JAX package has no "
+        "counterpart): it takes no mesh")
+
+
 def resolve_device(device) -> torch.device:
     """The plan's device: CPU or CUDA, checked, never chosen implicitly."""
     dev = torch.device(device)
@@ -434,8 +440,6 @@ class Plan:
         self.rules = rules
         self.solver = GaussNewtonSolver(compiled, self.uses_lambda, init_params, rules,
                                         plan_on=plan_on)
-        if rules is not None and self.solver._stencil_plan is None:
-            raise _mesh_not_ported("the composed operator (use_fused_jtj=False)")
         self.solver_params = normalize_solver_params(solver_params)
         self.dynamic_topology = bool(self.solver.ip.dynamic_topology)
         self._state = None
@@ -881,7 +885,7 @@ class Plan:
         and q_tolerance). pre is the row-masked preconditioner (pre_lm
         under LM); cg_meta is None where the operator does not qualify."""
         if self.rules is not None:
-            raise _mesh_not_ported("cg_inputs")
+            raise _port_only_on_mesh("cg_inputs")
         sp = normalize_solver_params(self.solver_params)
         unknowns, consts, graphs, params, fs = self._system_at(inputs)
         state = self.solver.init(unknowns, consts, graphs, params, sp)
@@ -1062,7 +1066,7 @@ class Plan:
         batch axis; the keywords of ``ops.fused_cg.fused_grid_cg``). All
         four are None where the batched operator has no fused form."""
         if self.rules is not None:
-            raise _mesh_not_ported("batched_cg_inputs")
+            raise _port_only_on_mesh("batched_cg_inputs")
         sp = normalize_solver_params(self.solver_params)
         unknowns, consts, graphs, params, c_axes, p_axes, _r = self._normalize_batched(inputs)
         return self.solver.batched_cg_inputs(unknowns, consts, graphs, params, sp, c_axes, p_axes)
@@ -1116,13 +1120,16 @@ class Plan:
         solve's phases are timed on the real launches (``utils/timer.py``:
         CUDA events on the card, no sync added) and the reference's timing
         table, ``TIMING`` and ``Per-iter times ms`` lines are printed; the
-        rows stay on the plan as ``_timing_phases``. A mesh's plan accepts
-        the flag and times nothing. Under ``set_verbosity(3)`` the plan
+        rows stay on the plan as ``_timing_phases``. On a mesh every rank
+        times its own solve and keeps its rows (the loop's kernel launches,
+        halo phases and collectives among them), and rank 0 prints them.
+        A timed solve computes what the untimed one does, bit for bit.
+        Under ``set_verbosity(3)`` the plan
         report (:meth:`dump_hlo`) is written once a plan to
         ``opt_tpu_torch_solve_plan_<n>.txt``."""
-        timed = bool(self.solver.ip.collect_per_kernel_timing) and self.rules is None
+        timed = bool(self.solver.ip.collect_per_kernel_timing)
         result = self._solve(inputs, stepwise, timed, solver_param_overrides)
-        if timed:
+        if timed and (self.rules is None or self.rules.mesh.rank == 0):
             # Opt.h collectPerKernelTimingInfo: per-solve timing table +
             # TIMING / Per-iter lines (util.t:469-508)
             report_solve_timing(self, result)

@@ -49,7 +49,7 @@ from ..ops.fused_cg import (
     coefficient_dtype,
     fused_grid_cg,
 )
-from ..ops.sharded_cg import sharded_fused_grid_cg, sharded_graph_cg
+from ..ops.sharded_cg import sharded_composed_cg, sharded_fused_grid_cg, sharded_graph_cg
 from ..utils.timer import active as timing_active
 from ..utils.timer import note_cg, phase
 from .params import (
@@ -492,9 +492,14 @@ class GaussNewtonSolver:
         where the operator has a kernel form (with the block preconditioner
         when there is one), else :meth:`_eager_cg`; under a mesh
         :meth:`_sharded_cg`. Returns (delta, iterations as a 0-dim int32
-        tensor). Timed as the row PCGStep1, with the instance it ran."""
+        tensor). Timed as the row PCGStep1, with the instance it ran (under
+        a mesh the loop, its kernel's launches, halo phases, all_reduces and
+        all_to_alls being rows of their own)."""
         if self.rules is not None:
-            return self._sharded_cg(s, sp)
+            with phase("PCGStep1"):
+                out = self._sharded_cg(s, sp)
+                note_cg({self.cg_stats[-1]["loop"]: 1})
+                return out
         with phase("PCGStep1"):
             kw = self._fused_keywords(s)
             if (s["meta"] is not None and self._pallas_mode is not None
@@ -537,8 +542,11 @@ class GaussNewtonSolver:
         its halo. On a graph the system is the rank's owner blocks' (of one
         vertex space or several) and ``sharded_graph_cg`` solves it. A
         system the loop cannot take raises: a mesh never falls back
-        quietly."""
+        quietly. The composed operator (no assembly plan) runs
+        :meth:`_sharded_composed_cg`."""
         meta, rules = s["meta"], self.rules
+        if self._stencil_plan is None:
+            return self._sharded_composed_cg(s, sp)
         kw = self._fused_keywords(s)
         if meta is None or (s["pre_apply"] is not None and kw["pre_blocks"] is None):
             raise RuntimeError("this step's operator has no form the sharded CG loop takes")
@@ -559,6 +567,32 @@ class GaussNewtonSolver:
             interpret=self._pallas_mode == "interpret", stats=self.cg_stats, **kw,
         )
         return rules.extend_region(delta), l
+
+    def _sharded_composed_cg(self, s, sp):
+        """The linear solve of a step of the composed operator Jᵀ(J·p)
+        (``use_fused_jtj=False``) under a mesh, by ``sharded_composed_cg``.
+        On a grid the CG vectors are the rank's tiles: an apply extends p
+        over the rank's region (one halo exchange a split axis) and reads
+        Jᵀ(J·p) of the region on the tile. The region reaches as far from
+        the tile as two reads of one residual lie apart (``grid_reach``), so
+        every residual that reads a tile point has all its reads inside the
+        region, and no residual centred in the halo needs summing back to
+        another rank. On a graph the vectors are the owner blocks, and J and
+        Jᵀ exchange the per-edge values themselves (``FunctionSet.linearize``).
+        Returns (delta over the region or the blocks, iterations)."""
+        rules, A, lm = self.rules, s["A"], s["lm"]
+        if rules.kind == "graph":
+            crop, apply = (lambda d: d), A
+        else:
+            crop = lambda d: {k: rules.crop(v) for k, v in d.items()}  # noqa: E731
+            apply = lambda p: crop(A(rules.extend_region(p)))  # noqa: E731
+        lm_kw = {} if lm is None else dict(ctc=crop(lm["ctc"]), reset_period=lm["reset_period"],
+                                           q_tolerance=lm["q_tolerance"])
+        delta, l = sharded_composed_cg(
+            apply, rules.mesh, crop(s["r0"]), crop(s["pre"]), sp["lIterations"],
+            sp["cg_rz_tolerance"], guard_div=self.ip.guard_division_by_zero,
+            cg_variant=self.ip.cg_variant, stats=self.cg_stats, **lm_kw)
+        return (delta if rules.kind == "graph" else rules.extend_region(delta)), l
 
     def _eager_cg(self, s, sp, device):
         """The eager ``_run_cg`` on the system's operator (``_cg``'s

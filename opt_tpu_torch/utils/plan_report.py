@@ -10,7 +10,8 @@ says:
 
 * the engaged path: the kernel, its plain twin (CPU tensors), the eager
   loop, the explicit J, the sharded loop (2-D tiles), the sharded 3-D loop
-  (3-D tiles, whose apply is plain PyTorch) or the sharded graph loop, and
+  (3-D tiles, whose apply is plain PyTorch), the sharded graph loop or the
+  sharded composed loop (the composed operator on a mesh), and
   ``fused_fallback``;
 * the CG instance (``fused_cg.launch_instance``) and its route's plan:
   ``tiled_grid_plan``'s layout, tiles and shared memory a block,
@@ -48,11 +49,6 @@ def _plain(v):
     return None
 
 
-# K5's instances by the key of _build.tile_apply_registers
-_TILE_KEYS = {"tile_apply_kernel<float>": "float", "tile_apply_kernel<__nv_bfloat16>": "bfloat16",
-              "tile_apply_kernel<double>": "double"}
-
-
 def _registers(path: str, instance: str) -> Dict[str, Any]:
     """The instance's (registers, spill store bytes, spill load bytes) from
     the built library's ptxas log, or None where it is not built here."""
@@ -62,7 +58,7 @@ def _registers(path: str, instance: str) -> Dict[str, Any]:
     if log is None:
         return {"registers": None, "spill_store_bytes": None, "spill_load_bytes": None}
     if path == "sharded loop":
-        regs = _build.tile_apply_registers(log).get(_TILE_KEYS[instance])
+        regs = _build.tile_apply_registers(log).get(instance)
     else:
         regs = {fused_cg.instance_name(*k): v
                 for k, v in _build.instance_registers(log).items()}.get(instance)
@@ -84,7 +80,9 @@ def plan_summary(plan, inputs, sp) -> Dict[str, Any]:
     meta = s["meta"]
     fused = (meta is not None and solver._pallas_mode is not None
              and (s["pre_apply"] is None or kw["pre_blocks"] is not None))
-    if getattr(plan.rules, "kind", None) == "graph":
+    if plan.rules is not None and solver._stencil_plan is None:
+        path = "sharded composed loop"
+    elif getattr(plan.rules, "kind", None) == "graph":
         path = "sharded graph loop"
     elif plan.rules is not None:
         path = "sharded 3-D loop" if plan.rules.whole else "sharded loop"

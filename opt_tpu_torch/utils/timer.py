@@ -26,7 +26,13 @@ work is the same (solverGPUGaussNewton.t) and add the assembly's split:
   ``assembleConst`` (the loop-invariant products, once a solve),
   ``assembleFields`` (the operator's coefficient fields), ``blockInverse``
   (the block-Jacobi inverses and their packing) and ``explicitJ`` (the
-  explicit J's values, ``use_explicit_jtj``).
+  explicit J's values, ``use_explicit_jtj``);
+* on a mesh, each rank's own solve: ``tileApply`` (the sharded loop's
+  per-tile apply, K5 on the card), ``haloExchange`` (a halo phase,
+  ``Mesh.extend``), ``allReduce`` and ``allToAll`` (the collectives, their
+  staging through host memory included). Most of them run inside the CG
+  loop, so there ``PCGStep1`` is the loop's own work: its vector updates
+  and its dots' local sums.
 """
 
 from __future__ import annotations
@@ -41,7 +47,8 @@ import torch
 
 # the rows in table order; "other" and "overall" follow them
 PHASES = ("PCGInit1", "PCGStep1", "computeCost", "PCGComputeCtC", "computeModelCost",
-          "computedBundle", "assembleConst", "assembleFields", "blockInverse", "explicitJ")
+          "computedBundle", "assembleConst", "assembleFields", "blockInverse", "explicitJ",
+          "tileApply", "haloExchange", "allReduce", "allToAll")
 _ALWAYS = ("PCGInit1", "PCGStep1")  # the TIMING line's rows, shown even when empty
 
 # the timer of the solve running in this context, or None
