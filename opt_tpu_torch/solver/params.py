@@ -58,8 +58,8 @@ class InitializationParameters:
     # Opt_InitializationParameters.collectPerKernelTimingInfo (Opt.h:21-25):
     # after each Plan.solve, print the per-phase timing table plus the
     # greppable ``TIMING`` / ``Per-iter times ms (nonlinear, linear)`` lines
-    # (util.t:469-508 format; utils/timer.report_solve_timing). A mesh's
-    # plan accepts the flag and times nothing.
+    # (util.t:469-508 format; utils/timer.report_solve_timing). On a mesh
+    # every rank times its own solve and rank 0 prints.
     collect_per_kernel_timing: bool = False
     # CG inner-loop variant: "standard" (the reference's PCG recurrence) or
     # "chronopoulos_gear" (one reduction per iteration: rᵀu and uᵀAu from the
